@@ -1,0 +1,21 @@
+"""Registry of the ported architectures (only tinyllama-1.1b so far; the
+other configs of ``repro.configs`` come with their model families)."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import LMCfg, shrink  # noqa: F401
+
+_ARCH_MODULES = {
+    "tinyllama-1.1b": "tinyllama_1_1b",
+}
+
+ARCH_NAMES = tuple(_ARCH_MODULES)
+
+
+def get_config(name: str, smoke: bool = False) -> LMCfg:
+    if name not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCH_MODULES)}")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{_ARCH_MODULES[name]}")
+    return mod.SMOKE if smoke else mod.CONFIG

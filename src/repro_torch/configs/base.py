@@ -1,0 +1,32 @@
+"""Config base: re-exports LMCfg and provides the generic smoke-reduction.
+
+Each architecture lives in its own module (``repro_torch/configs/<id>.py``)
+exposing ``CONFIG`` (the exact published configuration) and ``SMOKE`` (a
+reduced same-family variant for CPU tests).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.models.lm import LMCfg  # noqa: F401  (re-export)
+
+
+def shrink(cfg: LMCfg, **overrides) -> LMCfg:
+    """Reduced same-family config: small widths, few layers, tiny vocab —
+    the GQA ratio preserved (tinyllama's 32:4 becomes 4:1)."""
+    heads = min(cfg.n_heads, 4)
+    small = dict(
+        n_layers=2,
+        d_model=128,
+        n_heads=heads,
+        n_kv_heads=max(1, heads * cfg.n_kv_heads // cfg.n_heads),
+        head_dim=32,
+        d_ff=256,
+        vocab=512,
+        dtype="float32",
+        param_dtype="float32",
+        vocab_pad_multiple=16,
+        name=cfg.name + "-smoke",
+    )
+    small.update(overrides)
+    return dataclasses.replace(cfg, **small)

@@ -1,0 +1,211 @@
+"""Serving driver CLI: continuous batching with a dense or paged KV cache.
+
+Wires :class:`repro_torch.serving.server.Server` to a model with random
+weights from ``--seed`` and drives it in one of two modes:
+
+- **batch** (default): all requests available at t=0, drain the queue.
+- **--traffic**: open-loop replay of a deterministic heavy-tail arrival
+  trace (:mod:`repro_torch.serving.traffic`) against the wall clock, with
+  admission control and per-request TTFT/TPOT/e2e accounting
+  (:mod:`repro_torch.serving.metrics`).
+
+Runs on the card unless ``--device cpu`` is given; without a card and
+without ``--device cpu`` it raises.
+
+Usage::
+
+    python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+        --cache paged --requests 16 --batch-slots 8 --prompt-len 500 \
+        --gen 64 --max-len 1024
+
+    python -m repro_torch.launch.serve --arch tinyllama-1.1b --smoke \
+        --device cpu --traffic --cache paged --requests 16 --rate 4 --gen 8
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.models.lm import Model
+from repro_torch.serving.metrics import RequestTiming, ServeMetrics
+from repro_torch.serving.server import Request, Server
+from repro_torch.serving.traffic import TrafficCfg, make_trace
+
+
+def _sync(server: Server) -> None:
+    if server.device.type == "cuda":
+        torch.cuda.synchronize(server.device)
+
+
+def run_trace(server: Server, params, trace, *, prompt_rng=None,
+              vocab: int = 1000) -> ServeMetrics:
+    """Open-loop wall-clock replay of ``trace`` against ``server``.
+
+    Arrivals become *ready* at their trace time whether or not the server
+    keeps up (queueing shows up in TTFT, as it should).  Ready requests
+    admit FIFO while slots are free **and** admission control passes —
+    a head-of-line request the page pool can't cover blocks the queue,
+    holding its arrival-time ordering.  Preempted requests re-enter at
+    the front of the ready queue.
+    """
+    rng = prompt_rng or np.random.default_rng(1234)
+    prompts = {a.rid: rng.integers(0, vocab, a.prompt_len, dtype=np.int32)
+               for a in trace}
+    arrivals = sorted(trace, key=lambda a: (a.t, a.rid))
+    timings = {a.rid: RequestTiming(rid=a.rid, arrival=a.t) for a in trace}
+    metrics = ServeMetrics()
+    ready: list = []                      # [(Request, arrival_t)]
+    t0 = time.time()
+    now = lambda: time.time() - t0
+
+    def finish(req, t):
+        tm = timings[req.rid]
+        tm.finished = t
+        tm.n_tokens = len(req.out_tokens)
+        tm.preemptions = req.preemptions
+        metrics.add(tm)
+
+    while arrivals or ready or server.active:
+        t = now()
+        while arrivals and arrivals[0].t <= t:
+            a = arrivals.pop(0)
+            ready.append((Request(a.rid, prompts[a.rid], max_new=a.gen_len),
+                          a.t))
+        # FIFO admission with head-of-line blocking on the page budget
+        while ready and (slot := server.free_slot()) is not None:
+            req, _ = ready[0]
+            if not server.can_admit(req):
+                break
+            ready.pop(0)
+            server.admit(params, req, slot)   # syncs: reads the first token
+            t = now()
+            tm = timings[req.rid]
+            if tm.admitted is None:        # preempted re-admits keep TTFT
+                tm.admitted = tm.first_token = t
+            if req.done:
+                finish(req, t)
+        if server.active:
+            for req in server.step(params):
+                finish(req, now())
+            for req in server.take_requeued():
+                ready.insert(0, (req, timings[req.rid].arrival))
+        elif ready:
+            # empty server that still can't admit the head → it never will
+            raise SystemExit(
+                f"[serve] request {ready[0][0].rid} can never be admitted "
+                f"(prompt {len(ready[0][0].prompt)} + gen "
+                f"{ready[0][0].max_new} vs max_len/page budget)")
+        elif arrivals:
+            time.sleep(min(max(arrivals[0].t - now(), 0.0), 0.05))
+    return metrics
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_NAMES, default="tinyllama-1.1b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--batch-slots", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=64)
+    ap.add_argument("--cache", choices=("dense", "paged"), default="dense")
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="KV rows per page; 0 = the default page size")
+    ap.add_argument("--pages", type=int, default=0,
+                    help="physical pages in the pool (incl. the trash "
+                         "page); 0 = full residency for every slot")
+    ap.add_argument("--traffic", action="store_true",
+                    help="open-loop Pareto arrival replay with TTFT/TPOT "
+                         "accounting instead of the drain-the-queue loop")
+    ap.add_argument("--rate", type=float, default=4.0,
+                    help="--traffic mean arrival rate (req/s)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    return ap.parse_args(argv)
+
+
+def run(args: argparse.Namespace):
+    """Serve as ``args`` say; returns (summary dict, the server)."""
+    cfg = get_config(args.arch, smoke=args.smoke)
+    model = Model(cfg, device=args.device)
+    params = model.serving_params(model.init(args.seed))
+    server = Server(model, batch_slots=args.batch_slots,
+                    max_len=args.max_len, cache=args.cache,
+                    page_size=args.page_size, n_pages=args.pages)
+
+    if args.traffic:
+        tc = TrafficCfg(rate=args.rate, n_requests=args.requests,
+                        prompt_lens=(args.prompt_len,),
+                        gen_lens=(args.gen,))
+        trace = make_trace(tc, seed=args.seed)
+        t0 = time.time()
+        metrics = run_trace(server, params, trace,
+                            prompt_rng=np.random.default_rng(args.seed),
+                            vocab=cfg.vocab)
+        _sync(server)
+        dt = time.time() - t0
+        s = metrics.summary()
+        if s["completed"] != args.requests:
+            raise SystemExit(
+                f"[serve] BUG: {s['completed']}/{args.requests} requests "
+                f"completed under traffic replay")
+        print(f"[serve/{args.cache}] traffic: {s['completed']} requests, "
+              f"{s['tokens']} tokens in {dt:.2f}s — "
+              f"{s['tokens_per_s']:.1f} tok/s, "
+              f"ttft p50/p99 {s['ttft_p50_s'] * 1e3:.0f}/"
+              f"{s['ttft_p99_s'] * 1e3:.0f} ms, "
+              f"tpot {s['tpot_mean_s'] * 1e3:.1f} ms, "
+              f"{s['preemptions']} preemptions, "
+              f"{server.prefill_cache_size} prefill buckets")
+        s["steps"] = server.steps
+        s["seconds"] = dt
+        return s, server
+
+    rng = np.random.default_rng(args.seed)
+    pending = [Request(i, rng.integers(0, cfg.vocab, args.prompt_len,
+                                       dtype=np.int32), max_new=args.gen)
+               for i in range(args.requests)]
+
+    t0 = time.time()
+    done: list = []
+    while pending or server.active:
+        while (pending and (slot := server.free_slot()) is not None
+               and server.can_admit(pending[0])):
+            req = pending.pop(0)
+            server.admit(params, req, slot)
+            if req.done:                      # finished at admission
+                done.append(req)
+        if pending and not server.active:
+            raise SystemExit(
+                f"[serve] request {pending[0].rid} can never be admitted "
+                f"(prompt {len(pending[0].prompt)} + gen "
+                f"{pending[0].max_new} vs max_len {args.max_len} / page "
+                f"budget)")
+        done.extend(server.step(params))
+        pending[:0] = server.take_requeued()  # preempted restart first
+    _sync(server)
+    dt = time.time() - t0
+    if len(done) != args.requests:
+        raise SystemExit(
+            f"[serve] BUG: {len(done)}/{args.requests} requests completed "
+            f"— finished requests were dropped")
+    total_toks = sum(len(r.out_tokens) for r in done)
+    print(f"[serve/{args.cache}] {args.requests} requests completed, "
+          f"{total_toks} tokens in {dt:.2f}s ({total_toks / dt:.1f} tok/s, "
+          f"{server.steps} decode steps, "
+          f"{server.prefill_cache_size} prefill buckets)")
+    return {"steps": server.steps, "seconds": dt,
+            "completed": len(done), "tokens": total_toks}, server
+
+
+def main(argv=None) -> dict:
+    return run(parse_args(argv))[0]
+
+
+if __name__ == "__main__":
+    main()

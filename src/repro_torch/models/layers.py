@@ -1,0 +1,100 @@
+"""Core layers of the dense decoder: RMSNorm, RoPE, gated MLP, embedding.
+
+Plain functions on tensors over parameter dicts, with the same leaf names
+and layouts as ``repro.models.layers`` so parameters cross between the two
+packages unchanged.  Initialisers take an explicit ``torch.Generator`` and
+``device``; they match the reference in distribution, not in bits (JAX and
+PyTorch draw different numbers from the same seed).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# initialisers
+# ---------------------------------------------------------------------------
+
+def _normal(gen: torch.Generator, shape: tuple, dtype, device,
+            stddev: float) -> torch.Tensor:
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (x * stddev).to(dtype)
+
+
+def dense_init(gen, in_dim: int, shape: tuple, dtype, device) -> torch.Tensor:
+    """Fan-in scaled normal init (truncation omitted, as in the reference)."""
+    return _normal(gen, shape, dtype, device, 1.0 / math.sqrt(max(in_dim, 1)))
+
+
+def init_rmsnorm(shape: tuple, dtype, device) -> dict:
+    return {"scale": torch.ones(shape, dtype=dtype, device=device)}
+
+
+def init_mlp(gen, d_model: int, d_ff: int, dtype, device,
+             lead: tuple = ()) -> dict:
+    return {
+        "wi": dense_init(gen, d_model, lead + (d_model, d_ff), dtype, device),
+        "wo": dense_init(gen, d_ff, lead + (d_ff, d_model), dtype, device),
+        "wg": dense_init(gen, d_model, lead + (d_model, d_ff), dtype, device),
+    }
+
+
+def init_embedding(gen, vocab: int, d_model: int, dtype, device) -> dict:
+    # 1/sqrt(d) keeps the embedding output O(1/sqrt(d)); a norm follows it
+    return {"table": _normal(gen, (vocab, d_model), dtype, device,
+                             1.0 / math.sqrt(d_model))}
+
+
+def init_lm_head(gen, d_model: int, vocab: int, dtype, device) -> dict:
+    return {"w": dense_init(gen, d_model, (d_model, vocab), dtype, device)}
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    """(head_dim//2,) inverse frequencies."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """Rotate ``x`` (B, S, H, D) by ``positions`` (B, S): split-halves
+    rotation computed in f32."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, x.device)
+    ang = positions[..., None].float() * inv                   # (B, S, d/2)
+    cos = torch.cos(ang)[..., None, :]                         # (B, S, 1, d/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: (silu(x·wg) ⊙ x·wi)·wo, weights cast to the activation dtype."""
+    h = x @ params["wi"].to(x.dtype)
+    h = F.silu(x @ params["wg"].to(x.dtype)) * h
+    return h @ params["wo"].to(x.dtype)
+
+
+def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return params["table"][tokens]
+
+
+def pad_vocab(vocab: int, multiple: int = 256) -> int:
+    """Pad vocab to a shard-friendly multiple (Megatron-style)."""
+    return ((vocab + multiple - 1) // multiple) * multiple

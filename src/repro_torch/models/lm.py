@@ -1,0 +1,195 @@
+"""The LM: one config dataclass → {init, prefill, serve_step,
+serve_step_paged} for the dense decoder family.
+
+The port's counterpart of ``repro.models.lm`` for serving.  Parameters are
+nested dicts of tensors with the reference's leaf paths and shapes
+(``embed/table``, ``blocks/p0/attn/wq`` …), so
+:func:`repro_torch.models.convert.params_from_numpy` moves a reference
+parameter tree across unchanged.  State constructors allocate on the
+model's device.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers
+from repro_torch.models import transformer as tfm
+from repro_torch.models.attention import AttnCfg
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class LMCfg:
+    name: str
+    family: str                        # dense (the only family ported yet)
+    n_layers: int
+    d_model: int
+    vocab: int
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    rope_theta: float = 10000.0
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    vocab_pad_multiple: int = 256
+
+    @property
+    def padded_vocab(self) -> int:
+        return layers.pad_vocab(self.vocab, self.vocab_pad_multiple)
+
+    @property
+    def adtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return _DTYPES[self.param_dtype]
+
+    def attn_cfg(self) -> AttnCfg:
+        return AttnCfg(d_model=self.d_model, n_heads=self.n_heads,
+                       n_kv_heads=self.n_kv_heads, head_dim=self.head_dim,
+                       rope_theta=self.rope_theta)
+
+
+def build_stack_cfg(cfg: LMCfg) -> tfm.StackCfg:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (dense only)")
+    block = tfm.BlockCfg(d_model=cfg.d_model, attn=cfg.attn_cfg(),
+                         d_ff=cfg.d_ff)
+    return tfm.StackCfg(pattern=(block,), n_rep=cfg.n_layers)
+
+
+class Model:
+    """Functional model bundle for one LMCfg on one device (``None`` means
+    the card; see :func:`repro_torch.device.resolve_device`)."""
+
+    def __init__(self, cfg: LMCfg, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.stack = build_stack_cfg(cfg)
+
+    # ---- params ----
+    def init(self, seed: int) -> dict:
+        """Random parameters from ``seed``, drawn on the model's device."""
+        cfg, dev, dt = self.cfg, self.device, self.cfg.pdtype
+        gen = torch.Generator(device=dev if dev.type == "cuda" else "cpu")
+        gen.manual_seed(seed)
+        return {
+            "embed": layers.init_embedding(gen, cfg.padded_vocab, cfg.d_model,
+                                           dt, dev),
+            "final_norm": layers.init_rmsnorm((cfg.d_model,), dt, dev),
+            "head": layers.init_lm_head(gen, cfg.d_model, cfg.padded_vocab,
+                                        dt, dev),
+            "blocks": tfm.init_stack(gen, self.stack, dt, dev),
+        }
+
+    def serving_params(self, params: dict) -> dict:
+        """``params`` with every weight matrix cast once to the activation
+        dtype.  Each product casts its weight to that dtype anyway, so the
+        results are the same; serving then stops re-reading (and
+        re-casting) f32 masters every step.  Norm scales stay as they are:
+        RMSNorm reads them in f32."""
+        def cast(tree):
+            return {k: cast(v) if isinstance(v, dict)
+                    else v if k == "scale" else v.to(self.cfg.adtype)
+                    for k, v in tree.items()}
+        return cast(params)
+
+    # ---- serving ----
+    def prefill(self, params: dict, batch: dict, gen_budget: int = 64,
+                last_idx: torch.Tensor | None = None):
+        """→ (last-token logits (B, Vp), decode state).
+
+        ``last_idx`` (B,): index of each prompt's last real token when
+        prompts are right-padded to a shared (bucketed) length — logits
+        are read there, ``pos`` starts at ``last_idx + 1``, and the KV
+        cache is zeroed beyond ``last_idx`` so pad tokens' KV is never
+        attended (decode's ADD write at ``pos`` lands on a zero cell).
+        """
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = layers.embed(params["embed"], tokens).to(cfg.adtype)
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        x, caches = tfm.prefill_stack(params["blocks"], x, positions,
+                                      self.stack)
+        x = layers.rmsnorm(params["final_norm"], x)
+        if last_idx is None:
+            h_last = x[:, -1]
+            pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
+        else:
+            last_idx = last_idx.to(device=x.device, dtype=torch.long)
+            h_last = x[torch.arange(B, device=x.device), last_idx]
+            pos = (last_idx + 1).to(torch.int32)
+        logits = h_last @ params["head"]["w"].to(cfg.adtype)
+
+        keep = None
+        if last_idx is not None:
+            keep = (torch.arange(S + gen_budget, device=x.device)[None, :]
+                    <= last_idx[:, None])                      # (B, S+gb)
+
+        def pad_kv(a):
+            # (L, B, S, K, D) → (L, B, S + budget, K, D)
+            a = torch.nn.functional.pad(a, (0, 0, 0, 0, 0, gen_budget))
+            if keep is not None:
+                a = torch.where(keep[None, :, :, None, None], a, 0)
+            return a
+
+        cache = {name: {key: pad_kv(val) for key, val in kv.items()}
+                 for name, kv in caches.items()}
+        return logits, {"cache": cache, "pos": pos}
+
+    def serve_step(self, params: dict, tokens: torch.Tensor, state: dict):
+        """tokens: (B,) → (logits (B, Vp), state').  The cache in ``state``
+        is written in place; ``pos`` advances for every slot."""
+        cfg = self.cfg
+        pos = state["pos"]
+        x = layers.embed(params["embed"], tokens).to(cfg.adtype)
+        x, cache = tfm.decode_stack(params["blocks"], x, state["cache"], pos,
+                                    self.stack)
+        x = layers.rmsnorm(params["final_norm"], x)
+        logits = x @ params["head"]["w"].to(cfg.adtype)
+        return logits, {"cache": cache, "pos": pos + 1}
+
+    def decode_state(self, batch: int, cache_len: int) -> dict:
+        """Zeroed dense decode state on the model's device."""
+        return {"cache": tfm.init_stack_state(self.stack, batch, cache_len,
+                                              self.cfg.adtype, self.device),
+                "pos": torch.zeros((batch,), dtype=torch.int32,
+                                   device=self.device)}
+
+    # ---- paged serving (block-table KV cache) ----
+    @property
+    def supports_paged(self) -> bool:
+        return True                    # every ported family is all-attention
+
+    def serve_step_paged(self, params: dict, tokens: torch.Tensor,
+                         state: dict):
+        """tokens: (B,) → (logits (B, Vp), state').  ``state`` holds the
+        shared page pools plus per-slot ``block_table`` (B, max_pages) and
+        ``pos`` (B,); the pools are written in place."""
+        cfg = self.cfg
+        pos = state["pos"]
+        x = layers.embed(params["embed"], tokens).to(cfg.adtype)
+        x, pools = tfm.decode_stack_paged(params["blocks"], x, state["pools"],
+                                          state["block_table"], pos,
+                                          self.stack)
+        x = layers.rmsnorm(params["final_norm"], x)
+        logits = x @ params["head"]["w"].to(cfg.adtype)
+        return logits, {"pools": pools, "block_table": state["block_table"],
+                        "pos": pos + 1}
+
+    def paged_pools(self, n_pages: int, page_size: int) -> dict:
+        """Zeroed page pools on the model's device."""
+        return tfm.init_paged_stack_state(self.stack, n_pages, page_size,
+                                          self.cfg.adtype, self.device)
+
+
+def build(cfg: LMCfg, device=None) -> Model:
+    return Model(cfg, device)

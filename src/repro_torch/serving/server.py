@@ -1,0 +1,268 @@
+"""Continuous-batching server core: dense or paged KV cache.
+
+A fixed batch of decode *slots* advanced in lock-step by the model's
+``serve_step``, with per-request prefill at admission.  Two cache modes:
+
+- ``cache="dense"`` — every slot owns ``max_len`` KV rows from admission
+  to finish.
+- ``cache="paged"`` — slots hold pages from a shared pool through a block
+  table (:mod:`repro_torch.serving.paged_cache`); admission is gated on
+  page availability, pages are appended as decode crosses page
+  boundaries, and pool exhaustion preempts the youngest slot (its request
+  re-queues and restarts).  Decode reads KV through the paged kernel.
+
+Prompts are right-padded to power-of-two buckets (min 8), as in the
+reference, so prefill runs at O(log max_len) distinct shapes; ``last_idx``
+keeps the padded prefill exact (logits read at the true last token, pad
+KV zeroed).
+
+The decode hot path does exactly **one** host sync per step: a single
+device→host copy of the argmax'd next tokens for every slot at once.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.autotune import DEFAULT_TILES
+from repro_torch.serving.paged_cache import (BlockTable, PageAllocator,
+                                             PagedCacheConfig)
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray            # (S,) int32
+    max_new: int = 16
+    out_tokens: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    preemptions: int = 0
+
+
+def prompt_bucket(n: int, max_len: int, lo: int = 8) -> int:
+    """Smallest power-of-two ≥ ``n`` (min ``lo``), capped at ``max_len`` —
+    the padded prefill length."""
+    if n > max_len:
+        raise ValueError(f"prompt length {n} exceeds max_len {max_len}")
+    b = lo
+    while b < n:
+        b <<= 1
+    return min(b, max_len)
+
+
+class Server:
+    def __init__(self, model, *, batch_slots: int, max_len: int,
+                 eos_id: int = 1, cache: str = "dense", page_size: int = 0,
+                 n_pages: int = 0):
+        if cache not in ("dense", "paged"):
+            raise ValueError(f"cache must be dense|paged, got {cache!r}")
+        self.model = model
+        self.device = model.device
+        self.B = batch_slots
+        self.max_len = max_len
+        self.eos = eos_id
+        self.cache = cache
+        self._buckets: set = set()        # prompt buckets prefilled so far
+        self.tokens = torch.zeros((batch_slots,), dtype=torch.long,
+                                  device=self.device)
+        self.slots: list = [None] * batch_slots
+        self.requeued: list = []          # preempted requests (paged)
+        self.steps = 0
+        self._admit_seq = 0
+        self._seq_of: dict = {}           # slot → admission sequence no.
+
+        if cache == "paged":
+            if not model.supports_paged:
+                raise ValueError(
+                    f"arch {model.cfg.family!r} does not support the paged "
+                    f"KV cache")
+            ps = page_size or DEFAULT_TILES.page_size
+            if max_len % ps:
+                raise ValueError(
+                    f"max_len {max_len} must be a multiple of the page "
+                    f"size {ps}")
+            max_pages = max_len // ps
+            # default pool: full residency for every slot (no preemption)
+            n_pages = n_pages or 1 + batch_slots * max_pages
+            self.pcfg = PagedCacheConfig(n_pages, ps, max_pages)
+            self.alloc = PageAllocator(self.pcfg)
+            self.table = BlockTable(batch_slots, self.pcfg)
+            self.pools = model.paged_pools(n_pages, ps)
+        else:
+            self.state = model.decode_state(batch_slots, max_len)
+
+    @property
+    def prefill_cache_size(self) -> int:
+        """Distinct prompt buckets prefilled (the reference's jit cache)."""
+        return len(self._buckets)
+
+    def _run_prefill(self, params, prompt: np.ndarray):
+        S = len(prompt)
+        bucket = prompt_bucket(S, self.max_len)
+        self._buckets.add(bucket)
+        tokens = np.zeros((1, bucket), np.int64)
+        tokens[0, :S] = prompt
+        gb = 0 if self.cache == "paged" else self.max_len - bucket
+        return self.model.prefill(
+            params, {"tokens": torch.tensor(tokens, device=self.device)},
+            gen_budget=gb,
+            last_idx=torch.tensor([S - 1], device=self.device))
+
+    # --- admission ---
+    def can_admit(self, req: Request) -> bool:
+        """Admission control: slot capacity is checked by the caller via
+        :meth:`free_slot`; paged mode additionally requires the prompt's
+        pages *now* and bounds the sequence by the block-table width."""
+        S = len(req.prompt)
+        if S + req.max_new > self.max_len:
+            return False
+        if self.cache == "paged":
+            return self.alloc.can_alloc(self.pcfg.pages_for(S))
+        return True
+
+    def admit(self, params, req: Request, slot: int) -> None:
+        """Prefill ``req`` into ``slot``.  A request that finishes at
+        admission (EOS from prefill, or a one-token budget) is marked
+        ``done`` and never occupies the slot — the caller collects it."""
+        S = len(req.prompt)
+        logits, st = self._run_prefill(params, np.asarray(req.prompt))
+        tok = int(logits[0, :self.model.cfg.vocab].argmax())
+        req.out_tokens.append(tok)
+        if tok == self.eos or len(req.out_tokens) >= req.max_new:
+            req.done = True
+            return
+        if self.cache == "paged":
+            pages = self.alloc.alloc(slot, self.pcfg.pages_for(S))
+            self._write_prompt_pages(st["cache"], pages)
+            self.table.assign(slot, pages, pos=S)
+        else:
+            self._write_slot(st, slot)
+        self.tokens[slot] = tok
+        self.slots[slot] = req
+        self._seq_of[slot] = self._admit_seq
+        self._admit_seq += 1
+
+    def _write_slot(self, st: dict, slot: int) -> None:
+        """Copy a batch-1 prefill state into slot ``slot`` of the dense
+        cache, padding or cropping its length to ``max_len``."""
+        for name, kv in st["cache"].items():
+            for key, small in kv.items():
+                big = self.state["cache"][name][key]      # (L, B, Smax, K, D)
+                n = min(small.shape[2], big.shape[2])
+                big[:, slot].zero_()
+                big[:, slot, :n] = small[:, 0, :n]
+        self.state["pos"][slot] = st["pos"][0]
+
+    def _write_prompt_pages(self, cache: dict, pages: list) -> None:
+        """Copy a batch-1 prefill KV cache into freshly allocated pages.
+
+        Whole pages are overwritten, so this is also what *zeroes* them
+        (prefill zeroed rows past ``last_idx``) — stale contents from a
+        previous owner can never leak into the new sequence.
+        """
+        ps = self.pcfg.page_size
+        rows = len(pages) * ps
+        idx = torch.tensor(pages, device=self.device)
+        for name, kv in cache.items():
+            for key in ("k", "v"):
+                a = kv[key][:, 0]                    # (L, bucket, K, D)
+                if a.shape[1] < rows:
+                    a = torch.nn.functional.pad(
+                        a, (0, 0, 0, 0, 0, rows - a.shape[1]))
+                else:
+                    a = a[:, :rows]
+                a = a.reshape(a.shape[0], len(pages), ps, *a.shape[2:])
+                pool = self.pools[name][key]
+                pool[:, idx] = a.to(pool.dtype)
+
+    def _zero_pages(self, pages: list) -> None:
+        idx = torch.tensor(pages, device=self.device)
+        for name in self.pools:
+            for key in ("k", "v"):
+                self.pools[name][key][:, idx] = 0
+
+    # --- paged bookkeeping ---
+    def _preempt_victim(self, needy_slot: int) -> None:
+        """Free the youngest-admitted active slot's pages; its request
+        restarts from scratch via :attr:`requeued`."""
+        candidates = [b for b, r in enumerate(self.slots)
+                      if r is not None and b != needy_slot]
+        victim = (max(candidates, key=lambda b: self._seq_of[b])
+                  if candidates else needy_slot)
+        req = self.slots[victim]
+        req.out_tokens = []
+        req.done = False
+        req.preemptions += 1
+        self.alloc.free_slot(victim)
+        self.table.clear(victim)
+        self.slots[victim] = None
+        self._seq_of.pop(victim, None)
+        self.requeued.append(req)
+
+    def _grow_tables(self) -> None:
+        """Append a page to every active slot whose next write would land
+        on an unallocated (trash) page, preempting on exhaustion."""
+        for b, req in enumerate(self.slots):
+            if req is None or not self.table.needs_page(b):
+                continue
+            while not self.alloc.can_alloc(1):
+                self._preempt_victim(b)
+                if self.slots[b] is None:      # preempted ourselves
+                    break
+            if self.slots[b] is None:
+                continue
+            page = self.alloc.alloc(b, 1)[0]
+            self._zero_pages([page])
+            self.table.append_page(b, page)
+
+    # --- decode ---
+    def step(self, params) -> list:
+        """Advance every active slot one token; returns the requests that
+        finished this step (their slots are recycled in the same pass)."""
+        if self.cache == "paged":
+            self._grow_tables()
+            state = {"pools": self.pools,
+                     "block_table": torch.tensor(self.table.table,
+                                                 device=self.device),
+                     "pos": torch.tensor(self.table.pos, device=self.device)}
+            logits, _ = self.model.serve_step_paged(params, self.tokens,
+                                                    state)
+        else:
+            logits, self.state = self.model.serve_step(params, self.tokens,
+                                                       self.state)
+        self.tokens = logits[:, :self.model.cfg.vocab].argmax(dim=-1)
+        nxt = self.tokens.cpu().numpy()      # ONE host sync for the batch
+        self.steps += 1
+        finished = []
+        for b, req in enumerate(self.slots):
+            if req is None or req.done:
+                continue
+            if self.cache == "paged":
+                self.table.pos[b] += 1
+            tok = int(nxt[b])
+            req.out_tokens.append(tok)
+            if tok == self.eos or len(req.out_tokens) >= req.max_new:
+                req.done = True
+                self.slots[b] = None          # recycle the slot …
+                self._seq_of.pop(b, None)
+                if self.cache == "paged":
+                    self.alloc.free_slot(b)
+                    self.table.clear(b)
+                finished.append(req)          # … but hand the request back
+        return finished
+
+    def free_slot(self) -> int | None:
+        for b, s in enumerate(self.slots):
+            if s is None:
+                return b
+        return None
+
+    @property
+    def active(self) -> int:
+        return sum(s is not None for s in self.slots)
+
+    def take_requeued(self) -> list:
+        out, self.requeued = self.requeued, []
+        return out
