@@ -5,25 +5,37 @@ Run from the repository root, with no arguments::
 
     python3 chip_smoke.py
 
-Phases, each printing its lines; any failed check raises and the script
-exits non-zero without printing a result:
+Phases, each printing its lines and its seconds; any failed check raises
+and the script exits non-zero without printing a result:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc);
 3. hold each kernel against its plain PyTorch version on the card at the
-   shapes tinyllama-1.1b gives it (tolerance f32 2e-5, bf16 2e-2), and time
-   the kernel, the plain version and one PyTorch library call computing
-   the same function (a yardstick the port never calls);
-4. the main path: ``repro_torch.launch.serve`` serving tinyllama-1.1b at
-   full width with the paged KV cache — 16 requests of 500 prompt tokens
-   and 64 generated through 8 slots — with every kernel's launch count
-   read around it;
+   shapes tinyllama-1.1b gives it, and at ragged ones (tolerance: values
+   f32 2e-5, bf16 2e-2; gradients f32 2e-4, bf16 5e-2), and time the
+   kernel, the plain version and one PyTorch library call computing the
+   same function (a yardstick the port never calls);
+4. the serving path: ``repro_torch.launch.serve`` serving tinyllama-1.1b
+   at full width with the paged KV cache — 16 requests of 500 prompt
+   tokens and 64 generated through 8 slots — with every kernel's launch
+   count read around it;
 5. the same driver with the dense KV cache, 4 requests;
 6. a small model on the card against the same model on the CPU (the plain
    versions), logits within 1e-4;
-7. where the time goes in the main path's configuration: a prefill and
-   a decode step on the host clock, then the device's busy share and top
-   kernels under ``torch.profiler``;
+7. where the time goes in serving: a prefill and a decode step on the host
+   clock, then the device's busy share and top kernels under
+   ``torch.profiler``;
+8. the training path: ``repro_torch.launch.train`` training tinyllama-1.1b
+   at full width (batch 4 x 2048, AdamW, remat full) for 8 steps, with
+   every kernel's launch count read around it: finite, falling loss,
+   tokens/s, peak device memory, the final checkpoint's write time;
+9. training on the card against the CPU: a 2-layer f32 model's loss, every
+   gradient leaf and the parameters after one AdamW step, within 1e-4;
+10. resume on the card: 4 steps straight against 2 steps, then a relaunch
+    to 4 on the same checkpoint directory; the resumed losses are equal;
+11. where the time goes in one training step: forward, backward and
+    optimizer on the host clock, then the device's busy share and top
+    kernels under ``torch.profiler``;
 
 then the kernel table as one JSON line, the card line again, and the last
 line ``{"ok": true, "device": {...}}``.  Needs no network; needs ``nvcc``
@@ -31,11 +43,15 @@ line ``{"ok": true, "device": {...}}``.  Needs no network; needs ``nvcc``
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -44,6 +60,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 PEAK_BYTES_PER_S = 3.35e12             # H100 SXM HBM3
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 TOL = {"torch.bfloat16": 2e-2, "torch.float32": 2e-5}
+GRAD_TOL = {"torch.bfloat16": 5e-2, "torch.float32": 2e-4}
 ARCH = "tinyllama-1.1b"
 PAGED_ARGS = ["--arch", ARCH, "--cache", "paged", "--requests", "16",
               "--batch-slots", "8", "--prompt-len", "500", "--gen", "64",
@@ -51,6 +68,11 @@ PAGED_ARGS = ["--arch", ARCH, "--cache", "paged", "--requests", "16",
 DENSE_ARGS = ["--arch", ARCH, "--cache", "dense", "--requests", "4",
               "--batch-slots", "4", "--prompt-len", "500", "--gen", "32",
               "--max-len", "1024"]
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
+TRAIN_ARGS = ["--arch", ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+              str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--optimizer",
+              "adamw", "--log-every", "1"]
+SMALL = "n_heads=8,n_kv_heads=2,head_dim=64"     # the 2-layer f32 model
 
 
 def card_line() -> str:
@@ -96,10 +118,10 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def check_close(name: str, got, want, dtype) -> float:
+def check_close(name: str, got, want, dtype, tol=None) -> float:
     """|got - want| <= tol + tol·|want| everywhere (the reference's
     allclose policy, tests/kernel_harness.py); returns max |got - want|."""
-    tol = TOL[str(dtype)]
+    tol = TOL[str(dtype)] if tol is None else tol
     diff = (got.float() - want.float()).abs()
     bad = ~(diff <= tol + tol * want.float().abs())      # NaN counts as bad
     if bad.any():
@@ -142,8 +164,7 @@ def check_flash(torch, timer) -> dict:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             lib_ms = timer(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=True))
-            pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
-            flops = 4 * pairs * H * D
+            flops = 4 * causal_pairs(Sq, Sk, causal) * H * D     # B = 1
             nbytes = (2 * q.numel() + k.numel() + v.numel()) \
                 * q.element_size() + lse.numel() * 4
             b_ms, b_by = bound(nbytes, flops, dtype)
@@ -222,22 +243,189 @@ def check_paged(torch, timer) -> dict:
     return row
 
 
+def causal_pairs(Sq: int, Sk: int, causal: bool) -> int:
+    """(query, key) pairs a top-left-aligned causal mask leaves live."""
+    if not causal:
+        return Sq * Sk
+    n = min(Sq, Sk)
+    return n * (n + 1) // 2 + max(Sq - Sk, 0) * Sk
+
+
+def check_flash_bwd(torch, timer) -> tuple:
+    """The dq and dk/dv kernels against the plain backward, from the same
+    (q, k, v, do, lse, delta); returns the rows of the main path's shape
+    (B=4, S=2048, 32/4 heads, D=64, causal, bf16)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    H, K, D = 32, 4, 64
+    cases = [(4, 2048, 2048, True, torch.bfloat16),
+             (4, 2048, 2048, True, torch.float32),
+             (2, 1000, 1000, True, torch.bfloat16),
+             (2, 1000, 1500, False, torch.bfloat16),
+             (2, 1000, 1500, False, torch.float32)]
+    rows = None
+    for B, Sq, Sk, causal, dtype in cases:
+        rnd = lambda S, n: torch.randn((B, S, n, D), generator=gen,
+                                       device="cuda").to(dtype)
+        q, k, v, do = rnd(Sq, H), rnd(Sk, K), rnd(Sk, K), rnd(Sq, H)
+        o, lse = flash.flash_attention(q, k, v, causal)
+        delta = (do.float() * o.float()).sum(-1).reshape(B, Sq, K, H // K)
+        args = (q, k, v, do, lse, delta, causal)
+        dq = flash.flash_bwd_dq(*args)
+        dk, dv = flash.flash_bwd_dkv(*args)
+        torch.cuda.synchronize()
+        want = flash.flash_attention_bwd_plain(*args)
+        tag = f"flash_bwd B={B} Sq={Sq} Sk={Sk} causal={causal} {dtype}"
+        gt = GRAD_TOL[str(dtype)]
+        err = [check_close(f"{tag} {n}", g, w, dtype, gt)
+               for n, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)]
+        ms_dq = timer(lambda: flash.flash_bwd_dq(*args))
+        ms_dkv = timer(lambda: flash.flash_bwd_dkv(*args))
+        plain_ms = timer(lambda: flash.flash_attention_bwd_plain(*args))
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                             enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+        lib_ms = timer(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True))
+        del out
+        pairs = B * causal_pairs(Sq, Sk, causal)
+        es = q.element_size()
+        # the whole backward's least work, split between the two rows so
+        # that they add up to it: 10 flop per live pair and dim (its five
+        # products, each counted once) and each tensor moved once.  The dq
+        # row takes dp = do·vᵀ and dq = ds·k (4) and the per-query tensors
+        # (q, do, lse, delta in; dq out); the dk/dv row takes s = q·kᵀ,
+        # dv = pᵀ·do and dk = dsᵀ·q (6) and the per-key ones (k, v in; dk,
+        # dv out).  The two-kernel recompute does 14, not 10.
+        b_dq = bound(3 * q.numel() * es + 2 * lse.numel() * 4,
+                     4 * pairs * H * D, dtype)
+        b_dkv = bound(2 * (k.numel() + v.numel()) * es, 6 * pairs * H * D,
+                      dtype)
+        b_all = bound((3 * q.numel() + 2 * k.numel() + 2 * v.numel()) * es
+                      + 2 * lse.numel() * 4, 10 * pairs * H * D, dtype)
+        size = " ".join(f"{n} {float(w.float().abs().max()):.2f}"
+                        for n, w in zip(("dq", "dk", "dv"), want))
+        print(f"[kernel] {tag}: max |plain| {size}; max_abs_err dq "
+              f"{err[0]:.3e} dk {err[1]:.3e} "
+              f"dv {err[2]:.3e} (tol {gt:g})  dq kernel {ms_dq:.4f} ms "
+              f"(bound {b_dq[0]:.4f}, {b_dq[1]})  dkv kernel {ms_dkv:.4f} ms "
+              f"(bound {b_dkv[0]:.4f}, {b_dkv[1]})  both {ms_dq + ms_dkv:.4f}"
+              f" ms vs backward bound {b_all[0]:.4f} ms ({b_all[1]}, "
+              f"10*pairs*H*D)  plain {plain_ms:.4f} ms  sdpa backward "
+              f"{lib_ms:.4f} ms", flush=True)
+        if rows is None:
+            rows = (dict(max_abs_err=err[0], ms=ms_dq, plain_ms=plain_ms,
+                         bound_ms=b_dq[0], bound_by=b_dq[1],
+                         library_ms=lib_ms),
+                    dict(max_abs_err=max(err[1:]), ms=ms_dkv,
+                         plain_ms=plain_ms, bound_ms=b_dkv[0],
+                         bound_by=b_dkv[1], library_ms=lib_ms))
+        del q, k, v, do, o, lse, delta, dq, dk, dv, want, qt, kt, vt, dot
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_xent(torch, timer) -> tuple:
+    """The xent forward kernel against its plain version at the training
+    path's loss head (T = 4·2047, E = 2048, V = 32000) and with a padded
+    vocab, then the backward's elementwise pass on one f32 chunk; returns
+    the (forward, backward) rows of the main path's shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.xent import xent
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    E, V = 2048, 32000
+    T = TRAIN_BATCH * (TRAIN_SEQ - 1)
+    fwd_row = bwd_row = None
+    for T_, vocab, dtype in ((T, V, torch.bfloat16), (T, V - 100,
+                                                      torch.bfloat16),
+                             (1000, V - 100, torch.float32)):
+        h = torch.randn((T_, E), generator=gen, device="cuda").to(dtype)
+        w = (torch.randn((E, V), generator=gen, device="cuda")
+             / math.sqrt(E)).to(dtype)
+        labels = torch.randint(0, vocab, (T_,), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        labels[0] = vocab - 1                       # the last real column
+        nll, lse = xent.xent_fwd(h, w, labels, vocab)
+        torch.cuda.synchronize()
+        want = xent.xent_fwd_plain(h, w, labels, vocab)
+        tag = f"xent_fwd T={T_} E={E} V={V} vocab={vocab} {dtype}"
+        if not (torch.isfinite(nll).all() and torch.isfinite(lse).all()):
+            raise AssertionError(f"{tag}: non-finite output")
+        err = max(check_close(tag + " nll", nll, want[0], torch.float32),
+                  check_close(tag + " lse", lse, want[1], torch.float32))
+        ms = timer(lambda: xent.xent_fwd(h, w, labels, vocab))
+        plain_ms = timer(lambda: xent.xent_fwd_plain(h, w, labels, vocab))
+        lab64 = labels.long()
+        lib_ms = timer(lambda: F.cross_entropy(h @ w, lab64))
+        es = h.element_size()
+        b_ms, b_by = bound((h.numel() + w.numel()) * es + 3 * T_ * 4,
+                           2 * T_ * E * V, dtype)
+        print(f"[kernel] {tag}: max_abs_err {err:.3e} (tol 2e-05)  kernel "
+              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  F.cross_entropy(h @ W)"
+              f" (two calls) {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+        if fwd_row is None:
+            fwd_row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        del h, w, want
+        torch.cuda.empty_cache()
+
+    chunk = xent.bwd_chunk(T, V)
+    lse = torch.randn((T,), generator=gen, device="cuda") + 10.0
+    g_nll = torch.rand((T,), generator=gen, device="cuda")
+    g_lse = torch.rand((T,), generator=gen, device="cuda") * 1e-3
+    labels = torch.randint(0, V, (T,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    for col0, C, vocab in ((0, chunk, V), (V - V % chunk, V % chunk,
+                                           V - 100), (0, 4098, 3000)):
+        logits = torch.randn((T, C), generator=gen, device="cuda") + 8.0
+        args = (lse, labels, g_nll, g_lse, col0, vocab)
+        want = xent.xent_bwd_plain(logits.clone(), *args)
+        got = xent.xent_bwd(logits.clone(), *args)
+        torch.cuda.synchronize()
+        tag = f"xent_bwd T={T} chunk={C} col0={col0} vocab={vocab} f32"
+        err = check_close(tag, got, want, torch.float32)
+        buf = logits.clone()
+        ms = timer(lambda: xent.xent_bwd(buf, *args))
+        plain_ms = timer(lambda: xent.xent_bwd_plain(buf, *args))
+        b_ms, b_by = bound(2 * logits.numel() * 4 + 4 * T * 4, 0,
+                           torch.float32)
+        print(f"[kernel] {tag}: max_abs_err {err:.3e} (tol 2e-05)  kernel "
+              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  no library call  "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+        if bwd_row is None:
+            bwd_row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del logits, want, got, buf
+    return fwd_row, bwd_row
+
+
 # ---------------------------------------------------------------------------
 # phases 4-6: the serving driver at full width, and a small-model agreement
 # ---------------------------------------------------------------------------
 
-def reset_counts(kernels) -> None:
-    for fn in kernels:
+def reset_counts(kernels: dict) -> None:
+    for fn in kernels.values():
         fn.launches = 0
+
+
+def read_counts(kernels: dict) -> dict:
+    return {name: fn.launches for name, fn in kernels.items()}
 
 
 def serve_paged(torch, kernels) -> dict:
     from repro_torch.launch import serve
 
-    flash, paged = kernels
     reset_counts(kernels)
     summary, server = serve.run(serve.parse_args(PAGED_ARGS))
-    counts = {"flash_fwd": flash.launches, "paged_decode": paged.launches}
+    counts = read_counts(kernels)
     layers = server.model.cfg.n_layers
     print(f"[main] paged serve: {summary['completed']} requests, "
           f"{summary['tokens']} tokens, {summary['steps']} decode steps in "
@@ -253,6 +441,9 @@ def serve_paged(torch, kernels) -> dict:
             "paged_decode"]:
         raise AssertionError(f"paged launches {counts['paged_decode']} != "
                              f"{layers} per step x {summary['steps']}")
+    if any(counts[n] for n in counts if n not in ("flash_fwd",
+                                                   "paged_decode")):
+        raise AssertionError(f"serving launched a training kernel: {counts}")
     for name, kv in server.pools.items():
         for key, pool in kv.items():
             if pool[:, 0].any():
@@ -267,17 +458,16 @@ def serve_dense(kernels) -> None:
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
-    flash, paged = kernels
     reset_counts(kernels)
     summary = serve.main(DENSE_ARGS)
+    counts = read_counts(kernels)
     print(f"[dense] {summary['completed']} requests, {summary['tokens']} "
           f"tokens, {summary['steps']} steps in {summary['seconds']:.3f} s "
           f"= {summary['tokens'] / summary['seconds']:.1f} tok/s; launches "
-          f"flash_fwd {flash.launches}, paged_decode {paged.launches}",
-          flush=True)
+          f"{counts}", flush=True)
     layers = get_config(ARCH).n_layers
-    if summary["completed"] != 4 or flash.launches != layers * 4 \
-            or paged.launches:
+    if summary["completed"] != 4 or counts["flash_fwd"] != layers * 4 \
+            or sum(counts.values()) != counts["flash_fwd"]:
         raise AssertionError("dense serve did not run as expected")
 
 
@@ -394,9 +584,238 @@ def where_the_time_goes(torch) -> None:
               flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 8-11: the training driver at full width, card against CPU, resume,
+# and where the time goes in a training step
+# ---------------------------------------------------------------------------
+
+def train_expected(layers: int, steps: int, vp: int) -> dict:
+    """Launches per run of the training path (remat "full", one
+    micro-batch, attn_bwd_remat off): the checkpointed recompute runs each
+    layer's forward twice."""
+    from repro_torch.kernels.xent import xent
+
+    T = TRAIN_BATCH * (TRAIN_SEQ - 1)
+    return {"flash_fwd": 2 * layers * steps, "paged_decode": 0,
+            "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps,
+            "xent_fwd": steps,
+            "xent_bwd": steps * -(-vp // xent.bwd_chunk(T, vp))}
+
+
+def train_full(torch, kernels) -> dict:
+    """The training path: the driver at full width, with the launch counts
+    read around it and the final checkpoint's write timed."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    cfg = get_config(ARCH)
+    need = 3 * 4 * 1.2e9                    # params + mu + nu in f32
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        if free < 1.2 * need:
+            raise RuntimeError(
+                f"{tmp} has {free / 1e9:.1f} GB free; the full-width "
+                f"checkpoint (params, mu, nu in f32) needs about "
+                f"{need / 1e9:.1f} GB: set TMPDIR to a larger disk")
+        saves = []
+        save = CheckpointManager.save
+
+        def timed_save(self, *a, **kw):
+            t0 = time.perf_counter()
+            out = save(self, *a, **kw)
+            saves.append(time.perf_counter() - t0)
+            return out
+
+        CheckpointManager.save = timed_save
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        try:
+            out = train.main(TRAIN_ARGS + ["--ckpt-dir", tmp])
+        finally:
+            CheckpointManager.save = save
+        counts = read_counts(kernels)
+        peak = torch.cuda.max_memory_allocated()
+        ckpt_bytes = sum(f.stat().st_size for f in os.scandir(
+            os.path.join(tmp, f"step_{TRAIN_STEPS:08d}")))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses, secs = out["losses"], out["step_seconds"]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tok_s = tokens * (len(secs) - 1) / sum(secs[1:])
+    print(f"[train] tinyllama-1.1b full width, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, AdamW, remat full: losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    print(f"[train] step seconds {[round(x, 3) for x in secs]}; steps 1-"
+          f"{len(secs) - 1}: {sum(secs[1:]) / (len(secs) - 1):.3f} s/step = "
+          f"{tok_s:.1f} tokens/s; peak device memory "
+          f"{peak / 2**30:.2f} GiB; final checkpoint {ckpt_bytes / 1e9:.2f} "
+          f"GB written in {saves[-1]:.2f} s; launches {counts}", flush=True)
+    if out["final_step"] != TRAIN_STEPS or len(losses) != TRAIN_STEPS:
+        raise AssertionError(f"training stopped at {out['final_step']}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"loss not finite and falling: {losses}")
+    want = train_expected(cfg.n_layers, TRAIN_STEPS, cfg.padded_vocab)
+    if counts != want:
+        raise AssertionError(f"training launches {counts}, want {want}")
+    return counts
+
+
+def train_agreement(torch) -> None:
+    """A 2-layer f32 model (GQA 8:2, head_dim 64, remat full) on the card
+    against the same weights and batch on the CPU (the plain versions, and
+    the sequence-chunked loss head in place of the fused kernels): loss,
+    every gradient leaf, and the parameters after one AdamW step."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, shrink
+    from repro_torch.launch.train import loss_and_grads
+    from repro_torch.models.lm import Model
+    from repro_torch.optim.optimizer import adamw
+    from repro_torch.tree import flatten
+
+    cfg = dataclasses.replace(
+        shrink(get_config(ARCH), n_heads=8, n_kv_heads=2, head_dim=64),
+        remat="full")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (2, 96))
+    params = Model(cfg, "cpu").init(0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = Model(cfg, dev)
+        p = _to(params, dev)
+        loss, _, grads = loss_and_grads(
+            model, p, {"tokens": torch.tensor(tokens, device=dev)})
+        opt = adamw(lr=3e-4)                       # the driver's default
+        opt.apply(grads, opt.init(p), p, 0)
+        out[dev] = (loss.cpu(), _to(grads, "cpu"), _to(p, "cpu"))
+    worst = {"loss": check_close("train loss", out["cuda"][0], out["cpu"][0],
+                                 torch.float32, 1e-4)}
+    for name, i in (("grad", 1), ("param after AdamW", 2)):
+        paths, got = flatten(out["cuda"][i])
+        want = flatten(out["cpu"][i])[1]
+        worst[name] = max(check_close(f"{name} {path}", g.detach(),
+                                      w.detach(), torch.float32, 1e-4)
+                          for path, g, w in zip(paths, got, want))
+    print(f"[agree] 2-layer f32 training step, card vs cpu: max |err| "
+          f"loss {worst['loss']:.3e}, gradients {worst['grad']:.3e}, "
+          f"parameters after one AdamW step {worst['param after AdamW']:.3e}"
+          f" (limit 1e-4 + 1e-4|x|)", flush=True)
+
+
+def train_resume(torch) -> None:
+    """4 steps straight against 2 steps and a relaunch to 4 on the same
+    checkpoint directory, on the small model on the card."""
+    from repro_torch.launch import train
+
+    args = ["--smoke", "--overrides", SMALL, "--batch", "2", "--seq", "128",
+            "--log-every", "100"]
+    with tempfile.TemporaryDirectory() as a, \
+            tempfile.TemporaryDirectory() as b:
+        straight = train.main(args + ["--steps", "4", "--ckpt-dir", a])
+        first = train.main(args + ["--steps", "2", "--ckpt-dir", b])
+        rest = train.main(args + ["--steps", "4", "--ckpt-dir", b])
+    got = first["losses"] + rest["losses"]
+    print(f"[resume] straight {straight['losses']}; 2 steps "
+          f"{first['losses']} then resumed {rest['losses']}", flush=True)
+    if rest["final_step"] != 4 or len(rest["losses"]) != 2 \
+            or got != straight["losses"]:
+        raise AssertionError("the resumed run does not continue the loss "
+                             "exactly")
+
+
+def train_time(torch) -> None:
+    """One full-width training step split on the host clock (forward,
+    backward, optimizer, each ending in a sync), then one step under
+    torch.profiler for the device's busy share and its top kernels."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import Model
+    from repro_torch.optim.optimizer import adamw
+    from repro_torch.tree import flatten, unflatten
+
+    cfg = get_config(ARCH)
+    model = Model(cfg)
+    params = model.init(0)
+    opt = adamw(lr=1e-4)
+    state = opt.init(params)
+    paths, leaves = flatten(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ))
+    batch = {"tokens": torch.tensor(toks, device="cuda")}
+
+    def step(times=None):
+        t0 = time.perf_counter()
+        loss, _ = model.loss_fn(params, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        opt.apply(unflatten(paths, list(grads)), state, params, 1)
+        torch.cuda.synchronize()
+        if times is not None:
+            times.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
+
+    step()                                          # warm-up
+    times = []
+    for _ in range(2):
+        step(times)
+    fwd, bwd, upd = (min(t[i] for t in times) * 1e3 for i in range(3))
+    total = fwd + bwd + upd
+    print(f"[time] one training step (batch {TRAIN_BATCH} x {TRAIN_SEQ}): "
+          f"forward {fwd:.1f} ms, backward (with the checkpointed "
+          f"recompute) {bwd:.1f} ms, AdamW {upd:.1f} ms; total "
+          f"{total:.1f} ms = {TRAIN_BATCH * TRAIN_SEQ / total * 1e3:.1f} "
+          f"tokens/s", flush=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        print("[time] profiler saw no device activity: busy share not "
+              "measured", flush=True)
+        return
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy_ms = busy / 1e3
+    print(f"[time] under the profiler: step {prof_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms, idle share {1 - busy_ms / prof_ms:.3f}",
+          flush=True)
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    for e in kernels[:12]:                   # device kernels only, by time
+        t = e.self_device_time_total / 1e3
+        print(f"[time]   {t:9.2f} ms/step  x{e.count:<5d} {e.key[:90]}",
+              flush=True)
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    t0 = time.perf_counter()
+    yield
+    print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def _to(tree, device):
-    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in tree.items()}
+    """A copy of ``tree`` on ``device`` (a copy even where it already
+    lies there, so a run that updates it in place leaves ``tree`` be)."""
+    return {k: _to(v, device) if isinstance(v, dict)
+            else v.detach().to(device, copy=True) for k, v in tree.items()}
 
 
 def main() -> None:
@@ -406,6 +825,7 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash, paged
+    from repro_torch.kernels.xent import xent
 
     card = card_line()
     print("[card] nvidia-smi name, power.limit:", flush=True)
@@ -413,35 +833,71 @@ def main() -> None:
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
 
-    t0 = time.perf_counter()
-    so = build.build()
-    print(f"[build] {so.name} in {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in so.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print("[build]", line.strip(), flush=True)
+    with phase("build"):
+        so = build.build()
+        print(f"[build] {so.name}", flush=True)
+        for line in so.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line \
+                    or line.startswith("=="):
+                print("[build]", line.strip(), flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     timer = Timer(torch)
-    rows = {"flash_fwd": check_flash(torch, timer),
-            "paged_decode": check_paged(torch, timer)}
+    with phase("kernels"):
+        rows = {"flash_fwd": check_flash(torch, timer),
+                "paged_decode": check_paged(torch, timer)}
+        rows["flash_bwd_dq"], rows["flash_bwd_dkv"] = check_flash_bwd(
+            torch, timer)
+        rows["xent_fwd"], rows["xent_bwd"] = check_xent(torch, timer)
     del timer
+    torch.cuda.empty_cache()
 
-    kernels = (flash.flash_attention, paged.paged_decode)
-    counts = serve_paged(torch, kernels)
-    serve_dense(kernels)
-    small_model_agreement(torch)
-    where_the_time_goes(torch)
+    kernels = {"flash_fwd": flash.flash_attention,
+               "paged_decode": paged.paged_decode,
+               "flash_bwd_dq": flash.flash_bwd_dq,
+               "flash_bwd_dkv": flash.flash_bwd_dkv,
+               "xent_fwd": xent.xent_fwd, "xent_bwd": xent.xent_bwd}
+    with phase("serve (paged, main serving path)"):
+        serve_counts = serve_paged(torch, kernels)
+    with phase("serve (dense)"):
+        serve_dense(kernels)
+    with phase("serve agreement"):
+        small_model_agreement(torch)
+    with phase("serve time breakdown"):
+        where_the_time_goes(torch)
+    torch.cuda.empty_cache()
+    with phase("train (main training path)"):
+        train_counts = train_full(torch, kernels)
+    torch.cuda.empty_cache()
+    with phase("train agreement"):
+        train_agreement(torch)
+    with phase("train resume"):
+        train_resume(torch)
+    with phase("train time breakdown"):
+        train_time(torch)
 
     meta = {
         "flash_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
                       "src/repro/kernels/flash_attention/flash.py:52"),
         "paged_decode": ("src/repro_torch/kernels/csrc/paged_decode.cu",
                          "src/repro/kernels/flash_attention/paged.py:45"),
+        "flash_bwd_dq": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
+                         "src/repro/kernels/flash_attention/flash.py:109"),
+        "flash_bwd_dkv": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
+                          "src/repro/kernels/flash_attention/flash.py:155"),
+        "xent_fwd": ("src/repro_torch/kernels/csrc/xent_fwd.cu",
+                     "src/repro/kernels/xent/xent.py:36"),
+        "xent_bwd": ("src/repro_torch/kernels/csrc/xent_bwd.cu",
+                     "src/repro/kernels/xent/ops.py:91"),
     }
-    table = [dict(name=name, route="cuda", source=meta[name][0],
-                  replaces=meta[name][1], launches=counts[name], **rows[name])
-             for name in rows]
+    table = []
+    for name in rows:
+        by_path = {"serve": serve_counts[name], "train": train_counts[name]}
+        table.append(dict(name=name, route="cuda", source=meta[name][0],
+                          replaces=meta[name][1],
+                          launches=sum(by_path.values()),
+                          launches_by_path=by_path, **rows[name]))
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,8 @@ def shrink(cfg: LMCfg, **overrides) -> LMCfg:
         head_dim=32,
         d_ff=256,
         vocab=512,
+        loss_chunk=64,
+        remat="none",
         dtype="float32",
         param_dtype="float32",
         vocab_pad_multiple=16,

@@ -1,7 +1,8 @@
-"""Kernel tile geometry.  Only the serving slice's tile is ported; the
-other kernel families' tiles, and the per-hardware autotuner of
-``repro.kernels.autotune`` (retargeted from TPU VMEM to Hopper shared
-memory), come with their slices."""
+"""Kernel tile geometry.  Only the serving slice's page size is ported:
+the flash and cross-entropy kernels fix their tiles at compile time
+(``csrc/``), and the per-hardware autotuner of ``repro.kernels.autotune``
+(retargeted from TPU VMEM to Hopper shared memory) comes with the engine
+slice."""
 from __future__ import annotations
 
 import dataclasses

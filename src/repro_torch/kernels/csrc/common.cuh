@@ -40,6 +40,18 @@ __device__ __forceinline__ uint4 ld16(const T* src) {
   return __ldg(reinterpret_cast<const uint4*>(src));
 }
 
+// One element of T widened to f32 (scalar loads of ragged tiles).
+template <typename T>
+__device__ __forceinline__ float to_float(T x);
+
+template <>
+__device__ __forceinline__ float to_float<float>(float x) { return x; }
+
+template <>
+__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 

@@ -1,5 +1,5 @@
-"""Attention for the dense LM: prefill (flash kernel), dense-cache decode
-and paged-cache decode (paged kernel).
+"""Attention for the dense LM: prefill and training (the differentiable
+flash op), dense-cache decode and paged-cache decode (paged kernel).
 
 Grouped-query attention in the grouped layout: q heads ``h = k·G + g``
 over K kv heads, so KV is never repeated per query head.  Single device,
@@ -16,7 +16,8 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention, paged_decode
+from repro_torch.kernels.flash_attention import paged_decode
+from repro_torch.kernels.flash_attention.ops import flash
 from repro_torch.models import layers
 
 NEG_INF = -1e30
@@ -47,17 +48,20 @@ def init_attention(gen, cfg: AttnCfg, dtype, device, lead: tuple = ()) -> dict:
 
 
 def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
-              cfg: AttnCfg, *, return_kv: bool = False):
+              cfg: AttnCfg, *, return_kv: bool = False,
+              bwd_remat: bool = False):
     """x: (B, S, E) → (B, S, E); optionally also the roped (B, S, K, D) k
-    and v.  The score/softmax/value core is the flash kernel."""
+    and v.  The score/softmax/value core is :func:`ops.flash` — the flash
+    kernels forward and backward, so prefill and training share it;
+    ``bwd_remat`` is its residual policy."""
     B, S, E = x.shape
     q = torch.einsum("bse,ehd->bshd", x, params["wq"].to(x.dtype))
     k = torch.einsum("bse,ekd->bskd", x, params["wk"].to(x.dtype))
     v = torch.einsum("bse,ekd->bskd", x, params["wv"].to(x.dtype))
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
-    out, _ = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                             cfg.causal)
+    out = flash(q.contiguous(), k.contiguous(), v.contiguous(), cfg.causal,
+                bwd_remat)
     y = torch.einsum("bshd,hde->bse", out.to(x.dtype),
                      params["wo"].to(x.dtype))
     return (y, (k, v)) if return_kv else y

@@ -1,4 +1,5 @@
-"""Weight bridge: a reference (``repro``) parameter tree → the port's.
+"""Weight bridge: a reference (``repro``) parameter or training-state tree
+→ the port's.
 
 The reference checkpoint stores one array per leaf under its path
 (``embed/table``, ``blocks/p0/attn/wq`` …; ``repro/ckpt/checkpoint.py``).
@@ -56,3 +57,19 @@ def params_from_numpy(cfg: LMCfg, tree: dict, device) -> dict:
             src = torch.as_tensor(arr)
         node[leaf] = src.to(device=device, dtype=ref.dtype, copy=True)
     return out
+
+
+def state_from_numpy(cfg: LMCfg, tree: dict, device) -> dict:
+    """``tree``: {leaf path: numpy array} of a reference training state
+    ``{"params": …, "opt": {"mu": …, "nu": …}}`` (AdamW's moments have the
+    parameters' leaves).  Returns the port's state dict on ``device``; a
+    missing, extra or misshapen leaf raises ``ValueError``."""
+    parts = {"params": {}, "opt/mu": {}, "opt/nu": {}}
+    for path, arr in tree.items():
+        head = next((p for p in parts if path.startswith(p + "/")), None)
+        if head is None:
+            raise ValueError(f"state tree has an unexpected leaf {path!r}")
+        parts[head][path[len(head) + 1:]] = arr
+    return {"params": params_from_numpy(cfg, parts["params"], device),
+            "opt": {m: params_from_numpy(cfg, parts[f"opt/{m}"], device)
+                    for m in ("mu", "nu")}}

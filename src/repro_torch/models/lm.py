@@ -1,9 +1,13 @@
-"""The LM: one config dataclass → {init, prefill, serve_step,
+"""The LM: one config dataclass → {init, loss_fn, prefill, serve_step,
 serve_step_paged} for the dense decoder family.
 
-The port's counterpart of ``repro.models.lm`` for serving.  Parameters are
-nested dicts of tensors with the reference's leaf paths and shapes
-(``embed/table``, ``blocks/p0/attn/wq`` …), so
+The port's counterpart of ``repro.models.lm`` for training and serving.
+The loss head is chosen by device, as the reference's ``xent_impl`` chooses
+it: :func:`fused_xent` over the fused cross-entropy kernels on the card,
+:func:`chunked_xent` (the reference's plain, sequence-chunked head) on the
+CPU.
+Parameters are nested dicts of tensors with the reference's leaf paths and
+shapes (``embed/table``, ``blocks/p0/attn/wq`` …), so
 :func:`repro_torch.models.convert.params_from_numpy` moves a reference
 parameter tree across unchanged.  State constructors allocate on the
 model's device.
@@ -15,6 +19,7 @@ import dataclasses
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.xent.ops import xent_with_lse
 from repro_torch.models import layers
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import AttnCfg
@@ -36,7 +41,11 @@ class LMCfg:
     rope_theta: float = 10000.0
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    remat: str = "full"                # "full" | "dots" | "none"
+    loss_chunk: int = 512
     vocab_pad_multiple: int = 256
+    z_loss_coef: float = 1e-4
+    attn_bwd_remat: bool = False       # re-run flash fwd in its backward
 
     @property
     def padded_vocab(self) -> int:
@@ -62,7 +71,73 @@ def build_stack_cfg(cfg: LMCfg) -> tfm.StackCfg:
             f"family {cfg.family!r} is not ported yet (dense only)")
     block = tfm.BlockCfg(d_model=cfg.d_model, attn=cfg.attn_cfg(),
                          d_ff=cfg.d_ff)
-    return tfm.StackCfg(pattern=(block,), n_rep=cfg.n_layers)
+    return tfm.StackCfg(pattern=(block,), n_rep=cfg.n_layers,
+                        remat=cfg.remat, attn_bwd_remat=cfg.attn_bwd_remat)
+
+
+# ---------------------------------------------------------------------------
+# the loss head: sequence-chunked cross-entropy and the fused-kernel twin
+# ---------------------------------------------------------------------------
+
+def _chunk_sums(h, head_w, lab, msk, vocab: int):
+    logits = h.float() @ head_w.to(h.dtype).float()   # (B, c, Vp) in f32
+    Vp = head_w.shape[1]
+    col = torch.arange(Vp, device=h.device)
+    if Vp > vocab:                               # mask padded vocab columns
+        logits = torch.where(col < vocab, logits,
+                             torch.full_like(logits, -1e30))
+    m = logits.amax(-1)
+    z = torch.log(torch.exp(logits - m[..., None]).sum(-1)) + m
+    correct = torch.where(col == lab[..., None], logits,
+                          torch.zeros_like(logits)).sum(-1)
+    return ((z - correct) * msk).sum(), (z.square() * msk).sum()
+
+
+def chunked_xent(hidden: torch.Tensor, head_w: torch.Tensor,
+                 labels: torch.Tensor, mask: torch.Tensor, *, vocab: int,
+                 chunk: int, z_loss_coef: float = 0.0):
+    """hidden: (B, T, E); head_w: (E, Vp); labels/mask: (B, T).
+
+    Returns (sum_nll, z_loss_coef·sum_z_loss, token_count), as
+    ``repro.models.lm.chunked_xent``.  Sequence-chunked, each chunk
+    checkpointed, so one (B, chunk, Vp) f32 logits block is the only live
+    logits tensor.
+    """
+    B, T, _ = hidden.shape
+    chunk = min(chunk, T)
+    mask = mask.float()
+    s_nll = s_zl = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for t0 in range(0, T, chunk):
+        nll, zl = torch.utils.checkpoint.checkpoint(
+            _chunk_sums, hidden[:, t0:t0 + chunk], head_w,
+            labels[:, t0:t0 + chunk], mask[:, t0:t0 + chunk], vocab,
+            use_reentrant=False)
+        s_nll, s_zl = s_nll + nll, s_zl + zl
+    return s_nll, z_loss_coef * s_zl, mask.sum()
+
+
+def fused_xent(hidden: torch.Tensor, head_w: torch.Tensor,
+               labels: torch.Tensor, mask: torch.Tensor, *, vocab: int,
+               z_loss_coef: float = 0.0):
+    """The fused-kernel twin of :func:`chunked_xent` (same contract).
+
+    The forward kernel never writes a logits tensor; nll and lse come back
+    together, so the z-loss term differentiates through the same
+    chunk-by-chunk backward (:func:`repro_torch.kernels.xent.ops.
+    xent_with_lse`).
+    """
+    B, T, E = hidden.shape
+    m2 = mask.reshape(B * T).float()
+    nll, lse = xent_with_lse(hidden.reshape(B * T, E), head_w,
+                             labels.reshape(B * T), vocab)
+    s_nll = (nll * m2).sum()
+    s_zl = (lse.square() * m2).sum()
+    return s_nll, z_loss_coef * s_zl, m2.sum()
+
+
+def param_count(params: dict) -> int:
+    return sum(v.numel() if isinstance(v, torch.Tensor) else param_count(v)
+               for v in params.values())
 
 
 class Model:
@@ -100,6 +175,41 @@ class Model:
                     else v if k == "scale" else v.to(self.cfg.adtype)
                     for k, v in tree.items()}
         return cast(params)
+
+    # ---- training ----
+    def loss_fn(self, params: dict, batch: dict):
+        """batch {"tokens": (B, S) int, optional "loss_mask": (B, S)} →
+        (loss, metrics), as the reference's ``Model.loss_fn`` for the
+        dense family: next-token nll plus the z-loss, both over the
+        masked token count; the head cast to the activation dtype.  The
+        loss head is :func:`fused_xent` on the card and :func:`chunked_xent`
+        on the CPU."""
+        cfg = self.cfg
+        tokens = batch["tokens"].long()
+        B, S = tokens.shape
+        x = layers.embed(params["embed"], tokens).to(cfg.adtype)
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        x, aux = tfm.apply_stack(params["blocks"], x, positions, self.stack)
+        x = layers.rmsnorm(params["final_norm"], x)
+        labels = tokens[:, 1:]
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=x.device)
+        if "loss_mask" in batch:
+            mask = mask * batch["loss_mask"][:, 1:]
+        head_w = params["head"]["w"].to(cfg.adtype)
+        if x.device.type == "cuda":
+            nll, zl, n = fused_xent(x[:, :-1], head_w, labels, mask,
+                                    vocab=cfg.vocab,
+                                    z_loss_coef=cfg.z_loss_coef)
+        else:
+            nll, zl, n = chunked_xent(x[:, :-1], head_w, labels, mask,
+                                      vocab=cfg.vocab, chunk=cfg.loss_chunk,
+                                      z_loss_coef=cfg.z_loss_coef)
+        n1 = n.clamp_min(1.0)
+        loss = nll / n1 + zl / n1 + aux["lb_loss"] + aux["z_loss"]
+        metrics = {"nll": nll / n1, "tokens": n, "moe_lb": aux["lb_loss"],
+                   "moe_z": aux["z_loss"]}
+        return loss, metrics
 
     # ---- serving ----
     def prefill(self, params: dict, batch: dict, gen_budget: int = 64,

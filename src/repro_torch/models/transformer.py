@@ -1,7 +1,8 @@
 """The layer stack of the dense decoder: a pattern of blocks repeated
 ``n_rep`` times, parameters stacked on a leading ``layers`` dim as in
 ``repro.models.transformer`` (so the two packages share leaf shapes).
-The reference's ``lax.scan`` over repeats is a Python loop here.
+The reference's ``lax.scan`` over repeats is a Python loop here, and its
+``jax.checkpoint`` around each repeat is ``torch.utils.checkpoint``.
 
 Each block: pre-norm attention + pre-norm gated MLP, residual connections.
 Only the dense pattern (attention + MLP) is ported so far.
@@ -9,8 +10,11 @@ Only the dense pattern (attention + MLP) is ported so far.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
@@ -28,16 +32,25 @@ class BlockCfg:
 class StackCfg:
     pattern: tuple                        # tuple[BlockCfg, ...]
     n_rep: int
+    remat: str = "full"                   # "none" | "full" | "dots"
+    attn_bwd_remat: bool = False          # flash-style attention backward
 
     @property
     def n_layers(self) -> int:
         return len(self.pattern) * self.n_rep
 
 
-def _layer(tree: dict, r: int) -> dict:
-    """Repeat ``r``'s slice of a stacked tree (views, no copies)."""
-    return {k: _layer(v, r) if isinstance(v, dict) else v[r]
-            for k, v in tree.items()}
+def _unstack(tree: dict, n: int) -> list:
+    """Every repeat's slice of a stacked tree (views, no copies), through
+    one ``unbind`` per leaf, so a backward stacks the n slices' gradients
+    into each leaf once (indexing each repeat would add n full-size
+    gradients)."""
+    parts = [{} for _ in range(n)]
+    for k, v in tree.items():
+        for r, sub in enumerate(_unstack(v, n) if isinstance(v, dict)
+                                else v.unbind(0)):
+            parts[r][k] = sub
+    return parts
 
 
 # ---------------------------------------------------------------------------
@@ -60,21 +73,74 @@ def init_stack(gen, stack: StackCfg, dtype, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# prefill
+# the stack: training forward and prefill
 # ---------------------------------------------------------------------------
 
+def _zero_aux(device) -> dict:
+    return {"lb_loss": torch.zeros((), dtype=torch.float32, device=device),
+            "z_loss": torch.zeros((), dtype=torch.float32, device=device)}
+
+
 def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
-                cfg: BlockCfg, *, return_kv: bool = False):
-    """x: (B, S, E) → (x', kv-or-None).  Forward only."""
+                cfg: BlockCfg, *, return_kv: bool = False,
+                bwd_remat: bool = False):
+    """x: (B, S, E) → (x', aux, kv-or-None); aux is zero for dense."""
     h = layers.rmsnorm(params["norm1"], x)
     out = attn_mod.attention(params["attn"], h, positions, cfg.attn,
-                             return_kv=return_kv)
+                             return_kv=return_kv, bwd_remat=bwd_remat)
     kv = None
     if return_kv:
         out, kv = out
     x = x + out
     x = x + layers.mlp(params["mlp"], layers.rmsnorm(params["norm2"], x))
-    return x, kv
+    return x, _zero_aux(x.device), kv
+
+
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep matrix-product outputs, recompute the
+    rest (the reference's ``dots_with_no_batch_dims_saveable``)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(fn, mode: str):
+    """``"none"`` runs ``fn`` as it is; ``"full"`` checkpoints it, saving
+    nothing; ``"dots"`` checkpoints it saving matrix-product outputs."""
+    if mode == "none":
+        return fn
+    if mode == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if mode == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    raise ValueError(f"remat must be none, full or dots, got {mode!r}")
+
+
+def apply_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
+                stack: StackCfg):
+    """x: (B, S, E) → (x', summed aux).  One checkpoint per pattern
+    repeat under ``stack.remat``."""
+
+    def rep_body(x, rep_params):
+        aux = _zero_aux(x.device)
+        for i, bcfg in enumerate(stack.pattern):
+            x, a, _ = apply_block(rep_params[f"p{i}"], x, positions, bcfg,
+                                  bwd_remat=stack.attn_bwd_remat)
+            aux = {k: aux[k] + a[k] for k in aux}
+        return x, aux
+
+    body = _remat_wrap(rep_body, stack.remat)
+    aux = _zero_aux(x.device)
+    for rep_params in _unstack(params, stack.n_rep):
+        x, a = body(x, rep_params)
+        aux = {k: aux[k] + a[k] for k in aux}
+    return x, aux
 
 
 def prefill_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -82,10 +148,10 @@ def prefill_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
     """Forward returning per-block KV caches ``{"p<i>": {"k", "v"}}`` of
     shape (n_rep, B, S, K, D) for subsequent decode."""
     kvs = {f"p{i}": {"k": [], "v": []} for i in range(len(stack.pattern))}
-    for r in range(stack.n_rep):
+    for rep_params in _unstack(params, stack.n_rep):
         for i, bcfg in enumerate(stack.pattern):
-            x, (k, v) = apply_block(_layer(params[f"p{i}"], r), x, positions,
-                                    bcfg, return_kv=True)
+            x, _, (k, v) = apply_block(rep_params[f"p{i}"], x, positions,
+                                       bcfg, return_kv=True)
             kvs[f"p{i}"]["k"].append(k)
             kvs[f"p{i}"]["v"].append(v)
     caches = {name: {key: torch.stack(vals) for key, vals in kv.items()}
@@ -122,10 +188,11 @@ def init_stack_state(stack: StackCfg, batch: int, max_len: int, dtype,
 def decode_stack(params: dict, x: torch.Tensor, state: dict,
                  pos: torch.Tensor, stack: StackCfg):
     """x: (B, E) → (x', state), the caches in ``state`` written in place."""
-    for r in range(stack.n_rep):
+    for rep_params, rep_state in zip(_unstack(params, stack.n_rep),
+                                     _unstack(state, stack.n_rep)):
         for i, bcfg in enumerate(stack.pattern):
-            x = decode_block(_layer(params[f"p{i}"], r), x,
-                             _layer(state[f"p{i}"], r), pos, bcfg)
+            x = decode_block(rep_params[f"p{i}"], x, rep_state[f"p{i}"], pos,
+                             bcfg)
     return x, state
 
 
@@ -162,9 +229,9 @@ def decode_stack_paged(params: dict, x: torch.Tensor, pools: dict,
                        stack: StackCfg):
     """x: (B, E) → (x', pools).  :func:`decode_stack` against page pools;
     the block table and positions are shared by every layer."""
-    for r in range(stack.n_rep):
+    for rep_params, rep_pools in zip(_unstack(params, stack.n_rep),
+                                     _unstack(pools, stack.n_rep)):
         for i, bcfg in enumerate(stack.pattern):
-            x = paged_decode_block(_layer(params[f"p{i}"], r), x,
-                                   _layer(pools[f"p{i}"], r), block_table,
-                                   pos, bcfg)
+            x = paged_decode_block(rep_params[f"p{i}"], x, rep_pools[f"p{i}"],
+                                   block_table, pos, bcfg)
     return x, pools

@@ -6,14 +6,18 @@ it runs on a machine with PyTorch alone::
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Shapes the main path does not reach: ragged tails, Sk < Sq, other group
-sizes and head_dim 128.
+sizes and head_dim 128; for the loss head, ragged token counts, a padded
+vocab (vocab < Vp) and a label in the last real column.
 """
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import flash, paged
+from repro_torch.kernels.xent import ops as xent_ops
+from repro_torch.kernels.xent import xent
 
-from torch_harness import TOL, close, paged_inputs
+from torch_harness import TOL, TOLS, close, paged_inputs
 
 
 @pytest.fixture
@@ -84,3 +88,109 @@ def test_paged_kernel_reads_a_bad_page_id_as_the_trash_page(cuda):
     want = paged.paged_decode(*good[:3], zero_table, good[4])
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sq,Sk,H,K,D,causal", [
+    (100, 100, 32, 4, 64, True),     # ragged tail, tinyllama heads (G=8)
+    (77, 77, 6, 3, 128, True),       # ragged, G=2, D=128
+    (130, 260, 8, 8, 64, False),     # cross shape, MHA (G=1)
+    (64, 40, 4, 1, 64, True),        # Sk < Sq, MQA (G=4)
+    (200, 120, 16, 4, 128, False),   # Sk < Sq, G=4, D=128
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_kernels_match_plain_on_card(cuda, Sq, Sk, H, K, D, causal,
+                                               dtype):
+    g = torch.Generator(device=cuda).manual_seed(Sq + Sk)
+    tdt = getattr(torch, dtype)
+    q = torch.randn((2, Sq, H, D), generator=g, device=cuda).to(tdt)
+    k = torch.randn((2, Sk, K, D), generator=g, device=cuda).to(tdt)
+    v = torch.randn((2, Sk, K, D), generator=g, device=cuda).to(tdt)
+    do = torch.randn((2, Sq, H, D), generator=g, device=cuda).to(tdt)
+    o, lse = flash.flash_attention(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1).reshape(2, Sq, K, H // K)
+    n_dq, n_dkv = flash.flash_bwd_dq.launches, flash.flash_bwd_dkv.launches
+    dq, dk, dv = flash.flash_attention_bwd(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert flash.flash_bwd_dq.launches == n_dq + 1
+    assert flash.flash_bwd_dkv.launches == n_dkv + 1
+    want = flash.flash_attention_bwd_plain(q, k, v, do, lse, delta, causal)
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        close(got.float().cpu(), ref.float().cpu(), TOLS[dtype].grad)
+
+
+def _xent_inputs(T, E, V, vocab, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    h = torch.tensor(rng.standard_normal((T, E)), dtype=torch.float32)
+    w = torch.tensor(rng.standard_normal((E, V)) / np.sqrt(E),
+                     dtype=torch.float32)
+    labels = rng.integers(0, vocab, T).astype(np.int32)
+    labels[0] = vocab - 1                    # the last real column
+    tdt = getattr(torch, dtype)
+    return (h.to(tdt).to(device), w.to(tdt).to(device),
+            torch.tensor(labels, device=device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,E,V,vocab", [
+    (100, 64, 512, 500),     # ragged T, padded vocab
+    (257, 96, 1024, 1024),   # E not a multiple of the 32-wide chunk
+    (64, 40, 200, 131),      # V not a multiple of the 64-wide tile
+    (1000, 128, 4096, 4000), # several vocab segments
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_xent_fwd_kernel_matches_plain_on_card(cuda, T, E, V, vocab, dtype):
+    h, w, labels = _xent_inputs(T, E, V, vocab, dtype, cuda, seed=T)
+    n0 = xent.xent_fwd.launches
+    nll, lse = xent.xent_fwd(h, w, labels, vocab)
+    torch.cuda.synchronize()
+    assert xent.xent_fwd.launches == n0 + 1
+    want_nll, want_lse = xent.xent_fwd_plain(h, w, labels, vocab)
+    assert torch.isfinite(nll).all() and torch.isfinite(lse).all()
+    close(nll.cpu(), want_nll.cpu(), TOL["float32"])
+    close(lse.cpu(), want_lse.cpu(), TOL["float32"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,col0,vocab", [(512, 0, 400), (300, 256, 500),
+                                          (1024, 1024, 1500)])
+def test_xent_bwd_kernel_matches_plain_on_card(cuda, C, col0, vocab):
+    T = 77
+    rng = np.random.default_rng(C)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda)
+    logits = f32(rng.standard_normal((T, C)))
+    lse = f32(rng.standard_normal(T) + 3.0)
+    labels = torch.tensor(rng.integers(0, col0 + C, T).astype(np.int32),
+                          device=cuda)
+    g_nll, g_lse = f32(rng.standard_normal(T)), f32(rng.standard_normal(T))
+    want = xent.xent_bwd_plain(logits.clone(), lse, labels, g_nll, g_lse,
+                               col0, vocab)
+    n0 = xent.xent_bwd.launches
+    got = xent.xent_bwd(logits, lse, labels, g_nll, g_lse, col0, vocab)
+    torch.cuda.synchronize()
+    assert got is logits and xent.xent_bwd.launches == n0 + 1
+    close(got.cpu(), want.cpu(), TOL["float32"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_xent_with_lse_on_card_matches_cpu(cuda, dtype, monkeypatch):
+    """The whole differentiable loss head, several backward chunks, on the
+    card against the same inputs on the CPU (plain versions)."""
+    monkeypatch.setattr(xent, "BWD_TILE_BYTES", 300 * 256 * 4)
+    T, E, V, vocab = 300, 64, 1024, 1000
+    h, w, labels = _xent_inputs(T, E, V, vocab, dtype, "cpu", seed=3)
+    rng = np.random.default_rng(4)
+    g = [torch.tensor(rng.standard_normal(T), dtype=torch.float32)
+         for _ in range(2)]
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        hh = h.to(dev).requires_grad_(True)
+        ww = w.to(dev).requires_grad_(True)
+        nll, lse = xent_ops.xent_with_lse(hh, ww, labels.to(dev), vocab)
+        grads[dev] = torch.autograd.grad(
+            (nll * g[0].to(dev)).sum() + (lse * g[1].to(dev)).sum(),
+            (hh, ww))
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        close(a.float().cpu(), b.float(), TOLS[dtype].grad)

@@ -25,7 +25,7 @@ from repro.configs import get_config as jax_get_config
 from repro.configs.base import shrink as jax_shrink
 from repro.models.lm import Model as JaxModel
 from repro_torch.configs import get_config, shrink
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models.convert import leaf_paths, params_from_numpy
 from repro_torch.models.lm import Model
 from repro_torch.serving.server import Request, Server, prompt_bucket
@@ -297,10 +297,19 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert p.returncode == 0 and p.stdout.strip() == "ok", p.stderr
 
 
-def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
+def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch,
+                                                            tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--arch", ARCH, "--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--arch", ARCH, "--smoke", "--steps", "1",
+                    "--ckpt-dir", str(tmp_path)])
+    assert not any(tmp_path.iterdir())
+    out = train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                      "--steps", "1", "--batch", "1", "--seq", "8",
+                      "--ckpt-dir", str(tmp_path)])
+    assert out["final_step"] == 1
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Model(get_config(ARCH, smoke=True))
     assert Model(get_config(ARCH, smoke=True), "cpu").device.type == "cpu"
