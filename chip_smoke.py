@@ -11,8 +11,9 @@ and the script exits non-zero without printing a result:
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc);
 3. hold each kernel against its plain PyTorch version on the card at the
-   shapes tinyllama-1.1b gives it, and at ragged ones (tolerance: values
-   f32 2e-5, bf16 2e-2; gradients f32 2e-4, bf16 5e-2), and time the
+   shapes tinyllama-1.1b and mamba2-1.3b give it, and at ragged ones
+   (tolerance: values f32 2e-5, bf16 2e-2; gradients f32 2e-4, bf16 5e-2;
+   the SSD scan 5e-4, as the reference holds its kernel), and time the
    kernel, the plain version and one PyTorch library call computing the
    same function (a yardstick the port never calls);
 4. the serving path: ``repro_torch.launch.serve`` serving tinyllama-1.1b
@@ -25,15 +26,25 @@ and the script exits non-zero without printing a result:
 7. where the time goes in serving: a prefill and a decode step on the host
    clock, then the device's busy share and top kernels under
    ``torch.profiler``;
-8. the training path: ``repro_torch.launch.train`` training tinyllama-1.1b
-   at full width (batch 4 x 2048, AdamW, remat full) for 8 steps, with
-   every kernel's launch count read around it: finite, falling loss,
-   tokens/s, peak device memory, the final checkpoint's write time;
-9. training on the card against the CPU: a 2-layer f32 model's loss, every
-   gradient leaf and the parameters after one AdamW step, within 1e-4;
-10. resume on the card: 4 steps straight against 2 steps, then a relaunch
+8. the mamba2 serving path: the same driver serving mamba2-1.3b at full
+   width with the dense cache — 8 requests of 500 prompt tokens and 64
+   generated through 8 slots, then one of 2000 (bucket 2048, 8 chunks) —
+   with every kernel's launch count read around each (the SSD scan once
+   per layer and prefill, no other kernel); ``--cache paged`` with this
+   arch exits non-zero;
+9. a 2-layer f32 mamba2 at the kernel's real tile sizes (head dim 64,
+   state 128, chunk 256) on the card against the CPU: prefill logits,
+   each layer's state and 8 decode steps' logits within 5e-4;
+10. where mamba2's serving time goes, as in 7;
+11. the training path: ``repro_torch.launch.train`` training tinyllama-1.1b
+    at full width (batch 4 x 2048, AdamW, remat full) for 8 steps, with
+    every kernel's launch count read around it: finite, falling loss,
+    tokens/s, peak device memory, the final checkpoint's write time;
+12. training on the card against the CPU: a 2-layer f32 model's loss, every
+    gradient leaf and the parameters after one AdamW step, within 1e-4;
+13. resume on the card: 4 steps straight against 2 steps, then a relaunch
     to 4 on the same checkpoint directory; the resumed losses are equal;
-11. where the time goes in one training step: forward, backward and
+14. where the time goes in one training step: forward, backward and
     optimizer on the host clock, then the device's busy share and top
     kernels under ``torch.profiler``;
 
@@ -73,6 +84,14 @@ TRAIN_ARGS = ["--arch", ARCH, "--batch", str(TRAIN_BATCH), "--seq",
               str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--optimizer",
               "adamw", "--log-every", "1"]
 SMALL = "n_heads=8,n_kv_heads=2,head_dim=64"     # the 2-layer f32 model
+MAMBA = "mamba2-1.3b"
+MAMBA_ARGS = ["--arch", MAMBA, "--cache", "dense", "--requests", "8",
+              "--batch-slots", "8", "--prompt-len", "500", "--gen", "64",
+              "--max-len", "1024"]
+MAMBA_LONG_ARGS = ["--arch", MAMBA, "--cache", "dense", "--requests", "1",
+                   "--batch-slots", "1", "--prompt-len", "2000", "--gen", "16",
+                   "--max-len", "4096"]
+SSD_TOL = 5e-4            # the reference's tolerance for its SSD kernel
 
 
 def card_line() -> str:
@@ -407,8 +426,62 @@ def check_xent(torch, timer) -> tuple:
     return fwd_row, bwd_row
 
 
+def check_ssd(torch, timer) -> dict:
+    """The SSD chunked-scan kernel against its plain version (y and the
+    final state within 5e-4): mamba2-1.3b's prefill shape (B=1, S=512,
+    64 heads of 64, state 128, G=1, chunk 256, x and B/C bf16), S=2048 (8
+    chunks, the carry), S=8 (chunk = S) and a grouped f32 case; returns
+    the row of the main path's shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd import ssd
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(1, 512, 64, 64, 1, 128, 256, bf16),
+             (1, 2048, 64, 64, 1, 128, 256, bf16),
+             (1, 8, 64, 64, 1, 128, 256, bf16),
+             (2, 384, 8, 32, 2, 16, 128, f32)]
+    row = None
+    for B, S, H, P, G, N, chunk, dtype in cases:
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+        x = rnd(B, S, H, P).to(dtype)
+        dt = F.softplus(rnd(B, S, H) - 1.0)
+        A = -torch.exp(0.3 * rnd(H))
+        Bm = (0.3 * rnd(B, S, G, N)).to(dtype)
+        Cm = (0.3 * rnd(B, S, G, N)).to(dtype)
+        args = (x, dt, A, Bm, Cm)
+        y, h = ssd.ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        want = ssd.ssd_scan_plain(*args, chunk=chunk)
+        Q = min(chunk, S)
+        tag = (f"ssd_scan B={B} S={S} H={H} P={P} G={G} N={N} chunk={Q} "
+               f"{dtype}")
+        err = max(check_close(tag + " y", y, want[0], f32, SSD_TOL),
+                  check_close(tag + " state", h, want[1], f32, SSD_TOL))
+        ms = timer(lambda: ssd.ssd_scan(*args, chunk=chunk))
+        plain_ms = timer(lambda: ssd.ssd_scan_plain(*args, chunk=chunk))
+        # least work: C·Bᵀ once per (batch, group, chunk) over its causal
+        # half; per head the intra-chunk product (same half), the carried
+        # state's C·h and the state update, each once
+        pairs = Q * (Q + 1) // 2 * (S // Q)
+        flops = 2 * B * (G * pairs * N + H * pairs * P + 2 * H * S * N * P)
+        nbytes = (x.numel() + Bm.numel() + Cm.numel()) * x.element_size() \
+            + (dt.numel() + A.numel() + y.numel() + h.numel()) * 4
+        b_ms, b_by = bound(nbytes, flops, f32)
+        print(f"[kernel] {tag}: max_abs_err {err:.3e} (tol {SSD_TOL:g})  "
+              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  no library call"
+              f"  bound {b_ms:.4f} ms ({b_by}; operations at the f32 peak, "
+              f"C·Bᵀ once per group and chunk)", flush=True)
+        if row is None:
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del args, x, dt, Bm, Cm, y, h, want
+    return row
+
+
 # ---------------------------------------------------------------------------
-# phases 4-6: the serving driver at full width, and a small-model agreement
+# phases 4-10: the serving driver at full width, and small-model agreement
 # ---------------------------------------------------------------------------
 
 def reset_counts(kernels: dict) -> None:
@@ -514,24 +587,136 @@ def small_model_agreement(torch) -> None:
           f"max |logit err| {worst:.3e} (limit 1e-4)", flush=True)
 
 
-def where_the_time_goes(torch) -> None:
-    """The main path's configuration, split by phase: one 500-token
-    prefill, then decode steps of 8 live slots (~500-token contexts) —
-    timed with the host clock around a sync, then once more under
-    torch.profiler for the device's busy share and its top kernels."""
-    import numpy as np
+def serve_mamba2(torch, kernels) -> tuple:
+    """The mamba2-1.3b serving driver at full width (dense cache): the
+    main run, then one 2000-token prompt; the SSD scan must launch once
+    per layer and prefill, and nothing else.  Then ``--cache paged`` with
+    this arch must exit non-zero.  Returns the two runs' counts."""
+    from repro_torch.launch import serve
+
+    runs = []
+    for args, n in ((MAMBA_ARGS, 8), (MAMBA_LONG_ARGS, 1)):
+        reset_counts(kernels)
+        summary, server = serve.run(serve.parse_args(args))
+        counts = read_counts(kernels)
+        layers = server.model.cfg.n_layers
+        print(f"[mamba2] {' '.join(args[2:])}: {summary['completed']} "
+              f"requests, {summary['tokens']} tokens, {summary['steps']} "
+              f"decode steps in {summary['seconds']:.3f} s = "
+              f"{summary['tokens'] / summary['seconds']:.1f} tok/s; launches "
+              f"{counts}", flush=True)
+        if summary["completed"] != n:
+            raise AssertionError(f"mamba2 serve completed "
+                                 f"{summary['completed']} of {n}")
+        want = dict.fromkeys(counts, 0)
+        want["ssd_scan"] = layers * n             # one per layer and prefill
+        if counts != want:
+            raise AssertionError(f"mamba2 launches {counts}, want {want}")
+        state = server.state["cache"]["p0"]
+        if not all(torch.isfinite(t).all() for t in state.values()) \
+                or not state["h"].abs().max() > 0:
+            raise AssertionError("mamba2 decode state not finite or zero")
+        runs.append(counts)
+        del server
+        torch.cuda.empty_cache()
+    p = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", MAMBA,
+         "--cache", "paged"], capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    last = (p.stderr.strip().splitlines() or [""])[-1]
+    print(f"[mamba2] --cache paged: exit {p.returncode}: {last}", flush=True)
+    if p.returncode == 0 or "does not support the paged" not in p.stderr:
+        raise AssertionError("--cache paged with mamba2 did not refuse")
+    return tuple(runs)
+
+
+def mamba2_agreement(torch) -> None:
+    """A 2-layer f32 mamba2 at the kernel's real tile sizes (4 heads of 64,
+    state 128, chunk 256) on the card against the same weights on the CPU
+    (the plain scan): a ragged batch-2 prefill over 1024 positions (4
+    chunks; last tokens at 599 and 1023), each layer's h and conv, then 8
+    decode steps' logits, within 5e-4."""
+    from repro_torch.configs import get_config, shrink
+    from repro_torch.models.lm import Model
+
+    cfg = shrink(get_config(MAMBA), ssd_headdim=64, ssd_state=128,
+                 ssd_chunk=256)
+    cpu, gpu = Model(cfg, "cpu"), Model(cfg, "cuda")
+    params = cpu.init(0)
+    tokens = torch.randint(0, cfg.vocab, (2, 1024),
+                           generator=torch.Generator().manual_seed(0))
+    last = torch.tensor([599, 1023])
+    outs, fed = {}, []
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        dev = model.device
+        p = _to(params, dev)
+        logits, st = model.prefill(p, {"tokens": tokens.to(dev)},
+                                   last_idx=last.to(dev))
+        seq = [logits]
+        for i in range(8):
+            if name == "cpu":            # the card decodes the CPU's tokens
+                fed.append(logits[:, :cfg.vocab].argmax(-1))
+            logits, st = model.serve_step(p, fed[i].to(dev), st)
+            seq.append(logits)
+        outs[name] = (torch.stack(seq).cpu(), _to(st["cache"], "cpu"))
+    worst = {"logits": check_close("mamba2 logits", outs["cuda"][0],
+                                   outs["cpu"][0], torch.float32, SSD_TOL)}
+    for key in ("h", "conv"):
+        # the state after 8 decode steps carries the prefill state
+        worst[key] = check_close(f"mamba2 {key}", outs["cuda"][1]["p0"][key],
+                                 outs["cpu"][1]["p0"][key], torch.float32,
+                                 SSD_TOL)
+    print(f"[agree] 2-layer f32 mamba2 (4 heads of 64, state 128, chunk "
+          f"256), ragged batch-2 prefill over 1024 + 8 decode steps: card "
+          f"vs cpu max |err| logits {worst['logits']:.3e}, h "
+          f"{worst['h']:.3e}, conv {worst['conv']:.3e} (limit 5e-4 + "
+          f"5e-4|x|)", flush=True)
+
+
+def profiled(torch, fn, n: int) -> tuple:
+    """``fn`` run ``n`` times under torch.profiler → (host ms per run,
+    device busy ms per run — the union of its kernels' intervals — or None
+    when the profiler saw no device activity, the profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / n * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        print("[time] profiler saw no device activity: busy share not "
+              "measured", flush=True)
+        return host_ms, None, prof
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:                       # union of kernel intervals (µs)
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return host_ms, busy / n / 1e3, prof
+
+
+def where_the_time_goes(torch, arch: str = ARCH, cache: str = "paged") -> None:
+    """A serving configuration split by phase: one 500-token prefill,
+    then decode steps of 8 live slots (~500-token contexts) — timed with
+    the host clock around a sync, then each once more under torch.profiler
+    for the device's busy share and its top kernels."""
+    import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.models.lm import Model
     from repro_torch.serving.server import Request, Server
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     model = Model(cfg)
-    params = model.serving_params(model.init(0))
-    server = Server(model, batch_slots=8, max_len=1024, cache="paged",
+    server = Server(model, batch_slots=8, max_len=1024, cache=cache,
                     page_size=64)
+    params = model.serving_params(model.init(0))
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, 500, dtype=np.int32)
                for _ in range(9)]
@@ -551,41 +736,36 @@ def where_the_time_goes(torch) -> None:
         server.step(params)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / n * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            server.step(params)
-        torch.cuda.synchronize()
-        prof_ms = (time.perf_counter() - t0) / n * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:                       # union of kernel intervals (µs)
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    busy_ms = busy / n / 1e3
-    print(f"[time] prefill of one 500-token prompt (bucket 512): "
+    print(f"[time] {arch} ({cache} cache): prefill of one 500-token prompt "
+          f"(bucket 512): "
           f"{prefill_ms:.2f} ms; decode step, 8 slots: {step_ms:.2f} ms "
           f"({8 / step_ms * 1e3:.1f} tok/s)", flush=True)
-    if not spans:
-        print("[time] profiler saw no device activity: busy share not "
-              "measured", flush=True)
-        return
-    print(f"[time] under the profiler: step {prof_ms:.2f} ms, device busy "
-          f"{busy_ms:.3f} ms per step, idle share "
-          f"{1 - busy_ms / prof_ms:.3f}", flush=True)
-    avgs = sorted(prof.key_averages(),
-                  key=lambda e: -getattr(e, "self_device_time_total", 0))
-    for e in avgs[:8]:
-        t = getattr(e, "self_device_time_total", 0) / n / 1e3
-        print(f"[time]   {t:.4f} ms/step  x{e.count // n:<4d} {e.key[:90]}",
-              flush=True)
+    # the prefill as the server runs it: padded to its bucket, read at
+    # the last real token
+    tokens = torch.zeros((1, 512), dtype=torch.long, device="cuda")
+    tokens[0, :500] = torch.tensor(prompts[8], device="cuda")
+    last = torch.tensor([499], device="cuda")
+    gen_budget = 0 if cache == "paged" else 1024 - 512
+    runs = (("prefill", 4, lambda: model.prefill(
+                params, {"tokens": tokens}, gen_budget, last)),
+            ("decode step", n, lambda: server.step(params)))
+    for what, reps, fn in runs:
+        host_ms, busy_ms, prof = profiled(torch, fn, reps)
+        if busy_ms is None:
+            continue
+        print(f"[time] under the profiler: {what} {host_ms:.2f} ms, device "
+              f"busy {busy_ms:.3f} ms per {what}, idle share "
+              f"{1 - busy_ms / host_ms:.3f}", flush=True)
+        avgs = sorted(prof.key_averages(),
+                      key=lambda e: -getattr(e, "self_device_time_total", 0))
+        for e in avgs[:8]:
+            t = getattr(e, "self_device_time_total", 0) / reps / 1e3
+            print(f"[time]   {t:.4f} ms/{what}  x{e.count // reps:<4d} "
+                  f"{e.key[:90]}", flush=True)
 
 
 # ---------------------------------------------------------------------------
-# phases 8-11: the training driver at full width, card against CPU, resume,
+# phases 11-14: the training driver at full width, card against CPU, resume,
 # and where the time goes in a training step
 # ---------------------------------------------------------------------------
 
@@ -599,7 +779,8 @@ def train_expected(layers: int, steps: int, vp: int) -> dict:
     return {"flash_fwd": 2 * layers * steps, "paged_decode": 0,
             "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps,
             "xent_fwd": steps,
-            "xent_bwd": steps * -(-vp // xent.bwd_chunk(T, vp))}
+            "xent_bwd": steps * -(-vp // xent.bwd_chunk(T, vp)),
+            "ssd_scan": 0}
 
 
 def train_full(torch, kernels) -> dict:
@@ -732,7 +913,6 @@ def train_time(torch) -> None:
     torch.profiler for the device's busy share and its top kernels."""
     import numpy as np
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.models.lm import Model
@@ -775,23 +955,9 @@ def train_time(torch) -> None:
           f"recompute) {bwd:.1f} ms, AdamW {upd:.1f} ms; total "
           f"{total:.1f} ms = {TRAIN_BATCH * TRAIN_SEQ / total * 1e3:.1f} "
           f"tokens/s", flush=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        prof_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    if not spans:
-        print("[time] profiler saw no device activity: busy share not "
-              "measured", flush=True)
+    prof_ms, busy_ms, prof = profiled(torch, step, 1)
+    if busy_ms is None:
         return
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    busy_ms = busy / 1e3
     print(f"[time] under the profiler: step {prof_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms, idle share {1 - busy_ms / prof_ms:.3f}",
           flush=True)
@@ -825,6 +991,7 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash, paged
+    from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.xent import xent
 
     card = card_line()
@@ -850,6 +1017,7 @@ def main() -> None:
         rows["flash_bwd_dq"], rows["flash_bwd_dkv"] = check_flash_bwd(
             torch, timer)
         rows["xent_fwd"], rows["xent_bwd"] = check_xent(torch, timer)
+        rows["ssd_scan"] = check_ssd(torch, timer)
     del timer
     torch.cuda.empty_cache()
 
@@ -857,7 +1025,8 @@ def main() -> None:
                "paged_decode": paged.paged_decode,
                "flash_bwd_dq": flash.flash_bwd_dq,
                "flash_bwd_dkv": flash.flash_bwd_dkv,
-               "xent_fwd": xent.xent_fwd, "xent_bwd": xent.xent_bwd}
+               "xent_fwd": xent.xent_fwd, "xent_bwd": xent.xent_bwd,
+               "ssd_scan": ssd.ssd_scan}
     with phase("serve (paged, main serving path)"):
         serve_counts = serve_paged(torch, kernels)
     with phase("serve (dense)"):
@@ -866,6 +1035,13 @@ def main() -> None:
         small_model_agreement(torch)
     with phase("serve time breakdown"):
         where_the_time_goes(torch)
+    torch.cuda.empty_cache()
+    with phase("serve mamba2 (dense, main path of the ssm family)"):
+        mamba_counts, mamba_long_counts = serve_mamba2(torch, kernels)
+    with phase("mamba2 agreement"):
+        mamba2_agreement(torch)
+    with phase("mamba2 time breakdown"):
+        where_the_time_goes(torch, MAMBA, "dense")
     torch.cuda.empty_cache()
     with phase("train (main training path)"):
         train_counts = train_full(torch, kernels)
@@ -890,10 +1066,14 @@ def main() -> None:
                      "src/repro/kernels/xent/xent.py:36"),
         "xent_bwd": ("src/repro_torch/kernels/csrc/xent_bwd.cu",
                      "src/repro/kernels/xent/ops.py:91"),
+        "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd/ssd.py:31"),
     }
     table = []
     for name in rows:
-        by_path = {"serve": serve_counts[name], "train": train_counts[name]}
+        by_path = {"serve": serve_counts[name], "train": train_counts[name],
+                   "serve_mamba2": mamba_counts[name],
+                   "serve_mamba2_long": mamba_long_counts[name]}
         table.append(dict(name=name, route="cuda", source=meta[name][0],
                           replaces=meta[name][1],
                           launches=sum(by_path.values()),

@@ -13,16 +13,22 @@ from repro_torch.models.lm import LMCfg  # noqa: F401  (re-export)
 
 def shrink(cfg: LMCfg, **overrides) -> LMCfg:
     """Reduced same-family config: small widths, few layers, tiny vocab —
-    the GQA ratio preserved (tinyllama's 32:4 becomes 4:1)."""
+    the GQA ratio preserved (tinyllama's 32:4 becomes 4:1); an
+    attention-free config stays so (mamba2: 8 SSD heads of 32, state 16,
+    chunk 32)."""
     heads = min(cfg.n_heads, 4)
+    kv = max(1, heads * cfg.n_kv_heads // cfg.n_heads) if heads else 0
     small = dict(
         n_layers=2,
         d_model=128,
         n_heads=heads,
-        n_kv_heads=max(1, heads * cfg.n_kv_heads // cfg.n_heads),
-        head_dim=32,
-        d_ff=256,
+        n_kv_heads=kv,
+        head_dim=32 if heads else 0,
+        d_ff=256 if cfg.d_ff else 0,
         vocab=512,
+        ssd_headdim=32,
+        ssd_state=16,
+        ssd_chunk=32,
         loss_chunk=64,
         remat="none",
         dtype="float32",

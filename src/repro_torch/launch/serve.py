@@ -20,6 +20,10 @@ Usage::
 
     python -m repro_torch.launch.serve --arch tinyllama-1.1b --smoke \
         --device cpu --traffic --cache paged --requests 16 --rate 4 --gen 8
+
+    python -m repro_torch.launch.serve --arch mamba2-1.3b --cache dense
+
+``--cache paged`` needs an all-attention arch; with mamba2 it raises.
 """
 from __future__ import annotations
 
@@ -133,10 +137,10 @@ def run(args: argparse.Namespace):
     """Serve as ``args`` say; returns (summary dict, the server)."""
     cfg = get_config(args.arch, smoke=args.smoke)
     model = Model(cfg, device=args.device)
-    params = model.serving_params(model.init(args.seed))
     server = Server(model, batch_slots=args.batch_slots,
                     max_len=args.max_len, cache=args.cache,
                     page_size=args.page_size, n_pages=args.pages)
+    params = model.serving_params(model.init(args.seed))
 
     if args.traffic:
         tc = TrafficCfg(rate=args.rate, n_requests=args.requests,

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 # initialisers
 # ---------------------------------------------------------------------------
 
-def _normal(gen: torch.Generator, shape: tuple, dtype, device,
+def normal(gen: torch.Generator, shape: tuple, dtype, device,
             stddev: float) -> torch.Tensor:
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     return (x * stddev).to(dtype)
@@ -26,7 +26,7 @@ def _normal(gen: torch.Generator, shape: tuple, dtype, device,
 
 def dense_init(gen, in_dim: int, shape: tuple, dtype, device) -> torch.Tensor:
     """Fan-in scaled normal init (truncation omitted, as in the reference)."""
-    return _normal(gen, shape, dtype, device, 1.0 / math.sqrt(max(in_dim, 1)))
+    return normal(gen, shape, dtype, device, 1.0 / math.sqrt(max(in_dim, 1)))
 
 
 def init_rmsnorm(shape: tuple, dtype, device) -> dict:
@@ -44,7 +44,7 @@ def init_mlp(gen, d_model: int, d_ff: int, dtype, device,
 
 def init_embedding(gen, vocab: int, d_model: int, dtype, device) -> dict:
     # 1/sqrt(d) keeps the embedding output O(1/sqrt(d)); a norm follows it
-    return {"table": _normal(gen, (vocab, d_model), dtype, device,
+    return {"table": normal(gen, (vocab, d_model), dtype, device,
                              1.0 / math.sqrt(d_model))}
 
 

@@ -1,5 +1,6 @@
 """The LM: one config dataclass → {init, loss_fn, prefill, serve_step,
-serve_step_paged} for the dense decoder family.
+serve_step_paged} for the dense decoder family, and {init, prefill,
+serve_step} for the ssm family (mamba2: serving only so far).
 
 The port's counterpart of ``repro.models.lm`` for training and serving.
 The loss head is chosen by device, as the reference's ``xent_impl`` chooses
@@ -23,6 +24,7 @@ from repro_torch.kernels.xent.ops import xent_with_lse
 from repro_torch.models import layers
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import AttnCfg
+from repro_torch.models.mamba2 import SSDCfg
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -30,7 +32,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 @dataclasses.dataclass(frozen=True)
 class LMCfg:
     name: str
-    family: str                        # dense (the only family ported yet)
+    family: str                        # dense | ssm (the ported families)
     n_layers: int
     d_model: int
     vocab: int
@@ -38,7 +40,14 @@ class LMCfg:
     n_kv_heads: int = 0
     head_dim: int = 0
     d_ff: int = 0
+    norm: str = "rms"                  # the only norm ported yet
     rope_theta: float = 10000.0
+    tie_embeddings: bool = False       # head = embed/tableᵀ, no head leaf
+    # ssm
+    ssd_headdim: int = 64
+    ssd_state: int = 128
+    d_conv: int = 4
+    ssd_chunk: int = 256
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
     remat: str = "full"                # "full" | "dots" | "none"
@@ -64,13 +73,25 @@ class LMCfg:
                        n_kv_heads=self.n_kv_heads, head_dim=self.head_dim,
                        rope_theta=self.rope_theta)
 
+    def ssd_cfg(self) -> SSDCfg:
+        n_heads = (2 * self.d_model) // self.ssd_headdim   # expand = 2
+        return SSDCfg(d_model=self.d_model, n_heads=n_heads,
+                      headdim=self.ssd_headdim, d_state=self.ssd_state,
+                      d_conv=self.d_conv, chunk=self.ssd_chunk)
+
 
 def build_stack_cfg(cfg: LMCfg) -> tfm.StackCfg:
-    if cfg.family != "dense":
+    if cfg.norm != "rms":
+        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
+    if cfg.family == "dense":
+        block = tfm.BlockCfg(d_model=cfg.d_model, attn=cfg.attn_cfg(),
+                             d_ff=cfg.d_ff)
+    elif cfg.family == "ssm":
+        block = tfm.BlockCfg(d_model=cfg.d_model, mixer="ssd", mlp="none",
+                             ssd=cfg.ssd_cfg())
+    else:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
-    block = tfm.BlockCfg(d_model=cfg.d_model, attn=cfg.attn_cfg(),
-                         d_ff=cfg.d_ff)
+            f"family {cfg.family!r} is not ported yet (dense, ssm)")
     return tfm.StackCfg(pattern=(block,), n_rep=cfg.n_layers,
                         remat=cfg.remat, attn_bwd_remat=cfg.attn_bwd_remat)
 
@@ -155,26 +176,40 @@ class Model:
         cfg, dev, dt = self.cfg, self.device, self.cfg.pdtype
         gen = torch.Generator(device=dev if dev.type == "cuda" else "cpu")
         gen.manual_seed(seed)
-        return {
+        p = {
             "embed": layers.init_embedding(gen, cfg.padded_vocab, cfg.d_model,
                                            dt, dev),
             "final_norm": layers.init_rmsnorm((cfg.d_model,), dt, dev),
-            "head": layers.init_lm_head(gen, cfg.d_model, cfg.padded_vocab,
-                                        dt, dev),
-            "blocks": tfm.init_stack(gen, self.stack, dt, dev),
         }
+        if not cfg.tie_embeddings:
+            p["head"] = layers.init_lm_head(gen, cfg.d_model,
+                                            cfg.padded_vocab, dt, dev)
+        p["blocks"] = tfm.init_stack(gen, self.stack, dt, dev)
+        return p
+
+    # leaves the reference reads in f32 whatever the activation dtype
+    F32_LEAVES = frozenset({"scale", "wdt", "dt_bias", "A_log",
+                            "norm_scale"})
 
     def serving_params(self, params: dict) -> dict:
-        """``params`` with every weight matrix cast once to the activation
-        dtype.  Each product casts its weight to that dtype anyway, so the
-        results are the same; serving then stops re-reading (and
-        re-casting) f32 masters every step.  Norm scales stay as they are:
-        RMSNorm reads them in f32."""
+        """``params`` with every weight cast once to the activation dtype,
+        except :attr:`F32_LEAVES`.  Each product casts its weight to that
+        dtype anyway, so the results are the same; serving then stops
+        re-reading (and re-casting) f32 masters every step.  The norm
+        scales, dt's projection and bias and ``A_log`` stay as they are:
+        the reference reads them in f32, and casting them changes the
+        result."""
         def cast(tree):
             return {k: cast(v) if isinstance(v, dict)
-                    else v if k == "scale" else v.to(self.cfg.adtype)
+                    else v if k in self.F32_LEAVES else v.to(self.cfg.adtype)
                     for k, v in tree.items()}
         return cast(params)
+
+    def _head_w(self, params: dict) -> torch.Tensor:
+        """The (E, Vp) head: ``embed/table``ᵀ when embeddings are tied."""
+        if self.cfg.tie_embeddings:
+            return params["embed"]["table"].T
+        return params["head"]["w"]
 
     # ---- training ----
     def loss_fn(self, params: dict, batch: dict):
@@ -183,8 +218,12 @@ class Model:
         dense family: next-token nll plus the z-loss, both over the
         masked token count; the head cast to the activation dtype.  The
         loss head is :func:`fused_xent` on the card and :func:`chunked_xent`
-        on the CPU."""
+        on the CPU.  Only the dense family trains so far (the SSD kernel
+        is forward only)."""
         cfg = self.cfg
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"training the {cfg.family!r} family is not ported yet")
         tokens = batch["tokens"].long()
         B, S = tokens.shape
         x = layers.embed(params["embed"], tokens).to(cfg.adtype)
@@ -196,7 +235,7 @@ class Model:
                           device=x.device)
         if "loss_mask" in batch:
             mask = mask * batch["loss_mask"][:, 1:]
-        head_w = params["head"]["w"].to(cfg.adtype)
+        head_w = self._head_w(params).to(cfg.adtype)
         if x.device.type == "cuda":
             nll, zl, n = fused_xent(x[:, :-1], head_w, labels, mask,
                                     vocab=cfg.vocab,
@@ -221,23 +260,26 @@ class Model:
         are read there, ``pos`` starts at ``last_idx + 1``, and the KV
         cache is zeroed beyond ``last_idx`` so pad tokens' KV is never
         attended (decode's ADD write at ``pos`` lands on a zero cell).
+        SSD blocks return their exact state after ``last_idx``; those
+        leaves are not KV and are not padded to ``S + gen_budget``.
         """
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = layers.embed(params["embed"], tokens).to(cfg.adtype)
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        if last_idx is not None:
+            last_idx = last_idx.to(device=x.device, dtype=torch.long)
         x, caches = tfm.prefill_stack(params["blocks"], x, positions,
-                                      self.stack)
+                                      self.stack, last_idx)
         x = layers.rmsnorm(params["final_norm"], x)
         if last_idx is None:
             h_last = x[:, -1]
             pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
         else:
-            last_idx = last_idx.to(device=x.device, dtype=torch.long)
             h_last = x[torch.arange(B, device=x.device), last_idx]
             pos = (last_idx + 1).to(torch.int32)
-        logits = h_last @ params["head"]["w"].to(cfg.adtype)
+        logits = h_last @ self._head_w(params).to(cfg.adtype)
 
         keep = None
         if last_idx is not None:
@@ -251,8 +293,11 @@ class Model:
                 a = torch.where(keep[None, :, :, None, None], a, 0)
             return a
 
-        cache = {name: {key: pad_kv(val) for key, val in kv.items()}
-                 for name, kv in caches.items()}
+        cache = {}
+        for i, bcfg in enumerate(self.stack.pattern):
+            st = caches[f"p{i}"]
+            cache[f"p{i}"] = ({key: pad_kv(val) for key, val in st.items()}
+                              if bcfg.mixer == "attn" else st)
         return logits, {"cache": cache, "pos": pos}
 
     def serve_step(self, params: dict, tokens: torch.Tensor, state: dict):
@@ -264,7 +309,7 @@ class Model:
         x, cache = tfm.decode_stack(params["blocks"], x, state["cache"], pos,
                                     self.stack)
         x = layers.rmsnorm(params["final_norm"], x)
-        logits = x @ params["head"]["w"].to(cfg.adtype)
+        logits = x @ self._head_w(params).to(cfg.adtype)
         return logits, {"cache": cache, "pos": pos + 1}
 
     def decode_state(self, batch: int, cache_len: int) -> dict:
@@ -277,7 +322,9 @@ class Model:
     # ---- paged serving (block-table KV cache) ----
     @property
     def supports_paged(self) -> bool:
-        return True                    # every ported family is all-attention
+        """Paged KV needs every mixer to be attention (SSD state is O(1)
+        per slot and gains nothing from pages)."""
+        return all(b.mixer == "attn" for b in self.stack.pattern)
 
     def serve_step_paged(self, params: dict, tokens: torch.Tensor,
                          state: dict):
@@ -291,7 +338,7 @@ class Model:
                                           state["block_table"], pos,
                                           self.stack)
         x = layers.rmsnorm(params["final_norm"], x)
-        logits = x @ params["head"]["w"].to(cfg.adtype)
+        logits = x @ self._head_w(params).to(cfg.adtype)
         return logits, {"pools": pools, "block_table": state["block_table"],
                         "pos": pos + 1}
 

@@ -1,11 +1,12 @@
-"""The layer stack of the dense decoder: a pattern of blocks repeated
-``n_rep`` times, parameters stacked on a leading ``layers`` dim as in
+"""The layer stack: a pattern of blocks repeated ``n_rep`` times,
+parameters stacked on a leading ``layers`` dim as in
 ``repro.models.transformer`` (so the two packages share leaf shapes).
 The reference's ``lax.scan`` over repeats is a Python loop here, and its
 ``jax.checkpoint`` around each repeat is ``torch.utils.checkpoint``.
 
-Each block: pre-norm attention + pre-norm gated MLP, residual connections.
-Only the dense pattern (attention + MLP) is ported so far.
+Each block: a pre-norm mixer (attention | SSD) and, unless ``mlp`` is
+``"none"``, a pre-norm gated MLP, with residual connections.  Ported
+patterns so far: dense (attention + MLP) and mamba2 (SSD, no MLP).
 """
 from __future__ import annotations
 
@@ -17,15 +18,19 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import layers
+from repro_torch.models import layers, mamba2
 from repro_torch.models.attention import AttnCfg
+from repro_torch.models.mamba2 import SSDCfg
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockCfg:
     d_model: int
-    attn: AttnCfg
-    d_ff: int
+    mixer: str = "attn"                   # "attn" | "ssd"
+    mlp: str = "dense"                    # "dense" | "none"
+    attn: AttnCfg | None = None
+    ssd: SSDCfg | None = None
+    d_ff: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,13 +63,17 @@ def _unstack(tree: dict, n: int) -> list:
 # ---------------------------------------------------------------------------
 
 def init_block(gen, cfg: BlockCfg, dtype, device, lead: tuple = ()) -> dict:
-    return {
-        "norm1": layers.init_rmsnorm(lead + (cfg.d_model,), dtype, device),
-        "attn": attn_mod.init_attention(gen, cfg.attn, dtype, device, lead),
-        "norm2": layers.init_rmsnorm(lead + (cfg.d_model,), dtype, device),
-        "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device,
-                               lead),
-    }
+    p = {"norm1": layers.init_rmsnorm(lead + (cfg.d_model,), dtype, device)}
+    if cfg.mixer == "attn":
+        p["attn"] = attn_mod.init_attention(gen, cfg.attn, dtype, device,
+                                            lead)
+    else:
+        p["ssd"] = mamba2.init_ssd(gen, cfg.ssd, dtype, device, lead)
+    if cfg.mlp != "none":
+        p["norm2"] = layers.init_rmsnorm(lead + (cfg.d_model,), dtype, device)
+        p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device,
+                                   lead)
+    return p
 
 
 def init_stack(gen, stack: StackCfg, dtype, device) -> dict:
@@ -82,18 +91,30 @@ def _zero_aux(device) -> dict:
 
 
 def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
-                cfg: BlockCfg, *, return_kv: bool = False,
-                bwd_remat: bool = False):
-    """x: (B, S, E) → (x', aux, kv-or-None); aux is zero for dense."""
+                cfg: BlockCfg, *, return_state: bool = False,
+                bwd_remat: bool = False,
+                last_idx: torch.Tensor | None = None):
+    """x: (B, S, E) → (x', aux, state-or-None); aux is zero for the ported
+    patterns.  With ``return_state`` the block's decode state comes back:
+    the roped ``{"k", "v"}`` (B, S, K, D) of attention, or the SSD's
+    ``{"h", "conv"}`` after position ``last_idx``."""
     h = layers.rmsnorm(params["norm1"], x)
-    out = attn_mod.attention(params["attn"], h, positions, cfg.attn,
-                             return_kv=return_kv, bwd_remat=bwd_remat)
-    kv = None
-    if return_kv:
-        out, kv = out
+    state = None
+    if cfg.mixer == "attn":
+        out = attn_mod.attention(params["attn"], h, positions, cfg.attn,
+                                 return_kv=return_state, bwd_remat=bwd_remat)
+        if return_state:
+            out, (k, v) = out
+            state = {"k": k, "v": v}
+    else:
+        out = mamba2.ssd_block(params["ssd"], h, cfg.ssd, last_idx=last_idx,
+                               return_state=return_state)
+        if return_state:
+            out, state = out
     x = x + out
-    x = x + layers.mlp(params["mlp"], layers.rmsnorm(params["norm2"], x))
-    return x, _zero_aux(x.device), kv
+    if cfg.mlp != "none":
+        x = x + layers.mlp(params["mlp"], layers.rmsnorm(params["norm2"], x))
+    return x, _zero_aux(x.device), state
 
 
 _DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -144,18 +165,21 @@ def apply_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
 
 
 def prefill_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
-                  stack: StackCfg):
-    """Forward returning per-block KV caches ``{"p<i>": {"k", "v"}}`` of
-    shape (n_rep, B, S, K, D) for subsequent decode."""
-    kvs = {f"p{i}": {"k": [], "v": []} for i in range(len(stack.pattern))}
+                  stack: StackCfg, last_idx: torch.Tensor | None = None):
+    """Forward returning each pattern position's decode state for
+    subsequent decode, stacked over repeats: ``{"p<i>": {"k", "v"}}`` of
+    shape (n_rep, B, S, K, D) for attention, ``{"p<i>": {"h", "conv"}}``
+    of shape (n_rep, B, H, P, N) and (n_rep, B, d_conv − 1, H, P) for SSD
+    (the state after ``last_idx``)."""
+    states = [{} for _ in stack.pattern]
     for rep_params in _unstack(params, stack.n_rep):
         for i, bcfg in enumerate(stack.pattern):
-            x, _, (k, v) = apply_block(rep_params[f"p{i}"], x, positions,
-                                       bcfg, return_kv=True)
-            kvs[f"p{i}"]["k"].append(k)
-            kvs[f"p{i}"]["v"].append(v)
-    caches = {name: {key: torch.stack(vals) for key, vals in kv.items()}
-              for name, kv in kvs.items()}
+            x, _, st = apply_block(rep_params[f"p{i}"], x, positions, bcfg,
+                                   return_state=True, last_idx=last_idx)
+            for key, val in st.items():
+                states[i].setdefault(key, []).append(val)
+    caches = {f"p{i}": {key: torch.stack(vals) for key, vals in st.items()}
+              for i, st in enumerate(states)}
     return x, caches
 
 
@@ -165,19 +189,31 @@ def prefill_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
 
 def decode_block(params: dict, x: torch.Tensor, state: dict,
                  pos: torch.Tensor, cfg: BlockCfg):
-    """x: (B, E) one token; state: this block's {"k", "v"} cache, written
-    in place."""
+    """x: (B, E) one token; state: this block's {"k", "v"} cache or SSD
+    {"h", "conv"} state, written in place."""
     h = layers.rmsnorm(params["norm1"], x)
-    out, _, _ = attn_mod.decode_attention(params["attn"], h, state["k"],
-                                          state["v"], pos, cfg.attn)
+    if cfg.mixer == "attn":
+        out, _, _ = attn_mod.decode_attention(params["attn"], h, state["k"],
+                                              state["v"], pos, cfg.attn)
+    else:
+        out = mamba2.ssd_decode_step(params["ssd"], h, state, cfg.ssd)
     x = x + out
-    return x + layers.mlp(params["mlp"], layers.rmsnorm(params["norm2"], x))
+    if cfg.mlp != "none":
+        x = x + layers.mlp(params["mlp"], layers.rmsnorm(params["norm2"], x))
+    return x
 
 
 def init_stack_state(stack: StackCfg, batch: int, max_len: int, dtype,
                      device) -> dict:
+    """Zeroed decode state per pattern position, stacked over repeats: a
+    (n_rep, B, max_len, K, D) KV cache for attention, the SSD state (its
+    size independent of ``max_len``) for SSD."""
     state = {}
     for i, bcfg in enumerate(stack.pattern):
+        if bcfg.mixer == "ssd":
+            state[f"p{i}"] = mamba2.init_ssd_state(batch, bcfg.ssd, dtype,
+                                                   device, (stack.n_rep,))
+            continue
         a = bcfg.attn
         shape = (stack.n_rep, batch, max_len, a.n_kv_heads, a.head_dim)
         state[f"p{i}"] = {"k": torch.zeros(shape, dtype=dtype, device=device),

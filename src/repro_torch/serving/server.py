@@ -4,12 +4,13 @@ A fixed batch of decode *slots* advanced in lock-step by the model's
 ``serve_step``, with per-request prefill at admission.  Two cache modes:
 
 - ``cache="dense"`` — every slot owns ``max_len`` KV rows from admission
-  to finish.
+  to finish (or, for SSD blocks, its O(1) state).
 - ``cache="paged"`` — slots hold pages from a shared pool through a block
   table (:mod:`repro_torch.serving.paged_cache`); admission is gated on
   page availability, pages are appended as decode crosses page
   boundaries, and pool exhaustion preempts the youngest slot (its request
   re-queues and restarts).  Decode reads KV through the paged kernel.
+  Only all-attention models take it.
 
 Prompts are right-padded to power-of-two buckets (min 8), as in the
 reference, so prefill runs at O(log max_len) distinct shapes; ``last_idx``
@@ -146,13 +147,17 @@ class Server:
 
     def _write_slot(self, st: dict, slot: int) -> None:
         """Copy a batch-1 prefill state into slot ``slot`` of the dense
-        cache, padding or cropping its length to ``max_len``."""
-        for name, kv in st["cache"].items():
-            for key, small in kv.items():
-                big = self.state["cache"][name][key]      # (L, B, Smax, K, D)
-                n = min(small.shape[2], big.shape[2])
-                big[:, slot].zero_()
-                big[:, slot, :n] = small[:, 0, :n]
+        cache: KV padded or cropped in length to ``max_len``, an SSD state
+        leaf copied whole."""
+        for name, leaves in st["cache"].items():
+            for key, small in leaves.items():
+                big = self.state["cache"][name][key]
+                if key in ("k", "v"):                   # (L, B, Smax, K, D)
+                    n = min(small.shape[2], big.shape[2])
+                    big[:, slot].zero_()
+                    big[:, slot, :n] = small[:, 0, :n]
+                else:                                   # (L, B, ...) state
+                    big[:, slot] = small[:, 0]
         self.state["pos"][slot] = st["pos"][0]
 
     def _write_prompt_pages(self, cache: dict, pages: list) -> None:

@@ -7,13 +7,16 @@ it runs on a machine with PyTorch alone::
 
 Shapes the main path does not reach: ragged tails, Sk < Sq, other group
 sizes and head_dim 128; for the loss head, ragged token counts, a padded
-vocab (vocab < Vp) and a label in the last real column.
+vocab (vocab < Vp) and a label in the last real column; for the SSD scan,
+chunks from 8 to 256, several groups and batch rows, head dims 32 and 64,
+states 16 to 128, bf16 and f32 inputs (tolerance 5e-4, the reference's).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import flash, paged
+from repro_torch.kernels.ssd import ssd
 from repro_torch.kernels.xent import ops as xent_ops
 from repro_torch.kernels.xent import xent
 
@@ -194,3 +197,58 @@ def test_xent_with_lse_on_card_matches_cpu(cuda, dtype, monkeypatch):
             (hh, ww))
     for a, b in zip(grads["cuda"], grads["cpu"]):
         close(a.float().cpu(), b.float(), TOLS[dtype].grad)
+
+
+def _ssd_inputs(B, S, H, P, G, N, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    tdt = getattr(torch, dtype)
+    x = f32(rng.standard_normal((B, S, H, P))).to(tdt)
+    dt = f32(np.log1p(np.exp(rng.standard_normal((B, S, H)) - 1.0)))
+    A = f32(-np.exp(0.3 * rng.standard_normal(H)))
+    Bm = f32(0.3 * rng.standard_normal((B, S, G, N))).to(tdt)
+    Cm = f32(0.3 * rng.standard_normal((B, S, G, N))).to(tdt)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (1, 64, 4, 64, 1, 128, 8),       # chunk 8: eight chunks of one tile
+    (2, 64, 8, 32, 2, 16, 16),       # groups, batch rows
+    (1, 128, 4, 64, 4, 128, 32),     # one group per head
+    (2, 256, 4, 32, 1, 16, 64),
+    (1, 512, 8, 64, 2, 128, 128),
+    (2, 512, 4, 64, 1, 128, 256),    # the serving chunk, four key tiles
+    (1, 96, 2, 32, 1, 64, 96),       # a chunk that is not a tile multiple
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_matches_plain_on_card(cuda, B, S, H, P, G, N, chunk,
+                                          dtype):
+    args = _ssd_inputs(B, S, H, P, G, N, dtype, cuda, seed=S + N)
+    n0 = ssd.ssd_scan.launches
+    y, h = ssd.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan.launches == n0 + 1
+    assert y.dtype == h.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    want_y, want_h = ssd.ssd_scan_plain(*args, chunk=chunk)
+    close(y.cpu(), want_y.cpu(), 5e-4)
+    close(h.cpu(), want_h.cpu(), 5e-4)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_raises_on_what_it_does_not_take(cuda):
+    args = _ssd_inputs(1, 64, 4, 64, 1, 128, "bfloat16", cuda)
+    with pytest.raises(ValueError, match="must divide"):
+        ssd.ssd_scan(*args, chunk=48)                 # S % chunk != 0
+    x, dt, A, Bm, Cm = _ssd_inputs(1, 512, 2, 64, 1, 128, "float32", cuda)
+    with pytest.raises(ValueError):
+        ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=512)     # longer than 256
+    with pytest.raises(ValueError):
+        ssd.ssd_scan(x, dt, A, Bm.bfloat16(), Cm, chunk=256)
+    with pytest.raises(ValueError):                   # P % 32 != 0
+        ssd.ssd_scan(*_ssd_inputs(1, 64, 2, 16, 1, 16, "float32", cuda),
+                     chunk=64)
+    with pytest.raises(ValueError):                   # N not built
+        ssd.ssd_scan(*_ssd_inputs(1, 64, 2, 32, 1, 48, "float32", cuda),
+                     chunk=64)

@@ -249,21 +249,25 @@ def test_serve_driver_completes_every_request(extra):
     assert s["tokens"] >= 6 and s["steps"] > 0
 
 
-def test_bridge_maps_every_leaf_of_the_full_config():
-    """``params_from_numpy`` on full tinyllama-1.1b shapes, from
-    ``jax.eval_shape`` and zero-stride arrays onto the meta device, so
-    nothing of the 1.1B parameters is allocated."""
+@pytest.mark.parametrize("arch", [ARCH, "mamba2-1.3b"])
+def test_bridge_maps_every_leaf_of_the_full_config(arch):
+    """``params_from_numpy`` on the full config's shapes (tinyllama-1.1b;
+    mamba2-1.3b, tied, so no ``head`` leaf), from ``jax.eval_shape`` and
+    zero-stride arrays onto the meta device, so nothing of the 1.1B or
+    1.3B parameters is allocated."""
     shapes = jax.eval_shape(
-        lambda: JaxModel(jax_get_config(ARCH)).init(jax.random.key(0)))
+        lambda: JaxModel(jax_get_config(arch)).init(jax.random.key(0)))
     tree = {p: np.broadcast_to(np.zeros((), s.dtype), s.shape)
             for p, s in zip(_leaf_paths(shapes), jax.tree.leaves(shapes))}
-    params = params_from_numpy(get_config(ARCH), tree, "meta")
+    params = params_from_numpy(get_config(arch), tree, "meta")
     got = leaf_paths(params)
     assert set(got) == set(tree)
+    assert ("head/w" in got) == (arch == ARCH)
     for path, t in got.items():
         assert tuple(t.shape) == tree[path].shape and t.is_meta, path
+        assert str(t.dtype).removeprefix("torch.") == str(tree[path].dtype)
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     first = next(iter(tree))
     with pytest.raises(ValueError, match="missing"):
         params_from_numpy(cfg, {k: v for k, v in tree.items()
