@@ -13,7 +13,8 @@ and the script exits non-zero without printing a result:
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes tinyllama-1.1b and mamba2-1.3b give it, and at ragged ones
    (tolerance: values f32 2e-5, bf16 2e-2; gradients f32 2e-4, bf16 5e-2;
-   the SSD scan 5e-4, as the reference holds its kernel), and time the
+   the SSD scan 5e-4, as the reference holds its kernel; the int8
+   quantize and dequantize bit for bit, a NaN included), and time the
    kernel, the plain version and one PyTorch library call computing the
    same function (a yardstick the port never calls);
 4. the serving path: ``repro_torch.launch.serve`` serving tinyllama-1.1b
@@ -47,6 +48,23 @@ and the script exits non-zero without printing a result:
 14. where the time goes in one training step: forward, backward and
     optimizer on the host clock, then the device's busy share and top
     kernels under ``torch.profiler``;
+15. the compressed data-parallel training path: the same driver with
+    ``--mesh 1x1x1 --compress-pod`` (a pod of one, through the process
+    group's collectives) at full width for 8 steps, with every kernel's
+    launch count read around it (quantize once and dequantize twice per
+    gradient leaf and step); then the same 8 steps with ``--mesh 1x1x1``
+    alone, for the cost of the compression (at 4 steps the driver's
+    schedule, warm-up 1 and cosine over 4, lifts step 3's loss above step
+    0's with or without compression);
+16. where the compression's time goes: ``compressed_psum_tree`` over
+    gradients of the full model's leaf shapes, on the host clock, then
+    under ``torch.profiler``;
+17. compression on the card against the CPU: the CPU's step-0 gradients of
+    a 2-layer f32 model through both sides' ``quantize_int8`` and
+    ``compressed_psum_tree``, equal bit for bit (q, scale, reduced
+    gradient, residual); then 3 compressed driver steps on each side from
+    the same checkpoint, the losses within a tolerance derived from the
+    int8 values that flip between the two sides' own gradients;
 
 then the kernel table as one JSON line, the card line again, and the last
 line ``{"ok": true, "device": {...}}``.  Needs no network; needs ``nvcc``
@@ -84,6 +102,11 @@ TRAIN_ARGS = ["--arch", ARCH, "--batch", str(TRAIN_BATCH), "--seq",
               str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--optimizer",
               "adamw", "--log-every", "1"]
 SMALL = "n_heads=8,n_kv_heads=2,head_dim=64"     # the 2-layer f32 model
+COMP_STEPS = 8                    # the compressed training path's steps
+COMP_ARGS = ["--arch", ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+             str(TRAIN_SEQ), "--steps", str(COMP_STEPS), "--optimizer",
+             "adamw", "--log-every", "1", "--mesh", "1x1x1"]
+LEAF = 22 * 2048 * 5632           # tinyllama's largest gradient leaf (wi, wg)
 MAMBA = "mamba2-1.3b"
 MAMBA_ARGS = ["--arch", MAMBA, "--cache", "dense", "--requests", "8",
               "--batch-slots", "8", "--prompt-len", "500", "--gen", "64",
@@ -480,6 +503,87 @@ def check_ssd(torch, timer) -> dict:
     return row
 
 
+def same_bits(a, b) -> bool:
+    """Equal element for element, a NaN equal to a NaN."""
+    import torch
+    if a.dtype.is_floating_point:
+        return bool(torch.equal(torch.isnan(a), torch.isnan(b))
+                    and torch.equal(torch.nan_to_num(a, nan=0.0),
+                                    torch.nan_to_num(b, nan=0.0)))
+    return bool(torch.equal(a, b))
+
+
+def check_quant(torch, timer) -> tuple:
+    """The int8 quantize and dequantize kernels against their plain
+    versions, bit for bit (q, s, x): block 256 over 2^26 elements, one
+    block over tinyllama's largest gradient leaf (the compressed training
+    path's shape: one scale per tensor), a bf16 input, and a NaN in each
+    of the two kernel paths (its block's scale NaN on both sides).
+    Returns the (quantize, dequantize) rows of the largest leaf."""
+    from repro_torch.kernels.quant.quant import (dequantize,
+                                                 dequantize_plain, quantize,
+                                                 quantize_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = [(256, 1 << 26, torch.float32, False),
+             (LEAF, LEAF, torch.float32, False),
+             (1 << 26, 1 << 26, torch.bfloat16, False),
+             (256, 1 << 20, torch.float32, True),
+             (1 << 26, 1 << 26, torch.float32, True)]
+    rows = None
+    for block, T, dtype, nan in cases:
+        x = (torch.randn((T,), generator=gen, device="cuda") * 1e-3
+             ).to(dtype)
+        if nan:
+            x[T // 3] = float("nan")
+        q, s = quantize(x, block=block)
+        y = dequantize(q, s, block=block)
+        torch.cuda.synchronize()
+        qp, sp = quantize_plain(x, block)
+        yp = dequantize_plain(qp, sp, block)
+        tag = (f"quant block={block} T={T} {dtype}"
+               f"{' with a NaN' if nan else ''}")
+        if not (same_bits(q, qp) and same_bits(s, sp) and same_bits(y, yp)):
+            raise AssertionError(
+                f"{tag}: q differs at {int((q != qp).sum())}, s at "
+                f"{int((s != sp).sum())}, x at {int((y != yp).sum())}")
+        if nan and not (torch.isnan(s[(T // 3) // block])
+                        and torch.isnan(sp[(T // 3) // block])):
+            raise AssertionError(f"{tag}: the NaN's scale is not NaN")
+        del qp, sp, yp
+        nb = T // block
+        es = x.element_size()
+        b_q = bound(T * (es + 1) + nb * 4, 0, torch.float32)
+        b_d = bound(T * (1 + 4) + nb * 4, 0, torch.float32)
+        ms_q = timer(lambda: quantize(x, block=block))
+        plain_q = timer(lambda: quantize_plain(x, block))
+        ms_d = timer(lambda: dequantize(q, s, block=block))
+        plain_d = timer(lambda: dequantize_plain(q, s, block))
+        # dequantize's one PyTorch call: int8 · f32 promotes to f32 and
+        # rounds once, as the kernel does; quantize has none (abs-max,
+        # divide, round and clamp are four)
+        qv, sv = q.view(nb, block), s[:, None]
+        lib = torch.mul(qv, sv).reshape(-1)
+        if not same_bits(lib, y):
+            raise AssertionError(f"{tag}: torch.mul(q, s) differs from "
+                                 f"dequantize at {int((lib != y).sum())}")
+        del lib
+        lib_d = timer(lambda: torch.mul(qv, sv))
+        print(f"[kernel] {tag}: q, s, x equal bit for bit  quantize "
+              f"{ms_q:.4f} ms (plain {plain_q:.4f}, bound {b_q[0]:.4f}, "
+              f"{b_q[1]}, no library call)  dequantize {ms_d:.4f} ms (plain "
+              f"{plain_d:.4f}, bound {b_d[0]:.4f}, {b_d[1]}, torch.mul "
+              f"{lib_d:.4f})", flush=True)
+        if (block, T, dtype) == (LEAF, LEAF, torch.float32):
+            rows = (dict(max_abs_err=0.0, ms=ms_q, plain_ms=plain_q,
+                         bound_ms=b_q[0], bound_by=b_q[1], library_ms=None),
+                    dict(max_abs_err=0.0, ms=ms_d, plain_ms=plain_d,
+                         bound_ms=b_d[0], bound_by=b_d[1], library_ms=lib_d))
+        del x, q, s, y, qv, sv
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 4-10: the serving driver at full width, and small-model agreement
 # ---------------------------------------------------------------------------
@@ -780,7 +884,7 @@ def train_expected(layers: int, steps: int, vp: int) -> dict:
             "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps,
             "xent_fwd": steps,
             "xent_bwd": steps * -(-vp // xent.bwd_chunk(T, vp)),
-            "ssd_scan": 0}
+            "ssd_scan": 0, "quantize": 0, "dequantize": 0}
 
 
 def train_full(torch, kernels) -> dict:
@@ -853,7 +957,7 @@ def train_agreement(torch) -> None:
     import numpy as np
 
     from repro_torch.configs import get_config, shrink
-    from repro_torch.launch.train import loss_and_grads
+    from repro_torch.core.planner import loss_and_grads
     from repro_torch.models.lm import Model
     from repro_torch.optim.optimizer import adamw
     from repro_torch.tree import flatten
@@ -970,6 +1074,233 @@ def train_time(torch) -> None:
               flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 15-16: the compressed data-parallel training path, and compression
+# on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def train_compressed(torch, kernels) -> tuple:
+    """The driver with ``--mesh 1x1x1 --compress-pod`` at full width, then
+    with ``--mesh 1x1x1`` alone, each with the launch counts, peak device
+    memory and the final checkpoint's write time read around it.  Returns
+    the compressed run's counts and the uncompressed run's."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    from repro_torch.models.lm import Model
+    from repro_torch.tree import flatten
+
+    cfg = get_config(ARCH)
+    leaves = len(flatten(Model(cfg, "meta").init(0))[1])     # 12
+    runs = {}
+    for name, extra in (("compressed", ["--compress-pod"]),
+                        ("uncompressed", [])):
+        need = (4 if extra else 3) * 4 * 1.2e9   # params, mu, nu (+ err)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        try:
+            free = shutil.disk_usage(tmp).free
+            if free < 1.2 * need:
+                raise RuntimeError(
+                    f"{tmp} has {free / 1e9:.1f} GB free; the checkpoint "
+                    f"needs about {need / 1e9:.1f} GB: set TMPDIR to a "
+                    f"larger disk")
+            saves = []
+            save = CheckpointManager.save
+
+            def timed_save(self, *a, **kw):
+                t0 = time.perf_counter()
+                out = save(self, *a, **kw)
+                saves.append(time.perf_counter() - t0)
+                return out
+
+            CheckpointManager.save = timed_save
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(kernels)
+            try:
+                out = train.main(COMP_ARGS + extra + ["--ckpt-dir", tmp])
+            finally:
+                CheckpointManager.save = save
+            counts = read_counts(kernels)
+            peak = torch.cuda.max_memory_allocated()
+            ckpt_bytes = sum(f.stat().st_size for f in os.scandir(
+                os.path.join(tmp, f"step_{COMP_STEPS:08d}")))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        losses, secs = out["losses"], out["step_seconds"]
+        tok_s = TRAIN_BATCH * TRAIN_SEQ * (len(secs) - 1) / sum(secs[1:])
+        print(f"[{name}] mesh {out['mesh']}: losses "
+              f"{[round(x, 4) for x in losses]}; step seconds "
+              f"{[round(x, 4) for x in secs]}; steps 1-{len(secs) - 1}: "
+              f"{sum(secs[1:]) / (len(secs) - 1):.4f} s/step = "
+              f"{tok_s:.1f} tokens/s; peak device memory "
+              f"{peak / 2**30:.2f} GiB; final checkpoint "
+              f"{ckpt_bytes / 1e9:.2f} GB in {saves[-1]:.2f} s; launches "
+              f"{counts}", flush=True)
+        if out["mesh"] != {"pod": 1, "data": 1, "model": 1}:
+            raise AssertionError(f"{name}: mesh {out['mesh']}")
+        if out["final_step"] != COMP_STEPS or len(losses) != COMP_STEPS:
+            raise AssertionError(f"{name} stopped at {out['final_step']}")
+        if not all(math.isfinite(x) for x in losses) \
+                or losses[-1] >= losses[0]:
+            raise AssertionError(f"{name}: loss not finite and falling: "
+                                 f"{losses}")
+        want = train_expected(cfg.n_layers, COMP_STEPS, cfg.padded_vocab)
+        if extra:     # one quantize and two dequantizes per leaf and step
+            want.update(quantize=leaves * COMP_STEPS,
+                        dequantize=2 * leaves * COMP_STEPS)
+        if counts != want:
+            raise AssertionError(f"{name} launches {counts}, want {want}")
+        runs[name] = counts
+    return runs["compressed"], runs["uncompressed"]
+
+
+def compression_time(torch) -> None:
+    """Where the compressed step's extra time goes: ``compressed_psum_tree``
+    over gradients of tinyllama-1.1b's leaf shapes (a world of one, NCCL)
+    on the host clock around a sync, then once under torch.profiler for
+    its kernels by device time."""
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import Model
+    from repro_torch.optim import grad_compress as gc
+    from repro_torch.tree import flatten, unflatten
+
+    paths, metas = flatten(Model(get_config(ARCH), "meta").init(0))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    grads = unflatten(paths, [torch.randn(m.shape, generator=gen,
+                                          device="cuda") * 1e-3
+                              for m in metas])
+    err = gc.init_error_tree(grads)
+    n = sum(m.numel() for m in metas)
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(d, "store"), 1), rank=0, world_size=1)
+        try:
+            run = lambda: gc.compressed_psum_tree(grads, None, err)
+            run()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                run()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / 3 * 1e3
+            host_ms, busy_ms, prof = profiled(torch, run, 1)
+        finally:
+            dist.destroy_process_group()
+    print(f"[time] compressed_psum_tree over tinyllama-1.1b's 12 gradient "
+          f"leaves ({n / 1e9:.3f} G elements, a pod of one): {ms:.2f} ms "
+          f"on the host clock", flush=True)
+    if busy_ms is None:
+        return
+    print(f"[time] under the profiler: {host_ms:.2f} ms, device busy "
+          f"{busy_ms:.2f} ms, idle share {1 - busy_ms / host_ms:.3f}",
+          flush=True)
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    for e in kernels[:12]:
+        print(f"[time]   {e.self_device_time_total / 1e3:8.3f} ms  "
+              f"x{e.count:<4d} {e.key[:90]}", flush=True)
+
+
+def compressed_agreement(torch) -> None:
+    """Compression on the card against the CPU, on a 2-layer f32 model
+    (GQA 8:2, head_dim 64): the CPU's step-0 gradients through both sides'
+    quantize_int8 and compressed_psum_tree (a world of one, gloo for CPU
+    tensors and NCCL for CUDA ones), equal bit for bit; then 3 compressed
+    driver steps on each side from one checkpoint, losses within a derived
+    tolerance."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config, shrink
+    from repro_torch.core.planner import loss_and_grads
+    from repro_torch.launch import train
+    from repro_torch.models.lm import Model
+    from repro_torch.optim import grad_compress as gc
+    from repro_torch.optim.optimizer import adamw
+    from repro_torch.tree import flatten
+
+    cfg = shrink(get_config(ARCH), n_heads=8, n_kv_heads=2, head_dim=64)
+    params = Model(cfg, "cpu").init(0)
+    tokens = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 128)))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        _, _, g = loss_and_grads(Model(cfg, dev), _to(params, dev),
+                                 {"tokens": tokens.to(dev)})
+        grads[dev] = g
+    paths, g_cpu = flatten(grads["cpu"])
+    g_card = flatten(grads["cuda"])[1]
+    worst_g = max(check_close(f"grad {p}", a.cpu(), b, torch.float32, 2e-4)
+                  for p, a, b in zip(paths, g_card, g_cpu))
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("cpu:gloo,cuda:nccl", store=dist.FileStore(
+            os.path.join(d, "store"), 1), rank=0, world_size=1)
+        try:
+            out = {}
+            for dev in ("cpu", "cuda"):
+                g = {p: t.detach().to(dev, copy=True)
+                     for p, t in zip(paths, g_cpu)}
+                enc = {p: gc.quantize_int8(t) for p, t in g.items()}
+                err = gc.init_error_tree(g)
+                red, err = gc.compressed_psum_tree(g, None, err)
+                out[dev] = (enc, red, err)
+            # flips: each side quantising its own step-0 gradients
+            own = [gc.quantize_int8(t)[0].cpu() for t in g_card]
+        finally:
+            dist.destroy_process_group()
+    lr_max, steps = 3e-4, 3           # the driver's schedule peaks at --lr
+    flips, g_flip = 0, 0.0
+    for p, t, q_card in zip(paths, g_cpu, own):
+        a, b = out["cuda"][0][p], out["cpu"][0][p]
+        for name, x, y in (("q", a[0], b[0]), ("scale", a[1], b[1]),
+                           ("residual", a[2], b[2]),
+                           ("reduced", out["cuda"][1][p], out["cpu"][1][p]),
+                           ("error", out["cuda"][2][p], out["cpu"][2][p])):
+            if not same_bits(x.cpu(), y):
+                raise AssertionError(f"compression of {p}: {name} differs "
+                                     f"between card and cpu")
+        flipped = q_card != b[0]
+        flips += int(flipped.sum())
+        g_flip += float(t.abs()[flipped].sum())
+    # a flipped int8 value moves its parameter by at most 2·lr under AdamW
+    # (the step is lr·m̂/(√v̂+ε)), so the loss by at most 2·lr·|∂L/∂θ| per
+    # flip and step, on top of phase 12's card-vs-CPU limit
+    tol = 1e-4 + steps * 2 * lr_max * g_flip
+    print(f"[agree] compression of the same step-0 gradients: q, scale, "
+          f"residual, reduced gradient and error equal bit for bit on card "
+          f"and cpu (12 leaves); the two sides' own gradients differ by "
+          f"{worst_g:.3e} and flip {flips} int8 values (sum |grad| there "
+          f"{g_flip:.3e})", flush=True)
+    init = {"params": params, "opt": adamw().init(params),
+            "err": gc.init_error_tree(params)}
+    losses = {}
+    with tempfile.TemporaryDirectory() as root:
+        for dev in ("cpu", "cuda"):
+            d = os.path.join(root, dev)
+            CheckpointManager(d).save(0, init, extra={"data": {
+                "epoch": 0, "step": 0, "seed": 0}})
+            losses[dev] = train.main(
+                ["--smoke", "--overrides", SMALL, "--batch", "2", "--seq",
+                 "128", "--steps", str(steps), "--log-every", "100",
+                 "--mesh", "1x1x1", "--compress-pod", "--device", dev,
+                 "--ckpt-dir", d])["losses"]
+    worst = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    print(f"[agree] 3 compressed steps from one checkpoint: card "
+          f"{losses['cuda']} vs cpu {losses['cpu']}: max |diff| "
+          f"{worst:.3e} (limit 1e-4 + steps·2·lr·sum|grad at flips| = "
+          f"{tol:.3e})", flush=True)
+    if not worst <= tol:
+        raise AssertionError("compressed training: card and cpu losses "
+                             "differ beyond the limit")
+
+
 @contextlib.contextmanager
 def phase(name: str):
     t0 = time.perf_counter()
@@ -991,6 +1322,7 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash, paged
+    from repro_torch.kernels.quant.quant import dequantize, quantize
     from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.xent import xent
 
@@ -1018,6 +1350,7 @@ def main() -> None:
             torch, timer)
         rows["xent_fwd"], rows["xent_bwd"] = check_xent(torch, timer)
         rows["ssd_scan"] = check_ssd(torch, timer)
+        rows["quantize"], rows["dequantize"] = check_quant(torch, timer)
     del timer
     torch.cuda.empty_cache()
 
@@ -1026,7 +1359,8 @@ def main() -> None:
                "flash_bwd_dq": flash.flash_bwd_dq,
                "flash_bwd_dkv": flash.flash_bwd_dkv,
                "xent_fwd": xent.xent_fwd, "xent_bwd": xent.xent_bwd,
-               "ssd_scan": ssd.ssd_scan}
+               "ssd_scan": ssd.ssd_scan, "quantize": quantize,
+               "dequantize": dequantize}
     with phase("serve (paged, main serving path)"):
         serve_counts = serve_paged(torch, kernels)
     with phase("serve (dense)"):
@@ -1052,6 +1386,14 @@ def main() -> None:
         train_resume(torch)
     with phase("train time breakdown"):
         train_time(torch)
+    torch.cuda.empty_cache()
+    with phase("train compressed (main path of the data-parallel slice)"):
+        comp_counts, mesh_counts = train_compressed(torch, kernels)
+    with phase("compressed step time breakdown"):
+        compression_time(torch)
+    torch.cuda.empty_cache()
+    with phase("compressed agreement"):
+        compressed_agreement(torch)
 
     meta = {
         "flash_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
@@ -1068,12 +1410,18 @@ def main() -> None:
                      "src/repro/kernels/xent/ops.py:91"),
         "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd/ssd.py:31"),
+        "quantize": ("src/repro_torch/kernels/csrc/quant.cu",
+                     "src/repro/kernels/quant/quant.py:22"),
+        "dequantize": ("src/repro_torch/kernels/csrc/quant.cu",
+                       "src/repro/kernels/quant/quant.py:29"),
     }
     table = []
     for name in rows:
         by_path = {"serve": serve_counts[name], "train": train_counts[name],
                    "serve_mamba2": mamba_counts[name],
-                   "serve_mamba2_long": mamba_long_counts[name]}
+                   "serve_mamba2_long": mamba_long_counts[name],
+                   "train_compressed": comp_counts[name],
+                   "train_mesh_uncompressed": mesh_counts[name]}
         table.append(dict(name=name, route="cuda", source=meta[name][0],
                           replaces=meta[name][1],
                           launches=sum(by_path.values()),

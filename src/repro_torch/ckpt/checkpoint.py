@@ -17,6 +17,10 @@ Layout (one directory per step), as ``repro/ckpt/checkpoint.py``::
   waits for the device), then writes on a daemon thread; ``wait()`` joins.
 - A bf16 leaf is saved widened to f32 (numpy has no bf16); ``restore``
   casts every array to the target leaf's dtype, as the reference does.
+- **Many ranks** (data parallelism): every rank holds the same state, so
+  only ``rank`` 0 writes; every rank calls ``barrier`` after each save and
+  each ``wait()``, so no rank reads or moves on before the write is
+  committed; every rank restores.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ import os
 import re
 import shutil
 import threading
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -45,6 +49,8 @@ def _to_host(tree) -> tuple:
 class CheckpointManager:
     directory: str
     keep: int = 3
+    rank: int = 0                          # only rank 0 writes
+    barrier: Callable | None = None        # every rank's, after each write
 
     def __post_init__(self):
         os.makedirs(self.directory, exist_ok=True)
@@ -53,11 +59,17 @@ class CheckpointManager:
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree: Any, *, extra: dict | None = None) -> str:
         self.wait()
-        return self._write(step, *_to_host(tree), extra or {})
+        path = os.path.join(self.directory, f"step_{step:08d}")
+        if self.rank == 0:
+            path = self._write(step, *_to_host(tree), extra or {})
+        self._sync()
+        return path
 
     def save_async(self, step: int, tree: Any, *,
                    extra: dict | None = None) -> None:
         self.wait()
+        if self.rank != 0:
+            return
         paths, host = _to_host(tree)
         self._thread = threading.Thread(
             target=self._write, args=(step, paths, host, extra or {}),
@@ -68,6 +80,11 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        self._sync()
+
+    def _sync(self) -> None:
+        if self.barrier is not None:
+            self.barrier()
 
     def _write(self, step: int, paths: list, leaves: list,
                extra: dict) -> str:

@@ -9,13 +9,20 @@ Shapes the main path does not reach: ragged tails, Sk < Sq, other group
 sizes and head_dim 128; for the loss head, ragged token counts, a padded
 vocab (vocab < Vp) and a label in the last real column; for the SSD scan,
 chunks from 8 to 256, several groups and batch rows, head dims 32 and 64,
-states 16 to 128, bf16 and f32 inputs (tolerance 5e-4, the reference's).
+states 16 to 128, bf16 and f32 inputs (tolerance 5e-4, the reference's);
+for the int8 quantize and dequantize, bit for bit: blocks of 3 to 2^22
+elements (both kernel paths, vector and scalar accesses), f32 and bf16,
+an input that is not 16-byte aligned, NaNs, and ``quantize_int8`` on the
+card against the CPU.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import flash, paged
+from repro_torch.kernels.quant.ops import quant as quant_op
+from repro_torch.kernels.quant.quant import (dequantize, dequantize_plain,
+                                             quantize, quantize_plain)
 from repro_torch.kernels.ssd import ssd
 from repro_torch.kernels.xent import ops as xent_ops
 from repro_torch.kernels.xent import xent
@@ -252,3 +259,71 @@ def test_ssd_kernel_raises_on_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):                   # N not built
         ssd.ssd_scan(*_ssd_inputs(1, 64, 2, 32, 1, 48, "float32", cuda),
                      chunk=64)
+
+
+def _same(a, b) -> bool:
+    if a.dtype.is_floating_point:
+        return bool(torch.equal(torch.isnan(a), torch.isnan(b))
+                    and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+    return bool(torch.equal(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block,T", [
+    (256, 1 << 20),          # one warp per block, vector loads
+    (3, 33),                 # scalar path, tiny blocks
+    (4096, 4096 * 5),        # the largest one-warp block
+    (6000, 6000 * 7),        # two passes, vector loads
+    (5003, 5003 * 2),        # two passes, scalar loads
+    (1 << 22, 1 << 22),      # one scale per tensor
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nan", [False, True])
+def test_quant_kernels_match_plain_bit_for_bit(cuda, block, T, dtype, nan):
+    g = torch.Generator(device=cuda).manual_seed(T)
+    x = (torch.randn((T,), generator=g, device=cuda) * 3).to(
+        getattr(torch, dtype))
+    if nan:
+        x[T // 2] = float("nan")
+    n0 = (quantize.launches, dequantize.launches)
+    q, s = quantize(x, block=block)
+    y = dequantize(q, s, block=block)
+    torch.cuda.synchronize()
+    assert (quantize.launches, dequantize.launches) == (n0[0] + 1, n0[1] + 1)
+    qp, sp = quantize_plain(x, block)
+    assert _same(q, qp) and _same(s, sp)
+    assert _same(y, dequantize_plain(qp, sp, block))
+    if nan:
+        assert torch.isnan(s[(T // 2) // block])
+
+
+@pytest.mark.gpu
+def test_quant_kernels_take_unaligned_views(cuda):
+    base = torch.randn((4097,), device=cuda)
+    x = base[1:]                           # 4 bytes past a 16-byte boundary
+    q, s = quantize(x, block=1024)
+    qp, sp = quantize_plain(x, 1024)
+    assert _same(q, qp) and _same(s, sp)
+    qb = torch.empty((4097,), dtype=torch.int8, device=cuda)[1:]
+    qb.copy_(q)
+    assert _same(dequantize(qb, s, block=1024), dequantize_plain(q, s, 1024))
+    with pytest.raises(ValueError, match="contiguous"):
+        quantize(torch.randn((64, 2), device=cuda)[:, 0], block=64)
+    with pytest.raises(ValueError, match="must divide"):
+        quantize(x, block=1000)
+    assert quant_op(x, block=1024)[0].equal(q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_err", [False, True])
+def test_quantize_int8_on_card_equals_cpu(cuda, with_err):
+    from repro_torch.optim import grad_compress as gc
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((22, 64, 56), generator=g) * 1e-3
+    err = torch.randn(x.shape, generator=g) * 1e-6 if with_err else None
+    got = gc.quantize_int8(x.to(cuda), None if err is None else err.to(cuda))
+    want = gc.quantize_int8(x, err)
+    for a, b in zip(got, want):
+        assert _same(a.cpu(), b)
+    assert _same(gc.dequantize_int8(got[0], got[1]).cpu(),
+                 gc.dequantize_int8(want[0], want[1]))

@@ -34,6 +34,7 @@ from repro.optim import optimizer as jax_opt
 from repro.runtime.fault_tolerance import FaultTolerantLoop as JaxLoop
 from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
+from repro_torch.core import planner
 from repro_torch.data import pipeline
 from repro_torch.kernels.flash_attention import flash
 from repro_torch.kernels.flash_attention.ops import flash as flash_op
@@ -286,7 +287,7 @@ def test_loss_fn_and_every_gradient_leaf_match_reference(impl, use_mask,
     model = lm.Model(cfg, "cpu")
     params = params_from_numpy(cfg, ptree, "cpu")
     tb = {k: torch.tensor(v) for k, v in batch.items()}
-    got_loss, metrics, got = train.loss_and_grads(model, params, tb)
+    got_loss, metrics, got = planner.loss_and_grads(model, params, tb)
     tol = TOLS["float32"]
     close(got_loss, loss, tol.fwd)
     close(metrics["nll"], nll, tol.fwd)
@@ -596,8 +597,15 @@ def test_train_driver_resumes_where_it_stopped(tmp_path, reference_runs):
 
 def test_train_driver_refuses_meshed_flags_and_ragged_micro_batches(
         tmp_path):
+    # the meshed flags of later slices: refused, with the slice named
+    with pytest.raises(SystemExit, match="later slice"):
+        train.main(["--smoke", "--device", "cpu", "--mesh", "1x2",
+                    "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(SystemExit, match="later slice"):
+        train.main(["--smoke", "--device", "cpu", "--pp", "2",
+                    "--ckpt-dir", str(tmp_path)])
     with pytest.raises(SystemExit):
-        train.parse_args(["--mesh", "1x1", "--ckpt-dir", str(tmp_path)])
+        train.parse_args(["--hosts", "2", "--ckpt-dir", str(tmp_path)])
     with pytest.raises(SystemExit):                # --ckpt-dir is required
         train.parse_args(["--smoke"])
     with pytest.raises(ValueError, match="divisible"):
