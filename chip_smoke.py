@@ -16,7 +16,10 @@ and the script exits non-zero without printing a result:
    the SSD scan 5e-4, as the reference holds its kernel; the int8
    quantize and dequantize bit for bit, a NaN included), and time the
    kernel, the plain version and one PyTorch library call computing the
-   same function (a yardstick the port never calls);
+   same function (a yardstick the port never calls); the flash backward's
+   two kernels also against a second launch bit for bit, with their
+   achieved TFLOP/s, shares of the bound, ratio to SDPA's backward and
+   the ptxas registers and spills of their bf16 (tensor-core) builds;
 4. the serving path: ``repro_torch.launch.serve`` serving tinyllama-1.1b
    at full width with the paged KV cache — 16 requests of 500 prompt
    tokens and 64 generated through 8 slots — with every kernel's launch
@@ -293,14 +296,45 @@ def causal_pairs(Sq: int, Sk: int, causal: bool) -> int:
     return n * (n + 1) // 2 + max(Sq - Sk, 0) * Sk
 
 
+def ptxas_usage(pattern: str) -> dict:
+    """{kernel<D>: (registers, spill store bytes, spill load bytes)} from
+    the build log's ``ptxas -v`` lines, for the entry functions whose
+    mangled name holds ``pattern`` (a regex) and one int template
+    argument."""
+    import re
+
+    from repro_torch.kernels import build
+
+    log = build.library_path().with_suffix(".log").read_text()
+    name_re = re.compile(f"({pattern})" + r"ILi(\d+)E")
+    out, name, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = name_re.search(line)
+            name = f"{m[1]}<{m[2]}>" if m else None
+        elif name and "spill stores" in line:
+            spills = tuple(int(x) for x in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", line))
+        elif name and "Used" in line and "registers" in line:
+            out[name] = (int(re.search(r"Used (\d+) registers", line)[1]),
+                         *spills)
+            name = None
+    return out
+
+
 def check_flash_bwd(torch, timer) -> tuple:
     """The dq and dk/dv kernels against the plain backward, from the same
-    (q, k, v, do, lse, delta); returns the rows of the main path's shape
-    (B=4, S=2048, 32/4 heads, D=64, causal, bf16)."""
+    (q, k, v, do, lse, delta), and each against a second launch bit for
+    bit; returns the rows of the main path's shape (B=4, S=2048, 32/4
+    heads, D=64, causal, bf16)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash
 
+    for name, (regs, stores, loads) in ptxas_usage(
+            "flash_bwd_[a-z]+_mma_kernel").items():
+        print(f"[kernel] ptxas {name}: {regs} registers, spill stores "
+              f"{stores} B, spill loads {loads} B", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(2)
     H, K, D = 32, 4, 64
     cases = [(4, 2048, 2048, True, torch.bfloat16),
@@ -318,12 +352,18 @@ def check_flash_bwd(torch, timer) -> tuple:
         args = (q, k, v, do, lse, delta, causal)
         dq = flash.flash_bwd_dq(*args)
         dk, dv = flash.flash_bwd_dkv(*args)
+        again = (flash.flash_bwd_dq(*args), *flash.flash_bwd_dkv(*args))
         torch.cuda.synchronize()
         want = flash.flash_attention_bwd_plain(*args)
         tag = f"flash_bwd B={B} Sq={Sq} Sk={Sk} causal={causal} {dtype}"
         gt = GRAD_TOL[str(dtype)]
         err = [check_close(f"{tag} {n}", g, w, dtype, gt)
                for n, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)]
+        for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
+            if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+                raise AssertionError(f"{tag} {n}: a second launch on the "
+                                     f"same inputs gives other bits")
+        del again
         ms_dq = timer(lambda: flash.flash_bwd_dq(*args))
         ms_dkv = timer(lambda: flash.flash_bwd_dkv(*args))
         plain_ms = timer(lambda: flash.flash_attention_bwd_plain(*args))
@@ -352,14 +392,20 @@ def check_flash_bwd(torch, timer) -> tuple:
                       + 2 * lse.numel() * 4, 10 * pairs * H * D, dtype)
         size = " ".join(f"{n} {float(w.float().abs().max()):.2f}"
                         for n, w in zip(("dq", "dk", "dv"), want))
+        both = ms_dq + ms_dkv
         print(f"[kernel] {tag}: max |plain| {size}; max_abs_err dq "
               f"{err[0]:.3e} dk {err[1]:.3e} "
-              f"dv {err[2]:.3e} (tol {gt:g})  dq kernel {ms_dq:.4f} ms "
-              f"(bound {b_dq[0]:.4f}, {b_dq[1]})  dkv kernel {ms_dkv:.4f} ms "
-              f"(bound {b_dkv[0]:.4f}, {b_dkv[1]})  both {ms_dq + ms_dkv:.4f}"
+              f"dv {err[2]:.3e} (tol {gt:g}); a second launch equal bit for "
+              f"bit  dq kernel {ms_dq:.4f} ms "
+              f"(bound {b_dq[0]:.4f}, {b_dq[1]}; share "
+              f"{b_dq[0] / ms_dq:.3f})  dkv kernel {ms_dkv:.4f} ms "
+              f"(bound {b_dkv[0]:.4f}, {b_dkv[1]}; share "
+              f"{b_dkv[0] / ms_dkv:.3f})  both {both:.4f}"
               f" ms vs backward bound {b_all[0]:.4f} ms ({b_all[1]}, "
-              f"10*pairs*H*D)  plain {plain_ms:.4f} ms  sdpa backward "
-              f"{lib_ms:.4f} ms", flush=True)
+              f"10*pairs*H*D): {10 * pairs * H * D / both / 1e9:.1f} "
+              f"TFLOP/s  plain {plain_ms:.4f} ms  sdpa backward "
+              f"{lib_ms:.4f} ms (both / sdpa {both / lib_ms:.2f})",
+              flush=True)
         if rows is None:
             rows = (dict(max_abs_err=err[0], ms=ms_dq, plain_ms=plain_ms,
                          bound_ms=b_dq[0], bound_by=b_dq[1],
@@ -1072,6 +1118,14 @@ def train_time(torch) -> None:
         t = e.self_device_time_total / 1e3
         print(f"[time]   {t:9.2f} ms/step  x{e.count:<5d} {e.key[:90]}",
               flush=True)
+    bwd = {name: (sum(e.self_device_time_total for e in kernels
+                      if f"flash_bwd_{name}_" in e.key) / 1e3,
+                  sum(e.count for e in kernels
+                      if f"flash_bwd_{name}_" in e.key))
+           for name in ("dq", "dkv")}
+    print("[time] flash backward: " + ", ".join(
+        f"{name} {t:.2f} ms/step (x{n})" for name, (t, n) in bwd.items()),
+        flush=True)
 
 
 # ---------------------------------------------------------------------------

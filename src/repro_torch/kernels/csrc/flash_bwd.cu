@@ -1,8 +1,9 @@
 // Flash attention backward: dq, and dk/dv, as two kernels.
 //
-// Replaces the TPU kernels repro/kernels/flash_attention/flash.py::
-// _flash_bwd_dq_kernel and ::_flash_bwd_dkv_kernel (Pallas).  Wrappers and
-// the plain PyTorch version: repro_torch/kernels/flash_attention/flash.py.
+// Replaces the TPU kernels repro/kernels/flash_attention/flash.py:109
+// _flash_bwd_dq_kernel and flash.py:155 _flash_bwd_dkv_kernel (Pallas).
+// Wrappers and the plain PyTorch version:
+// repro_torch/kernels/flash_attention/flash.py.
 //
 // Both kernels recompute the score tile s = tau * q.k from (q, k) and the
 // forward's per-row lse, so no (Sq, Sk) tensor ever exists:
@@ -12,33 +13,59 @@
 //   dq = tau * sum_k ds k      dk = tau * sum_q ds q      dv = sum_q p do
 //
 // What bounds them on an H100: the arithmetic.  A causal backward needs
-// 10 * pairs * H * D FLOPs for its five products (the two-kernel recompute
-// does 14) on O(S * H * D) bytes.  Like the forward kernel, this first
-// version runs on the f32 FMA pipes, not the tensor cores; the design keeps
-// anything worse from bounding it:
+// 10 * pairs * H * D FLOPs for its five products on O(S * H * D) bytes;
+// the two-kernel recompute does 14 (dq: s, dp, dq; dk/dv: s, dp, dv, dk).
+// Both kernels keep these designs:
 //  - Blocks on Hopper run in no order, so each block owns its output tile
-//    and loops over the other axis: no atomics, and the gradients come out
-//    the same on every run.
-//  - dq: one block per (batch, kv head, 64 rows), a row being one (query,
-//    group-head) pair as in the forward kernel, so each K/V tile loaded into
-//    shared memory serves the G query heads of its kv head.  The kv loop
-//    stops at the causal wedge.
-//  - dk/dv: one block per (batch, kv head, 64 keys); it streams every row
-//    at or after its first key (the reference's i0 = floor(j*bk/bq)), and
-//    the sum over the G query heads sharing the kv head happens inside the
-//    block, since those heads are rows of the same tile.
-//  - Tiles come in with 16-byte loads and are widened to f32 once in
-//    shared memory; each thread holds a 4x8 register tile of scores and a
-//    4x(D/8) tile of each gradient.  bf16 is rounded once on the way out.
-// Ragged tails (S not a multiple of 64) are masked, not required away.
+//    and loops over the other axis: no atomics, and a second launch on the
+//    same inputs gives the same bits.
+//  - A row is one (query, group-head) pair, so each K/V tile serves the G
+//    query heads of its kv head, and dk/dv sum over those heads inside the
+//    block.
+//  - Causal: the dq kernel's kv loop ends at its row tile's last query;
+//    the dk/dv kernel's row loop starts at key0 * G (the reference's
+//    i0 = floor(j*bk/bq)).  Only tiles that straddle the diagonal or a
+//    ragged tail (S not a multiple of the tile) pay for the mask.
+//  - Blocks are numbered longest first (the dq kernel's last row tiles,
+//    the dk/dv kernel's first keys), so the short ones fill the tail.
+//
+// The dtype selects the kernel; this is a dispatch, not a fallback:
+//  - bf16 (the training path): mma.sync.m16n8k16 on the tensor cores,
+//    bf16 operands and f32 accumulation, 4 warps of 16 rows (dq) or 16
+//    keys (dk/dv).  Tiles stay bf16 in shared memory, rows padded by 16
+//    bytes so the 8 rows an ldmatrix reads fall in 8 bank groups.  The
+//    streamed tiles (K/V for dq; Q, dO, lse, delta for dk/dv) sit in a
+//    2-stage ring filled by 16-byte cp.async: tile j+1 loads while tile j
+//    computes, behind one barrier per tile.  s and dp stay in f32
+//    registers; s is scaled by tau there (q is not pre-scaled, which in
+//    bf16 would round twice), exp runs on the SFU (ex2.approx), and p and
+//    ds are rounded to bf16 once, as every tensor-core flash backward does,
+//    to enter the next product from registers as its A operand:
+//      dq:    S = Q.K^T, dP = dO.V^T, then dQ += dS.K;
+//      dk/dv: the transposed tiles S^T = K.Q^T, dP^T = V.dO^T, whose
+//             accumulators the warps owning the keys hold, then
+//             dV += P^T.dO and dK += dS^T.Q, with lse and delta of the
+//             streamed rows broadcast along columns from shared memory.
+//    dq and dk are scaled by tau once, at the end.  mma.sync, not wgmma:
+//    the same registers-to-registers chaining at a lower peak, without
+//    shared-memory descriptors that could only be debugged on the card.
+//  - f32: the FMA kernels of the first port, tiles widened to f32 in
+//    shared memory and 4x8 register tiles a thread; the f32 tolerance
+//    (2e-4) would not survive bf16 or TF32 rounding.
+// Ragged tails are masked, not required away.
 
 #include "common.cuh"
 
 namespace {
 
+constexpr int NT = 128;   // threads in every block: 4 warps
+
+// ---------------------------------------------------------------------------
+// f32: FMA kernels
+// ---------------------------------------------------------------------------
+
 constexpr int BR = 64;    // rows (query, group-head) per tile
 constexpr int BK = 64;    // keys per tile
-constexpr int NT = 128;   // threads: 16 row groups x 8 key/dim groups
 
 template <int D>
 constexpr int dq_smem_bytes() {
@@ -54,53 +81,46 @@ constexpr int dkv_smem_bytes() {
 // Rows [row0, row0 + BR) of a (B, Sq, H, D) tensor for kv head `kvh`
 // (row = query * G + group-head) into dst (BR x (D+1)) times `mul`; rows
 // past `nrows` are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
+template <int D>
+__device__ __forceinline__ void load_rows(float* dst,
+                                          const float* __restrict__ src,
                                           int b, int kvh, int row0, int nrows,
                                           int Sq, int H, int G, float mul) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CPR = D / VEC;
+  constexpr int CPR = D / 4;
   constexpr int DP = D + 1;
   for (int c = threadIdx.x; c < BR * CPR; c += NT) {
-    const int r = c / CPR, dc = (c % CPR) * VEC;
+    const int r = c / CPR, dc = (c % CPR) * 4;
     const int fr = row0 + r;
-    float t[VEC];
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
     if (fr < nrows) {
       const int qi = fr / G, g = fr % G;
-      repro::cvt16<T>(
+      repro::cvt16<float>(
           repro::ld16(src + (((size_t)b * Sq + qi) * H + kvh * G + g) * D + dc),
           t);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) t[e] = 0.f;
     }
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) dst[r * DP + dc + e] = t[e] * mul;
+    for (int e = 0; e < 4; ++e) dst[r * DP + dc + e] = t[e] * mul;
   }
 }
 
 // Keys [k0, k0 + BK) of a (B, Sk, K, D) tensor for kv head `kvh` into dst
 // (BK x (D+1)); keys past Sk are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_keys(float* dst, const T* __restrict__ src,
+template <int D>
+__device__ __forceinline__ void load_keys(float* dst,
+                                          const float* __restrict__ src,
                                           int b, int kvh, int k0, int Sk,
                                           int K) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CPR = D / VEC;
+  constexpr int CPR = D / 4;
   constexpr int DP = D + 1;
   for (int c = threadIdx.x; c < BK * CPR; c += NT) {
-    const int r = c / CPR, dc = (c % CPR) * VEC;
+    const int r = c / CPR, dc = (c % CPR) * 4;
     const int key = k0 + r;
-    float t[VEC];
-    if (key < Sk) {
-      repro::cvt16<T>(
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+    if (key < Sk)
+      repro::cvt16<float>(
           repro::ld16(src + (((size_t)b * Sk + key) * K + kvh) * D + dc), t);
-    } else {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) t[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) dst[r * DP + dc + e] = t[e];
+    for (int e = 0; e < 4; ++e) dst[r * DP + dc + e] = t[e];
   }
 }
 
@@ -127,17 +147,17 @@ __device__ __forceinline__ void tile_dot(const float* A, const float* Bm,
   }
 }
 
-// ---------------------------------------------------------------------------
 // dq: per (batch, kv head, 64 rows), loop kv tiles up to the causal wedge
-// ---------------------------------------------------------------------------
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int Sq, int Sk, int H, int K, int causal, float scale) {
+flash_bwd_dq_fma_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, int Sq, int Sk, int H, int K,
+                        int causal, float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = BK + 1;
   constexpr int DJ = D / 8;             // gradient dims per thread
@@ -154,8 +174,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nrows = Sq * G;
   const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
 
-  load_rows<T, D>(Qs, q, b, kvh, row0, nrows, Sq, H, G, scale);
-  load_rows<T, D>(dOs, dout, b, kvh, row0, nrows, Sq, H, G, 1.f);
+  load_rows<D>(Qs, q, b, kvh, row0, nrows, Sq, H, G, scale);
+  load_rows<D>(dOs, dout, b, kvh, row0, nrows, Sq, H, G, 1.f);
 
   float lse_r[4], dlt[4], acc[4][DJ];
   int qpos[4];
@@ -181,8 +201,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();   // the previous tile's K, V and dS are consumed
-    load_keys<T, D>(Ks, k, b, kvh, k0, Sk, K);
-    load_keys<T, D>(Vs, v, b, kvh, k0, Sk, K);
+    load_keys<D>(Ks, k, b, kvh, k0, Sk, K);
+    load_keys<D>(Vs, v, b, kvh, k0, Sk, K);
     __syncthreads();
 
     float s[4][8];
@@ -226,25 +246,24 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (!live[i]) continue;
     const int fr = row0 + ty * 4 + i;
     const int qi = fr / G, g = fr % G;
-    T* dst = dq + (((size_t)b * Sq + qi) * H + kvh * G + g) * D;
+    float* dst = dq + (((size_t)b * Sq + qi) * H + kvh * G + g) * D;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      dst[tx + 8 * j] = repro::from_float<T>(acc[i][j] * scale);
+    for (int j = 0; j < DJ; ++j) dst[tx + 8 * j] = acc[i][j] * scale;
   }
 }
 
-// ---------------------------------------------------------------------------
 // dk/dv: per (batch, kv head, 64 keys), loop row tiles from the first key on
-// ---------------------------------------------------------------------------
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int Sq, int Sk, int H, int K,
-                     int causal, float scale) {
+flash_bwd_dkv_fma_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int Sq, int Sk, int H, int K, int causal,
+                         float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = BK + 1;
   constexpr int DJ = D / 8;
@@ -264,8 +283,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nrows = Sq * G;
   const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
 
-  load_keys<T, D>(Ks, k, b, kvh, key0, Sk, K);
-  load_keys<T, D>(Vs, v, b, kvh, key0, Sk, K);
+  load_keys<D>(Ks, k, b, kvh, key0, Sk, K);
+  load_keys<D>(Vs, v, b, kvh, key0, Sk, K);
 
   // keys ty*4+i of the tile, dims tx+8j
   float dk_acc[4][DJ], dv_acc[4][DJ];
@@ -280,8 +299,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int row0 = row_begin; row0 < nrows; row0 += BR) {
     __syncthreads();   // the previous tile's Q, dO, P and dS are consumed
-    load_rows<T, D>(Qs, q, b, kvh, row0, nrows, Sq, H, G, scale);
-    load_rows<T, D>(dOs, dout, b, kvh, row0, nrows, Sq, H, G, 1.f);
+    load_rows<D>(Qs, q, b, kvh, row0, nrows, Sq, H, G, scale);
+    load_rows<D>(dOs, dout, b, kvh, row0, nrows, Sq, H, G, 1.f);
     for (int c = tid; c < BR; c += NT) {
       const int fr = row0 + c;
       const bool live = fr < nrows;
@@ -350,77 +369,460 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t off = (((size_t)b * Sk + key) * K + kvh) * D;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
-      dk[off + tx + 8 * j] = repro::from_float<T>(dk_acc[i][j]);
-      dv[off + tx + 8 * j] = repro::from_float<T>(dv_acc[i][j]);
+      dk[off + tx + 8 * j] = dk_acc[i][j];
+      dv[off + tx + 8 * j] = dv_acc[i][j];
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// bf16: tensor-core kernels
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int MR = 64;    // dq: rows per block, 16 per warp
+constexpr int MK = 64;    // dq: keys per streamed tile; dk/dv: keys per block
+
+// Rows of a bf16 tile in shared memory are D + 8 elements apart: the
+// 16-byte pad puts the 8 rows one ldmatrix reads in 8 bank groups.
+template <int D>
+constexpr int PITCH = D + 8;
+
+// dk/dv: rows per streamed tile.  At D=128 the two 16 x 128 accumulators
+// take 128 registers a thread, so the S^T and dP^T tiles are halved.
+template <int D>
+constexpr int DKV_ROWS = D == 64 ? 64 : 32;
+
+template <int D>
+constexpr int dq_mma_smem_bytes() {   // Q, dO; 2 stages of (K, V)
+  return (2 * MR + 4 * MK) * PITCH<D> * 2;
+}
+
+template <int D>
+constexpr int dkv_mma_smem_bytes() {  // K, V; 2 stages of (Q, dO, lse, delta)
+  return (2 * MK + 4 * DKV_ROWS<D>) * PITCH<D> * 2 + 4 * DKV_ROWS<D> * 4;
+}
+
+// cp.async of rows [row0, row0 + R) of a (B, Sq, H, D) tensor for kv head
+// `kvh` (row = query * G + group-head); rows past `nrows` are zero.
+template <int R, int D>
+__device__ __forceinline__ void rows_async(bf16* dst, const bf16* src, int b,
+                                           int kvh, int row0, int nrows,
+                                           int Sq, int H, int G) {
+  constexpr int CPR = D / 8;    // 16-byte chunks per row
+  static_assert(R * CPR % NT == 0, "whole chunks per thread");
+#pragma unroll
+  for (int i = 0; i < R * CPR / NT; ++i) {
+    const int c = threadIdx.x + i * NT;
+    const int r = c / CPR, ch = c % CPR;
+    const int fr = row0 + r;
+    const bool live = fr < nrows;
+    const bf16* s =
+        live ? src + (((size_t)b * Sq + fr / G) * H + kvh * G + fr % G) * D
+                   + ch * 8
+             : src;
+    repro::cp_async16(dst + r * PITCH<D> + ch * 8, s, live);
+  }
+}
+
+// cp.async of keys [k0, k0 + R) of a (B, Sk, K, D) tensor for kv head
+// `kvh`; keys past Sk are zero.
+template <int R, int D>
+__device__ __forceinline__ void keys_async(bf16* dst, const bf16* src, int b,
+                                           int kvh, int k0, int Sk, int K) {
+  constexpr int CPR = D / 8;
+  static_assert(R * CPR % NT == 0, "whole chunks per thread");
+#pragma unroll
+  for (int i = 0; i < R * CPR / NT; ++i) {
+    const int c = threadIdx.x + i * NT;
+    const int r = c / CPR, ch = c % CPR;
+    const int key = k0 + r;
+    const bool live = key < Sk;
+    const bf16* s =
+        live ? src + (((size_t)b * Sk + key) * K + kvh) * D + ch * 8 : src;
+    repro::cp_async16(dst + r * PITCH<D> + ch * 8, s, live);
+  }
+}
+
+// cp.async of lse or delta (B, Sq, K, G) for rows [row0, row0 + R); rows
+// past `nrows` are zero.
+template <int R>
+__device__ __forceinline__ void stats_async(float* dst, const float* src,
+                                            int b, int kvh, int row0,
+                                            int nrows, int Sq, int K, int G) {
+  for (int r = threadIdx.x; r < R; r += NT) {
+    const int fr = row0 + r;
+    const bool live = fr < nrows;
+    const float* s =
+        live ? src + (((size_t)b * Sq + fr / G) * K + kvh) * G + fr % G : src;
+    repro::cp_async4(dst + r, s, live);
+  }
+}
+
+// c[n] += A . B^T over D for N = 2 * NB n8 tiles: A is the warp's 16 rows
+// of a (., D) tile, B the first 16 * NB rows of another, both row-major
+// in shared memory (S = Q.K^T, dP = dO.V^T and their transposes).
+template <int D, int NB>
+__device__ __forceinline__ void mma_abt(float (&c)[2 * NB][4], const bf16* A,
+                                        const bf16* Bm, int lane) {
+  constexpr int P = PITCH<D>;
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+    uint32_t a[4];
+    repro::ldsm4(a, A + (lane % 16) * P + kd * 16 + (lane / 16) * 8);
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      uint32_t bm[4];
+      repro::ldsm4(bm, Bm + (n * 16 + lane % 8 + (lane / 16) * 8) * P
+                           + kd * 16 + ((lane / 8) % 2) * 8);
+      repro::mma_bf16(c[2 * n], a, bm[0], bm[1]);
+      repro::mma_bf16(c[2 * n + 1], a, bm[2], bm[3]);
+    }
+  }
+}
+
+// c[n] += A . B over KB 16-deep slices, for all D / 8 n8 tiles of c: A in
+// registers (the packed p or ds of the warp's 16 rows), B the first
+// 16 * KB rows of a row-major (., D) tile in shared memory.
+template <int D, int KB>
+__device__ __forceinline__ void mma_ab(float (&c)[D / 8][4],
+                                       const uint32_t (&a)[KB][4],
+                                       const bf16* Bm, int lane) {
+  constexpr int P = PITCH<D>;
+#pragma unroll
+  for (int kk = 0; kk < KB; ++kk)
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) {
+      uint32_t bm[4];
+      repro::ldsm4_t(bm, Bm + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * P
+                             + n * 16 + (lane / 16) * 8);
+      repro::mma_bf16(c[2 * n], a[kk], bm[0], bm[1]);
+      repro::mma_bf16(c[2 * n + 1], a[kk], bm[2], bm[3]);
+    }
+}
+
+// 16 rows of f32 accumulators (c[n] holds columns 8n..8n+7) times `mul`
+// as bf16, where row r of the warp's 16 goes to dst(r) (null: skip).
+template <int D, typename Dst>
+__device__ __forceinline__ void store_rows(const float (&c)[D / 8][4],
+                                           float mul, int lane, Dst dst) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    bf16* row = dst(lane / 4 + 8 * h);
+    if (row == nullptr) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(row + n * 8 + (lane % 4) * 2) =
+          repro::pack_bf16(c[n][2 * h] * mul, c[n][2 * h + 1] * mul);
+  }
+}
+
+// dq: per (batch, kv head, 64 rows), loop kv tiles up to the causal wedge.
+// Warp w owns rows 16w..16w+15; lane l holds rows l/4 and l/4 + 8 of them.
+template <int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int B, int Sq, int Sk, int H,
+                        int K, int causal, float scale) {
+  constexpr int P = PITCH<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // MR x P
+  bf16* dOs = Qs + MR * P;                        // MR x P
+  bf16* ring = dOs + MR * P;                      // 2 x (K, V), MK x P each
+
+  const int G = H / K, nrows = Sq * G;
+  const int ntiles = (nrows + MR - 1) / MR;
+  const int bk = blockIdx.x % (B * K);
+  const int b = bk / K, kvh = bk % K;
+  // the last row tiles see the most keys: they launch first
+  const int row0 = (ntiles - 1 - blockIdx.x / (B * K)) * MR;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  int kend = Sk;
+  if (causal) kend = min(Sk, (min(row0 + MR, nrows) - 1) / G + 1);
+  const int nk = (kend + MK - 1) / MK;
+  const int q_first = row0 / G;
+
+  auto load_kv = [&](int j) {   // kv tile j into stage j & 1
+    bf16* dst = ring + (j & 1) * 2 * MK * P;
+    keys_async<MK, D>(dst, k, b, kvh, j * MK, Sk, K);
+    keys_async<MK, D>(dst + MK * P, v, b, kvh, j * MK, Sk, K);
+    repro::cp_async_commit();
+  };
+  rows_async<MR, D>(Qs, q, b, kvh, row0, nrows, Sq, H, G);
+  rows_async<MR, D>(dOs, dout, b, kvh, row0, nrows, Sq, H, G);
+  load_kv(0);
+
+  float lse2[2], dlt[2];
+  int qpos[2];
+  bool live[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int fr = row0 + warp * 16 + lane / 4 + 8 * h;
+    live[h] = fr < nrows;
+    qpos[h] = fr / G;
+    const size_t idx =
+        live[h] ? (((size_t)b * Sq + fr / G) * K + kvh) * G + fr % G : 0;
+    lse2[h] = live[h] ? lse[idx] * LOG2E : 0.f;
+    dlt[h] = live[h] ? delta[idx] : 0.f;
+  }
+  const float tau2 = scale * LOG2E;
+
+  float acc[D / 8][4] = {};
+  const bf16* Qw = Qs + warp * 16 * P;
+  const bf16* dOw = dOs + warp * 16 * P;
+
+  for (int j = 0; j < nk; ++j) {
+    // tile j has landed, and every warp is past tile j - 1, whose stage
+    // takes tile j + 1 while tile j computes: one barrier per tile
+    repro::cp_async_wait<0>();
+    __syncthreads();
+    if (j + 1 < nk) load_kv(j + 1);
+    const bf16* Ks = ring + (j & 1) * 2 * MK * P;
+    const bf16* Vs = Ks + MK * P;
+    const int k0 = j * MK;
+
+    float s[MK / 8][4] = {}, dp[MK / 8][4] = {};
+    mma_abt<D, MK / 16>(s, Qw, Ks, lane);
+    mma_abt<D, MK / 16>(dp, dOw, Vs, lane);
+
+    // ds = p * (dp - delta), p = exp(tau s - lse); the mask only where the
+    // tile straddles the diagonal or a ragged tail
+    const bool edge = (causal && k0 + MK - 1 > q_first) || k0 + MK > Sk
+                      || row0 + MR > nrows;
+#pragma unroll
+    for (int n = 0; n < MK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e / 2;
+        float p = repro::ex2(fmaf(s[n][e], tau2, -lse2[h]));
+        if (edge) {
+          const int key = k0 + n * 8 + (lane % 4) * 2 + (e & 1);
+          if (!live[h] || key >= Sk || (causal && key > qpos[h])) p = 0.f;
+        }
+        dp[n][e] = p * (dp[n][e] - dlt[h]);
+      }
+    uint32_t dsa[MK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < MK / 16; ++kk)
+      repro::pack_a(dsa[kk], dp[2 * kk], dp[2 * kk + 1]);
+    mma_ab<D, MK / 16>(acc, dsa, Ks, lane);
+  }
+
+  const int rw = row0 + warp * 16;
+  store_rows<D>(acc, scale, lane, [&](int r) -> bf16* {
+    const int fr = rw + r;
+    if (fr >= nrows) return nullptr;
+    return dq + (((size_t)b * Sq + fr / G) * H + kvh * G + fr % G) * D;
+  });
+}
+
+// dk/dv: per (batch, kv head, 64 keys), loop row tiles from the first key
+// on.  Warp w owns keys 16w..16w+15; lane l holds keys l/4 and l/4 + 8.
+template <int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int B,
+                         int Sq, int Sk, int H, int K, int causal,
+                         float scale) {
+  constexpr int P = PITCH<D>;
+  constexpr int BN = DKV_ROWS<D>;
+  constexpr int STAGE = 2 * BN * P;          // Q and dO of one stage
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // MK x P
+  bf16* Vs = Ks + MK * P;                         // MK x P
+  bf16* ring = Vs + MK * P;                       // 2 x (Q, dO), BN x P each
+  float* stats = reinterpret_cast<float*>(ring + 2 * STAGE);   // 2 x (l, d)
+
+  const int G = H / K, nrows = Sq * G;
+  const int bk = blockIdx.x % (B * K);
+  const int b = bk / K, kvh = bk % K;
+  // the first keys see the most rows: they launch first
+  const int key0 = blockIdx.x / (B * K) * MK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // causal: rows before key0 * G all belong to queries before the tile's
+  // first key, so every entry they would add is masked
+  const int row_begin = causal ? min(key0 * G, nrows) : 0;
+  const int nt = (nrows - row_begin + BN - 1) / BN;
+
+  auto load_qdo = [&](int j) {   // row tile j into stage j & 1
+    const int row0 = row_begin + j * BN;
+    bf16* dst = ring + (j & 1) * STAGE;
+    float* sd = stats + (j & 1) * 2 * BN;
+    rows_async<BN, D>(dst, q, b, kvh, row0, nrows, Sq, H, G);
+    rows_async<BN, D>(dst + BN * P, dout, b, kvh, row0, nrows, Sq, H, G);
+    stats_async<BN>(sd, lse, b, kvh, row0, nrows, Sq, K, G);
+    stats_async<BN>(sd + BN, delta, b, kvh, row0, nrows, Sq, K, G);
+    repro::cp_async_commit();
+  };
+
+  if (nt > 0) {   // K and V ride in row tile 0's copy group
+    keys_async<MK, D>(Ks, k, b, kvh, key0, Sk, K);
+    keys_async<MK, D>(Vs, v, b, kvh, key0, Sk, K);
+    load_qdo(0);
+  }
+
+  int key[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) key[h] = key0 + warp * 16 + lane / 4 + 8 * h;
+  const float tau2 = scale * LOG2E;
+
+  float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
+  const bf16* Kw = Ks + warp * 16 * P;
+  const bf16* Vw = Vs + warp * 16 * P;
+
+  for (int j = 0; j < nt; ++j) {
+    const int row0 = row_begin + j * BN;
+    // tile j has landed, and every warp is past tile j - 1, whose stage
+    // takes tile j + 1 while tile j computes: one barrier per tile
+    repro::cp_async_wait<0>();
+    __syncthreads();
+    if (j + 1 < nt) load_qdo(j + 1);
+    const bf16* Qs = ring + (j & 1) * STAGE;
+    const bf16* dOs = Qs + BN * P;
+    const float* Ls = stats + (j & 1) * 2 * BN;
+    const float* Ds = Ls + BN;
+
+    // the transposed tiles: keys down, rows across
+    float st[BN / 8][4] = {}, dpt[BN / 8][4] = {};
+    mma_abt<D, BN / 16>(st, Kw, Qs, lane);
+    mma_abt<D, BN / 16>(dpt, Vw, dOs, lane);
+
+    const bool edge = (causal && key0 + MK - 1 > row0 / G) || key0 + MK > Sk
+                      || row0 + BN > nrows;
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e / 2;
+        const int c = n * 8 + (lane % 4) * 2 + (e & 1);
+        float p = repro::ex2(fmaf(st[n][e], tau2, -Ls[c] * LOG2E));
+        if (edge) {
+          const int fr = row0 + c;
+          if (fr >= nrows || key[h] >= Sk || (causal && key[h] > fr / G))
+            p = 0.f;
+        }
+        st[n][e] = p;
+        dpt[n][e] = p * (dpt[n][e] - Ds[c]);
+      }
+    uint32_t pa[BN / 16][4], dsa[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      repro::pack_a(pa[kk], st[2 * kk], st[2 * kk + 1]);
+      repro::pack_a(dsa[kk], dpt[2 * kk], dpt[2 * kk + 1]);
+    }
+    mma_ab<D, BN / 16>(dv_acc, pa, dOs, lane);
+    mma_ab<D, BN / 16>(dk_acc, dsa, Qs, lane);
+  }
+
+  const int kw = key0 + warp * 16;
+  auto key_row = [&](bf16* base) {
+    return [=](int r) -> bf16* {
+      return kw + r < Sk ? base + (((size_t)b * Sk + kw + r) * K + kvh) * D
+                         : nullptr;
+    };
+  };
+  store_rows<D>(dk_acc, scale, lane, key_row(dk));
+  store_rows<D>(dv_acc, 1.f, lane, key_row(dv));
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
 
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
   int B, Sq, Sk, H, K, causal;
   cudaStream_t stream;
+  float scale;
 };
 
-template <typename T, int D>
-cudaError_t launch_dq(const Args& a, void* dq) {
-  auto kern = flash_bwd_dq_kernel<T, D>;
+template <typename Kern, typename... A>
+cudaError_t launch(Kern kern, dim3 grid, int smem, cudaStream_t stream,
+                   A... args) {
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem_bytes<D>());
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int G = a.H / a.K;
-  dim3 grid((a.Sq * G + BR - 1) / BR, a.K, a.B);
-  const float scale = (float)(1.0 / sqrt((double)D));
-  kern<<<grid, NT, dq_smem_bytes<D>(), a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(dq), a.Sq, a.Sk, a.H, a.K, a.causal, scale);
+  kern<<<grid, NT, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
-  auto kern = flash_bwd_dkv_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_smem_bytes<D>());
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.Sk + BK - 1) / BK, a.K, a.B);
-  const float scale = (float)(1.0 / sqrt((double)D));
-  kern<<<grid, NT, dkv_smem_bytes<D>(), a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(dk), static_cast<T*>(dv), a.Sq, a.Sk, a.H,
-      a.K, a.causal, scale);
-  return cudaGetLastError();
+template <int D>
+cudaError_t launch_dq(const Args& a, void* dq, bool bf16_in) {
+  const int G = a.H / a.K;
+  if (bf16_in) {
+    const int tiles = (a.Sq * G + MR - 1) / MR;
+    return launch(flash_bwd_dq_mma_kernel<D>, dim3(tiles * a.B * a.K),
+                  dq_mma_smem_bytes<D>(), a.stream,
+                  static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+                  static_cast<const bf16*>(a.v),
+                  static_cast<const bf16*>(a.dout), a.lse, a.delta,
+                  static_cast<bf16*>(dq), a.B, a.Sq, a.Sk, a.H, a.K, a.causal,
+                  a.scale);
+  }
+  return launch(flash_bwd_dq_fma_kernel<D>,
+                dim3((a.Sq * G + BR - 1) / BR, a.K, a.B), dq_smem_bytes<D>(),
+                a.stream, static_cast<const float*>(a.q),
+                static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+                static_cast<const float*>(a.dout), a.lse, a.delta,
+                static_cast<float*>(dq), a.Sq, a.Sk, a.H, a.K, a.causal,
+                a.scale);
+}
+
+template <int D>
+cudaError_t launch_dkv(const Args& a, void* dk, void* dv, bool bf16_in) {
+  const int tiles = (a.Sk + MK - 1) / MK;
+  if (bf16_in)
+    return launch(flash_bwd_dkv_mma_kernel<D>, dim3(tiles * a.B * a.K),
+                  dkv_mma_smem_bytes<D>(), a.stream,
+                  static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+                  static_cast<const bf16*>(a.v),
+                  static_cast<const bf16*>(a.dout), a.lse, a.delta,
+                  static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.B, a.Sq,
+                  a.Sk, a.H, a.K, a.causal, a.scale);
+  return launch(flash_bwd_dkv_fma_kernel<D>, dim3(tiles, a.K, a.B),
+                dkv_smem_bytes<D>(), a.stream, static_cast<const float*>(a.q),
+                static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+                static_cast<const float*>(a.dout), a.lse, a.delta,
+                static_cast<float*>(dk), static_cast<float*>(dv), a.Sq, a.Sk,
+                a.H, a.K, a.causal, a.scale);
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, int B, int Sq, int Sk,
-               int H, int K, int causal, void* stream) {
+               int H, int K, int D, int causal, void* stream) {
   return Args{q, k, v, dout, lse, delta, B, Sq, Sk, H, K, causal,
-              static_cast<cudaStream_t>(stream)};
+              static_cast<cudaStream_t>(stream),
+              (float)(1.0 / sqrt((double)D))};
 }
 
 }  // namespace
 
 // q/do (B,Sq,H,D), k/v (B,Sk,K,D), lse/delta (B,Sq,K,H/K) f32 -> dq like q.
-// bf16 != 0 selects __nv_bfloat16, else float.  Returns the launch's
-// cudaError_t; an unsupported head dim returns cudaErrorInvalidValue.
+// is_bf16 != 0 selects __nv_bfloat16 (the tensor-core kernel), else float
+// (the FMA kernel).  Returns the launch's cudaError_t; an unsupported head
+// dim returns cudaErrorInvalidValue.
 extern "C" int repro_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   const void* dout, const float* lse,
                                   const float* delta, void* dq, int B, int Sq,
                                   int Sk, int H, int K, int D, int causal,
-                                  int bf16, void* stream) {
-  const Args a = make_args(q, k, v, dout, lse, delta, B, Sq, Sk, H, K, causal,
-                           stream);
-  if (bf16) {
-    if (D == 64) return launch_dq<__nv_bfloat16, 64>(a, dq);
-    if (D == 128) return launch_dq<__nv_bfloat16, 128>(a, dq);
-  } else {
-    if (D == 64) return launch_dq<float, 64>(a, dq);
-    if (D == 128) return launch_dq<float, 128>(a, dq);
-  }
+                                  int is_bf16, void* stream) {
+  const Args a = make_args(q, k, v, dout, lse, delta, B, Sq, Sk, H, K, D,
+                           causal, stream);
+  if (D == 64) return launch_dq<64>(a, dq, is_bf16);
+  if (D == 128) return launch_dq<128>(a, dq, is_bf16);
   return cudaErrorInvalidValue;
 }
 
@@ -429,15 +831,10 @@ extern "C" int repro_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                    const void* dout, const float* lse,
                                    const float* delta, void* dk, void* dv,
                                    int B, int Sq, int Sk, int H, int K, int D,
-                                   int causal, int bf16, void* stream) {
-  const Args a = make_args(q, k, v, dout, lse, delta, B, Sq, Sk, H, K, causal,
-                           stream);
-  if (bf16) {
-    if (D == 64) return launch_dkv<__nv_bfloat16, 64>(a, dk, dv);
-    if (D == 128) return launch_dkv<__nv_bfloat16, 128>(a, dk, dv);
-  } else {
-    if (D == 64) return launch_dkv<float, 64>(a, dk, dv);
-    if (D == 128) return launch_dkv<float, 128>(a, dk, dv);
-  }
+                                   int causal, int is_bf16, void* stream) {
+  const Args a = make_args(q, k, v, dout, lse, delta, B, Sq, Sk, H, K, D,
+                           causal, stream);
+  if (D == 64) return launch_dkv<64>(a, dk, dv, is_bf16);
+  if (D == 128) return launch_dkv<128>(a, dk, dv, is_bf16);
   return cudaErrorInvalidValue;
 }

@@ -6,7 +6,9 @@ it runs on a machine with PyTorch alone::
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Shapes the main path does not reach: ragged tails, Sk < Sq, other group
-sizes and head_dim 128; for the loss head, ragged token counts, a padded
+sizes and head_dim 128; for the flash backward also whole tiles at the
+training heads and at D=128, a second launch equal bit for bit, and one
+launch per wrapper call in bf16 and f32; for the loss head, ragged token counts, a padded
 vocab (vocab < Vp) and a label in the last real column; for the SSD scan,
 chunks from 8 to 256, several groups and batch rows, head dims 32 and 64,
 states 16 to 128, bf16 and f32 inputs (tolerance 5e-4, the reference's);
@@ -111,23 +113,77 @@ def test_paged_kernel_reads_a_bad_page_id_as_the_trash_page(cuda):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_bwd_kernels_match_plain_on_card(cuda, Sq, Sk, H, K, D, causal,
                                                dtype):
-    g = torch.Generator(device=cuda).manual_seed(Sq + Sk)
+    _check_flash_bwd(cuda, 2, Sq, Sk, H, K, D, causal, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,K,D,causal", [
+    (1, 2048, 32, 4, 64, True),      # the training shape's heads and length
+    (2, 1024, 16, 4, 128, True),     # whole tiles at D=128
+    (2, 1024, 16, 4, 128, False),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_kernels_match_plain_on_card_full_tiles(cuda, B, S, H, K, D,
+                                                          causal, dtype):
+    """Lengths that are whole tiles, so most tiles skip the mask."""
+    _check_flash_bwd(cuda, B, S, S, H, K, D, causal, dtype)
+
+
+def _flash_bwd_args(device, B, Sq, Sk, H, K, D, causal, dtype):
+    """(q, k, v, do, lse, delta, causal) on the card, lse from the forward
+    kernel and delta = rowsum(do∘o), as the autograd op builds them."""
+    g = torch.Generator(device=device).manual_seed(Sq + Sk)
     tdt = getattr(torch, dtype)
-    q = torch.randn((2, Sq, H, D), generator=g, device=cuda).to(tdt)
-    k = torch.randn((2, Sk, K, D), generator=g, device=cuda).to(tdt)
-    v = torch.randn((2, Sk, K, D), generator=g, device=cuda).to(tdt)
-    do = torch.randn((2, Sq, H, D), generator=g, device=cuda).to(tdt)
+    q = torch.randn((B, Sq, H, D), generator=g, device=device).to(tdt)
+    k = torch.randn((B, Sk, K, D), generator=g, device=device).to(tdt)
+    v = torch.randn((B, Sk, K, D), generator=g, device=device).to(tdt)
+    do = torch.randn((B, Sq, H, D), generator=g, device=device).to(tdt)
     o, lse = flash.flash_attention(q, k, v, causal)
-    delta = (do.float() * o.float()).sum(-1).reshape(2, Sq, K, H // K)
+    delta = (do.float() * o.float()).sum(-1).reshape(B, Sq, K, H // K)
+    return q, k, v, do, lse, delta, causal
+
+
+def _check_flash_bwd(device, B, Sq, Sk, H, K, D, causal, dtype):
+    args = _flash_bwd_args(device, B, Sq, Sk, H, K, D, causal, dtype)
     n_dq, n_dkv = flash.flash_bwd_dq.launches, flash.flash_bwd_dkv.launches
-    dq, dk, dv = flash.flash_attention_bwd(q, k, v, do, lse, delta, causal)
+    dq, dk, dv = flash.flash_attention_bwd(*args)
     torch.cuda.synchronize()
     assert flash.flash_bwd_dq.launches == n_dq + 1
     assert flash.flash_bwd_dkv.launches == n_dkv + 1
-    want = flash.flash_attention_bwd_plain(q, k, v, do, lse, delta, causal)
+    want = flash.flash_attention_bwd_plain(*args)
     for got, ref in zip((dq, dk, dv), want):
         assert got.dtype == ref.dtype and got.shape == ref.shape
         close(got.float().cpu(), ref.float().cpu(), TOLS[dtype].grad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sq,Sk,H,K,D,causal", [
+    (300, 300, 32, 4, 64, True),
+    (200, 120, 16, 4, 128, False),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_kernels_repeat_bit_for_bit_on_card(cuda, Sq, Sk, H, K, D,
+                                                      causal, dtype):
+    """No atomics: a second launch on the same inputs gives the same bits."""
+    args = _flash_bwd_args(cuda, 2, Sq, Sk, H, K, D, causal, dtype)
+    first = (flash.flash_bwd_dq(*args), *flash.flash_bwd_dkv(*args))
+    second = (flash.flash_bwd_dq(*args), *flash.flash_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_wrappers_launch_once_per_call_on_card(cuda, dtype):
+    args = _flash_bwd_args(cuda, 1, 128, 128, 8, 2, 64, True, dtype)
+    counts = lambda: (flash.flash_bwd_dq.launches,
+                      flash.flash_bwd_dkv.launches)
+    n_dq, n_dkv = counts()
+    flash.flash_bwd_dq(*args)
+    assert counts() == (n_dq + 1, n_dkv)
+    flash.flash_bwd_dkv(*args)
+    assert counts() == (n_dq + 1, n_dkv + 1)
 
 
 def _xent_inputs(T, E, V, vocab, dtype, device, seed=0):

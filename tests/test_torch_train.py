@@ -126,6 +126,60 @@ def test_flash_bwd_plain_matches_reference_bwd(B, Sq, Sk, H, K, D, causal):
         close(g, w, TOLS["float32"].grad)
 
 
+def _bwd_tensor_core_rounding(q, k, v, do, lse, delta, causal):
+    """The bf16 backward kernels' rounding points in plain torch: bf16
+    inputs; s = q·kᵀ and dp = do·vᵀ in f32; p = exp(τ·s − lse) and
+    ds = p∘(dp − δ) in f32, then each rounded to bf16 before the three
+    gradient products, which sum in f32; τ on dq and dk at the end, and
+    one rounding to bf16 on the way out."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    tau = D ** -0.5
+    qf = q.float().reshape(B, Sq, K, G, D)
+    dof = do.float().reshape(B, Sq, K, G, D)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf)
+    p = torch.exp(s * tau - lse.permute(0, 2, 3, 1)[..., None])
+    if causal:
+        p = torch.where(torch.arange(Sq)[:, None] >= torch.arange(Sk), p, 0.)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    p, ds = p.bfloat16().float(), ds.bfloat16().float()
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * tau
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * tau
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    return (dq.reshape(B, Sq, H, D).bfloat16(), dk.bfloat16(),
+            dv.bfloat16())
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,K,D,causal,block", [
+    (1, 256, 256, 16, 2, 64, True, 128),     # G=8, as tinyllama's heads
+    (1, 200, 300, 4, 2, 128, False, 100),    # Sq != Sk, G=2, D=128
+    (2, 100, 100, 8, 2, 64, True, 50),       # ragged: no multiple of 64
+])
+def test_flash_bwd_tensor_core_rounding_matches_reference(B, Sq, Sk, H, K, D,
+                                                          causal, block):
+    """The bf16 kernels' precision design (p and ds rounded to bf16 before
+    the products) against the reference's fused backward in bf16
+    (interpret mode), at the bf16 gradient tolerance."""
+    q, k, v, do = np_inputs((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, D),
+                            (B, Sq, H, D), seed=Sq + D)
+    jq, jk, jv, jdo = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, do))
+    o, lse = jax_flash_fwd(jq, jk, jv, causal=causal, block_q=block,
+                           block_k=block, interpret=True, return_lse=True)
+    delta = jnp.sum(jdo.astype(jnp.float32) * o.astype(jnp.float32),
+                    axis=-1).reshape(B, Sq, K, H // K)
+    want = jax_flash_bwd(jq, jk, jv, jdo, lse, delta, causal=causal,
+                         block_q=block, block_k=block, interpret=True)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32))
+    got = _bwd_tensor_core_rounding(
+        *(t(a).bfloat16() for a in (q, k, v, do)), t(lse), t(delta), causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        close(g.float(), np.asarray(w, np.float32), TOLS["bfloat16"].grad)
+
+
 def test_flash_bwd_wrappers_count_nothing_on_cpu_and_reject_meta():
     q, k, v, do = (torch.tensor(a) for a in np_inputs(
         (1, 16, 4, 64), (1, 16, 2, 64), (1, 16, 2, 64), (1, 16, 4, 64)))
