@@ -16,10 +16,12 @@ and the script exits non-zero without printing a result:
    the SSD scan 5e-4, as the reference holds its kernel; the int8
    quantize and dequantize bit for bit, a NaN included), and time the
    kernel, the plain version and one PyTorch library call computing the
-   same function (a yardstick the port never calls); the flash backward's
-   two kernels also against a second launch bit for bit, with their
-   achieved TFLOP/s, shares of the bound, ratio to SDPA's backward and
-   the ptxas registers and spills of their bf16 (tensor-core) builds;
+   same function (a yardstick the port never calls); the flash forward,
+   the flash backward's two kernels and the xent forward also against a
+   second launch bit for bit, with their achieved TFLOP/s, shares of the
+   bound, ratio to the library call (the flash forward at the training
+   step's shape too) and the ptxas registers and spills of their bf16
+   (tensor-core) builds, which must not spill;
 4. the serving path: ``repro_torch.launch.serve`` serving tinyllama-1.1b
    at full width with the paged KV cache — 16 requests of 500 prompt
    tokens and 64 generated through 8 slots — with every kernel's launch
@@ -49,8 +51,8 @@ and the script exits non-zero without printing a result:
 13. resume on the card: 4 steps straight against 2 steps, then a relaunch
     to 4 on the same checkpoint directory; the resumed losses are equal;
 14. where the time goes in one training step: forward, backward and
-    optimizer on the host clock, then the device's busy share and top
-    kernels under ``torch.profiler``;
+    optimizer on the host clock, then the device's busy share, top kernels
+    and the port's kernels' device ms per step under ``torch.profiler``;
 15. the compressed data-parallel training path: the same driver with
     ``--mesh 1x1x1 --compress-pod`` (a pod of one, through the process
     group's collectives) at full width for 8 steps, with every kernel's
@@ -180,47 +182,66 @@ def check_close(name: str, got, want, dtype, tol=None) -> float:
 # ---------------------------------------------------------------------------
 
 def check_flash(torch, timer) -> dict:
+    """The flash forward kernel against its plain version (o and lse) and
+    against a second launch bit for bit: serving's prefill heads at B=1
+    and S up to 1024, a cross shape, and the training step's shape (B=4,
+    S=2048, 32/4 heads, D=64, causal, bf16), each timed beside SDPA in this
+    call.  Prints the bf16 (tensor-core) builds' ptxas registers and spills
+    and fails on a spill.  Returns the row of the training shape."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash
 
+    print_ptxas("flash_fwd_mma_kernel")
     gen = torch.Generator(device="cuda").manual_seed(0)
     H, K, D = 32, 4, 64
-    cases = [(256, 256, True), (512, 512, True), (1024, 1024, True),
-             (384, 1000, False)]
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(1, 256, 256, True, (bf16, f32)),
+             (1, 512, 512, True, (bf16, f32)),
+             (1, 1024, 1024, True, (bf16, f32)),
+             (1, 384, 1000, False, (bf16, f32)),
+             (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, True, (bf16,))]
     row = None
-    for Sq, Sk, causal in cases:
-        for dtype in (torch.bfloat16, torch.float32):
-            q = torch.randn((1, Sq, H, D), generator=gen, device="cuda"
+    for B, Sq, Sk, causal, dtypes in cases:
+        for dtype in dtypes:
+            q = torch.randn((B, Sq, H, D), generator=gen, device="cuda"
                             ).to(dtype)
-            k = torch.randn((1, Sk, K, D), generator=gen, device="cuda"
+            k = torch.randn((B, Sk, K, D), generator=gen, device="cuda"
                             ).to(dtype)
-            v = torch.randn((1, Sk, K, D), generator=gen, device="cuda"
+            v = torch.randn((B, Sk, K, D), generator=gen, device="cuda"
                             ).to(dtype)
             o, lse = flash.flash_attention(q, k, v, causal)
+            again = flash.flash_attention(q, k, v, causal)
             torch.cuda.synchronize()
             o_ref, lse_ref = flash.flash_attention_plain(q, k, v, causal)
-            tag = f"flash_fwd Sq={Sq} Sk={Sk} causal={causal} {dtype}"
+            tag = f"flash_fwd B={B} Sq={Sq} Sk={Sk} causal={causal} {dtype}"
             err = max(check_close(tag + " o", o, o_ref, dtype),
                       check_close(tag + " lse", lse, lse_ref, dtype))
+            assert_same_bits(tag, (o, lse), again)
+            del o_ref, lse_ref, again
             ms = timer(lambda: flash.flash_attention(q, k, v, causal))
             plain_ms = timer(lambda: flash.flash_attention_plain(q, k, v,
                                                                  causal))
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             lib_ms = timer(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=True))
-            flops = 4 * causal_pairs(Sq, Sk, causal) * H * D     # B = 1
+            flops = 4 * B * causal_pairs(Sq, Sk, causal) * H * D
             nbytes = (2 * q.numel() + k.numel() + v.numel()) \
                 * q.element_size() + lse.numel() * 4
             b_ms, b_by = bound(nbytes, flops, dtype)
             print(f"[kernel] {tag}: max_abs_err {err:.3e} (tol "
-                  f"{TOL[str(dtype)]:g})  kernel "
-                  f"{ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa "
-                  f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})",
+                  f"{TOL[str(dtype)]:g}); a second launch equal bit for bit"
+                  f"  kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+                  f"share of the bound {b_ms / ms:.3f})  plain "
+                  f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms (kernel / sdpa "
+                  f"{ms / lib_ms:.2f})  bound {b_ms:.4f} ms ({b_by})",
                   flush=True)
-            if (Sq, causal, dtype) == (512, True, torch.bfloat16):
+            if (B, Sq, causal, dtype) == (TRAIN_BATCH, TRAIN_SEQ, True,
+                                          bf16):
                 row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            del q, k, v, o, lse, qt, kt, vt
+            torch.cuda.empty_cache()
     return row
 
 
@@ -297,21 +318,21 @@ def causal_pairs(Sq: int, Sk: int, causal: bool) -> int:
 
 
 def ptxas_usage(pattern: str) -> dict:
-    """{kernel<D>: (registers, spill store bytes, spill load bytes)} from
+    """{kernel[<D>]: (registers, spill store bytes, spill load bytes)} from
     the build log's ``ptxas -v`` lines, for the entry functions whose
-    mangled name holds ``pattern`` (a regex) and one int template
-    argument."""
+    mangled name holds ``pattern`` (a regex), with or without one int
+    template argument."""
     import re
 
     from repro_torch.kernels import build
 
     log = build.library_path().with_suffix(".log").read_text()
-    name_re = re.compile(f"({pattern})" + r"ILi(\d+)E")
+    name_re = re.compile(f"({pattern})" + r"(?:ILi(\d+)E)?")
     out, name, spills = {}, None, (0, 0)
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = name_re.search(line)
-            name = f"{m[1]}<{m[2]}>" if m else None
+            name = (m[1] + (f"<{m[2]}>" if m[2] else "")) if m else None
         elif name and "spill stores" in line:
             spills = tuple(int(x) for x in re.findall(
                 r"(\d+) bytes spill (?:stores|loads)", line))
@@ -320,6 +341,28 @@ def ptxas_usage(pattern: str) -> dict:
                          *spills)
             name = None
     return out
+
+
+def print_ptxas(pattern: str) -> None:
+    """Print the registers and spills of the tensor-core builds whose names
+    match ``pattern``; fail if one spills or none is found."""
+    usage = ptxas_usage(pattern)
+    if not usage:
+        raise AssertionError(f"no ptxas lines for {pattern} in the build log")
+    for name, (regs, stores, loads) in usage.items():
+        print(f"[kernel] ptxas {name}: {regs} registers, spill stores "
+              f"{stores} B, spill loads {loads} B", flush=True)
+        if stores or loads:
+            raise AssertionError(f"{name} spills registers")
+
+
+def assert_same_bits(tag: str, first, second) -> None:
+    """Tensors of one launch equal those of a second launch bit for bit."""
+    import torch
+    for a, b in zip(first, second):
+        if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+            raise AssertionError(f"{tag}: a second launch on the same inputs "
+                                 f"gives other bits")
 
 
 def check_flash_bwd(torch, timer) -> tuple:
@@ -331,10 +374,7 @@ def check_flash_bwd(torch, timer) -> tuple:
 
     from repro_torch.kernels.flash_attention import flash
 
-    for name, (regs, stores, loads) in ptxas_usage(
-            "flash_bwd_[a-z]+_mma_kernel").items():
-        print(f"[kernel] ptxas {name}: {regs} registers, spill stores "
-              f"{stores} B, spill loads {loads} B", flush=True)
+    print_ptxas("flash_bwd_[a-z]+_mma_kernel")
     gen = torch.Generator(device="cuda").manual_seed(2)
     H, K, D = 32, 4, 64
     cases = [(4, 2048, 2048, True, torch.bfloat16),
@@ -359,10 +399,7 @@ def check_flash_bwd(torch, timer) -> tuple:
         gt = GRAD_TOL[str(dtype)]
         err = [check_close(f"{tag} {n}", g, w, dtype, gt)
                for n, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)]
-        for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
-            if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
-                raise AssertionError(f"{tag} {n}: a second launch on the "
-                                     f"same inputs gives other bits")
+        assert_same_bits(tag, (dq, dk, dv), again)
         del again
         ms_dq = timer(lambda: flash.flash_bwd_dq(*args))
         ms_dkv = timer(lambda: flash.flash_bwd_dkv(*args))
@@ -419,14 +456,18 @@ def check_flash_bwd(torch, timer) -> tuple:
 
 
 def check_xent(torch, timer) -> tuple:
-    """The xent forward kernel against its plain version at the training
-    path's loss head (T = 4·2047, E = 2048, V = 32000) and with a padded
-    vocab, then the backward's elementwise pass on one f32 chunk; returns
-    the (forward, backward) rows of the main path's shapes."""
+    """The xent forward kernel against its plain version and a second
+    launch bit for bit, at the training path's loss head (T = 4·2047,
+    E = 2048, V = 32000) and with a padded vocab, timed beside
+    ``F.cross_entropy(h @ W)`` in this call (with the bf16 build's ptxas
+    registers and spills); then the backward's elementwise pass on one f32
+    chunk.  Returns the (forward, backward) rows of the main path's
+    shapes."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.xent import xent
 
+    print_ptxas("xent_fwd_mma_kernel")
     gen = torch.Generator(device="cuda").manual_seed(3)
     E, V = 2048, 32000
     T = TRAIN_BATCH * (TRAIN_SEQ - 1)
@@ -441,6 +482,7 @@ def check_xent(torch, timer) -> tuple:
                                device="cuda", dtype=torch.int32)
         labels[0] = vocab - 1                       # the last real column
         nll, lse = xent.xent_fwd(h, w, labels, vocab)
+        again = xent.xent_fwd(h, w, labels, vocab)
         torch.cuda.synchronize()
         want = xent.xent_fwd_plain(h, w, labels, vocab)
         tag = f"xent_fwd T={T_} E={E} V={V} vocab={vocab} {dtype}"
@@ -448,6 +490,7 @@ def check_xent(torch, timer) -> tuple:
             raise AssertionError(f"{tag}: non-finite output")
         err = max(check_close(tag + " nll", nll, want[0], torch.float32),
                   check_close(tag + " lse", lse, want[1], torch.float32))
+        assert_same_bits(tag, (nll, lse), again)
         ms = timer(lambda: xent.xent_fwd(h, w, labels, vocab))
         plain_ms = timer(lambda: xent.xent_fwd_plain(h, w, labels, vocab))
         lab64 = labels.long()
@@ -455,14 +498,18 @@ def check_xent(torch, timer) -> tuple:
         es = h.element_size()
         b_ms, b_by = bound((h.numel() + w.numel()) * es + 3 * T_ * 4,
                            2 * T_ * E * V, dtype)
-        print(f"[kernel] {tag}: max_abs_err {err:.3e} (tol 2e-05)  kernel "
-              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  F.cross_entropy(h @ W)"
-              f" (two calls) {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})",
+        flops = 2 * T_ * E * V
+        print(f"[kernel] {tag}: max_abs_err {err:.3e} (tol 2e-05); a second "
+              f"launch equal bit for bit  kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s, share of the bound "
+              f"{b_ms / ms:.3f})  plain {plain_ms:.4f} ms  "
+              f"F.cross_entropy(h @ W) (two calls) {lib_ms:.4f} ms (kernel / "
+              f"library {ms / lib_ms:.2f})  bound {b_ms:.4f} ms ({b_by})",
               flush=True)
         if fwd_row is None:
             fwd_row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-        del h, w, want
+        del h, w, want, again
         torch.cuda.empty_cache()
 
     chunk = xent.bwd_chunk(T, V)
@@ -1118,13 +1165,17 @@ def train_time(torch) -> None:
         t = e.self_device_time_total / 1e3
         print(f"[time]   {t:9.2f} ms/step  x{e.count:<5d} {e.key[:90]}",
               flush=True)
-    bwd = {name: (sum(e.self_device_time_total for e in kernels
-                      if f"flash_bwd_{name}_" in e.key) / 1e3,
-                  sum(e.count for e in kernels
-                      if f"flash_bwd_{name}_" in e.key))
-           for name in ("dq", "dkv")}
-    print("[time] flash backward: " + ", ".join(
-        f"{name} {t:.2f} ms/step (x{n})" for name, (t, n) in bwd.items()),
+    ours = {name: (sum(e.self_device_time_total for e in kernels
+                       if any(k in e.key for k in keys)) / 1e3,
+                   sum(e.count for e in kernels
+                       if any(k in e.key for k in keys)))
+            for name, keys in (("flash forward", ("flash_fwd_",)),
+                               ("xent forward", ("xent_fwd_",
+                                                 "xent_merge_")),
+                               ("flash backward dq", ("flash_bwd_dq_",)),
+                               ("flash backward dkv", ("flash_bwd_dkv_",)))}
+    print("[time] the port's kernels: " + ", ".join(
+        f"{name} {t:.2f} ms/step (x{n})" for name, (t, n) in ours.items()),
         flush=True)
 
 

@@ -1,6 +1,7 @@
 // Helpers shared by the kernels: 16-byte vector loads converted to f32,
-// the f32 -> storage-type conversion (T is float or __nv_bfloat16), and
-// the tensor-core building blocks (cp.async, ldmatrix, mma.sync).
+// the f32 -> storage-type conversion (T is float or __nv_bfloat16), the
+// tensor-core building blocks (cp.async, ldmatrix, mma.sync), and the bf16
+// flash kernels' tile loads and P.V product.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -10,6 +11,8 @@
 namespace repro {
 
 constexpr float NEG_INF = -1e30f;   // the reference's mask value
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // 16 bytes of T held in registers, converted to 16 / sizeof(T) floats.
 template <typename T>
@@ -162,6 +165,81 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
   a[1] = pack_bf16(c0[2], c0[3]);
   a[2] = pack_bf16(c1[0], c1[1]);
   a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// ---------------------------------------------------------------------------
+// Tiles of the bf16 flash kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu),
+// blocks of NT threads.  A row is one (query, group-head) pair of a
+// (B, Sq, H, D) tensor, row = query * G + group-head; a key is one position
+// of a (B, Sk, K, D) tensor.
+// ---------------------------------------------------------------------------
+
+// Rows of a bf16 tile in shared memory are D + 8 elements apart: the
+// 16-byte pad puts the 8 rows one ldmatrix reads in 8 bank groups.
+template <int D>
+constexpr int PITCH = D + 8;
+
+// cp.async of rows [row0, row0 + R) of a (B, Sq, H, D) tensor for kv head
+// `kvh`; rows past `nrows` are zero.
+template <int R, int D, int NT>
+__device__ __forceinline__ void rows_async(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src, int b,
+                                           int kvh, int row0, int nrows,
+                                           int Sq, int H, int G) {
+  constexpr int CPR = D / 8;    // 16-byte chunks per row
+  static_assert(R * CPR % NT == 0, "whole chunks per thread");
+#pragma unroll
+  for (int i = 0; i < R * CPR / NT; ++i) {
+    const int c = threadIdx.x + i * NT;
+    const int r = c / CPR, ch = c % CPR;
+    const int fr = row0 + r;
+    const bool live = fr < nrows;
+    const __nv_bfloat16* s =
+        live ? src + (((size_t)b * Sq + fr / G) * H + kvh * G + fr % G) * D
+                   + ch * 8
+             : src;
+    cp_async16(dst + r * PITCH<D> + ch * 8, s, live);
+  }
+}
+
+// cp.async of keys [k0, k0 + R) of a (B, Sk, K, D) tensor for kv head
+// `kvh`; keys past Sk are zero.
+template <int R, int D, int NT>
+__device__ __forceinline__ void keys_async(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src, int b,
+                                           int kvh, int k0, int Sk, int K) {
+  constexpr int CPR = D / 8;
+  static_assert(R * CPR % NT == 0, "whole chunks per thread");
+#pragma unroll
+  for (int i = 0; i < R * CPR / NT; ++i) {
+    const int c = threadIdx.x + i * NT;
+    const int r = c / CPR, ch = c % CPR;
+    const int key = k0 + r;
+    const bool live = key < Sk;
+    const __nv_bfloat16* s =
+        live ? src + (((size_t)b * Sk + key) * K + kvh) * D + ch * 8 : src;
+    cp_async16(dst + r * PITCH<D> + ch * 8, s, live);
+  }
+}
+
+// c[n] += A . B over KB 16-deep slices, for all D / 8 n8 tiles of c: A in
+// registers (the packed p or ds of the warp's 16 rows), B the first
+// 16 * KB rows of a row-major (., D) tile in shared memory.
+template <int D, int KB>
+__device__ __forceinline__ void mma_ab(float (&c)[D / 8][4],
+                                       const uint32_t (&a)[KB][4],
+                                       const __nv_bfloat16* Bm, int lane) {
+  constexpr int P = PITCH<D>;
+#pragma unroll
+  for (int kk = 0; kk < KB; ++kk)
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) {
+      uint32_t bm[4];
+      ldsm4_t(bm, Bm + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * P
+                      + n * 16 + (lane / 16) * 8);
+      mma_bf16(c[2 * n], a[kk], bm[0], bm[1]);
+      mma_bf16(c[2 * n + 1], a[kk], bm[2], bm[3]);
+    }
 }
 
 }  // namespace repro

@@ -380,14 +380,13 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q,
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-constexpr float LOG2E = 1.4426950408889634f;
+using repro::keys_async;
+using repro::LOG2E;
+using repro::mma_ab;
+using repro::PITCH;
+using repro::rows_async;
 constexpr int MR = 64;    // dq: rows per block, 16 per warp
 constexpr int MK = 64;    // dq: keys per streamed tile; dk/dv: keys per block
-
-// Rows of a bf16 tile in shared memory are D + 8 elements apart: the
-// 16-byte pad puts the 8 rows one ldmatrix reads in 8 bank groups.
-template <int D>
-constexpr int PITCH = D + 8;
 
 // dk/dv: rows per streamed tile.  At D=128 the two 16 x 128 accumulators
 // take 128 registers a thread, so the S^T and dP^T tiles are halved.
@@ -402,47 +401,6 @@ constexpr int dq_mma_smem_bytes() {   // Q, dO; 2 stages of (K, V)
 template <int D>
 constexpr int dkv_mma_smem_bytes() {  // K, V; 2 stages of (Q, dO, lse, delta)
   return (2 * MK + 4 * DKV_ROWS<D>) * PITCH<D> * 2 + 4 * DKV_ROWS<D> * 4;
-}
-
-// cp.async of rows [row0, row0 + R) of a (B, Sq, H, D) tensor for kv head
-// `kvh` (row = query * G + group-head); rows past `nrows` are zero.
-template <int R, int D>
-__device__ __forceinline__ void rows_async(bf16* dst, const bf16* src, int b,
-                                           int kvh, int row0, int nrows,
-                                           int Sq, int H, int G) {
-  constexpr int CPR = D / 8;    // 16-byte chunks per row
-  static_assert(R * CPR % NT == 0, "whole chunks per thread");
-#pragma unroll
-  for (int i = 0; i < R * CPR / NT; ++i) {
-    const int c = threadIdx.x + i * NT;
-    const int r = c / CPR, ch = c % CPR;
-    const int fr = row0 + r;
-    const bool live = fr < nrows;
-    const bf16* s =
-        live ? src + (((size_t)b * Sq + fr / G) * H + kvh * G + fr % G) * D
-                   + ch * 8
-             : src;
-    repro::cp_async16(dst + r * PITCH<D> + ch * 8, s, live);
-  }
-}
-
-// cp.async of keys [k0, k0 + R) of a (B, Sk, K, D) tensor for kv head
-// `kvh`; keys past Sk are zero.
-template <int R, int D>
-__device__ __forceinline__ void keys_async(bf16* dst, const bf16* src, int b,
-                                           int kvh, int k0, int Sk, int K) {
-  constexpr int CPR = D / 8;
-  static_assert(R * CPR % NT == 0, "whole chunks per thread");
-#pragma unroll
-  for (int i = 0; i < R * CPR / NT; ++i) {
-    const int c = threadIdx.x + i * NT;
-    const int r = c / CPR, ch = c % CPR;
-    const int key = k0 + r;
-    const bool live = key < Sk;
-    const bf16* s =
-        live ? src + (((size_t)b * Sk + key) * K + kvh) * D + ch * 8 : src;
-    repro::cp_async16(dst + r * PITCH<D> + ch * 8, s, live);
-  }
 }
 
 // cp.async of lse or delta (B, Sq, K, G) for rows [row0, row0 + R); rows
@@ -480,26 +438,6 @@ __device__ __forceinline__ void mma_abt(float (&c)[2 * NB][4], const bf16* A,
       repro::mma_bf16(c[2 * n + 1], a, bm[2], bm[3]);
     }
   }
-}
-
-// c[n] += A . B over KB 16-deep slices, for all D / 8 n8 tiles of c: A in
-// registers (the packed p or ds of the warp's 16 rows), B the first
-// 16 * KB rows of a row-major (., D) tile in shared memory.
-template <int D, int KB>
-__device__ __forceinline__ void mma_ab(float (&c)[D / 8][4],
-                                       const uint32_t (&a)[KB][4],
-                                       const bf16* Bm, int lane) {
-  constexpr int P = PITCH<D>;
-#pragma unroll
-  for (int kk = 0; kk < KB; ++kk)
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      uint32_t bm[4];
-      repro::ldsm4_t(bm, Bm + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * P
-                             + n * 16 + (lane / 16) * 8);
-      repro::mma_bf16(c[2 * n], a[kk], bm[0], bm[1]);
-      repro::mma_bf16(c[2 * n + 1], a[kk], bm[2], bm[3]);
-    }
 }
 
 // 16 rows of f32 accumulators (c[n] holds columns 8n..8n+7) times `mul`
@@ -550,12 +488,12 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto load_kv = [&](int j) {   // kv tile j into stage j & 1
     bf16* dst = ring + (j & 1) * 2 * MK * P;
-    keys_async<MK, D>(dst, k, b, kvh, j * MK, Sk, K);
-    keys_async<MK, D>(dst + MK * P, v, b, kvh, j * MK, Sk, K);
+    keys_async<MK, D, NT>(dst, k, b, kvh, j * MK, Sk, K);
+    keys_async<MK, D, NT>(dst + MK * P, v, b, kvh, j * MK, Sk, K);
     repro::cp_async_commit();
   };
-  rows_async<MR, D>(Qs, q, b, kvh, row0, nrows, Sq, H, G);
-  rows_async<MR, D>(dOs, dout, b, kvh, row0, nrows, Sq, H, G);
+  rows_async<MR, D, NT>(Qs, q, b, kvh, row0, nrows, Sq, H, G);
+  rows_async<MR, D, NT>(dOs, dout, b, kvh, row0, nrows, Sq, H, G);
   load_kv(0);
 
   float lse2[2], dlt[2];
@@ -660,16 +598,16 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
     const int row0 = row_begin + j * BN;
     bf16* dst = ring + (j & 1) * STAGE;
     float* sd = stats + (j & 1) * 2 * BN;
-    rows_async<BN, D>(dst, q, b, kvh, row0, nrows, Sq, H, G);
-    rows_async<BN, D>(dst + BN * P, dout, b, kvh, row0, nrows, Sq, H, G);
+    rows_async<BN, D, NT>(dst, q, b, kvh, row0, nrows, Sq, H, G);
+    rows_async<BN, D, NT>(dst + BN * P, dout, b, kvh, row0, nrows, Sq, H, G);
     stats_async<BN>(sd, lse, b, kvh, row0, nrows, Sq, K, G);
     stats_async<BN>(sd + BN, delta, b, kvh, row0, nrows, Sq, K, G);
     repro::cp_async_commit();
   };
 
   if (nt > 0) {   // K and V ride in row tile 0's copy group
-    keys_async<MK, D>(Ks, k, b, kvh, key0, Sk, K);
-    keys_async<MK, D>(Vs, v, b, kvh, key0, Sk, K);
+    keys_async<MK, D, NT>(Ks, k, b, kvh, key0, Sk, K);
+    keys_async<MK, D, NT>(Vs, v, b, kvh, key0, Sk, K);
     load_qdo(0);
   }
 

@@ -1,30 +1,49 @@
 // Flash attention forward for prefill: blocked online-softmax GQA attention.
 //
-// Replaces the TPU kernel repro/kernels/flash_attention/flash.py::
-// _flash_fwd_kernel (Pallas).  Wrapper and plain PyTorch version:
-// repro_torch/kernels/flash_attention/flash.py.
+// Replaces the TPU kernel repro/kernels/flash_attention/flash.py:52
+// _flash_fwd_kernel (Pallas, called at flash.py:240).  Wrapper and plain
+// PyTorch version: repro_torch/kernels/flash_attention/flash.py.
 //
-// What bounds it on an H100: the arithmetic.  A causal prefill of S tokens
-// does ~2*S^2*H*D FLOPs (half of them masked away by the causal wedge) on
-// O(S*H*D) bytes, far above the card's ~295 FLOP/byte balance point.  This
-// first version runs that arithmetic on the f32 FMA pipes, not the tensor
-// cores, so it sits well under the bf16 tensor-core bound; the design keeps
-// it from being bound by anything worse:
-//  - one block per (batch, kv head, tile of 64 rows), where a row is one
-//    (query, group-head) pair: the G query heads that share a kv head are
-//    packed as rows, so every K/V tile loaded into shared memory serves
-//    G x (64/G) queries -- the GQA reuse the TPU kernel gets from its
-//    (B, S, K, G*D) layout;
-//  - the kv loop runs inside the block (on the TPU it was a sequential grid
-//    dimension) and stops at the causal wedge: tiles wholly after the
-//    block's last query are never loaded;
-//  - K/V tiles are read with 16-byte loads and converted to f32 once in
-//    shared memory; each thread computes a 4x8 register tile of scores and
-//    a 4x(D/8) tile of the output, so each shared-memory read feeds 2-3
-//    FMAs;
-//  - the softmax state (m, l, acc) stays in registers; bf16 inputs are
-//    accumulated in f32 and the output is rounded to the input type once.
-// Ragged tails (S not a multiple of the tile) are masked, not required away.
+// What bounds it on an H100: the arithmetic.  A causal forward does
+// 4 * pairs * H * D FLOPs for its two products (pairs = the live (query,
+// key) pairs) on O(S * H * D) bytes: 68.7 GFLOP at the training shape (B=4,
+// S=2048, 32 q heads over 4 kv heads, D=64), 0.0695 ms at the bf16
+// tensor-core peak.  Designs both dtypes share:
+//  - A row is one (query, group-head) pair: the G query heads that share a
+//    kv head are packed as rows, so every K/V tile loaded into shared memory
+//    serves G x (64/G) queries -- the GQA reuse the TPU kernel gets from its
+//    (B, S, K, G*D) layout.
+//  - Each block owns a tile of 64 rows and loops over the kv tiles (a
+//    sequential grid dimension on the TPU), stopping at the causal wedge:
+//    tiles wholly after the block's last query are never loaded.  No
+//    atomics, so a second launch gives the same bits.
+//  - The softmax state (m, l, acc) stays in registers; the output is
+//    rounded to the input type once.  Ragged tails (S not a multiple of the
+//    tile) are masked, not required away.
+//
+// The dtype selects the kernel; this is a dispatch, not a fallback:
+//  - bf16 (the training and serving path): the FlashAttention-2 forward on
+//    the tensor cores, mma.sync.m16n8k16 with bf16 operands and f32
+//    accumulation, 4 warps of 16 rows.  Each warp loads its Q fragments
+//    once (ldmatrix) and keeps them in registers.  K/V tiles of 64 keys
+//    stay bf16 in shared memory, rows padded by 16 bytes so the 8 rows an
+//    ldmatrix reads fall in 8 bank groups, and come through a 2-stage ring
+//    of 16-byte cp.async: tile j+1 loads while tile j computes, behind one
+//    barrier per tile.  S = Q.K^T reads K as B with ldmatrix; s is scaled
+//    by tau in f32 registers (q is not pre-scaled, which in bf16 would
+//    round twice) and the running (m, l) is kept in the log2 domain, the
+//    exponentials on the SFU (ex2.approx); lse = m ln2 + log l, in f32.
+//    p is rounded to bf16 once, to enter P.V from registers as its A
+//    operand (V read as B with ldmatrix.trans); l sums the f32 p.  Only
+//    tiles that straddle the diagonal or a ragged tail pay for the mask.
+//    Blocks are numbered longest first (the last row tiles see the most
+//    keys), so the short ones fill the tail.  o = acc / l goes out through
+//    the warp's own Q rows in shared memory as 16-byte stores.
+//  - f32: the FMA kernel of the first port: K/V tiles widened to f32 in
+//    shared memory, a 4x8 register tile of scores and a 4x(D/8) tile of the
+//    output a thread, so each shared-memory read feeds 2-3 FMAs; q is
+//    pre-scaled by tau.  The f32 tolerance (2e-5) would not survive bf16 or
+//    TF32 rounding.
 
 #include "common.cuh"
 
@@ -32,22 +51,27 @@ namespace {
 
 using repro::NEG_INF;
 
+constexpr int NT = 128;   // threads of the FMA kernel's blocks: 4 warps
+
+// ---------------------------------------------------------------------------
+// f32: FMA kernel
+// ---------------------------------------------------------------------------
+
 constexpr int BR = 64;    // rows (query, group-head) per block
 constexpr int BK = 64;    // keys per tile
-constexpr int NT = 128;   // threads: 16 row groups x 8 key/dim groups
 
 template <int D>
 constexpr int smem_bytes() {
   return (BR * (D + 1) + 2 * BK * (D + 1) + BR * (BK + 1)) * 4;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int Sq, int Sk, int H, int K,
-                 int causal, float scale) {
-  constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte load
+flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int Sq, int Sk, int H, int K,
+                     int causal, float scale) {
+  constexpr int VEC = 4;                // floats per 16-byte load
   constexpr int CPR = D / VEC;          // 16-byte chunks per row
   constexpr int DP = D + 1;             // padded row stride (no bank conflicts)
   constexpr int PP = BK + 1;
@@ -70,7 +94,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float t[VEC];
     if (fr < nrows) {
       const int qi = fr / G, g = fr % G;
-      repro::cvt16<T>(
+      repro::cvt16<float>(
           repro::ld16(q + (((size_t)b * Sq + qi) * H + kvh * G + g) * D + dc),
           t);
 #pragma unroll
@@ -108,8 +132,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float tk[VEC], tv[VEC];
       if (key < Sk) {
         const size_t off = (((size_t)b * Sk + key) * K + kvh) * D + dc;
-        repro::cvt16<T>(repro::ld16(k + off), tk);
-        repro::cvt16<T>(repro::ld16(v + off), tv);
+        repro::cvt16<float>(repro::ld16(k + off), tk);
+        repro::cvt16<float>(repro::ld16(v + off), tv);
       } else {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) tk[e] = tv[e] = 0.f;
@@ -195,56 +219,238 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (fr >= nrows) continue;
     const int qi = fr / G, g = fr % G;
     const float lc = fmaxf(l[i], 1e-30f);
-    T* dst = o + (((size_t)b * Sq + qi) * H + kvh * G + g) * D;
+    float* dst = o + (((size_t)b * Sq + qi) * H + kvh * G + g) * D;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      dst[tx + 8 * j] = repro::from_float<T>(acc[i][j] / lc);
+    for (int j = 0; j < DJ; ++j) dst[tx + 8 * j] = acc[i][j] / lc;
     if (tx == 0)
       lse[(((size_t)b * Sq + qi) * K + kvh) * G + g] = m[i] + logf(lc);
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int Sq, int Sk, int H, int K,
-                   int causal, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<T, D>;
+// ---------------------------------------------------------------------------
+// bf16: tensor-core kernel
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+using repro::keys_async;
+using repro::LOG2E;
+using repro::PITCH;
+using repro::rows_async;
+constexpr int MR = 64;    // rows per block, 16 per warp
+constexpr int MK = 64;    // keys per streamed tile
+constexpr int MNT = MR / 16 * 32;
+
+template <int D>
+constexpr int mma_smem_bytes() {   // Q; 2 stages of (K, V)
+  return (MR + 4 * MK) * PITCH<D> * 2;
+}
+
+// Per (batch, kv head, 64 rows), loop kv tiles up to the causal wedge.  Warp
+// w owns rows 16w..16w+15; lane l holds rows l/4 and l/4 + 8 of them, and in
+// each n8 tile of keys the columns 2(l%4) and 2(l%4) + 1.
+template <int D>
+__global__ void __launch_bounds__(MNT)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int B, int Sq, int Sk, int H,
+                     int K, int causal, float scale) {
+  constexpr int P = PITCH<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // MR x P; then the output
+  bf16* ring = Qs + MR * P;                       // 2 x (K, V), MK x P each
+
+  const int G = H / K, nrows = Sq * G;
+  const int ntiles = (nrows + MR - 1) / MR;
+  const int bk = blockIdx.x % (B * K);
+  const int b = bk / K, kvh = bk % K;
+  // the last row tiles see the most keys: they launch first
+  const int row0 = (ntiles - 1 - blockIdx.x / (B * K)) * MR;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  int kend = Sk;
+  if (causal) kend = min(Sk, (min(row0 + MR, nrows) - 1) / G + 1);
+  const int nk = (kend + MK - 1) / MK;   // >= 1
+  const int q_first = row0 / G;
+
+  auto load_kv = [&](int j) {   // kv tile j into stage j & 1
+    bf16* dst = ring + (j & 1) * 2 * MK * P;
+    keys_async<MK, D, MNT>(dst, k, b, kvh, j * MK, Sk, K);
+    keys_async<MK, D, MNT>(dst + MK * P, v, b, kvh, j * MK, Sk, K);
+    repro::cp_async_commit();
+  };
+  rows_async<MR, D, MNT>(Qs, q, b, kvh, row0, nrows, Sq, H, G);
+  load_kv(0);   // Q rides in kv tile 0's copy group
+
+  int qpos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    qpos[h] = (row0 + warp * 16 + lane / 4 + 8 * h) / G;
+  const float tau2 = scale * LOG2E;
+
+  bf16* Qw = Qs + warp * 16 * P;
+  repro::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qa[D / 16][4];   // the warp's Q as A fragments, one per 16 dims
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd)
+    repro::ldsm4(qa[kd], Qw + (lane % 16) * P + kd * 16 + (lane / 16) * 8);
+
+  float m2[2] = {NEG_INF, NEG_INF};   // running max of tau*s*log2(e), per row
+  float l[2] = {0.f, 0.f};            // this lane's share of the row's sum
+  float acc[D / 8][4] = {};
+
+  for (int j = 0; j < nk; ++j) {
+    if (j > 0) {
+      // tile j has landed, and every warp is past tile j - 1, whose stage
+      // takes tile j + 1 while tile j computes: one barrier per tile
+      repro::cp_async_wait<0>();
+      __syncthreads();
+    }
+    if (j + 1 < nk) load_kv(j + 1);
+    const bf16* Ks = ring + (j & 1) * 2 * MK * P;
+    const bf16* Vs = Ks + MK * P;
+    const int k0 = j * MK;
+
+    // S = Q.K^T: K's rows (keys) are B's columns
+    float s[MK / 8][4] = {};
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd)
+#pragma unroll
+      for (int n = 0; n < MK / 16; ++n) {
+        uint32_t bm[4];
+        repro::ldsm4(bm, Ks + (n * 16 + lane % 8 + (lane / 16) * 8) * P
+                             + kd * 16 + ((lane / 8) % 2) * 8);
+        repro::mma_bf16(s[2 * n], qa[kd], bm[0], bm[1]);
+        repro::mma_bf16(s[2 * n + 1], qa[kd], bm[2], bm[3]);
+      }
+
+    // online softmax in the log2 domain; the mask only where the tile
+    // straddles the diagonal or the ragged end of the keys
+    const bool edge = (causal && k0 + MK - 1 > q_first) || k0 + MK > Sk;
+    float mx[2] = {m2[0], m2[1]};
+#pragma unroll
+    for (int n = 0; n < MK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * tau2;
+        if (edge) {
+          const int key = k0 + n * 8 + (lane % 4) * 2 + (e & 1);
+          if (key >= Sk || (causal && key > qpos[e / 2])) x = NEG_INF;
+        }
+        s[n][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {   // a row's 64 keys sit in the lane's quad
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      corr[h] = repro::ex2(m2[h] - mx[h]);
+      m2[h] = mx[h];
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int n = 0; n < MK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = repro::ex2(s[n][e] - m2[e / 2]);
+        l[e / 2] += p;
+        s[n][e] = p;
+      }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e / 2];
+
+    uint32_t pa[MK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < MK / 16; ++kk)
+      repro::pack_a(pa[kk], s[2 * kk], s[2 * kk + 1]);
+    repro::mma_ab<D, MK / 16>(acc, pa, Vs, lane);
+  }
+
+  // o = acc / l into the warp's own Q rows (no other warp reads them), then
+  // out as 16-byte stores; lse = m ln2 + log l
+  const int rw = row0 + warp * 16;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const float lc = fmaxf(l[h], 1e-30f);
+    const float inv = 1.f / lc;
+    const int r = lane / 4 + 8 * h;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(Qw + r * P + n * 8 + (lane % 4) * 2) =
+          repro::pack_bf16(acc[n][2 * h] * inv, acc[n][2 * h + 1] * inv);
+    const int fr = rw + r;
+    if (lane % 4 == 0 && fr < nrows)
+      lse[(((size_t)b * Sq + fr / G) * K + kvh) * G + fr % G] =
+          m2[h] * repro::LN2 + logf(lc);
+  }
+  __syncwarp();
+  constexpr int CPR = D / 8;   // 16-byte chunks per row
+#pragma unroll
+  for (int c = lane; c < 16 * CPR; c += 32) {
+    const int r = c / CPR, ch = c % CPR;
+    const int fr = rw + r;
+    if (fr < nrows)
+      *reinterpret_cast<uint4*>(
+          o + (((size_t)b * Sq + fr / G) * H + kvh * G + fr % G) * D
+          + ch * 8) = *reinterpret_cast<const uint4*>(Qw + r * P + ch * 8);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+template <typename Kern, typename... A>
+cudaError_t launch(Kern kern, dim3 grid, int threads, int smem,
+                   cudaStream_t stream, A... args) {
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int G = H / K;
-  dim3 grid((Sq * G + BR - 1) / BR, K, B);
-  const float scale = (float)(1.0 / sqrt((double)D));
-  kern<<<grid, NT, smem_bytes<D>(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, H, K, causal,
-      scale);
+  kern<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
+                       float* lse, int B, int Sq, int Sk, int H, int K,
+                       int causal, bool bf16_in, cudaStream_t stream) {
+  const int G = H / K;
+  const float scale = (float)(1.0 / sqrt((double)D));
+  if (bf16_in) {
+    const int tiles = (Sq * G + MR - 1) / MR;
+    return launch(flash_fwd_mma_kernel<D>, dim3(tiles * B * K), MNT,
+                  mma_smem_bytes<D>(), stream, static_cast<const bf16*>(q),
+                  static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                  static_cast<bf16*>(o), lse, B, Sq, Sk, H, K, causal, scale);
+  }
+  return launch(flash_fwd_fma_kernel<D>, dim3((Sq * G + BR - 1) / BR, K, B),
+                NT, smem_bytes<D>(), stream, static_cast<const float*>(q),
+                static_cast<const float*>(k), static_cast<const float*>(v),
+                static_cast<float*>(o), lse, Sq, Sk, H, K, causal, scale);
 }
 
 }  // namespace
 
 // q (B,Sq,H,D), k/v (B,Sk,K,D) -> o (B,Sq,H,D), lse (B,Sq,K,H/K) f32.
-// bf16 != 0 selects __nv_bfloat16, else float.  Returns the launch's
-// cudaError_t; an unsupported head dim returns cudaErrorInvalidValue.
+// is_bf16 != 0 selects __nv_bfloat16 (the tensor-core kernel), else float
+// (the FMA kernel).  Returns the launch's cudaError_t; an unsupported head
+// dim returns cudaErrorInvalidValue.
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, float* lse, int B, int Sq, int Sk,
-                               int H, int K, int D, int causal, int bf16,
+                               int H, int K, int D, int causal, int is_bf16,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    if (D == 64)
-      return launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, Sq, Sk, H, K,
-                                       causal, s);
-    if (D == 128)
-      return launch<__nv_bfloat16, 128>(q, k, v, o, lse, B, Sq, Sk, H, K,
-                                        causal, s);
-  } else {
-    if (D == 64)
-      return launch<float, 64>(q, k, v, o, lse, B, Sq, Sk, H, K, causal, s);
-    if (D == 128)
-      return launch<float, 128>(q, k, v, o, lse, B, Sq, Sk, H, K, causal, s);
-  }
+  if (D == 64)
+    return launch_fwd<64>(q, k, v, o, lse, B, Sq, Sk, H, K, causal, is_bf16,
+                          s);
+  if (D == 128)
+    return launch_fwd<128>(q, k, v, o, lse, B, Sq, Sk, H, K, causal, is_bf16,
+                           s);
   return cudaErrorInvalidValue;
 }
 

@@ -82,7 +82,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype, lse (B, Sq, K, G) f32).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (bf16 or f32, contiguous, head dim in :data:`HEAD_DIMS`) or raise.
+    (bf16 or f32, contiguous, head dim in :data:`HEAD_DIMS`) or raise.  The
+    dtype picks the kernel: bf16 the tensor-core one, f32 the FMA one.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal)

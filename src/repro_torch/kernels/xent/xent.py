@@ -19,9 +19,9 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
-BLOCK_T = 64                 # token rows per block of the forward kernel
-BLOCK_V = 64                 # vocab columns per tile
-BLOCKS_PER_SM = 8            # forward grid target: vocab segments fill it
+# the forward kernel's block per dtype: (token rows, vocab columns per tile,
+# blocks resident on one SM) -- bf16 on the tensor cores, f32 on the FMA pipes
+FWD_TILE = {torch.bfloat16: (128, 128, 2), torch.float32: (64, 64, 8)}
 BWD_TILE_BYTES = 1 << 27     # the backward's one live f32 logits chunk
 
 
@@ -43,12 +43,15 @@ def xent_fwd_plain(hidden: torch.Tensor, head_w: torch.Tensor,
     return lse - correct, lse
 
 
-def segments(tokens: int, vocab_cols: int, sms: int) -> int:
-    """Vocab segments per token tile of the forward kernel: enough blocks
-    for ``BLOCKS_PER_SM`` per SM, at most one segment per vocab tile."""
-    n_t = -(-tokens // BLOCK_T)
-    n_v = -(-vocab_cols // BLOCK_V)
-    return max(1, min(n_v, -(-BLOCKS_PER_SM * sms // n_t)))
+def segments(tokens: int, vocab_cols: int, sms: int,
+             dtype: torch.dtype = torch.bfloat16) -> int:
+    """Vocab segments per token tile of the forward kernel (one block per
+    token tile and segment): as many as one wave of resident blocks holds,
+    at least one, at most one per vocab tile."""
+    rows, cols, per_sm = FWD_TILE[dtype]
+    n_t = -(-tokens // rows)
+    n_v = -(-vocab_cols // cols)
+    return max(1, min(n_v, per_sm * sms // n_t))
 
 
 _FWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -58,7 +61,9 @@ def xent_fwd(hidden: torch.Tensor, head_w: torch.Tensor,
              labels: torch.Tensor, vocab: int | None = None):
     """hidden (T, E), head_w (E, V) of one dtype, labels (T,) int →
     (nll, lse) (T,) f32.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel (bf16 or f32, contiguous, int32 labels) or raise."""
+    launch the kernel (bf16 or f32, contiguous, int32 labels; in bf16 E and
+    V multiples of 8 and 16-byte aligned) or raise.  The dtype picks the
+    kernel: bf16 the tensor-core one, f32 the FMA one."""
     if hidden.device.type == "cpu":
         return xent_fwd_plain(hidden, head_w, labels, vocab)
     _check_fwd(hidden, head_w, labels)
@@ -67,7 +72,7 @@ def xent_fwd(hidden: torch.Tensor, head_w: torch.Tensor,
     vocab = V if vocab is None else min(vocab, V)
     dev = hidden.device
     nseg = segments(T, V, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
+        dev).multi_processor_count, hidden.dtype)
     part = torch.empty((nseg, T, 3), dtype=torch.float32, device=dev)
     nll = torch.empty((T,), dtype=torch.float32, device=dev)
     lse = torch.empty_like(nll)
@@ -158,6 +163,13 @@ def _check_fwd(hidden, head_w, labels) -> None:
         raise ValueError("hidden and head_w must be on one device")
     if not (hidden.is_contiguous() and head_w.is_contiguous()):
         raise ValueError("hidden and head_w must be contiguous")
+    if hidden.dtype == torch.bfloat16 and (
+            hidden.shape[1] % 8 or head_w.shape[1] % 8
+            or hidden.data_ptr() % 16 or head_w.data_ptr() % 16):
+        raise ValueError(f"bf16 rows are copied 16 bytes at a time: E and V "
+                         f"must be multiples of 8 and the tensors 16-byte "
+                         f"aligned, got hidden {tuple(hidden.shape)}, head_w "
+                         f"{tuple(head_w.shape)}")
     _check_rows(hidden.device, hidden.shape[0], labels=labels)
 
 

@@ -6,10 +6,13 @@ it runs on a machine with PyTorch alone::
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Shapes the main path does not reach: ragged tails, Sk < Sq, other group
-sizes and head_dim 128; for the flash backward also whole tiles at the
-training heads and at D=128, a second launch equal bit for bit, and one
-launch per wrapper call in bf16 and f32; for the loss head, ragged token counts, a padded
-vocab (vocab < Vp) and a label in the last real column; for the SSD scan,
+sizes and head_dim 128; for the flash forward and backward also whole
+tiles at the training heads and at D=128, a second launch equal bit for
+bit, and one launch per wrapper call in bf16 and f32 (each dtype has its
+kernel: bf16 the tensor cores, f32 the FMA pipes); for the loss head,
+ragged token counts, a padded vocab (vocab < Vp), a label in the last real
+column, the training step's full head (T = 8188, E = 2048, V = 32000) and
+a second launch equal bit for bit; for the SSD scan,
 chunks from 8 to 256, several groups and batch rows, head dims 32 and 64,
 states 16 to 128, bf16 and f32 inputs (tolerance 5e-4, the reference's);
 for the int8 quantize and dequantize, bit for bit: blocks of 3 to 2^22
@@ -63,6 +66,63 @@ def test_flash_kernel_matches_plain_on_card(cuda, Sq, Sk, H, K, D, causal,
     o_ref, lse_ref = flash.flash_attention_plain(q, k, v, causal)
     close(o.float().cpu(), o_ref.float().cpu(), TOL[dtype])
     close(lse.cpu(), lse_ref.cpu(), TOL[dtype])
+
+
+def _flash_inputs(device, B, Sq, Sk, H, K, D, dtype):
+    g = torch.Generator(device=device).manual_seed(Sq + Sk + D)
+    tdt = getattr(torch, dtype)
+    return [torch.randn((B, S, n, D), generator=g, device=device).to(tdt)
+            for S, n in ((Sq, H), (Sk, K), (Sk, K))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,K,D,causal", [
+    (2, 1024, 32, 4, 64, True),      # tinyllama's heads, whole tiles
+    (2, 1024, 16, 4, 128, True),     # whole tiles at D=128
+    (2, 1024, 16, 4, 128, False),
+])
+def test_flash_kernel_matches_plain_on_card_full_tiles(cuda, B, S, H, K, D,
+                                                       causal):
+    """The bf16 tensor-core kernel at lengths that are whole tiles, so most
+    tiles skip the mask."""
+    q, k, v = _flash_inputs(cuda, B, S, S, H, K, D, "bfloat16")
+    o, lse = flash.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash.flash_attention_plain(q, k, v, causal)
+    close(o.float().cpu(), o_ref.float().cpu(), TOL["bfloat16"])
+    close(lse.cpu(), lse_ref.cpu(), TOL["bfloat16"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sq,Sk,H,K,D,causal", [
+    (300, 300, 32, 4, 64, True),
+    (200, 120, 16, 4, 128, False),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_repeats_bit_for_bit_on_card(cuda, Sq, Sk, H, K, D,
+                                                  causal, dtype):
+    """No atomics: a second launch on the same inputs gives the same bits."""
+    q, k, v = _flash_inputs(cuda, 2, Sq, Sk, H, K, D, dtype)
+    first = flash.flash_attention(q, k, v, causal)
+    second = flash.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.gpu
+def test_fwd_wrappers_launch_once_per_call_in_each_dtype_on_card(cuda):
+    """bf16 and f32 dispatch to two kernels; each call counts one launch."""
+    for dtype in ("float32", "bfloat16"):
+        q, k, v = _flash_inputs(cuda, 1, 128, 128, 8, 2, 64, dtype)
+        h, w, labels = _xent_inputs(100, 64, 512, 500, dtype, cuda)
+        counts = lambda: (flash.flash_attention.launches,
+                          xent.xent_fwd.launches)
+        n_flash, n_xent = counts()
+        flash.flash_attention(q, k, v)
+        assert counts() == (n_flash + 1, n_xent)
+        xent.xent_fwd(h, w, labels, 500)
+        assert counts() == (n_flash + 1, n_xent + 1)
 
 
 @pytest.mark.gpu
@@ -201,8 +261,8 @@ def _xent_inputs(T, E, V, vocab, dtype, device, seed=0):
 @pytest.mark.gpu
 @pytest.mark.parametrize("T,E,V,vocab", [
     (100, 64, 512, 500),     # ragged T, padded vocab
-    (257, 96, 1024, 1024),   # E not a multiple of the 32-wide chunk
-    (64, 40, 200, 131),      # V not a multiple of the 64-wide tile
+    (257, 96, 1024, 1024),   # E not a multiple of either chunk (32, 64)
+    (64, 40, 200, 131),      # V not a multiple of either tile (64, 128)
     (1000, 128, 4096, 4000), # several vocab segments
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -216,6 +276,41 @@ def test_xent_fwd_kernel_matches_plain_on_card(cuda, T, E, V, vocab, dtype):
     assert torch.isfinite(nll).all() and torch.isfinite(lse).all()
     close(nll.cpu(), want_nll.cpu(), TOL["float32"])
     close(lse.cpu(), want_lse.cpu(), TOL["float32"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vocab", [32000, 31900])
+def test_xent_fwd_kernel_matches_plain_on_card_full_head(cuda, vocab):
+    """The training step's loss head in bf16: T = 4·2047, E = 2048,
+    V = 32000, whole 128 x 128 tiles and 4 vocab segments."""
+    h, w, labels = _xent_inputs(8188, 2048, 32000, vocab, "bfloat16", cuda)
+    nll, lse = xent.xent_fwd(h, w, labels, vocab)
+    torch.cuda.synchronize()
+    want_nll, want_lse = xent.xent_fwd_plain(h, w, labels, vocab)
+    close(nll.cpu(), want_nll.cpu(), TOL["float32"])
+    close(lse.cpu(), want_lse.cpu(), TOL["float32"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_xent_fwd_kernel_repeats_bit_for_bit_on_card(cuda, dtype):
+    """No atomics: the segments' partials merge in a fixed order, so a
+    second launch on the same inputs gives the same bits."""
+    h, w, labels = _xent_inputs(1000, 128, 4096, 4000, dtype, cuda)
+    first = xent.xent_fwd(h, w, labels, 4000)
+    second = xent.xent_fwd(h, w, labels, 4000)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_xent_fwd_bf16_refuses_rows_it_cannot_copy(cuda):
+    """bf16 rows go 16 bytes at a time: E and V must be multiples of 8."""
+    for E, V in ((36, 512), (64, 500)):
+        h, w, labels = _xent_inputs(16, E, V, V, "bfloat16", cuda)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            xent.xent_fwd(h, w, labels)
 
 
 @pytest.mark.gpu

@@ -180,6 +180,64 @@ def test_flash_bwd_tensor_core_rounding_matches_reference(B, Sq, Sk, H, K, D,
         close(g.float(), np.asarray(w, np.float32), TOLS["bfloat16"].grad)
 
 
+def _fwd_tensor_core_rounding(q, k, v, causal, block=64):
+    """The bf16 forward kernel's rounding points in plain torch: bf16
+    inputs; per tile of ``block`` keys, s = q·kᵀ in f32, then τ·s in f32;
+    the running max m, p = exp(τ·s − m) in f32 and l summed from that f32
+    p; p rounded to bf16 before P·V, which sums in f32; one rounding of
+    o = acc / l to bf16; lse = m + log l in f32."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    tau = D ** -0.5
+    qf = q.float().reshape(B, Sq, K, G, D)
+    kf, vf = k.float(), v.float()
+    m = torch.full((B, K, G, Sq), flash.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, K, G, Sq, D))
+    for k0 in range(0, Sk, block):
+        keys = torch.arange(k0, min(k0 + block, Sk))
+        s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf[:, keys]) * tau
+        if causal:
+            s = torch.where(torch.arange(Sq)[:, None] >= keys, s,
+                            flash.NEG_INF)
+        mx = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - mx[..., None])
+        corr = torch.exp(m - mx)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqs,bskd->bkgqd", p.bfloat16().float(), vf[:, keys])
+        m = mx
+    o = acc / l.clamp_min(1e-30)[..., None]
+    lse = m + torch.log(l.clamp_min(1e-30))
+    return (o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).bfloat16(),
+            lse.permute(0, 3, 1, 2))
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,K,D,causal,block", [
+    (1, 256, 256, 16, 2, 64, True, 128),     # G=8, as tinyllama's heads
+    (1, 200, 300, 4, 2, 128, False, 100),    # Sq != Sk, G=2, D=128
+    (2, 100, 100, 8, 2, 64, True, 50),       # ragged: no multiple of 64
+])
+def test_flash_fwd_tensor_core_rounding_matches_reference(B, Sq, Sk, H, K, D,
+                                                          causal, block):
+    """The bf16 forward kernel's precision design (p rounded to bf16 before
+    P·V, relative to the running max of 64-key tiles) against the
+    reference's forward in bf16 (interpret mode), at the bf16 value
+    tolerance, o and lse."""
+    q, k, v = np_inputs((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, D),
+                        seed=Sq + D + 1)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want_o, want_lse = jax_flash_fwd(jq, jk, jv, causal=causal,
+                                     block_q=block, block_k=block,
+                                     interpret=True, return_lse=True)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32)).bfloat16()
+    o, lse = _fwd_tensor_core_rounding(t(q), t(k), t(v), causal)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    close(o.float(), np.asarray(want_o, np.float32), TOLS["bfloat16"].fwd)
+    close(lse, np.asarray(want_lse), TOLS["bfloat16"].fwd)
+
+
 def test_flash_bwd_wrappers_count_nothing_on_cpu_and_reject_meta():
     q, k, v, do = (torch.tensor(a) for a in np_inputs(
         (1, 16, 4, 64), (1, 16, 2, 64), (1, 16, 2, 64), (1, 16, 4, 64)))
@@ -251,6 +309,66 @@ def test_xent_vjps_match_reference(dtype, with_lse, tile_bytes, monkeypatch):
     check_vjp(port, args, jax_value_and_vjp(ref, args, **kw), **kw)
 
 
+def _xent_tensor_core_partition(h, w, labels, vocab, nseg):
+    """The bf16 forward kernel's partition of the vocab in plain torch:
+    ``nseg`` segments of whole 128-column tiles; in a tile, 2 column warps
+    of 64 and in each the 4 lanes of a quad, a lane owning columns
+    8n + 2·lane + {0, 1}; each lane keeps its own running (m, l) over its
+    segment's tiles, and the label's logit is one lane's c.  Then the
+    merges: the quad, the two column warps, the segments."""
+    rows, tile, _ = xent.FWD_TILE[torch.bfloat16]
+    logits = h.float() @ w.float()
+    T, V = logits.shape
+    tps = -(-(-(-V // tile)) // nseg)            # tiles per segment
+    width = nseg * tps * tile
+    col = torch.arange(width)
+    x = torch.full((T, width), xent.NEG_INF)
+    x[:, :V] = logits
+    x = torch.where(col < vocab, x, xent.NEG_INF)
+    c = torch.where(col == labels.long()[:, None], x, 0.).sum(-1)
+    # column = ((segment·tps + tile)·2 + warp)·64 + n·8 + lane·2 + e
+    x = x.reshape(T, nseg, tps, 2, 8, 4, 2).permute(0, 1, 3, 5, 2, 4, 6)
+    x = x.reshape(T, nseg, 2, 4, tps, 16)
+    m = torch.full((T, nseg, 2, 4), xent.NEG_INF)
+    l = torch.zeros_like(m)
+    for i in range(tps):
+        mx = torch.maximum(m, x[..., i, :].amax(-1))
+        l = l * torch.exp(m - mx) + torch.exp(
+            x[..., i, :] - mx[..., None]).sum(-1)
+        m = mx
+    for dim in (3, 2, 1):            # the quad, the column warps, segments
+        mm = m.amax(dim, keepdim=True)
+        l = (l * torch.exp(m - mm)).sum(dim)
+        m = mm.squeeze(dim)
+    lse = torch.log(l.clamp_min(1e-30)) + m
+    return lse - c, lse
+
+
+@pytest.mark.parametrize("T,E,V,vocab,nseg", [
+    (64, 32, 1024, 1000, 3),    # padded vocab, segments of 3, 3 and 2 tiles
+    (96, 48, 640, 600, 4),      # the last segment holds no tile
+    (64, 40, 512, 512, 1),      # one segment, E not a multiple of 16
+])
+def test_xent_fwd_tensor_core_partition_matches_reference(T, E, V, vocab,
+                                                          nseg):
+    """The bf16 kernel's partial (m, l, c) per lane, column warp and vocab
+    segment, merged, against the reference's forward in bf16 (interpret
+    mode) at the f32 value tolerance: bf16 products are exact in f32, so
+    only the order of the sums differs.  Labels sit on the last real
+    column, on both sides of a segment edge and on a column-warp edge."""
+    h, w, labels = _xent_args(T, E, V, vocab, seed=T + E)
+    edge = -(-(-(-V // 128)) // nseg) * 128
+    labels[1:5] = [min(edge, vocab - 1), edge - 1, 64, 63]
+    want = jax_xent_fwd(jnp.asarray(h, jnp.bfloat16),
+                        jnp.asarray(w, jnp.bfloat16), jnp.asarray(labels),
+                        vocab=vocab, block_t=32, block_v=128, interpret=True)
+    bf = lambda a: torch.tensor(a).bfloat16()
+    got = _xent_tensor_core_partition(bf(h), bf(w), torch.tensor(labels),
+                                      vocab, nseg)
+    for g, w_ in zip(got, want):
+        close(g, w_, TOLS["float32"].fwd)
+
+
 def test_xent_wrappers_count_nothing_on_cpu_and_reject_meta():
     h, w, labels = (torch.tensor(a) for a in _xent_args(16, 8, 64, 60))
     n0 = (xent.xent_fwd.launches, xent.xent_bwd.launches)
@@ -265,7 +383,8 @@ def test_xent_wrappers_count_nothing_on_cpu_and_reject_meta():
             lse, labels, lse, lse)), 0, 60)
     assert xent.bwd_chunk(8188, 32000) == 4096
     assert xent.bwd_chunk(16, 512) == 512
-    assert xent.segments(8188, 32000, 132) == 9
+    assert xent.segments(8188, 32000, 132) == 4       # bf16: 128 x 128 tiles
+    assert xent.segments(8188, 32000, 132, torch.float32) == 8
 
 
 @pytest.mark.parametrize("use_mask", [False, True])
