@@ -17,11 +17,12 @@ and the script exits non-zero without printing a result:
    quantize and dequantize bit for bit, a NaN included), and time the
    kernel, the plain version and one PyTorch library call computing the
    same function (a yardstick the port never calls); the flash forward,
-   the flash backward's two kernels and the xent forward also against a
-   second launch bit for bit, with their achieved TFLOP/s, shares of the
-   bound, ratio to the library call (the flash forward at the training
-   step's shape too) and the ptxas registers and spills of their bf16
-   (tensor-core) builds, which must not spill;
+   the flash backward's two kernels, the xent forward, paged decode and
+   the SSD scan also against a second launch bit for bit, with their
+   shares of the bound, ratio to the library call (the flash forward at
+   the training step's shape too, paged decode at 8 slots and at one),
+   and the ptxas registers and spills of the bf16 (tensor-core) builds,
+   which must not spill;
 4. the serving path: ``repro_torch.launch.serve`` serving tinyllama-1.1b
    at full width with the paged KV cache — 16 requests of 500 prompt
    tokens and 64 generated through 8 slots — with every kernel's launch
@@ -74,6 +75,12 @@ and the script exits non-zero without printing a result:
 then the kernel table as one JSON line, the card line again, and the last
 line ``{"ok": true, "device": {...}}``.  Needs no network; needs ``nvcc``
 (``CUDA_HOME`` or ``/usr/local/cuda``).
+
+``python3 chip_smoke.py --against DIR`` (DIR a checkout of another commit,
+e.g. unpacked with ``git archive``) builds DIR's kernels beside this
+tree's and runs only phase 3's paged-decode and SSD checks, timing each
+call with both libraries in the order DIR, this, this, DIR; it drives no
+main path and prints no result line.
 """
 from __future__ import annotations
 
@@ -120,6 +127,8 @@ MAMBA_LONG_ARGS = ["--arch", MAMBA, "--cache", "dense", "--requests", "1",
                    "--batch-slots", "1", "--prompt-len", "2000", "--gen", "16",
                    "--max-len", "4096"]
 SSD_TOL = 5e-4            # the reference's tolerance for its SSD kernel
+AGAINST = None            # --against: the kernel library of another checkout
+CSRC = "src/repro_torch/kernels/csrc"
 
 
 def card_line() -> str:
@@ -131,7 +140,13 @@ def card_line() -> str:
 
 class Timer:
     """Median device time of one call, L2 flushed before each launch (the
-    serving path finds its per-layer KV and weights cold)."""
+    serving path finds its per-layer KV and weights cold).  After the
+    flush the device spins ~0.1 ms (``torch.cuda._sleep``) so that the
+    start event, the call's launches and the end event are all enqueued
+    while it is still busy: the host's time to enqueue a small call does
+    not count as the call's device time."""
+
+    SPIN_CYCLES = 200_000
 
     def __init__(self, torch, reps: int = 20):
         self.torch = torch
@@ -145,6 +160,7 @@ class Timer:
         times = []
         for _ in range(self.reps):
             self.flush.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -153,6 +169,36 @@ class Timer:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return statistics.median(times)
+
+
+def timed(timer, fn) -> tuple:
+    """fn's device time in ms with this tree's kernels and, under
+    ``--against``, with the other checkout's, timed in the order other,
+    this, this, other; returns (ms, other ms or None), each the mean of
+    its two readings."""
+    if AGAINST is None:
+        return timer(fn), None
+    from repro_torch.kernels import build
+    with build.using(AGAINST):
+        first = timer(fn)
+    mine = timer(fn) + timer(fn)
+    with build.using(AGAINST):
+        last = timer(fn)
+    return mine / 2, (first + last) / 2
+
+
+def against_line(fn, want, tag: str, dtype, other_ms, tol=None) -> str:
+    """Under ``--against``: the other checkout's output of fn held against
+    want (a tuple of tensors), and its time for the kernel line."""
+    if AGAINST is None:
+        return ""
+    from repro_torch.kernels import build
+    with build.using(AGAINST):
+        got = fn()
+    got = got if isinstance(got, tuple) else (got,)
+    for g, w in zip(got, want):
+        check_close(tag + " (--against)", g, w, dtype, tol)
+    return f"  --against {other_ms:.4f} ms"
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -246,66 +292,84 @@ def check_flash(torch, timer) -> dict:
 
 
 def check_paged(torch, timer) -> dict:
+    """The paged-decode kernel against its plain version and a second
+    launch bit for bit, timed beside SDPA over the same KV gathered dense
+    beforehand, in this call: the serving shape (8 slots of ~500-1000
+    keys, one inactive, 32/4 heads, D=64, page 64) and one slot of 1000
+    keys (B=1).  Prints the bf16 (tensor-core) builds' ptxas registers and
+    spills and fails on a spill.  Returns the row of the serving shape in
+    bf16."""
     import numpy as np
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import paged
 
+    print_ptxas("paged_decode_mma_kernel")
     rng = np.random.default_rng(0)
-    B, H, K, D, ps, mp = 8, 32, 4, 64, 64, 16
-    P = 1 + B * mp
-    pos = rng.integers(500, mp * ps, B)
-    pos[3] = 0                                     # the inactive slot
-    table = np.zeros((B, mp), np.int32)
-    perm = rng.permutation(np.arange(1, P)).tolist()
-    for b in range(B):
-        if b != 3:
-            n = int(pos[b]) // ps + 1
-            table[b, :n] = [perm.pop() for _ in range(n)]
-    bt = torch.tensor(table, device="cuda")
-    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    H, K, D, ps, mp = 32, 4, 64, 64, 16
+    pos8 = rng.integers(500, mp * ps, 8)
+    pos8[3] = 0                                    # the inactive slot
     gen = torch.Generator(device="cuda").manual_seed(1)
     row = None
-    for dtype in (torch.bfloat16, torch.float32):
-        q = torch.randn((B, H, D), generator=gen, device="cuda").to(dtype)
-        kp = torch.randn((P, ps, K, D), generator=gen, device="cuda"
-                         ).to(dtype)
-        vp = torch.randn((P, ps, K, D), generator=gen, device="cuda"
-                         ).to(dtype)
-        kp[0] = 0
-        vp[0] = 0
-        out = paged.paged_decode(q, kp, vp, bt, pos_t)
-        torch.cuda.synchronize()
-        ref = paged.paged_decode_plain(q, kp, vp, bt, pos_t)
-        tag = f"paged_decode B={B} pos={pos.tolist()} {dtype}"
-        err = check_close(tag, out, ref, dtype)
-        if not torch.isfinite(out[3]).all():
-            raise AssertionError("paged_decode: inactive slot not finite")
-        ms = timer(lambda: paged.paged_decode(q, kp, vp, bt, pos_t))
-        plain_ms = timer(lambda: paged.paged_decode_plain(q, kp, vp, bt,
-                                                          pos_t))
-        # yardstick: SDPA over the same KV gathered dense beforehand
-        kd = kp[bt.long()].reshape(B, mp * ps, K, D).transpose(1, 2
-                                                               ).contiguous()
-        vd = vp[bt.long()].reshape(B, mp * ps, K, D).transpose(1, 2
-                                                               ).contiguous()
-        mask = (torch.arange(mp * ps, device="cuda")[None, :]
-                <= pos_t[:, None].long())[:, None, None, :]
-        qd = q[:, :, None, :]
-        lib_ms = timer(lambda: F.scaled_dot_product_attention(
-            qd, kd, vd, attn_mask=mask, enable_gqa=True))
-        live = int((pos + 1).sum())
-        nbytes = (2 * q.numel() + 2 * live * K * D) * q.element_size() \
-            + bt.numel() * 4 + B * 4
-        flops = 4 * live * H * D
-        b_ms, b_by = bound(nbytes, flops, dtype)
-        print(f"[kernel] {tag}: max_abs_err {err:.3e} (tol "
-              f"{TOL[str(dtype)]:g})  kernel {ms:.4f} ms  "
-              f"plain {plain_ms:.4f} ms  sdpa(pre-gathered) {lib_ms:.4f} ms  "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
-        if dtype == torch.bfloat16:
-            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    for pos in (pos8, np.array([999])):
+        B = len(pos)
+        P = 1 + B * mp
+        table = np.zeros((B, mp), np.int32)
+        perm = rng.permutation(np.arange(1, P)).tolist()
+        for b in range(B):
+            if pos[b] > 0:
+                n = int(pos[b]) // ps + 1
+                table[b, :n] = [perm.pop() for _ in range(n)]
+        bt = torch.tensor(table, device="cuda")
+        pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((B, H, D), generator=gen, device="cuda"
+                            ).to(dtype)
+            kp = torch.randn((P, ps, K, D), generator=gen, device="cuda"
+                             ).to(dtype)
+            vp = torch.randn((P, ps, K, D), generator=gen, device="cuda"
+                             ).to(dtype)
+            kp[0] = 0
+            vp[0] = 0
+            out = paged.paged_decode(q, kp, vp, bt, pos_t)
+            again = paged.paged_decode(q, kp, vp, bt, pos_t)
+            torch.cuda.synchronize()
+            ref = paged.paged_decode_plain(q, kp, vp, bt, pos_t)
+            tag = f"paged_decode B={B} pos={pos.tolist()} {dtype}"
+            err = check_close(tag, out, ref, dtype)
+            assert_same_bits(tag, (out,), (again,))
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"{tag}: output not finite")
+            call = lambda: paged.paged_decode(q, kp, vp, bt, pos_t)
+            ms, other_ms = timed(timer, call)
+            other = against_line(call, (ref,), tag, dtype, other_ms)
+            plain_ms = timer(lambda: paged.paged_decode_plain(q, kp, vp, bt,
+                                                              pos_t))
+            # yardstick: SDPA over the same KV gathered dense beforehand
+            kd = kp[bt.long()].reshape(B, mp * ps, K, D).transpose(
+                1, 2).contiguous()
+            vd = vp[bt.long()].reshape(B, mp * ps, K, D).transpose(
+                1, 2).contiguous()
+            mask = (torch.arange(mp * ps, device="cuda")[None, :]
+                    <= pos_t[:, None].long())[:, None, None, :]
+            qd = q[:, :, None, :]
+            lib_ms = timer(lambda: F.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=mask, enable_gqa=True))
+            live = int((pos + 1).sum())
+            nbytes = (2 * q.numel() + 2 * live * K * D) * q.element_size() \
+                + bt.numel() * 4 + B * 4
+            flops = 4 * live * H * D
+            b_ms, b_by = bound(nbytes, flops, dtype)
+            print(f"[kernel] {tag}: max_abs_err {err:.3e} (tol "
+                  f"{TOL[str(dtype)]:g}); a second launch equal bit for bit"
+                  f"  kernel {ms:.4f} ms{other}  plain {plain_ms:.4f} ms  "
+                  f"sdpa(pre-gathered) {lib_ms:.4f} ms (kernel / sdpa "
+                  f"{ms / lib_ms:.2f})  bound {b_ms:.4f} ms ({b_by}, share "
+                  f"{b_ms / ms:.3f})", flush=True)
+            if B == 8 and dtype == torch.bfloat16:
+                row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            del q, kp, vp, kd, vd, out, again, ref
     return row
 
 
@@ -318,21 +382,22 @@ def causal_pairs(Sq: int, Sk: int, causal: bool) -> int:
 
 
 def ptxas_usage(pattern: str) -> dict:
-    """{kernel[<D>]: (registers, spill store bytes, spill load bytes)} from
-    the build log's ``ptxas -v`` lines, for the entry functions whose
-    mangled name holds ``pattern`` (a regex), with or without one int
-    template argument."""
+    """{kernel[<ints>]: (registers, spill store bytes, spill load bytes)}
+    from the build log's ``ptxas -v`` lines, for the entry functions whose
+    mangled name holds ``pattern`` (a regex), with their leading int
+    template arguments."""
     import re
 
     from repro_torch.kernels import build
 
     log = build.library_path().with_suffix(".log").read_text()
-    name_re = re.compile(f"({pattern})" + r"(?:ILi(\d+)E)?")
+    name_re = re.compile(f"({pattern})" + r"(?:I((?:Li\d+E)+))?")
     out, name, spills = {}, None, (0, 0)
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = name_re.search(line)
-            name = (m[1] + (f"<{m[2]}>" if m[2] else "")) if m else None
+            args = ",".join(re.findall(r"Li(\d+)E", m[2] or "")) if m else ""
+            name = (m[1] + (f"<{args}>" if args else "")) if m else None
         elif name and "spill stores" in line:
             spills = tuple(int(x) for x in re.findall(
                 r"(\d+) bytes spill (?:stores|loads)", line))
@@ -544,19 +609,24 @@ def check_xent(torch, timer) -> tuple:
 
 def check_ssd(torch, timer) -> dict:
     """The SSD chunked-scan kernel against its plain version (y and the
-    final state within 5e-4): mamba2-1.3b's prefill shape (B=1, S=512,
-    64 heads of 64, state 128, G=1, chunk 256, x and B/C bf16), S=2048 (8
-    chunks, the carry), S=8 (chunk = S) and a grouped f32 case; returns
-    the row of the main path's shape."""
+    final state within 5e-4) and a second launch bit for bit: mamba2-1.3b's
+    prefill shape (B=1, S=512, 64 heads of 64, state 128, G=1, chunk 256,
+    x and B/C bf16), S=2048 (8 chunks, the carry), S=8 (chunk = S), a
+    ragged chunk of 40 and a grouped f32 case.  bf16 runs the tensor-core
+    kernel, f32 the FMA one.  Prints the tensor-core builds' ptxas
+    registers and spills and fails on a spill.  Returns the row of the
+    main path's shape."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.ssd import ssd
 
+    print_ptxas("ssd_scan_mma_kernel")
     gen = torch.Generator(device="cuda").manual_seed(4)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [(1, 512, 64, 64, 1, 128, 256, bf16),
              (1, 2048, 64, 64, 1, 128, 256, bf16),
              (1, 8, 64, 64, 1, 128, 256, bf16),
+             (1, 120, 8, 64, 2, 64, 40, bf16),
              (2, 384, 8, 32, 2, 16, 128, f32)]
     row = None
     for B, S, H, P, G, N, chunk, dtype in cases:
@@ -567,32 +637,40 @@ def check_ssd(torch, timer) -> dict:
         Bm = (0.3 * rnd(B, S, G, N)).to(dtype)
         Cm = (0.3 * rnd(B, S, G, N)).to(dtype)
         args = (x, dt, A, Bm, Cm)
-        y, h = ssd.ssd_scan(*args, chunk=chunk)
-        torch.cuda.synchronize()
         want = ssd.ssd_scan_plain(*args, chunk=chunk)
         Q = min(chunk, S)
+        plain_ms = timer(lambda: ssd.ssd_scan_plain(*args, chunk=chunk))
+        # least work: C·Bᵀ once per (batch, group, chunk) over its causal
+        # half; per head the intra-chunk product (same half), the carried
+        # state's C·h and the state update, each once; at the peak of the
+        # pipe the dtype's kernel runs on (bf16: the tensor cores)
+        pairs = Q * (Q + 1) // 2 * (S // Q)
+        flops = 2 * B * (G * pairs * N + H * pairs * P + 2 * H * S * N * P)
+        nbytes = (x.numel() + Bm.numel() + Cm.numel()) * x.element_size() \
+            + (dt.numel() + A.numel() + want[0].numel()
+               + want[1].numel()) * 4
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        y, h = ssd.ssd_scan(*args, chunk=chunk)
+        again = ssd.ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
         tag = (f"ssd_scan B={B} S={S} H={H} P={P} G={G} N={N} chunk={Q} "
                f"{dtype}")
         err = max(check_close(tag + " y", y, want[0], f32, SSD_TOL),
                   check_close(tag + " state", h, want[1], f32, SSD_TOL))
-        ms = timer(lambda: ssd.ssd_scan(*args, chunk=chunk))
-        plain_ms = timer(lambda: ssd.ssd_scan_plain(*args, chunk=chunk))
-        # least work: C·Bᵀ once per (batch, group, chunk) over its causal
-        # half; per head the intra-chunk product (same half), the carried
-        # state's C·h and the state update, each once
-        pairs = Q * (Q + 1) // 2 * (S // Q)
-        flops = 2 * B * (G * pairs * N + H * pairs * P + 2 * H * S * N * P)
-        nbytes = (x.numel() + Bm.numel() + Cm.numel()) * x.element_size() \
-            + (dt.numel() + A.numel() + y.numel() + h.numel()) * 4
-        b_ms, b_by = bound(nbytes, flops, f32)
-        print(f"[kernel] {tag}: max_abs_err {err:.3e} (tol {SSD_TOL:g})  "
-              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  no library call"
-              f"  bound {b_ms:.4f} ms ({b_by}; operations at the f32 peak, "
-              f"C·Bᵀ once per group and chunk)", flush=True)
+        assert_same_bits(tag, (y, h), again)
+        call = lambda: ssd.ssd_scan(*args, chunk=chunk)
+        ms, other_ms = timed(timer, call)
+        other = against_line(call, want, tag, f32, other_ms, SSD_TOL)
+        print(f"[kernel] {tag}: max_abs_err {err:.3e} (tol {SSD_TOL:g}); a "
+              f"second launch equal bit for bit{other}  kernel {ms:.4f} ms ("
+              f"{flops / ms / 1e9:.1f} TFLOP/s of least work, share of the "
+              f"bound {b_ms / ms:.3f})  plain {plain_ms:.4f} ms  no library "
+              f"call  bound {b_ms:.4f} ms ({b_by}; operations at the {dtype} "
+              f"peak, C·Bᵀ once per group and chunk)", flush=True)
         if row is None:
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        del args, x, dt, Bm, Cm, y, h, want
+        del args, x, dt, Bm, Cm, want, y, h, again
     return row
 
 
@@ -1421,8 +1499,17 @@ def _to(tree, device):
 
 
 def main() -> None:
+    import argparse
+    import pathlib
+
     import torch
 
+    global AGAINST
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", metavar="DIR", help="a checkout of another "
+                    "commit: time its paged decode and SSD scan beside this "
+                    "tree's, and stop there")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     from repro_torch.kernels import build
@@ -1448,6 +1535,17 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     timer = Timer(torch)
+    if args.against:
+        csrc = pathlib.Path(args.against).resolve() / CSRC
+        if not csrc.is_dir():
+            raise SystemExit(f"chip_smoke: no {CSRC} under {args.against}")
+        with phase("build --against"):
+            AGAINST = build.build(csrc)
+            print(f"[build] --against {AGAINST}", flush=True)
+        with phase("kernels --against"):
+            check_paged(torch, timer)
+            check_ssd(torch, timer)
+        return
     with phase("kernels"):
         rows = {"flash_fwd": check_flash(torch, timer),
                 "paged_decode": check_paged(torch, timer)}

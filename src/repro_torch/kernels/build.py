@@ -8,6 +8,7 @@ is loaded from ``_build/`` as it is.  Nothing is built on import.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -34,26 +35,27 @@ def nvcc() -> str:
                        "are built from source at first use")
 
 
-def library_path() -> Path:
+def library_path(csrc: Path = CSRC) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(CSRC.glob("*.cu*")):
+    for f in sorted(csrc.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"librepro_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile and link the library unless it is already built; returns
-    its path.  The compiler's output (with ``ptxas -v`` register and
-    spill counts) is kept beside it as ``<name>.log``."""
-    so = library_path()
+def build(csrc: Path = CSRC) -> Path:
+    """Compile and link the library of the sources in ``csrc`` (this
+    tree's by default) unless it is already built; returns its path.  The
+    compiler's output (with ``ptxas -v`` register and spill counts) is
+    kept beside it as ``<name>.log``."""
+    so = library_path(csrc)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     exe = nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         jobs = []
-        for src in sorted(CSRC.glob("*.cu")):
+        for src in sorted(csrc.glob("*.cu")):
             obj = os.path.join(tmp, src.stem + ".o")
             cmd = [exe, *NVCC_FLAGS, "-c", str(src), "-o", obj]
             jobs.append((src, obj, subprocess.Popen(
@@ -91,6 +93,19 @@ def function(name: str, argtypes: list):
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
+
+
+@contextlib.contextmanager
+def using(so: Path):
+    """Inside the block every entry point calls the library at ``so``
+    (another tree's build, from :func:`build`), then this tree's again."""
+    global _lib, _fns
+    saved = _lib, _fns
+    _lib, _fns = ctypes.CDLL(str(so)), {}
+    try:
+        yield
+    finally:
+        _lib, _fns = saved
 
 
 def check(err: int, name: str) -> None:

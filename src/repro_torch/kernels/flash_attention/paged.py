@@ -5,6 +5,14 @@ Replaces ``repro/kernels/flash_attention/paged.py::_paged_decode_kernel``.
 The CUDA kernel is ``csrc/paged_decode.cu``; :func:`paged_decode_plain` is
 its plain PyTorch version (gather every page of the table, mask, softmax).
 
+The kernel splits each slot's live keys across a cluster of 8 blocks,
+each owning a run of tiles and its own online-softmax state; the ranks'
+states are merged in rank order through distributed shared memory, in the
+one launch.  bf16 scores tiles of 64 keys on the tensor cores (16 keys a
+warp, p rounded to bf16 before P·V, one state a warp); f32 scores tiles
+of 8 KB of K on the FMA pipes (one state a lane group of ``D/4`` lanes, 4
+keys a tile each).
+
 Page 0 is the all-zero trash page: unallocated block-table entries and
 inactive slots (table row all 0, ``pos`` 0) point at it, so they read
 zeros and produce a finite output.

@@ -11,6 +11,12 @@ Replaces ``repro/kernels/ssd/ssd.py::_ssd_kernel`` (CUDA:
 - the state update ``h' = exp(cum_Q)·h + Σ_q exp(cum_Q − cum_q)·dt_q·x_q ⊗
   B_q``.
 
+For bf16 inputs the kernel runs the three products on the tensor cores
+(bf16 operands, f32 sums): C and B enter as they are, and every f32
+operand (``S∘L``, ``dt·x``, ``h``, the decayed ``dt·x``) is split into
+``hi = bf16(a)`` and ``lo = bf16(a − hi)``, the lo·lo term dropped, for a
+relative error near 2⁻¹⁷.  f32 inputs take its FMA kernel.
+
 :func:`ssd_scan_plain` repeats that arithmetic in f32 with PyTorch; the
 wrapper :func:`ssd_scan` runs it for CPU tensors, and the tests and
 ``chip_smoke.py`` hold the kernel against it.  Training differentiates

@@ -12,9 +12,13 @@ bit, and one launch per wrapper call in bf16 and f32 (each dtype has its
 kernel: bf16 the tensor cores, f32 the FMA pipes); for the loss head,
 ragged token counts, a padded vocab (vocab < Vp), a label in the last real
 column, the training step's full head (T = 8188, E = 2048, V = 32000) and
-a second launch equal bit for bit; for the SSD scan,
-chunks from 8 to 256, several groups and batch rows, head dims 32 and 64,
-states 16 to 128, bf16 and f32 inputs (tolerance 5e-4, the reference's);
+a second launch equal bit for bit; for paged decode, one slot filling
+the block table at B=1, a slot of one page and a second launch equal bit
+for bit; for the SSD scan,
+chunks from 8 to 256 (a ragged 40 and mamba2's prefill shape among them),
+several groups and batch rows, head dims 32 and 64, states 16 to 128, bf16
+and f32 inputs (tolerance 5e-4, the reference's), and a second launch
+equal bit for bit;
 for the int8 quantize and dequantize, bit for bit: blocks of 3 to 2^22
 elements (both kernel paths, vector and scalar accesses), f32 and bf16,
 an input that is not 16-byte aligned, NaNs, and ``quantize_int8`` on the
@@ -125,22 +129,49 @@ def test_fwd_wrappers_launch_once_per_call_in_each_dtype_on_card(cuda):
         assert counts() == (n_flash + 1, n_xent + 1)
 
 
+def _paged_edge_inputs(B, H, K, D, ps, mp, seed=0):
+    """Block tables at the edges of the cluster's split: B=1, one slot that
+    fills every page of the table; B=3, a slot of one page, a slot that
+    fills the table, and an inactive slot (table row 0, pos 0)."""
+    P = 1 + B * mp
+    q, kp, vp, _, _ = paged_inputs(B, H, K, D, ps, mp, P, seed=seed)
+    pos = (np.array([mp * ps - 1], np.int32) if B == 1
+           else np.array([ps // 2, mp * ps - 1, 0], np.int32))
+    table = np.zeros((B, mp), np.int32)
+    free = list(np.random.default_rng(seed).permutation(np.arange(1, P)))
+    for b in range(B):
+        if pos[b] > 0:
+            n = pos[b] // ps + 1
+            table[b, :n] = [free.pop() for _ in range(n)]
+    return q, kp, vp, table, pos
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("H,K,D", [(32, 4, 64), (8, 8, 128), (16, 4, 128),
                                    (8, 4, 64)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_paged_kernel_matches_plain_on_card(cuda, H, K, D, dtype):
-    B, ps, mp = 5, 16, 6
-    q, kp, vp, table, pos = paged_inputs(B, H, K, D, ps, mp, 1 + B * mp,
-                                         seed=H + D)
+@pytest.mark.parametrize("slots", ["ragged", "B=1 full", "edges"])
+def test_paged_kernel_matches_plain_on_card(cuda, H, K, D, dtype, slots):
+    """Ragged slots (paged_inputs), one slot filling max_pages at B=1, and
+    a one-page slot beside a full one and an inactive one; a second launch
+    gives the same bits (the cluster merges in rank order)."""
+    if slots == "ragged":
+        B, ps, mp = 5, 16, 6
+        inputs = paged_inputs(B, H, K, D, ps, mp, 1 + B * mp, seed=H + D)
+    else:
+        inputs = _paged_edge_inputs(1 if slots == "B=1 full" else 3, H, K,
+                                    D, 64, 20, seed=H + D)
+    q, kp, vp, table, pos = inputs
     tdt = getattr(torch, dtype)
     args = [torch.tensor(a).to(tdt).to(cuda) for a in (q, kp, vp)] + [
         torch.tensor(table).to(cuda), torch.tensor(pos).to(cuda)]
     n0 = paged.paged_decode.launches
     out = paged.paged_decode(*args)
+    again = paged.paged_decode(*args)
     torch.cuda.synchronize()
-    assert paged.paged_decode.launches == n0 + 1
+    assert paged.paged_decode.launches == n0 + 2
     assert torch.isfinite(out).all()
+    assert torch.equal(out.view(torch.uint8), again.view(torch.uint8))
     close(out.float().cpu(), paged.paged_decode_plain(*args).float().cpu(),
           TOL[dtype])
 
@@ -378,17 +409,23 @@ def _ssd_inputs(B, S, H, P, G, N, dtype, device, seed=0):
     (1, 512, 8, 64, 2, 128, 128),
     (2, 512, 4, 64, 1, 128, 256),    # the serving chunk, four key tiles
     (1, 96, 2, 32, 1, 64, 96),       # a chunk that is not a tile multiple
+    (1, 120, 2, 64, 1, 32, 40),      # ragged: 40 rows, past one 16-row tile
+    (1, 512, 64, 64, 1, 128, 256),   # mamba2-1.3b's prefill
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_kernel_matches_plain_on_card(cuda, B, S, H, P, G, N, chunk,
                                           dtype):
+    """bf16 runs the tensor-core kernel, f32 the FMA one; each against the
+    plain version and against a second launch bit for bit."""
     args = _ssd_inputs(B, S, H, P, G, N, dtype, cuda, seed=S + N)
     n0 = ssd.ssd_scan.launches
     y, h = ssd.ssd_scan(*args, chunk=chunk)
+    again = ssd.ssd_scan(*args, chunk=chunk)
     torch.cuda.synchronize()
-    assert ssd.ssd_scan.launches == n0 + 1
+    assert ssd.ssd_scan.launches == n0 + 2
     assert y.dtype == h.dtype == torch.float32
     assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    assert torch.equal(y, again[0]) and torch.equal(h, again[1])
     want_y, want_h = ssd.ssd_scan_plain(*args, chunk=chunk)
     close(y.cpu(), want_y.cpu(), 5e-4)
     close(h.cpu(), want_h.cpu(), 5e-4)

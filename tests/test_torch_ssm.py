@@ -100,6 +100,74 @@ def test_ssd_plain_takes_bf16_inputs_as_the_kernel_does(dtype):
     close(h, h_pl, SCAN_TOL)
 
 
+def _split_bf16(a: torch.Tensor):
+    """a = hi + lo + O(2⁻¹⁷|a|): hi = bf16(a), lo = bf16(a − hi) in f32."""
+    hi = a.bfloat16().float()
+    return hi, (a - hi).bfloat16().float()
+
+
+def _ssd_tensor_core_rounding(x, dt, A, Bm, Cm, chunk):
+    """The bf16 SSD kernel's rounding points in plain torch: bf16 x, B and
+    C; S = C·Bᵀ in f32 (bf16 products are exact); S∘L masked before the
+    exponential; every f32 operand — S∘L, xs = dt·x, h and xs·w with
+    w = exp(cum_Q − cum_j) — split into bf16 hi and lo, the products
+    summed in f32 with the lo·lo term dropped: (S∘L)·xs = hi·xh + hi·xl +
+    lo·xh, C·h = C·hh + C·hl, (xs∘w)ᵀ·B = xwhᵀ·B + xwlᵀ·B."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = ssd.chunk_len(S, chunk)
+    grp = torch.arange(H) // (H // G)
+    tril = torch.ones((Q, Q), dtype=torch.bool).tril()
+    h = torch.zeros((Bsz, H, P, N))
+    ys = []
+    for q0 in range(0, S, Q):
+        d = dt[:, q0:q0 + Q].float()                                 # (B,Q,H)
+        cum = torch.cumsum(d * A.float(), dim=1).transpose(1, 2)     # (B,H,Q)
+        xs = x[:, q0:q0 + Q].float() * d[..., None]                  # (B,Q,H,P)
+        Bc = Bm[:, q0:q0 + Q].float()[:, :, grp]                     # (B,Q,H,N)
+        Cc = Cm[:, q0:q0 + Q].float()[:, :, grp]
+        seg = torch.where(tril, cum[..., :, None] - cum[..., None, :],
+                          float("-inf"))
+        sl_hi, sl_lo = _split_bf16(
+            torch.einsum("bihn,bjhn->bhij", Cc, Bc) * torch.exp(seg))
+        xh, xl = _split_bf16(xs)
+        intra = sum(torch.einsum("bhij,bjhp->bihp", a, b)
+                    for a, b in ((sl_hi, xh), (sl_hi, xl), (sl_lo, xh)))
+        hh, hl = _split_bf16(h)
+        carried = (torch.einsum("bihn,bhpn->bihp", Cc, hh)
+                   + torch.einsum("bihn,bhpn->bihp", Cc, hl))
+        ys.append(carried * torch.exp(cum).transpose(1, 2)[..., None]
+                  + intra)
+        total = cum[..., -1]                                         # (B,H)
+        w = torch.exp(total[..., None] - cum).transpose(1, 2)        # (B,Q,H)
+        xwh, xwl = _split_bf16(xs * w[..., None])
+        h = (torch.exp(total)[..., None, None] * h
+             + torch.einsum("bjhp,bjhn->bhpn", xwh, Bc)
+             + torch.einsum("bjhp,bjhn->bhpn", xwl, Bc))
+    return torch.cat(ys, dim=1), h
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,C", [
+    (1, 256, 2, 32, 1, 64, 64),       # G=1, the state carried over 4 chunks
+    (2, 128, 4, 32, 2, 16, 32),       # G=2, 4 chunks
+    (1, 64, 2, 32, 1, 32, 8),         # chunks of 8: shorter than a 16-row tile
+    (1, 120, 2, 32, 2, 16, 40),       # a ragged chunk: 40 rows, 3 chunks
+])
+def test_ssd_tensor_core_rounding_matches_reference(B, S, H, P, G, N, C):
+    """The bf16 kernel's precision design (bf16 hi/lo splits of its f32
+    operands) against the reference's Pallas kernel on the same bf16
+    inputs (interpret mode), within its 5e-4 on y and the state."""
+    x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, G, N, seed=S + C)
+    bf = lambda a: torch.tensor(a).bfloat16()
+    y, h = _ssd_tensor_core_rounding(bf(x), torch.tensor(dt),
+                                     torch.tensor(A), bf(Bm), bf(Cm), C)
+    jbf = lambda a: jnp.asarray(a).astype(jnp.bfloat16)
+    y_pl, h_pl = ssd_scan_pallas(jbf(x), jnp.asarray(dt), jnp.asarray(A),
+                                 jbf(Bm), jbf(Cm), chunk=C, interpret=True)
+    close(y, y_pl, SCAN_TOL)
+    close(h, h_pl, SCAN_TOL)
+
+
 def test_ssd_wrapper_takes_the_plain_version_on_cpu_and_counts_nothing():
     args = [torch.tensor(a) for a in _ssd_inputs(1, 64, 2, 32, 1, 16)]
     n0 = ssd.ssd_scan.launches
