@@ -22,7 +22,13 @@ and the script exits non-zero without printing a result:
    shares of the bound, ratio to the library call (the flash forward at
    the training step's shape too, paged decode at 8 slots and at one),
    and the ptxas registers and spills of the bf16 (tensor-core) builds,
-   which must not spill;
+   which must not spill; then the gradient compressor's fused
+   error-feedback encode (``ef_absmax``, ``ef_requant``, ``ef_decode``)
+   at tinyllama's largest gradient leaf, each kernel against its plain
+   version and the whole ``compressed_psum`` (a world of one over NCCL)
+   against ``compressed_psum_plain``, bit for bit (f32, bf16, a NaN),
+   timed beside that eager yardstick, with their ptxas registers and
+   spills (a spill fails);
 4. the serving path: ``repro_torch.launch.serve`` serving tinyllama-1.1b
    at full width with the paged KV cache — 16 requests of 500 prompt
    tokens and 64 generated through 8 slots — with every kernel's launch
@@ -57,8 +63,9 @@ and the script exits non-zero without printing a result:
 15. the compressed data-parallel training path: the same driver with
     ``--mesh 1x1x1 --compress-pod`` (a pod of one, through the process
     group's collectives) at full width for 8 steps, with every kernel's
-    launch count read around it (quantize once and dequantize twice per
-    gradient leaf and step); then the same 8 steps with ``--mesh 1x1x1``
+    launch count read around it (each of the three fused encode kernels
+    once per gradient leaf and step, quantize and dequantize never); then
+    the same 8 steps with ``--mesh 1x1x1``
     alone, for the cost of the compression (at 4 steps the driver's
     schedule, warm-up 1 and cosine over 4, lifts step 3's loss above step
     0's with or without compression);
@@ -78,9 +85,13 @@ line ``{"ok": true, "device": {...}}``.  Needs no network; needs ``nvcc``
 
 ``python3 chip_smoke.py --against DIR`` (DIR a checkout of another commit,
 e.g. unpacked with ``git archive``) builds DIR's kernels beside this
-tree's and runs only phase 3's paged-decode and SSD checks, timing each
-call with both libraries in the order DIR, this, this, DIR; it drives no
-main path and prints no result line.
+tree's and runs only phase 3's paged-decode, SSD and quantize checks,
+timing each call with both libraries in the order DIR, this, this, DIR,
+then DIR's
+``compressed_psum_tree`` (its ``optim/grad_compress.py`` over its
+kernels) beside this tree's over tinyllama's gradient leaves, equal bit
+for bit, in the same order; it drives no main path and prints no result
+line.
 """
 from __future__ import annotations
 
@@ -128,6 +139,9 @@ MAMBA_LONG_ARGS = ["--arch", MAMBA, "--cache", "dense", "--requests", "1",
                    "--max-len", "4096"]
 SSD_TOL = 5e-4            # the reference's tolerance for its SSD kernel
 AGAINST = None            # --against: the kernel library of another checkout
+AGAINST_DIR = None        # --against: that checkout
+EF_KERNELS = (r"ef_(?:absmax|requant|decode)_kernelI(?:f|13__nv_bfloat16)"
+              r"Li\d+E|ef_absmax_final_kernel")
 CSRC = "src/repro_torch/kernels/csrc"
 
 
@@ -690,7 +704,9 @@ def check_quant(torch, timer) -> tuple:
     block over tinyllama's largest gradient leaf (the compressed training
     path's shape: one scale per tensor), a bf16 input, and a NaN in each
     of the two kernel paths (its block's scale NaN on both sides).
-    Returns the (quantize, dequantize) rows of the largest leaf."""
+    Under ``--against`` only quantize, against the other tree's in the
+    order other, this, this, other, equal bit for bit.  Returns the
+    (quantize, dequantize) rows of the largest leaf."""
     from repro_torch.kernels.quant.quant import (dequantize,
                                                  dequantize_plain, quantize,
                                                  quantize_plain)
@@ -726,7 +742,18 @@ def check_quant(torch, timer) -> tuple:
         es = x.element_size()
         b_q = bound(T * (es + 1) + nb * 4, 0, torch.float32)
         b_d = bound(T * (1 + 4) + nb * 4, 0, torch.float32)
-        ms_q = timer(lambda: quantize(x, block=block))
+        ms_q, other_q = timed(timer, lambda: quantize(x, block=block))
+        if AGAINST is not None:
+            from repro_torch.kernels import build
+            with build.using(AGAINST):
+                qo, so = quantize(x, block=block)
+            if not (same_bits(qo, q) and same_bits(so, s)):
+                raise AssertionError(f"{tag}: --against's quantize differs")
+            del qo, so
+            print(f"[kernel] {tag}: quantize {ms_q:.4f} ms, --against "
+                  f"{other_q:.4f} ms (order --against, this, this, "
+                  f"--against), equal bit for bit", flush=True)
+            continue
         plain_q = timer(lambda: quantize_plain(x, block))
         ms_d = timer(lambda: dequantize(q, s, block=block))
         plain_d = timer(lambda: dequantize_plain(q, s, block))
@@ -752,6 +779,122 @@ def check_quant(torch, timer) -> tuple:
                          bound_ms=b_d[0], bound_by=b_d[1], library_ms=lib_d))
         del x, q, s, y, qv, sv
         torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def world_of_one():
+    """A default process group of one rank over NCCL (the compressor's
+    collectives), destroyed on the way out."""
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(d, "store"), 1), rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def check_ef(torch, timer) -> tuple:
+    """The compressor's fused error-feedback encode at tinyllama's largest
+    gradient leaf with a carried error (f32, bf16, and f32 with a NaN):
+    ef_absmax, ef_requant and ef_decode each against its plain version,
+    and compressed_psum (the three around the collectives of a world of one
+    over NCCL) against compressed_psum_plain, the op by op path through
+    quantize and dequantize, all bit for bit.  Times the three kernels, their
+    plain versions and, for ef_decode, ``torch.mul(total, smax)`` (its
+    function at a world of one), and the fused compressed_psum beside the
+    eager one in this call.  Prints the kernels' ptxas registers and spills
+    and fails on a spill.  Returns the three rows of the f32 leaf."""
+    from repro_torch.kernels.quant.quant import (ef_absmax, ef_absmax_plain,
+                                                 ef_decode, ef_decode_plain,
+                                                 ef_requant,
+                                                 ef_requant_plain)
+    from repro_torch.optim import grad_compress as gc
+
+    print_ptxas(EF_KERNELS)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = None
+    with world_of_one():
+        for dtype, nan in ((torch.float32, False), (torch.bfloat16, False),
+                           (torch.float32, True)):
+            x = (torch.randn((LEAF,), generator=gen, device="cuda") * 1e-3
+                 ).to(dtype)
+            err = torch.randn((LEAF,), generator=gen, device="cuda") * 1e-5
+            if nan:
+                x[LEAF // 3] = float("nan")
+            tag = (f"ef encode T={LEAF} {dtype} with a carried error"
+                   f"{' and a NaN' if nan else ''}")
+            s = ef_absmax(x, err)
+            smax = s.clone()
+            q2, e2 = ef_requant(x, err, s, smax)
+            out = ef_decode(q2, smax, torch.empty_like(x), 1)
+            torch.cuda.synchronize()
+            if not same_bits(s, ef_absmax_plain(x, err)):
+                raise AssertionError(f"{tag}: ef_absmax differs from plain")
+            qp, ep = ef_requant_plain(x, err, s, smax)
+            if not (same_bits(q2, qp) and same_bits(e2, ep)):
+                raise AssertionError(
+                    f"{tag}: ef_requant differs from plain at "
+                    f"{int((q2 != qp).sum())} q2, {int((e2 != ep).sum())} "
+                    f"errors")
+            del qp, ep
+            if not same_bits(out, ef_decode_plain(q2, smax,
+                                                  torch.empty_like(x), 1)):
+                raise AssertionError(f"{tag}: ef_decode differs from plain")
+            fo, fe = gc.compressed_psum(x, None, err)
+            po, pe = gc.compressed_psum_plain(x, None, err)
+            if not (same_bits(fo, po) and same_bits(fe, pe)):
+                raise AssertionError(
+                    f"{tag}: compressed_psum differs from compressed_psum_"
+                    f"plain at {int((fo != po).sum())} outputs, "
+                    f"{int((fe != pe).sum())} errors")
+            if nan and not (torch.isnan(s).all() and torch.isnan(fe).any()):
+                raise AssertionError(f"{tag}: the NaN's scale is not NaN")
+            del fo, fe, po, pe
+            print(f"[kernel] {tag}: s, q2, error, output and compressed_psum "
+                  f"equal their plain versions bit for bit", flush=True)
+            if dtype == torch.float32 and not nan:
+                lib = torch.mul(q2, smax)
+                if not same_bits(lib, out):
+                    raise AssertionError(f"{tag}: torch.mul(total, smax) "
+                                         f"differs from ef_decode")
+                del lib
+                b1 = bound(LEAF * 8 + 4, 0, torch.float32)
+                b2 = bound(LEAF * 16 + 8, 0, torch.float32)
+                b3 = bound(LEAF * 8 + 4, 0, torch.float32)
+                ms = [timer(lambda: ef_absmax(x, err)),
+                      timer(lambda: ef_requant(x, err, s, smax, e2)),
+                      timer(lambda: ef_decode(q2, smax, out, 1))]
+                plain = [timer(lambda: ef_absmax_plain(x, err)),
+                         timer(lambda: ef_requant_plain(x, err, s, smax, e2)),
+                         timer(lambda: ef_decode_plain(q2, smax, out, 1))]
+                lib_ms = timer(lambda: torch.mul(q2, smax, out=out))
+                fused = timer(lambda: gc.compressed_psum(x, None, err))
+                eager = timer(lambda: gc.compressed_psum_plain(x, None, err))
+                names = ("ef_absmax", "ef_requant", "ef_decode")
+                for name, t, p, b in zip(names, ms, plain, (b1, b2, b3)):
+                    print(f"[kernel] {name} at T={LEAF} f32: {t:.4f} ms "
+                          f"(plain {p:.4f}, bound {b[0]:.4f}, {b[1]}, share "
+                          f"{b[0] / t:.3f})", flush=True)
+                print(f"[kernel] ef encode at T={LEAF} f32: K1+K2+K3 "
+                      f"{sum(ms):.4f} ms against a bound of "
+                      f"{b1[0] + b2[0] + b3[0]:.4f} (32 B/element; K1+K2 "
+                      f"{sum(ms[:2]):.4f} against {b1[0] + b2[0]:.4f}, K3 "
+                      f"{ms[2]:.4f} against {b3[0]:.4f}); torch.mul(total, "
+                      f"smax) {lib_ms:.4f}; compressed_psum (fused, with the "
+                      f"collectives) {fused:.4f} ms against "
+                      f"compressed_psum_plain (eager: quantize, dequantize "
+                      f"and ~20 passes) {eager:.4f} ms in this call "
+                      f"({eager / fused:.2f}x)", flush=True)
+                rows = tuple(dict(max_abs_err=0.0, ms=t, plain_ms=p,
+                                  bound_ms=b[0], bound_by=b[1],
+                                  library_ms=lb)
+                             for t, p, b, lb in zip(ms, plain, (b1, b2, b3),
+                                                    (None, None, lib_ms)))
+            del x, err, s, smax, q2, e2, out
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1055,7 +1198,8 @@ def train_expected(layers: int, steps: int, vp: int) -> dict:
             "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps,
             "xent_fwd": steps,
             "xent_bwd": steps * -(-vp // xent.bwd_chunk(T, vp)),
-            "ssd_scan": 0, "quantize": 0, "dequantize": 0}
+            "ssd_scan": 0, "quantize": 0, "dequantize": 0, "ef_absmax": 0,
+            "ef_requant": 0, "ef_decode": 0}
 
 
 def train_full(torch, kernels) -> dict:
@@ -1330,13 +1474,41 @@ def train_compressed(torch, kernels) -> tuple:
             raise AssertionError(f"{name}: loss not finite and falling: "
                                  f"{losses}")
         want = train_expected(cfg.n_layers, COMP_STEPS, cfg.padded_vocab)
-        if extra:     # one quantize and two dequantizes per leaf and step
-            want.update(quantize=leaves * COMP_STEPS,
-                        dequantize=2 * leaves * COMP_STEPS)
+        if extra:     # each fused encode kernel once per leaf and step
+            want.update(ef_absmax=leaves * COMP_STEPS,
+                        ef_requant=leaves * COMP_STEPS,
+                        ef_decode=leaves * COMP_STEPS)
         if counts != want:
             raise AssertionError(f"{name} launches {counts}, want {want}")
         runs[name] = counts
     return runs["compressed"], runs["uncompressed"]
+
+
+def leaf_grads(torch, seed: int) -> tuple:
+    """Random gradients of tinyllama-1.1b's 12 leaf shapes on the card and
+    their zero error tree; returns (grads, err, elements)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import Model
+    from repro_torch.optim import grad_compress as gc
+    from repro_torch.tree import flatten, unflatten
+
+    paths, metas = flatten(Model(get_config(ARCH), "meta").init(0))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    grads = unflatten(paths, [torch.randn(m.shape, generator=gen,
+                                          device="cuda") * 1e-3
+                              for m in metas])
+    return grads, gc.init_error_tree(grads), sum(m.numel() for m in metas)
+
+
+def host_ms(torch, fn, n: int = 3) -> float:
+    """fn's mean time on the host clock around a sync, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
 
 
 def compression_time(torch) -> None:
@@ -1344,43 +1516,22 @@ def compression_time(torch) -> None:
     over gradients of tinyllama-1.1b's leaf shapes (a world of one, NCCL)
     on the host clock around a sync, then once under torch.profiler for
     its kernels by device time."""
-    import torch.distributed as dist
     from torch.autograd import DeviceType
 
-    from repro_torch.configs import get_config
-    from repro_torch.models.lm import Model
     from repro_torch.optim import grad_compress as gc
-    from repro_torch.tree import flatten, unflatten
 
-    paths, metas = flatten(Model(get_config(ARCH), "meta").init(0))
-    gen = torch.Generator(device="cuda").manual_seed(6)
-    grads = unflatten(paths, [torch.randn(m.shape, generator=gen,
-                                          device="cuda") * 1e-3
-                              for m in metas])
-    err = gc.init_error_tree(grads)
-    n = sum(m.numel() for m in metas)
-    with tempfile.TemporaryDirectory() as d:
-        dist.init_process_group("nccl", store=dist.FileStore(
-            os.path.join(d, "store"), 1), rank=0, world_size=1)
-        try:
-            run = lambda: gc.compressed_psum_tree(grads, None, err)
-            run()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(3):
-                run()
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) / 3 * 1e3
-            host_ms, busy_ms, prof = profiled(torch, run, 1)
-        finally:
-            dist.destroy_process_group()
+    grads, err, n = leaf_grads(torch, 6)
+    with world_of_one():
+        run = lambda: gc.compressed_psum_tree(grads, None, err)
+        ms = host_ms(torch, run)
+        host, busy_ms, prof = profiled(torch, run, 3)
     print(f"[time] compressed_psum_tree over tinyllama-1.1b's 12 gradient "
           f"leaves ({n / 1e9:.3f} G elements, a pod of one): {ms:.2f} ms "
           f"on the host clock", flush=True)
     if busy_ms is None:
         return
-    print(f"[time] under the profiler: {host_ms:.2f} ms, device busy "
-          f"{busy_ms:.2f} ms, idle share {1 - busy_ms / host_ms:.3f}",
+    print(f"[time] under the profiler: {host:.2f} ms, device busy "
+          f"{busy_ms:.2f} ms, idle share {1 - busy_ms / host:.3f}",
           flush=True)
     kernels = sorted((e for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA),
@@ -1388,6 +1539,51 @@ def compression_time(torch) -> None:
     for e in kernels[:12]:
         print(f"[time]   {e.self_device_time_total / 1e3:8.3f} ms  "
               f"x{e.count:<4d} {e.key[:90]}", flush=True)
+
+
+def compression_against(torch) -> None:
+    """Under ``--against``: the other checkout's ``compressed_psum_tree``
+    (its ``optim/grad_compress.py``, loaded from its file, over its kernel
+    library) beside this tree's over gradients of tinyllama-1.1b's leaf
+    shapes in a world of one: equal bit for bit on the same inputs, then
+    timed on the host clock around a sync in the order other, this, this,
+    other."""
+    import importlib.util
+
+    from repro_torch.kernels import build
+    from repro_torch.optim import grad_compress as gc
+    from repro_torch.tree import flatten, tree_map
+
+    spec = importlib.util.spec_from_file_location(
+        "against_grad_compress",
+        os.path.join(AGAINST_DIR, "src/repro_torch/optim/grad_compress.py"))
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    grads, err, n = leaf_grads(torch, 6)
+    copy = lambda tree: tree_map(lambda t: t.clone(), tree)
+    with world_of_one():
+        with build.using(AGAINST):
+            want = other.compressed_psum_tree(copy(grads), None, copy(err))
+        got = gc.compressed_psum_tree(copy(grads), None, copy(err))
+        torch.cuda.synchronize()
+        for tree_got, tree_want in zip(got, want):
+            for a, b in zip(flatten(tree_got)[1], flatten(tree_want)[1]):
+                if not same_bits(a, b):
+                    raise AssertionError("compressed_psum_tree: this tree "
+                                         "and --against differ")
+        del got, want
+        this = lambda: gc.compressed_psum_tree(grads, None, err)
+        that = lambda: other.compressed_psum_tree(grads, None, err)
+        with build.using(AGAINST):
+            first = host_ms(torch, that)
+        mine = [host_ms(torch, this), host_ms(torch, this)]
+        with build.using(AGAINST):
+            last = host_ms(torch, that)
+    print(f"[time] compressed_psum_tree over tinyllama-1.1b's 12 gradient "
+          f"leaves ({n / 1e9:.3f} G elements, a pod of one), equal bit for "
+          f"bit: --against {first:.2f} / {last:.2f} ms, this tree "
+          f"{mine[0]:.2f} / {mine[1]:.2f} ms on the host clock (order "
+          f"--against, this, this, --against)", flush=True)
 
 
 def compressed_agreement(torch) -> None:
@@ -1504,17 +1700,19 @@ def main() -> None:
 
     import torch
 
-    global AGAINST
+    global AGAINST, AGAINST_DIR
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="DIR", help="a checkout of another "
-                    "commit: time its paged decode and SSD scan beside this "
-                    "tree's, and stop there")
+                    "commit: time its paged decode, SSD scan, quantize and "
+                    "compressed_psum_tree beside this tree's, and stop there")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash, paged
-    from repro_torch.kernels.quant.quant import dequantize, quantize
+    from repro_torch.kernels.quant.quant import (dequantize, ef_absmax,
+                                                 ef_decode, ef_requant,
+                                                 quantize)
     from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.xent import xent
 
@@ -1541,10 +1739,16 @@ def main() -> None:
             raise SystemExit(f"chip_smoke: no {CSRC} under {args.against}")
         with phase("build --against"):
             AGAINST = build.build(csrc)
+            AGAINST_DIR = str(pathlib.Path(args.against).resolve())
             print(f"[build] --against {AGAINST}", flush=True)
         with phase("kernels --against"):
             check_paged(torch, timer)
             check_ssd(torch, timer)
+            check_quant(torch, timer)
+        del timer
+        torch.cuda.empty_cache()
+        with phase("compressed_psum_tree --against"):
+            compression_against(torch)
         return
     with phase("kernels"):
         rows = {"flash_fwd": check_flash(torch, timer),
@@ -1554,6 +1758,8 @@ def main() -> None:
         rows["xent_fwd"], rows["xent_bwd"] = check_xent(torch, timer)
         rows["ssd_scan"] = check_ssd(torch, timer)
         rows["quantize"], rows["dequantize"] = check_quant(torch, timer)
+        rows["ef_absmax"], rows["ef_requant"], rows["ef_decode"] = check_ef(
+            torch, timer)
     del timer
     torch.cuda.empty_cache()
 
@@ -1563,7 +1769,8 @@ def main() -> None:
                "flash_bwd_dkv": flash.flash_bwd_dkv,
                "xent_fwd": xent.xent_fwd, "xent_bwd": xent.xent_bwd,
                "ssd_scan": ssd.ssd_scan, "quantize": quantize,
-               "dequantize": dequantize}
+               "dequantize": dequantize, "ef_absmax": ef_absmax,
+               "ef_requant": ef_requant, "ef_decode": ef_decode}
     with phase("serve (paged, main serving path)"):
         serve_counts = serve_paged(torch, kernels)
     with phase("serve (dense)"):
@@ -1617,6 +1824,12 @@ def main() -> None:
                      "src/repro/kernels/quant/quant.py:22"),
         "dequantize": ("src/repro_torch/kernels/csrc/quant.cu",
                        "src/repro/kernels/quant/quant.py:29"),
+        "ef_absmax": ("src/repro_torch/kernels/csrc/quant.cu",
+                      "src/repro/kernels/quant/quant.py:22"),
+        "ef_requant": ("src/repro_torch/kernels/csrc/quant.cu",
+                       "src/repro/kernels/quant/quant.py:22"),
+        "ef_decode": ("src/repro_torch/kernels/csrc/quant.cu",
+                      "src/repro/kernels/quant/quant.py:22"),
     }
     table = []
     for name in rows:

@@ -23,13 +23,21 @@ group (the ``pod`` group of the mesh): ``jax.lax.pmax`` becomes an
 ``all_reduce(MAX)`` of the scale, ``psum`` of the int8 values an
 ``all_reduce(SUM)`` of int32, ``axis_size`` the group's size.  A group of
 one still runs both collectives, as a ``psum`` over a size-1 axis does.
+Around the collectives it runs three fused kernels of ``csrc/quant.cu``
+(``kernels/quant/quant.py::ef_absmax``, ``ef_requant``, ``ef_decode``),
+32 bytes per gradient element in all, where XLA fuses the reference's jnp;
+on CPU tensors their plain versions.  :func:`compressed_psum_plain` is the
+same function op by op through ``quantize`` and ``dequantize`` (the tests'
+and ``chip_smoke.py``'s yardstick, equal bit for bit).
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.kernels.quant.quant import dequantize, quantize
+from repro_torch.kernels.quant.quant import (dequantize, ef_absmax,
+                                             ef_decode, ef_requant,
+                                             quantize)
 from repro_torch.tree import flatten, tree_map
 
 
@@ -67,10 +75,35 @@ def compressed_psum(x: torch.Tensor, group=None,
     Every rank quantises with its own scale; the int8 values are
     requantised against the largest scale in the group, so their int32 sum
     times that scale is the sum up to int8 resolution, and the residual of
-    both quantisations goes to the error carry.  The order of operations
-    is the reference's; ``q·scale`` is computed once and used where the
-    reference computes it three times (the same values).
+    both quantisations goes to the error carry.  On the card x and err
+    must be contiguous.
     """
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    new_err = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    _psum_into(x, group, err, out, new_err, mean)
+    return out, new_err
+
+
+def _psum_into(x, group, err, out, err_out, mean: bool) -> None:
+    """:func:`compressed_psum` of x, written into out and err_out (which
+    may be x and err)."""
+    s = ef_absmax(x, err)
+    smax = s.clone()
+    dist.all_reduce(smax, op=dist.ReduceOp.MAX, group=group)
+    total, _ = ef_requant(x, err, s, smax, err_out)
+    del s
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    ef_decode(total, smax, out,
+              dist.get_world_size(group) if mean else None)
+
+
+def compressed_psum_plain(x: torch.Tensor, group=None,
+                          err: torch.Tensor | None = None, *,
+                          mean: bool = True):
+    """:func:`compressed_psum` op by op, through ``quantize`` and
+    ``dequantize`` (their kernels on the card).  The order of operations
+    is the reference's; ``q·scale`` is computed once and used where the
+    reference computes it three times (the same values)."""
     xf = x.float()
     if err is not None:
         xf = xf + err
@@ -114,8 +147,5 @@ def compressed_psum_tree(grads: dict, group, err_tree: dict, *,
     two): at tinyllama-1.1b's size that saves two 4.4 GB f32 trees, and
     each leaf's temporaries are freed before the next leaf starts."""
     for g, e in zip(flatten(grads)[1], flatten(err_tree)[1]):
-        out, new_err = compressed_psum(g, group, e, mean=mean)
-        g.copy_(out)
-        e.copy_(new_err)
-        del out, new_err
+        _psum_into(g, group, e, g, e, mean)
     return grads, err_tree

@@ -22,7 +22,12 @@ equal bit for bit;
 for the int8 quantize and dequantize, bit for bit: blocks of 3 to 2^22
 elements (both kernel paths, vector and scalar accesses), f32 and bf16,
 an input that is not 16-byte aligned, NaNs, and ``quantize_int8`` on the
-card against the CPU.
+card against the CPU; for the compressor's fused error-feedback encode
+(``ef_absmax``, ``ef_requant``, ``ef_decode``), bit for bit against their
+plain versions: f32 and bf16, with and without a carried error, a NaN, an
+all-zero leaf, one CTA (2048 elements) and many, unaligned views, a
+second launch, and ``compressed_psum_tree`` against
+``compressed_psum_plain`` leaf by leaf over NCCL in a world of one.
 """
 import numpy as np
 import pytest
@@ -31,6 +36,9 @@ import torch
 from repro_torch.kernels.flash_attention import flash, paged
 from repro_torch.kernels.quant.ops import quant as quant_op
 from repro_torch.kernels.quant.quant import (dequantize, dequantize_plain,
+                                             ef_absmax, ef_absmax_plain,
+                                             ef_decode, ef_decode_plain,
+                                             ef_requant, ef_requant_plain,
                                              quantize, quantize_plain)
 from repro_torch.kernels.ssd import ssd
 from repro_torch.kernels.xent import ops as xent_ops
@@ -515,3 +523,115 @@ def test_quantize_int8_on_card_equals_cpu(cuda, with_err):
         assert _same(a.cpu(), b)
     assert _same(gc.dequantize_int8(got[0], got[1]).cpu(),
                  gc.dequantize_int8(want[0], want[1]))
+
+
+def _ef_counts():
+    return (ef_absmax.launches, ef_requant.launches, ef_decode.launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,offset", [
+    (2048, 0),               # the norms: one CTA, one launch for the scale
+    (22 * 2048, 0),          # a few CTAs and the final reduction
+    (2048 * 5632, 0),        # many CTAs, vector accesses
+    ((1 << 20) + 3, 0),      # n % 4 != 0: scalar accesses
+    (1 << 20, 1),            # views 4 (2) bytes past an aligned address
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["random", "nan", "zero", "no_err"])
+def test_ef_kernels_match_plain_bit_for_bit(cuda, n, offset, dtype, case):
+    g = torch.Generator(device=cuda).manual_seed(n + offset)
+    dt = getattr(torch, dtype)
+    x = (torch.randn((n + offset,), generator=g, device=cuda) * 1e-3).to(
+        dt)[offset:]
+    err = (torch.randn((n + offset,), generator=g, device=cuda)
+           * 1e-5)[offset:]
+    if case == "zero":
+        x.zero_()
+        err.zero_()
+    elif case == "nan":
+        x[n // 3] = float("nan")
+    elif case == "no_err":
+        err = None
+    n0 = _ef_counts()
+    s = ef_absmax(x, err)
+    smax = s * 1.5                 # the group's scale, above this rank's
+    q2, new_err = ef_requant(x, err, s, smax)
+    out = torch.empty((n + offset,), dtype=dt, device=cuda)[offset:]
+    ef_decode(q2, smax, out, 3)
+    torch.cuda.synchronize()
+    assert _ef_counts() == (n0[0] + 1, n0[1] + 1, n0[2] + 1)
+    assert _same(s, ef_absmax_plain(x, err))
+    pq, pe = ef_requant_plain(x, err, s, smax)
+    assert _same(q2, pq) and _same(new_err, pe)
+    assert _same(out, ef_decode_plain(pq, smax, torch.empty_like(out), 3))
+    assert _same(ef_decode(q2, smax, torch.empty_like(out)),
+                 ef_decode_plain(pq, smax, torch.empty_like(out)))
+    if case == "nan":
+        assert torch.isnan(s).all() and torch.isnan(pe[n // 3])
+    if case == "zero":
+        assert float(s) == np.float32(1e-30) and not q2.any()
+    # a second launch on the same inputs gives the same bits, in place too
+    assert torch.equal(ef_absmax(x, err).view(torch.int32),
+                       s.view(torch.int32))
+    again = None if err is None else err.clone()
+    q2b, eb = ef_requant(x, again, s, smax, again)
+    assert torch.equal(q2b, q2)
+    assert torch.equal(eb.view(torch.int32), new_err.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_compressed_psum_tree_on_card_equals_plain(cuda, tmp_path):
+    import torch.distributed as dist
+
+    from repro_torch.optim import grad_compress as gc
+    g = torch.Generator(device=cuda).manual_seed(11)
+    shapes = {"norm": (2048,), "wq": (4, 2048, 256), "wk": (4, 2048, 64),
+              "odd": (1001,)}
+    grads = {k: torch.randn(v, generator=g, device=cuda) * 1e-3
+             for k, v in shapes.items()}
+    grads["bf16"] = (torch.randn((3, 4096), generator=g, device=cuda)
+                     * 1e-3).bfloat16()
+    err = {k: torch.randn(v.shape, generator=g, device=cuda) * 1e-5
+           for k, v in grads.items()}
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        want = {k: gc.compressed_psum_plain(grads[k], None, err[k])
+                for k in grads}
+        n0 = _ef_counts()
+        got_g, got_e = gc.compressed_psum_tree(
+            {k: v.clone() for k, v in grads.items()}, None,
+            {k: v.clone() for k, v in err.items()})
+        torch.cuda.synchronize()
+        assert _ef_counts() == tuple(c + len(grads) for c in n0)
+        for k in grads:
+            assert _same(got_g[k], want[k][0]), k
+            assert _same(got_e[k], want[k][1]), k
+        out, new_err = gc.compressed_psum(grads["wq"], None, err["wq"])
+        assert _same(out, want["wq"][0]) and _same(new_err, want["wq"][1])
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_ef_wrappers_raise_on_what_they_do_not_take(cuda):
+    x = torch.randn((64, 2), device=cuda)
+    s = ef_absmax(x)
+    n0 = _ef_counts()
+    with pytest.raises(ValueError, match="contiguous"):
+        ef_absmax(x[:, 0])
+    with pytest.raises(ValueError, match="contiguous"):
+        ef_absmax(x, torch.zeros((2, 64), device=cuda).t())
+    with pytest.raises(ValueError, match="contiguous"):
+        ef_absmax(x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        ef_requant(x[:, 0], None, s, s)
+    with pytest.raises(ValueError, match="contiguous"):
+        ef_requant(x, None, s, s, torch.empty((2, 64), device=cuda).t())
+    q2, _ = ef_requant(x, None, s, s)
+    with pytest.raises(ValueError, match="contiguous"):
+        ef_decode(q2.t(), s, torch.empty_like(x).t())
+    with pytest.raises(ValueError, match="contiguous"):
+        ef_decode(q2, s, torch.empty_like(x).t())
+    assert _ef_counts() == (n0[0], n0[1] + 1, n0[2])
