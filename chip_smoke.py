@@ -78,6 +78,18 @@ and the script exits non-zero without printing a result:
     gradient, residual); then 3 compressed driver steps on each side from
     the same checkpoint, the losses within a tolerance derived from the
     int8 values that flip between the two sides' own gradients;
+18. the planned training path: the driver with ``--auto --hw h100
+    --profile`` at phase 11's configuration for 8 steps, with every
+    kernel's launch count read around it: the strategy the cost model
+    chose (it must equal ``auto_parallel`` called on the same graph), the
+    predicted step (compute, comm, bubble) against the measured median of
+    steps 1-7 and their spread, the calibration fit's rates and the
+    prediction error before and after the fit (at least 7 observations,
+    a non-empty report), the losses against phase 11's within phase 12's
+    limit (1e-4 + 1e-4|x|), and the H100 table's serving predictions (a
+    500-token prefill, a decode step at phase 7's 8 slots and live keys)
+    beside phase 7's host-clock and device-busy times.  No bound is held
+    on the predictions: how far they miss is the finding;
 
 then the kernel table as one JSON line, the card line again, and the last
 line ``{"ok": true, "device": {...}}``.  Needs no network; needs ``nvcc``
@@ -1119,11 +1131,14 @@ def profiled(torch, fn, n: int) -> tuple:
     return host_ms, busy / n / 1e3, prof
 
 
-def where_the_time_goes(torch, arch: str = ARCH, cache: str = "paged") -> None:
+def where_the_time_goes(torch, arch: str = ARCH, cache: str = "paged") -> dict:
     """A serving configuration split by phase: one 500-token prefill,
     then decode steps of 8 live slots (~500-token contexts) — timed with
     the host clock around a sync, then each once more under torch.profiler
-    for the device's busy share and its top kernels."""
+    for the device's busy share and its top kernels.  Returns the host ms
+    of a prefill and of a decode step, their device-busy ms (None where
+    the profiler saw no device), and the mean live keys a timed decode
+    step reads (its slots' contexts, summed)."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1148,12 +1163,21 @@ def where_the_time_goes(torch, arch: str = ARCH, cache: str = "paged") -> None:
     for _ in range(3):
         server.step(params)
     n = 16
+
+    def live_keys() -> int:
+        return sum(len(r.prompt) + len(r.out_tokens)
+                   for r in server.slots if r is not None)
+
+    keys0 = live_keys()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
         server.step(params)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / n * 1e3
+    found = {"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+             "live_keys": (keys0 + live_keys() - 8) / 2,
+             "prefill_busy_ms": None, "decode_step_busy_ms": None}
     print(f"[time] {arch} ({cache} cache): prefill of one 500-token prompt "
           f"(bucket 512): "
           f"{prefill_ms:.2f} ms; decode step, 8 slots: {step_ms:.2f} ms "
@@ -1169,6 +1193,7 @@ def where_the_time_goes(torch, arch: str = ARCH, cache: str = "paged") -> None:
             ("decode step", n, lambda: server.step(params)))
     for what, reps, fn in runs:
         host_ms, busy_ms, prof = profiled(torch, fn, reps)
+        found[f"{what.replace(' ', '_')}_busy_ms"] = busy_ms
         if busy_ms is None:
             continue
         print(f"[time] under the profiler: {what} {host_ms:.2f} ms, device "
@@ -1180,6 +1205,7 @@ def where_the_time_goes(torch, arch: str = ARCH, cache: str = "paged") -> None:
             t = getattr(e, "self_device_time_total", 0) / reps / 1e3
             print(f"[time]   {t:.4f} ms/{what}  x{e.count // reps:<4d} "
                   f"{e.key[:90]}", flush=True)
+    return found
 
 
 # ---------------------------------------------------------------------------
@@ -1259,7 +1285,7 @@ def train_full(torch, kernels) -> dict:
     want = train_expected(cfg.n_layers, TRAIN_STEPS, cfg.padded_vocab)
     if counts != want:
         raise AssertionError(f"training launches {counts}, want {want}")
-    return counts
+    return counts, losses
 
 
 def train_agreement(torch) -> None:
@@ -1680,6 +1706,94 @@ def compressed_agreement(torch) -> None:
                              "differ beyond the limit")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the planned training path, and the cost model's predictions
+# ---------------------------------------------------------------------------
+
+PLANNED_ARGS = TRAIN_ARGS + ["--auto", "--hw", "h100", "--profile"]
+
+
+def train_planned(torch, kernels, losses11: list, serving: dict) -> dict:
+    """The driver with ``--auto --hw h100 --profile`` at phase 11's
+    configuration, with the launch counts read around it; its choice,
+    prediction and calibration report held as the module docstring says,
+    and the serving predictions beside phase 7's measured times."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.auto import auto_parallel
+    from repro_torch.core.cost_model import (H100_SXM, DeviceGroup,
+                                             decode_step_time,
+                                             lm_serving_meta, prefill_time,
+                                             step_cost)
+    from repro_torch.launch import train
+    from repro_torch.models.lm import model_graph
+
+    cfg = get_config(ARCH)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_planned_")
+    try:
+        reset_counts(kernels)
+        out = train.main(PLANNED_ARGS + ["--ckpt-dir", tmp])
+        counts = read_counts(kernels)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    graph = model_graph(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    want = auto_parallel(graph, 1, H100_SXM)
+    cost = step_cost(graph.workload_meta(), want, H100_SXM)
+    secs = out["step_seconds"][1:]
+    med = statistics.median(secs)
+    prof = out["profile"]
+    print(f"[plan] chosen: {out['strategy']} (auto_parallel on the same "
+          f"graph: {want.describe()})", flush=True)
+    print(f"[plan] predicted step on the h100 table {cost.total * 1e3:.2f} ms"
+          f" (compute {cost.compute * 1e3:.2f}, comm {cost.comm * 1e3:.2f}, "
+          f"bubble {cost.bubble * 1e3:.2f}; memory "
+          f"{cost.mem_bytes / 2**30:.2f} GiB); measured median of steps "
+          f"1-{len(secs)} {med * 1e3:.2f} ms (spread {min(secs) * 1e3:.2f}-"
+          f"{max(secs) * 1e3:.2f}); measured / predicted "
+          f"{med / cost.total:.3f}; losses "
+          f"{[round(x, 4) for x in out['losses']]}; launches {counts}",
+          flush=True)
+    print("[plan] fitted rates " + ", ".join(
+        f"{p} {prof['rates'][p]:.6g} (table {prof['prior_rates'][p]:.6g}, "
+        f"confidence {prof['confidence'][p]:.3f})" for p in prof["rates"])
+        + f"; {prof['observations']} observations; mean relative "
+        f"prediction error {prof['error_before']:.4f} on the table, "
+        f"{prof['error_after']:.4f} after the fit", flush=True)
+    meta = lm_serving_meta(cfg)
+    one = DeviceGroup("h100", H100_SXM, 1)
+    pre_ms = prefill_time(meta, one, 500) * 1e3
+    dec_ms = decode_step_time(meta, one, 8, serving["live_keys"]) * 1e3
+
+    def beside(ms, busy):
+        busy = "not measured" if busy is None else f"{busy:.3f} ms"
+        return (f"measured (phase 7) {ms:.2f} ms host clock, device busy "
+                f"{busy}")
+
+    print(f"[plan] serving on the h100 table: prefill of one 500-token "
+          f"prompt predicted {pre_ms:.3f} ms, "
+          f"{beside(serving['prefill_ms'], serving['prefill_busy_ms'])}; "
+          f"decode step at 8 slots, {serving['live_keys']:.1f} live keys, "
+          f"predicted {dec_ms:.3f} ms, "
+          f"{beside(serving['decode_step_ms'], serving['decode_step_busy_ms'])}",
+          flush=True)
+    if out["strategy"] != want.describe():
+        raise AssertionError(f"--auto chose {out['strategy']}, "
+                             f"auto_parallel {want.describe()}")
+    if out["predicted_step_s"] != cost.total:
+        raise AssertionError("the driver's prediction is not step_cost's")
+    if prof["observations"] < TRAIN_STEPS - 1 or not prof["report"].strip():
+        raise AssertionError(f"profile: {prof['observations']} observations,"
+                             f" report {prof['report']!r}")
+    if out["final_step"] != TRAIN_STEPS or len(out["losses"]) != TRAIN_STEPS:
+        raise AssertionError(f"training stopped at {out['final_step']}")
+    check_close("planned losses against phase 11's",
+                torch.tensor(out["losses"]), torch.tensor(losses11),
+                torch.float32, 1e-4)
+    want_counts = train_expected(cfg.n_layers, TRAIN_STEPS, cfg.padded_vocab)
+    if counts != want_counts:
+        raise AssertionError(f"planned launches {counts}, want {want_counts}")
+    return counts
+
+
 @contextlib.contextmanager
 def phase(name: str):
     t0 = time.perf_counter()
@@ -1778,7 +1892,7 @@ def main() -> None:
     with phase("serve agreement"):
         small_model_agreement(torch)
     with phase("serve time breakdown"):
-        where_the_time_goes(torch)
+        serve_times = where_the_time_goes(torch)
     torch.cuda.empty_cache()
     with phase("serve mamba2 (dense, main path of the ssm family)"):
         mamba_counts, mamba_long_counts = serve_mamba2(torch, kernels)
@@ -1788,7 +1902,7 @@ def main() -> None:
         where_the_time_goes(torch, MAMBA, "dense")
     torch.cuda.empty_cache()
     with phase("train (main training path)"):
-        train_counts = train_full(torch, kernels)
+        train_counts, train_losses = train_full(torch, kernels)
     torch.cuda.empty_cache()
     with phase("train agreement"):
         train_agreement(torch)
@@ -1804,6 +1918,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     with phase("compressed agreement"):
         compressed_agreement(torch)
+    torch.cuda.empty_cache()
+    with phase("train planned (--auto --hw h100 --profile)"):
+        planned_counts = train_planned(torch, kernels, train_losses,
+                                       serve_times)
 
     meta = {
         "flash_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
@@ -1837,7 +1955,8 @@ def main() -> None:
                    "serve_mamba2": mamba_counts[name],
                    "serve_mamba2_long": mamba_long_counts[name],
                    "train_compressed": comp_counts[name],
-                   "train_mesh_uncompressed": mesh_counts[name]}
+                   "train_mesh_uncompressed": mesh_counts[name],
+                   "train_planned": planned_counts[name]}
         table.append(dict(name=name, route="cuda", source=meta[name][0],
                           replaces=meta[name][1],
                           launches=sum(by_path.values()),

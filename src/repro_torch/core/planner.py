@@ -21,6 +21,10 @@ draws the same global batch and trains on its rows
 (:meth:`ExecutionPlan.batch_slice`).  Tensor parallelism and ZeRO (the
 ``model`` axis), the pipeline (``stage``) and heterogeneous placement come
 with later slices; a plan that needs them raises ``NotImplementedError``.
+A homogeneous :class:`~repro_torch.core.cost_model.ClusterSpec` is
+accepted and validated as the reference validates it; a mixed one is
+refused, since executing its uneven batch shares is the heterogeneous
+placement's slice.
 """
 from __future__ import annotations
 
@@ -40,6 +44,9 @@ PP_SLICE = ("the pipeline engine ('stage' axis, pp > 1) comes with a later "
             "slice of the port")
 ZERO_SLICE = ("ZeRO (sharded optimizer state and parameters) comes with a "
               "later slice of the port")
+HETERO_SLICE = ("heterogeneous placement (uneven batch shares and stage "
+                "layers over a mixed-hardware ClusterSpec, ROADMAP.md queue "
+                "A item 3) comes with a later slice of the port")
 
 
 # ---------------------------------------------------------------------------
@@ -47,9 +54,20 @@ ZERO_SLICE = ("ZeRO (sharded optimizer state and parameters) comes with a "
 # ---------------------------------------------------------------------------
 
 def mesh_for_strategy(strat: StrategySpec, *, pods: int = 1,
-                      device_type: str = "cuda"):
+                      device_type: str = "cuda", cluster_spec=None):
     """A mesh whose axes realise the strategy, in the reference's order
-    (major→minor): pod, data, model — so only DP crosses pods."""
+    (major→minor): pod, data, model — so only DP crosses pods.
+
+    ``cluster_spec`` (a :class:`~repro_torch.core.cost_model.ClusterSpec`)
+    is validated against the strategy as the reference does: shards must
+    tile each hardware group without straddling a group boundary
+    (``ValueError`` otherwise).  The mesh shape itself is unaffected."""
+    if cluster_spec is not None:
+        from repro_torch.core.hetero import strategy_fits_cluster
+        if not strategy_fits_cluster(strat, cluster_spec):
+            raise ValueError(
+                f"{strat.describe()} does not tile the device groups "
+                f"{[(g.name, g.n_devices) for g in cluster_spec.groups]}")
     if strat.pp > 1:
         raise NotImplementedError(f"pp={strat.pp}: {PP_SLICE}")
     shape, names = [], []
@@ -253,11 +271,23 @@ class ExecutionPlan:
 # entry point
 # ---------------------------------------------------------------------------
 
-def compile_plan(model, mesh, strategy: StrategySpec | None = None
+def compile_plan(model, mesh, strategy: StrategySpec | None = None, *,
+                 cluster_spec=None, workload_meta=None, placement=None
                  ) -> ExecutionPlan:
     """model + mesh (+ strategy) → :class:`ExecutionPlan`.  Without a
     strategy it is read off the mesh as the reference does: dp = pod ×
-    data, tp = model, pp = stage.  ``mesh=None`` is one device."""
+    data, tp = model, pp = stage.  ``mesh=None`` is one device.
+
+    ``cluster_spec``, ``workload_meta`` and ``placement`` are the
+    reference's: a homogeneous spec (or none) gives the plan the
+    reference gives, with no placement.  A mixed-hardware spec, or a
+    ``placement``, raises ``NotImplementedError``: the reference balances
+    uneven batch shares and stage layers there (``core/hetero.py``, ported)
+    and executing them is a later slice.  ``workload_meta`` is read only by
+    that balancing."""
+    if placement is not None or (cluster_spec is not None
+                                 and not cluster_spec.is_homogeneous):
+        raise NotImplementedError(HETERO_SLICE)
     if strategy is None:
         shape = mesh_shape(mesh) if mesh is not None else {}
         strategy = StrategySpec(dp=shape.get("pod", 1) * shape.get("data", 1),

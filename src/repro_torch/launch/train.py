@@ -7,10 +7,25 @@ reference reads it (``data``, ``data × model``, ``pod × data × model``);
 the plan trains data-parallel over ``pod`` and ``data``, and
 ``--compress-pod`` sends the cross-pod gradient reduction through the
 int8 error-feedback compressor (``optim/grad_compress.py``, the quant
-kernels).  The flags of later slices (``--pp``, a ``model`` dim above 1)
-are refused with a message naming the slice; ``--auto``, ``--schedule``,
-``--stage-layers``, ``--hosts``, the fault injections and ``--profile``
-are not accepted.
+kernels).
+
+Planning, as the reference's driver plans: ``--auto`` prices the model's
+segment graph on the ``--hw`` table (default ``h100``, the card the port
+runs on) with :func:`~repro_torch.core.auto.auto_parallel` over the
+world's devices, prints ``[auto] chose: …`` and trains that strategy
+through :func:`~repro_torch.core.planner.compile_plan`; a choice the port
+cannot run yet (``pp > 1``, a model axis, ZeRO) exits naming its slice,
+never running another.  ``--profile`` records every step after the first
+as an observation against the strategy's cost-model features and prints
+the calibration report at exit (fitted rates, the prediction error before
+and after the fit).  A :class:`~repro_torch.runtime.straggler.
+StragglerMonitor` watches every step's time and prints ``[straggler]
+flagged …`` on a sustained outlier.
+
+The flags of later slices (``--pp``, a ``model`` dim above 1; ``--hosts``,
+``--calibrate`` and the fault injections of the elastic runtime) are
+refused with a message naming the slice; ``--schedule`` and
+``--stage-layers`` are not accepted.
 
 Processes: under ``torchrun`` each rank reads its rank and the world from
 the environment and uses ``cuda:LOCAL_RANK``; without it, ``--mesh`` of
@@ -32,6 +47,9 @@ Usage::
 
     python -m repro_torch.launch.train --arch tinyllama-1.1b --smoke \
         --device cpu --steps 3 --batch 2 --seq 32 --ckpt-dir "$TMPDIR/ck"
+
+    python -m repro_torch.launch.train --arch tinyllama-1.1b --batch 4 \
+        --seq 2048 --steps 8 --auto --hw h100 --profile --ckpt-dir /path
 """
 from __future__ import annotations
 
@@ -46,7 +64,14 @@ import torch.distributed as dist
 
 from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.configs import ARCH_NAMES, get_config
-from repro_torch.core.planner import PP_SLICE, TP_SLICE, compile_plan
+from repro_torch.core.auto import auto_parallel
+from repro_torch.core.calibrate import prediction_error
+from repro_torch.core.cost_model import (H100_SXM, P100_16G, T4_16G,
+                                         TPU_V5E, V100_PAPER, ClusterSpec,
+                                         hardware_reciprocals, step_cost,
+                                         step_cost_features)
+from repro_torch.core.planner import (PP_SLICE, TP_SLICE, ZERO_SLICE,
+                                      compile_plan, mesh_for_strategy)
 from repro_torch.data.pipeline import DataCfg, TokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import (make_mesh, mesh_axes, mesh_shape,
@@ -55,6 +80,15 @@ from repro_torch.models.lm import Model, param_count
 from repro_torch.optim import grad_compress
 from repro_torch.optim.optimizer import Schedule, adafactor, adamw
 from repro_torch.runtime.fault_tolerance import FaultTolerantLoop
+from repro_torch.runtime.profiler import Profiler
+from repro_torch.runtime.straggler import StragglerMonitor
+
+#: ``--hw`` → the cost model's table (the reference's four, and the H100)
+HW_TABLES = {"tpu_v5e": TPU_V5E, "v100": V100_PAPER, "p100": P100_16G,
+             "t4": T4_16G, "h100": H100_SXM}
+ELASTIC_SLICE = ("the elastic runtime (simulated hosts, fault injection, "
+                 "drift-triggered recalibration; ROADMAP.md queue A item 8) "
+                 "comes with a later slice of the port")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -93,6 +127,21 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "MASTER_ADDR, MASTER_PORT in the environment)")
     ap.add_argument("--pp", type=int, default=1,
                     help="pipeline stages: only 1 in this slice")
+    ap.add_argument("--auto", action="store_true",
+                    help="pick the strategy with the Whale cost model")
+    ap.add_argument("--hw", choices=tuple(HW_TABLES), default="h100",
+                    help="Hardware table --auto and --profile price with")
+    ap.add_argument("--profile", action="store_true",
+                    help="record per-step observations against the cost "
+                         "model's features and print the fitted "
+                         "calibration report at exit")
+    # the elastic runtime's flags, refused until it is ported
+    ap.add_argument("--hosts", type=int, default=0, help=ELASTIC_SLICE)
+    ap.add_argument("--calibrate", action="store_true", help=ELASTIC_SLICE)
+    for flag in ("--inject-slow", "--inject-crash", "--inject-preempt",
+                 "--inject-join"):
+        ap.add_argument(flag, action="append", default=[],
+                        help=ELASTIC_SLICE)
     return ap.parse_args(argv)
 
 
@@ -101,7 +150,16 @@ def _under_torchrun() -> bool:
 
 
 def _refuse_later_slices(args) -> None:
-    """Flags of slices not ported yet exit with a message naming them."""
+    """Flags of slices not ported yet exit with a message naming them;
+    ``--auto`` with a hand-made layout is refused (the reference ignores
+    the layout under ``--auto``)."""
+    if args.hosts or args.calibrate or args.inject_slow \
+            or args.inject_crash or args.inject_preempt or args.inject_join:
+        raise SystemExit(f"--hosts, --calibrate and --inject-*: "
+                         f"{ELASTIC_SLICE}")
+    if args.auto and (args.mesh or args.pp > 1):
+        raise SystemExit("--auto picks the layout itself: drop --mesh and "
+                         "--pp")
     if args.pp > 1:
         raise SystemExit(f"--pp {args.pp}: {PP_SLICE}")
     if args.mesh:
@@ -143,6 +201,48 @@ def _start_world(args, device: torch.device):
     return device, path
 
 
+def auto_strategy(graph, world: int, hw):
+    """``--auto``: the cost model's best strategy for ``graph`` over
+    ``world`` devices of ``hw``, as the reference's driver picks it.  A
+    choice the port cannot run yet exits naming its slice; no feasible
+    strategy exits too."""
+    try:
+        strat = auto_parallel(graph, world, hw)
+    except RuntimeError as e:              # nothing fits the table's HBM
+        raise SystemExit(f"--auto: {e}") from None
+    refused = []
+    if strat.pp > 1:
+        refused.append(f"pp={strat.pp}: {PP_SLICE}")
+    if strat.model_parallel > 1:
+        refused.append(f"a model axis of {strat.model_parallel}: "
+                       f"{TP_SLICE}")
+    if strat.zero:
+        refused.append(f"zero={strat.zero}: {ZERO_SLICE}")
+    if refused:
+        raise SystemExit(f"--auto chose {strat.describe()} on {world} x "
+                         f"{hw.name}; " + "; ".join(refused))
+    return strat
+
+
+def profile_summary(profiler: Profiler, hw, world: int) -> dict:
+    """The calibration report of ``--profile`` and its numbers: the fitted
+    rates beside the table's, their confidences, and the mean relative
+    prediction error over the observations before and after the fit."""
+    window = profiler.window(hw.name)
+    fitted = profiler.fit_group(hw.name, hw)
+    return {
+        "hw": hw.name, "observations": len(window),
+        "rates": {p: 1.0 / x for p, x in
+                  hardware_reciprocals(fitted).items()},
+        "prior_rates": {p: 1.0 / x for p, x in
+                        hardware_reciprocals(hw).items()},
+        "confidence": dict(fitted.confidence),
+        "error_before": prediction_error(window, hw),
+        "error_after": prediction_error(window, fitted),
+        "report": profiler.report(ClusterSpec.homogeneous(hw, world)),
+    }
+
+
 def _apply_overrides(cfg, spec: str):
     if not spec:
         return cfg
@@ -155,10 +255,12 @@ def _apply_overrides(cfg, spec: str):
 
 
 def main(argv=None) -> dict:
-    """Train; returns {"final_step", "losses", "step_seconds", "mesh"}
+    """Train; returns {"final_step", "losses", "step_seconds", "mesh",
+    "strategy", "predicted_step_s"} and, with ``--profile``, "profile"
     (each step's wall time, ending after the device finished the step;
     the mesh's {axis: size}, or None for one device without a process
-    group)."""
+    group; the executed strategy's ``describe()``; its step time on the
+    ``--hw`` table; :func:`profile_summary`)."""
     args = parse_args(argv)
     _refuse_later_slices(args)
     device, store = _start_world(args, resolve_device(args.device))
@@ -182,14 +284,31 @@ def _train(args, device: torch.device) -> dict:
     rank = dist.get_rank() if world else 0
     log = (lambda *a: print(*a, flush=True)) if rank == 0 else \
         (lambda *a: None)
-    if not world:
+    n_dev = dist.get_world_size() if world else 1
+    hw = HW_TABLES[args.hw]
+    graph = model.graph(args.batch, args.seq)
+    strat = None
+    if args.auto:
+        strat = auto_strategy(graph, n_dev, hw)
+        log(f"[auto] chose: {strat.describe()}")
+        mesh = (mesh_for_strategy(strat, device_type=device.type)
+                if world else None)
+    elif not world:
         mesh = None
     elif args.mesh:
         mesh = parse_mesh(args.mesh, device_type=device.type)
     else:                              # the reference's default: all data
         mesh = make_mesh((dist.get_world_size(),), ("data",),
                          device_type=device.type)
-    plan = compile_plan(model, mesh)
+    plan = compile_plan(model, mesh, strategy=strat)
+    meta = graph.workload_meta()
+    predicted = step_cost(meta, plan.strategy, hw)
+    if args.auto or args.profile:
+        log(f"[plan] {plan.strategy.describe()} on {n_dev} x {hw.name}: "
+            f"predicted step {predicted.total:.6g} s (compute "
+            f"{predicted.compute:.6g}, comm {predicted.comm:.6g}, bubble "
+            f"{predicted.bubble:.6g}; memory {predicted.mem_bytes / 2**30:.2f}"
+            f" GiB of {hw.hbm_bytes / 2**30:.2f})")
     compress = (args.compress_pod and mesh is not None
                 and "pod" in mesh.mesh_dim_names)
 
@@ -247,6 +366,14 @@ def _train(args, device: torch.device) -> dict:
         f"{args.batch} x {args.seq}, {args.steps} steps")
 
     losses, step_seconds = [], []
+    monitor = StragglerMonitor()
+    profiler = feats = None
+    if args.profile:
+        # whole-step observations against the executed strategy's
+        # features on the --hw table (the reference's driver takes the
+        # same, and no others)
+        feats = step_cost_features(meta, plan.strategy, hw)
+        profiler = Profiler()
 
     def one_step(i, st):
         t0 = time.perf_counter()
@@ -266,17 +393,37 @@ def _train(args, device: torch.device) -> dict:
                 f"({step_seconds[-1]:.3f} s)")
         return new
 
+    def on_step(i, st, loop_dt):
+        dt = step_seconds[-1]    # the synced step time, not the loop's
+        if profiler is not None and i > start_step:
+            profiler.record_step(hw.name, dt, feats, step=i)
+        if monitor.observe(dt):       # one-shot: True on the flag transition
+            log(f"[straggler] flagged at step {i} "
+                f"(dt={dt:.3f}s vs mean {monitor.mean:.3f}s)")
+            monitor.reset()           # keep training; eviction is external
+
     loop = FaultTolerantLoop(ckpt, save_every=args.save_every)
     final_step, _ = loop.run(
         state=state, step_fn=one_step, n_steps=args.steps,
         start_step=start_step,
-        extra_fn=lambda st, s: {"data": data_state_at(s)})
+        extra_fn=lambda st, s: {"data": data_state_at(s)},
+        on_step=on_step)
 
+    out = {"final_step": final_step, "losses": losses,
+           "step_seconds": step_seconds, "mesh": shape,
+           "strategy": plan.strategy.describe(),
+           "predicted_step_s": predicted.total}
+    if profiler is not None:
+        out["profile"] = prof = profile_summary(profiler, hw, n_dev)
+        log(prof["report"])
+        log(f"[profile] {hw.name}: {prof['observations']} step "
+            f"observations; mean relative prediction error "
+            f"{prof['error_before']:.3f} on the table, "
+            f"{prof['error_after']:.3f} after the fit")
     loss_str = (f", loss {losses[0]:.4f} → {losses[-1]:.4f}" if losses
                 else " (resumed already complete)")
     log(f"[done] step {final_step}{loss_str}")
-    return {"final_step": final_step, "losses": losses,
-            "step_seconds": step_seconds, "mesh": shape}
+    return out
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """The LM: one config dataclass → {init, loss_fn, prefill, serve_step,
 serve_step_paged} for the dense decoder family, and {init, prefill,
-serve_step} for the ssm family (mamba2: serving only so far).
+serve_step} for the ssm family (mamba2: serving only so far); and the
+cost model's view of a config (:func:`model_graph`, pure arithmetic).
 
 The port's counterpart of ``repro.models.lm`` for training and serving.
 The loss head is chosen by device, as the reference's ``xent_impl`` chooses
@@ -19,6 +20,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.cost_model import ModelGraph, SegmentMeta
 from repro_torch.device import resolve_device
 from repro_torch.kernels.xent.ops import xent_with_lse
 from repro_torch.models import layers
@@ -55,6 +57,15 @@ class LMCfg:
     vocab_pad_multiple: int = 256
     z_loss_coef: float = 1e-4
     attn_bwd_remat: bool = False       # re-run flash fwd in its backward
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    @property
+    def gated_mlp(self) -> bool:
+        """The port's MLP is SwiGLU, gated (the reference's default)."""
+        return True
 
     @property
     def padded_vocab(self) -> int:
@@ -186,6 +197,21 @@ class Model:
                                             cfg.padded_vocab, dt, dev)
         p["blocks"] = tfm.init_stack(gen, self.stack, dt, dev)
         return p
+
+    def param_shapes(self) -> dict:
+        """The parameter tree as ``meta`` tensors: every leaf's shape and
+        dtype, nothing allocated (the reference's ``jax.eval_shape`` of
+        ``init``)."""
+        return Model(self.cfg, "meta").init(0)
+
+    def graph(self, batch: int, seq: int, *, act_dtype_bytes: int = 2,
+              param_dtype_bytes: int = 4) -> ModelGraph:
+        """Segment-aware cost-model view of this model (see
+        :func:`model_graph`), flattenable to a WorkloadMeta via
+        ``.workload_meta()``."""
+        return model_graph(self.cfg, batch, seq,
+                           act_dtype_bytes=act_dtype_bytes,
+                           param_dtype_bytes=param_dtype_bytes)
 
     # leaves the reference reads in f32 whatever the activation dtype
     F32_LEAVES = frozenset({"scale", "wdt", "dt_bias", "A_log",
@@ -350,3 +376,93 @@ class Model:
 
 def build(cfg: LMCfg, device=None) -> Model:
     return Model(cfg, device)
+
+
+# ---------------------------------------------------------------------------
+# the cost model's view: ModelGraph builders (pure arithmetic on the config)
+# ---------------------------------------------------------------------------
+#
+# The port of ``repro/models/lm.py::model_graph`` for the families the port
+# has.  Matmul-dominant terms only, in the reference's expressions and
+# order, so a graph here equals the reference's bit for bit
+# (tests/test_torch_planning.py).  One "stack" segment: every layer of a
+# dense or ssm config is interchangeable.
+
+FAMILY_SLICE = ("the {family} family's cost-model graph comes with the "
+                "family itself, a later slice of the port")
+
+
+def model_graph(cfg: LMCfg, batch: int, seq: int,
+                act_dtype_bytes: int = 2,
+                param_dtype_bytes: int = 4) -> ModelGraph:
+    """Segment-aware workload description for one LMCfg (dense or ssm).
+
+    The other families of the reference (moe, hybrid, vlm, encdec) raise
+    ``NotImplementedError``: their graphs come with their models.
+    """
+    if cfg.family in ("moe", "hybrid", "vlm", "encdec"):
+        raise NotImplementedError(FAMILY_SLICE.format(family=cfg.family))
+    if cfg.family not in ("dense", "ssm"):
+        raise ValueError(f"unknown model family {cfg.family!r}")
+    E, V, L = cfg.d_model, cfg.padded_vocab, cfg.n_layers
+    T = batch * seq
+    hd = cfg.hd
+    pdb = param_dtype_bytes
+
+    def attn_flops(t=T, kv=seq, causal=True) -> float:
+        H, K = cfg.n_heads, cfg.n_kv_heads
+        proj = 2 * t * E * (H * hd) + 2 * 2 * t * E * (K * hd) \
+            + 2 * t * (H * hd) * E
+        scores = 2 * t * kv * H * hd * 2 * (0.5 if causal else 1.0)
+        return proj + scores
+
+    def dense_mlp_flops(t=T) -> float:
+        mult = 3 if cfg.gated_mlp else 2
+        return 2 * t * E * cfg.d_ff * mult
+
+    def ssd_flops() -> float:
+        scfg = cfg.ssd_cfg()
+        H, P, N, C = scfg.n_heads, scfg.headdim, scfg.d_state, scfg.chunk
+        proj = 2 * T * E * (2 * H * P + 2 * N + H) + 2 * T * H * P * E
+        intra = 2 * T * C * H * (N + P)
+        inter = 2 * T * H * P * N * 2
+        return proj + intra + inter
+
+    def attn_params():
+        return E * (cfg.n_heads * hd) * 2 + E * (cfg.n_kv_heads * hd) * 2
+
+    def mlp_params():
+        return E * cfg.d_ff * (3 if cfg.gated_mlp else 2)
+
+    def ssd_params():
+        scfg = cfg.ssd_cfg()
+        return E * scfg.d_inner * 3 + 2 * E * scfg.d_state + E * scfg.n_heads
+
+    act_per_layer = T * E * act_dtype_bytes * 4   # x + 3 intermediates
+
+    def stack_segment(name: str, n_attn: int, n_ssd: int, n_dense: int,
+                      n_layers: int) -> SegmentMeta:
+        # the reference's sum also carries n_moe · moe_mlp_flops(), 0.0
+        # for these families, which leaves every sum bit for bit the same
+        flops = (n_attn * attn_flops() + n_ssd * ssd_flops()
+                 + n_dense * dense_mlp_flops())
+        p_count = (n_attn * attn_params() + n_ssd * ssd_params()
+                   + n_dense * mlp_params())
+        return SegmentMeta(
+            name=name, n_layers=n_layers,
+            fwd_flops=float(flops), param_bytes=float(p_count * pdb),
+            act_bytes_per_layer=float(act_per_layer))
+
+    if cfg.family == "dense":
+        segments = (stack_segment("stack", L, 0, L, max(L, 1)),)
+    else:                                            # ssm
+        segments = (stack_segment("stack", 0, L, 0, max(L, 1)),)
+
+    head = 2 * T * E * V
+    embed = V * E * (1 if cfg.tie_embeddings else 2)
+    return ModelGraph(
+        name=cfg.name, segments=segments, batch=batch,
+        extra_fwd_flops=float(head),
+        extra_param_bytes=float(embed * pdb),
+        logits_bytes=float(T * V * 4),
+        head_param_bytes=float(E * V * pdb))

@@ -723,9 +723,11 @@ def test_train_driver_refuses_later_slices(tmp_path):
             train.main(base + extra)
     with pytest.raises(SystemExit, match="torchrun"):
         train.main(base + ["--distributed"])
-    for flag in ("--auto", "--hosts"):
+    # --auto is ported, but not beside a hand-made layout; the elastic
+    # runtime's --hosts is refused
+    for extra in (["--auto", "--pp", "2"], ["--hosts", "2"]):
         with pytest.raises(SystemExit):
-            train.parse_args(base + [flag])
+            train.main(base + extra)
 
 
 def _torchrun(argv, tmp_path, nproc=4):

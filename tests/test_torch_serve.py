@@ -294,6 +294,10 @@ def test_port_imports_neither_jax_nor_the_reference():
             "    importlib.import_module(m.name)\n"
             "assert not [n for n, m in sys.modules.items() if m is not None"
             " and n.split('.')[0] in ('jax', 'repro')]\n"
+            "assert {'repro_torch.core.' + m for m in ('cost_model', "
+            "'schedule', 'hetero', 'auto', 'calibrate')} | {"
+            "'repro_torch.runtime.profiler', 'repro_torch.runtime.straggler'}"
+            " <= set(sys.modules)\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     p = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -777,8 +777,9 @@ def test_train_driver_refuses_meshed_flags_and_ragged_micro_batches(
     with pytest.raises(SystemExit, match="later slice"):
         train.main(["--smoke", "--device", "cpu", "--pp", "2",
                     "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(SystemExit):
-        train.parse_args(["--hosts", "2", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(SystemExit, match="later slice"):  # elastic runtime
+        train.main(["--smoke", "--device", "cpu", "--hosts", "2",
+                    "--ckpt-dir", str(tmp_path)])
     with pytest.raises(SystemExit):                # --ckpt-dir is required
         train.parse_args(["--smoke"])
     with pytest.raises(ValueError, match="divisible"):

@@ -18,6 +18,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import calibrate, cost_model
+
 @dataclasses.dataclass(frozen=True)
 class Tol:
     fwd: float
@@ -108,3 +110,51 @@ def check_vjp(fn, args, want, *, diff_argnums, dtype: str, cts,
         np.testing.assert_allclose(g, np.asarray(w, np.float32),
                                    atol=tol.grad, rtol=tol.grad,
                                    err_msg=f"{msg} grad(arg{pos})")
+
+
+# ---------------------------------------------------------------------------
+# planning: the reference's dataclasses carried across as data
+# ---------------------------------------------------------------------------
+
+PORT_CLASSES = {c.__name__: c for c in (
+    cost_model.Hardware, cost_model.DeviceGroup, cost_model.ClusterSpec,
+    cost_model.StrategySpec, cost_model.WorkloadMeta, cost_model.SegmentMeta,
+    cost_model.ModelGraph, cost_model.ServingMeta, calibrate.Observation,
+    calibrate.CalibratedHardware)}
+
+
+def to_port(x):
+    """A reference object (a planning dataclass, or a tuple/list/dict of
+    them) rebuilt field by field as the port's class of the same name —
+    the two packages' planning types carried across as data."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        cls = PORT_CLASSES[type(x).__name__]
+        return cls(**{f.name: to_port(getattr(x, f.name))
+                      for f in dataclasses.fields(x)})
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_port(v) for v in x)
+    if isinstance(x, dict):
+        return {k: to_port(v) for k, v in x.items()}
+    return x
+
+
+def data(x):
+    """A planning result as plain data (dataclasses → dicts, recursively)
+    for exact (``==``) comparison across the two packages."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return {f.name: data(getattr(x, f.name))
+                for f in dataclasses.fields(x)}
+    if isinstance(x, (tuple, list)):
+        return type(x)(data(v) for v in x)
+    if isinstance(x, dict):
+        return {k: data(v) for k, v in x.items()}
+    return x
+
+
+def outcome(fn, *args, **kw):
+    """``("ok", data(result))`` or ``("raised", type name, message)``, so
+    a call and its error path are compared alike."""
+    try:
+        return ("ok", data(fn(*args, **kw)))
+    except (ValueError, RuntimeError, KeyError, ArithmeticError) as e:
+        return ("raised", type(e).__name__, str(e))
