@@ -90,6 +90,25 @@ and the script exits non-zero without printing a result:
     500-token prefill, a decode step at phase 7's 8 slots and live keys)
     beside phase 7's host-clock and device-busy times.  No bound is held
     on the predictions: how far they miss is the finding;
+19. the pipeline interpreter (``core/pipeline.py::schedule_grads``, all
+    stages in one process) at phase 11's configuration, one batch from the
+    driver's stream in 4 micro-batches of 1 x 2048, under gpipe and 1f1b
+    with stage layers (11, 11) and (12, 10): each loss and gradient leaf
+    against ``planner.accumulate`` over the same micro-batches within bf16's
+    limits, the buffer audit ([4, 4] and [2, 1]), the launch counts of
+    every kernel around each call, the peak device memory of each, one
+    step's median time beside ``accumulate``'s, and the cost model's price
+    of ``pipeline×2(µb=4)`` on the H100 table as a prediction;
+20. the multi-rank engine through the plan (``compile_plan`` with
+    ``StrategySpec(pp=2, micro_batches=4)``, ``pipeline_train_step_fn``):
+    two processes spawned on ``cuda:0`` over a gloo group from a
+    ``FileStore`` (NCCL refuses two ranks on one card, so activations
+    cross through host memory), one gpipe step and 3 AdamW steps of 1f1b
+    at (11, 11) from the same seed, against the same 3 steps of the
+    unpipelined ``train_step_fn(micro_batches=4)`` here, losses within
+    1e-4 + 1e-4|x|; each rank's launch counts, audit, peak memory under
+    both schedules (1f1b's stage 0 no higher than gpipe's) and step times
+    (two processes time-slice one card: no throughput);
 
 then the kernel table as one JSON line, the card line again, and the last
 line ``{"ok": true, "device": {...}}``.  Needs no network; needs ``nvcc``
@@ -913,6 +932,25 @@ def check_ef(torch, timer) -> tuple:
 # ---------------------------------------------------------------------------
 # phases 4-10: the serving driver at full width, and small-model agreement
 # ---------------------------------------------------------------------------
+
+def kernel_wrappers() -> dict:
+    """Every kernel's wrapper by name; each counts its launches."""
+    from repro_torch.kernels.flash_attention import flash, paged
+    from repro_torch.kernels.quant.quant import (dequantize, ef_absmax,
+                                                 ef_decode, ef_requant,
+                                                 quantize)
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.xent import xent
+
+    return {"flash_fwd": flash.flash_attention,
+            "paged_decode": paged.paged_decode,
+            "flash_bwd_dq": flash.flash_bwd_dq,
+            "flash_bwd_dkv": flash.flash_bwd_dkv,
+            "xent_fwd": xent.xent_fwd, "xent_bwd": xent.xent_bwd,
+            "ssd_scan": ssd.ssd_scan, "quantize": quantize,
+            "dequantize": dequantize, "ef_absmax": ef_absmax,
+            "ef_requant": ef_requant, "ef_decode": ef_decode}
+
 
 def reset_counts(kernels: dict) -> None:
     for fn in kernels.values():
@@ -1794,6 +1832,352 @@ def train_planned(torch, kernels, losses11: list, serving: dict) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phases 19-20: the pipeline engine at full width
+# ---------------------------------------------------------------------------
+
+PP_MICRO = 4                    # micro-batches of 1 x TRAIN_SEQ
+PP_CASES = (("gpipe", (11, 11)), ("1f1b", (11, 11)), ("gpipe", (12, 10)),
+            ("1f1b", (12, 10)))
+PP_IN_FLIGHT = {"gpipe": [4, 4], "1f1b": [2, 1]}
+PP_STEPS = 3                    # the multi-rank engine's AdamW steps
+PP_LR = 3e-4                    # constant: every step moves the weights
+
+
+def pipeline_expected(layers: int, steps: int, vp: int,
+                      head: bool = True) -> dict:
+    """Launches of ``steps`` pipelined steps over ``layers`` layers (remat
+    full, PP_MICRO micro-batches of one row): each layer's forward twice a
+    micro-batch (its slot and the checkpointed recompute), its backward
+    once; the loss head once a micro-batch where ``head`` (the last
+    stage)."""
+    from repro_torch.kernels.xent import xent
+
+    n = PP_MICRO * steps
+    T = TRAIN_SEQ - 1
+    return {"flash_fwd": 2 * layers * n, "paged_decode": 0,
+            "flash_bwd_dq": layers * n, "flash_bwd_dkv": layers * n,
+            "xent_fwd": n if head else 0,
+            "xent_bwd": n * -(-vp // xent.bwd_chunk(T, vp)) if head else 0,
+            "ssd_scan": 0, "quantize": 0, "dequantize": 0, "ef_absmax": 0,
+            "ef_requant": 0, "ef_decode": 0}
+
+
+def host_median_s(torch, fn, n: int = 3) -> float:
+    """Median wall seconds of ``fn`` over ``n`` calls, each ending in a
+    sync."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def pipeline_interpreter(torch, kernels) -> dict:
+    """Phase 19 (path A): ``schedule_grads`` at full width on the card,
+    all stages in one process, under gpipe and 1f1b with stage layers
+    (11, 11) and (12, 10), each held against ``accumulate`` over the same
+    micro-batches (the same kernels, unpipelined), with its launch counts,
+    buffer audit, peak memory and time beside the cost model's price of a
+    two-card pipeline.  Returns one call's launch counts."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.cost_model import H100_SXM, StrategySpec, step_cost
+    from repro_torch.core.pipeline import schedule_grads
+    from repro_torch.core.planner import accumulate
+    from repro_torch.data.pipeline import DataCfg, TokenPipeline
+    from repro_torch.models.lm import Model, model_graph
+    from repro_torch.tree import flatten
+
+    cfg = get_config(ARCH)
+    model = Model(cfg)
+    params = model.init(0)
+    data = TokenPipeline(DataCfg(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                 vocab=cfg.vocab, seed=0),
+                         host_id=0, n_hosts=1)
+    tokens = torch.as_tensor(np.asarray(data.next_batch()["tokens"])).cuda()
+
+    def plain():
+        return accumulate(model, params, {"tokens": tokens}, PP_MICRO)
+
+    def piped(sched, sl):
+        return schedule_grads(model, params, tokens, micro_batches=PP_MICRO,
+                              schedule=sched, stage_layers=sl)
+
+    bf16 = torch.bfloat16
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    want_loss, _, want = plain()
+    peaks = {"accumulate": torch.cuda.max_memory_allocated() - base}
+    paths, want = flatten(want)
+    base = torch.cuda.memory_allocated()
+    expected = pipeline_expected(cfg.n_layers, 1, cfg.padded_vocab)
+    first = None
+    for sched, sl in PP_CASES:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        loss, grads, stats = piped(sched, sl)
+        torch.cuda.synchronize()
+        counts = read_counts(kernels)
+        peaks[sched, sl] = torch.cuda.max_memory_allocated() - base
+        first = first or counts
+        err_loss = check_close(f"{sched} {sl} loss", loss, want_loss, bf16)
+        err_grad = max(check_close(f"{sched} {sl} grad {path}", g, w, bf16,
+                                   GRAD_TOL[str(bf16)])
+                       for path, g, w in zip(paths, flatten(grads)[1], want))
+        del grads
+        print(f"[pipe] schedule_grads {sched} stage_layers {sl}: loss "
+              f"{float(loss):.6f} vs accumulate {float(want_loss):.6f}, max "
+              f"|err| loss {err_loss:.3e}, gradients {err_grad:.3e} (limits "
+              f"{TOL[str(bf16)]:g}, {GRAD_TOL[str(bf16)]:g} + same·|x|); "
+              f"in flight {stats['per_stage_in_flight']}; ticks "
+              f"{stats['n_ticks']}, bubble {stats['bubble_fraction']:.3f}; "
+              f"peak above the resident state "
+              f"{peaks[sched, sl] / 2**30:.2f} GiB; launches {counts}",
+              flush=True)
+        if stats["per_stage_in_flight"] != PP_IN_FLIGHT[sched] \
+                or stats["stage_layers"] != sl:
+            raise AssertionError(f"{sched} {sl}: stats {stats}")
+        if counts != expected:
+            raise AssertionError(f"{sched} {sl}: launches {counts}, want "
+                                 f"{expected}")
+    del want
+    torch.cuda.empty_cache()
+    t_plain = host_median_s(torch, plain)
+    t_pipe = {sched: host_median_s(torch, lambda s=sched: piped(s, (11, 11)))
+              for sched in ("gpipe", "1f1b")}
+    prof_ms, busy_ms, _ = profiled(torch, lambda: piped("1f1b", (11, 11)),
+                                   1)
+    busy = ("not measured" if busy_ms is None else
+            f"{busy_ms:.1f} ms, idle share {1 - busy_ms / prof_ms:.3f}")
+    print(f"[pipe] schedule_grads 1f1b under the profiler: {prof_ms:.1f} ms,"
+          f" device busy {busy}", flush=True)
+    tokens_n = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[pipe] one step's forward and backward, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} in {PP_MICRO} micro-batches, median of 3 on the host "
+          f"clock: accumulate {t_plain * 1e3:.1f} ms "
+          f"({tokens_n / t_plain:.1f} tokens/s), schedule_grads gpipe "
+          f"{t_pipe['gpipe'] * 1e3:.1f} ms, 1f1b {t_pipe['1f1b'] * 1e3:.1f} "
+          f"ms (ratio to accumulate {t_pipe['gpipe'] / t_plain:.3f}, "
+          f"{t_pipe['1f1b'] / t_plain:.3f}); peak above the resident state: "
+          f"accumulate {peaks['accumulate'] / 2**30:.2f} GiB", flush=True)
+    meta = model_graph(cfg, TRAIN_BATCH, TRAIN_SEQ).workload_meta()
+    for strat in (StrategySpec(), StrategySpec(pp=2, micro_batches=PP_MICRO),
+                  StrategySpec(pp=2, micro_batches=PP_MICRO,
+                               schedule="1f1b")):
+        c = step_cost(meta, strat, H100_SXM)
+        print(f"[pipe] step_cost {strat.describe()} on H100_SXM (a "
+              f"prediction, no bound held): {c.total * 1e3:.2f} ms (compute "
+              f"{c.compute * 1e3:.2f}, comm {c.comm * 1e3:.2f}, bubble "
+              f"{c.bubble * 1e3:.2f}; memory {c.mem_bytes / 2**30:.2f} GiB)",
+              flush=True)
+    return first
+
+
+def _pipeline_rank(rank: int, store: str, out_dir: str) -> None:
+    """One rank of phase 20 on ``cuda:0``: a gloo world of two over a
+    FileStore; the plan's pipelined step under gpipe for one step, then
+    under 1f1b for PP_STEPS from the same start, each with its peak memory,
+    step times and (1f1b) launch counts; written to ``rank<r>.json``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import pipeline as pipe
+    from repro_torch.core.cost_model import StrategySpec
+    from repro_torch.core.planner import compile_plan, mesh_for_strategy
+    from repro_torch.data.pipeline import DataCfg, TokenPipeline
+    from repro_torch.models.lm import Model
+    from repro_torch.optim.optimizer import adamw
+    from repro_torch.tree import tree_map
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    kernels = kernel_wrappers()
+    walk, norms = [], []
+
+    def apply_after_walk(real_apply):
+        def apply(*args, grad_norm, **kw):
+            # the step's peak so far: its forward and backward walk
+            walk.append(torch.cuda.max_memory_allocated())
+            norms.append(float(grad_norm))
+            return real_apply(*args, grad_norm=grad_norm, **kw)
+        return apply
+
+    cfg = get_config(ARCH)
+    model = Model(cfg)
+    out, init = {}, None
+    try:
+        for sched, steps in (("gpipe", 1), ("1f1b", PP_STEPS)):
+            strat = StrategySpec(pp=2, micro_batches=PP_MICRO,
+                                 schedule=sched)
+            mesh = mesh_for_strategy(strat)
+            plan = compile_plan(model, mesh, strat)
+            if init is None:
+                init = plan.init_pipeline_params(0, stage_layers=(11, 11))
+            params = tree_map(torch.clone, init)
+            opt = adamw(lr=PP_LR)
+            state = opt.init(params)
+            opt = dataclasses.replace(opt,
+                                      apply=apply_after_walk(opt.apply))
+            step_fn = plan.pipeline_train_step_fn(opt)
+            data = TokenPipeline(DataCfg(global_batch=TRAIN_BATCH,
+                                         seq_len=TRAIN_SEQ, vocab=cfg.vocab,
+                                         seed=0), host_id=0, n_hosts=1)
+            group = mesh.get_group("stage")
+            out["stage"] = mesh.get_local_rank("stage")
+            out["wire"] = (f"{dist.get_backend(group)}, "
+                           + ("host copies" if pipe.wire_on_host(
+                               group, model.device) else "device tensors"))
+            torch.cuda.synchronize()
+            reset_counts(kernels)
+            losses, secs, peaks = [], [], []
+            walk.clear()
+            norms.clear()
+            for i in range(steps):
+                toks = torch.as_tensor(
+                    np.asarray(data.next_batch()["tokens"])).cuda()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                params, state, m = step_fn(params, state, toks, i)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                peaks.append(torch.cuda.max_memory_allocated())
+                losses.append(float(m["loss"]))
+            out[sched] = {"losses": losses, "seconds": secs,
+                          "counts": read_counts(kernels),
+                          "peak": max(peaks), "walk_peak": max(walk),
+                          "norms": list(norms),
+                          "in_flight": m["peak_in_flight"]}
+            del params, state, step_fn
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def pipeline_engine(torch) -> dict:
+    """Phase 20 (path B): the multi-rank engine through the plan on two
+    processes sharing ``cuda:0`` over gloo (NCCL refuses two ranks on one
+    card), then the same PP_STEPS AdamW steps here through the unpipelined
+    ``train_step_fn`` from the same seed; returns the ranks' summed 1f1b
+    launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.planner import compile_plan
+    from repro_torch.data.pipeline import DataCfg, TokenPipeline
+    from repro_torch.models.lm import Model
+    from repro_torch.optim.optimizer import adamw, global_norm
+
+    cfg = get_config(ARCH)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pp_")
+    try:
+        ctx = mp.start_processes(_pipeline_rank,
+                                 args=(os.path.join(tmp, "store"), tmp),
+                                 nprocs=2, join=False, start_method="spawn")
+        deadline = time.monotonic() + 600
+        for p in ctx.processes:
+            p.join(max(1.0, deadline - time.monotonic()))
+        hung = [p for p in ctx.processes if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        if hung:
+            raise AssertionError("a pipeline rank did not finish in 600 s")
+        ctx.join()                       # raises where a rank failed
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ranks.sort(key=lambda x: x["stage"])
+
+    # the unpipelined step on the same card, from the same seed and data
+    model = Model(cfg)
+    params = model.init(0)
+    opt = adamw(lr=PP_LR)
+    state = opt.init(params)
+    norms = []
+
+    def apply(grads, *args, **kw):
+        norms.append(float(global_norm(grads)))
+        return adamw_apply(grads, *args, **kw)
+
+    adamw_apply = opt.apply
+    opt = dataclasses.replace(opt, apply=apply)
+    step_fn = compile_plan(model, None).train_step_fn(
+        opt, micro_batches=PP_MICRO)
+    data = TokenPipeline(DataCfg(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                 vocab=cfg.vocab, seed=0),
+                         host_id=0, n_hosts=1)
+    want, secs = [], []
+    for i in range(PP_STEPS):
+        batch = {"tokens": torch.as_tensor(
+            np.asarray(data.next_batch()["tokens"])).cuda()}
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch, i)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        want.append(float(m["loss"]))
+    del params, state
+    torch.cuda.empty_cache()
+
+    print(f"[pipe] wire: 2 ranks on 1 card ({ranks[0]['wire']}); "
+          f"activations and cotangents cross through host memory",
+          flush=True)
+    expected = {0: pipeline_expected(11, PP_STEPS, cfg.padded_vocab,
+                                     head=False),
+                1: pipeline_expected(11, PP_STEPS, cfg.padded_vocab)}
+    for s, r in enumerate(ranks):
+        print(f"[pipe] stage {s}: 1f1b losses {r['1f1b']['losses']}, step "
+              f"seconds {[round(x, 3) for x in r['1f1b']['seconds']]} (two "
+              f"processes time-slice one card and cross host memory: no "
+              f"throughput); peak device memory of the forward and "
+              f"backward walk gpipe {r['gpipe']['walk_peak'] / 2**30:.3f} "
+              f"GiB, 1f1b {r['1f1b']['walk_peak'] / 2**30:.3f} GiB, of the "
+              f"whole step (AdamW's temporaries) gpipe "
+              f"{r['gpipe']['peak'] / 2**30:.3f}, 1f1b "
+              f"{r['1f1b']['peak'] / 2**30:.3f} GiB; in flight gpipe "
+              f"{r['gpipe']['in_flight']}, 1f1b {r['1f1b']['in_flight']}; "
+              f"launches {r['1f1b']['counts']}", flush=True)
+        if r["1f1b"]["in_flight"] != PP_IN_FLIGHT["1f1b"][s] or \
+                r["gpipe"]["in_flight"] != PP_IN_FLIGHT["gpipe"][s]:
+            raise AssertionError(f"stage {s}: buffer audit {r}")
+        if r["1f1b"]["counts"] != expected[s]:
+            raise AssertionError(f"stage {s}: launches "
+                                 f"{r['1f1b']['counts']}, want {expected[s]}")
+        if r["1f1b"]["losses"] != ranks[0]["1f1b"]["losses"]:
+            raise AssertionError("the stages report different losses")
+    got = ranks[0]["1f1b"]["losses"]
+    print(f"[pipe] {PP_STEPS} AdamW steps: pipelined 1f1b {got} vs "
+          f"unpipelined train_step_fn {want} (step seconds "
+          f"{[round(x, 3) for x in secs]})", flush=True)
+    worst = check_close("pipelined losses against the unpipelined step",
+                        torch.tensor(got), torch.tensor(want), torch.float32,
+                        1e-4)
+    print(f"[pipe] max |diff| {worst:.3e} (limit 1e-4 + 1e-4|x|); the "
+          f"global norm AdamW clips by, summed stage by stage "
+          f"{ranks[0]['1f1b']['norms']} vs over the whole tree {norms}",
+          flush=True)
+    if ranks[0]["1f1b"]["walk_peak"] > ranks[0]["gpipe"]["walk_peak"]:
+        raise AssertionError("1f1b's stage 0 holds more memory than gpipe's")
+    return {k: ranks[0]["1f1b"]["counts"][k] + ranks[1]["1f1b"]["counts"][k]
+            for k in expected[0]}
+
+
 @contextlib.contextmanager
 def phase(name: str):
     t0 = time.perf_counter()
@@ -1823,12 +2207,6 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import flash, paged
-    from repro_torch.kernels.quant.quant import (dequantize, ef_absmax,
-                                                 ef_decode, ef_requant,
-                                                 quantize)
-    from repro_torch.kernels.ssd import ssd
-    from repro_torch.kernels.xent import xent
 
     card = card_line()
     print("[card] nvidia-smi name, power.limit:", flush=True)
@@ -1877,14 +2255,7 @@ def main() -> None:
     del timer
     torch.cuda.empty_cache()
 
-    kernels = {"flash_fwd": flash.flash_attention,
-               "paged_decode": paged.paged_decode,
-               "flash_bwd_dq": flash.flash_bwd_dq,
-               "flash_bwd_dkv": flash.flash_bwd_dkv,
-               "xent_fwd": xent.xent_fwd, "xent_bwd": xent.xent_bwd,
-               "ssd_scan": ssd.ssd_scan, "quantize": quantize,
-               "dequantize": dequantize, "ef_absmax": ef_absmax,
-               "ef_requant": ef_requant, "ef_decode": ef_decode}
+    kernels = kernel_wrappers()
     with phase("serve (paged, main serving path)"):
         serve_counts = serve_paged(torch, kernels)
     with phase("serve (dense)"):
@@ -1922,6 +2293,12 @@ def main() -> None:
     with phase("train planned (--auto --hw h100 --profile)"):
         planned_counts = train_planned(torch, kernels, train_losses,
                                        serve_times)
+    torch.cuda.empty_cache()
+    with phase("pipeline interpreter (schedule_grads, path A)"):
+        interp_counts = pipeline_interpreter(torch, kernels)
+    torch.cuda.empty_cache()
+    with phase("pipeline engine (2 ranks on one card, path B)"):
+        engine_counts = pipeline_engine(torch)
 
     meta = {
         "flash_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
@@ -1956,7 +2333,9 @@ def main() -> None:
                    "serve_mamba2_long": mamba_long_counts[name],
                    "train_compressed": comp_counts[name],
                    "train_mesh_uncompressed": mesh_counts[name],
-                   "train_planned": planned_counts[name]}
+                   "train_planned": planned_counts[name],
+                   "train_pipeline_interpreter": interp_counts[name],
+                   "train_pipeline_engine": engine_counts[name]}
         table.append(dict(name=name, route="cuda", source=meta[name][0],
                           replaces=meta[name][1],
                           launches=sum(by_path.values()),

@@ -20,7 +20,9 @@ Layout (one directory per step), as ``repro/ckpt/checkpoint.py``::
 - **Many ranks** (data parallelism): every rank holds the same state, so
   only ``rank`` 0 writes; every rank calls ``barrier`` after each save and
   each ``wait()``, so no rank reads or moves on before the write is
-  committed; every rank restores.
+  committed; every rank restores.  Where ranks hold parts of the state (a
+  pipeline's stages), ``gather`` assembles the whole on rank 0 before each
+  save; every rank calls it, as it is collective.
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ class CheckpointManager:
     keep: int = 3
     rank: int = 0                          # only rank 0 writes
     barrier: Callable | None = None        # every rank's, after each write
+    gather: Callable | None = None         # every rank's, before each write
 
     def __post_init__(self):
         os.makedirs(self.directory, exist_ok=True)
@@ -59,6 +62,7 @@ class CheckpointManager:
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree: Any, *, extra: dict | None = None) -> str:
         self.wait()
+        tree = self._gathered(tree)
         path = os.path.join(self.directory, f"step_{step:08d}")
         if self.rank == 0:
             path = self._write(step, *_to_host(tree), extra or {})
@@ -68,6 +72,7 @@ class CheckpointManager:
     def save_async(self, step: int, tree: Any, *,
                    extra: dict | None = None) -> None:
         self.wait()
+        tree = self._gathered(tree)
         if self.rank != 0:
             return
         paths, host = _to_host(tree)
@@ -81,6 +86,9 @@ class CheckpointManager:
             self._thread.join()
             self._thread = None
         self._sync()
+
+    def _gathered(self, tree: Any) -> Any:
+        return tree if self.gather is None else self.gather(tree)
 
     def _sync(self) -> None:
         if self.barrier is not None:

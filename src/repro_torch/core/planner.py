@@ -1,12 +1,12 @@
-"""Whale Engine, data-parallel slice: strategy → mesh → execution plan →
-train step.
+"""Whale Engine: strategy → mesh → execution plan → train step, the port
+of ``repro/core/planner.py`` as far as data parallelism over the ``pod``
+and ``data`` axes (the paper's ``replica``), the explicit cross-pod
+gradient reduction and the pipeline over a ``stage`` axis go.
 
-The port of ``repro/core/planner.py`` as far as data parallelism over the
-``pod`` and ``data`` axes (the paper's ``replica``) and the explicit
-cross-pod gradient reduction go.  The reference leaves the in-pod
-reduction to GSPMD and makes only the cross-pod one explicit (planner step
-3, "add collective communication primitives"); here both are explicit
-``torch.distributed`` collectives on the groups of a
+Data parallelism.  The reference leaves the in-pod reduction to GSPMD and
+makes only the cross-pod one explicit (planner step 3, "add collective
+communication primitives"); here both are explicit ``torch.distributed``
+collectives on the groups of a
 :class:`~torch.distributed.device_mesh.DeviceMesh`:
 
 - in the pod: ``all_reduce`` of the f32 gradients over ``data``, then a
@@ -16,14 +16,24 @@ reduction to GSPMD and makes only the cross-pod one explicit (planner step
   ``pod`` (mean); without it, a plain ``all_reduce`` and division over
   ``pod``.
 
-Every rank holds the whole model (replicas) and the same optimizer state,
-draws the same global batch and trains on its rows
-(:meth:`ExecutionPlan.batch_slice`).  Tensor parallelism and ZeRO (the
-``model`` axis), the pipeline (``stage``) and heterogeneous placement come
-with later slices; a plan that needs them raises ``NotImplementedError``.
-A homogeneous :class:`~repro_torch.core.cost_model.ClusterSpec` is
-accepted and validated as the reference validates it; a mixed one is
-refused, since executing its uneven batch shares is the heterogeneous
+Every rank draws the same global batch and trains on its rows
+(:meth:`ExecutionPlan.batch_slice`, dealt over ``pod`` and ``data`` only,
+so the stages of one data replica take the same rows).  Without a stage
+axis every rank holds the whole model (replicas) and the same optimizer
+state.
+
+The pipeline (``pp > 1``, the paper's ``stage`` and ``pipeline``):
+:meth:`ExecutionPlan.pipeline_train_step_fn` runs the multi-rank engine of
+:mod:`repro_torch.core.pipeline` on the mesh's ``stage`` groups under
+``gpipe`` or ``1f1b``, each rank holding its stage's rows
+(:meth:`ExecutionPlan.init_pipeline_params`).
+
+Tensor parallelism and ZeRO (the ``model`` axis) and heterogeneous
+placement come with later slices; a plan that needs them raises
+``NotImplementedError``.  A homogeneous
+:class:`~repro_torch.core.cost_model.ClusterSpec` is accepted and
+validated as the reference validates it; a mixed one is refused, since
+executing its uneven batch shares and stage layers is the heterogeneous
 placement's slice.
 """
 from __future__ import annotations
@@ -34,14 +44,14 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import pipeline as pipe
 from repro_torch.core.cost_model import StrategySpec
+from repro_torch.core.schedule import SCHEDULE_NAMES
 from repro_torch.launch.mesh import make_mesh, mesh_shape
 from repro_torch.tree import flatten, unflatten
 
 TP_SLICE = ("tensor parallelism and ZeRO over the 'model' axis come with a "
             "later slice of the port")
-PP_SLICE = ("the pipeline engine ('stage' axis, pp > 1) comes with a later "
-            "slice of the port")
 ZERO_SLICE = ("ZeRO (sharded optimizer state and parameters) comes with a "
               "later slice of the port")
 HETERO_SLICE = ("heterogeneous placement (uneven batch shares and stage "
@@ -56,7 +66,8 @@ HETERO_SLICE = ("heterogeneous placement (uneven batch shares and stage "
 def mesh_for_strategy(strat: StrategySpec, *, pods: int = 1,
                       device_type: str = "cuda", cluster_spec=None):
     """A mesh whose axes realise the strategy, in the reference's order
-    (major→minor): pod, data, model — so only DP crosses pods.
+    (major→minor): pod, stage (when ``pp > 1``), data, model — so only DP
+    crosses pods.
 
     ``cluster_spec`` (a :class:`~repro_torch.core.cost_model.ClusterSpec`)
     is validated against the strategy as the reference does: shards must
@@ -68,12 +79,13 @@ def mesh_for_strategy(strat: StrategySpec, *, pods: int = 1,
             raise ValueError(
                 f"{strat.describe()} does not tile the device groups "
                 f"{[(g.name, g.n_devices) for g in cluster_spec.groups]}")
-    if strat.pp > 1:
-        raise NotImplementedError(f"pp={strat.pp}: {PP_SLICE}")
     shape, names = [], []
     if pods > 1:
         shape.append(pods)
         names.append("pod")
+    if strat.pp > 1:
+        shape.append(strat.pp)
+        names.append("stage")
     shape.append(strat.dp // pods if pods > 1 else strat.dp)
     names.append("data")
     shape.append(strat.model_parallel)   # tp and nested ep share the axis
@@ -84,18 +96,6 @@ def mesh_for_strategy(strat: StrategySpec, *, pods: int = 1,
 # ---------------------------------------------------------------------------
 # gradients of one batch
 # ---------------------------------------------------------------------------
-
-def check_micro_divides(batch: int, micro_batches: int) -> int:
-    """The ``B % M != 0`` guard (``repro/core/pipeline.py``): a truncated
-    split would silently drop the trailing ``B % M`` sequences."""
-    if micro_batches < 1:
-        raise ValueError(f"micro_batches must be >= 1, got {micro_batches}")
-    if batch % micro_batches:
-        raise ValueError(
-            f"global batch {batch} is not divisible by micro_batches="
-            f"{micro_batches}; pick M dividing B (or pad the batch)")
-    return batch // micro_batches
-
 
 def loss_and_grads(model, params: dict, batch: dict):
     """(loss, metrics, grads): the loss of one batch and its gradient with
@@ -116,7 +116,7 @@ def accumulate(model, params: dict, batch: dict, micro_batches: int = 1):
     M = micro_batches
     if M <= 1:
         return loss_and_grads(model, params, batch)
-    mb = check_micro_divides(batch["tokens"].shape[0], M)
+    mb = pipe.check_micro_divides(batch["tokens"].shape[0], M)
     acc = None
     loss_sum, mets = 0.0, []
     for i in range(M):
@@ -137,15 +137,6 @@ def accumulate(model, params: dict, batch: dict, micro_batches: int = 1):
 # ---------------------------------------------------------------------------
 # the plan
 # ---------------------------------------------------------------------------
-
-def _mean_over(tensors: list, group) -> None:
-    """In place: each tensor ← its mean over ``group`` (sum, then divide
-    by the group's size; a group of one still runs the collective)."""
-    n = dist.get_world_size(group)
-    for t in tensors:
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
-        t /= n
-
 
 def _reduce_metrics(metrics: dict, group, sum_keys: tuple) -> dict:
     """Metrics averaged over ``group``, except ``sum_keys``, summed."""
@@ -190,10 +181,21 @@ class ExecutionPlan:
                 dist.broadcast(p, src=0)
         return params
 
+    def init_pipeline_params(self, seed: int, *, stage_layers=None) -> dict:
+        """This rank's stage of the model from ``seed``: every rank draws
+        the whole model exactly as :meth:`init_params` does, then keeps its
+        rows of ``blocks`` (never a draw per stage, so the pipelined start
+        equals the unpipelined one bit for bit)."""
+        sl = stage_layers or self.stage_layers()
+        return pipe.stage_state(self.init_params(seed),
+                                self.mesh.get_local_rank("stage"), sl)
+
     # ---- data ----
     def batch_slice(self, batch: dict) -> dict:
-        """This rank's rows of the global batch.  A batch that ``pod ×
-        data`` does not divide raises ``ValueError``."""
+        """This rank's rows of the global batch, dealt over ``pod`` and
+        ``data`` only: the stages of one data replica take the same rows.
+        A batch that ``pod × data`` does not divide raises
+        ``ValueError``."""
         if self.mesh is None:
             return batch
         dp = self.strategy.dp
@@ -235,7 +237,7 @@ class ExecutionPlan:
             if not meshed:
                 return g, metrics
             if data_g is not None:
-                _mean_over(flatten(g)[1], data_g)
+                pipe.mean_over(flatten(g)[1], data_g)
                 metrics = _reduce_metrics(metrics, data_g, ("tokens",))
             if pod_g is not None:
                 metrics = _reduce_metrics(
@@ -260,11 +262,49 @@ class ExecutionPlan:
         def step_fn(params, opt_state, batch, step):
             g, metrics = grads_and_metrics(params, batch)
             if pod_g is not None:
-                _mean_over(flatten(g)[1], pod_g)
+                pipe.mean_over(flatten(g)[1], pod_g)
             params, opt_state = optimizer.apply(g, opt_state, params, step)
             return params, opt_state, metrics
 
         return step_fn
+
+    # ---- pipelined training (pp > 1) ----
+    def stage_layers(self) -> tuple:
+        """Per-stage layer-repeat counts: the even split (executing a
+        heterogeneous placement's ``layer_alloc`` is ROADMAP.md queue A
+        item 3)."""
+        return pipe.even_stage_layers(self.model.stack.n_rep,
+                                      self.strategy.pp)
+
+    def pipeline_train_step_fn(self, optimizer, *,
+                               micro_batches: int | None = None,
+                               schedule: str | None = None,
+                               stage_layers=None) -> Callable:
+        """``(params, opt_state, tokens, step) → (params, opt_state,
+        metrics)`` through the multi-rank pipeline engine
+        (:func:`~repro_torch.core.pipeline.make_pipeline_train_step`) on
+        this rank's ``stage`` group, averaged over its ``data`` group.
+        ``params`` and ``opt_state`` are this rank's stage
+        (:meth:`init_pipeline_params`); ``tokens`` its data replica's rows
+        (:meth:`batch_slice`).  Micro-batches and schedule default to the
+        strategy's, stage layers to :meth:`stage_layers`."""
+        axes = tuple(self.mesh.mesh_dim_names) if self.mesh is not None \
+            else ()
+        if self.strategy.pp <= 1 or "stage" not in axes:
+            raise ValueError(
+                f"pipeline step needs pp > 1 and a 'stage' mesh axis; "
+                f"strategy is {self.strategy.describe()}, mesh axes {axes}")
+        if "pod" in axes:
+            raise NotImplementedError(
+                "a pipeline across pods (its cross-pod reduction) comes "
+                "with a later slice of the port")
+        data_g = (self._group("data") if mesh_shape(self.mesh)["data"] > 1
+                  else None)
+        return pipe.make_pipeline_train_step(
+            self.model, self._group("stage"), optimizer,
+            micro_batches=micro_batches or self.strategy.micro_batches or 1,
+            stage_layers=stage_layers or self.stage_layers(),
+            schedule=schedule or self.strategy.schedule, data_group=data_g)
 
 
 # ---------------------------------------------------------------------------
@@ -276,7 +316,9 @@ def compile_plan(model, mesh, strategy: StrategySpec | None = None, *,
                  ) -> ExecutionPlan:
     """model + mesh (+ strategy) → :class:`ExecutionPlan`.  Without a
     strategy it is read off the mesh as the reference does: dp = pod ×
-    data, tp = model, pp = stage.  ``mesh=None`` is one device.
+    data, tp = model, pp = stage.  ``mesh=None`` is one device.  A
+    pipeline (``pp > 1``) runs ``gpipe`` or ``1f1b``; another schedule
+    name raises ``ValueError``.
 
     ``cluster_spec``, ``workload_meta`` and ``placement`` are the
     reference's: a homogeneous spec (or none) gives the plan the
@@ -296,11 +338,9 @@ def compile_plan(model, mesh, strategy: StrategySpec | None = None, *,
     if strategy.model_parallel > 1:
         raise NotImplementedError(
             f"a model axis of {strategy.model_parallel}: {TP_SLICE}")
-    if strategy.pp > 1:
-        raise NotImplementedError(f"pp={strategy.pp}: {PP_SLICE}")
-    if strategy.schedule != "gpipe":
-        raise NotImplementedError(
-            f"schedule={strategy.schedule!r}: {PP_SLICE}")
+    if strategy.schedule not in SCHEDULE_NAMES:
+        raise ValueError(f"unknown schedule {strategy.schedule!r}; "
+                         f"expected one of {SCHEDULE_NAMES}")
     if strategy.zero:
         raise NotImplementedError(f"zero={strategy.zero}: {ZERO_SLICE}")
     return ExecutionPlan(model=model, mesh=mesh, strategy=strategy)

@@ -9,23 +9,31 @@ the plan trains data-parallel over ``pod`` and ``data``, and
 int8 error-feedback compressor (``optim/grad_compress.py``, the quant
 kernels).
 
+Pipelines, as the reference's driver runs them: ``--pp S`` lays the world
+out as ``stage S × data (world / S)`` and trains through the multi-rank
+pipeline engine (``core/pipeline.py``) under ``--schedule`` (``gpipe`` or
+``1f1b``; default the plan's) over ``--micro-batches``, with
+``--stage-layers`` for uneven stages (default even).  Its checkpoint is
+the reference's: parameters and optimizer state in ``pipeline_params``'
+padded ``(S·Lmax, …)`` layout, gathered onto rank 0, which alone writes;
+on resume every rank reads it and keeps its rows.
+
 Planning, as the reference's driver plans: ``--auto`` prices the model's
 segment graph on the ``--hw`` table (default ``h100``, the card the port
 runs on) with :func:`~repro_torch.core.auto.auto_parallel` over the
 world's devices, prints ``[auto] chose: …`` and trains that strategy
-through :func:`~repro_torch.core.planner.compile_plan`; a choice the port
-cannot run yet (``pp > 1``, a model axis, ZeRO) exits naming its slice,
-never running another.  ``--profile`` records every step after the first
-as an observation against the strategy's cost-model features and prints
-the calibration report at exit (fitted rates, the prediction error before
-and after the fit).  A :class:`~repro_torch.runtime.straggler.
+through :func:`~repro_torch.core.planner.compile_plan` (a pipeline
+too); a choice the port cannot run yet (a model axis, ZeRO) exits naming
+its slice, never running another.  ``--profile`` records every step after
+the first as an observation against the strategy's cost-model features
+and prints the calibration report at exit (fitted rates, the prediction
+error before and after the fit).  A :class:`~repro_torch.runtime.straggler.
 StragglerMonitor` watches every step's time and prints ``[straggler]
 flagged …`` on a sustained outlier.
 
-The flags of later slices (``--pp``, a ``model`` dim above 1; ``--hosts``,
+The flags of later slices (a ``model`` dim above 1; ``--hosts``,
 ``--calibrate`` and the fault injections of the elastic runtime) are
-refused with a message naming the slice; ``--schedule`` and
-``--stage-layers`` are not accepted.
+refused with a message naming the slice.
 
 Processes: under ``torchrun`` each rank reads its rank and the world from
 the environment and uses ``cuda:LOCAL_RANK``; without it, ``--mesh`` of
@@ -48,6 +56,10 @@ Usage::
     python -m repro_torch.launch.train --arch tinyllama-1.1b --smoke \
         --device cpu --steps 3 --batch 2 --seq 32 --ckpt-dir "$TMPDIR/ck"
 
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --smoke --device cpu --pp 2 --schedule 1f1b --micro-batches 2 \
+        --batch 4 --seq 32 --steps 3 --ckpt-dir "$TMPDIR/pp"
+
     python -m repro_torch.launch.train --arch tinyllama-1.1b --batch 4 \
         --seq 2048 --steps 8 --auto --hw h100 --profile --ckpt-dir /path
 """
@@ -64,14 +76,16 @@ import torch.distributed as dist
 
 from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.core import pipeline as pipe
 from repro_torch.core.auto import auto_parallel
 from repro_torch.core.calibrate import prediction_error
 from repro_torch.core.cost_model import (H100_SXM, P100_16G, T4_16G,
                                          TPU_V5E, V100_PAPER, ClusterSpec,
-                                         hardware_reciprocals, step_cost,
-                                         step_cost_features)
-from repro_torch.core.planner import (PP_SLICE, TP_SLICE, ZERO_SLICE,
-                                      compile_plan, mesh_for_strategy)
+                                         StrategySpec, hardware_reciprocals,
+                                         step_cost, step_cost_features)
+from repro_torch.core.planner import (TP_SLICE, ZERO_SLICE, compile_plan,
+                                      mesh_for_strategy)
+from repro_torch.core.schedule import SCHEDULE_NAMES
 from repro_torch.data.pipeline import DataCfg, TokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import (make_mesh, mesh_axes, mesh_shape,
@@ -101,8 +115,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--micro-batches", type=int, default=1,
-                    help="sequential gradient accumulation over M slices")
+    ap.add_argument("--micro-batches", type=int, default=None,
+                    help="gradient accumulation over M slices, or the "
+                         "pipeline's micro-batches; default: the plan's "
+                         "choice (1 when unplanned)")
     ap.add_argument("--optimizer", choices=("adamw", "adafactor"),
                     default="adamw")
     ap.add_argument("--lr", type=float, default=3e-4)
@@ -126,7 +142,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="require a torchrun world (RANK, WORLD_SIZE, "
                          "MASTER_ADDR, MASTER_PORT in the environment)")
     ap.add_argument("--pp", type=int, default=1,
-                    help="pipeline stages: only 1 in this slice")
+                    help="pipeline stages (adds a 'stage' mesh axis)")
+    ap.add_argument("--schedule", choices=SCHEDULE_NAMES, default=None,
+                    help="pipeline schedule (core/schedule.py); default: "
+                         "the plan's choice")
+    ap.add_argument("--stage-layers", default="",
+                    help="comma layer repeats per stage (uneven pipelines, "
+                         "e.g. 3,2,2,1); default even split")
     ap.add_argument("--auto", action="store_true",
                     help="pick the strategy with the Whale cost model")
     ap.add_argument("--hw", choices=tuple(HW_TABLES), default="h100",
@@ -160,8 +182,9 @@ def _refuse_later_slices(args) -> None:
     if args.auto and (args.mesh or args.pp > 1):
         raise SystemExit("--auto picks the layout itself: drop --mesh and "
                          "--pp")
-    if args.pp > 1:
-        raise SystemExit(f"--pp {args.pp}: {PP_SLICE}")
+    if args.pp > 1 and args.mesh:
+        raise SystemExit("--pp lays the ranks out itself (stage x data): "
+                         "drop --mesh")
     if args.mesh:
         shape, axes = mesh_axes(args.mesh)
         model = dict(zip(axes, shape)).get("model", 1)
@@ -204,15 +227,13 @@ def _start_world(args, device: torch.device):
 def auto_strategy(graph, world: int, hw):
     """``--auto``: the cost model's best strategy for ``graph`` over
     ``world`` devices of ``hw``, as the reference's driver picks it.  A
-    choice the port cannot run yet exits naming its slice; no feasible
-    strategy exits too."""
+    choice the port cannot run yet (a model axis, ZeRO) exits naming its
+    slice; no feasible strategy exits too."""
     try:
         strat = auto_parallel(graph, world, hw)
     except RuntimeError as e:              # nothing fits the table's HBM
         raise SystemExit(f"--auto: {e}") from None
     refused = []
-    if strat.pp > 1:
-        refused.append(f"pp={strat.pp}: {PP_SLICE}")
     if strat.model_parallel > 1:
         refused.append(f"a model axis of {strat.model_parallel}: "
                        f"{TP_SLICE}")
@@ -293,6 +314,15 @@ def _train(args, device: torch.device) -> dict:
         log(f"[auto] chose: {strat.describe()}")
         mesh = (mesh_for_strategy(strat, device_type=device.type)
                 if world else None)
+    elif args.pp > 1:
+        if n_dev < args.pp or n_dev % args.pp:
+            raise SystemExit(
+                f"--pp {args.pp} needs a device count divisible by the "
+                f"stage count; have {n_dev} device(s)")
+        strat = StrategySpec(dp=n_dev // args.pp, pp=args.pp,
+                             micro_batches=args.micro_batches or 1,
+                             schedule=args.schedule or "gpipe")
+        mesh = mesh_for_strategy(strat, device_type=device.type)
     elif not world:
         mesh = None
     elif args.mesh:
@@ -311,6 +341,17 @@ def _train(args, device: torch.device) -> dict:
             f" GiB of {hw.hbm_bytes / 2**30:.2f})")
     compress = (args.compress_pod and mesh is not None
                 and "pod" in mesh.mesh_dim_names)
+    pipelined = plan.strategy.pp > 1
+    if pipelined:
+        stage_g = mesh.get_group("stage")
+        stage = mesh.get_local_rank("stage")
+        sl = (pipe.check_stage_layers(args.stage_layers.split(","),
+                                      model.stack.n_rep, plan.strategy.pp)
+              if args.stage_layers else plan.stage_layers())
+        log(f"[pipeline] {plan.strategy.pp} stages, schedule "
+            f"{args.schedule or plan.strategy.schedule}, µb="
+            f"{args.micro_batches or plan.strategy.micro_batches}, "
+            f"stage_layers {sl}")
 
     sched = Schedule(base_lr=args.lr, warmup=min(100, args.steps // 10 + 1),
                      decay_steps=args.steps)
@@ -321,17 +362,24 @@ def _train(args, device: torch.device) -> dict:
     data = TokenPipeline(DataCfg(global_batch=args.batch, seq_len=args.seq,
                                  vocab=cfg.vocab, seed=args.seed),
                          host_id=0, n_hosts=1)
-    ckpt = CheckpointManager(args.ckpt_dir, keep=2, rank=rank,
-                             barrier=dist.barrier if world else None)
+    ckpt = CheckpointManager(
+        args.ckpt_dir, keep=2, rank=rank,
+        barrier=dist.barrier if world else None,
+        gather=((lambda tree: pipe.gather_stages(tree, stage_g, sl))
+                if pipelined else None))
 
-    params = plan.init_params(args.seed)
+    if pipelined:
+        params = plan.init_pipeline_params(args.seed, stage_layers=sl)
+    else:
+        params = plan.init_params(args.seed)
     state = {"params": params, "opt": opt.init(params)}
     if compress:
         state["err"] = grad_compress.init_error_tree(params)
     start_step = 0
     # the error carry is restored with the rest (the reference restores
     # only params and opt, so it cannot resume its own compressed run)
-    resume = ckpt.restore_latest(state)
+    resume = (pipe.restore_stage_state(ckpt, model, opt, stage, sl)
+              if pipelined else ckpt.restore_latest(state))
     if resume is not None:
         start_step, state, extra = resume
         if "data" in extra:
@@ -357,10 +405,16 @@ def _train(args, device: torch.device) -> dict:
             return dict(fetched["before"])     # save at the failed step
         return data.state_dict()
 
-    step_fn = plan.train_step_fn(opt, micro_batches=args.micro_batches,
-                                 compress_pod=args.compress_pod)
+    if pipelined:
+        step_fn = plan.pipeline_train_step_fn(
+            opt, micro_batches=args.micro_batches, schedule=args.schedule,
+            stage_layers=sl)
+    else:
+        step_fn = plan.train_step_fn(opt, micro_batches=args.micro_batches,
+                                     compress_pod=args.compress_pod)
     shape = mesh_shape(mesh) if mesh is not None else None
-    log(f"[train] {cfg.name}: {param_count(state['params']):,} params on "
+    n_params = param_count(model.param_shapes())
+    log(f"[train] {cfg.name}: {n_params:,} params on "
         f"{device}, mesh {shape}, {plan.strategy.describe()}"
         f"{', int8 cross-pod compression' if compress else ''}, batch "
         f"{args.batch} x {args.seq}, {args.steps} steps")
@@ -381,6 +435,10 @@ def _train(args, device: torch.device) -> dict:
             p, o, m, e = step_fn(st["params"], st["opt"], batch_for(i), i,
                                  st["err"])
             new = {"params": p, "opt": o, "err": e}
+        elif pipelined:
+            p, o, m = step_fn(st["params"], st["opt"],
+                              batch_for(i)["tokens"], i)
+            new = {"params": p, "opt": o}
         else:
             p, o, m = step_fn(st["params"], st["opt"], batch_for(i), i)
             new = {"params": p, "opt": o}

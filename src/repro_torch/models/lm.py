@@ -255,26 +255,34 @@ class Model:
         x = layers.embed(params["embed"], tokens).to(cfg.adtype)
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         x, aux = tfm.apply_stack(params["blocks"], x, positions, self.stack)
-        x = layers.rmsnorm(params["final_norm"], x)
-        labels = tokens[:, 1:]
-        mask = torch.ones(labels.shape, dtype=torch.float32,
-                          device=x.device)
+        mask = torch.ones((B, S - 1), dtype=torch.float32, device=x.device)
         if "loss_mask" in batch:
             mask = mask * batch["loss_mask"][:, 1:]
-        head_w = self._head_w(params).to(cfg.adtype)
-        if x.device.type == "cuda":
-            nll, zl, n = fused_xent(x[:, :-1], head_w, labels, mask,
-                                    vocab=cfg.vocab,
-                                    z_loss_coef=cfg.z_loss_coef)
-        else:
-            nll, zl, n = chunked_xent(x[:, :-1], head_w, labels, mask,
-                                      vocab=cfg.vocab, chunk=cfg.loss_chunk,
-                                      z_loss_coef=cfg.z_loss_coef)
+        nll, zl, n = self.head_loss(params, x, tokens, mask)
         n1 = n.clamp_min(1.0)
         loss = nll / n1 + zl / n1 + aux["lb_loss"] + aux["z_loss"]
         metrics = {"nll": nll / n1, "tokens": n, "moe_lb": aux["lb_loss"],
                    "moe_z": aux["z_loss"]}
         return loss, metrics
+
+    def head_loss(self, params: dict, x: torch.Tensor, tokens: torch.Tensor,
+                  mask: torch.Tensor):
+        """(Σ nll, z_loss_coef·Σ lse², Σ mask) of next-token prediction
+        from the stack's output ``x`` (B, S, E): the final norm, the head
+        cast to the activation dtype, and the loss head chosen by device
+        (:func:`fused_xent` on the card, :func:`chunked_xent` on the CPU).
+        ``mask`` (B, S − 1) weights the labels ``tokens[:, 1:]``.  Reads
+        only ``final_norm`` and the head (``embed`` when tied) of
+        ``params``, so a pipeline's last stage calls it too."""
+        cfg = self.cfg
+        x = layers.rmsnorm(params["final_norm"], x)
+        head_w = self._head_w(params).to(cfg.adtype)
+        labels = tokens[:, 1:]
+        if x.device.type == "cuda":
+            return fused_xent(x[:, :-1], head_w, labels, mask,
+                              vocab=cfg.vocab, z_loss_coef=cfg.z_loss_coef)
+        return chunked_xent(x[:, :-1], head_w, labels, mask, vocab=cfg.vocab,
+                            chunk=cfg.loss_chunk, z_loss_coef=cfg.z_loss_coef)
 
     # ---- serving ----
     def prefill(self, params: dict, batch: dict, gen_budget: int = 64,

@@ -7,6 +7,9 @@
 
 ``apply`` updates ``params`` and ``state`` in place (under ``no_grad``) and
 returns them, which saves a copy of every parameter and moment per step.
+Where ``grads`` is one part of the model's gradient (a pipeline stage's
+leaves), ``grad_norm`` is the whole gradient's global norm, so every part
+is clipped by the same factor; by default it is the norm of ``grads``.
 The numbers are the reference's: bias corrections with ``t = step + 1``
 and ``lr = sched(step)`` in f32, every update computed in f32 and written
 back in the leaf's dtype, clipping by the global norm first.
@@ -59,9 +62,11 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g.float().square()) for g in leaves))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """(grads scaled by min(1, max_norm / norm), norm)."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, norm=None):
+    """(grads scaled by min(1, max_norm / norm), norm); ``norm`` defaults
+    to :func:`global_norm` of ``grads``."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
@@ -69,7 +74,8 @@ def clip_by_global_norm(grads, max_norm: float):
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable
-    apply: Callable             # (grads, state, params, step) -> (params, state)
+    # (grads, state, params, step, *, grad_norm=None) -> (params, state)
+    apply: Callable
     name: str = "opt"
 
 
@@ -90,9 +96,9 @@ def adamw(lr: Schedule | float = 3e-4, b1: float = 0.9, b2: float = 0.95,
         return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
 
     @torch.no_grad()
-    def apply(grads, state, params, step):
+    def apply(grads, state, params, step, *, grad_norm=None):
         if max_grad_norm:
-            grads, _ = clip_by_global_norm(grads, max_grad_norm)
+            grads, _ = clip_by_global_norm(grads, max_grad_norm, grad_norm)
         t = np.float32(step) + np.float32(1)
         lr_t = sched(step)
         c1 = float(np.float32(1) - np.float32(b1) ** t)
@@ -130,9 +136,9 @@ def adafactor(lr: Schedule | float = 3e-4, decay: float = 0.8,
         return {"v": tree_map(one, params)}
 
     @torch.no_grad()
-    def apply(grads, state, params, step):
+    def apply(grads, state, params, step, *, grad_norm=None):
         if max_grad_norm:
-            grads, _ = clip_by_global_norm(grads, max_grad_norm)
+            grads, _ = clip_by_global_norm(grads, max_grad_norm, grad_norm)
         t = np.float32(step) + np.float32(1)
         beta2 = float(np.float32(1) - t ** np.float32(-decay))
         lr_t = sched(step)
@@ -175,7 +181,7 @@ def sgd(lr: float = 1e-2) -> Optimizer:
         return {}
 
     @torch.no_grad()
-    def apply(grads, state, params, step):
+    def apply(grads, state, params, step, *, grad_norm=None):
         for g, p in _pairs(grads, params):
             p.copy_(p.float() - lr * g.float())
         return params, state

@@ -231,7 +231,9 @@ meta = {"mesh": {}}
 for spec in ("4", "2x2", "2x2x1"):
     meta["mesh"][spec] = dict(parse_mesh(spec).shape)
 for name, strat, pods in (("dp4_pods2", StrategySpec(dp=4), 2),
-                          ("dp2_tp2", StrategySpec(dp=2, tp=2), 1)):
+                          ("dp2_tp2", StrategySpec(dp=2, tp=2), 1),
+                          ("dp2_pp2", StrategySpec(dp=2, pp=2,
+                                                   schedule="1f1b"), 1)):
     meta["mesh"][name] = dict(mesh_for_strategy(strat, pods=pods).shape)
     meta[name] = strat.describe()
 
@@ -375,7 +377,9 @@ def _rank_main(rank: int, world: int, store: str, ref_path: str,
         m = port_mesh.parse_mesh(spec, device_type="cpu")
         meta["mesh"][spec] = port_mesh.mesh_shape(m)
     for name, strat, pods in (("dp4_pods2", StrategySpec(dp=4), 2),
-                              ("dp2_tp2", StrategySpec(dp=2, tp=2), 1)):
+                              ("dp2_tp2", StrategySpec(dp=2, tp=2), 1),
+                              ("dp2_pp2", StrategySpec(
+                                  dp=2, pp=2, schedule="1f1b"), 1)):
         m = planner.mesh_for_strategy(strat, pods=pods, device_type="cpu")
         meta["mesh"][name] = port_mesh.mesh_shape(m)
         meta[name] = strat.describe()
@@ -526,6 +530,7 @@ def test_mesh_shapes_and_names_match_reference(reference, port4):
         assert meta["mesh"] == want["mesh"]
         assert meta["dp4_pods2"] == want["dp4_pods2"] == "replica×4"
         assert meta["dp2_tp2"] == want["dp2_tp2"]
+        assert meta["dp2_pp2"] == want["dp2_pp2"]
         assert meta["strategy"] == "replica×4"
     assert list(want["mesh"]["2x2x1"]) == ["pod", "data", "model"]
 
@@ -630,16 +635,20 @@ def test_dp_refusals(port4):
         assert "later slice" in meta["tp_refused"]
         assert "does not divide" in meta["batch_refused"]
         assert "loss_mask" in meta["mask_refused"]
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        planner.mesh_for_strategy(StrategySpec(pp=2))
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        planner.compile_plan(None, None, StrategySpec(pp=2))
+        # a pipeline builds its mesh: the stage axis between pod and data
+        assert list(meta["mesh"]["dp2_pp2"]) == ["stage", "data", "model"]
+    for strat in (StrategySpec(pp=2), StrategySpec(dp=2, pp=2,
+                                                   schedule="1f1b"),
+                  StrategySpec(schedule="1f1b")):
+        assert planner.compile_plan(None, None, strat).strategy == strat
+    with pytest.raises(ValueError, match="unknown schedule"):
+        planner.compile_plan(None, None, StrategySpec(schedule="zb"))
     with pytest.raises(NotImplementedError, match="model"):
         planner.compile_plan(None, None, StrategySpec(tp=2))
     with pytest.raises(NotImplementedError, match="ZeRO"):
         planner.compile_plan(None, None, StrategySpec(zero=3))
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        planner.compile_plan(None, None, StrategySpec(schedule="1f1b"))
+    with pytest.raises(NotImplementedError, match="heterogeneous"):
+        planner.compile_plan(None, None, StrategySpec(pp=2), placement=())
 
 
 def test_make_mesh_checks_the_world(tmp_path):
@@ -718,7 +727,8 @@ def test_train_driver_refuses_later_slices(tmp_path):
     base = ["--smoke", "--device", "cpu", "--ckpt-dir", str(tmp_path)]
     for extra, words in ((["--mesh", "2x2"], "model dim of 2"),
                          (["--mesh", "1x2x2"], "tensor parallelism"),
-                         (["--pp", "2"], "pipeline engine")):
+                         (["--pp", "2"], "needs a device count divisible "
+                                         "by the stage count")):
         with pytest.raises(SystemExit, match=words):
             train.main(base + extra)
     with pytest.raises(SystemExit, match="torchrun"):

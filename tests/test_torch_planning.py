@@ -581,12 +581,12 @@ def test_train_driver_auto_chooses_what_the_reference_chooses(tmp_path,
 
 def test_train_driver_auto_refuses_strategies_it_cannot_run(tmp_path):
     """The search over 4 devices picks a pipeline for the smoke model at
-    batch 4 x 32 (and a tensor split at batch 2): the driver exits naming
-    the slice, never training another strategy."""
+    batch 4 x 32, which the driver trains, and a tensor split at batch 2,
+    which it refuses, naming the slice, never training another strategy."""
     g4 = lm.model_graph(get_config("tinyllama-1.1b", smoke=True), 4, 32)
-    assert auto.auto_parallel(g4, 4).pp == 2
-    with pytest.raises(SystemExit, match="pipeline engine"):
-        train.auto_strategy(g4, 4, cm.H100_SXM)
+    chosen = auto.auto_parallel(g4, 4)
+    assert chosen.pp == 2
+    assert train.auto_strategy(g4, 4, cm.H100_SXM) == chosen
     g2 = lm.model_graph(get_config("tinyllama-1.1b", smoke=True), 2, 32)
     with pytest.raises(SystemExit, match="model axis of 2"):
         train.auto_strategy(g2, 4, cm.H100_SXM)
@@ -594,20 +594,25 @@ def test_train_driver_auto_refuses_strategies_it_cannot_run(tmp_path):
         train.auto_strategy(
             lm.model_graph(get_config("mamba2-1.3b"), 512, 4096), 1,
             cm.T4_16G)
-    # and through torchrun: four gloo ranks, the search's own choice
+    # and through torchrun: four gloo ranks train the search's own choice
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     p = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node=4", "-m", "repro_torch.launch.train", "--smoke",
-         "--device", "cpu", "--batch", "4", "--seq", "32", "--steps", "1",
-         "--auto", "--ckpt-dir", str(tmp_path / "ck")],
+         "--device", "cpu", "--batch", "4", "--seq", "32", "--steps", "2",
+         "--log-every", "1", "--auto", "--profile", "--ckpt-dir",
+         str(tmp_path / "ck")],
         capture_output=True, text=True, timeout=300, env=env,
         cwd=str(tmp_path))
-    assert p.returncode != 0
-    assert "--auto chose replica×2 pipeline×2(µb=2) on 4 x h100" in \
-        p.stdout + p.stderr
-    assert not (tmp_path / "ck").exists() or not any(
-        f.name.startswith("step_") for f in (tmp_path / "ck").iterdir())
+    assert p.returncode == 0, f"STDOUT:\n{p.stdout}\nSTDERR:\n{p.stderr}"
+    assert "[auto] chose: replica×2 pipeline×2(µb=2)\n" in p.stdout
+    assert "[pipeline] 2 stages, schedule gpipe, µb=2" in p.stdout
+    losses = [float(line.split()[3]) for line in p.stdout.splitlines()
+              if line.strip().startswith("step ")]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    # --profile observes the pipelined step against its priced features
+    assert "[profile] h100: 1 step observations" in p.stdout
+    assert (tmp_path / "ck" / "step_00000002.COMMITTED").exists()
 
 
 def test_train_driver_refuses_auto_with_a_layout_and_elastic_flags(

@@ -774,7 +774,9 @@ def test_train_driver_refuses_meshed_flags_and_ragged_micro_batches(
     with pytest.raises(SystemExit, match="later slice"):
         train.main(["--smoke", "--device", "cpu", "--mesh", "1x2",
                     "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(SystemExit, match="later slice"):
+    # a pipeline needs a world the stage count divides
+    with pytest.raises(SystemExit, match="needs a device count divisible "
+                                         "by the stage count; have 1"):
         train.main(["--smoke", "--device", "cpu", "--pp", "2",
                     "--ckpt-dir", str(tmp_path)])
     with pytest.raises(SystemExit, match="later slice"):  # elastic runtime
