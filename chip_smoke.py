@@ -109,6 +109,25 @@ and the script exits non-zero without printing a result:
     1e-4 + 1e-4|x|; each rank's launch counts, audit, peak memory under
     both schedules (1f1b's stage 0 no higher than gpipe's) and step times
     (two processes time-slice one card: no throughput);
+21. heterogeneous placement, the pipeline: ``compile_plan`` over one H100
+    beside one V100 (the cost model's tables; both stages run on this
+    card) with ``StrategySpec(pp=2, micro_batches=4, schedule="1f1b")``
+    and tinyllama's workload at 4 x 2048, overlap 0.5, must balance the
+    stage layers to (19, 3) at a priced step of 216.59 ms; phase 20's way
+    (two processes over gloo), 3 AdamW steps on those stages against
+    phase 20's unpipelined losses within 1e-4 + 1e-4|x|, with each
+    stage's launches, audit, walk and step peaks and step times;
+22. heterogeneous placement, uneven data parallelism: the same pair at
+    ``dp=2`` over tinyllama at full width and 16 layers (at 22 a replica
+    with AdamW does not fit the V100 table), batch 8 x 2048, must balance
+    the batch shares to (7, 1); rank 0 trains on 7 rows of each batch and
+    rank 1 on 1 (3 AdamW steps, the token-weighted mean), against one
+    process on all 8 rows (the step-0 loss within 1e-4 + 1e-4|x|, every
+    step-0 gradient leaf within bf16's 5e-2) and one summing the same
+    shares' gradients with the same weights (every loss within 1e-4 +
+    1e-4|x|, the step-0 gradients within 5e-2), both run first and
+    freed; each rank's rows, launches, walk and step peaks and step
+    times, and a timed gloo all-reduce of the 3.34 GB f32 gradient;
 
 then the kernel table as one JSON line, the card line again, and the last
 line ``{"ok": true, "device": {...}}``.  Needs no network; needs ``nvcc``
@@ -1251,13 +1270,14 @@ def where_the_time_goes(torch, arch: str = ARCH, cache: str = "paged") -> dict:
 # and where the time goes in a training step
 # ---------------------------------------------------------------------------
 
-def train_expected(layers: int, steps: int, vp: int) -> dict:
+def train_expected(layers: int, steps: int, vp: int,
+                   rows: int = TRAIN_BATCH) -> dict:
     """Launches per run of the training path (remat "full", one
-    micro-batch, attn_bwd_remat off): the checkpointed recompute runs each
-    layer's forward twice."""
+    micro-batch of ``rows`` sequences, attn_bwd_remat off): the
+    checkpointed recompute runs each layer's forward twice."""
     from repro_torch.kernels.xent import xent
 
-    T = TRAIN_BATCH * (TRAIN_SEQ - 1)
+    T = rows * (TRAIN_SEQ - 1)
     return {"flash_fwd": 2 * layers * steps, "paged_decode": 0,
             "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps,
             "xent_fwd": steps,
@@ -1978,11 +1998,24 @@ def pipeline_interpreter(torch, kernels) -> dict:
     return first
 
 
-def _pipeline_rank(rank: int, store: str, out_dir: str) -> None:
+def hetero_spec():
+    """Phases 21-22's mixed cluster: one H100 beside one V100 (the
+    paper's table), in the cost model's terms."""
+    from repro_torch.core.cost_model import (H100_SXM, V100_PAPER,
+                                             ClusterSpec, DeviceGroup)
+
+    return ClusterSpec((DeviceGroup("h100", H100_SXM, 1),
+                        DeviceGroup("v100", V100_PAPER, 1)))
+
+
+def _pipeline_rank(rank: int, store: str, out_dir: str,
+                   hetero: bool = False) -> None:
     """One rank of phase 20 on ``cuda:0``: a gloo world of two over a
     FileStore; the plan's pipelined step under gpipe for one step, then
     under 1f1b for PP_STEPS from the same start, each with its peak memory,
-    step times and (1f1b) launch counts; written to ``rank<r>.json``."""
+    step times and (1f1b) launch counts; written to ``rank<r>.json``.
+    With ``hetero`` (phase 21) only the 1f1b steps, on the stage layers
+    that ``compile_plan`` balances over :func:`hetero_spec`."""
     import dataclasses
 
     import numpy as np
@@ -1994,7 +2027,7 @@ def _pipeline_rank(rank: int, store: str, out_dir: str) -> None:
     from repro_torch.core.cost_model import StrategySpec
     from repro_torch.core.planner import compile_plan, mesh_for_strategy
     from repro_torch.data.pipeline import DataCfg, TokenPipeline
-    from repro_torch.models.lm import Model
+    from repro_torch.models.lm import Model, model_graph
     from repro_torch.optim.optimizer import adamw
     from repro_torch.tree import tree_map
 
@@ -2015,14 +2048,26 @@ def _pipeline_rank(rank: int, store: str, out_dir: str) -> None:
     cfg = get_config(ARCH)
     model = Model(cfg)
     out, init = {}, None
+    runs = ((("1f1b", PP_STEPS),) if hetero else
+            (("gpipe", 1), ("1f1b", PP_STEPS)))
     try:
-        for sched, steps in (("gpipe", 1), ("1f1b", PP_STEPS)):
+        for sched, steps in runs:
             strat = StrategySpec(pp=2, micro_batches=PP_MICRO,
                                  schedule=sched)
             mesh = mesh_for_strategy(strat)
-            plan = compile_plan(model, mesh, strat)
+            if hetero:
+                plan = compile_plan(
+                    model, mesh, strat, cluster_spec=hetero_spec(),
+                    workload_meta=model_graph(
+                        cfg, TRAIN_BATCH, TRAIN_SEQ).workload_meta(),
+                    overlap=0.5)
+                out["priced_ms"] = plan.placement.cost.total * 1e3
+            else:
+                plan = compile_plan(model, mesh, strat)
+            out["stage_layers"] = list(plan.stage_layers())
             if init is None:
-                init = plan.init_pipeline_params(0, stage_layers=(11, 11))
+                init = plan.init_pipeline_params(
+                    0, stage_layers=None if hetero else (11, 11))
             params = tree_map(torch.clone, init)
             opt = adamw(lr=PP_LR)
             state = opt.init(params)
@@ -2064,16 +2109,46 @@ def _pipeline_rank(rank: int, store: str, out_dir: str) -> None:
         json.dump(out, f)
 
 
-def pipeline_engine(torch) -> dict:
+def two_ranks(fn, *args, timeout: float = 600) -> list:
+    """Run ``fn(rank, store, out_dir, *args)`` in two processes spawned on
+    this machine (each opens ``cuda:0``), and return their
+    ``rank<r>.json`` records; a rank that fails or outlives ``timeout``
+    seconds fails the phase, and both are stopped."""
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        ctx = mp.start_processes(fn, args=(os.path.join(tmp, "store"), tmp)
+                                 + args, nprocs=2, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + timeout
+        for p in ctx.processes:
+            p.join(max(1.0, deadline - time.monotonic()))
+        hung = [p for p in ctx.processes if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        if hung:
+            raise AssertionError(f"a rank did not finish in {timeout} s")
+        ctx.join()                       # raises where a rank failed
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ranks
+
+
+def pipeline_engine(torch) -> tuple:
     """Phase 20 (path B): the multi-rank engine through the plan on two
     processes sharing ``cuda:0`` over gloo (NCCL refuses two ranks on one
     card), then the same PP_STEPS AdamW steps here through the unpipelined
     ``train_step_fn`` from the same seed; returns the ranks' summed 1f1b
-    launch counts."""
+    launch counts and the unpipelined losses."""
     import dataclasses
 
     import numpy as np
-    import torch.multiprocessing as mp
 
     from repro_torch.configs import get_config
     from repro_torch.core.planner import compile_plan
@@ -2082,27 +2157,7 @@ def pipeline_engine(torch) -> dict:
     from repro_torch.optim.optimizer import adamw, global_norm
 
     cfg = get_config(ARCH)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_pp_")
-    try:
-        ctx = mp.start_processes(_pipeline_rank,
-                                 args=(os.path.join(tmp, "store"), tmp),
-                                 nprocs=2, join=False, start_method="spawn")
-        deadline = time.monotonic() + 600
-        for p in ctx.processes:
-            p.join(max(1.0, deadline - time.monotonic()))
-        hung = [p for p in ctx.processes if p.is_alive()]
-        for p in hung:
-            p.kill()
-            p.join()
-        if hung:
-            raise AssertionError("a pipeline rank did not finish in 600 s")
-        ctx.join()                       # raises where a rank failed
-        ranks = []
-        for r in range(2):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    ranks = two_ranks(_pipeline_rank)
     ranks.sort(key=lambda x: x["stage"])
 
     # the unpipelined step on the same card, from the same seed and data
@@ -2175,7 +2230,325 @@ def pipeline_engine(torch) -> dict:
     if ranks[0]["1f1b"]["walk_peak"] > ranks[0]["gpipe"]["walk_peak"]:
         raise AssertionError("1f1b's stage 0 holds more memory than gpipe's")
     return {k: ranks[0]["1f1b"]["counts"][k] + ranks[1]["1f1b"]["counts"][k]
+            for k in expected[0]}, want
+
+
+# ---------------------------------------------------------------------------
+# phases 21-22: heterogeneous placement
+# ---------------------------------------------------------------------------
+
+HETERO_LAYERS = (19, 3)         # the plan's stage layers at full depth
+HETERO_PRICED_MS = 216.59       # its priced step (1f1b, overlap 0.5)
+UNEVEN_LAYERS = 16              # a depth at which the plan balances (7, 1)
+UNEVEN_BATCH = 8
+UNEVEN_SHARES = (7, 1)
+
+
+def hetero_pipeline(torch, want: list) -> dict:
+    """Phase 21: the stage layers ``compile_plan`` balances over one H100
+    and one V100, through the multi-rank engine on two processes sharing
+    ``cuda:0`` over gloo (phase 20's way), PP_STEPS 1f1b AdamW steps held
+    against phase 20's unpipelined losses ``want`` (the same seed, data
+    and micro-batches); returns the ranks' summed launch counts."""
+    from repro_torch.configs import get_config
+
+    vp = get_config(ARCH).padded_vocab
+    ranks = two_ranks(_pipeline_rank, True, timeout=300)
+    ranks.sort(key=lambda x: x["stage"])
+    sl = tuple(ranks[0]["stage_layers"])
+    expected = {0: pipeline_expected(sl[0], PP_STEPS, vp, head=False),
+                1: pipeline_expected(sl[1], PP_STEPS, vp)}
+    print(f"[hetero] compile_plan(StrategySpec(pp=2, micro_batches="
+          f"{PP_MICRO}, schedule='1f1b'), cluster_spec=h100 x1 + v100 x1, "
+          f"workload_meta at {TRAIN_BATCH} x {TRAIN_SEQ}, overlap=0.5): "
+          f"stage layers {sl}, priced step {ranks[0]['priced_ms']:.2f} ms "
+          f"(a prediction for a real H100 + V100 pair; no bound held)",
+          flush=True)
+    if sl != HETERO_LAYERS or round(ranks[0]["priced_ms"], 2) \
+            != HETERO_PRICED_MS:
+        raise AssertionError(f"plan {sl}, {ranks[0]['priced_ms']} ms; want "
+                             f"{HETERO_LAYERS}, {HETERO_PRICED_MS} ms")
+    for s, r in enumerate(ranks):
+        run = r["1f1b"]
+        print(f"[hetero] stage {s} ({sl[s]} layers): losses "
+              f"{run['losses']}, step seconds "
+              f"{[round(x, 3) for x in run['seconds']]} (two processes "
+              f"time-slice one card: no throughput); peak device memory "
+              f"of the walk {run['walk_peak'] / 2**30:.3f} GiB, of the "
+              f"step {run['peak'] / 2**30:.3f} GiB; in flight "
+              f"{run['in_flight']}; launches {run['counts']}", flush=True)
+        if run["in_flight"] != PP_IN_FLIGHT["1f1b"][s]:
+            raise AssertionError(f"stage {s}: buffer audit {run}")
+        if run["counts"] != expected[s]:
+            raise AssertionError(f"stage {s}: launches {run['counts']}, "
+                                 f"want {expected[s]}")
+        if run["losses"] != ranks[0]["1f1b"]["losses"]:
+            raise AssertionError("the stages report different losses")
+    got = ranks[0]["1f1b"]["losses"]
+    worst = check_close("planned-stage losses against the unpipelined step",
+                        torch.tensor(got), torch.tensor(want), torch.float32,
+                        1e-4)
+    print(f"[hetero] {PP_STEPS} AdamW steps on {sl}: {got} vs unpipelined "
+          f"{want}, max |diff| {worst:.3e} (limit 1e-4 + 1e-4|x|); the "
+          f"clip norm summed stage by stage {ranks[0]['1f1b']['norms']}",
+          flush=True)
+    return {k: ranks[0]["1f1b"]["counts"][k] + ranks[1]["1f1b"]["counts"][k]
             for k in expected[0]}
+
+
+def _uneven_rank(rank: int, store: str, out_dir: str, ref_grads: str
+                 ) -> None:
+    """One rank of phase 22 on ``cuda:0``: a gloo world of two; the plan
+    ``compile_plan`` balances over :func:`hetero_spec` at ``dp=2`` deals
+    this rank its share of each batch; PP_STEPS AdamW steps with its
+    launch counts, step times (step 0's with rank 0's copy of its
+    gradient to the host) and peak memory; rank 0 saves the step-0
+    gradient it hands the optimizer to ``ref_grads``; then one timed gloo
+    all-reduce of a gradient-shaped tree."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.cost_model import StrategySpec
+    from repro_torch.core.planner import compile_plan, mesh_for_strategy
+    from repro_torch.data.pipeline import DataCfg, TokenPipeline
+    from repro_torch.models.lm import Model, model_graph
+    from repro_torch.optim.optimizer import adamw
+    from repro_torch.tree import flatten
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    kernels = kernel_wrappers()
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=UNEVEN_LAYERS)
+    model = Model(cfg)
+    strat = StrategySpec(dp=2)
+    try:
+        mesh = mesh_for_strategy(strat, cluster_spec=hetero_spec())
+        plan = compile_plan(model, mesh, strat, cluster_spec=hetero_spec(),
+                            workload_meta=model_graph(
+                                cfg, UNEVEN_BATCH, TRAIN_SEQ).workload_meta(),
+                            overlap=0.5)
+        params = plan.init_params(0)
+        opt = adamw(lr=PP_LR)
+        state = opt.init(params)
+        real_apply = opt.apply
+        first, walk = {}, []
+
+        def apply(grads, *args, **kw):
+            walk.append(torch.cuda.max_memory_allocated())
+            if rank == 0 and not first:
+                first.update((k, v.cpu()) for k, v in zip(*flatten(grads)))
+            return real_apply(grads, *args, **kw)
+
+        step_fn = plan.train_step_fn(dataclasses.replace(opt, apply=apply))
+        data = TokenPipeline(DataCfg(global_batch=UNEVEN_BATCH,
+                                     seq_len=TRAIN_SEQ, vocab=cfg.vocab,
+                                     seed=0), host_id=0, n_hosts=1)
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        losses, secs, peaks = [], [], []
+        for i in range(PP_STEPS):
+            batch = plan.batch_slice({"tokens": torch.as_tensor(
+                np.asarray(data.next_batch()["tokens"]))})
+            batch = {k: v.cuda() for k, v in batch.items()}
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, batch, i)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated())
+            losses.append(float(m["loss"]))
+        if rank == 0:
+            torch.save(first, ref_grads)
+            first.clear()
+        out = {"shares": list(plan.placement.batch_shares),
+               "rows": plan.replica_rows()[rank],
+               "priced_ms": plan.placement.cost.total * 1e3,
+               "losses": losses, "tokens": float(m["tokens"]),
+               "seconds": secs, "peak": max(peaks), "walk": max(walk),
+               "counts": read_counts(kernels)}
+        del state
+        leaves = flatten(params)[1]
+        out["reduce_bytes"] = sum(p.numel() * 4 for p in leaves)
+        bufs = [torch.ones_like(p, dtype=torch.float32) for p in leaves]
+        del params, leaves
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in bufs:
+            dist.all_reduce(b)
+        torch.cuda.synchronize()
+        out["reduce_s"] = time.perf_counter() - t0
+        if not all(bool((b == 2).all()) for b in bufs):
+            raise AssertionError("the timed all-reduce summed wrong")
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def one_process(torch, split: bool) -> dict:
+    """Phase 22's references, in this process: PP_STEPS AdamW steps of
+    the 16-layer model from seed 0 on each batch of UNEVEN_BATCH rows,
+    either whole (one gradient over all rows) or ``split`` into the
+    planned shares, each share's gradient taken alone and the shares
+    summed with the token weights the data-parallel step uses (the ranks'
+    arithmetic without their collectives).  Returns the losses, the step-0
+    gradient on the host, step seconds and the peaks of the walk and of
+    the step."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.planner import loss_and_grads
+    from repro_torch.data.pipeline import DataCfg, TokenPipeline
+    from repro_torch.models.lm import Model
+    from repro_torch.optim.optimizer import adamw
+    from repro_torch.tree import flatten, unflatten
+
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=UNEVEN_LAYERS)
+    model = Model(cfg)
+    params = model.init(0)
+    opt = adamw(lr=PP_LR)
+    state = opt.init(params)
+    data = TokenPipeline(DataCfg(global_batch=UNEVEN_BATCH, seq_len=TRAIN_SEQ,
+                                 vocab=cfg.vocab, seed=0),
+                         host_id=0, n_hosts=1)
+    bounds, lo = [], 0
+    for n in (UNEVEN_SHARES if split else (UNEVEN_BATCH,)):
+        bounds.append((lo, lo + n))
+        lo += n
+    out = {"losses": [], "seconds": [], "walk": 0, "peak": 0}
+    for i in range(PP_STEPS):
+        toks = torch.as_tensor(np.asarray(data.next_batch()["tokens"])).cuda()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        parts = [loss_and_grads(model, params, {"tokens": toks[a:b]})
+                 for a, b in bounds]
+        if split:
+            n = [m["tokens"].float() for _, m, _ in parts]
+            total = sum(n[1:], n[0]).clamp_min(1.0)
+            w = [x / total for x in n]
+            paths = flatten(parts[0][2])[0]
+            grads = unflatten(paths, [
+                sum((flatten(g)[1][j] * wi for (_, _, g), wi
+                     in zip(parts[1:], w[1:])), flatten(parts[0][2])[1][j]
+                    * w[0]) for j in range(len(paths))])
+            loss = sum((l.float() * wi for (l, _, _), wi in zip(parts, w)))
+        else:
+            loss, _, grads = parts[0]
+        del parts
+        out["walk"] = max(out["walk"], torch.cuda.max_memory_allocated())
+        if i == 0:
+            out["grads"] = {k: v.cpu() for k, v in zip(*flatten(grads))}
+        params, state = opt.apply(grads, state, params, i)
+        del grads
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+        out["losses"].append(float(loss))
+        out["peak"] = max(out["peak"], torch.cuda.max_memory_allocated())
+    del params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def uneven_dp(torch) -> dict:
+    """Phase 22: the batch shares ``compile_plan`` balances over one H100
+    and one V100 at ``dp=2`` (tinyllama at full width, 16 layers), rank 0
+    training on 7 rows of each batch of 8 and rank 1 on 1, against two
+    references run here first and freed before the ranks start
+    (:func:`one_process`): all 8 rows whole, the step-0 loss within phase
+    20's limit and every step-0 gradient leaf within bf16's; and the same
+    shares' token-weighted sum, the losses of every step within phase
+    20's limit and the step-0 gradients within bf16's.  Returns the
+    ranks' summed launch counts."""
+    from repro_torch.configs import get_config
+
+    refs = {}
+    for name, split in (("whole", False), ("split", True)):
+        refs[name] = r = one_process(torch, split)
+        print(f"[uneven] one process, {UNEVEN_LAYERS} layers, {name} "
+              f"{UNEVEN_SHARES if split else UNEVEN_BATCH} rows: losses "
+              f"{r['losses']}, step seconds "
+              f"{[round(x, 3) for x in r['seconds']]}, peak device memory "
+              f"of the walk {r['walk'] / 2**30:.3f} GiB, of the step "
+              f"{r['peak'] / 2**30:.3f} GiB", flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_uneven_")
+    try:
+        path = os.path.join(tmp, "grads.pt")
+        ranks = two_ranks(_uneven_rank, path, timeout=300)
+        got = torch.load(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bf16 = torch.bfloat16
+    grad_err = {}
+    for name, r in refs.items():
+        worst = worst_rel = 0.0
+        for k, w in r.pop("grads").items():
+            g, w = got[k].cuda(), w.cuda()
+            worst = max(worst, check_close(
+                f"uneven step-0 grad {k} against {name}", g, w, bf16,
+                GRAD_TOL[str(bf16)]))
+            worst_rel = max(worst_rel, float((g - w).abs().max()
+                                             / w.abs().max().clamp_min(1e-30)))
+        grad_err[name] = (worst, worst_rel)
+    del got
+    vp = get_config(ARCH).padded_vocab
+    for r, out in enumerate(ranks):
+        exp = train_expected(UNEVEN_LAYERS, PP_STEPS, vp, rows=out["rows"])
+        print(f"[uneven] rank {r}: {out['rows']} of each batch's "
+              f"{UNEVEN_BATCH} rows, losses {out['losses']}, step seconds "
+              f"{[round(x, 3) for x in out['seconds']]} (two processes "
+              f"time-slice one card, gradients summed by gloo through host "
+              f"memory: no throughput); peak device memory of the walk "
+              f"{out['walk'] / 2**30:.3f} GiB, of the step "
+              f"{out['peak'] / 2**30:.3f} GiB; launches {out['counts']}",
+              flush=True)
+        if out["counts"] != exp:
+            raise AssertionError(f"rank {r}: launches {out['counts']}, want "
+                                 f"{exp}")
+        if out["losses"] != ranks[0]["losses"]:
+            raise AssertionError("the ranks report different losses")
+    shares = tuple(ranks[0]["shares"])
+    print(f"[uneven] compile_plan(StrategySpec(dp=2), cluster_spec=h100 x1 "
+          f"+ v100 x1, workload_meta at {UNEVEN_BATCH} x {TRAIN_SEQ}, "
+          f"overlap=0.5): batch shares {shares}, priced step "
+          f"{ranks[0]['priced_ms']:.2f} ms (a prediction for a real pair; "
+          f"no bound held); gloo all-reduce of "
+          f"{ranks[0]['reduce_bytes'] / 1e9:.3f} GB of f32 gradient leaves "
+          f"from the card through host memory: "
+          f"{ranks[0]['reduce_s']:.3f} s, {ranks[1]['reduce_s']:.3f} s",
+          flush=True)
+    if shares != UNEVEN_SHARES or [o["rows"] for o in ranks] \
+            != list(UNEVEN_SHARES):
+        raise AssertionError(f"shares {shares}, rows "
+                             f"{[o['rows'] for o in ranks]}")
+    got = torch.tensor(ranks[0]["losses"])
+    diff = {k: [abs(a - b) for a, b in zip(ranks[0]["losses"], r["losses"])]
+            for k, r in refs.items()}
+    diff["split-whole"] = [abs(a - b) for a, b in zip(
+        refs["split"]["losses"], refs["whole"]["losses"])]
+    check_close("uneven-share losses against the split reference", got,
+                torch.tensor(refs["split"]["losses"]), torch.float32, 1e-4)
+    check_close("uneven-share step-0 loss against all rows whole", got[:1],
+                torch.tensor(refs["whole"]["losses"][:1]), torch.float32,
+                1e-4)
+    print(f"[uneven] {PP_STEPS} AdamW steps, |diff| of the losses by step: "
+          f"ranks against the split reference {diff['split']}, against all "
+          f"rows whole {diff['whole']} (held at step 0; limit 1e-4 + "
+          f"1e-4|x|), the split reference against whole "
+          f"{diff['split-whole']}; step-0 gradients max |diff| (limit "
+          f"{GRAD_TOL[str(bf16)]:g} + same·|x|) and max relative to each "
+          f"leaf's max: against split {grad_err['split'][0]:.3e}, "
+          f"{grad_err['split'][1]:.3e}; against whole "
+          f"{grad_err['whole'][0]:.3e}, {grad_err['whole'][1]:.3e}; tokens "
+          f"summed over the ranks {ranks[0]['tokens']:.0f}", flush=True)
+    return {k: ranks[0]["counts"][k] + ranks[1]["counts"][k]
+            for k in ranks[0]["counts"]}
 
 
 @contextlib.contextmanager
@@ -2298,7 +2671,13 @@ def main() -> None:
         interp_counts = pipeline_interpreter(torch, kernels)
     torch.cuda.empty_cache()
     with phase("pipeline engine (2 ranks on one card, path B)"):
-        engine_counts = pipeline_engine(torch)
+        engine_counts, unpiped = pipeline_engine(torch)
+    torch.cuda.empty_cache()
+    with phase("heterogeneous pipeline (planned stage layers, 2 ranks)"):
+        hetero_counts = hetero_pipeline(torch, unpiped)
+    torch.cuda.empty_cache()
+    with phase("uneven data parallelism (planned batch shares, 2 ranks)"):
+        uneven_counts = uneven_dp(torch)
 
     meta = {
         "flash_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
@@ -2335,7 +2714,9 @@ def main() -> None:
                    "train_mesh_uncompressed": mesh_counts[name],
                    "train_planned": planned_counts[name],
                    "train_pipeline_interpreter": interp_counts[name],
-                   "train_pipeline_engine": engine_counts[name]}
+                   "train_pipeline_engine": engine_counts[name],
+                   "train_pipeline_hetero": hetero_counts[name],
+                   "train_uneven_dp": uneven_counts[name]}
         table.append(dict(name=name, route="cuda", source=meta[name][0],
                           replaces=meta[name][1],
                           launches=sum(by_path.values()),

@@ -1,9 +1,11 @@
 """Whale core, ported slice by slice: the cost model, pipeline schedules,
 heterogeneous balancing, the auto-search and calibration (pure Python and
-numpy, equal to the reference's bit for bit), and the planner's
-data-parallel path with cross-pod int8 gradient compression
-(:mod:`repro_torch.core.planner`).  Exported under the reference's names
-(``repro/core/__init__.py``) as far as they are ported."""
+numpy, equal to the reference's bit for bit), and the planner
+(:mod:`repro_torch.core.planner`): data parallelism with cross-pod int8
+gradient compression, the pipeline, and a mixed cluster's heterogeneous
+placement (uneven stage layers and batch shares).  Exported under the
+reference's names (``repro/core/__init__.py``) as far as they are
+ported."""
 from repro_torch.core.auto import auto_parallel, search  # noqa: F401
 from repro_torch.core.cost_model import (H100_SXM, P100_16G,  # noqa: F401
                                          T4_16G, TPU_V5E, V100_PAPER,

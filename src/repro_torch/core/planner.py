@@ -28,13 +28,19 @@ The pipeline (``pp > 1``, the paper's ``stage`` and ``pipeline``):
 ``gpipe`` or ``1f1b``, each rank holding its stage's rows
 (:meth:`ExecutionPlan.init_pipeline_params`).
 
-Tensor parallelism and ZeRO (the ``model`` axis) and heterogeneous
-placement come with later slices; a plan that needs them raises
-``NotImplementedError``.  A homogeneous
-:class:`~repro_torch.core.cost_model.ClusterSpec` is accepted and
-validated as the reference validates it; a mixed one is refused, since
-executing its uneven batch shares and stage layers is the heterogeneous
-placement's slice.
+Heterogeneous placement (the paper's §5): on a mixed-hardware
+:class:`~repro_torch.core.cost_model.ClusterSpec` with the workload's
+``workload_meta``, :func:`compile_plan` carries the balanced
+:class:`~repro_torch.core.hetero.HeteroPlacement`, as the reference does.
+Its ``layer_alloc`` sets :meth:`ExecutionPlan.stage_layers` (uneven
+stages through the pipeline engine), and under ``pp == 1`` its per-group
+``batch_shares`` deal uneven rows to the data replicas
+(:meth:`ExecutionPlan.batch_slice`); the data-parallel step then weights
+each rank by its token count (:meth:`ExecutionPlan.train_step_fn`), as it
+does for a ``loss_mask``.
+
+Tensor parallelism and ZeRO (the ``model`` axis) come with a later slice;
+a plan that needs them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -46,6 +52,8 @@ import torch.distributed as dist
 
 from repro_torch.core import pipeline as pipe
 from repro_torch.core.cost_model import StrategySpec
+from repro_torch.core.hetero import (plan_placement, proportional_split,
+                                     strategy_fits_cluster)
 from repro_torch.core.schedule import SCHEDULE_NAMES
 from repro_torch.launch.mesh import make_mesh, mesh_shape
 from repro_torch.tree import flatten, unflatten
@@ -54,9 +62,9 @@ TP_SLICE = ("tensor parallelism and ZeRO over the 'model' axis come with a "
             "later slice of the port")
 ZERO_SLICE = ("ZeRO (sharded optimizer state and parameters) comes with a "
               "later slice of the port")
-HETERO_SLICE = ("heterogeneous placement (uneven batch shares and stage "
-                "layers over a mixed-hardware ClusterSpec, ROADMAP.md queue "
-                "A item 3) comes with a later slice of the port")
+#: the keys of ``Model.loss_fn``'s metrics, with the step's ``loss``: a
+#: rank with no rows of the batch reports zeros under them
+METRIC_KEYS = ("loss", "moe_lb", "moe_z", "nll", "tokens")
 
 
 # ---------------------------------------------------------------------------
@@ -73,12 +81,11 @@ def mesh_for_strategy(strat: StrategySpec, *, pods: int = 1,
     is validated against the strategy as the reference does: shards must
     tile each hardware group without straddling a group boundary
     (``ValueError`` otherwise).  The mesh shape itself is unaffected."""
-    if cluster_spec is not None:
-        from repro_torch.core.hetero import strategy_fits_cluster
-        if not strategy_fits_cluster(strat, cluster_spec):
-            raise ValueError(
-                f"{strat.describe()} does not tile the device groups "
-                f"{[(g.name, g.n_devices) for g in cluster_spec.groups]}")
+    if cluster_spec is not None and not strategy_fits_cluster(
+            strat, cluster_spec):
+        raise ValueError(
+            f"{strat.describe()} does not tile the device groups "
+            f"{[(g.name, g.n_devices) for g in cluster_spec.groups]}")
     shape, names = [], []
     if pods > 1:
         shape.append(pods)
@@ -151,10 +158,13 @@ def _reduce_metrics(metrics: dict, group, sum_keys: tuple) -> dict:
 @dataclasses.dataclass
 class ExecutionPlan:
     """A model, its mesh (``None``: one device, no collectives) and the
-    strategy derived from it."""
+    strategy derived from it.  ``placement`` is the reference's: a
+    :class:`~repro_torch.core.hetero.HeteroPlacement` on a mixed-hardware
+    cluster, else ``None``."""
     model: object
     mesh: object
     strategy: StrategySpec
+    placement: object = None
 
     def _group(self, axis: str):
         if self.mesh is None or axis not in self.mesh.mesh_dim_names:
@@ -191,15 +201,59 @@ class ExecutionPlan:
                                 self.mesh.get_local_rank("stage"), sl)
 
     # ---- data ----
+    def replica_rows(self) -> tuple | None:
+        """Rows of each data replica, pod-major then data, under the
+        placement's uneven batch shares; ``None`` where the batch splits
+        evenly over ``pod × data``.
+
+        Shares apply only when ``pp == 1`` and the placement holds one
+        share per device group, for more than one group (under ``pp > 1``
+        its one share is the planning batch, and rows split evenly).
+        Group *g* owns ``n_g / model_parallel`` consecutive replicas in
+        declaration order (the order ``strategy_fits_cluster`` tiles); its
+        share is dealt to them by ``proportional_split`` over equal
+        weights, the reference's largest-remainder helper, so (7, 1) over
+        4 + 4 replicas gives (2, 2, 2, 1, 1, 0, 0, 0).  A replica may get
+        no rows."""
+        pl = self.placement
+        if pl is None or self.strategy.pp != 1 or len(pl.spec.groups) < 2 \
+                or len(pl.batch_shares) != len(pl.spec.groups):
+            return None
+        mp = self.strategy.model_parallel
+        rows = []
+        for g, share in zip(pl.spec.groups, pl.batch_shares):
+            rows += proportional_split(share, [1.0] * (g.n_devices // mp))
+        if len(rows) != self.strategy.dp:
+            raise ValueError(f"the placement deals {len(rows)} replicas, the "
+                             f"strategy has dp={self.strategy.dp}")
+        return tuple(rows)
+
     def batch_slice(self, batch: dict) -> dict:
         """This rank's rows of the global batch, dealt over ``pod`` and
         ``data`` only: the stages of one data replica take the same rows.
-        A batch that ``pod × data`` does not divide raises
-        ``ValueError``."""
+
+        The placement's batch shares feed the loader here (the reference
+        says only that ``HeteroPlacement.batch_slices()`` "feeds the data
+        loader"; none of its code reads it): each replica takes its
+        :meth:`replica_rows` in order, so the rows follow
+        ``batch_slices()``, and a replica may take none.  Shares that do
+        not sum to the global batch raise ``ValueError`` (never
+        rescaled).  Without shares, a batch that ``pod × data`` does not
+        divide raises ``ValueError``."""
         if self.mesh is None:
             return batch
-        dp = self.strategy.dp
         B = batch["tokens"].shape[0]
+        rows = self.replica_rows()
+        if rows is not None:
+            if sum(rows) != B:
+                raise ValueError(
+                    f"the placement's batch shares "
+                    f"{tuple(self.placement.batch_shares)} sum to "
+                    f"{sum(rows)}, the global batch is {B}")
+            i = self._index()
+            lo = sum(rows[:i])
+            return {k: v[lo:lo + rows[i]] for k, v in batch.items()}
+        dp = self.strategy.dp
         if B % dp:
             raise ValueError(f"global batch {B} does not divide over "
                              f"pod x data = {dp} replicas")
@@ -217,29 +271,81 @@ class ExecutionPlan:
         and the compressor update their state in place.  Metrics (with
         ``loss``) are the reference's: means over the global batch, the
         token count summed over it; with ``compress_pod`` the mean over
-        pods of each pod's (its ``pmean``), so the token count is a pod's."""
+        pods of each pod's (its ``pmean``), so the token count is a pod's.
+
+        Each rank's loss is the mean over its own token count ``n_i``, so
+        with even rows and no ``loss_mask`` the gradients are averaged
+        (``mean_over``).  Otherwise (the placement's uneven shares, or a
+        ``loss_mask``) the step takes the token-weighted mean Σ nᵢ·gᵢ / Σ
+        nᵢ, the reference's one masked mean over the global batch: the
+        scalar ``n_i`` is summed over the reduction group, each rank's
+        gradients scaled by ``n_i / N`` and summed, and every metric but
+        ``tokens`` (summed) weighted alike.  The group is ``pod × data``;
+        with ``compress_pod`` it is the pod's ``data``, and the compressed
+        mean over pods follows as before, unweighted like the reference's
+        ``pmean``, so uneven shares with ``compress_pod`` raise
+        ``ValueError``.  A rank with no rows runs no forward: it adds zero
+        gradients and ``n_i = 0`` and joins every collective in order."""
         model = self.model
         M = micro_batches or self.strategy.micro_batches or 1
         data_g, pod_g = self._group("data"), self._group("pod")
         meshed = self.mesh is not None
         compress = compress_pod and pod_g is not None
+        rows = self.replica_rows() if meshed else None
+        uneven = rows is not None and len(set(rows)) > 1
+        if uneven and compress:
+            raise ValueError(
+                f"uneven batch shares {rows} with compress_pod: the "
+                f"compressed cross-pod reduction is an unweighted mean over "
+                f"pods (the reference's pmean), which would weight the "
+                f"pods' tokens unevenly")
+        for r in set(rows or ()) - {0}:
+            pipe.check_micro_divides(r, M)
+        weight_groups = [g for g in ((data_g,) if compress
+                                     else (data_g, pod_g)) if g is not None]
+
+        def weighted(g, metrics):
+            """The token-weighted sums over ``weight_groups``."""
+            n = metrics["tokens"].float().reshape(())
+            N = n.clone()
+            for grp in weight_groups:
+                dist.all_reduce(N, op=dist.ReduceOp.SUM, group=grp)
+            w = n / N.clamp_min(1.0)
+            keys = sorted(metrics)
+            vec = torch.stack([metrics[k].float().reshape(()) *
+                               (1.0 if k == "tokens" else w) for k in keys])
+            leaves = flatten(g)[1]
+            for t in leaves:
+                t.mul_(w)
+            for grp in weight_groups:
+                for t in leaves + [vec]:
+                    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=grp)
+            return dict(zip(keys, vec.unbind()))
 
         def grads_and_metrics(params, batch):
-            if meshed and "loss_mask" in batch:
-                # the mean of per-rank means is the global mean only when
-                # every rank counts the same number of tokens
-                raise NotImplementedError(
-                    "the data-parallel step averages per-rank means; a "
-                    "loss_mask needs the mean weighted by each rank's token "
-                    "count, which is not ported yet")
-            loss, metrics, g = accumulate(model, params, batch, M)
-            metrics = dict(metrics, loss=loss)
+            if batch["tokens"].shape[0] == 0:
+                g = unflatten(flatten(params)[0],
+                              [torch.zeros_like(p)
+                               for p in flatten(params)[1]])
+                dev = batch["tokens"].device
+                metrics = {k: torch.zeros((), device=dev)
+                           for k in METRIC_KEYS}
+            else:
+                loss, metrics, g = accumulate(model, params, batch, M)
+                metrics = dict(metrics, loss=loss)
             if not meshed:
+                return g, metrics
+            if uneven or "loss_mask" in batch:
+                metrics = weighted(g, metrics)
+                if compress:
+                    metrics = _reduce_metrics(metrics, pod_g, ())
                 return g, metrics
             if data_g is not None:
                 pipe.mean_over(flatten(g)[1], data_g)
                 metrics = _reduce_metrics(metrics, data_g, ("tokens",))
             if pod_g is not None:
+                if not compress:
+                    pipe.mean_over(flatten(g)[1], pod_g)
                 metrics = _reduce_metrics(
                     metrics, pod_g, () if compress else ("tokens",))
             return g, metrics
@@ -261,8 +367,6 @@ class ExecutionPlan:
 
         def step_fn(params, opt_state, batch, step):
             g, metrics = grads_and_metrics(params, batch)
-            if pod_g is not None:
-                pipe.mean_over(flatten(g)[1], pod_g)
             params, opt_state = optimizer.apply(g, opt_state, params, step)
             return params, opt_state, metrics
 
@@ -270,9 +374,13 @@ class ExecutionPlan:
 
     # ---- pipelined training (pp > 1) ----
     def stage_layers(self) -> tuple:
-        """Per-stage layer-repeat counts: the even split (executing a
-        heterogeneous placement's ``layer_alloc`` is ROADMAP.md queue A
-        item 3)."""
+        """Per-stage layer-repeat counts: the placement's latency-equalizing
+        ``layer_alloc`` when it holds one count per stage, else the even
+        split (the reference's ``ExecutionPlan.stage_layers``)."""
+        pl = self.placement
+        if pl is not None and len(pl.layer_alloc) == self.strategy.pp:
+            return pipe.stage_layers_from_alloc(self.model.stack,
+                                                pl.layer_alloc)
         return pipe.even_stage_layers(self.model.stack.n_rep,
                                       self.strategy.pp)
 
@@ -312,24 +420,22 @@ class ExecutionPlan:
 # ---------------------------------------------------------------------------
 
 def compile_plan(model, mesh, strategy: StrategySpec | None = None, *,
-                 cluster_spec=None, workload_meta=None, placement=None
-                 ) -> ExecutionPlan:
+                 cluster_spec=None, workload_meta=None, placement=None,
+                 overlap: float = 0.0) -> ExecutionPlan:
     """model + mesh (+ strategy) → :class:`ExecutionPlan`.  Without a
     strategy it is read off the mesh as the reference does: dp = pod ×
     data, tp = model, pp = stage.  ``mesh=None`` is one device.  A
     pipeline (``pp > 1``) runs ``gpipe`` or ``1f1b``; another schedule
     name raises ``ValueError``.
 
-    ``cluster_spec``, ``workload_meta`` and ``placement`` are the
-    reference's: a homogeneous spec (or none) gives the plan the
-    reference gives, with no placement.  A mixed-hardware spec, or a
-    ``placement``, raises ``NotImplementedError``: the reference balances
-    uneven batch shares and stage layers there (``core/hetero.py``, ported)
-    and executing them is a later slice.  ``workload_meta`` is read only by
-    that balancing."""
-    if placement is not None or (cluster_spec is not None
-                                 and not cluster_spec.is_homogeneous):
-        raise NotImplementedError(HETERO_SLICE)
+    ``cluster_spec`` + ``workload_meta``, as the reference's: on a
+    mixed-hardware cluster the plan carries the balanced
+    :class:`~repro_torch.core.hetero.HeteroPlacement`
+    (:func:`~repro_torch.core.hetero.plan_placement`, priced at
+    ``overlap``): its stage layers and batch shares are what the plan
+    executes.  A caller's own ``placement`` passes through unchanged.  A
+    homogeneous or absent spec, or no ``workload_meta``, leaves
+    ``placement`` ``None``: the plan of the spec-less call."""
     if strategy is None:
         shape = mesh_shape(mesh) if mesh is not None else {}
         strategy = StrategySpec(dp=shape.get("pod", 1) * shape.get("data", 1),
@@ -343,4 +449,9 @@ def compile_plan(model, mesh, strategy: StrategySpec | None = None, *,
                          f"expected one of {SCHEDULE_NAMES}")
     if strategy.zero:
         raise NotImplementedError(f"zero={strategy.zero}: {ZERO_SLICE}")
-    return ExecutionPlan(model=model, mesh=mesh, strategy=strategy)
+    if (placement is None and cluster_spec is not None
+            and not cluster_spec.is_homogeneous and workload_meta is not None):
+        placement = plan_placement(workload_meta, strategy, cluster_spec,
+                                   overlap=overlap)
+    return ExecutionPlan(model=model, mesh=mesh, strategy=strategy,
+                         placement=placement)

@@ -278,6 +278,11 @@ rows = B // 4
 outs = [grad_fn(params, {"tokens": jnp.asarray(tokens[r * rows:(r + 1) * rows])})
         for r in range(4)]
 res["loss"] = np.float32(sum(float(l) for (l, _), _ in outs) / 4)
+# a random loss_mask: one masked mean over the whole batch
+mask = (np.random.default_rng(4).random((B, S)) < 0.7).astype(np.float32)
+res["mask"] = mask
+res["masked_loss"] = np.float32(grad_fn(params, {
+    "tokens": jnp.asarray(tokens), "loss_mask": jnp.asarray(mask)})[0][0])
 g = [o[1] for o in outs]
 inpod = [jax.tree.map(lambda a, b: (a + b) / 2, g[2 * p], g[2 * p + 1])
          for p in range(2)]
@@ -465,18 +470,18 @@ def _rank_main(rank: int, world: int, store: str, ref_path: str,
         res[f"exact/out/{path}"] = v.numpy()
     for path, v in zip(*flatten(err)):
         res[f"exact/err/{path}"] = v.numpy()
-    # refusals: a batch pod x data does not divide, a loss_mask
+    # a batch pod x data does not divide is refused; a loss_mask takes the
+    # token-weighted mean over pod x data
     try:
         plan.batch_slice({"tokens": np.zeros((6, 4), np.int32)})
     except ValueError as e:
         meta["batch_refused"] = str(e)
-    masked = dict(batch, loss_mask=torch.ones_like(batch["tokens"]))
+    masked = {k: torch.tensor(v) for k, v in plan.batch_slice(
+        {"tokens": ref["tokens"], "loss_mask": ref["mask"]}).items()}
     params = params_from_numpy(cfg, _tree(ref, "init/"), "cpu")
     opt = adamw(lr=LR)
-    try:
-        plan.train_step_fn(opt)(params, opt.init(params), masked, 0)
-    except NotImplementedError as e:
-        meta["mask_refused"] = str(e)
+    meta["masked_loss"] = float(plan.train_step_fn(opt)(
+        params, opt.init(params), masked, 0)[2]["loss"])
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(meta, f)
@@ -630,11 +635,14 @@ def test_compression_of_the_same_gradients_matches_reference(reference,
                                  quantum, ulps_of, what=key)
 
 
-def test_dp_refusals(port4):
+def test_dp_refusals(port4, reference):
+    ref = reference[0]
     for _, meta in port4:
         assert "later slice" in meta["tp_refused"]
         assert "does not divide" in meta["batch_refused"]
-        assert "loss_mask" in meta["mask_refused"]
+        np.testing.assert_allclose(meta["masked_loss"], ref["masked_loss"],
+                                   atol=TOLS["float32"].fwd,
+                                   rtol=TOLS["float32"].fwd)
         # a pipeline builds its mesh: the stage axis between pod and data
         assert list(meta["mesh"]["dp2_pp2"]) == ["stage", "data", "model"]
     for strat in (StrategySpec(pp=2), StrategySpec(dp=2, pp=2,
@@ -647,8 +655,9 @@ def test_dp_refusals(port4):
         planner.compile_plan(None, None, StrategySpec(tp=2))
     with pytest.raises(NotImplementedError, match="ZeRO"):
         planner.compile_plan(None, None, StrategySpec(zero=3))
-    with pytest.raises(NotImplementedError, match="heterogeneous"):
-        planner.compile_plan(None, None, StrategySpec(pp=2), placement=())
+    # a caller's placement passes through, as in the reference
+    assert planner.compile_plan(None, None, StrategySpec(pp=2),
+                                placement=()).placement == ()
 
 
 def test_make_mesh_checks_the_world(tmp_path):

@@ -527,15 +527,27 @@ def test_planner_validates_cluster_specs_and_refuses_mixed_ones():
                                 workload_meta=model.graph(2, 8)
                                 .workload_meta())
     assert plan.strategy == cm.StrategySpec() and plan.mesh is None
-    mixed = _mixes(cm)[0]
-    with pytest.raises(NotImplementedError, match="heterogeneous placement"):
-        planner.compile_plan(model, None, cm.StrategySpec(dp=16),
-                             cluster_spec=mixed)
-    placement = hetero.plan_placement(
-        model.graph(16, 8).workload_meta(), cm.StrategySpec(dp=16), mixed)
-    with pytest.raises(NotImplementedError, match="heterogeneous placement"):
-        planner.compile_plan(model, None, cm.StrategySpec(),
-                             placement=placement)
+    assert plan.placement is None
+    # a mixed spec: the reference's balanced placement, priced at overlap
+    mixed, ref_mixed = _mixes(cm)[0], _mixes(ref_cm)[0]
+    meta = model.graph(16, 8).workload_meta()
+    ref_meta = ref_lm.model_graph(jax_get_config("tinyllama-1.1b",
+                                                 smoke=True), 16, 8
+                                  ).workload_meta()
+    for strat in (dict(dp=16), dict(dp=8, pp=2, micro_batches=4)):
+        plan = planner.compile_plan(model, None, cm.StrategySpec(**strat),
+                                    cluster_spec=mixed, workload_meta=meta,
+                                    overlap=0.5)
+        assert data(plan.placement) == data(ref_het.plan_placement(
+            ref_meta, ref_cm.StrategySpec(**strat), ref_mixed, overlap=0.5))
+    # without the workload there is nothing to balance
+    assert planner.compile_plan(model, None, cm.StrategySpec(dp=16),
+                                cluster_spec=mixed).placement is None
+    # a caller's placement passes through, not re-balanced
+    placement = hetero.plan_placement(meta, cm.StrategySpec(dp=16), mixed)
+    assert planner.compile_plan(model, None, cm.StrategySpec(dp=16),
+                                cluster_spec=mixed, workload_meta=meta,
+                                placement=placement).placement is placement
     # the reference's tiling check, before any mesh is built
     for strat, spec in ((cm.StrategySpec(dp=4), homog),
                         (cm.StrategySpec(tp=16), mixed),
