@@ -14,7 +14,9 @@ and the script exits non-zero without printing a result:
    shapes tinyllama-1.1b and mamba2-1.3b give it, and at ragged ones
    (tolerance: values f32 2e-5, bf16 2e-2; gradients f32 2e-4, bf16 5e-2;
    the SSD scan 5e-4, as the reference holds its kernel; the int8
-   quantize and dequantize bit for bit, a NaN included), and time the
+   quantize and dequantize bit for bit, a NaN included; the xent
+   kernels also on tinyllama's vocab shard at tp 2, labels on both sides
+   of it and the backward's ``col0`` past the shard's offset), and time the
    kernel, the plain version and one PyTorch library call computing the
    same function (a yardstick the port never calls); the flash forward,
    the flash backward's two kernels, the xent forward, paged decode and
@@ -128,6 +130,29 @@ and the script exits non-zero without printing a result:
     1e-4|x|, the step-0 gradients within 5e-2), both run first and
     freed; each rank's rows, launches, walk and step peaks and step
     times, and a timed gloo all-reduce of the 3.34 GB f32 gradient;
+23. tensor parallelism: ``compile_plan(StrategySpec(tp=2))`` on a data 1
+    x model 2 mesh, two ranks on ``cuda:0`` over gloo (the row-parallel
+    sums of activations cross through host memory), tinyllama at full
+    width and depth, batch 2 x 2048, remat full, 3 AdamW steps at a
+    constant 3e-4, against one process running the unsharded step on the
+    same batches from the same seed (run first and freed): the step-0
+    loss within bf16's 2e-2 + 2e-2|x|, each step-0 gradient leaf within
+    5e-2 of the leaf's max, the losses of steps 1-2 within 2e-2 (AdamW's
+    first steps amplify bf16's rounding: the same unsharded steps a row
+    at a time are printed beside them as the yardstick); then the same
+    at 2 layers in f32, every loss within 1e-4 + 1e-4|x| and each step-0
+    gradient leaf within 2e-4 of the leaf's max; each rank's launches
+    (the flash kernels on its 16 heads, the xent kernels on its 16000
+    vocab columns), step peaks, step and gloo seconds, and the cost
+    model's price of split×2 on the H100 table;
+24. Whale's Case-2 hybrid ``replica×2{split×2}`` with ZeRO 0, 1 and 3 on
+    four ranks on ``cuda:0`` over gloo, tinyllama at full width and 4
+    layers (ZeRO-3's per-repeat gathers cross host memory), batch 4 x
+    2048, 2 steps each: zero=1 equal to zero=0 bit for bit (losses and
+    the gathered checkpoint's files byte for byte), zero=3 within 1e-4 +
+    1e-4|x| in losses and parameters, every checkpoint restored into the
+    ranks' blocks bit for bit; each rank's peaks beside the state it
+    holds, step and gloo seconds and launches;
 
 then the kernel table as one JSON line, the card line again, and the last
 line ``{"ok": true, "device": {...}}``.  Needs no network; needs ``nvcc``
@@ -2109,17 +2134,17 @@ def _pipeline_rank(rank: int, store: str, out_dir: str,
         json.dump(out, f)
 
 
-def two_ranks(fn, *args, timeout: float = 600) -> list:
-    """Run ``fn(rank, store, out_dir, *args)`` in two processes spawned on
-    this machine (each opens ``cuda:0``), and return their
+def spawn_ranks(fn, *args, timeout: float = 600, nprocs: int = 2) -> list:
+    """Run ``fn(rank, store, out_dir, *args)`` in ``nprocs`` processes
+    spawned on this machine (each opens ``cuda:0``), and return their
     ``rank<r>.json`` records; a rank that fails or outlives ``timeout``
-    seconds fails the phase, and both are stopped."""
+    seconds fails the phase, and all are stopped."""
     import torch.multiprocessing as mp
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
     try:
         ctx = mp.start_processes(fn, args=(os.path.join(tmp, "store"), tmp)
-                                 + args, nprocs=2, join=False,
+                                 + args, nprocs=nprocs, join=False,
                                  start_method="spawn")
         deadline = time.monotonic() + timeout
         for p in ctx.processes:
@@ -2132,7 +2157,7 @@ def two_ranks(fn, *args, timeout: float = 600) -> list:
             raise AssertionError(f"a rank did not finish in {timeout} s")
         ctx.join()                       # raises where a rank failed
         ranks = []
-        for r in range(2):
+        for r in range(nprocs):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
     finally:
@@ -2157,7 +2182,7 @@ def pipeline_engine(torch) -> tuple:
     from repro_torch.optim.optimizer import adamw, global_norm
 
     cfg = get_config(ARCH)
-    ranks = two_ranks(_pipeline_rank)
+    ranks = spawn_ranks(_pipeline_rank)
     ranks.sort(key=lambda x: x["stage"])
 
     # the unpipelined step on the same card, from the same seed and data
@@ -2253,7 +2278,7 @@ def hetero_pipeline(torch, want: list) -> dict:
     from repro_torch.configs import get_config
 
     vp = get_config(ARCH).padded_vocab
-    ranks = two_ranks(_pipeline_rank, True, timeout=300)
+    ranks = spawn_ranks(_pipeline_rank, True, timeout=300)
     ranks.sort(key=lambda x: x["stage"])
     sl = tuple(ranks[0]["stage_layers"])
     expected = {0: pipeline_expected(sl[0], PP_STEPS, vp, head=False),
@@ -2480,7 +2505,7 @@ def uneven_dp(torch) -> dict:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_uneven_")
     try:
         path = os.path.join(tmp, "grads.pt")
-        ranks = two_ranks(_uneven_rank, path, timeout=300)
+        ranks = spawn_ranks(_uneven_rank, path, timeout=300)
         got = torch.load(path)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2549,6 +2574,476 @@ def uneven_dp(torch) -> dict:
           f"summed over the ranks {ranks[0]['tokens']:.0f}", flush=True)
     return {k: ranks[0]["counts"][k] + ranks[1]["counts"][k]
             for k in ranks[0]["counts"]}
+
+
+# ---------------------------------------------------------------------------
+# phases 23-24: tensor parallelism and ZeRO
+# ---------------------------------------------------------------------------
+
+TP_BATCH = 2                    # phase 23: batch 2 x TRAIN_SEQ, 3 steps
+TP_STEPS = 3
+#: phase 23's runs: name -> (layers, activation dtype); bf16 at full depth
+#: is the path, f32 at 2 layers holds the split step to f32's limits
+TP_RUNS = {"bf16": (22, "bfloat16"), "f32": (2, "float32")}
+TP_LATER_LIMIT = 2e-2           # |loss diff| at steps 1-2 (PERF.md, PR 22)
+TP_F32_LIMIT = 1e-4
+ZERO_LAYERS = 4                 # phase 24: depth cut (gloo through host)
+ZERO_BATCH = 4
+ZERO_STEPS = 2
+ZERO_STAGES = (0, 1, 3)
+
+
+def time_collectives(torch, dist, stats: dict) -> None:
+    """Wrap this process's ``torch.distributed`` collectives so each call
+    adds its wall seconds (the card synchronized before and after) to
+    ``stats["s"]`` and one to ``stats["n"]``: the gloo seconds of a step."""
+    for name in ("all_reduce", "all_gather", "broadcast", "reduce_scatter"):
+        real = getattr(dist, name)
+
+        def timed(*a, _real=real, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _real(*a, **kw)
+            torch.cuda.synchronize()
+            stats["s"] += time.perf_counter() - t0
+            stats["n"] += 1
+            return out
+
+        setattr(dist, name, timed)
+
+
+def check_xent_shard(torch) -> None:
+    """Phase 3's loss head on a vocab shard, as the tensor-parallel path
+    runs it: the forward kernel on tinyllama's second column half at tp 2
+    (c0 = 16000, 16000 columns, T = 2·2047) with the labels shifted by
+    -c0, labels on both sides of the shard, against its plain version;
+    then the backward pass on one chunk of the shard with the global lse
+    and ``col0 = c0 + chunk offset``, against its plain version."""
+    from repro_torch.kernels.xent import xent
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    E, V, c0 = 2048, 32000, 16000
+    Vs = V // 2
+    T = TP_BATCH * (TRAIN_SEQ - 1)
+    h = torch.randn((T, E), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((E, Vs), generator=gen, device="cuda")
+         / math.sqrt(E)).bfloat16()
+    labels = torch.randint(0, V, (T,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    labels[:3] = torch.tensor([5, c0 + 7, V - 1], dtype=torch.int32)
+    local = labels - c0
+    nll, lse = xent.xent_fwd(h, w, local, V - c0)
+    want = xent.xent_fwd_plain(h, w, local, V - c0)
+    torch.cuda.synchronize()
+    tag = f"xent_fwd vocab shard c0={c0} Vs={Vs} T={T} E={E} bf16"
+    err = max(check_close(tag + " nll", nll, want[0], torch.float32),
+              check_close(tag + " lse", lse, want[1], torch.float32))
+    own = int(((local >= 0) & (local < Vs)).sum())
+    print(f"[kernel] {tag}: max_abs_err {err:.3e} (tol 2e-05); {own} of "
+          f"{T} labels inside the shard", flush=True)
+    chunk = xent.bwd_chunk(T, Vs)
+    j = chunk                          # the shard's second chunk
+    C = min(chunk, Vs - j)
+    logits = h[:, :].float() @ w[:, j:j + C].float()
+    g_nll = torch.rand((T,), generator=gen, device="cuda")
+    g_lse = torch.rand((T,), generator=gen, device="cuda") * 1e-3
+    glob = lse + 0.5                    # a global lse above the shard's
+    args = (glob, labels, g_nll, g_lse, c0 + j, V)
+    got = xent.xent_bwd(logits.clone(), *args)
+    want = xent.xent_bwd_plain(logits.clone(), *args)
+    torch.cuda.synchronize()
+    tag = f"xent_bwd vocab shard chunk={C} col0={c0 + j} vocab={V} f32"
+    err = check_close(tag, got, want, torch.float32)
+    print(f"[kernel] {tag}: max_abs_err {err:.3e} (tol 2e-05)", flush=True)
+
+
+def _tp_cfg(name: str):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    layers, dtype = TP_RUNS[name]
+    return dataclasses.replace(get_config(ARCH), n_layers=layers,
+                               dtype=dtype)
+
+
+def _tp_steps(torch, plan, first: dict, stats: dict | None = None,
+              micro_batches: int = 1) -> dict:
+    """TP_STEPS AdamW steps (a constant PP_LR) of ``plan`` from seed 0 on
+    the driver's stream of TP_BATCH x TRAIN_SEQ batches: losses, step
+    seconds, peaks, and with ``stats`` the gloo seconds of each step;
+    ``first`` gets the step-0 gradient (this rank's blocks) on the host."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.data.pipeline import DataCfg, TokenPipeline
+    from repro_torch.optim.optimizer import adamw
+    from repro_torch.tree import flatten
+
+    params = plan.init_params(0)
+    opt = adamw(lr=PP_LR)
+    state = plan.init_opt(opt, params)
+    real_apply = opt.apply
+
+    def apply(grads, *args, **kw):
+        if not first:
+            first.update((k, v.cpu()) for k, v in zip(*flatten(grads)))
+        return real_apply(grads, *args, **kw)
+
+    step_fn = plan.train_step_fn(dataclasses.replace(opt, apply=apply),
+                                 micro_batches=micro_batches)
+    data = TokenPipeline(DataCfg(global_batch=TP_BATCH, seq_len=TRAIN_SEQ,
+                                 vocab=plan.model.cfg.vocab, seed=0),
+                         host_id=0, n_hosts=1)
+    out = {"losses": [], "seconds": [], "peaks": [], "gloo_s": []}
+    for i in range(TP_STEPS):
+        batch = plan.batch_slice({"tokens": torch.as_tensor(
+            np.asarray(data.next_batch()["tokens"])).cuda()})
+        torch.cuda.reset_peak_memory_stats()
+        s0 = stats["s"] if stats else 0.0
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch, i)
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+        out["gloo_s"].append((stats["s"] if stats else 0.0) - s0)
+        out["peaks"].append(torch.cuda.max_memory_allocated())
+        out["losses"].append(float(m["loss"]))
+    return out
+
+
+def _tp_rank(rank: int, store: str, out_dir: str, ref_dir: str) -> None:
+    """One rank of phase 23 on ``cuda:0``: a gloo world of two, the plan
+    ``StrategySpec(tp=2)`` on data 1 x model 2, each of TP_RUNS through
+    :func:`_tp_steps` (the bf16 run with its launch counts); this rank's
+    step-0 gradient blocks against the same blocks of the unsharded
+    gradient in ``ref_dir/<run>.pt`` (max |diff| and max |ref| per
+    leaf)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import sharding
+    from repro_torch.core.cost_model import StrategySpec
+    from repro_torch.core.planner import compile_plan, mesh_for_strategy
+    from repro_torch.models.lm import Model
+    from repro_torch.tree import flatten
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    kernels = kernel_wrappers()
+    stats = {"s": 0.0, "n": 0}
+    strat = StrategySpec(tp=2)
+    out = {}
+    try:
+        mesh = mesh_for_strategy(strat)
+        time_collectives(torch, dist, stats)
+        for name in TP_RUNS:
+            plan = compile_plan(Model(_tp_cfg(name)), mesh, strat)
+            first = {}
+            torch.cuda.synchronize()
+            reset_counts(kernels)
+            n0 = stats["n"]
+            run = _tp_steps(torch, plan, first, stats)
+            run["counts"] = read_counts(kernels)
+            run["collectives"] = stats["n"] - n0
+            ref = torch.load(os.path.join(ref_dir, f"{name}.pt"), mmap=True)
+            specs = dict(zip(*flatten(plan.param_specs)))
+            run["grads"] = {}
+            for path, g in first.items():
+                w = sharding.shard_leaf(ref[path], specs[path], plan.rules)
+                run["grads"][path] = [float((g - w).abs().max()),
+                                      float(w.abs().max())]
+            run["local_params"] = sum(p.numel() for p in first.values())
+            run["model_rank"] = plan.rules.index("model")
+            out[name] = run
+            del ref, first, plan
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def train_tp(torch) -> dict:
+    """Phase 23: ``split×2``.  For each of TP_RUNS (bf16 at full width and
+    depth, the path; f32 at 2 layers, the agreement) one process runs the
+    unsharded step here first (the same seed and batches) and saves its
+    step-0 gradient; then two ranks on ``cuda:0`` over gloo train the
+    same steps through ``compile_plan(StrategySpec(tp=2))``.  Everything
+    is printed before it is held: bf16, the step-0 loss within 2e-2 +
+    2e-2|x|, each step-0 gradient leaf within 5e-2 of the leaf's max, the
+    losses of steps 1-2 within TP_LATER_LIMIT; f32, every loss within
+    TP_F32_LIMIT + TP_F32_LIMIT|x| and each step-0 gradient leaf within
+    2e-4 of the leaf's max; the ranks' losses equal; each rank's bf16
+    launches those of one model's steps on its vocab shard.  Returns the
+    ranks' summed bf16 launch counts."""
+    from repro_torch.core.cost_model import H100_SXM, StrategySpec, step_cost
+    from repro_torch.core.planner import compile_plan
+    from repro_torch.models.lm import Model, model_graph
+    from repro_torch.tree import flatten
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    want = {}
+    try:
+        for name in TP_RUNS:
+            first = {}
+            model = Model(_tp_cfg(name))
+            want[name] = r = _tp_steps(torch, compile_plan(model, None),
+                                       first)
+            torch.save(first, os.path.join(tmp, f"{name}.pt"))
+            del first
+            torch.cuda.empty_cache()
+            print(f"[tp] one process, unsharded, {name} "
+                  f"{TP_RUNS[name][0]} layers: losses {r['losses']}, step "
+                  f"seconds {[round(x, 3) for x in r['seconds']]}, peak "
+                  f"device memory {max(r['peaks']) / 2**30:.3f} GiB",
+                  flush=True)
+        # bf16's rounding alone: the same unsharded steps a row at a time
+        rows = _tp_steps(torch, compile_plan(Model(_tp_cfg("bf16")), None),
+                         {}, micro_batches=TP_BATCH)["losses"]
+        torch.cuda.empty_cache()
+        noise = [abs(a - b) for a, b in zip(rows, want["bf16"]["losses"])]
+        print(f"[tp] one process, unsharded, bf16, {TP_BATCH} micro-batches "
+              f"of one row: losses {rows}, |diff| by step from one "
+              f"micro-batch {noise} (bf16's rounding, amplified by AdamW's "
+              f"first steps: the yardstick for split×2's steps 1-2)",
+              flush=True)
+        ranks = spawn_ranks(_tp_rank, tmp, timeout=600)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ranks.sort(key=lambda r: r["bf16"]["model_rank"])
+    total = sum(v.numel() for v in flatten(Model(_tp_cfg("bf16"),
+                                                 "meta").param_shapes())[1])
+    cfg = _tp_cfg("bf16")
+    exp = train_expected(cfg.n_layers, TP_STEPS, cfg.padded_vocab // 2,
+                         rows=TP_BATCH)
+    fails = []
+    for name in TP_RUNS:
+        got, ref = ranks[0][name]["losses"], want[name]["losses"]
+        for r, out in enumerate(ranks):
+            run = out[name]
+            print(f"[tp] {name}, model rank {r}: {run['local_params']:,} "
+                  f"parameters; losses {run['losses']}, step seconds "
+                  f"{[round(x, 3) for x in run['seconds']]} (host clock; "
+                  f"two processes time-slice one card, activations summed "
+                  f"by gloo through host memory: no throughput), gloo "
+                  f"seconds {[round(x, 3) for x in run['gloo_s']]} over "
+                  f"{run['collectives']} collectives, peak device memory "
+                  f"of each step "
+                  f"{[round(x / 2**30, 3) for x in run['peaks']]} GiB; "
+                  f"launches {run['counts']}", flush=True)
+            if name == "bf16" and run["counts"] != exp:
+                fails.append(f"model rank {r}: launches {run['counts']}, "
+                             f"want {exp}")
+            if run["losses"] != got:
+                fails.append(f"{name}: the ranks report different losses")
+        rel = {}
+        for path in ranks[0][name]["grads"]:
+            diff = max(o[name]["grads"][path][0] for o in ranks)
+            top = max(o[name]["grads"][path][1] for o in ranks)
+            rel[path] = diff / max(top, 1e-30)
+        worst = max(rel, key=rel.get)
+        diffs = [abs(a - b) for a, b in zip(got, ref)]
+        print(f"[tp] {name} split×2 against unsharded: losses {got} vs "
+              f"{ref}, |diff| by step {diffs}; step-0 gradients' max |diff| "
+              f"relative to the leaf's max: worst {rel[worst]:.3e} "
+              f"({worst}), median "
+              f"{statistics.median(rel.values()):.3e}", flush=True)
+        if name == "bf16":
+            if diffs[0] > 2e-2 + 2e-2 * abs(ref[0]):
+                fails.append(f"bf16 step-0 loss |diff| {diffs[0]}")
+            if max(diffs[1:]) > TP_LATER_LIMIT:
+                fails.append(f"bf16 steps 1-2 |diff| {diffs[1:]} above "
+                             f"{TP_LATER_LIMIT}")
+            limit = GRAD_TOL[str(torch.bfloat16)]
+        else:
+            if any(d > TP_F32_LIMIT + TP_F32_LIMIT * abs(x)
+                   for d, x in zip(diffs, ref)):
+                fails.append(f"f32 losses |diff| {diffs}")
+            limit = GRAD_TOL[str(torch.float32)]
+        fails += [f"{name} step-0 gradient {p}: {v:.3e} of the leaf's max"
+                  for p, v in rel.items() if v > limit]
+    priced = step_cost(model_graph(cfg, TP_BATCH, TRAIN_SEQ).workload_meta(),
+                       StrategySpec(tp=2), H100_SXM)
+    print(f"[tp] {ranks[0]['bf16']['local_params']:,} of {total:,} "
+          f"parameters a rank at full depth; the cost model's price of "
+          f"split×2 at {TP_BATCH} x {TRAIN_SEQ} on H100_SXM, a price over "
+          f"NVLink and not a reading: {priced.total * 1e3:.2f} ms (compute "
+          f"{priced.compute * 1e3:.2f}, comm {priced.comm * 1e3:.2f})",
+          flush=True)
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return {k: sum(r["bf16"]["counts"][k] for r in ranks) for k in exp}
+
+
+def _zero_rank(rank: int, store: str, out_dir: str, ckpt_root: str) -> None:
+    """One rank of phase 24 on ``cuda:0``: a gloo world of four, the plan
+    ``StrategySpec(dp=2, tp=2, zero=z)`` for each z of ZERO_STAGES over
+    tinyllama at full width and ZERO_LAYERS layers; ZERO_STEPS AdamW steps
+    each from the same seed and batches, with peak memory, step and gloo
+    seconds and launch counts; the gathered checkpoint written from rank
+    0 to ``ckpt_root/z<z>`` and restored into this rank's blocks, equal
+    bit for bit."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.cost_model import StrategySpec
+    from repro_torch.core.planner import compile_plan, mesh_for_strategy
+    from repro_torch.data.pipeline import DataCfg, TokenPipeline
+    from repro_torch.models.lm import Model
+    from repro_torch.optim.optimizer import adamw
+    from repro_torch.tree import flatten
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 4),
+                            rank=rank, world_size=4)
+    kernels = kernel_wrappers()
+    stats = {"s": 0.0, "n": 0}
+    time_collectives(torch, dist, stats)
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=ZERO_LAYERS)
+    out = {}
+    try:
+        for z in ZERO_STAGES:
+            strat = StrategySpec(dp=2, tp=2, zero=z)
+            plan = compile_plan(Model(cfg), mesh_for_strategy(strat), strat)
+            params = plan.init_params(0)
+            opt = adamw(lr=PP_LR)
+            st = {"params": params, "opt": plan.init_opt(opt, params)}
+            state_bytes = 2 * sum(p.numel() * 4 for p in
+                                  flatten(st["params"])[1]) + sum(
+                p.numel() * 4 for p in flatten(st["opt"])[1])
+            step_fn = plan.train_step_fn(opt)
+            data = TokenPipeline(DataCfg(global_batch=ZERO_BATCH,
+                                         seq_len=TRAIN_SEQ, vocab=cfg.vocab,
+                                         seed=0), host_id=0, n_hosts=1)
+            torch.cuda.synchronize()
+            reset_counts(kernels)
+            losses, secs, peaks, gloo = [], [], [], []
+            for i in range(ZERO_STEPS):
+                batch = plan.batch_slice({"tokens": torch.as_tensor(
+                    np.asarray(data.next_batch()["tokens"]))})
+                batch = {k: v.cuda() for k, v in batch.items()}
+                torch.cuda.reset_peak_memory_stats()
+                s0 = stats["s"]
+                t0 = time.perf_counter()
+                p, o, m = step_fn(st["params"], st["opt"], batch, i)
+                torch.cuda.synchronize()
+                st = {"params": p, "opt": o}
+                secs.append(time.perf_counter() - t0)
+                gloo.append(stats["s"] - s0)
+                peaks.append(torch.cuda.max_memory_allocated())
+                losses.append(float(m["loss"]))
+            counts = read_counts(kernels)
+            ckpt = CheckpointManager(
+                os.path.join(ckpt_root, f"z{z}"), keep=1,
+                rank=dist.get_rank(), barrier=dist.barrier,
+                gather=lambda tree, plan=plan, opt=opt: plan.gather_state(
+                    tree, opt))
+            t0 = time.perf_counter()
+            ckpt.save(ZERO_STEPS, st)
+            save_s = time.perf_counter() - t0
+            _, back, _ = plan.restore_state(ckpt, opt)
+            restored = all(torch.equal(a, b) for a, b in zip(
+                flatten(back)[1], flatten(st)[1]))
+            out[str(z)] = {"losses": losses, "seconds": secs,
+                           "gloo_s": gloo, "peak": max(peaks),
+                           "state_bytes": state_bytes, "counts": counts,
+                           "save_s": save_s, "restored": restored}
+            del st, back, p, o, step_fn, plan
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def train_hybrid_zero(torch) -> dict:
+    """Phase 24: ``replica×2{split×2}`` (Whale's Case-2 hybrid) with ZeRO
+    at 0, 1 and 3 on four ranks sharing ``cuda:0`` over gloo, tinyllama
+    at full width and ZERO_LAYERS layers, batch ZERO_BATCH x TRAIN_SEQ,
+    ZERO_STEPS steps each.  Held: zero=1 equals zero=0 bit for bit (every
+    rank's losses, and the gathered checkpoints' files byte for byte);
+    zero=3 within 1e-4 + 1e-4|x| of zero=0 in losses and parameters; each
+    checkpoint restores into the ranks' blocks bit for bit; the launches
+    those of the model on its vocab shard.  Returns the ranks' summed
+    launch counts."""
+    import filecmp
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ARCH)
+    root = tempfile.mkdtemp(prefix="chip_smoke_zero_")
+    try:
+        ranks = spawn_ranks(_zero_rank, root, nprocs=4, timeout=900)
+        exp = train_expected(ZERO_LAYERS, ZERO_STEPS, cfg.padded_vocab // 2,
+                             rows=ZERO_BATCH // 2)
+        for r, out in enumerate(ranks):
+            for z in map(str, ZERO_STAGES):
+                o = out[z]
+                print(f"[zero] rank {r} zero={z}: losses {o['losses']}, "
+                      f"step seconds {[round(x, 3) for x in o['seconds']]} "
+                      f"(host clock; four processes time-slice one card), "
+                      f"gloo seconds {[round(x, 3) for x in o['gloo_s']]}, "
+                      f"peak device memory {o['peak'] / 2**30:.3f} GiB "
+                      f"beside the state it holds (parameters, gradients, "
+                      f"AdamW moments) {o['state_bytes'] / 2**30:.3f} GiB; "
+                      f"checkpoint save {o['save_s']:.2f} s; launches "
+                      f"{o['counts']}", flush=True)
+                if o["counts"] != exp:
+                    raise AssertionError(f"rank {r} zero={z}: launches "
+                                         f"{o['counts']}, want {exp}")
+                if not o["restored"]:
+                    raise AssertionError(f"rank {r} zero={z}: the "
+                                         f"checkpoint restored other blocks")
+                if o["losses"] != ranks[0][z]["losses"]:
+                    raise AssertionError("the ranks report different losses")
+            if out["1"]["losses"] != out["0"]["losses"]:
+                raise AssertionError(f"rank {r}: zero=1 losses "
+                                     f"{out['1']['losses']} differ from "
+                                     f"zero=0's {out['0']['losses']}")
+        step = f"step_{ZERO_STEPS:08d}"
+        z0, z1, z3 = (os.path.join(root, f"z{z}", step) for z in ZERO_STAGES)
+        names = sorted(os.listdir(z0))
+        match, bad, errs = filecmp.cmpfiles(z0, z1, names, shallow=False)
+        if bad or errs or sorted(os.listdir(z1)) != names:
+            raise AssertionError(f"zero=1's checkpoint differs from zero=0's "
+                                 f"in {bad + errs}")
+        same3 = filecmp.cmpfiles(z0, z3, names, shallow=False)[0]
+        with open(os.path.join(z0, "MANIFEST.json")) as f:
+            paths = json.load(f)["paths"]
+        worst = {}
+        for i, path in enumerate(paths):
+            a = torch.from_numpy(np.load(os.path.join(z0, f"arr_{i:05d}.npy")))
+            b = torch.from_numpy(np.load(os.path.join(z3, f"arr_{i:05d}.npy")))
+            head = path.split("/")[0] if path.startswith("params") else \
+                "/".join(path.split("/")[:2])
+            worst[head] = max(worst.get(head, 0.0), max_err(a, b))
+            if path.startswith("params"):
+                check_close(f"zero=3 {path} against zero=0", b, a,
+                            torch.float32, 1e-4)
+        l0, l3 = ranks[0]["0"]["losses"], ranks[0]["3"]["losses"]
+        check_close("zero=3 losses against zero=0", torch.tensor(l3),
+                    torch.tensor(l0), torch.float32, 1e-4)
+        print(f"[zero] zero=1 equals zero=0 bit for bit: losses {l0}, "
+              f"{len(match)} checkpoint files byte for byte; zero=3 losses "
+              f"{l3} (max |diff| "
+              f"{max(abs(a - b) for a, b in zip(l0, l3)):.3e}), its gathered "
+              f"checkpoint against zero=0's max |diff| {worst} (parameters "
+              f"held at 1e-4 + 1e-4|x|), {len(same3)} of {len(names)} files "
+              f"byte for byte; every checkpoint restored into the ranks' "
+              f"blocks bit for bit", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {k: sum(r[z]["counts"][k] for r in ranks
+                   for z in map(str, ZERO_STAGES)) for k in exp}
 
 
 @contextlib.contextmanager
@@ -2621,6 +3116,7 @@ def main() -> None:
         rows["flash_bwd_dq"], rows["flash_bwd_dkv"] = check_flash_bwd(
             torch, timer)
         rows["xent_fwd"], rows["xent_bwd"] = check_xent(torch, timer)
+        check_xent_shard(torch)
         rows["ssd_scan"] = check_ssd(torch, timer)
         rows["quantize"], rows["dequantize"] = check_quant(torch, timer)
         rows["ef_absmax"], rows["ef_requant"], rows["ef_decode"] = check_ef(
@@ -2678,6 +3174,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     with phase("uneven data parallelism (planned batch shares, 2 ranks)"):
         uneven_counts = uneven_dp(torch)
+    torch.cuda.empty_cache()
+    with phase("tensor parallelism (split×2, full depth, 2 ranks)"):
+        tp_counts = train_tp(torch)
+    torch.cuda.empty_cache()
+    with phase("replica×2{split×2} with ZeRO 0/1/3 (4 ranks)"):
+        zero_counts = train_hybrid_zero(torch)
 
     meta = {
         "flash_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
@@ -2716,7 +3218,9 @@ def main() -> None:
                    "train_pipeline_interpreter": interp_counts[name],
                    "train_pipeline_engine": engine_counts[name],
                    "train_pipeline_hetero": hetero_counts[name],
-                   "train_uneven_dp": uneven_counts[name]}
+                   "train_uneven_dp": uneven_counts[name],
+                   "train_tp": tp_counts[name],
+                   "train_hybrid_zero": zero_counts[name]}
         table.append(dict(name=name, route="cuda", source=meta[name][0],
                           replaces=meta[name][1],
                           launches=sum(by_path.values()),

@@ -39,8 +39,24 @@ stages through the pipeline engine), and under ``pp == 1`` its per-group
 each rank by its token count (:meth:`ExecutionPlan.train_step_fn`), as it
 does for a ``loss_mask``.
 
-Tensor parallelism and ZeRO (the ``model`` axis) come with a later slice;
-a plan that needs them raises ``NotImplementedError``.
+Tensor parallelism and ZeRO (the paper's ``split``, and the optimizer
+state and parameters sharded over ``data``): the plan's
+:class:`~repro_torch.core.sharding.ShardingRules` are the reference's
+(:func:`~repro_torch.core.sharding.rules_for_strategy`), and so are its
+``param_specs`` and :meth:`ExecutionPlan.opt_specs`.  Each rank holds its
+block of every leaf (:meth:`ExecutionPlan.init_params` draws the whole
+model and keeps it), and the model runs under the rules: head-parallel
+attention, column/row-parallel MLP, a vocab-parallel embedding and loss
+head, each collective an explicit ``torch.distributed`` call on the
+mesh's groups where GSPMD would place it.  The data-parallel reduction
+works per local leaf, as before; under ZeRO-3 a leaf sharded over the
+data axes is gathered at its use and its gradient comes back summed by
+the backward's reduce-scatter, so the step only divides it.  ZeRO-1/2
+keep AdamW's moments as this rank's slices and all-gather the updated
+parameter slice (zero 2 runs as zero 1, as in the reference); the clip
+norm sums each leaf's squares over the axes it is split over.  Still
+refused, each naming its ROADMAP item: a pipeline with a model axis or
+with ZeRO, ZeRO with ``compress_pod``, and ZeRO with uneven batch shares.
 """
 from __future__ import annotations
 
@@ -51,17 +67,22 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import pipeline as pipe
+from repro_torch.core import sharding
 from repro_torch.core.cost_model import StrategySpec
 from repro_torch.core.hetero import (plan_placement, proportional_split,
                                      strategy_fits_cluster)
 from repro_torch.core.schedule import SCHEDULE_NAMES
 from repro_torch.launch.mesh import make_mesh, mesh_shape
-from repro_torch.tree import flatten, unflatten
+from repro_torch.optim.optimizer import sharded_global_norm
+from repro_torch.tree import flatten, tree_map, unflatten
 
-TP_SLICE = ("tensor parallelism and ZeRO over the 'model' axis come with a "
-            "later slice of the port")
-ZERO_SLICE = ("ZeRO (sharded optimizer state and parameters) comes with a "
-              "later slice of the port")
+PIPE_SPLIT_SLICE = ("a pipeline with a model axis or with ZeRO comes with "
+                    "a later slice of the port (ROADMAP.md queue A item 4)")
+ZERO_COMPRESS_SLICE = ("ZeRO with compress_pod (the compressed cross-pod "
+                       "reduction of a data-sharded gradient) comes with a "
+                       "later slice of the port (ROADMAP.md queue A item 4)")
+ZERO_UNEVEN_SLICE = ("ZeRO with uneven batch shares comes with a later slice "
+                     "of the port (ROADMAP.md queue A item 4)")
 #: the keys of ``Model.loss_fn``'s metrics, with the step's ``loss``: a
 #: rank with no rows of the batch reports zeros under them
 METRIC_KEYS = ("loss", "moe_lb", "moe_z", "nll", "tokens")
@@ -104,31 +125,34 @@ def mesh_for_strategy(strat: StrategySpec, *, pods: int = 1,
 # gradients of one batch
 # ---------------------------------------------------------------------------
 
-def loss_and_grads(model, params: dict, batch: dict):
+def loss_and_grads(model, params: dict, batch: dict, scale=None):
     """(loss, metrics, grads): the loss of one batch and its gradient with
-    respect to every parameter leaf, as a tree shaped like ``params``."""
+    respect to every parameter leaf, as a tree shaped like ``params``
+    (the gradient of ``scale``·loss where a scale is given)."""
     paths, leaves = flatten(params)
     for p in leaves:
         p.requires_grad_(True)
     loss, metrics = model.loss_fn(params, batch)
-    grads = torch.autograd.grad(loss, leaves)
+    grads = torch.autograd.grad(loss if scale is None else loss * scale,
+                                leaves)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, unflatten(paths, list(grads))
 
 
-def accumulate(model, params: dict, batch: dict, micro_batches: int = 1):
+def accumulate(model, params: dict, batch: dict, micro_batches: int = 1,
+               scale=None):
     """Loss and grads summed sequentially over ``micro_batches`` equal
     slices of the batch and averaged (``train_step_fn``'s ``accumulate``;
     a batch they do not divide raises)."""
     M = micro_batches
     if M <= 1:
-        return loss_and_grads(model, params, batch)
+        return loss_and_grads(model, params, batch, scale)
     mb = pipe.check_micro_divides(batch["tokens"].shape[0], M)
     acc = None
     loss_sum, mets = 0.0, []
     for i in range(M):
         micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-        loss, metrics, g = loss_and_grads(model, params, micro)
+        loss, metrics, g = loss_and_grads(model, params, micro, scale)
         g = flatten(g)[1]
         acc = ([x.float() for x in g] if acc is None
                else [a + x for a, x in zip(acc, g)])
@@ -145,6 +169,22 @@ def accumulate(model, params: dict, batch: dict, micro_batches: int = 1):
 # the plan
 # ---------------------------------------------------------------------------
 
+def _token_count(batch: dict, M: int) -> torch.Tensor:
+    """The ``tokens`` metric ``Model.loss_fn`` reports for ``batch`` over
+    ``M`` micro-batches (their mean), from the batch alone."""
+    tokens, lm = batch["tokens"], batch.get("loss_mask")
+    B, S = tokens.shape
+    mb = B // M
+    counts = []
+    for i in range(M):
+        mask = torch.ones((mb, S - 1), dtype=torch.float32,
+                          device=tokens.device)
+        if lm is not None:
+            mask = mask * lm[i * mb:(i + 1) * mb, 1:]
+        counts.append(mask.sum())
+    return torch.stack(counts).mean(0)
+
+
 def _reduce_metrics(metrics: dict, group, sum_keys: tuple) -> dict:
     """Metrics averaged over ``group``, except ``sum_keys``, summed."""
     keys = sorted(metrics)
@@ -160,11 +200,53 @@ class ExecutionPlan:
     """A model, its mesh (``None``: one device, no collectives) and the
     strategy derived from it.  ``placement`` is the reference's: a
     :class:`~repro_torch.core.hetero.HeteroPlacement` on a mixed-hardware
-    cluster, else ``None``."""
+    cluster, else ``None``.  On a mesh, ``rules`` and ``param_specs`` are
+    the reference's (``None`` without a mesh or a model)."""
     model: object
     mesh: object
     strategy: StrategySpec
     placement: object = None
+    rules: object = None
+
+    def __post_init__(self):
+        if self.mesh is not None and self.rules is None:
+            self.rules = sharding.rules_for_strategy(
+                mesh_shape(self.mesh), self.strategy, self.mesh)
+        self.param_specs = None
+        if self.rules is not None and self.model is not None:
+            self.param_specs = self.rules.param_specs_tree(
+                self.model.axes(), self.model.param_shapes(),
+                fsdp=self.strategy.zero >= 3)
+
+    @property
+    def sharded(self) -> bool:
+        """Whether ranks hold blocks of the model or its optimizer state
+        (a model axis, or ZeRO), so steps run under :attr:`rules`."""
+        return self.param_specs is not None and (
+            self.strategy.model_parallel > 1 or self.strategy.zero >= 1)
+
+    def opt_specs(self, optimizer) -> dict:
+        """The optimizer state's specs, the reference's: the parameters'
+        rules, with the data axes (FSDP) under any ZeRO stage."""
+        shapes = optimizer.init(self.model.param_shapes())
+        axes = optimizer.state_axes(self.model.axes())
+        return self.rules.param_specs_tree(axes, shapes,
+                                           fsdp=self.strategy.zero >= 1)
+
+    def _slices(self, optimizer):
+        """ZeRO-1/2: each leaf's :class:`~repro_torch.core.sharding.Slice`
+        of AdamW's moments beyond the parameter's own block."""
+        if not self.sharded or self.strategy.zero not in (1, 2) \
+                or "mu" not in self.opt_specs(optimizer):
+            return None
+        return sharding.zero_slices(self.param_specs,
+                                    self.opt_specs(optimizer)["mu"],
+                                    self.rules)
+
+    def shard(self, tree: dict, specs: dict) -> dict:
+        """This rank's block of every leaf of a full ``tree``."""
+        return tree_map(lambda x, s: sharding.shard_leaf(x, s, self.rules),
+                        tree, specs)
 
     def _group(self, axis: str):
         if self.mesh is None or axis not in self.mesh.mesh_dim_names:
@@ -184,12 +266,64 @@ class ExecutionPlan:
     # ---- init ----
     def init_params(self, seed: int) -> dict:
         """The model's parameters from ``seed``, the same on every rank:
-        rank 0's are broadcast (a cuda generator draws per device)."""
+        rank 0's are broadcast (a cuda generator draws per device).  A
+        sharded plan keeps this rank's block of each leaf (never a draw
+        per block, so the sharded start equals a slice of the unsharded
+        one bit for bit)."""
         params = self.model.init(seed)
         if self.mesh is not None:
             for p in flatten(params)[1]:
                 dist.broadcast(p, src=0)
+        if self.sharded:
+            params = self.shard(params, self.param_specs)
         return params
+
+    def init_opt(self, optimizer, params: dict) -> dict:
+        """``optimizer``'s state for this rank's ``params``: under ZeRO-1/2
+        AdamW's moments are this rank's slices."""
+        slices = self._slices(optimizer)
+        if slices is None:
+            return optimizer.init(params)
+        return optimizer.init(tree_map(
+            lambda p, c: p if c is None else c.narrow(p), params, slices))
+
+    # ---- checkpoints of a sharded plan ----
+    def _state_specs(self, state: dict, optimizer) -> dict:
+        specs = {"params": self.param_specs,
+                 "opt": self.opt_specs(optimizer)}
+        if "err" in state:
+            specs["err"] = self.param_specs
+        return specs
+
+    def gather_state(self, state: dict, optimizer):
+        """The whole training state from every rank's blocks, in the
+        reference's layout: the tree on global rank 0, ``None`` on the
+        others (collective; the checkpoint's ``gather`` hook)."""
+        full = tree_map(lambda x, s: sharding.gather_leaf(x, s, self.rules),
+                        state, self._state_specs(state, optimizer))
+        return full if dist.get_rank() == 0 else None
+
+    def restore_state(self, ckpt, optimizer, *, with_err: bool = False):
+        """The latest committed checkpoint (the reference's layout), read
+        whole on every rank into host memory and cut into this rank's
+        blocks on the model's device: ``(step, state, extra)``, or
+        ``None`` when there is none."""
+        from repro_torch.optim import grad_compress
+
+        shapes = tree_map(lambda m: torch.empty(m.shape, dtype=m.dtype),
+                          self.model.param_shapes())
+        target = {"params": shapes, "opt": optimizer.init(shapes)}
+        if with_err:
+            target["err"] = grad_compress.init_error_tree(shapes)
+        out = ckpt.restore_latest(target)
+        if out is None:
+            return None
+        step, tree, extra = out
+        tree = tree_map(
+            lambda x, s: sharding.shard_leaf(x, s, self.rules).to(
+                self.model.device),
+            tree, self._state_specs(tree, optimizer))
+        return step, tree, extra
 
     def init_pipeline_params(self, seed: int, *, stage_layers=None) -> dict:
         """This rank's stage of the model from ``seed``: every rank draws
@@ -299,30 +433,68 @@ class ExecutionPlan:
                 f"compressed cross-pod reduction is an unweighted mean over "
                 f"pods (the reference's pmean), which would weight the "
                 f"pods' tokens unevenly")
+        zero = self.strategy.zero if self.sharded else 0
+        if zero and compress:
+            raise NotImplementedError(ZERO_COMPRESS_SLICE)
+        if self.sharded and optimizer.name == "adafactor":
+            raise NotImplementedError(
+                "adafactor over a split model (its factored moments' means "
+                "across shards) comes with a later slice of the port "
+                "(ROADMAP.md queue A item 4)")
         for r in set(rows or ()) - {0}:
             pipe.check_micro_divides(r, M)
-        weight_groups = [g for g in ((data_g,) if compress
-                                     else (data_g, pod_g)) if g is not None]
+        rules = self.rules if self.sharded else None
+        specs = self.param_specs
+        slices = self._slices(optimizer)
+        weight_axes = [a for a in (("data",) if compress
+                                   else ("data", "pod"))
+                       if self._group(a) is not None]
+        # ZeRO-3: the axes each leaf's gradient was already summed over by
+        # the backward's reduce-scatter (its gather at use)
+        summed = ([{a for p in spec for a in sharding._axes(p)}
+                   for spec in flatten(specs)[1]] if zero >= 3 else None)
 
-        def weighted(g, metrics):
-            """The token-weighted sums over ``weight_groups``."""
-            n = metrics["tokens"].float().reshape(())
+        def reduce_over(leaves: list, axis: str, *, mean: bool) -> None:
+            """Each leaf summed over ``axis`` (unless the backward summed
+            it there already), then divided by its size for a mean."""
+            group = self._group(axis)
+            n = dist.get_world_size(group)
+            for i, t in enumerate(leaves):
+                if summed is None or axis not in summed[i]:
+                    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+                if mean:
+                    t /= n
+
+        def weight_of(n):
+            """(n_i / N): this rank's share of the tokens over
+            ``weight_axes``."""
             N = n.clone()
-            for grp in weight_groups:
-                dist.all_reduce(N, op=dist.ReduceOp.SUM, group=grp)
-            w = n / N.clamp_min(1.0)
+            for a in weight_axes:
+                dist.all_reduce(N, op=dist.ReduceOp.SUM,
+                                group=self._group(a))
+            return n / N.clamp_min(1.0)
+
+        def weighted(g, metrics, w=None):
+            """The token-weighted sums over ``weight_axes``; ``w`` where
+            the gradient was taken of the weighted loss already."""
+            prescaled = w is not None
+            if w is None:
+                w = weight_of(metrics["tokens"].float().reshape(()))
             keys = sorted(metrics)
             vec = torch.stack([metrics[k].float().reshape(()) *
                                (1.0 if k == "tokens" else w) for k in keys])
             leaves = flatten(g)[1]
-            for t in leaves:
-                t.mul_(w)
-            for grp in weight_groups:
-                for t in leaves + [vec]:
-                    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=grp)
+            if not prescaled:
+                for t in leaves:
+                    t.mul_(w)
+            for a in weight_axes:
+                reduce_over(leaves, a, mean=False)
+                dist.all_reduce(vec, op=dist.ReduceOp.SUM,
+                                group=self._group(a))
             return dict(zip(keys, vec.unbind()))
 
         def grads_and_metrics(params, batch):
+            w = None
             if batch["tokens"].shape[0] == 0:
                 g = unflatten(flatten(params)[0],
                               [torch.zeros_like(p)
@@ -331,24 +503,38 @@ class ExecutionPlan:
                 metrics = {k: torch.zeros((), device=dev)
                            for k in METRIC_KEYS}
             else:
-                loss, metrics, g = accumulate(model, params, batch, M)
+                if summed is not None and "loss_mask" in batch:
+                    # the reduce-scatter sums gradients as the backward
+                    # makes them: weight the loss before it
+                    w = weight_of(_token_count(batch, M))
+                with sharding.use_rules(rules):
+                    loss, metrics, g = accumulate(model, params, batch, M,
+                                                  scale=w)
                 metrics = dict(metrics, loss=loss)
             if not meshed:
                 return g, metrics
             if uneven or "loss_mask" in batch:
-                metrics = weighted(g, metrics)
+                metrics = weighted(g, metrics, w)
                 if compress:
                     metrics = _reduce_metrics(metrics, pod_g, ())
                 return g, metrics
             if data_g is not None:
-                pipe.mean_over(flatten(g)[1], data_g)
+                reduce_over(flatten(g)[1], "data", mean=True)
                 metrics = _reduce_metrics(metrics, data_g, ("tokens",))
             if pod_g is not None:
                 if not compress:
-                    pipe.mean_over(flatten(g)[1], pod_g)
+                    reduce_over(flatten(g)[1], "pod", mean=True)
                 metrics = _reduce_metrics(
                     metrics, pod_g, () if compress else ("tokens",))
             return g, metrics
+
+        def update(g, opt_state, params, step):
+            if not self.sharded:
+                return optimizer.apply(g, opt_state, params, step)
+            kw = {} if slices is None else {"slices": slices}
+            return optimizer.apply(
+                g, opt_state, params, step,
+                grad_norm=sharded_global_norm(g, specs, self.rules), **kw)
 
         if compress:
             from repro_torch.optim import grad_compress
@@ -356,18 +542,18 @@ class ExecutionPlan:
             def step_fn(params, opt_state, batch, step, comp_err):
                 g, metrics = grads_and_metrics(params, batch)
                 # cross-pod reduction with int8 error feedback (explicit,
-                # as in the reference; the in-pod mean is already taken)
+                # as in the reference; the in-pod mean is already taken);
+                # with a model axis each rank compresses its shards
                 g, comp_err = grad_compress.compressed_psum_tree(
                     g, pod_g, comp_err, mean=True)
-                params, opt_state = optimizer.apply(g, opt_state, params,
-                                                    step)
+                params, opt_state = update(g, opt_state, params, step)
                 return params, opt_state, metrics, comp_err
 
             return step_fn
 
         def step_fn(params, opt_state, batch, step):
             g, metrics = grads_and_metrics(params, batch)
-            params, opt_state = optimizer.apply(g, opt_state, params, step)
+            params, opt_state = update(g, opt_state, params, step)
             return params, opt_state, metrics
 
         return step_fn
@@ -441,17 +627,25 @@ def compile_plan(model, mesh, strategy: StrategySpec | None = None, *,
         strategy = StrategySpec(dp=shape.get("pod", 1) * shape.get("data", 1),
                                 tp=shape.get("model", 1),
                                 pp=shape.get("stage", 1))
-    if strategy.model_parallel > 1:
-        raise NotImplementedError(
-            f"a model axis of {strategy.model_parallel}: {TP_SLICE}")
     if strategy.schedule not in SCHEDULE_NAMES:
         raise ValueError(f"unknown schedule {strategy.schedule!r}; "
                          f"expected one of {SCHEDULE_NAMES}")
-    if strategy.zero:
-        raise NotImplementedError(f"zero={strategy.zero}: {ZERO_SLICE}")
+    if strategy.pp > 1 and (strategy.model_parallel > 1 or strategy.zero):
+        raise NotImplementedError(f"{strategy.describe()}: "
+                                  f"{PIPE_SPLIT_SLICE}")
+    if mesh is not None and mesh_shape(mesh).get("model", 1) \
+            != strategy.model_parallel:
+        raise ValueError(f"{strategy.describe()} needs a model axis of "
+                         f"{strategy.model_parallel}; the mesh is "
+                         f"{mesh_shape(mesh)}")
     if (placement is None and cluster_spec is not None
             and not cluster_spec.is_homogeneous and workload_meta is not None):
         placement = plan_placement(workload_meta, strategy, cluster_spec,
                                    overlap=overlap)
-    return ExecutionPlan(model=model, mesh=mesh, strategy=strategy,
+    plan = ExecutionPlan(model=model, mesh=mesh, strategy=strategy,
                          placement=placement)
+    rows = plan.replica_rows()
+    if strategy.zero and rows is not None and len(set(rows)) > 1:
+        raise NotImplementedError(f"zero={strategy.zero} with the batch "
+                                  f"shares {rows}: {ZERO_UNEVEN_SLICE}")
+    return plan

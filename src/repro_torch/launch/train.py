@@ -4,10 +4,13 @@ config → model → Whale plan (mesh) → optimizer → data pipeline → train
 step → fault-tolerant loop with checkpoints and auto-resume, as
 ``repro/launch/train.py``.  ``--mesh`` lays the ranks out as the
 reference reads it (``data``, ``data × model``, ``pod × data × model``);
-the plan trains data-parallel over ``pod`` and ``data``, and
-``--compress-pod`` sends the cross-pod gradient reduction through the
-int8 error-feedback compressor (``optim/grad_compress.py``, the quant
-kernels).
+the plan trains data-parallel over ``pod`` and ``data`` and splits the
+model over ``model`` (tensor parallelism: heads, MLP columns, the
+vocab-parallel embedding and loss head), and ``--compress-pod`` sends the
+cross-pod gradient reduction through the int8 error-feedback compressor
+(``optim/grad_compress.py``, the quant kernels).  A sharded run's
+checkpoint is the reference's, gathered onto rank 0, which alone writes;
+on resume every rank reads it and keeps its blocks.
 
 Pipelines, as the reference's driver runs them: ``--pp S`` lays the world
 out as ``stage S × data (world / S)`` and trains through the multi-rank
@@ -22,16 +25,17 @@ Planning, as the reference's driver plans: ``--auto`` prices the model's
 segment graph on the ``--hw`` table (default ``h100``, the card the port
 runs on) with :func:`~repro_torch.core.auto.auto_parallel` over the
 world's devices, prints ``[auto] chose: …`` and trains that strategy
-through :func:`~repro_torch.core.planner.compile_plan` (a pipeline
-too); a choice the port cannot run yet (a model axis, ZeRO) exits naming
-its slice, never running another.  ``--profile`` records every step after
+through :func:`~repro_torch.core.planner.compile_plan` (a pipeline, a
+model axis and ZeRO too); a choice the port cannot run yet (a pipeline
+with a model axis or ZeRO) exits naming its slice, never running
+another.  ``--profile`` records every step after
 the first as an observation against the strategy's cost-model features
 and prints the calibration report at exit (fitted rates, the prediction
 error before and after the fit).  A :class:`~repro_torch.runtime.straggler.
 StragglerMonitor` watches every step's time and prints ``[straggler]
 flagged …`` on a sustained outlier.
 
-The flags of later slices (a ``model`` dim above 1; ``--hosts``,
+The flags of later slices (``--pp`` beside a model axis; ``--hosts``,
 ``--calibrate`` and the fault injections of the elastic runtime) are
 refused with a message naming the slice.
 
@@ -62,6 +66,10 @@ Usage::
 
     python -m repro_torch.launch.train --arch tinyllama-1.1b --batch 4 \
         --seq 2048 --steps 8 --auto --hw h100 --profile --ckpt-dir /path
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --smoke --device cpu --mesh 2x2 --batch 4 --seq 32 --steps 3 \
+        --ckpt-dir "$TMPDIR/tp"
 """
 from __future__ import annotations
 
@@ -83,7 +91,7 @@ from repro_torch.core.cost_model import (H100_SXM, P100_16G, T4_16G,
                                          TPU_V5E, V100_PAPER, ClusterSpec,
                                          StrategySpec, hardware_reciprocals,
                                          step_cost, step_cost_features)
-from repro_torch.core.planner import (TP_SLICE, ZERO_SLICE, compile_plan,
+from repro_torch.core.planner import (PIPE_SPLIT_SLICE, compile_plan,
                                       mesh_for_strategy)
 from repro_torch.core.schedule import SCHEDULE_NAMES
 from repro_torch.data.pipeline import DataCfg, TokenPipeline
@@ -184,13 +192,13 @@ def _refuse_later_slices(args) -> None:
                          "--pp")
     if args.pp > 1 and args.mesh:
         raise SystemExit("--pp lays the ranks out itself (stage x data): "
-                         "drop --mesh")
-    if args.mesh:
-        shape, axes = mesh_axes(args.mesh)
-        model = dict(zip(axes, shape)).get("model", 1)
-        if model > 1:
-            raise SystemExit(f"--mesh {args.mesh} has a model dim of "
-                             f"{model}: {TP_SLICE}")
+                         "drop --mesh; a pipeline beside a model axis: "
+                         f"{PIPE_SPLIT_SLICE}")
+    if args.mesh and not _under_torchrun():
+        n = int(np.prod(mesh_axes(args.mesh)[0]))
+        if n > 1:
+            raise SystemExit(f"--mesh {args.mesh} needs {n} ranks: run it "
+                             f"under torchrun --nproc-per-node {n}")
 
 
 def _start_world(args, device: torch.device):
@@ -227,22 +235,32 @@ def _start_world(args, device: torch.device):
 def auto_strategy(graph, world: int, hw):
     """``--auto``: the cost model's best strategy for ``graph`` over
     ``world`` devices of ``hw``, as the reference's driver picks it.  A
-    choice the port cannot run yet (a model axis, ZeRO) exits naming its
-    slice; no feasible strategy exits too."""
+    choice the port cannot run yet (a pipeline with a model axis or ZeRO)
+    exits naming its slice; no feasible strategy exits too."""
     try:
         strat = auto_parallel(graph, world, hw)
     except RuntimeError as e:              # nothing fits the table's HBM
         raise SystemExit(f"--auto: {e}") from None
-    refused = []
-    if strat.model_parallel > 1:
-        refused.append(f"a model axis of {strat.model_parallel}: "
-                       f"{TP_SLICE}")
-    if strat.zero:
-        refused.append(f"zero={strat.zero}: {ZERO_SLICE}")
-    if refused:
+    if strat.pp > 1 and (strat.model_parallel > 1 or strat.zero):
         raise SystemExit(f"--auto chose {strat.describe()} on {world} x "
-                         f"{hw.name}; " + "; ".join(refused))
+                         f"{hw.name}; {PIPE_SPLIT_SLICE}")
     return strat
+
+
+def split_line(plan) -> str:
+    """How the plan lays the model out: its mesh, and what the model and
+    data axes split."""
+    st = plan.strategy
+    shape = mesh_shape(plan.mesh) if plan.mesh is not None else None
+    parts = [f"mesh {shape}"]
+    if st.model_parallel > 1:
+        parts.append(f"split×{st.model_parallel} over model (heads, MLP "
+                     f"columns{', vocab' if st.vocab_split else ''})")
+    if st.zero:
+        what = ("optimizer state" if st.zero < 3
+                else "parameters, gradients and optimizer state")
+        parts.append(f"zero={st.zero}: {what} over data")
+    return "; ".join(parts)
 
 
 def profile_summary(profiler: Profiler, hw, world: int) -> dict:
@@ -339,6 +357,8 @@ def _train(args, device: torch.device) -> dict:
             f"{predicted.compute:.6g}, comm {predicted.comm:.6g}, bubble "
             f"{predicted.bubble:.6g}; memory {predicted.mem_bytes / 2**30:.2f}"
             f" GiB of {hw.hbm_bytes / 2**30:.2f})")
+    if plan.sharded or args.auto:
+        log(f"[plan] {split_line(plan)}")
     compress = (args.compress_pod and mesh is not None
                 and "pod" in mesh.mesh_dim_names)
     pipelined = plan.strategy.pp > 1
@@ -362,24 +382,31 @@ def _train(args, device: torch.device) -> dict:
     data = TokenPipeline(DataCfg(global_batch=args.batch, seq_len=args.seq,
                                  vocab=cfg.vocab, seed=args.seed),
                          host_id=0, n_hosts=1)
+    gather = None
+    if pipelined:
+        gather = lambda tree: pipe.gather_stages(tree, stage_g, sl)  # noqa
+    elif plan.sharded:
+        gather = lambda tree: plan.gather_state(tree, opt)  # noqa: E731
     ckpt = CheckpointManager(
         args.ckpt_dir, keep=2, rank=rank,
-        barrier=dist.barrier if world else None,
-        gather=((lambda tree: pipe.gather_stages(tree, stage_g, sl))
-                if pipelined else None))
+        barrier=dist.barrier if world else None, gather=gather)
 
     if pipelined:
         params = plan.init_pipeline_params(args.seed, stage_layers=sl)
     else:
         params = plan.init_params(args.seed)
-    state = {"params": params, "opt": opt.init(params)}
+    state = {"params": params, "opt": plan.init_opt(opt, params)}
     if compress:
         state["err"] = grad_compress.init_error_tree(params)
     start_step = 0
     # the error carry is restored with the rest (the reference restores
     # only params and opt, so it cannot resume its own compressed run)
-    resume = (pipe.restore_stage_state(ckpt, model, opt, stage, sl)
-              if pipelined else ckpt.restore_latest(state))
+    if pipelined:
+        resume = pipe.restore_stage_state(ckpt, model, opt, stage, sl)
+    elif plan.sharded:
+        resume = plan.restore_state(ckpt, opt, with_err=compress)
+    else:
+        resume = ckpt.restore_latest(state)
     if resume is not None:
         start_step, state, extra = resume
         if "data" in extra:

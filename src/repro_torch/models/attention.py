@@ -2,9 +2,18 @@
 flash op), dense-cache decode and paged-cache decode (paged kernel).
 
 Grouped-query attention in the grouped layout: q heads ``h = k·G + g``
-over K kv heads, so KV is never repeated per query head.  Single device,
-no sharding constraints (the meshed layouts of ``repro.models.attention``
-come with the engine slice).
+over K kv heads, so KV is never repeated per query head.
+
+Under sharding rules that split the heads over the model axis
+(:mod:`repro_torch.core.sharding`), training attention is head-parallel:
+the leaves are this rank's heads (their counts read off the leaf shapes),
+the input's gradient and the output after ``wo`` are summed over the
+split's group.  :func:`choose_layout` is the reference's: ``grouped`` when
+the kv heads divide the axis; ``repeat`` when only the q heads do, where
+``wk``/``wv`` stay whole on every rank and each rank keeps the kv heads of
+its q-head groups (the flash kernel still sees whole GQA groups), their
+gradient summed over the group; ``seq`` (context parallelism) raises.
+The decode paths run unsplit (serving over a mesh waits for its slice).
 
 Where the reference returns new KV arrays, the port writes the caches and
 page pools in place (saving a copy of the whole cache per step) and
@@ -16,6 +25,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import sharding
 from repro_torch.kernels.flash_attention import paged_decode
 from repro_torch.kernels.flash_attention.ops import flash
 from repro_torch.models import layers
@@ -47,23 +57,76 @@ def init_attention(gen, cfg: AttnCfg, dtype, device, lead: tuple = ()) -> dict:
     }
 
 
+def axes_attention() -> dict:
+    return {"wq": ("embed", "q_heads", "head_dim"),
+            "wk": ("embed", "kv_heads", "head_dim"),
+            "wv": ("embed", "kv_heads", "head_dim"),
+            "wo": ("q_heads", "head_dim", "embed")}
+
+
+LAYOUT_SLICE = ("the 'seq' attention layout (context parallelism, where "
+                "neither head count divides the model axis) comes with a "
+                "later slice of the port (ROADMAP.md queue A item 4)")
+
+
+def choose_layout(cfg: AttnCfg) -> str:
+    """``grouped`` / ``repeat`` / ``seq`` under the active rules, as the
+    reference picks (see the module doc); ``grouped`` without rules."""
+    rules = sharding.current_rules()
+    if rules is None:
+        return "grouped"
+    tp = rules.axis_size(rules.rules.get("kv_heads"))
+    if cfg.n_kv_heads % tp == 0:
+        return "grouped"
+    if cfg.n_heads % tp == 0:
+        return "repeat"
+    return "seq"
+
+
+def _own_kv(w: torch.Tensor, split, cfg: AttnCfg) -> torch.Tensor:
+    """``repeat``: the whole (E, K, D) ``wk`` or ``wv`` → the kv heads of
+    this rank's q heads (the reference's KV repeated to the q heads and
+    split with them).  Where this rank's q heads lie in one group, that
+    group's kv head; where a group straddles two ranks, one kv head per q
+    head.  The gradient of the whole leaf is summed over the split's
+    group."""
+    hl = cfg.n_heads // split.n
+    h0 = split.index * hl
+    w = sharding.copy_to(w, split)
+    G = cfg.group
+    if G % hl == 0:
+        return w[:, h0 // G:h0 // G + 1]
+    return w[:, [(h0 + j) // G for j in range(hl)]]
+
+
 def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
               cfg: AttnCfg, *, return_kv: bool = False,
               bwd_remat: bool = False):
     """x: (B, S, E) → (B, S, E); optionally also the roped (B, S, K, D) k
     and v.  The score/softmax/value core is :func:`ops.flash` — the flash
     kernels forward and backward, so prefill and training share it;
-    ``bwd_remat`` is its residual policy."""
+    ``bwd_remat`` is its residual policy.  Head-parallel where the rules
+    split ``q_heads`` (the module doc)."""
     B, S, E = x.shape
+    layout = choose_layout(cfg)
+    if layout == "seq":
+        raise NotImplementedError(LAYOUT_SLICE)
+    split = sharding.split_of("q_heads", cfg.n_heads)
+    wk, wv = params["wk"], params["wv"]
+    if split is not None:
+        if layout == "repeat":
+            wk, wv = _own_kv(wk, split, cfg), _own_kv(wv, split, cfg)
+        x = sharding.copy_to(x, split)
     q = torch.einsum("bse,ehd->bshd", x, params["wq"].to(x.dtype))
-    k = torch.einsum("bse,ekd->bskd", x, params["wk"].to(x.dtype))
-    v = torch.einsum("bse,ekd->bskd", x, params["wv"].to(x.dtype))
+    k = torch.einsum("bse,ekd->bskd", x, wk.to(x.dtype))
+    v = torch.einsum("bse,ekd->bskd", x, wv.to(x.dtype))
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
     out = flash(q.contiguous(), k.contiguous(), v.contiguous(), cfg.causal,
                 bwd_remat)
     y = torch.einsum("bshd,hde->bse", out.to(x.dtype),
                      params["wo"].to(x.dtype))
+    y = sharding.reduce_from(y, split)
     return (y, (k, v)) if return_kv else y
 
 

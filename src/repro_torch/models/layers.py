@@ -2,7 +2,11 @@
 
 Plain functions on tensors over parameter dicts, with the same leaf names
 and layouts as ``repro.models.layers`` so parameters cross between the two
-packages unchanged.  Initialisers take an explicit ``torch.Generator`` and
+packages unchanged; ``axes_*`` give each leaf's logical dims, as the
+reference's.  Under sharding rules that split the model axis
+(:mod:`repro_torch.core.sharding`) the MLP is column-parallel ``wg``/``wi``
+and row-parallel ``wo`` with one all-reduce, and the embedding is
+vocab-parallel.  Initialisers take an explicit ``torch.Generator`` and
 ``device``; they match the reference in distribution, not in bits (JAX and
 PyTorch draw different numbers from the same seed).
 """
@@ -12,6 +16,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core import sharding
 
 
 # ---------------------------------------------------------------------------
@@ -52,6 +58,23 @@ def init_lm_head(gen, d_model: int, vocab: int, dtype, device) -> dict:
     return {"w": dense_init(gen, d_model, (d_model, vocab), dtype, device)}
 
 
+def axes_rmsnorm() -> dict:
+    return {"scale": ("embed",)}
+
+
+def axes_mlp() -> dict:
+    return {"wi": ("embed", "mlp"), "wo": ("mlp", "embed"),
+            "wg": ("embed", "mlp")}
+
+
+def axes_embedding() -> dict:
+    return {"table": ("vocab", "embed")}
+
+
+def axes_lm_head() -> dict:
+    return {"w": ("embed", "vocab")}
+
+
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------
@@ -84,15 +107,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: (silu(x·wg) ⊙ x·wi)·wo, weights cast to the activation dtype."""
+def mlp(params: dict, x: torch.Tensor, d_ff: int = 0) -> torch.Tensor:
+    """SwiGLU: (silu(x·wg) ⊙ x·wi)·wo, weights cast to the activation
+    dtype.  Where the rules split the ``mlp`` dim of ``d_ff`` columns, the
+    leaves are this rank's columns (rows of ``wo``): the input's gradient
+    and the output are summed over the split's group."""
+    split = sharding.split_of("mlp", d_ff) if d_ff else None
+    x = sharding.copy_to(x, split)
     h = x @ params["wi"].to(x.dtype)
     h = F.silu(x @ params["wg"].to(x.dtype)) * h
-    return h @ params["wo"].to(x.dtype)
+    return sharding.reduce_from(h @ params["wo"].to(x.dtype), split)
 
 
-def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+def embed(params: dict, tokens: torch.Tensor, vocab: int = 0) -> torch.Tensor:
+    """Rows of ``table`` for ``tokens``.  Where the rules split the
+    ``vocab`` dim of ``vocab`` rows, ``table`` is this rank's rows: tokens
+    outside them look up row 0 and are zeroed, and the sum over the
+    split's group gives every token its row."""
+    split = sharding.split_of("vocab", vocab) if vocab else None
+    if split is None:
+        return params["table"][tokens]
+    rows = params["table"].shape[0]
+    local = tokens - split.index * rows
+    inside = (local >= 0) & (local < rows)
+    x = params["table"][torch.where(inside, local, 0)]
+    return sharding.reduce_from(
+        torch.where(inside[..., None], x, torch.zeros_like(x)), split)
 
 
 def pad_vocab(vocab: int, multiple: int = 256) -> int:

@@ -4,10 +4,14 @@ serve_step} for the ssm family (mamba2: serving only so far); and the
 cost model's view of a config (:func:`model_graph`, pure arithmetic).
 
 The port's counterpart of ``repro.models.lm`` for training and serving.
-The loss head is chosen by device, as the reference's ``xent_impl`` chooses
-it: :func:`fused_xent` over the fused cross-entropy kernels on the card,
-:func:`chunked_xent` (the reference's plain, sequence-chunked head) on the
-CPU.
+The loss head is chosen by device, as the reference's ``xent_impl``
+chooses it: :func:`fused_xent` over the fused cross-entropy kernels on the
+card, :func:`chunked_xent` (the reference's plain, sequence-chunked head)
+on the CPU; ``Model(..., xent_impl=)`` picks one on either.  Under
+sharding rules that split the vocab (:mod:`repro_torch.core.sharding`)
+both heads are vocab-parallel: the chunked one by the reference's explicit
+max / sum-of-exponentials / target logit all-reduces, the fused one
+through :func:`repro_torch.kernels.xent.ops.xent_vocab_shard`.
 Parameters are nested dicts of tensors with the reference's leaf paths and
 shapes (``embed/table``, ``blocks/p0/attn/wq`` …), so
 :func:`repro_torch.models.convert.params_from_numpy` moves a reference
@@ -20,9 +24,10 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import sharding
 from repro_torch.core.cost_model import ModelGraph, SegmentMeta
 from repro_torch.device import resolve_device
-from repro_torch.kernels.xent.ops import xent_with_lse
+from repro_torch.kernels.xent.ops import xent_vocab_shard, xent_with_lse
 from repro_torch.models import layers
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import AttnCfg
@@ -111,38 +116,49 @@ def build_stack_cfg(cfg: LMCfg) -> tfm.StackCfg:
 # the loss head: sequence-chunked cross-entropy and the fused-kernel twin
 # ---------------------------------------------------------------------------
 
-def _chunk_sums(h, head_w, lab, msk, vocab: int):
+def _chunk_sums(h, head_w, lab, msk, vocab: int, split=None):
     logits = h.float() @ head_w.to(h.dtype).float()   # (B, c, Vp) in f32
     Vp = head_w.shape[1]
-    col = torch.arange(Vp, device=h.device)
-    if Vp > vocab:                               # mask padded vocab columns
+    c0 = 0 if split is None else split.index * Vp
+    col = c0 + torch.arange(Vp, device=h.device)
+    if c0 + Vp > vocab:                          # mask padded vocab columns
         logits = torch.where(col < vocab, logits,
                              torch.full_like(logits, -1e30))
     m = logits.amax(-1)
-    z = torch.log(torch.exp(logits - m[..., None]).sum(-1)) + m
-    correct = torch.where(col == lab[..., None], logits,
-                          torch.zeros_like(logits)).sum(-1)
+    if split is not None:                        # AR(max) over vocab shards
+        m = sharding.all_reduce_max(m.detach(), split)
+    se = sharding.reduce_from(torch.exp(logits - m[..., None]).sum(-1),
+                              split)             # AR(sum)
+    z = torch.log(se) + m
+    correct = sharding.reduce_from(torch.where(
+        col == lab[..., None], logits, torch.zeros_like(logits)).sum(-1),
+        split)                                   # AR(sum)
     return ((z - correct) * msk).sum(), (z.square() * msk).sum()
 
 
 def chunked_xent(hidden: torch.Tensor, head_w: torch.Tensor,
                  labels: torch.Tensor, mask: torch.Tensor, *, vocab: int,
-                 chunk: int, z_loss_coef: float = 0.0):
-    """hidden: (B, T, E); head_w: (E, Vp); labels/mask: (B, T).
+                 chunk: int, z_loss_coef: float = 0.0, split=None):
+    """hidden: (B, T, E); head_w: (E, Vp), or with ``split`` (a
+    :class:`~repro_torch.core.sharding.Split` of the vocab) this rank's
+    columns of it; labels/mask: (B, T).
 
     Returns (sum_nll, z_loss_coef·sum_z_loss, token_count), as
     ``repro.models.lm.chunked_xent``.  Sequence-chunked, each chunk
     checkpointed, so one (B, chunk, Vp) f32 logits block is the only live
-    logits tensor.
+    logits tensor.  Vocab-parallel with ``split``: three all-reduces per
+    chunk (the max, detached; the sum of exponentials; the target logit),
+    and the hidden's gradient summed over the split's group.
     """
     B, T, _ = hidden.shape
     chunk = min(chunk, T)
     mask = mask.float()
+    hidden = sharding.copy_to(hidden, split)
     s_nll = s_zl = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for t0 in range(0, T, chunk):
         nll, zl = torch.utils.checkpoint.checkpoint(
             _chunk_sums, hidden[:, t0:t0 + chunk], head_w,
-            labels[:, t0:t0 + chunk], mask[:, t0:t0 + chunk], vocab,
+            labels[:, t0:t0 + chunk], mask[:, t0:t0 + chunk], vocab, split,
             use_reentrant=False)
         s_nll, s_zl = s_nll + nll, s_zl + zl
     return s_nll, z_loss_coef * s_zl, mask.sum()
@@ -150,18 +166,24 @@ def chunked_xent(hidden: torch.Tensor, head_w: torch.Tensor,
 
 def fused_xent(hidden: torch.Tensor, head_w: torch.Tensor,
                labels: torch.Tensor, mask: torch.Tensor, *, vocab: int,
-               z_loss_coef: float = 0.0):
+               z_loss_coef: float = 0.0, split=None):
     """The fused-kernel twin of :func:`chunked_xent` (same contract).
 
     The forward kernel never writes a logits tensor; nll and lse come back
     together, so the z-loss term differentiates through the same
     chunk-by-chunk backward (:func:`repro_torch.kernels.xent.ops.
-    xent_with_lse`).
+    xent_with_lse`; with ``split``, :func:`~repro_torch.kernels.xent.ops.
+    xent_vocab_shard` on this rank's columns).
     """
     B, T, E = hidden.shape
     m2 = mask.reshape(B * T).float()
-    nll, lse = xent_with_lse(hidden.reshape(B * T, E), head_w,
-                             labels.reshape(B * T), vocab)
+    if split is None:
+        nll, lse = xent_with_lse(hidden.reshape(B * T, E), head_w,
+                                 labels.reshape(B * T), vocab)
+    else:
+        nll, lse = xent_vocab_shard(
+            hidden.reshape(B * T, E), head_w, labels.reshape(B * T),
+            split.index * head_w.shape[1], vocab, split.group)
     s_nll = (nll * m2).sum()
     s_zl = (lse.square() * m2).sum()
     return s_nll, z_loss_coef * s_zl, m2.sum()
@@ -174,12 +196,20 @@ def param_count(params: dict) -> int:
 
 class Model:
     """Functional model bundle for one LMCfg on one device (``None`` means
-    the card; see :func:`repro_torch.device.resolve_device`)."""
+    the card; see :func:`repro_torch.device.resolve_device`).
+    ``xent_impl``: the loss head, ``"chunked"`` or ``"fused"`` (the
+    reference's ``"ref"`` and ``"pallas"``); ``None`` picks by device."""
 
-    def __init__(self, cfg: LMCfg, device=None):
+    def __init__(self, cfg: LMCfg, device=None, *,
+                 xent_impl: str | None = None):
+        if xent_impl not in (None, "chunked", "fused"):
+            raise ValueError(f"xent_impl must be chunked or fused, got "
+                             f"{xent_impl!r}")
         self.cfg = cfg
+        self.xent_impl = xent_impl
         self.device = resolve_device(device)
         self.stack = build_stack_cfg(cfg)
+        self._shapes = None
 
     # ---- params ----
     def init(self, seed: int) -> dict:
@@ -202,7 +232,19 @@ class Model:
         """The parameter tree as ``meta`` tensors: every leaf's shape and
         dtype, nothing allocated (the reference's ``jax.eval_shape`` of
         ``init``)."""
-        return Model(self.cfg, "meta").init(0)
+        if self._shapes is None:
+            self._shapes = Model(self.cfg, "meta").init(0)
+        return self._shapes
+
+    def axes(self) -> dict:
+        """Each parameter leaf's logical dims (the reference's
+        ``Model.axes``), the tree the sharding rules map to specs."""
+        a = {"embed": layers.axes_embedding(),
+             "final_norm": layers.axes_rmsnorm(),
+             "blocks": tfm.axes_stack(self.stack)}
+        if not self.cfg.tie_embeddings:
+            a["head"] = layers.axes_lm_head()
+        return a
 
     def graph(self, batch: int, seq: int, *, act_dtype_bytes: int = 2,
               param_dtype_bytes: int = 4) -> ModelGraph:
@@ -245,16 +287,29 @@ class Model:
         masked token count; the head cast to the activation dtype.  The
         loss head is :func:`fused_xent` on the card and :func:`chunked_xent`
         on the CPU.  Only the dense family trains so far (the SSD kernel
-        is forward only)."""
+        is forward only).
+
+        Under sharding rules ``params`` are this rank's blocks; under
+        ZeRO-3 the leaves outside the stack are gathered over the data
+        axes here, the stack's repeat by repeat in
+        :func:`~repro_torch.models.transformer.apply_stack`."""
         cfg = self.cfg
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"training the {cfg.family!r} family is not ported yet")
+        specs = sharding.fsdp_specs(self)
+        if specs is not None:
+            top = [k for k in params if k != "blocks"]
+            params = dict(params, **sharding.gather_fsdp(
+                {k: params[k] for k in top}, {k: specs[k] for k in top},
+                sharding.current_rules()))
         tokens = batch["tokens"].long()
         B, S = tokens.shape
-        x = layers.embed(params["embed"], tokens).to(cfg.adtype)
+        x = layers.embed(params["embed"], tokens,
+                         cfg.padded_vocab).to(cfg.adtype)
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        x, aux = tfm.apply_stack(params["blocks"], x, positions, self.stack)
+        x, aux = tfm.apply_stack(params["blocks"], x, positions, self.stack,
+                                 None if specs is None else specs["blocks"])
         mask = torch.ones((B, S - 1), dtype=torch.float32, device=x.device)
         if "loss_mask" in batch:
             mask = mask * batch["loss_mask"][:, 1:]
@@ -270,19 +325,26 @@ class Model:
         """(Σ nll, z_loss_coef·Σ lse², Σ mask) of next-token prediction
         from the stack's output ``x`` (B, S, E): the final norm, the head
         cast to the activation dtype, and the loss head chosen by device
-        (:func:`fused_xent` on the card, :func:`chunked_xent` on the CPU).
-        ``mask`` (B, S − 1) weights the labels ``tokens[:, 1:]``.  Reads
+        (:func:`fused_xent` on the card, :func:`chunked_xent` on the CPU)
+        unless ``xent_impl`` picks one.  ``mask`` (B, S − 1) weights the
+        labels ``tokens[:, 1:]``; the head is vocab-parallel where the
+        rules split the vocab.  Reads
         only ``final_norm`` and the head (``embed`` when tied) of
         ``params``, so a pipeline's last stage calls it too."""
         cfg = self.cfg
         x = layers.rmsnorm(params["final_norm"], x)
         head_w = self._head_w(params).to(cfg.adtype)
         labels = tokens[:, 1:]
-        if x.device.type == "cuda":
+        split = sharding.split_of("vocab", cfg.padded_vocab)
+        impl = self.xent_impl or ("fused" if x.device.type == "cuda"
+                                  else "chunked")
+        if impl == "fused":
             return fused_xent(x[:, :-1], head_w, labels, mask,
-                              vocab=cfg.vocab, z_loss_coef=cfg.z_loss_coef)
+                              vocab=cfg.vocab, z_loss_coef=cfg.z_loss_coef,
+                              split=split)
         return chunked_xent(x[:, :-1], head_w, labels, mask, vocab=cfg.vocab,
-                            chunk=cfg.loss_chunk, z_loss_coef=cfg.z_loss_coef)
+                            chunk=cfg.loss_chunk, z_loss_coef=cfg.z_loss_coef,
+                            split=split)
 
     # ---- serving ----
     def prefill(self, params: dict, batch: dict, gen_budget: int = 64,

@@ -67,6 +67,21 @@ def init_ssd(gen, cfg: SSDCfg, dtype, device, lead: tuple = ()) -> dict:
     }
 
 
+def axes_ssd() -> dict:
+    """Each leaf's logical dims, the reference's ``axes_ssd``."""
+    return {"wz": ("embed", "ssm_heads", None),
+            "wx": ("embed", "ssm_heads", None),
+            "wB": ("embed", None, "state"),
+            "wC": ("embed", None, "state"),
+            "wdt": ("embed", "ssm_heads"),
+            "dt_bias": ("ssm_heads",),
+            "A_log": ("ssm_heads",),
+            "D_skip": ("ssm_heads",),
+            "conv_x": ("ssm_heads", None, None),
+            "norm_scale": ("ssm_heads", None),
+            "wo": ("ssm_heads", None, "embed")}
+
+
 def _causal_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv. x: (B, S, H, P), kernel: (H, P, W)."""
     W = kernel.shape[-1]

@@ -7,6 +7,11 @@ The reference's ``lax.scan`` over repeats is a Python loop here, and its
 Each block: a pre-norm mixer (attention | SSD) and, unless ``mlp`` is
 ``"none"``, a pre-norm gated MLP, with residual connections.  Ported
 patterns so far: dense (attention + MLP) and mamba2 (SSD, no MLP).
+
+Under ZeRO-3 (:func:`repro_torch.core.sharding.fsdp_specs`) each repeat's
+slices of the parameters are gathered over the data axes inside its
+checkpointed region, so the recompute gathers again and the backward
+reduce-scatters, as GSPMD's scan does; the whole tree is never gathered.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.core import sharding
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers, mamba2
 from repro_torch.models.attention import AttnCfg
@@ -81,6 +87,27 @@ def init_stack(gen, stack: StackCfg, dtype, device) -> dict:
             for i, bcfg in enumerate(stack.pattern)}
 
 
+def axes_block(cfg: BlockCfg) -> dict:
+    a = {"norm1": layers.axes_rmsnorm()}
+    if cfg.mixer == "attn":
+        a["attn"] = attn_mod.axes_attention()
+    else:
+        a["ssd"] = mamba2.axes_ssd()
+    if cfg.mlp != "none":
+        a["norm2"] = layers.axes_rmsnorm()
+        a["mlp"] = layers.axes_mlp()
+    return a
+
+
+def axes_stack(stack: StackCfg) -> dict:
+    """Each leaf's logical dims, ``layers`` first (the stacked repeats)."""
+    def lead(tree):
+        return {k: lead(v) if isinstance(v, dict) else ("layers",) + v
+                for k, v in tree.items()}
+    return {f"p{i}": lead(axes_block(bcfg))
+            for i, bcfg in enumerate(stack.pattern)}
+
+
 # ---------------------------------------------------------------------------
 # the stack: training forward and prefill
 # ---------------------------------------------------------------------------
@@ -113,7 +140,8 @@ def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
             out, state = out
     x = x + out
     if cfg.mlp != "none":
-        x = x + layers.mlp(params["mlp"], layers.rmsnorm(params["norm2"], x))
+        x = x + layers.mlp(params["mlp"], layers.rmsnorm(params["norm2"], x),
+                           cfg.d_ff)
     return x, _zero_aux(x.device), state
 
 
@@ -144,16 +172,25 @@ def _remat_wrap(fn, mode: str):
 
 
 def apply_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
-                stack: StackCfg):
+                stack: StackCfg, specs: dict | None = None):
     """x: (B, S, E) → (x', summed aux).  One checkpoint per pattern
-    repeat under ``stack.remat``."""
+    repeat under ``stack.remat``.  ``specs`` (ZeRO-3: the stacked leaves'
+    specs) gathers each repeat's slices inside its checkpoint."""
+    rules = sharding.current_rules()
 
     def rep_body(x, rep_params):
-        aux = _zero_aux(x.device)
-        for i, bcfg in enumerate(stack.pattern):
-            x, a, _ = apply_block(rep_params[f"p{i}"], x, positions, bcfg,
-                                  bwd_remat=stack.attn_bwd_remat)
-            aux = {k: aux[k] + a[k] for k in aux}
+        # the rules again: a checkpoint's recompute runs in the backward,
+        # on the autograd engine's device thread on the card, which does
+        # not see this thread's rules
+        with sharding.use_rules(rules):
+            if specs is not None:
+                rep_params = sharding.gather_fsdp(rep_params, specs, rules,
+                                                  lead=1)
+            aux = _zero_aux(x.device)
+            for i, bcfg in enumerate(stack.pattern):
+                x, a, _ = apply_block(rep_params[f"p{i}"], x, positions,
+                                      bcfg, bwd_remat=stack.attn_bwd_remat)
+                aux = {k: aux[k] + a[k] for k in aux}
         return x, aux
 
     body = _remat_wrap(rep_body, stack.remat)

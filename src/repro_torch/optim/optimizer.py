@@ -8,8 +8,17 @@
 ``apply`` updates ``params`` and ``state`` in place (under ``no_grad``) and
 returns them, which saves a copy of every parameter and moment per step.
 Where ``grads`` is one part of the model's gradient (a pipeline stage's
-leaves), ``grad_norm`` is the whole gradient's global norm, so every part
-is clipped by the same factor; by default it is the norm of ``grads``.
+leaves, a rank's shards of a split model), ``grad_norm`` is the whole
+gradient's global norm, so every part is clipped by the same factor; by
+default it is the norm of ``grads`` (:func:`sharded_global_norm` sums a
+split model's squares over its shards).
+
+ZeRO-1/2 (AdamW): ``init`` takes the parameters as this rank's slices
+(``Slice.narrow`` of each leaf the plan's optimizer specs shard further),
+so ``mu``/``nu`` are slices; ``apply(..., slices=)`` updates each such
+leaf elementwise on its slice and all-gathers the updated slice into the
+whole parameter over the data axes, so the parameters equal an unsliced
+run's bit for bit.
 The numbers are the reference's: bias corrections with ``t = step + 1``
 and ``lr = sched(step)`` in f32, every update computed in f32 and written
 back in the leaf's dtype, clipping by the global norm first.
@@ -62,6 +71,30 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g.float().square()) for g in leaves))
 
 
+def sharded_global_norm(grads, specs, rules) -> torch.Tensor:
+    """The global norm of a gradient split by ``specs`` (a tree of specs
+    matching ``grads``): each leaf's Σ g² summed over the axes its spec
+    shards, a replicated leaf counted once; the same on every rank.  The
+    squares are summed in f64, so the f32 norm does not depend on how the
+    leaves are cut (ZeRO-3's data shards clip as ZeRO-0's whole leaves
+    do)."""
+    from repro_torch.core import sharding
+
+    by_axes: dict = {}
+    for g, spec in zip(flatten(grads)[1], flatten(specs)[1]):
+        axes = tuple(sorted({a for p in spec for a in sharding._axes(p)}))
+        sq = torch.sum(g.float().square(), dtype=torch.float64)
+        by_axes[axes] = by_axes[axes] + sq if axes in by_axes else sq
+    total = None
+    for axes in sorted(by_axes):
+        sq = by_axes[axes]
+        for a in axes:
+            if rules.shape[a] > 1:
+                sharding.all_reduce_(sq, rules.group(a))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total).float()
+
+
 def clip_by_global_norm(grads, max_norm: float, norm=None):
     """(grads scaled by min(1, max_norm / norm), norm); ``norm`` defaults
     to :func:`global_norm` of ``grads``."""
@@ -74,9 +107,12 @@ def clip_by_global_norm(grads, max_norm: float, norm=None):
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable
-    # (grads, state, params, step, *, grad_norm=None) -> (params, state)
+    # (grads, state, params, step, *, grad_norm=None, slices=None)
+    #   -> (params, state)
     apply: Callable
     name: str = "opt"
+    # param axes -> the state's axes tree, for the planner's ZeRO specs
+    state_axes: Callable | None = None
 
 
 def _pairs(*trees) -> list:
@@ -96,26 +132,35 @@ def adamw(lr: Schedule | float = 3e-4, b1: float = 0.9, b2: float = 0.95,
         return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
 
     @torch.no_grad()
-    def apply(grads, state, params, step, *, grad_norm=None):
+    def apply(grads, state, params, step, *, grad_norm=None, slices=None):
         if max_grad_norm:
             grads, _ = clip_by_global_norm(grads, max_grad_norm, grad_norm)
         t = np.float32(step) + np.float32(1)
         lr_t = sched(step)
         c1 = float(np.float32(1) - np.float32(b1) ** t)
         c2 = float(np.float32(1) - np.float32(b2) ** t)
-        for g, mu, nu, p in _pairs(grads, state["mu"], state["nu"], params):
-            g = g.float()
+        sl = (flatten(slices)[1] if slices is not None
+              else [None] * len(flatten(params)[1]))
+        for (g, mu, nu, p), cut in zip(
+                _pairs(grads, state["mu"], state["nu"], params), sl):
+            mine = p if cut is None else cut.narrow(p)
+            g = (g if cut is None else cut.narrow(g)).float()
             mu_n = b1 * mu.float() + (1 - b1) * g
             nu_n = b2 * nu.float() + (1 - b2) * g * g
             u = (mu_n / c1) / (torch.sqrt(nu_n / c2) + eps)
             if weight_decay:
-                u = u + weight_decay * p.float()
-            p.copy_(p.float() - lr_t * u)
+                u = u + weight_decay * mine.float()
+            new = mine.float() - lr_t * u
+            p.copy_(new if cut is None else cut.gather(new.to(p.dtype)))
             mu.copy_(mu_n)
             nu.copy_(nu_n)
         return params, state
 
-    return Optimizer(init=init, apply=apply, name="adamw")
+    def state_axes(param_axes):
+        return {"mu": param_axes, "nu": param_axes}
+
+    return Optimizer(init=init, apply=apply, name="adamw",
+                     state_axes=state_axes)
 
 
 def adafactor(lr: Schedule | float = 3e-4, decay: float = 0.8,
@@ -136,7 +181,10 @@ def adafactor(lr: Schedule | float = 3e-4, decay: float = 0.8,
         return {"v": tree_map(one, params)}
 
     @torch.no_grad()
-    def apply(grads, state, params, step, *, grad_norm=None):
+    def apply(grads, state, params, step, *, grad_norm=None, slices=None):
+        if slices is not None:
+            raise NotImplementedError("ZeRO slices of adafactor's factored "
+                                      "moments are not ported")
         if max_grad_norm:
             grads, _ = clip_by_global_norm(grads, max_grad_norm, grad_norm)
         t = np.float32(step) + np.float32(1)
@@ -164,7 +212,15 @@ def adafactor(lr: Schedule | float = 3e-4, decay: float = 0.8,
             p.copy_(p.float() - lr_t * u)
         return params, state
 
-    return Optimizer(init=init, apply=apply, name="adafactor")
+    def state_axes(param_axes):
+        def one(names):
+            if len(names) >= 2:
+                return {"vr": names[:-1], "vc": names[:-2] + names[-1:]}
+            return {"v": names}
+        return {"v": tree_map(one, param_axes)}
+
+    return Optimizer(init=init, apply=apply, name="adafactor",
+                     state_axes=state_axes)
 
 
 def _v_leaves(tree) -> list:
@@ -181,12 +237,13 @@ def sgd(lr: float = 1e-2) -> Optimizer:
         return {}
 
     @torch.no_grad()
-    def apply(grads, state, params, step, *, grad_norm=None):
+    def apply(grads, state, params, step, *, grad_norm=None, slices=None):
         for g, p in _pairs(grads, params):
             p.copy_(p.float() - lr * g.float())
         return params, state
 
-    return Optimizer(init=init, apply=apply, name="sgd")
+    return Optimizer(init=init, apply=apply, name="sgd",
+                     state_axes=lambda param_axes: {})
 
 
 def get_optimizer(name: str, **kw) -> Optimizer:

@@ -12,7 +12,10 @@ bit, and one launch per wrapper call in bf16 and f32 (each dtype has its
 kernel: bf16 the tensor cores, f32 the FMA pipes); for the loss head,
 ragged token counts, a padded vocab (vocab < Vp), a label in the last real
 column, the training step's full head (T = 8188, E = 2048, V = 32000) and
-a second launch equal bit for bit; for paged decode, one slot filling
+a second launch equal bit for bit, and the vocab-shard loss head
+(``xent_vocab_shard``) on a shard at an offset, labels on both sides of
+it, on the card against the CPU and against the plain forward on the
+shard's columns; for paged decode, one slot filling
 the block table at B=1, a slot of one page and a second launch equal bit
 for bit; for the SSD scan,
 chunks from 8 to 256 (a ragged 40 and mamba2's prefill shape among them),
@@ -394,6 +397,58 @@ def test_xent_with_lse_on_card_matches_cpu(cuda, dtype, monkeypatch):
             (hh, ww))
     for a, b in zip(grads["cuda"], grads["cpu"]):
         close(a.float().cpu(), b.float(), TOLS[dtype].grad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_xent_vocab_shard_on_card_matches_plain(cuda, dtype, tmp_path,
+                                                monkeypatch):
+    """The vocab-shard Function over a world of one (gloo, which carries
+    the card's tensors through host memory): the shard ``[c0, c0 + Vs)``
+    of a padded head with labels below, inside and past it.  On the card
+    against the CPU (the plain kernels), values and gradients, several
+    backward chunks, one launch of each kernel per chunk; and the shard's
+    nll against the plain forward on its columns: the target logit where
+    the shard holds the label, its lse elsewhere."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(xent, "BWD_TILE_BYTES", 300 * 256 * 4)
+    T, E, V, vocab, c0, Vs = 300, 64, 2048, 2000, 1024, 1024
+    h, w, labels = _xent_inputs(T, E, V, vocab, dtype, "cpu", seed=5)
+    labels[:3] = torch.tensor([5, 1500, vocab - 1])   # below, in, last
+    ws = w[:, c0:c0 + Vs].contiguous()
+    rng = np.random.default_rng(6)
+    g = [torch.tensor(rng.standard_normal(T), dtype=torch.float32)
+         for _ in range(2)]
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        out, grads = {}, {}
+        for dev in ("cpu", "cuda"):
+            hh = h.to(dev).requires_grad_(True)
+            ww = ws.to(dev).requires_grad_(True)
+            n0 = (xent.xent_fwd.launches, xent.xent_bwd.launches)
+            nll, lse = xent_ops.xent_vocab_shard(hh, ww, labels.to(dev), c0,
+                                                 vocab, None)
+            grads[dev] = torch.autograd.grad(
+                (nll * g[0].to(dev)).sum() + (lse * g[1].to(dev)).sum(),
+                (hh, ww))
+            out[dev] = (nll.cpu(), lse.cpu())
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                chunks = -(-Vs // xent.bwd_chunk(T, Vs))
+                assert (xent.xent_fwd.launches - n0[0],
+                        xent.xent_bwd.launches - n0[1]) == (1, chunks)
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(out["cuda"], out["cpu"]):
+        close(a, b, TOLS[dtype].fwd)
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        close(a.float().cpu(), b.float(), TOLS[dtype].grad)
+    nll_p, lse_p = xent.xent_fwd_plain(h, ws, labels - c0, vocab - c0)
+    own = (labels >= c0) & (labels < c0 + Vs)
+    close(out["cuda"][1], lse_p, TOLS[dtype].fwd)
+    close(out["cuda"][0], torch.where(own, nll_p, lse_p), TOLS[dtype].fwd)
 
 
 def _ssd_inputs(B, S, H, P, G, N, dtype, device, seed=0):

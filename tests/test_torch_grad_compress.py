@@ -390,11 +390,10 @@ def _rank_main(rank: int, world: int, store: str, ref_path: str,
         meta[name] = strat.describe()
     cfg = get_config(ARCH, smoke=True)
     model = Model(cfg, "cpu")
-    try:
-        planner.compile_plan(model, port_mesh.parse_mesh(
-            "2x2", device_type="cpu"))
-    except NotImplementedError as e:
-        meta["tp_refused"] = str(e)
+    # a model axis compiles: data 2 x model 2 is split×2 in each replica
+    tp_plan = planner.compile_plan(model, port_mesh.parse_mesh(
+        "2x2", device_type="cpu"))
+    meta["tp_plan"] = [tp_plan.strategy.describe(), tp_plan.sharded]
     # compressed_psum, 3 error-feedback rounds, two layouts
     for layout, shape, names in (("pod4", (4,), ("pod",)),
                                  ("pod2x2", (2, 2), ("pod", "data"))):
@@ -638,7 +637,7 @@ def test_compression_of_the_same_gradients_matches_reference(reference,
 def test_dp_refusals(port4, reference):
     ref = reference[0]
     for _, meta in port4:
-        assert "later slice" in meta["tp_refused"]
+        assert meta["tp_plan"] == ["replica×2{split×2}", True]
         assert "does not divide" in meta["batch_refused"]
         np.testing.assert_allclose(meta["masked_loss"], ref["masked_loss"],
                                    atol=TOLS["float32"].fwd,
@@ -651,10 +650,11 @@ def test_dp_refusals(port4, reference):
         assert planner.compile_plan(None, None, strat).strategy == strat
     with pytest.raises(ValueError, match="unknown schedule"):
         planner.compile_plan(None, None, StrategySpec(schedule="zb"))
-    with pytest.raises(NotImplementedError, match="model"):
-        planner.compile_plan(None, None, StrategySpec(tp=2))
-    with pytest.raises(NotImplementedError, match="ZeRO"):
-        planner.compile_plan(None, None, StrategySpec(zero=3))
+    # a model axis and ZeRO compile; beside a pipeline they still raise
+    for strat in (StrategySpec(tp=2), StrategySpec(dp=2, zero=3)):
+        assert planner.compile_plan(None, None, strat).strategy == strat
+    with pytest.raises(NotImplementedError, match="pipeline with a model"):
+        planner.compile_plan(None, None, StrategySpec(tp=2, pp=2))
     # a caller's placement passes through, as in the reference
     assert planner.compile_plan(None, None, StrategySpec(pp=2),
                                 placement=()).placement == ()
@@ -734,8 +734,10 @@ def test_train_driver_compressed_pod_of_one_matches_reference_and_resumes(
 
 def test_train_driver_refuses_later_slices(tmp_path):
     base = ["--smoke", "--device", "cpu", "--ckpt-dir", str(tmp_path)]
-    for extra, words in ((["--mesh", "2x2"], "model dim of 2"),
-                         (["--mesh", "1x2x2"], "tensor parallelism"),
+    # a model axis trains under torchrun; a world of one cannot hold it
+    for extra, words in ((["--mesh", "2x2"], "needs 4 ranks"),
+                         (["--mesh", "1x2x2"], "needs 4 ranks: run it "
+                                               "under torchrun"),
                          (["--pp", "2"], "needs a device count divisible "
                                          "by the stage count")):
         with pytest.raises(SystemExit, match=words):

@@ -593,15 +593,23 @@ def test_train_driver_auto_chooses_what_the_reference_chooses(tmp_path,
 
 def test_train_driver_auto_refuses_strategies_it_cannot_run(tmp_path):
     """The search over 4 devices picks a pipeline for the smoke model at
-    batch 4 x 32, which the driver trains, and a tensor split at batch 2,
-    which it refuses, naming the slice, never training another strategy."""
+    batch 4 x 32, which the driver trains; at batch 2 it picks a tensor
+    split inside a pipeline (``split×2 pipeline×2(µb=2)``), which the
+    driver refuses, naming the slice, never training another strategy,
+    as it refuses tinyllama's choice over 4 V100s.  A tensor split alone
+    it trains (tests/test_torch_tp.py)."""
     g4 = lm.model_graph(get_config("tinyllama-1.1b", smoke=True), 4, 32)
     chosen = auto.auto_parallel(g4, 4)
     assert chosen.pp == 2
     assert train.auto_strategy(g4, 4, cm.H100_SXM) == chosen
     g2 = lm.model_graph(get_config("tinyllama-1.1b", smoke=True), 2, 32)
-    with pytest.raises(SystemExit, match="model axis of 2"):
-        train.auto_strategy(g2, 4, cm.H100_SXM)
+    assert auto.auto_parallel(g2, 4).describe() == "split×2 pipeline×2(µb=2)"
+    full = lm.model_graph(get_config("tinyllama-1.1b"), 4, 2048)
+    assert auto.auto_parallel(full, 4, cm.V100_PAPER).describe() == \
+        "split×2 pipeline×2(µb=4)"
+    for g, hw in ((g2, cm.H100_SXM), (full, cm.V100_PAPER)):
+        with pytest.raises(SystemExit, match="pipeline with a model axis"):
+            train.auto_strategy(g, 4, hw)
     with pytest.raises(SystemExit, match="no feasible strategy"):
         train.auto_strategy(
             lm.model_graph(get_config("mamba2-1.3b"), 512, 4096), 1,

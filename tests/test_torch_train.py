@@ -770,8 +770,9 @@ def test_train_driver_resumes_where_it_stopped(tmp_path, reference_runs):
 
 def test_train_driver_refuses_meshed_flags_and_ragged_micro_batches(
         tmp_path):
-    # the meshed flags of later slices: refused, with the slice named
-    with pytest.raises(SystemExit, match="later slice"):
+    # a meshed flag a world of one cannot hold: refused, naming torchrun
+    with pytest.raises(SystemExit, match="needs 2 ranks: run it under "
+                                         "torchrun"):
         train.main(["--smoke", "--device", "cpu", "--mesh", "1x2",
                     "--ckpt-dir", str(tmp_path)])
     # a pipeline needs a world the stage count divides
