@@ -110,7 +110,10 @@ and the script exits non-zero without printing a result:
     unpipelined ``train_step_fn(micro_batches=4)`` here, losses within
     1e-4 + 1e-4|x|; each rank's launch counts, audit, peak memory under
     both schedules (1f1b's stage 0 no higher than gpipe's) and step times
-    (two processes time-slice one card: no throughput);
+    (two processes time-slice one card: no throughput); the allocator's
+    trace of each schedule's first walk
+    (``torch.cuda.memory._record_memory_history``) gives the blocks live
+    at the walk's peak, by the port's line that allocated them;
 21. heterogeneous placement, the pipeline: ``compile_plan`` over one H100
     beside one V100 (the cost model's tables; both stages run on this
     card) with ``StrategySpec(pp=2, micro_batches=4, schedule="1f1b")``
@@ -153,6 +156,22 @@ and the script exits non-zero without printing a result:
     1e-4|x| in losses and parameters, every checkpoint restored into the
     ranks' blocks bit for bit; each rank's peaks beside the state it
     holds, step and gloo seconds and launches;
+25. Whale's nested hybrid, the plan ``--auto --hw v100`` picks for
+    tinyllama at 4 x 2048 on four devices (``auto_parallel`` on the
+    paper's V100 table must pick it; its price there and on the H100
+    table printed as predictions): ``compile_plan(StrategySpec(tp=2,
+    pp=2, micro_batches=4))`` on stage 2 x model 2, four ranks on
+    ``cuda:0`` over gloo, full width and depth, remat full, AdamW at a
+    constant 3e-4; one 1f1b step, then 3 steps of the planned gpipe, held
+    against phase 20's unpipelined losses (step 0 within 2e-2 + 2e-2|x|,
+    steps 1-2 within 2e-2) and every step-0 gradient leaf against the
+    unpipelined, unsharded gradient within 5e-2 of the leaf's max; then
+    the same at 2 layers in f32, stage layers (1, 1), losses within 1e-4 +
+    1e-4|x| and gradients within 2e-4, its checkpoint gathered in the
+    reference's padded layout and restored into every rank's blocks bit
+    for bit; each rank's launches, audit, peaks of the walk and the step
+    beside the state it holds, step and gloo seconds, and 1f1b's stage-0
+    walk peak beside gpipe's.
 
 then the kernel table as one JSON line, the card line again, and the last
 line ``{"ok": true, "device": {...}}``.  Needs no network; needs ``nvcc``
@@ -2033,6 +2052,41 @@ def hetero_spec():
                         DeviceGroup("v100", V100_PAPER, 1)))
 
 
+def peak_blocks(snapshot: dict, skip: int = 0, top: int = 8) -> dict:
+    """The allocator trace of ``torch.cuda.memory._snapshot()`` replayed on
+    device 0: its allocations and completed frees in order, past its first
+    ``skip`` entries (those before this recording began).  Returns
+    ``{"peak": the largest sum of bytes allocated since then and still
+    live, "sites": [[bytes, blocks, site], …] of the blocks live at that
+    moment, largest first}``, each block named by the innermost frame of
+    the port's code that allocated it, or where no Python frame did (the
+    autograd engine's device thread) by its size."""
+    trace = snapshot["device_traces"][0][skip:]
+    live, cur, peak, at_peak = {}, 0, 0, {}
+    for ev in trace:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev
+            cur += ev["size"]
+            if cur > peak:
+                peak, at_peak = cur, dict(live)
+        elif ev["action"] == "free_completed" and ev["addr"] in live:
+            cur -= live.pop(ev["addr"])["size"]
+    sites: dict = {}
+    for ev in at_peak.values():
+        site = f"no Python frame, {ev['size'] / 2**20:.1f} MiB blocks"
+        for fr in ev.get("frames", []):
+            name = fr.get("filename", "")
+            if "repro_torch" in name:
+                site = (f"{name.split('repro_torch/')[-1]}:{fr['line']} "
+                        f"{fr['name']}")
+                break
+        got = sites.setdefault(site, [0, 0, site])
+        got[0] += ev["size"]
+        got[1] += 1
+    return {"peak": peak,
+            "sites": sorted(sites.values(), reverse=True)[:top]}
+
+
 def _pipeline_rank(rank: int, store: str, out_dir: str,
                    hetero: bool = False) -> None:
     """One rank of phase 20 on ``cuda:0``: a gloo world of two over a
@@ -2060,13 +2114,18 @@ def _pipeline_rank(rank: int, store: str, out_dir: str,
     dist.init_process_group("gloo", store=dist.FileStore(store, 2),
                             rank=rank, world_size=2)
     kernels = kernel_wrappers()
-    walk, norms = [], []
+    walk, norms, traced = [], [], {}
 
     def apply_after_walk(real_apply):
         def apply(*args, grad_norm, **kw):
             # the step's peak so far: its forward and backward walk
             walk.append(torch.cuda.max_memory_allocated())
             norms.append(float(grad_norm))
+            if "on" in traced:          # the walk's allocator trace ends
+                traced["blocks"] = peak_blocks(torch.cuda.memory._snapshot(),
+                                               traced["skip"])
+                torch.cuda.memory._record_memory_history(enabled=None)
+                del traced["on"]
             return real_apply(*args, grad_norm=grad_norm, **kw)
         return apply
 
@@ -2116,6 +2175,14 @@ def _pipeline_rank(rank: int, store: str, out_dir: str,
                 toks = torch.as_tensor(
                     np.asarray(data.next_batch()["tokens"])).cuda()
                 torch.cuda.reset_peak_memory_stats()
+                if i == 0 and not hetero:
+                    # which blocks make the walk's peak: the allocator's
+                    # trace of step 0's walk (python frames only)
+                    torch.cuda.memory._record_memory_history(
+                        stacks="python", max_entries=1_000_000)
+                    traced["on"] = True
+                    traced["skip"] = len(
+                        torch.cuda.memory._snapshot()["device_traces"][0])
                 t0 = time.perf_counter()
                 params, state, m = step_fn(params, state, toks, i)
                 torch.cuda.synchronize()
@@ -2126,7 +2193,8 @@ def _pipeline_rank(rank: int, store: str, out_dir: str,
                           "counts": read_counts(kernels),
                           "peak": max(peaks), "walk_peak": max(walk),
                           "norms": list(norms),
-                          "in_flight": m["peak_in_flight"]}
+                          "in_flight": m["peak_in_flight"],
+                          "blocks": traced.pop("blocks", None)}
             del params, state, step_fn
     finally:
         dist.destroy_process_group()
@@ -2233,6 +2301,14 @@ def pipeline_engine(torch) -> tuple:
               f"{r['1f1b']['peak'] / 2**30:.3f} GiB; in flight gpipe "
               f"{r['gpipe']['in_flight']}, 1f1b {r['1f1b']['in_flight']}; "
               f"launches {r['1f1b']['counts']}", flush=True)
+        for sched in ("gpipe", "1f1b"):
+            b = r[sched]["blocks"]
+            print(f"[pipe] stage {s} {sched} step 0: the walk's peak "
+                  f"{b['peak'] / 2**30:.3f} GiB above the state held when "
+                  f"the allocator's trace began; live there, by the port's "
+                  f"allocating line (GiB, blocks): "
+                  + "; ".join(f"{site} {n / 2**30:.3f} ({k})"
+                              for n, k, site in b["sites"]), flush=True)
         if r["1f1b"]["in_flight"] != PP_IN_FLIGHT["1f1b"][s] or \
                 r["gpipe"]["in_flight"] != PP_IN_FLIGHT["gpipe"][s]:
             raise AssertionError(f"stage {s}: buffer audit {r}")
@@ -3046,6 +3122,349 @@ def train_hybrid_zero(torch) -> dict:
                    for z in map(str, ZERO_STAGES)) for k in exp}
 
 
+# ---------------------------------------------------------------------------
+# phase 25: Whale's nested hybrid, the plan --auto picks on the paper's
+# V100 cluster
+# ---------------------------------------------------------------------------
+
+NESTED = dict(tp=2, pp=2, micro_batches=PP_MICRO)
+#: phase 25's runs: name -> (layers, activation dtype, stage layers); bf16
+#: at full depth is the path, f32 at 2 layers holds it to f32's limits
+NESTED_RUNS = {"bf16": (22, "bfloat16", (11, 11)),
+               "f32": (2, "float32", (1, 1))}
+NESTED_STEPS = 3
+NESTED_F32_LIMIT = 1e-4
+
+
+def _nested_cfg(name: str):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    layers, dtype, _ = NESTED_RUNS[name]
+    return dataclasses.replace(get_config(ARCH), n_layers=layers,
+                               dtype=dtype)
+
+
+def _nested_rank(rank: int, store: str, out_dir: str, ref_dir: str) -> None:
+    """One rank of phase 25 on ``cuda:0``: a gloo world of four, the plan
+    ``StrategySpec(tp=2, pp=2, micro_batches=4)`` on stage 2 x data 1 x
+    model 2.  For each of NESTED_RUNS from seed 0 on the driver's stream
+    of TRAIN_BATCH x TRAIN_SEQ batches (AdamW at a constant PP_LR): the
+    bf16 run one step under 1f1b, then NESTED_STEPS under the planned
+    gpipe from the same start; the f32 run NESTED_STEPS of gpipe, then its
+    checkpoint gathered in the reference's padded layout (rank 0 writes)
+    and restored into every rank's blocks.  Each run's losses, step and
+    gloo seconds, peaks (of the walk and the step), in-flight peak, launch
+    counts, and its step-0 gradient blocks against the same blocks of the
+    unpipelined, unsharded gradient in ``ref_dir/<run>.pt`` (max |diff|
+    and max |ref| per leaf)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.core import pipeline as pipe
+    from repro_torch.core import sharding
+    from repro_torch.core.cost_model import StrategySpec
+    from repro_torch.core.planner import compile_plan, mesh_for_strategy
+    from repro_torch.data.pipeline import DataCfg, TokenPipeline
+    from repro_torch.models.lm import Model
+    from repro_torch.optim.optimizer import adamw
+    from repro_torch.tree import flatten, tree_map
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 4),
+                            rank=rank, world_size=4)
+    kernels = kernel_wrappers()
+    stats = {"s": 0.0, "n": 0}
+    time_collectives(torch, dist, stats)
+    strat = StrategySpec(**NESTED)
+    out = {}
+    try:
+        mesh = mesh_for_strategy(strat)
+        stage = mesh.get_local_rank("stage")
+        out.update(stage=stage, model=mesh.get_local_rank("model"))
+        for name, (_, _, sl) in NESTED_RUNS.items():
+            plan = compile_plan(Model(_nested_cfg(name)), mesh, strat)
+            if plan.stage_layers() != sl:
+                raise AssertionError(f"stage layers {plan.stage_layers()}")
+            init = plan.init_pipeline_params(0)
+            ref = torch.load(os.path.join(ref_dir, f"{name}.pt"), mmap=True)
+            specs = dict(zip(*flatten(sharding.within_stage(
+                plan.param_specs))))
+            runs = ((("1f1b", 1), ("gpipe", NESTED_STEPS)) if name == "bf16"
+                    else (("gpipe", NESTED_STEPS),))
+            for sched, steps in runs:
+                params = tree_map(torch.clone, init)
+                opt = adamw(lr=PP_LR)
+                state = opt.init(params)
+                held = 4 * (2 * sum(p.numel() for p in flatten(params)[1])
+                            + sum(p.numel() for p in flatten(state)[1]))
+                first, walk = {}, []
+                real_apply = opt.apply
+
+                def apply(grads, *args, real_apply=real_apply, first=first,
+                          walk=walk, **kw):
+                    walk.append(torch.cuda.max_memory_allocated())
+                    if not first:
+                        first.update((k, v.cpu()) for k, v in
+                                     zip(*flatten(grads)))
+                    return real_apply(grads, *args, **kw)
+
+                spied = dataclasses.replace(opt, apply=apply)
+                step_fn = plan.pipeline_train_step_fn(spied, schedule=sched)
+                data = TokenPipeline(DataCfg(
+                    global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                    vocab=plan.model.cfg.vocab, seed=0), host_id=0,
+                    n_hosts=1)
+                torch.cuda.synchronize()
+                reset_counts(kernels)
+                n0 = stats["n"]
+                rec = {"losses": [], "seconds": [], "gloo_s": [],
+                       "peaks": []}
+                for i in range(steps):
+                    toks = plan.batch_slice({"tokens": torch.as_tensor(
+                        np.asarray(data.next_batch()["tokens"]))})["tokens"]
+                    toks = toks.cuda()
+                    torch.cuda.reset_peak_memory_stats()
+                    s0 = stats["s"]
+                    t0 = time.perf_counter()
+                    params, state, m = step_fn(params, state, toks, i)
+                    torch.cuda.synchronize()
+                    rec["seconds"].append(time.perf_counter() - t0)
+                    rec["gloo_s"].append(stats["s"] - s0)
+                    rec["peaks"].append(torch.cuda.max_memory_allocated())
+                    rec["losses"].append(float(m["loss"]))
+                rec.update(counts=read_counts(kernels),
+                           collectives=stats["n"] - n0, walk=walk,
+                           in_flight=m["peak_in_flight"], held=held,
+                           local_params=sum(p.numel() for p in
+                                            flatten(params)[1]))
+                rec["grads"] = {}
+                for path, g in first.items():
+                    w = ref[path]
+                    if path.startswith("blocks/"):
+                        w = pipe._rows(w, stage, sl)
+                    w = sharding.shard_leaf(w, specs[path], plan.rules)
+                    rec["grads"][path] = [float((g.float() - w).abs().max()),
+                                          float(w.abs().max())]
+                out[f"{name}/{sched}"] = rec
+                del first
+            if name == "f32":
+                ck = os.path.join(ref_dir, "ck")
+                ckpt = CheckpointManager(
+                    ck, keep=1, rank=dist.get_rank(), barrier=dist.barrier,
+                    gather=lambda tree, plan=plan, opt=opt:
+                        plan.gather_pipeline_state(tree, opt, sl))
+                st = {"params": params, "opt": state}
+                t0 = time.perf_counter()
+                ckpt.save(NESTED_STEPS, st)
+                out["save_s"] = time.perf_counter() - t0
+                at, back, _ = plan.restore_pipeline_state(ckpt, opt, sl)
+                out["restored"] = at == NESTED_STEPS and all(
+                    torch.equal(a, b) for a, b in zip(flatten(back)[1],
+                                                      flatten(st)[1]))
+                with open(os.path.join(ck, f"step_{NESTED_STEPS:08d}",
+                                       "MANIFEST.json")) as f:
+                    manifest = json.load(f)
+                out["ckpt_shapes"] = dict(zip(manifest["paths"],
+                                              manifest["shapes"]))
+                del back, st
+            del init, ref, params, state, step_fn, plan
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _unpipelined_reference(torch, name: str, path: str) -> list:
+    """The unpipelined, unsharded step of NESTED_RUNS[name] from seed 0 on
+    the same batches: its step-0 gradient (``accumulate`` over PP_MICRO
+    micro-batches) saved to ``path`` on the host; for the f32 run also
+    NESTED_STEPS AdamW steps' losses (the bf16 run's are phase 20's)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core.planner import compile_plan
+    from repro_torch.data.pipeline import DataCfg, TokenPipeline
+    from repro_torch.models.lm import Model
+    from repro_torch.optim.optimizer import adamw
+    from repro_torch.tree import flatten
+
+    model = Model(_nested_cfg(name))
+    params = model.init(0)
+    opt = adamw(lr=PP_LR)
+    state = opt.init(params)
+    first = {}
+    real_apply = opt.apply
+
+    def apply(grads, *args, **kw):
+        if not first:
+            first.update((k, v.cpu()) for k, v in zip(*flatten(grads)))
+        return real_apply(grads, *args, **kw)
+
+    step_fn = compile_plan(model, None).train_step_fn(
+        dataclasses.replace(opt, apply=apply), micro_batches=PP_MICRO)
+    data = TokenPipeline(DataCfg(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                 vocab=model.cfg.vocab, seed=0),
+                         host_id=0, n_hosts=1)
+    losses = []
+    for i in range(1 if name == "bf16" else NESTED_STEPS):
+        batch = {"tokens": torch.as_tensor(
+            np.asarray(data.next_batch()["tokens"])).cuda()}
+        params, state, m = step_fn(params, state, batch, i)
+        losses.append(float(m["loss"]))
+    del params, state
+    torch.save(first, path)
+    return losses
+
+
+def train_nested(torch, unpiped: list) -> dict:
+    """Phase 25: Whale's nested hybrid ``split×2 pipeline×2(µb=4)``, the
+    plan ``auto_parallel`` picks for tinyllama at 4 x 2048 on 4 devices of
+    the paper's V100 table (it must), priced on that table and on
+    ``H100_SXM`` as predictions.  The unpipelined, unsharded references
+    run here first (their step-0 gradients saved for the ranks to read by
+    mmap); then four ranks on ``cuda:0`` over gloo run :func:`_nested_rank`.
+    Printed before anything is held: each rank's launches (the flash
+    kernels on its stage's 11 layers and 16 heads, the xent kernels on its
+    16000 vocab columns at the last stage), buffer audit, peak memory of
+    the walk and of the step beside the state it holds, step and gloo
+    seconds, and 1f1b's stage-0 walk peak beside gpipe's.  Held: bf16,
+    against phase 20's unpipelined losses, the step-0 loss of both
+    schedules within 2e-2 + 2e-2|x| and gpipe's steps 1-2 within
+    TP_LATER_LIMIT, every step-0 gradient leaf within 5e-2 of the leaf's
+    max; f32 at 2 layers, every loss within NESTED_F32_LIMIT +
+    NESTED_F32_LIMIT|x| and each step-0 gradient leaf within 2e-4 of the
+    leaf's max; the ranks' losses equal; each rank's launches those of its
+    stage; the audit; the gathered checkpoint in the reference's padded
+    layout, restored into every rank's blocks bit for bit.  Returns the
+    ranks' summed bf16 launch counts."""
+    from repro_torch.core.auto import auto_parallel
+    from repro_torch.core.cost_model import (H100_SXM, V100_PAPER,
+                                             StrategySpec, step_cost)
+    from repro_torch.models.lm import Model, model_graph
+    from repro_torch.tree import flatten
+
+    cfg = _nested_cfg("bf16")
+    strat = StrategySpec(**NESTED)
+    graph = model_graph(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    picked = auto_parallel(graph, 4, V100_PAPER)
+    print(f"[nested] auto_parallel over 4 x {V100_PAPER.name} at "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: {picked.describe()}", flush=True)
+    if picked != strat:
+        raise AssertionError(f"the search picks {picked}, phase 25 runs "
+                             f"{strat}")
+    for hw in (V100_PAPER, H100_SXM):
+        c = step_cost(graph.workload_meta(), strat, hw)
+        print(f"[nested] step_cost {strat.describe()} on {hw.name} (a "
+              f"prediction, not a reading): {c.total * 1e3:.2f} ms (compute "
+              f"{c.compute * 1e3:.2f}, comm {c.comm * 1e3:.2f}, bubble "
+              f"{c.bubble * 1e3:.2f}; memory {c.mem_bytes / 2**30:.2f} GiB "
+              f"a device)", flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nested_")
+    want = {"bf16": list(unpiped)}
+    try:
+        for name in NESTED_RUNS:
+            got = _unpipelined_reference(torch, name,
+                                         os.path.join(tmp, f"{name}.pt"))
+            if name == "f32":
+                want[name] = got
+            torch.cuda.empty_cache()
+        print(f"[nested] unpipelined, unsharded f32 at 2 layers: losses "
+              f"{want['f32']}; bf16: phase 20's {want['bf16']}", flush=True)
+        ranks = spawn_ranks(_nested_rank, tmp, nprocs=4, timeout=600)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ranks.sort(key=lambda r: (r["stage"], r["model"]))
+    total = sum(v.numel() for v in flatten(Model(cfg, "meta")
+                                           .param_shapes())[1])
+    fails = []
+    for r in ranks:
+        s, k = r["stage"], r["model"]
+        for run in ("bf16/1f1b", "bf16/gpipe", "f32/gpipe"):
+            o = r[run]
+            print(f"[nested] {run} stage {s} model {k}: "
+                  f"{o['local_params']:,} of {total:,} parameters; losses "
+                  f"{o['losses']}, step seconds "
+                  f"{[round(x, 3) for x in o['seconds']]} (host clock; four "
+                  f"processes time-slice one card), gloo seconds "
+                  f"{[round(x, 3) for x in o['gloo_s']]} over "
+                  f"{o['collectives']} collectives (the wire's "
+                  f"point-to-point messages not among them); peak device "
+                  f"memory of each step's walk "
+                  f"{[round(x / 2**30, 3) for x in o['walk']]} GiB, of each "
+                  f"step "
+                  f"{[round(x / 2**30, 3) for x in o['peaks']]} GiB beside "
+                  f"the state it holds (parameters, gradients, AdamW "
+                  f"moments) {o['held'] / 2**30:.3f} GiB; in flight "
+                  f"{o['in_flight']}; launches {o['counts']}", flush=True)
+            sched = run.split("/")[1]
+            if o["in_flight"] != PP_IN_FLIGHT[sched][s]:
+                fails.append(f"{run} stage {s}: in flight {o['in_flight']}")
+            if o["losses"] != ranks[0][run]["losses"]:
+                fails.append(f"{run}: the ranks report different losses")
+            if run.startswith("bf16"):
+                exp = pipeline_expected(
+                    NESTED_RUNS["bf16"][2][s], len(o["losses"]),
+                    cfg.padded_vocab // 2, head=s == 1)
+                if o["counts"] != exp:
+                    fails.append(f"{run} stage {s} model {k}: launches "
+                                 f"{o['counts']}, want {exp}")
+        print(f"[nested] stage {s} model {k}: step 0's walk peaks under "
+              f"1f1b {r['bf16/1f1b']['walk'][0] / 2**30:.3f} GiB beside "
+              f"gpipe's {r['bf16/gpipe']['walk'][0] / 2**30:.3f} GiB",
+              flush=True)
+    for run in ("bf16/1f1b", "bf16/gpipe", "f32/gpipe"):
+        name = run.split("/")[0]
+        got, ref = ranks[0][run]["losses"], want[name]
+        diffs = [abs(a - b) for a, b in zip(got, ref)]
+        rel = {}
+        for path in ranks[0][run]["grads"]:
+            diff = max(o[run]["grads"][path][0] for o in ranks)
+            top = max(o[run]["grads"][path][1] for o in ranks)
+            rel[path] = diff / max(top, 1e-30)
+        worst = max(rel, key=rel.get)
+        print(f"[nested] {run} against the unpipelined, unsharded step: "
+              f"losses {got} vs {ref[:len(got)]}, |diff| by step {diffs}; "
+              f"step-0 gradients' max |diff| relative to the leaf's max: "
+              f"worst {rel[worst]:.3e} ({worst}), median "
+              f"{statistics.median(rel.values()):.3e}", flush=True)
+        if name == "bf16":
+            if diffs[0] > 2e-2 + 2e-2 * abs(ref[0]):
+                fails.append(f"{run} step-0 loss |diff| {diffs[0]}")
+            if len(diffs) > 1 and max(diffs[1:]) > TP_LATER_LIMIT:
+                fails.append(f"{run} steps 1-2 |diff| {diffs[1:]} above "
+                             f"{TP_LATER_LIMIT}")
+            limit = GRAD_TOL[str(torch.bfloat16)]
+        else:
+            if any(d > NESTED_F32_LIMIT + NESTED_F32_LIMIT * abs(x)
+                   for d, x in zip(diffs, ref)):
+                fails.append(f"{run} losses |diff| {diffs}")
+            limit = GRAD_TOL[str(torch.float32)]
+        fails += [f"{run} step-0 gradient {p}: {v:.3e} of the leaf's max"
+                  for p, v in rel.items() if v > limit]
+    shapes = ranks[0]["ckpt_shapes"]
+    print(f"[nested] f32 checkpoint gathered in the reference's padded "
+          f"layout in {ranks[0]['save_s']:.2f} s (embed/table "
+          f"{shapes['params/embed/table']}, blocks/p0/attn/wq "
+          f"{shapes['params/blocks/p0/attn/wq']}); restored into every "
+          f"rank's blocks bit for bit: "
+          f"{all(r['restored'] for r in ranks)}", flush=True)
+    if not all(r["restored"] for r in ranks):
+        fails.append("the checkpoint restored other blocks")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return {k: sum(r[run]["counts"][k] for r in ranks
+                   for run in ("bf16/1f1b", "bf16/gpipe"))
+            for k in ranks[0]["bf16/gpipe"]["counts"]}
+
+
 @contextlib.contextmanager
 def phase(name: str):
     t0 = time.perf_counter()
@@ -3180,6 +3599,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     with phase("replica×2{split×2} with ZeRO 0/1/3 (4 ranks)"):
         zero_counts = train_hybrid_zero(torch)
+    torch.cuda.empty_cache()
+    with phase("Whale's nested hybrid (split×2 pipeline×2, 4 ranks)"):
+        nested_counts = train_nested(torch, unpiped)
 
     meta = {
         "flash_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
@@ -3220,7 +3642,8 @@ def main() -> None:
                    "train_pipeline_hetero": hetero_counts[name],
                    "train_uneven_dp": uneven_counts[name],
                    "train_tp": tp_counts[name],
-                   "train_hybrid_zero": zero_counts[name]}
+                   "train_hybrid_zero": zero_counts[name],
+                   "train_pipeline_tp": nested_counts[name]}
         table.append(dict(name=name, route="cuda", source=meta[name][0],
                           replaces=meta[name][1],
                           launches=sum(by_path.values()),

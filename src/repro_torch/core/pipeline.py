@@ -35,10 +35,19 @@ checkpoint's, as in the reference (:func:`gather_stages`,
 :func:`restore_stage_state`), so each package restores the other's
 pipelined checkpoint.
 
-Not ported: ``staged_specs`` and ``stage_only_specs`` are GSPMD sharding
-specs and have no counterpart (a rank holds its own rows); the
-encoder–decoder two-tower engine (``make_encdec_pipeline_*``) comes with
-``models/encdec.py`` (ROADMAP.md queue A item 7).
+Whale's nested hybrid (paper Case 4, ``split`` inside ``stage`` under
+``replica``): where the reference runs its stages inside ``shard_map``,
+manual over ``stage`` and GSPMD-auto over ``data`` and ``model``, the
+engine runs each slot under the plan's sharding rules, so a stage is split
+over ``model`` as the unpipelined model is (vocab-parallel embedding and
+loss head, head-parallel attention, column-parallel MLP), and replicated
+over ``data`` and ``pod``.  The layout is the reference's ``staged_specs``
+(:func:`repro_torch.core.sharding.staged_specs`): nothing is sharded over
+the data axes, whatever the ZeRO stage.  ``stage_only_specs`` (the
+``shard_map`` in-specs) has no counterpart: a rank holds its own rows.
+Not ported: the encoder–decoder two-tower engine
+(``make_encdec_pipeline_*``) comes with ``models/encdec.py`` (ROADMAP.md
+queue A item 7).
 """
 from __future__ import annotations
 
@@ -47,9 +56,11 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import sharding
 from repro_torch.core.schedule import BWD, FWD, Schedule, make_schedule
 from repro_torch.models import layers
 from repro_torch.models import transformer as tfm
+from repro_torch.optim.optimizer import sharded_global_norm
 from repro_torch.tree import flatten, tree_map, unflatten
 
 ENCDEC_SLICE = ("the encoder–decoder two-tower pipeline comes with "
@@ -224,12 +235,17 @@ class _Stage:
     live ones (the activation buffer) and ``peak`` its high-water mark.
 
     The loss is the reference's: Σ over micro-batches of ``(nll + z_loss)
-    / n_total`` from the last stage plus ``aux / M`` from every stage."""
+    / n_total`` from the last stage plus ``aux / M`` from every stage.
+
+    Under ``rules`` that split the model axis each slot runs split: stage
+    0's embedding vocab-parallel, the stack head-parallel (``choose_layout``)
+    with column-parallel MLPs, the last stage's loss head vocab-parallel,
+    and ``blocks``/``shared`` are this rank's blocks of its rows."""
 
     def __init__(self, model, s: int, S: int, blocks: dict, shared: dict,
-                 n_layers: int, M: int, mb_size: int, T: int):
+                 n_layers: int, M: int, mb_size: int, T: int, rules=None):
         self.model, self.s, self.last, self.M = model, s, s == S - 1, M
-        self.blocks, self.shared = blocks, shared
+        self.blocks, self.shared, self.rules = blocks, shared, rules
         self.stack = dataclasses.replace(model.stack, n_rep=n_layers)
         dev = model.device
         self.positions = torch.arange(T, device=dev)[None].expand(mb_size, T)
@@ -245,15 +261,19 @@ class _Stage:
         (ignored on stage 0, which embeds ``tok``)."""
         cfg = self.model.cfg
         x_in = None
-        if self.s == 0:
-            x = layers.embed(self.shared["embed"], tok).to(cfg.adtype)
-        else:
-            x = x_in = x.detach().requires_grad_(True)
-        y, aux = tfm.apply_stack(self.blocks, x, self.positions, self.stack)
-        contrib = (aux["lb_loss"] + aux["z_loss"]) / self.M
-        if self.last:
-            nll, zl, _ = self.model.head_loss(self.shared, y, tok, self.mask)
-            contrib = contrib + (nll + zl) / self.n_total
+        with sharding.use_rules(self.rules):
+            if self.s == 0:
+                x = layers.embed(self.shared["embed"], tok,
+                                 cfg.padded_vocab).to(cfg.adtype)
+            else:
+                x = x_in = x.detach().requires_grad_(True)
+            y, aux = tfm.apply_stack(self.blocks, x, self.positions,
+                                     self.stack)
+            contrib = (aux["lb_loss"] + aux["z_loss"]) / self.M
+            if self.last:
+                nll, zl, _ = self.model.head_loss(self.shared, y, tok,
+                                                  self.mask)
+                contrib = contrib + (nll + zl) / self.n_total
         self.graphs[mb] = (x_in, y, contrib)
         self.peak = max(self.peak, len(self.graphs))
         return (None if self.last else y.detach()), contrib.detach()
@@ -261,7 +281,13 @@ class _Stage:
     def backward(self, mb: int, dy):
         """Run micro-batch ``mb``'s graph backward from the cotangent ``dy``
         of its output (None on the last stage, whose output is the loss),
-        free it, and return the cotangent of its input (None on stage 0)."""
+        free it, and return the cotangent of its input (None on stage 0).
+
+        It needs no rules: on the card the autograd engine runs the
+        backward on its device thread, which sees none of this thread's,
+        so each repeat's checkpointed recompute re-enters the rules it was
+        built under (:func:`~repro_torch.models.transformer.apply_stack`)
+        and the split's collectives carry their groups."""
         x_in, y, contrib = self.graphs.pop(mb)
         outs, cots = [], []
         if contrib.requires_grad:
@@ -427,42 +453,54 @@ class _Wire:
         return [b.to(self.device) for b in bufs]
 
 
-def make_pipeline_train_step(model, stage_group, optimizer, *,
-                             micro_batches: int, stage_layers, schedule,
-                             data_group=None):
+def make_pipeline_train_step(model, rules, optimizer, *,
+                             micro_batches: int, stage_layers, schedule):
     """→ ``(params, opt_state, tokens, step) → (params, opt_state,
     metrics)`` for this rank's stage: the counterpart of the reference's
-    ``make_pipeline_train_step``.
+    ``make_pipeline_train_step``, on the mesh of ``rules`` (a
+    :class:`~repro_torch.core.sharding.ShardingRules` with a ``stage``
+    axis, and ``pod``, ``data`` and ``model`` where the plan has them).
 
-    ``params`` is this rank's tree: ``embed``, ``final_norm`` and the head
-    (when untied) replicated, and its own ``stage_layers[s]`` rows of
-    ``blocks`` (:func:`stage_state`); ``opt_state`` is ``optimizer.init``
-    of it; ``tokens`` (B, T) this data replica's rows, the same on every
-    stage of the group.  The rank walks its column of the schedule's tick
-    table.  At each tick it runs its slot, then posts in one batch what it
-    sends (its forward's output down, its backward's input cotangent up)
-    and what its neighbours send it at that tick, so both sides of every
-    message post it at the same tick.
+    ``params`` is this rank's tree under :func:`~repro_torch.core.sharding.
+    staged_specs`: ``embed``, ``final_norm`` and the head (when untied)
+    on every stage, and its own ``stage_layers[s]`` rows of ``blocks``
+    (:func:`stage_state`), each leaf this rank's block over ``model``
+    where the rules split it; ``opt_state`` is ``optimizer.init`` of it;
+    ``tokens`` (B, T) this data replica's rows, the same on every rank of
+    the replica.  The rank walks its column of the schedule's tick table.
+    At each tick it runs its slot, then posts in one batch what it sends
+    (its forward's output down, its backward's input cotangent up) and
+    what its neighbours send it at that tick, so both sides of every
+    message post it at the same tick.  A stage group joins the ranks of
+    one ``pod``, ``data`` and ``model`` coordinate, so each model rank
+    sends its copy of the (replicated) activation to its own peer: the
+    wire carries it once per model rank.
 
     The gradients of the shared leaves are summed over the stage group (as
     the ``shard_map`` transpose sums them: stage 0's embedding, the last
-    stage's norm and head, both ends of a tied embedding); then every
-    gradient is averaged over ``data_group``.  The optimizer updates this
-    rank's tree in place, clipped by the whole model's global norm.
+    stage's norm and head, both ends of a tied embedding), each on its
+    model block; then every gradient is averaged over ``data`` and over
+    ``pod`` (the reference's mean over ``("pod", "data")``).  The optimizer
+    updates this rank's tree in place, clipped by the whole model's global
+    norm (:func:`~repro_torch.optim.optimizer.sharded_global_norm` over the
+    staged specs: each element once, its squares summed in f64).
     ``metrics``: ``loss`` (summed over the stage group, averaged over the
-    data group, so every rank holds the same) and ``peak_in_flight``, this
+    data axes, so every rank holds the same) and ``peak_in_flight``, this
     stage's audited buffer peak.  The schedule is the one given: 1F1B holds
     min(M, S) micro-batches in flight (see the module docstring)."""
     _check_family(model)
+    stage_group = rules.group("stage")
     S = dist.get_world_size(stage_group)
     s = dist.get_rank(stage_group)
     M = micro_batches
     sc = _schedule_for(schedule, S, M)
     stage_layers = check_stage_layers(stage_layers, model.stack.n_rep, S)
-    want_peak = sc.per_stage_in_flight()[s]
     wire = _Wire(stage_group, model.device)
     keys = _shared_keys(model)
     cfg = model.cfg
+    specs = sharding.staged_specs(rules, model.axes(), model.param_shapes())
+    data_groups = [rules.group(a) for a in ("data", "pod")
+                   if rules.shape.get(a, 1) > 1]
     # batch_isend_irecv on NCCL needs the group's first call to involve
     # every rank of it
     dist.barrier(group=stage_group)
@@ -474,7 +512,7 @@ def make_pipeline_train_step(model, stage_group, optimizer, *,
         toks_mb = tokens.reshape(M, mb_size, T)
         shared = _leaves({k: params[k] for k in keys})
         stage = _Stage(model, s, S, _leaves(params["blocks"]), shared,
-                       stage_layers[s], M, mb_size, T)
+                       stage_layers[s], M, mb_size, T, rules)
         shape = (mb_size, T, cfg.d_model)
         loss = torch.zeros((), dtype=torch.float32, device=model.device)
         inbox = {}                      # ("act" | "cot", mb) -> tensor
@@ -510,16 +548,11 @@ def make_pipeline_train_step(model, stage_group, optimizer, *,
             dist.all_reduce(g, op=dist.ReduceOp.SUM, group=stage_group)
         grads = dict(g_shared, blocks=_grads(stage.blocks))
         dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=stage_group)
-        if data_group is not None:
-            mean_over(flatten(grads)[1] + [loss], data_group)
-        # the global norm: every stage's rows, the shared leaves once
-        sq = sum(torch.sum(g.square()) for g in flatten(grads["blocks"])[1])
-        if s == 0:
-            sq = sq + sum(torch.sum(g.square())
-                          for g in flatten(g_shared)[1])
-        dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=stage_group)
-        params, opt_state = optimizer.apply(grads, opt_state, params, step,
-                                            grad_norm=torch.sqrt(sq))
+        for group in data_groups:
+            mean_over(flatten(grads)[1] + [loss], group)
+        params, opt_state = optimizer.apply(
+            grads, opt_state, params, step,
+            grad_norm=sharded_global_norm(grads, specs, rules))
         return params, opt_state, {"loss": loss,
                                    "peak_in_flight": stage.peak}
 
@@ -530,35 +563,46 @@ def make_pipeline_train_step(model, stage_group, optimizer, *,
 # the pipelined checkpoint: the reference's padded layout
 # ---------------------------------------------------------------------------
 
-def gather_stages(tree: dict, group, stage_layers):
-    """This rank's training state with every ``blocks`` leaf gathered over
-    the stage ``group`` into :func:`pipeline_params`' padded ``(S·Lmax,
-    …)`` layout (pad rows zero), the other leaves as every stage holds
-    them.  Collective over the group; its stage 0 gets the tree, the
-    others ``None``."""
+def gather_stages(tree: dict, specs: dict, rules, stage_layers):
+    """This rank's training state gathered whole in :func:`pipeline_params`'
+    padded ``(S·Lmax, …)`` layout (pad rows zero), the reference's
+    pipelined checkpoint: each leaf first over ``model`` where ``specs``
+    (staged specs of ``tree``) split it (:func:`~repro_torch.core.sharding.
+    gather_leaf`), then each ``blocks`` leaf over the stage group, a leaf
+    at a time.  Collective over the mesh of ``rules``; global rank 0 gets
+    the tree, the others ``None``."""
+    group = rules.group("stage")
     sl = tuple(stage_layers)
     s = dist.get_rank(group)
     lmax = max(sl)
     first = dist.get_global_rank(group, 0)
+    home = dist.get_rank() == 0
 
-    def one(p):
+    def one(path, p, spec):
+        p = sharding.gather_leaf(p, sharding.within_stage(spec), rules)
+        if "blocks" not in path.split("/"):
+            return p if home else None
         at = (torch.device("cpu") if wire_on_host(group, p.device)
               else p.device)
         mine = p.new_zeros((lmax,) + tuple(p.shape[1:]), device=at)
         mine[:sl[s]] = p.to(at)
         parts = ([torch.empty_like(mine) for _ in sl] if s == 0 else None)
         dist.gather(mine, parts, dst=first, group=group)
-        return torch.cat(parts) if s == 0 else None
+        return torch.cat(parts) if home else None
 
-    out = _map_blocks(one, tree)
-    return out if s == 0 else None
+    paths, leaves = flatten(tree)
+    out = [one(path, p, spec) for path, p, spec
+           in zip(paths, leaves, flatten(specs)[1])]
+    return unflatten(paths, out) if home else None
 
 
-def restore_stage_state(ckpt, model, optimizer, stage: int, stage_layers):
+def restore_stage_state(ckpt, model, optimizer, specs: dict, rules,
+                        stage_layers):
     """The latest committed checkpoint of a pipelined run (the padded
     layout), read on every rank into host memory: ``(step, {"params",
-    "opt"} with stage ``stage``'s rows on the model's device, extra)``, or
-    ``None`` when there is none."""
+    "opt"} with this rank's stage rows, cut to its block of each leaf
+    under ``specs`` (staged specs of the state), on the model's device,
+    extra)``, or ``None`` when there is none."""
     shapes = tree_map(lambda m: torch.empty(m.shape, dtype=m.dtype),
                       model.param_shapes())
     params = pipeline_params(model, shapes, stage_layers)
@@ -568,6 +612,9 @@ def restore_stage_state(ckpt, model, optimizer, stage: int, stage_layers):
         return None
     step, tree, extra = out
     sl = tuple(stage_layers)
+    stage = rules.mesh.get_local_rank("stage")
     tree = stage_state(_map_blocks(lambda p: _unpad_rows(p, sl), tree),
                        stage, sl)
-    return step, tree_map(lambda p: p.to(model.device), tree), extra
+    tree = tree_map(lambda p, spec: sharding.shard_leaf(
+        p, spec, rules).to(model.device), tree, sharding.within_stage(specs))
+    return step, tree, extra

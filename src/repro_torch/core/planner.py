@@ -26,7 +26,13 @@ The pipeline (``pp > 1``, the paper's ``stage`` and ``pipeline``):
 :meth:`ExecutionPlan.pipeline_train_step_fn` runs the multi-rank engine of
 :mod:`repro_torch.core.pipeline` on the mesh's ``stage`` groups under
 ``gpipe`` or ``1f1b``, each rank holding its stage's rows
-(:meth:`ExecutionPlan.init_pipeline_params`).
+(:meth:`ExecutionPlan.init_pipeline_params`).  Nested in it, as Whale's
+Case 4 nests them: a ``model`` axis splits every stage (the plan's rules),
+and the stages are replicated over ``data`` and ``pod``, their gradients
+averaged over both.  The layout is the reference's ``staged_specs``
+(``param_specs`` under ``pp > 1``), which shards nothing over the data
+axes: a pipelined plan with ZeRO runs exactly as ZeRO 0, as the
+reference's pipelined executor does.
 
 Heterogeneous placement (the paper's §5): on a mixed-hardware
 :class:`~repro_torch.core.cost_model.ClusterSpec` with the workload's
@@ -55,8 +61,8 @@ the backward's reduce-scatter, so the step only divides it.  ZeRO-1/2
 keep AdamW's moments as this rank's slices and all-gather the updated
 parameter slice (zero 2 runs as zero 1, as in the reference); the clip
 norm sums each leaf's squares over the axes it is split over.  Still
-refused, each naming its ROADMAP item: a pipeline with a model axis or
-with ZeRO, ZeRO with ``compress_pod``, and ZeRO with uneven batch shares.
+refused, each naming its ROADMAP item: ZeRO with ``compress_pod``, ZeRO
+with uneven batch shares, and adafactor over a split model.
 """
 from __future__ import annotations
 
@@ -76,13 +82,14 @@ from repro_torch.launch.mesh import make_mesh, mesh_shape
 from repro_torch.optim.optimizer import sharded_global_norm
 from repro_torch.tree import flatten, tree_map, unflatten
 
-PIPE_SPLIT_SLICE = ("a pipeline with a model axis or with ZeRO comes with "
-                    "a later slice of the port (ROADMAP.md queue A item 4)")
 ZERO_COMPRESS_SLICE = ("ZeRO with compress_pod (the compressed cross-pod "
                        "reduction of a data-sharded gradient) comes with a "
                        "later slice of the port (ROADMAP.md queue A item 4)")
 ZERO_UNEVEN_SLICE = ("ZeRO with uneven batch shares comes with a later slice "
                      "of the port (ROADMAP.md queue A item 4)")
+ADAFACTOR_SPLIT_SLICE = ("adafactor over a split model (its factored moments' "
+                         "means across shards) comes with a later slice of "
+                         "the port (ROADMAP.md queue A item 4)")
 #: the keys of ``Model.loss_fn``'s metrics, with the step's ``loss``: a
 #: rank with no rows of the batch reports zeros under them
 METRIC_KEYS = ("loss", "moe_lb", "moe_z", "nll", "tokens")
@@ -214,9 +221,21 @@ class ExecutionPlan:
                 mesh_shape(self.mesh), self.strategy, self.mesh)
         self.param_specs = None
         if self.rules is not None and self.model is not None:
-            self.param_specs = self.rules.param_specs_tree(
-                self.model.axes(), self.model.param_shapes(),
-                fsdp=self.strategy.zero >= 3)
+            self.param_specs = self._specs(self.model.axes(),
+                                           self.model.param_shapes(),
+                                           fsdp=self.strategy.zero >= 3)
+
+    @property
+    def pipelined(self) -> bool:
+        return self.strategy.pp > 1
+
+    def _specs(self, axes, shapes, *, fsdp: bool) -> dict:
+        """The specs of a tree: the reference's ``staged_specs`` under a
+        pipeline (its layers over ``stage``, nothing over the data axes),
+        else ``param_specs_tree`` with the ZeRO extension where ``fsdp``."""
+        if self.pipelined:
+            return sharding.staged_specs(self.rules, axes, shapes)
+        return self.rules.param_specs_tree(axes, shapes, fsdp=fsdp)
 
     @property
     def sharded(self) -> bool:
@@ -227,16 +246,18 @@ class ExecutionPlan:
 
     def opt_specs(self, optimizer) -> dict:
         """The optimizer state's specs, the reference's: the parameters'
-        rules, with the data axes (FSDP) under any ZeRO stage."""
+        rules, with the data axes (FSDP) under any ZeRO stage, or under a
+        pipeline its ``staged_specs`` (the parameters' layout)."""
         shapes = optimizer.init(self.model.param_shapes())
         axes = optimizer.state_axes(self.model.axes())
-        return self.rules.param_specs_tree(axes, shapes,
-                                           fsdp=self.strategy.zero >= 1)
+        return self._specs(axes, shapes, fsdp=self.strategy.zero >= 1)
 
     def _slices(self, optimizer):
         """ZeRO-1/2: each leaf's :class:`~repro_torch.core.sharding.Slice`
-        of AdamW's moments beyond the parameter's own block."""
-        if not self.sharded or self.strategy.zero not in (1, 2) \
+        of AdamW's moments beyond the parameter's own block (none inside a
+        pipeline, whose moments take the parameters' layout)."""
+        if not self.sharded or self.pipelined \
+                or self.strategy.zero not in (1, 2) \
                 or "mu" not in self.opt_specs(optimizer):
             return None
         return sharding.zero_slices(self.param_specs,
@@ -264,16 +285,21 @@ class ExecutionPlan:
         return idx
 
     # ---- init ----
-    def init_params(self, seed: int) -> dict:
-        """The model's parameters from ``seed``, the same on every rank:
-        rank 0's are broadcast (a cuda generator draws per device).  A
-        sharded plan keeps this rank's block of each leaf (never a draw
-        per block, so the sharded start equals a slice of the unsharded
-        one bit for bit)."""
+    def _draw(self, seed: int) -> dict:
+        """The whole model from ``seed``, the same on every rank: rank 0's
+        are broadcast (a cuda generator draws per device)."""
         params = self.model.init(seed)
         if self.mesh is not None:
             for p in flatten(params)[1]:
                 dist.broadcast(p, src=0)
+        return params
+
+    def init_params(self, seed: int) -> dict:
+        """The model's parameters from ``seed``, the same on every rank
+        (:meth:`_draw`).  A sharded plan keeps this rank's block of each
+        leaf (never a draw per block, so the sharded start equals a slice
+        of the unsharded one bit for bit)."""
+        params = self._draw(seed)
         if self.sharded:
             params = self.shard(params, self.param_specs)
         return params
@@ -327,12 +353,36 @@ class ExecutionPlan:
 
     def init_pipeline_params(self, seed: int, *, stage_layers=None) -> dict:
         """This rank's stage of the model from ``seed``: every rank draws
-        the whole model exactly as :meth:`init_params` does, then keeps its
-        rows of ``blocks`` (never a draw per stage, so the pipelined start
-        equals the unpipelined one bit for bit)."""
+        the whole model (:meth:`_draw`), then keeps its rows of ``blocks``
+        and, under the staged specs, its block of each leaf over
+        ``model`` (never a draw per stage or block, so the pipelined start
+        equals a slice of the unpipelined, unsharded one bit for bit)."""
         sl = stage_layers or self.stage_layers()
-        return pipe.stage_state(self.init_params(seed),
+        rows = pipe.stage_state(self._draw(seed),
                                 self.mesh.get_local_rank("stage"), sl)
+        return self.shard(rows, sharding.within_stage(self.param_specs))
+
+    def _pipeline_state_specs(self, optimizer) -> dict:
+        """The staged specs of a pipelined run's ``{"params", "opt"}``."""
+        return {"params": self.param_specs,
+                "opt": self.opt_specs(optimizer)}
+
+    def gather_pipeline_state(self, state: dict, optimizer, stage_layers):
+        """A pipelined run's whole state in the reference's padded layout
+        on global rank 0, ``None`` on the others (collective; the
+        checkpoint's ``gather`` hook): :func:`~repro_torch.core.pipeline.
+        gather_stages`."""
+        return pipe.gather_stages(
+            state, self._pipeline_state_specs(optimizer), self.rules,
+            stage_layers)
+
+    def restore_pipeline_state(self, ckpt, optimizer, stage_layers):
+        """The latest pipelined checkpoint cut into this rank's stage rows
+        and model blocks: :func:`~repro_torch.core.pipeline.
+        restore_stage_state`."""
+        return pipe.restore_stage_state(
+            ckpt, self.model, optimizer,
+            self._pipeline_state_specs(optimizer), self.rules, stage_layers)
 
     # ---- data ----
     def replica_rows(self) -> tuple | None:
@@ -437,10 +487,7 @@ class ExecutionPlan:
         if zero and compress:
             raise NotImplementedError(ZERO_COMPRESS_SLICE)
         if self.sharded and optimizer.name == "adafactor":
-            raise NotImplementedError(
-                "adafactor over a split model (its factored moments' means "
-                "across shards) comes with a later slice of the port "
-                "(ROADMAP.md queue A item 4)")
+            raise NotImplementedError(ADAFACTOR_SPLIT_SLICE)
         for r in set(rows or ()) - {0}:
             pipe.check_micro_divides(r, M)
         rules = self.rules if self.sharded else None
@@ -577,28 +624,26 @@ class ExecutionPlan:
         """``(params, opt_state, tokens, step) → (params, opt_state,
         metrics)`` through the multi-rank pipeline engine
         (:func:`~repro_torch.core.pipeline.make_pipeline_train_step`) on
-        this rank's ``stage`` group, averaged over its ``data`` group.
-        ``params`` and ``opt_state`` are this rank's stage
-        (:meth:`init_pipeline_params`); ``tokens`` its data replica's rows
-        (:meth:`batch_slice`).  Micro-batches and schedule default to the
-        strategy's, stage layers to :meth:`stage_layers`."""
+        this rank's ``stage`` group under the plan's rules (split over
+        ``model``), averaged over ``data`` and ``pod``.  ``params`` and
+        ``opt_state`` are this rank's stage (:meth:`init_pipeline_params`);
+        ``tokens`` its data replica's rows (:meth:`batch_slice`).
+        Micro-batches and schedule default to the strategy's, stage layers
+        to :meth:`stage_layers`.  Adafactor over a split model raises, as
+        in :meth:`train_step_fn`."""
         axes = tuple(self.mesh.mesh_dim_names) if self.mesh is not None \
             else ()
         if self.strategy.pp <= 1 or "stage" not in axes:
             raise ValueError(
                 f"pipeline step needs pp > 1 and a 'stage' mesh axis; "
                 f"strategy is {self.strategy.describe()}, mesh axes {axes}")
-        if "pod" in axes:
-            raise NotImplementedError(
-                "a pipeline across pods (its cross-pod reduction) comes "
-                "with a later slice of the port")
-        data_g = (self._group("data") if mesh_shape(self.mesh)["data"] > 1
-                  else None)
+        if self.strategy.model_parallel > 1 and optimizer.name == "adafactor":
+            raise NotImplementedError(ADAFACTOR_SPLIT_SLICE)
         return pipe.make_pipeline_train_step(
-            self.model, self._group("stage"), optimizer,
+            self.model, self.rules, optimizer,
             micro_batches=micro_batches or self.strategy.micro_batches or 1,
             stage_layers=stage_layers or self.stage_layers(),
-            schedule=schedule or self.strategy.schedule, data_group=data_g)
+            schedule=schedule or self.strategy.schedule)
 
 
 # ---------------------------------------------------------------------------
@@ -630,9 +675,6 @@ def compile_plan(model, mesh, strategy: StrategySpec | None = None, *,
     if strategy.schedule not in SCHEDULE_NAMES:
         raise ValueError(f"unknown schedule {strategy.schedule!r}; "
                          f"expected one of {SCHEDULE_NAMES}")
-    if strategy.pp > 1 and (strategy.model_parallel > 1 or strategy.zero):
-        raise NotImplementedError(f"{strategy.describe()}: "
-                                  f"{PIPE_SPLIT_SLICE}")
     if mesh is not None and mesh_shape(mesh).get("model", 1) \
             != strategy.model_parallel:
         raise ValueError(f"{strategy.describe()} needs a model axis of "

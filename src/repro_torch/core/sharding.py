@@ -13,6 +13,8 @@ axis name, or a tuple of axis names (the block index is mixed-radix over
 them, the first axis major), as the reference's ``PartitionSpec``.
 Divisibility pruning and first-come-wins follow the reference: a dim its
 axes do not divide stays replicated, and an axis shards one dim at most.
+A pipeline's leaves take the reference's :func:`staged_specs` (the stacked
+``layers`` dim over ``stage``, nothing over the data axes).
 
 Where GSPMD places the collectives of a sharded program implicitly, the
 port writes each one: :func:`shard_leaf` / :func:`gather_leaf` cut a full
@@ -203,6 +205,30 @@ def hybrid_rules(shape: dict, *, fsdp: bool = True,
         "fsdp": data_axes if fsdp else None,
     }
     return ShardingRules(shape=dict(shape), rules=rules, mesh=mesh)
+
+
+def staged_specs(rules: ShardingRules, axes_tree, shapes_tree):
+    """The specs of a pipeline's leaves (``repro/core/pipeline.py::
+    staged_specs``): each leaf's spec from the rules (:meth:`ShardingRules.
+    spec_for`, never the ZeRO-3 extension, so nothing is sharded over the
+    data axes whatever the ZeRO stage), with the leading ``layers`` dim of
+    a stacked leaf over ``stage``."""
+    if _is_names(axes_tree):
+        spec = rules.spec_for(axes_tree, tuple(shapes_tree.shape))
+        if axes_tree and axes_tree[0] == "layers":
+            return ("stage",) + spec[1:]
+        return spec
+    return {k: staged_specs(rules, v, shapes_tree[k])
+            for k, v in axes_tree.items()}
+
+
+def within_stage(specs):
+    """Staged specs with the ``stage`` entry dropped: how a stage's rows of
+    each leaf are cut over the other axes (a rank holds its own rows, so
+    its block is cut from them, not from the padded whole)."""
+    if isinstance(specs, dict):
+        return {k: within_stage(v) for k, v in specs.items()}
+    return tuple(None if e == "stage" else e for e in specs)
 
 
 def rules_for_strategy(shape: dict, strat, mesh=None) -> ShardingRules:

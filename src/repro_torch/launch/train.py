@@ -25,17 +25,24 @@ Planning, as the reference's driver plans: ``--auto`` prices the model's
 segment graph on the ``--hw`` table (default ``h100``, the card the port
 runs on) with :func:`~repro_torch.core.auto.auto_parallel` over the
 world's devices, prints ``[auto] chose: …`` and trains that strategy
-through :func:`~repro_torch.core.planner.compile_plan` (a pipeline, a
-model axis and ZeRO too); a choice the port cannot run yet (a pipeline
-with a model axis or ZeRO) exits naming its slice, never running
-another.  ``--profile`` records every step after
-the first as an observation against the strategy's cost-model features
-and prints the calibration report at exit (fitted rates, the prediction
-error before and after the fit).  A :class:`~repro_torch.runtime.straggler.
-StragglerMonitor` watches every step's time and prints ``[straggler]
-flagged …`` on a sustained outlier.
+through :func:`~repro_torch.core.planner.compile_plan`: data parallelism,
+a model axis, ZeRO, a pipeline, or Whale's nested hybrid, a pipeline
+whose stages are split over a model axis (on 4 ranks of the paper's V100
+table tinyllama at 4 x 2048 gets ``split×2 pipeline×2(µb=4)``, and so
+does the smoke config at 4 x 32); the ``[plan]`` line names the mesh,
+the split and the stage layers.  ZeRO inside a pipeline runs as the
+reference runs it, sharding nothing over data, and a line says so.
+``--profile`` records every step after the first as an observation
+against the strategy's cost-model features and prints the calibration
+report at exit (fitted rates, the prediction error before and after the
+fit).  A :class:`~repro_torch.runtime.straggler.StragglerMonitor` watches
+every step's time and prints ``[straggler] flagged …`` on a sustained
+outlier.
 
-The flags of later slices (``--pp`` beside a model axis; ``--hosts``,
+``--pp`` lays the ranks out as ``stage × data`` only, as the reference's
+``--pp`` does, so it is refused beside ``--mesh``; ``--compress-pod``
+beside a pipeline is refused (the reference's pipelined step has no
+compressed reduction).  The flags of later slices (``--hosts``,
 ``--calibrate`` and the fault injections of the elastic runtime) are
 refused with a message naming the slice.
 
@@ -70,6 +77,10 @@ Usage::
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
         --smoke --device cpu --mesh 2x2 --batch 4 --seq 32 --steps 3 \
         --ckpt-dir "$TMPDIR/tp"
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --smoke --device cpu --auto --hw v100 --batch 4 --seq 32 \
+        --steps 3 --ckpt-dir "$TMPDIR/nested"
 """
 from __future__ import annotations
 
@@ -91,8 +102,7 @@ from repro_torch.core.cost_model import (H100_SXM, P100_16G, T4_16G,
                                          TPU_V5E, V100_PAPER, ClusterSpec,
                                          StrategySpec, hardware_reciprocals,
                                          step_cost, step_cost_features)
-from repro_torch.core.planner import (PIPE_SPLIT_SLICE, compile_plan,
-                                      mesh_for_strategy)
+from repro_torch.core.planner import compile_plan, mesh_for_strategy
 from repro_torch.core.schedule import SCHEDULE_NAMES
 from repro_torch.data.pipeline import DataCfg, TokenPipeline
 from repro_torch.device import resolve_device
@@ -108,6 +118,8 @@ from repro_torch.runtime.straggler import StragglerMonitor
 #: ``--hw`` → the cost model's table (the reference's four, and the H100)
 HW_TABLES = {"tpu_v5e": TPU_V5E, "v100": V100_PAPER, "p100": P100_16G,
              "t4": T4_16G, "h100": H100_SXM}
+COMPRESS_PIPE = ("--compress-pod beside a pipeline: the reference's "
+                 "pipelined step has no compressed cross-pod reduction")
 ELASTIC_SLICE = ("the elastic runtime (simulated hosts, fault injection, "
                  "drift-triggered recalibration; ROADMAP.md queue A item 8) "
                  "comes with a later slice of the port")
@@ -191,9 +203,11 @@ def _refuse_later_slices(args) -> None:
         raise SystemExit("--auto picks the layout itself: drop --mesh and "
                          "--pp")
     if args.pp > 1 and args.mesh:
-        raise SystemExit("--pp lays the ranks out itself (stage x data): "
-                         "drop --mesh; a pipeline beside a model axis: "
-                         f"{PIPE_SPLIT_SLICE}")
+        raise SystemExit("--pp lays the ranks out itself (stage x data), "
+                         "as the reference's --pp does: drop --mesh (a "
+                         "model axis beside a pipeline comes from --auto)")
+    if args.pp > 1 and args.compress_pod:
+        raise SystemExit(COMPRESS_PIPE)
     if args.mesh and not _under_torchrun():
         n = int(np.prod(mesh_axes(args.mesh)[0]))
         if n > 1:
@@ -234,29 +248,27 @@ def _start_world(args, device: torch.device):
 
 def auto_strategy(graph, world: int, hw):
     """``--auto``: the cost model's best strategy for ``graph`` over
-    ``world`` devices of ``hw``, as the reference's driver picks it.  A
-    choice the port cannot run yet (a pipeline with a model axis or ZeRO)
-    exits naming its slice; no feasible strategy exits too."""
+    ``world`` devices of ``hw``, as the reference's driver picks it; no
+    feasible strategy exits."""
     try:
-        strat = auto_parallel(graph, world, hw)
+        return auto_parallel(graph, world, hw)
     except RuntimeError as e:              # nothing fits the table's HBM
         raise SystemExit(f"--auto: {e}") from None
-    if strat.pp > 1 and (strat.model_parallel > 1 or strat.zero):
-        raise SystemExit(f"--auto chose {strat.describe()} on {world} x "
-                         f"{hw.name}; {PIPE_SPLIT_SLICE}")
-    return strat
 
 
-def split_line(plan) -> str:
-    """How the plan lays the model out: its mesh, and what the model and
-    data axes split."""
+def split_line(plan, stage_layers=None) -> str:
+    """How the plan lays the model out: its mesh, what the model and data
+    axes split, and a pipeline's stage layers."""
     st = plan.strategy
     shape = mesh_shape(plan.mesh) if plan.mesh is not None else None
     parts = [f"mesh {shape}"]
     if st.model_parallel > 1:
         parts.append(f"split×{st.model_parallel} over model (heads, MLP "
                      f"columns{', vocab' if st.vocab_split else ''})")
-    if st.zero:
+    if st.pp > 1:
+        parts.append(f"pipeline×{st.pp} over stage, stage layers "
+                     f"{tuple(stage_layers or plan.stage_layers())}")
+    elif st.zero:
         what = ("optimizer state" if st.zero < 3
                 else "parameters, gradients and optimizer state")
         parts.append(f"zero={st.zero}: {what} over data")
@@ -357,17 +369,23 @@ def _train(args, device: torch.device) -> dict:
             f"{predicted.compute:.6g}, comm {predicted.comm:.6g}, bubble "
             f"{predicted.bubble:.6g}; memory {predicted.mem_bytes / 2**30:.2f}"
             f" GiB of {hw.hbm_bytes / 2**30:.2f})")
-    if plan.sharded or args.auto:
-        log(f"[plan] {split_line(plan)}")
-    compress = (args.compress_pod and mesh is not None
-                and "pod" in mesh.mesh_dim_names)
-    pipelined = plan.strategy.pp > 1
+    pipelined = plan.pipelined
+    if pipelined and args.compress_pod:
+        raise SystemExit(COMPRESS_PIPE)
+    sl = None
     if pipelined:
-        stage_g = mesh.get_group("stage")
-        stage = mesh.get_local_rank("stage")
         sl = (pipe.check_stage_layers(args.stage_layers.split(","),
                                       model.stack.n_rep, plan.strategy.pp)
               if args.stage_layers else plan.stage_layers())
+    if plan.sharded or args.auto:
+        log(f"[plan] {split_line(plan, sl)}")
+    if pipelined and plan.strategy.zero:
+        log(f"[plan] zero={plan.strategy.zero} inside a pipeline shards "
+            f"nothing over data (the reference's staged specs): it runs as "
+            f"zero=0")
+    compress = (args.compress_pod and mesh is not None
+                and "pod" in mesh.mesh_dim_names)
+    if pipelined:
         log(f"[pipeline] {plan.strategy.pp} stages, schedule "
             f"{args.schedule or plan.strategy.schedule}, µb="
             f"{args.micro_batches or plan.strategy.micro_batches}, "
@@ -384,7 +402,8 @@ def _train(args, device: torch.device) -> dict:
                          host_id=0, n_hosts=1)
     gather = None
     if pipelined:
-        gather = lambda tree: pipe.gather_stages(tree, stage_g, sl)  # noqa
+        gather = lambda tree: plan.gather_pipeline_state(  # noqa: E731
+            tree, opt, sl)
     elif plan.sharded:
         gather = lambda tree: plan.gather_state(tree, opt)  # noqa: E731
     ckpt = CheckpointManager(
@@ -402,7 +421,7 @@ def _train(args, device: torch.device) -> dict:
     # the error carry is restored with the rest (the reference restores
     # only params and opt, so it cannot resume its own compressed run)
     if pipelined:
-        resume = pipe.restore_stage_state(ckpt, model, opt, stage, sl)
+        resume = plan.restore_pipeline_state(ckpt, opt, sl)
     elif plan.sharded:
         resume = plan.restore_state(ckpt, opt, with_err=compress)
     else:

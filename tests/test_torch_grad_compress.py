@@ -650,11 +650,10 @@ def test_dp_refusals(port4, reference):
         assert planner.compile_plan(None, None, strat).strategy == strat
     with pytest.raises(ValueError, match="unknown schedule"):
         planner.compile_plan(None, None, StrategySpec(schedule="zb"))
-    # a model axis and ZeRO compile; beside a pipeline they still raise
-    for strat in (StrategySpec(tp=2), StrategySpec(dp=2, zero=3)):
+    # a model axis and ZeRO compile, and so do both beside a pipeline
+    for strat in (StrategySpec(tp=2), StrategySpec(dp=2, zero=3),
+                  StrategySpec(tp=2, pp=2)):
         assert planner.compile_plan(None, None, strat).strategy == strat
-    with pytest.raises(NotImplementedError, match="pipeline with a model"):
-        planner.compile_plan(None, None, StrategySpec(tp=2, pp=2))
     # a caller's placement passes through, as in the reference
     assert planner.compile_plan(None, None, StrategySpec(pp=2),
                                 placement=()).placement == ()

@@ -594,10 +594,11 @@ def test_train_driver_auto_chooses_what_the_reference_chooses(tmp_path,
 def test_train_driver_auto_refuses_strategies_it_cannot_run(tmp_path):
     """The search over 4 devices picks a pipeline for the smoke model at
     batch 4 x 32, which the driver trains; at batch 2 it picks a tensor
-    split inside a pipeline (``split×2 pipeline×2(µb=2)``), which the
-    driver refuses, naming the slice, never training another strategy,
-    as it refuses tinyllama's choice over 4 V100s.  A tensor split alone
-    it trains (tests/test_torch_tp.py)."""
+    split inside a pipeline (``split×2 pipeline×2(µb=2)``), and over 4
+    V100s tinyllama's ``split×2 pipeline×2(µb=4)``: the driver takes both
+    as the search picks them, and trains the first under torchrun (the
+    V100 pick: tests/test_torch_pipeline_tp.py).  Only a search with no
+    feasible strategy exits."""
     g4 = lm.model_graph(get_config("tinyllama-1.1b", smoke=True), 4, 32)
     chosen = auto.auto_parallel(g4, 4)
     assert chosen.pp == 2
@@ -608,8 +609,7 @@ def test_train_driver_auto_refuses_strategies_it_cannot_run(tmp_path):
     assert auto.auto_parallel(full, 4, cm.V100_PAPER).describe() == \
         "split×2 pipeline×2(µb=4)"
     for g, hw in ((g2, cm.H100_SXM), (full, cm.V100_PAPER)):
-        with pytest.raises(SystemExit, match="pipeline with a model axis"):
-            train.auto_strategy(g, 4, hw)
+        assert train.auto_strategy(g, 4, hw) == auto.auto_parallel(g, 4, hw)
     with pytest.raises(SystemExit, match="no feasible strategy"):
         train.auto_strategy(
             lm.model_graph(get_config("mamba2-1.3b"), 512, 4096), 1,
@@ -633,6 +633,20 @@ def test_train_driver_auto_refuses_strategies_it_cannot_run(tmp_path):
     # --profile observes the pipelined step against its priced features
     assert "[profile] h100: 1 step observations" in p.stdout
     assert (tmp_path / "ck" / "step_00000002.COMMITTED").exists()
+    # at batch 2 the nested pick trains too
+    p = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node=4", "-m", "repro_torch.launch.train", "--smoke",
+         "--device", "cpu", "--batch", "2", "--seq", "32", "--steps", "2",
+         "--log-every", "1", "--auto", "--ckpt-dir", str(tmp_path / "ck2")],
+        capture_output=True, text=True, timeout=300, env=env,
+        cwd=str(tmp_path))
+    assert p.returncode == 0, f"STDOUT:\n{p.stdout}\nSTDERR:\n{p.stderr}"
+    assert "[auto] chose: split×2 pipeline×2(µb=2)\n" in p.stdout
+    assert "[pipeline] 2 stages, schedule gpipe, µb=2" in p.stdout
+    losses = [float(line.split()[3]) for line in p.stdout.splitlines()
+              if line.strip().startswith("step ")]
+    assert len(losses) == 2 and all(np.isfinite(losses))
 
 
 def test_train_driver_refuses_auto_with_a_layout_and_elastic_flags(

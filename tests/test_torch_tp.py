@@ -362,13 +362,20 @@ def test_sharded_checkpoints_match_unsharded_files(ranks, ref, tmp_path):
 
 
 def test_remaining_refusals_name_their_item(ranks):
-    """A pipeline with a model axis, the seq layout, ZeRO with
-    compress_pod and ZeRO with uneven batch shares still raise, each
-    naming ROADMAP.md queue A item 4."""
+    """The seq layout, ZeRO with compress_pod and ZeRO with uneven batch
+    shares still raise, each naming ROADMAP.md queue A item 4.  A pipeline
+    with a model axis and ZeRO compiles, and its ZeRO lays nothing over
+    data (the reference's staged specs: the pipeline's caveat)."""
     _, metas, _ = ranks
     assert "queue A item 4" in metas[0]["zero_compress"]
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        planner.compile_plan(None, None, StrategySpec(tp=2, pp=2))
+    strat = StrategySpec(dp=2, tp=2, pp=2, zero=3)
+    plan = planner.ExecutionPlan(
+        model=Model(_cfg(get_config, KV["A"]), "meta"), mesh=None,
+        strategy=strat, rules=sharding.rules_for_strategy(
+            {"stage": 2, "data": 2, "model": 2}, strat))
+    assert plan.opt_specs(adamw())["mu"] == plan.param_specs
+    assert not any(a == "data" for spec in flatten(plan.param_specs)[1]
+                   for e in spec for a in sharding._axes(e))
     from repro_torch.core import cost_model as cm
     spec = cm.ClusterSpec(groups=(
         cm.DeviceGroup("v100", cm.V100_PAPER, 4),
