@@ -171,7 +171,24 @@ and the script exits non-zero without printing a result:
     reference's padded layout and restored into every rank's blocks bit
     for bit; each rank's launches, audit, peaks of the walk and the step
     beside the state it holds, step and gloo seconds, and 1f1b's stage-0
-    walk peak beside gpipe's.
+    walk peak beside gpipe's;
+26. serving over a mesh, the ranks on ``cuda:0`` over gloo: the serving
+    driver's meshed branch (``serve.run`` with ``--mesh``) at split×2 on
+    two ranks, full width and depth, paged with phase 4's workload (run
+    1) and dense with 8 requests of 500 + 64 tokens (run 2, the KV
+    cache's sequence split over the two ranks); teacher-forced logits of
+    2 prefills and 16 decode steps, both caches, against one unsharded
+    process (run 3: bf16 at full depth, no further apart than bf16's own
+    error, the unsharded bf16 logits against the same weights' in f32;
+    f32 at full depth and at 2 layers within 1e-4 + 1e-4|x|); data 2 x
+    model 2 on four ranks at 4 layers with a pool that preempts (run 4);
+    f32 at 2 layers, both caches, its tokens equal to the unsharded
+    server's (run 5); ``serve --mesh 1x1`` through ``main`` at full width
+    (run 6, a world of one over NCCL); each rank's launches (the flash
+    forward on its 16 q heads over 2 kv heads, paged decode on its 2 kv
+    heads), TTFT and TPOT on the host clock with their gloo seconds, the
+    peak beside the weights and KV held, every rank's tokens equal, the
+    tokens against the unsharded ones as a count.
 
 then the kernel table as one JSON line, the card line again, and the last
 line ``{"ok": true, "device": {...}}``.  Needs no network; needs ``nvcc``
@@ -338,9 +355,9 @@ def check_close(name: str, got, want, dtype, tol=None) -> float:
 def check_flash(torch, timer) -> dict:
     """The flash forward kernel against its plain version (o and lse) and
     against a second launch bit for bit: serving's prefill heads at B=1
-    and S up to 1024, a cross shape, and the training step's shape (B=4,
-    S=2048, 32/4 heads, D=64, causal, bf16), each timed beside SDPA in this
-    call.  Prints the bf16 (tensor-core) builds' ptxas registers and spills
+    and S up to 1024, a cross shape, a rank's 16/2 heads of the prefill at
+    split×2 (phase 26), and the training step's shape (B=4, S=2048, 32/4
+    heads, D=64, causal, bf16), each timed beside SDPA in this call.  Prints the bf16 (tensor-core) builds' ptxas registers and spills
     and fails on a spill.  Returns the row of the training shape."""
     import torch.nn.functional as F
 
@@ -348,15 +365,16 @@ def check_flash(torch, timer) -> dict:
 
     print_ptxas("flash_fwd_mma_kernel")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    H, K, D = 32, 4, 64
+    D = 64
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [(1, 256, 256, True, (bf16, f32)),
-             (1, 512, 512, True, (bf16, f32)),
-             (1, 1024, 1024, True, (bf16, f32)),
-             (1, 384, 1000, False, (bf16, f32)),
-             (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, True, (bf16,))]
+    cases = [(1, 256, 256, True, (bf16, f32), 32, 4),
+             (1, 512, 512, True, (bf16, f32), 32, 4),
+             (1, 1024, 1024, True, (bf16, f32), 32, 4),
+             (1, 384, 1000, False, (bf16, f32), 32, 4),
+             (1, 512, 512, True, (bf16, f32), 16, 2),
+             (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, True, (bf16,), 32, 4)]
     row = None
-    for B, Sq, Sk, causal, dtypes in cases:
+    for B, Sq, Sk, causal, dtypes, H, K in cases:
         for dtype in dtypes:
             q = torch.randn((B, Sq, H, D), generator=gen, device="cuda"
                             ).to(dtype)
@@ -368,7 +386,8 @@ def check_flash(torch, timer) -> dict:
             again = flash.flash_attention(q, k, v, causal)
             torch.cuda.synchronize()
             o_ref, lse_ref = flash.flash_attention_plain(q, k, v, causal)
-            tag = f"flash_fwd B={B} Sq={Sq} Sk={Sk} causal={causal} {dtype}"
+            tag = (f"flash_fwd B={B} Sq={Sq} Sk={Sk} causal={causal} "
+                   f"heads {H}/{K} {dtype}")
             err = max(check_close(tag + " o", o, o_ref, dtype),
                       check_close(tag + " lse", lse, lse_ref, dtype))
             assert_same_bits(tag, (o, lse), again)
@@ -403,8 +422,9 @@ def check_paged(torch, timer) -> dict:
     """The paged-decode kernel against its plain version and a second
     launch bit for bit, timed beside SDPA over the same KV gathered dense
     beforehand, in this call: the serving shape (8 slots of ~500-1000
-    keys, one inactive, 32/4 heads, D=64, page 64) and one slot of 1000
-    keys (B=1).  Prints the bf16 (tensor-core) builds' ptxas registers and
+    keys, one inactive, 32/4 heads, D=64, page 64), a rank's 16/2 heads of
+    it at split×2 and of 4 slots at data 2 x model 2 (phase 26), and one
+    slot of 1000 keys (B=1).  Prints the bf16 (tensor-core) builds' ptxas registers and
     spills and fails on a spill.  Returns the row of the serving shape in
     bf16."""
     import numpy as np
@@ -414,12 +434,13 @@ def check_paged(torch, timer) -> dict:
 
     print_ptxas("paged_decode_mma_kernel")
     rng = np.random.default_rng(0)
-    H, K, D, ps, mp = 32, 4, 64, 64, 16
+    D, ps, mp = 64, 64, 16
     pos8 = rng.integers(500, mp * ps, 8)
     pos8[3] = 0                                    # the inactive slot
     gen = torch.Generator(device="cuda").manual_seed(1)
     row = None
-    for pos in (pos8, np.array([999])):
+    for pos, H, K in ((pos8, 32, 4), (pos8, 16, 2), (pos8[:4], 16, 2),
+                      (np.array([999]), 32, 4)):
         B = len(pos)
         P = 1 + B * mp
         table = np.zeros((B, mp), np.int32)
@@ -443,7 +464,8 @@ def check_paged(torch, timer) -> dict:
             again = paged.paged_decode(q, kp, vp, bt, pos_t)
             torch.cuda.synchronize()
             ref = paged.paged_decode_plain(q, kp, vp, bt, pos_t)
-            tag = f"paged_decode B={B} pos={pos.tolist()} {dtype}"
+            tag = (f"paged_decode B={B} pos={pos.tolist()} heads {H}/{K} "
+                   f"{dtype}")
             err = check_close(tag, out, ref, dtype)
             assert_same_bits(tag, (out,), (again,))
             if not torch.isfinite(out).all():
@@ -474,7 +496,7 @@ def check_paged(torch, timer) -> dict:
                   f"sdpa(pre-gathered) {lib_ms:.4f} ms (kernel / sdpa "
                   f"{ms / lib_ms:.2f})  bound {b_ms:.4f} ms ({b_by}, share "
                   f"{b_ms / ms:.3f})", flush=True)
-            if B == 8 and dtype == torch.bfloat16:
+            if (B, H, dtype) == (8, 32, torch.bfloat16):
                 row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
             del q, kp, vp, kd, vd, out, again, ref
@@ -1030,6 +1052,8 @@ def serve_paged(torch, kernels) -> dict:
     reset_counts(kernels)
     summary, server = serve.run(serve.parse_args(PAGED_ARGS))
     counts = read_counts(kernels)
+    print(f"[main] paged serve tokens crc32 {summary['tokens_crc32']:08x}",
+          flush=True)
     layers = server.model.cfg.n_layers
     print(f"[main] paged serve: {summary['completed']} requests, "
           f"{summary['tokens']} tokens, {summary['steps']} decode steps in "
@@ -1055,7 +1079,7 @@ def serve_paged(torch, kernels) -> dict:
             if not torch.isfinite(pool).all():
                 raise AssertionError(f"non-finite KV in {name}/{key}")
     print("[main] trash page all zero, KV pools finite", flush=True)
-    return counts
+    return counts, summary
 
 
 def serve_dense(kernels) -> None:
@@ -3465,6 +3489,480 @@ def train_nested(torch, unpiped: list) -> dict:
             for k in ranks[0]["bf16/gpipe"]["counts"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: serving over a mesh
+# ---------------------------------------------------------------------------
+
+#: run 2: the dense, sequence-split cache at full depth
+TP_DENSE_ARGS = ["--arch", ARCH, "--cache", "dense", "--requests", "8",
+                 "--batch-slots", "8", "--prompt-len", "500", "--gen", "64",
+                 "--max-len", "1024"]
+#: run 4: data 2 x model 2 at 4 layers, a pool of 66 usable pages: 8
+#: admissions take 64, the growth past row 512 preempts
+DP_TP_ARGS = PAGED_ARGS + ["--overrides", "n_layers=4", "--pages", "67"]
+#: run 5: f32 at 2 layers
+F32_SERVE = ["--requests", "4", "--batch-slots", "4", "--prompt-len", "500",
+             "--gen", "16", "--max-len", "1024", "--overrides",
+             "n_layers=2,dtype=float32"]
+TF_STEPS = 16                   # teacher-forced decode steps
+TF_PROMPT = 500                 # two prompts of this many tokens
+#: teacher-forced runs: name -> (layers, activation dtype, caches)
+TF_RUNS = {"bf16": (22, "bfloat16", ("paged", "dense")),
+           "bf16_4": (4, "bfloat16", ("paged",)),
+           "f32": (2, "float32", ("paged", "dense")),
+           "f32_22": (22, "float32", ("paged", "dense")),
+           "f32_4": (4, "float32", ("paged",))}
+TF_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+#: a bf16 run's yardstick: bf16's own error, the unsharded bf16 run's
+#: paged logits against the same weights' in f32 at the same depth
+TF_YARDSTICK = {"bf16": "f32_22", "bf16_4": "f32_4"}
+#: the bf16 gate in yardsticks: two bf16 computations of the same logits,
+#: each within bf16's own error of the f32 ones, lie within twice it of
+#: each other
+TF_PAIR = 2.0
+#: the runs of one depth share one draw of the weights
+TF_DEPTHS = {22: ("bf16", "f32_22"), 4: ("bf16_4", "f32_4"), 2: ("f32",)}
+
+
+def _tf_model(torch, name: str):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import Model
+
+    layers, dtype, _ = TF_RUNS[name]
+    return Model(dataclasses.replace(get_config(ARCH), n_layers=layers,
+                                     dtype=dtype))
+
+
+def teacher_forced(torch, model, plan, params, cache: str):
+    """Two prompts of TF_PROMPT tokens prefilled into a Server's two slots
+    (``plan`` over a mesh, or ``None``), then TF_STEPS decode steps fed
+    fixed tokens: each prefill's logits, then every step's for both slots,
+    as one (2 + 2·TF_STEPS, Vp) f32 host tensor (gathered over the
+    mesh)."""
+    import numpy as np
+
+    from repro_torch.serving.server import Request, Server
+
+    rng = np.random.default_rng(26)
+    V = model.cfg.vocab
+    prompts = [rng.integers(0, V, TF_PROMPT) for _ in range(2)]
+    forced = torch.as_tensor(rng.integers(0, V, (TF_STEPS, 2)))
+    server = Server(model, plan, batch_slots=2, max_len=1024, eos_id=-1,
+                    cache=cache, page_size=64)
+    rows = []
+    real_prefill, real_step = server.plan.prefill_fn, server._step
+
+    def prefill_fn(gb):
+        fn = real_prefill(gb)
+
+        def run(*a, **kw):
+            logits, st = fn(*a, **kw)
+            rows.append(logits.float().cpu())
+            return logits, st
+        return run
+
+    def step(*a):
+        logits, st = real_step(*a)
+        rows.append(server.plan.gather_slots(logits).float().cpu())
+        return logits, st
+
+    server.plan.prefill_fn, server._step = prefill_fn, step
+    try:
+        for i, p in enumerate(prompts):
+            server.admit(params, Request(i, p, max_new=1 << 30), i)
+        for t in forced:
+            server.tokens = t.to(server.device)
+            server.step(params)
+    finally:
+        del server.plan.prefill_fn
+    return torch.cat(rows)
+
+
+def tf_gap(got, want, tol: float) -> dict:
+    """Max |diff| of two teacher-forced logit tables, and the worst
+    |diff| / (tol + tol|want|) (above 1 fails); a NaN counts as an
+    infinite gap."""
+    d = (got - want).abs().nan_to_num(nan=math.inf)
+    return {"max_abs": float(d.max()),
+            "worst": float((d / (tol + tol * want.abs())).max()),
+            "rows": [float(f"{x:.3g}") for x in d.amax(-1)]}
+
+
+def instrument_servers(torch, stats: dict, rec: dict) -> None:
+    """Wrap the Server's ``admit`` and ``step`` so each call adds its host
+    seconds (ending in a sync) and its gloo seconds (``stats``, from
+    :func:`time_collectives`) to ``rec``; the first admission of a run
+    resets the peak memory, so the run's peak is its serving peak."""
+    from repro_torch.serving import server as srv
+
+    for name in ("admit", "step"):
+        real = getattr(srv.Server, name)
+
+        def timed(self, *a, _real=real, _name=name, **kw):
+            if _name == "admit" and not rec["admit"]:
+                torch.cuda.reset_peak_memory_stats()
+            g0, t0 = stats["s"], time.perf_counter()
+            out = _real(self, *a, **kw)
+            torch.cuda.synchronize()
+            rec[_name].append((time.perf_counter() - t0, stats["s"] - g0))
+            return out
+
+        setattr(srv.Server, name, timed)
+
+
+def _held_bytes(torch, server) -> tuple:
+    """(weight bytes, KV bytes) this rank holds: its blocks of the serving
+    parameters (bf16 or f32 but the f32 leaves) and its pools or cache."""
+    import math
+
+    from repro_torch.tree import flatten
+
+    plan, model = server.plan, server.model
+    size = plan.rules.axis_size
+    w = 0
+    paths, shapes = flatten(model.param_shapes())
+    for path, m, spec in zip(paths, shapes, flatten(plan.param_specs)[1]):
+        n = math.prod(d // size(e) for d, e in zip(m.shape, spec))
+        leaf = path.split("/")[-1]
+        w += n * (4 if leaf in model.F32_LEAVES
+                  else torch.empty((), dtype=model.cfg.adtype).element_size())
+    kv = server.pools if server.cache == "paged" else server.state["cache"]
+    return w, sum(t.numel() * t.element_size() for t in flatten(kv)[1])
+
+
+def _serve_run(torch, kernels, argv: list, rec: dict) -> dict:
+    """One run of the serving driver's meshed branch (``serve.run``) on
+    this rank, with launches, admission and step seconds, peaks and
+    bytes held."""
+    from repro_torch.launch import serve
+
+    rec["admit"], rec["step"] = [], []
+    reset_counts(kernels)
+    summary, server = serve.run(serve.parse_args(argv))
+    out = {k: summary[k] for k in ("completed", "tokens", "steps", "seconds",
+                                   "tokens_crc32", "out_tokens",
+                                   "preemptions")}
+    out["counts"] = read_counts(kernels)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["weights"], out["kv"] = _held_bytes(torch, server)
+    out["admit"], out["step"] = list(rec["admit"]), list(rec["step"])
+    out["model_rank"] = server.plan.rules.index("model")
+    out["data_rank"] = server.plan.rules.index("data")
+    for kv in (server.pools.values() if server.cache == "paged" else ()):
+        for key, pool in kv.items():
+            if pool[:, 0].any() or not torch.isfinite(pool).all():
+                out["bad_pool"] = True
+    return out
+
+
+def _tf_compare(torch, names: tuple, plan_mesh, ref_dir: str,
+                out: dict) -> None:
+    """Run each of TF_RUNS[names] (one depth: one draw of the weights, each
+    run serving its own cast of it) under ``plan_mesh`` for each of its
+    caches and hold the logits against the unsharded process's (in
+    ``ref_dir``).  The bf16 run at full depth runs its dense cache once
+    more with a planted fault, the max of the sequence-split softmax left
+    unreduced (each rank's own), which the bf16 gate must reject."""
+    from repro_torch.core import sharding
+    from repro_torch.core.planner import compile_plan
+
+    masters = None
+    for name in names:
+        model = _tf_model(torch, name)
+        plan = compile_plan(model, plan_mesh)
+        if masters is None:
+            masters = plan.init_params(0)
+        params = model.serving_params(masters)
+        _, dtype, caches = TF_RUNS[name]
+        runs = [(cache, cache) for cache in caches]
+        if name == "bf16" and plan_mesh is not None:
+            runs.append(("dense", "dense_fault"))
+        for cache, tag in runs:
+            real = sharding.all_reduce_max
+            if tag.endswith("_fault"):
+                sharding.all_reduce_max = lambda m, split: m
+            try:
+                got = teacher_forced(torch, model, plan, params, cache)
+            finally:
+                sharding.all_reduce_max = real
+            want = torch.load(os.path.join(ref_dir,
+                                           f"tf_{name}_{cache}.pt"))
+            out[f"tf/{name}/{tag}"] = tf_gap(got, want, TF_TOL[dtype])
+        del params
+
+
+def _serve_tp_rank(rank: int, store: str, out_dir: str, ref_dir: str) -> None:
+    """One rank of phase 26 runs 1-3 and 5 on ``cuda:0``: a gloo world of
+    two, every run through ``serve.run`` with ``--mesh 1x2`` (the driver's
+    meshed branch) or through the plan's Server (teacher-forced)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import parse_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    kernels = kernel_wrappers()
+    stats, rec = {"s": 0.0, "n": 0}, {"admit": [], "step": []}
+    out = {}
+    try:
+        time_collectives(torch, dist, stats)
+        instrument_servers(torch, stats, rec)
+        mesh = ["--mesh", "1x2"]
+        out["paged"] = _serve_run(torch, kernels, PAGED_ARGS + mesh, rec)
+        torch.cuda.empty_cache()
+        out["dense"] = _serve_run(torch, kernels, TP_DENSE_ARGS + mesh, rec)
+        torch.cuda.empty_cache()
+        for cache in ("paged", "dense"):
+            out[f"f32/{cache}"] = _serve_run(
+                torch, kernels, ["--arch", ARCH, "--cache", cache,
+                                 "--page-size", "64"] + F32_SERVE + mesh,
+                rec)
+        for depth in (22, 2):
+            _tf_compare(torch, TF_DEPTHS[depth], parse_mesh("1x2"), ref_dir,
+                        out)
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _serve_dp_tp_rank(rank: int, store: str, out_dir: str,
+                      ref_dir: str) -> None:
+    """One rank of phase 26 run 4 on ``cuda:0``: a gloo world of four,
+    ``--mesh 2x2`` at 4 layers with a pool that preempts, then the
+    teacher-forced paged run at 4 layers."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import parse_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 4),
+                            rank=rank, world_size=4)
+    kernels = kernel_wrappers()
+    stats, rec = {"s": 0.0, "n": 0}, {"admit": [], "step": []}
+    out = {}
+    try:
+        time_collectives(torch, dist, stats)
+        instrument_servers(torch, stats, rec)
+        out["paged"] = _serve_run(torch, kernels,
+                                  DP_TP_ARGS + ["--mesh", "2x2"], rec)
+        _tf_compare(torch, ("bf16_4",), parse_mesh("2x2"), ref_dir, out)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _unsharded_references(torch, ref_dir: str) -> dict:
+    """Run here, before the ranks: each TF_RUNS entry's teacher-forced
+    logits saved to ``ref_dir`` for the ranks to read; the unsharded
+    driver's tokens of run 4's and run 5's workloads."""
+    from repro_torch.launch import serve
+
+    for names in TF_DEPTHS.values():
+        masters = None
+        for name in names:
+            model = _tf_model(torch, name)
+            if masters is None:
+                masters = model.init(0)
+            params = model.serving_params(masters)
+            for cache in TF_RUNS[name][2]:
+                torch.save(teacher_forced(torch, model, None, params, cache),
+                           os.path.join(ref_dir, f"tf_{name}_{cache}.pt"))
+            del params
+        del masters
+        torch.cuda.empty_cache()
+    want = {"dp_tp": serve.main(DP_TP_ARGS)}
+    for cache in ("paged", "dense"):
+        want[f"f32/{cache}"] = serve.main(["--arch", ARCH, "--cache", cache,
+                                           "--page-size", "64"] + F32_SERVE)
+    torch.cuda.empty_cache()
+    return want
+
+
+def _same_tokens(got: dict, want: dict) -> tuple:
+    """(tokens equal position by position, tokens in ``want``), the
+    requests keyed by id (JSON turns the keys into strings)."""
+    same = total = 0
+    for rid, toks in want.items():
+        mine = got.get(str(rid), got.get(rid, []))
+        total += len(toks)
+        same += sum(a == b for a, b in zip(mine, toks))
+    return same, total
+
+
+def _report_run(tag: str, ranks: list, run: str, layers: int,
+                fails: list) -> None:
+    """Print each rank's line of one served run; fail on a rank whose
+    tokens or launches differ from what the run must give."""
+    first = ranks[0][run]
+    for r in ranks:
+        o = r[run]
+        adm = [a for a, _ in o["admit"]]
+        stp = [s for s, _ in o["step"]]
+        print(f"[serve-tp] {tag} data {o['data_rank']} model "
+              f"{o['model_rank']}: {o['completed']} requests, {o['tokens']} "
+              f"tokens, {o['steps']} steps, {o['preemptions']} preemptions "
+              f"in {o['seconds']:.3f} s (host clock; ranks time-slice one "
+              f"card and sum activations through host memory: not a "
+              f"throughput); admission (TTFT without queueing) median "
+              f"{statistics.median(adm) * 1e3:.1f} ms, of it gloo "
+              f"{statistics.median(g for _, g in o['admit']) * 1e3:.1f}; "
+              f"decode step (TPOT) median {statistics.median(stp) * 1e3:.1f}"
+              f" ms, of it gloo "
+              f"{statistics.median(g for _, g in o['step']) * 1e3:.1f}; "
+              f"peak device memory while serving {o['peak'] / 2**30:.3f} "
+              f"GiB beside weights {o['weights'] / 2**30:.3f} + KV "
+              f"{o['kv'] / 2**30:.3f} GiB held; launches {o['counts']}",
+              flush=True)
+        if o["tokens_crc32"] != first["tokens_crc32"] \
+                or o["out_tokens"] != first["out_tokens"]:
+            fails.append(f"{tag}: the ranks report different tokens")
+        if o.get("bad_pool"):
+            fails.append(f"{tag}: a trash page written or a pool not finite")
+        prefills = len(first["out_tokens"]) + o["preemptions"]
+        want = {"flash_fwd": layers * prefills,
+                "paged_decode": layers * o["steps"] if "paged" in run
+                else 0}
+        got = {k: o["counts"][k] for k in want}
+        if got != want or sum(o["counts"].values()) != sum(got.values()):
+            fails.append(f"{tag}: launches {o['counts']}, want {want}")
+
+
+def serve_tp(torch, kernels, paged4: dict) -> dict:
+    """Phase 26: serving over a mesh.  Here first, unsharded: the
+    teacher-forced logits of TF_RUNS and the tokens of runs 4 and 5's
+    workloads.  Then two ranks on ``cuda:0`` over gloo (NCCL refuses two
+    ranks on one card) serve through the driver's meshed branch at split×2
+    (run 1: phase 4's workload, paged, full width and depth; run 2: dense,
+    the sequence-split cache; run 5: f32 at 2 layers, both caches) and
+    hold the teacher-forced logits (run 3, both caches at full depth; run
+    5's in f32); four ranks serve data 2 x model 2 at 4 layers with a pool
+    that preempts (run 4).  Then the driver's ``--mesh 1x1`` at full width
+    in this process (run 6).  Printed before anything is held: each rank's
+    launches, TTFT and TPOT with their gloo seconds, peaks beside the
+    weights and KV held, the tokens against the unsharded ones as a count.
+    Held: every rank's tokens equal; launches those of its admissions and
+    steps; the teacher-forced logits in f32 (2 layers, and 22) within 1e-4
+    + 1e-4|x|; in bf16 within 2e-2 + 2e-2|x| scaled by TF_PAIR times
+    bf16's own error at the same depth (the yardstick: the worst share of
+    that limit of the unsharded bf16 logits against the same weights' in
+    f32, which exceeds 1 at depth), and a planted fault (the dense cache's
+    max left unreduced) must fall outside that gate; f32 tokens equal to the
+    unsharded server's; run 4 preempts.  Returns the launch counts of
+    runs 1, 2, 4 and 6, summed over ranks."""
+    from repro_torch.launch import serve
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_tp_")
+    t00 = time.perf_counter()
+    try:
+        want = _unsharded_references(torch, tmp)
+        yard = {b: tf_gap(*(torch.load(os.path.join(tmp, f"tf_{n}_paged.pt"))
+                            for n in (b, f)), TF_TOL["bfloat16"])
+                for b, f in TF_YARDSTICK.items()}
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_serve_tp_rank, tmp, timeout=400)
+        t1 = time.perf_counter()
+        ranks4 = spawn_ranks(_serve_dp_tp_rank, tmp, nprocs=4, timeout=300)
+        print(f"[serve-tp] the unsharded references {t0 - t00:.1f} s; two "
+              f"ranks {t1 - t0:.1f} s; four ranks "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ranks.sort(key=lambda r: r["paged"]["model_rank"])
+    ranks4.sort(key=lambda r: (r["paged"]["data_rank"],
+                               r["paged"]["model_rank"]))
+    fails = []
+    _report_run("run 1 split×2 paged, 22 layers", ranks, "paged", 22, fails)
+    _report_run("run 2 split×2 dense, 22 layers", ranks, "dense", 22, fails)
+    _report_run("run 4 data 2 x model 2 paged, 4 layers", ranks4, "paged", 4,
+                fails)
+    for cache in ("paged", "dense"):
+        _report_run(f"run 5 split×2 {cache} f32, 2 layers", ranks,
+                    f"f32/{cache}", 2, fails)
+    for tag, got, ref in (
+            ("run 1 against phase 4 (unsharded)", ranks[0]["paged"],
+             paged4),
+            ("run 4 against one unsharded process at 4 layers",
+             ranks4[0]["paged"], want["dp_tp"]),
+            ("run 5 paged f32 against the unsharded server",
+             ranks[0]["f32/paged"], want["f32/paged"]),
+            ("run 5 dense f32 against the unsharded server",
+             ranks[0]["f32/dense"], want["f32/dense"])):
+        same, total = _same_tokens(got["out_tokens"], ref["out_tokens"])
+        print(f"[serve-tp] {tag}: {same} of {total} tokens equal position "
+              f"by position; crc32 {got['tokens_crc32']:08x} vs "
+              f"{ref['tokens_crc32']:08x}", flush=True)
+        if tag.startswith("run 5") and same != total:
+            fails.append(f"{tag}: f32 tokens differ")
+    if not ranks4[0]["paged"]["preemptions"]:
+        fails.append("run 4 never preempted")
+    for b, f in TF_YARDSTICK.items():
+        print(f"[serve-tp] yardstick {b}: bf16's own error, one unsharded "
+              f"process's teacher-forced paged logits at {TF_RUNS[b][0]} "
+              f"layers in bf16 against the same weights in f32: max |diff| "
+              f"{yard[b]['max_abs']:.3e}, worst share of 0.02 + 0.02|x| "
+              f"{yard[b]['worst']:.3f}; the gate {TF_PAIR:g} x it",
+              flush=True)
+    for rs, names in ((ranks, ("bf16", "f32", "f32_22")),
+                      (ranks4, ("bf16_4",))):
+        for name in names:
+            faults = ("dense_fault",) if name == "bf16" else ()
+            for cache in TF_RUNS[name][2] + faults:
+                key = f"tf/{name}/{cache}"
+                gaps = [r[key] for r in rs]
+                gap = max(g["max_abs"] for g in gaps)
+                worst = max(g["worst"] for g in gaps)
+                tol = TF_TOL[TF_RUNS[name][1]]
+                print(f"[serve-tp] teacher-forced {name} ({TF_RUNS[name][0]}"
+                      f" layers) {cache}: logits of 2 prefills and "
+                      f"{TF_STEPS} steps x 2 slots against one unsharded "
+                      f"process, max |diff| {gap:.3e}, worst share of "
+                      f"{tol:g} + {tol:g}|x| {worst:.3f}; max |diff| by row "
+                      f"(2 prefills, then the steps' slots) "
+                      f"{gaps[0]['rows']}", flush=True)
+                if name in TF_YARDSTICK:
+                    # the limit's own measure (share of tol + tol|x|),
+                    # scaled to bf16's own error at this depth
+                    gate = TF_PAIR * yard[name]["worst"]
+                    beyond = worst > gate
+                    if beyond != cache.endswith("_fault"):
+                        fails.append(f"{key}: worst share {worst:.3f} "
+                                     f"{'beyond' if beyond else 'within'} "
+                                     f"the bf16 gate {gate:.3f}")
+                elif worst > 1:
+                    fails.append(f"{key} logits outside {tol:g} + {tol:g}|x|")
+    reset_counts(kernels)
+    one = serve.main(PAGED_ARGS + ["--mesh", "1x1"])
+    one_counts = read_counts(kernels)
+    print(f"[serve-tp] run 6 serve --mesh 1x1 --cache paged (a world of one "
+          f"over NCCL, through main): {one['completed']} requests, "
+          f"{one['tokens']} tokens, {one['steps']} steps in "
+          f"{one['seconds']:.3f} s; crc32 {one['tokens_crc32']:08x} vs "
+          f"phase 4's {paged4['tokens_crc32']:08x}; launches {one_counts}",
+          flush=True)
+    if one["completed"] != 16 or one_counts["paged_decode"] != \
+            22 * one["steps"] or one_counts["flash_fwd"] != 22 * 16:
+        fails.append(f"run 6: {one['completed']} requests, launches "
+                     f"{one_counts}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+    def total(rs, run):
+        return {k: sum(r[run]["counts"][k] for r in rs) for k in one_counts}
+
+    return {"serve_tp": total(ranks, "paged"),
+            "serve_tp_dense": total(ranks, "dense"),
+            "serve_dp_tp": total(ranks4, "paged"),
+            "serve_mesh_1x1": one_counts}
+
+
 @contextlib.contextmanager
 def phase(name: str):
     t0 = time.perf_counter()
@@ -3545,7 +4043,7 @@ def main() -> None:
 
     kernels = kernel_wrappers()
     with phase("serve (paged, main serving path)"):
-        serve_counts = serve_paged(torch, kernels)
+        serve_counts, paged4 = serve_paged(torch, kernels)
     with phase("serve (dense)"):
         serve_dense(kernels)
     with phase("serve agreement"):
@@ -3602,6 +4100,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     with phase("Whale's nested hybrid (split×2 pipeline×2, 4 ranks)"):
         nested_counts = train_nested(torch, unpiped)
+    torch.cuda.empty_cache()
+    with phase("serving over a mesh (split×2, data 2 x model 2; 2 and 4 "
+               "ranks)"):
+        serve_tp_counts = serve_tp(torch, kernels, paged4)
 
     meta = {
         "flash_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
@@ -3643,7 +4145,8 @@ def main() -> None:
                    "train_uneven_dp": uneven_counts[name],
                    "train_tp": tp_counts[name],
                    "train_hybrid_zero": zero_counts[name],
-                   "train_pipeline_tp": nested_counts[name]}
+                   "train_pipeline_tp": nested_counts[name],
+                   **{path: c[name] for path, c in serve_tp_counts.items()}}
         table.append(dict(name=name, route="cuda", source=meta[name][0],
                           replaces=meta[name][1],
                           launches=sum(by_path.values()),

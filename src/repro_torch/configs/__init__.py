@@ -3,6 +3,7 @@ far; the other configs of ``repro.configs`` come with their model
 families)."""
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 from repro_torch.configs.base import LMCfg, shrink  # noqa: F401
@@ -21,3 +22,16 @@ def get_config(name: str, smoke: bool = False) -> LMCfg:
     mod = importlib.import_module(
         f"repro_torch.configs.{_ARCH_MODULES[name]}")
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+def apply_overrides(cfg: LMCfg, spec: str) -> LMCfg:
+    """``cfg`` with the drivers' ``--overrides`` (comma ``k=v``, each value
+    read as the field's type) applied."""
+    if not spec:
+        return cfg
+    kv = {}
+    for pair in spec.split(","):
+        k, v = pair.split("=")
+        cur = getattr(cfg, k)
+        kv[k] = type(cur)(v) if not isinstance(cur, bool) else v == "True"
+    return dataclasses.replace(cfg, **kv)

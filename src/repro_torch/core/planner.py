@@ -63,6 +63,17 @@ parameter slice (zero 2 runs as zero 1, as in the reference); the clip
 norm sums each leaf's squares over the axes it is split over.  Still
 refused, each naming its ROADMAP item: ZeRO with ``compress_pod``, ZeRO
 with uneven batch shares, and adafactor over a split model.
+
+Serving (the reference's ``jit_prefill``, ``jit_serve_step``,
+``jit_serve_step_paged``): :meth:`ExecutionPlan.prefill_fn`,
+:meth:`~ExecutionPlan.serve_step_fn` and
+:meth:`~ExecutionPlan.serve_step_paged_fn` return plain functions that
+enter the plan's rules on every call and run without autograd; the decode
+states are laid out by the reference's :meth:`~ExecutionPlan.state_specs`
+and :meth:`~ExecutionPlan.paged_state_specs`, slots over the data axes
+(:meth:`~ExecutionPlan.slot_block`).  Refused, each naming its ROADMAP
+item: serving inside a pipeline, the ssm family over a model axis, ZeRO-3's
+data-sharded parameters, and decode in the ``repeat`` layout.
 """
 from __future__ import annotations
 
@@ -79,6 +90,7 @@ from repro_torch.core.hetero import (plan_placement, proportional_split,
                                      strategy_fits_cluster)
 from repro_torch.core.schedule import SCHEDULE_NAMES
 from repro_torch.launch.mesh import make_mesh, mesh_shape
+from repro_torch.models.attention import decode_split
 from repro_torch.optim.optimizer import sharded_global_norm
 from repro_torch.tree import flatten, tree_map, unflatten
 
@@ -87,6 +99,14 @@ ZERO_COMPRESS_SLICE = ("ZeRO with compress_pod (the compressed cross-pod "
                        "later slice of the port (ROADMAP.md queue A item 4)")
 ZERO_UNEVEN_SLICE = ("ZeRO with uneven batch shares comes with a later slice "
                      "of the port (ROADMAP.md queue A item 4)")
+PIPELINE_SERVE_SLICE = ("serving inside a pipeline (pp > 1) comes with a later "
+                        "slice of the port (ROADMAP.md queue A item 4)")
+SSM_SPLIT_SERVE_SLICE = ("serving the ssm family over a model axis (the SSD "
+                         "mixer's split) comes with mamba2 training, a later "
+                         "slice of the port (ROADMAP.md queue A item 7)")
+ZERO3_SERVE_SLICE = ("serving parameters sharded over data (zero=3) comes "
+                     "with a later slice of the port (ROADMAP.md queue A "
+                     "item 4)")
 ADAFACTOR_SPLIT_SLICE = ("adafactor over a split model (its factored moments' "
                          "means across shards) comes with a later slice of "
                          "the port (ROADMAP.md queue A item 4)")
@@ -644,6 +664,165 @@ class ExecutionPlan:
             micro_batches=micro_batches or self.strategy.micro_batches or 1,
             stage_layers=stage_layers or self.stage_layers(),
             schedule=schedule or self.strategy.schedule)
+
+    def split_line(self, stage_layers=None) -> str:
+        """How the plan lays the model out, for the drivers' ``[plan]``
+        line: its mesh, what the model and data axes split, and a
+        pipeline's stage layers."""
+        st = self.strategy
+        shape = mesh_shape(self.mesh) if self.mesh is not None else None
+        parts = [f"mesh {shape}"]
+        if st.model_parallel > 1:
+            parts.append(f"split×{st.model_parallel} over model (heads, MLP "
+                         f"columns{', vocab' if st.vocab_split else ''})")
+        if st.pp > 1:
+            parts.append(f"pipeline×{st.pp} over stage, stage layers "
+                         f"{tuple(stage_layers or self.stage_layers())}")
+        elif st.zero:
+            what = ("optimizer state" if st.zero < 3
+                    else "parameters, gradients and optimizer state")
+            parts.append(f"zero={st.zero}: {what} over data")
+        return "; ".join(parts)
+
+    # ---- serving ----
+    def _spec_tree(self, axes: dict, shapes: dict) -> dict:
+        """Each leaf's spec by the rules (all ``None`` without rules):
+        ``rules.spec_for(names, shape)``, the reference's."""
+        rules = self.rules or sharding.ShardingRules(shape={})
+        return tree_map(lambda names, sd: rules.spec_for(names, sd[0]),
+                        axes, shapes)
+
+    def state_specs(self, batch: int, cache_len: int) -> dict:
+        """The dense decode state's specs (the reference's): slots over
+        the data axes; a KV cache's sequence over ``model`` where the
+        cache length divides it, else its kv heads."""
+        return self._spec_tree(self.model.state_axes(),
+                               self.model.decode_state_shapes(batch,
+                                                              cache_len))
+
+    def paged_state_specs(self, batch: int, n_pages: int, page_size: int,
+                          max_pages: int) -> dict:
+        """The paged decode state's specs (the reference's): the pools'
+        kv heads over ``model``, pages and rows whole; block-table rows
+        and positions over the data axes."""
+        return self._spec_tree(self.model.paged_state_axes(),
+                               self.model.paged_state_shapes(
+                                   batch, n_pages, page_size, max_pages))
+
+    def local_zeros(self, shapes: dict, specs: dict) -> dict:
+        """Zeroed blocks of a state on the model's device: each leaf of
+        ``shapes`` (``(shape, dtype)`` pairs) cut as its spec says."""
+        size = (self.rules.axis_size if self.rules is not None
+                else lambda entry: 1)
+        return tree_map(
+            lambda sd, spec: torch.zeros(
+                [n // size(e) for n, e in zip(sd[0], spec)], dtype=sd[1],
+                device=self.model.device), shapes, specs)
+
+    def slot_block(self, batch: int) -> tuple:
+        """This rank's decode slots ``[lo, hi)`` of ``batch``: split over
+        the data axes, pod-major (the state specs' ``batch`` dim); a batch
+        they do not divide raises ``ValueError``."""
+        if self.mesh is None:
+            return 0, batch
+        shape = mesh_shape(self.mesh)
+        dp = shape.get("pod", 1) * shape.get("data", 1)
+        if batch % dp:
+            raise ValueError(f"{batch} decode slots do not divide over pod x "
+                             f"data = {dp} replicas")
+        n = batch // dp
+        return self._index() * n, (self._index() + 1) * n
+
+    def gather_slots(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's slots of ``t`` (dim 0) in slot order: gathered over
+        the data axes, minor first.  Over gloo the gather runs on the host
+        (a card's tensor is copied there once and comes back on the
+        host)."""
+        for axis in ("data", "pod"):
+            group = self._group(axis)
+            if group is None:
+                continue
+            if sharding._via_host(group, t):
+                t = t.cpu()
+            t = sharding.gather_cat(t, group, 0)
+        return t
+
+    def _serving_rules(self):
+        """The rules the serving functions run under (``None`` without a
+        mesh), after the refusals of later slices."""
+        if self.strategy.pp > 1:
+            raise NotImplementedError(PIPELINE_SERVE_SLICE)
+        if self.model.cfg.family != "dense" \
+                and self.strategy.model_parallel > 1:
+            raise NotImplementedError(SSM_SPLIT_SERVE_SLICE)
+        if self.sharded and self.strategy.zero >= 3:
+            raise NotImplementedError(ZERO3_SERVE_SLICE)
+        return self.rules if self.mesh is not None else None
+
+    def _serving(self, fn: Callable) -> Callable:
+        """``fn(*args) → (logits, state)`` run under the plan's rules,
+        entered on every call (so on whatever thread calls it) without
+        autograd, its logits (this rank's vocab columns) gathered whole
+        over ``model``."""
+        rules = self._serving_rules()
+        vp = self.model.cfg.padded_vocab
+
+        def run(*args, **kw):
+            with sharding.use_rules(rules), torch.no_grad():
+                logits, state = fn(*args, **kw)
+                split = sharding.split_of("vocab", vp)
+                if split is not None:
+                    logits = sharding.gather_cat(logits, split.group, -1)
+            return logits, state
+
+        return run
+
+    def _decoding(self, batch: int) -> None:
+        """The decode steps' refusals: slots the data axes do not divide,
+        and a layout decode has no split for (``decode_split``)."""
+        self._serving_rules()
+        self.slot_block(batch)
+        if self.model.cfg.family == "dense":
+            with sharding.use_rules(self.rules):
+                decode_split(self.model.cfg.attn_cfg())
+
+    def prefill_fn(self, gen_budget: int = 64) -> Callable:
+        """``(params, batch, last_idx=None) → (logits (B, Vp), state)``:
+        :meth:`Model.prefill` under the plan (the reference's
+        ``jit_prefill``).  Every rank prefills the same batch, replicated
+        over the data axes and split over ``model`` (the flash kernel on
+        this rank's heads); the state is the split model's (this rank's
+        kv heads)."""
+        model = self.model
+        return self._serving(lambda params, batch, last_idx=None:
+                             model.prefill(params, batch, gen_budget,
+                                           last_idx))
+
+    def serve_step_fn(self, batch: int, cache_len: int) -> Callable:
+        """``(params, tokens, state) → (logits (b, Vp), state)``:
+        :meth:`Model.serve_step` under the plan (the reference's
+        ``jit_serve_step``) on this rank's ``b`` slots of ``batch``
+        (:meth:`slot_block`), the state its blocks by
+        :meth:`state_specs` (``cache_len`` rows; where they split the
+        sequence the step is told so), written in place."""
+        self._decoding(batch)
+        caches = self.state_specs(batch, cache_len)["cache"].values()
+        seq_split = any(
+            spec[2] is not None and self.rules.axis_size(spec[2]) > 1
+            for leaves in caches for key, spec in leaves.items()
+            if key in ("k", "v"))
+        model = self.model
+        return self._serving(lambda params, tokens, state: model.serve_step(
+            params, tokens, state, seq_split))
+
+    def serve_step_paged_fn(self, batch: int, n_pages: int, page_size: int,
+                            max_pages: int) -> Callable:
+        """``(params, tokens, state) → (logits (b, Vp), state)``:
+        :meth:`Model.serve_step_paged` under the plan (the reference's
+        ``jit_serve_step_paged``) on this rank's slots, its pools by
+        :meth:`paged_state_specs` (this rank's kv heads of every page)."""
+        self._decoding(batch)
+        return self._serving(self.model.serve_step_paged)
 
 
 # ---------------------------------------------------------------------------

@@ -4,12 +4,16 @@ A mesh is a :class:`torch.distributed.device_mesh.DeviceMesh` whose
 ``mesh_dim_names`` are the reference's axis names (``pod``, ``stage``,
 ``data``, ``model``).  It needs the default process group, one rank per
 device: ``torchrun`` (or :func:`torch.distributed.init_process_group`) sets
-it up, ``launch/train.py`` makes a world of one where neither did.
+it up; the drivers make a world of one where neither did
+(:func:`start_world`).
 """
 from __future__ import annotations
 
 import math
+import os
+import time
 
+import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
@@ -55,3 +59,42 @@ def parse_mesh(spec: str, *, device_type: str = "cuda") -> DeviceMesh:
 def mesh_shape(mesh: DeviceMesh) -> dict:
     """{axis name: size}, as ``dict(jax_mesh.shape)``."""
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def under_torchrun() -> bool:
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def start_world(device: torch.device, store_dir: str) -> tuple:
+    """Make the default process group: under ``torchrun`` from its
+    environment (each rank on ``cuda:LOCAL_RANK``), else a world of one
+    over a ``FileStore`` in ``store_dir``; NCCL on the card, gloo on the
+    CPU.  Returns (this rank's device, the FileStore's path or ``""``)
+    for :func:`end_world`."""
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    torchrun = under_torchrun()
+    if device.type == "cuda" and torchrun:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    if device.index is not None:
+        torch.cuda.set_device(device)
+    if torchrun:
+        dist.init_process_group(backend)
+        return device, ""
+    os.makedirs(store_dir, exist_ok=True)
+    path = os.path.join(store_dir,
+                        f".filestore_{os.getpid()}_{time.time_ns()}")
+    dist.init_process_group(backend, store=dist.FileStore(path, 1), rank=0,
+                            world_size=1)
+    return device, path
+
+
+def end_world(store: str | None) -> None:
+    """Undo :func:`start_world` (``None``: it made no group)."""
+    if store is None:
+        return
+    dist.destroy_process_group()
+    if store:
+        try:
+            os.remove(store)
+        except FileNotFoundError:
+            pass

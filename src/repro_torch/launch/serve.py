@@ -9,6 +9,21 @@ weights from ``--seed`` and drives it in one of two modes:
   admission control and per-request TTFT/TPOT/e2e accounting
   (:mod:`repro_torch.serving.metrics`).
 
+Over a mesh, as the reference's driver serves: ``--mesh`` lays the ranks
+out as ``data × model`` (``DxM``) or ``pod × data × model`` (``PxDxM``),
+and the plan :func:`~repro_torch.core.planner.compile_plan` reads off it
+(the reference's default strategy: data parallelism over ``pod`` and
+``data``, a ``model`` axis split with the vocab) drives a
+:class:`~repro_torch.serving.server.Server` whose slots split over the
+data axes and whose heads, vocab and KV cache split over ``model``; the
+parameters are each rank's blocks (``plan.init_params``).  It serves under
+``torchrun``: every rank runs the same loop on the same requests, and rank
+0 prints.  A mesh of more than one device outside ``torchrun`` exits
+("needs N ranks"); ``--mesh 1x1`` outside it is a world of one over a
+``FileStore`` in a temporary directory.  Under ``torchrun`` without
+``--mesh`` every rank is a data replica.  Collectives go over NCCL on the
+card and gloo on the CPU.
+
 Runs on the card unless ``--device cpu`` is given; without a card and
 without ``--device cpu`` it raises.
 
@@ -23,17 +38,29 @@ Usage::
 
     python -m repro_torch.launch.serve --arch mamba2-1.3b --cache dense
 
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \
+        --smoke --device cpu --mesh 2x2 --cache paged --requests 8 \
+        --batch-slots 4 --gen 8 --max-len 64 --overrides n_kv_heads=2
+
 ``--cache paged`` needs an all-attention arch; with mamba2 it raises.
 """
 from __future__ import annotations
 
 import argparse
+import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.configs import ARCH_NAMES, apply_overrides, get_config
+from repro_torch.core.planner import compile_plan
+from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import (end_world, make_mesh, mesh_axes,
+                                     mesh_shape, parse_mesh, start_world,
+                                     under_torchrun)
 from repro_torch.models.lm import Model
 from repro_torch.serving.metrics import RequestTiming, ServeMetrics
 from repro_torch.serving.server import Request, Server
@@ -129,18 +156,64 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--rate", type=float, default=4.0,
                     help="--traffic mean arrival rate (req/s)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--mesh", default="",
+                    help="e.g. 2x2 = data2 x model2, 1x2x2 = pod1 x data2 x "
+                         "model2 (ranks = product; under torchrun)")
+    ap.add_argument("--overrides", default="",
+                    help="comma k=v LMCfg overrides (e.g. n_kv_heads=2)")
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
 
 
+def tokens_crc(done: list) -> int:
+    """CRC-32 of every request's tokens in request order: one number to
+    hold two runs' (or two ranks') token streams equal by."""
+    crc = 0
+    for req in sorted(done, key=lambda r: r.rid):
+        crc = zlib.crc32(np.asarray(req.out_tokens, np.int64).tobytes(), crc)
+    return crc
+
+
 def run(args: argparse.Namespace):
-    """Serve as ``args`` say; returns (summary dict, the server)."""
-    cfg = get_config(args.arch, smoke=args.smoke)
-    model = Model(cfg, device=args.device)
-    server = Server(model, batch_slots=args.batch_slots,
-                    max_len=args.max_len, cache=args.cache,
-                    page_size=args.page_size, n_pages=args.pages)
-    params = model.serving_params(model.init(args.seed))
+    """Serve as ``args`` say; returns (summary dict, the server).  Over a
+    mesh (``--mesh``, or under ``torchrun``) the process group is made
+    here and ended before it returns, unless the caller made it."""
+    device = resolve_device(args.device)
+    if args.mesh and not (under_torchrun() or dist.is_initialized()):
+        n = int(np.prod(mesh_axes(args.mesh)[0]))
+        if n > 1:
+            raise SystemExit(f"--mesh {args.mesh} needs {n} ranks: run it "
+                             f"under torchrun --nproc-per-node {n}")
+    if not (args.mesh or under_torchrun()) or dist.is_initialized():
+        return _serve(args, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        device, store = start_world(device, tmp)
+        try:
+            return _serve(args, device)
+        finally:
+            end_world(store)
+
+
+def _serve(args: argparse.Namespace, device: torch.device):
+    cfg = apply_overrides(get_config(args.arch, smoke=args.smoke),
+                           args.overrides)
+    model = Model(cfg, device=device)
+    mesh = None
+    if args.mesh:
+        mesh = parse_mesh(args.mesh, device_type=device.type)
+    elif dist.is_initialized():         # the reference's default: all data
+        mesh = make_mesh((dist.get_world_size(),), ("data",),
+                         device_type=device.type)
+    plan = compile_plan(model, mesh)
+    rank = dist.get_rank() if mesh is not None else 0
+    log = print if rank == 0 else (lambda *a, **k: None)
+    if mesh is not None:
+        log(f"[plan] {plan.split_line()}")
+    server = Server(model, plan if mesh is not None else None,
+                    batch_slots=args.batch_slots, max_len=args.max_len,
+                    cache=args.cache, page_size=args.page_size,
+                    n_pages=args.pages)
+    params = model.serving_params(plan.init_params(args.seed))
 
     if args.traffic:
         tc = TrafficCfg(rate=args.rate, n_requests=args.requests,
@@ -158,14 +231,14 @@ def run(args: argparse.Namespace):
             raise SystemExit(
                 f"[serve] BUG: {s['completed']}/{args.requests} requests "
                 f"completed under traffic replay")
-        print(f"[serve/{args.cache}] traffic: {s['completed']} requests, "
-              f"{s['tokens']} tokens in {dt:.2f}s — "
-              f"{s['tokens_per_s']:.1f} tok/s, "
-              f"ttft p50/p99 {s['ttft_p50_s'] * 1e3:.0f}/"
-              f"{s['ttft_p99_s'] * 1e3:.0f} ms, "
-              f"tpot {s['tpot_mean_s'] * 1e3:.1f} ms, "
-              f"{s['preemptions']} preemptions, "
-              f"{server.prefill_cache_size} prefill buckets")
+        log(f"[serve/{args.cache}] traffic: {s['completed']} requests, "
+            f"{s['tokens']} tokens in {dt:.2f}s — "
+            f"{s['tokens_per_s']:.1f} tok/s, "
+            f"ttft p50/p99 {s['ttft_p50_s'] * 1e3:.0f}/"
+            f"{s['ttft_p99_s'] * 1e3:.0f} ms, "
+            f"tpot {s['tpot_mean_s'] * 1e3:.1f} ms, "
+            f"{s['preemptions']} preemptions, "
+            f"{server.prefill_cache_size} prefill buckets")
         s["steps"] = server.steps
         s["seconds"] = dt
         return s, server
@@ -199,12 +272,19 @@ def run(args: argparse.Namespace):
             f"[serve] BUG: {len(done)}/{args.requests} requests completed "
             f"— finished requests were dropped")
     total_toks = sum(len(r.out_tokens) for r in done)
-    print(f"[serve/{args.cache}] {args.requests} requests completed, "
-          f"{total_toks} tokens in {dt:.2f}s ({total_toks / dt:.1f} tok/s, "
-          f"{server.steps} decode steps, "
-          f"{server.prefill_cache_size} prefill buckets)")
+    crc = tokens_crc(done)
+    log(f"[serve/{args.cache}] {args.requests} requests completed, "
+        f"{total_toks} tokens in {dt:.2f}s ({total_toks / dt:.1f} tok/s, "
+        f"{server.steps} decode steps, "
+        f"{server.prefill_cache_size} prefill buckets, tokens crc32 "
+        f"{crc:08x})")
     return {"steps": server.steps, "seconds": dt,
-            "completed": len(done), "tokens": total_toks}, server
+            "completed": len(done), "tokens": total_toks,
+            "tokens_crc32": crc,
+            "out_tokens": {r.rid: list(map(int, r.out_tokens))
+                           for r in done},
+            "preemptions": sum(r.preemptions for r in done),
+            "mesh": mesh_shape(mesh) if mesh is not None else None}, server
 
 
 def main(argv=None) -> dict:

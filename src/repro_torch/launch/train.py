@@ -85,8 +85,6 @@ Usage::
 from __future__ import annotations
 
 import argparse
-import dataclasses
-import os
 import time
 
 import numpy as np
@@ -94,7 +92,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.ckpt.checkpoint import CheckpointManager
-from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.configs import ARCH_NAMES, apply_overrides, get_config
 from repro_torch.core import pipeline as pipe
 from repro_torch.core.auto import auto_parallel
 from repro_torch.core.calibrate import prediction_error
@@ -106,8 +104,9 @@ from repro_torch.core.planner import compile_plan, mesh_for_strategy
 from repro_torch.core.schedule import SCHEDULE_NAMES
 from repro_torch.data.pipeline import DataCfg, TokenPipeline
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import (make_mesh, mesh_axes, mesh_shape,
-                                     parse_mesh)
+from repro_torch.launch.mesh import (end_world, make_mesh, mesh_axes,
+                                     mesh_shape, parse_mesh, start_world,
+                                     under_torchrun)
 from repro_torch.models.lm import Model, param_count
 from repro_torch.optim import grad_compress
 from repro_torch.optim.optimizer import Schedule, adafactor, adamw
@@ -187,10 +186,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def _under_torchrun() -> bool:
-    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
-
-
 def _refuse_later_slices(args) -> None:
     """Flags of slices not ported yet exit with a message naming them;
     ``--auto`` with a hand-made layout is refused (the reference ignores
@@ -208,7 +203,7 @@ def _refuse_later_slices(args) -> None:
                          "model axis beside a pipeline comes from --auto)")
     if args.pp > 1 and args.compress_pod:
         raise SystemExit(COMPRESS_PIPE)
-    if args.mesh and not _under_torchrun():
+    if args.mesh and not under_torchrun():
         n = int(np.prod(mesh_axes(args.mesh)[0]))
         if n > 1:
             raise SystemExit(f"--mesh {args.mesh} needs {n} ranks: run it "
@@ -219,31 +214,19 @@ def _start_world(args, device: torch.device):
     """(device, FileStore path or None) after making the default process
     group where this run needs one and none exists: under torchrun from
     its environment, else a world of one over a FileStore in the
-    checkpoint directory.  Returns (device, None) when the group was made
-    by the caller, and no group at all without --mesh outside torchrun."""
+    checkpoint directory (:func:`~repro_torch.launch.mesh.start_world`).
+    Returns (device, None) when the group was made by the caller, and no
+    group at all without --mesh outside torchrun."""
     if dist.is_initialized():
         return device, None
-    torchrun = _under_torchrun()
+    torchrun = under_torchrun()
     if args.distributed and not torchrun:
         raise SystemExit("--distributed needs a torchrun world: RANK, "
                          "WORLD_SIZE, MASTER_ADDR and MASTER_PORT in the "
                          "environment")
     if not (torchrun or args.mesh):
         return device, None
-    backend = "nccl" if device.type == "cuda" else "gloo"
-    if device.type == "cuda" and torchrun:
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
-    if device.index is not None:
-        torch.cuda.set_device(device)
-    if torchrun:
-        dist.init_process_group(backend)
-        return device, ""
-    os.makedirs(args.ckpt_dir, exist_ok=True)
-    path = os.path.join(args.ckpt_dir,
-                        f".filestore_{os.getpid()}_{time.time_ns()}")
-    dist.init_process_group(backend, store=dist.FileStore(path, 1), rank=0,
-                            world_size=1)
-    return device, path
+    return start_world(device, args.ckpt_dir)
 
 
 def auto_strategy(graph, world: int, hw):
@@ -254,25 +237,6 @@ def auto_strategy(graph, world: int, hw):
         return auto_parallel(graph, world, hw)
     except RuntimeError as e:              # nothing fits the table's HBM
         raise SystemExit(f"--auto: {e}") from None
-
-
-def split_line(plan, stage_layers=None) -> str:
-    """How the plan lays the model out: its mesh, what the model and data
-    axes split, and a pipeline's stage layers."""
-    st = plan.strategy
-    shape = mesh_shape(plan.mesh) if plan.mesh is not None else None
-    parts = [f"mesh {shape}"]
-    if st.model_parallel > 1:
-        parts.append(f"split×{st.model_parallel} over model (heads, MLP "
-                     f"columns{', vocab' if st.vocab_split else ''})")
-    if st.pp > 1:
-        parts.append(f"pipeline×{st.pp} over stage, stage layers "
-                     f"{tuple(stage_layers or plan.stage_layers())}")
-    elif st.zero:
-        what = ("optimizer state" if st.zero < 3
-                else "parameters, gradients and optimizer state")
-        parts.append(f"zero={st.zero}: {what} over data")
-    return "; ".join(parts)
 
 
 def profile_summary(profiler: Profiler, hw, world: int) -> dict:
@@ -294,17 +258,6 @@ def profile_summary(profiler: Profiler, hw, world: int) -> dict:
     }
 
 
-def _apply_overrides(cfg, spec: str):
-    if not spec:
-        return cfg
-    kv = {}
-    for pair in spec.split(","):
-        k, v = pair.split("=")
-        cur = getattr(cfg, k)
-        kv[k] = type(cur)(v) if not isinstance(cur, bool) else v == "True"
-    return dataclasses.replace(cfg, **kv)
-
-
 def main(argv=None) -> dict:
     """Train; returns {"final_step", "losses", "step_seconds", "mesh",
     "strategy", "predicted_step_s"} and, with ``--profile``, "profile"
@@ -318,17 +271,11 @@ def main(argv=None) -> dict:
     try:
         return _train(args, device)
     finally:
-        if store is not None:
-            dist.destroy_process_group()
-        if store:
-            try:
-                os.remove(store)
-            except FileNotFoundError:
-                pass
+        end_world(store)
 
 
 def _train(args, device: torch.device) -> dict:
-    cfg = _apply_overrides(get_config(args.arch, smoke=args.smoke),
+    cfg = apply_overrides(get_config(args.arch, smoke=args.smoke),
                            args.overrides)
     model = Model(cfg, device)
     world = dist.is_initialized()
@@ -378,7 +325,7 @@ def _train(args, device: torch.device) -> dict:
                                       model.stack.n_rep, plan.strategy.pp)
               if args.stage_layers else plan.stage_layers())
     if plan.sharded or args.auto:
-        log(f"[plan] {split_line(plan, sl)}")
+        log(f"[plan] {plan.split_line(sl)}")
     if pipelined and plan.strategy.zero:
         log(f"[plan] zero={plan.strategy.zero} inside a pipeline shards "
             f"nothing over data (the reference's staged specs): it runs as "

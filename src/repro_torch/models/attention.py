@@ -13,7 +13,10 @@ the kv heads divide the axis; ``repeat`` when only the q heads do, where
 ``wk``/``wv`` stay whole on every rank and each rank keeps the kv heads of
 its q-head groups (the flash kernel still sees whole GQA groups), their
 gradient summed over the group; ``seq`` (context parallelism) raises.
-The decode paths run unsplit (serving over a mesh waits for its slice).
+Decode is head-parallel in the ``grouped`` layout (:func:`decode_split`):
+the paged path on this rank's kv heads, the dense path on its heads or,
+where the cache's sequence is split, over its rows with the softmax
+merged across ranks (:func:`decode_attention`).
 
 Where the reference returns new KV arrays, the port writes the caches and
 page pools in place (saving a copy of the whole cache per step) and
@@ -124,10 +127,18 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
     k = layers.apply_rope(k, positions, cfg.rope_theta)
     out = flash(q.contiguous(), k.contiguous(), v.contiguous(), cfg.causal,
                 bwd_remat)
-    y = torch.einsum("bshd,hde->bse", out.to(x.dtype),
-                     params["wo"].to(x.dtype))
-    y = sharding.reduce_from(y, split)
+    y = out_proj("bshd,hde->bse", out, params["wo"], split, x.dtype)
     return (y, (k, v)) if return_kv else y
+
+
+def out_proj(eq: str, out: torch.Tensor, wo: torch.Tensor, split,
+             dtype) -> torch.Tensor:
+    """The heads of ``out`` through ``wo``'s rows (``torch.einsum(eq)``) in
+    ``dtype``, summed over the split's group where the heads are split: the
+    partial products stay in ``dtype``, as the reference's ``wo`` product
+    does."""
+    return sharding.reduce_from(
+        torch.einsum(eq, out.to(dtype), wo.to(dtype)), split)
 
 
 # ---------------------------------------------------------------------------
@@ -147,9 +158,68 @@ def _decode_qkv(params: dict, x: torch.Tensor, pos: torch.Tensor,
     return q, k, v
 
 
+DECODE_LAYOUT_SLICE = ("decoding in the {layout!r} attention layout (a model "
+                       "axis the kv heads do not divide) comes with a later "
+                       "slice of the port (ROADMAP.md queue A item 4)")
+
+
+def decode_split(cfg: AttnCfg):
+    """The q heads' :class:`~repro_torch.core.sharding.Split` of a decode
+    step under the active rules (``None`` unsplit).  Decode is
+    head-parallel in the ``grouped`` layout only: ``repeat`` and ``seq``
+    raise."""
+    layout = choose_layout(cfg)
+    if layout != "grouped":
+        raise NotImplementedError(DECODE_LAYOUT_SLICE.format(layout=layout))
+    return sharding.split_of("q_heads", cfg.n_heads)
+
+
+def _cache_write(cache: torch.Tensor, new: torch.Tensor,
+                 row: torch.Tensor) -> None:
+    """ADD ``new`` (B, K, D) into each slot's cell ``row`` (B,) of
+    ``cache`` (B, S, K, D) in place; a row outside the cache writes
+    nothing."""
+    B, S = cache.shape[:2]
+    live = ((row >= 0) & (row < S))[:, None, None]
+    cell = (torch.arange(B, device=cache.device),
+            row.long().clamp(min=0, max=S - 1))
+    cache.index_put_(cell, torch.where(live, new, 0).to(cache.dtype),
+                     accumulate=True)
+
+
+def _attend_cache(q: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, pos: torch.Tensor, cfg: AttnCfg,
+                  split=None, row0: int = 0) -> torch.Tensor:
+    """q (B, K·G, D) against the cache's rows → (B, K·G, D) in q's dtype.
+    Rows ``row0 + i <= pos`` are attended.  With ``split`` the cache holds
+    rows ``[row0, row0 + S)`` of a sequence split over its group: the max
+    is all-reduced before the exponentials and the sum and the
+    unnormalised output after them, the reference's explicit max and
+    sum-of-exponentials."""
+    B, S, K, D = k_cache.shape
+    qg = q.reshape(B, K, cfg.group, D).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * (D ** -0.5)
+    rows = torch.arange(S, device=q.device) + row0
+    valid = rows[None, :] <= pos.long()[:, None]
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    if split is not None:
+        m = sharding.all_reduce_max(m, split)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    # p rounds to the cache dtype before the value product, as in the reference
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    if split is not None:
+        out_l = sharding.all_reduce_(torch.cat([out, l], -1), split.group)
+        out, l = out_l[..., :D], out_l[..., D:]
+    return (out / l.clamp_min(1e-30)).to(q.dtype).reshape(B, K * cfg.group,
+                                                         D)
+
+
 def decode_attention(params: dict, x: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: torch.Tensor, cfg: AttnCfg,
-                     k_sc=None, v_sc=None):
+                     k_sc=None, v_sc=None, seq_split: bool = False):
     """x: (B, E); k_cache/v_cache: (B, Smax, K, D); pos: (B,) — the index
     the new KV is written at.  Returns (y (B, E), k_cache, v_cache), the
     caches updated in place.
@@ -157,35 +227,55 @@ def decode_attention(params: dict, x: torch.Tensor, k_cache: torch.Tensor,
     The write ADDs the new KV into the cell (zero by the server's
     invariant), as the reference's one-hot add does; a ``pos`` past the
     cache writes nothing.  Plain PyTorch: the reference has no kernel here.
+
+    Under rules that split the heads (:func:`decode_split`) the leaves are
+    this rank's heads, ``wo``'s output is summed over the split's group,
+    and the cache is this rank's block of the state spec
+    (``ExecutionPlan.state_specs``), whose layout the caller passes
+    (``seq_split``); a cache of another shape raises:
+
+    - *head-split* (the cache length does not divide the model axis, so
+      ``kv_heads`` took it): this rank's K/tp heads, all rows; the step
+      runs on them as unsplit.
+    - *sequence-split* (``seq_split``: ``kv_seq`` took the axis first): rows
+      ``[r·Smax/tp, (r+1)·Smax/tp)`` of all K heads.  This step's q, k
+      and v are gathered to all heads, the new KV is added on the rank
+      whose rows hold ``pos``, each rank scores its rows (``valid`` on
+      global rows) and the softmax is merged over the group by the
+      reference's explicit max and sums; the rank keeps its heads for
+      ``wo``.  The max is all-reduced before the exponentials, so ``p``
+      is the unsplit step's, rounded to the cache dtype against the same
+      max; only the f32 sums run in another order.  In f32 it equals the
+      unsplit step within f32's tolerance; in bf16 the output's rounding
+      to bf16 may move by an ulp, so it agrees within bf16's.
     """
     if k_sc is not None or v_sc is not None:
         raise NotImplementedError("the int8 KV cache is not ported yet")
-    B, E = x.shape
-    K, G, D = cfg.n_kv_heads, cfg.group, cfg.head_dim
-    Smax = k_cache.shape[1]
-
+    split = decode_split(cfg)
+    n = 1 if split is None or seq_split else split.n
+    if seq_split and split is None:
+        raise ValueError("a sequence-split cache needs rules that split the "
+                         "heads")
+    if k_cache.shape[2] != cfg.n_kv_heads // n:
+        raise ValueError(f"a {'sequence' if seq_split else 'head'}-split "
+                         f"cache holds {cfg.n_kv_heads // n} kv heads a "
+                         f"rank, got {k_cache.shape[2]}")
     q, k, v = _decode_qkv(params, x, pos, cfg)
-    live = (pos < Smax)[:, None, None]
-    cell = (torch.arange(B, device=x.device), pos.long().clamp(max=Smax - 1))
-    k_cache.index_put_(cell, torch.where(live, k, 0).to(k_cache.dtype),
-                       accumulate=True)
-    v_cache.index_put_(cell, torch.where(live, v, 0).to(v_cache.dtype),
-                       accumulate=True)
-
-    qg = q.reshape(B, K, G, D).float()
-    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * (D ** -0.5)
-    valid = (torch.arange(Smax, device=x.device)[None, :]
-             <= pos.long()[:, None])
-    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    # p rounds to the cache dtype before the value product, as in the reference
-    out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
-                       v_cache.float())
-    out = (out / l.clamp_min(1e-30)).to(x.dtype).reshape(B, cfg.n_heads, D)
-    y = torch.einsum("bhd,hde->be", out, params["wo"].to(x.dtype))
-    return y, k_cache, v_cache
+    if not seq_split:
+        _cache_write(k_cache, k, pos)
+        _cache_write(v_cache, v, pos)
+        out = _attend_cache(q, k_cache, v_cache, pos, cfg)
+    else:
+        q, k, v = (sharding.gather_cat(t, split.group, 1) for t in (q, k, v))
+        S = k_cache.shape[1]
+        row0 = split.index * S
+        _cache_write(k_cache, k, pos - row0)
+        _cache_write(v_cache, v, pos - row0)
+        out = _attend_cache(q, k_cache, v_cache, pos, cfg, split, row0)
+        hl = cfg.n_heads // split.n
+        out = out[:, split.index * hl:(split.index + 1) * hl]
+    return (out_proj("bhd,hde->be", out, params["wo"], split, x.dtype),
+            k_cache, v_cache)
 
 
 # ---------------------------------------------------------------------------
@@ -222,10 +312,17 @@ def paged_decode_attention(params: dict, x: torch.Tensor,
     pools first, then attend through the block table with the paged
     kernel.  x: (B, E); pools: (P, page_size, K, D); block_table:
     (B, max_pages) int32; pos: (B,) int32.  Returns (y, k_pool, v_pool),
-    the pools updated in place."""
+    the pools updated in place.
+
+    Under rules that split the heads (:func:`decode_split`) the pools hold
+    this rank's kv heads (``ExecutionPlan.paged_state_specs``: pages and
+    rows whole), so the kernel runs unchanged on this rank's q heads
+    against them, and ``wo``'s output is summed over the split's group:
+    no softmax crosses ranks."""
+    split = decode_split(cfg)
     q, k_new, v_new = _decode_qkv(params, x, pos, cfg)
     paged_scatter(k_pool, block_table, pos, k_new)
     paged_scatter(v_pool, block_table, pos, v_new)
     out = paged_decode(q.contiguous(), k_pool, v_pool, block_table, pos)
-    y = torch.einsum("bhd,hde->be", out.to(x.dtype), params["wo"].to(x.dtype))
-    return y, k_pool, v_pool
+    return (out_proj("bhd,hde->be", out, params["wo"], split, x.dtype),
+            k_pool, v_pool)

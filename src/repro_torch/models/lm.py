@@ -32,6 +32,7 @@ from repro_torch.models import layers
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import AttnCfg
 from repro_torch.models.mamba2 import SSDCfg
+from repro_torch.tree import tree_map
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -347,6 +348,10 @@ class Model:
                             split=split)
 
     # ---- serving ----
+    # Under sharding rules (``ExecutionPlan.prefill_fn`` and the step
+    # functions set them) the embedding is vocab-parallel, attention and
+    # the MLP head- and column-parallel, and the logits are this rank's
+    # vocab columns: the plan's functions gather them over ``model``.
     def prefill(self, params: dict, batch: dict, gen_budget: int = 64,
                 last_idx: torch.Tensor | None = None):
         """→ (last-token logits (B, Vp), decode state).
@@ -362,7 +367,8 @@ class Model:
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = layers.embed(params["embed"], tokens).to(cfg.adtype)
+        x = layers.embed(params["embed"], tokens,
+                         cfg.padded_vocab).to(cfg.adtype)
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         if last_idx is not None:
             last_idx = last_idx.to(device=x.device, dtype=torch.long)
@@ -396,24 +402,37 @@ class Model:
                               if bcfg.mixer == "attn" else st)
         return logits, {"cache": cache, "pos": pos}
 
-    def serve_step(self, params: dict, tokens: torch.Tensor, state: dict):
+    def serve_step(self, params: dict, tokens: torch.Tensor, state: dict,
+                   seq_split: bool = False):
         """tokens: (B,) → (logits (B, Vp), state').  The cache in ``state``
-        is written in place; ``pos`` advances for every slot."""
+        is written in place; ``pos`` advances for every slot.
+        ``seq_split``: the KV caches are this rank's rows of a sequence
+        split over the heads' split (the state spec's ``kv_seq``; the plan's
+        :meth:`~repro_torch.core.planner.ExecutionPlan.serve_step_fn` reads
+        it off the spec)."""
         cfg = self.cfg
         pos = state["pos"]
-        x = layers.embed(params["embed"], tokens).to(cfg.adtype)
+        x = layers.embed(params["embed"], tokens,
+                         cfg.padded_vocab).to(cfg.adtype)
         x, cache = tfm.decode_stack(params["blocks"], x, state["cache"], pos,
-                                    self.stack)
+                                    self.stack, seq_split)
         x = layers.rmsnorm(params["final_norm"], x)
         logits = x @ self._head_w(params).to(cfg.adtype)
         return logits, {"cache": cache, "pos": pos + 1}
 
-    def decode_state(self, batch: int, cache_len: int) -> dict:
-        """Zeroed dense decode state on the model's device."""
-        return {"cache": tfm.init_stack_state(self.stack, batch, cache_len,
-                                              self.cfg.adtype, self.device),
-                "pos": torch.zeros((batch,), dtype=torch.int32,
-                                   device=self.device)}
+    # ---- decode-state templates (the plan's state specs read them) ----
+    def decode_state_shapes(self, batch: int, cache_len: int) -> dict:
+        """The dense decode state's leaves (the cache, ``pos``) as
+        ``(torch.Size, dtype)`` pairs; nothing is allocated (the
+        reference's ``jax.eval_shape``).  ``ExecutionPlan.local_zeros``
+        makes a rank's block of it."""
+        return _pairs({"cache": tfm.init_stack_state(
+            self.stack, batch, cache_len, self.cfg.adtype, "meta"),
+            "pos": torch.empty((batch,), dtype=torch.int32, device="meta")})
+
+    def state_axes(self) -> dict:
+        """The dense decode state's logical dims (the reference's)."""
+        return {"cache": tfm.axes_stack_state(self.stack), "pos": ("batch",)}
 
     # ---- paged serving (block-table KV cache) ----
     @property
@@ -429,7 +448,8 @@ class Model:
         ``pos`` (B,); the pools are written in place."""
         cfg = self.cfg
         pos = state["pos"]
-        x = layers.embed(params["embed"], tokens).to(cfg.adtype)
+        x = layers.embed(params["embed"], tokens,
+                         cfg.padded_vocab).to(cfg.adtype)
         x, pools = tfm.decode_stack_paged(params["blocks"], x, state["pools"],
                                           state["block_table"], pos,
                                           self.stack)
@@ -442,6 +462,29 @@ class Model:
         """Zeroed page pools on the model's device."""
         return tfm.init_paged_stack_state(self.stack, n_pages, page_size,
                                           self.cfg.adtype, self.device)
+
+    def paged_state_shapes(self, batch: int, n_pages: int, page_size: int,
+                           max_pages: int) -> dict:
+        """The paged decode state's leaves (pools, ``block_table``,
+        ``pos``) as ``(torch.Size, dtype)`` pairs; nothing is allocated."""
+        i32 = torch.int32
+        return _pairs({
+            "pools": tfm.init_paged_stack_state(self.stack, n_pages,
+                                                page_size, self.cfg.adtype,
+                                                "meta"),
+            "block_table": torch.empty((batch, max_pages), dtype=i32,
+                                       device="meta"),
+            "pos": torch.empty((batch,), dtype=i32, device="meta")})
+
+    def paged_state_axes(self) -> dict:
+        """The paged decode state's logical dims (the reference's)."""
+        return {"pools": tfm.axes_paged_stack_state(self.stack),
+                "block_table": ("batch", None), "pos": ("batch",)}
+
+
+def _pairs(tree: dict) -> dict:
+    """A tree of tensors as ``(shape, dtype)`` pairs."""
+    return tree_map(lambda t: (t.shape, t.dtype), tree)
 
 
 def build(cfg: LMCfg, device=None) -> Model:

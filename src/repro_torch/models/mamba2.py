@@ -234,6 +234,13 @@ def init_ssd_state(batch: int, cfg: SSDCfg, dtype, device,
     }
 
 
+def axes_ssd_state() -> dict:
+    """The decode state's logical dims, the reference's
+    ``axes_ssd_state``."""
+    return {"h": ("batch", "ssm_heads", None, None),
+            "conv": ("batch", None, "ssm_heads", None)}
+
+
 def ssd_decode_step(params: dict, x: torch.Tensor, state: dict,
                     cfg: SSDCfg) -> torch.Tensor:
     """x: (B, D), one token → y (B, D); ``state`` ({"h", "conv"}) is

@@ -12,6 +12,9 @@ Under ZeRO-3 (:func:`repro_torch.core.sharding.fsdp_specs`) each repeat's
 slices of the parameters are gathered over the data axes inside its
 checkpointed region, so the recompute gathers again and the backward
 reduce-scatters, as GSPMD's scan does; the whole tree is never gathered.
+The decode states' logical dims (:func:`axes_stack_state`,
+:func:`axes_paged_stack_state`) are the reference's; a serving plan lays
+the states out by them, and each block's decode runs on its rank's block.
 """
 from __future__ import annotations
 
@@ -225,18 +228,21 @@ def prefill_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def decode_block(params: dict, x: torch.Tensor, state: dict,
-                 pos: torch.Tensor, cfg: BlockCfg):
-    """x: (B, E) one token; state: this block's {"k", "v"} cache or SSD
-    {"h", "conv"} state, written in place."""
+                 pos: torch.Tensor, cfg: BlockCfg, seq_split: bool = False):
+    """x: (B, E) one token; state: this block's {"k", "v"} cache (this
+    rank's rows of a split sequence where ``seq_split``) or SSD {"h",
+    "conv"} state, written in place."""
     h = layers.rmsnorm(params["norm1"], x)
     if cfg.mixer == "attn":
         out, _, _ = attn_mod.decode_attention(params["attn"], h, state["k"],
-                                              state["v"], pos, cfg.attn)
+                                              state["v"], pos, cfg.attn,
+                                              seq_split=seq_split)
     else:
         out = mamba2.ssd_decode_step(params["ssd"], h, state, cfg.ssd)
     x = x + out
     if cfg.mlp != "none":
-        x = x + layers.mlp(params["mlp"], layers.rmsnorm(params["norm2"], x))
+        x = x + layers.mlp(params["mlp"], layers.rmsnorm(params["norm2"], x),
+                           cfg.d_ff)
     return x
 
 
@@ -258,14 +264,33 @@ def init_stack_state(stack: StackCfg, batch: int, max_len: int, dtype,
     return state
 
 
+def axes_block_state(cfg: BlockCfg) -> dict:
+    """A block's decode state's logical dims (the reference's
+    ``axes_block_state``): the KV cache's sequence is named ``kv_seq``
+    before its ``kv_heads``, so where both map to ``model`` the sequence
+    takes the axis and the heads stay whole (first come wins)."""
+    if cfg.mixer == "attn":
+        n = ("batch", "kv_seq", "kv_heads", None)
+        return {"k": n, "v": n}
+    return mamba2.axes_ssd_state()
+
+
+def axes_stack_state(stack: StackCfg) -> dict:
+    """:func:`init_stack_state`'s logical dims, ``layers`` first."""
+    return {f"p{i}": {k: ("layers",) + v
+                      for k, v in axes_block_state(bcfg).items()}
+            for i, bcfg in enumerate(stack.pattern)}
+
+
 def decode_stack(params: dict, x: torch.Tensor, state: dict,
-                 pos: torch.Tensor, stack: StackCfg):
-    """x: (B, E) → (x', state), the caches in ``state`` written in place."""
+                 pos: torch.Tensor, stack: StackCfg, seq_split: bool = False):
+    """x: (B, E) → (x', state), the caches in ``state`` written in place
+    (:func:`decode_block`)."""
     for rep_params, rep_state in zip(_unstack(params, stack.n_rep),
                                      _unstack(state, stack.n_rep)):
         for i, bcfg in enumerate(stack.pattern):
             x = decode_block(rep_params[f"p{i}"], x, rep_state[f"p{i}"], pos,
-                             bcfg)
+                             bcfg, seq_split)
     return x, state
 
 
@@ -286,6 +311,14 @@ def init_paged_stack_state(stack: StackCfg, n_pages: int, page_size: int,
     return pools
 
 
+def axes_paged_stack_state(stack: StackCfg) -> dict:
+    """The pools' logical dims (the reference's): the dense cache's less
+    its batch and sequence, so pages and rows stay whole and the kv heads
+    split over ``model``."""
+    n = ("layers", None, None, "kv_heads", None)
+    return {f"p{i}": {"k": n, "v": n} for i in range(len(stack.pattern))}
+
+
 def paged_decode_block(params: dict, x: torch.Tensor, pools: dict,
                        block_table: torch.Tensor, pos: torch.Tensor,
                        cfg: BlockCfg):
@@ -294,7 +327,8 @@ def paged_decode_block(params: dict, x: torch.Tensor, pools: dict,
     out, _, _ = attn_mod.paged_decode_attention(
         params["attn"], h, pools["k"], pools["v"], block_table, pos, cfg.attn)
     x = x + out
-    return x + layers.mlp(params["mlp"], layers.rmsnorm(params["norm2"], x))
+    return x + layers.mlp(params["mlp"], layers.rmsnorm(params["norm2"], x),
+                          cfg.d_ff)
 
 
 def decode_stack_paged(params: dict, x: torch.Tensor, pools: dict,

@@ -19,6 +19,29 @@ KV zeroed).
 
 The decode hot path does exactly **one** host sync per step: a single
 device→host copy of the argmax'd next tokens for every slot at once.
+
+Over a mesh (``Server(model, plan)``, the plan from
+:func:`~repro_torch.core.planner.compile_plan`) every rank runs this same
+loop on the same request stream, the SPMD counterpart of the reference's
+single-controller Server.  The host bookkeeping (admission, the page
+allocator and block table, preemption, completion) is global and reads
+only values equal on every rank: each step's tokens are gathered over the
+data axes, and an admission's first token is its slot owner's.  The
+device state is this rank's block by the plan's state specs:
+
+- slots split over the data axes (``batch_slots % dp`` must be 0); a rank
+  holds the dense state, block-table rows and positions of its slots;
+- prefill runs on every rank, replicated over data and split over
+  ``model``, and only the slot's owner writes the result: into a
+  sequence-split dense cache by gathering the prefill's heads over
+  ``model`` and keeping this rank's rows, into a head-split one (or the
+  pools) as it is;
+- the page pools leave pages whole over data, and the allocator is
+  identical on every rank, so each data rank writes and reads only the
+  pages of its own slots.  Pages of other replicas' slots stay zero or
+  stale on this rank and are never read through its block-table rows;
+  the trash page stays zero, and a page is zeroed by its owner when
+  allocated.
 """
 from __future__ import annotations
 
@@ -27,6 +50,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import sharding
+from repro_torch.core.planner import compile_plan
 from repro_torch.kernels.autotune import DEFAULT_TILES
 from repro_torch.serving.paged_cache import (BlockTable, PageAllocator,
                                              PagedCacheConfig)
@@ -54,12 +79,17 @@ def prompt_bucket(n: int, max_len: int, lo: int = 8) -> int:
 
 
 class Server:
-    def __init__(self, model, *, batch_slots: int, max_len: int,
+    """``plan``: an :class:`~repro_torch.core.planner.ExecutionPlan` over a
+    mesh (the module doc), or ``None`` for one device."""
+
+    def __init__(self, model, plan=None, *, batch_slots: int, max_len: int,
                  eos_id: int = 1, cache: str = "dense", page_size: int = 0,
                  n_pages: int = 0):
         if cache not in ("dense", "paged"):
             raise ValueError(f"cache must be dense|paged, got {cache!r}")
         self.model = model
+        self.plan = plan if plan is not None else compile_plan(model, None)
+        self.lo, self.hi = self.plan.slot_block(batch_slots)  # this rank's
         self.device = model.device
         self.B = batch_slots
         self.max_len = max_len
@@ -90,9 +120,18 @@ class Server:
             self.pcfg = PagedCacheConfig(n_pages, ps, max_pages)
             self.alloc = PageAllocator(self.pcfg)
             self.table = BlockTable(batch_slots, self.pcfg)
-            self.pools = model.paged_pools(n_pages, ps)
+            self._step = self.plan.serve_step_paged_fn(batch_slots, n_pages,
+                                                       ps, max_pages)
+            self.pools = self.plan.local_zeros(
+                model.paged_state_shapes(batch_slots, n_pages, ps,
+                                         max_pages)["pools"],
+                self.plan.paged_state_specs(batch_slots, n_pages, ps,
+                                            max_pages)["pools"])
         else:
-            self.state = model.decode_state(batch_slots, max_len)
+            self._step = self.plan.serve_step_fn(batch_slots, max_len)
+            self._specs = self.plan.state_specs(batch_slots, max_len)
+            self.state = self.plan.local_zeros(
+                model.decode_state_shapes(batch_slots, max_len), self._specs)
 
     @property
     def prefill_cache_size(self) -> int:
@@ -106,10 +145,12 @@ class Server:
         tokens = np.zeros((1, bucket), np.int64)
         tokens[0, :S] = prompt
         gb = 0 if self.cache == "paged" else self.max_len - bucket
-        return self.model.prefill(
+        return self.plan.prefill_fn(gb)(
             params, {"tokens": torch.tensor(tokens, device=self.device)},
-            gen_budget=gb,
             last_idx=torch.tensor([S - 1], device=self.device))
+
+    def _owns(self, slot: int) -> bool:
+        return self.lo <= slot < self.hi
 
     # --- admission ---
     def can_admit(self, req: Request) -> bool:
@@ -129,33 +170,47 @@ class Server:
         ``done`` and never occupies the slot — the caller collects it."""
         S = len(req.prompt)
         logits, st = self._run_prefill(params, np.asarray(req.prompt))
-        tok = int(logits[0, :self.model.cfg.vocab].argmax())
+        first = logits[0, :self.model.cfg.vocab].argmax()
+        if self.plan.mesh is not None:       # the slot owner's token
+            first = self.plan.gather_slots(first[None])[
+                slot // (self.hi - self.lo)]
+        tok = int(first)
         req.out_tokens.append(tok)
         if tok == self.eos or len(req.out_tokens) >= req.max_new:
             req.done = True
             return
         if self.cache == "paged":
             pages = self.alloc.alloc(slot, self.pcfg.pages_for(S))
-            self._write_prompt_pages(st["cache"], pages)
+            if self._owns(slot):
+                self._write_prompt_pages(st["cache"], pages)
             self.table.assign(slot, pages, pos=S)
-        else:
-            self._write_slot(st, slot)
+        elif self._owns(slot):
+            self._write_slot(st, slot - self.lo)
         self.tokens[slot] = tok
         self.slots[slot] = req
         self._seq_of[slot] = self._admit_seq
         self._admit_seq += 1
 
     def _write_slot(self, st: dict, slot: int) -> None:
-        """Copy a batch-1 prefill state into slot ``slot`` of the dense
-        cache: KV padded or cropped in length to ``max_len``, an SSD state
-        leaf copied whole."""
+        """Copy a batch-1 prefill state into local slot ``slot`` of the
+        dense cache: KV padded or cropped in length to ``max_len``, an SSD
+        state leaf copied whole.  Where the state spec splits the cache's
+        sequence (``kv_seq``) the prefill's heads are gathered over
+        ``model`` and this rank's rows kept."""
+        rules = self.plan.rules
         for name, leaves in st["cache"].items():
             for key, small in leaves.items():
                 big = self.state["cache"][name][key]
                 if key in ("k", "v"):                   # (L, B, Smax, K, D)
-                    n = min(small.shape[2], big.shape[2])
+                    seq = self._specs["cache"][name][key][2]
+                    r0 = 0
+                    if seq is not None:
+                        small = sharding.gather_cat(small, rules.group(seq),
+                                                    3)
+                        r0 = rules.index(seq) * big.shape[2]
+                    rows = small[:, 0, r0:r0 + big.shape[2]]
                     big[:, slot].zero_()
-                    big[:, slot, :n] = small[:, 0, :n]
+                    big[:, slot, :rows.shape[1]] = rows
                 else:                                   # (L, B, ...) state
                     big[:, slot] = small[:, 0]
         self.state["pos"][slot] = st["pos"][0]
@@ -219,26 +274,31 @@ class Server:
             if self.slots[b] is None:
                 continue
             page = self.alloc.alloc(b, 1)[0]
-            self._zero_pages([page])
+            if self._owns(b):
+                self._zero_pages([page])
             self.table.append_page(b, page)
 
     # --- decode ---
     def step(self, params) -> list:
         """Advance every active slot one token; returns the requests that
         finished this step (their slots are recycled in the same pass)."""
+        lo, hi = self.lo, self.hi
         if self.cache == "paged":
             self._grow_tables()
             state = {"pools": self.pools,
-                     "block_table": torch.tensor(self.table.table,
+                     "block_table": torch.tensor(self.table.table[lo:hi],
                                                  device=self.device),
-                     "pos": torch.tensor(self.table.pos, device=self.device)}
-            logits, _ = self.model.serve_step_paged(params, self.tokens,
-                                                    state)
+                     "pos": torch.tensor(self.table.pos[lo:hi],
+                                         device=self.device)}
+            logits, _ = self._step(params, self.tokens[lo:hi], state)
         else:
-            logits, self.state = self.model.serve_step(params, self.tokens,
-                                                       self.state)
-        self.tokens = logits[:, :self.model.cfg.vocab].argmax(dim=-1)
-        nxt = self.tokens.cpu().numpy()      # ONE host sync for the batch
+            logits, self.state = self._step(params, self.tokens[lo:hi],
+                                            self.state)
+        nxt = logits[:, :self.model.cfg.vocab].argmax(dim=-1)
+        if self.plan.mesh is not None:       # every rank's slots
+            nxt = self.plan.gather_slots(nxt)
+        self.tokens = nxt.to(self.device)
+        nxt = nxt.cpu().numpy()              # ONE host sync for the batch
         self.steps += 1
         finished = []
         for b, req in enumerate(self.slots):
