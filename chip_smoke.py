@@ -121,7 +121,17 @@ and the script exits non-zero without printing a result:
     stage layers to (19, 3) at a priced step of 216.59 ms; phase 20's way
     (two processes over gloo), 3 AdamW steps on those stages against
     phase 20's unpipelined losses within 1e-4 + 1e-4|x|, with each
-    stage's launches, audit, walk and step peaks and step times;
+    stage's launches, audit, walk and step peaks and step times; then
+    phase 27's hardware-aware annotations on the same ranks: two stages
+    recorded under ``wh.cluster(mesh, spec=<the same H100 + V100>)`` (on
+    the meta device), each node's virtual device naming its stage's
+    hardware, and ``compile_nested_plan`` with the same workload and
+    overlap placing what ``compile_plan`` placed (stage layers, shares,
+    every priced time; the memory term, which the schedule sets, printed
+    beside it: the annotations name none, so their plan is gpipe), its
+    one step from the same start equal to step 0 of these (loss and clip
+    norm, bit for bit: both schedules run each stage's backward slots in
+    micro-batch order);
 22. heterogeneous placement, uneven data parallelism: the same pair at
     ``dp=2`` over tinyllama at full width and 16 layers (at 22 a replica
     with AdamW does not fit the V100 table), batch 8 x 2048, must balance
@@ -151,11 +161,17 @@ and the script exits non-zero without printing a result:
 24. Whale's Case-2 hybrid ``replica×2{split×2}`` with ZeRO 0, 1 and 3 on
     four ranks on ``cuda:0`` over gloo, tinyllama at full width and 4
     layers (ZeRO-3's per-repeat gathers cross host memory), batch 4 x
-    2048, 2 steps each: zero=1 equal to zero=0 bit for bit (losses and
-    the gathered checkpoint's files byte for byte), zero=3 within 1e-4 +
-    1e-4|x| in losses and parameters, every checkpoint restored into the
-    ranks' blocks bit for bit; each rank's peaks beside the state it
-    holds, step and gloo seconds and launches;
+    2048, 2 steps each: zero=1 equal to zero=0 bit for bit (losses, and
+    its state gathered into the checkpoint's layout in memory against
+    zero=0's gathered checkpoint tree: only zero=0's and zero=3's are
+    written), zero=3 within 1e-4 + 1e-4|x| in losses and parameters,
+    zero=0's and zero=3's checkpoints restored into their ranks' blocks
+    and zero=0's into zero=1's, bit for bit;
+    each rank's peaks beside the state it holds, step and gloo seconds
+    and launches; then phase 27's Case 2 on the same ranks: the hybrid
+    recorded as annotations (``replica{split}``, on the meta device),
+    ``compile_nested_plan`` deriving ``StrategySpec(dp=2, tp=2)``, its 2
+    steps equal to zero=0's bit for bit;
 25. Whale's nested hybrid, the plan ``--auto --hw v100`` picks for
     tinyllama at 4 x 2048 on four devices (``auto_parallel`` on the
     paper's V100 table must pick it; its price there and on the H100
@@ -171,11 +187,17 @@ and the script exits non-zero without printing a result:
     reference's padded layout and restored into every rank's blocks bit
     for bit; each rank's launches, audit, peaks of the walk and the step
     beside the state it holds, step and gloo seconds, and 1f1b's stage-0
-    walk peak beside gpipe's;
+    walk peak beside gpipe's; then phase 27's Case 4 on the same ranks:
+    ``pipeline(4){stage{replica{split}}}`` over two stages recorded as
+    annotations (on the meta device), its strategy equal to this phase's,
+    ``lower()`` printing the p2p bridge at the stage boundary, and one
+    gpipe step of ``compile_nested_plan``'s plan from the same weights and
+    batch equal to this phase's first gpipe step bit for bit (loss and
+    every step-0 gradient block);
 26. serving over a mesh, the ranks on ``cuda:0`` over gloo: the serving
     driver's meshed branch (``serve.run`` with ``--mesh``) at split×2 on
     two ranks, full width and depth, paged with phase 4's workload (run
-    1) and dense with 8 requests of 500 + 64 tokens (run 2, the KV
+    1) and dense with 8 requests of 500 + 16 tokens (run 2, the KV
     cache's sequence split over the two ranks); teacher-forced logits of
     2 prefills and 16 decode steps, both caches, against one unsharded
     process (run 3: bf16 at full depth, no further apart than bf16's own
@@ -188,7 +210,21 @@ and the script exits non-zero without printing a result:
     forward on its 16 q heads over 2 kv heads, paged decode on its 2 kv
     heads), TTFT and TPOT on the host clock with their gloo seconds, the
     peak beside the weights and KV held, every rank's tokens equal, the
-    tokens against the unsharded ones as a count.
+    tokens against the unsharded ones as a count;
+27. Whale's annotations (``import repro_torch as wh``), Cases 1 and 2's
+    head in this process (its meshed parts ran in phases 21, 24 and 25):
+    tinyllama at full width and depth, its forward recorded under
+    ``wh.cluster(mesh_shape=(1,))`` (a world of one over NCCL) with the
+    embedding and each block under ``wh.replica()`` and the loss head
+    under ``wh.split(dim=-1)``, run on the card while recording: 24
+    nodes, ``cluster_repeats`` folding the 22 blocks into one group;
+    ``graph_from_taskgraph``'s forward FLOPs beside ``model_graph``'s; a
+    ``capture_meta`` of one block leaving ``torch.cuda.memory_allocated``
+    and every launch count as they were; then 3 AdamW steps of
+    ``compile_plan_from_cluster``'s plan equal, bit for bit (losses and
+    every parameter), to 3 steps of ``compile_plan`` with the same
+    strategy written out, on the same seed and batches, with the flash
+    and xent launches.
 
 then the kernel table as one JSON line, the card line again, and the last
 line ``{"ok": true, "device": {...}}``.  Needs no network; needs ``nvcc``
@@ -2126,8 +2162,8 @@ def _pipeline_rank(rank: int, store: str, out_dir: str,
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
-    from repro_torch.core import pipeline as pipe
     from repro_torch.core.cost_model import StrategySpec
+    from repro_torch.core.pipeline import wire_on_host
     from repro_torch.core.planner import compile_plan, mesh_for_strategy
     from repro_torch.data.pipeline import DataCfg, TokenPipeline
     from repro_torch.models.lm import Model, model_graph
@@ -2188,7 +2224,7 @@ def _pipeline_rank(rank: int, store: str, out_dir: str,
             group = mesh.get_group("stage")
             out["stage"] = mesh.get_local_rank("stage")
             out["wire"] = (f"{dist.get_backend(group)}, "
-                           + ("host copies" if pipe.wire_on_host(
+                           + ("host copies" if wire_on_host(
                                group, model.device) else "device tensors"))
             torch.cuda.synchronize()
             reset_counts(kernels)
@@ -2220,10 +2256,72 @@ def _pipeline_rank(rank: int, store: str, out_dir: str,
                           "in_flight": m["peak_in_flight"],
                           "blocks": traced.pop("blocks", None)}
             del params, state, step_fn
+        if hetero:
+            out["wh"] = _annotated_hetero(torch, plan, mesh, init)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
+
+
+def _annotated_hetero(torch, plan, mesh, init: dict) -> dict:
+    """Phase 27's hardware-aware annotations in a rank of phase 21: two
+    stages recorded on the meta device under ``wh.cluster(mesh,
+    spec=hetero_spec())``, each node's stage and the hardware its virtual
+    device names; ``compile_nested_plan`` with the workload at TRAIN_BATCH
+    x TRAIN_SEQ and overlap 0.5; whether its placement places what phase
+    21's ``plan`` does; and one step of it from phase 21's start ``init``
+    on the first batch: its loss, clip norm, launches and seconds."""
+    import dataclasses
+
+    import numpy as np
+
+    import repro_torch as wh
+    from repro_torch.data.pipeline import DataCfg, TokenPipeline
+    from repro_torch.models.lm import model_graph
+    from repro_torch.optim.optimizer import adamw
+    from repro_torch.tree import tree_map
+
+    kernels = kernel_wrappers()
+    cfg = plan.model.cfg
+    t0 = time.perf_counter()
+    with wh.cluster(mesh=mesh, spec=hetero_spec()) as cl:
+        annotate_lm(wh, *meta_inputs(torch, cfg, TRAIN_BATCH), body=(),
+                    head=(), stages=(cfg.n_layers // 2,) * 2)
+    tags = sorted({(n.stage_index(), n.vdevice.hardware)
+                   for n in cl.taskgraph.nodes})
+    nested = wh.compile_nested_plan(
+        cl, plan.model, workload_meta=model_graph(
+            cfg, TRAIN_BATCH, TRAIN_SEQ).workload_meta(), overlap=0.5)
+    params = tree_map(torch.clone, init)
+    opt = adamw(lr=PP_LR)
+    norms = []
+    real_apply = opt.apply
+
+    def apply(*args, grad_norm, **kw):
+        norms.append(float(grad_norm))
+        return real_apply(*args, grad_norm=grad_norm, **kw)
+
+    step_fn = nested.pipeline_train_step_fn(
+        dataclasses.replace(opt, apply=apply))
+    data = TokenPipeline(DataCfg(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                 vocab=cfg.vocab, seed=0), host_id=0,
+                         n_hosts=1)
+    toks = torch.as_tensor(np.asarray(data.next_batch()["tokens"])).cuda()
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    _, _, m = step_fn(params, opt.init(params), toks, 0)
+    torch.cuda.synchronize()
+    return {"tags": tags, "strategy": nested.strategy.describe(),
+            "stage_layers": list(nested.stage_layers()),
+            "same_placement": placement_key(nested.placement)
+            == placement_key(plan.placement),
+            "priced_ms": nested.placement.cost.total * 1e3,
+            "mem_gib": [p.cost.mem_bytes / 2**30
+                        for p in (nested.placement, plan.placement)],
+            "loss": float(m["loss"]), "norm": norms[0],
+            "counts": read_counts(kernels),
+            "total_s": time.perf_counter() - t0}
 
 
 def spawn_ranks(fn, *args, timeout: float = 600, nprocs: int = 2) -> list:
@@ -2374,7 +2472,8 @@ def hetero_pipeline(torch, want: list) -> dict:
     and one V100, through the multi-rank engine on two processes sharing
     ``cuda:0`` over gloo (phase 20's way), PP_STEPS 1f1b AdamW steps held
     against phase 20's unpipelined losses ``want`` (the same seed, data
-    and micro-batches); returns the ranks' summed launch counts."""
+    and micro-batches), then phase 27's hardware-aware annotations on the
+    same ranks; returns the ranks' summed launch counts of each."""
     from repro_torch.configs import get_config
 
     vp = get_config(ARCH).padded_vocab
@@ -2409,6 +2508,30 @@ def hetero_pipeline(torch, want: list) -> dict:
                                  f"want {expected[s]}")
         if run["losses"] != ranks[0]["1f1b"]["losses"]:
             raise AssertionError("the stages report different losses")
+    want_tags = [[s, g.hw.name] for s, g in enumerate(hetero_spec().groups)]
+    for s, r in enumerate(ranks):
+        o = r["wh"]
+        print(f"[wh] hardware-aware annotations, stage {s}: (stage, "
+              f"hardware) tags of the recorded nodes {o['tags']}; "
+              f"compile_nested_plan: {o['strategy']}, stage layers "
+              f"{o['stage_layers']}, priced step {o['priced_ms']:.2f} ms, "
+              f"placement (stage layers, shares, every priced time) equal "
+              f"to phase 21's {o['same_placement']}; its memory term "
+              f"{o['mem_gib'][0]:.3f} GiB beside phase 21's "
+              f"{o['mem_gib'][1]:.3f} (the annotations name no schedule: "
+              f"gpipe's in-flight micro-batches against 1f1b's); one step "
+              f"from the same start: loss "
+              f"{o['loss']} and clip norm {o['norm']} against phase 21's "
+              f"step 0 {r['1f1b']['losses'][0]}, {r['1f1b']['norms'][0]}; "
+              f"launches {o['counts']}; {o['total_s']:.2f} s in all",
+              flush=True)
+        exp = pipeline_expected(sl[s], 1, vp, head=s == 1)
+        if o["tags"] != want_tags or not o["same_placement"] \
+                or o["loss"] != r["1f1b"]["losses"][0] \
+                or o["norm"] != r["1f1b"]["norms"][0] or o["counts"] != exp:
+            raise AssertionError(f"stage {s}: the annotated plan {o}")
+    annotated = {k: ranks[0]["wh"]["counts"][k] + ranks[1]["wh"]["counts"][k]
+                 for k in expected[0]}
     got = ranks[0]["1f1b"]["losses"]
     worst = check_close("planned-stage losses against the unpipelined step",
                         torch.tensor(got), torch.tensor(want), torch.float32,
@@ -2418,7 +2541,7 @@ def hetero_pipeline(torch, want: list) -> dict:
           f"clip norm summed stage by stage {ranks[0]['1f1b']['norms']}",
           flush=True)
     return {k: ranks[0]["1f1b"]["counts"][k] + ranks[1]["1f1b"]["counts"][k]
-            for k in expected[0]}
+            for k in expected[0]}, annotated
 
 
 def _uneven_rank(rank: int, store: str, out_dir: str, ref_grads: str
@@ -2982,15 +3105,22 @@ def _zero_rank(rank: int, store: str, out_dir: str, ckpt_root: str) -> None:
     ``StrategySpec(dp=2, tp=2, zero=z)`` for each z of ZERO_STAGES over
     tinyllama at full width and ZERO_LAYERS layers; ZERO_STEPS AdamW steps
     each from the same seed and batches, with peak memory, step and gloo
-    seconds and launch counts; the gathered checkpoint written from rank
-    0 to ``ckpt_root/z<z>`` and restored into this rank's blocks, equal
-    bit for bit."""
+    seconds and launch counts.  zero=0's and zero=3's gathered checkpoints
+    are written from rank 0 to ``ckpt_root/z<z>`` and restored into this
+    rank's blocks; zero=1's state is gathered the same way in memory
+    (``gather_state``, no file) and held on rank 0 against zero=0's
+    gathered tree, and zero=0's checkpoint is restored into zero=1's
+    blocks — each bit for bit.  Then phase 27's Case 2:
+    ``replica×2{split×2}`` recorded as annotations on the meta device,
+    ``compile_nested_plan`` of them, and its ZERO_STEPS steps the same
+    way."""
     import dataclasses
 
     import numpy as np
     import torch
     import torch.distributed as dist
 
+    import repro_torch as wh
     from repro_torch.ckpt.checkpoint import CheckpointManager
     from repro_torch.configs import get_config
     from repro_torch.core.cost_model import StrategySpec
@@ -2998,7 +3128,7 @@ def _zero_rank(rank: int, store: str, out_dir: str, ckpt_root: str) -> None:
     from repro_torch.data.pipeline import DataCfg, TokenPipeline
     from repro_torch.models.lm import Model
     from repro_torch.optim.optimizer import adamw
-    from repro_torch.tree import flatten
+    from repro_torch.tree import flatten, tree_map
 
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", store=dist.FileStore(store, 4),
@@ -3007,56 +3137,101 @@ def _zero_rank(rank: int, store: str, out_dir: str, ckpt_root: str) -> None:
     stats = {"s": 0.0, "n": 0}
     time_collectives(torch, dist, stats)
     cfg = dataclasses.replace(get_config(ARCH), n_layers=ZERO_LAYERS)
-    out = {}
+
+    def run(plan, opt) -> tuple:
+        params = plan.init_params(0)
+        st = {"params": params, "opt": plan.init_opt(opt, params)}
+        state_bytes = 2 * sum(p.numel() * 4 for p in
+                              flatten(st["params"])[1]) + sum(
+            p.numel() * 4 for p in flatten(st["opt"])[1])
+        step_fn = plan.train_step_fn(opt)
+        data = TokenPipeline(DataCfg(global_batch=ZERO_BATCH,
+                                     seq_len=TRAIN_SEQ, vocab=cfg.vocab,
+                                     seed=0), host_id=0, n_hosts=1)
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        losses, secs, peaks, gloo = [], [], [], []
+        for i in range(ZERO_STEPS):
+            batch = plan.batch_slice({"tokens": torch.as_tensor(
+                np.asarray(data.next_batch()["tokens"]))})
+            batch = {k: v.cuda() for k, v in batch.items()}
+            torch.cuda.reset_peak_memory_stats()
+            s0 = stats["s"]
+            t0 = time.perf_counter()
+            p, o, m = step_fn(st["params"], st["opt"], batch, i)
+            torch.cuda.synchronize()
+            st = {"params": p, "opt": o}
+            secs.append(time.perf_counter() - t0)
+            gloo.append(stats["s"] - s0)
+            peaks.append(torch.cuda.max_memory_allocated())
+            losses.append(float(m["loss"]))
+        return st, {"losses": losses, "seconds": secs, "gloo_s": gloo,
+                    "peak": max(peaks), "state_bytes": state_bytes,
+                    "counts": read_counts(kernels)}
+
+    def same(a: dict, b: dict) -> bool:
+        """The same paths, dtypes, shapes and bits (``a``'s leaves
+        compared on ``b``'s device)."""
+        (pa, la), (pb, lb) = flatten(a), flatten(b)
+        return pa == pb and all(
+            x.dtype == y.dtype and torch.equal(x.to(y.device), y)
+            for x, y in zip(la, lb))
+
+    out, gathered0, ckpt0 = {}, {}, None
     try:
         for z in ZERO_STAGES:
             strat = StrategySpec(dp=2, tp=2, zero=z)
             plan = compile_plan(Model(cfg), mesh_for_strategy(strat), strat)
-            params = plan.init_params(0)
             opt = adamw(lr=PP_LR)
-            st = {"params": params, "opt": plan.init_opt(opt, params)}
-            state_bytes = 2 * sum(p.numel() * 4 for p in
-                                  flatten(st["params"])[1]) + sum(
-                p.numel() * 4 for p in flatten(st["opt"])[1])
-            step_fn = plan.train_step_fn(opt)
-            data = TokenPipeline(DataCfg(global_batch=ZERO_BATCH,
-                                         seq_len=TRAIN_SEQ, vocab=cfg.vocab,
-                                         seed=0), host_id=0, n_hosts=1)
-            torch.cuda.synchronize()
-            reset_counts(kernels)
-            losses, secs, peaks, gloo = [], [], [], []
-            for i in range(ZERO_STEPS):
-                batch = plan.batch_slice({"tokens": torch.as_tensor(
-                    np.asarray(data.next_batch()["tokens"]))})
-                batch = {k: v.cuda() for k, v in batch.items()}
-                torch.cuda.reset_peak_memory_stats()
-                s0 = stats["s"]
-                t0 = time.perf_counter()
-                p, o, m = step_fn(st["params"], st["opt"], batch, i)
-                torch.cuda.synchronize()
-                st = {"params": p, "opt": o}
-                secs.append(time.perf_counter() - t0)
-                gloo.append(stats["s"] - s0)
-                peaks.append(torch.cuda.max_memory_allocated())
-                losses.append(float(m["loss"]))
-            counts = read_counts(kernels)
-            ckpt = CheckpointManager(
-                os.path.join(ckpt_root, f"z{z}"), keep=1,
-                rank=dist.get_rank(), barrier=dist.barrier,
-                gather=lambda tree, plan=plan, opt=opt: plan.gather_state(
-                    tree, opt))
+            st, rec = run(plan, opt)
             t0 = time.perf_counter()
-            ckpt.save(ZERO_STEPS, st)
-            save_s = time.perf_counter() - t0
-            _, back, _ = plan.restore_state(ckpt, opt)
-            restored = all(torch.equal(a, b) for a, b in zip(
-                flatten(back)[1], flatten(st)[1]))
-            out[str(z)] = {"losses": losses, "seconds": secs,
-                           "gloo_s": gloo, "peak": max(peaks),
-                           "state_bytes": state_bytes, "counts": counts,
-                           "save_s": save_s, "restored": restored}
-            del st, back, p, o, step_fn, plan
+            if z == 1:
+                # what zero=1's checkpoint would hold, gathered in memory
+                full = plan.gather_state(st, opt)
+                rec["gathered_equal"] = full is None or same(full, gathered0)
+                del full
+                gathered0.clear()
+                _, back, _ = plan.restore_state(ckpt0, opt)
+                rec.update(save_s=None, restored=same(back, st))
+            else:
+                def gather(tree, plan=plan, opt=opt, keep=z == 0):
+                    # zero=0's tree kept in host memory, off the peaks of
+                    # the steps that follow
+                    full = plan.gather_state(tree, opt)
+                    if keep and full is not None:
+                        gathered0.update(tree_map(torch.Tensor.cpu, full))
+                    return full
+
+                ckpt = CheckpointManager(
+                    os.path.join(ckpt_root, f"z{z}"), keep=1,
+                    rank=dist.get_rank(), barrier=dist.barrier,
+                    gather=gather)
+                ckpt.save(ZERO_STEPS, st)
+                rec["save_s"] = time.perf_counter() - t0
+                _, back, _ = plan.restore_state(ckpt, opt)
+                rec["restored"] = same(back, st)
+                if z == 0:
+                    ckpt0 = ckpt
+            rec["check_s"] = time.perf_counter() - t0
+            out[str(z)] = rec
+            del st, back, plan
             torch.cuda.empty_cache()
+
+        # phase 27, Case 2: the same hybrid, annotated
+        t0 = time.perf_counter()
+        mesh = mesh_for_strategy(StrategySpec(dp=2, tp=2))
+        with wh.cluster(mesh=mesh) as cl:
+            annotate_lm(wh, *meta_inputs(torch, cfg, ZERO_BATCH),
+                        body=("replica", "split"), head=("replica", "split"))
+        plan = wh.compile_nested_plan(cl, Model(cfg))
+        _, rec = run(plan, adamw(lr=PP_LR))
+        rec.update(strategy=dataclasses.asdict(plan.strategy),
+                   describe=wh.lower(cl).describe(),
+                   nodes=len(cl.taskgraph.nodes),
+                   vdevices=sorted({str(n.vdevice) for n in
+                                    cl.taskgraph.nodes}),
+                   total_s=time.perf_counter() - t0)
+        out["wh"] = rec
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -3068,16 +3243,23 @@ def train_hybrid_zero(torch) -> dict:
     at 0, 1 and 3 on four ranks sharing ``cuda:0`` over gloo, tinyllama
     at full width and ZERO_LAYERS layers, batch ZERO_BATCH x TRAIN_SEQ,
     ZERO_STEPS steps each.  Held: zero=1 equals zero=0 bit for bit (every
-    rank's losses, and the gathered checkpoints' files byte for byte);
-    zero=3 within 1e-4 + 1e-4|x| of zero=0 in losses and parameters; each
-    checkpoint restores into the ranks' blocks bit for bit; the launches
-    those of the model on its vocab shard.  Returns the ranks' summed
-    launch counts."""
+    rank's losses, and its whole state gathered into the checkpoint's
+    layout equal to zero=0's gathered checkpoint tree: gathered in memory,
+    not written); zero=3 within 1e-4 + 1e-4|x| of zero=0 in losses and
+    parameters; zero=0's and zero=3's checkpoints restore into their
+    ranks' blocks, and zero=0's into zero=1's, bit for bit; the launches
+    those of the model on its vocab shard.  Then phase 27's Case 2 from
+    the same ranks: the annotated ``replica×2{split×2}`` must derive
+    ``StrategySpec(dp=2, tp=2)`` and its steps equal zero=0's bit for
+    bit.  Returns the ranks' summed launch counts, and the annotated
+    plan's."""
+    import dataclasses
     import filecmp
 
     import numpy as np
 
     from repro_torch.configs import get_config
+    from repro_torch.core.cost_model import StrategySpec
 
     cfg = get_config(ARCH)
     root = tempfile.mkdtemp(prefix="chip_smoke_zero_")
@@ -3088,6 +3270,11 @@ def train_hybrid_zero(torch) -> dict:
         for r, out in enumerate(ranks):
             for z in map(str, ZERO_STAGES):
                 o = out[z]
+                save = (f"none written: gathered in memory against zero=0's "
+                        f"and zero=0's restored, {o['check_s']:.2f} s"
+                        if o["save_s"] is None else
+                        f"{o['save_s']:.2f} s, with the restore "
+                        f"{o['check_s']:.2f} s")
                 print(f"[zero] rank {r} zero={z}: losses {o['losses']}, "
                       f"step seconds {[round(x, 3) for x in o['seconds']]} "
                       f"(host clock; four processes time-slice one card), "
@@ -3095,8 +3282,8 @@ def train_hybrid_zero(torch) -> dict:
                       f"peak device memory {o['peak'] / 2**30:.3f} GiB "
                       f"beside the state it holds (parameters, gradients, "
                       f"AdamW moments) {o['state_bytes'] / 2**30:.3f} GiB; "
-                      f"checkpoint save {o['save_s']:.2f} s; launches "
-                      f"{o['counts']}", flush=True)
+                      f"checkpoint save {save}; launches {o['counts']}",
+                      flush=True)
                 if o["counts"] != exp:
                     raise AssertionError(f"rank {r} zero={z}: launches "
                                          f"{o['counts']}, want {exp}")
@@ -3105,17 +3292,14 @@ def train_hybrid_zero(torch) -> dict:
                                          f"checkpoint restored other blocks")
                 if o["losses"] != ranks[0][z]["losses"]:
                     raise AssertionError("the ranks report different losses")
-            if out["1"]["losses"] != out["0"]["losses"]:
-                raise AssertionError(f"rank {r}: zero=1 losses "
-                                     f"{out['1']['losses']} differ from "
-                                     f"zero=0's {out['0']['losses']}")
+            if out["1"]["losses"] != out["0"]["losses"] \
+                    or not out["1"]["gathered_equal"]:
+                raise AssertionError(f"rank {r}: zero=1 (losses "
+                                     f"{out['1']['losses']}) differs from "
+                                     f"zero=0 (losses {out['0']['losses']})")
         step = f"step_{ZERO_STEPS:08d}"
-        z0, z1, z3 = (os.path.join(root, f"z{z}", step) for z in ZERO_STAGES)
+        z0, z3 = (os.path.join(root, f"z{z}", step) for z in (0, 3))
         names = sorted(os.listdir(z0))
-        match, bad, errs = filecmp.cmpfiles(z0, z1, names, shallow=False)
-        if bad or errs or sorted(os.listdir(z1)) != names:
-            raise AssertionError(f"zero=1's checkpoint differs from zero=0's "
-                                 f"in {bad + errs}")
         same3 = filecmp.cmpfiles(z0, z3, names, shallow=False)[0]
         with open(os.path.join(z0, "MANIFEST.json")) as f:
             paths = json.load(f)["paths"]
@@ -3132,18 +3316,38 @@ def train_hybrid_zero(torch) -> dict:
         l0, l3 = ranks[0]["0"]["losses"], ranks[0]["3"]["losses"]
         check_close("zero=3 losses against zero=0", torch.tensor(l3),
                     torch.tensor(l0), torch.float32, 1e-4)
-        print(f"[zero] zero=1 equals zero=0 bit for bit: losses {l0}, "
-              f"{len(match)} checkpoint files byte for byte; zero=3 losses "
-              f"{l3} (max |diff| "
+        print(f"[zero] zero=1 equals zero=0 bit for bit: losses {l0} on "
+              f"every rank, its state gathered into the checkpoint's layout "
+              f"equal to zero=0's gathered checkpoint tree (every path, "
+              f"dtype, shape and bit); zero=3 losses {l3} (max |diff| "
               f"{max(abs(a - b) for a, b in zip(l0, l3)):.3e}), its gathered "
               f"checkpoint against zero=0's max |diff| {worst} (parameters "
               f"held at 1e-4 + 1e-4|x|), {len(same3)} of {len(names)} files "
-              f"byte for byte; every checkpoint restored into the ranks' "
-              f"blocks bit for bit", flush=True)
+              f"byte for byte; zero=0's and zero=3's checkpoints restored "
+              f"into their ranks' blocks, and zero=0's into zero=1's, bit "
+              f"for bit",
+              flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    want = dataclasses.asdict(StrategySpec(dp=2, tp=2))
+    for r, out in enumerate(ranks):
+        o = out["wh"]
+        print(f"[wh] Case 2 rank {r}: {o['nodes']} nodes recorded on the "
+              f"meta device, virtual devices {o['vdevices']}; lower: "
+              f"{o['describe']}; compile_nested_plan's {ZERO_STEPS} steps "
+              f"{o['losses']} vs zero=0's {out['0']['losses']}; "
+              f"launches {o['counts']}; {o['total_s']:.2f} s in all "
+              f"(recording, compiling, the steps)", flush=True)
+        if o["strategy"] != want:
+            raise AssertionError(f"Case 2 derived {o['strategy']}, want "
+                                 f"{want}")
+        if o["losses"] != out["0"]["losses"] or o["counts"] != exp:
+            raise AssertionError(f"rank {r}: the annotated Case 2 differs "
+                                 f"from zero=0 ({o['losses']}, "
+                                 f"{o['counts']})")
     return {k: sum(r[z]["counts"][k] for r in ranks
-                   for z in map(str, ZERO_STAGES)) for k in exp}
+                   for z in map(str, ZERO_STAGES)) for k in exp}, {
+        k: sum(r["wh"]["counts"][k] for r in ranks) for k in exp}
 
 
 # ---------------------------------------------------------------------------
@@ -3190,9 +3394,9 @@ def _nested_rank(rank: int, store: str, out_dir: str, ref_dir: str) -> None:
     import torch.distributed as dist
 
     from repro_torch.ckpt.checkpoint import CheckpointManager
-    from repro_torch.core import pipeline as pipe
     from repro_torch.core import sharding
     from repro_torch.core.cost_model import StrategySpec
+    from repro_torch.core.pipeline import _rows as stage_rows
     from repro_torch.core.planner import compile_plan, mesh_for_strategy
     from repro_torch.data.pipeline import DataCfg, TokenPipeline
     from repro_torch.models.lm import Model
@@ -3271,11 +3475,14 @@ def _nested_rank(rank: int, store: str, out_dir: str, ref_dir: str) -> None:
                 for path, g in first.items():
                     w = ref[path]
                     if path.startswith("blocks/"):
-                        w = pipe._rows(w, stage, sl)
+                        w = stage_rows(w, stage, sl)
                     w = sharding.shard_leaf(w, specs[path], plan.rules)
                     rec["grads"][path] = [float((g.float() - w).abs().max()),
                                           float(w.abs().max())]
                 out[f"{name}/{sched}"] = rec
+                if name == "bf16" and sched == "gpipe":
+                    out["wh"] = _annotated_nested(
+                        torch, plan, mesh, init, first, rec["losses"][0])
                 del first
             if name == "f32":
                 ck = os.path.join(ref_dir, "ck")
@@ -3303,6 +3510,67 @@ def _nested_rank(rank: int, store: str, out_dir: str, ref_dir: str) -> None:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
+
+
+def _annotated_nested(torch, plan, mesh, init: dict, first: dict,
+                      loss0: float) -> dict:
+    """Phase 27's Case 4 in a rank of phase 25: ``pipeline(PP_MICRO){stage
+    {replica{split}}}`` over two stages recorded as annotations on the
+    meta device, lowered, and one gpipe step of ``compile_nested_plan``'s
+    plan from phase 25's start ``init`` on its first batch.  Returns the
+    derived strategy, the lowered graph's description and p2p bridges, and
+    whether the step's loss (``loss0``) and step-0 gradient blocks
+    (``first``) equal phase 25's explicitly compiled gpipe step's bit for
+    bit, with its launches and seconds."""
+    import dataclasses
+
+    import numpy as np
+
+    import repro_torch as wh
+    from repro_torch.data.pipeline import DataCfg, TokenPipeline
+    from repro_torch.optim.optimizer import adamw
+    from repro_torch.tree import flatten, tree_map
+
+    kernels = kernel_wrappers()
+    cfg = plan.model.cfg
+    t0 = time.perf_counter()
+    with wh.cluster(mesh=mesh) as cl:
+        annotate_lm(wh, *meta_inputs(torch, cfg, TRAIN_BATCH),
+                    body=("replica", "split"), head=("replica", "split"),
+                    stages=plan.stage_layers())
+    low = wh.lower(cl)
+    nested = wh.compile_nested_plan(cl, plan.model)
+    params = tree_map(torch.clone, init)
+    opt = adamw(lr=PP_LR)
+    grads = {}
+    real_apply = opt.apply
+
+    def apply(g, *args, **kw):
+        grads.update((k, v.cpu()) for k, v in zip(*flatten(g)))
+        return real_apply(g, *args, **kw)
+
+    step_fn = nested.pipeline_train_step_fn(
+        dataclasses.replace(opt, apply=apply))
+    data = TokenPipeline(DataCfg(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                 vocab=cfg.vocab, seed=0), host_id=0,
+                         n_hosts=1)
+    toks = nested.batch_slice({"tokens": torch.as_tensor(
+        np.asarray(data.next_batch()["tokens"]))})["tokens"].cuda()
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    _, _, m = step_fn(params, opt.init(params), toks, 0)
+    torch.cuda.synchronize()
+    return {"strategy": dataclasses.asdict(nested.strategy),
+            "stage_layers": list(nested.stage_layers()),
+            "describe": low.describe(),
+            "p2p": [f"{e.src}→{e.dst} ({e.bridge.reason}, "
+                    f"{e.bridge.bytes} bytes)"
+                    for e in low.edges if e.bridge.kind == "p2p"],
+            "loss": float(m["loss"]), "same_loss": float(m["loss"]) == loss0,
+            "same_grads": sorted(grads) == sorted(first) and all(
+                torch.equal(grads[k], first[k]) for k in first),
+            "counts": read_counts(kernels),
+            "total_s": time.perf_counter() - t0}
 
 
 def _unpipelined_reference(torch, name: str, path: str) -> list:
@@ -3368,7 +3636,9 @@ def train_nested(torch, unpiped: list) -> dict:
     leaf's max; the ranks' losses equal; each rank's launches those of its
     stage; the audit; the gathered checkpoint in the reference's padded
     layout, restored into every rank's blocks bit for bit.  Returns the
-    ranks' summed bf16 launch counts."""
+    ranks' summed bf16 launch counts, and the annotated Case 4's."""
+    import dataclasses
+
     from repro_torch.core.auto import auto_parallel
     from repro_torch.core.cost_model import (H100_SXM, V100_PAPER,
                                              StrategySpec, step_cost)
@@ -3482,20 +3752,40 @@ def train_nested(torch, unpiped: list) -> dict:
           f"{all(r['restored'] for r in ranks)}", flush=True)
     if not all(r["restored"] for r in ranks):
         fails.append("the checkpoint restored other blocks")
+    want_strat = dataclasses.asdict(strat)
+    for r in ranks:
+        s, k, o = r["stage"], r["model"], r["wh"]
+        print(f"[wh] Case 4 stage {s} model {k}: compile_nested_plan "
+              f"derives {o['strategy']}, stage layers {o['stage_layers']}; "
+              f"lower: {o['describe']}; p2p bridges {o['p2p']}; one gpipe "
+              f"step's loss {o['loss']} equal to phase 25's explicitly "
+              f"compiled step {o['same_loss']}, its step-0 gradient blocks "
+              f"bit for bit {o['same_grads']}; launches {o['counts']}; "
+              f"{o['total_s']:.2f} s in all (recording, compiling, the "
+              f"step)", flush=True)
+        exp = pipeline_expected(NESTED_RUNS["bf16"][2][s], 1,
+                                cfg.padded_vocab // 2, head=s == 1)
+        if o["strategy"] != want_strat or not o["p2p"] \
+                or not o["same_loss"] or not o["same_grads"] \
+                or o["counts"] != exp:
+            fails.append(f"Case 4 stage {s} model {k}: {o}")
     if fails:
         raise AssertionError("; ".join(fails))
     return {k: sum(r[run]["counts"][k] for r in ranks
                    for run in ("bf16/1f1b", "bf16/gpipe"))
-            for k in ranks[0]["bf16/gpipe"]["counts"]}
+            for k in ranks[0]["bf16/gpipe"]["counts"]}, {
+        k: sum(r["wh"]["counts"][k] for r in ranks)
+        for k in ranks[0]["wh"]["counts"]}
 
 
 # ---------------------------------------------------------------------------
 # phase 26: serving over a mesh
 # ---------------------------------------------------------------------------
 
-#: run 2: the dense, sequence-split cache at full depth
+#: run 2: the dense, sequence-split cache at full depth; each rank holds
+#: 512 of the 1024 rows, and the 15 decode steps write rows 500-514
 TP_DENSE_ARGS = ["--arch", ARCH, "--cache", "dense", "--requests", "8",
-                 "--batch-slots", "8", "--prompt-len", "500", "--gen", "64",
+                 "--batch-slots", "8", "--prompt-len", "500", "--gen", "16",
                  "--max-len", "1024"]
 #: run 4: data 2 x model 2 at 4 layers, a pool of 66 usable pages: 8
 #: admissions take 64, the growth past row 512 preempts
@@ -3963,6 +4253,241 @@ def serve_tp(torch, kernels, paged4: dict) -> dict:
             "serve_mesh_1x1": one_counts}
 
 
+# ---------------------------------------------------------------------------
+# phase 27: Whale's annotations (its meshed parts run in the ranks of phases
+# 21, 24 and 25)
+# ---------------------------------------------------------------------------
+
+WH_STEPS = 3                    # the annotated Case 1/2 plan's AdamW steps
+
+
+def annotate_lm(wh, model, params, tokens, *, body: tuple, head: tuple,
+                stages: tuple | None = None):
+    """Record tinyllama's forward as Whale subgraphs into the active
+    cluster and return its loss: ``embed`` and ``block0`` … under the
+    ``body`` scopes (e.g. ``("replica", "split")``), ``head`` (the final
+    norm and the loss head) under the ``head`` scopes; with ``stages``
+    (layers a stage) all inside ``wh.pipeline(micro_batch=PP_MICRO)``, one
+    ``wh.stage()`` a stage, the embedding in the first and the head in the
+    last.  On meta ``params`` and ``tokens`` nothing runs anywhere: the
+    kernels' wrappers take their plain versions there, inside
+    ``kernels.abstract()``."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_map
+
+    cfg, (bcfg,) = model.cfg, model.stack.pattern
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    mask = torch.ones((B, S - 1), dtype=torch.float32, device=tokens.device)
+
+    def scopes(kinds, stack):
+        for k in kinds:
+            stack.enter_context(getattr(wh, k)())
+
+    def block(p, x, pos):
+        return tfm.apply_block(p, x, pos, bcfg)[0]
+
+    groups = (cfg.n_layers,) if stages is None else tuple(stages)
+    i = 0
+    with kernels.abstract(), contextlib.ExitStack() as outer:
+        if stages is not None:
+            outer.enter_context(wh.pipeline(micro_batch=PP_MICRO))
+        for s, n in enumerate(groups):
+            with contextlib.ExitStack() as st:
+                if stages is not None:
+                    st.enter_context(wh.stage())
+                with contextlib.ExitStack() as inner:
+                    scopes(body, inner)
+                    if s == 0:
+                        x = wh.sub("embed", lambda p, t: layers.embed(
+                            p, t, cfg.padded_vocab).to(cfg.adtype))(
+                                params["embed"], tokens)
+                    for _ in range(n):
+                        x = wh.sub(f"block{i}", block)(tree_map(
+                            lambda t: t[i], params["blocks"]["p0"]), x,
+                            positions)
+                        i += 1
+                if s == len(groups) - 1:
+                    with contextlib.ExitStack() as inner:
+                        scopes(head, inner)
+                        nll, _, n_tok = wh.sub("head", model.head_loss)(
+                            {k: params[k] for k in ("final_norm", "head")
+                             if k in params}, x, tokens, mask)
+    return nll / n_tok
+
+
+def meta_inputs(torch, cfg, rows: int) -> tuple:
+    """tinyllama at ``cfg`` on the meta device, its parameter shapes, and
+    a (rows, TRAIN_SEQ) batch of token ids: what the meshed ranks record
+    their annotations over, allocating nothing."""
+    from repro_torch.models.lm import Model
+
+    model = Model(cfg, "meta")
+    return model, model.param_shapes(), torch.empty(
+        (rows, TRAIN_SEQ), dtype=torch.int64, device="meta")
+
+
+def placement_key(pl) -> tuple:
+    """What a :class:`~repro_torch.core.hetero.HeteroPlacement` places:
+    the stage layers and batch shares, and the priced times of the step
+    and of each unit (its group, layers and rows) — all but the memory
+    term, which depends on the schedule (gpipe holds more micro-batches
+    in flight than 1f1b), and the ``strategy`` it carries."""
+    def times(c):
+        return (c.compute, c.comm, c.bubble, c.total, c.feasible)
+    return (pl.layer_alloc, pl.batch_shares, times(pl.cost), tuple(
+        (u.kind, u.group, u.layers, u.batch, times(u.cost))
+        for u in pl.units))
+
+
+def whale_annotations(torch, kernels) -> dict:
+    """Phase 27, Cases 1 and 2's head on one process (a world of one over
+    NCCL that ``wh.cluster`` starts): tinyllama at full width and depth,
+    its forward recorded under ``wh.cluster(mesh_shape=(1,))`` — the
+    embedding and 22 blocks under ``wh.replica()``, the loss head under
+    ``wh.split(dim=-1)`` — on batch TRAIN_BATCH x TRAIN_SEQ, bf16.  Held:
+    24 nodes, ``cluster_repeats`` folding the blocks into one group of 22;
+    a ``capture_meta`` of one block leaves ``torch.cuda.memory_allocated``
+    and every launch count unchanged; ``compile_plan_from_cluster``'s
+    strategy equals the one written out, and its WH_STEPS AdamW steps
+    equal, bit for bit (losses and every parameter), those of
+    ``compile_plan`` with that strategy, from the same seed and batches;
+    its launches those of the training path.  Printed: the graph's
+    forward FLOPs from ``graph_from_taskgraph`` beside ``model_graph``'s.
+    Returns the annotated plan's launch counts."""
+    import numpy as np
+    import torch.distributed as dist
+
+    import repro_torch as wh
+    from repro_torch.configs import get_config
+    from repro_torch.core.cost_model import StrategySpec
+    from repro_torch.core.ir import capture_meta
+    from repro_torch.core.planner import compile_plan
+    from repro_torch.data.pipeline import DataCfg, TokenPipeline
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.lm import Model, model_graph
+    from repro_torch.optim.optimizer import adamw
+    from repro_torch.tree import flatten, tree_map
+
+    cfg = get_config(ARCH)
+    model = Model(cfg)
+    data = TokenPipeline(DataCfg(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                 vocab=cfg.vocab, seed=0), host_id=0,
+                         n_hosts=1)
+    batches = [torch.as_tensor(np.asarray(data.next_batch()["tokens"]))
+               .cuda() for _ in range(WH_STEPS)]
+    cl = wh.cluster(mesh_shape=(1,), axis_names=("data",))
+    try:
+        params = model.init(0)
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        with cl, torch.no_grad():
+            loss = float(annotate_lm(wh, model, params, batches[0],
+                                     body=("replica",), head=("split",)))
+        torch.cuda.synchronize()
+        tg = cl.taskgraph
+        groups = [(g["nodes"][0].name, len(g["nodes"]),
+                   g["nodes"][0].strategy_kinds())
+                  for g in tg.cluster_repeats()]
+        print(f"[wh] Case 1 + Case 2's head on {cl.shape} (a world of one "
+              f"over {dist.get_backend()}): the annotated "
+              f"forward, run on the card while recording, loss {loss:.6f} in "
+              f"{time.perf_counter() - t0:.2f} s, launches "
+              f"{read_counts(kernels)}; {len(tg.nodes)} nodes, "
+              f"cluster_repeats (first node, size, scopes) {groups}; "
+              f"virtual devices "
+              f"{sorted({(n.vdevice.name, n.vdevice.axes) for n in tg.nodes})}",
+              flush=True)
+        if len(tg.nodes) != cfg.n_layers + 2 or [g[1] for g in groups] \
+                != [1, cfg.n_layers, 1]:
+            raise AssertionError(f"recorded graph {groups}")
+        ours = wh.graph_from_taskgraph(tg, TRAIN_BATCH).workload_meta()
+        cfgs = model_graph(cfg, TRAIN_BATCH, TRAIN_SEQ).workload_meta()
+        print(f"[wh] forward FLOPs: graph_from_taskgraph(tg, "
+              f"{TRAIN_BATCH}) {ours.fwd_flops:.6e} (counted on the meta "
+              f"device: attention's full S x S scores, the head at the "
+              f"padded vocab) beside model_graph(cfg, {TRAIN_BATCH}, "
+              f"{TRAIN_SEQ}) {cfgs.fwd_flops:.6e} (analytic: causal half); "
+              f"ratio {ours.fwd_flops / cfgs.fwd_flops:.4f}; parameter "
+              f"bytes {ours.param_bytes:.6e} beside {cfgs.param_bytes:.6e}",
+              flush=True)
+        one = tree_map(lambda t: t[0], params["blocks"]["p0"])
+        x = torch.zeros((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model),
+                        dtype=cfg.adtype, device="cuda")
+        pos = torch.arange(TRAIN_SEQ, device="cuda")[None].expand(
+            TRAIN_BATCH, TRAIN_SEQ)
+        (bcfg,) = model.stack.pattern
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        before = torch.cuda.memory_allocated()
+        _, outs, flops, _ = capture_meta(
+            lambda p, h, q: tfm.apply_block(p, h, q, bcfg)[0], one, x, pos)
+        after = torch.cuda.memory_allocated()
+        launched = {k: v for k, v in read_counts(kernels).items() if v}
+        print(f"[wh] capture_meta of one block at {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ}: output {outs[0].shape} {outs[0].dtype}, "
+              f"{flops:.6e} FLOPs; torch.cuda.memory_allocated {before} "
+              f"before, {after} after; launches {launched or 'none'}",
+              flush=True)
+        if before != after or launched:
+            raise AssertionError("the meta capture allocated or launched on "
+                                 "the card")
+        del params, one, x
+        torch.cuda.empty_cache()
+
+        written = StrategySpec(dp=1, vocab_split=True)
+        derived = wh.strategy_from_taskgraph(cl)
+        if derived != written:
+            raise AssertionError(f"derived {derived}, want {written}")
+        runs = {}
+        for name, plan in (
+                ("annotated", wh.compile_plan_from_cluster(cl, model)),
+                ("explicit", compile_plan(model, cl.mesh, written))):
+            p = plan.init_params(0)
+            opt = adamw(lr=PP_LR)
+            st = plan.init_opt(opt, p)
+            step = plan.train_step_fn(opt)
+            torch.cuda.synchronize()
+            reset_counts(kernels)
+            losses, secs = [], []
+            for i, toks in enumerate(batches):
+                t0 = time.perf_counter()
+                p, st, m = step(p, st, plan.batch_slice({"tokens": toks}), i)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                losses.append(float(m["loss"]))
+            runs[name] = {"losses": losses, "seconds": secs, "params": p,
+                          "counts": read_counts(kernels),
+                          "strategy": plan.strategy.describe()}
+            del st, step
+            torch.cuda.empty_cache()
+        a, b = runs["annotated"], runs["explicit"]
+        same = all(torch.equal(u, v) for u, v in zip(
+            flatten(a["params"])[1], flatten(b["params"])[1]))
+        print(f"[wh] compile_plan_from_cluster: {a['strategy']} ({derived}); "
+              f"{WH_STEPS} AdamW steps {a['losses']} (step seconds "
+              f"{[round(t, 3) for t in a['seconds']]}) vs compile_plan with "
+              f"the strategy written out {b['losses']}: losses equal "
+              f"{a['losses'] == b['losses']}, every parameter equal bit for "
+              f"bit {same}; launches {a['counts']}", flush=True)
+        if a["losses"] != b["losses"] or not same:
+            raise AssertionError("the annotated plan's steps differ from the "
+                                 "explicitly compiled plan's")
+        exp = train_expected(cfg.n_layers, WH_STEPS, cfg.padded_vocab)
+        if a["counts"] != exp:
+            raise AssertionError(f"launches {a['counts']}, want {exp}")
+        if not all(math.isfinite(x) for x in a["losses"]):
+            raise AssertionError(f"losses {a['losses']}")
+        return a["counts"]
+    finally:
+        cl.close()
+
+
 @contextlib.contextmanager
 def phase(name: str):
     t0 = time.perf_counter()
@@ -4087,7 +4612,7 @@ def main() -> None:
         engine_counts, unpiped = pipeline_engine(torch)
     torch.cuda.empty_cache()
     with phase("heterogeneous pipeline (planned stage layers, 2 ranks)"):
-        hetero_counts = hetero_pipeline(torch, unpiped)
+        hetero_counts, wh_hetero = hetero_pipeline(torch, unpiped)
     torch.cuda.empty_cache()
     with phase("uneven data parallelism (planned batch shares, 2 ranks)"):
         uneven_counts = uneven_dp(torch)
@@ -4096,14 +4621,19 @@ def main() -> None:
         tp_counts = train_tp(torch)
     torch.cuda.empty_cache()
     with phase("replica×2{split×2} with ZeRO 0/1/3 (4 ranks)"):
-        zero_counts = train_hybrid_zero(torch)
+        zero_counts, wh_case2 = train_hybrid_zero(torch)
     torch.cuda.empty_cache()
     with phase("Whale's nested hybrid (split×2 pipeline×2, 4 ranks)"):
-        nested_counts = train_nested(torch, unpiped)
+        nested_counts, wh_case4 = train_nested(torch, unpiped)
     torch.cuda.empty_cache()
     with phase("serving over a mesh (split×2, data 2 x model 2; 2 and 4 "
                "ranks)"):
         serve_tp_counts = serve_tp(torch, kernels, paged4)
+    torch.cuda.empty_cache()
+    with phase("Whale's annotations (Case 1 + Case 2's head, one process; "
+               "Cases 2 and 4 and the hardware-aware plan ran in phases "
+               "24, 25 and 21)"):
+        wh_case1 = whale_annotations(torch, kernels)
 
     meta = {
         "flash_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
@@ -4146,7 +4676,11 @@ def main() -> None:
                    "train_tp": tp_counts[name],
                    "train_hybrid_zero": zero_counts[name],
                    "train_pipeline_tp": nested_counts[name],
-                   **{path: c[name] for path, c in serve_tp_counts.items()}}
+                   **{path: c[name] for path, c in serve_tp_counts.items()},
+                   "train_annotated": wh_case1[name],
+                   "train_annotated_case2": wh_case2[name],
+                   "train_annotated_case4": wh_case4[name],
+                   "train_annotated_hetero": wh_hetero[name]}
         table.append(dict(name=name, route="cuda", source=meta[name][0],
                           replaces=meta[name][1],
                           launches=sum(by_path.values()),

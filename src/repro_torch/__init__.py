@@ -1,11 +1,18 @@
-"""repro_torch — the PyTorch/CUDA port of ``repro``, slice by slice.
+"""repro_torch — the PyTorch/CUDA port of ``repro`` (Whale), on NVIDIA H100s.
 
-Ported so far: serving and training of dense decoder LMs (tinyllama-1.1b),
-serving of the Mamba2 family (mamba2-1.3b), and data-parallel training
-over a ``pod × data`` mesh with int8 cross-pod gradient compression, on
-NVIDIA H100s.  Attention (prefill, its backward, paged decode), the fused
-cross-entropy, the SSD scan and the int8 quantizer run in hand-written
-CUDA kernels (``repro_torch.kernels``); everything else is plain PyTorch.
-The package imports ``torch`` and ``numpy`` only — never ``jax`` or
-``repro``.
+``import repro_torch as wh`` gives the paper's API surface, as ``import
+repro as wh`` does: the cluster / replica / split / stage / pipeline /
+auto-parallel scopes and ``wh.sub``, the TaskGraph IR, the graph
+optimizer, the engine and the cost model (:mod:`repro_torch.core`), and
+``model_graph``.
+
+The port serves and trains dense decoder LMs (tinyllama-1.1b) and serves
+the Mamba2 family (mamba2-1.3b), over data, model and stage axes.
+Attention (prefill, its backward, paged decode), the fused cross-entropy,
+the SSD scan and the int8 quantizer run in hand-written CUDA kernels
+(``repro_torch.kernels``), built on their first launch; everything else
+is plain PyTorch.  The package imports ``torch`` and ``numpy`` only —
+never ``jax`` or ``repro``.
 """
+from repro_torch.core import *  # noqa: F401,F403
+from repro_torch.models.lm import model_graph  # noqa: F401  (segment-aware meta)

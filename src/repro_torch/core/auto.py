@@ -8,10 +8,9 @@ cost model:
 
 - **Clustering** (paper: "groups repeatedly occurred sub-structures to prune
   the search space"): for LMCfg workloads the clustering is structural
-  (one pattern × n_rep), so the search never scales with depth.  (The
-  reference also derives a graph from a traced TaskGraph,
-  ``graph_from_taskgraph``; that path comes with the port's annotation
-  API.)
+  (one pattern × n_rep), so the search never scales with depth; for a
+  TaskGraph recorded by the annotation scopes each run of identical
+  subgraphs becomes one segment (:func:`graph_from_taskgraph`).
 - **Pruning**: (dp, tp, pp) only ranges over divisor factorizations of the
   device count; tp is capped at the size of one pod's minor dimension
   (operator sharding across DCN is never competitive); pp over divisors of
@@ -42,8 +41,8 @@ from typing import Iterable
 
 from repro_torch.core.cost_model import (H100_SXM, ClusterSpec,
                                          CostBreakdown, Hardware, ModelGraph,
-                                         StrategySpec, as_workload_meta,
-                                         step_cost)
+                                         SegmentMeta, StrategySpec,
+                                         as_workload_meta, step_cost)
 
 
 def divisors(n: int) -> list:
@@ -217,3 +216,36 @@ def auto_parallel(meta, devices,
             f"no feasible strategy for {as_workload_meta(meta).name} "
             f"on {where}")
     return best[0].strategy
+
+
+# ---------------------------------------------------------------------------
+# TaskGraph path (the scopes API): cluster repeats → segments → ModelGraph
+# ---------------------------------------------------------------------------
+
+def graph_from_taskgraph(tg, batch: int, *, name: str = "taskgraph"
+                         ) -> ModelGraph:
+    """Segment-aware workload summary from recorded Subgraph metadata.
+
+    Clustering: each repeated-substructure group from
+    :meth:`TaskGraph.cluster_repeats` becomes ONE segment — (cost of one
+    representative) × (group size), the paper's search-space pruning —
+    so a traced vision-tower → decoder nest arrives at the planner with
+    its segment boundaries intact instead of flattened away.
+    """
+    segments = []
+    for idx, g in enumerate(tg.cluster_repeats()):
+        rep = g["nodes"][0]
+        k = len(g["nodes"])
+        segments.append(SegmentMeta(
+            name=f"{rep.name}×{k}" if hasattr(rep, "name") else f"group{idx}",
+            n_layers=k,
+            fwd_flops=float(rep.flops * k),
+            param_bytes=float(rep.param_bytes * k),
+            act_bytes_per_layer=float(rep.activation_bytes)))
+    if not segments:
+        segments = [SegmentMeta(name="empty", n_layers=1, fwd_flops=0.0,
+                                param_bytes=0.0, act_bytes_per_layer=0.0)]
+    # traced graphs don't distinguish norm/bias params → the flatter 0.95
+    # shardable fraction this path has always used
+    return ModelGraph(name=name, segments=tuple(segments), batch=batch,
+                      tp_shardable_fraction=0.95)

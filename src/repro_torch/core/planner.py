@@ -74,16 +74,23 @@ and :meth:`~ExecutionPlan.paged_state_specs`, slots over the data axes
 (:meth:`~ExecutionPlan.slot_block`).  Refused, each naming its ROADMAP
 item: serving inside a pipeline, the ssm family over a model axis, ZeRO-3's
 data-sharded parameters, and decode in the ``repeat`` layout.
+
+The annotation API's entry points (the paper's Cases 1–5):
+:func:`strategy_from_taskgraph` reads the strategy off the scopes a
+:class:`~repro_torch.core.vdevice.Cluster` recorded and
+:func:`compile_plan_from_cluster` compiles it over the cluster's mesh, as
+``graph_opt.compile_nested_plan`` does after lowering.  An expert split
+(``ep > 1``) raises until the MoE family is ported.
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
 from typing import Callable
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.core import pipeline as pipe
 from repro_torch.core import sharding
 from repro_torch.core.cost_model import StrategySpec
 from repro_torch.core.hetero import (plan_placement, proportional_split,
@@ -93,6 +100,10 @@ from repro_torch.launch.mesh import make_mesh, mesh_shape
 from repro_torch.models.attention import decode_split
 from repro_torch.optim.optimizer import sharded_global_norm
 from repro_torch.tree import flatten, tree_map, unflatten
+
+# ``repro_torch.core`` exports the ``pipeline`` scope under this module's
+# name, as ``repro.core`` does: reach the engine module itself
+pipe = importlib.import_module("repro_torch.core.pipeline")
 
 ZERO_COMPRESS_SLICE = ("ZeRO with compress_pod (the compressed cross-pod "
                        "reduction of a data-sharded gradient) comes with a "
@@ -107,6 +118,9 @@ SSM_SPLIT_SERVE_SLICE = ("serving the ssm family over a model axis (the SSD "
 ZERO3_SERVE_SLICE = ("serving parameters sharded over data (zero=3) comes "
                      "with a later slice of the port (ROADMAP.md queue A "
                      "item 4)")
+EXPERT_SLICE = ("an expert split (ep > 1, the MoE layers' experts over the "
+                "model axis) comes with the MoE family, a later slice of "
+                "the port (ROADMAP.md queue A item 7)")
 ADAFACTOR_SPLIT_SLICE = ("adafactor over a split model (its factored moments' "
                          "means across shards) comes with a later slice of "
                          "the port (ROADMAP.md queue A item 4)")
@@ -826,8 +840,38 @@ class ExecutionPlan:
 
 
 # ---------------------------------------------------------------------------
-# entry point
+# entry points
 # ---------------------------------------------------------------------------
+
+def strategy_from_taskgraph(cluster) -> StrategySpec:
+    """Derive the StrategySpec implied by recorded scope annotations
+    (the Cases-1..5 path: scopes → IR → engine), as the reference does:
+    dp = pod × data; a dense split takes the model axis as tp (and splits
+    the vocab), an expert split as ep; a stage or pipeline scope takes the
+    stage axis as pp, with the largest ``micro_batch`` recorded."""
+    shape = mesh_shape(cluster.mesh)
+    tg = cluster.taskgraph
+    kinds = set()
+    micro = 1
+    dense_split = expert_split = False
+    for sg in (tg.nodes if tg else []):
+        for ann in sg.strategy:
+            kinds.add(ann.kind)
+            if ann.kind == "pipeline":
+                micro = max(micro, ann.options.get("micro_batch", 1))
+            if ann.kind == "split":
+                if ann.options.get("experts"):
+                    expert_split = True
+                else:
+                    dense_split = True
+    dp = shape.get("pod", 1) * shape.get("data", 1)
+    model_ax = shape.get("model", 1)
+    tp = model_ax if dense_split else 1
+    ep = model_ax if expert_split else 1
+    pp = shape.get("stage", 1) if kinds & {"stage", "pipeline"} else 1
+    return StrategySpec(dp=dp, tp=tp, pp=pp, ep=ep, micro_batches=micro,
+                        vocab_split=dense_split)
+
 
 def compile_plan(model, mesh, strategy: StrategySpec | None = None, *,
                  cluster_spec=None, workload_meta=None, placement=None,
@@ -854,6 +898,8 @@ def compile_plan(model, mesh, strategy: StrategySpec | None = None, *,
     if strategy.schedule not in SCHEDULE_NAMES:
         raise ValueError(f"unknown schedule {strategy.schedule!r}; "
                          f"expected one of {SCHEDULE_NAMES}")
+    if strategy.ep > 1:
+        raise NotImplementedError(f"{strategy.describe()}: {EXPERT_SLICE}")
     if mesh is not None and mesh_shape(mesh).get("model", 1) \
             != strategy.model_parallel:
         raise ValueError(f"{strategy.describe()} needs a model axis of "
@@ -870,3 +916,19 @@ def compile_plan(model, mesh, strategy: StrategySpec | None = None, *,
         raise NotImplementedError(f"zero={strategy.zero} with the batch "
                                   f"shares {rows}: {ZERO_UNEVEN_SLICE}")
     return plan
+
+
+def compile_plan_from_cluster(cluster, model,
+                              workload_meta=None) -> ExecutionPlan:
+    """Cases-1..5 path: the strategy inferred from the recorded TaskGraph
+    (:func:`strategy_from_taskgraph`), compiled over the cluster's mesh.
+
+    On a mixed-hardware cluster, pass the workload's ``WorkloadMeta``
+    (e.g. ``graph_from_taskgraph(tg, batch).workload_meta()`` from
+    :mod:`repro_torch.core.auto`) to get a balanced placement on the plan;
+    without it — or with a homogeneous ``cluster.spec`` —
+    ``plan.placement`` stays None."""
+    strat = strategy_from_taskgraph(cluster)
+    return compile_plan(model, cluster.mesh, strategy=strat,
+                        cluster_spec=getattr(cluster, "spec", None),
+                        workload_meta=workload_meta)

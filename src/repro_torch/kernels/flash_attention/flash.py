@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, plain
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)               # head dims the kernel is built for
@@ -85,7 +85,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (bf16 or f32, contiguous, head dim in :data:`HEAD_DIMS`) or raise.  The
     dtype picks the kernel: bf16 the tensor-core one, f32 the FMA one.
     """
-    if q.device.type == "cpu":
+    if plain(q):
         return flash_attention_plain(q, k, v, causal)
     _check(q, k, v)
     B, Sq, H, D = q.shape
@@ -123,7 +123,7 @@ def _bwd_call(name: str, outs: list, q, k, v, do, lse, delta, causal):
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True):
     """dq (like q) of the backward; the dq CUDA kernel for CUDA tensors,
     the plain version for CPU tensors."""
-    if q.device.type == "cpu":
+    if plain(q):
         return flash_attention_bwd_plain(q, k, v, do, lse, delta, causal)[0]
     _check_bwd(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
@@ -135,7 +135,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True):
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
     """(dk, dv) (like k, v) of the backward; the dk/dv CUDA kernel for
     CUDA tensors, the plain version for CPU tensors."""
-    if q.device.type == "cpu":
+    if plain(q):
         return flash_attention_bwd_plain(q, k, v, do, lse, delta, causal)[1:]
     _check_bwd(q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -154,7 +154,7 @@ def flash_attention_bwd(q, k, v, do, lse, delta, causal: bool = True):
     f32 → (dq, dk, dv).  CPU tensors take the plain version; CUDA tensors
     launch the dq and the dk/dv kernels (bf16 or f32, contiguous, head dim
     in :data:`HEAD_DIMS`) or raise."""
-    if q.device.type == "cpu":
+    if plain(q):
         return flash_attention_bwd_plain(q, k, v, do, lse, delta, causal)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, causal)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal)

@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, plain
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
@@ -66,7 +66,7 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  block_table: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """See :func:`paged_decode_plain`.  CPU tensors take the plain version;
     CUDA tensors launch the kernel or raise."""
-    if q.device.type == "cpu":
+    if plain(q):
         return paged_decode_plain(q, k_pool, v_pool, block_table, pos)
     _check(q, k_pool, v_pool, block_table, pos)
     B, H, D = q.shape

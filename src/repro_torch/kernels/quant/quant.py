@@ -33,7 +33,7 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, plain
 
 DTYPES = (torch.float32, torch.bfloat16)
 SMALL_BLOCK = 4096          # the kernel's one-warp-per-block limit
@@ -98,7 +98,7 @@ def quantize(x: torch.Tensor, *, block: int = 256):
     block != 0`` raises ``ValueError``.  CPU tensors take the plain
     version; CUDA tensors the kernel (which raises on a failed launch)."""
     nb = _blocks(x.shape[0], block)
-    if x.device.type == "cpu":
+    if plain(x):
         return quantize_plain(x, block)
     _check_device(x)
     if x.dim() != 1 or x.dtype not in DTYPES or not x.is_contiguous():
@@ -126,7 +126,7 @@ def dequantize(q: torch.Tensor, s: torch.Tensor, *, block: int = 256):
     """q (T,) int8, s (T / block,) f32 → x (T,) f32.  CPU tensors take the
     plain version; CUDA tensors the kernel."""
     nb = _blocks(q.shape[0], block)
-    if q.device.type == "cpu":
+    if plain(q):
         return dequantize_plain(q, s, block)
     _check_device(q)
     if (q.dim() != 1 or q.dtype != torch.int8 or s.dtype != torch.float32
@@ -259,7 +259,7 @@ def ef_absmax(x: torch.Tensor, err=None) -> torch.Tensor:
     """x (+ err) → its scale s (1,) f32.  CPU tensors take the plain
     version; CUDA tensors the kernel (contiguous x of f32 or bf16, err f32
     or None; anything else raises)."""
-    if x.device.type == "cpu":
+    if plain(x):
         return ef_absmax_plain(x, err)
     _ef_args("ef_absmax", x, err)
     dev, n = x.device, x.numel()
@@ -283,7 +283,7 @@ def ef_requant(x: torch.Tensor, err, s: torch.Tensor, smax: torch.Tensor,
     shaped like x, the new f32 error, written into ``err_out`` if given:
     it may be ``err``).  CPU tensors take the plain version; CUDA tensors
     the kernel."""
-    if x.device.type == "cpu":
+    if plain(x):
         return ef_requant_plain(x, err, s, smax, err_out)
     _ef_args("ef_requant", x, err, (s, smax))
     dev, n = x.device, x.numel()
@@ -307,7 +307,7 @@ def ef_decode(total: torch.Tensor, smax: torch.Tensor, out: torch.Tensor,
     """out ← total·smax (int32 total, smax (1,) f32), divided by ``world``
     unless it is None, in out's dtype (f32 or bf16); returns out.  CPU
     tensors take the plain version; CUDA tensors the kernel."""
-    if total.device.type == "cpu":
+    if plain(total):
         return ef_decode_plain(total, smax, out, world)
     _check_device(total)
     dev, n = total.device, total.numel()

@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, plain
 
 DTYPES = (torch.float32, torch.bfloat16)
 COLS = 32                    # head-dim columns per block of the kernel
@@ -91,7 +91,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``P % 32 == 0``, ``N`` in ``STATES``, a chunk of at most 256."""
     S = x.shape[1]
     Q = chunk_len(S, chunk)
-    if x.device.type == "cpu":
+    if plain(x):
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
     _check(x, dt, A, Bm, Cm, Q)
     Bsz, S, H, P = x.shape

@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, plain
 
 NEG_INF = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
@@ -64,7 +64,7 @@ def xent_fwd(hidden: torch.Tensor, head_w: torch.Tensor,
     launch the kernel (bf16 or f32, contiguous, int32 labels; in bf16 E and
     V multiples of 8 and 16-byte aligned) or raise.  The dtype picks the
     kernel: bf16 the tensor-core one, f32 the FMA one."""
-    if hidden.device.type == "cpu":
+    if plain(hidden):
         return xent_fwd_plain(hidden, head_w, labels, vocab)
     _check_fwd(hidden, head_w, labels)
     T, E = hidden.shape
@@ -121,7 +121,7 @@ def xent_bwd(logits: torch.Tensor, lse: torch.Tensor, labels: torch.Tensor,
     """:func:`xent_bwd_plain`'s pass, in place: the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors (f32, contiguous, int32
     labels) or raise."""
-    if logits.device.type == "cpu":
+    if plain(logits):
         return xent_bwd_plain(logits, lse, labels, g_nll, g_lse, col0, vocab)
     _check_bwd(logits, lse, labels, g_nll, g_lse)
     T, C = logits.shape

@@ -85,6 +85,7 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import importlib
 import time
 
 import numpy as np
@@ -93,7 +94,6 @@ import torch.distributed as dist
 
 from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.configs import ARCH_NAMES, apply_overrides, get_config
-from repro_torch.core import pipeline as pipe
 from repro_torch.core.auto import auto_parallel
 from repro_torch.core.calibrate import prediction_error
 from repro_torch.core.cost_model import (H100_SXM, P100_16G, T4_16G,
@@ -113,6 +113,10 @@ from repro_torch.optim.optimizer import Schedule, adafactor, adamw
 from repro_torch.runtime.fault_tolerance import FaultTolerantLoop
 from repro_torch.runtime.profiler import Profiler
 from repro_torch.runtime.straggler import StragglerMonitor
+
+# ``repro_torch.core`` exports the ``pipeline`` scope under the engine
+# module's name, as ``repro.core`` does: reach the module itself
+pipe = importlib.import_module("repro_torch.core.pipeline")
 
 #: ``--hw`` → the cost model's table (the reference's four, and the H100)
 HW_TABLES = {"tpu_v5e": TPU_V5E, "v100": V100_PAPER, "p100": P100_16G,

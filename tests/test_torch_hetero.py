@@ -45,7 +45,6 @@ from repro.models import lm as ref_lm
 from repro.optim import optimizer as jax_opt
 from repro_torch.configs import get_config
 from repro_torch.core import cost_model as cm
-from repro_torch.core import pipeline as pipe
 from repro_torch.core import planner
 from repro_torch.core.cost_model import StrategySpec
 from repro_torch.launch import mesh as port_mesh
@@ -60,6 +59,8 @@ from torch_harness import TOLS, data
 
 # ``repro.core`` exports the ``pipeline`` scope under the module's name
 ref_pipe = importlib.import_module("repro.core.pipeline")
+# … and so does ``repro_torch.core``
+pipe = importlib.import_module("repro_torch.core.pipeline")
 
 ARCH = "tinyllama-1.1b"
 TOL = TOLS["float32"]

@@ -34,7 +34,6 @@ from repro.core import schedule as ref_sch
 from repro.models import lm as jax_lm
 from repro.optim import optimizer as jax_opt
 from repro_torch.configs import get_config
-from repro_torch.core import pipeline as pipe
 from repro_torch.core import planner
 from repro_torch.core.cost_model import StrategySpec
 from repro_torch.core.schedule import make_schedule
@@ -47,6 +46,8 @@ from torch_harness import TOLS, outcome
 
 # ``repro.core`` exports the ``pipeline`` scope under the module's name
 ref_pipe = importlib.import_module("repro.core.pipeline")
+# … and so does ``repro_torch.core``
+pipe = importlib.import_module("repro_torch.core.pipeline")
 
 ARCH = "tinyllama-1.1b"
 TOL = TOLS["float32"]

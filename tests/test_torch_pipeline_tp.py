@@ -56,7 +56,6 @@ from repro.models import lm as ref_lm
 from repro.optim import optimizer as jax_opt
 from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
-from repro_torch.core import pipeline as pipe
 from repro_torch.core import planner, sharding
 from repro_torch.core.cost_model import StrategySpec
 from repro_torch.core.schedule import make_schedule
@@ -70,6 +69,8 @@ from torch_harness import TOLS
 
 # ``repro.core`` exports the ``pipeline`` scope under the module's name
 ref_pipe = importlib.import_module("repro.core.pipeline")
+# … and so does ``repro_torch.core``
+pipe = importlib.import_module("repro_torch.core.pipeline")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = "tinyllama-1.1b"
