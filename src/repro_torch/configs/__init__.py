@@ -1,6 +1,6 @@
-"""Registry of the ported architectures (tinyllama-1.1b and mamba2-1.3b so
-far; the other configs of ``repro.configs`` come with their model
-families)."""
+"""Registry of the ported architectures (tinyllama-1.1b, mamba2-1.3b and
+deepseek-moe-16b so far; the other configs of ``repro.configs`` come with
+their model families)."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,6 +11,7 @@ from repro_torch.configs.base import LMCfg, shrink  # noqa: F401
 _ARCH_MODULES = {
     "tinyllama-1.1b": "tinyllama_1_1b",
     "mamba2-1.3b": "mamba2_1_3b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
 }
 
 ARCH_NAMES = tuple(_ARCH_MODULES)

@@ -12,20 +12,25 @@ from repro_torch.models.lm import LMCfg  # noqa: F401  (re-export)
 
 
 def shrink(cfg: LMCfg, **overrides) -> LMCfg:
-    """Reduced same-family config: small widths, few layers, tiny vocab —
-    the GQA ratio preserved (tinyllama's 32:4 becomes 4:1); an
-    attention-free config stays so (mamba2: 8 SSD heads of 32, state 16,
-    chunk 32)."""
+    """Reduced same-family config: small widths, few layers and experts,
+    tiny vocab — the GQA ratio preserved (tinyllama's 32:4 becomes 4:1);
+    an attention-free config stays so (mamba2: 8 SSD heads of 32, state
+    16, chunk 32); an MoE keeps its period of layers, at most 8 experts of
+    64 columns, top-2 and one shared expert (the reference's ``shrink``)."""
     heads = min(cfg.n_heads, 4)
     kv = max(1, heads * cfg.n_kv_heads // cfg.n_heads) if heads else 0
     small = dict(
-        n_layers=2,
+        n_layers=max(2, cfg.moe_every if cfg.family == "moe" else 1),
         d_model=128,
         n_heads=heads,
         n_kv_heads=kv,
         head_dim=32 if heads else 0,
         d_ff=256 if cfg.d_ff else 0,
         vocab=512,
+        n_experts=min(cfg.n_experts, 8),
+        top_k=min(cfg.top_k, 2),
+        n_shared=min(cfg.n_shared, 1),
+        d_ff_expert=64 if cfg.d_ff_expert else 0,
         ssd_headdim=32,
         ssd_state=16,
         ssd_chunk=32,

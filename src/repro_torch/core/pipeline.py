@@ -65,6 +65,9 @@ from repro_torch.tree import flatten, tree_map, unflatten
 
 ENCDEC_SLICE = ("the encoder–decoder two-tower pipeline comes with "
                 "models/encdec.py (ROADMAP.md queue A item 7)")
+MOE_PIPELINE_SLICE = ("pipelining the 'moe' family (its experts' aux losses "
+                      "carried between stages) comes with a later slice of "
+                      "the port (ROADMAP.md queue A item 7)")
 
 
 # ---------------------------------------------------------------------------
@@ -200,6 +203,8 @@ def stage_state(tree: dict, stage: int, stage_layers) -> dict:
 # ---------------------------------------------------------------------------
 
 def _check_family(model) -> None:
+    if model.cfg.family == "moe":
+        raise NotImplementedError(MOE_PIPELINE_SLICE)
     if model.cfg.family != "dense":
         raise NotImplementedError(
             f"pipelining the {model.cfg.family!r} family: only the dense "

@@ -52,17 +52,21 @@ state and parameters sharded over ``data``): the plan's
 ``param_specs`` and :meth:`ExecutionPlan.opt_specs`.  Each rank holds its
 block of every leaf (:meth:`ExecutionPlan.init_params` draws the whole
 model and keeps it), and the model runs under the rules: head-parallel
-attention, column/row-parallel MLP, a vocab-parallel embedding and loss
-head, each collective an explicit ``torch.distributed`` call on the
-mesh's groups where GSPMD would place it.  The data-parallel reduction
-works per local leaf, as before; under ZeRO-3 a leaf sharded over the
-data axes is gathered at its use and its gradient comes back summed by
-the backward's reduce-scatter, so the step only divides it.  ZeRO-1/2
-keep AdamW's moments as this rank's slices and all-gather the updated
-parameter slice (zero 2 runs as zero 1, as in the reference); the clip
-norm sums each leaf's squares over the axes it is split over.  Still
-refused, each naming its ROADMAP item: ZeRO with ``compress_pod``, ZeRO
-with uneven batch shares, and adafactor over a split model.
+attention, column/row-parallel MLP, whole experts split over ``model``
+(the expert split, ``ep > 1``, which shares the axis with ``tp`` as the
+reference's ``StrategySpec.model_parallel`` says; the experts' gradients
+are summed over the data axes only, as every split leaf's), a
+vocab-parallel embedding and loss head, each collective an explicit
+``torch.distributed`` call on the mesh's groups where GSPMD would place
+it.  The data-parallel reduction works per local leaf, as before; under
+ZeRO-3 a leaf sharded over the data axes is gathered at its use and its
+gradient comes back summed by the backward's reduce-scatter, so the step
+only divides it.  ZeRO-1/2 keep AdamW's moments as this rank's slices
+and all-gather the updated parameter slice (zero 2 runs as zero 1, as in
+the reference); the clip norm sums each leaf's squares over the axes it
+is split over. Still refused, each naming its ROADMAP item: ZeRO with
+``compress_pod``, ZeRO with uneven batch shares, and adafactor over a
+split model.
 
 Serving (the reference's ``jit_prefill``, ``jit_serve_step``,
 ``jit_serve_step_paged``): :meth:`ExecutionPlan.prefill_fn`,
@@ -72,15 +76,16 @@ enter the plan's rules on every call and run without autograd; the decode
 states are laid out by the reference's :meth:`~ExecutionPlan.state_specs`
 and :meth:`~ExecutionPlan.paged_state_specs`, slots over the data axes
 (:meth:`~ExecutionPlan.slot_block`).  Refused, each naming its ROADMAP
-item: serving inside a pipeline, the ssm family over a model axis, ZeRO-3's
-data-sharded parameters, and decode in the ``repeat`` layout.
+item: serving inside a pipeline, the ssm family over a model axis, the
+moe family over a mesh, ZeRO-3's data-sharded parameters, and decode in
+the ``repeat`` layout.
 
 The annotation API's entry points (the paper's Cases 1–5):
 :func:`strategy_from_taskgraph` reads the strategy off the scopes a
 :class:`~repro_torch.core.vdevice.Cluster` recorded and
 :func:`compile_plan_from_cluster` compiles it over the cluster's mesh, as
-``graph_opt.compile_nested_plan`` does after lowering.  An expert split
-(``ep > 1``) raises until the MoE family is ported.
+``graph_opt.compile_nested_plan`` does after lowering; the M6 nesting
+``replica{split[experts]}`` lowers to ``ep > 1`` and runs as above.
 """
 from __future__ import annotations
 
@@ -118,9 +123,8 @@ SSM_SPLIT_SERVE_SLICE = ("serving the ssm family over a model axis (the SSD "
 ZERO3_SERVE_SLICE = ("serving parameters sharded over data (zero=3) comes "
                      "with a later slice of the port (ROADMAP.md queue A "
                      "item 4)")
-EXPERT_SLICE = ("an expert split (ep > 1, the MoE layers' experts over the "
-                "model axis) comes with the MoE family, a later slice of "
-                "the port (ROADMAP.md queue A item 7)")
+MOE_SERVE_SLICE = ("serving the moe family over a mesh comes with a later "
+                   "slice of the port (ROADMAP.md queue A item 7)")
 ADAFACTOR_SPLIT_SLICE = ("adafactor over a split model (its factored moments' "
                          "means across shards) comes with a later slice of "
                          "the port (ROADMAP.md queue A item 4)")
@@ -766,6 +770,9 @@ class ExecutionPlan:
         mesh), after the refusals of later slices."""
         if self.strategy.pp > 1:
             raise NotImplementedError(PIPELINE_SERVE_SLICE)
+        if self.model.cfg.family == "moe" and self.mesh is not None \
+                and self.mesh.size() > 1:
+            raise NotImplementedError(MOE_SERVE_SLICE)
         if self.model.cfg.family != "dense" \
                 and self.strategy.model_parallel > 1:
             raise NotImplementedError(SSM_SPLIT_SERVE_SLICE)
@@ -898,8 +905,6 @@ def compile_plan(model, mesh, strategy: StrategySpec | None = None, *,
     if strategy.schedule not in SCHEDULE_NAMES:
         raise ValueError(f"unknown schedule {strategy.schedule!r}; "
                          f"expected one of {SCHEDULE_NAMES}")
-    if strategy.ep > 1:
-        raise NotImplementedError(f"{strategy.describe()}: {EXPERT_SLICE}")
     if mesh is not None and mesh_shape(mesh).get("model", 1) \
             != strategy.model_parallel:
         raise ValueError(f"{strategy.describe()} needs a model axis of "

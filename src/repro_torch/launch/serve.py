@@ -38,11 +38,17 @@ Usage::
 
     python -m repro_torch.launch.serve --arch mamba2-1.3b --cache dense
 
+    python -m repro_torch.launch.serve --arch deepseek-moe-16b \
+        --overrides param_dtype=bfloat16 --cache paged --requests 8
+
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \
         --smoke --device cpu --mesh 2x2 --cache paged --requests 8 \
         --batch-slots 4 --gen 8 --max-len 64 --overrides n_kv_heads=2
 
 ``--cache paged`` needs an all-attention arch; with mamba2 it raises.
+deepseek-moe-16b at full width wants ``--overrides param_dtype=bfloat16``
+(31.44 GiB of weights; in f32 they take 62.9 GiB, and serving casts a
+second copy); serving the moe family over ``--mesh`` raises.
 """
 from __future__ import annotations
 

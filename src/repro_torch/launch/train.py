@@ -5,10 +5,11 @@ step → fault-tolerant loop with checkpoints and auto-resume, as
 ``repro/launch/train.py``.  ``--mesh`` lays the ranks out as the
 reference reads it (``data``, ``data × model``, ``pod × data × model``);
 the plan trains data-parallel over ``pod`` and ``data`` and splits the
-model over ``model`` (tensor parallelism: heads, MLP columns, the
-vocab-parallel embedding and loss head), and ``--compress-pod`` sends the
-cross-pod gradient reduction through the int8 error-feedback compressor
-(``optim/grad_compress.py``, the quant kernels).  A sharded run's
+model over ``model`` (tensor parallelism: heads, MLP columns, whole
+experts of an MoE, the vocab-parallel embedding and loss head), and
+``--compress-pod`` sends the cross-pod gradient reduction through the
+int8 error-feedback compressor (``optim/grad_compress.py``, the quant
+kernels).  A sharded run's
 checkpoint is the reference's, gathered onto rank 0, which alone writes;
 on resume every rank reads it and keeps its blocks.
 
@@ -37,7 +38,9 @@ against the strategy's cost-model features and prints the calibration
 report at exit (fitted rates, the prediction error before and after the
 fit).  A :class:`~repro_torch.runtime.straggler.StragglerMonitor` watches
 every step's time and prints ``[straggler] flagged …`` on a sustained
-outlier.
+outlier.  An MoE (``--arch deepseek-moe-16b``) prints each step's
+``moe_lb`` and ``moe_z`` (its load-balance and router z-losses, summed
+over the layers) beside the loss.
 
 ``--pp`` lays the ranks out as ``stage × data`` only, as the reference's
 ``--pp`` does, so it is refused beside ``--mesh``; ``--compress-pod``
@@ -66,6 +69,10 @@ Usage::
 
     python -m repro_torch.launch.train --arch tinyllama-1.1b --smoke \
         --device cpu --steps 3 --batch 2 --seq 32 --ckpt-dir "$TMPDIR/ck"
+
+    python -m repro_torch.launch.train --arch deepseek-moe-16b \
+        --overrides n_layers=2 --batch 4 --seq 2048 --steps 3 \
+        --optimizer adamw --ckpt-dir /path/to/ckpt
 
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
         --smoke --device cpu --pp 2 --schedule 1f1b --micro-batches 2 \
@@ -264,7 +271,8 @@ def profile_summary(profiler: Profiler, hw, world: int) -> dict:
 
 def main(argv=None) -> dict:
     """Train; returns {"final_step", "losses", "step_seconds", "mesh",
-    "strategy", "predicted_step_s"} and, with ``--profile``, "profile"
+    "strategy", "predicted_step_s"}, for an MoE "moe_lb" and "moe_z" (per
+    step), and with ``--profile`` "profile"
     (each step's wall time, ending after the device finished the step;
     the mesh's {axis: size}, or None for one device without a process
     group; the executed strategy's ``describe()``; its step time on the
@@ -417,6 +425,7 @@ def _train(args, device: torch.device) -> dict:
         f"{args.batch} x {args.seq}, {args.steps} steps")
 
     losses, step_seconds = [], []
+    moe = {"moe_lb": [], "moe_z": []} if cfg.family == "moe" else None
     monitor = StragglerMonitor()
     profiler = feats = None
     if args.profile:
@@ -443,8 +452,13 @@ def _train(args, device: torch.device) -> dict:
             torch.cuda.synchronize(device)
         step_seconds.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
+        aux = ""
+        if moe is not None:
+            for k, vals in moe.items():
+                vals.append(float(m[k]))
+                aux += f"{k} {vals[-1]:.4f}  "
         if i % args.log_every == 0 or i == args.steps - 1:
-            log(f"  step {i:5d}  loss {losses[-1]:.4f}  "
+            log(f"  step {i:5d}  loss {losses[-1]:.4f}  {aux}"
                 f"({step_seconds[-1]:.3f} s)")
         return new
 
@@ -467,7 +481,7 @@ def _train(args, device: torch.device) -> dict:
     out = {"final_step": final_step, "losses": losses,
            "step_seconds": step_seconds, "mesh": shape,
            "strategy": plan.strategy.describe(),
-           "predicted_step_s": predicted.total}
+           "predicted_step_s": predicted.total, **(moe or {})}
     if profiler is not None:
         out["profile"] = prof = profile_summary(profiler, hw, n_dev)
         log(prof["report"])

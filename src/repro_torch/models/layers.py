@@ -26,8 +26,10 @@ from repro_torch.core import sharding
 
 def normal(gen: torch.Generator, shape: tuple, dtype, device,
             stddev: float) -> torch.Tensor:
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * stddev).to(dtype)
+    """Drawn in ``dtype`` itself, so a large bf16 leaf needs no f32
+    temporary (deepseek-moe-16b's stacked ``w_in`` would take 19.3 GiB)."""
+    return torch.randn(shape, generator=gen, dtype=dtype,
+                       device=device).mul_(stddev)
 
 
 def dense_init(gen, in_dim: int, shape: tuple, dtype, device) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """The LM: one config dataclass → {init, loss_fn, prefill, serve_step,
-serve_step_paged} for the dense decoder family, and {init, prefill,
-serve_step} for the ssm family (mamba2: serving only so far); and the
-cost model's view of a config (:func:`model_graph`, pure arithmetic).
+serve_step_paged} for the dense and moe decoder families, and {init,
+prefill, serve_step} for the ssm family (mamba2: serving only so far); and
+the cost model's view of a config (:func:`model_graph`, pure arithmetic).
 
 The port's counterpart of ``repro.models.lm`` for training and serving.
 The loss head is chosen by device, as the reference's ``xent_impl``
@@ -32,6 +32,7 @@ from repro_torch.models import layers
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import AttnCfg
 from repro_torch.models.mamba2 import SSDCfg
+from repro_torch.models.moe import MoECfg, check_act
 from repro_torch.tree import tree_map
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -40,7 +41,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 @dataclasses.dataclass(frozen=True)
 class LMCfg:
     name: str
-    family: str                        # dense | ssm (the ported families)
+    family: str                        # dense | moe | ssm (the ported ones)
     n_layers: int
     d_model: int
     vocab: int
@@ -49,8 +50,17 @@ class LMCfg:
     head_dim: int = 0
     d_ff: int = 0
     norm: str = "rms"                  # the only norm ported yet
+    act: str = "silu"                  # the only activation ported yet
     rope_theta: float = 10000.0
     tie_embeddings: bool = False       # head = embed/tableᵀ, no head leaf
+    # moe
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared: int = 0
+    d_ff_expert: int = 0
+    moe_every: int = 1
+    moe_offset: int = 0
+    capacity_factor: float = 1.25
     # ssm
     ssd_headdim: int = 64
     ssd_state: int = 128
@@ -96,21 +106,43 @@ class LMCfg:
                       headdim=self.ssd_headdim, d_state=self.ssd_state,
                       d_conv=self.d_conv, chunk=self.ssd_chunk)
 
+    def moe_cfg(self) -> MoECfg:
+        return MoECfg(d_model=self.d_model, n_experts=self.n_experts,
+                      top_k=self.top_k, d_ff_expert=self.d_ff_expert,
+                      n_shared=self.n_shared,
+                      capacity_factor=self.capacity_factor, act=self.act)
+
 
 def build_stack_cfg(cfg: LMCfg) -> tfm.StackCfg:
+    """The stack's pattern, the reference's: one block repeated, or for
+    the moe family with ``moe_every`` > 1 a period of blocks whose
+    ``moe_offset``-th carries the experts."""
     if cfg.norm != "rms":
         raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
+    check_act(cfg.act)
+
+    def block(mlp: str) -> tfm.BlockCfg:
+        return tfm.BlockCfg(d_model=cfg.d_model, attn=cfg.attn_cfg(),
+                            mlp=mlp, d_ff=cfg.d_ff,
+                            moe=cfg.moe_cfg() if mlp == "moe" else None)
+
     if cfg.family == "dense":
-        block = tfm.BlockCfg(d_model=cfg.d_model, attn=cfg.attn_cfg(),
-                             d_ff=cfg.d_ff)
+        pattern, n_rep = (block("dense"),), cfg.n_layers
+    elif cfg.family == "moe" and cfg.moe_every == 1:
+        pattern, n_rep = (block("moe"),), cfg.n_layers
+    elif cfg.family == "moe":
+        pattern = tuple(block("moe" if i % cfg.moe_every == cfg.moe_offset
+                              else "dense") for i in range(cfg.moe_every))
+        n_rep = cfg.n_layers // cfg.moe_every
     elif cfg.family == "ssm":
-        block = tfm.BlockCfg(d_model=cfg.d_model, mixer="ssd", mlp="none",
-                             ssd=cfg.ssd_cfg())
+        pattern = (tfm.BlockCfg(d_model=cfg.d_model, mixer="ssd", mlp="none",
+                                ssd=cfg.ssd_cfg()),)
+        n_rep = cfg.n_layers
     else:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, ssm)")
-    return tfm.StackCfg(pattern=(block,), n_rep=cfg.n_layers,
-                        remat=cfg.remat, attn_bwd_remat=cfg.attn_bwd_remat)
+            f"family {cfg.family!r} is not ported yet (dense, moe, ssm)")
+    return tfm.StackCfg(pattern=pattern, n_rep=n_rep, remat=cfg.remat,
+                        attn_bwd_remat=cfg.attn_bwd_remat)
 
 
 # ---------------------------------------------------------------------------
@@ -256,21 +288,23 @@ class Model:
                            act_dtype_bytes=act_dtype_bytes,
                            param_dtype_bytes=param_dtype_bytes)
 
-    # leaves the reference reads in f32 whatever the activation dtype
+    # leaves (and subtrees: the experts' router) the reference reads in
+    # f32 whatever the activation dtype
     F32_LEAVES = frozenset({"scale", "wdt", "dt_bias", "A_log",
-                            "norm_scale"})
+                            "norm_scale", "router"})
 
     def serving_params(self, params: dict) -> dict:
         """``params`` with every weight cast once to the activation dtype,
         except :attr:`F32_LEAVES`.  Each product casts its weight to that
         dtype anyway, so the results are the same; serving then stops
         re-reading (and re-casting) f32 masters every step.  The norm
-        scales, dt's projection and bias and ``A_log`` stay as they are:
-        the reference reads them in f32, and casting them changes the
-        result."""
+        scales, dt's projection and bias, ``A_log`` and the experts'
+        router stay as they are: the reference reads them in f32, and
+        casting them changes the result."""
         def cast(tree):
-            return {k: cast(v) if isinstance(v, dict)
-                    else v if k in self.F32_LEAVES else v.to(self.cfg.adtype)
+            return {k: v if k in self.F32_LEAVES
+                    else cast(v) if isinstance(v, dict)
+                    else v.to(self.cfg.adtype)
                     for k, v in tree.items()}
         return cast(params)
 
@@ -284,18 +318,20 @@ class Model:
     def loss_fn(self, params: dict, batch: dict):
         """batch {"tokens": (B, S) int, optional "loss_mask": (B, S)} →
         (loss, metrics), as the reference's ``Model.loss_fn`` for the
-        dense family: next-token nll plus the z-loss, both over the
-        masked token count; the head cast to the activation dtype.  The
-        loss head is :func:`fused_xent` on the card and :func:`chunked_xent`
-        on the CPU.  Only the dense family trains so far (the SSD kernel
-        is forward only).
+        dense and moe families: next-token nll plus the z-loss, both over
+        the masked token count, plus the experts' load-balance and router
+        z-losses summed over the layers (``moe_lb``, ``moe_z``; zero for
+        dense); the head cast to the activation dtype.  The loss head is
+        :func:`fused_xent` on the card and :func:`chunked_xent` on the
+        CPU.  The ssm family does not train yet (the SSD kernel is
+        forward only).
 
         Under sharding rules ``params`` are this rank's blocks; under
         ZeRO-3 the leaves outside the stack are gathered over the data
         axes here, the stack's repeat by repeat in
         :func:`~repro_torch.models.transformer.apply_stack`."""
         cfg = self.cfg
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"training the {cfg.family!r} family is not ported yet")
         specs = sharding.fsdp_specs(self)
@@ -499,7 +535,7 @@ def build(cfg: LMCfg, device=None) -> Model:
 # has.  Matmul-dominant terms only, in the reference's expressions and
 # order, so a graph here equals the reference's bit for bit
 # (tests/test_torch_planning.py).  One "stack" segment: every layer of a
-# dense or ssm config is interchangeable.
+# dense, moe or ssm config is interchangeable.
 
 FAMILY_SLICE = ("the {family} family's cost-model graph comes with the "
                 "family itself, a later slice of the port")
@@ -508,14 +544,15 @@ FAMILY_SLICE = ("the {family} family's cost-model graph comes with the "
 def model_graph(cfg: LMCfg, batch: int, seq: int,
                 act_dtype_bytes: int = 2,
                 param_dtype_bytes: int = 4) -> ModelGraph:
-    """Segment-aware workload description for one LMCfg (dense or ssm).
+    """Segment-aware workload description for one LMCfg (dense, moe or
+    ssm).
 
-    The other families of the reference (moe, hybrid, vlm, encdec) raise
+    The other families of the reference (hybrid, vlm, encdec) raise
     ``NotImplementedError``: their graphs come with their models.
     """
-    if cfg.family in ("moe", "hybrid", "vlm", "encdec"):
+    if cfg.family in ("hybrid", "vlm", "encdec"):
         raise NotImplementedError(FAMILY_SLICE.format(family=cfg.family))
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise ValueError(f"unknown model family {cfg.family!r}")
     E, V, L = cfg.d_model, cfg.padded_vocab, cfg.n_layers
     T = batch * seq
@@ -533,6 +570,13 @@ def model_graph(cfg: LMCfg, batch: int, seq: int,
         mult = 3 if cfg.gated_mlp else 2
         return 2 * t * E * cfg.d_ff * mult
 
+    def moe_mlp_flops() -> float:
+        mult = 3
+        routed = 2 * T * E * cfg.d_ff_expert * mult * cfg.top_k
+        shared = 2 * T * E * cfg.d_ff_expert * mult * cfg.n_shared
+        router = 2 * T * E * cfg.n_experts
+        return routed + shared + router
+
     def ssd_flops() -> float:
         scfg = cfg.ssd_cfg()
         H, P, N, C = scfg.n_heads, scfg.headdim, scfg.d_state, scfg.chunk
@@ -547,29 +591,46 @@ def model_graph(cfg: LMCfg, batch: int, seq: int,
     def mlp_params():
         return E * cfg.d_ff * (3 if cfg.gated_mlp else 2)
 
+    def moe_params():
+        return (cfg.n_experts + cfg.n_shared) * E * cfg.d_ff_expert * 3 \
+            + E * cfg.n_experts
+
     def ssd_params():
         scfg = cfg.ssd_cfg()
         return E * scfg.d_inner * 3 + 2 * E * scfg.d_state + E * scfg.n_heads
 
     act_per_layer = T * E * act_dtype_bytes * 4   # x + 3 intermediates
 
-    def stack_segment(name: str, n_attn: int, n_ssd: int, n_dense: int,
-                      n_layers: int) -> SegmentMeta:
-        # the reference's sum also carries n_moe · moe_mlp_flops(), 0.0
-        # for these families, which leaves every sum bit for bit the same
+    def stack_segment(name: str, n_attn: int, n_ssd: int, n_moe: int,
+                      n_dense: int, n_layers: int) -> SegmentMeta:
         flops = (n_attn * attn_flops() + n_ssd * ssd_flops()
-                 + n_dense * dense_mlp_flops())
+                 + n_moe * moe_mlp_flops() + n_dense * dense_mlp_flops())
         p_count = (n_attn * attn_params() + n_ssd * ssd_params()
-                   + n_dense * mlp_params())
+                   + n_moe * moe_params() + n_dense * mlp_params())
+        expert_param_bytes = 0.0
+        moe_dispatch_bytes = 0.0
+        if n_moe:
+            expert_param_bytes = (n_moe * cfg.n_experts * E * cfg.d_ff_expert
+                                  * 3 * pdb)
+            moe_dispatch_bytes = (T * cfg.top_k * cfg.capacity_factor
+                                  * E * act_dtype_bytes)
         return SegmentMeta(
             name=name, n_layers=n_layers,
             fwd_flops=float(flops), param_bytes=float(p_count * pdb),
-            act_bytes_per_layer=float(act_per_layer))
+            act_bytes_per_layer=float(act_per_layer),
+            n_experts=int(cfg.n_experts if n_moe else 0),
+            n_moe_layers=int(n_moe),
+            expert_param_bytes=float(expert_param_bytes),
+            moe_dispatch_bytes=float(moe_dispatch_bytes))
 
     if cfg.family == "dense":
-        segments = (stack_segment("stack", L, 0, L, max(L, 1)),)
+        segments = (stack_segment("stack", L, 0, 0, L, max(L, 1)),)
+    elif cfg.family == "moe":
+        n_moe = L // cfg.moe_every
+        segments = (stack_segment("stack", L, 0, n_moe, L - n_moe,
+                                  max(L, 1)),)
     else:                                            # ssm
-        segments = (stack_segment("stack", 0, L, 0, max(L, 1)),)
+        segments = (stack_segment("stack", 0, L, 0, 0, max(L, 1)),)
 
     head = 2 * T * E * V
     embed = V * E * (1 if cfg.tie_embeddings else 2)

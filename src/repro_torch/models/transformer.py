@@ -5,8 +5,11 @@ The reference's ``lax.scan`` over repeats is a Python loop here, and its
 ``jax.checkpoint`` around each repeat is ``torch.utils.checkpoint``.
 
 Each block: a pre-norm mixer (attention | SSD) and, unless ``mlp`` is
-``"none"``, a pre-norm gated MLP, with residual connections.  Ported
-patterns so far: dense (attention + MLP) and mamba2 (SSD, no MLP).
+``"none"``, a pre-norm gated MLP or mixture of experts
+(:mod:`repro_torch.models.moe`), with residual connections.  Ported
+patterns so far: dense (attention + MLP), MoE (attention + experts, with
+dense blocks between where ``moe_every`` > 1) and mamba2 (SSD, no MLP).
+The stack sums the experts' aux losses over its layers.
 
 Under ZeRO-3 (:func:`repro_torch.core.sharding.fsdp_specs`) each repeat's
 slices of the parameters are gathered over the data axes inside its
@@ -28,17 +31,20 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.core import sharding
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers, mamba2
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import AttnCfg
 from repro_torch.models.mamba2 import SSDCfg
+from repro_torch.models.moe import MoECfg
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockCfg:
     d_model: int
     mixer: str = "attn"                   # "attn" | "ssd"
-    mlp: str = "dense"                    # "dense" | "none"
+    mlp: str = "dense"                    # "dense" | "moe" | "none"
     attn: AttnCfg | None = None
     ssd: SSDCfg | None = None
+    moe: MoECfg | None = None
     d_ff: int = 0
 
 
@@ -80,8 +86,11 @@ def init_block(gen, cfg: BlockCfg, dtype, device, lead: tuple = ()) -> dict:
         p["ssd"] = mamba2.init_ssd(gen, cfg.ssd, dtype, device, lead)
     if cfg.mlp != "none":
         p["norm2"] = layers.init_rmsnorm(lead + (cfg.d_model,), dtype, device)
-        p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device,
-                                   lead)
+        if cfg.mlp == "moe":
+            p["moe"] = moe_mod.init_moe(gen, cfg.moe, dtype, device, lead)
+        else:
+            p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
+                                       device, lead)
     return p
 
 
@@ -98,7 +107,10 @@ def axes_block(cfg: BlockCfg) -> dict:
         a["ssd"] = mamba2.axes_ssd()
     if cfg.mlp != "none":
         a["norm2"] = layers.axes_rmsnorm()
-        a["mlp"] = layers.axes_mlp()
+        if cfg.mlp == "moe":
+            a["moe"] = moe_mod.axes_moe(cfg.moe)
+        else:
+            a["mlp"] = layers.axes_mlp()
     return a
 
 
@@ -120,14 +132,28 @@ def _zero_aux(device) -> dict:
             "z_loss": torch.zeros((), dtype=torch.float32, device=device)}
 
 
+def _mlp_out(params: dict, h: torch.Tensor, cfg: BlockCfg):
+    """The block's MLP or experts on the normed ``h`` (B, S, E), or (B, E)
+    of one decode token (the experts route it as a sequence of one):
+    (out, aux or ``None``)."""
+    if cfg.mlp == "moe":
+        out, aux = moe_mod.moe_block(params["moe"],
+                                     h if h.dim() == 3 else h[:, None],
+                                     cfg.moe)
+        return (out if h.dim() == 3 else out[:, 0],
+                {"lb_loss": aux["lb_loss"], "z_loss": aux["z_loss"]})
+    return layers.mlp(params["mlp"], h, cfg.d_ff), None
+
+
 def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
                 cfg: BlockCfg, *, return_state: bool = False,
                 bwd_remat: bool = False,
                 last_idx: torch.Tensor | None = None):
-    """x: (B, S, E) → (x', aux, state-or-None); aux is zero for the ported
-    patterns.  With ``return_state`` the block's decode state comes back:
-    the roped ``{"k", "v"}`` (B, S, K, D) of attention, or the SSD's
-    ``{"h", "conv"}`` after position ``last_idx``."""
+    """x: (B, S, E) → (x', aux, state-or-None); aux is the experts'
+    ``lb_loss`` and ``z_loss`` (zero without experts).  With
+    ``return_state`` the block's decode state comes back: the roped
+    ``{"k", "v"}`` (B, S, K, D) of attention, or the SSD's ``{"h",
+    "conv"}`` after position ``last_idx``."""
     h = layers.rmsnorm(params["norm1"], x)
     state = None
     if cfg.mixer == "attn":
@@ -142,10 +168,11 @@ def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
         if return_state:
             out, state = out
     x = x + out
+    aux = None
     if cfg.mlp != "none":
-        x = x + layers.mlp(params["mlp"], layers.rmsnorm(params["norm2"], x),
-                           cfg.d_ff)
-    return x, _zero_aux(x.device), state
+        out, aux = _mlp_out(params, layers.rmsnorm(params["norm2"], x), cfg)
+        x = x + out
+    return x, aux or _zero_aux(x.device), state
 
 
 _DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -241,8 +268,7 @@ def decode_block(params: dict, x: torch.Tensor, state: dict,
         out = mamba2.ssd_decode_step(params["ssd"], h, state, cfg.ssd)
     x = x + out
     if cfg.mlp != "none":
-        x = x + layers.mlp(params["mlp"], layers.rmsnorm(params["norm2"], x),
-                           cfg.d_ff)
+        x = x + _mlp_out(params, layers.rmsnorm(params["norm2"], x), cfg)[0]
     return x
 
 
@@ -327,8 +353,7 @@ def paged_decode_block(params: dict, x: torch.Tensor, pools: dict,
     out, _, _ = attn_mod.paged_decode_attention(
         params["attn"], h, pools["k"], pools["v"], block_table, pos, cfg.attn)
     x = x + out
-    return x + layers.mlp(params["mlp"], layers.rmsnorm(params["norm2"], x),
-                          cfg.d_ff)
+    return x + _mlp_out(params, layers.rmsnorm(params["norm2"], x), cfg)[0]
 
 
 def decode_stack_paged(params: dict, x: torch.Tensor, pools: dict,

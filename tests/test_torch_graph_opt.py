@@ -33,7 +33,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import cost_model as cm
 from repro_torch.core import graph_opt as go
 from repro_torch.core import ir
-from repro_torch.core.planner import EXPERT_SLICE
+from repro_torch.core import planner
 from repro_torch.models import lm
 from repro_torch.models.lm import Model
 
@@ -397,8 +397,10 @@ def test_replication_degree_matches_reference():
 # ---------------------------------------------------------------------------
 
 def test_expert_split_lowers_and_prices_but_does_not_compile():
-    """ep > 1 lowers and prices as the reference does; compiling it into
-    a plan waits for the MoE family."""
+    """ep > 1 lowers and prices as the reference does, and (since the MoE
+    family is ported) compiles: the M6 nesting's plan over the deepseek
+    smoke model splits whole experts over ``model`` and keeps the vocab
+    whole.  Its step on gloo ranks is tests/test_torch_moe.py's."""
     rcl, cl = record_both("m6_nest")
     low = go.lower(cl)
     assert low.strategy.ep == 2
@@ -415,10 +417,17 @@ def test_expert_split_lowers_and_prices_but_does_not_compile():
                                 _hw(ref_cm, table), overlap=0.5)
         assert data(got) == data(want)
         assert got.detail["ep_all_to_all"] > 0
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        go.compile_nested_plan(cl, Model(get_config(
-            "tinyllama-1.1b", smoke=True), "cpu"))
-    assert "MoE" in EXPERT_SLICE
+    plan = go.compile_nested_plan(cl, Model(get_config(
+        "deepseek-moe-16b", smoke=True), "cpu"))
+    assert plan.strategy == low.strategy
+    assert (plan.strategy.dp, plan.strategy.ep, plan.strategy.tp,
+            plan.strategy.vocab_split) == (4, 2, 1, False)
+    moe = plan.param_specs["blocks"]["p0"]["moe"]
+    assert moe["w_in"] == moe["w_gate"] == moe["w_out"] == (None, "model",
+                                                            None, None)
+    assert moe["router"]["w"] == (None, None, None)
+    assert plan.param_specs["head"]["w"] == (None, None)
+    assert not hasattr(planner, "EXPERT_SLICE")
 
 
 HETERO = {

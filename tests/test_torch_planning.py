@@ -258,7 +258,9 @@ def test_model_graph_of_the_port_configs_equals_reference(arch, smoke):
 
 def test_model_graph_raises_for_families_the_port_lacks():
     base = get_config("tinyllama-1.1b", smoke=True)
-    for family in ("moe", "hybrid", "vlm", "encdec"):
+    # moe left this list with its family (deepseek-moe-16b's graph is in
+    # ARCH_NAMES' parametrisations above)
+    for family in ("hybrid", "vlm", "encdec"):
         with pytest.raises(NotImplementedError, match=f"the {family} "):
             lm.model_graph(dataclasses.replace(base, family=family), 2, 8)
     with pytest.raises(ValueError, match="unknown model family"):
