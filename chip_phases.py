@@ -24,9 +24,11 @@ import os
 import subprocess
 import sys
 
-#: the phases it runs: 24 (``train_hybrid_zero``) and 26 (``serve_tp``),
-#: the same functions in every checkout since they were added
-PHASES = ("24", "26")
+#: the phases it runs: 24 (``train_hybrid_zero``), 26 (``serve_tp``), 29
+#: (``compressed_blocks``), 30 (``mamba2_train``) and 31
+#: (``mamba2_split``), the same functions in every checkout since they
+#: were added (a checkout without one reports that phase failed)
+PHASES = ("24", "26", "29", "30", "31")
 
 CHILD = r"""
 import json, sys, time, traceback
@@ -48,6 +50,12 @@ for ph in sys.argv[1:]:
                 paged4 = cs.serve_paged(torch, kernels)[1]
             t0 = time.perf_counter()
             cs.serve_tp(torch, kernels, paged4)
+        elif ph == "29":
+            cs.compressed_blocks(torch)
+        elif ph == "30":
+            cs.mamba2_train(torch, kernels)
+        elif ph == "31":
+            cs.mamba2_split(torch)
     except Exception:
         traceback.print_exc()
         ok = False

@@ -13,7 +13,10 @@ and the script exits non-zero without printing a result:
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes tinyllama-1.1b, mamba2-1.3b and deepseek-moe-16b give it (the
    last: flash forward and backward at 16/16 heads of 128, paged decode
-   at 8 slots of 16 kv heads of 128, xent at vocab 102400), and at
+   at 8 slots of 16 kv heads of 128, xent at vocab 102400; mamba2's
+   training: xent at its tied head, vocab 50280 padded to 50432, and on
+   its 25216-column shard at tp 2; its split prefill: the SSD scan on a
+   rank's 32 heads; the compressor's encode on a block of a leaf), and at
    ragged ones
    (tolerance: values f32 2e-5, bf16 2e-2; gradients f32 2e-4, bf16 5e-2;
    the SSD scan 5e-4, as the reference holds its kernel; the int8
@@ -149,7 +152,7 @@ and the script exits non-zero without printing a result:
 23. tensor parallelism: ``compile_plan(StrategySpec(tp=2))`` on a data 1
     x model 2 mesh, two ranks on ``cuda:0`` over gloo (the row-parallel
     sums of activations cross through host memory), tinyllama at full
-    width and depth, batch 2 x 2048, remat full, 3 AdamW steps at a
+    width and 8 layers, batch 2 x 2048, remat full, 3 AdamW steps at a
     constant 3e-4, against one process running the unsharded step on the
     same batches from the same seed (run first and freed): the step-0
     loss within bf16's 2e-2 + 2e-2|x|, each step-0 gradient leaf within
@@ -199,13 +202,15 @@ and the script exits non-zero without printing a result:
     every step-0 gradient block);
 26. serving over a mesh, the ranks on ``cuda:0`` over gloo: the serving
     driver's meshed branch (``serve.run`` with ``--mesh``) at split×2 on
-    two ranks, full width and depth, paged with phase 4's workload (run
-    1) and dense with 8 requests of 500 + 16 tokens (run 2, the KV
+    two ranks, full width and 8 layers (TP_SERVE_LAYERS: the depth cut
+    from 22 to hold the script's time), paged with phase 4's workload
+    (run 1) and dense with 8 requests of 500 + 16 tokens (run 2, the KV
     cache's sequence split over the two ranks); teacher-forced logits of
     2 prefills and 16 decode steps, both caches, against one unsharded
-    process (run 3: bf16 at full depth, no further apart than bf16's own
-    error, the unsharded bf16 logits against the same weights' in f32;
-    f32 at full depth and at 2 layers within 1e-4 + 1e-4|x|); data 2 x
+    process (run 3: bf16 at 8 layers, no further apart than bf16's own
+    error, the unsharded bf16 logits against the same weights' in f32,
+    and a planted fault outside that gate; f32 at 8 layers and at 2
+    within 1e-4 + 1e-4|x|); data 2 x
     model 2 on four ranks at 4 layers with a pool that preempts (run 4);
     f32 at 2 layers, both caches, its tokens equal to the unsharded
     server's (run 5); ``serve --mesh 1x1`` through ``main`` at full width
@@ -252,7 +257,41 @@ and the script exits non-zero without printing a result:
     the unsharded steps, the routing assignments that differ counted, and
     the M6 nesting ``replica{split[experts]}`` recorded as annotations
     and lowered by ``compile_nested_plan``; (d) ``moe_block_ep`` on the
-    two ranks at deepseek's block shape in f32 against ``moe_block``.
+    two ranks at deepseek's block shape in f32 against ``moe_block``;
+29. the compressed cross-pod reduction on blocks of leaves, four ranks on
+    ``cuda:0`` over gloo, tinyllama at full width and 1 layer: at pod 2
+    x data 2 (batch 4 x 1024, a row a rank) compressed ZeRO 0, 1 and 3
+    for 3 steps each, ZeRO-1 and ZeRO-3 equal to ZeRO-0 bit for bit
+    (losses, the handed step-0 gradients, the gathered parameters,
+    moments and error carry), the three encode kernels once per leaf and
+    step; at pod 2 x model 2 (batch 2 x 1024) one step, its handed
+    gradient and error carry, gathered whole, against the same pods'
+    whole in-pod leaves through ``compressed_psum_plain`` within one
+    rounding, plus one quantum where an int8 value flips (on at most 1%
+    of a leaf), and the same step with each block quantized against its
+    own scale (the old per-shard scale, planted) outside that gate;
+30. mamba2-1.3b training at full width and depth (48 layers, batch 4 x
+    2048, remat full, AdamW, 4 steps; the SSD mixer through the
+    differentiable chunked scan, as the reference trains it, the tied
+    head through the xent kernels): losses, launches, tokens/s after step
+    0, the peak beside the state; one step split into forward, backward
+    and AdamW, its device busy time under torch.profiler and the share of
+    it one layer's ``ssd_scan`` (two forwards and a backward) takes times
+    48; step 0's loss and every gradient leaf through the kernels against
+    the plain versions on the card (f32 at 2 layers within 1e-4 +
+    1e-4|x|; bf16 at 48 layers within TF_PAIR times bf16's own error,
+    leaf by leaf);
+31. mamba2 over ``model`` (the SSD mixer's heads split; ``B``/``C``
+    whole; the gated norm's sum of squares all-reduced), two ranks on
+    ``cuda:0`` over gloo: split×2 training at 2 layers in f32, the loss
+    and every step-0 gradient leaf against the unsharded step within
+    1e-4 + 1e-4|x|; ``serve --mesh 1x2`` at full width and depth in bf16
+    and f32 (4 requests of 500 + 16; the SSD scan once per layer,
+    prefill and rank; f32 tokens equal to the unsharded driver's); the
+    teacher-forced logits and prefill states at full depth against one
+    unsharded process, f32 within 1e-4 + 1e-4|x|, bf16 within TF_PAIR
+    times bf16's own error, and a planted fault (the gated norm without
+    its all-reduce) outside that gate.
 
 then the kernel table as one JSON line, the card line again, and the last
 line ``{"ok": true, "device": {...}}``.  Needs no network; needs ``nvcc``
@@ -314,6 +353,10 @@ MAMBA_LONG_ARGS = ["--arch", MAMBA, "--cache", "dense", "--requests", "1",
                    "--max-len", "4096"]
 SSD_TOL = 5e-4            # the reference's tolerance for its SSD kernel
 DEEPSEEK_VOCAB = 102400   # deepseek-moe-16b's vocab (the xent rows)
+MAMBA_VOCAB, MAMBA_VP = 50280, 50432   # mamba2-1.3b's vocab, padded
+#: a block the compressor runs on (phase 29): the table's data shard under
+#: ZeRO-3 at data 2, 32000 x 2048 / 2
+EF_BLOCK = 32000 * 2048 // 2
 AGAINST = None            # --against: the kernel library of another checkout
 AGAINST_DIR = None        # --against: that checkout
 EF_KERNELS = (r"ef_(?:absmax|requant|decode)_kernelI(?:f|13__nv_bfloat16)"
@@ -739,10 +782,11 @@ def check_xent(torch, timer) -> tuple:
     launch bit for bit, at the training path's loss head (T = 4·2047,
     E = 2048, V = 32000), with a padded vocab, and at deepseek-moe-16b's
     (V = 102400), timed beside ``F.cross_entropy(h @ W)`` in this call
-    (with the bf16 build's ptxas registers and spills); then the
+    (with the bf16 build's ptxas registers and spills), and at
+    mamba2-1.3b's tied head (vocab 50280 padded to 50432); then the
     backward's elementwise pass on one f32 chunk of each vocab.  Returns
     the (forward, backward) rows of the main path's shapes, with
-    deepseek's under ``"deepseek"``."""
+    deepseek's under ``"deepseek"`` and mamba2's under ``"mamba2"``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.xent import xent
@@ -755,8 +799,11 @@ def check_xent(torch, timer) -> tuple:
     for T_, vocab, dtype in ((T, V, torch.bfloat16), (T, V - 100,
                                                       torch.bfloat16),
                              (1000, V - 100, torch.float32),
-                             (T, DEEPSEEK_VOCAB, torch.bfloat16)):
+                             (T, DEEPSEEK_VOCAB, torch.bfloat16),
+                             (T, MAMBA_VOCAB, torch.bfloat16)):
         V = max(vocab, 32000)
+        if vocab == MAMBA_VOCAB:
+            V = MAMBA_VP
         h = torch.randn((T_, E), generator=gen, device="cuda").to(dtype)
         w = (torch.randn((E, V), generator=gen, device="cuda")
              / math.sqrt(E)).to(dtype)
@@ -794,6 +841,8 @@ def check_xent(torch, timer) -> tuple:
             fwd_row = r
         elif vocab == DEEPSEEK_VOCAB:
             fwd_row["deepseek"] = r
+        elif vocab == MAMBA_VOCAB:
+            fwd_row["mamba2"] = r
         del h, w, want, again
         torch.cuda.empty_cache()
 
@@ -805,9 +854,12 @@ def check_xent(torch, timer) -> tuple:
     labels = torch.randint(0, V, (T,), generator=gen, device="cuda",
                            dtype=torch.int32)
     big = xent.bwd_chunk(T, DEEPSEEK_VOCAB)
+    mc = xent.bwd_chunk(T, MAMBA_VP)
     for col0, C, vocab in ((0, chunk, V), (V - V % chunk, V % chunk,
                                            V - 100), (0, 4098, 3000),
-                           (DEEPSEEK_VOCAB - big, big, DEEPSEEK_VOCAB)):
+                           (DEEPSEEK_VOCAB - big, big, DEEPSEEK_VOCAB),
+                           (MAMBA_VP - MAMBA_VP % mc, MAMBA_VP % mc,
+                            MAMBA_VOCAB)):
         logits = torch.randn((T, C), generator=gen, device="cuda") + 8.0
         args = (lse, labels, g_nll, g_lse, col0, vocab)
         want = xent.xent_bwd_plain(logits.clone(), *args)
@@ -829,6 +881,8 @@ def check_xent(torch, timer) -> tuple:
             bwd_row = r
         elif vocab == DEEPSEEK_VOCAB:
             bwd_row["deepseek"] = r
+        elif vocab == MAMBA_VOCAB:
+            bwd_row["mamba2"] = r
         del logits, want, got, buf
     return fwd_row, bwd_row
 
@@ -838,10 +892,11 @@ def check_ssd(torch, timer) -> dict:
     final state within 5e-4) and a second launch bit for bit: mamba2-1.3b's
     prefill shape (B=1, S=512, 64 heads of 64, state 128, G=1, chunk 256,
     x and B/C bf16), S=2048 (8 chunks, the carry), S=8 (chunk = S), a
-    ragged chunk of 40 and a grouped f32 case.  bf16 runs the tensor-core
-    kernel, f32 the FMA one.  Prints the tensor-core builds' ptxas
-    registers and spills and fails on a spill.  Returns the row of the
-    main path's shape."""
+    ragged chunk of 40, a grouped f32 case, and a rank's 32 heads of the
+    prefill split over ``model`` at tp 2 (phase 31).  bf16 runs the
+    tensor-core kernel, f32 the FMA one.  Prints the tensor-core builds'
+    ptxas registers and spills and fails on a spill.  Returns the row of
+    the main path's shape, the split's under ``"split"``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.ssd import ssd
@@ -853,7 +908,8 @@ def check_ssd(torch, timer) -> dict:
              (1, 2048, 64, 64, 1, 128, 256, bf16),
              (1, 8, 64, 64, 1, 128, 256, bf16),
              (1, 120, 8, 64, 2, 64, 40, bf16),
-             (2, 384, 8, 32, 2, 16, 128, f32)]
+             (2, 384, 8, 32, 2, 16, 128, f32),
+             (2, 512, 32, 64, 1, 128, 256, bf16)]
     row = None
     for B, S, H, P, G, N, chunk, dtype in cases:
         rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
@@ -893,9 +949,12 @@ def check_ssd(torch, timer) -> dict:
               f"bound {b_ms / ms:.3f})  plain {plain_ms:.4f} ms  no library "
               f"call  bound {b_ms:.4f} ms ({b_by}; operations at the {dtype} "
               f"peak, C·Bᵀ once per group and chunk)", flush=True)
+        r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                 bound_by=b_by, library_ms=None)
         if row is None:
-            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            row = r
+        elif H == 32:
+            row["split"] = r
         del args, x, dt, Bm, Cm, want, y, h, again
     return row
 
@@ -1017,8 +1076,12 @@ def check_ef(torch, timer) -> tuple:
     quantize and dequantize, all bit for bit.  Times the three kernels, their
     plain versions and, for ef_decode, ``torch.mul(total, smax)`` (its
     function at a world of one), and the fused compressed_psum beside the
-    eager one in this call.  Prints the kernels' ptxas registers and spills
-    and fails on a spill.  Returns the three rows of the f32 leaf."""
+    eager one in this call.  Then the same at a block of a leaf (EF_BLOCK
+    elements, phase 29's table shard under ZeRO-3), the block's scale
+    all-reduced over a split group (the world of one) as the compressed
+    step runs a model shard or a ZeRO shard.  Prints the kernels' ptxas
+    registers and spills and fails on a spill.  Returns the three rows of
+    the f32 leaf, the block's under ``"block"``."""
     from repro_torch.kernels.quant.quant import (ef_absmax, ef_absmax_plain,
                                                  ef_decode, ef_decode_plain,
                                                  ef_requant,
@@ -1029,15 +1092,20 @@ def check_ef(torch, timer) -> tuple:
     gen = torch.Generator(device="cuda").manual_seed(8)
     rows = None
     with world_of_one():
-        for dtype, nan in ((torch.float32, False), (torch.bfloat16, False),
-                           (torch.float32, True)):
-            x = (torch.randn((LEAF,), generator=gen, device="cuda") * 1e-3
+        for dtype, nan, n in ((torch.float32, False, LEAF),
+                              (torch.bfloat16, False, LEAF),
+                              (torch.float32, True, LEAF),
+                              (torch.float32, False, EF_BLOCK)):
+            x = (torch.randn((n,), generator=gen, device="cuda") * 1e-3
                  ).to(dtype)
-            err = torch.randn((LEAF,), generator=gen, device="cuda") * 1e-5
+            err = torch.randn((n,), generator=gen, device="cuda") * 1e-5
             if nan:
-                x[LEAF // 3] = float("nan")
-            tag = (f"ef encode T={LEAF} {dtype} with a carried error"
-                   f"{' and a NaN' if nan else ''}")
+                x[n // 3] = float("nan")
+            block = n != LEAF
+            split = (None,) if block else ()    # the world of one's group
+            tag = (f"ef encode T={n} {dtype} with a carried error"
+                   f"{' and a NaN' if nan else ''}"
+                   f"{', a block of a leaf' if block else ''}")
             s = ef_absmax(x, err)
             smax = s.clone()
             q2, e2 = ef_requant(x, err, s, smax)
@@ -1055,8 +1123,9 @@ def check_ef(torch, timer) -> tuple:
             if not same_bits(out, ef_decode_plain(q2, smax,
                                                   torch.empty_like(x), 1)):
                 raise AssertionError(f"{tag}: ef_decode differs from plain")
-            fo, fe = gc.compressed_psum(x, None, err)
-            po, pe = gc.compressed_psum_plain(x, None, err)
+            fo, fe = gc.compressed_psum(x, None, err, split_groups=split)
+            po, pe = gc.compressed_psum_plain(x, None, err,
+                                              split_groups=split)
             if not (same_bits(fo, po) and same_bits(fe, pe)):
                 raise AssertionError(
                     f"{tag}: compressed_psum differs from compressed_psum_"
@@ -1068,14 +1137,15 @@ def check_ef(torch, timer) -> tuple:
             print(f"[kernel] {tag}: s, q2, error, output and compressed_psum "
                   f"equal their plain versions bit for bit", flush=True)
             if dtype == torch.float32 and not nan:
+                n_el = n
                 lib = torch.mul(q2, smax)
                 if not same_bits(lib, out):
                     raise AssertionError(f"{tag}: torch.mul(total, smax) "
                                          f"differs from ef_decode")
                 del lib
-                b1 = bound(LEAF * 8 + 4, 0, torch.float32)
-                b2 = bound(LEAF * 16 + 8, 0, torch.float32)
-                b3 = bound(LEAF * 8 + 4, 0, torch.float32)
+                b1 = bound(n_el * 8 + 4, 0, torch.float32)
+                b2 = bound(n_el * 16 + 8, 0, torch.float32)
+                b3 = bound(n_el * 8 + 4, 0, torch.float32)
                 ms = [timer(lambda: ef_absmax(x, err)),
                       timer(lambda: ef_requant(x, err, s, smax, e2)),
                       timer(lambda: ef_decode(q2, smax, out, 1))]
@@ -1083,14 +1153,16 @@ def check_ef(torch, timer) -> tuple:
                          timer(lambda: ef_requant_plain(x, err, s, smax, e2)),
                          timer(lambda: ef_decode_plain(q2, smax, out, 1))]
                 lib_ms = timer(lambda: torch.mul(q2, smax, out=out))
-                fused = timer(lambda: gc.compressed_psum(x, None, err))
-                eager = timer(lambda: gc.compressed_psum_plain(x, None, err))
+                fused = timer(lambda: gc.compressed_psum(
+                    x, None, err, split_groups=split))
+                eager = timer(lambda: gc.compressed_psum_plain(
+                    x, None, err, split_groups=split))
                 names = ("ef_absmax", "ef_requant", "ef_decode")
                 for name, t, p, b in zip(names, ms, plain, (b1, b2, b3)):
-                    print(f"[kernel] {name} at T={LEAF} f32: {t:.4f} ms "
+                    print(f"[kernel] {name} at T={n_el} f32: {t:.4f} ms "
                           f"(plain {p:.4f}, bound {b[0]:.4f}, {b[1]}, share "
                           f"{b[0] / t:.3f})", flush=True)
-                print(f"[kernel] ef encode at T={LEAF} f32: K1+K2+K3 "
+                print(f"[kernel] ef encode at T={n_el} f32: K1+K2+K3 "
                       f"{sum(ms):.4f} ms against a bound of "
                       f"{b1[0] + b2[0] + b3[0]:.4f} (32 B/element; K1+K2 "
                       f"{sum(ms[:2]):.4f} against {b1[0] + b2[0]:.4f}, K3 "
@@ -1100,11 +1172,16 @@ def check_ef(torch, timer) -> tuple:
                       f"compressed_psum_plain (eager: quantize, dequantize "
                       f"and ~20 passes) {eager:.4f} ms in this call "
                       f"({eager / fused:.2f}x)", flush=True)
-                rows = tuple(dict(max_abs_err=0.0, ms=t, plain_ms=p,
-                                  bound_ms=b[0], bound_by=b[1],
-                                  library_ms=lb)
-                             for t, p, b, lb in zip(ms, plain, (b1, b2, b3),
-                                                    (None, None, lib_ms)))
+                got = tuple(dict(max_abs_err=0.0, ms=t, plain_ms=p,
+                                 bound_ms=b[0], bound_by=b[1],
+                                 library_ms=lb)
+                            for t, p, b, lb in zip(ms, plain, (b1, b2, b3),
+                                                   (None, None, lib_ms)))
+                if rows is None:
+                    rows = got
+                else:
+                    for row, r in zip(rows, got):
+                        row["block"] = r
             del x, err, s, smax, q2, e2, out
             torch.cuda.empty_cache()
     return rows
@@ -1409,9 +1486,11 @@ def where_the_time_goes(torch, arch: str = ARCH, cache: str = "paged") -> dict:
     tokens[0, :500] = torch.tensor(prompts[8], device="cuda")
     last = torch.tensor([499], device="cuda")
     gen_budget = 0 if cache == "paged" else 1024 - 512
-    runs = (("prefill", 4, lambda: model.prefill(
+    # few calls under the profiler: its cost grows with the events (~70
+    # eager ops a layer a step), the per-call averages do not
+    runs = (("prefill", 2, lambda: model.prefill(
                 params, {"tokens": tokens}, gen_budget, last)),
-            ("decode step", n, lambda: server.step(params)))
+            ("decode step", 4, lambda: server.step(params)))
     for what, reps, fn in runs:
         host_ms, busy_ms, prof = profiled(torch, fn, reps)
         found[f"{what.replace(' ', '_')}_busy_ms"] = busy_ms
@@ -2865,9 +2944,10 @@ def uneven_dp(torch) -> dict:
 
 TP_BATCH = 2                    # phase 23: batch 2 x TRAIN_SEQ, 3 steps
 TP_STEPS = 3
-#: phase 23's runs: name -> (layers, activation dtype); bf16 at full depth
-#: is the path, f32 at 2 layers holds the split step to f32's limits
-TP_RUNS = {"bf16": (22, "bfloat16"), "f32": (2, "float32")}
+#: phase 23's runs: name -> (layers, activation dtype); bf16 at 8 layers
+#: is the path (cut from 22 to hold the script's time: the split step is
+#: the same at every depth), f32 at 2 layers holds it to f32's limits
+TP_RUNS = {"bf16": (8, "bfloat16"), "f32": (2, "float32")}
 TP_LATER_LIMIT = 2e-2           # |loss diff| at steps 1-2 (PERF.md, PR 22)
 TP_F32_LIMIT = 1e-4
 ZERO_LAYERS = 1                 # phase 24: depth cut (gloo through host)
@@ -2902,12 +2982,20 @@ def check_xent_shard(torch) -> None:
     (c0 = 16000, 16000 columns, T = 2·2047) with the labels shifted by
     -c0, labels on both sides of the shard, against its plain version;
     then the backward pass on one chunk of the shard with the global lse
-    and ``col0 = c0 + chunk offset``, against its plain version."""
+    and ``col0 = c0 + chunk offset``, against its plain version.  The
+    same on mamba2-1.3b's tied head at tp 2 (c0 = 25216 of 50432 columns,
+    vocab 50280: the shard holds the padding), whose forward is also held
+    against a second launch bit for bit."""
+    for V, Vp in ((32000, 32000), (MAMBA_VOCAB, MAMBA_VP)):
+        _xent_shard(torch, V, Vp)
+
+
+def _xent_shard(torch, V: int, Vp: int) -> None:
     from repro_torch.kernels.xent import xent
 
     gen = torch.Generator(device="cuda").manual_seed(23)
-    E, V, c0 = 2048, 32000, 16000
-    Vs = V // 2
+    E, c0 = 2048, Vp // 2
+    Vs = Vp // 2
     T = TP_BATCH * (TRAIN_SEQ - 1)
     h = torch.randn((T, E), generator=gen, device="cuda").bfloat16()
     w = (torch.randn((E, Vs), generator=gen, device="cuda")
@@ -2917,11 +3005,13 @@ def check_xent_shard(torch) -> None:
     labels[:3] = torch.tensor([5, c0 + 7, V - 1], dtype=torch.int32)
     local = labels - c0
     nll, lse = xent.xent_fwd(h, w, local, V - c0)
+    again = xent.xent_fwd(h, w, local, V - c0)
     want = xent.xent_fwd_plain(h, w, local, V - c0)
     torch.cuda.synchronize()
     tag = f"xent_fwd vocab shard c0={c0} Vs={Vs} T={T} E={E} bf16"
     err = max(check_close(tag + " nll", nll, want[0], torch.float32),
               check_close(tag + " lse", lse, want[1], torch.float32))
+    assert_same_bits(tag, (nll, lse), again)
     own = int(((local >= 0) & (local < Vs)).sum())
     print(f"[kernel] {tag}: max_abs_err {err:.3e} (tol 2e-05); {own} of "
           f"{T} labels inside the shard", flush=True)
@@ -3051,7 +3141,7 @@ def _tp_rank(rank: int, store: str, out_dir: str, ref_dir: str) -> None:
 
 def train_tp(torch) -> dict:
     """Phase 23: ``split×2``.  For each of TP_RUNS (bf16 at full width and
-    depth, the path; f32 at 2 layers, the agreement) one process runs the
+    8 layers, the path; f32 at 2 layers, the agreement) one process runs the
     unsharded step here first (the same seed and batches) and saves its
     step-0 gradient; then two ranks on ``cuda:0`` over gloo train the
     same steps through ``compile_plan(StrategySpec(tp=2))``.  Everything
@@ -3151,7 +3241,8 @@ def train_tp(torch) -> dict:
     priced = step_cost(model_graph(cfg, TP_BATCH, TRAIN_SEQ).workload_meta(),
                        StrategySpec(tp=2), H100_SXM)
     print(f"[tp] {ranks[0]['bf16']['local_params']:,} of {total:,} "
-          f"parameters a rank at full depth; the cost model's price of "
+          f"parameters a rank at {cfg.n_layers} layers; the cost model's "
+          f"price of "
           f"split×2 at {TP_BATCH} x {TRAIN_SEQ} on H100_SXM, a price over "
           f"NVLink and not a reading: {priced.total * 1e3:.2f} ms (compute "
           f"{priced.compute * 1e3:.2f}, comm {priced.comm * 1e3:.2f})",
@@ -3854,11 +3945,18 @@ def train_nested(torch, unpiped: list) -> dict:
 # phase 26: serving over a mesh
 # ---------------------------------------------------------------------------
 
-#: run 2: the dense, sequence-split cache at full depth; each rank holds
-#: 512 of the 1024 rows, and the 15 decode steps write rows 500-514
+#: runs 1-3 serve tinyllama's full width at this depth (cut from 22 to
+#: hold the script's time: the multi-rank serving path is the same at
+#: every depth)
+TP_SERVE_LAYERS = 8
+TP_DEPTH = ["--overrides", f"n_layers={TP_SERVE_LAYERS}"]
+#: run 1: phase 4's paged workload at TP_SERVE_LAYERS layers
+TP_PAGED_ARGS = PAGED_ARGS + TP_DEPTH
+#: run 2: the dense, sequence-split cache; each rank holds 512 of the
+#: 1024 rows, and the 15 decode steps write rows 500-514
 TP_DENSE_ARGS = ["--arch", ARCH, "--cache", "dense", "--requests", "8",
                  "--batch-slots", "8", "--prompt-len", "500", "--gen", "16",
-                 "--max-len", "1024"]
+                 "--max-len", "1024"] + TP_DEPTH
 #: run 4: data 2 x model 2 at 4 layers, a pool of 66 usable pages: 8
 #: admissions take 64, the growth past row 512 preempts
 DP_TP_ARGS = PAGED_ARGS + ["--overrides", "n_layers=4", "--pages", "67"]
@@ -3869,21 +3967,22 @@ F32_SERVE = ["--requests", "4", "--batch-slots", "4", "--prompt-len", "500",
 TF_STEPS = 16                   # teacher-forced decode steps
 TF_PROMPT = 500                 # two prompts of this many tokens
 #: teacher-forced runs: name -> (layers, activation dtype, caches)
-TF_RUNS = {"bf16": (22, "bfloat16", ("paged", "dense")),
+TF_RUNS = {"bf16": (TP_SERVE_LAYERS, "bfloat16", ("paged", "dense")),
            "bf16_4": (4, "bfloat16", ("paged",)),
            "f32": (2, "float32", ("paged", "dense")),
-           "f32_22": (22, "float32", ("paged", "dense")),
+           "f32_deep": (TP_SERVE_LAYERS, "float32", ("paged", "dense")),
            "f32_4": (4, "float32", ("paged",))}
 TF_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 #: a bf16 run's yardstick: bf16's own error, the unsharded bf16 run's
 #: paged logits against the same weights' in f32 at the same depth
-TF_YARDSTICK = {"bf16": "f32_22", "bf16_4": "f32_4"}
+TF_YARDSTICK = {"bf16": "f32_deep", "bf16_4": "f32_4"}
 #: the bf16 gate in yardsticks: two bf16 computations of the same logits,
 #: each within bf16's own error of the f32 ones, lie within twice it of
 #: each other
 TF_PAIR = 2.0
 #: the runs of one depth share one draw of the weights
-TF_DEPTHS = {22: ("bf16", "f32_22"), 4: ("bf16_4", "f32_4"), 2: ("f32",)}
+TF_DEPTHS = {TP_SERVE_LAYERS: ("bf16", "f32_deep"), 4: ("bf16_4", "f32_4"),
+             2: ("f32",)}
 
 
 def _tf_model(torch, name: str):
@@ -3897,12 +3996,15 @@ def _tf_model(torch, name: str):
                                      dtype=dtype))
 
 
-def teacher_forced(torch, model, plan, params, cache: str):
+def teacher_forced(torch, model, plan, params, cache: str,
+                   state_out: dict | None = None):
     """Two prompts of TF_PROMPT tokens prefilled into a Server's two slots
     (``plan`` over a mesh, or ``None``), then TF_STEPS decode steps fed
     fixed tokens: each prefill's logits, then every step's for both slots,
     as one (2 + 2·TF_STEPS, Vp) f32 host tensor (gathered over the
-    mesh)."""
+    mesh).  ``state_out`` (dense cache) receives the decode state's leaves
+    after both prefills, whole (gathered by the state specs), on the
+    host."""
     import numpy as np
 
     from repro_torch.serving.server import Request, Server
@@ -3934,6 +4036,15 @@ def teacher_forced(torch, model, plan, params, cache: str):
     try:
         for i, p in enumerate(prompts):
             server.admit(params, Request(i, p, max_new=1 << 30), i)
+        if state_out is not None:
+            from repro_torch.core import sharding
+            from repro_torch.tree import flatten
+            specs = flatten(server.plan.state_specs(2, 1024)["cache"])[1]
+            for (path, v), spec in zip(zip(*flatten(server.state["cache"])),
+                                       specs):
+                if server.plan.rules is not None:
+                    v = sharding.gather_leaf(v, spec, server.plan.rules)
+                state_out[path] = v.float().cpu()
         for t in forced:
             server.tokens = t.to(server.device)
             server.step(params)
@@ -4074,7 +4185,7 @@ def _serve_tp_rank(rank: int, store: str, out_dir: str, ref_dir: str) -> None:
         time_collectives(torch, dist, stats)
         instrument_servers(torch, stats, rec)
         mesh = ["--mesh", "1x2"]
-        out["paged"] = _serve_run(torch, kernels, PAGED_ARGS + mesh, rec)
+        out["paged"] = _serve_run(torch, kernels, TP_PAGED_ARGS + mesh, rec)
         torch.cuda.empty_cache()
         out["dense"] = _serve_run(torch, kernels, TP_DENSE_ARGS + mesh, rec)
         torch.cuda.empty_cache()
@@ -4083,7 +4194,7 @@ def _serve_tp_rank(rank: int, store: str, out_dir: str, ref_dir: str) -> None:
                 torch, kernels, ["--arch", ARCH, "--cache", cache,
                                  "--page-size", "64"] + F32_SERVE + mesh,
                 rec)
-        for depth in (22, 2):
+        for depth in (TP_SERVE_LAYERS, 2):
             _tf_compare(torch, TF_DEPTHS[depth], parse_mesh("1x2"), ref_dir,
                         out)
             torch.cuda.empty_cache()
@@ -4140,7 +4251,8 @@ def _unsharded_references(torch, ref_dir: str) -> dict:
             del params
         del masters
         torch.cuda.empty_cache()
-    want = {"dp_tp": serve.main(DP_TP_ARGS)}
+    want = {"dp_tp": serve.main(DP_TP_ARGS),
+            "paged": serve.main(TP_PAGED_ARGS)}
     for cache in ("paged", "dense"):
         want[f"f32/{cache}"] = serve.main(["--arch", ARCH, "--cache", cache,
                                            "--page-size", "64"] + F32_SERVE)
@@ -4199,19 +4311,21 @@ def _report_run(tag: str, ranks: list, run: str, layers: int,
 
 def serve_tp(torch, kernels, paged4: dict) -> dict:
     """Phase 26: serving over a mesh.  Here first, unsharded: the
-    teacher-forced logits of TF_RUNS and the tokens of runs 4 and 5's
+    teacher-forced logits of TF_RUNS and the tokens of runs 1, 4 and 5's
     workloads.  Then two ranks on ``cuda:0`` over gloo (NCCL refuses two
     ranks on one card) serve through the driver's meshed branch at split×2
-    (run 1: phase 4's workload, paged, full width and depth; run 2: dense,
-    the sequence-split cache; run 5: f32 at 2 layers, both caches) and
-    hold the teacher-forced logits (run 3, both caches at full depth; run
-    5's in f32); four ranks serve data 2 x model 2 at 4 layers with a pool
+    (run 1: phase 4's workload, paged, full width and TP_SERVE_LAYERS
+    layers; run 2: dense, the sequence-split cache; run 5: f32 at 2
+    layers, both caches) and hold the teacher-forced logits (run 3, both
+    caches at TP_SERVE_LAYERS layers; run 5's in f32); four ranks serve
+    data 2 x model 2 at 4 layers with a pool
     that preempts (run 4).  Then the driver's ``--mesh 1x1`` at full width
     in this process (run 6).  Printed before anything is held: each rank's
     launches, TTFT and TPOT with their gloo seconds, peaks beside the
     weights and KV held, the tokens against the unsharded ones as a count.
     Held: every rank's tokens equal; launches those of its admissions and
-    steps; the teacher-forced logits in f32 (2 layers, and 22) within 1e-4
+    steps; the teacher-forced logits in f32 (2 and TP_SERVE_LAYERS layers)
+    within 1e-4
     + 1e-4|x|; in bf16 within 2e-2 + 2e-2|x| scaled by TF_PAIR times
     bf16's own error at the same depth (the yardstick: the worst share of
     that limit of the unsharded bf16 logits against the same weights' in
@@ -4241,16 +4355,18 @@ def serve_tp(torch, kernels, paged4: dict) -> dict:
     ranks4.sort(key=lambda r: (r["paged"]["data_rank"],
                                r["paged"]["model_rank"]))
     fails = []
-    _report_run("run 1 split×2 paged, 22 layers", ranks, "paged", 22, fails)
-    _report_run("run 2 split×2 dense, 22 layers", ranks, "dense", 22, fails)
+    _report_run(f"run 1 split×2 paged, {TP_SERVE_LAYERS} layers", ranks,
+                "paged", TP_SERVE_LAYERS, fails)
+    _report_run(f"run 2 split×2 dense, {TP_SERVE_LAYERS} layers", ranks,
+                "dense", TP_SERVE_LAYERS, fails)
     _report_run("run 4 data 2 x model 2 paged, 4 layers", ranks4, "paged", 4,
                 fails)
     for cache in ("paged", "dense"):
         _report_run(f"run 5 split×2 {cache} f32, 2 layers", ranks,
                     f"f32/{cache}", 2, fails)
     for tag, got, ref in (
-            ("run 1 against phase 4 (unsharded)", ranks[0]["paged"],
-             paged4),
+            ("run 1 against one unsharded process at "
+             f"{TP_SERVE_LAYERS} layers", ranks[0]["paged"], want["paged"]),
             ("run 4 against one unsharded process at 4 layers",
              ranks4[0]["paged"], want["dp_tp"]),
             ("run 5 paged f32 against the unsharded server",
@@ -4272,7 +4388,7 @@ def serve_tp(torch, kernels, paged4: dict) -> dict:
               f"{yard[b]['max_abs']:.3e}, worst share of 0.02 + 0.02|x| "
               f"{yard[b]['worst']:.3f}; the gate {TF_PAIR:g} x it",
               flush=True)
-    for rs, names in ((ranks, ("bf16", "f32", "f32_22")),
+    for rs, names in ((ranks, ("bf16", "f32", "f32_deep")),
                       (ranks4, ("bf16_4",))):
         for name in names:
             faults = ("dense_fault",) if name == "bf16" else ()
@@ -5252,6 +5368,834 @@ def moe_split(torch) -> dict:
             for k in exp}
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the compressed cross-pod reduction over model shards and ZeRO
+# ---------------------------------------------------------------------------
+
+CB_SEQ = 1024                   # phase 29: tinyllama's width, one layer
+CB_STEPS = 3
+CB_ZEROS = (0, 1, 3)
+CB_MAX_FLIPS = 0.01             # int8 flips allowed against the yardstick
+
+
+def block_gaps(torch, got, want, quantum: float, ulps_of: float) -> dict:
+    """Elementwise gaps of one leaf against its yardstick: |d| within four
+    roundings (of |want| and of ``ulps_of``) is a rounding; beyond that,
+    at most one ``quantum`` more is a flipped int8 value; any more is a
+    miss.  Returns the max |d|, the flips and the misses."""
+    eps = torch.finfo(torch.float32).eps
+    d = (got.float() - want.float()).abs()
+    tight = 4 * eps * (want.float().abs() + abs(ulps_of)) + 1e-30
+    flips = d > tight
+    miss = d > (quantum + tight) * (1 + 1e-6)
+    return {"max_abs": float(d.max()), "flips": int(flips.sum()),
+            "misses": int(miss.sum()), "n": d.numel()}
+
+
+def _cb_rank(rank: int, store: str, out_dir: str) -> None:
+    """One rank of phase 29 on ``cuda:0``, in a gloo world of four.
+    (a) pod 2 x data 2, compressed ZeRO 0, 1 and 3: CB_STEPS AdamW steps
+    each from the same seed and batches (4 x CB_SEQ, a row a rank), with
+    step and gloo seconds, peaks and launches; rank 0 holds ZeRO-1's and
+    ZeRO-3's step-0 handed gradients and their gathered parameters,
+    moments and error carry after the steps against ZeRO-0's, bit for bit.
+    (b) pod 2 x model 2 (2 x CB_SEQ): one compressed step; its in-pod
+    gradients, handed gradients and error carry gathered whole over
+    ``model``; on model rank 0 of each pod the same pods' whole in-pod
+    leaves through ``compressed_psum_plain`` on the pod group, and every
+    leaf's gaps (:func:`block_gaps`).  (c) (b) with the block's scale its
+    own (the MAX over ``model`` left out): the planted fault."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import sharding
+    from repro_torch.core.cost_model import StrategySpec
+    from repro_torch.core.planner import compile_plan, mesh_for_strategy
+    from repro_torch.data.pipeline import DataCfg, TokenPipeline
+    from repro_torch.models.lm import Model
+    from repro_torch.optim import grad_compress as gc
+    from repro_torch.optim.optimizer import adamw
+    from repro_torch.tree import flatten, tree_map
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 4),
+                            rank=rank, world_size=4)
+    kernels = kernel_wrappers()
+    stats = {"s": 0.0, "n": 0}
+    time_collectives(torch, dist, stats)
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=1)
+
+    def plan_of(strat):
+        return compile_plan(Model(cfg), mesh_for_strategy(strat, pods=2),
+                            strat, compress_pod=True)
+
+    def batches(plan, rows, n):
+        data = TokenPipeline(DataCfg(global_batch=rows, seq_len=CB_SEQ,
+                                     vocab=cfg.vocab, seed=0), host_id=0,
+                             n_hosts=1)
+        return [{k: v.cuda() for k, v in plan.batch_slice({
+            "tokens": torch.as_tensor(np.asarray(
+                data.next_batch()["tokens"]))}).items()} for _ in range(n)]
+
+    def spy(seen):
+        opt = adamw(lr=PP_LR)
+        real = opt.apply
+
+        def apply(grads, state, p, step, **kw):
+            if step == 0:
+                seen["handed"] = dict(zip(*flatten(grads)))
+                seen["handed"] = {k: v.clone() for k, v in
+                                  seen["handed"].items()}
+            return real(grads, state, p, step, **kw)
+        return dataclasses.replace(opt, apply=apply)
+
+    def gathered(tree: dict, plan) -> dict:
+        return {k: sharding.gather_leaf(v, s, plan.rules) for (k, v), s in
+                zip(tree.items(), flatten(plan.param_specs)[1])}
+
+    out = {"zero": {}}
+    try:
+        whole0 = handed0 = None
+        for z in CB_ZEROS:
+            plan = plan_of(StrategySpec(dp=4, zero=z))
+            seen = {}
+            opt = spy(seen)
+            params = plan.init_params(0)
+            st = {"params": params, "opt": plan.init_opt(opt, params),
+                  "err": gc.init_error_tree(params)}
+            step = plan.train_step_fn(opt, compress_pod=True)
+            rec = {"losses": [], "seconds": [], "gloo_s": [], "peak": 0}
+            torch.cuda.synchronize()
+            reset_counts(kernels)
+            for i, batch in enumerate(batches(plan, 4, CB_STEPS)):
+                torch.cuda.reset_peak_memory_stats()
+                s0, t0 = stats["s"], time.perf_counter()
+                p, o, m, e = step(st["params"], st["opt"], batch, i,
+                                  st["err"])
+                torch.cuda.synchronize()
+                st = {"params": p, "opt": o, "err": e}
+                rec["seconds"].append(time.perf_counter() - t0)
+                rec["gloo_s"].append(stats["s"] - s0)
+                rec["peak"] = max(rec["peak"],
+                                  torch.cuda.max_memory_allocated())
+                rec["losses"].append(float(m["loss"]))
+            rec["counts"] = read_counts(kernels)
+            rec["leaves"] = len(flatten(params)[1])
+            rec["split"] = {k: list(v.shape) for k, v in
+                            zip(*flatten(st["params"]))}
+            handed = gathered(seen.pop("handed"), plan)
+            full = plan.gather_state(st, opt)
+            if rank == 0:
+                full = tree_map(torch.Tensor.cpu, full)
+                handed = {k: v.cpu() for k, v in handed.items()}
+                if z == 0:
+                    whole0, handed0 = full, handed
+                else:
+                    (pa, la), (pb, lb) = flatten(full), flatten(whole0)
+                    rec["state_equal"] = pa == pb and all(
+                        torch.equal(a, b) for a, b in zip(la, lb))
+                    rec["err_equal"] = all(
+                        torch.equal(a, b) for a, b in zip(
+                            flatten(full["err"])[1],
+                            flatten(whole0["err"])[1]))
+                    rec["handed_equal"] = all(
+                        torch.equal(handed[k], v) for k, v in
+                        handed0.items())
+            out["zero"][str(z)] = rec
+            del st, p, o, e, params, full, handed, plan
+            torch.cuda.empty_cache()
+        del whole0, handed0
+
+        # (b) and (c): pod 2 x model 2
+        for tag in ("split", "planted"):
+            plan = plan_of(StrategySpec(dp=2, tp=2))
+            seen = {}
+            real_tree, real_max = gc.compressed_psum_tree, gc._leaf_max
+
+            def spy_tree(grads, group, err_tree, **kw):
+                seen["inpod"] = {k: v.clone() for k, v in
+                                 zip(*flatten(grads))}
+                return real_tree(grads, group, err_tree, **kw)
+
+            gc.compressed_psum_tree = spy_tree
+            if tag == "planted":
+                gc._leaf_max = lambda s, groups: s
+            opt = spy(seen)
+            params = plan.init_params(0)
+            step = plan.train_step_fn(opt, compress_pod=True)
+            (batch,) = batches(plan, 2, 1)
+            torch.cuda.synchronize()
+            reset_counts(kernels)
+            s0, t0 = stats["s"], time.perf_counter()
+            try:
+                _, _, m, err = step(params, plan.init_opt(opt, params),
+                                    batch, 0, gc.init_error_tree(params))
+                torch.cuda.synchronize()
+            finally:
+                gc.compressed_psum_tree, gc._leaf_max = real_tree, real_max
+            rec = {"seconds": time.perf_counter() - t0,
+                   "gloo_s": stats["s"] - s0, "loss": float(m["loss"]),
+                   "counts": read_counts(kernels),
+                   "split": {k: list(v.shape) for k, v in
+                             zip(*flatten(params))}}
+            inpod = gathered(seen.pop("inpod"), plan)
+            handed = gathered(seen.pop("handed"), plan)
+            err = gathered(dict(zip(*flatten(err))), plan)
+            if plan.rules.index("model") == 0:
+                pod_g = plan.mesh.get_group("pod")
+                gaps = {}
+                for k, x in inpod.items():
+                    smax = x.abs().max().reshape(1) / 127
+                    dist.all_reduce(smax, op=dist.ReduceOp.MAX,
+                                    group=pod_g)
+                    smax = float(smax)
+                    po, pe = gc.compressed_psum_plain(x, pod_g, None)
+                    gaps[k] = {
+                        "out": block_gaps(torch, handed[k], po, smax / 2,
+                                          0.0),
+                        "err": block_gaps(torch, err[k], pe, 2 * smax,
+                                          127 * smax),
+                        "bits": bool(torch.equal(handed[k], po)
+                                     and torch.equal(err[k], pe))}
+                    del po, pe
+                rec["gaps"] = gaps
+            out[tag] = rec
+            del inpod, handed, err, params, plan
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _cb_verdict(gaps: dict) -> tuple:
+    """(holds, worst leaf line) of a run's per-leaf gaps: every leaf's out
+    and err without a miss and with flips on at most CB_MAX_FLIPS of its
+    elements."""
+    ok, worst, line = True, -1.0, ""
+    for k, g in gaps.items():
+        for what in ("out", "err"):
+            x = g[what]
+            share = x["flips"] / x["n"]
+            if x["misses"] or share > CB_MAX_FLIPS:
+                ok = False
+            score = x["misses"] + share
+            if score > worst:
+                worst = score
+                line = (f"{k} {what}: max |diff| {x['max_abs']:.3e}, "
+                        f"{x['flips']} flips of {x['n']}, {x['misses']} "
+                        f"beyond a quantum")
+    return ok, line
+
+
+def compressed_blocks(torch) -> dict:
+    """Phase 29: the compressed cross-pod reduction on blocks of leaves,
+    four ranks sharing ``cuda:0`` over gloo (:func:`_cb_rank`),
+    tinyllama at full width and one layer.  Printed: each ZeRO level's
+    losses, step and gloo seconds, peak and launches a rank; the
+    pod 2 x model 2 step's gaps against the whole leaves through
+    ``compressed_psum_plain``.  Held: ZeRO-1 and ZeRO-3 equal ZeRO-0 bit
+    for bit (losses; the handed gradients; parameters, moments and error
+    carry after the steps); the three encode kernels launch once per leaf
+    and step on every rank; the split step within one rounding, plus one
+    quantum where an int8 value flips (on at most 1% of a leaf), and the
+    planted per-block scale outside that gate.  Returns the launches of
+    ZeRO-3's steps and of the split step, summed over ranks."""
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_cb_rank, nprocs=4, timeout=500)
+    print(f"[compress-blocks] four ranks {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    fails = []
+    for r, o in enumerate(ranks):
+        for z, rec in o["zero"].items():
+            print(f"[compress-blocks] rank {r} pod 2 x data 2 zero={z} "
+                  f"(blocks {rec['split']['embed/table']} of the table): "
+                  f"losses {rec['losses']}; step seconds "
+                  f"{[round(x, 3) for x in rec['seconds']]}, gloo "
+                  f"{[round(x, 3) for x in rec['gloo_s']]}; peak "
+                  f"{rec['peak'] / 2**30:.3f} GiB; launches {rec['counts']}",
+                  flush=True)
+            want = rec["leaves"] * CB_STEPS
+            if any(rec["counts"][k] != want for k in
+                   ("ef_absmax", "ef_requant", "ef_decode")) \
+                    or rec["counts"]["quantize"] \
+                    or rec["counts"]["dequantize"]:
+                fails.append(f"rank {r} zero={z}: launches "
+                             f"{rec['counts']}, want {want} of each encode "
+                             f"kernel")
+            if rec["losses"] != o["zero"]["0"]["losses"]:
+                fails.append(f"rank {r} zero={z}: losses differ from zero=0")
+            if r == 0 and z != "0":
+                flags = {k: rec[k] for k in ("handed_equal", "state_equal",
+                                             "err_equal")}
+                print(f"[compress-blocks] zero={z} against zero=0 bit for "
+                      f"bit: {flags}", flush=True)
+                if not all(flags.values()):
+                    fails.append(f"zero={z} differs from zero=0: {flags}")
+    caught = []
+    for tag in ("split", "planted"):
+        for r, o in enumerate(ranks):
+            rec = o[tag]
+            if "gaps" not in rec:
+                continue
+            ok, line = _cb_verdict(rec["gaps"])
+            bits = sum(g["bits"] for g in rec["gaps"].values())
+            print(f"[compress-blocks] rank {r} pod 2 x model 2 {tag} "
+                  f"(wi shards {rec['split']['blocks/p0/mlp/wi']}): loss "
+                  f"{rec['loss']:.6f}, step {rec['seconds']:.3f} s (gloo "
+                  f"{rec['gloo_s']:.3f}); against the pods' whole leaves "
+                  f"through compressed_psum_plain: {bits} of "
+                  f"{len(rec['gaps'])} leaves bit for bit, worst {line}; "
+                  f"{'within' if ok else 'outside'} the gate; launches "
+                  f"{rec['counts']}", flush=True)
+            if tag == "split" and not ok:
+                fails.append(f"pod 2 x model 2, rank {r}: outside the gate")
+            if tag == "planted":
+                caught.append(not ok)
+    if not any(caught):
+        fails.append("the planted per-block scale passed the gate")
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+    def total(get):
+        return {k: sum(get(o)[k] for o in ranks)
+                for k in ranks[0]["split"]["counts"]}
+
+    return {"train_compressed_zero3": total(
+                lambda o: o["zero"]["3"]["counts"]),
+            "train_compressed_split": total(lambda o: o["split"]["counts"])}
+
+
+# ---------------------------------------------------------------------------
+# phase 30: mamba2-1.3b training at full width and depth
+# ---------------------------------------------------------------------------
+
+M2_TRAIN_STEPS = 4
+M2_TRAIN_ARGS = ["--arch", MAMBA, "--batch", str(TRAIN_BATCH), "--seq",
+                 str(TRAIN_SEQ), "--steps", str(M2_TRAIN_STEPS),
+                 "--optimizer", "adamw", "--log-every", "1"]
+
+
+def mamba2_train(torch, kernels) -> dict:
+    """Phase 30: the training driver on mamba2-1.3b at full width and
+    depth (48 layers, batch 4 x 2048, AdamW, remat full; the SSD mixer
+    through the differentiable chunked scan, the tied head through the
+    xent kernels), M2_TRAIN_STEPS steps: finite losses, launches (the xent
+    kernels only), tokens/s after step 0, the peak beside the state (the
+    final checkpoint gathered to the host, its file write skipped).  Then
+    one step split on the host clock (forward, backward, AdamW), one step
+    under torch.profiler (device busy, top kernels), and one layer's
+    ``ssd_scan`` (two forwards, as remat full runs it, and a backward)
+    under the profiler at the step's shape: its share of the step's device
+    time.  Then step 0's loss and every gradient leaf through the kernels
+    against the plain versions on the card: a 2-layer f32 model within
+    1e-4 + 1e-4|x|; the full model in bf16 within TF_PAIR times bf16's own
+    error per leaf (the plain bf16 step against the same weights' f32
+    step, relative to the leaf's max)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.planner import loss_and_grads
+    from repro_torch.kernels.xent import xent
+    from repro_torch.launch import train
+    from repro_torch.models import mamba2
+    from repro_torch.models.lm import Model, param_count
+    from repro_torch.optim.optimizer import adamw
+    from repro_torch.tree import flatten, unflatten
+
+    cfg = get_config(MAMBA)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mamba2_train_")
+    real_write, written = CheckpointManager._write, []
+    CheckpointManager._write = lambda self, step, *a: written.append(step)
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        res = train.main(M2_TRAIN_ARGS + ["--ckpt-dir", tmp])
+        counts = read_counts(kernels)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        CheckpointManager._write = real_write
+        shutil.rmtree(tmp, ignore_errors=True)
+    n = param_count(Model(cfg, "meta").param_shapes())
+    T = TRAIN_BATCH * (TRAIN_SEQ - 1)
+    want = dict.fromkeys(counts, 0)
+    want["xent_fwd"] = M2_TRAIN_STEPS
+    want["xent_bwd"] = M2_TRAIN_STEPS * -(-cfg.padded_vocab
+                                          // xent.bwd_chunk(T,
+                                                            cfg.padded_vocab))
+    secs = res["step_seconds"]
+    tok = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[mamba2-train] {n:,} parameters, 48 layers, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: losses {res['losses']}; step "
+          f"seconds {[round(x, 3) for x in secs]} "
+          f"({tok / statistics.median(secs[1:]):.1f} tok/s after step 0); "
+          f"peak device memory {peak / 2**30:.2f} GiB beside parameters, "
+          f"gradients and AdamW moments {16 * n / 1e9:.2f} GB; final "
+          f"checkpoint gathered at step {written} (file write skipped); "
+          f"launches {counts}", flush=True)
+    if not all(math.isfinite(x) for x in res["losses"]):
+        raise AssertionError(f"mamba2 train: losses {res['losses']}")
+    if counts != want:
+        raise AssertionError(f"mamba2 train: launches {counts}, want {want}")
+    torch.cuda.empty_cache()
+
+    # where the time goes
+    model = Model(cfg)
+    params = model.init(0)
+    opt = adamw(lr=1e-4)
+    state = opt.init(params)
+    paths, leaves = flatten(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab,
+                                             (TRAIN_BATCH, TRAIN_SEQ))
+    batch = {"tokens": torch.tensor(toks, device="cuda")}
+
+    def step(times=None):
+        t0 = time.perf_counter()
+        loss, _ = model.loss_fn(params, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        opt.apply(unflatten(paths, list(grads)), state, params, 1)
+        torch.cuda.synchronize()
+        if times is not None:
+            times.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
+
+    step()                                          # warm-up
+    times = []
+    step(times)
+    fwd, bwd, upd = (x * 1e3 for x in times[0])
+    print(f"[mamba2-train] one step on the host clock: forward {fwd:.1f} "
+          f"ms, backward (with the checkpointed recompute) {bwd:.1f} ms, "
+          f"AdamW {upd:.1f} ms; total {fwd + bwd + upd:.1f} ms = "
+          f"{tok / (fwd + bwd + upd) * 1e3:.1f} tokens/s", flush=True)
+    step_ms, busy_ms, prof = profiled(torch, step, 1)
+    del state, opt
+    torch.cuda.empty_cache()
+    # one layer's scan at the step's shape, as remat full runs it: the
+    # forward, its recompute in the backward, and the backward
+    scfg = cfg.ssd_cfg()
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    H, P, N = scfg.n_heads, scfg.headdim, scfg.d_state
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    x = rnd(TRAIN_BATCH, TRAIN_SEQ, H, P).bfloat16().requires_grad_(True)
+    dt = torch.nn.functional.softplus(rnd(TRAIN_BATCH, TRAIN_SEQ, H) - 1.0
+                                      ).requires_grad_(True)
+    A = -torch.exp(0.3 * rnd(H))
+    Bm = (0.3 * rnd(TRAIN_BATCH, TRAIN_SEQ, 1, N)).bfloat16(
+        ).requires_grad_(True)
+    Cm = (0.3 * rnd(TRAIN_BATCH, TRAIN_SEQ, 1, N)).bfloat16(
+        ).requires_grad_(True)
+
+    def scan_layer():
+        with torch.no_grad():
+            mamba2.ssd_scan(x, dt, A, Bm, Cm, scfg.chunk)
+        y, h = mamba2.ssd_scan(x, dt, A, Bm, Cm, scfg.chunk)
+        torch.autograd.grad(y.float().sum() + h.sum(), (x, dt, Bm, Cm))
+
+    scan_layer()
+    _, scan_busy, _ = profiled(torch, scan_layer, 1)
+    del x, dt, Bm, Cm
+    if busy_ms is not None and scan_busy is not None:
+        share = cfg.n_layers * scan_busy / busy_ms
+        print(f"[mamba2-train] under the profiler: step {step_ms:.1f} ms, "
+              f"device busy {busy_ms:.1f} ms, idle share "
+              f"{1 - busy_ms / step_ms:.3f}; one layer's ssd_scan (two "
+              f"forwards and a backward, bf16 x and B/C as the model feeds "
+              f"them) busy {scan_busy:.2f} ms: {cfg.n_layers} layers "
+              f"{cfg.n_layers * scan_busy:.1f} ms, share of the step's "
+              f"device time {share:.3f}", flush=True)
+        from torch.autograd import DeviceType
+        top = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+        for e in top[:10]:
+            print(f"[mamba2-train]   {e.self_device_time_total / 1e3:9.2f} "
+                  f"ms/step  x{e.count:<5d} {e.key[:90]}", flush=True)
+    del prof
+    for p in leaves:
+        p.requires_grad_(False)
+    del leaves
+
+    # step 0 through the kernels against the plain versions
+    data_batch = _first_batch(torch, cfg.vocab, TRAIN_BATCH)
+    small = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    m32 = Model(small)
+    p32 = m32.init(0)
+    loss_k, _, g_k = loss_and_grads(m32, p32, data_batch)
+    with plain_on_card():
+        loss_p, _, g_p = loss_and_grads(m32, p32, data_batch)
+    worst = max(check_close(f"mamba2 f32 2 layers {k}", g, gp,
+                            torch.float32, 1e-4)
+                for (k, g), gp in zip(zip(*flatten(g_k)), flatten(g_p)[1]))
+    check_close("mamba2 f32 2 layers loss", loss_k, loss_p, torch.float32,
+                1e-4)
+    print(f"[mamba2-train] step 0, 2 layers f32, through the kernels "
+          f"against the plain versions on the card: loss {float(loss_k):.6f}"
+          f" vs {float(loss_p):.6f}; every gradient leaf within 1e-4 + "
+          f"1e-4|x| (max |diff| {worst:.3e})", flush=True)
+    del m32, p32, g_k, g_p
+    torch.cuda.empty_cache()
+
+    loss_k, _, g_k = loss_and_grads(model, params, data_batch)
+    g_k = dict(zip(*flatten(g_k)))
+    with plain_on_card():
+        loss_p, _, g_p = loss_and_grads(model, params, data_batch)
+    g_p = dict(zip(*flatten(g_p)))
+    rel = grad_gaps(g_k, g_p)
+    del g_k
+    torch.cuda.empty_cache()
+    f32 = Model(dataclasses.replace(cfg, dtype="float32"))
+    loss_f, _, g_f = loss_and_grads(f32, params, data_batch)
+    yard = grad_gaps(g_p, dict(zip(*flatten(g_f))))
+    del g_f, g_p, params
+    torch.cuda.empty_cache()
+    gate = {k: TF_PAIR * yard[k] for k in rel}
+    worst = max(rel, key=lambda k: rel[k] / max(gate[k], 1e-30))
+    loss_gap, loss_yard = abs(float(loss_k - loss_p)), abs(float(loss_p
+                                                                - loss_f))
+    print(f"[mamba2-train] step 0, 48 layers bf16, through the kernels "
+          f"against the plain versions on the card: loss "
+          f"{float(loss_k):.6f} vs {float(loss_p):.6f} (f32 "
+          f"{float(loss_f):.6f}; |diff| {loss_gap:.3e} against bf16's own "
+          f"{loss_yard:.3e}); gradients' max |diff| relative to the leaf's "
+          f"max: worst share of the gate {rel[worst] / gate[worst]:.3f} "
+          f"({worst}: {rel[worst]:.3e} against bf16's own {yard[worst]:.3e}"
+          f"), median gap {statistics.median(rel.values()):.3e}, median "
+          f"bf16's own {statistics.median(yard.values()):.3e}", flush=True)
+    fails = [f"mamba2 train step 0 gradient {k}: {rel[k]:.3e} beyond "
+             f"{gate[k]:.3e}" for k in rel if not rel[k] <= gate[k]]
+    if not loss_gap <= TF_PAIR * loss_yard + 1e-6:
+        fails.append(f"mamba2 train step-0 loss: {loss_gap:.3e} beyond "
+                     f"{TF_PAIR:g} x {loss_yard:.3e}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 31: mamba2 over a model axis (the SSD mixer's heads split)
+# ---------------------------------------------------------------------------
+
+M2_SPLIT_LAYERS = 2             # training split x2, f32
+M2_SERVE_ARGS = ["--arch", MAMBA, "--cache", "dense", "--requests", "4",
+                 "--batch-slots", "4", "--prompt-len", "500", "--gen", "16",
+                 "--max-len", "1024"]
+#: f32 at 2 layers: the split's tokens equal the unsharded run's
+M2_SERVE_F32 = M2_SERVE_ARGS + ["--overrides", "dtype=float32,n_layers=2"]
+#: teacher-forced runs of mamba2: name -> (layers, activation dtype);
+#: the runs of one depth share one draw of the weights
+M2_TF = {"bf16": (48, "bfloat16"), "f32": (48, "float32"),
+         "f32_2": (2, "float32")}
+M2_DEPTHS = {48: ("bf16", "f32"), 2: ("f32_2",)}
+#: each run's yardstick, from the unsharded process: bf16's own error
+#: (against the same weights in f32), and at 48 layers f32's own
+#: sensitivity (against the same weights each moved by one ulp); none at
+#: 2 layers (1e-4 + 1e-4|x|)
+M2_YARDSTICK = {"bf16": "f32", "f32": "f32_ulp"}
+
+
+def _m2_model(torch, **kw):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import Model
+    return Model(dataclasses.replace(get_config(MAMBA), **kw))
+
+
+def _one_ulp(torch, tree: dict) -> dict:
+    """``tree`` with every element moved by one ulp, up or down at random
+    (a seeded draw): the smallest change of the weights there is."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _one_ulp(torch, v)
+            continue
+        up = torch.rand(v.shape, generator=gen, device=v.device) < 0.5
+        inf = torch.full_like(v, math.inf)
+        out[k] = torch.where(up, torch.nextafter(v, inf),
+                             torch.nextafter(v, -inf))
+    return out
+
+
+def _m2_tf_all(torch, plan_of, ref_dir: str, out: dict | None) -> None:
+    """The teacher-forced runs of M2_TF (one draw of the weights a depth,
+    each run serving its own cast), their logits and prefill states
+    written to ``ref_dir`` (``out`` None: the unsharded process, which also
+    runs the 48-layer f32 weights moved by one ulp, f32's own yardstick)
+    or held against those (``out``: a rank, which also runs the f32 runs
+    with the planted fault: the gated norm over its own heads)."""
+    from repro_torch.models import mamba2
+
+    for layers, names in M2_DEPTHS.items():
+        masters = None
+        for name in names:
+            dtype = M2_TF[name][1]
+            model = _m2_model(torch, n_layers=layers, dtype=dtype)
+            plan = plan_of(model)
+            if masters is None:
+                masters = (plan.init_params(0) if plan is not None
+                           else model.init(0))
+            runs = [(name, masters)]
+            if out is None and name == "f32" and layers == 48:
+                runs.append(("f32_ulp", _one_ulp(torch, masters)))
+            if out is not None and dtype == "float32":
+                runs.append((name + "_fault", masters))
+            for tag, weights in runs:
+                params = model.serving_params(weights)
+                state = {}
+                real = mamba2.sum_over_heads
+                if tag.endswith("_fault"):
+                    mamba2.sum_over_heads = lambda t, split: t
+                try:
+                    got = teacher_forced(torch, model, plan, params,
+                                         "dense", state)
+                finally:
+                    mamba2.sum_over_heads = real
+                del params
+                if out is None:
+                    torch.save((got, state),
+                               os.path.join(ref_dir, f"m2_{tag}.pt"))
+                    continue
+                want, want_state = torch.load(os.path.join(
+                    ref_dir, f"m2_{name}.pt"))
+                tol = TF_TOL[dtype]
+                out[f"tf/{tag}"] = tf_gap(got, want, tol)
+                for k, v in state.items():      # by layer
+                    out[f"state/{tag}/{k}"] = tf_gap(
+                        v.flatten(1), want_state[k].flatten(1), tol)
+            torch.cuda.empty_cache()
+        del masters
+        torch.cuda.empty_cache()
+
+
+def _m2_split_rank(rank: int, store: str, out_dir: str, ref_dir: str) -> None:
+    """One rank of phase 31 on ``cuda:0``, in a gloo world of two: (a)
+    ``split×2`` training at M2_SPLIT_LAYERS layers in f32, batch
+    TP_BATCH x TRAIN_SEQ, one step: the loss and the gathered step-0
+    gradient against the unsharded process's (``ref_dir``), each leaf
+    within 1e-4 + 1e-4|x|; (b) the serving driver's meshed branch
+    (``--mesh 1x2``) at full depth in bf16 and in f32; (c) the
+    teacher-forced runs (:func:`_m2_tf_all`)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import sharding
+    from repro_torch.core.cost_model import StrategySpec
+    from repro_torch.core.planner import compile_plan, mesh_for_strategy
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.optim.optimizer import adamw
+    from repro_torch.tree import flatten
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    kernels = kernel_wrappers()
+    stats = {"s": 0.0, "n": 0}
+    time_collectives(torch, dist, stats)
+    out = {}
+    try:
+        strat = StrategySpec(tp=2)
+        model = _m2_model(torch, n_layers=M2_SPLIT_LAYERS, dtype="float32")
+        plan = compile_plan(model, mesh_for_strategy(strat), strat)
+        seen = {}
+        opt = adamw(lr=PP_LR)
+        real = opt.apply
+
+        def apply(grads, *a, **kw):
+            seen["g"] = grads
+            return real(grads, *a, **kw)
+
+        params = plan.init_params(0)
+        step = plan.train_step_fn(dataclasses.replace(opt, apply=apply))
+        batch = _first_batch(torch, model.cfg.vocab, TP_BATCH)
+        reset_counts(kernels)
+        s0, t0 = stats["s"], time.perf_counter()
+        _, _, m = step(params, plan.init_opt(opt, params), batch, 0)
+        torch.cuda.synchronize()
+        rec = {"seconds": time.perf_counter() - t0,
+               "gloo_s": stats["s"] - s0, "loss": float(m["loss"]),
+               "counts": read_counts(kernels),
+               "wz": list(params["blocks"]["p0"]["ssd"]["wz"].shape)}
+        want_loss, want = torch.load(os.path.join(ref_dir, "m2_train.pt"),
+                                     mmap=True)
+        worst = 0.0
+        for (k, g), spec in zip(zip(*flatten(seen.pop("g"))),
+                                flatten(plan.param_specs)[1]):
+            g = sharding.gather_leaf(g, spec, plan.rules)
+            worst = max(worst, check_close(f"mamba2 split x2 {k}", g,
+                                           want[k].cuda(), torch.float32,
+                                           1e-4))
+        check_close("mamba2 split x2 loss", torch.tensor(rec["loss"]),
+                    torch.tensor(want_loss), torch.float32, 1e-4)
+        rec["worst_grad"] = worst
+        rec["want_loss"] = want_loss
+        out["train"] = rec
+        del params, seen, want, plan
+        torch.cuda.empty_cache()
+
+        for tag, argv in (("bf16", M2_SERVE_ARGS), ("f32", M2_SERVE_F32)):
+            reset_counts(kernels)
+            s0 = stats["s"]
+            summary, server = serve.run(serve.parse_args(
+                argv + ["--mesh", "1x2"]))
+            out[f"serve/{tag}"] = {
+                **{k: summary[k] for k in ("completed", "tokens", "steps",
+                                           "seconds", "tokens_crc32",
+                                           "out_tokens")},
+                "gloo_s": stats["s"] - s0, "counts": read_counts(kernels),
+                "h": list(server.state["cache"]["p0"]["h"].shape)}
+            del server
+            torch.cuda.empty_cache()
+        _m2_tf_all(torch, lambda model: compile_plan(model, parse_mesh(
+            "1x2")), ref_dir, out)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def mamba2_split(torch) -> dict:
+    """Phase 31: mamba2 over ``model``.  Here first, unsharded: the 2-layer
+    f32 step-0 loss and gradient (a temporary file the ranks read by mmap),
+    the teacher-forced logits and prefill states of M2_TF with their
+    yardsticks, and the 2-layer f32 driver's tokens.  Then two ranks on
+    ``cuda:0`` over gloo (:func:`_m2_split_rank`).  Held: the split step's
+    loss and every gradient leaf within 1e-4 + 1e-4|x|; the served runs
+    complete, their SSD launches one per layer, prefill and rank, and
+    nothing else; the 2-layer f32 tokens equal the unsharded driver's;
+    teacher-forced logits and prefill states at 2 layers in f32 within
+    1e-4 + 1e-4|x|, at 48 layers within TF_PAIR times the yardstick of
+    M2_YARDSTICK (the worst share of the limit of 0.02 or 1e-4 by which the
+    unsharded run's own cast or one-ulp weights move them), and the
+    planted fault outside the f32 gates.  At 48 random layers a change of
+    one rounding grows by orders of magnitude (PERF.md): hence the
+    yardsticks, and a 2-layer run, where none is needed.  Returns the
+    launches of the split training step and of the bf16 served run,
+    summed over ranks."""
+    from repro_torch.core.planner import loss_and_grads
+    from repro_torch.launch import serve
+    from repro_torch.tree import flatten
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_m2_split_")
+    t00 = time.perf_counter()
+    try:
+        model = _m2_model(torch, n_layers=M2_SPLIT_LAYERS, dtype="float32")
+        loss, _, g = loss_and_grads(model, model.init(0),
+                                    _first_batch(torch, model.cfg.vocab,
+                                                 TP_BATCH))
+        torch.save((float(loss), {k: v.cpu() for k, v in
+                                  zip(*flatten(g))}),
+                   os.path.join(tmp, "m2_train.pt"))
+        del g, model
+        torch.cuda.empty_cache()
+        _m2_tf_all(torch, lambda model: None, tmp, None)
+        want = serve.main(M2_SERVE_F32)
+        torch.cuda.empty_cache()
+        yard = {}
+        for name, ref in M2_YARDSTICK.items():
+            a, b = (torch.load(os.path.join(tmp, f"m2_{n}.pt"))
+                    for n in (name, ref))
+            tol = TF_TOL[M2_TF[name][1]]
+            yard[f"tf/{name}"] = tf_gap(a[0], b[0], tol)
+            for k in a[1]:
+                yard[f"state/{name}/{k}"] = tf_gap(
+                    a[1][k].flatten(1), b[1][k].flatten(1), tol)
+            print(f"[mamba2-split] yardstick {name} (48 layers, unsharded, "
+                  f"against {ref}): logits max |diff| "
+                  f"{yard[f'tf/{name}']['max_abs']:.3e}, worst share of "
+                  f"{tol:g} + {tol:g}|x| {yard[f'tf/{name}']['worst']:.3f}; "
+                  f"by row {yard[f'tf/{name}']['rows']}", flush=True)
+            del a, b
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_m2_split_rank, tmp, timeout=500)
+        print(f"[mamba2-split] the unsharded references {t0 - t00:.1f} s; "
+              f"two ranks {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    fails = []
+    for r, o in enumerate(ranks):
+        t = o["train"]
+        if t["counts"]["xent_fwd"] != 1 or t["counts"]["ssd_scan"]:
+            fails.append(f"rank {r} split training: launches "
+                         f"{t['counts']}")
+        print(f"[mamba2-split] rank {r} split×2 training, {M2_SPLIT_LAYERS} "
+              f"layers f32 (wz {t['wz']}): loss {t['loss']:.6f} vs the "
+              f"unsharded {t['want_loss']:.6f}; every step-0 gradient leaf "
+              f"within 1e-4 + 1e-4|x| (max |diff| {t['worst_grad']:.3e}); "
+              f"step {t['seconds']:.3f} s, gloo {t['gloo_s']:.3f}; launches "
+              f"{t['counts']}", flush=True)
+        for tag, layers in (("bf16", 48), ("f32", 2)):
+            s = o[f"serve/{tag}"]
+            print(f"[mamba2-split] rank {r} serve --mesh 1x2 {tag}, "
+                  f"{layers} layers: {s['completed']} requests, "
+                  f"{s['tokens']} tokens, {s['steps']} steps in "
+                  f"{s['seconds']:.3f} s (gloo {s['gloo_s']:.3f}; ranks "
+                  f"time-slice one card), state h {s['h']} a rank; launches "
+                  f"{s['counts']}", flush=True)
+            wantc = dict.fromkeys(s["counts"], 0)
+            wantc["ssd_scan"] = layers * s["completed"]
+            if s["completed"] != 4 or s["counts"] != wantc:
+                fails.append(f"rank {r} serve {tag}: {s['completed']} "
+                             f"requests, launches {s['counts']}")
+        same, total = _same_tokens(o["serve/f32"]["out_tokens"],
+                                   want["out_tokens"])
+        print(f"[mamba2-split] rank {r} f32 tokens at 2 layers against the "
+              f"unsharded driver: {same} of {total} equal", flush=True)
+        if same != total:
+            fails.append(f"rank {r}: f32 tokens differ")
+        for key, gap in sorted(o.items()):
+            if not key.startswith(("tf/", "state/")):
+                continue
+            what, tag = key.split("/")[:2]
+            name = tag.removesuffix("_fault")
+            dtype = M2_TF[name][1]
+            ystick = yard.get(key.replace(tag, name, 1))
+            if ystick is None:
+                gate, line = 1.0, "the gate 1"
+            else:
+                gate = TF_PAIR * ystick["worst"]
+                line = (f"the yardstick {ystick['worst']:.3f}, the gate "
+                        f"{gate:.3f}")
+            beyond = gap["worst"] > gate
+            print(f"[mamba2-split] rank {r} {key} ({M2_TF[name][0]} "
+                  f"layers): max |diff| {gap['max_abs']:.3e}, worst share "
+                  f"of {TF_TOL[dtype]:g} + {TF_TOL[dtype]:g}|x| "
+                  f"{gap['worst']:.3f} ({line}): "
+                  f"{'beyond' if beyond else 'within'}", flush=True)
+            if tag.endswith("_fault"):
+                if what == "tf" and not beyond:
+                    fails.append(f"rank {r} {key}: the planted fault within "
+                                 f"{gate:.3f}")
+            elif beyond:
+                fails.append(f"rank {r} {key}: {gap['worst']:.3f} beyond "
+                             f"{gate:.3f}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+    def total(get):
+        return {k: sum(get(o)[k] for o in ranks)
+                for k in ranks[0]["train"]["counts"]}
+
+    return {"train_mamba2_split": total(lambda o: o["train"]["counts"]),
+            "serve_mamba2_split": total(lambda o: o["serve/bf16"]["counts"])}
+
+
 @contextlib.contextmanager
 def phase(name: str):
     t0 = time.perf_counter()
@@ -5381,7 +6325,7 @@ def main() -> None:
     with phase("uneven data parallelism (planned batch shares, 2 ranks)"):
         uneven_counts = uneven_dp(torch)
     torch.cuda.empty_cache()
-    with phase("tensor parallelism (split×2, full depth, 2 ranks)"):
+    with phase("tensor parallelism (split×2, 8 layers, 2 ranks)"):
         tp_counts = train_tp(torch)
     torch.cuda.empty_cache()
     with phase("replica×2{split×2} with ZeRO 0/1/3 (4 ranks)"):
@@ -5402,6 +6346,16 @@ def main() -> None:
     with phase("the MoE family (deepseek-moe-16b: serving at full depth, "
                "training, the expert split on 2 ranks)"):
         moe_counts = moe_family(torch, kernels)
+    torch.cuda.empty_cache()
+    with phase("the compressed cross-pod reduction over model shards and "
+               "ZeRO (4 ranks)"):
+        cb_counts = compressed_blocks(torch)
+    torch.cuda.empty_cache()
+    with phase("mamba2-1.3b training (full width and depth, one process)"):
+        m2_train_counts = mamba2_train(torch, kernels)
+    torch.cuda.empty_cache()
+    with phase("mamba2 over model (split×2 training and serving, 2 ranks)"):
+        m2_split_counts = mamba2_split(torch)
 
     meta = {
         "flash_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
@@ -5449,7 +6403,10 @@ def main() -> None:
                    "train_annotated_case2": wh_case2[name],
                    "train_annotated_case4": wh_case4[name],
                    "train_annotated_hetero": wh_hetero[name],
-                   **{path: c[name] for path, c in moe_counts.items()}}
+                   **{path: c[name] for path, c in moe_counts.items()},
+                   **{path: c[name] for path, c in cb_counts.items()},
+                   "train_mamba2": m2_train_counts[name],
+                   **{path: c[name] for path, c in m2_split_counts.items()}}
         table.append(dict(name=name, route="cuda", source=meta[name][0],
                           replaces=meta[name][1],
                           launches=sum(by_path.values()),

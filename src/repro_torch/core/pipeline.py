@@ -68,6 +68,8 @@ ENCDEC_SLICE = ("the encoder–decoder two-tower pipeline comes with "
 MOE_PIPELINE_SLICE = ("pipelining the 'moe' family (its experts' aux losses "
                       "carried between stages) comes with a later slice of "
                       "the port (ROADMAP.md queue A item 7)")
+SSM_PIPELINE_SLICE = ("pipelining the 'ssm' family comes with a later slice "
+                      "of the port (ROADMAP.md queue A item 7)")
 
 
 # ---------------------------------------------------------------------------
@@ -205,10 +207,11 @@ def stage_state(tree: dict, stage: int, stage_layers) -> dict:
 def _check_family(model) -> None:
     if model.cfg.family == "moe":
         raise NotImplementedError(MOE_PIPELINE_SLICE)
+    if model.cfg.family == "ssm":
+        raise NotImplementedError(SSM_PIPELINE_SLICE)
     if model.cfg.family != "dense":
         raise NotImplementedError(
-            f"pipelining the {model.cfg.family!r} family: only the dense "
-            f"family trains so far; {ENCDEC_SLICE}")
+            f"pipelining the {model.cfg.family!r} family: {ENCDEC_SLICE}")
 
 
 def _leaves(tree: dict) -> dict:

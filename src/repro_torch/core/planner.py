@@ -45,6 +45,14 @@ stages through the pipeline engine), and under ``pp == 1`` its per-group
 each rank by its token count (:meth:`ExecutionPlan.train_step_fn`), as it
 does for a ``loss_mask``.
 
+The compressed cross-pod reduction under a split or ZeRO: a plan compiled
+with ``compress_pod`` keeps ZeRO inside each pod (its data axes are
+``data`` alone; the pods are replicas, as in the reference's step, which
+is manual over ``pod`` with GSPMD splitting the rest inside), and each
+rank compresses its block of every leaf against the whole leaf's scale
+(the block's abs-max all-reduced over the axes the leaf is cut on).  So
+ZeRO-1 and ZeRO-3 hand the optimizer what ZeRO-0 does, bit for bit.
+
 Tensor parallelism and ZeRO (the paper's ``split``, and the optimizer
 state and parameters sharded over ``data``): the plan's
 :class:`~repro_torch.core.sharding.ShardingRules` are the reference's
@@ -65,8 +73,7 @@ only divides it.  ZeRO-1/2 keep AdamW's moments as this rank's slices
 and all-gather the updated parameter slice (zero 2 runs as zero 1, as in
 the reference); the clip norm sums each leaf's squares over the axes it
 is split over. Still refused, each naming its ROADMAP item: ZeRO with
-``compress_pod``, ZeRO with uneven batch shares, and adafactor over a
-split model.
+uneven batch shares, and adafactor over a split model.
 
 Serving (the reference's ``jit_prefill``, ``jit_serve_step``,
 ``jit_serve_step_paged``): :meth:`ExecutionPlan.prefill_fn`,
@@ -76,9 +83,8 @@ enter the plan's rules on every call and run without autograd; the decode
 states are laid out by the reference's :meth:`~ExecutionPlan.state_specs`
 and :meth:`~ExecutionPlan.paged_state_specs`, slots over the data axes
 (:meth:`~ExecutionPlan.slot_block`).  Refused, each naming its ROADMAP
-item: serving inside a pipeline, the ssm family over a model axis, the
-moe family over a mesh, ZeRO-3's data-sharded parameters, and decode in
-the ``repeat`` layout.
+item: serving inside a pipeline, the moe family over a mesh, ZeRO-3's
+data-sharded parameters, and decode in the ``repeat`` layout.
 
 The annotation API's entry points (the paper's Cases 1–5):
 :func:`strategy_from_taskgraph` reads the strategy off the scopes a
@@ -110,16 +116,10 @@ from repro_torch.tree import flatten, tree_map, unflatten
 # name, as ``repro.core`` does: reach the engine module itself
 pipe = importlib.import_module("repro_torch.core.pipeline")
 
-ZERO_COMPRESS_SLICE = ("ZeRO with compress_pod (the compressed cross-pod "
-                       "reduction of a data-sharded gradient) comes with a "
-                       "later slice of the port (ROADMAP.md queue A item 4)")
 ZERO_UNEVEN_SLICE = ("ZeRO with uneven batch shares comes with a later slice "
                      "of the port (ROADMAP.md queue A item 4)")
 PIPELINE_SERVE_SLICE = ("serving inside a pipeline (pp > 1) comes with a later "
                         "slice of the port (ROADMAP.md queue A item 4)")
-SSM_SPLIT_SERVE_SLICE = ("serving the ssm family over a model axis (the SSD "
-                         "mixer's split) comes with mamba2 training, a later "
-                         "slice of the port (ROADMAP.md queue A item 7)")
 ZERO3_SERVE_SLICE = ("serving parameters sharded over data (zero=3) comes "
                      "with a later slice of the port (ROADMAP.md queue A "
                      "item 4)")
@@ -246,17 +246,22 @@ class ExecutionPlan:
     strategy derived from it.  ``placement`` is the reference's: a
     :class:`~repro_torch.core.hetero.HeteroPlacement` on a mixed-hardware
     cluster, else ``None``.  On a mesh, ``rules`` and ``param_specs`` are
-    the reference's (``None`` without a mesh or a model)."""
+    the reference's (``None`` without a mesh or a model).
+    ``compress_pod``: the plan trains with the compressed cross-pod
+    reduction, so on a ``pod`` axis ZeRO shards over ``data`` alone
+    (:attr:`fsdp_axes`)."""
     model: object
     mesh: object
     strategy: StrategySpec
     placement: object = None
     rules: object = None
+    compress_pod: bool = False
 
     def __post_init__(self):
         if self.mesh is not None and self.rules is None:
             self.rules = sharding.rules_for_strategy(
-                mesh_shape(self.mesh), self.strategy, self.mesh)
+                mesh_shape(self.mesh), self.strategy, self.mesh,
+                fsdp_axes=self.fsdp_axes)
         self.param_specs = None
         if self.rules is not None and self.model is not None:
             self.param_specs = self._specs(self.model.axes(),
@@ -267,13 +272,23 @@ class ExecutionPlan:
     def pipelined(self) -> bool:
         return self.strategy.pp > 1
 
+    @property
+    def fsdp_axes(self) -> tuple:
+        """The data axes ZeRO shards over: ``pod`` and ``data``, or
+        ``data`` alone where the pods are replicas joined by the
+        compressed reduction."""
+        pods = (self.compress_pod and self.mesh is not None
+                and "pod" in self.mesh.mesh_dim_names)
+        return ("data",) if pods else ("pod", "data")
+
     def _specs(self, axes, shapes, *, fsdp: bool) -> dict:
         """The specs of a tree: the reference's ``staged_specs`` under a
         pipeline (its layers over ``stage``, nothing over the data axes),
         else ``param_specs_tree`` with the ZeRO extension where ``fsdp``."""
         if self.pipelined:
             return sharding.staged_specs(self.rules, axes, shapes)
-        return self.rules.param_specs_tree(axes, shapes, fsdp=fsdp)
+        return self.rules.param_specs_tree(axes, shapes, fsdp=fsdp,
+                                           fsdp_axes=self.fsdp_axes)
 
     @property
     def sharded(self) -> bool:
@@ -353,6 +368,9 @@ class ExecutionPlan:
 
     # ---- checkpoints of a sharded plan ----
     def _state_specs(self, state: dict, optimizer) -> dict:
+        """The specs of a training state; the compressor's error carry
+        ``err`` lies as the block it compresses, the parameter's (under
+        ZeRO-1 the whole leaf, under ZeRO-3 the data shard)."""
         specs = {"params": self.param_specs,
                  "opt": self.opt_specs(optimizer)}
         if "err" in state:
@@ -489,7 +507,8 @@ class ExecutionPlan:
         """``(params, opt_state, batch, step) → (params, opt_state,
         metrics)``, or with ``compress_pod`` (and a ``pod`` axis)
         ``(params, opt_state, batch, step, err) → (params, opt_state,
-        metrics, err)``.  ``batch`` is this rank's slice.  The optimizer
+        metrics, err)``, ``err`` in the parameters' layout.  ``batch`` is
+        this rank's slice.  The optimizer
         and the compressor update their state in place.  Metrics (with
         ``loss``) are the reference's: means over the global batch, the
         token count summed over it; with ``compress_pod`` the mean over
@@ -507,7 +526,14 @@ class ExecutionPlan:
         mean over pods follows as before, unweighted like the reference's
         ``pmean``, so uneven shares with ``compress_pod`` raise
         ``ValueError``.  A rank with no rows runs no forward: it adds zero
-        gradients and ``n_i = 0`` and joins every collective in order."""
+        gradients and ``n_i = 0`` and joins every collective in order.
+
+        ZeRO beside ``compress_pod``: ZeRO-1 compresses the parameter's
+        block of each gradient (the whole leaf but for a model split) and
+        its optimizer reads its slice of the result; ZeRO-3 compresses the
+        data shard its reduce-scatter left.  ZeRO-3 needs the plan
+        compiled with ``compress_pod`` (its parameters sharded inside the
+        pod), else ``ValueError``."""
         model = self.model
         M = micro_batches or self.strategy.micro_batches or 1
         data_g, pod_g = self._group("data"), self._group("pod")
@@ -522,8 +548,11 @@ class ExecutionPlan:
                 f"pods (the reference's pmean), which would weight the "
                 f"pods' tokens unevenly")
         zero = self.strategy.zero if self.sharded else 0
-        if zero and compress:
-            raise NotImplementedError(ZERO_COMPRESS_SLICE)
+        if compress and zero >= 3 and not self.compress_pod:
+            raise ValueError(
+                "zero=3 with compress_pod: compile the plan with "
+                "compress_pod=True, so that the parameters are sharded over "
+                "data inside each pod and the pods stay replicas")
         if self.sharded and optimizer.name == "adafactor":
             raise NotImplementedError(ADAFACTOR_SPLIT_SLICE)
         for r in set(rows or ()) - {0}:
@@ -624,13 +653,19 @@ class ExecutionPlan:
         if compress:
             from repro_torch.optim import grad_compress
 
+            # per leaf, the groups its block is cut over inside the pod
+            split_groups = None if specs is None else tree_map(
+                lambda spec: tuple(
+                    self._group(a) for e in spec for a in sharding._axes(e)
+                    if self.rules.shape[a] > 1), specs)
+
             def step_fn(params, opt_state, batch, step, comp_err):
                 g, metrics = grads_and_metrics(params, batch)
                 # cross-pod reduction with int8 error feedback (explicit,
-                # as in the reference; the in-pod mean is already taken);
-                # with a model axis each rank compresses its shards
+                # as in the reference; the in-pod mean is already taken):
+                # each rank compresses its block against its leaf's scale
                 g, comp_err = grad_compress.compressed_psum_tree(
-                    g, pod_g, comp_err, mean=True)
+                    g, pod_g, comp_err, mean=True, split_groups=split_groups)
                 params, opt_state = update(g, opt_state, params, step)
                 return params, opt_state, metrics, comp_err
 
@@ -691,8 +726,11 @@ class ExecutionPlan:
         shape = mesh_shape(self.mesh) if self.mesh is not None else None
         parts = [f"mesh {shape}"]
         if st.model_parallel > 1:
-            parts.append(f"split×{st.model_parallel} over model (heads, MLP "
-                         f"columns{', vocab' if st.vocab_split else ''})")
+            what = ("SSD heads" if self.model is not None
+                    and self.model.cfg.family == "ssm"
+                    else "heads, MLP columns")
+            parts.append(f"split×{st.model_parallel} over model ({what}"
+                         f"{', vocab' if st.vocab_split else ''})")
         if st.pp > 1:
             parts.append(f"pipeline×{st.pp} over stage, stage layers "
                          f"{tuple(stage_layers or self.stage_layers())}")
@@ -773,9 +811,6 @@ class ExecutionPlan:
         if self.model.cfg.family == "moe" and self.mesh is not None \
                 and self.mesh.size() > 1:
             raise NotImplementedError(MOE_SERVE_SLICE)
-        if self.model.cfg.family != "dense" \
-                and self.strategy.model_parallel > 1:
-            raise NotImplementedError(SSM_SPLIT_SERVE_SLICE)
         if self.sharded and self.strategy.zero >= 3:
             raise NotImplementedError(ZERO3_SERVE_SLICE)
         return self.rules if self.mesh is not None else None
@@ -882,7 +917,8 @@ def strategy_from_taskgraph(cluster) -> StrategySpec:
 
 def compile_plan(model, mesh, strategy: StrategySpec | None = None, *,
                  cluster_spec=None, workload_meta=None, placement=None,
-                 overlap: float = 0.0) -> ExecutionPlan:
+                 overlap: float = 0.0,
+                 compress_pod: bool = False) -> ExecutionPlan:
     """model + mesh (+ strategy) → :class:`ExecutionPlan`.  Without a
     strategy it is read off the mesh as the reference does: dp = pod ×
     data, tp = model, pp = stage.  ``mesh=None`` is one device.  A
@@ -896,7 +932,9 @@ def compile_plan(model, mesh, strategy: StrategySpec | None = None, *,
     ``overlap``): its stage layers and batch shares are what the plan
     executes.  A caller's own ``placement`` passes through unchanged.  A
     homogeneous or absent spec, or no ``workload_meta``, leaves
-    ``placement`` ``None``: the plan of the spec-less call."""
+    ``placement`` ``None``: the plan of the spec-less call.
+    ``compress_pod``: the plan trains with the compressed cross-pod
+    reduction (:class:`ExecutionPlan`)."""
     if strategy is None:
         shape = mesh_shape(mesh) if mesh is not None else {}
         strategy = StrategySpec(dp=shape.get("pod", 1) * shape.get("data", 1),
@@ -915,7 +953,7 @@ def compile_plan(model, mesh, strategy: StrategySpec | None = None, *,
         placement = plan_placement(workload_meta, strategy, cluster_spec,
                                    overlap=overlap)
     plan = ExecutionPlan(model=model, mesh=mesh, strategy=strategy,
-                         placement=placement)
+                         placement=placement, compress_pod=compress_pod)
     rows = plan.replica_rows()
     if strategy.zero and rows is not None and len(set(rows)) > 1:
         raise NotImplementedError(f"zero={strategy.zero} with the batch "

@@ -174,16 +174,19 @@ def use_rules(rules: ShardingRules | None):
 # canonical rule sets
 # ---------------------------------------------------------------------------
 
-def hybrid_rules(shape: dict, *, fsdp: bool = True,
-                 mesh=None) -> ShardingRules:
+def hybrid_rules(shape: dict, *, fsdp: bool = True, mesh=None,
+                 fsdp_axes: tuple | None = None) -> ShardingRules:
     """Whale's Case-2 hybrid, the reference's rule set: the batch over the
     data axes (pod-major), the tensor-parallel dims (heads, MLP columns,
     experts, vocab, SSM heads) over ``model``, the decode KV cache's
     sequence over ``model``, and under ZeRO-3 (``fsdp``) a parameter dim
     over the data axes (:meth:`ShardingRules.param_spec`).  ``shape`` is
-    the mesh's {axis: size}.  The reference's context-parallel and
-    expert-axis variants have no caller in the port."""
+    the mesh's {axis: size}; ``fsdp_axes`` narrows the data axes ZeRO-3
+    shards over (default all of them).  The reference's context-parallel
+    and expert-axis variants have no caller in the port."""
     data_axes = tuple(a for a in ("pod", "data") if a in shape)
+    fa = data_axes if fsdp_axes is None else tuple(
+        a for a in fsdp_axes if a in shape)
     rules = {
         "batch": (data_axes if len(data_axes) > 1
                   else (data_axes[0] if data_axes else None)),
@@ -202,7 +205,7 @@ def hybrid_rules(shape: dict, *, fsdp: bool = True,
         "layers": None,
         "q_seq": None,
         "kv_seq": ("model",),
-        "fsdp": data_axes if fsdp else None,
+        "fsdp": fa if fsdp else None,
     }
     return ShardingRules(shape=dict(shape), rules=rules, mesh=mesh)
 
@@ -231,10 +234,13 @@ def within_stage(specs):
     return tuple(None if e == "stage" else e for e in specs)
 
 
-def rules_for_strategy(shape: dict, strat, mesh=None) -> ShardingRules:
+def rules_for_strategy(shape: dict, strat, mesh=None,
+                       fsdp_axes: tuple | None = None) -> ShardingRules:
     """The plan's rules (``repro/core/planner.py::rules_for_strategy``):
-    ZeRO-3 turns FSDP on; without ``vocab_split`` the vocab stays whole."""
-    rules = hybrid_rules(shape, fsdp=strat.zero >= 3, mesh=mesh)
+    ZeRO-3 turns FSDP on (over ``fsdp_axes``, default every data axis);
+    without ``vocab_split`` the vocab stays whole."""
+    rules = hybrid_rules(shape, fsdp=strat.zero >= 3, mesh=mesh,
+                         fsdp_axes=fsdp_axes)
     if not strat.vocab_split:
         rules.rules["vocab"] = None
     return rules
@@ -278,7 +284,8 @@ def fsdp_specs(model) -> dict | None:
     rules = current_rules()
     if rules is None or rules.mesh is None or not rules.fsdp_axes:
         return None
-    return rules.param_specs_tree(model.axes(), model.param_shapes())
+    return rules.param_specs_tree(model.axes(), model.param_shapes(),
+                                  fsdp_axes=rules.fsdp_axes)
 
 
 # ---------------------------------------------------------------------------

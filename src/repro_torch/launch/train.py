@@ -9,7 +9,10 @@ model over ``model`` (tensor parallelism: heads, MLP columns, whole
 experts of an MoE, the vocab-parallel embedding and loss head), and
 ``--compress-pod`` sends the cross-pod gradient reduction through the
 int8 error-feedback compressor (``optim/grad_compress.py``, the quant
-kernels).  A sharded run's
+kernels), each rank compressing its block of every leaf against the whole
+leaf's scale.  ``--zero N`` shards the optimizer state (1, 2) or also the
+parameters and gradients (3) over the data axes, inside each pod beside
+``--compress-pod``.  A sharded run's
 checkpoint is the reference's, gathered onto rank 0, which alone writes;
 on resume every rank reads it and keeps its blocks.
 
@@ -38,7 +41,10 @@ against the strategy's cost-model features and prints the calibration
 report at exit (fitted rates, the prediction error before and after the
 fit).  A :class:`~repro_torch.runtime.straggler.StragglerMonitor` watches
 every step's time and prints ``[straggler] flagged …`` on a sustained
-outlier.  An MoE (``--arch deepseek-moe-16b``) prints each step's
+outlier.  mamba2 (``--arch mamba2-1.3b``) trains through the
+differentiable chunked SSD scan, as the reference trains it; its tied
+head runs through the fused cross-entropy kernels.  An MoE
+(``--arch deepseek-moe-16b``) prints each step's
 ``moe_lb`` and ``moe_z`` (its load-balance and router z-losses, summed
 over the layers) beside the loss.
 
@@ -66,6 +72,13 @@ Usage::
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --smoke \
         --device cpu --mesh 2x2x1 --compress-pod --steps 3 --batch 4 \
         --seq 32 --ckpt-dir "$TMPDIR/ck"
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --smoke --device cpu --mesh 2x2x1 --compress-pod --zero 3 \
+        --steps 3 --batch 4 --seq 32 --ckpt-dir "$TMPDIR/zc"
+
+    python -m repro_torch.launch.train --arch mamba2-1.3b --batch 4 \
+        --seq 2048 --steps 4 --ckpt-dir /path/to/ckpt
 
     python -m repro_torch.launch.train --arch tinyllama-1.1b --smoke \
         --device cpu --steps 3 --batch 2 --seq 32 --ckpt-dir "$TMPDIR/ck"
@@ -168,6 +181,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--compress-pod", action="store_true",
                     help="int8 error-feedback compression of the cross-pod "
                          "gradient reduction (needs a pod axis)")
+    ap.add_argument("--zero", type=int, choices=(0, 1, 2, 3), default=0,
+                    help="ZeRO stage over the --mesh's data axes (beside "
+                         "--compress-pod: inside each pod)")
     ap.add_argument("--distributed", action="store_true",
                     help="require a torchrun world (RANK, WORLD_SIZE, "
                          "MASTER_ADDR, MASTER_PORT in the environment)")
@@ -208,6 +224,8 @@ def _refuse_later_slices(args) -> None:
     if args.auto and (args.mesh or args.pp > 1):
         raise SystemExit("--auto picks the layout itself: drop --mesh and "
                          "--pp")
+    if args.auto and args.zero:
+        raise SystemExit("--auto picks the ZeRO stage itself: drop --zero")
     if args.pp > 1 and args.mesh:
         raise SystemExit("--pp lays the ranks out itself (stage x data), "
                          "as the reference's --pp does: drop --mesh (a "
@@ -310,7 +328,8 @@ def _train(args, device: torch.device) -> dict:
                 f"stage count; have {n_dev} device(s)")
         strat = StrategySpec(dp=n_dev // args.pp, pp=args.pp,
                              micro_batches=args.micro_batches or 1,
-                             schedule=args.schedule or "gpipe")
+                             schedule=args.schedule or "gpipe",
+                             zero=args.zero)
         mesh = mesh_for_strategy(strat, device_type=device.type)
     elif not world:
         mesh = None
@@ -319,7 +338,12 @@ def _train(args, device: torch.device) -> dict:
     else:                              # the reference's default: all data
         mesh = make_mesh((dist.get_world_size(),), ("data",),
                          device_type=device.type)
-    plan = compile_plan(model, mesh, strategy=strat)
+    if strat is None and args.zero:
+        shape = mesh_shape(mesh) if mesh is not None else {}
+        strat = StrategySpec(dp=shape.get("pod", 1) * shape.get("data", 1),
+                             tp=shape.get("model", 1), zero=args.zero)
+    plan = compile_plan(model, mesh, strategy=strat,
+                        compress_pod=args.compress_pod)
     meta = graph.workload_meta()
     predicted = step_cost(meta, plan.strategy, hw)
     if args.auto or args.profile:

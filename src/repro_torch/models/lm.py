@@ -1,7 +1,8 @@
 """The LM: one config dataclass → {init, loss_fn, prefill, serve_step,
 serve_step_paged} for the dense and moe decoder families, and {init,
-prefill, serve_step} for the ssm family (mamba2: serving only so far); and
-the cost model's view of a config (:func:`model_graph`, pure arithmetic).
+loss_fn, prefill, serve_step} for the ssm family (mamba2, its embedding
+tied to its head); and the cost model's view of a config
+(:func:`model_graph`, pure arithmetic).
 
 The port's counterpart of ``repro.models.lm`` for training and serving.
 The loss head is chosen by device, as the reference's ``xent_impl``
@@ -318,20 +319,22 @@ class Model:
     def loss_fn(self, params: dict, batch: dict):
         """batch {"tokens": (B, S) int, optional "loss_mask": (B, S)} →
         (loss, metrics), as the reference's ``Model.loss_fn`` for the
-        dense and moe families: next-token nll plus the z-loss, both over
-        the masked token count, plus the experts' load-balance and router
-        z-losses summed over the layers (``moe_lb``, ``moe_z``; zero for
-        dense); the head cast to the activation dtype.  The loss head is
-        :func:`fused_xent` on the card and :func:`chunked_xent` on the
-        CPU.  The ssm family does not train yet (the SSD kernel is
-        forward only).
+        dense, moe and ssm families: next-token nll plus the z-loss, both
+        over the masked token count, plus the experts' load-balance and
+        router z-losses summed over the layers (``moe_lb``, ``moe_z``;
+        zero without experts); the head cast to the activation dtype.  The
+        loss head is :func:`fused_xent` on the card and
+        :func:`chunked_xent` on the CPU.  mamba2's SSD mixer trains
+        through the differentiable chunked scan (the reference's default
+        ``ssd_impl``; the SSD kernel is forward only), and its tied head's
+        gradient adds to the embedding table's.
 
         Under sharding rules ``params`` are this rank's blocks; under
         ZeRO-3 the leaves outside the stack are gathered over the data
         axes here, the stack's repeat by repeat in
         :func:`~repro_torch.models.transformer.apply_stack`."""
         cfg = self.cfg
-        if cfg.family not in ("dense", "moe"):
+        if cfg.family not in ("dense", "moe", "ssm"):
             raise NotImplementedError(
                 f"training the {cfg.family!r} family is not ported yet")
         specs = sharding.fsdp_specs(self)
@@ -367,10 +370,13 @@ class Model:
         labels ``tokens[:, 1:]``; the head is vocab-parallel where the
         rules split the vocab.  Reads
         only ``final_norm`` and the head (``embed`` when tied) of
-        ``params``, so a pipeline's last stage calls it too."""
+        ``params``, so a pipeline's last stage calls it too.  A tied
+        head, ``embed/table``ᵀ, is made contiguous in the same pass that
+        casts it (the fused kernel reads (E, Vp) rows)."""
         cfg = self.cfg
         x = layers.rmsnorm(params["final_norm"], x)
-        head_w = self._head_w(params).to(cfg.adtype)
+        head_w = self._head_w(params).to(
+            cfg.adtype, memory_format=torch.contiguous_format).contiguous()
         labels = tokens[:, 1:]
         split = sharding.split_of("vocab", cfg.padded_vocab)
         impl = self.xent_impl or ("fused" if x.device.type == "cuda"

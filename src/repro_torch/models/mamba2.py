@@ -13,8 +13,20 @@ its plain version on the CPU, as the reference's ``impl="pallas"`` does —
 and can return the exact decode state after each prompt's last real
 token, which the reference's prefill does not (``repro/models/lm.py``,
 ``TODO(ssm prefill)``).  :func:`ssd_scan` is the reference's chunked form
-in plain PyTorch, which training differentiates (the kernel is forward
-only).
+in plain PyTorch, which training differentiates, as the reference trains
+through it (its ``ssd_impl`` defaults to ``"ref"``; neither package's
+kernel has a backward).
+
+Tensor parallelism (the reference's rules: ``ssm_heads`` over ``model``):
+under sharding rules that split the heads, a rank holds its heads' blocks
+of ``wz``, ``wx``, ``wdt``, ``dt_bias``, ``A_log``, ``D_skip``, ``conv_x``,
+``norm_scale`` and ``wo``, and ``wB``/``wC`` whole (one group, shared by
+every head).  The heads' products are column-parallel (their input's
+gradient summed over ``model``), ``B`` and ``C`` are computed whole on
+every rank and their gradients summed over ``model`` (each rank's heads
+add a part), the gated norm's sum of squares over (H, P) is all-reduced,
+its gradient too, and ``wo`` is row-parallel (its output summed), where
+GSPMD places the same collectives in the reference.
 """
 from __future__ import annotations
 
@@ -23,6 +35,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import sharding
 from repro_torch.kernels.ssd import ssd_scan as ssd_kernel
 from repro_torch.models import layers
 
@@ -92,12 +105,25 @@ def _causal_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def sum_over_heads(t: torch.Tensor, split) -> torch.Tensor:
+    """``t``, a partial sum over this rank's heads, summed over the
+    split's group; its gradient is summed too (every rank's heads read the
+    total)."""
+    return sharding.reduce_from(sharding.copy_to(t, split), split)
+
+
 def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                   eps: float = 1e-6) -> torch.Tensor:
-    """Mamba2's gated norm over the full d_inner = (H, P) dims."""
+                   eps: float = 1e-6, split=None) -> torch.Tensor:
+    """Mamba2's gated norm over the full d_inner = (H, P) dims; with the
+    heads split, over every rank's heads (:func:`sum_over_heads`)."""
     g = y * F.silu(z.float()).to(y.dtype)
     gf = g.float()
-    var = torch.mean(gf * gf, dim=(-2, -1), keepdim=True)
+    if split is None:
+        var = torch.mean(gf * gf, dim=(-2, -1), keepdim=True)
+    else:
+        ss = sum_over_heads((gf * gf).sum(dim=(-2, -1), keepdim=True),
+                            split)
+        var = ss / (gf.shape[-2] * split.n * gf.shape[-1])
     return (gf * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
 
 
@@ -155,56 +181,62 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return (y_diag + y_off).reshape(Bsz, S, H, P), h
 
 
-def _project(params: dict, x: torch.Tensor, cfg: SSDCfg):
+def _project(params: dict, x: torch.Tensor, split=None):
     """x (..., D) → z, xi (..., H, P), Bm, Cm (..., G, N) in the activation
-    dtype, and dt (..., H) in f32 after its softplus."""
-    H, P, G, N = cfg.n_heads, cfg.headdim, cfg.ngroups, cfg.d_state
+    dtype, and dt (..., H) in f32 after its softplus; H is this rank's
+    heads where ``split`` splits them."""
     lead = x.shape[:-1]
+    xs = sharding.copy_to(x, split)    # the heads' column-parallel input
 
-    def proj(w, *shape):
-        return (x @ w.to(x.dtype).reshape(x.shape[-1], -1)).reshape(
-            *lead, *shape)
+    def proj(inp, w):
+        return (inp @ w.to(x.dtype).reshape(x.shape[-1], -1)).reshape(
+            *lead, *w.shape[1:])
 
-    z = proj(params["wz"], H, P)
-    xi = proj(params["wx"], H, P)
-    Bm = proj(params["wB"], G, N)
-    Cm = proj(params["wC"], G, N)
-    dt = F.softplus(x.float() @ params["wdt"].float()
+    z = proj(xs, params["wz"])
+    xi = proj(xs, params["wx"])
+    Bm = sharding.copy_to(proj(x, params["wB"]), split)
+    Cm = sharding.copy_to(proj(x, params["wC"]), split)
+    dt = F.softplus(xs.float() @ params["wdt"].float()
                     + params["dt_bias"].float())
     return z, xi, Bm, Cm, dt
 
 
 def _output(params: dict, y: torch.Tensor, xi: torch.Tensor,
-            z: torch.Tensor, dtype) -> torch.Tensor:
+            z: torch.Tensor, dtype, split=None) -> torch.Tensor:
     """The skip, the gated norm and the out-projection: y (..., H, P) in
-    f32 → (..., D) in ``dtype``."""
+    f32 → (..., D) in ``dtype`` (row-parallel over a split's heads)."""
     y = y.to(dtype) + params["D_skip"].to(dtype)[:, None] * xi
-    y = _gated_rmsnorm(y, z, params["norm_scale"]).to(dtype)
+    y = _gated_rmsnorm(y, z, params["norm_scale"], split=split).to(dtype)
     wo = params["wo"].to(dtype)
-    return y.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
+    return sharding.reduce_from(y.flatten(-2) @ wo.reshape(-1, wo.shape[-1]),
+                                split)
 
 
 def ssd_block(params: dict, x: torch.Tensor, cfg: SSDCfg,
               last_idx: torch.Tensor | None = None,
-              return_state: bool = False):
+              return_state: bool = False, differentiable: bool = False):
     """The mamba2 mixer. x: (B, S, D) → (B, S, D), and with
     ``return_state`` the decode state ``{"h": (B, H, P, N) f32, "conv":
-    (B, d_conv − 1, H, P)}`` after position ``last_idx`` (B,) (default
-    S − 1).  dt is zeroed past ``last_idx``, so pad positions leave the
-    state as it is (``exp(0·A) = 1``, ``0·x = 0``) and real positions'
-    outputs do not change; ``conv`` holds the pre-conv inputs at
+    (B, d_conv − 1, H, P)}`` (this rank's heads) after position
+    ``last_idx`` (B,) (default S − 1).  The scan is the SSD kernel, or
+    with ``differentiable`` (training) :func:`ssd_scan`.  dt is zeroed
+    past ``last_idx``, so pad positions leave the state as it is
+    (``exp(0·A) = 1``, ``0·x = 0``) and real positions' outputs do not
+    change; ``conv`` holds the pre-conv inputs at
     ``last_idx − d_conv + 2 … last_idx`` (zeros before position 0), as
     :func:`ssd_decode_step` keeps them."""
     B, S, _ = x.shape
-    z, xi_pre, Bm, Cm, dt = _project(params, x, cfg)
+    split = sharding.split_of("ssm_heads", cfg.n_heads)
+    z, xi_pre, Bm, Cm, dt = _project(params, x, split)
     xi = F.silu(_causal_conv(xi_pre, params["conv_x"].to(x.dtype)))
     if last_idx is not None:
         pos = torch.arange(S, device=x.device)
         dt = torch.where(pos[None, :, None] > last_idx[:, None, None],
                          torch.zeros_like(dt), dt)
     A = -torch.exp(params["A_log"].float())
-    y, h = ssd_kernel(xi, dt, A, Bm, Cm, chunk=min(cfg.chunk, S))
-    out = _output(params, y, xi, z, x.dtype)
+    scan = ssd_scan if differentiable else ssd_kernel
+    y, h = scan(xi, dt, A, Bm, Cm, chunk=min(cfg.chunk, S))
+    out = _output(params, y, xi, z, x.dtype, split)
     if not return_state:
         return out
     W = cfg.d_conv - 1
@@ -243,9 +275,10 @@ def axes_ssd_state() -> dict:
 
 def ssd_decode_step(params: dict, x: torch.Tensor, state: dict,
                     cfg: SSDCfg) -> torch.Tensor:
-    """x: (B, D), one token → y (B, D); ``state`` ({"h", "conv"}) is
-    advanced in place."""
-    z, xi, Bm, Cm, dt = _project(params, x, cfg)
+    """x: (B, D), one token → y (B, D); ``state`` ({"h", "conv"}, this
+    rank's heads) is advanced in place."""
+    split = sharding.split_of("ssm_heads", cfg.n_heads)
+    z, xi, Bm, Cm, dt = _project(params, x, split)
     # the rolling causal conv over the last d_conv pre-conv inputs
     hist = torch.cat([state["conv"], xi[:, None].to(state["conv"].dtype)],
                      dim=1)                                       # (B,W,H,P)
@@ -255,11 +288,11 @@ def ssd_decode_step(params: dict, x: torch.Tensor, state: dict,
     state["conv"].copy_(hist[:, 1:])
 
     A = -torch.exp(params["A_log"].float())
-    rep = cfg.n_heads // cfg.ngroups
+    rep = xi.shape[1] // Bm.shape[1]
     Bh = Bm.repeat_interleave(rep, dim=1).float()                 # (B,H,N)
     Ch = Cm.repeat_interleave(rep, dim=1).float()
     h = state["h"]
     h.mul_(torch.exp(dt * A)[..., None, None]).add_(
         dt[..., None, None] * Bh[:, :, None, :] * xi[..., None].float())
     y = torch.einsum("bhpn,bhn->bhp", h, Ch)
-    return _output(params, y, xi, z, x.dtype)
+    return _output(params, y, xi, z, x.dtype, split)

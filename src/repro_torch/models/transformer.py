@@ -9,7 +9,9 @@ Each block: a pre-norm mixer (attention | SSD) and, unless ``mlp`` is
 (:mod:`repro_torch.models.moe`), with residual connections.  Ported
 patterns so far: dense (attention + MLP), MoE (attention + experts, with
 dense blocks between where ``moe_every`` > 1) and mamba2 (SSD, no MLP).
-The stack sums the experts' aux losses over its layers.
+The stack sums the experts' aux losses over its layers.  Each mixer runs
+under the plan's rules: attention head-parallel, the SSD mixer split over
+its heads (:mod:`repro_torch.models.mamba2`), in training and decode.
 
 Under ZeRO-3 (:func:`repro_torch.core.sharding.fsdp_specs`) each repeat's
 slices of the parameters are gathered over the data axes inside its
@@ -148,12 +150,15 @@ def _mlp_out(params: dict, h: torch.Tensor, cfg: BlockCfg):
 def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
                 cfg: BlockCfg, *, return_state: bool = False,
                 bwd_remat: bool = False,
-                last_idx: torch.Tensor | None = None):
+                last_idx: torch.Tensor | None = None,
+                train: bool = False):
     """x: (B, S, E) → (x', aux, state-or-None); aux is the experts'
     ``lb_loss`` and ``z_loss`` (zero without experts).  With
     ``return_state`` the block's decode state comes back: the roped
     ``{"k", "v"}`` (B, S, K, D) of attention, or the SSD's ``{"h",
-    "conv"}`` after position ``last_idx``."""
+    "conv"}`` after position ``last_idx``.  ``train``: the SSD mixer scans
+    through the differentiable chunked form, not its forward-only
+    kernel."""
     h = layers.rmsnorm(params["norm1"], x)
     state = None
     if cfg.mixer == "attn":
@@ -164,7 +169,8 @@ def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
             state = {"k": k, "v": v}
     else:
         out = mamba2.ssd_block(params["ssd"], h, cfg.ssd, last_idx=last_idx,
-                               return_state=return_state)
+                               return_state=return_state,
+                               differentiable=train)
         if return_state:
             out, state = out
     x = x + out
@@ -203,8 +209,9 @@ def _remat_wrap(fn, mode: str):
 
 def apply_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
                 stack: StackCfg, specs: dict | None = None):
-    """x: (B, S, E) → (x', summed aux).  One checkpoint per pattern
-    repeat under ``stack.remat``.  ``specs`` (ZeRO-3: the stacked leaves'
+    """x: (B, S, E) → (x', summed aux), the training forward (an SSD
+    mixer scans through :func:`~repro_torch.models.mamba2.ssd_scan`).
+    One checkpoint per pattern repeat under ``stack.remat``.  ``specs`` (ZeRO-3: the stacked leaves'
     specs) gathers each repeat's slices inside its checkpoint."""
     rules = sharding.current_rules()
 
@@ -219,7 +226,8 @@ def apply_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
             aux = _zero_aux(x.device)
             for i, bcfg in enumerate(stack.pattern):
                 x, a, _ = apply_block(rep_params[f"p{i}"], x, positions,
-                                      bcfg, bwd_remat=stack.attn_bwd_remat)
+                                      bcfg, bwd_remat=stack.attn_bwd_remat,
+                                      train=True)
                 aux = {k: aux[k] + a[k] for k in aux}
         return x, aux
 

@@ -29,6 +29,15 @@ Around the collectives it runs three fused kernels of ``csrc/quant.cu``
 on CPU tensors their plain versions.  :func:`compressed_psum_plain` is the
 same function op by op through ``quantize`` and ``dequantize`` (the tests'
 and ``chip_smoke.py``'s yardstick, equal bit for bit).
+
+A rank may hold only a block of a leaf: a shard over ``model`` or a ZeRO
+slice or shard over ``data``.  The reference compresses in a ``shard_map``
+manual over ``pod`` alone, with GSPMD splitting the other axes inside, so
+its scale is ``max|x|`` over the pod's whole leaf.  ``split_groups``
+names the groups a block is cut over: the block's abs-max is all-reduced
+(MAX) over them before the pod's, so every block quantizes against its
+whole leaf's scale.  A maximum is exact, so the result does not depend on
+how the leaf is cut.
 """
 from __future__ import annotations
 
@@ -67,7 +76,8 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def compressed_psum(x: torch.Tensor, group=None,
-                    err: torch.Tensor | None = None, *, mean: bool = True):
+                    err: torch.Tensor | None = None, *, mean: bool = True,
+                    split_groups: tuple = ()):
     """Error-feedback int8 all-reduce of ``x`` over ``group`` (``None``:
     the default group).  Returns (reduced tensor in x's dtype, new f32
     error).
@@ -75,19 +85,29 @@ def compressed_psum(x: torch.Tensor, group=None,
     Every rank quantises with its own scale; the int8 values are
     requantised against the largest scale in the group, so their int32 sum
     times that scale is the sum up to int8 resolution, and the residual of
-    both quantisations goes to the error carry.  On the card x and err
-    must be contiguous.
+    both quantisations goes to the error carry.  Where ``x`` is a block of
+    a leaf cut over ``split_groups``, its scale is the whole leaf's (their
+    MAX).  On the card x and err must be contiguous.
     """
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     new_err = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    _psum_into(x, group, err, out, new_err, mean)
+    _psum_into(x, group, err, out, new_err, mean, split_groups)
     return out, new_err
 
 
-def _psum_into(x, group, err, out, err_out, mean: bool) -> None:
+def _leaf_max(s: torch.Tensor, split_groups) -> torch.Tensor:
+    """A block's scale ``s`` made its whole leaf's, in place: the MAX over
+    the groups the leaf is cut over."""
+    for g in split_groups:
+        dist.all_reduce(s, op=dist.ReduceOp.MAX, group=g)
+    return s
+
+
+def _psum_into(x, group, err, out, err_out, mean: bool,
+               split_groups=()) -> None:
     """:func:`compressed_psum` of x, written into out and err_out (which
     may be x and err)."""
-    s = ef_absmax(x, err)
+    s = _leaf_max(ef_absmax(x, err), split_groups)
     smax = s.clone()
     dist.all_reduce(smax, op=dist.ReduceOp.MAX, group=group)
     total, _ = ef_requant(x, err, s, smax, err_out)
@@ -99,15 +119,22 @@ def _psum_into(x, group, err, out, err_out, mean: bool) -> None:
 
 def compressed_psum_plain(x: torch.Tensor, group=None,
                           err: torch.Tensor | None = None, *,
-                          mean: bool = True):
+                          mean: bool = True, split_groups: tuple = ()):
     """:func:`compressed_psum` op by op, through ``quantize`` and
     ``dequantize`` (their kernels on the card).  The order of operations
     is the reference's; ``q·scale`` is computed once and used where the
-    reference computes it three times (the same values)."""
+    reference computes it three times (the same values).  A block cut over
+    ``split_groups`` is quantized again, op by op, against its leaf's
+    scale where that is larger than its own."""
     xf = x.float()
     if err is not None:
         xf = xf + err
     q, scale, deq = _encode(xf)
+    if split_groups:
+        scale = _leaf_max(scale.reshape(1).clone(), split_groups)[0]
+        r = torch.round(xf / scale).clamp_(-127, 127).nan_to_num_(0.0)
+        q = r.to(torch.int8)
+        deq = dequantize_int8(q, scale)
     smax = scale.clone()
     dist.all_reduce(smax, op=dist.ReduceOp.MAX, group=group)
     # a NaN becomes 0, as XLA's float-to-int conversion makes it
@@ -138,14 +165,19 @@ def init_error_tree(params: dict) -> dict:
 
 
 def compressed_psum_tree(grads: dict, group, err_tree: dict, *,
-                         mean: bool = True):
+                         mean: bool = True, split_groups: dict | None = None):
     """:func:`compressed_psum` over every leaf, in the reference's leaf
     order (sorted key paths); returns (reduced grads, new error tree).
+    ``split_groups``: a tree like ``grads`` holding, per leaf, the tuple
+    of groups its block is cut over (``None``: every leaf whole).
 
     Unlike the reference, which returns new trees, the results are written
     into ``grads`` and ``err_tree`` in place (the trees returned are those
     two): at tinyllama-1.1b's size that saves two 4.4 GB f32 trees, and
     each leaf's temporaries are freed before the next leaf starts."""
-    for g, e in zip(flatten(grads)[1], flatten(err_tree)[1]):
-        _psum_into(g, group, e, g, e, mean)
+    leaves = flatten(grads)[1]
+    over = (flatten(split_groups)[1] if split_groups is not None
+            else [()] * len(leaves))
+    for g, e, sg in zip(leaves, flatten(err_tree)[1], over):
+        _psum_into(g, group, e, g, e, mean, sg)
     return grads, err_tree

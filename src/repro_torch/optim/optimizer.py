@@ -66,9 +66,12 @@ def _sched(lr) -> Callable:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt(Σ g²) over every leaf, in f32 (a 0-d tensor)."""
+    """sqrt(Σ g²) over every leaf, a 0-d f32 tensor; the squares are summed
+    in f64, as :func:`sharded_global_norm` sums them, so a ZeRO run (whose
+    leaves may be cut) clips as the same run without ZeRO does."""
     leaves = flatten(tree)[1]
-    return torch.sqrt(sum(torch.sum(g.float().square()) for g in leaves))
+    return torch.sqrt(sum(torch.sum(g.float().square(), dtype=torch.float64)
+                          for g in leaves)).float()
 
 
 def sharded_global_norm(grads, specs, rules) -> torch.Tensor:

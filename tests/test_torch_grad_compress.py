@@ -37,6 +37,18 @@ reference's step they agree within ``0.02·lr`` wherever the two handed
 gradients agree to 1%.  AdamW's first update is ``lr·g/(|g|+ε)``, about
 ``lr·sign(g)``, so where they do not (a flipped int8 value on a small
 element) a parameter may move by up to ``2·lr``; at most 1% may.
+
+Blocks of leaves (one more spawn of 4 gloo ranks): at pod 2 × model 2
+each rank compresses its model shard of every leaf; the pods' in-pod
+gradients, gathered whole, go through the reference's
+``compressed_psum_tree`` under ``jax.vmap`` over ``pod`` (its scale is
+the whole leaf's abs-max), and the step's handed gradient and error carry
+agree within the quanta above (a scale per shard, the old code, fails
+this).  At pod 2 × data 2, compressed ZeRO-1 and ZeRO-3 equal compressed
+ZeRO-0 bit for bit over three steps, error carry included, and each
+level's checkpoint restores into every level's blocks bit for bit; the
+driver's ``--zero`` beside ``--compress-pod`` under ``torchrun`` trains
+and resumes across levels.
 """
 import dataclasses
 import json
@@ -415,9 +427,9 @@ def _rank_main(rank: int, world: int, store: str, ref_path: str,
     seen = {}
     real_tree = gc.compressed_psum_tree
 
-    def spy_tree(grads, group, err_tree, *, mean=True):
+    def spy_tree(grads, group, err_tree, **kw):
         seen["inpod"] = {k: v.clone() for k, v in zip(*flatten(grads))}
-        return real_tree(grads, group, err_tree, mean=mean)
+        return real_tree(grads, group, err_tree, **kw)
 
     gc.compressed_psum_tree = spy_tree
     try:
@@ -782,3 +794,234 @@ def test_torchrun_data_parallel_matches_one_device(tmp_path):
         # by far less than 1e-3 at this size
         tol = TOLS["float32"].grad if not extra else 1e-3
         np.testing.assert_allclose(got, one, atol=tol + 5e-5, rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# the compressed reduction over blocks: model shards and ZeRO (4 gloo ranks)
+# ---------------------------------------------------------------------------
+
+BLK_B, BLK_S = 8, 32           # the global batch of the block cases
+BLK_STEPS = 3
+ZEROS = (0, 1, 3)
+
+
+def _blk_cfg():
+    return dataclasses.replace(get_config(ARCH, smoke=True), n_kv_heads=2)
+
+
+def _blk_plan(model, strat):
+    from repro_torch.core.planner import mesh_for_strategy
+    return planner.compile_plan(
+        model, mesh_for_strategy(strat, pods=2, device_type="cpu"), strat,
+        compress_pod=True)
+
+
+def _spy_opt(seen: dict):
+    """AdamW whose ``apply`` keeps the gradient it is handed at step 0."""
+    opt = adamw(lr=LR)
+    real_apply = opt.apply
+
+    def apply(grads, state, p, step, **kw):
+        if step == 0:
+            seen["handed"] = {k: v.clone() for k, v in zip(*flatten(grads))}
+        return real_apply(grads, state, p, step, **kw)
+
+    return dataclasses.replace(opt, apply=apply)
+
+
+def _np_state(tree) -> dict:
+    return {k: v.detach().numpy().copy() for k, v in zip(*flatten(tree))}
+
+
+def _blocks_main(rank: int, world: int, store: str, out_dir: str) -> None:
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.core import sharding
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    cfg = _blk_cfg()
+    tokens = torch.tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (BLK_B, BLK_S)).astype(np.int32))
+    res, meta = {}, {"losses": {}, "restored": {}}
+
+    # ZeRO 0/1/3 at pod 2 x data 2, three compressed steps each
+    plans, opts, whole = {}, {}, {}
+    for z in ZEROS:
+        model = Model(cfg, "cpu")
+        strat = StrategySpec(dp=4, zero=z)
+        plan = _blk_plan(model, strat)
+        seen = {}
+        opt = _spy_opt(seen)
+        params = plan.init_params(0)
+        state = {"params": params, "opt": plan.init_opt(opt, params),
+                 "err": gc.init_error_tree(params)}
+        step = plan.train_step_fn(opt, compress_pod=True)
+        batch = plan.batch_slice({"tokens": tokens})
+        losses = []
+        for i in range(BLK_STEPS):
+            p, o, m, e = step(state["params"], state["opt"], batch, i,
+                              state["err"])
+            state = {"params": p, "opt": o, "err": e}
+            losses.append(float(m["loss"]))
+        meta["losses"][str(z)] = losses
+        meta[f"split{z}"] = {k: list(v.shape) for k, v in zip(*flatten(p))}
+        handed = {k: sharding.gather_leaf(v, s, plan.rules)
+                  for (k, v), s in zip(seen["handed"].items(),
+                                       flatten(plan.param_specs)[1])}
+        CheckpointManager(os.path.join(out_dir, f"z{z}"), rank=rank,
+                          barrier=dist.barrier,
+                          gather=lambda t, plan=plan, opt=opt:
+                          plan.gather_state(t, opt)).save(BLK_STEPS, state)
+        whole[z] = plan.gather_state(state, opt)
+        plans[z], opts[z] = plan, opt
+        if rank == 0:
+            for k, v in handed.items():
+                res[f"z{z}/handed/{k}"] = v.numpy()
+            for k, v in _np_state(whole[z]).items():
+                res[f"z{z}/state/{k}"] = v
+    # every level's checkpoint restored into every other level's blocks
+    for w in ZEROS:
+        for r in ZEROS:
+            ck = CheckpointManager(os.path.join(out_dir, f"z{w}"), rank=rank,
+                                   barrier=dist.barrier)
+            _, back, _ = plans[r].restore_state(ck, opts[r], with_err=True)
+            got = plans[r].gather_state(back, opts[r])
+            if rank == 0:
+                a, b = flatten(got), flatten(whole[w])
+                meta["restored"][f"{w}->{r}"] = a[0] == b[0] and all(
+                    torch.equal(x, y) for x, y in zip(a[1], b[1]))
+
+    # pod 2 x model 2: one compressed step; the in-pod gradients, the handed
+    # gradient and the new error carry, gathered whole over model
+    model = Model(cfg, "cpu")
+    plan = _blk_plan(model, StrategySpec(dp=2, tp=2))
+    specs = flatten(plan.param_specs)[1]
+    seen = {}
+    real_tree = gc.compressed_psum_tree
+
+    def spy_tree(grads, group, err_tree, **kw):
+        seen["inpod"] = {k: v.clone() for k, v in zip(*flatten(grads))}
+        return real_tree(grads, group, err_tree, **kw)
+
+    gc.compressed_psum_tree = spy_tree
+    try:
+        opt = _spy_opt(seen)
+        params = plan.init_params(0)
+        step = plan.train_step_fn(opt, compress_pod=True)
+        out = step(params, plan.init_opt(opt, params),
+                   plan.batch_slice({"tokens": tokens}), 0,
+                   gc.init_error_tree(params))
+    finally:
+        gc.compressed_psum_tree = real_tree
+    pod = plan.mesh.get_local_rank("pod")
+    for what, tree in (("inpod", seen["inpod"]), ("handed", seen["handed"]),
+                       ("err", dict(zip(*flatten(out[3]))))):
+        for (k, v), s in zip(tree.items(), specs):
+            v = sharding.gather_leaf(v, s, plan.rules)
+            if plan.mesh.get_local_rank("model") == 0:
+                res[f"tp/{pod}/{what}/{k}"] = v.detach().numpy()
+    meta["tp_split"] = {k: list(v.shape) for k, v in zip(*flatten(params))}
+    np.savez(os.path.join(out_dir, f"blk{rank}.npz"), **res)
+    with open(os.path.join(out_dir, f"blk{rank}.json"), "w") as f:
+        json.dump(meta, f)
+    dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def blocks(tmp_path_factory):
+    import torch.multiprocessing as mp
+    d = tmp_path_factory.mktemp("blocks")
+    mp.spawn(_blocks_main, args=(4, str(d / "store"), str(d)), nprocs=4,
+             join=True)
+    res = {}
+    for r in (0, 2):                       # model rank 0 of each pod
+        res.update(np.load(d / f"blk{r}.npz"))
+    with open(d / "blk0.json") as f:
+        return res, json.load(f)
+
+
+def test_compressed_model_shards_match_reference_whole_leaves(blocks):
+    """pod 2 × model 2: each rank compresses its model shard of every leaf.
+    The pods' in-pod gradients, gathered whole, through the reference's
+    ``compressed_psum_tree`` under ``jax.vmap`` over ``pod``: the handed
+    gradient and the error carry agree within the quanta of
+    :func:`assert_within_quanta` (the reference's scale is its whole
+    leaf's abs-max)."""
+    res, meta = blocks
+    assert meta["tp_split"]["blocks/p0/attn/wq"][2] == 2     # half the heads
+    paths = sorted({k.split("/", 3)[3] for k in res if k.startswith("tp/0/")})
+    inpod = {p: jnp.stack([jnp.asarray(res[f"tp/{pod}/inpod/{p}"])
+                           for pod in (0, 1)]) for p in paths}
+    ref = jax.jit(jax.vmap(
+        lambda g, e: jax_gc.compressed_psum_tree(g, "pod", e, mean=True),
+        axis_name="pod"))
+    out, err = ref(inpod, jax.tree.map(jnp.zeros_like, inpod))
+    for p in paths:
+        smax = max(np.abs(res[f"tp/{pod}/inpod/{p}"]).max()
+                   for pod in (0, 1)) / 127
+        for pod in (0, 1):
+            assert_within_quanta(res[f"tp/{pod}/handed/{p}"],
+                                 np.asarray(out[p][pod]), smax / 2, 0.0,
+                                 what=f"{p} pod {pod} handed")
+            assert_within_quanta(res[f"tp/{pod}/err/{p}"],
+                                 np.asarray(err[p][pod]), 2 * smax,
+                                 127 * smax, what=f"{p} pod {pod} err")
+
+
+@pytest.mark.parametrize("zero", [1, 3])
+def test_compressed_zero_equals_zero0_bit_for_bit(blocks, zero):
+    """pod 2 × data 2: compressed ZeRO-1 (the parameter's block compressed,
+    the optimizer on its slice) and ZeRO-3 (the data shard compressed)
+    equal compressed ZeRO-0 bit for bit over three steps: losses, the
+    step-0 handed gradient, and the gathered parameters, moments and error
+    carry."""
+    res, meta = blocks
+    assert meta["losses"][str(zero)] == meta["losses"]["0"]
+    for part in ("handed", "state"):
+        want = {k: v for k, v in res.items() if k.startswith(f"z0/{part}/")}
+        assert want
+        for k, v in want.items():
+            np.testing.assert_array_equal(
+                res[k.replace("z0/", f"z{zero}/", 1)], v, err_msg=k)
+    if zero == 3:
+        split = meta["split3"]
+        assert np.prod(split["embed/table"]) * 2 == np.prod(
+            meta["split0"]["embed/table"])
+    assert any(k.startswith("z0/state/err/") for k in res)
+
+
+def test_error_carry_checkpoints_cross_zero_levels(blocks):
+    """Each level's checkpoint (the reference's whole-leaf layout, the
+    error carry one ``.npy`` a leaf) restores into every level's blocks
+    and gathers back bit for bit."""
+    _, meta = blocks
+    assert len(meta["restored"]) == len(ZEROS) ** 2
+    assert all(meta["restored"].values()), meta["restored"]
+
+
+def test_torchrun_compressed_zero_trains_and_resumes_across_levels(tmp_path):
+    """``--mesh 2x2x1 --compress-pod --zero N`` under torchrun on 4 gloo
+    ranks: ZeRO-3's losses print as ZeRO-0's, and ZeRO-1 resumes ZeRO-3's
+    checkpoint (the error carry in it) to ZeRO-0's next loss."""
+    argv = ["--smoke", "--device", "cpu", "--batch", "4", "--seq", "32",
+            "--log-every", "1", "--mesh", "2x2x1", "--compress-pod"]
+
+    def losses(out):
+        return [line.split()[3] for line in out.splitlines()
+                if line.strip().startswith("step ")]
+
+    def run(zero, steps, ckpt):
+        return _torchrun(argv + ["--steps", str(steps), "--zero", str(zero),
+                                 "--ckpt-dir", str(tmp_path / ckpt)],
+                         tmp_path)
+
+    z0, z3 = run(0, 3, "z0"), run(3, 3, "z3")
+    assert "zero=3: parameters, gradients and optimizer state over data" \
+        in z3 and "int8 cross-pod" in z3
+    assert losses(z3) == losses(z0) and len(losses(z0)) == 3
+    # resumed under the same 4-step schedule: ZeRO-1 from ZeRO-3's state
+    # and error carry, ZeRO-0 from its own
+    z0, z1 = run(0, 4, "z0"), run(1, 4, "z3")
+    assert "[resume] from step 3" in z1 and "[resume] from step 3" in z0
+    assert losses(z1) == losses(z0) and len(losses(z0)) == 1

@@ -333,9 +333,9 @@ def _rank4(rank, cfg, params, batch, spec4, res, meta):
     seen = {}
     real_tree = gc.compressed_psum_tree
 
-    def spy_tree(grads, group, err, *, mean=True):
+    def spy_tree(grads, group, err, **kw):
         seen["inpod"] = {k: v.clone() for k, v in zip(*flatten(grads))}
-        return real_tree(grads, group, err, mean=mean)
+        return real_tree(grads, group, err, **kw)
 
     gc.compressed_psum_tree = spy_tree
     try:

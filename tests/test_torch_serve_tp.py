@@ -494,11 +494,8 @@ def test_state_shapes_match_reference(arch):
 def _refusal(case: str):
     cfg = get_config(ARCH, smoke=True)
     strat = {"pipeline": StrategySpec(dp=2, pp=2),
-             "mamba2_model": StrategySpec(tp=2),
              "repeat": StrategySpec(tp=2),
              "zero3": StrategySpec(dp=2, zero=3)}[case]
-    if case == "mamba2_model":
-        cfg = get_config("mamba2-1.3b", smoke=True)
     shape = {"data": strat.dp, "model": strat.tp}
     if strat.pp > 1:
         shape = {"stage": strat.pp, **shape}
@@ -509,15 +506,14 @@ def _refusal(case: str):
 
 
 @pytest.mark.parametrize("case,item", [("pipeline", "item 4"),
-                                       ("mamba2_model", "item 7"),
                                        ("repeat", "item 4"),
                                        ("zero3", "item 4")])
 def test_serving_refusals_name_their_item(case, item):
-    """Serving inside a pipeline, the ssm family over a model axis, the
-    ``repeat`` layout (the smoke's one kv head at tp 2) and ZeRO-3's
-    data-sharded parameters raise, naming their ROADMAP item; only the
-    decode steps refuse the layout (the prefill is the training
-    attention's)."""
+    """Serving inside a pipeline, the ``repeat`` layout (the smoke's one
+    kv head at tp 2) and ZeRO-3's data-sharded parameters raise, naming
+    their ROADMAP item; only the decode steps refuse the layout (the
+    prefill is the training attention's).  mamba2 over a model axis serves
+    (tests/test_torch_ssm_tp.py)."""
     plan = _refusal(case)
     with pytest.raises(NotImplementedError, match=f"queue A {item}"):
         plan.serve_step_fn(4, 32)

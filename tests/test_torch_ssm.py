@@ -8,11 +8,16 @@ on the ``shrink``-ed mamba2-1.3b (2 layers, 8 SSD heads of 32, state
 logits at a ragged ``last_idx``, the prefill's decode state against the
 reference's ``serve_step`` run over the prompt token by token from a zero
 state (the reference's own exact route: its ``prefill`` returns no SSD
-state), decode, the Server's greedy tokens and the driver.
+state), decode, the Server's greedy tokens and the driver.  Training, as
+the reference trains (through the differentiable chunked scan): the loss
+and every gradient leaf under remat none and full, with and without a
+``loss_mask``, both loss heads; the tied head's gradient in the table's;
+three AdamW steps; and the training driver against the reference's loop.
 
 Tolerances: the scan 5e-4 (the reference's SSD kernel test), logits 1e-4
 (f32), the state against token-by-token decode 2e-3 (the reference's
-decode-against-scan test).
+decode-against-scan test); training f32 2e-5 for values and 2e-4 for
+gradients (tests/torch_harness.py).
 """
 import dataclasses
 
@@ -22,27 +27,34 @@ import numpy as np
 import pytest
 import torch
 
+from repro.ckpt.checkpoint import CheckpointManager as JaxCheckpointManager
 from repro.ckpt.checkpoint import _leaf_paths
 from repro.configs import get_config as jax_get_config
+from repro.data import pipeline as jax_pipeline
 from repro.kernels.ssd.ref import ssd_ref
 from repro.kernels.ssd.ssd import ssd_scan_pallas
 from repro.models import mamba2 as jax_mamba2
 from repro.models import transformer as jax_tfm
 from repro.models.lm import Model as JaxModel
+from repro.optim import optimizer as jax_opt
 from repro_torch.configs import get_config
+from repro_torch.core import planner
 from repro_torch.kernels.ssd import ssd
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models import mamba2
 from repro_torch.models.convert import leaf_paths, params_from_numpy
 from repro_torch.models.lm import Model
+from repro_torch.optim import optimizer as torch_opt
 from repro_torch.serving.server import Request, Server, prompt_bucket
+from repro_torch.tree import flatten
 
-from torch_harness import close
+from torch_harness import TOLS, close
 
 ARCH = "mamba2-1.3b"
 SCAN_TOL = 5e-4
 TOL = 1e-4
 STATE_TOL = 2e-3
+TOLS_F32 = TOLS["float32"]
 
 
 def _np_tree(tree) -> dict:
@@ -482,7 +494,192 @@ def test_serve_driver_completes_every_request():
     assert s["tokens"] >= 6 and s["steps"] > 0
 
 
-def test_training_the_ssm_family_raises(pair):
-    tm, tp = pair[2], pair[3]
-    with pytest.raises(NotImplementedError, match="ssm"):
-        tm.loss_fn(tp, {"tokens": torch.zeros((1, 8), dtype=torch.long)})
+# ---------------------------------------------------------------------------
+# training: the loss, every gradient, AdamW and the driver
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S = 2, 64        # two chunks of 32 a row
+LR = 1e-3
+STEPS = 3
+
+
+def _train_cfgs(remat: str):
+    return (dataclasses.replace(jax_get_config(ARCH, smoke=True),
+                                remat=remat),
+            dataclasses.replace(get_config(ARCH, smoke=True), remat=remat))
+
+
+@pytest.fixture(scope="module")
+def trained():
+    """The reference's unmeshed loss and gradients of the smoke model, with
+    and without a ``loss_mask``, and three AdamW steps; its table's
+    gradient with the head's part cut off (the lookup's alone)."""
+    jcfg, _ = _train_cfgs("none")
+    jm = JaxModel(jcfg)
+    params = jm.init(jax.random.key(0))
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, jcfg.vocab, (TRAIN_B, TRAIN_S)).astype(np.int32)
+    mask = (rng.random((TRAIN_B, TRAIN_S)) < 0.7).astype(np.float32)
+    grad_fn = jax.jit(jax.value_and_grad(jm.loss_fn, has_aux=True))
+    out = {"params": _np_tree(params), "tokens": tokens, "mask": mask}
+    for masked in (False, True):
+        batch = {"tokens": jnp.asarray(tokens)}
+        if masked:
+            batch["loss_mask"] = jnp.asarray(mask)
+        (loss, m), g = grad_fn(params, batch)
+        out[masked] = (float(loss), {k: float(v) for k, v in m.items()},
+                       _np_tree(g))
+    opt = jax_opt.adamw(lr=LR)
+    p, st, losses = params, opt.init(params), []
+    for i in range(STEPS):
+        (loss, _), g = grad_fn(p, {"tokens": jnp.asarray(tokens)})
+        p, st = opt.apply(g, st, p, i)
+        losses.append(float(loss))
+    out["losses"] = losses
+    return out
+
+
+@pytest.mark.parametrize("impl", ["chunked", "fused"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_loss_and_every_gradient_match_reference(trained, remat, masked,
+                                                 impl):
+    """``Model.loss_fn`` through the differentiable scan: the loss, its
+    metrics and every gradient leaf against the reference's at f32 2e-5 /
+    2e-4, under both loss heads (the fused one's plain versions)."""
+    _, cfg = _train_cfgs(remat)
+    params = params_from_numpy(cfg, trained["params"], "cpu")
+    for v in flatten(params)[1]:
+        v.requires_grad_(True)
+    batch = {"tokens": torch.tensor(trained["tokens"])}
+    if masked:
+        batch["loss_mask"] = torch.tensor(trained["mask"])
+    loss, m = Model(cfg, "cpu", xent_impl=impl).loss_fn(params, batch)
+    want_loss, want_m, want_g = trained[masked]
+    np.testing.assert_allclose(loss.item(), want_loss, atol=TOLS_F32.fwd,
+                               rtol=TOLS_F32.fwd)
+    for k, v in want_m.items():
+        np.testing.assert_allclose(m[k].item(), v, atol=TOLS_F32.fwd,
+                                   rtol=TOLS_F32.fwd, err_msg=k)
+    loss.backward()
+    got = dict(zip(*flatten(params)))
+    assert sorted(got) == sorted(want_g) and "head" not in params
+    for path, w in want_g.items():
+        np.testing.assert_allclose(got[path].grad.numpy(), w,
+                                   atol=TOLS_F32.grad, rtol=TOLS_F32.grad,
+                                   err_msg=path)
+
+
+def test_training_runs_the_scan_and_serving_the_kernel(trained, monkeypatch):
+    """The training forward reaches ``mamba2.ssd_scan`` (differentiable),
+    never the forward-only kernel wrapper; prefill the kernel wrapper."""
+    _, cfg = _train_cfgs("full")
+    model = Model(cfg, "cpu")
+    params = params_from_numpy(cfg, trained["params"], "cpu")
+    for v in flatten(params)[1]:
+        v.requires_grad_(True)
+    calls = {"scan": 0, "kernel": 0}
+    real_scan, real_kernel = mamba2.ssd_scan, mamba2.ssd_kernel
+
+    def count(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(mamba2, "ssd_scan", count("scan", real_scan))
+    monkeypatch.setattr(mamba2, "ssd_kernel", count("kernel", real_kernel))
+    tokens = torch.tensor(trained["tokens"])
+    model.loss_fn(params, {"tokens": tokens})[0].backward()
+    assert calls == {"scan": 2 * cfg.n_layers, "kernel": 0}   # + recompute
+    with torch.no_grad():
+        model.prefill(params, {"tokens": tokens})
+    assert calls["kernel"] == cfg.n_layers
+
+
+def test_tied_head_gradient_reaches_the_table(trained):
+    """The table's gradient is the lookup's plus the tied head's: equal to
+    the reference's, and far from the lookup's alone."""
+    _, cfg = _train_cfgs("none")
+    model = Model(cfg, "cpu")
+    batch = {"tokens": torch.tensor(trained["tokens"])}
+    want = trained[False][2]["embed/table"]
+
+    def table_grad(cut_head: bool):
+        params = params_from_numpy(cfg, trained["params"], "cpu")
+        table = params["embed"]["table"].requires_grad_(True)
+        if cut_head:
+            model._head_w = lambda p: p["embed"]["table"].detach().T
+        try:
+            model.loss_fn(params, batch)[0].backward()
+        finally:
+            model.__dict__.pop("_head_w", None)
+        return table.grad.numpy()
+
+    np.testing.assert_allclose(table_grad(False), want, atol=TOLS_F32.grad,
+                               rtol=TOLS_F32.grad)
+    lookup = table_grad(True)
+    assert np.abs(lookup - want).max() > 100 * TOLS_F32.grad
+    # the lookup touches only the batch's rows; the head every row
+    rows = np.unique(trained["tokens"])
+    untouched = np.setdiff1d(np.arange(cfg.padded_vocab), rows)
+    assert not lookup[untouched].any() and want[untouched].any()
+
+
+def test_three_adamw_steps_match_reference(trained):
+    _, cfg = _train_cfgs("full")
+    model = Model(cfg, "cpu")
+    params = params_from_numpy(cfg, trained["params"], "cpu")
+    o = torch_opt.adamw(lr=LR)
+    state = o.init(params)
+    step = planner.compile_plan(model, None).train_step_fn(o)
+    batch = {"tokens": torch.tensor(trained["tokens"])}
+    losses = []
+    for i in range(STEPS):
+        params, state, m = step(params, state, batch, i)
+        losses.append(float(m["loss"]))
+    np.testing.assert_allclose(losses, trained["losses"], atol=TOLS_F32.fwd,
+                               rtol=TOLS_F32.fwd)
+
+
+def test_train_driver_losses_match_reference_loop(tmp_path):
+    """``train --arch mamba2-1.3b --smoke --device cpu`` from the
+    reference's step 0 against the reference's loop of its unmeshed
+    pieces (the driver's schedule and token stream)."""
+    steps, batch, seq = 3, 2, 64
+    jm = JaxModel(jax_get_config(ARCH, smoke=True))
+    params = jm.init(jax.random.key(0))
+    sched = jax_opt.Schedule(base_lr=3e-4, warmup=min(100, steps // 10 + 1),
+                             decay_steps=steps)
+    o = jax_opt.adamw(lr=sched)
+    state = o.init(params)
+    data = jax_pipeline.TokenPipeline(
+        jax_pipeline.DataCfg(global_batch=batch, seq_len=seq,
+                             vocab=jm.cfg.vocab, seed=0), host_id=0,
+        n_hosts=1)
+    JaxCheckpointManager(str(tmp_path)).save(
+        0, {"params": params, "opt": state},
+        extra={"data": data.state_dict()})
+    grad_fn = jax.jit(jax.value_and_grad(jm.loss_fn, has_aux=True))
+    want = []
+    for i in range(steps):
+        (loss, _), g = grad_fn(params, {"tokens": jnp.asarray(
+            data.next_batch()["tokens"])})
+        params, state = o.apply(g, state, params, i)
+        want.append(float(loss))
+    out = train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                      "--steps", str(steps), "--batch", str(batch), "--seq",
+                      str(seq), "--ckpt-dir", str(tmp_path)])
+    assert out["final_step"] == steps
+    np.testing.assert_allclose(out["losses"], want, atol=TOLS_F32.grad,
+                               rtol=TOLS_F32.grad)
+
+
+def test_pipelining_the_ssm_family_raises():
+    from repro_torch.core.pipeline import schedule_grads
+
+    _, cfg = _train_cfgs("full")
+    with pytest.raises(NotImplementedError,
+                       match="'ssm' family .* queue A item 7"):
+        schedule_grads(Model(cfg, "cpu"), {}, torch.zeros(
+            (2, 8), dtype=torch.long), micro_batches=1, n_stages=2)

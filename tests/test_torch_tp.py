@@ -202,16 +202,17 @@ def _case(name, full: dict, batch: dict, out_dir: str, res: dict,
             res[f"{name}/state/{path}"] = v.detach().numpy()
 
 
-def _refusal(meta: dict) -> None:
-    """ZeRO beside compress_pod still raises, on a pod 2 × data 2 mesh."""
+def _zero3_compress(meta: dict) -> None:
+    """ZeRO-3 beside compress_pod wants a plan compiled for it (its
+    parameters sharded inside each pod), on a pod 2 × data 2 mesh."""
     cfg = _cfg(get_config, KV["A"])
-    strat = StrategySpec(dp=4, zero=1)
+    strat = StrategySpec(dp=4, zero=3)
     plan = planner.compile_plan(Model(cfg, "cpu"), planner.mesh_for_strategy(
         strat, pods=2, device_type="cpu"), strat)
     try:
         plan.train_step_fn(adamw(lr=LR), compress_pod=True)
-    except NotImplementedError as e:
-        meta["zero_compress"] = str(e)
+    except ValueError as e:
+        meta["zero3_compress"] = str(e)
 
 
 def _rank_main(rank: int, world: int, store: str, inputs: str,
@@ -229,7 +230,7 @@ def _rank_main(rank: int, world: int, store: str, inputs: str,
     res, meta = {}, {}
     for name in CASES:
         _case(name, full, batch, out_dir, res, meta)
-    _refusal(meta)
+    _zero3_compress(meta)
     if rank == 0:
         np.savez(os.path.join(out_dir, "rank0.npz"), **res)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -362,12 +363,14 @@ def test_sharded_checkpoints_match_unsharded_files(ranks, ref, tmp_path):
 
 
 def test_remaining_refusals_name_their_item(ranks):
-    """The seq layout, ZeRO with compress_pod and ZeRO with uneven batch
-    shares still raise, each naming ROADMAP.md queue A item 4.  A pipeline
-    with a model axis and ZeRO compiles, and its ZeRO lays nothing over
-    data (the reference's staged specs: the pipeline's caveat)."""
+    """The seq layout and ZeRO with uneven batch shares still raise, each
+    naming ROADMAP.md queue A item 4 (ZeRO with compress_pod trains:
+    tests/test_torch_grad_compress.py; ZeRO-3 with it wants a plan
+    compiled with ``compress_pod``).  A pipeline with a model axis and
+    ZeRO compiles, and its ZeRO lays nothing over data (the reference's
+    staged specs: the pipeline's caveat)."""
     _, metas, _ = ranks
-    assert "queue A item 4" in metas[0]["zero_compress"]
+    assert "compress_pod=True" in metas[0]["zero3_compress"]
     strat = StrategySpec(dp=2, tp=2, pp=2, zero=3)
     plan = planner.ExecutionPlan(
         model=Model(_cfg(get_config, KV["A"]), "meta"), mesh=None,
