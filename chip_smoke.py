@@ -16,8 +16,9 @@ and the script exits non-zero without printing a result:
    at 8 slots of 16 kv heads of 128, xent at vocab 102400; mamba2's
    training: xent at its tied head, vocab 50280 padded to 50432, and on
    its 25216-column shard at tp 2; its split prefill: the SSD scan on a
-   rank's 32 heads; the compressor's encode on a block of a leaf), and at
-   ragged ones
+   rank's 32 heads; the compressor's encode on a block of a leaf;
+   deepseek served at split×2: flash forward and paged decode on a rank's
+   8 q over 8 kv heads of 128), and at ragged ones
    (tolerance: values f32 2e-5, bf16 2e-2; gradients f32 2e-4, bf16 5e-2;
    the SSD scan 5e-4, as the reference holds its kernel; the int8
    quantize and dequantize bit for bit, a NaN included; the xent
@@ -100,8 +101,8 @@ and the script exits non-zero without printing a result:
     on the predictions: how far they miss is the finding;
 19. the pipeline interpreter (``core/pipeline.py::schedule_grads``, all
     stages in one process) at phase 11's configuration, one batch from the
-    driver's stream in 4 micro-batches of 1 x 2048, under gpipe and 1f1b
-    with stage layers (11, 11) and (12, 10): each loss and gradient leaf
+    driver's stream in 4 micro-batches of 1 x 2048, under 1f1b at stage
+    layers (11, 11) and gpipe at (12, 10): each loss and gradient leaf
     against ``planner.accumulate`` over the same micro-batches within bf16's
     limits, the buffer audit ([4, 4] and [2, 1]), the launch counts of
     every kernel around each call, the peak device memory of each, one
@@ -111,8 +112,9 @@ and the script exits non-zero without printing a result:
     ``StrategySpec(pp=2, micro_batches=4)``, ``pipeline_train_step_fn``):
     two processes spawned on ``cuda:0`` over a gloo group from a
     ``FileStore`` (NCCL refuses two ranks on one card, so activations
-    cross through host memory), one gpipe step and 3 AdamW steps of 1f1b
-    at (11, 11) from the same seed, against the same 3 steps of the
+    cross through host memory), one gpipe step and PP_STEPS (2) AdamW
+    steps of 1f1b at (11, 11) from the same seed, against the same steps
+    of the
     unpipelined ``train_step_fn(micro_batches=4)`` here, losses within
     1e-4 + 1e-4|x|; each rank's launch counts, audit, peak memory under
     both schedules (1f1b's stage 0 no higher than gpipe's) and step times
@@ -125,7 +127,7 @@ and the script exits non-zero without printing a result:
     card) with ``StrategySpec(pp=2, micro_batches=4, schedule="1f1b")``
     and tinyllama's workload at 4 x 2048, overlap 0.5, must balance the
     stage layers to (19, 3) at a priced step of 216.59 ms; phase 20's way
-    (two processes over gloo), 3 AdamW steps on those stages against
+    (two processes over gloo), PP_STEPS AdamW steps on those stages against
     phase 20's unpipelined losses within 1e-4 + 1e-4|x|, with each
     stage's launches, audit, walk and step peaks and step times; then
     phase 27's hardware-aware annotations on the same ranks: two stages
@@ -139,10 +141,10 @@ and the script exits non-zero without printing a result:
     norm, bit for bit: both schedules run each stage's backward slots in
     micro-batch order);
 22. heterogeneous placement, uneven data parallelism: the same pair at
-    ``dp=2`` over tinyllama at full width and 16 layers (at 22 a replica
+    ``dp=2`` over tinyllama at full width and 4 layers (at 22 a replica
     with AdamW does not fit the V100 table), batch 8 x 2048, must balance
     the batch shares to (7, 1); rank 0 trains on 7 rows of each batch and
-    rank 1 on 1 (3 AdamW steps, the token-weighted mean), against one
+    rank 1 on 1 (PP_STEPS AdamW steps, the token-weighted mean), against one
     process on all 8 rows (the step-0 loss within 1e-4 + 1e-4|x|, every
     step-0 gradient leaf within bf16's 5e-2) and one summing the same
     shares' gradients with the same weights (every loss within 1e-4 +
@@ -152,7 +154,7 @@ and the script exits non-zero without printing a result:
 23. tensor parallelism: ``compile_plan(StrategySpec(tp=2))`` on a data 1
     x model 2 mesh, two ranks on ``cuda:0`` over gloo (the row-parallel
     sums of activations cross through host memory), tinyllama at full
-    width and 8 layers, batch 2 x 2048, remat full, 3 AdamW steps at a
+    width and 8 layers, batch 2 x 2048, remat full, 2 AdamW steps at a
     constant 3e-4, against one process running the unsharded step on the
     same batches from the same seed (run first and freed): the step-0
     loss within bf16's 2e-2 + 2e-2|x|, each step-0 gradient leaf within
@@ -183,13 +185,15 @@ and the script exits non-zero without printing a result:
     paper's V100 table must pick it; its price there and on the H100
     table printed as predictions): ``compile_plan(StrategySpec(tp=2,
     pp=2, micro_batches=4))`` on stage 2 x model 2, four ranks on
-    ``cuda:0`` over gloo, full width and depth, remat full, AdamW at a
-    constant 3e-4; one 1f1b step, then 3 steps of the planned gpipe, held
-    against phase 20's unpipelined losses (step 0 within 2e-2 + 2e-2|x|,
-    steps 1-2 within 2e-2) and every step-0 gradient leaf against the
-    unpipelined, unsharded gradient within 5e-2 of the leaf's max; then
-    the same at 2 layers in f32, stage layers (1, 1), losses within 1e-4 +
-    1e-4|x| and gradients within 2e-4, its checkpoint gathered in the
+    ``cuda:0`` over gloo, full width and 4 layers (cut from 22 to hold
+    the script's time: the plan is picked for the full model), remat full, AdamW at a
+    constant 3e-4; one 1f1b step, then 2 steps of the planned gpipe, held
+    against the unpipelined, unsharded losses (step 0 within 2e-2 +
+    2e-2|x|, step 1 within 2e-2) and every step-0 gradient leaf against
+    the unpipelined, unsharded gradient within 5e-2 of the leaf's max; then
+    the same (2 steps) at 2 layers in f32, stage layers (1, 1), losses
+    within 1e-4 + 1e-4|x| and gradients within 2e-4, its checkpoint
+    gathered in the
     reference's padded layout and restored into every rank's blocks bit
     for bit; each rank's launches, audit, peaks of the walk and the step
     beside the state it holds, step and gloo seconds, and 1f1b's stage-0
@@ -202,16 +206,17 @@ and the script exits non-zero without printing a result:
     every step-0 gradient block);
 26. serving over a mesh, the ranks on ``cuda:0`` over gloo: the serving
     driver's meshed branch (``serve.run`` with ``--mesh``) at split×2 on
-    two ranks, full width and 8 layers (TP_SERVE_LAYERS: the depth cut
-    from 22 to hold the script's time), paged with phase 4's workload
-    (run 1) and dense with 8 requests of 500 + 16 tokens (run 2, the KV
-    cache's sequence split over the two ranks); teacher-forced logits of
-    2 prefills and 16 decode steps, both caches, against one unsharded
-    process (run 3: bf16 at 8 layers, no further apart than bf16's own
-    error, the unsharded bf16 logits against the same weights' in f32,
-    and a planted fault outside that gate; f32 at 8 layers and at 2
-    within 1e-4 + 1e-4|x|); data 2 x
-    model 2 on four ranks at 4 layers with a pool that preempts (run 4);
+    two ranks, full width and 4 layers (TP_SERVE_LAYERS: the depth cut
+    from 22 to hold the script's time),
+    paged with phase 4's workload (run 1) and dense with 8 requests of 500
+    + 16 tokens (run 2, the KV cache's sequence split over the two ranks);
+    teacher-forced logits of 2 prefills and 16 decode steps, both caches,
+    against one unsharded process (run 3: bf16 at 4 layers, no further
+    apart than bf16's own error, the unsharded bf16 logits against the
+    same weights' in f32, and a planted fault outside that gate; f32 at 2
+    layers within 1e-4 + 1e-4|x|); data 2 x model 2 on four
+    ranks at 4 layers with a pool that preempts, and its paged
+    teacher-forced bf16 logits against the same gate (run 4);
     f32 at 2 layers, both caches, its tokens equal to the unsharded
     server's (run 5); ``serve --mesh 1x1`` through ``main`` at full width
     (run 6, a world of one over NCCL); each rank's launches (the flash
@@ -247,13 +252,12 @@ and the script exits non-zero without printing a result:
     AdamW, 3 steps: finite losses, ``moe_lb`` and ``moe_z``, launches,
     the peak beside AdamW's state (the final checkpoint gathered, its file
     write skipped), and step 0's loss and gradients through the kernels
-    against the plain versions on the card (bf16's limits, the routed
-    experts' as in (c)); (c) on two
+    against the plain versions on the card (bf16's limits; the routed
+    experts' within twice the larger of that and the same step a row at a
+    time); (c) on two
     ranks over gloo, ``StrategySpec(tp=2, ep=2)`` (32 whole experts a
-    rank) at full width, 2 layers in bf16 (every loss within 2e-2 +
-    2e-2|x|, each step-0 gradient leaf within 5e-2 of its max, the routed
-    experts' within twice the larger of that and the unsharded step a row
-    at a time) and 1 in f32 (1e-4 + 1e-4|x|, gradients 2e-4), against
+    rank) at full width and 1 layer in f32 (1e-4 + 1e-4|x|, gradients
+    2e-4; the split's bf16 path runs in phase 32), against
     the unsharded steps, the routing assignments that differ counted, and
     the M6 nesting ``replica{split[experts]}`` recorded as annotations
     and lowered by ``compile_nested_plan``; (d) ``moe_block_ep`` on the
@@ -261,7 +265,7 @@ and the script exits non-zero without printing a result:
 29. the compressed cross-pod reduction on blocks of leaves, four ranks on
     ``cuda:0`` over gloo, tinyllama at full width and 1 layer: at pod 2
     x data 2 (batch 4 x 1024, a row a rank) compressed ZeRO 0, 1 and 3
-    for 3 steps each, ZeRO-1 and ZeRO-3 equal to ZeRO-0 bit for bit
+    for 2 steps each, ZeRO-1 and ZeRO-3 equal to ZeRO-0 bit for bit
     (losses, the handed step-0 gradients, the gathered parameters,
     moments and error carry), the three encode kernels once per leaf and
     step; at pod 2 x model 2 (batch 2 x 1024) one step, its handed
@@ -271,7 +275,7 @@ and the script exits non-zero without printing a result:
     of a leaf), and the same step with each block quantized against its
     own scale (the old per-shard scale, planted) outside that gate;
 30. mamba2-1.3b training at full width and depth (48 layers, batch 4 x
-    2048, remat full, AdamW, 4 steps; the SSD mixer through the
+    2048, remat full, AdamW, 3 steps; the SSD mixer through the
     differentiable chunked scan, as the reference trains it, the tied
     head through the xent kernels): losses, launches, tokens/s after step
     0, the peak beside the state; one step split into forward, backward
@@ -291,7 +295,29 @@ and the script exits non-zero without printing a result:
     teacher-forced logits and prefill states at full depth against one
     unsharded process, f32 within 1e-4 + 1e-4|x|, bf16 within TF_PAIR
     times bf16's own error, and a planted fault (the gated norm without
-    its all-reduce) outside that gate.
+    its all-reduce) outside that gate;
+32. the MoE family across the engine, deepseek-moe-16b at full width,
+    ranks on ``cuda:0`` over gloo: (a) pipeline×2 on two ranks at 2
+    layers, one a stage, batch 4 x 2048 in 4 micro-batches, 1f1b, 3
+    AdamW steps, in bf16 and f32, against the unpipelined, unsharded
+    step of one process (bf16 within TF_PAIR times bf16's own error, the
+    gap between that step in bf16 and in f32; f32 losses within 1e-4 +
+    1e-4|x| and gradients within 2e-4 of each leaf's max), ``moe_lb`` and
+    ``moe_z`` beside the unpipelined step's, each rank's peak, step and
+    gloo seconds; (b) the same over model 2 on four ranks
+    (``pipeline{split[experts]}``: 32 experts a rank); (c) data 2 in f32
+    at 2 layers, a row a rank, the experts balanced over the global batch,
+    against one process on both rows (1e-4 + 1e-4|x|, gradients 2e-4),
+    and the old per-replica balance planted, which must miss that gate;
+    (d) ``serve --mesh 1x2`` (32 experts, 8 q over 8 kv heads and 51200
+    vocab columns a rank) at 4 layers in bf16, 8 slots, paged, and in f32
+    at 2 layers (tokens equal to one unsharded process's), and ``--mesh
+    2x2`` at 2 layers in bf16; teacher-forced logits against one unsharded
+    process (bf16 within TF_PAIR times bf16's own error, f32 within 1e-4
+    + 1e-4|x|), and a planted fault, the moe combine without its
+    all-reduce over ``model``, outside the f32 gate; each rank's TTFT and
+    TPOT with their gloo seconds and its peak beside the weights and KV
+    it holds.
 
 then the kernel table as one JSON line, the card line again, and the last
 line ``{"ok": true, "device": {...}}``.  Needs no network; needs ``nvcc``
@@ -466,8 +492,9 @@ def check_flash(torch, timer) -> dict:
     and S up to 1024, a cross shape, a rank's 16/2 heads of the prefill at
     split×2 (phase 26), the training step's shape (B=4, S=2048, 32/4
     heads, D=64, causal, bf16), and deepseek-moe-16b's (16/16 heads, D=128:
-    its prefill at B=1, S=512 and its training step at B=4, S=2048), each
-    timed beside SDPA in this call.  Prints the bf16 (tensor-core) builds'
+    its prefill at B=1, S=512 and its training step at B=4, S=2048; a
+    rank's 8/8 heads of its prefill at split×2, phase 32), each timed
+    beside SDPA in this call.  Prints the bf16 (tensor-core) builds'
     ptxas registers and spills and fails on a spill.  Returns the row of
     the training shape, with deepseek's training shape's under
     ``"deepseek"``."""
@@ -485,6 +512,7 @@ def check_flash(torch, timer) -> dict:
              (1, 512, 512, True, (bf16, f32), 16, 2, 64),
              (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, True, (bf16,), 32, 4, 64),
              (1, 512, 512, True, (bf16,), 16, 16, 128),
+             (1, 512, 512, True, (bf16, f32), 8, 8, 128),
              (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, True, (bf16,), 16, 16, 128)]
     row = None
     for B, Sq, Sk, causal, dtypes, H, K, D in cases:
@@ -542,7 +570,8 @@ def check_paged(torch, timer) -> dict:
     keys, one inactive, 32/4 heads, D=64, page 64), a rank's 16/2 heads of
     it at split×2 and of 4 slots at data 2 x model 2 (phase 26), and one
     slot of 1000 keys (B=1), and deepseek-moe-16b's decode (8 slots, 16/16
-    heads, D=128).  Prints the bf16 (tensor-core) builds' ptxas registers
+    heads, D=128), a rank's 8/8 heads of it at split×2 and of 4 slots at
+    data 2 x model 2 (phase 32).  Prints the bf16 (tensor-core) builds' ptxas registers
     and spills and fails on a spill.  Returns the row of the serving shape
     in bf16, with deepseek's under ``"deepseek"``."""
     import numpy as np
@@ -559,7 +588,8 @@ def check_paged(torch, timer) -> dict:
     row = None
     for pos, H, K, D in ((pos8, 32, 4, 64), (pos8, 16, 2, 64),
                          (pos8[:4], 16, 2, 64), (np.array([999]), 32, 4, 64),
-                         (pos8, 16, 16, 128)):
+                         (pos8, 16, 16, 128), (pos8, 8, 8, 128),
+                         (pos8[:4], 8, 8, 128)):
         B = len(pos)
         P = 1 + B * mp
         table = np.zeros((B, mp), np.int32)
@@ -2100,10 +2130,12 @@ def train_planned(torch, kernels, losses11: list, serving: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 PP_MICRO = 4                    # micro-batches of 1 x TRAIN_SEQ
-PP_CASES = (("gpipe", (11, 11)), ("1f1b", (11, 11)), ("gpipe", (12, 10)),
-            ("1f1b", (12, 10)))
+#: phase 19's cases: each schedule once, on the even and the uneven split
+PP_CASES = (("1f1b", (11, 11)), ("gpipe", (12, 10)))
 PP_IN_FLIGHT = {"gpipe": [4, 4], "1f1b": [2, 1]}
-PP_STEPS = 3                    # the multi-rank engine's AdamW steps
+#: the multi-rank engine's AdamW steps (phases 20-22; step 1 is the first
+#: that reads the optimizer's update)
+PP_STEPS = 2
 PP_LR = 3e-4                    # constant: every step moves the weights
 
 
@@ -2141,8 +2173,8 @@ def host_median_s(torch, fn, n: int = 3) -> float:
 
 def pipeline_interpreter(torch, kernels) -> dict:
     """Phase 19 (path A): ``schedule_grads`` at full width on the card,
-    all stages in one process, under gpipe and 1f1b with stage layers
-    (11, 11) and (12, 10), each held against ``accumulate`` over the same
+    all stages in one process, under 1f1b at stage layers (11, 11) and
+    gpipe at (12, 10), each held against ``accumulate`` over the same
     micro-batches (the same kernels, unpipelined), with its launch counts,
     buffer audit, peak memory and time beside the cost model's price of a
     two-card pipeline.  Returns one call's launch counts."""
@@ -2601,7 +2633,7 @@ def pipeline_engine(torch) -> tuple:
 
 HETERO_LAYERS = (19, 3)         # the plan's stage layers at full depth
 HETERO_PRICED_MS = 216.59       # its priced step (1f1b, overlap 0.5)
-UNEVEN_LAYERS = 16              # a depth at which the plan balances (7, 1)
+UNEVEN_LAYERS = 4               # a depth at which the plan balances (7, 1)
 UNEVEN_BATCH = 8
 UNEVEN_SHARES = (7, 1)
 
@@ -2779,8 +2811,8 @@ def _uneven_rank(rank: int, store: str, out_dir: str, ref_grads: str
 
 def one_process(torch, split: bool) -> dict:
     """Phase 22's references, in this process: PP_STEPS AdamW steps of
-    the 16-layer model from seed 0 on each batch of UNEVEN_BATCH rows,
-    either whole (one gradient over all rows) or ``split`` into the
+    the UNEVEN_LAYERS-layer model from seed 0 on each batch of
+    UNEVEN_BATCH rows, either whole (one gradient over all rows) or ``split`` into the
     planned shares, each share's gradient taken alone and the shares
     summed with the token weights the data-parallel step uses (the ranks'
     arithmetic without their collectives).  Returns the losses, the step-0
@@ -2845,7 +2877,7 @@ def one_process(torch, split: bool) -> dict:
 
 def uneven_dp(torch) -> dict:
     """Phase 22: the batch shares ``compile_plan`` balances over one H100
-    and one V100 at ``dp=2`` (tinyllama at full width, 16 layers), rank 0
+    and one V100 at ``dp=2`` (tinyllama at full width, 4 layers), rank 0
     training on 7 rows of each batch of 8 and rank 1 on 1, against two
     references run here first and freed before the ranks start
     (:func:`one_process`): all 8 rows whole, the step-0 loss within phase
@@ -2942,8 +2974,8 @@ def uneven_dp(torch) -> dict:
 # phases 23-24: tensor parallelism and ZeRO
 # ---------------------------------------------------------------------------
 
-TP_BATCH = 2                    # phase 23: batch 2 x TRAIN_SEQ, 3 steps
-TP_STEPS = 3
+TP_BATCH = 2                    # phase 23: batch 2 x TRAIN_SEQ, 2 steps
+TP_STEPS = 2
 #: phase 23's runs: name -> (layers, activation dtype); bf16 at 8 layers
 #: is the path (cut from 22 to hold the script's time: the split step is
 #: the same at every depth), f32 at 2 layers holds it to f32's limits
@@ -3520,10 +3552,12 @@ def train_hybrid_zero(torch) -> dict:
 
 NESTED = dict(tp=2, pp=2, micro_batches=PP_MICRO)
 #: phase 25's runs: name -> (layers, activation dtype, stage layers); bf16
-#: at full depth is the path, f32 at 2 layers holds it to f32's limits
-NESTED_RUNS = {"bf16": (22, "bfloat16", (11, 11)),
+#: at 4 layers is the path (cut from 22 to hold the script's time: the
+#: nested hybrid runs the same code at every depth, and the plan is still
+#: picked for the full model), f32 at 2 layers holds it to f32's limits
+NESTED_RUNS = {"bf16": (4, "bfloat16", (2, 2)),
                "f32": (2, "float32", (1, 1))}
-NESTED_STEPS = 3
+NESTED_STEPS = 2
 NESTED_F32_LIMIT = 1e-4
 
 
@@ -3738,9 +3772,9 @@ def _annotated_nested(torch, plan, mesh, init: dict, first: dict,
 
 def _unpipelined_reference(torch, name: str, path: str) -> list:
     """The unpipelined, unsharded step of NESTED_RUNS[name] from seed 0 on
-    the same batches: its step-0 gradient (``accumulate`` over PP_MICRO
-    micro-batches) saved to ``path`` on the host; for the f32 run also
-    NESTED_STEPS AdamW steps' losses (the bf16 run's are phase 20's)."""
+    the same batches: NESTED_STEPS AdamW steps' losses, and the step-0
+    gradient (``accumulate`` over PP_MICRO micro-batches) saved to
+    ``path`` on the host."""
     import dataclasses
 
     import numpy as np
@@ -3769,7 +3803,7 @@ def _unpipelined_reference(torch, name: str, path: str) -> list:
                                  vocab=model.cfg.vocab, seed=0),
                          host_id=0, n_hosts=1)
     losses = []
-    for i in range(1 if name == "bf16" else NESTED_STEPS):
+    for i in range(NESTED_STEPS):
         batch = {"tokens": torch.as_tensor(
             np.asarray(data.next_batch()["tokens"])).cuda()}
         params, state, m = step_fn(params, state, batch, i)
@@ -3779,7 +3813,7 @@ def _unpipelined_reference(torch, name: str, path: str) -> list:
     return losses
 
 
-def train_nested(torch, unpiped: list) -> dict:
+def train_nested(torch) -> dict:
     """Phase 25: Whale's nested hybrid ``split×2 pipeline×2(µb=4)``, the
     plan ``auto_parallel`` picks for tinyllama at 4 x 2048 on 4 devices of
     the paper's V100 table (it must), priced on that table and on
@@ -3787,12 +3821,12 @@ def train_nested(torch, unpiped: list) -> dict:
     run here first (their step-0 gradients saved for the ranks to read by
     mmap); then four ranks on ``cuda:0`` over gloo run :func:`_nested_rank`.
     Printed before anything is held: each rank's launches (the flash
-    kernels on its stage's 11 layers and 16 heads, the xent kernels on its
+    kernels on its stage's layers and 16 heads, the xent kernels on its
     16000 vocab columns at the last stage), buffer audit, peak memory of
     the walk and of the step beside the state it holds, step and gloo
-    seconds, and 1f1b's stage-0 walk peak beside gpipe's.  Held: bf16,
-    against phase 20's unpipelined losses, the step-0 loss of both
-    schedules within 2e-2 + 2e-2|x| and gpipe's steps 1-2 within
+    seconds, and 1f1b's stage-0 walk peak beside gpipe's.  Held: bf16 at
+    4 layers, against the unpipelined losses, the step-0 loss of both
+    schedules within 2e-2 + 2e-2|x| and gpipe's step 1 within
     TP_LATER_LIMIT, every step-0 gradient leaf within 5e-2 of the leaf's
     max; f32 at 2 layers, every loss within NESTED_F32_LIMIT +
     NESTED_F32_LIMIT|x| and each step-0 gradient leaf within 2e-4 of the
@@ -3810,7 +3844,9 @@ def train_nested(torch, unpiped: list) -> dict:
 
     cfg = _nested_cfg("bf16")
     strat = StrategySpec(**NESTED)
-    graph = model_graph(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    # the plan is picked for the full model; the run is cut to cfg's depth
+    graph = model_graph(dataclasses.replace(cfg, n_layers=22), TRAIN_BATCH,
+                        TRAIN_SEQ)
     picked = auto_parallel(graph, 4, V100_PAPER)
     print(f"[nested] auto_parallel over 4 x {V100_PAPER.name} at "
           f"{TRAIN_BATCH} x {TRAIN_SEQ}: {picked.describe()}", flush=True)
@@ -3825,17 +3861,20 @@ def train_nested(torch, unpiped: list) -> dict:
               f"{c.bubble * 1e3:.2f}; memory {c.mem_bytes / 2**30:.2f} GiB "
               f"a device)", flush=True)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_nested_")
-    want = {"bf16": list(unpiped)}
+    want = {}
+    t0 = time.perf_counter()
     try:
         for name in NESTED_RUNS:
-            got = _unpipelined_reference(torch, name,
-                                         os.path.join(tmp, f"{name}.pt"))
-            if name == "f32":
-                want[name] = got
+            want[name] = _unpipelined_reference(
+                torch, name, os.path.join(tmp, f"{name}.pt"))
             torch.cuda.empty_cache()
-        print(f"[nested] unpipelined, unsharded f32 at 2 layers: losses "
-              f"{want['f32']}; bf16: phase 20's {want['bf16']}", flush=True)
+        print(f"[nested] unpipelined, unsharded: bf16 at "
+              f"{NESTED_RUNS['bf16'][0]} layers, losses {want['bf16']}; f32 "
+              f"at 2 layers, losses {want['f32']}", flush=True)
+        t1 = time.perf_counter()
         ranks = spawn_ranks(_nested_rank, tmp, nprocs=4, timeout=600)
+        print(f"[nested] seconds: the unpipelined references {t1 - t0:.1f}; "
+              f"four ranks {time.perf_counter() - t1:.1f}", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     ranks.sort(key=lambda r: (r["stage"], r["model"]))
@@ -3896,7 +3935,7 @@ def train_nested(torch, unpiped: list) -> dict:
             if diffs[0] > 2e-2 + 2e-2 * abs(ref[0]):
                 fails.append(f"{run} step-0 loss |diff| {diffs[0]}")
             if len(diffs) > 1 and max(diffs[1:]) > TP_LATER_LIMIT:
-                fails.append(f"{run} steps 1-2 |diff| {diffs[1:]} above "
+                fails.append(f"{run} later steps |diff| {diffs[1:]} above "
                              f"{TP_LATER_LIMIT}")
             limit = GRAD_TOL[str(torch.bfloat16)]
         else:
@@ -3948,7 +3987,7 @@ def train_nested(torch, unpiped: list) -> dict:
 #: runs 1-3 serve tinyllama's full width at this depth (cut from 22 to
 #: hold the script's time: the multi-rank serving path is the same at
 #: every depth)
-TP_SERVE_LAYERS = 8
+TP_SERVE_LAYERS = 4
 TP_DEPTH = ["--overrides", f"n_layers={TP_SERVE_LAYERS}"]
 #: run 1: phase 4's paged workload at TP_SERVE_LAYERS layers
 TP_PAGED_ARGS = PAGED_ARGS + TP_DEPTH
@@ -3968,21 +4007,18 @@ TF_STEPS = 16                   # teacher-forced decode steps
 TF_PROMPT = 500                 # two prompts of this many tokens
 #: teacher-forced runs: name -> (layers, activation dtype, caches)
 TF_RUNS = {"bf16": (TP_SERVE_LAYERS, "bfloat16", ("paged", "dense")),
-           "bf16_4": (4, "bfloat16", ("paged",)),
            "f32": (2, "float32", ("paged", "dense")),
-           "f32_deep": (TP_SERVE_LAYERS, "float32", ("paged", "dense")),
-           "f32_4": (4, "float32", ("paged",))}
+           "f32_deep": (TP_SERVE_LAYERS, "float32", ("paged", "dense"))}
 TF_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 #: a bf16 run's yardstick: bf16's own error, the unsharded bf16 run's
 #: paged logits against the same weights' in f32 at the same depth
-TF_YARDSTICK = {"bf16": "f32_deep", "bf16_4": "f32_4"}
+TF_YARDSTICK = {"bf16": "f32_deep"}
 #: the bf16 gate in yardsticks: two bf16 computations of the same logits,
 #: each within bf16's own error of the f32 ones, lie within twice it of
 #: each other
 TF_PAIR = 2.0
 #: the runs of one depth share one draw of the weights
-TF_DEPTHS = {TP_SERVE_LAYERS: ("bf16", "f32_deep"), 4: ("bf16_4", "f32_4"),
-             2: ("f32",)}
+TF_DEPTHS = {TP_SERVE_LAYERS: ("bf16", "f32_deep"), 2: ("f32",)}
 
 
 def _tf_model(torch, name: str):
@@ -4131,13 +4167,14 @@ def _serve_run(torch, kernels, argv: list, rec: dict) -> dict:
 
 
 def _tf_compare(torch, names: tuple, plan_mesh, ref_dir: str,
-                out: dict) -> None:
+                out: dict, only: tuple | None = None) -> None:
     """Run each of TF_RUNS[names] (one depth: one draw of the weights, each
     run serving its own cast of it) under ``plan_mesh`` for each of its
-    caches and hold the logits against the unsharded process's (in
-    ``ref_dir``).  The bf16 run at full depth runs its dense cache once
-    more with a planted fault, the max of the sequence-split softmax left
-    unreduced (each rank's own), which the bf16 gate must reject."""
+    caches (``only`` these, where given) and hold the logits against the
+    unsharded process's (in ``ref_dir``).  With all its caches the bf16
+    run runs its dense cache once more with a planted fault, the max of
+    the sequence-split softmax left unreduced (each rank's own), which the
+    bf16 gate must reject."""
     from repro_torch.core import sharding
     from repro_torch.core.planner import compile_plan
 
@@ -4149,8 +4186,8 @@ def _tf_compare(torch, names: tuple, plan_mesh, ref_dir: str,
             masters = plan.init_params(0)
         params = model.serving_params(masters)
         _, dtype, caches = TF_RUNS[name]
-        runs = [(cache, cache) for cache in caches]
-        if name == "bf16" and plan_mesh is not None:
+        runs = [(cache, cache) for cache in only or caches]
+        if name == "bf16" and plan_mesh is not None and only is None:
             runs.append(("dense", "dense_fault"))
         for cache, tag in runs:
             real = sharding.all_reduce_max
@@ -4194,9 +4231,9 @@ def _serve_tp_rank(rank: int, store: str, out_dir: str, ref_dir: str) -> None:
                 torch, kernels, ["--arch", ARCH, "--cache", cache,
                                  "--page-size", "64"] + F32_SERVE + mesh,
                 rec)
-        for depth in (TP_SERVE_LAYERS, 2):
-            _tf_compare(torch, TF_DEPTHS[depth], parse_mesh("1x2"), ref_dir,
-                        out)
+        # f32_deep is the bf16 run's yardstick, run unsharded only
+        for names in (("bf16",), ("f32",)):
+            _tf_compare(torch, names, parse_mesh("1x2"), ref_dir, out)
             torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
@@ -4225,7 +4262,8 @@ def _serve_dp_tp_rank(rank: int, store: str, out_dir: str,
         instrument_servers(torch, stats, rec)
         out["paged"] = _serve_run(torch, kernels,
                                   DP_TP_ARGS + ["--mesh", "2x2"], rec)
-        _tf_compare(torch, ("bf16_4",), parse_mesh("2x2"), ref_dir, out)
+        _tf_compare(torch, ("bf16",), parse_mesh("2x2"), ref_dir, out,
+                    only=("paged",))
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -4324,9 +4362,8 @@ def serve_tp(torch, kernels, paged4: dict) -> dict:
     launches, TTFT and TPOT with their gloo seconds, peaks beside the
     weights and KV held, the tokens against the unsharded ones as a count.
     Held: every rank's tokens equal; launches those of its admissions and
-    steps; the teacher-forced logits in f32 (2 and TP_SERVE_LAYERS layers)
-    within 1e-4
-    + 1e-4|x|; in bf16 within 2e-2 + 2e-2|x| scaled by TF_PAIR times
+    steps; the teacher-forced logits in f32 (2 layers) within 1e-4 +
+    1e-4|x|; in bf16 within 2e-2 + 2e-2|x| scaled by TF_PAIR times
     bf16's own error at the same depth (the yardstick: the worst share of
     that limit of the unsharded bf16 logits against the same weights' in
     f32, which exceeds 1 at depth), and a planted fault (the dense cache's
@@ -4388,12 +4425,11 @@ def serve_tp(torch, kernels, paged4: dict) -> dict:
               f"{yard[b]['max_abs']:.3e}, worst share of 0.02 + 0.02|x| "
               f"{yard[b]['worst']:.3f}; the gate {TF_PAIR:g} x it",
               flush=True)
-    for rs, names in ((ranks, ("bf16", "f32", "f32_deep")),
-                      (ranks4, ("bf16_4",))):
+    for rs, names in ((ranks, ("bf16", "f32")), (ranks4, ("bf16",))):
         for name in names:
-            faults = ("dense_fault",) if name == "bf16" else ()
-            for cache in TF_RUNS[name][2] + faults:
-                key = f"tf/{name}/{cache}"
+            for key in sorted(k for k in rs[0]
+                              if k.startswith(f"tf/{name}/")):
+                cache = key.split("/")[2]
                 gaps = [r[key] for r in rs]
                 gap = max(g["max_abs"] for g in gaps)
                 worst = max(g["worst"] for g in gaps)
@@ -4692,10 +4728,11 @@ MOE_TRAIN_ARGS = ["--arch", MOE, "--overrides",
                   str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--steps",
                   str(MOE_TRAIN_STEPS), "--optimizer", "adamw",
                   "--log-every", "1"]
-#: the split's runs: name -> (layers, activation dtype); bf16 at 2 layers
-#: is the path, f32 at 1 holds it to f32's limits
-MOE_SPLIT_RUNS = {"bf16": (2, "bfloat16"), "f32": (1, "float32")}
-MOE_SPLIT_BATCH, MOE_SPLIT_STEPS = 2, 3
+#: the split's runs: name -> (layers, activation dtype): f32 at 1 layer,
+#: held to f32's limits (the split's bf16 path runs in phase 32,
+#: pipelined over model 2 and served split×2)
+MOE_SPLIT_RUNS = {"f32": (1, "float32")}
+MOE_SPLIT_BATCH, MOE_SPLIT_STEPS = 2, 2
 MOE_EP_ROWS = 2                 # moe_block_ep: one row of 2048 a rank
 #: decode's floor: every expert weight read once a step (31.0 GB at
 #: 3.35 TB/s; the port runs every expert on its capacity buffer)
@@ -4803,6 +4840,7 @@ def moe_serve(torch, kernels) -> tuple:
     finally:
         srv.Server.step = real_step
     torch.cuda.empty_cache()
+    t_served = time.perf_counter()
     same, total = _same_tokens(out["paged"][1]["out_tokens"],
                                out["dense"][1]["out_tokens"])
     print(f"[moe] paged against dense tokens: {same} of {total} equal "
@@ -4875,6 +4913,8 @@ def moe_serve(torch, kernels) -> tuple:
     if not g["worst"] <= 1:
         fails.append("f32 teacher-forced logits outside 1e-4 + 1e-4|x|")
     torch.cuda.empty_cache()
+    print(f"[moe] serving seconds: the teacher-forced runs "
+          f"{time.perf_counter() - t_served:.1f}", flush=True)
     if fails:
         raise AssertionError("; ".join(fails))
     return out["paged"][0], out["dense"][0]
@@ -5031,7 +5071,7 @@ def _route_recorder(torch, record: list):
 
 
 def _moe_steps(torch, plan, params, first: dict, routing: list,
-               micro_batches: int = 1, stats: dict | None = None) -> dict:
+               stats: dict | None = None) -> dict:
     """MOE_SPLIT_STEPS AdamW steps (a constant PP_LR) of ``plan`` from
     ``params`` on the driver's stream of MOE_SPLIT_BATCH x TRAIN_SEQ
     batches: losses, step and gloo seconds; ``first`` gets the step-0
@@ -5054,8 +5094,7 @@ def _moe_steps(torch, plan, params, first: dict, routing: list,
             first.update(zip(*flatten(grads)))
         return real_apply(grads, *args, **kw)
 
-    step_fn = plan.train_step_fn(dataclasses.replace(opt, apply=apply),
-                                 micro_batches=micro_batches)
+    step_fn = plan.train_step_fn(dataclasses.replace(opt, apply=apply))
     data = TokenPipeline(DataCfg(global_batch=MOE_SPLIT_BATCH,
                                  seq_len=TRAIN_SEQ,
                                  vocab=plan.model.cfg.vocab, seed=0),
@@ -5088,8 +5127,7 @@ def _moe_rank(rank: int, store: str, out_dir: str) -> None:
     (d) ``moe_block_ep`` at deepseek's block shape in f32 on this rank's
     row and 32 experts, against ``moe_block`` on both rows and all 64
     experts here.  (c) For each of MOE_SPLIT_RUNS, rank 0 first runs the
-    unsharded steps (and, in bf16, the same a row at a time: bf16's own
-    rounding, the yardstick) while rank 1 waits; then both run
+    unsharded steps while rank 1 waits; then both run
     ``compile_plan(StrategySpec(tp=2, ep=2))`` from the same draw (each
     rank draws the model and keeps its blocks), its step-0 gradient
     gathered onto rank 0 leaf by leaf and held there; then, at f32, the
@@ -5181,14 +5219,6 @@ def _moe_rank(rank: int, store: str, out_dir: str) -> None:
                 r = _moe_steps(torch, compile_plan(model, None),
                                model.init(0), ref_first, ref_routing)
                 run["ref"] = r
-                if name == "bf16":
-                    rows_first = {}
-                    run["ref_rows"] = _moe_steps(
-                        torch, compile_plan(model, None), model.init(0),
-                        rows_first, [],
-                        micro_batches=MOE_SPLIT_BATCH)["losses"]
-                    run["yard"] = grad_gaps(rows_first, ref_first)
-                    del rows_first
                 ref_first = {k: v.cpu() for k, v in ref_first.items()}
                 torch.cuda.empty_cache()
             dist.barrier()
@@ -5274,17 +5304,12 @@ def moe_split(torch) -> dict:
     """Phase 28 (c, d) from two ranks on ``cuda:0`` over gloo
     (:func:`_moe_rank`).  Everything is printed before it is held:
     ``moe_block_ep`` within f32's 2e-5 (values) and 2e-4 of each leaf's
-    max (gradients) of ``moe_block``; the split at bf16, step-0 loss within
-    2e-2 + 2e-2|x| and each gathered gradient leaf within 5e-2 of its max
-    of the unsharded step (the routed experts' within TF_PAIR times the
-    larger of that and the unsharded step a row at a time), steps 1-2
-    within 2e-2 + 2e-2|x| too (the row-at-a-time losses printed beside
-    them); at f32, every loss within 1e-4 + 1e-4|x| and each gradient
-    leaf within 2e-4; the routing
-    assignments that differ from the unsharded step-0 forward counted;
-    the M6 nesting derives ``StrategySpec(ep=2, vocab_split=False)`` and
-    its losses hold to the f32 limit.  Returns the ranks' summed bf16
-    launches."""
+    max (gradients) of ``moe_block``; the split in f32 at 1 layer, every
+    loss within 1e-4 + 1e-4|x| and each gradient leaf within 2e-4 of the
+    unsharded step's; the routing assignments that differ from the
+    unsharded step-0 forward counted; the M6 nesting derives
+    ``StrategySpec(ep=2, vocab_split=False)`` and its losses hold to the
+    f32 limit.  Returns the ranks' summed launches of the split."""
     import dataclasses
 
     from repro_torch.core.cost_model import StrategySpec
@@ -5299,72 +5324,52 @@ def moe_split(torch) -> dict:
               f"{o['ep']['counts']}", flush=True)
         if any(o["ep"]["counts"].values()):
             fails.append("moe_block_ep launched a kernel")
-    cfg = _moe_cfg(n_layers=MOE_SPLIT_RUNS["bf16"][0])
-    exp = train_expected(cfg.n_layers, MOE_SPLIT_STEPS,
-                         cfg.padded_vocab // 2, rows=MOE_SPLIT_BATCH)
-    for name in MOE_SPLIT_RUNS:
-        ref = ranks[0][name]["ref"]["losses"]
-        got = ranks[0][name]["split"]["losses"]
-        for r, o in enumerate(ranks):
-            s = o[name]["split"]
-            print(f"[moe] split {name} ({MOE_SPLIT_RUNS[name][0]} layers), "
-                  f"model rank {r}: {s['local_params']:,} parameters, "
-                  f"{s['local_experts']} experts a layer; losses "
-                  f"{s['losses']}, step seconds "
-                  f"{[round(x, 3) for x in s['seconds']]} (two processes "
-                  f"time-slice one card), gloo seconds "
-                  f"{[round(x, 3) for x in s['gloo_s']]} over "
-                  f"{s['collectives']} collectives; launches {s['counts']}",
-                  flush=True)
-            if s["losses"] != got:
-                fails.append(f"{name}: the ranks report different losses")
-            if name == "bf16" and s["counts"] != exp:
-                fails.append(f"split rank {r}: launches {s['counts']}, "
-                             f"want {exp}")
-        rel = ranks[0][name]["grads_rel"]
-        diffs = [abs(a - b) for a, b in zip(got, ref)]
-        flips, total = ranks[0][name]["routing"]
-        print(f"[moe] split {name} against unsharded: losses {got} vs {ref}, "
-              f"|diff| by step {diffs}; routing: {flips} of {total} tokens' "
-              f"top-6 sets differ from the unsharded step-0 forward",
+    (name, (layers, _)), = MOE_SPLIT_RUNS.items()
+    cfg = _moe_cfg(n_layers=layers)
+    exp = train_expected(layers, MOE_SPLIT_STEPS, cfg.padded_vocab // 2,
+                         rows=MOE_SPLIT_BATCH)
+    ref = ranks[0][name]["ref"]["losses"]
+    got = ranks[0][name]["split"]["losses"]
+    for r, o in enumerate(ranks):
+        s = o[name]["split"]
+        print(f"[moe] split {name} ({layers} layers), model rank {r}: "
+              f"{s['local_params']:,} parameters, {s['local_experts']} "
+              f"experts a layer; losses {s['losses']}, step seconds "
+              f"{[round(x, 3) for x in s['seconds']]} (two processes "
+              f"time-slice one card), gloo seconds "
+              f"{[round(x, 3) for x in s['gloo_s']]} over "
+              f"{s['collectives']} collectives; launches {s['counts']}",
               flush=True)
-        if name == "bf16":
-            rows = ranks[0][name]["ref_rows"]
-            print(f"[moe] unsharded bf16 a row at a time: losses {rows}, "
-                  f"|diff| from one micro-batch "
-                  f"{[abs(a - b) for a, b in zip(rows, ref)]} (bf16's "
-                  f"rounding: the yardstick for the split's steps 1-2)",
-                  flush=True)
-            # every loss to bf16's value rule: phase 23's 2e-2 absolute
-            # for steps 1-2 does not allow for the tokens whose top-6
-            # sets flip, which AdamW's first, sign-like steps amplify
-            fails += [f"bf16 step-{i} loss |diff| {d}"
-                      for i, (d, x) in enumerate(zip(diffs, ref))
-                      if d > 2e-2 + 2e-2 * abs(x)]
-            fails += hold_grads("split bf16 step 0 against unsharded", rel,
-                                ranks[0][name]["yard"],
-                                GRAD_TOL[str(torch.bfloat16)])
-        else:
-            if any(d > TP_F32_LIMIT + TP_F32_LIMIT * abs(x)
-                   for d, x in zip(diffs, ref)):
-                fails.append(f"f32 losses |diff| {diffs}")
-            fails += hold_grads("split f32 step 0 against unsharded", rel,
-                                None, GRAD_TOL[str(torch.float32)])
-            m6 = ranks[0]["f32"]["m6"]
-            want = dataclasses.asdict(StrategySpec(ep=2, vocab_split=False))
-            m6d = [abs(a - b) for a, b in zip(m6["losses"], ref)]
-            print(f"[moe] M6 nesting replica{{split[experts]}} recorded on 2 "
-                  f"ranks: lower: {m6['describe']}; compile_nested_plan's "
-                  f"losses {m6['losses']} vs unsharded {ref}, |diff| {m6d}",
-                  flush=True)
-            if m6["strategy"] != want:
-                fails.append(f"M6 nesting derived {m6['strategy']}")
-            if any(d > TP_F32_LIMIT + TP_F32_LIMIT * abs(x)
-                   for d, x in zip(m6d, ref)):
-                fails.append(f"M6 nesting losses |diff| {m6d}")
+        if s["losses"] != got:
+            fails.append(f"{name}: the ranks report different losses")
+        if s["counts"] != exp:
+            fails.append(f"split rank {r}: launches {s['counts']}, want "
+                         f"{exp}")
+    rel = ranks[0][name]["grads_rel"]
+    diffs = [abs(a - b) for a, b in zip(got, ref)]
+    flips, total = ranks[0][name]["routing"]
+    print(f"[moe] split {name} against unsharded: losses {got} vs {ref}, "
+          f"|diff| by step {diffs}; routing: {flips} of {total} tokens' "
+          f"top-6 sets differ from the unsharded step-0 forward", flush=True)
+    if any(d > TP_F32_LIMIT + TP_F32_LIMIT * abs(x)
+           for d, x in zip(diffs, ref)):
+        fails.append(f"f32 losses |diff| {diffs}")
+    fails += hold_grads("split f32 step 0 against unsharded", rel, None,
+                        GRAD_TOL[str(torch.float32)])
+    m6 = ranks[0][name]["m6"]
+    want = dataclasses.asdict(StrategySpec(ep=2, vocab_split=False))
+    m6d = [abs(a - b) for a, b in zip(m6["losses"], ref)]
+    print(f"[moe] M6 nesting replica{{split[experts]}} recorded on 2 ranks: "
+          f"lower: {m6['describe']}; compile_nested_plan's losses "
+          f"{m6['losses']} vs unsharded {ref}, |diff| {m6d}", flush=True)
+    if m6["strategy"] != want:
+        fails.append(f"M6 nesting derived {m6['strategy']}")
+    if any(d > TP_F32_LIMIT + TP_F32_LIMIT * abs(x)
+           for d, x in zip(m6d, ref)):
+        fails.append(f"M6 nesting losses |diff| {m6d}")
     if fails:
         raise AssertionError("; ".join(fails))
-    return {k: sum(r["bf16"]["split"]["counts"][k] for r in ranks)
+    return {k: sum(r[name]["split"]["counts"][k] for r in ranks)
             for k in exp}
 
 
@@ -5373,7 +5378,7 @@ def moe_split(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 CB_SEQ = 1024                   # phase 29: tinyllama's width, one layer
-CB_STEPS = 3
+CB_STEPS = 2                    # step 1 carries step 0's error
 CB_ZEROS = (0, 1, 3)
 CB_MAX_FLIPS = 0.01             # int8 flips allowed against the yardstick
 
@@ -5674,7 +5679,7 @@ def compressed_blocks(torch) -> dict:
 # phase 30: mamba2-1.3b training at full width and depth
 # ---------------------------------------------------------------------------
 
-M2_TRAIN_STEPS = 4
+M2_TRAIN_STEPS = 3
 M2_TRAIN_ARGS = ["--arch", MAMBA, "--batch", str(TRAIN_BATCH), "--seq",
                  str(TRAIN_SEQ), "--steps", str(M2_TRAIN_STEPS),
                  "--optimizer", "adamw", "--log-every", "1"]
@@ -6196,6 +6201,701 @@ def mamba2_split(torch) -> dict:
             "serve_mamba2_split": total(lambda o: o["serve/bf16"]["counts"])}
 
 
+# ---------------------------------------------------------------------------
+# phase 32: the MoE family across the engine
+# ---------------------------------------------------------------------------
+
+#: (a, b): deepseek at full width and 2 layers, one a stage (AdamW's state
+#: at 28 layers, ~270 GB, fits no card), on launch.train's stream of
+#: TRAIN_BATCH x TRAIN_SEQ batches in PP_MICRO micro-batches of a row,
+#: 1f1b, AdamW at a constant PP_LR
+MOE_PP_LAYERS, MOE_PP_STEPS = 2, 3
+#: the runs of (a) and (b): name -> (activation dtype, steps); bf16 is the
+#: path, f32 holds its step 0 to f32's limits
+MOE_PP_RUNS = {"bf16": ("bfloat16", MOE_PP_STEPS), "f32": ("float32", 1)}
+#: (a) and (b): world -> the model axis beside pipeline×2 (data 1)
+MOE_PP_MODEL = {2: 1, 4: 2}
+#: (c): data 2 in f32 at 2 layers, a row of TRAIN_SEQ a replica
+MOE_DP_BATCH = 2
+#: (d): the depth served at split×2 and data 2 x model 2.  Each rank of
+#: a meshed plan draws the whole model and rank 0's draw is broadcast
+#: through host memory over gloo (31.4 GB at 28 layers in bf16, twice
+#: over, and an f32 yardstick of 62.9 GB beside it), so the meshed runs
+#: serve 4 and 2 layers; phase 28 serves all 28 on one card
+MOE_TP_LAYERS, MOE_DPTP_LAYERS = 4, 2
+MOE_TP_SERVE = ["--arch", MOE, "--cache", "paged", "--page-size", "64",
+                "--requests", "8", "--batch-slots", "8", "--prompt-len",
+                "256", "--gen", "32", "--max-len", "512"]
+MOE_TP_ARGS = MOE_TP_SERVE + ["--overrides", "param_dtype=bfloat16,"
+                              f"n_layers={MOE_TP_LAYERS}"]
+MOE_DPTP_ARGS = MOE_TP_SERVE + ["--overrides", "param_dtype=bfloat16,"
+                                f"n_layers={MOE_DPTP_LAYERS}"]
+MOE_F32_ARGS = MOE_TP_SERVE[:6] + [
+    "--requests", "4", "--batch-slots", "4", "--prompt-len", "256", "--gen",
+    "16", "--max-len", "512", "--overrides",
+    f"param_dtype=bfloat16,n_layers={MOE_DPTP_LAYERS},dtype=float32"]
+#: (d)'s teacher-forced runs: name -> (layers, activation dtype); the
+#: weights of a depth are one bf16 draw, cast for the f32 runs
+MOE_TF = {"bf16": (MOE_TP_LAYERS, "bfloat16"),
+          "f32_yard": (MOE_TP_LAYERS, "float32"),
+          "f32": (MOE_DPTP_LAYERS, "float32")}
+
+
+def _moe_steps_log(rec: dict) -> str:
+    return (f"losses {[round(x, 6) for x in rec['losses']]}, moe_lb "
+            f"{[round(x, 6) for x in rec['moe_lb']]}, moe_z "
+            f"{[round(x, 6) for x in rec['moe_z']]}")
+
+
+def _moe_unpiped(torch, dtype: str, path: str) -> dict:
+    """The unpipelined, unsharded step of phase 32 (a, b) from seed 0:
+    MOE_PP_STEPS AdamW steps of ``train_step_fn(micro_batches=PP_MICRO)``
+    on launch.train's stream; losses, ``moe_lb``, ``moe_z``, step seconds
+    and the peak; its step-0 gradient saved to ``path`` on the host."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core.planner import compile_plan
+    from repro_torch.data.pipeline import DataCfg, TokenPipeline
+    from repro_torch.models.lm import Model
+    from repro_torch.optim.optimizer import adamw
+    from repro_torch.tree import flatten
+
+    model = Model(_moe_cfg(n_layers=MOE_PP_LAYERS, dtype=dtype))
+    params = model.init(0)
+    opt = adamw(lr=PP_LR)
+    state = opt.init(params)
+    first = {}
+    real_apply = opt.apply
+
+    def apply(grads, *args, **kw):
+        if not first:
+            first.update((k, v.cpu()) for k, v in zip(*flatten(grads)))
+        return real_apply(grads, *args, **kw)
+
+    step_fn = compile_plan(model, None).train_step_fn(
+        dataclasses.replace(opt, apply=apply), micro_batches=PP_MICRO)
+    data = TokenPipeline(DataCfg(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                 vocab=model.cfg.vocab, seed=0),
+                         host_id=0, n_hosts=1)
+    rec = {"losses": [], "moe_lb": [], "moe_z": [], "seconds": []}
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(MOE_PP_STEPS):
+        batch = {"tokens": torch.as_tensor(
+            np.asarray(data.next_batch()["tokens"])).cuda()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch, i)
+        torch.cuda.synchronize()
+        rec["seconds"].append(time.perf_counter() - t0)
+        for k in ("loss", "moe_lb", "moe_z"):
+            rec["losses" if k == "loss" else k].append(float(m[k]))
+    rec["peak"] = torch.cuda.max_memory_allocated()
+    del params, state
+    torch.save(first, path)
+    return rec
+
+
+def _block_gaps(grads: dict, ref: dict, specs: dict | None = None,
+                rules=None, stage: int | None = None, sl=None) -> dict:
+    """Per leaf of this rank's gradient ``grads`` ({path: tensor} on the
+    card): [max |diff| against its block of the whole-model gradient
+    ``ref`` (host), max |ref| over the whole leaf], a leaf at a time on
+    the card."""
+    from repro_torch.core import sharding
+    from repro_torch.core.pipeline import _rows as stage_rows
+
+    out = {}
+    for path, g in grads.items():
+        w = ref[path].to(g.device)
+        top = float(w.abs().max())
+        if stage is not None and path.startswith("blocks/"):
+            w = stage_rows(w, stage, sl)
+        if specs is not None:
+            w = sharding.shard_leaf(w, specs[path], rules)
+        out[path] = [max_err(g, w), top]
+        del w
+    return out
+
+
+def _moe_pp_part(torch, world: int, ref_dir: str, kernels, stats: dict,
+                 whole: dict | None = None) -> dict:
+    """Phase 32 (a) (``world`` 2: pipeline×2) or (b) (4: pipeline×2 over
+    model 2, 32 experts a rank) in a rank: this stage's rows of the whole
+    model (``whole``, or a draw of it here), cut as
+    ``init_pipeline_params`` cuts them, then for each of MOE_PP_RUNS from
+    it its steps of 1f1b through ``pipeline_train_step_fn``; losses,
+    ``moe_lb``, ``moe_z``, step and gloo seconds, peaks beside the state
+    held, launches, and the step-0 gradient blocks against the
+    unpipelined one in ``ref_dir/<run>.pt``."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import sharding
+    from repro_torch.core.cost_model import StrategySpec
+    from repro_torch.core.pipeline import stage_state
+    from repro_torch.core.planner import compile_plan, mesh_for_strategy
+    from repro_torch.data.pipeline import DataCfg, TokenPipeline
+    from repro_torch.models.lm import Model
+    from repro_torch.optim.optimizer import adamw
+    from repro_torch.tree import flatten, tree_map
+
+    mp = MOE_PP_MODEL[world]
+    strat = StrategySpec(pp=2, tp=mp, ep=mp, micro_batches=PP_MICRO,
+                         schedule="1f1b")
+    mesh = mesh_for_strategy(strat)
+    stage = mesh.get_local_rank("stage")
+    out = {"stage": stage, "model": mesh.get_local_rank("model")}
+    init = None
+    for name, (dtype, steps) in MOE_PP_RUNS.items():
+        plan = compile_plan(Model(_moe_cfg(n_layers=MOE_PP_LAYERS,
+                                           dtype=dtype)), mesh, strat)
+        sl = plan.stage_layers()
+        if init is None:            # f32 masters: one draw serves both runs
+            init = plan.shard(stage_state(
+                whole if whole is not None else _moe_draw(plan.model),
+                stage, sl), sharding.within_stage(plan.param_specs))
+        params = tree_map(torch.clone, init)
+        opt = adamw(lr=PP_LR)
+        state = opt.init(params)
+        held = 4 * (2 * sum(p.numel() for p in flatten(params)[1])
+                    + sum(p.numel() for p in flatten(state)[1]))
+        ref = torch.load(os.path.join(ref_dir, f"{name}.pt"), mmap=True)
+        specs = dict(zip(*flatten(sharding.within_stage(plan.param_specs))))
+        gaps = {}
+        real_apply = opt.apply
+
+        def apply(grads, *args, real_apply=real_apply, gaps=gaps, ref=ref,
+                  specs=specs, plan=plan, sl=sl, **kw):
+            if not gaps:
+                gaps.update(_block_gaps(dict(zip(*flatten(grads))), ref,
+                                        specs, plan.rules, stage, sl))
+            return real_apply(grads, *args, **kw)
+
+        step_fn = plan.pipeline_train_step_fn(
+            dataclasses.replace(opt, apply=apply))
+        data = TokenPipeline(DataCfg(
+            global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+            vocab=plan.model.cfg.vocab, seed=0), host_id=0, n_hosts=1)
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        rec = {"losses": [], "moe_lb": [], "moe_z": [], "seconds": [],
+               "gloo_s": [], "peaks": []}
+        for i in range(steps):
+            toks = plan.batch_slice({"tokens": torch.as_tensor(
+                np.asarray(data.next_batch()["tokens"]))})["tokens"].cuda()
+            torch.cuda.reset_peak_memory_stats()
+            s0 = stats["s"]
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, toks, i)
+            torch.cuda.synchronize()
+            rec["seconds"].append(time.perf_counter() - t0)
+            rec["gloo_s"].append(stats["s"] - s0)
+            rec["peaks"].append(torch.cuda.max_memory_allocated())
+            for k in ("loss", "moe_lb", "moe_z"):
+                rec["losses" if k == "loss" else k].append(float(m[k]))
+        rec.update(counts=read_counts(kernels), held=held, grads=gaps,
+                   experts=int(params["blocks"]["p0"]["moe"]["w_in"]
+                               .shape[1]), stage_layers=list(sl),
+                   vp=int(params["head"]["w"].shape[1]))
+        out[name] = rec
+        del ref, params, state, step_fn, plan
+        torch.cuda.empty_cache()
+    del init
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_draw(model) -> dict:
+    """``model``'s parameters from seed 0, drawn by this rank.  The ranks
+    of phase 32 share one card, so every rank's draw is the same and none
+    is broadcast (the plan's ``init_params`` broadcasts rank 0's, for
+    ranks on several cards: gigabytes through host memory over gloo)."""
+    return model.init(0)
+
+
+def _moe_dp_plan(torch):
+    """Phase 32 (c)'s plan, ``StrategySpec(dp=2)`` over deepseek at full
+    width and 2 layers in f32 (a world of two)."""
+    from repro_torch.core.cost_model import StrategySpec
+    from repro_torch.core.planner import compile_plan, mesh_for_strategy
+    from repro_torch.models.lm import Model
+
+    strat = StrategySpec(dp=2)
+    return compile_plan(Model(_moe_cfg(n_layers=MOE_PP_LAYERS,
+                                       dtype="float32")),
+                        mesh_for_strategy(strat), strat)
+
+
+def _moe_dp_part(torch, ref_dir: str, kernels, stats: dict, plan,
+                 params: dict) -> dict:
+    """Phase 32 (c) in a rank of a world of two: :func:`_moe_dp_plan` from
+    ``params`` (its ``init_params``), one step on this rank's row of the
+    global batch (a recording optimizer: no state), with the experts'
+    balance over the global batch and then with the old per-replica
+    balance planted (no mean over data); each step's loss, ``moe_lb``,
+    ``moe_z``, launches, seconds, and its gradient against one process's
+    on both rows in ``ref_dir/dp.pt``."""
+    from repro_torch.core import sharding
+    from repro_torch.optim.optimizer import Optimizer
+    from repro_torch.tree import flatten
+
+    ref_loss, ref = torch.load(os.path.join(ref_dir, "dp.pt"), mmap=True)
+    seen = {}
+
+    def record(grads, state, p, step, **kw):
+        seen.update(_block_gaps(dict(zip(*flatten(grads))), ref))
+        return p, state
+
+    step_fn = plan.train_step_fn(Optimizer(init=lambda p: {}, apply=record,
+                                           name="record"))
+    batch = plan.batch_slice(_first_batch(torch, plan.model.cfg.vocab,
+                                          MOE_DP_BATCH))
+    out = {}
+    real = sharding.batch_splits
+    for tag, balance in (("global", True), ("per_replica", False)):
+        if not balance:
+            sharding.batch_splits = lambda: ()
+        reset_counts(kernels)
+        s0 = stats["s"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            _, _, m = step_fn(params, {}, batch, 0)
+            torch.cuda.synchronize()
+        finally:
+            sharding.batch_splits = real
+        out[tag] = {"loss": float(m["loss"]), "moe_lb": float(m["moe_lb"]),
+                    "moe_z": float(m["moe_z"]), "want_loss": ref_loss,
+                    "seconds": time.perf_counter() - t0,
+                    "gloo_s": stats["s"] - s0,
+                    "counts": read_counts(kernels), "grads": dict(seen)}
+        seen.clear()
+    del ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_tf_masters(torch, layers: int, plan_mesh):
+    """Phase 32 (d)'s weights at ``layers``: one bf16 draw from seed 0
+    (:func:`_moe_draw`), this rank's blocks of it under ``plan_mesh``
+    (whole without)."""
+    from repro_torch.core.planner import compile_plan
+    from repro_torch.models.lm import Model
+
+    model = Model(_moe_cfg(n_layers=layers, param_dtype="bfloat16"))
+    if plan_mesh is None:
+        return model.init(0)
+    plan = compile_plan(model, plan_mesh)
+    return plan.shard(_moe_draw(model), plan.param_specs)
+
+
+def _moe_tf(torch, name: str, plan_mesh, masters, fault: bool = False):
+    """Teacher-forced logits of MOE_TF[name] (paged) from ``masters``,
+    under ``plan_mesh`` or unsharded; ``fault``: the moe combine's
+    all-reduce over ``model`` left out (each rank's partial sum)."""
+    import types
+
+    from repro_torch.core import sharding
+    from repro_torch.core.planner import compile_plan
+    from repro_torch.models import moe
+    from repro_torch.models.lm import Model
+
+    layers, dtype = MOE_TF[name]
+    model = Model(_moe_cfg(n_layers=layers, dtype=dtype,
+                           param_dtype="bfloat16"))
+    plan = compile_plan(model, plan_mesh)
+    params = model.serving_params(masters)
+    if fault:
+        moe.sharding = types.SimpleNamespace(
+            **dict(vars(sharding), reduce_from=lambda x, split: x))
+    try:
+        return teacher_forced(torch, model, plan, params, "paged")
+    finally:
+        moe.sharding = sharding
+
+
+def _moe_serve_part(torch, world: int, ref_dir: str, kernels,
+                    rec: dict) -> dict:
+    """Phase 32 (d) in a rank: with ``world`` 2 at split×2 (``--mesh
+    1x2``: 32 experts, 8 q over 8 kv heads, 51200 vocab columns a rank)
+    ``serve.run``'s meshed branch at MOE_TP_LAYERS layers in bf16 (8 slots,
+    paged) and at MOE_DPTP_LAYERS in f32, then the teacher-forced runs
+    (bf16 at MOE_TP_LAYERS, f32 at MOE_DPTP_LAYERS also with the planted
+    fault); with ``world`` 4 at data 2 x model 2 ``serve.run`` at
+    MOE_DPTP_LAYERS in bf16 and the f32 teacher-forced run.  Each
+    gap against the unsharded process's logits in ``ref_dir``."""
+    from repro_torch.launch.mesh import parse_mesh
+
+    spec = "1x2" if world == 2 else "2x2"
+    out = {}
+    mesh = ["--mesh", spec]
+    out["paged"] = _serve_run(torch, kernels, (
+        MOE_TP_ARGS if world == 2 else MOE_DPTP_ARGS) + mesh, rec)
+    torch.cuda.empty_cache()
+    if world == 2:
+        out["paged_f32"] = _serve_run(torch, kernels, MOE_F32_ARGS + mesh,
+                                      rec)
+        torch.cuda.empty_cache()
+    depths = (MOE_TP_LAYERS, MOE_DPTP_LAYERS) if world == 2 \
+        else (MOE_DPTP_LAYERS,)
+    for layers in depths:
+        masters = _moe_tf_masters(torch, layers, parse_mesh(spec))
+        for name in (n for n, (ly, _) in MOE_TF.items()
+                     if ly == layers and n != "f32_yard"):
+            tol = TF_TOL[MOE_TF[name][1]]
+            want = torch.load(os.path.join(ref_dir, f"tf_{name}.pt"))
+            faults = (False, True) if world == 2 and name == "f32" \
+                else (False,)
+            for fault in faults:
+                got = _moe_tf(torch, name, parse_mesh(spec), masters, fault)
+                out[f"tf/{name}" + ("_fault" if fault else "")] = \
+                    tf_gap(got, want, tol)
+        del masters
+        torch.cuda.empty_cache()
+    return out
+
+
+def _moe_engine_rank(rank: int, store: str, out_dir: str, ref_dir: str,
+                     world: int) -> None:
+    """One rank of phase 32 on ``cuda:0`` over gloo: with ``world`` 2 (a)
+    pipeline×2, (c) the balance at data 2 and (d) serving at split×2;
+    with 4 (b) pipeline×2 over model 2 and (d) serving at data 2 x model
+    2; each part's record and seconds."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    kernels = kernel_wrappers()
+    stats, rec = {"s": 0.0, "n": 0}, {"admit": [], "step": []}
+    out = {"seconds": {}}
+    try:
+        time_collectives(torch, dist, stats)
+        instrument_servers(torch, stats, rec)
+        t0 = time.perf_counter()
+        dp = whole = None
+        if world == 2:
+            # one draw of the whole f32 model serves (a) and (c)
+            dp = _moe_dp_plan(torch)
+            whole = _moe_draw(dp.model)
+        out["seconds"]["draw"] = time.perf_counter() - t0
+        parts = [("pp", lambda: _moe_pp_part(torch, world, ref_dir,
+                                             kernels, stats, whole))]
+        if world == 2:
+            parts.append(("dp", lambda: _moe_dp_part(torch, ref_dir,
+                                                     kernels, stats, dp,
+                                                     whole)))
+        parts.append(("serve", lambda: _moe_serve_part(
+            torch, world, ref_dir, kernels, rec)))
+        for name, fn in parts:
+            t0 = time.perf_counter()
+            out[name] = fn()
+            if name == "dp":
+                dp = whole = None
+            torch.cuda.empty_cache()
+            out["seconds"][name] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _moe_grad_lines(tag: str, outs: list, gate_of) -> list:
+    """Combine the ranks' per-leaf [max |diff|, max |ref|] records
+    ``outs`` (the max over ranks), print the worst leaf, and hold each
+    leaf's max |diff| / max |ref| within ``gate_of(path)``; returns the
+    failures."""
+    paths = {}
+    for o in outs:
+        for path, (d, top) in o["grads"].items():
+            d0, _ = paths.get(path, (0.0, top))
+            paths[path] = (max(d0, d), top)
+    rel = {p: d / max(top, 1e-30) for p, (d, top) in paths.items()}
+    share = {p: r / gate_of(p) for p, r in rel.items()}
+    worst = max(share, key=share.get)
+    print(f"[moe-engine] {tag}: step-0 gradients, max |diff| relative to the "
+          f"leaf's max: worst share of its gate {share[worst]:.3f} ({worst}: "
+          f"{rel[worst]:.3e} against {gate_of(worst):.3e}); median relative "
+          f"gap {statistics.median(rel.values()):.3e} over {len(rel)} leaves",
+          flush=True)
+    return [f"{tag} gradient {p}: {rel[p]:.3e} beyond {gate_of(p):.3e}"
+            for p in rel if rel[p] > gate_of(p)]
+
+
+def _moe_references(torch, ref_dir: str) -> dict:
+    """Phase 32's unsharded references, here before the ranks: (a, b) the
+    unpipelined steps in bf16 and f32 (:func:`_moe_unpiped`) and bf16's
+    own error (the gap between them: the largest over the steps of the
+    loss's and the aux's, each step-0 gradient leaf's max |diff| relative
+    to its max); (c) one process's step on both rows of the global batch
+    (f32, its loss and gradient saved); (d) the teacher-forced logits of
+    MOE_TF, bf16's own error at MOE_TP_LAYERS, and ``serve.main``'s tokens of
+    the ranks' f32 workload."""
+    from repro_torch.core.planner import loss_and_grads
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import Model
+    from repro_torch.tree import flatten
+
+    refs = {"pp": {n: _moe_unpiped(torch, d, os.path.join(ref_dir,
+                                                          f"{n}.pt"))
+                   for n, (d, _) in MOE_PP_RUNS.items()}}
+    torch.cuda.empty_cache()
+    g16, g32 = (torch.load(os.path.join(ref_dir, f"{n}.pt"), mmap=True)
+                for n in ("bf16", "f32"))
+    refs["own"] = {p: d / max(top, 1e-30) for p, (d, top) in _block_gaps(
+        {p: v.cuda() for p, v in g16.items()}, g32).items()}
+    del g16, g32
+    refs["own_loss"] = {k: max(abs(a - b) for a, b in zip(
+        refs["pp"]["bf16"][k], refs["pp"]["f32"][k]))
+        for k in ("losses", "moe_lb", "moe_z")}
+    torch.cuda.empty_cache()
+    model = Model(_moe_cfg(n_layers=MOE_PP_LAYERS, dtype="float32"))
+    loss, m, g = loss_and_grads(model, model.init(0), _first_batch(
+        torch, model.cfg.vocab, MOE_DP_BATCH))
+    refs["dp"] = {k: float(m[k]) for k in ("moe_lb", "moe_z")}
+    torch.save((float(loss), {k: v.cpu() for k, v in zip(*flatten(g))}),
+               os.path.join(ref_dir, "dp.pt"))
+    del g, model
+    torch.cuda.empty_cache()
+    for layers in (MOE_TP_LAYERS, MOE_DPTP_LAYERS):
+        masters = _moe_tf_masters(torch, layers, None)
+        for name in (n for n, (ly, _) in MOE_TF.items() if ly == layers):
+            torch.save(_moe_tf(torch, name, None, masters),
+                       os.path.join(ref_dir, f"tf_{name}.pt"))
+        del masters
+        torch.cuda.empty_cache()
+    refs["yard"] = tf_gap(*(torch.load(os.path.join(ref_dir, f"tf_{n}.pt"))
+                            for n in ("bf16", "f32_yard")),
+                          TF_TOL["bfloat16"])
+    refs["tokens"] = serve.main(MOE_F32_ARGS)
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _moe_report_pp(torch, ranks: dict, refs: dict, fails: list) -> dict:
+    """Phase 32 (a, b): print each rank's runs beside the unpipelined
+    step's and hold them (:func:`moe_engine`); the bf16 runs' launches
+    summed over the ranks, by path."""
+    own, own_loss = refs["own"], refs["own_loss"]
+    for n, r in refs["pp"].items():
+        print(f"[moe-engine] unpipelined {n}, {MOE_PP_LAYERS} layers, "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} in {PP_MICRO} micro-batches: "
+              f"{_moe_steps_log(r)}; step seconds "
+              f"{[round(x, 3) for x in r['seconds']]}; peak "
+              f"{r['peak'] / 2**30:.2f} GiB", flush=True)
+    ow = max(own, key=own.get)
+    print(f"[moe-engine] bf16's own error (unpipelined bf16 against f32, same "
+          f"weights and batches): loss {own_loss['losses']:.3e}, moe_lb "
+          f"{own_loss['moe_lb']:.3e}, moe_z {own_loss['moe_z']:.3e} "
+          f"(largest over the steps); step-0 gradients relative to the "
+          f"leaf's max: median {statistics.median(own.values()):.3e}, "
+          f"largest {own[ow]:.3e} ({ow})", flush=True)
+    counts = {}
+    for world, rs in ranks.items():
+        what = ("(a) pipeline×2" if world == 2
+                else "(b) pipeline×2 over model 2")
+        outs = [o["pp"] for o in rs]
+        for name in MOE_PP_RUNS:
+            want = refs["pp"][name]
+            for o in outs:
+                r = o[name]
+                print(f"[moe-engine] {what} {name}, stage {o['stage']} model "
+                      f"{o['model']} ({r['experts']} experts a layer, "
+                      f"{r['vp']} vocab columns): {_moe_steps_log(r)}; step "
+                      f"seconds {[round(x, 3) for x in r['seconds']]}, gloo "
+                      f"{[round(x, 3) for x in r['gloo_s']]} (ranks "
+                      f"time-slice one card); peak "
+                      f"{max(r['peaks']) / 2**30:.2f} GiB beside "
+                      f"{r['held'] / 2**30:.2f} GiB of parameters, gradients "
+                      f"and moments held; launches {r['counts']}",
+                      flush=True)
+                if r["losses"] != outs[0][name]["losses"]:
+                    fails.append(f"{what} {name}: the ranks report "
+                                 f"different losses")
+                exp = pipeline_expected(1, MOE_PP_RUNS[name][1], r["vp"],
+                                        head=o["stage"] == 1)
+                if r["counts"] != exp:
+                    fails.append(f"{what} {name} stage {o['stage']}: "
+                                 f"launches {r['counts']}, want {exp}")
+            got = outs[0][name]
+            diffs = {k: [abs(a - b) for a, b in zip(got[k], want[k])]
+                     for k in ("losses", "moe_lb", "moe_z")}
+            print(f"[moe-engine] {what} {name} against the unpipelined step: "
+                  f"|diff| losses {diffs['losses']}, moe_lb "
+                  f"{diffs['moe_lb']}, moe_z {diffs['moe_z']}", flush=True)
+            runs = [o[name] for o in outs]
+            if name == "bf16":
+                for k, ds in diffs.items():
+                    gate = TF_PAIR * own_loss[k]
+                    fails += [f"{what} bf16 step-{i} {k} |diff| {d:.3e} "
+                              f"beyond {gate:.3e}" for i, d in enumerate(ds)
+                              if d > gate]
+                fails += _moe_grad_lines(f"{what} bf16", runs,
+                                         lambda p: TF_PAIR * own[p])
+            else:
+                for k, ds in diffs.items():
+                    fails += [f"{what} f32 step-{i} {k} |diff| {d:.3e}"
+                              for i, (d, x) in enumerate(zip(ds, want[k]))
+                              if d > TP_F32_LIMIT + TP_F32_LIMIT * abs(x)]
+                fails += _moe_grad_lines(
+                    f"{what} f32", runs,
+                    lambda p: GRAD_TOL[str(torch.float32)])
+        path = "train_moe_pipeline" if world == 2 \
+            else "train_moe_pipeline_tp"
+        counts[path] = {k: sum(o["bf16"]["counts"][k] for o in outs)
+                        for k in outs[0]["bf16"]["counts"]}
+    return counts
+
+
+def _moe_report_dp(torch, ranks: list, refs: dict, fails: list) -> dict:
+    """Phase 32 (c): print both balances' readings and hold them
+    (:func:`moe_engine`); the global balance's launches summed over the
+    ranks."""
+    limit = GRAD_TOL[str(torch.float32)]
+    want = refs["dp"]
+    outs = [o["dp"] for o in ranks]
+    for tag in ("global", "per_replica"):
+        beyond = []
+        for r, o in enumerate(outs):
+            s = o[tag]
+            print(f"[moe-engine] (c) data 2, {tag} balance, rank {r}: loss "
+                  f"{s['loss']:.7f} vs one process on both rows "
+                  f"{s['want_loss']:.7f} (|diff| "
+                  f"{abs(s['loss'] - s['want_loss']):.3e}); moe_lb "
+                  f"{s['moe_lb']:.7f} vs {want['moe_lb']:.7f}, moe_z "
+                  f"{s['moe_z']:.7f} vs {want['moe_z']:.7f}; step "
+                  f"{s['seconds']:.3f} s, gloo {s['gloo_s']:.3f}; launches "
+                  f"{s['counts']}", flush=True)
+            for k, x, w in (("loss", s["loss"], s["want_loss"]),
+                            ("moe_lb", s["moe_lb"], want["moe_lb"]),
+                            ("moe_z", s["moe_z"], want["moe_z"])):
+                if abs(x - w) > TP_F32_LIMIT + TP_F32_LIMIT * abs(w):
+                    beyond.append(f"rank {r} {k} |diff| {abs(x - w):.3e}")
+        beyond += _moe_grad_lines(f"(c) data 2, {tag} balance",
+                                  [o[tag] for o in outs], lambda p: limit)
+        if tag == "global":
+            fails += beyond
+        elif not beyond:
+            fails.append("(c) the planted per-replica balance within the "
+                         "gate")
+        else:
+            print(f"[moe-engine] (c) the planted per-replica balance misses "
+                  f"the gate: {'; '.join(beyond[:4])}", flush=True)
+    return {"train_moe_dp": {k: sum(o["global"]["counts"][k] for o in outs)
+                             for k in outs[0]["global"]["counts"]}}
+
+
+def _moe_report_serve(ranks: dict, refs: dict, fails: list) -> dict:
+    """Phase 32 (d): print each rank's served runs and teacher-forced gaps
+    and hold them (:func:`moe_engine`); the bf16 ``serve.run`` launches
+    summed over the ranks."""
+    rs2 = sorted((o["serve"] for o in ranks[2]),
+                 key=lambda r: r["paged"]["model_rank"])
+    rs4 = sorted((o["serve"] for o in ranks[4]),
+                 key=lambda r: (r["paged"]["data_rank"],
+                                r["paged"]["model_rank"]))
+    _report_run(f"(d) split×2 paged bf16, {MOE_TP_LAYERS} layers", rs2,
+                "paged", MOE_TP_LAYERS, fails)
+    _report_run(f"(d) split×2 paged f32, {MOE_DPTP_LAYERS} layers", rs2,
+                "paged_f32", MOE_DPTP_LAYERS, fails)
+    _report_run(f"(d) data 2 x model 2 paged bf16, {MOE_DPTP_LAYERS} layers",
+                rs4, "paged", MOE_DPTP_LAYERS, fails)
+    same, total = _same_tokens(rs2[0]["paged_f32"]["out_tokens"],
+                               refs["tokens"]["out_tokens"])
+    print(f"[moe-engine] (d) split×2 f32 against one unsharded process: "
+          f"{same} of {total} tokens equal position by position", flush=True)
+    if same != total:
+        fails.append("(d) split×2 f32: tokens differ")
+    yard = refs["yard"]
+    print(f"[moe-engine] (d) yardstick: bf16's own error, one unsharded "
+          f"process's teacher-forced logits at {MOE_TP_LAYERS} layers in "
+          f"bf16 against the same weights in f32: max |diff| "
+          f"{yard['max_abs']:.3e}, worst share of 0.02 + 0.02|x| "
+          f"{yard['worst']:.3f}; the gate {TF_PAIR:g} x it", flush=True)
+    for what, rs in (("split×2", rs2), ("data 2 x model 2", rs4)):
+        for key in sorted(k for k in rs[0] if k.startswith("tf/")):
+            name = key[3:].removesuffix("_fault")
+            layers, dtype = MOE_TF[name]
+            worst = max(r[key]["worst"] for r in rs)
+            gap = max(r[key]["max_abs"] for r in rs)
+            gate = TF_PAIR * yard["worst"] if dtype == "bfloat16" else 1.0
+            beyond = worst > gate
+            print(f"[moe-engine] (d) {what} teacher-forced {key[3:]} "
+                  f"({layers} layers): max |diff| {gap:.3e}, worst share of "
+                  f"{TF_TOL[dtype]:g} + {TF_TOL[dtype]:g}|x| {worst:.3f} "
+                  f"against the gate {gate:.3f}: "
+                  f"{'beyond' if beyond else 'within'}", flush=True)
+            if key.endswith("_fault"):
+                if dtype == "float32" and not beyond:
+                    fails.append(f"(d) {key}: the planted fault within the "
+                                 f"f32 gate")
+            elif beyond:
+                fails.append(f"(d) {what} {key}: {worst:.3f} beyond "
+                             f"{gate:.3f}")
+
+    def total(rs):
+        return {k: sum(r["paged"]["counts"][k] for r in rs)
+                for k in rs[0]["paged"]["counts"]}
+
+    return {"serve_moe_tp": total(rs2), "serve_moe_dp_tp": total(rs4)}
+
+
+def moe_engine(torch, kernels) -> dict:
+    """Phase 32: the MoE family across the engine.  Here first, unsharded,
+    the references (:func:`_moe_references`); then two ranks on ``cuda:0``
+    over gloo run (a) pipeline×2, (c) the balance at data 2 and (d)
+    serving at split×2, and four ranks (b) pipeline×2 over model 2 and (d)
+    serving at data 2 x model 2 (:func:`_moe_engine_rank`).  Everything is
+    printed before it is held:
+
+    - (a, b): bf16 losses, ``moe_lb`` and ``moe_z`` (every step) and each
+      step-0 gradient leaf within TF_PAIR times bf16's own error of the
+      unpipelined bf16 step; f32 within 1e-4 + 1e-4|x| (values) and 2e-4
+      of each leaf's max (gradients); the ranks' losses equal; each rank's
+      launches those of its stage;
+    - (c): the global balance's loss, ``moe_lb`` and ``moe_z`` within
+      1e-4 + 1e-4|x| and each gradient leaf within 2e-4 of its max of one
+      process on both rows; the planted per-replica balance outside that
+      gate;
+    - (d): every rank's tokens equal; launches those of its admissions and
+      steps; the f32 tokens equal to the unsharded ``serve.main``'s;
+      teacher-forced logits in bf16 within TF_PAIR times bf16's own error
+      at MOE_TP_LAYERS, in f32 within 1e-4 + 1e-4|x|; the planted fault
+      (the moe combine without its all-reduce over ``model``) outside the
+      f32 gate.
+
+    Returns the launches of each path, summed over its ranks."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_engine_")
+    t00 = time.perf_counter()
+    try:
+        refs = _moe_references(torch, tmp)
+        t0 = time.perf_counter()
+        ranks = {2: spawn_ranks(_moe_engine_rank, tmp, 2, timeout=600)}
+        t1 = time.perf_counter()
+        ranks[4] = spawn_ranks(_moe_engine_rank, tmp, 4, nprocs=4,
+                               timeout=600)
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    parts = {w: {k: round(max(o["seconds"][k] for o in rs), 1)
+                 for k in rs[0]["seconds"]} for w, rs in ranks.items()}
+    print(f"[moe-engine] seconds: the unsharded references {t0 - t00:.1f}; "
+          f"two ranks {t1 - t0:.1f} (parts {parts[2]}); four ranks "
+          f"{t2 - t1:.1f} (parts {parts[4]})", flush=True)
+    fails = []
+    counts = _moe_report_pp(torch, ranks, refs, fails)
+    counts.update(_moe_report_dp(torch, ranks[2], refs, fails))
+    counts.update(_moe_report_serve(ranks, refs, fails))
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return counts
+
+
 @contextlib.contextmanager
 def phase(name: str):
     t0 = time.perf_counter()
@@ -6332,7 +7032,7 @@ def main() -> None:
         zero_counts, wh_case2 = train_hybrid_zero(torch)
     torch.cuda.empty_cache()
     with phase("Whale's nested hybrid (split×2 pipeline×2, 4 ranks)"):
-        nested_counts, wh_case4 = train_nested(torch, unpiped)
+        nested_counts, wh_case4 = train_nested(torch)
     torch.cuda.empty_cache()
     with phase("serving over a mesh (split×2, data 2 x model 2; 2 and 4 "
                "ranks)"):
@@ -6356,6 +7056,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     with phase("mamba2 over model (split×2 training and serving, 2 ranks)"):
         m2_split_counts = mamba2_split(torch)
+    torch.cuda.empty_cache()
+    with phase("the MoE family across the engine (deepseek-moe-16b: "
+               "pipeline×2 and over model 2, the balance at data 2, served "
+               "split×2 and data 2 x model 2; 2 and 4 ranks)"):
+        moe_engine_counts = moe_engine(torch, kernels)
 
     meta = {
         "flash_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
@@ -6406,7 +7111,9 @@ def main() -> None:
                    **{path: c[name] for path, c in moe_counts.items()},
                    **{path: c[name] for path, c in cb_counts.items()},
                    "train_mamba2": m2_train_counts[name],
-                   **{path: c[name] for path, c in m2_split_counts.items()}}
+                   **{path: c[name] for path, c in m2_split_counts.items()},
+                   **{path: c[name] for path, c in
+                      moe_engine_counts.items()}}
         table.append(dict(name=name, route="cuda", source=meta[name][0],
                           replaces=meta[name][1],
                           launches=sum(by_path.values()),

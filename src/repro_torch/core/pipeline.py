@@ -45,9 +45,13 @@ over ``data`` and ``pod``.  The layout is the reference's ``staged_specs``
 (:func:`repro_torch.core.sharding.staged_specs`): nothing is sharded over
 the data axes, whatever the ZeRO stage.  ``stage_only_specs`` (the
 ``shard_map`` in-specs) has no counterpart: a rank holds its own rows.
-Not ported: the encoder–decoder two-tower engine
-(``make_encdec_pipeline_*``) comes with ``models/encdec.py`` (ROADMAP.md
-queue A item 7).
+The dense and moe families pipeline.  A moe stage carries its experts'
+leaves in its rows of ``blocks`` like any other (whole over ``model``
+inside a stage, the nesting ``pipeline{split[experts]}``) and adds its
+experts' aux losses, ``aux / M``, to the loss, reported as ``moe_lb`` and
+``moe_z``.  Not ported: the encoder–decoder two-tower engine
+(``make_encdec_pipeline_*``) comes with ``models/encdec.py``, and the ssm
+family's pipeline (ROADMAP.md queue A item 7).
 """
 from __future__ import annotations
 
@@ -65,9 +69,6 @@ from repro_torch.tree import flatten, tree_map, unflatten
 
 ENCDEC_SLICE = ("the encoder–decoder two-tower pipeline comes with "
                 "models/encdec.py (ROADMAP.md queue A item 7)")
-MOE_PIPELINE_SLICE = ("pipelining the 'moe' family (its experts' aux losses "
-                      "carried between stages) comes with a later slice of "
-                      "the port (ROADMAP.md queue A item 7)")
 SSM_PIPELINE_SLICE = ("pipelining the 'ssm' family comes with a later slice "
                       "of the port (ROADMAP.md queue A item 7)")
 
@@ -205,11 +206,9 @@ def stage_state(tree: dict, stage: int, stage_layers) -> dict:
 # ---------------------------------------------------------------------------
 
 def _check_family(model) -> None:
-    if model.cfg.family == "moe":
-        raise NotImplementedError(MOE_PIPELINE_SLICE)
     if model.cfg.family == "ssm":
         raise NotImplementedError(SSM_PIPELINE_SLICE)
-    if model.cfg.family != "dense":
+    if model.cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"pipelining the {model.cfg.family!r} family: {ENCDEC_SLICE}")
 
@@ -243,7 +242,11 @@ class _Stage:
     live ones (the activation buffer) and ``peak`` its high-water mark.
 
     The loss is the reference's: Σ over micro-batches of ``(nll + z_loss)
-    / n_total`` from the last stage plus ``aux / M`` from every stage.
+    / n_total`` from the last stage plus ``aux / M`` from every stage;
+    ``aux`` sums this stage's experts' ``lb_loss`` and ``z_loss`` over its
+    micro-batches (detached; zero without experts).  Under rules that deal
+    the batch over data axes, each micro-batch's experts balance over the
+    data ranks of this stage (:func:`~repro_torch.models.moe.moe_block`).
 
     Under ``rules`` that split the model axis each slot runs split: stage
     0's embedding vocab-parallel, the stack head-parallel (``choose_layout``)
@@ -262,6 +265,7 @@ class _Stage:
         self.n_total = float(M * mb_size * (T - 1))     # all-ones loss mask
         self.graphs: dict = {}
         self.peak = 0
+        self.aux = torch.zeros(2, dtype=torch.float32, device=dev)
 
     def forward(self, mb: int, x, tok: torch.Tensor):
         """→ (the output activation, detached; None on the last stage, the
@@ -278,6 +282,8 @@ class _Stage:
             y, aux = tfm.apply_stack(self.blocks, x, self.positions,
                                      self.stack)
             contrib = (aux["lb_loss"] + aux["z_loss"]) / self.M
+            self.aux += torch.stack([aux["lb_loss"],
+                                     aux["z_loss"]]).detach()
             if self.last:
                 nll, zl, _ = self.model.head_loss(self.shared, y, tok,
                                                   self.mask)
@@ -348,7 +354,11 @@ def schedule_grads(model, params: dict, tokens, *, micro_batches: int,
 
     Returns ``(loss, grads, stats)``: ``grads`` in the standard layout and
     in f32; ``stats`` with ``n_ticks``, ``bubble_fraction``,
-    ``peak_in_flight``, ``per_stage_in_flight`` and ``stage_layers``.
+    ``peak_in_flight``, ``per_stage_in_flight`` and ``stage_layers`` (the
+    reference's), and for the moe family ``moe_lb`` and ``moe_z``, the
+    experts' aux losses summed over the stages and averaged over the
+    micro-batches (the part of ``loss`` the reference's fused engine adds
+    at ``psum(aux, "stage") / M``).
     """
     _check_family(model)
     M = micro_batches
@@ -405,6 +415,9 @@ def schedule_grads(model, params: dict, tokens, *, micro_batches: int,
              "peak_in_flight": max(peaks),
              "per_stage_in_flight": peaks,
              "stage_layers": stage_layers}
+    if model.cfg.family == "moe":
+        aux = sum(st.aux for st in stages) / M
+        stats.update(moe_lb=aux[0], moe_z=aux[1])
     return loss, grads, stats
 
 
@@ -492,10 +505,15 @@ def make_pipeline_train_step(model, rules, optimizer, *,
     updates this rank's tree in place, clipped by the whole model's global
     norm (:func:`~repro_torch.optim.optimizer.sharded_global_norm` over the
     staged specs: each element once, its squares summed in f64).
-    ``metrics``: ``loss`` (summed over the stage group, averaged over the
-    data axes, so every rank holds the same) and ``peak_in_flight``, this
-    stage's audited buffer peak.  The schedule is the one given: 1F1B holds
-    min(M, S) micro-batches in flight (see the module docstring)."""
+    ``metrics``: ``loss``, and ``moe_lb`` and ``moe_z`` (the experts' aux
+    losses, zero without experts), each summed over the stage group and
+    averaged over the data axes, so every rank holds the same, the aux
+    divided by M as the reference's fused engine divides them; and
+    ``peak_in_flight``, this stage's audited buffer peak.  At ``dp > 1``
+    each micro-batch's experts balance over the data ranks of a stage
+    (the rules deal the batch over the data axes).  The schedule is the
+    one given: 1F1B holds min(M, S) micro-batches in flight (see the
+    module docstring)."""
     _check_family(model)
     stage_group = rules.group("stage")
     S = dist.get_world_size(stage_group)
@@ -555,13 +573,16 @@ def make_pipeline_train_step(model, rules, optimizer, *,
         for g in flatten(g_shared)[1]:
             dist.all_reduce(g, op=dist.ReduceOp.SUM, group=stage_group)
         grads = dict(g_shared, blocks=_grads(stage.blocks))
-        dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=stage_group)
+        # the loss and the aux in one vector, summed over the stages
+        vec = torch.cat([loss[None], stage.aux / M])
+        dist.all_reduce(vec, op=dist.ReduceOp.SUM, group=stage_group)
         for group in data_groups:
-            mean_over(flatten(grads)[1] + [loss], group)
+            mean_over(flatten(grads)[1] + [vec], group)
         params, opt_state = optimizer.apply(
             grads, opt_state, params, step,
             grad_norm=sharded_global_norm(grads, specs, rules))
-        return params, opt_state, {"loss": loss,
+        return params, opt_state, {"loss": vec[0], "moe_lb": vec[1],
+                                   "moe_z": vec[2],
                                    "peak_in_flight": stage.peak}
 
     return step_fn

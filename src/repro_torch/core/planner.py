@@ -82,9 +82,12 @@ Serving (the reference's ``jit_prefill``, ``jit_serve_step``,
 enter the plan's rules on every call and run without autograd; the decode
 states are laid out by the reference's :meth:`~ExecutionPlan.state_specs`
 and :meth:`~ExecutionPlan.paged_state_specs`, slots over the data axes
-(:meth:`~ExecutionPlan.slot_block`).  Refused, each naming its ROADMAP
-item: serving inside a pipeline, the moe family over a mesh, ZeRO-3's
-data-sharded parameters, and decode in the ``repeat`` layout.
+(:meth:`~ExecutionPlan.slot_block`).  The moe family serves under the
+same rules: its experts stay whole over ``model`` and each step's combine
+is all-reduced once, each slot's token routed as a sequence of one, and
+no collective runs over data.  Refused, each naming its ROADMAP item:
+serving inside a pipeline, ZeRO-3's data-sharded parameters, and decode
+in the ``repeat`` layout.
 
 The annotation API's entry points (the paper's Cases 1–5):
 :func:`strategy_from_taskgraph` reads the strategy off the scopes a
@@ -123,8 +126,6 @@ PIPELINE_SERVE_SLICE = ("serving inside a pipeline (pp > 1) comes with a later "
 ZERO3_SERVE_SLICE = ("serving parameters sharded over data (zero=3) comes "
                      "with a later slice of the port (ROADMAP.md queue A "
                      "item 4)")
-MOE_SERVE_SLICE = ("serving the moe family over a mesh comes with a later "
-                   "slice of the port (ROADMAP.md queue A item 7)")
 ADAFACTOR_SPLIT_SLICE = ("adafactor over a split model (its factored moments' "
                          "means across shards) comes with a later slice of "
                          "the port (ROADMAP.md queue A item 4)")
@@ -533,7 +534,19 @@ class ExecutionPlan:
         its optimizer reads its slice of the result; ZeRO-3 compresses the
         data shard its reduce-scatter left.  ZeRO-3 needs the plan
         compiled with ``compress_pod`` (its parameters sharded inside the
-        pod), else ``ValueError``."""
+        pod), else ``ValueError``.
+
+        The moe family balances its experts over the global batch, as the
+        reference's GSPMD step does: the step runs under the plan's rules,
+        and each block takes its routing statistics' means over the data
+        axes (over the pod's ``data`` with ``compress_pod``, whose
+        reference step balances each pod) before the aux losses.  Under
+        ``micro_batches`` a micro-batch is each rank's own slice, so the
+        balance runs over the union of the ranks' i-th slices.  Uneven
+        batch shares and a ``loss_mask`` over data replicas raise
+        ``ValueError`` for it: the all-reduce needs every replica with an
+        equal share, and the step's token weights would weigh the unmasked
+        balance by masked counts."""
         model = self.model
         M = micro_batches or self.strategy.micro_batches or 1
         data_g, pod_g = self._group("data"), self._group("pod")
@@ -555,9 +568,25 @@ class ExecutionPlan:
                 "data inside each pod and the pods stay replicas")
         if self.sharded and optimizer.name == "adafactor":
             raise NotImplementedError(ADAFACTOR_SPLIT_SLICE)
+        moe = model.cfg.family == "moe"
+        if moe and uneven:
+            raise ValueError(
+                f"uneven batch shares {rows} for the moe family: the "
+                f"experts' balance over the global batch needs every "
+                f"replica in its all-reduce with an equal share of the rows "
+                f"(a replica with no rows runs no forward)")
         for r in set(rows or ()) - {0}:
             pipe.check_micro_divides(r, M)
-        rules = self.rules if self.sharded else None
+        # the step runs under the plan's rules on a mesh: they split the
+        # model, and deal the batch over the data axes that the experts'
+        # balance is taken over; with compress_pod over the pod's data
+        # only, as the reference's step, manual over pod, balances a pod
+        rules = self.rules if meshed else None
+        if compress:
+            rules = dataclasses.replace(
+                rules, rules=dict(rules.rules, batch="data"))
+        with sharding.use_rules(rules):
+            balanced = moe and bool(sharding.batch_splits())
         specs = self.param_specs
         slices = self._slices(optimizer)
         weight_axes = [a for a in (("data",) if compress
@@ -617,6 +646,12 @@ class ExecutionPlan:
                 metrics = {k: torch.zeros((), device=dev)
                            for k in METRIC_KEYS}
             else:
+                if balanced and "loss_mask" in batch:
+                    raise ValueError(
+                        "a loss_mask for the moe family over data "
+                        "replicas: the step weights each replica by its "
+                        "masked tokens, while the experts' balance is the "
+                        "global batch's, unmasked, as the reference's")
                 if summed is not None and "loss_mask" in batch:
                     # the reduce-scatter sums gradients as the backward
                     # makes them: weight the loss before it
@@ -726,9 +761,11 @@ class ExecutionPlan:
         shape = mesh_shape(self.mesh) if self.mesh is not None else None
         parts = [f"mesh {shape}"]
         if st.model_parallel > 1:
-            what = ("SSD heads" if self.model is not None
-                    and self.model.cfg.family == "ssm"
-                    else "heads, MLP columns")
+            family = self.model.cfg.family if self.model is not None \
+                else "dense"
+            what = {"ssm": "SSD heads",
+                    "moe": "heads, whole experts, MLP columns"}.get(
+                        family, "heads, MLP columns")
             parts.append(f"split×{st.model_parallel} over model ({what}"
                          f"{', vocab' if st.vocab_split else ''})")
         if st.pp > 1:
@@ -808,9 +845,6 @@ class ExecutionPlan:
         mesh), after the refusals of later slices."""
         if self.strategy.pp > 1:
             raise NotImplementedError(PIPELINE_SERVE_SLICE)
-        if self.model.cfg.family == "moe" and self.mesh is not None \
-                and self.mesh.size() > 1:
-            raise NotImplementedError(MOE_SERVE_SLICE)
         if self.sharded and self.strategy.zero >= 3:
             raise NotImplementedError(ZERO3_SERVE_SLICE)
         return self.rules if self.mesh is not None else None
@@ -838,7 +872,7 @@ class ExecutionPlan:
         and a layout decode has no split for (``decode_split``)."""
         self._serving_rules()
         self.slot_block(batch)
-        if self.model.cfg.family == "dense":
+        if self.model.cfg.family in ("dense", "moe"):
             with sharding.use_rules(self.rules):
                 decode_split(self.model.cfg.attn_cfg())
 

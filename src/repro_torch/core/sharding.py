@@ -26,7 +26,11 @@ collectives carry tensor parallelism and ZeRO-3 —
 - :func:`reduce_from`: all-reduce forward, identity backward (the output of
   a row-parallel product);
 - :func:`gather_along`: all-gather forward, reduce-scatter backward (a
-  ZeRO-3 parameter slice gathered at its use).
+  ZeRO-3 parameter slice gathered at its use);
+
+and :func:`mean_from` (mean forward, identity backward) takes a statistic
+of the batch, the experts' balance, over the data axes
+(:func:`batch_splits`) where GSPMD would take it over the global batch.
 
 Collectives over several axes run one axis at a time on the mesh's
 one-axis groups (a gather over ``("pod", "data")`` gathers over ``data``,
@@ -277,6 +281,18 @@ def split_of(name: str, size: int) -> Split | None:
                  rules.index(axes))
 
 
+def batch_splits() -> tuple:
+    """The splits of the ``batch`` dim under the active rules, one per data
+    axis of more than one rank, major first (empty with no rules or no
+    mesh): the groups a statistic of the global batch is taken over."""
+    rules = current_rules()
+    if rules is None or rules.mesh is None:
+        return ()
+    return tuple(Split(rules.group(a), rules.shape[a], rules.index(a))
+                 for a in _axes(rules.rules.get("batch"))
+                 if rules.shape.get(a, 1) > 1)
+
+
 def fsdp_specs(model) -> dict | None:
     """``model``'s parameter specs under the active rules when they shard
     parameters over the data axes (ZeRO-3), else ``None``: the specs that
@@ -363,6 +379,17 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None
 
 
+class _MeanFrom(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        return all_reduce_(x.contiguous().clone(), group) / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
 class _GatherAlong(torch.autograd.Function):
 
     @staticmethod
@@ -387,6 +414,17 @@ def copy_to(x: torch.Tensor, split: Split | None) -> torch.Tensor:
 def reduce_from(x: torch.Tensor, split: Split | None) -> torch.Tensor:
     """All-reduce over the split's group forward, identity backward."""
     return x if split is None else _ReduceFrom.apply(x, split.group)
+
+
+def mean_from(x: torch.Tensor, splits) -> torch.Tensor:
+    """The mean of ``x`` over every split's group forward, identity
+    backward.  A data-parallel step averages each rank's gradients over
+    the data axes, so each rank hands the whole cotangent of the mean to
+    its own ``x``: the average of the ranks' gradients is then the
+    gradient of a loss of the global mean."""
+    for split in splits:
+        x = _MeanFrom.apply(x, split.group, split.n)
+    return x
 
 
 def gather_along(x: torch.Tensor, dim: int, groups: list) -> torch.Tensor:

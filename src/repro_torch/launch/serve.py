@@ -48,7 +48,13 @@ Usage::
 ``--cache paged`` needs an all-attention arch; with mamba2 it raises.
 deepseek-moe-16b at full width wants ``--overrides param_dtype=bfloat16``
 (31.44 GiB of weights; in f32 they take 62.9 GiB, and serving casts a
-second copy); serving the moe family over ``--mesh`` raises.
+second copy).  Over ``--mesh DxM`` its experts stay whole, E/M a rank,
+and each step's combine is all-reduced once over ``model``, as the dense
+MLP's::
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch deepseek-moe-16b --smoke --device cpu --mesh 2x2 \
+        --cache paged --requests 8 --batch-slots 4 --gen 8 --max-len 64
 """
 from __future__ import annotations
 

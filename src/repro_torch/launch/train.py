@@ -48,12 +48,17 @@ head runs through the fused cross-entropy kernels.  An MoE
 ``moe_lb`` and ``moe_z`` (its load-balance and router z-losses, summed
 over the layers) beside the loss.
 
-``--pp`` lays the ranks out as ``stage × data`` only, as the reference's
-``--pp`` does, so it is refused beside ``--mesh``; ``--compress-pod``
-beside a pipeline is refused (the reference's pipelined step has no
-compressed reduction).  The flags of later slices (``--hosts``,
-``--calibrate`` and the fault injections of the elastic runtime) are
-refused with a message naming the slice.
+``--pp`` lays the ranks out as ``stage × data``, as the reference's
+``--pp`` does; beside ``--mesh D`` or ``DxM`` it lays them out as ``stage
+× data × model`` (Whale's nested hybrid, which the reference reaches
+through ``--auto`` only), and deepseek-moe-16b's experts then split whole
+over ``model`` inside each stage (``pipeline{split[experts]}``), each
+stage carrying its experts' aux losses to the loss (``moe_lb``, ``moe_z``
+printed as unpipelined).  A pod axis beside ``--pp`` and
+``--compress-pod`` beside a pipeline are refused (the reference's
+pipelined step has no compressed reduction).  The flags of later slices
+(``--hosts``, ``--calibrate`` and the fault injections of the elastic
+runtime) are refused with a message naming the slice.
 
 Processes: under ``torchrun`` each rank reads its rank and the world from
 the environment and uses ``cuda:LOCAL_RANK``; without it, ``--mesh`` of
@@ -90,6 +95,11 @@ Usage::
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
         --smoke --device cpu --pp 2 --schedule 1f1b --micro-batches 2 \
         --batch 4 --seq 32 --steps 3 --ckpt-dir "$TMPDIR/pp"
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch deepseek-moe-16b --smoke --device cpu --pp 2 --mesh 1x2 \
+        --schedule 1f1b --micro-batches 2 --batch 4 --seq 32 --steps 3 \
+        --ckpt-dir "$TMPDIR/ppmoe"
 
     python -m repro_torch.launch.train --arch tinyllama-1.1b --batch 4 \
         --seq 2048 --steps 8 --auto --hw h100 --profile --ckpt-dir /path
@@ -226,14 +236,14 @@ def _refuse_later_slices(args) -> None:
                          "--pp")
     if args.auto and args.zero:
         raise SystemExit("--auto picks the ZeRO stage itself: drop --zero")
-    if args.pp > 1 and args.mesh:
-        raise SystemExit("--pp lays the ranks out itself (stage x data), "
-                         "as the reference's --pp does: drop --mesh (a "
-                         "model axis beside a pipeline comes from --auto)")
+    if args.pp > 1 and args.mesh and "pod" in mesh_axes(args.mesh)[1]:
+        raise SystemExit("--pp beside --mesh takes D or DxM (stage x data "
+                         "x model): a pod axis beside a pipeline comes from "
+                         "--auto")
     if args.pp > 1 and args.compress_pod:
         raise SystemExit(COMPRESS_PIPE)
     if args.mesh and not under_torchrun():
-        n = int(np.prod(mesh_axes(args.mesh)[0]))
+        n = int(np.prod(mesh_axes(args.mesh)[0])) * args.pp
         if n > 1:
             raise SystemExit(f"--mesh {args.mesh} needs {n} ranks: run it "
                              f"under torchrun --nproc-per-node {n}")
@@ -326,7 +336,17 @@ def _train(args, device: torch.device) -> dict:
             raise SystemExit(
                 f"--pp {args.pp} needs a device count divisible by the "
                 f"stage count; have {n_dev} device(s)")
-        strat = StrategySpec(dp=n_dev // args.pp, pp=args.pp,
+        dims = {"data": n_dev // args.pp}
+        if args.mesh:
+            shape, names = mesh_axes(args.mesh)
+            dims = dict(zip(names, shape))
+            if args.pp * int(np.prod(shape)) != n_dev:
+                raise SystemExit(f"--pp {args.pp} x --mesh {args.mesh} "
+                                 f"needs {args.pp * int(np.prod(shape))} "
+                                 f"ranks; have {n_dev}")
+        mp = dims.get("model", 1)
+        strat = StrategySpec(dp=dims["data"], tp=mp, pp=args.pp,
+                             ep=mp if cfg.family == "moe" else 1,
                              micro_batches=args.micro_batches or 1,
                              schedule=args.schedule or "gpipe",
                              zero=args.zero)

@@ -20,6 +20,15 @@ losses' gradient, whole on every rank, is not.  The combine's partial sums
 (f32) and the shared expert's row-parallel partial are summed in one
 all-reduce, as the dense MLP's.
 
+Where a loss is taken under rules that deal the batch over data axes
+(a data-parallel step, a pipeline's stage at ``dp > 1``), the balance is
+the reference's over the global batch: ``me``, ``ce`` and the router
+z-loss's mean of lse² are means over the data axes
+(:func:`~repro_torch.core.sharding.mean_from`, one all-reduce a layer)
+before the aux losses, so the mean of the ranks' gradients is the global
+loss's.  Without autograd (serving) the block runs no collective over
+data.
+
 :func:`moe_block_ep` is the reference's explicit expert-parallel executor
 (its ``shard_map``): the batch split over a process group, the experts'
 weights split over the same group, and dispatch and combine as
@@ -214,7 +223,14 @@ def moe_block(params: dict, x: torch.Tensor, cfg: MoECfg):
 
     # --- routing (f32; replicated over the model axis) ---
     logits, w_topk, e_idx, me, ce = _route(params, x, cfg, split)
-    lb_loss, z_loss = _aux_losses(cfg, me, ce, _mean_sq_lse(logits))
+    msl = _mean_sq_lse(logits)
+    balance = sharding.batch_splits() if torch.is_grad_enabled() else ()
+    if balance:
+        # the balance of the global batch: one all-reduce of the routing
+        # statistics over the data axes (serving takes no loss, so none)
+        stats = sharding.mean_from(torch.cat([me, ce, msl[None]]), balance)
+        me, ce, msl = stats[:E], stats[E:2 * E], stats[2 * E]
+    lb_loss, z_loss = _aux_losses(cfg, me, ce, msl)
 
     tok, w = _dispatch_indices(e_idx, w_topk, E, C, S)             # (B, E, C)
     if split is not None:                  # this rank's experts' slots

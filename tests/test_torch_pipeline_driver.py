@@ -145,8 +145,11 @@ def test_torchrun_pipeline_matches_reference_and_resumes(tmp_path):
 
 def test_pipeline_flags_refused_without_a_world_they_fit(tmp_path):
     base = ["--smoke", "--device", "cpu", "--ckpt-dir", str(tmp_path)]
-    with pytest.raises(SystemExit, match="drop --mesh"):
+    # --pp beside --mesh lays out stage x data x model: 4 ranks here
+    with pytest.raises(SystemExit, match="needs 4 ranks"):
         train.main(base + ["--pp", "2", "--mesh", "2"])
+    with pytest.raises(SystemExit, match="pod axis beside a pipeline"):
+        train.main(base + ["--pp", "2", "--mesh", "1x1x1"])
     with pytest.raises(SystemExit, match="needs a device count divisible "
                                          "by the stage count; have 1"):
         train.main(base + ["--pp", "2", "--schedule", "1f1b",
