@@ -25,10 +25,11 @@ import subprocess
 import sys
 
 #: the phases it runs: 24 (``train_hybrid_zero``), 26 (``serve_tp``), 29
-#: (``compressed_blocks``), 30 (``mamba2_train``), 31 (``mamba2_split``)
-#: and 32 (``moe_engine``), the same functions in every checkout since
-#: they were added (a checkout without one reports that phase failed)
-PHASES = ("24", "26", "29", "30", "31", "32")
+#: (``compressed_blocks``), 30 (``mamba2_train``), 31 (``mamba2_split``),
+#: 32 (``moe_engine``) and 33 (``dense_rest``), the same functions in every
+#: checkout since they were added (a checkout without one reports that
+#: phase failed)
+PHASES = ("24", "26", "29", "30", "31", "32", "33")
 
 CHILD = r"""
 import json, sys, time, traceback
@@ -58,6 +59,8 @@ for ph in sys.argv[1:]:
             cs.mamba2_split(torch)
         elif ph == "32":
             cs.moe_engine(torch, kernels)
+        elif ph == "33":
+            cs.dense_rest(torch, kernels)
     except Exception:
         traceback.print_exc()
         ok = False

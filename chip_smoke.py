@@ -18,7 +18,14 @@ and the script exits non-zero without printing a result:
    its 25216-column shard at tp 2; its split prefill: the SSD scan on a
    rank's 32 heads; the compressor's encode on a block of a leaf;
    deepseek served at split×2: flash forward and paged decode on a rank's
-   8 q over 8 kv heads of 128), and at ragged ones
+   8 q over 8 kv heads of 128; the dense family's rest, phase 33's
+   models: flash forward at serving prefill and training, dq and dk/dv at
+   training and paged decode at 8 slots, on qwen3-1.7b's 16 q over 8 kv
+   heads of 128, gemma-2b's 8 over 1 of 256 and stablelm-3b's 32 over 32
+   of 80, the new head dims in bf16 and f32, and xent at their loss
+   heads: qwen3's tied vocab 151936 padded to 152064, gemma's tied
+   256000, stablelm's 50304 padded to 50432 at hidden width 2560), and
+   at ragged ones
    (tolerance: values f32 2e-5, bf16 2e-2; gradients f32 2e-4, bf16 5e-2;
    the SSD scan 5e-4, as the reference holds its kernel; the int8
    quantize and dequantize bit for bit, a NaN included; the xent
@@ -317,7 +324,30 @@ and the script exits non-zero without printing a result:
     + 1e-4|x|), and a planted fault, the moe combine without its
     all-reduce over ``model``, outside the f32 gate; each rank's TTFT and
     TPOT with their gloo seconds and its peak beside the weights and KV
-    it holds.
+    it holds;
+33. the dense family's rest, each at full width and depth: qwen3-1.7b
+    (per-head qk-norm, tied head), gemma-2b (GeGLU, MQA, head dim 256,
+    tied 256k head) and stablelm-3b (LayerNorm, head dim 80): (a) the
+    serving driver in bf16, paged and dense, 8 requests of 256 + 32
+    tokens through 8 slots: TTFT, TPOT, tokens/s, the peak beside the
+    weights and KV, the flash and paged-decode launches; (b) the
+    training driver, batch 4 x 2048, remat full, AdamW, 3 steps: finite
+    losses, launches, tokens/s, forward, backward and AdamW on the host
+    clock, the peak beside the parameters, gradients and moments (the
+    final checkpoint neither copied to the host nor written), then the
+    same steps through the plain versions, each loss within 5% of
+    theirs; (c)
+    through the kernels against the plain versions on the card:
+    teacher-forced logits at full depth in bf16 within TF_PAIR times
+    bf16's own error and at 2 layers in f32 within 1e-4 + 1e-4|x|, and
+    step 0's loss and every gradient leaf at 2 layers in f32 within 2e-4
+    + 2e-4|x|.
+
+The meshed phases 20–31 run their ranks in one pool of four processes on
+``cuda:0`` (:class:`RankPool`), started at phase 20 and stopped before
+phase 32: each phase hands its rank function to the first two or four.
+Phase 32's ranks need nearly the whole card, so each of its two calls
+runs on a pool of exactly its ranks, started for it and closed after it.
 
 then the kernel table as one JSON line, the card line again, and the last
 line ``{"ok": true, "device": {...}}``.  Needs no network; needs ``nvcc``
@@ -486,6 +516,12 @@ def check_close(name: str, got, want, dtype, tol=None) -> float:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+#: the heads (q, kv, dim) of each model's kernel rows beside the main
+#: path's (tinyllama's 32/4 of 64), as the kernels line nests them
+HEAD_ROWS = {(16, 16, 128): "deepseek", (16, 8, 128): "qwen3",
+             (8, 1, 256): "gemma", (32, 32, 80): "stablelm"}
+
+
 def check_flash(torch, timer) -> dict:
     """The flash forward kernel against its plain version (o and lse) and
     against a second launch bit for bit: serving's prefill heads at B=1
@@ -493,11 +529,14 @@ def check_flash(torch, timer) -> dict:
     split×2 (phase 26), the training step's shape (B=4, S=2048, 32/4
     heads, D=64, causal, bf16), and deepseek-moe-16b's (16/16 heads, D=128:
     its prefill at B=1, S=512 and its training step at B=4, S=2048; a
-    rank's 8/8 heads of its prefill at split×2, phase 32), each timed
-    beside SDPA in this call.  Prints the bf16 (tensor-core) builds'
-    ptxas registers and spills and fails on a spill.  Returns the row of
-    the training shape, with deepseek's training shape's under
-    ``"deepseek"``."""
+    rank's 8/8 heads of its prefill at split×2, phase 32), and the dense
+    family's rest (phase 33): qwen3-1.7b's 16/8 heads of 128, gemma-2b's
+    8/1 of 256 and stablelm-3b's 32/32 of 80, each at its serving
+    prefill (B=1, S=256; f32 too at the new dims) and its training step
+    (B=4, S=2048), each timed beside SDPA in this call.  Prints the bf16
+    (tensor-core) builds' ptxas registers and spills and fails on a
+    spill.  Returns the row of the training shape, with the other models'
+    training shapes' under their names (:data:`HEAD_ROWS`)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash
@@ -514,6 +553,10 @@ def check_flash(torch, timer) -> dict:
              (1, 512, 512, True, (bf16,), 16, 16, 128),
              (1, 512, 512, True, (bf16, f32), 8, 8, 128),
              (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, True, (bf16,), 16, 16, 128)]
+    for H, K, D in ((16, 8, 128), (8, 1, 256), (32, 32, 80)):
+        cases += [(1, 256, 256, True, (bf16,) if D == 128 else (bf16, f32),
+                   H, K, D),
+                  (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, True, (bf16,), H, K, D)]
     row = None
     for B, Sq, Sk, causal, dtypes, H, K, D in cases:
         for dtype in dtypes:
@@ -557,7 +600,7 @@ def check_flash(torch, timer) -> dict:
                 if D == 64:
                     row = r
                 else:
-                    row["deepseek"] = r
+                    row[HEAD_ROWS[H, K, D]] = r
             del q, k, v, o, lse, qt, kt, vt
             torch.cuda.empty_cache()
     return row
@@ -571,9 +614,12 @@ def check_paged(torch, timer) -> dict:
     it at split×2 and of 4 slots at data 2 x model 2 (phase 26), and one
     slot of 1000 keys (B=1), and deepseek-moe-16b's decode (8 slots, 16/16
     heads, D=128), a rank's 8/8 heads of it at split×2 and of 4 slots at
-    data 2 x model 2 (phase 32).  Prints the bf16 (tensor-core) builds' ptxas registers
+    data 2 x model 2 (phase 32), and 8 slots of the dense family's rest
+    (phase 33): qwen3's 16/8 heads of 128, gemma's 8/1 of 256, stablelm's
+    32/32 of 80.  Prints the bf16 (tensor-core) builds' ptxas registers
     and spills and fails on a spill.  Returns the row of the serving shape
-    in bf16, with deepseek's under ``"deepseek"``."""
+    in bf16, with the other models' 8 slots under their names
+    (:data:`HEAD_ROWS`)."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -589,7 +635,8 @@ def check_paged(torch, timer) -> dict:
     for pos, H, K, D in ((pos8, 32, 4, 64), (pos8, 16, 2, 64),
                          (pos8[:4], 16, 2, 64), (np.array([999]), 32, 4, 64),
                          (pos8, 16, 16, 128), (pos8, 8, 8, 128),
-                         (pos8[:4], 8, 8, 128)):
+                         (pos8[:4], 8, 8, 128), (pos8, 16, 8, 128),
+                         (pos8, 8, 1, 256), (pos8, 32, 32, 80)):
         B = len(pos)
         P = 1 + B * mp
         table = np.zeros((B, mp), np.int32)
@@ -645,13 +692,14 @@ def check_paged(torch, timer) -> dict:
                   f"sdpa(pre-gathered) {lib_ms:.4f} ms (kernel / sdpa "
                   f"{ms / lib_ms:.2f})  bound {b_ms:.4f} ms ({b_by}, share "
                   f"{b_ms / ms:.3f})", flush=True)
-            if (B, dtype) == (8, torch.bfloat16) and K in (4, 16):
+            if (B, dtype) == (8, torch.bfloat16) and (
+                    (H, K, D) == (32, 4, 64) or (H, K, D) in HEAD_ROWS):
                 r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
                 if D == 64:
                     row = r
                 else:
-                    row["deepseek"] = r
+                    row[HEAD_ROWS[H, K, D]] = r
             del q, kp, vp, kd, vd, out, again, ref
     return row
 
@@ -717,8 +765,11 @@ def check_flash_bwd(torch, timer) -> tuple:
     """The dq and dk/dv kernels against the plain backward, from the same
     (q, k, v, do, lse, delta), and each against a second launch bit for
     bit; returns the rows of the main path's shape (B=4, S=2048, 32/4
-    heads, D=64, causal, bf16), with deepseek-moe-16b's training shape's
-    (16/16 heads, D=128) under ``"deepseek"``."""
+    heads, D=64, causal, bf16), with the other models' training shapes'
+    under their names (:data:`HEAD_ROWS`: deepseek-moe-16b's 16/16 heads
+    of 128, and the dense family's rest: qwen3's 16/8 of 128, gemma's 8/1
+    of 256, stablelm's 32/32 of 80; f32 at the new dims at B=2,
+    S=1000)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash
@@ -730,7 +781,12 @@ def check_flash_bwd(torch, timer) -> tuple:
              (2, 1000, 1000, True, torch.bfloat16, 32, 4, 64),
              (2, 1000, 1500, False, torch.bfloat16, 32, 4, 64),
              (2, 1000, 1500, False, torch.float32, 32, 4, 64),
-             (4, 2048, 2048, True, torch.bfloat16, 16, 16, 128)]
+             (4, 2048, 2048, True, torch.bfloat16, 16, 16, 128),
+             (4, 2048, 2048, True, torch.bfloat16, 16, 8, 128),
+             (4, 2048, 2048, True, torch.bfloat16, 8, 1, 256),
+             (2, 1000, 1000, True, torch.float32, 8, 1, 256),
+             (4, 2048, 2048, True, torch.bfloat16, 32, 32, 80),
+             (2, 1000, 1000, True, torch.float32, 32, 32, 80)]
     rows = None
     for B, Sq, Sk, causal, dtype, H, K, D in cases:
         rnd = lambda S, n: torch.randn((B, S, n, D), generator=gen,
@@ -800,40 +856,50 @@ def check_flash_bwd(torch, timer) -> tuple:
                      library_ms=lib_ms))
         if rows is None:
             rows = pair
-        elif D == 128:
-            rows[0]["deepseek"], rows[1]["deepseek"] = pair
+        elif (B, dtype) == (4, torch.bfloat16):
+            name = HEAD_ROWS[H, K, D]
+            rows[0][name], rows[1][name] = pair
         del q, k, v, do, o, lse, delta, dq, dk, dv, want, qt, kt, vt, dot
         torch.cuda.empty_cache()
     return rows
 
 
+#: the loss heads of the xent rows beside the main path's (tinyllama's
+#: E = 2048, V = 32000): name, hidden width, vocab, padded vocab
+XENT_ROWS = (("deepseek", 2048, DEEPSEEK_VOCAB, DEEPSEEK_VOCAB),
+             ("mamba2", 2048, MAMBA_VOCAB, MAMBA_VP),
+             ("qwen3", 2048, 151936, 152064),
+             ("gemma", 2048, 256000, 256000),
+             ("stablelm", 2560, 50304, 50432))
+
+
 def check_xent(torch, timer) -> tuple:
     """The xent forward kernel against its plain version and a second
     launch bit for bit, at the training path's loss head (T = 4·2047,
-    E = 2048, V = 32000), with a padded vocab, and at deepseek-moe-16b's
-    (V = 102400), timed beside ``F.cross_entropy(h @ W)`` in this call
-    (with the bf16 build's ptxas registers and spills), and at
-    mamba2-1.3b's tied head (vocab 50280 padded to 50432); then the
-    backward's elementwise pass on one f32 chunk of each vocab.  Returns
-    the (forward, backward) rows of the main path's shapes, with
-    deepseek's under ``"deepseek"`` and mamba2's under ``"mamba2"``."""
+    E = 2048, V = 32000), with a padded vocab, in f32, and at each of
+    :data:`XENT_ROWS`' heads in bf16 (deepseek-moe-16b's, mamba2-1.3b's
+    tied head, and the dense family's rest: qwen3-1.7b's and gemma-2b's
+    tied heads, stablelm-3b's at E = 2560), timed beside
+    ``F.cross_entropy(h @ W)`` in this call (with the bf16 build's ptxas
+    registers and spills); then the backward's elementwise pass on one
+    f32 chunk of each vocab (the main path's first and a padded last
+    one, and each head's last chunk), against its plain version and a
+    second launch bit for bit.  Returns the (forward, backward) rows of
+    the main path's shapes, with each head's under its name."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.xent import xent
 
     print_ptxas("xent_fwd_mma_kernel")
     gen = torch.Generator(device="cuda").manual_seed(3)
-    E, V = 2048, 32000
     T = TRAIN_BATCH * (TRAIN_SEQ - 1)
+    bf16 = torch.bfloat16
     fwd_row = bwd_row = None
-    for T_, vocab, dtype in ((T, V, torch.bfloat16), (T, V - 100,
-                                                      torch.bfloat16),
-                             (1000, V - 100, torch.float32),
-                             (T, DEEPSEEK_VOCAB, torch.bfloat16),
-                             (T, MAMBA_VOCAB, torch.bfloat16)):
-        V = max(vocab, 32000)
-        if vocab == MAMBA_VOCAB:
-            V = MAMBA_VP
+    for name, T_, E, vocab, V, dtype in (
+            [(None, T, 2048, 32000, 32000, bf16),
+             (None, T, 2048, 31900, 32000, bf16),
+             (None, 1000, 2048, 31900, 32000, torch.float32)]
+            + [(n, T, E, vocab, V, bf16) for n, E, vocab, V in XENT_ROWS]):
         h = torch.randn((T_, E), generator=gen, device="cuda").to(dtype)
         w = (torch.randn((E, V), generator=gen, device="cuda")
              / math.sqrt(E)).to(dtype)
@@ -850,6 +916,7 @@ def check_xent(torch, timer) -> tuple:
         err = max(check_close(tag + " nll", nll, want[0], torch.float32),
                   check_close(tag + " lse", lse, want[1], torch.float32))
         assert_same_bits(tag, (nll, lse), again)
+        del want, again
         ms = timer(lambda: xent.xent_fwd(h, w, labels, vocab))
         plain_ms = timer(lambda: xent.xent_fwd_plain(h, w, labels, vocab))
         lab64 = labels.long()
@@ -869,11 +936,9 @@ def check_xent(torch, timer) -> tuple:
                  bound_by=b_by, library_ms=lib_ms)
         if fwd_row is None:
             fwd_row = r
-        elif vocab == DEEPSEEK_VOCAB:
-            fwd_row["deepseek"] = r
-        elif vocab == MAMBA_VOCAB:
-            fwd_row["mamba2"] = r
-        del h, w, want, again
+        elif name is not None:
+            fwd_row[name] = r
+        del h, w
         torch.cuda.empty_cache()
 
     V = 32000
@@ -883,37 +948,38 @@ def check_xent(torch, timer) -> tuple:
     g_lse = torch.rand((T,), generator=gen, device="cuda") * 1e-3
     labels = torch.randint(0, V, (T,), generator=gen, device="cuda",
                            dtype=torch.int32)
-    big = xent.bwd_chunk(T, DEEPSEEK_VOCAB)
-    mc = xent.bwd_chunk(T, MAMBA_VP)
-    for col0, C, vocab in ((0, chunk, V), (V - V % chunk, V % chunk,
-                                           V - 100), (0, 4098, 3000),
-                           (DEEPSEEK_VOCAB - big, big, DEEPSEEK_VOCAB),
-                           (MAMBA_VP - MAMBA_VP % mc, MAMBA_VP % mc,
-                            MAMBA_VOCAB)):
+    cases = [(None, 0, chunk, V), (None, V - V % chunk, V % chunk, V - 100),
+             (None, 0, 4098, 3000)]
+    for name, _, vocab, Vp in XENT_ROWS:
+        c = xent.bwd_chunk(T, Vp)
+        last = Vp % c or c
+        cases.append((name, Vp - last, last, vocab))
+    for name, col0, C, vocab in cases:
         logits = torch.randn((T, C), generator=gen, device="cuda") + 8.0
         args = (lse, labels, g_nll, g_lse, col0, vocab)
         want = xent.xent_bwd_plain(logits.clone(), *args)
         got = xent.xent_bwd(logits.clone(), *args)
+        again = xent.xent_bwd(logits.clone(), *args)
         torch.cuda.synchronize()
         tag = f"xent_bwd T={T} chunk={C} col0={col0} vocab={vocab} f32"
         err = check_close(tag, got, want, torch.float32)
+        assert_same_bits(tag, (got,), (again,))
         buf = logits.clone()
         ms = timer(lambda: xent.xent_bwd(buf, *args))
         plain_ms = timer(lambda: xent.xent_bwd_plain(buf, *args))
         b_ms, b_by = bound(2 * logits.numel() * 4 + 4 * T * 4, 0,
                            torch.float32)
-        print(f"[kernel] {tag}: max_abs_err {err:.3e} (tol 2e-05)  kernel "
-              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  no library call  "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+        print(f"[kernel] {tag}: max_abs_err {err:.3e} (tol 2e-05); a second "
+              f"launch equal bit for bit  kernel {ms:.4f} ms  plain "
+              f"{plain_ms:.4f} ms  no library call  bound {b_ms:.4f} ms "
+              f"({b_by})", flush=True)
         r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                  bound_by=b_by, library_ms=None)
         if bwd_row is None:
             bwd_row = r
-        elif vocab == DEEPSEEK_VOCAB:
-            bwd_row["deepseek"] = r
-        elif vocab == MAMBA_VOCAB:
-            bwd_row["mamba2"] = r
-        del logits, want, got, buf
+        elif name is not None:
+            bwd_row[name] = r
+        del logits, want, got, again, buf
     return fwd_row, bwd_row
 
 
@@ -2495,35 +2561,190 @@ def _annotated_hetero(torch, plan, mesh, init: dict) -> dict:
             "total_s": time.perf_counter() - t0}
 
 
-def spawn_ranks(fn, *args, timeout: float = 600, nprocs: int = 2) -> list:
-    """Run ``fn(rank, store, out_dir, *args)`` in ``nprocs`` processes
-    spawned on this machine (each opens ``cuda:0``), and return their
-    ``rank<r>.json`` records; a rank that fails or outlives ``timeout``
-    seconds fails the phase, and all are stopped."""
-    import torch.multiprocessing as mp
-
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
-    try:
-        ctx = mp.start_processes(fn, args=(os.path.join(tmp, "store"), tmp)
-                                 + args, nprocs=nprocs, join=False,
-                                 start_method="spawn")
-        deadline = time.monotonic() + timeout
-        for p in ctx.processes:
-            p.join(max(1.0, deadline - time.monotonic()))
-        hung = [p for p in ctx.processes if p.is_alive()]
-        for p in hung:
-            p.kill()
-            p.join()
-        if hung:
-            raise AssertionError(f"a rank did not finish in {timeout} s")
-        ctx.join()                       # raises where a rank failed
-        ranks = []
-        for r in range(nprocs):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+def _rank_records(out_dir: str, nprocs: int) -> list:
+    """The ``rank<r>.json`` records the ranks wrote to ``out_dir``."""
+    ranks = []
+    for r in range(nprocs):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
     return ranks
+
+
+#: the pool of rank processes the meshed phases share (main process only)
+POOL_RANKS = 4
+_POOL = None
+
+
+def _patch_points() -> list:
+    """The entry points a rank function may wrap for its timing or
+    recording and leave wrapped (it was written for a process of its own):
+    a pooled rank restores them after each task."""
+    import torch.distributed as dist
+
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.models import moe
+    from repro_torch.serving import server as srv
+
+    return ([(dist, n) for n in ("all_reduce", "all_gather", "broadcast",
+                                 "reduce_scatter")]
+            + [(srv.Server, "admit"), (srv.Server, "step"),
+               (checkpoint.CheckpointManager, "_write"),
+               (checkpoint.CheckpointManager, "save"), (moe, "_route")])
+
+
+def _pool_worker(tasks, results) -> None:
+    """One pooled rank on ``cuda:0``: runs each task ``(fn, rank, store,
+    out_dir, args)`` as ``fn(rank, store, out_dir, *args)`` until it is
+    given ``None``, each from the state a freshly spawned process has: the
+    launch counts and the peak memory reset before it, the entry points of
+    :func:`_patch_points` restored and the allocator's cache released
+    after it.  Reports ``(rank, None or traceback, GiB allocated, GiB
+    reserved)``, the last two after the cleanup."""
+    import gc
+    import traceback
+
+    import torch
+
+    torch.cuda.set_device(0)
+    torch.cuda.init()
+    points = _patch_points()
+    kernels = kernel_wrappers()
+    while True:
+        task = tasks.get()
+        if task is None:
+            return
+        fn, rank, store, out_dir, args = task
+        saved = [getattr(o, n) for o, n in points]
+        reset_counts(kernels)
+        torch.cuda.reset_peak_memory_stats()
+        err = None
+        try:
+            fn(rank, store, out_dir, *args)
+        except BaseException:   # noqa: BLE001 -- reported to the parent
+            err = traceback.format_exc()
+        finally:
+            for (o, n), v in zip(points, saved):
+                setattr(o, n, v)
+            gc.collect()
+            torch.cuda.empty_cache()
+        results.put((rank, err, torch.cuda.memory_allocated() / 2**30,
+                     torch.cuda.memory_reserved() / 2**30))
+
+
+class RankPool:
+    """``n`` processes spawned once, each opening ``cuda:0``, that run
+    rank functions one task after another: a task of k ranks goes to the
+    first k.  Spawning two ranks anew took 10.7–13.8 s on an NVIDIA H100
+    80GB HBM3 (700 W), most of it each process reaching the card; the
+    shared pool (:func:`spawn_ranks`, POOL_RANKS) pays that once for the
+    meshed phases.  An idle rank still holds its CUDA context, so a phase
+    whose ranks need nearly the whole card starts a pool of exactly its
+    ranks and closes it after them (:func:`own_ranks`)."""
+
+    def __init__(self, n: int = POOL_RANKS):
+        import torch.multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.tasks = [ctx.SimpleQueue() for _ in range(n)]
+        self.results = ctx.Queue()
+        self.procs = [ctx.Process(target=_pool_worker,
+                                  args=(self.tasks[r], self.results),
+                                  daemon=True) for r in range(n)]
+        for p in self.procs:
+            p.start()
+
+    def run(self, fn, args: tuple, nprocs: int, timeout: float) -> list:
+        import queue
+
+        if nprocs > len(self.procs):
+            raise ValueError(f"{nprocs} ranks, the pool holds "
+                             f"{len(self.procs)}")
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+        try:
+            for r in range(nprocs):
+                self.tasks[r].put((fn, r, os.path.join(tmp, "store"), tmp,
+                                   args))
+            deadline = time.monotonic() + timeout
+            errs, done, held = {}, set(), {}
+            while len(done) < nprocs:
+                left = deadline - time.monotonic()
+                if left <= 0 or not all(p.is_alive() for p in self.procs):
+                    # a hung rank (or the peers of a failed one, waiting
+                    # in a collective): the pool goes with it
+                    self.close()
+                    errs["pool"] = (f"a rank did not finish in {timeout} s"
+                                    if left <= 0 else
+                                    "a pooled rank process died")
+                    break
+                try:
+                    r, err, *mem = self.results.get(timeout=min(left, 2.0))
+                except queue.Empty:
+                    continue
+                done.add(r)
+                held[r] = mem
+                if err:
+                    errs[r] = err
+                    deadline = min(deadline, time.monotonic() + 30)
+            if errs:
+                raise AssertionError("rank(s) failed:\n" + "\n".join(
+                    f"rank {r}: {e}" for r, e in errs.items()))
+            print(f"[pool] {fn.__name__} on {nprocs} pooled ranks: GiB "
+                  f"allocated, reserved after it "
+                  f"{[[round(x, 3) for x in held[r]] for r in sorted(held)]}",
+                  flush=True)
+            return _rank_records(tmp, nprocs)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def close(self) -> None:
+        for q, p in zip(self.tasks, self.procs):
+            if p.is_alive():
+                q.put(None)
+        for p in self.procs:
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def close_pool() -> None:
+    """Stop the pool's processes (the next meshed phase starts a new
+    one)."""
+    global _POOL
+    if _POOL is not None:
+        pool, _POOL = _POOL, None
+        pool.close()
+
+
+def own_ranks(fn, *args, timeout: float = 600, nprocs: int = 2) -> list:
+    """Run ``fn(rank, store, out_dir, *args)`` on a pool of exactly
+    ``nprocs`` ranks (:class:`RankPool`) started for this call, after the
+    shared pool is stopped, and closed after it: no idle rank holds the
+    card beside them.  Returns their ``rank<r>.json`` records; a rank that
+    fails or outlives ``timeout`` seconds fails the phase."""
+    close_pool()
+    pool = RankPool(nprocs)
+    try:
+        return pool.run(fn, args, nprocs, timeout)
+    finally:
+        pool.close()
+
+
+def spawn_ranks(fn, *args, timeout: float = 600, nprocs: int = 2) -> list:
+    """Run ``fn(rank, store, out_dir, *args)`` on ``nprocs`` ranks of the
+    pool (:class:`RankPool`, started at the first call; each rank on
+    ``cuda:0``), and return their ``rank<r>.json`` records; a rank that
+    fails or outlives ``timeout`` seconds fails the phase (the pool is
+    stopped where a rank hangs)."""
+    global _POOL
+    if _POOL is not None and not all(p.is_alive() for p in _POOL.procs):
+        close_pool()                     # stopped by a rank that hung
+    if _POOL is None:
+        import atexit
+
+        _POOL = RankPool()
+        atexit.register(close_pool)
+    return _POOL.run(fn, args, nprocs, timeout)
 
 
 def pipeline_engine(torch) -> tuple:
@@ -4785,20 +5006,8 @@ def moe_serve(torch, kernels) -> tuple:
     from repro_torch.tree import flatten
 
     steps = []
-    real_step = srv.Server.step
-
-    def timed_step(self, *a, **kw):
-        live = sum(r is not None for r in self.slots)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = real_step(self, *a, **kw)
-        torch.cuda.synchronize()
-        steps.append((time.perf_counter() - t0, live))
-        return out
-
     out = {}
-    srv.Server.step = timed_step
-    try:
+    with host_timed(torch, srv.Server, "step", steps, live_slots):
         for cache, argv in (("paged", MOE_PAGED_ARGS),
                             ("dense", MOE_DENSE_ARGS)):
             torch.cuda.empty_cache()
@@ -4837,8 +5046,6 @@ def moe_serve(torch, kernels) -> tuple:
                 raise AssertionError(f"moe serve {cache}: launches {counts}")
             out[cache] = (counts, summary)
             del server
-    finally:
-        srv.Server.step = real_step
     torch.cuda.empty_cache()
     t_served = time.perf_counter()
     same, total = _same_tokens(out["paged"][1]["out_tokens"],
@@ -6875,10 +7082,12 @@ def moe_engine(torch, kernels) -> dict:
     try:
         refs = _moe_references(torch, tmp)
         t0 = time.perf_counter()
-        ranks = {2: spawn_ranks(_moe_engine_rank, tmp, 2, timeout=600)}
+        # deepseek's ranks take nearly the whole card: a pool of exactly
+        # the phase's ranks, none idle beside them
+        ranks = {2: own_ranks(_moe_engine_rank, tmp, 2, timeout=600)}
         t1 = time.perf_counter()
-        ranks[4] = spawn_ranks(_moe_engine_rank, tmp, 4, nprocs=4,
-                               timeout=600)
+        ranks[4] = own_ranks(_moe_engine_rank, tmp, 4, nprocs=4,
+                             timeout=600)
         t2 = time.perf_counter()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -6893,6 +7102,316 @@ def moe_engine(torch, kernels) -> dict:
     counts.update(_moe_report_serve(ranks, refs, fails))
     if fails:
         raise AssertionError("; ".join(fails))
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 33: the dense family's rest
+# ---------------------------------------------------------------------------
+
+#: the configs, and what each brings to the dense family
+DENSE_REST = {"qwen3-1.7b": "qk-norm, tied head, 16/8 heads of 128",
+              "gemma-2b": "GeGLU, MQA 8/1 heads of 256, tied 256k head",
+              "stablelm-3b": "LayerNorm, MHA 32/32 heads of 80"}
+DR_SERVE = ["--requests", "8", "--batch-slots", "8", "--prompt-len", "256",
+            "--gen", "32", "--max-len", "512"]
+DR_TRAIN_STEPS = 3
+
+
+def live_slots(server) -> int:
+    """A Server's slots that hold a request."""
+    return sum(r is not None for r in server.slots)
+
+
+@contextlib.contextmanager
+def host_timed(torch, obj, name: str, out: list, tag=None):
+    """``obj.<name>`` timed on the host clock, the card synchronized before
+    and after: each call appends (seconds, ``tag(first argument)``) to
+    ``out``; the attribute is restored on exit."""
+    real = getattr(obj, name)
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = real(*a, **kw)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0, tag(a[0]) if tag else None))
+        return r
+
+    setattr(obj, name, timed)
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
+def dense_rest_serve(torch, kernels, arch: str) -> dict:
+    """Phase 33 (a): ``serve.run`` on ``arch`` at full width and depth in
+    bf16, paged (64-row pages) and dense, 8 requests of 256 + 32 tokens
+    through 8 slots: TTFT (one admission, its prefill and first token),
+    TPOT (a decode step at 8 live slots), tokens/s, the peak beside the
+    weights and KV, and the launches (flash forward one per layer and
+    admission, paged decode one per layer and step, nothing else)."""
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import param_count
+    from repro_torch.serving import server as srv
+    from repro_torch.tree import flatten
+
+    out = {}
+    for cache in ("paged", "dense"):
+        argv = (["--arch", arch, "--cache", cache] + DR_SERVE
+                + (["--page-size", "64"] if cache == "paged" else []))
+        admits, steps = [], []
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        with host_timed(torch, srv.Server, "admit", admits), \
+                host_timed(torch, srv.Server, "step", steps, live_slots):
+            summary, server = serve.run(serve.parse_args(argv))
+        counts = read_counts(kernels)
+        peak = torch.cuda.max_memory_allocated()
+        kv = server.pools if cache == "paged" else server.state["cache"]
+        kv_bytes = sum(t.numel() * t.element_size() for t in flatten(kv)[1])
+        layers = server.model.cfg.n_layers
+        n = param_count(server.model.param_shapes())
+        full = [t for t, k in steps if k == 8]
+        ttft = statistics.median(t for t, _ in admits)
+        tpot = statistics.median(full or [t for t, _ in steps])
+        print(f"[dense-rest] {arch} serve {cache}: {summary['completed']} "
+              f"requests, {summary['tokens']} tokens, {summary['steps']} "
+              f"decode steps in {summary['seconds']:.3f} s "
+              f"({summary['tokens'] / summary['seconds']:.1f} tok/s); TTFT "
+              f"{ttft * 1e3:.2f} ms (median admission: a 256-token prefill "
+              f"and its first token), TPOT {tpot * 1e3:.2f} ms (median "
+              f"decode step, {len(full)} with 8 live slots), host clock, "
+              f"synced; {n:,} parameters ({n * 2 / 2**30:.2f} GiB in bf16), "
+              f"KV {kv_bytes / 2**30:.3f} GiB, peak device memory "
+              f"{peak / 2**30:.2f} GiB; launches {counts}", flush=True)
+        if summary["completed"] != 8:
+            raise AssertionError(f"{arch} serve {cache}: "
+                                 f"{summary['completed']} requests")
+        want_pd = layers * summary["steps"] if cache == "paged" else 0
+        if counts["flash_fwd"] != layers * len(admits) \
+                or counts["paged_decode"] != want_pd \
+                or sum(counts.values()) != counts["flash_fwd"] + want_pd:
+            raise AssertionError(f"{arch} serve {cache}: launches {counts}")
+        out[cache] = counts
+        del server
+        torch.cuda.empty_cache()
+    return out
+
+
+#: the plain run's witness of the driver's bf16 losses: each step's loss
+#: through the kernels within this share of the plain versions'
+DR_WITNESS_REL = 0.05
+
+
+def dense_rest_train(torch, kernels, arch: str) -> dict:
+    """Phase 33 (b): ``train.main`` on ``arch`` at full width and depth,
+    batch 4 x 2048, remat full, AdamW, DR_TRAIN_STEPS steps: finite
+    losses, the launches, tokens/s after step 0 and, in those steps, the
+    forward (``loss_fn``), AdamW (``apply``) and the backward (the rest of
+    the step) on the host clock; the peak beside the parameters,
+    gradients and moments.  Then the same steps through the plain
+    versions on the card (:func:`plain_on_card`), the witness of the
+    losses' course: each step's loss through the kernels within
+    DR_WITNESS_REL of the plain run's.  The final checkpoint is neither
+    copied to the host nor written (phase 11 does both)."""
+    import dataclasses
+
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.lm import Model, param_count
+
+    cfg = get_config(arch)
+    fwd, upd, written = [], [], []
+    real_adamw = train.adamw
+
+    def timed_adamw(*a, **kw):
+        o = real_adamw(*a, **kw)
+
+        def apply(*aa, **kk):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = o.apply(*aa, **kk)
+            torch.cuda.synchronize()
+            upd.append(time.perf_counter() - t0)
+            return r
+        return dataclasses.replace(o, apply=apply)
+
+    def drive():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return train.main(["--arch", arch, "--batch", str(TRAIN_BATCH),
+                           "--seq", str(TRAIN_SEQ), "--steps",
+                           str(DR_TRAIN_STEPS), "--optimizer", "adamw",
+                           "--log-every", "1", "--ckpt-dir", tmp])
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dense_rest_")
+    saved = (checkpoint.CheckpointManager._write, checkpoint._to_host)
+    checkpoint.CheckpointManager._write = \
+        lambda self, step, *a: written.append(step)
+    checkpoint._to_host = lambda tree: ([], [])
+    train.adamw = timed_adamw
+    try:
+        reset_counts(kernels)
+        with host_timed(torch, Model, "loss_fn", fwd):
+            res = drive()
+        counts = read_counts(kernels)
+        peak = torch.cuda.max_memory_allocated()
+        train.adamw = real_adamw
+        with plain_on_card():
+            t0 = time.perf_counter()
+            plain = drive()["losses"]
+            plain_s = time.perf_counter() - t0
+        plain_peak = torch.cuda.max_memory_allocated()
+    finally:
+        checkpoint.CheckpointManager._write, checkpoint._to_host = saved
+        train.adamw = real_adamw
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    n = param_count(Model(cfg, "meta").param_shapes())
+    secs = res["step_seconds"]
+    if not len(secs) == len(fwd) == len(upd) == DR_TRAIN_STEPS:
+        raise AssertionError(f"{arch} train: {len(secs)} steps, {len(fwd)} "
+                             f"forwards, {len(upd)} updates")
+    f_ms = statistics.median(t for t, _ in fwd[1:]) * 1e3
+    o_ms = statistics.median(upd[1:]) * 1e3
+    b_ms = statistics.median(s - f - o for s, (f, _), o in
+                             zip(secs[1:], fwd[1:], upd[1:])) * 1e3
+    tok = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[dense-rest] {arch} train, {cfg.n_layers} layers, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: {n:,} parameters; losses "
+          f"{res['losses']}; step seconds {[round(x, 3) for x in secs]} "
+          f"({tok / statistics.median(secs[1:]):.1f} tok/s after step 0); "
+          f"after step 0, medians: forward {f_ms:.1f} ms, backward (the "
+          f"recompute included) {b_ms:.1f} ms, AdamW {o_ms:.1f} ms; peak "
+          f"device memory {peak / 2**30:.2f} GiB beside parameters, "
+          f"gradients and AdamW moments {16 * n / 1e9:.2f} GB; final "
+          f"checkpoint at step {written} (host copy and write skipped); "
+          f"launches {counts}", flush=True)
+    rel = [abs(a - b) / abs(b) for a, b in zip(res["losses"], plain)]
+    print(f"[dense-rest] {arch} train through the plain versions (the "
+          f"same {DR_TRAIN_STEPS} driver steps, bf16): losses {plain} in "
+          f"{plain_s:.1f} s, peak {plain_peak / 2**30:.2f} GiB; kernels "
+          f"against plain |diff| / |plain| {[f'{x:.2e}' for x in rel]} "
+          f"(gate {DR_WITNESS_REL})", flush=True)
+    if not all(math.isfinite(x) for x in res["losses"] + plain):
+        raise AssertionError(f"{arch} train: losses {res['losses']}, "
+                             f"plain {plain}")
+    if len(plain) != DR_TRAIN_STEPS or not max(rel) <= DR_WITNESS_REL:
+        raise AssertionError(f"{arch} train: losses {res['losses']} through "
+                             f"the kernels, {plain} through the plain "
+                             f"versions")
+    exp = train_expected(cfg.n_layers, DR_TRAIN_STEPS, cfg.padded_vocab)
+    if counts != exp:
+        raise AssertionError(f"{arch} train: launches {counts}, want {exp}")
+    return counts
+
+
+def dense_rest_agreement(torch, arch: str) -> None:
+    """Phase 33 (c): the kernels against their plain versions on the card
+    (:func:`plain_on_card`).  Teacher-forced logits (phase 26's: 2
+    prompts of 500, 16 forced steps, paged): at full depth in bf16, the
+    plain run within TF_PAIR times the larger of the two runs' own error
+    (each against the same weights in f32 through the f32 kernels); at 2
+    layers in f32 within 1e-4 + 1e-4|x|.  Step 0's loss and every
+    gradient leaf at 2 layers in f32 (batch 4 x 2048) within 2e-4 +
+    2e-4|x|."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.planner import compile_plan, loss_and_grads
+    from repro_torch.models.lm import Model
+    from repro_torch.tree import flatten
+
+    cfg = get_config(arch)
+    model = Model(cfg)
+    plan = compile_plan(model, None)
+    params = model.serving_params(plan.init_params(0))
+    tf = {"paged": teacher_forced(torch, model, plan, params, "paged")}
+    with plain_on_card():
+        tf["plain"] = teacher_forced(torch, model, plan, params, "paged")
+    # the same weights in f32, leaf by leaf
+    for node in _dicts(params):
+        for k, v in node.items():
+            if isinstance(v, torch.Tensor):
+                node[k] = v.float()
+    m32 = Model(dataclasses.replace(cfg, dtype="float32"))
+    tf["f32"] = teacher_forced(torch, m32, compile_plan(m32, None), params,
+                               "paged")
+    del params
+    torch.cuda.empty_cache()
+    tol = TF_TOL["bfloat16"]
+    own = {k: tf_gap(tf[k], tf["f32"], tol) for k in ("paged", "plain")}
+    gate = TF_PAIR * max(own["paged"]["worst"], own["plain"]["worst"])
+    g = tf_gap(tf["plain"], tf["paged"], tol)
+    print(f"[dense-rest] {arch} teacher-forced bf16, {cfg.n_layers} layers: "
+          f"bf16's own error (against the same weights in f32) worst share "
+          f"of 0.02 + 0.02|x| {own['paged']['worst']:.3f} through the "
+          f"kernels, {own['plain']['worst']:.3f} through the plain "
+          f"versions; kernels against plain max |diff| {g['max_abs']:.3e}, "
+          f"worst share {g['worst']:.3f} against the gate {gate:.3f}",
+          flush=True)
+    fails = []
+    if not g["worst"] <= gate:
+        fails.append(f"teacher-forced bf16: {g['worst']:.3f} beyond "
+                     f"{gate:.3f}")
+    if not all(torch.isfinite(t).all() for t in tf.values()):
+        fails.append("non-finite teacher-forced logits")
+    del tf
+    small = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    m2 = Model(small)
+    plan2 = compile_plan(m2, None)
+    p2 = m2.serving_params(plan2.init_params(0))
+    got = teacher_forced(torch, m2, plan2, p2, "paged")
+    with plain_on_card():
+        want = teacher_forced(torch, m2, plan2, p2, "paged")
+    g = tf_gap(got, want, TF_TOL["float32"])
+    del p2, got, want
+    batch = _first_batch(torch, cfg.vocab, TRAIN_BATCH)
+    p2 = m2.init(0)
+    loss_k, _, g_k = loss_and_grads(m2, p2, batch)
+    with plain_on_card():
+        loss_p, _, g_p = loss_and_grads(m2, p2, batch)
+    lim = GRAD_TOL[str(torch.float32)]
+    worst = max(check_close(f"{arch} f32 2 layers gradient {k}", a, b,
+                            torch.float32, lim)
+                for (k, a), b in zip(zip(*flatten(g_k)), flatten(g_p)[1]))
+    check_close(f"{arch} f32 2 layers loss", loss_k, loss_p, torch.float32,
+                lim)
+    print(f"[dense-rest] {arch} f32, 2 layers, through the kernels against "
+          f"the plain versions: teacher-forced max |diff| "
+          f"{g['max_abs']:.3e}, worst share of 1e-4 + 1e-4|x| "
+          f"{g['worst']:.3f}; step 0 loss {float(loss_k):.6f} vs "
+          f"{float(loss_p):.6f}, every gradient leaf within 2e-4 + 2e-4|x| "
+          f"(max |diff| {worst:.3e})", flush=True)
+    if not g["worst"] <= 1:
+        fails.append("f32 teacher-forced logits outside 1e-4 + 1e-4|x|")
+    del p2, g_k, g_p
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"{arch}: " + "; ".join(fails))
+
+
+def dense_rest(torch, kernels) -> dict:
+    """Phase 33: the dense family's rest, qwen3-1.7b, gemma-2b and
+    stablelm-3b, each served (:func:`dense_rest_serve`), trained
+    (:func:`dense_rest_train`) and held against the plain versions
+    (:func:`dense_rest_agreement`).  Returns each path's launches."""
+    counts = {}
+    for arch, what in DENSE_REST.items():
+        t0 = time.perf_counter()
+        print(f"[dense-rest] {arch}: {what}", flush=True)
+        name = arch.split("-")[0]
+        served = dense_rest_serve(torch, kernels, arch)
+        counts[f"serve_{name}"] = served["paged"]
+        counts[f"serve_{name}_dense"] = served["dense"]
+        counts[f"train_{name}"] = dense_rest_train(torch, kernels, arch)
+        dense_rest_agreement(torch, arch)
+        print(f"[dense-rest] {arch}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
     return counts
 
 
@@ -7061,6 +7580,12 @@ def main() -> None:
                "pipeline×2 and over model 2, the balance at data 2, served "
                "split×2 and data 2 x model 2; 2 and 4 ranks)"):
         moe_engine_counts = moe_engine(torch, kernels)
+    close_pool()
+    torch.cuda.empty_cache()
+    with phase("the dense family's rest (qwen3-1.7b, gemma-2b, stablelm-3b: "
+               "served paged and dense, trained, held against the plain "
+               "versions)"):
+        dense_counts = dense_rest(torch, kernels)
 
     meta = {
         "flash_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
@@ -7113,7 +7638,8 @@ def main() -> None:
                    "train_mamba2": m2_train_counts[name],
                    **{path: c[name] for path, c in m2_split_counts.items()},
                    **{path: c[name] for path, c in
-                      moe_engine_counts.items()}}
+                      moe_engine_counts.items()},
+                   **{path: c[name] for path, c in dense_counts.items()}}
         table.append(dict(name=name, route="cuda", source=meta[name][0],
                           replaces=meta[name][1],
                           launches=sum(by_path.values()),

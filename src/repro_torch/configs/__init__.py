@@ -1,6 +1,6 @@
-"""Registry of the ported architectures (tinyllama-1.1b, mamba2-1.3b and
-deepseek-moe-16b so far; the other configs of ``repro.configs`` come with
-their model families)."""
+"""Registry of the ported architectures: the dense family (tinyllama-1.1b,
+qwen3-1.7b, gemma-2b, stablelm-3b), mamba2-1.3b and deepseek-moe-16b;
+the other configs of ``repro.configs`` come with their model families."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,6 +10,9 @@ from repro_torch.configs.base import LMCfg, shrink  # noqa: F401
 
 _ARCH_MODULES = {
     "tinyllama-1.1b": "tinyllama_1_1b",
+    "qwen3-1.7b": "qwen3_1_7b",
+    "gemma-2b": "gemma_2b",
+    "stablelm-3b": "stablelm_3b",
     "mamba2-1.3b": "mamba2_1_3b",
     "deepseek-moe-16b": "deepseek_moe_16b",
 }

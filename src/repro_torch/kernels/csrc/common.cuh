@@ -175,7 +175,9 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
 // ---------------------------------------------------------------------------
 
 // Rows of a bf16 tile in shared memory are D + 8 elements apart: the
-// 16-byte pad puts the 8 rows one ldmatrix reads in 8 bank groups.
+// 16-byte pad puts the 8 rows one ldmatrix reads in 8 bank groups, as a
+// row is an odd number of 16-byte units at every head dim taken (9, 11,
+// 17 and 33 at D = 64, 80, 128, 256).
 template <int D>
 constexpr int PITCH = D + 8;
 
@@ -222,18 +224,19 @@ __device__ __forceinline__ void keys_async(__nv_bfloat16* dst,
   }
 }
 
-// c[n] += A . B over KB 16-deep slices, for all D / 8 n8 tiles of c: A in
+// c[n] += A . B over KB 16-deep slices, for all N / 8 n8 tiles of c: A in
 // registers (the packed p or ds of the warp's 16 rows), B the first
-// 16 * KB rows of a row-major (., D) tile in shared memory.
-template <int D, int KB>
-__device__ __forceinline__ void mma_ab(float (&c)[D / 8][4],
+// 16 * KB rows and N columns of a row-major (., D) tile in shared memory
+// (N < D: a slice of the columns, Bm pointing at its first).
+template <int D, int KB, int N = D>
+__device__ __forceinline__ void mma_ab(float (&c)[N / 8][4],
                                        const uint32_t (&a)[KB][4],
                                        const __nv_bfloat16* Bm, int lane) {
   constexpr int P = PITCH<D>;
 #pragma unroll
   for (int kk = 0; kk < KB; ++kk)
 #pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
+    for (int n = 0; n < N / 16; ++n) {
       uint32_t bm[4];
       ldsm4_t(bm, Bm + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * P
                       + n * 16 + (lane / 16) * 8);

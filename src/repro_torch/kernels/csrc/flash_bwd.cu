@@ -52,6 +52,11 @@
 //  - f32: the FMA kernels of the first port, tiles widened to f32 in
 //    shared memory and 4x8 register tiles a thread; the f32 tolerance
 //    (2e-4) would not survive bf16 or TF32 rounding.
+// Head dims 64, 80, 128 and 256.  At 256 the dk/dv kernels of both dtypes
+// split D: a block owns 128 of the output dims and recomputes s and dp for
+// them (6 products of 2·pairs·H·D in place of 4), so its two accumulators
+// fit as at D = 128; the f32 tiles shrink to fit 227 KB (DQ_KEYS,
+// DKV_ROWS_F32), the bf16 dq kernel streams 32 keys a tile.
 // Ragged tails are masked, not required away.
 
 #include "common.cuh"
@@ -64,31 +69,46 @@ constexpr int NT = 128;   // threads in every block: 4 warps
 // f32: FMA kernels
 // ---------------------------------------------------------------------------
 
-constexpr int BR = 64;    // rows (query, group-head) per tile
-constexpr int BK = 64;    // keys per tile
+constexpr int BR = 64;    // dq: rows (query, group-head) per block
+constexpr int BK = 64;    // dk/dv: keys per block
+
+// The tiles shrink at D = 256, where 64 x (D + 1) floats are 65.8 KB:
+//  - dq streams 32 keys a tile (64 below): Q, dO and two stages of K, V
+//    at 64 would take 279,808 B, over the 232,448 a block may have;
+//  - dk/dv streams 32 rows a tile (64 below), 296,960 B at 64, and each
+//    block owns DS = 128 of the D output dims (the D split: a (key tile,
+//    dim slice) pair a block, s and dp recomputed for each slice), so its
+//    two accumulators stay at 4 x 16 floats a thread each, as at D = 128.
+template <int D>
+constexpr int DQ_KEYS = D > 128 ? 32 : 64;
+template <int D>
+constexpr int DKV_ROWS_F32 = D > 128 ? 32 : 64;
+template <int D>
+constexpr int DS = D > 128 ? 128 : D;   // output dims of a block (both dtypes)
 
 template <int D>
 constexpr int dq_smem_bytes() {
-  return (2 * BR * (D + 1) + 2 * BK * (D + 1) + BR * (BK + 1)) * 4;
+  return (2 * BR * (D + 1) + 2 * DQ_KEYS<D> * (D + 1)
+          + BR * (DQ_KEYS<D> + 1)) * 4;
 }
 
 template <int D>
 constexpr int dkv_smem_bytes() {
-  return (2 * BK * (D + 1) + 2 * BR * (D + 1) + 2 * BR * (BK + 1) + 2 * BR)
-         * 4;
+  constexpr int R = DKV_ROWS_F32<D>;
+  return (2 * BK * (D + 1) + 2 * R * (D + 1) + 2 * R * (BK + 1) + 2 * R) * 4;
 }
 
-// Rows [row0, row0 + BR) of a (B, Sq, H, D) tensor for kv head `kvh`
-// (row = query * G + group-head) into dst (BR x (D+1)) times `mul`; rows
+// Rows [row0, row0 + R) of a (B, Sq, H, D) tensor for kv head `kvh`
+// (row = query * G + group-head) into dst (R x (D+1)) times `mul`; rows
 // past `nrows` are zero.
-template <int D>
+template <int D, int R>
 __device__ __forceinline__ void load_rows(float* dst,
                                           const float* __restrict__ src,
                                           int b, int kvh, int row0, int nrows,
                                           int Sq, int H, int G, float mul) {
   constexpr int CPR = D / 4;
   constexpr int DP = D + 1;
-  for (int c = threadIdx.x; c < BR * CPR; c += NT) {
+  for (int c = threadIdx.x; c < R * CPR; c += NT) {
     const int r = c / CPR, dc = (c % CPR) * 4;
     const int fr = row0 + r;
     float t[4] = {0.f, 0.f, 0.f, 0.f};
@@ -103,16 +123,16 @@ __device__ __forceinline__ void load_rows(float* dst,
   }
 }
 
-// Keys [k0, k0 + BK) of a (B, Sk, K, D) tensor for kv head `kvh` into dst
-// (BK x (D+1)); keys past Sk are zero.
-template <int D>
+// Keys [k0, k0 + R) of a (B, Sk, K, D) tensor for kv head `kvh` into dst
+// (R x (D+1)); keys past Sk are zero.
+template <int D, int R>
 __device__ __forceinline__ void load_keys(float* dst,
                                           const float* __restrict__ src,
                                           int b, int kvh, int k0, int Sk,
                                           int K) {
   constexpr int CPR = D / 4;
   constexpr int DP = D + 1;
-  for (int c = threadIdx.x; c < BK * CPR; c += NT) {
+  for (int c = threadIdx.x; c < R * CPR; c += NT) {
     const int r = c / CPR, dc = (c % CPR) * 4;
     const int key = k0 + r;
     float t[4] = {0.f, 0.f, 0.f, 0.f};
@@ -124,26 +144,27 @@ __device__ __forceinline__ void load_keys(float* dst,
   }
 }
 
-// s[i][j] = A[ty*4+i] . B[tx+8j] over D, both tiles (64 x (D+1)) in smem.
-template <int D>
+// s[i][j] = A[ty*RI+i] . B[tx+8j] over D, both tiles ((., D+1) rows) in
+// smem: RI rows of A and KJ rows of B a thread.
+template <int D, int RI, int KJ>
 __device__ __forceinline__ void tile_dot(const float* A, const float* Bm,
-                                         int tx, int ty, float (&s)[4][8]) {
+                                         int tx, int ty, float (&s)[RI][KJ]) {
   constexpr int DP = D + 1;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
 #pragma unroll 8
   for (int d = 0; d < D; ++d) {
-    float av[4], bv[8];
+    float av[RI], bv[KJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = A[(ty * 4 + i) * DP + d];
+    for (int i = 0; i < RI; ++i) av[i] = A[(ty * RI + i) * DP + d];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) bv[j] = Bm[(tx + 8 * j) * DP + d];
+    for (int j = 0; j < KJ; ++j) bv[j] = Bm[(tx + 8 * j) * DP + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+      for (int j = 0; j < KJ; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
   }
 }
 
@@ -158,15 +179,17 @@ flash_bwd_dq_fma_kernel(const float* __restrict__ q,
                         const float* __restrict__ delta,
                         float* __restrict__ dq, int Sq, int Sk, int H, int K,
                         int causal, float scale) {
+  constexpr int TK = DQ_KEYS<D>;        // keys per tile
+  constexpr int KJ = TK / 8;            // keys per thread
   constexpr int DP = D + 1;
-  constexpr int PP = BK + 1;
+  constexpr int PP = TK + 1;
   constexpr int DJ = D / 8;             // gradient dims per thread
   extern __shared__ float smem[];
   float* Qs = smem;                     // BR x DP, pre-scaled by tau
   float* dOs = Qs + BR * DP;            // BR x DP
-  float* Ks = dOs + BR * DP;            // BK x DP
-  float* Vs = Ks + BK * DP;             // BK x DP
-  float* dSs = Vs + BK * DP;            // BR x PP: p, then ds
+  float* Ks = dOs + BR * DP;            // TK x DP
+  float* Vs = Ks + TK * DP;             // TK x DP
+  float* dSs = Vs + TK * DP;            // BR x PP: p, then ds
 
   const int G = H / K;
   const int b = blockIdx.z, kvh = blockIdx.y;
@@ -174,8 +197,8 @@ flash_bwd_dq_fma_kernel(const float* __restrict__ q,
   const int nrows = Sq * G;
   const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
 
-  load_rows<D>(Qs, q, b, kvh, row0, nrows, Sq, H, G, scale);
-  load_rows<D>(dOs, dout, b, kvh, row0, nrows, Sq, H, G, 1.f);
+  load_rows<D, BR>(Qs, q, b, kvh, row0, nrows, Sq, H, G, scale);
+  load_rows<D, BR>(dOs, dout, b, kvh, row0, nrows, Sq, H, G, 1.f);
 
   float lse_r[4], dlt[4], acc[4][DJ];
   int qpos[4];
@@ -199,28 +222,28 @@ flash_bwd_dq_fma_kernel(const float* __restrict__ q,
     kend = min(Sk, last_q + 1);
   }
 
-  for (int k0 = 0; k0 < kend; k0 += BK) {
+  for (int k0 = 0; k0 < kend; k0 += TK) {
     __syncthreads();   // the previous tile's K, V and dS are consumed
-    load_keys<D>(Ks, k, b, kvh, k0, Sk, K);
-    load_keys<D>(Vs, v, b, kvh, k0, Sk, K);
+    load_keys<D, TK>(Ks, k, b, kvh, k0, Sk, K);
+    load_keys<D, TK>(Vs, v, b, kvh, k0, Sk, K);
     __syncthreads();
 
-    float s[4][8];
-    tile_dot<D>(Qs, Ks, tx, ty, s);
+    float s[4][KJ];
+    tile_dot<D, 4, KJ>(Qs, Ks, tx, ty, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < KJ; ++j) {
         const int key = k0 + tx + 8 * j;
         const bool on = live[i] && key < Sk && !(causal && key > qpos[i]);
         dSs[(ty * 4 + i) * PP + tx + 8 * j] =
             on ? expf(s[i][j] - lse_r[i]) : 0.f;
       }
-    tile_dot<D>(dOs, Vs, tx, ty, s);   // dp, into the same registers
+    tile_dot<D, 4, KJ>(dOs, Vs, tx, ty, s);   // dp, into the same registers
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < KJ; ++j) {
         float* cell = &dSs[(ty * 4 + i) * PP + tx + 8 * j];
         *cell = *cell * (s[i][j] - dlt[i]);      // the thread's own p
       }
@@ -228,7 +251,7 @@ flash_bwd_dq_fma_kernel(const float* __restrict__ q,
 
     // acc[i][j] += dS[row][:] . K[:, tx+8j]
 #pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
+    for (int kk = 0; kk < TK; ++kk) {
       float dv_[4], kv[DJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i) dv_[i] = dSs[(ty * 4 + i) * PP + kk];
@@ -252,7 +275,8 @@ flash_bwd_dq_fma_kernel(const float* __restrict__ q,
   }
 }
 
-// dk/dv: per (batch, kv head, 64 keys), loop row tiles from the first key on
+// dk/dv: per (batch, kv head, 64 keys, DS output dims), loop row tiles from
+// the first key on
 template <int D>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkv_fma_kernel(const float* __restrict__ q,
@@ -264,29 +288,33 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q,
                          float* __restrict__ dk, float* __restrict__ dv,
                          int Sq, int Sk, int H, int K, int causal,
                          float scale) {
+  constexpr int R = DKV_ROWS_F32<D>;    // rows per tile
+  constexpr int RI = R / 16;            // rows per thread in the scores
+  constexpr int NS = D / DS<D>;         // dim slices
   constexpr int DP = D + 1;
   constexpr int PP = BK + 1;
-  constexpr int DJ = D / 8;
+  constexpr int DJ = DS<D> / 8;         // gradient dims per thread
   extern __shared__ float smem[];
   float* Ks = smem;                     // BK x DP
   float* Vs = Ks + BK * DP;             // BK x DP
-  float* Qs = Vs + BK * DP;             // BR x DP, pre-scaled by tau
-  float* dOs = Qs + BR * DP;            // BR x DP
-  float* Ps = dOs + BR * DP;            // BR x PP
-  float* dSs = Ps + BR * PP;            // BR x PP
-  float* Ls = dSs + BR * PP;            // BR
-  float* Ds = Ls + BR;                  // BR
+  float* Qs = Vs + BK * DP;             // R x DP, pre-scaled by tau
+  float* dOs = Qs + R * DP;             // R x DP
+  float* Ps = dOs + R * DP;             // R x PP
+  float* dSs = Ps + R * PP;             // R x PP
+  float* Ls = dSs + R * PP;             // R
+  float* Ds = Ls + R;                   // R
 
   const int G = H / K;
   const int b = blockIdx.z, kvh = blockIdx.y;
-  const int key0 = blockIdx.x * BK;
+  const int key0 = blockIdx.x / NS * BK;
+  const int d0 = blockIdx.x % NS * DS<D>;   // this block's output dims
   const int nrows = Sq * G;
   const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
 
-  load_keys<D>(Ks, k, b, kvh, key0, Sk, K);
-  load_keys<D>(Vs, v, b, kvh, key0, Sk, K);
+  load_keys<D, BK>(Ks, k, b, kvh, key0, Sk, K);
+  load_keys<D, BK>(Vs, v, b, kvh, key0, Sk, K);
 
-  // keys ty*4+i of the tile, dims tx+8j
+  // keys ty*4+i of the tile, dims d0+tx+8j
   float dk_acc[4][DJ], dv_acc[4][DJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -297,11 +325,11 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q,
   // first key, so every entry they would add is masked
   const int row_begin = causal ? min(key0 * G, nrows) : 0;
 
-  for (int row0 = row_begin; row0 < nrows; row0 += BR) {
+  for (int row0 = row_begin; row0 < nrows; row0 += R) {
     __syncthreads();   // the previous tile's Q, dO, P and dS are consumed
-    load_rows<D>(Qs, q, b, kvh, row0, nrows, Sq, H, G, scale);
-    load_rows<D>(dOs, dout, b, kvh, row0, nrows, Sq, H, G, 1.f);
-    for (int c = tid; c < BR; c += NT) {
+    load_rows<D, R>(Qs, q, b, kvh, row0, nrows, Sq, H, G, scale);
+    load_rows<D, R>(dOs, dout, b, kvh, row0, nrows, Sq, H, G, 1.f);
+    for (int c = tid; c < R; c += NT) {
       const int fr = row0 + c;
       const bool live = fr < nrows;
       const size_t idx =
@@ -311,12 +339,12 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q,
     }
     __syncthreads();
 
-    // scores for rows ty*4+i and keys tx+8j
-    float s[4][8];
-    tile_dot<D>(Qs, Ks, tx, ty, s);
+    // scores for rows ty*RI+i and keys tx+8j
+    float s[RI][8];
+    tile_dot<D, RI, 8>(Qs, Ks, tx, ty, s);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
+    for (int i = 0; i < RI; ++i) {
+      const int r = ty * RI + i;
       const int fr = row0 + r;
       const int qp = fr / G;
 #pragma unroll
@@ -326,10 +354,10 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q,
         Ps[r * PP + tx + 8 * j] = on ? expf(s[i][j] - Ls[r]) : 0.f;
       }
     }
-    tile_dot<D>(dOs, Vs, tx, ty, s);   // dp, into the same registers
+    tile_dot<D, RI, 8>(dOs, Vs, tx, ty, s);   // dp, into the same registers
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
+    for (int i = 0; i < RI; ++i) {
+      const int r = ty * RI + i;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         dSs[r * PP + tx + 8 * j] =
@@ -339,7 +367,7 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q,
 
     // dv[key][d] += P[:, key] . dO[:, d];  dk[key][d] += dS[:, key] . Q[:, d]
 #pragma unroll 4
-    for (int r = 0; r < BR; ++r) {
+    for (int r = 0; r < R; ++r) {
       float pv[4], sv[4], ov[DJ], qv[DJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -348,8 +376,8 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q,
       }
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
-        ov[j] = dOs[r * DP + tx + 8 * j];
-        qv[j] = Qs[r * DP + tx + 8 * j];
+        ov[j] = dOs[r * DP + d0 + tx + 8 * j];
+        qv[j] = Qs[r * DP + d0 + tx + 8 * j];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -366,7 +394,7 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q,
   for (int i = 0; i < 4; ++i) {
     const int key = key0 + ty * 4 + i;
     if (key >= Sk) continue;
-    const size_t off = (((size_t)b * Sk + key) * K + kvh) * D;
+    const size_t off = (((size_t)b * Sk + key) * K + kvh) * D + d0;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       dk[off + tx + 8 * j] = dk_acc[i][j];
@@ -386,16 +414,20 @@ using repro::mma_ab;
 using repro::PITCH;
 using repro::rows_async;
 constexpr int MR = 64;    // dq: rows per block, 16 per warp
-constexpr int MK = 64;    // dq: keys per streamed tile; dk/dv: keys per block
+constexpr int MK = 64;    // dk/dv: keys per block, 16 per warp
 
-// dk/dv: rows per streamed tile.  At D=128 the two 16 x 128 accumulators
-// take 128 registers a thread, so the S^T and dP^T tiles are halved.
+// dq: keys per streamed tile, DQ_KEYS<D> (32 at D = 256, where the
+// accumulator takes 128 registers a lane beside the S and dP tiles).
+// dk/dv: rows per streamed tile.  At D >= 128 the two 16 x 128
+// accumulators take 128 registers a thread, so the S^T and dP^T tiles are
+// halved; at D = 256 a block owns DS = 128 of the output dims (the D
+// split, as in the f32 kernel), so its accumulators are D = 128's.
 template <int D>
-constexpr int DKV_ROWS = D == 64 ? 64 : 32;
+constexpr int DKV_ROWS = D <= 80 ? 64 : 32;
 
 template <int D>
 constexpr int dq_mma_smem_bytes() {   // Q, dO; 2 stages of (K, V)
-  return (2 * MR + 4 * MK) * PITCH<D> * 2;
+  return (2 * MR + 4 * DQ_KEYS<D>) * PITCH<D> * 2;
 }
 
 template <int D>
@@ -440,17 +472,17 @@ __device__ __forceinline__ void mma_abt(float (&c)[2 * NB][4], const bf16* A,
   }
 }
 
-// 16 rows of f32 accumulators (c[n] holds columns 8n..8n+7) times `mul`
-// as bf16, where row r of the warp's 16 goes to dst(r) (null: skip).
-template <int D, typename Dst>
-__device__ __forceinline__ void store_rows(const float (&c)[D / 8][4],
+// 16 rows of N f32 accumulators (c[n] holds columns 8n..8n+7) times
+// `mul` as bf16, where row r of the warp's 16 goes to dst(r) (null: skip).
+template <int N, typename Dst>
+__device__ __forceinline__ void store_rows(const float (&c)[N / 8][4],
                                            float mul, int lane, Dst dst) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     bf16* row = dst(lane / 4 + 8 * h);
     if (row == nullptr) continue;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < N / 8; ++n)
       *reinterpret_cast<uint32_t*>(row + n * 8 + (lane % 4) * 2) =
           repro::pack_bf16(c[n][2 * h] * mul, c[n][2 * h + 1] * mul);
   }
@@ -468,10 +500,11 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         bf16* __restrict__ dq, int B, int Sq, int Sk, int H,
                         int K, int causal, float scale) {
   constexpr int P = PITCH<D>;
+  constexpr int TK = DQ_KEYS<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // MR x P
   bf16* dOs = Qs + MR * P;                        // MR x P
-  bf16* ring = dOs + MR * P;                      // 2 x (K, V), MK x P each
+  bf16* ring = dOs + MR * P;                      // 2 x (K, V), TK x P each
 
   const int G = H / K, nrows = Sq * G;
   const int ntiles = (nrows + MR - 1) / MR;
@@ -483,13 +516,13 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   int kend = Sk;
   if (causal) kend = min(Sk, (min(row0 + MR, nrows) - 1) / G + 1);
-  const int nk = (kend + MK - 1) / MK;
+  const int nk = (kend + TK - 1) / TK;
   const int q_first = row0 / G;
 
   auto load_kv = [&](int j) {   // kv tile j into stage j & 1
-    bf16* dst = ring + (j & 1) * 2 * MK * P;
-    keys_async<MK, D, NT>(dst, k, b, kvh, j * MK, Sk, K);
-    keys_async<MK, D, NT>(dst + MK * P, v, b, kvh, j * MK, Sk, K);
+    bf16* dst = ring + (j & 1) * 2 * TK * P;
+    keys_async<TK, D, NT>(dst, k, b, kvh, j * TK, Sk, K);
+    keys_async<TK, D, NT>(dst + TK * P, v, b, kvh, j * TK, Sk, K);
     repro::cp_async_commit();
   };
   rows_async<MR, D, NT>(Qs, q, b, kvh, row0, nrows, Sq, H, G);
@@ -521,20 +554,20 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     repro::cp_async_wait<0>();
     __syncthreads();
     if (j + 1 < nk) load_kv(j + 1);
-    const bf16* Ks = ring + (j & 1) * 2 * MK * P;
-    const bf16* Vs = Ks + MK * P;
-    const int k0 = j * MK;
+    const bf16* Ks = ring + (j & 1) * 2 * TK * P;
+    const bf16* Vs = Ks + TK * P;
+    const int k0 = j * TK;
 
-    float s[MK / 8][4] = {}, dp[MK / 8][4] = {};
-    mma_abt<D, MK / 16>(s, Qw, Ks, lane);
-    mma_abt<D, MK / 16>(dp, dOw, Vs, lane);
+    float s[TK / 8][4] = {}, dp[TK / 8][4] = {};
+    mma_abt<D, TK / 16>(s, Qw, Ks, lane);
+    mma_abt<D, TK / 16>(dp, dOw, Vs, lane);
 
     // ds = p * (dp - delta), p = exp(tau s - lse); the mask only where the
     // tile straddles the diagonal or a ragged tail
-    const bool edge = (causal && k0 + MK - 1 > q_first) || k0 + MK > Sk
+    const bool edge = (causal && k0 + TK - 1 > q_first) || k0 + TK > Sk
                       || row0 + MR > nrows;
 #pragma unroll
-    for (int n = 0; n < MK / 8; ++n)
+    for (int n = 0; n < TK / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int h = e / 2;
@@ -545,11 +578,11 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
         dp[n][e] = p * (dp[n][e] - dlt[h]);
       }
-    uint32_t dsa[MK / 16][4];
+    uint32_t dsa[TK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < MK / 16; ++kk)
+    for (int kk = 0; kk < TK / 16; ++kk)
       repro::pack_a(dsa[kk], dp[2 * kk], dp[2 * kk + 1]);
-    mma_ab<D, MK / 16>(acc, dsa, Ks, lane);
+    mma_ab<D, TK / 16>(acc, dsa, Ks, lane);
   }
 
   const int rw = row0 + warp * 16;
@@ -560,8 +593,9 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   });
 }
 
-// dk/dv: per (batch, kv head, 64 keys), loop row tiles from the first key
-// on.  Warp w owns keys 16w..16w+15; lane l holds keys l/4 and l/4 + 8.
+// dk/dv: per (batch, kv head, 64 keys, DS output dims), loop row tiles
+// from the first key on.  Warp w owns keys 16w..16w+15; lane l holds keys
+// l/4 and l/4 + 8.
 template <int D>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
@@ -575,6 +609,7 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
                          float scale) {
   constexpr int P = PITCH<D>;
   constexpr int BN = DKV_ROWS<D>;
+  constexpr int N = DS<D>, NS = D / N;       // output dims a block, slices
   constexpr int STAGE = 2 * BN * P;          // Q and dO of one stage
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // MK x P
@@ -583,10 +618,12 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
   float* stats = reinterpret_cast<float*>(ring + 2 * STAGE);   // 2 x (l, d)
 
   const int G = H / K, nrows = Sq * G;
-  const int bk = blockIdx.x % (B * K);
+  const int d0 = blockIdx.x % NS * N;        // this block's output dims
+  const int bid = blockIdx.x / NS;
+  const int bk = bid % (B * K);
   const int b = bk / K, kvh = bk % K;
   // the first keys see the most rows: they launch first
-  const int key0 = blockIdx.x / (B * K) * MK;
+  const int key0 = bid / (B * K) * MK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   // causal: rows before key0 * G all belong to queries before the tile's
@@ -616,7 +653,7 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
   for (int h = 0; h < 2; ++h) key[h] = key0 + warp * 16 + lane / 4 + 8 * h;
   const float tau2 = scale * LOG2E;
 
-  float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
+  float dk_acc[N / 8][4] = {}, dv_acc[N / 8][4] = {};
   const bf16* Kw = Ks + warp * 16 * P;
   const bf16* Vw = Vs + warp * 16 * P;
 
@@ -660,8 +697,8 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
       repro::pack_a(pa[kk], st[2 * kk], st[2 * kk + 1]);
       repro::pack_a(dsa[kk], dpt[2 * kk], dpt[2 * kk + 1]);
     }
-    mma_ab<D, BN / 16>(dv_acc, pa, dOs, lane);
-    mma_ab<D, BN / 16>(dk_acc, dsa, Qs, lane);
+    mma_ab<D, BN / 16, N>(dv_acc, pa, dOs + d0, lane);
+    mma_ab<D, BN / 16, N>(dk_acc, dsa, Qs + d0, lane);
   }
 
   const int kw = key0 + warp * 16;
@@ -671,8 +708,8 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
                          : nullptr;
     };
   };
-  store_rows<D>(dk_acc, scale, lane, key_row(dk));
-  store_rows<D>(dv_acc, 1.f, lane, key_row(dv));
+  store_rows<N>(dk_acc, scale, lane, key_row(dk + d0));
+  store_rows<N>(dv_acc, 1.f, lane, key_row(dv + d0));
 }
 
 // ---------------------------------------------------------------------------
@@ -721,7 +758,9 @@ cudaError_t launch_dq(const Args& a, void* dq, bool bf16_in) {
 
 template <int D>
 cudaError_t launch_dkv(const Args& a, void* dk, void* dv, bool bf16_in) {
-  const int tiles = (a.Sk + MK - 1) / MK;
+  // (key tile, dim slice) pairs; MK == BK: both dtypes take 64 keys a block
+  static_assert(MK == BK, "one key tiling for both kernels");
+  const int tiles = (a.Sk + MK - 1) / MK * (D / DS<D>);
   if (bf16_in)
     return launch(flash_bwd_dkv_mma_kernel<D>, dim3(tiles * a.B * a.K),
                   dkv_mma_smem_bytes<D>(), a.stream,
@@ -760,7 +799,9 @@ extern "C" int repro_flash_bwd_dq(const void* q, const void* k, const void* v,
   const Args a = make_args(q, k, v, dout, lse, delta, B, Sq, Sk, H, K, D,
                            causal, stream);
   if (D == 64) return launch_dq<64>(a, dq, is_bf16);
+  if (D == 80) return launch_dq<80>(a, dq, is_bf16);
   if (D == 128) return launch_dq<128>(a, dq, is_bf16);
+  if (D == 256) return launch_dq<256>(a, dq, is_bf16);
   return cudaErrorInvalidValue;
 }
 
@@ -773,6 +814,8 @@ extern "C" int repro_flash_bwd_dkv(const void* q, const void* k, const void* v,
   const Args a = make_args(q, k, v, dout, lse, delta, B, Sq, Sk, H, K, D,
                            causal, stream);
   if (D == 64) return launch_dkv<64>(a, dk, dv, is_bf16);
+  if (D == 80) return launch_dkv<80>(a, dk, dv, is_bf16);
   if (D == 128) return launch_dkv<128>(a, dk, dv, is_bf16);
+  if (D == 256) return launch_dkv<256>(a, dk, dv, is_bf16);
   return cudaErrorInvalidValue;
 }

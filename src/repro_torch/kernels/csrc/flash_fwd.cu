@@ -25,8 +25,10 @@
 //  - bf16 (the training and serving path): the FlashAttention-2 forward on
 //    the tensor cores, mma.sync.m16n8k16 with bf16 operands and f32
 //    accumulation, 4 warps of 16 rows.  Each warp loads its Q fragments
-//    once (ldmatrix) and keeps them in registers.  K/V tiles of 64 keys
-//    stay bf16 in shared memory, rows padded by 16 bytes so the 8 rows an
+//    once (ldmatrix) and keeps them in registers, up to D = 128; at D = 256
+//    (128 accumulator registers a lane) it reads them from shared memory
+//    at each 16-dim step and streams tiles of 32 keys.  K/V tiles of 64
+//    keys stay bf16 in shared memory, rows padded by 16 bytes so the 8 rows an
 //    ldmatrix reads fall in 8 bank groups, and come through a 2-stage ring
 //    of 16-byte cp.async: tile j+1 loads while tile j computes, behind one
 //    barrier per tile.  S = Q.K^T reads K as B with ldmatrix; s is scaled
@@ -42,8 +44,11 @@
 //  - f32: the FMA kernel of the first port: K/V tiles widened to f32 in
 //    shared memory, a 4x8 register tile of scores and a 4x(D/8) tile of the
 //    output a thread, so each shared-memory read feeds 2-3 FMAs; q is
-//    pre-scaled by tau.  The f32 tolerance (2e-5) would not survive bf16 or
-//    TF32 rounding.
+//    pre-scaled by tau.  At D = 256 its tiles take 214,016 B of shared
+//    memory, one block an SM.  The f32 tolerance (2e-5) would not survive
+//    bf16 or TF32 rounding.
+// Head dims 64, 80, 128 and 256: 80 is 5 k-steps of 16 and 10 n8 tiles,
+// every loop here steps 16 dims at a time.
 
 #include "common.cuh"
 
@@ -237,12 +242,23 @@ using repro::LOG2E;
 using repro::PITCH;
 using repro::rows_async;
 constexpr int MR = 64;    // rows per block, 16 per warp
-constexpr int MK = 64;    // keys per streamed tile
 constexpr int MNT = MR / 16 * 32;
+
+// Keys per streamed tile: 64, and 32 at D = 256, where the output
+// accumulator alone takes 128 registers a lane (and two 32-key stages
+// leave room for two blocks an SM).
+template <int D>
+constexpr int MK = D > 128 ? 32 : 64;
+
+// The warp's Q fragments stay in registers up to D = 128 (32 a lane); at
+// D = 256 they would take 64 beside the accumulator's 128, so each
+// 16-dim step reads its fragment from shared memory (ldmatrix) instead.
+template <int D>
+constexpr bool Q_IN_REGS = D <= 128;
 
 template <int D>
 constexpr int mma_smem_bytes() {   // Q; 2 stages of (K, V)
-  return (MR + 4 * MK) * PITCH<D> * 2;
+  return (MR + 4 * MK<D>) * PITCH<D> * 2;
 }
 
 // Per (batch, kv head, 64 rows), loop kv tiles up to the causal wedge.  Warp
@@ -255,9 +271,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      float* __restrict__ lse, int B, int Sq, int Sk, int H,
                      int K, int causal, float scale) {
   constexpr int P = PITCH<D>;
+  constexpr int TK = MK<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // MR x P; then the output
-  bf16* ring = Qs + MR * P;                       // 2 x (K, V), MK x P each
+  bf16* ring = Qs + MR * P;                       // 2 x (K, V), TK x P each
 
   const int G = H / K, nrows = Sq * G;
   const int ntiles = (nrows + MR - 1) / MR;
@@ -269,13 +286,13 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   int kend = Sk;
   if (causal) kend = min(Sk, (min(row0 + MR, nrows) - 1) / G + 1);
-  const int nk = (kend + MK - 1) / MK;   // >= 1
+  const int nk = (kend + TK - 1) / TK;   // >= 1
   const int q_first = row0 / G;
 
   auto load_kv = [&](int j) {   // kv tile j into stage j & 1
-    bf16* dst = ring + (j & 1) * 2 * MK * P;
-    keys_async<MK, D, MNT>(dst, k, b, kvh, j * MK, Sk, K);
-    keys_async<MK, D, MNT>(dst + MK * P, v, b, kvh, j * MK, Sk, K);
+    bf16* dst = ring + (j & 1) * 2 * TK * P;
+    keys_async<TK, D, MNT>(dst, k, b, kvh, j * TK, Sk, K);
+    keys_async<TK, D, MNT>(dst + TK * P, v, b, kvh, j * TK, Sk, K);
     repro::cp_async_commit();
   };
   rows_async<MR, D, MNT>(Qs, q, b, kvh, row0, nrows, Sq, H, G);
@@ -290,10 +307,13 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* Qw = Qs + warp * 16 * P;
   repro::cp_async_wait<0>();
   __syncthreads();
-  uint32_t qa[D / 16][4];   // the warp's Q as A fragments, one per 16 dims
+  // the warp's Q as A fragments, one per 16 dims (Q_IN_REGS)
+  uint32_t qa[Q_IN_REGS<D> ? D / 16 : 1][4];
+  if constexpr (Q_IN_REGS<D>) {
 #pragma unroll
-  for (int kd = 0; kd < D / 16; ++kd)
-    repro::ldsm4(qa[kd], Qw + (lane % 16) * P + kd * 16 + (lane / 16) * 8);
+    for (int kd = 0; kd < D / 16; ++kd)
+      repro::ldsm4(qa[kd], Qw + (lane % 16) * P + kd * 16 + (lane / 16) * 8);
+  }
 
   float m2[2] = {NEG_INF, NEG_INF};   // running max of tau*s*log2(e), per row
   float l[2] = {0.f, 0.f};            // this lane's share of the row's sum
@@ -307,29 +327,37 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       __syncthreads();
     }
     if (j + 1 < nk) load_kv(j + 1);
-    const bf16* Ks = ring + (j & 1) * 2 * MK * P;
-    const bf16* Vs = Ks + MK * P;
-    const int k0 = j * MK;
+    const bf16* Ks = ring + (j & 1) * 2 * TK * P;
+    const bf16* Vs = Ks + TK * P;
+    const int k0 = j * TK;
 
     // S = Q.K^T: K's rows (keys) are B's columns
-    float s[MK / 8][4] = {};
+    float s[TK / 8][4] = {};
 #pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd)
+    for (int kd = 0; kd < D / 16; ++kd) {
+      uint32_t qf[4];
+      if constexpr (Q_IN_REGS<D>) {
 #pragma unroll
-      for (int n = 0; n < MK / 16; ++n) {
+        for (int e = 0; e < 4; ++e) qf[e] = qa[kd][e];
+      } else {
+        repro::ldsm4(qf, Qw + (lane % 16) * P + kd * 16 + (lane / 16) * 8);
+      }
+#pragma unroll
+      for (int n = 0; n < TK / 16; ++n) {
         uint32_t bm[4];
         repro::ldsm4(bm, Ks + (n * 16 + lane % 8 + (lane / 16) * 8) * P
                              + kd * 16 + ((lane / 8) % 2) * 8);
-        repro::mma_bf16(s[2 * n], qa[kd], bm[0], bm[1]);
-        repro::mma_bf16(s[2 * n + 1], qa[kd], bm[2], bm[3]);
+        repro::mma_bf16(s[2 * n], qf, bm[0], bm[1]);
+        repro::mma_bf16(s[2 * n + 1], qf, bm[2], bm[3]);
       }
+    }
 
     // online softmax in the log2 domain; the mask only where the tile
     // straddles the diagonal or the ragged end of the keys
-    const bool edge = (causal && k0 + MK - 1 > q_first) || k0 + MK > Sk;
+    const bool edge = (causal && k0 + TK - 1 > q_first) || k0 + TK > Sk;
     float mx[2] = {m2[0], m2[1]};
 #pragma unroll
-    for (int n = 0; n < MK / 8; ++n)
+    for (int n = 0; n < TK / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[n][e] * tau2;
@@ -342,7 +370,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     float corr[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {   // a row's 64 keys sit in the lane's quad
+    for (int h = 0; h < 2; ++h) {   // a row's TK keys sit in the lane's quad
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
       corr[h] = repro::ex2(m2[h] - mx[h]);
@@ -350,7 +378,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       l[h] *= corr[h];
     }
 #pragma unroll
-    for (int n = 0; n < MK / 8; ++n)
+    for (int n = 0; n < TK / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = repro::ex2(s[n][e] - m2[e / 2]);
@@ -362,11 +390,11 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e / 2];
 
-    uint32_t pa[MK / 16][4];
+    uint32_t pa[TK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < MK / 16; ++kk)
+    for (int kk = 0; kk < TK / 16; ++kk)
       repro::pack_a(pa[kk], s[2 * kk], s[2 * kk + 1]);
-    repro::mma_ab<D, MK / 16>(acc, pa, Vs, lane);
+    repro::mma_ab<D, TK / 16>(acc, pa, Vs, lane);
   }
 
   // o = acc / l into the warp's own Q rows (no other warp reads them), then
@@ -448,8 +476,14 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
   if (D == 64)
     return launch_fwd<64>(q, k, v, o, lse, B, Sq, Sk, H, K, causal, is_bf16,
                           s);
+  if (D == 80)
+    return launch_fwd<80>(q, k, v, o, lse, B, Sq, Sk, H, K, causal, is_bf16,
+                          s);
   if (D == 128)
     return launch_fwd<128>(q, k, v, o, lse, B, Sq, Sk, H, K, causal, is_bf16,
+                           s);
+  if (D == 256)
+    return launch_fwd<256>(q, k, v, o, lse, B, Sq, Sk, H, K, causal, is_bf16,
                            s);
   return cudaErrorInvalidValue;
 }

@@ -16,8 +16,8 @@
 //    (SPLIT, K, B), cluster dims (SPLIT, 1, 1), so 8 x 4 x 8 = 256 blocks at
 //    the serving shape where one block per (slot, kv head) gave 32.  Rank r
 //    owns a contiguous run of the slot's live keys, ceil(tiles / SPLIT)
-//    tiles of TK keys (a tile is 8 KB of K and 8 KB of V: 64 bf16 keys at
-//    D=64, one page of the serving cache).  The block reads
+//    tiles of TK keys (bf16: 64 keys, one page of the serving cache; f32:
+//    near 8 KB of K and of V, Shape<D>).  The block reads
 //    block_table[b, :] and pos[b] itself (the row prefetched to L2 beside
 //    pos[b], as the TPU kernel scalar-prefetched both) and walks only keys
 //    0..pos[b];
@@ -34,9 +34,12 @@
 //    the SFU), and p is rounded to bf16 once to enter P.V from registers
 //    (V read with ldmatrix.trans), as the flash forward does; l sums the
 //    f32 p.  On the FMA pipes, scoring the tiles was the largest cost of
-//    a launch at the serving shape after its fixed one.  f32: a key row
-//    is read from shared memory by a group of D*4/16 lanes, 16 bytes each,
-//    and scored against all G query heads on the FMA pipes, each lane
+//    a launch at the serving shape after its fixed one.  At D = 256 the
+//    accumulator takes 128 registers a lane, so q's fragments are read
+//    from shared memory each tile instead of kept.  f32: a key row is read from shared memory
+//    by a group of 16 or 32 lanes, 16 bytes at a time (Shape<D>: at D = 80
+//    12 lanes of 32 idle, at 256 two chunks a lane), and scored against
+//    all G query heads on the FMA pipes, each lane
 //    group keeping its own f32 online softmax (m, l, acc) over UNROLL keys
 //    of every tile (the f32 tolerance, 2e-5, would not survive bf16 p).
 //    Either
@@ -64,7 +67,6 @@ using repro::NEG_INF;
 
 constexpr int NT = 128;      // threads per block: 4 warps
 constexpr int SPLIT = 8;     // blocks per cluster: the portable maximum
-constexpr int TILE_BYTES = 8192;   // one f32 tile of K (or V)
 constexpr int MK = 64;       // keys per bf16 tile: 16 per warp
 
 // The keys [begin, end) of the slot's live keys [0, pos[b]] that this
@@ -183,17 +185,30 @@ __device__ __forceinline__ void merge_ranks(cg::cluster_group& cluster,
 // f32: FMA kernel
 // ---------------------------------------------------------------------------
 
-constexpr int UNROLL = 4;    // keys per lane group per tile
+// A key row of D floats is CH = D/4 16-byte chunks, read by a group of
+// LPK lanes (16, or 32 above 64 dims), CPL chunks a lane: one at D = 64
+// and 128, two at 256; at D = 80 (20 chunks) lanes 20..31 of the group
+// hold none and stay idle.  Each group scores UNROLL keys of a tile, the
+// tile near 8 KB of K, its chunks whole a thread (TK * CH % NT == 0).
+constexpr int unroll_for(int D, int nslot) {
+  int u = 8192 / (nslot * D * 4);
+  u = u > 0 ? u : 1;
+  while (nslot * u * (D / 4) % NT) ++u;
+  return u;
+}
 
 template <int D>
 struct Shape {
-  static constexpr int VEC = 4;                 // floats per lane per row
-  static constexpr int LPK = D / VEC;           // lanes per key row
-  static_assert(LPK <= 32 && 32 % LPK == 0, "a key row must fit one warp");
+  static constexpr int VEC = 4;                 // floats per 16-byte chunk
+  static constexpr int CH = D / VEC;            // chunks per key row
+  static constexpr int LPK = CH <= 16 ? 16 : 32;   // lanes per key row
+  static constexpr int CPL = (CH + LPK - 1) / LPK; // chunks per lane
   static constexpr int KPW = 32 / LPK;          // key rows per warp
   static constexpr int NSLOT = (NT / 32) * KPW; // lane groups per block
+  static constexpr int UNROLL = unroll_for(D, NSLOT);   // keys a group
   static constexpr int TK = NSLOT * UNROLL;     // keys per tile
-  static_assert(TK * D * 4 == TILE_BYTES, "8 KB tiles");
+  static constexpr int TILE_BYTES = TK * D * 4; // one tile of K (or V)
+  static_assert(D % VEC == 0 && CH <= 2 * 32, "a key row in one warp");
 };
 
 template <int D, int G>
@@ -206,12 +221,13 @@ paged_decode_fma_kernel(const float* __restrict__ q,
                         int H, int K, int P, int ps, int max_pages,
                         float scale) {
   using S = Shape<D>;
-  constexpr int VEC = S::VEC, LPK = S::LPK, KPW = S::KPW, NSLOT = S::NSLOT;
-  constexpr int TK = S::TK;
+  constexpr int VEC = S::VEC, CH = S::CH, LPK = S::LPK, CPL = S::CPL;
+  constexpr int KPW = S::KPW, NSLOT = S::NSLOT, UNROLL = S::UNROLL;
+  constexpr int TK = S::TK, TILE = S::TILE_BYTES, W = CPL * VEC;
   // 2 stages of (K, V); after the tile loop the lane groups' acc (NSLOT x
   // G x D floats, at most 32 KB) reuses it
-  __shared__ __align__(16) unsigned char ring[4 * TILE_BYTES];
-  static_assert(NSLOT * G * D * 4 <= 4 * TILE_BYTES, "merge fits the ring");
+  __shared__ __align__(16) unsigned char ring[4 * TILE];
+  static_assert(NSLOT * G * D * 4 <= 4 * TILE, "merge fits the ring");
   __shared__ float sm_m[NSLOT][G], sm_l[NSLOT][G];
   __shared__ float st_m[G], st_l[G], st_acc[G][D];   // this rank's state
 
@@ -219,18 +235,29 @@ paged_decode_fma_kernel(const float* __restrict__ q,
   const int rank = (int)cluster.block_rank();
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int sub = lane / LPK, d0 = (lane % LPK) * VEC;
+  const int sub = lane / LPK, li = lane % LPK;
   const int slot = warp * KPW + sub;
+  // chunk c of this lane: li + c * LPK, live where inside the row
+  auto live = [&](int c) { return CH % LPK == 0 || li + c * LPK < CH; };
 
-  float qr[G][VEC], m[G], l[G], acc[G][VEC];
+  float qr[G][W], m[G], l[G], acc[G][W];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    repro::cvt16<float>(
-        repro::ld16(q + ((size_t)b * H + kvh * G + g) * D + d0), qr[g]);
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      if (live(c)) {
+        repro::cvt16<float>(
+            repro::ld16(q + ((size_t)b * H + kvh * G + g) * D
+                        + (li + c * LPK) * VEC), qr[g] + c * VEC);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) qr[g][c * VEC + e] = 0.f;
+      }
+    }
     m[g] = NEG_INF;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) {
+    for (int e = 0; e < W; ++e) {
       qr[g][e] *= scale;
       acc[g][e] = 0.f;
     }
@@ -257,22 +284,32 @@ paged_decode_fma_kernel(const float* __restrict__ q,
     const float* ks = ring_t + (t & 1) * 2 * TK * D;
     const float* vs = ks + TK * D;
     const int key0 = keys.begin + t * TK;
-    float s[G][UNROLL], vf[UNROLL][VEC];
+    float s[G][UNROLL], vf[UNROLL][W];
     bool valid[UNROLL];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int r = u * NSLOT + slot;
       valid[u] = key0 + r < keys.end;
-      float kf[VEC];
-      repro::cvt16<float>(*reinterpret_cast<const uint4*>(ks + r * D + d0),
-                          kf);
-      repro::cvt16<float>(*reinterpret_cast<const uint4*>(vs + r * D + d0),
-                          vf[u]);
+      float kf[W];
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const int off = r * D + (li + c * LPK) * VEC;
+        if (live(c)) {
+          repro::cvt16<float>(*reinterpret_cast<const uint4*>(ks + off),
+                              kf + c * VEC);
+          repro::cvt16<float>(*reinterpret_cast<const uint4*>(vs + off),
+                              vf[u] + c * VEC);
+        } else {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            kf[c * VEC + e] = vf[u][c * VEC + e] = 0.f;
+        }
+      }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float part = 0.f;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) part = fmaf(qr[g][e], kf[e], part);
+        for (int e = 0; e < W; ++e) part = fmaf(qr[g][e], kf[e], part);
 #pragma unroll
         for (int w = 1; w < LPK; w <<= 1)
           part += __shfl_xor_sync(0xffffffffu, part, w);
@@ -295,7 +332,7 @@ paged_decode_fma_kernel(const float* __restrict__ q,
       l[g] = l[g] * corr + p_sum;
       m[g] = m_new;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
+      for (int e = 0; e < W; ++e) {
         float a = acc[g][e] * corr;
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) a = fmaf(p[u], vf[u][e], a);
@@ -308,13 +345,18 @@ paged_decode_fma_kernel(const float* __restrict__ q,
   float* sm_acc = reinterpret_cast<float*>(ring);   // [NSLOT][G][D]
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    if (d0 == 0) {
+    if (li == 0) {
       sm_m[slot][g] = m[g];
       sm_l[slot][g] = l[g];
     }
 #pragma unroll
-    for (int e = 0; e < VEC; ++e)
-      sm_acc[(slot * G + g) * D + d0 + e] = acc[g][e];
+    for (int c = 0; c < CPL; ++c) {
+      if (!live(c)) continue;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        sm_acc[(slot * G + g) * D + (li + c * LPK) * VEC + e] =
+            acc[g][c * VEC + e];
+    }
   }
   merge_block<NSLOT, G, D>(sm_m, sm_l, sm_acc, st_m, st_l, st_acc);
   merge_ranks<float, G, D>(cluster, rank, st_m, st_l, st_acc,
@@ -360,17 +402,31 @@ paged_decode_mma_kernel(const bf16* __restrict__ q,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane / 4;   // this lane's head row
 
-  // q as the A fragments of D/16 slices: rows 8..15 (a[1], a[3]) are pad
-  uint32_t qa[D / 16][4];
-  {
-    const bf16* qg = q + ((size_t)b * H + kvh * G + g) * D + (lane % 4) * 2;
+  // q as the A fragment of the 16-dim slice kd: rows 8..15 (a[1], a[3])
+  // are pad.  Up to D = 128 the D/16 fragments are loaded once and kept;
+  // at D = 256 they would take 32 registers beside the accumulator's 128,
+  // so warp 0 stages their live halves in shared memory (4 KB) and each
+  // tile reads them back (the barrier between tiles keeps the compiler
+  // from hoisting the reads into registers again).
+  constexpr bool Q_IN_REGS = D <= 128;
+  __shared__ uint2 sq[Q_IN_REGS ? 1 : D / 16][32];
+  const bf16* qg = q + ((size_t)b * H + kvh * G + g) * D + (lane % 4) * 2;
+  auto q_frag = [&](int kd, uint32_t (&a)[4]) {
+    a[0] = g < G ? __ldg(reinterpret_cast<const uint32_t*>(qg + kd * 16))
+                 : 0u;
+    a[2] = g < G ? __ldg(reinterpret_cast<const uint32_t*>(qg + kd * 16 + 8))
+                 : 0u;
+    a[1] = a[3] = 0u;
+  };
+  uint32_t qa[Q_IN_REGS ? D / 16 : 1][4];
+  if constexpr (Q_IN_REGS) {
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) q_frag(kd, qa[kd]);
+  } else if (warp == 0) {   // read after the first tile's barrier
 #pragma unroll
     for (int kd = 0; kd < D / 16; ++kd) {
-      qa[kd][0] = g < G ? __ldg(reinterpret_cast<const uint32_t*>(
-                              qg + kd * 16)) : 0u;
-      qa[kd][2] = g < G ? __ldg(reinterpret_cast<const uint32_t*>(
-                              qg + kd * 16 + 8)) : 0u;
-      qa[kd][1] = qa[kd][3] = 0u;
+      q_frag(kd, qa[0]);
+      sq[kd][lane] = make_uint2(qa[0][0], qa[0][2]);
     }
   }
 
@@ -403,11 +459,20 @@ paged_decode_mma_kernel(const bf16* __restrict__ q,
     float s[2][4] = {};
 #pragma unroll
     for (int kd = 0; kd < D / 16; ++kd) {
-      uint32_t bm[4];
+      uint32_t bm[4], qf[4];
+      if constexpr (Q_IN_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qf[e] = qa[kd][e];
+      } else {
+        const uint2 f = sq[kd][lane];
+        qf[0] = f.x;
+        qf[2] = f.y;
+        qf[1] = qf[3] = 0u;
+      }
       repro::ldsm4(bm, Ks + (lane % 8 + (lane / 16) * 8) * PT + kd * 16
                            + ((lane / 8) % 2) * 8);
-      repro::mma_bf16(s[0], qa[kd], bm[0], bm[1]);
-      repro::mma_bf16(s[1], qa[kd], bm[2], bm[3]);
+      repro::mma_bf16(s[0], qf, bm[0], bm[1]);
+      repro::mma_bf16(s[1], qf, bm[2], bm[3]);
     }
     bool valid[2][2];
     float mx = m2;
@@ -538,8 +603,14 @@ extern "C" int repro_paged_decode(const void* q, const void* k_pool,
   if (D == 64)
     return by_group<64>(G, q, k_pool, v_pool, block_table, pos, out, B, H, K,
                         P, ps, max_pages, bf16 != 0, s);
+  if (D == 80)
+    return by_group<80>(G, q, k_pool, v_pool, block_table, pos, out, B, H, K,
+                        P, ps, max_pages, bf16 != 0, s);
   if (D == 128)
     return by_group<128>(G, q, k_pool, v_pool, block_table, pos, out, B, H,
+                         K, P, ps, max_pages, bf16 != 0, s);
+  if (D == 256)
+    return by_group<256>(G, q, k_pool, v_pool, block_table, pos, out, B, H,
                          K, P, ps, max_pages, bf16 != 0, s);
   return cudaErrorInvalidValue;
 }

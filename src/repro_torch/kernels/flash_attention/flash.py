@@ -20,7 +20,7 @@ import torch
 from repro_torch.kernels import build, plain
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)               # head dims the kernel is built for
+HEAD_DIMS = (64, 80, 128, 256)      # head dims the kernel is built for
 DTYPES = (torch.float32, torch.bfloat16)
 
 

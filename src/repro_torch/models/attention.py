@@ -44,6 +44,7 @@ class AttnCfg:
     head_dim: int
     rope_theta: float = 10000.0
     causal: bool = True
+    qk_norm: bool = False               # per-head RMSNorm of q and k (qwen3)
 
     @property
     def group(self) -> int:
@@ -52,19 +53,37 @@ class AttnCfg:
 
 def init_attention(gen, cfg: AttnCfg, dtype, device, lead: tuple = ()) -> dict:
     E, H, K, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {
+    p = {
         "wq": layers.dense_init(gen, E, lead + (E, H, D), dtype, device),
         "wk": layers.dense_init(gen, E, lead + (E, K, D), dtype, device),
         "wv": layers.dense_init(gen, E, lead + (E, K, D), dtype, device),
         "wo": layers.dense_init(gen, H * D, lead + (H, D, E), dtype, device),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = layers.init_rmsnorm(lead + (D,), dtype, device)
+        p["k_norm"] = layers.init_rmsnorm(lead + (D,), dtype, device)
+    return p
 
 
-def axes_attention() -> dict:
-    return {"wq": ("embed", "q_heads", "head_dim"),
-            "wk": ("embed", "kv_heads", "head_dim"),
-            "wv": ("embed", "kv_heads", "head_dim"),
-            "wo": ("q_heads", "head_dim", "embed")}
+def axes_attention(cfg: AttnCfg) -> dict:
+    a = {"wq": ("embed", "q_heads", "head_dim"),
+         "wk": ("embed", "kv_heads", "head_dim"),
+         "wv": ("embed", "kv_heads", "head_dim"),
+         "wo": ("q_heads", "head_dim", "embed")}
+    if cfg.qk_norm:
+        a["q_norm"] = {"scale": ("head_dim",)}
+        a["k_norm"] = {"scale": ("head_dim",)}
+    return a
+
+
+def _qk_norm(params: dict, q: torch.Tensor, k: torch.Tensor, cfg: AttnCfg):
+    """q and k each RMS-normed over the head dim, per head, after the
+    projections and before RoPE (the reference's order), where
+    ``cfg.qk_norm``."""
+    if not cfg.qk_norm:
+        return q, k
+    return (layers.rmsnorm(params["q_norm"], q),
+            layers.rmsnorm(params["k_norm"], k))
 
 
 LAYOUT_SLICE = ("the 'seq' attention layout (context parallelism, where "
@@ -123,6 +142,13 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
     q = torch.einsum("bse,ehd->bshd", x, params["wq"].to(x.dtype))
     k = torch.einsum("bse,ekd->bskd", x, wk.to(x.dtype))
     v = torch.einsum("bse,ekd->bskd", x, wv.to(x.dtype))
+    norms = params
+    if split is not None and cfg.qk_norm:
+        # whole on every rank, applied to this rank's heads: the scales'
+        # gradient is summed over the split's group
+        norms = {n: {"scale": sharding.copy_to(params[n]["scale"], split)}
+                 for n in ("q_norm", "k_norm")}
+    q, k = _qk_norm(norms, q, k, cfg)
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
     out = flash(q.contiguous(), k.contiguous(), v.contiguous(), cfg.causal,
@@ -147,11 +173,13 @@ def out_proj(eq: str, out: torch.Tensor, wo: torch.Tensor, split,
 
 def _decode_qkv(params: dict, x: torch.Tensor, pos: torch.Tensor,
                 cfg: AttnCfg):
-    """x (B, E) → q (B, H, D), k/v (B, K, D), q and k roped at ``pos``.
-    Shared by the dense and paged decode paths."""
+    """x (B, E) → q (B, H, D), k/v (B, K, D), q and k normed (qk_norm)
+    and roped at ``pos``.  Shared by the dense and paged decode paths, so
+    the two stay numerically identical by construction."""
     q = torch.einsum("be,ehd->bhd", x, params["wq"].to(x.dtype))
     k = torch.einsum("be,ekd->bkd", x, params["wk"].to(x.dtype))
     v = torch.einsum("be,ekd->bkd", x, params["wv"].to(x.dtype))
+    q, k = _qk_norm(params, q, k, cfg)
     posb = pos[:, None]
     q = layers.apply_rope(q[:, None], posb, cfg.rope_theta)[:, 0]
     k = layers.apply_rope(k[:, None], posb, cfg.rope_theta)[:, 0]

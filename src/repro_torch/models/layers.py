@@ -1,4 +1,6 @@
-"""Core layers of the dense decoder: RMSNorm, RoPE, gated MLP, embedding.
+"""Core layers of the dense decoder: RMSNorm and LayerNorm, RoPE, the
+MLP (gated or plain, through the reference's activation table),
+embedding.
 
 Plain functions on tensors over parameter dicts, with the same leaf names
 and layouts as ``repro.models.layers`` so parameters cross between the two
@@ -41,13 +43,21 @@ def init_rmsnorm(shape: tuple, dtype, device) -> dict:
     return {"scale": torch.ones(shape, dtype=dtype, device=device)}
 
 
+def init_layernorm(shape: tuple, dtype, device) -> dict:
+    return {"scale": torch.ones(shape, dtype=dtype, device=device),
+            "bias": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def init_mlp(gen, d_model: int, d_ff: int, dtype, device,
-             lead: tuple = ()) -> dict:
-    return {
+             lead: tuple = (), gated: bool = True) -> dict:
+    p = {
         "wi": dense_init(gen, d_model, lead + (d_model, d_ff), dtype, device),
         "wo": dense_init(gen, d_ff, lead + (d_ff, d_model), dtype, device),
-        "wg": dense_init(gen, d_model, lead + (d_model, d_ff), dtype, device),
     }
+    if gated:
+        p["wg"] = dense_init(gen, d_model, lead + (d_model, d_ff), dtype,
+                             device)
+    return p
 
 
 def init_embedding(gen, vocab: int, d_model: int, dtype, device) -> dict:
@@ -64,9 +74,15 @@ def axes_rmsnorm() -> dict:
     return {"scale": ("embed",)}
 
 
-def axes_mlp() -> dict:
-    return {"wi": ("embed", "mlp"), "wo": ("mlp", "embed"),
-            "wg": ("embed", "mlp")}
+def axes_layernorm() -> dict:
+    return {"scale": ("embed",), "bias": ("embed",)}
+
+
+def axes_mlp(gated: bool = True) -> dict:
+    a = {"wi": ("embed", "mlp"), "wo": ("mlp", "embed")}
+    if gated:
+        a["wg"] = ("embed", "mlp")
+    return a
 
 
 def axes_embedding() -> dict:
@@ -86,6 +102,26 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(x.dtype)
+
+
+def layernorm(params: dict, x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
+def make_norm(kind: str):
+    """``(init, axes, apply)`` of the norm ``kind``: ``"rms"`` or ``"ln"``
+    (the reference's ``make_norm``)."""
+    if kind == "rms":
+        return init_rmsnorm, axes_rmsnorm, rmsnorm
+    if kind == "ln":
+        return init_layernorm, axes_layernorm, layernorm
+    raise ValueError(f"unknown norm {kind!r}")
 
 
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
@@ -109,15 +145,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def mlp(params: dict, x: torch.Tensor, d_ff: int = 0) -> torch.Tensor:
-    """SwiGLU: (silu(x·wg) ⊙ x·wi)·wo, weights cast to the activation
-    dtype.  Where the rules split the ``mlp`` dim of ``d_ff`` columns, the
-    leaves are this rank's columns (rows of ``wo``): the input's gradient
-    and the output are summed over the split's group."""
+#: the reference's activation table; its gelu is the tanh approximation
+#: (``jax.nn.gelu(approximate=True)``)
+ACTS = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+}
+
+
+def check_act(act: str) -> None:
+    if act not in ACTS:
+        raise ValueError(f"unknown activation {act!r}; the table holds "
+                         f"{sorted(ACTS)}")
+
+
+def mlp(params: dict, x: torch.Tensor, d_ff: int = 0,
+        act: str = "silu") -> torch.Tensor:
+    """Gated, (act(x·wg) ⊙ x·wi)·wo (SwiGLU, GeGLU), or, without ``wg``,
+    act(x·wi)·wo; weights cast to the activation dtype.  Where the rules
+    split the ``mlp`` dim of ``d_ff`` columns, the leaves are this rank's
+    columns (rows of ``wo``): the input's gradient and the output are
+    summed over the split's group."""
     split = sharding.split_of("mlp", d_ff) if d_ff else None
     x = sharding.copy_to(x, split)
     h = x @ params["wi"].to(x.dtype)
-    h = F.silu(x @ params["wg"].to(x.dtype)) * h
+    if "wg" in params:
+        h = ACTS[act](x @ params["wg"].to(x.dtype)) * h
+    else:
+        h = ACTS[act](h)
     return sharding.reduce_from(h @ params["wo"].to(x.dtype), split)
 
 

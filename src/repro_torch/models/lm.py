@@ -33,7 +33,7 @@ from repro_torch.models import layers
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import AttnCfg
 from repro_torch.models.mamba2 import SSDCfg
-from repro_torch.models.moe import MoECfg, check_act
+from repro_torch.models.moe import MoECfg
 from repro_torch.tree import tree_map
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -50,8 +50,10 @@ class LMCfg:
     n_kv_heads: int = 0
     head_dim: int = 0
     d_ff: int = 0
-    norm: str = "rms"                  # the only norm ported yet
-    act: str = "silu"                  # the only activation ported yet
+    norm: str = "rms"                  # "rms" | "ln"
+    act: str = "silu"                  # silu | gelu (tanh) | relu
+    gated_mlp: bool = True
+    qk_norm: bool = False
     rope_theta: float = 10000.0
     tie_embeddings: bool = False       # head = embed/tableᵀ, no head leaf
     # moe
@@ -80,11 +82,6 @@ class LMCfg:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
 
     @property
-    def gated_mlp(self) -> bool:
-        """The port's MLP is SwiGLU, gated (the reference's default)."""
-        return True
-
-    @property
     def padded_vocab(self) -> int:
         return layers.pad_vocab(self.vocab, self.vocab_pad_multiple)
 
@@ -99,7 +96,7 @@ class LMCfg:
     def attn_cfg(self) -> AttnCfg:
         return AttnCfg(d_model=self.d_model, n_heads=self.n_heads,
                        n_kv_heads=self.n_kv_heads, head_dim=self.head_dim,
-                       rope_theta=self.rope_theta)
+                       rope_theta=self.rope_theta, qk_norm=self.qk_norm)
 
     def ssd_cfg(self) -> SSDCfg:
         n_heads = (2 * self.d_model) // self.ssd_headdim   # expand = 2
@@ -118,14 +115,16 @@ def build_stack_cfg(cfg: LMCfg) -> tfm.StackCfg:
     """The stack's pattern, the reference's: one block repeated, or for
     the moe family with ``moe_every`` > 1 a period of blocks whose
     ``moe_offset``-th carries the experts."""
-    if cfg.norm != "rms":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
-    check_act(cfg.act)
+    # an unknown norm or activation raises here, before a leaf is drawn
+    layers.make_norm(cfg.norm)
+    layers.check_act(cfg.act)
 
     def block(mlp: str) -> tfm.BlockCfg:
         return tfm.BlockCfg(d_model=cfg.d_model, attn=cfg.attn_cfg(),
                             mlp=mlp, d_ff=cfg.d_ff,
-                            moe=cfg.moe_cfg() if mlp == "moe" else None)
+                            moe=cfg.moe_cfg() if mlp == "moe" else None,
+                            norm=cfg.norm, act=cfg.act,
+                            gated_mlp=cfg.gated_mlp)
 
     if cfg.family == "dense":
         pattern, n_rep = (block("dense"),), cfg.n_layers
@@ -137,7 +136,7 @@ def build_stack_cfg(cfg: LMCfg) -> tfm.StackCfg:
         n_rep = cfg.n_layers // cfg.moe_every
     elif cfg.family == "ssm":
         pattern = (tfm.BlockCfg(d_model=cfg.d_model, mixer="ssd", mlp="none",
-                                ssd=cfg.ssd_cfg()),)
+                                ssd=cfg.ssd_cfg(), norm=cfg.norm),)
         n_rep = cfg.n_layers
     else:
         raise NotImplementedError(
@@ -254,7 +253,8 @@ class Model:
         p = {
             "embed": layers.init_embedding(gen, cfg.padded_vocab, cfg.d_model,
                                            dt, dev),
-            "final_norm": layers.init_rmsnorm((cfg.d_model,), dt, dev),
+            "final_norm": layers.make_norm(cfg.norm)[0]((cfg.d_model,), dt,
+                                                        dev),
         }
         if not cfg.tie_embeddings:
             p["head"] = layers.init_lm_head(gen, cfg.d_model,
@@ -274,7 +274,7 @@ class Model:
         """Each parameter leaf's logical dims (the reference's
         ``Model.axes``), the tree the sharding rules map to specs."""
         a = {"embed": layers.axes_embedding(),
-             "final_norm": layers.axes_rmsnorm(),
+             "final_norm": layers.make_norm(self.cfg.norm)[1](),
              "blocks": tfm.axes_stack(self.stack)}
         if not self.cfg.tie_embeddings:
             a["head"] = layers.axes_lm_head()
@@ -308,6 +308,10 @@ class Model:
                     else v.to(self.cfg.adtype)
                     for k, v in tree.items()}
         return cast(params)
+
+    def final_norm(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """The stack's output through ``final_norm``, the config's norm."""
+        return layers.make_norm(self.cfg.norm)[2](params["final_norm"], x)
 
     def _head_w(self, params: dict) -> torch.Tensor:
         """The (E, Vp) head: ``embed/table``ᵀ when embeddings are tied."""
@@ -374,7 +378,7 @@ class Model:
         head, ``embed/table``ᵀ, is made contiguous in the same pass that
         casts it (the fused kernel reads (E, Vp) rows)."""
         cfg = self.cfg
-        x = layers.rmsnorm(params["final_norm"], x)
+        x = self.final_norm(params, x)
         head_w = self._head_w(params).to(
             cfg.adtype, memory_format=torch.contiguous_format).contiguous()
         labels = tokens[:, 1:]
@@ -416,7 +420,7 @@ class Model:
             last_idx = last_idx.to(device=x.device, dtype=torch.long)
         x, caches = tfm.prefill_stack(params["blocks"], x, positions,
                                       self.stack, last_idx)
-        x = layers.rmsnorm(params["final_norm"], x)
+        x = self.final_norm(params, x)
         if last_idx is None:
             h_last = x[:, -1]
             pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
@@ -458,7 +462,7 @@ class Model:
                          cfg.padded_vocab).to(cfg.adtype)
         x, cache = tfm.decode_stack(params["blocks"], x, state["cache"], pos,
                                     self.stack, seq_split)
-        x = layers.rmsnorm(params["final_norm"], x)
+        x = self.final_norm(params, x)
         logits = x @ self._head_w(params).to(cfg.adtype)
         return logits, {"cache": cache, "pos": pos + 1}
 
@@ -495,7 +499,7 @@ class Model:
         x, pools = tfm.decode_stack_paged(params["blocks"], x, state["pools"],
                                           state["block_table"], pos,
                                           self.stack)
-        x = layers.rmsnorm(params["final_norm"], x)
+        x = self.final_norm(params, x)
         logits = x @ self._head_w(params).to(cfg.adtype)
         return logits, {"pools": pools, "block_table": state["block_table"],
                         "pos": pos + 1}

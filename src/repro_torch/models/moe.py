@@ -45,9 +45,6 @@ import torch.nn.functional as F
 from repro_torch.core import sharding
 from repro_torch.models import layers
 
-ACT_SLICE = ("the {act!r} activation comes with the dense family's rest "
-             "(grok-1's gelu), a later slice of the port (ROADMAP.md queue "
-             "A item 7)")
 EXPERT_MLP_SLICE = ("an expert split over the experts' d_ff (n_experts not "
                     "divided by the model axis: grok-1's expert tensor "
                     "parallelism) comes with a later slice of the port "
@@ -69,11 +66,6 @@ class MoECfg:
     def capacity(self, seq_len: int) -> int:
         c = int(seq_len * self.top_k * self.capacity_factor / self.n_experts) + 1
         return max(8, -(-c // 8) * 8)  # round up to 8 for layout friendliness
-
-
-def check_act(act: str) -> None:
-    if act != "silu":
-        raise NotImplementedError(ACT_SLICE.format(act=act))
 
 
 def init_moe(gen, cfg: MoECfg, dtype, device, lead: tuple = ()) -> dict:
@@ -172,14 +164,16 @@ def _gather_tokens(x: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
     return x[torch.arange(B, device=x.device)[:, None, None], safe]
 
 
-def _expert_ffn(params: dict, xin: torch.Tensor, dtype) -> torch.Tensor:
-    """SwiGLU over per-expert capacity buffers: (B, E', C, D) →
-    (B, E', C, D), one ``bmm`` per product over the weights' E' experts."""
+def _expert_ffn(params: dict, xin: torch.Tensor, dtype,
+                act: str) -> torch.Tensor:
+    """The gated MLP (SwiGLU, GeGLU: ``act`` from the activation table)
+    over per-expert capacity buffers: (B, E', C, D) → (B, E', C, D), one
+    ``bmm`` per product over the weights' E' experts."""
     B, Ep, C, D = xin.shape
     xe = xin.transpose(0, 1).reshape(Ep, B * C, D)
     h = torch.bmm(xe, params["w_in"].to(dtype))
     g = torch.bmm(xe, params["w_gate"].to(dtype))
-    out = torch.bmm(F.silu(g) * h, params["w_out"].to(dtype))
+    out = torch.bmm(layers.ACTS[act](g) * h, params["w_out"].to(dtype))
     return out.reshape(Ep, B, C, D).transpose(0, 1)
 
 
@@ -215,7 +209,7 @@ def _expert_split(cfg: MoECfg):
 def moe_block(params: dict, x: torch.Tensor, cfg: MoECfg):
     """x: (B, S, D) → (B, S, D), aux-loss dict (``lb_loss``, ``z_loss``,
     ``expert_load``)."""
-    check_act(cfg.act)
+    layers.check_act(cfg.act)
     B, S, D = x.shape
     E = cfg.n_experts
     C = cfg.capacity(S)
@@ -239,13 +233,13 @@ def moe_block(params: dict, x: torch.Tensor, cfg: MoECfg):
         w = w[:, split.index * El:(split.index + 1) * El]
         x = sharding.copy_to(x, split)
 
-    out = _expert_ffn(params, _gather_tokens(x, tok), x.dtype)
+    out = _expert_ffn(params, _gather_tokens(x, tok), x.dtype, cfg.act)
     out = out * w[..., None].to(out.dtype)
     y = _combine(tok, out, S)
     if cfg.n_shared:
         # this rank's columns where the rules split them: a partial, summed
         # with the combine's below (``mlp`` without d_ff reduces nothing)
-        y = y + layers.mlp(params["shared"], x).float()
+        y = y + layers.mlp(params["shared"], x, act=cfg.act).float()
     # the partial sums (f32) → one all-reduce
     y = sharding.reduce_from(y, split).to(x.dtype)
     aux = {"lb_loss": lb_loss, "z_loss": z_loss, "expert_load": ce.detach()}
@@ -296,7 +290,7 @@ def moe_block_ep(params: dict, x: torch.Tensor, cfg: MoECfg, group):
     experts' gradients come back summed over the group (whole on every
     rank), the experts' as this rank's block, ``x``'s as its rows.
     """
-    check_act(cfg.act)
+    layers.check_act(cfg.act)
     ep = dist.get_world_size(group)
     Bl, S, D = x.shape
     E = cfg.n_experts
@@ -323,7 +317,8 @@ def moe_block_ep(params: dict, x: torch.Tensor, cfg: MoECfg, group):
     # dispatch: rank j receives every rank's slots of its experts
     xg = _AllToAll.apply(xin.reshape(Bl, ep, El, C, D).transpose(0, 1),
                          group)                          # (ep, Bl, El, C, D)
-    out = _expert_ffn(params, xg.reshape(ep * Bl, El, C, D), x.dtype)
+    out = _expert_ffn(params, xg.reshape(ep * Bl, El, C, D), x.dtype,
+                      cfg.act)
     # combine: each rank's outputs return to the rank of their tokens
     out = _AllToAll.apply(out.reshape(ep, Bl, El, C, D), group)
     out = out.transpose(0, 1).reshape(Bl, E, C, D)
@@ -332,7 +327,7 @@ def moe_block_ep(params: dict, x: torch.Tensor, cfg: MoECfg, group):
     if cfg.n_shared:
         shared = {k: sharding.copy_to(v, whole)
                   for k, v in params["shared"].items()}
-        y = y + layers.mlp(shared, x).float()
+        y = y + layers.mlp(shared, x, act=cfg.act).float()
     y = y.to(x.dtype)
     aux = {"lb_loss": lb_loss, "z_loss": z_loss, "expert_load": ce.detach()}
     return y, aux

@@ -5,8 +5,9 @@ The reference's ``lax.scan`` over repeats is a Python loop here, and its
 ``jax.checkpoint`` around each repeat is ``torch.utils.checkpoint``.
 
 Each block: a pre-norm mixer (attention | SSD) and, unless ``mlp`` is
-``"none"``, a pre-norm gated MLP or mixture of experts
-(:mod:`repro_torch.models.moe`), with residual connections.  Ported
+``"none"``, a pre-norm MLP (gated or plain, through the config's
+activation) or mixture of experts (:mod:`repro_torch.models.moe`), with
+residual connections; the norms are the config's (RMSNorm or LayerNorm).  Ported
 patterns so far: dense (attention + MLP), MoE (attention + experts, with
 dense blocks between where ``moe_every`` > 1) and mamba2 (SSD, no MLP).
 The stack sums the experts' aux losses over its layers.  Each mixer runs
@@ -48,6 +49,9 @@ class BlockCfg:
     ssd: SSDCfg | None = None
     moe: MoECfg | None = None
     d_ff: int = 0
+    norm: str = "rms"                     # "rms" | "ln"
+    act: str = "silu"
+    gated_mlp: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,19 +84,20 @@ def _unstack(tree: dict, n: int) -> list:
 # ---------------------------------------------------------------------------
 
 def init_block(gen, cfg: BlockCfg, dtype, device, lead: tuple = ()) -> dict:
-    p = {"norm1": layers.init_rmsnorm(lead + (cfg.d_model,), dtype, device)}
+    norm_init = layers.make_norm(cfg.norm)[0]
+    p = {"norm1": norm_init(lead + (cfg.d_model,), dtype, device)}
     if cfg.mixer == "attn":
         p["attn"] = attn_mod.init_attention(gen, cfg.attn, dtype, device,
                                             lead)
     else:
         p["ssd"] = mamba2.init_ssd(gen, cfg.ssd, dtype, device, lead)
     if cfg.mlp != "none":
-        p["norm2"] = layers.init_rmsnorm(lead + (cfg.d_model,), dtype, device)
+        p["norm2"] = norm_init(lead + (cfg.d_model,), dtype, device)
         if cfg.mlp == "moe":
             p["moe"] = moe_mod.init_moe(gen, cfg.moe, dtype, device, lead)
         else:
             p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
-                                       device, lead)
+                                       device, lead, gated=cfg.gated_mlp)
     return p
 
 
@@ -102,17 +107,18 @@ def init_stack(gen, stack: StackCfg, dtype, device) -> dict:
 
 
 def axes_block(cfg: BlockCfg) -> dict:
-    a = {"norm1": layers.axes_rmsnorm()}
+    norm_axes = layers.make_norm(cfg.norm)[1]
+    a = {"norm1": norm_axes()}
     if cfg.mixer == "attn":
-        a["attn"] = attn_mod.axes_attention()
+        a["attn"] = attn_mod.axes_attention(cfg.attn)
     else:
         a["ssd"] = mamba2.axes_ssd()
     if cfg.mlp != "none":
-        a["norm2"] = layers.axes_rmsnorm()
+        a["norm2"] = norm_axes()
         if cfg.mlp == "moe":
             a["moe"] = moe_mod.axes_moe(cfg.moe)
         else:
-            a["mlp"] = layers.axes_mlp()
+            a["mlp"] = layers.axes_mlp(cfg.gated_mlp)
     return a
 
 
@@ -144,7 +150,7 @@ def _mlp_out(params: dict, h: torch.Tensor, cfg: BlockCfg):
                                      cfg.moe)
         return (out if h.dim() == 3 else out[:, 0],
                 {"lb_loss": aux["lb_loss"], "z_loss": aux["z_loss"]})
-    return layers.mlp(params["mlp"], h, cfg.d_ff), None
+    return layers.mlp(params["mlp"], h, cfg.d_ff, cfg.act), None
 
 
 def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -159,7 +165,8 @@ def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
     "conv"}`` after position ``last_idx``.  ``train``: the SSD mixer scans
     through the differentiable chunked form, not its forward-only
     kernel."""
-    h = layers.rmsnorm(params["norm1"], x)
+    norm = layers.make_norm(cfg.norm)[2]
+    h = norm(params["norm1"], x)
     state = None
     if cfg.mixer == "attn":
         out = attn_mod.attention(params["attn"], h, positions, cfg.attn,
@@ -176,7 +183,7 @@ def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
     x = x + out
     aux = None
     if cfg.mlp != "none":
-        out, aux = _mlp_out(params, layers.rmsnorm(params["norm2"], x), cfg)
+        out, aux = _mlp_out(params, norm(params["norm2"], x), cfg)
         x = x + out
     return x, aux or _zero_aux(x.device), state
 
@@ -267,7 +274,8 @@ def decode_block(params: dict, x: torch.Tensor, state: dict,
     """x: (B, E) one token; state: this block's {"k", "v"} cache (this
     rank's rows of a split sequence where ``seq_split``) or SSD {"h",
     "conv"} state, written in place."""
-    h = layers.rmsnorm(params["norm1"], x)
+    norm = layers.make_norm(cfg.norm)[2]
+    h = norm(params["norm1"], x)
     if cfg.mixer == "attn":
         out, _, _ = attn_mod.decode_attention(params["attn"], h, state["k"],
                                               state["v"], pos, cfg.attn,
@@ -276,7 +284,7 @@ def decode_block(params: dict, x: torch.Tensor, state: dict,
         out = mamba2.ssd_decode_step(params["ssd"], h, state, cfg.ssd)
     x = x + out
     if cfg.mlp != "none":
-        x = x + _mlp_out(params, layers.rmsnorm(params["norm2"], x), cfg)[0]
+        x = x + _mlp_out(params, norm(params["norm2"], x), cfg)[0]
     return x
 
 
@@ -357,11 +365,12 @@ def paged_decode_block(params: dict, x: torch.Tensor, pools: dict,
                        block_table: torch.Tensor, pos: torch.Tensor,
                        cfg: BlockCfg):
     """Paged twin of :func:`decode_block`; ``pools`` written in place."""
-    h = layers.rmsnorm(params["norm1"], x)
+    norm = layers.make_norm(cfg.norm)[2]
+    h = norm(params["norm1"], x)
     out, _, _ = attn_mod.paged_decode_attention(
         params["attn"], h, pools["k"], pools["v"], block_table, pos, cfg.attn)
     x = x + out
-    return x + _mlp_out(params, layers.rmsnorm(params["norm2"], x), cfg)[0]
+    return x + _mlp_out(params, norm(params["norm2"], x), cfg)[0]
 
 
 def decode_stack_paged(params: dict, x: torch.Tensor, pools: dict,

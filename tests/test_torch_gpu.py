@@ -6,7 +6,9 @@ it runs on a machine with PyTorch alone::
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Shapes the main path does not reach: ragged tails, Sk < Sq, other group
-sizes and head_dim 128; for the flash forward and backward also whole
+sizes and head_dim 128, and the rest of the dense family's head dims 80
+and 256 (groups 1, 2 and 8); for the flash forward and backward also
+whole
 tiles at the training heads and at D=128, a second launch equal bit for
 bit, and one launch per wrapper call in bf16 and f32 (each dtype has its
 kernel: bf16 the tensor cores, f32 the FMA pipes); for the loss head,
@@ -59,13 +61,23 @@ def cuda():
     return torch.device("cuda")
 
 
+#: the rest of the dense family's head dims: stablelm-3b's 80 and
+#: gemma-2b's 256, groups 1, 2 and 8, ragged tails and cross shapes
+NEW_HEAD_DIMS = [
+    (100, 100, 32, 32, 80, True),    # stablelm's heads, ragged (G=1)
+    (130, 260, 8, 1, 80, False),     # cross shape, G=8
+    (100, 100, 8, 1, 256, True),     # gemma's heads, ragged (G=8)
+    (200, 120, 8, 4, 256, False),    # Sk < Sq, G=2
+]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("Sq,Sk,H,K,D,causal", [
     (100, 100, 32, 4, 64, True),     # ragged tail, tinyllama heads
     (77, 77, 6, 3, 128, True),       # ragged, G=2, D=128
     (130, 260, 8, 8, 64, False),     # cross shape, MHA
     (64, 40, 4, 1, 64, True),        # Sk < Sq, MQA
-])
+] + NEW_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_matches_plain_on_card(cuda, Sq, Sk, H, K, D, causal,
                                             dtype):
@@ -112,6 +124,8 @@ def test_flash_kernel_matches_plain_on_card_full_tiles(cuda, B, S, H, K, D,
 @pytest.mark.parametrize("Sq,Sk,H,K,D,causal", [
     (300, 300, 32, 4, 64, True),
     (200, 120, 16, 4, 128, False),
+    (300, 300, 16, 8, 80, True),
+    (256, 256, 8, 4, 256, True),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_repeats_bit_for_bit_on_card(cuda, Sq, Sk, H, K, D,
@@ -159,7 +173,8 @@ def _paged_edge_inputs(B, H, K, D, ps, mp, seed=0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("H,K,D", [(32, 4, 64), (8, 8, 128), (16, 4, 128),
-                                   (8, 4, 64)])
+                                   (8, 4, 64), (32, 32, 80), (16, 8, 80),
+                                   (8, 1, 256), (4, 4, 256)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("slots", ["ragged", "B=1 full", "edges"])
 def test_paged_kernel_matches_plain_on_card(cuda, H, K, D, dtype, slots):
@@ -211,7 +226,7 @@ def test_paged_kernel_reads_a_bad_page_id_as_the_trash_page(cuda):
     (130, 260, 8, 8, 64, False),     # cross shape, MHA (G=1)
     (64, 40, 4, 1, 64, True),        # Sk < Sq, MQA (G=4)
     (200, 120, 16, 4, 128, False),   # Sk < Sq, G=4, D=128
-])
+] + NEW_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_bwd_kernels_match_plain_on_card(cuda, Sq, Sk, H, K, D, causal,
                                                dtype):
@@ -223,6 +238,8 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda, Sq, Sk, H, K, D, causal,
     (1, 2048, 32, 4, 64, True),      # the training shape's heads and length
     (2, 1024, 16, 4, 128, True),     # whole tiles at D=128
     (2, 1024, 16, 4, 128, False),
+    (2, 1024, 32, 32, 80, True),     # whole tiles at D=80 and 256
+    (2, 1024, 8, 1, 256, True),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_bwd_kernels_match_plain_on_card_full_tiles(cuda, B, S, H, K, D,
@@ -262,6 +279,8 @@ def _check_flash_bwd(device, B, Sq, Sk, H, K, D, causal, dtype):
 @pytest.mark.parametrize("Sq,Sk,H,K,D,causal", [
     (300, 300, 32, 4, 64, True),
     (200, 120, 16, 4, 128, False),
+    (300, 300, 16, 8, 80, True),
+    (256, 256, 8, 4, 256, True),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_bwd_kernels_repeat_bit_for_bit_on_card(cuda, Sq, Sk, H, K, D,

@@ -174,13 +174,19 @@ def test_moe_block_matches_reference(n_shared, cf):
 
 
 def test_activations_other_than_silu_name_their_item():
+    """gelu and relu, the rest of the reference's table, run; an
+    activation outside it raises, naming the table's entries."""
     _, cfg = _mcfg(0, 1.25)
     inp = _block_inputs(0)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    for act in ("gelu", "relu"):
+        y, _ = moe.moe_block(_leaves_t(inp["params"]), torch.tensor(inp["x"]),
+                             dataclasses.replace(cfg, act=act))
+        assert torch.isfinite(y).all()
+    with pytest.raises(ValueError, match="'gelu', 'relu', 'silu'"):
         moe.moe_block(_leaves_t(inp["params"]), torch.tensor(inp["x"]),
-                      dataclasses.replace(cfg, act="gelu"))
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        Model(dataclasses.replace(get_config(ARCH, smoke=True), act="gelu"),
+                      dataclasses.replace(cfg, act="swish"))
+    with pytest.raises(ValueError, match="'gelu', 'relu', 'silu'"):
+        Model(dataclasses.replace(get_config(ARCH, smoke=True), act="swish"),
               "cpu")
 
 
