@@ -26,10 +26,10 @@ import sys
 
 #: the phases it runs: 24 (``train_hybrid_zero``), 26 (``serve_tp``), 29
 #: (``compressed_blocks``), 30 (``mamba2_train``), 31 (``mamba2_split``),
-#: 32 (``moe_engine``) and 33 (``dense_rest``), the same functions in every
-#: checkout since they were added (a checkout without one reports that
-#: phase failed)
-PHASES = ("24", "26", "29", "30", "31", "32", "33")
+#: 32 (``moe_engine``), 33 (``dense_rest``), 34 (``jamba``) and 35
+#: (``hybrid_engine``), the same functions in every checkout since they
+#: were added (a checkout without one reports that phase failed)
+PHASES = ("24", "26", "29", "30", "31", "32", "33", "34", "35")
 
 CHILD = r"""
 import json, sys, time, traceback
@@ -61,6 +61,10 @@ for ph in sys.argv[1:]:
             cs.moe_engine(torch, kernels)
         elif ph == "33":
             cs.dense_rest(torch, kernels)
+        elif ph == "34":
+            cs.jamba(torch, kernels)
+        elif ph == "35":
+            cs.hybrid_engine(torch, kernels)
     except Exception:
         traceback.print_exc()
         ok = False

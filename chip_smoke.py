@@ -24,7 +24,10 @@ and the script exits non-zero without printing a result:
    heads of 128, gemma-2b's 8 over 1 of 256 and stablelm-3b's 32 over 32
    of 80, the new head dims in bf16 and f32, and xent at their loss
    heads: qwen3's tied vocab 151936 padded to 152064, gemma's tied
-   256000, stablelm's 50304 padded to 50432 at hidden width 2560), and
+   256000, stablelm's 50304 padded to 50432 at hidden width 2560;
+   jamba-v0.1-52b, phases 34–35: flash forward, dq and dk/dv at 32 q over
+   8 kv heads of 128, xent at its untied head, E = 4096, V = 65536, and on
+   its 32768-column shard at tp 2, the SSD scan at 128 heads of 64), and
    at ragged ones
    (tolerance: values f32 2e-5, bf16 2e-2; gradients f32 2e-4, bf16 5e-2;
    the SSD scan 5e-4, as the reference holds its kernel; the int8
@@ -341,13 +344,47 @@ and the script exits non-zero without printing a result:
     teacher-forced logits at full depth in bf16 within TF_PAIR times
     bf16's own error and at 2 layers in f32 within 1e-4 + 1e-4|x|, and
     step 0's loss and every gradient leaf at 2 layers in f32 within 2e-4
-    + 2e-4|x|.
+    + 2e-4|x|;
+34. the hybrid family on one card, jamba-v0.1-52b at full width (32 q
+    over 8 kv heads of 128; SSD mixers of 128 heads of 64, state 128; 16
+    experts of 14336 columns, top-2, on the odd blocks; a dense SwiGLU
+    MLP on the even; vocab 65536): (a) the serving driver in bf16 at one
+    period (8 layers: 1 attention, 7 SSD; all 32 take 103 GB), dense, 8
+    requests of 256 + 32 tokens through 8 slots: TTFT, TPOT, tokens/s,
+    the peak beside the weights, KV and SSD states, the flash and SSD
+    scan launches (paged decode 0); (b) the training driver at the 2-layer
+    pattern (``attn_period=2``: an SSD + dense block, then an attention +
+    experts block), batch 4 x 2048, remat full, Adafactor (the
+    reference's recipe for jamba), 3 steps: finite losses, ``moe_lb``,
+    ``moe_z``, launches, tokens/s, forward, backward and Adafactor on the
+    host clock, the peak beside the parameters, gradients and Adafactor's
+    state, then one step through ``--auto`` (the planner's pick on one
+    card, its step-0 loss that of the run without it); (c) through the
+    kernels against the plain versions on the
+    card: teacher-forced logits at one period in bf16 within TF_PAIR
+    times bf16's own error and at the 2-layer pattern in f32 within 1e-4
+    + 1e-4|x|, step 0's loss, ``moe_lb``, ``moe_z`` and every gradient leaf
+    there in f32 within 2e-4 + 2e-4|x|, and the routing choices that flip;
+35. the ssm and hybrid families across the engine, two ranks on
+    ``cuda:0`` over gloo on a pool of exactly them: (a) mamba2-1.3b
+    pipeline×2 at full width and 4 layers, 4 x 2048 in 4 micro-batches,
+    1f1b, 3 AdamW steps in bf16 and one in f32, against the unpipelined
+    step of one process (phase 32 (a)'s gates; the tied table's gradient
+    summed over both stages); (b) jamba pipeline×2 at 4 layers of the
+    2-layer pattern (a period a stage), f32, step 0 in 2 micro-batches of
+    1 x 2048, and (c) jamba split×2 (tp 2 = ep 2: 16 q over 4 kv heads, 64
+    SSD heads, 8 experts and 32768 vocab columns a rank) at the 2-layer
+    pattern, f32, 2 x 1024, each against one process's step: loss,
+    ``moe_lb`` and ``moe_z`` within 1e-4 + 1e-4|x|, each gradient leaf
+    within 2e-4 of its max (the expert leaves on experts 0 and 15),
+    routing flips counted; each rank's peak, step and gloo seconds.
 
 The meshed phases 20–31 run their ranks in one pool of four processes on
 ``cuda:0`` (:class:`RankPool`), started at phase 20 and stopped before
 phase 32: each phase hands its rank function to the first two or four.
 Phase 32's ranks need nearly the whole card, so each of its two calls
-runs on a pool of exactly its ranks, started for it and closed after it.
+runs on a pool of exactly its ranks, started for it and closed after it;
+so does phase 35's.
 
 then the kernel table as one JSON line, the card line again, and the last
 line ``{"ok": true, "device": {...}}``.  Needs no network; needs ``nvcc``
@@ -519,7 +556,8 @@ def check_close(name: str, got, want, dtype, tol=None) -> float:
 #: the heads (q, kv, dim) of each model's kernel rows beside the main
 #: path's (tinyllama's 32/4 of 64), as the kernels line nests them
 HEAD_ROWS = {(16, 16, 128): "deepseek", (16, 8, 128): "qwen3",
-             (8, 1, 256): "gemma", (32, 32, 80): "stablelm"}
+             (8, 1, 256): "gemma", (32, 32, 80): "stablelm",
+             (32, 8, 128): "jamba"}
 
 
 def check_flash(torch, timer) -> dict:
@@ -531,9 +569,10 @@ def check_flash(torch, timer) -> dict:
     its prefill at B=1, S=512 and its training step at B=4, S=2048; a
     rank's 8/8 heads of its prefill at split×2, phase 32), and the dense
     family's rest (phase 33): qwen3-1.7b's 16/8 heads of 128, gemma-2b's
-    8/1 of 256 and stablelm-3b's 32/32 of 80, each at its serving
-    prefill (B=1, S=256; f32 too at the new dims) and its training step
-    (B=4, S=2048), each timed beside SDPA in this call.  Prints the bf16
+    8/1 of 256 and stablelm-3b's 32/32 of 80, and jamba-v0.1-52b's 32/8
+    of 128 (phase 34), each at its serving prefill (B=1, S=256; f32 too
+    at the new dims) and its training step (B=4, S=2048), each timed
+    beside SDPA in this call.  Prints the bf16
     (tensor-core) builds' ptxas registers and spills and fails on a
     spill.  Returns the row of the training shape, with the other models'
     training shapes' under their names (:data:`HEAD_ROWS`)."""
@@ -553,7 +592,7 @@ def check_flash(torch, timer) -> dict:
              (1, 512, 512, True, (bf16,), 16, 16, 128),
              (1, 512, 512, True, (bf16, f32), 8, 8, 128),
              (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, True, (bf16,), 16, 16, 128)]
-    for H, K, D in ((16, 8, 128), (8, 1, 256), (32, 32, 80)):
+    for H, K, D in ((16, 8, 128), (8, 1, 256), (32, 32, 80), (32, 8, 128)):
         cases += [(1, 256, 256, True, (bf16,) if D == 128 else (bf16, f32),
                    H, K, D),
                   (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, True, (bf16,), H, K, D)]
@@ -769,7 +808,7 @@ def check_flash_bwd(torch, timer) -> tuple:
     under their names (:data:`HEAD_ROWS`: deepseek-moe-16b's 16/16 heads
     of 128, and the dense family's rest: qwen3's 16/8 of 128, gemma's 8/1
     of 256, stablelm's 32/32 of 80; f32 at the new dims at B=2,
-    S=1000)."""
+    S=1000; jamba-v0.1-52b's 32/8 of 128)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash
@@ -786,7 +825,8 @@ def check_flash_bwd(torch, timer) -> tuple:
              (4, 2048, 2048, True, torch.bfloat16, 8, 1, 256),
              (2, 1000, 1000, True, torch.float32, 8, 1, 256),
              (4, 2048, 2048, True, torch.bfloat16, 32, 32, 80),
-             (2, 1000, 1000, True, torch.float32, 32, 32, 80)]
+             (2, 1000, 1000, True, torch.float32, 32, 32, 80),
+             (4, 2048, 2048, True, torch.bfloat16, 32, 8, 128)]
     rows = None
     for B, Sq, Sk, causal, dtype, H, K, D in cases:
         rnd = lambda S, n: torch.randn((B, S, n, D), generator=gen,
@@ -870,7 +910,8 @@ XENT_ROWS = (("deepseek", 2048, DEEPSEEK_VOCAB, DEEPSEEK_VOCAB),
              ("mamba2", 2048, MAMBA_VOCAB, MAMBA_VP),
              ("qwen3", 2048, 151936, 152064),
              ("gemma", 2048, 256000, 256000),
-             ("stablelm", 2560, 50304, 50432))
+             ("stablelm", 2560, 50304, 50432),
+             ("jamba", 4096, 65536, 65536))
 
 
 def check_xent(torch, timer) -> tuple:
@@ -879,7 +920,8 @@ def check_xent(torch, timer) -> tuple:
     E = 2048, V = 32000), with a padded vocab, in f32, and at each of
     :data:`XENT_ROWS`' heads in bf16 (deepseek-moe-16b's, mamba2-1.3b's
     tied head, and the dense family's rest: qwen3-1.7b's and gemma-2b's
-    tied heads, stablelm-3b's at E = 2560), timed beside
+    tied heads, stablelm-3b's at E = 2560, jamba-v0.1-52b's untied head
+    at E = 4096), timed beside
     ``F.cross_entropy(h @ W)`` in this call (with the bf16 build's ptxas
     registers and spills); then the backward's elementwise pass on one
     f32 chunk of each vocab (the main path's first and a padded last
@@ -988,11 +1030,13 @@ def check_ssd(torch, timer) -> dict:
     final state within 5e-4) and a second launch bit for bit: mamba2-1.3b's
     prefill shape (B=1, S=512, 64 heads of 64, state 128, G=1, chunk 256,
     x and B/C bf16), S=2048 (8 chunks, the carry), S=8 (chunk = S), a
-    ragged chunk of 40, a grouped f32 case, and a rank's 32 heads of the
-    prefill split over ``model`` at tp 2 (phase 31).  bf16 runs the
+    ragged chunk of 40, a grouped f32 case, a rank's 32 heads of the
+    prefill split over ``model`` at tp 2 (phase 31), and jamba-v0.1-52b's
+    128 heads of 64 (phase 34; a rank's 64 at tp 2 is mamba2's shape).  bf16 runs the
     tensor-core kernel, f32 the FMA one.  Prints the tensor-core builds'
     ptxas registers and spills and fails on a spill.  Returns the row of
-    the main path's shape, the split's under ``"split"``."""
+    the main path's shape, the split's under ``"split"`` and jamba's
+    under ``"jamba"``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.ssd import ssd
@@ -1005,7 +1049,8 @@ def check_ssd(torch, timer) -> dict:
              (1, 8, 64, 64, 1, 128, 256, bf16),
              (1, 120, 8, 64, 2, 64, 40, bf16),
              (2, 384, 8, 32, 2, 16, 128, f32),
-             (2, 512, 32, 64, 1, 128, 256, bf16)]
+             (2, 512, 32, 64, 1, 128, 256, bf16),
+             (1, 512, 128, 64, 1, 128, 256, bf16)]
     row = None
     for B, S, H, P, G, N, chunk, dtype in cases:
         rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
@@ -1049,8 +1094,8 @@ def check_ssd(torch, timer) -> dict:
                  bound_by=b_by, library_ms=None)
         if row is None:
             row = r
-        elif H == 32:
-            row["split"] = r
+        elif H in (32, 128):
+            row["split" if H == 32 else "jamba"] = r
         del args, x, dt, Bm, Cm, want, y, h, again
     return row
 
@@ -2206,15 +2251,15 @@ PP_LR = 3e-4                    # constant: every step moves the weights
 
 
 def pipeline_expected(layers: int, steps: int, vp: int,
-                      head: bool = True) -> dict:
-    """Launches of ``steps`` pipelined steps over ``layers`` layers (remat
-    full, PP_MICRO micro-batches of one row): each layer's forward twice a
-    micro-batch (its slot and the checkpointed recompute), its backward
-    once; the loss head once a micro-batch where ``head`` (the last
-    stage)."""
+                      head: bool = True, micro: int = PP_MICRO) -> dict:
+    """Launches of ``steps`` pipelined steps over ``layers`` attention
+    layers (remat full, ``micro`` micro-batches of one row): each layer's
+    forward twice a micro-batch (its slot and the checkpointed recompute),
+    its backward once; the loss head once a micro-batch where ``head``
+    (the last stage)."""
     from repro_torch.kernels.xent import xent
 
-    n = PP_MICRO * steps
+    n = micro * steps
     T = TRAIN_SEQ - 1
     return {"flash_fwd": 2 * layers * n, "paged_decode": 0,
             "flash_bwd_dq": layers * n, "flash_bwd_dkv": layers * n,
@@ -3238,16 +3283,18 @@ def check_xent_shard(torch) -> None:
     and ``col0 = c0 + chunk offset``, against its plain version.  The
     same on mamba2-1.3b's tied head at tp 2 (c0 = 25216 of 50432 columns,
     vocab 50280: the shard holds the padding), whose forward is also held
-    against a second launch bit for bit."""
-    for V, Vp in ((32000, 32000), (MAMBA_VOCAB, MAMBA_VP)):
-        _xent_shard(torch, V, Vp)
+    against a second launch bit for bit, and on jamba-v0.1-52b's head at
+    tp 2 (E = 4096, 32768 of 65536 columns)."""
+    for V, Vp, E in ((32000, 32000, 2048), (MAMBA_VOCAB, MAMBA_VP, 2048),
+                     (65536, 65536, 4096)):
+        _xent_shard(torch, V, Vp, E)
 
 
-def _xent_shard(torch, V: int, Vp: int) -> None:
+def _xent_shard(torch, V: int, Vp: int, E: int) -> None:
     from repro_torch.kernels.xent import xent
 
     gen = torch.Generator(device="cuda").manual_seed(23)
-    E, c0 = 2048, Vp // 2
+    c0 = Vp // 2
     Vs = Vp // 2
     T = TP_BATCH * (TRAIN_SEQ - 1)
     h = torch.randn((T, E), generator=gen, device="cuda").bfloat16()
@@ -4963,11 +5010,13 @@ MOE_EXPERT_BYTES = 28 * 64 * 3 * 2048 * 1408 * 2
 @contextlib.contextmanager
 def plain_on_card():
     """The kernels' wrappers run their plain PyTorch versions on CUDA
-    tensors too (flash, paged decode, xent): the plain path on the card."""
+    tensors too (flash, paged decode, xent, the SSD scan): the plain path
+    on the card."""
     from repro_torch.kernels.flash_attention import flash, paged
+    from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.xent import xent
 
-    mods = (flash, paged, xent)
+    mods = (flash, paged, xent, ssd)
     real = [m.plain for m in mods]
     for m in mods:
         m.plain = lambda t: True
@@ -5135,11 +5184,11 @@ def _dicts(tree: dict):
             yield from _dicts(v)
 
 
-def _first_batch(torch, vocab: int, rows: int) -> dict:
+def _first_batch(torch, vocab: int, rows: int, seq: int = TRAIN_SEQ) -> dict:
     import numpy as np
 
     from repro_torch.data.pipeline import DataCfg, TokenPipeline
-    data = TokenPipeline(DataCfg(global_batch=rows, seq_len=TRAIN_SEQ,
+    data = TokenPipeline(DataCfg(global_batch=rows, seq_len=seq,
                                  vocab=vocab, seed=0), host_id=0, n_hosts=1)
     return {"tokens": torch.as_tensor(
         np.asarray(data.next_batch()["tokens"])).cuda()}
@@ -6454,31 +6503,30 @@ def _moe_steps_log(rec: dict) -> str:
             f"{[round(x, 6) for x in rec['moe_z']]}")
 
 
-def _moe_unpiped(torch, dtype: str, path: str) -> dict:
-    """The unpipelined, unsharded step of phase 32 (a, b) from seed 0:
-    MOE_PP_STEPS AdamW steps of ``train_step_fn(micro_batches=PP_MICRO)``
-    on launch.train's stream; losses, ``moe_lb``, ``moe_z``, step seconds
-    and the peak; its step-0 gradient saved to ``path`` on the host."""
+def _unpiped(torch, model, steps: int, save_first) -> dict:
+    """The unpipelined, unsharded step of ``model`` from seed 0: ``steps``
+    AdamW steps (at PP_LR) of ``train_step_fn(micro_batches=PP_MICRO)``
+    on launch.train's stream of TRAIN_BATCH x TRAIN_SEQ; losses,
+    ``moe_lb``, ``moe_z``, step seconds and the peak; the step-0 gradient
+    handed to ``save_first`` (phases 32 and 35)."""
     import dataclasses
 
     import numpy as np
 
     from repro_torch.core.planner import compile_plan
     from repro_torch.data.pipeline import DataCfg, TokenPipeline
-    from repro_torch.models.lm import Model
     from repro_torch.optim.optimizer import adamw
-    from repro_torch.tree import flatten
 
-    model = Model(_moe_cfg(n_layers=MOE_PP_LAYERS, dtype=dtype))
     params = model.init(0)
     opt = adamw(lr=PP_LR)
     state = opt.init(params)
-    first = {}
+    saved = []
     real_apply = opt.apply
 
     def apply(grads, *args, **kw):
-        if not first:
-            first.update((k, v.cpu()) for k, v in zip(*flatten(grads)))
+        if not saved:
+            save_first(grads)
+            saved.append(True)
         return real_apply(grads, *args, **kw)
 
     step_fn = compile_plan(model, None).train_step_fn(
@@ -6488,7 +6536,7 @@ def _moe_unpiped(torch, dtype: str, path: str) -> dict:
                          host_id=0, n_hosts=1)
     rec = {"losses": [], "moe_lb": [], "moe_z": [], "seconds": []}
     torch.cuda.reset_peak_memory_stats()
-    for i in range(MOE_PP_STEPS):
+    for i in range(steps):
         batch = {"tokens": torch.as_tensor(
             np.asarray(data.next_batch()["tokens"])).cuda()}
         torch.cuda.synchronize()
@@ -6500,8 +6548,20 @@ def _moe_unpiped(torch, dtype: str, path: str) -> dict:
             rec["losses" if k == "loss" else k].append(float(m[k]))
     rec["peak"] = torch.cuda.max_memory_allocated()
     del params, state
-    torch.save(first, path)
     return rec
+
+
+def _moe_unpiped(torch, dtype: str, path: str) -> dict:
+    """The unpipelined, unsharded step of phase 32 (a, b)
+    (:func:`_unpiped`, MOE_PP_STEPS steps); its step-0 gradient saved to
+    ``path`` on the host."""
+    from repro_torch.models.lm import Model
+    from repro_torch.tree import flatten
+
+    return _unpiped(
+        torch, Model(_moe_cfg(n_layers=MOE_PP_LAYERS, dtype=dtype)),
+        MOE_PP_STEPS, lambda g: torch.save(
+            {k: v.cpu() for k, v in zip(*flatten(g))}, path))
 
 
 def _block_gaps(grads: dict, ref: dict, specs: dict | None = None,
@@ -6812,7 +6872,8 @@ def _moe_engine_rank(rank: int, store: str, out_dir: str, ref_dir: str,
         json.dump(out, f)
 
 
-def _moe_grad_lines(tag: str, outs: list, gate_of) -> list:
+def _moe_grad_lines(tag: str, outs: list, gate_of,
+                    prefix: str = "[moe-engine]") -> list:
     """Combine the ranks' per-leaf [max |diff|, max |ref|] records
     ``outs`` (the max over ranks), print the worst leaf, and hold each
     leaf's max |diff| / max |ref| within ``gate_of(path)``; returns the
@@ -6825,7 +6886,7 @@ def _moe_grad_lines(tag: str, outs: list, gate_of) -> list:
     rel = {p: d / max(top, 1e-30) for p, (d, top) in paths.items()}
     share = {p: r / gate_of(p) for p, r in rel.items()}
     worst = max(share, key=share.get)
-    print(f"[moe-engine] {tag}: step-0 gradients, max |diff| relative to the "
+    print(f"{prefix} {tag}: step-0 gradients, max |diff| relative to the "
           f"leaf's max: worst share of its gate {share[worst]:.3f} ({worst}: "
           f"{rel[worst]:.3e} against {gate_of(worst):.3e}); median relative "
           f"gap {statistics.median(rel.values()):.3e} over {len(rel)} leaves",
@@ -7415,6 +7476,1030 @@ def dense_rest(torch, kernels) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 34: the hybrid family, jamba-v0.1-52b, on one card
+# ---------------------------------------------------------------------------
+
+JAMBA = "jamba-v0.1-52b"
+#: (a) one period of jamba (1 attention + 7 SSD blocks, 4 of them with 16
+#: experts), 13.27e9 parameters: 26.5 GB in bf16.  All 32 layers take
+#: 103 GB, more than one card holds
+JB_SERVE_LAYERS = 8
+JB_SERVE = ["--arch", JAMBA, "--cache", "dense", "--overrides",
+            f"n_layers={JB_SERVE_LAYERS},param_dtype=bfloat16"] + DR_SERVE
+#: (b, c) and phase 35: the pattern at attn_period=2, an SSD + dense
+#: block then an attention + experts block, every block kind at its
+#: published widths (3.68e9 parameters at 2 layers)
+JB_PATTERN = "attn_period=2,attn_offset=1"
+JB_TRAIN_STEPS = 3
+JB_TRAIN_ARGS = ["--arch", JAMBA, "--overrides", f"n_layers=2,{JB_PATTERN}",
+                 "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                 "--steps", str(JB_TRAIN_STEPS), "--optimizer", "adafactor",
+                 "--log-every", "1"]
+#: (c)'s f32 step-0 rows of TRAIN_SEQ (f32 weights and two gradient
+#: trees of 14.7 GB each beside the activations)
+JB_GRAD_ROWS = 2
+
+
+def _jamba_cfg(**kw):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(JAMBA), **kw)
+
+
+def _jamba_pattern(layers: int, **kw):
+    return _jamba_cfg(n_layers=layers, attn_period=2, attn_offset=1, **kw)
+
+
+def jamba_serve(torch, kernels) -> dict:
+    """Phase 34 (a): ``serve.run`` on jamba at full width, one period in
+    bf16, dense (the hybrid has no paged cache), 8 requests of 256 + 32
+    tokens through 8 slots: TTFT (an admission: a 256-token prefill and
+    its first token), TPOT (a decode step at 8 live slots), tokens/s, the
+    peak beside the weights, KV and SSD states, and the launches: flash
+    forward once per attention layer and admission, the SSD scan once per
+    SSD layer and admission, nothing else (paged decode 0)."""
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import param_count
+    from repro_torch.serving import server as srv
+    from repro_torch.tree import flatten
+
+    admits, steps = [], []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    with host_timed(torch, srv.Server, "admit", admits), \
+            host_timed(torch, srv.Server, "step", steps, live_slots):
+        summary, server = serve.run(serve.parse_args(JB_SERVE))
+    counts = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    stack = server.model.stack
+    held = {"attn": 0, "ssd": 0}
+    for i, b in enumerate(stack.pattern):
+        held[b.mixer] += sum(t.numel() * t.element_size() for t in
+                             flatten(server.state["cache"][f"p{i}"])[1])
+    n_attn = stack.n_rep * sum(b.mixer == "attn" for b in stack.pattern)
+    n_ssd = stack.n_layers - n_attn
+    n = param_count(server.model.param_shapes())
+    full = [t for t, k in steps if k == 8]
+    ttft = statistics.median(t for t, _ in admits)
+    tpot = statistics.median(full or [t for t, _ in steps])
+    print(f"[jamba] serve dense, {stack.n_layers} layers ({n_attn} attention,"
+          f" {n_ssd} SSD), bf16: {summary['completed']} requests, "
+          f"{summary['tokens']} tokens, {summary['steps']} decode steps in "
+          f"{summary['seconds']:.3f} s ("
+          f"{summary['tokens'] / summary['seconds']:.1f} tok/s); TTFT "
+          f"{ttft * 1e3:.2f} ms (median admission: a 256-token prefill and "
+          f"its first token), TPOT {tpot * 1e3:.2f} ms (median decode step, "
+          f"{len(full)} with 8 live slots), host clock, synced; {n:,} "
+          f"parameters ({n * 2 / 2**30:.2f} GiB in bf16), KV "
+          f"{held['attn'] / 2**30:.3f} GiB, SSD states "
+          f"{held['ssd'] / 2**30:.3f} GiB, peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches {counts}", flush=True)
+    if summary["completed"] != 8:
+        raise AssertionError(f"jamba serve: {summary['completed']} requests")
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_fwd=n_attn * len(admits), ssd_scan=n_ssd * len(admits))
+    if counts != want:
+        raise AssertionError(f"jamba serve: launches {counts}, want {want}")
+    del server
+    torch.cuda.empty_cache()
+    return counts
+
+
+def jamba_train(torch, kernels) -> dict:
+    """Phase 34 (b): ``train.main`` on jamba at full width and the 2-layer
+    pattern (:data:`JB_PATTERN`), batch 4 x 2048, remat full, Adafactor
+    (the reference's recipe for the archs of 50B and more), JB_TRAIN_STEPS
+    steps: finite losses, ``moe_lb`` and ``moe_z``, the launches, tokens/s
+    after step 0 and, in those steps, the forward (``loss_fn``),
+    Adafactor (``apply``) and the backward (the rest of the step) on the
+    host clock; the peak beside the parameters, gradients and Adafactor's
+    state.  The final checkpoint is neither copied to the host nor
+    written.  Then one step through ``--auto``: the planner's pick on one
+    card and its step-0 loss, equal to the run's without it."""
+    import dataclasses
+
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.launch import train
+    from repro_torch.models.lm import Model, param_count
+    from repro_torch.tree import flatten
+
+    cfg = _jamba_pattern(2)
+    fwd, upd, written, held = [], [], [], []
+    real_adafactor = train.adafactor
+
+    def timed_adafactor(*a, **kw):
+        o = real_adafactor(*a, **kw)
+
+        def init(params):
+            st = o.init(params)
+            held.append(sum(t.numel() * t.element_size()
+                            for t in flatten(st)[1]
+                            if isinstance(t, torch.Tensor)))
+            return st
+
+        def apply(*aa, **kk):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = o.apply(*aa, **kk)
+            torch.cuda.synchronize()
+            upd.append(time.perf_counter() - t0)
+            return r
+        return dataclasses.replace(o, init=init, apply=apply)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_jamba_")
+    saved = (checkpoint.CheckpointManager._write, checkpoint._to_host)
+    checkpoint.CheckpointManager._write = \
+        lambda self, step, *a: written.append(step)
+    checkpoint._to_host = lambda tree: ([], [])
+    train.adafactor = timed_adafactor
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        with host_timed(torch, Model, "loss_fn", fwd):
+            res = train.main(JB_TRAIN_ARGS + ["--ckpt-dir", tmp])
+        counts = read_counts(kernels)
+        peak = torch.cuda.max_memory_allocated()
+        train.adafactor = real_adafactor
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+        # the planner's pick on one card: the same plan, the same step 0
+        auto = train.main(JB_TRAIN_ARGS + ["--steps", "1", "--auto",
+                                           "--ckpt-dir", tmp])
+    finally:
+        checkpoint.CheckpointManager._write, checkpoint._to_host = saved
+        train.adafactor = real_adafactor
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    n = param_count(Model(cfg, "meta").param_shapes())
+    secs = res["step_seconds"]
+    if not len(secs) == len(fwd) == len(upd) == JB_TRAIN_STEPS:
+        raise AssertionError(f"jamba train: {len(secs)} steps, {len(fwd)} "
+                             f"forwards, {len(upd)} updates")
+    f_ms = statistics.median(t for t, _ in fwd[1:]) * 1e3
+    o_ms = statistics.median(upd[1:]) * 1e3
+    b_ms = statistics.median(s - f - o for s, (f, _), o in
+                             zip(secs[1:], fwd[1:], upd[1:])) * 1e3
+    tok = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[jamba] train, 2 layers ({JB_PATTERN}: SSD + dense MLP, "
+          f"attention + 16 experts), batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"Adafactor: {n:,} parameters; losses {res['losses']}, moe_lb "
+          f"{res['moe_lb']}, moe_z {res['moe_z']}; step seconds "
+          f"{[round(x, 3) for x in secs]} "
+          f"({tok / statistics.median(secs[1:]):.1f} tok/s after step 0); "
+          f"after step 0, medians: forward {f_ms:.1f} ms, backward (the "
+          f"recompute included) {b_ms:.1f} ms, Adafactor {o_ms:.1f} ms; "
+          f"peak device memory {peak / 2**30:.2f} GiB beside parameters "
+          f"and gradients {8 * n / 2**30:.2f} GiB (f32) and Adafactor's "
+          f"state {held[0] / 2**30:.3f} GiB; final checkpoint at step "
+          f"{written} (host copy and write skipped); launches {counts}",
+          flush=True)
+    print(f"[jamba] train --auto on one card: [auto] chose "
+          f"{auto['strategy']}; step-0 loss {auto['losses'][0]!r} against "
+          f"{res['losses'][0]!r} without --auto", flush=True)
+    if (auto["strategy"], auto["losses"][0]) != (res["strategy"],
+                                                 res["losses"][0]):
+        raise AssertionError(f"jamba train --auto: {auto['strategy']}, "
+                             f"{auto['losses']}")
+    vals = res["losses"] + res["moe_lb"] + res["moe_z"]
+    if not all(math.isfinite(x) for x in vals) or min(res["moe_lb"]) <= 0:
+        raise AssertionError(f"jamba train: losses {res['losses']}, moe_lb "
+                             f"{res['moe_lb']}, moe_z {res['moe_z']}")
+    exp = train_expected(1, JB_TRAIN_STEPS, cfg.padded_vocab)
+    if counts != exp:
+        raise AssertionError(f"jamba train: launches {counts}, want {exp}")
+    return counts
+
+
+def jamba_agreement(torch) -> None:
+    """Phase 34 (c): the kernels against their plain versions on the card
+    (:func:`plain_on_card`: flash, xent and the SSD scan).  Teacher-forced
+    logits (phase 26's: 2 prompts of 500, 16 forced steps, dense) at one
+    period in bf16: the plain run within TF_PAIR times the larger of the
+    two runs' own error (each against the same weights in f32 through the
+    f32 kernels); at the 2-layer pattern in f32 within 1e-4 + 1e-4|x|.
+    Step 0's loss and every gradient leaf at the 2-layer pattern in f32
+    (JB_GRAD_ROWS x 2048) within 2e-4 + 2e-4|x|.  Each pair's routing
+    choices that flip are counted and printed."""
+    import dataclasses
+
+    from repro_torch.core.planner import compile_plan, loss_and_grads
+    from repro_torch.models import moe
+    from repro_torch.models.lm import Model
+    from repro_torch.tree import flatten
+
+    def routed(fn, record):
+        real = _route_by_micro(torch, record, {"mb": 0})
+        try:
+            return fn()
+        finally:
+            moe._route = real
+
+    cfg = _jamba_cfg(n_layers=JB_SERVE_LAYERS, param_dtype="bfloat16")
+    model = Model(cfg)
+    plan = compile_plan(model, None)
+    params = model.serving_params(plan.init_params(0))
+    rk, rp = {}, {}
+    tf = {"kernels": routed(lambda: teacher_forced(
+        torch, model, plan, params, "dense"), rk)}
+    with plain_on_card():
+        tf["plain"] = routed(lambda: teacher_forced(
+            torch, model, plan, params, "dense"), rp)
+    flips = _keyed_flips(rk, rp)
+    del rk, rp
+    for node in _dicts(params):         # the same weights in f32, in place
+        for k, v in node.items():
+            if isinstance(v, torch.Tensor):
+                node[k] = v.float()
+    m32 = Model(dataclasses.replace(cfg, dtype="float32"))
+    tf["f32"] = teacher_forced(torch, m32, compile_plan(m32, None), params,
+                               "dense")
+    del params
+    torch.cuda.empty_cache()
+    tol = TF_TOL["bfloat16"]
+    own = {k: tf_gap(tf[k], tf["f32"], tol) for k in ("kernels", "plain")}
+    gate = TF_PAIR * max(own["kernels"]["worst"], own["plain"]["worst"])
+    g = tf_gap(tf["plain"], tf["kernels"], tol)
+    print(f"[jamba] teacher-forced bf16, {JB_SERVE_LAYERS} layers: bf16's "
+          f"own error (against the same weights in f32) worst share of "
+          f"0.02 + 0.02|x| {own['kernels']['worst']:.3f} through the "
+          f"kernels, {own['plain']['worst']:.3f} through the plain "
+          f"versions; kernels against plain max |diff| {g['max_abs']:.3e}, "
+          f"worst share {g['worst']:.3f} against the gate {gate:.3f}; "
+          f"routing: {flips[0]} of {flips[1]} tokens' expert sets differ "
+          f"({flips[0] / flips[1]:.4f})", flush=True)
+    fails = []
+    if not g["worst"] <= gate:
+        fails.append(f"teacher-forced bf16: {g['worst']:.3f} beyond "
+                     f"{gate:.3f}")
+    if not all(torch.isfinite(t).all() for t in tf.values()):
+        fails.append("non-finite teacher-forced logits")
+    del tf
+    small = _jamba_pattern(2, dtype="float32")
+    m2 = Model(small)
+    plan2 = compile_plan(m2, None)
+    p2 = m2.serving_params(plan2.init_params(0))
+    rk, rp = {}, {}
+    got = routed(lambda: teacher_forced(torch, m2, plan2, p2, "dense"), rk)
+    with plain_on_card():
+        want = routed(lambda: teacher_forced(torch, m2, plan2, p2, "dense"),
+                      rp)
+    g = tf_gap(got, want, TF_TOL["float32"])
+    tf_flips = _keyed_flips(rk, rp)
+    del p2, got, want
+    torch.cuda.empty_cache()
+    batch = _first_batch(torch, small.vocab, JB_GRAD_ROWS)
+    p2 = m2.init(0)
+    rk, rp = {}, {}
+    loss_k, m_k, g_k = routed(lambda: loss_and_grads(m2, p2, batch), rk)
+    with plain_on_card():
+        loss_p, m_p, g_p = routed(lambda: loss_and_grads(m2, p2, batch), rp)
+    step_flips = _keyed_flips(rk, rp)
+    lim = GRAD_TOL[str(torch.float32)]
+    worst = max(check_close(f"jamba f32 2 layers gradient {k}", a, b,
+                            torch.float32, lim)
+                for (k, a), b in zip(zip(*flatten(g_k)), flatten(g_p)[1]))
+    for k, a, b in (("loss", loss_k, loss_p),
+                    ("moe_lb", m_k["moe_lb"], m_p["moe_lb"]),
+                    ("moe_z", m_k["moe_z"], m_p["moe_z"])):
+        check_close(f"jamba f32 2 layers {k}", a, b, torch.float32, lim)
+    print(f"[jamba] f32, 2 layers ({JB_PATTERN}), through the kernels "
+          f"against the plain versions: teacher-forced max |diff| "
+          f"{g['max_abs']:.3e}, worst share of 1e-4 + 1e-4|x| "
+          f"{g['worst']:.3f} (routing flips {tf_flips[0]} of "
+          f"{tf_flips[1]}); step 0 at {JB_GRAD_ROWS} x {TRAIN_SEQ}: loss "
+          f"{float(loss_k):.6f} vs {float(loss_p):.6f}, moe_lb "
+          f"{float(m_k['moe_lb']):.6f} vs {float(m_p['moe_lb']):.6f}, "
+          f"moe_z {float(m_k['moe_z']):.6f} vs {float(m_p['moe_z']):.6f}, "
+          f"every gradient leaf within 2e-4 + 2e-4|x| (max |diff| "
+          f"{worst:.3e}); routing flips {step_flips[0]} of "
+          f"{step_flips[1]}", flush=True)
+    if not g["worst"] <= 1:
+        fails.append("f32 teacher-forced logits outside 1e-4 + 1e-4|x|")
+    del p2, g_k, g_p
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError("jamba: " + "; ".join(fails))
+
+
+def jamba(torch, kernels) -> dict:
+    """Phase 34: jamba-v0.1-52b on one card: served at one period
+    (:func:`jamba_serve`), trained at the 2-layer pattern
+    (:func:`jamba_train`) and held against the plain versions
+    (:func:`jamba_agreement`).  Returns each path's launches."""
+    t0 = time.perf_counter()
+    counts = {"serve_jamba": jamba_serve(torch, kernels)}
+    t1 = time.perf_counter()
+    counts["train_jamba"] = jamba_train(torch, kernels)
+    t2 = time.perf_counter()
+    jamba_agreement(torch)
+    print(f"[jamba] seconds: serve {t1 - t0:.1f}, train {t2 - t1:.1f}, "
+          f"agreement {time.perf_counter() - t2:.1f}", flush=True)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 35: the ssm and hybrid families across the engine
+# ---------------------------------------------------------------------------
+
+#: (a) mamba2 at full width and 4 layers, 2 a stage, on launch.train's
+#: stream of TRAIN_BATCH x TRAIN_SEQ in PP_MICRO micro-batches, 1f1b,
+#: AdamW at PP_LR: name -> (activation dtype, steps); bf16 is the path,
+#: f32 holds its step 0 to f32's limits (phase 32's runs)
+M2_PP_LAYERS = 4
+M2_PP_RUNS = {"bf16": ("bfloat16", 3), "f32": ("float32", 1)}
+#: (b) jamba at 4 layers of JB_PATTERN (one period a stage), f32, step 0
+#: in 2 micro-batches of one row of TRAIN_SEQ
+JB_PP_LAYERS, JB_PP_MICRO = 4, 2
+#: (c) jamba split x2 (tp 2 = ep 2) at 2 layers of JB_PATTERN, f32, step
+#: 0 on JB_TP_ROWS x JB_TP_SEQ
+JB_TP_ROWS, JB_TP_SEQ = 2, 1024
+#: (b, c): the experts whose gradients are held element by element (one
+#: on each rank at ep 2); the other 14 of each expert leaf are not handed
+#: to the ranks (77% of the f32 gradient, through files: 12 GB instead
+#: of 42), and their routing, loss and aux are held all the same
+JB_HELD_EXPERTS = (0, 15)
+
+
+def _leaf_file(d: str, path: str) -> str:
+    return os.path.join(d, path.replace("/", "~") + ".pt")
+
+
+def _save_leaves(torch, d: str, leaves) -> None:
+    """Each ``(path, tensor)`` or ``(path, tensor, max |x|)`` of
+    ``leaves`` to a file of its own in ``d`` (a rank maps only the rows it
+    needs), with every leaf's max |x| (the tensor's where none is given)
+    added to ``d/tops.json``."""
+    os.makedirs(d, exist_ok=True)
+    name = os.path.join(d, "tops.json")
+    tops = {}
+    if os.path.exists(name):
+        with open(name) as f:
+            tops = json.load(f)
+    for path, g, *top in leaves:
+        torch.save(g.detach().cpu(), _leaf_file(d, path))
+        tops[path] = (top[0] if top else float(
+            torch.linalg.vector_norm(g.detach(), float("inf"))))
+    with open(name, "w") as f:
+        json.dump(tops, f)
+
+
+def _leaf_gaps(torch, grads: dict, d: str, cut, pick=None,
+               chunk: int = 1 << 26) -> dict:
+    """Per leaf of this rank's gradient ``grads`` ({path: tensor} on the
+    card), or of what ``pick(path, leaf)`` takes of it: [max |diff|
+    against the reference's leaf in ``d``, cut on the host to this rank's
+    block by ``cut(path, leaf)``, max |x| of the whole reference leaf], a
+    leaf at a time and ``chunk`` elements at a time on the card (two ranks
+    beside their weights and gradients leave no room for a whole expert
+    leaf); a NaN is an infinite gap."""
+    with open(os.path.join(d, "tops.json")) as f:
+        tops = json.load(f)
+    out = {}
+    for path, g in grads.items():
+        if pick is not None:
+            g = pick(path, g)
+        w = cut(path, torch.load(_leaf_file(d, path), mmap=True))
+        w, gf = w.reshape(-1), g.detach().reshape(-1)
+        if w.numel() != gf.numel():
+            raise AssertionError(f"{path}: {w.numel()} reference elements "
+                                 f"for a block of {gf.numel()}")
+        worst = torch.zeros((), device=g.device)
+        for i in range(0, gf.numel(), chunk):
+            part = w[i:i + chunk].to(g.device).float()
+            part.sub_(gf[i:i + chunk].float())
+            worst = torch.maximum(worst, torch.linalg.vector_norm(
+                part, float("inf")).nan_to_num(nan=math.inf))
+            del part
+        out[path] = [float(worst), tops[path]]
+    return out
+
+
+def _route_by_micro(torch, record: dict, cur: dict):
+    """Wrap ``moe._route`` so each call files its expert ids (sorted, on
+    the host) under (the layer's router fingerprint, ``cur["mb"]``, the
+    call's count for that pair): a forward and its checkpointed recompute
+    file two entries, whatever order a schedule runs them in."""
+    from repro_torch.models import moe
+
+    real = moe._route
+
+    def route(params, x, cfg, split=None):
+        out = real(params, x, cfg, split)
+        layer = tuple(params["router"]["w"].reshape(-1)[:4].tolist())
+        n = sum(1 for k in record if k[:2] == (layer, cur["mb"]))
+        record[(layer, cur["mb"], n)] = out[2].detach().sort(-1).values.cpu()
+        return out
+
+    moe._route = route
+    return real
+
+
+def _keyed_flips(got: dict, want: dict) -> list:
+    """[tokens whose expert set differs, tokens] over the routing calls
+    ``got`` files (:func:`_route_by_micro`; a rank's layers), against the
+    same keys of ``want``."""
+    missing = set(got) - set(want)
+    if missing:
+        raise AssertionError(f"routing calls without a reference: "
+                             f"{len(missing)}")
+    return [sum(int((got[k] != want[k]).any(-1).sum()) for k in got),
+            sum(v.numel() // v.shape[-1] for v in got.values())]
+
+
+def _record_opt(torch, apply):
+    """An optimizer with no state that calls ``apply(grads)`` and leaves
+    the parameters as they are: a step's gradient, read and let go."""
+    from repro_torch.optim.optimizer import Optimizer
+
+    def step(grads, state, params, i, **kw):
+        apply(grads)
+        return params, state
+
+    return Optimizer(init=lambda params: {}, apply=step, name="record")
+
+
+def _m2_pp_cfg(dtype: str):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MAMBA), n_layers=M2_PP_LAYERS,
+                               dtype=dtype)
+
+
+def _jb_pp_reference(torch, d: str) -> dict:
+    """(b)'s unpipelined step of one process: jamba at JB_PP_LAYERS layers
+    of JB_PATTERN in f32 on the first JB_PP_MICRO rows, a row a
+    micro-batch, each micro-batch's loss over JB_PP_MICRO backed into the
+    leaves' ``.grad`` in place.  Each repeat's slice of a stacked leaf is
+    a leaf of its own here (the stack's ``_unstack`` hands them out), so
+    no backward stacks a copy of a whole leaf's gradient: 54.5 GB of
+    weights and gradients, and no third tree.  Returns the loss,
+    ``moe_lb`` and ``moe_z`` (means over the micro-batches), the seconds
+    and the peak; the gradient (stacked on the host) and the routing by
+    micro-batch to ``d``."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.lm import Model
+    from repro_torch.tree import flatten, tree_map
+
+    model = Model(_jamba_pattern(JB_PP_LAYERS, dtype="float32"))
+    params = model.init(0)
+    n = model.stack.n_rep
+    reps = [tree_map(lambda p, r=r: p[r].detach().requires_grad_(True),
+                     params["blocks"]) for r in range(n)]
+    top = {k: tree_map(lambda p: p.requires_grad_(True), v)
+           for k, v in params.items() if k != "blocks"}
+    blocks = params["blocks"]
+    real_unstack = tfm._unstack
+    tfm._unstack = lambda tree, k: (reps if tree is blocks
+                                    else real_unstack(tree, k))
+    toks = _first_batch(torch, model.cfg.vocab, JB_PP_MICRO)["tokens"]
+    routes, cur = {}, {"mb": 0}
+    real = _route_by_micro(torch, routes, cur)
+    rec = {"loss": 0.0, "moe_lb": 0.0, "moe_z": 0.0}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for i in range(JB_PP_MICRO):
+            cur["mb"] = i
+            loss, m = model.loss_fn(dict(top, blocks=blocks),
+                                    {"tokens": toks[i:i + 1]})
+            (loss / JB_PP_MICRO).backward()
+            for k, v in (("loss", loss), ("moe_lb", m["moe_lb"]),
+                         ("moe_z", m["moe_z"])):
+                rec[k] += float(v.detach()) / JB_PP_MICRO
+        torch.cuda.synchronize()
+    finally:
+        moe._route = real
+        tfm._unstack = real_unstack
+    rec["seconds"] = time.perf_counter() - t0
+    rec["peak"] = torch.cuda.max_memory_allocated()
+    del params, blocks
+    paths, rep_leaves = flatten(reps[0])[0], [flatten(r)[1] for r in reps]
+
+    def stacked():               # a leaf's rows stacked on the host, then
+        for i, path in enumerate(paths):            # let go on the card
+            full = [ls[i].grad for ls in rep_leaves]
+            top = max(float(torch.linalg.vector_norm(g, float("inf")))
+                      for g in full)
+            held = f"/{path}".endswith(ROUTED)
+            rows = [(g[list(JB_HELD_EXPERTS)] if held else g).cpu()
+                    for g in full]
+            for ls in rep_leaves:
+                ls[i].grad = None
+            del full
+            yield f"blocks/{path}", torch.stack(rows), top
+
+    _save_leaves(torch, d, [(q, x.grad) for q, x in zip(*flatten(top))])
+    _save_leaves(torch, d, stacked())
+    torch.save(routes, os.path.join(d, "routes.pt"))
+    del reps, top, rep_leaves
+    return rec
+
+
+def _jb_tp_reference(torch, d: str) -> dict:
+    """(c)'s unsharded step of one process: jamba at 2 layers of
+    JB_PATTERN in f32 on JB_TP_ROWS x JB_TP_SEQ; its loss, ``moe_lb``,
+    ``moe_z``, routing, seconds and peak; the gradient to ``d``."""
+    from repro_torch.core.planner import loss_and_grads
+    from repro_torch.models import moe
+    from repro_torch.models.lm import Model
+    from repro_torch.tree import flatten
+
+    model = Model(_jamba_pattern(2, dtype="float32"))
+    params = model.init(0)
+    batch = _first_batch(torch, model.cfg.vocab, JB_TP_ROWS, JB_TP_SEQ)
+    routes = {}
+    real = _route_by_micro(torch, routes, {"mb": 0})
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        loss, m, g = loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
+    finally:
+        moe._route = real
+    rec = {"loss": float(loss), "moe_lb": float(m["moe_lb"]),
+           "moe_z": float(m["moe_z"]), "seconds": time.perf_counter() - t0,
+           "peak": torch.cuda.max_memory_allocated()}
+    del params
+    _save_leaves(torch, d, ((p, x[:, list(JB_HELD_EXPERTS)], float(
+        torch.linalg.vector_norm(x, float("inf")))) if p.endswith(ROUTED)
+        else (p, x) for p, x in zip(*flatten(g))))
+    torch.save(routes, os.path.join(d, "routes.pt"))
+    return rec
+
+
+def _draw_in_turn(torch, dist, model, keep):
+    """``keep(model.init(0))`` on every rank, one rank at a time (the ranks
+    share one card, and the whole model's draw is its weights once more):
+    each rank keeps only what ``keep`` cuts from its draw."""
+    out = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            out = keep(model.init(0))
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def _m2_pp_part(torch, dist, d: str, kernels, stats: dict) -> dict:
+    """(a) in a rank: mamba2 pipeline×2 from the whole model's draw (this
+    stage's rows; the tied table on both stages), for each of M2_PP_RUNS
+    its steps of 1f1b through ``pipeline_train_step_fn``: losses, step and
+    gloo seconds, peaks beside the state held, launches, and the step-0
+    gradient against the unpipelined one in ``d/m2_<run>``."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core.cost_model import StrategySpec
+    from repro_torch.core.pipeline import _rows, stage_state
+    from repro_torch.core.planner import compile_plan, mesh_for_strategy
+    from repro_torch.data.pipeline import DataCfg, TokenPipeline
+    from repro_torch.models.lm import Model
+    from repro_torch.optim.optimizer import adamw
+    from repro_torch.tree import flatten, tree_map
+
+    strat = StrategySpec(pp=2, micro_batches=PP_MICRO, schedule="1f1b")
+    mesh = mesh_for_strategy(strat)
+    stage = mesh.get_local_rank("stage")
+    out = {"stage": stage}
+    init = None
+    for name, (dtype, steps) in M2_PP_RUNS.items():
+        plan = compile_plan(Model(_m2_pp_cfg(dtype)), mesh, strat)
+        sl = plan.stage_layers()
+        if init is None:            # f32 masters: one draw serves both runs
+            init = stage_state(plan.model.init(0), stage, sl)
+        params = tree_map(torch.clone, init)
+        opt = adamw(lr=PP_LR)
+        state = opt.init(params)
+        held = 4 * (2 * sum(p.numel() for p in flatten(params)[1])
+                    + sum(p.numel() for p in flatten(state)[1]))
+        gaps = {}
+        real_apply = opt.apply
+
+        def cut(path, w, sl=sl):
+            return _rows(w, stage, sl) if path.startswith("blocks/") else w
+
+        def apply(grads, *args, real_apply=real_apply, gaps=gaps,
+                  ref=os.path.join(d, f"m2_{name}"), cut=cut, **kw):
+            if not gaps:
+                gaps.update(_leaf_gaps(torch, dict(zip(*flatten(grads))),
+                                       ref, cut))
+            return real_apply(grads, *args, **kw)
+
+        step_fn = plan.pipeline_train_step_fn(
+            dataclasses.replace(opt, apply=apply))
+        data = TokenPipeline(DataCfg(
+            global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+            vocab=plan.model.cfg.vocab, seed=0), host_id=0, n_hosts=1)
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        rec = {"losses": [], "seconds": [], "gloo_s": [], "peaks": []}
+        for i in range(steps):
+            toks = torch.as_tensor(np.asarray(
+                data.next_batch()["tokens"])).cuda()
+            torch.cuda.reset_peak_memory_stats()
+            s0 = stats["s"]
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, toks, i)
+            torch.cuda.synchronize()
+            rec["seconds"].append(time.perf_counter() - t0)
+            rec["gloo_s"].append(stats["s"] - s0)
+            rec["peaks"].append(torch.cuda.max_memory_allocated())
+            rec["losses"].append(float(m["loss"]))
+        rec.update(counts=read_counts(kernels), held=held, grads=gaps,
+                   stage_layers=list(sl),
+                   vp=int(params["embed"]["table"].shape[0]))
+        out[name] = rec
+        del params, state, step_fn, plan
+        torch.cuda.empty_cache()
+    del init
+    torch.cuda.empty_cache()
+    return out
+
+
+def _jb_pp_part(torch, dist, d: str, kernels, stats: dict) -> dict:
+    """(b) in a rank: jamba pipeline×2 in f32, this stage's period drawn in
+    turn (:func:`_draw_in_turn`), step 0 through ``pipeline_train_step_fn``
+    with a recording optimizer: loss, ``moe_lb``, ``moe_z``, step and
+    gloo seconds, peak beside the weights and gradients held, launches,
+    routing flips against the unpipelined step's by micro-batch, and
+    the gradient against ``d/jb_pp``."""
+    import importlib
+
+    from repro_torch.core.cost_model import StrategySpec
+    from repro_torch.core.pipeline import _rows, stage_state
+    from repro_torch.core.planner import compile_plan, mesh_for_strategy
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.lm import Model
+    from repro_torch.tree import flatten, tree_map
+
+    strat = StrategySpec(pp=2, micro_batches=JB_PP_MICRO, schedule="1f1b")
+    mesh = mesh_for_strategy(strat)
+    stage = mesh.get_local_rank("stage")
+    plan = compile_plan(Model(_jamba_pattern(JB_PP_LAYERS,
+                                             dtype="float32")), mesh, strat)
+    sl = plan.stage_layers()
+    params = _draw_in_turn(torch, dist, plan.model,
+                           lambda whole: stage_state(whole, stage, sl))
+    drawn = torch.cuda.memory_allocated()
+    pipe_mod = importlib.import_module("repro_torch.core.pipeline")
+    n = sum(p.numel() for p in flatten(params)[1])
+    ref = os.path.join(d, "jb_pp")
+    gaps = {}
+
+    def cut(path, w):
+        return _rows(w, stage, sl) if path.startswith("blocks/") else w
+
+    def pick(path, g):
+        return g[:, list(JB_HELD_EXPERTS)] if path.endswith(ROUTED) else g
+
+    step_fn = plan.pipeline_train_step_fn(_record_opt(
+        torch, lambda g: gaps.update(_leaf_gaps(
+            torch, dict(zip(*flatten(g))), ref, cut, pick))))
+    toks = _first_batch(torch, plan.model.cfg.vocab, JB_PP_MICRO)["tokens"]
+    routes, cur = {}, {"mb": 0}
+    real_route = _route_by_micro(torch, routes, cur)
+    real_f, real_b = pipe_mod._Stage.forward, pipe_mod._Stage.backward
+
+    def fwd(self, mb, *a):
+        cur["mb"] = mb
+        return real_f(self, mb, *a)
+
+    def bwd(self, mb, *a):
+        cur["mb"] = mb
+        out = real_b(self, mb, *a)
+        # the two ranks share the card: a backward's freed activations go
+        # back to it, not to this rank's cache
+        torch.cuda.empty_cache()
+        return out
+
+    pipe_mod._Stage.forward, pipe_mod._Stage.backward = fwd, bwd
+    # a stage's one repeat as a squeeze: its backward hands the gradient
+    # back as a view, where unbind's stacks a copy of each leaf's (3.5 GiB
+    # for an expert leaf), for which two such stages on one card have no
+    # room
+    real_unstack = tfm._unstack
+    tfm._unstack = lambda tree, k: (
+        [tree_map(lambda v: v.squeeze(0), tree)] if k == 1
+        else real_unstack(tree, k))
+    reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    s0 = stats["s"]
+    t0 = time.perf_counter()
+    try:
+        params, _, m = step_fn(params, {}, toks, 0)
+        torch.cuda.synchronize()
+    finally:
+        moe._route = real_route
+        pipe_mod._Stage.forward, pipe_mod._Stage.backward = real_f, real_b
+        tfm._unstack = real_unstack
+    rec = {k: float(m[k]) for k in ("loss", "moe_lb", "moe_z")}
+    rec.update(seconds=time.perf_counter() - t0, gloo_s=stats["s"] - s0,
+               peak=torch.cuda.max_memory_allocated(), held=8 * n,
+               drawn=drawn, counts=read_counts(kernels), grads=gaps,
+               stage=stage,
+               stage_layers=list(sl),
+               flips=_keyed_flips(routes, torch.load(
+                   os.path.join(ref, "routes.pt"))))
+    del params, step_fn
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _jb_tp_part(torch, dist, d: str, kernels, stats: dict) -> dict:
+    """(c) in a rank: jamba split×2 (tp 2 = ep 2: 16 q over 4 kv heads, 64
+    SSD heads, 8 experts, half the MLP columns and 32768 vocab columns a
+    rank) in f32, its blocks of the draw made in turn, step 0 through
+    ``train_step_fn`` with a recording optimizer: loss, ``moe_lb``,
+    ``moe_z``, seconds, peak, launches, routing flips and the gradient
+    against ``d/jb_tp``."""
+    from repro_torch.core import sharding
+    from repro_torch.core.cost_model import StrategySpec
+    from repro_torch.core.planner import compile_plan, mesh_for_strategy
+    from repro_torch.models import moe
+    from repro_torch.models.lm import Model
+    from repro_torch.tree import flatten
+
+    strat = StrategySpec(tp=2, ep=2)
+    plan = compile_plan(Model(_jamba_pattern(2, dtype="float32")),
+                        mesh_for_strategy(strat), strat)
+    params = _draw_in_turn(torch, dist, plan.model,
+                           lambda whole: plan.shard(whole, plan.param_specs))
+    drawn = torch.cuda.memory_allocated()
+    n = sum(p.numel() for p in flatten(params)[1])
+    specs = dict(zip(*flatten(plan.param_specs)))
+    ref = os.path.join(d, "jb_tp")
+    gaps = {}
+    r = plan.rules.index("model")
+
+    def pick(path, g):          # the held experts among this rank's
+        if not path.endswith(ROUTED):
+            return g
+        n = g.shape[1]
+        return g[:, [e - r * n for e in JB_HELD_EXPERTS
+                     if 0 <= e - r * n < n]]
+
+    step_fn = plan.train_step_fn(_record_opt(
+        torch, lambda g: gaps.update(_leaf_gaps(
+            torch, dict(zip(*flatten(g))), ref,
+            lambda p, w: sharding.shard_leaf(w, specs[p], plan.rules),
+            pick))))
+    batch = plan.batch_slice(_first_batch(torch, plan.model.cfg.vocab,
+                                          JB_TP_ROWS, JB_TP_SEQ))
+    routes = {}
+    real_route = _route_by_micro(torch, routes, {"mb": 0})
+    reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    s0 = stats["s"]
+    t0 = time.perf_counter()
+    try:
+        params, _, m = step_fn(params, {}, batch, 0)
+        torch.cuda.synchronize()
+    finally:
+        moe._route = real_route
+    blocks = params["blocks"]
+    rec = {k: float(m[k]) for k in ("loss", "moe_lb", "moe_z")}
+    rec.update(seconds=time.perf_counter() - t0, gloo_s=stats["s"] - s0,
+               peak=torch.cuda.max_memory_allocated(), held=8 * n,
+               drawn=drawn, counts=read_counts(kernels), grads=gaps,
+               experts=int(blocks["p1"]["moe"]["w_in"].shape[1]),
+               ssd_heads=int(blocks["p0"]["ssd"]["A_log"].shape[-1]),
+               vp=int(params["head"]["w"].shape[1]),
+               line=plan.split_line(),
+               flips=_keyed_flips(routes, torch.load(
+                   os.path.join(ref, "routes.pt"))))
+    del params, step_fn
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _hybrid_engine_rank(rank: int, store: str, out_dir: str,
+                        ref_dir: str) -> None:
+    """One rank of phase 35 on ``cuda:0`` over gloo (a world of two): (a)
+    mamba2 pipeline×2, (b) jamba pipeline×2, (c) jamba split×2; each
+    part's record and seconds."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    kernels = kernel_wrappers()
+    stats = {"s": 0.0, "n": 0}
+    out = {"seconds": {}}
+    try:
+        time_collectives(torch, dist, stats)
+        for name, fn in (("m2_pp", _m2_pp_part), ("jb_pp", _jb_pp_part),
+                         ("jb_tp", _jb_tp_part)):
+            t0 = time.perf_counter()
+            out[name] = fn(torch, dist, ref_dir, kernels, stats)
+            torch.cuda.empty_cache()
+            out["seconds"][name] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _hybrid_references(torch, d: str) -> dict:
+    """Phase 35's unsharded references, here before the ranks: (a) the
+    unpipelined mamba2 steps in bf16 and f32 and bf16's own error (the
+    gap between them: the losses', and each step-0 gradient leaf's max
+    |diff| relative to its max); (b) and (c) jamba's single-process
+    steps (:func:`_jb_pp_reference`, :func:`_jb_tp_reference`)."""
+    from repro_torch.models.lm import Model
+    from repro_torch.tree import flatten
+
+    refs = {"m2": {n: _unpiped(
+        torch, Model(_m2_pp_cfg(dt)), steps,
+        lambda g, n=n: _save_leaves(torch, os.path.join(d, f"m2_{n}"),
+                                    zip(*flatten(g))))
+        for n, (dt, steps) in M2_PP_RUNS.items()}}
+    torch.cuda.empty_cache()
+    with open(os.path.join(d, "m2_f32", "tops.json")) as f:
+        tops = json.load(f)
+    own = {}
+    for path, top in tops.items():
+        a, b = (torch.load(_leaf_file(os.path.join(d, f"m2_{n}"), path))
+                for n in ("bf16", "f32"))
+        own[path] = max_err(a, b) / max(top, 1e-30)
+    refs["own"] = own
+    refs["own_loss"] = max(abs(a - b) for a, b in zip(
+        refs["m2"]["bf16"]["losses"], refs["m2"]["f32"]["losses"]))
+    refs["jb_pp"] = _jb_pp_reference(torch, os.path.join(d, "jb_pp"))
+    torch.cuda.empty_cache()
+    refs["jb_tp"] = _jb_tp_reference(torch, os.path.join(d, "jb_tp"))
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _hybrid_report(torch, ranks: list, refs: dict) -> tuple:
+    """Print and hold phase 35's ranks against the references
+    (:func:`hybrid_engine`); returns (the failures, each path's launches
+    summed over the ranks)."""
+    fails = []
+    f32_lim = GRAD_TOL[str(torch.float32)]
+
+    def close(x, want):
+        return abs(x - want) <= TP_F32_LIMIT + TP_F32_LIMIT * abs(want)
+
+    own, own_loss = refs["own"], refs["own_loss"]
+    for n, r in refs["m2"].items():
+        print(f"[hybrid-engine] (a) mamba2 unpipelined {n}, {M2_PP_LAYERS} "
+              f"layers, {TRAIN_BATCH} x {TRAIN_SEQ} in {PP_MICRO} "
+              f"micro-batches: losses {r['losses']}; step seconds "
+              f"{[round(x, 3) for x in r['seconds']]}; peak "
+              f"{r['peak'] / 2**30:.2f} GiB", flush=True)
+    ow = max(own, key=own.get)
+    print(f"[hybrid-engine] (a) bf16's own error (unpipelined bf16 against "
+          f"f32): loss {own_loss:.3e} (largest over the steps); step-0 "
+          f"gradients relative to the leaf's max: median "
+          f"{statistics.median(own.values()):.3e}, largest {own[ow]:.3e} "
+          f"({ow})", flush=True)
+    outs = [o["m2_pp"] for o in ranks]
+    for name, (_, steps) in M2_PP_RUNS.items():
+        want = refs["m2"][name]["losses"]
+        for o in outs:
+            r = o[name]
+            print(f"[hybrid-engine] (a) mamba2 pipeline×2 {name}, stage "
+                  f"{o['stage']} (layers {r['stage_layers']}): losses "
+                  f"{r['losses']}; step seconds "
+                  f"{[round(x, 3) for x in r['seconds']]}, gloo "
+                  f"{[round(x, 3) for x in r['gloo_s']]}; peak "
+                  f"{max(r['peaks']) / 2**30:.2f} GiB beside "
+                  f"{r['held'] / 2**30:.2f} GiB of parameters, gradients "
+                  f"and moments held; launches {r['counts']}", flush=True)
+            if r["losses"] != outs[0][name]["losses"]:
+                fails.append(f"(a) {name}: the ranks report different "
+                             f"losses")
+            exp = pipeline_expected(0, steps, r["vp"], head=o["stage"] == 1)
+            if r["counts"] != exp:
+                fails.append(f"(a) {name} stage {o['stage']}: launches "
+                             f"{r['counts']}, want {exp}")
+        diffs = [abs(a - b) for a, b in zip(outs[0][name]["losses"], want)]
+        print(f"[hybrid-engine] (a) {name} against the unpipelined step: "
+              f"|diff| losses {diffs}", flush=True)
+        runs = [o[name] for o in outs]
+        if name == "bf16":
+            fails += [f"(a) bf16 step-{i} loss |diff| {x:.3e} beyond "
+                      f"{TF_PAIR * own_loss:.3e}" for i, x in enumerate(diffs)
+                      if x > TF_PAIR * own_loss]
+            fails += _moe_grad_lines("(a) mamba2 pipeline×2 bf16", runs,
+                                     lambda p: TF_PAIR * own[p],
+                                     "[hybrid-engine]")
+        else:
+            fails += [f"(a) f32 step-{i} loss |diff| {x:.3e}"
+                      for i, (x, w) in enumerate(zip(diffs, want))
+                      if x > TP_F32_LIMIT + TP_F32_LIMIT * abs(w)]
+            fails += _moe_grad_lines("(a) mamba2 pipeline×2 f32", runs,
+                                     lambda p: f32_lim, "[hybrid-engine]")
+    counts = {"train_mamba2_pipeline": {
+        k: sum(o["bf16"]["counts"][k] for o in outs)
+        for k in outs[0]["bf16"]["counts"]}}
+    for part, what in (("jb_pp", "(b) jamba pipeline×2"),
+                       ("jb_tp", "(c) jamba split×2")):
+        want = refs[part]
+        print(f"[hybrid-engine] {what}: one process's step: loss "
+              f"{want['loss']:.6f}, moe_lb {want['moe_lb']:.6f}, moe_z "
+              f"{want['moe_z']:.6f} in {want['seconds']:.3f} s, peak "
+              f"{want['peak'] / 2**30:.2f} GiB", flush=True)
+        outs = [o[part] for o in ranks]
+        for rank, r in enumerate(outs):
+            extra = (f"stage {r['stage']} (layers {r['stage_layers']})"
+                     if part == "jb_pp" else
+                     f"{r['experts']} experts, {r['ssd_heads']} SSD heads, "
+                     f"{r['vp']} vocab columns; {r['line']}")
+            print(f"[hybrid-engine] {what} rank {rank}, {extra}: loss "
+                  f"{r['loss']:.6f}, moe_lb {r['moe_lb']:.6f}, moe_z "
+                  f"{r['moe_z']:.6f}; step {r['seconds']:.3f} s, gloo "
+                  f"{r['gloo_s']:.3f} s (ranks time-slice one card); "
+                  f"{r['drawn'] / 2**30:.2f} GiB after the draw, peak "
+                  f"{r['peak'] / 2**30:.2f} GiB beside "
+                  f"{r['held'] / 2**30:.2f} GiB of weights and gradients; "
+                  f"routing flips {r['flips'][0]} of {r['flips'][1]} "
+                  f"tokens; launches {r['counts']}", flush=True)
+            for k in ("loss", "moe_lb", "moe_z"):
+                if not close(r[k], want[k]):
+                    fails.append(f"{what} rank {rank} {k}: {r[k]!r} "
+                                 f"against {want[k]!r}")
+            if part == "jb_pp":
+                exp = pipeline_expected(1, 1, 65536, head=r["stage"] == 1,
+                                        micro=JB_PP_MICRO)
+            else:
+                exp = train_expected(1, 1, r["vp"], rows=JB_TP_ROWS,
+                                     seq=JB_TP_SEQ)
+            if r["counts"] != exp:
+                fails.append(f"{what} rank {rank}: launches {r['counts']}, "
+                             f"want {exp}")
+        fails += _moe_grad_lines(what, outs, lambda p: f32_lim,
+                                 "[hybrid-engine]")
+        path = ("train_jamba_pipeline" if part == "jb_pp"
+                else "train_jamba_tp")
+        counts[path] = {k: sum(o["counts"][k] for o in outs)
+                        for k in outs[0]["counts"]}
+    return fails, counts
+
+
+def hybrid_engine(torch, kernels) -> dict:
+    """Phase 35: the ssm and hybrid families across the engine.  Here
+    first, unsharded, the references (:func:`_hybrid_references`); then two
+    ranks on ``cuda:0`` over gloo, on a pool of exactly them
+    (:func:`own_ranks`), run (a) mamba2 pipeline×2, (b) jamba pipeline×2
+    and (c) jamba split×2 (:func:`_hybrid_engine_rank`).  Everything is
+    printed before it is held:
+
+    - (a): bf16 losses (every step) and each step-0 gradient leaf within
+      TF_PAIR times bf16's own error of the unpipelined bf16 step; f32
+      within 1e-4 + 1e-4|x| (the loss) and 2e-4 of each leaf's max (the
+      gradients: the tied table's the sum of both stages'); the ranks'
+      losses equal; each rank's launches those of its stage (the loss
+      head's on the last);
+    - (b), (c): the loss, ``moe_lb`` and ``moe_z`` within 1e-4 +
+      1e-4|x| of one process's step, each gradient leaf within 2e-4 of
+      its max; the launches of the rank's layers and head.
+
+    Returns the launches of each path, summed over its ranks."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hybrid_engine_")
+    t00 = time.perf_counter()
+    try:
+        refs = _hybrid_references(torch, tmp)
+        t0 = time.perf_counter()
+        # jamba's ranks hold 27 GiB of weights and gradients each: their
+        # allocators map memory in growable segments, so that what one
+        # frees is not stranded in a block the other cannot use
+        conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            ranks = own_ranks(_hybrid_engine_rank, tmp, timeout=600)
+        finally:
+            if conf is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+        t1 = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    parts = {k: round(max(o["seconds"][k] for o in ranks), 1)
+             for k in ranks[0]["seconds"]}
+    print(f"[hybrid-engine] seconds: the unsharded references "
+          f"{t0 - t00:.1f}; two ranks {t1 - t0:.1f} (parts {parts})",
+          flush=True)
+    fails, counts = _hybrid_report(torch, ranks, refs)
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return counts
+
+
 @contextlib.contextmanager
 def phase(name: str):
     t0 = time.perf_counter()
@@ -7586,6 +8671,15 @@ def main() -> None:
                "served paged and dense, trained, held against the plain "
                "versions)"):
         dense_counts = dense_rest(torch, kernels)
+    torch.cuda.empty_cache()
+    with phase("the hybrid family on one card (jamba-v0.1-52b: served at "
+               "one period, trained at the 2-layer pattern, held against "
+               "the plain versions)"):
+        jamba_counts = jamba(torch, kernels)
+    torch.cuda.empty_cache()
+    with phase("the ssm and hybrid families across the engine (mamba2 and "
+               "jamba pipeline×2, jamba split×2; 2 ranks)"):
+        hybrid_counts = hybrid_engine(torch, kernels)
 
     meta = {
         "flash_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
@@ -7639,7 +8733,9 @@ def main() -> None:
                    **{path: c[name] for path, c in m2_split_counts.items()},
                    **{path: c[name] for path, c in
                       moe_engine_counts.items()},
-                   **{path: c[name] for path, c in dense_counts.items()}}
+                   **{path: c[name] for path, c in dense_counts.items()},
+                   **{path: c[name] for path, c in jamba_counts.items()},
+                   **{path: c[name] for path, c in hybrid_counts.items()}}
         table.append(dict(name=name, route="cuda", source=meta[name][0],
                           replaces=meta[name][1],
                           launches=sum(by_path.values()),

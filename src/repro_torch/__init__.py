@@ -6,8 +6,10 @@ auto-parallel scopes and ``wh.sub``, the TaskGraph IR, the graph
 optimizer, the engine and the cost model (:mod:`repro_torch.core`), and
 ``model_graph``.
 
-The port serves and trains dense decoder LMs (tinyllama-1.1b) and serves
-the Mamba2 family (mamba2-1.3b), over data, model and stage axes.
+The port serves and trains the dense decoder LMs (tinyllama-1.1b,
+qwen3-1.7b, gemma-2b, stablelm-3b), the Mamba2 family (mamba2-1.3b), the
+MoE family (deepseek-moe-16b) and the hybrid family (jamba-v0.1-52b),
+over data, model and stage axes.
 Attention (prefill, its backward, paged decode), the fused cross-entropy,
 the SSD scan and the int8 quantizer run in hand-written CUDA kernels
 (``repro_torch.kernels``), built on their first launch; everything else

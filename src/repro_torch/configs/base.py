@@ -16,11 +16,16 @@ def shrink(cfg: LMCfg, **overrides) -> LMCfg:
     tiny vocab — the GQA ratio preserved (tinyllama's 32:4 becomes 4:1);
     an attention-free config stays so (mamba2: 8 SSD heads of 32, state
     16, chunk 32); an MoE keeps its period of layers, at most 8 experts of
-    64 columns, top-2 and one shared expert (the reference's ``shrink``)."""
+    64 columns, top-2 and one shared expert; a hybrid one period of
+    ``attn_period`` layers (the reference's ``shrink``)."""
     heads = min(cfg.n_heads, 4)
     kv = max(1, heads * cfg.n_kv_heads // cfg.n_heads) if heads else 0
+    if cfg.family == "hybrid":
+        n_layers = cfg.attn_period
+    else:
+        n_layers = max(2, cfg.moe_every if cfg.family == "moe" else 1)
     small = dict(
-        n_layers=max(2, cfg.moe_every if cfg.family == "moe" else 1),
+        n_layers=n_layers,
         d_model=128,
         n_heads=heads,
         n_kv_heads=kv,

@@ -45,13 +45,18 @@ over ``data`` and ``pod``.  The layout is the reference's ``staged_specs``
 (:func:`repro_torch.core.sharding.staged_specs`): nothing is sharded over
 the data axes, whatever the ZeRO stage.  ``stage_only_specs`` (the
 ``shard_map`` in-specs) has no counterpart: a rank holds its own rows.
-The dense and moe families pipeline.  A moe stage carries its experts'
-leaves in its rows of ``blocks`` like any other (whole over ``model``
-inside a stage, the nesting ``pipeline{split[experts]}``) and adds its
-experts' aux losses, ``aux / M``, to the loss, reported as ``moe_lb`` and
-``moe_z``.  Not ported: the encoder–decoder two-tower engine
-(``make_encdec_pipeline_*``) comes with ``models/encdec.py``, and the ssm
-family's pipeline (ROADMAP.md queue A item 7).
+The dense, moe, ssm and hybrid families pipeline.  A stage runs its
+blocks as the unpipelined training forward does, an SSD mixer through the
+differentiable chunked scan; a tied table (mamba2's) lives on every stage
+and its gradients, stage 0's lookup and the last stage's head, sum over
+the stage group as the shared leaves' do.  A stage with experts (the moe
+family, the hybrid's odd blocks) carries their leaves in its rows of
+``blocks`` like any other (whole over ``model`` inside a stage, the
+nesting ``pipeline{split[experts]}``) and adds their aux losses, ``aux /
+M``, to the loss, reported as ``moe_lb`` and ``moe_z``.  A stage's rows
+are whole pattern repeats (jamba's period of 8 blocks).  Not ported: the
+encoder–decoder two-tower engine (``make_encdec_pipeline_*``) comes with
+``models/encdec.py`` (ROADMAP.md queue A item 7).
 """
 from __future__ import annotations
 
@@ -69,8 +74,6 @@ from repro_torch.tree import flatten, tree_map, unflatten
 
 ENCDEC_SLICE = ("the encoder–decoder two-tower pipeline comes with "
                 "models/encdec.py (ROADMAP.md queue A item 7)")
-SSM_PIPELINE_SLICE = ("pipelining the 'ssm' family comes with a later slice "
-                      "of the port (ROADMAP.md queue A item 7)")
 
 
 # ---------------------------------------------------------------------------
@@ -206,9 +209,7 @@ def stage_state(tree: dict, stage: int, stage_layers) -> dict:
 # ---------------------------------------------------------------------------
 
 def _check_family(model) -> None:
-    if model.cfg.family == "ssm":
-        raise NotImplementedError(SSM_PIPELINE_SLICE)
-    if model.cfg.family not in ("dense", "moe"):
+    if model.cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"pipelining the {model.cfg.family!r} family: {ENCDEC_SLICE}")
 
@@ -355,7 +356,7 @@ def schedule_grads(model, params: dict, tokens, *, micro_batches: int,
     Returns ``(loss, grads, stats)``: ``grads`` in the standard layout and
     in f32; ``stats`` with ``n_ticks``, ``bubble_fraction``,
     ``peak_in_flight``, ``per_stage_in_flight`` and ``stage_layers`` (the
-    reference's), and for the moe family ``moe_lb`` and ``moe_z``, the
+    reference's), and for a model with experts ``moe_lb`` and ``moe_z``, the
     experts' aux losses summed over the stages and averaged over the
     micro-batches (the part of ``loss`` the reference's fused engine adds
     at ``psum(aux, "stage") / M``).
@@ -415,7 +416,7 @@ def schedule_grads(model, params: dict, tokens, *, micro_batches: int,
              "peak_in_flight": max(peaks),
              "per_stage_in_flight": peaks,
              "stage_layers": stage_layers}
-    if model.cfg.family == "moe":
+    if model.cfg.has_experts:
         aux = sum(st.aux for st in stages) / M
         stats.update(moe_lb=aux[0], moe_z=aux[1])
     return loss, grads, stats

@@ -82,8 +82,9 @@ Serving (the reference's ``jit_prefill``, ``jit_serve_step``,
 enter the plan's rules on every call and run without autograd; the decode
 states are laid out by the reference's :meth:`~ExecutionPlan.state_specs`
 and :meth:`~ExecutionPlan.paged_state_specs`, slots over the data axes
-(:meth:`~ExecutionPlan.slot_block`).  The moe family serves under the
-same rules: its experts stay whole over ``model`` and each step's combine
+(:meth:`~ExecutionPlan.slot_block`).  A model with experts (the moe
+family, the hybrid's odd blocks) serves under the same rules: its
+experts stay whole over ``model`` and each step's combine
 is all-reduced once, each slot's token routed as a sequence of one, and
 no collective runs over data.  Refused, each naming its ROADMAP item:
 serving inside a pipeline, ZeRO-3's data-sharded parameters, and decode
@@ -536,8 +537,9 @@ class ExecutionPlan:
         compiled with ``compress_pod`` (its parameters sharded inside the
         pod), else ``ValueError``.
 
-        The moe family balances its experts over the global batch, as the
-        reference's GSPMD step does: the step runs under the plan's rules,
+        A model with experts (the moe family, the hybrid's odd blocks)
+        balances them over the global batch, as the reference's GSPMD
+        step does: the step runs under the plan's rules,
         and each block takes its routing statistics' means over the data
         axes (over the pod's ``data`` with ``compress_pod``, whose
         reference step balances each pod) before the aux losses.  Under
@@ -568,10 +570,10 @@ class ExecutionPlan:
                 "data inside each pod and the pods stay replicas")
         if self.sharded and optimizer.name == "adafactor":
             raise NotImplementedError(ADAFACTOR_SPLIT_SLICE)
-        moe = model.cfg.family == "moe"
-        if moe and uneven:
+        experts = model.cfg.has_experts
+        if experts and uneven:
             raise ValueError(
-                f"uneven batch shares {rows} for the moe family: the "
+                f"uneven batch shares {rows} for a model with experts: the "
                 f"experts' balance over the global batch needs every "
                 f"replica in its all-reduce with an equal share of the rows "
                 f"(a replica with no rows runs no forward)")
@@ -586,7 +588,7 @@ class ExecutionPlan:
             rules = dataclasses.replace(
                 rules, rules=dict(rules.rules, batch="data"))
         with sharding.use_rules(rules):
-            balanced = moe and bool(sharding.batch_splits())
+            balanced = experts and bool(sharding.batch_splits())
         specs = self.param_specs
         slices = self._slices(optimizer)
         weight_axes = [a for a in (("data",) if compress
@@ -648,10 +650,11 @@ class ExecutionPlan:
             else:
                 if balanced and "loss_mask" in batch:
                     raise ValueError(
-                        "a loss_mask for the moe family over data "
-                        "replicas: the step weights each replica by its "
-                        "masked tokens, while the experts' balance is the "
-                        "global batch's, unmasked, as the reference's")
+                        "a loss_mask for the moe family (or a hybrid's "
+                        "experts) over data replicas: the step weights "
+                        "each replica by its masked tokens, while the "
+                        "experts' balance is the global batch's, "
+                        "unmasked, as the reference's")
                 if summed is not None and "loss_mask" in batch:
                     # the reduce-scatter sums gradients as the backward
                     # makes them: weight the loss before it
@@ -764,8 +767,9 @@ class ExecutionPlan:
             family = self.model.cfg.family if self.model is not None \
                 else "dense"
             what = {"ssm": "SSD heads",
-                    "moe": "heads, whole experts, MLP columns"}.get(
-                        family, "heads, MLP columns")
+                    "moe": "heads, whole experts, MLP columns",
+                    "hybrid": "heads, SSD heads, whole experts, MLP columns"
+                    }.get(family, "heads, MLP columns")
             parts.append(f"split×{st.model_parallel} over model ({what}"
                          f"{', vocab' if st.vocab_split else ''})")
         if st.pp > 1:
@@ -872,7 +876,7 @@ class ExecutionPlan:
         and a layout decode has no split for (``decode_split``)."""
         self._serving_rules()
         self.slot_block(batch)
-        if self.model.cfg.family in ("dense", "moe"):
+        if any(b.mixer == "attn" for b in self.model.stack.pattern):
             with sharding.use_rules(self.rules):
                 decode_split(self.model.cfg.attn_cfg())
 

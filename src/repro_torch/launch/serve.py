@@ -38,6 +38,9 @@ Usage::
 
     python -m repro_torch.launch.serve --arch mamba2-1.3b --cache dense
 
+    python -m repro_torch.launch.serve --arch jamba-v0.1-52b --cache dense \
+        --overrides n_layers=8,param_dtype=bfloat16 --requests 8
+
     python -m repro_torch.launch.serve --arch deepseek-moe-16b \
         --overrides param_dtype=bfloat16 --cache paged --requests 8
 
@@ -45,7 +48,10 @@ Usage::
         --smoke --device cpu --mesh 2x2 --cache paged --requests 8 \
         --batch-slots 4 --gen 8 --max-len 64 --overrides n_kv_heads=2
 
-``--cache paged`` needs an all-attention arch; with mamba2 it raises.
+``--cache paged`` needs an all-attention arch; with mamba2 or jamba (an
+SSD mixer in every period) it raises.  jamba-v0.1-52b's 51.5e9 weights
+take 103 GB in bf16, more than one card holds: serve one period of it
+(``n_layers=8``, 26.5 GB in bf16).
 deepseek-moe-16b at full width wants ``--overrides param_dtype=bfloat16``
 (31.44 GiB of weights; in f32 they take 62.9 GiB, and serving casts a
 second copy).  Over ``--mesh DxM`` its experts stay whole, E/M a rank,

@@ -43,18 +43,24 @@ fit).  A :class:`~repro_torch.runtime.straggler.StragglerMonitor` watches
 every step's time and prints ``[straggler] flagged …`` on a sustained
 outlier.  mamba2 (``--arch mamba2-1.3b``) trains through the
 differentiable chunked SSD scan, as the reference trains it; its tied
-head runs through the fused cross-entropy kernels.  An MoE
-(``--arch deepseek-moe-16b``) prints each step's
-``moe_lb`` and ``moe_z`` (its load-balance and router z-losses, summed
-over the layers) beside the loss.
+head runs through the fused cross-entropy kernels.  A model with experts
+(``--arch deepseek-moe-16b``, and the hybrid ``--arch jamba-v0.1-52b``,
+whose odd blocks carry them) prints each step's ``moe_lb`` and ``moe_z``
+(its load-balance and router z-losses, summed over the layers) beside
+the loss.  jamba's SSD mixers train through the same scan as mamba2's;
+its recipe is the reference's for the ≥ 50B archs, ``--optimizer
+adafactor``.
 
 ``--pp`` lays the ranks out as ``stage × data``, as the reference's
 ``--pp`` does; beside ``--mesh D`` or ``DxM`` it lays them out as ``stage
 × data × model`` (Whale's nested hybrid, which the reference reaches
-through ``--auto`` only), and deepseek-moe-16b's experts then split whole
-over ``model`` inside each stage (``pipeline{split[experts]}``), each
-stage carrying its experts' aux losses to the loss (``moe_lb``, ``moe_z``
-printed as unpipelined).  A pod axis beside ``--pp`` and
+through ``--auto`` only), and the experts of deepseek-moe-16b or
+jamba-v0.1-52b then split whole over ``model`` inside each stage
+(``pipeline{split[experts]}``), each stage carrying its experts' aux
+losses to the loss (``moe_lb``, ``moe_z`` printed as unpipelined).
+mamba2 and jamba pipeline too: a stage holds whole pattern repeats
+(jamba's period of 8 blocks), and mamba2's tied table is summed over the
+first and the last stage.  A pod axis beside ``--pp`` and
 ``--compress-pod`` beside a pipeline are refused (the reference's
 pipelined step has no compressed reduction).  The flags of later slices
 (``--hosts``, ``--calibrate`` and the fault injections of the elastic
@@ -100,6 +106,14 @@ Usage::
         --arch deepseek-moe-16b --smoke --device cpu --pp 2 --mesh 1x2 \
         --schedule 1f1b --micro-batches 2 --batch 4 --seq 32 --steps 3 \
         --ckpt-dir "$TMPDIR/ppmoe"
+
+    python -m repro_torch.launch.train --arch jamba-v0.1-52b \
+        --overrides n_layers=2,attn_period=2,attn_offset=1 --batch 4 \
+        --seq 2048 --steps 3 --optimizer adafactor --ckpt-dir /path
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch mamba2-1.3b --smoke --device cpu --pp 2 --schedule 1f1b \
+        --micro-batches 2 --batch 4 --seq 64 --steps 3 --ckpt-dir "$TMPDIR/m"
 
     python -m repro_torch.launch.train --arch tinyllama-1.1b --batch 4 \
         --seq 2048 --steps 8 --auto --hw h100 --profile --ckpt-dir /path
@@ -346,7 +360,7 @@ def _train(args, device: torch.device) -> dict:
                                  f"ranks; have {n_dev}")
         mp = dims.get("model", 1)
         strat = StrategySpec(dp=dims["data"], tp=mp, pp=args.pp,
-                             ep=mp if cfg.family == "moe" else 1,
+                             ep=mp if cfg.has_experts else 1,
                              micro_batches=args.micro_batches or 1,
                              schedule=args.schedule or "gpipe",
                              zero=args.zero)
@@ -469,7 +483,7 @@ def _train(args, device: torch.device) -> dict:
         f"{args.batch} x {args.seq}, {args.steps} steps")
 
     losses, step_seconds = [], []
-    moe = {"moe_lb": [], "moe_z": []} if cfg.family == "moe" else None
+    moe = {"moe_lb": [], "moe_z": []} if cfg.has_experts else None
     monitor = StragglerMonitor()
     profiler = feats = None
     if args.profile:

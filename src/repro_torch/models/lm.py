@@ -1,8 +1,9 @@
 """The LM: one config dataclass → {init, loss_fn, prefill, serve_step,
 serve_step_paged} for the dense and moe decoder families, and {init,
 loss_fn, prefill, serve_step} for the ssm family (mamba2, its embedding
-tied to its head); and the cost model's view of a config
-(:func:`model_graph`, pure arithmetic).
+tied to its head) and the hybrid family (jamba: a period of SSD blocks
+with one attention block, experts on every other block); and the cost
+model's view of a config (:func:`model_graph`, pure arithmetic).
 
 The port's counterpart of ``repro.models.lm`` for training and serving.
 The loss head is chosen by device, as the reference's ``xent_impl``
@@ -42,7 +43,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 @dataclasses.dataclass(frozen=True)
 class LMCfg:
     name: str
-    family: str                        # dense | moe | ssm (the ported ones)
+    family: str                        # dense | moe | ssm | hybrid (ported)
     n_layers: int
     d_model: int
     vocab: int
@@ -64,11 +65,13 @@ class LMCfg:
     moe_every: int = 1
     moe_offset: int = 0
     capacity_factor: float = 1.25
-    # ssm
+    # ssm / hybrid
     ssd_headdim: int = 64
     ssd_state: int = 128
     d_conv: int = 4
     ssd_chunk: int = 256
+    attn_period: int = 0               # hybrid: one attn layer per period
+    attn_offset: int = 0
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
     remat: str = "full"                # "full" | "dots" | "none"
@@ -84,6 +87,12 @@ class LMCfg:
     @property
     def padded_vocab(self) -> int:
         return layers.pad_vocab(self.vocab, self.vocab_pad_multiple)
+
+    @property
+    def has_experts(self) -> bool:
+        """Whether the model carries experts: the moe family, and the
+        hybrid's odd blocks."""
+        return self.n_experts > 0 and self.family in ("moe", "hybrid")
 
     @property
     def adtype(self) -> torch.dtype:
@@ -112,35 +121,44 @@ class LMCfg:
 
 
 def build_stack_cfg(cfg: LMCfg) -> tfm.StackCfg:
-    """The stack's pattern, the reference's: one block repeated, or for
-    the moe family with ``moe_every`` > 1 a period of blocks whose
-    ``moe_offset``-th carries the experts."""
+    """The stack's pattern, the reference's: one block repeated; for the
+    moe family with ``moe_every`` > 1 a period of blocks whose
+    ``moe_offset``-th carries the experts; for the hybrid family a period
+    of ``attn_period`` blocks, attention at ``attn_offset`` and SSD
+    elsewhere, experts on the odd blocks and a dense MLP on the even."""
     # an unknown norm or activation raises here, before a leaf is drawn
     layers.make_norm(cfg.norm)
     layers.check_act(cfg.act)
 
-    def block(mlp: str) -> tfm.BlockCfg:
-        return tfm.BlockCfg(d_model=cfg.d_model, attn=cfg.attn_cfg(),
-                            mlp=mlp, d_ff=cfg.d_ff,
+    def block(mixer: str, mlp: str) -> tfm.BlockCfg:
+        return tfm.BlockCfg(d_model=cfg.d_model, mixer=mixer, mlp=mlp,
+                            attn=cfg.attn_cfg() if mixer == "attn" else None,
+                            ssd=cfg.ssd_cfg() if mixer == "ssd" else None,
                             moe=cfg.moe_cfg() if mlp == "moe" else None,
-                            norm=cfg.norm, act=cfg.act,
+                            d_ff=cfg.d_ff, norm=cfg.norm, act=cfg.act,
                             gated_mlp=cfg.gated_mlp)
 
     if cfg.family == "dense":
-        pattern, n_rep = (block("dense"),), cfg.n_layers
+        pattern, n_rep = (block("attn", "dense"),), cfg.n_layers
     elif cfg.family == "moe" and cfg.moe_every == 1:
-        pattern, n_rep = (block("moe"),), cfg.n_layers
+        pattern, n_rep = (block("attn", "moe"),), cfg.n_layers
     elif cfg.family == "moe":
-        pattern = tuple(block("moe" if i % cfg.moe_every == cfg.moe_offset
-                              else "dense") for i in range(cfg.moe_every))
+        pattern = tuple(block("attn", "moe" if i % cfg.moe_every
+                              == cfg.moe_offset else "dense")
+                        for i in range(cfg.moe_every))
         n_rep = cfg.n_layers // cfg.moe_every
     elif cfg.family == "ssm":
-        pattern = (tfm.BlockCfg(d_model=cfg.d_model, mixer="ssd", mlp="none",
-                                ssd=cfg.ssd_cfg(), norm=cfg.norm),)
-        n_rep = cfg.n_layers
+        pattern, n_rep = (block("ssd", "none"),), cfg.n_layers
+    elif cfg.family == "hybrid":
+        p = cfg.attn_period
+        pattern = tuple(block("attn" if i % p == cfg.attn_offset else "ssd",
+                              "moe" if i % 2 == 1 else "dense")
+                        for i in range(p))
+        n_rep = cfg.n_layers // p
     else:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, moe, ssm)")
+            f"family {cfg.family!r} is not ported yet (dense, moe, ssm, "
+            f"hybrid)")
     return tfm.StackCfg(pattern=pattern, n_rep=n_rep, remat=cfg.remat,
                         attn_bwd_remat=cfg.attn_bwd_remat)
 
@@ -323,22 +341,22 @@ class Model:
     def loss_fn(self, params: dict, batch: dict):
         """batch {"tokens": (B, S) int, optional "loss_mask": (B, S)} →
         (loss, metrics), as the reference's ``Model.loss_fn`` for the
-        dense, moe and ssm families: next-token nll plus the z-loss, both
+        dense, moe, ssm and hybrid families: next-token nll plus the z-loss, both
         over the masked token count, plus the experts' load-balance and
         router z-losses summed over the layers (``moe_lb``, ``moe_z``;
         zero without experts); the head cast to the activation dtype.  The
         loss head is :func:`fused_xent` on the card and
-        :func:`chunked_xent` on the CPU.  mamba2's SSD mixer trains
-        through the differentiable chunked scan (the reference's default
-        ``ssd_impl``; the SSD kernel is forward only), and its tied head's
-        gradient adds to the embedding table's.
+        :func:`chunked_xent` on the CPU.  An SSD mixer (mamba2's, jamba's)
+        trains through the differentiable chunked scan (the reference's
+        default ``ssd_impl``; the SSD kernel is forward only), and a tied
+        head's gradient adds to the embedding table's.
 
         Under sharding rules ``params`` are this rank's blocks; under
         ZeRO-3 the leaves outside the stack are gathered over the data
         axes here, the stack's repeat by repeat in
         :func:`~repro_torch.models.transformer.apply_stack`."""
         cfg = self.cfg
-        if cfg.family not in ("dense", "moe", "ssm"):
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"training the {cfg.family!r} family is not ported yet")
         specs = sharding.fsdp_specs(self)
@@ -545,7 +563,7 @@ def build(cfg: LMCfg, device=None) -> Model:
 # has.  Matmul-dominant terms only, in the reference's expressions and
 # order, so a graph here equals the reference's bit for bit
 # (tests/test_torch_planning.py).  One "stack" segment: every layer of a
-# dense, moe or ssm config is interchangeable.
+# dense, moe, ssm or hybrid config is interchangeable.
 
 FAMILY_SLICE = ("the {family} family's cost-model graph comes with the "
                 "family itself, a later slice of the port")
@@ -554,15 +572,15 @@ FAMILY_SLICE = ("the {family} family's cost-model graph comes with the "
 def model_graph(cfg: LMCfg, batch: int, seq: int,
                 act_dtype_bytes: int = 2,
                 param_dtype_bytes: int = 4) -> ModelGraph:
-    """Segment-aware workload description for one LMCfg (dense, moe or
-    ssm).
+    """Segment-aware workload description for one LMCfg (dense, moe, ssm
+    or hybrid).
 
-    The other families of the reference (hybrid, vlm, encdec) raise
+    The other families of the reference (vlm, encdec) raise
     ``NotImplementedError``: their graphs come with their models.
     """
-    if cfg.family in ("hybrid", "vlm", "encdec"):
+    if cfg.family in ("vlm", "encdec"):
         raise NotImplementedError(FAMILY_SLICE.format(family=cfg.family))
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise ValueError(f"unknown model family {cfg.family!r}")
     E, V, L = cfg.d_model, cfg.padded_vocab, cfg.n_layers
     T = batch * seq
@@ -639,8 +657,13 @@ def model_graph(cfg: LMCfg, batch: int, seq: int,
         n_moe = L // cfg.moe_every
         segments = (stack_segment("stack", L, 0, n_moe, L - n_moe,
                                   max(L, 1)),)
-    else:                                            # ssm
+    elif cfg.family == "ssm":
         segments = (stack_segment("stack", 0, L, 0, 0, max(L, 1)),)
+    else:                                            # hybrid
+        n_attn = L // cfg.attn_period
+        n_moe = L // 2
+        segments = (stack_segment("stack", n_attn, L - n_attn, n_moe,
+                                  L - n_moe, max(L, 1)),)
 
     head = 2 * T * E * V
     embed = V * E * (1 if cfg.tie_embeddings else 2)

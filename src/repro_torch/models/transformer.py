@@ -7,9 +7,11 @@ The reference's ``lax.scan`` over repeats is a Python loop here, and its
 Each block: a pre-norm mixer (attention | SSD) and, unless ``mlp`` is
 ``"none"``, a pre-norm MLP (gated or plain, through the config's
 activation) or mixture of experts (:mod:`repro_torch.models.moe`), with
-residual connections; the norms are the config's (RMSNorm or LayerNorm).  Ported
-patterns so far: dense (attention + MLP), MoE (attention + experts, with
-dense blocks between where ``moe_every`` > 1) and mamba2 (SSD, no MLP).
+residual connections; the norms are the config's (RMSNorm or LayerNorm).
+Ported patterns: dense (attention + MLP), MoE (attention + experts, with
+dense blocks between where ``moe_every`` > 1), mamba2 (SSD, no MLP) and
+the hybrid (jamba: a period of SSD blocks with one attention block, each
+with experts or a dense MLP).
 The stack sums the experts' aux losses over its layers.  Each mixer runs
 under the plan's rules: attention head-parallel, the SSD mixer split over
 its heads (:mod:`repro_torch.models.mamba2`), in training and decode.

@@ -65,13 +65,22 @@ def _sched(lr) -> Callable:
     return lambda step: float(np.float32(lr))
 
 
+def _sum_sq(g: torch.Tensor, chunk: int = 1 << 26) -> torch.Tensor:
+    """Σ g² of one leaf, the squares in f32 summed in f64, ``chunk``
+    elements at a time: the f64 sum takes an f64 copy of what it sums,
+    twice the f32 leaf (7 GiB for one of jamba's expert leaves) were it
+    taken whole."""
+    return sum((torch.sum(c.float().square(), dtype=torch.float64)
+                for c in g.reshape(-1).split(chunk)),
+               torch.zeros((), dtype=torch.float64, device=g.device))
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt(Σ g²) over every leaf, a 0-d f32 tensor; the squares are summed
     in f64, as :func:`sharded_global_norm` sums them, so a ZeRO run (whose
     leaves may be cut) clips as the same run without ZeRO does."""
     leaves = flatten(tree)[1]
-    return torch.sqrt(sum(torch.sum(g.float().square(), dtype=torch.float64)
-                          for g in leaves)).float()
+    return torch.sqrt(sum(_sum_sq(g) for g in leaves)).float()
 
 
 def sharded_global_norm(grads, specs, rules) -> torch.Tensor:
@@ -86,7 +95,7 @@ def sharded_global_norm(grads, specs, rules) -> torch.Tensor:
     by_axes: dict = {}
     for g, spec in zip(flatten(grads)[1], flatten(specs)[1]):
         axes = tuple(sorted({a for p in spec for a in sharding._axes(p)}))
-        sq = torch.sum(g.float().square(), dtype=torch.float64)
+        sq = _sum_sq(g)
         by_axes[axes] = by_axes[axes] + sq if axes in by_axes else sq
     total = None
     for axes in sorted(by_axes):

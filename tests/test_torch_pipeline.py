@@ -230,10 +230,13 @@ def test_interpreter_audit_and_guards(ref):
     with pytest.raises(ValueError, match="sums to"):
         pipe.schedule_grads(model, params, toks, micro_batches=M,
                             stage_layers=(3, 3))
-    # only the dense family trains; encoder-decoder waits for its module
-    ssm = Model(get_config("mamba2-1.3b", smoke=True), "cpu")
+    # the decoder families pipeline (the ssm and hybrid ones:
+    # tests/test_torch_hybrid_engine.py); encoder-decoder waits for its
+    # module
+    encdec = types.SimpleNamespace(
+        cfg=dataclasses.replace(cfg, family="encdec"))
     with pytest.raises(NotImplementedError, match="queue A item 7"):
-        pipe.schedule_grads(ssm, {}, toks, micro_batches=M, n_stages=2)
+        pipe.schedule_grads(encdec, {}, toks, micro_batches=M, n_stages=2)
     # the audit: a stage that keeps one graph too many is caught
     real = pipe._Stage.backward
 

@@ -8,7 +8,7 @@ is held equal with ``==``, not within a tolerance.  The reference's
 dataclasses (hardware tables, graphs, strategies, cluster specs) are
 carried across as data (``torch_harness.to_port``), so both sides price
 the same inputs, including graphs of the families the port does not have
-yet (MoE, hybrid, multimodal, encoder-decoder).
+yet (multimodal, encoder-decoder).
 """
 import dataclasses
 import inspect
@@ -258,9 +258,10 @@ def test_model_graph_of_the_port_configs_equals_reference(arch, smoke):
 
 def test_model_graph_raises_for_families_the_port_lacks():
     base = get_config("tinyllama-1.1b", smoke=True)
-    # moe left this list with its family (deepseek-moe-16b's graph is in
-    # ARCH_NAMES' parametrisations above)
-    for family in ("hybrid", "vlm", "encdec"):
+    # moe and hybrid left this list with their families (the graphs of
+    # deepseek-moe-16b and jamba-v0.1-52b are in ARCH_NAMES'
+    # parametrisations above)
+    for family in ("vlm", "encdec"):
         with pytest.raises(NotImplementedError, match=f"the {family} "):
             lm.model_graph(dataclasses.replace(base, family=family), 2, 8)
     with pytest.raises(ValueError, match="unknown model family"):

@@ -674,12 +674,3 @@ def test_train_driver_losses_match_reference_loop(tmp_path):
     np.testing.assert_allclose(out["losses"], want, atol=TOLS_F32.grad,
                                rtol=TOLS_F32.grad)
 
-
-def test_pipelining_the_ssm_family_raises():
-    from repro_torch.core.pipeline import schedule_grads
-
-    _, cfg = _train_cfgs("full")
-    with pytest.raises(NotImplementedError,
-                       match="'ssm' family .* queue A item 7"):
-        schedule_grads(Model(cfg, "cpu"), {}, torch.zeros(
-            (2, 8), dtype=torch.long), micro_batches=1, n_stages=2)
