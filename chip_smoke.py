@@ -360,11 +360,13 @@ and the script exits non-zero without printing a result:
     host clock, the peak beside the parameters, gradients and Adafactor's
     state, then one step through ``--auto`` (the planner's pick on one
     card, its step-0 loss that of the run without it); (c) through the
-    kernels against the plain versions on the
-    card: teacher-forced logits at one period in bf16 within TF_PAIR
-    times bf16's own error and at the 2-layer pattern in f32 within 1e-4
-    + 1e-4|x|, step 0's loss, ``moe_lb``, ``moe_z`` and every gradient leaf
-    there in f32 within 2e-4 + 2e-4|x|, and the routing choices that flip;
+    kernels against the plain versions on the card: teacher-forced
+    logits in bf16 at one period and at the 2-layer pattern, printed
+    beside bf16's own error (not held: at random weights twice it allows
+    more than a typical logit), at the 2-layer pattern in f32 within 1e-4
+    + 1e-4|x|, step 0's loss, ``moe_lb``, ``moe_z`` and every gradient
+    leaf there in f32 within 2e-4 + 2e-4|x|, and the routing choices that
+    flip;
 35. the ssm and hybrid families across the engine, two ranks on
     ``cuda:0`` over gloo on a pool of exactly them: (a) mamba2-1.3b
     pipeline×2 at full width and 4 layers, 4 x 2048 in 4 micro-batches,
@@ -372,12 +374,13 @@ and the script exits non-zero without printing a result:
     step of one process (phase 32 (a)'s gates; the tied table's gradient
     summed over both stages); (b) jamba pipeline×2 at 4 layers of the
     2-layer pattern (a period a stage), f32, step 0 in 2 micro-batches of
-    1 x 2048, and (c) jamba split×2 (tp 2 = ep 2: 16 q over 4 kv heads, 64
+    1 x 1024, and (c) jamba split×2 (tp 2 = ep 2: 16 q over 4 kv heads, 64
     SSD heads, 8 experts and 32768 vocab columns a rank) at the 2-layer
     pattern, f32, 2 x 1024, each against one process's step: loss,
     ``moe_lb`` and ``moe_z`` within 1e-4 + 1e-4|x|, each gradient leaf
-    within 2e-4 of its max (the expert leaves on experts 0 and 15),
-    routing flips counted; each rank's peak, step and gloo seconds.
+    within 2e-4 of its max (every expert of an expert leaf on the first
+    1/JB_EXPERT_ROWS of its rows), routing flips counted; each rank's
+    peak, step and gloo seconds.
 
 The meshed phases 20–31 run their ranks in one pool of four processes on
 ``cuda:0`` (:class:`RankPool`), started at phase 20 and stopped before
@@ -2251,16 +2254,18 @@ PP_LR = 3e-4                    # constant: every step moves the weights
 
 
 def pipeline_expected(layers: int, steps: int, vp: int,
-                      head: bool = True, micro: int = PP_MICRO) -> dict:
+                      head: bool = True, micro: int = PP_MICRO,
+                      seq: int = TRAIN_SEQ) -> dict:
     """Launches of ``steps`` pipelined steps over ``layers`` attention
-    layers (remat full, ``micro`` micro-batches of one row): each layer's
+    layers (remat full, ``micro`` micro-batches of one row of ``seq``
+    tokens): each layer's
     forward twice a micro-batch (its slot and the checkpointed recompute),
     its backward once; the loss head once a micro-batch where ``head``
     (the last stage)."""
     from repro_torch.kernels.xent import xent
 
     n = micro * steps
-    T = TRAIN_SEQ - 1
+    T = seq - 1
     return {"flash_fwd": 2 * layers * n, "paged_decode": 0,
             "flash_bwd_dq": layers * n, "flash_bwd_dkv": layers * n,
             "xent_fwd": n if head else 0,
@@ -6503,12 +6508,78 @@ def _moe_steps_log(rec: dict) -> str:
             f"{[round(x, 6) for x in rec['moe_z']]}")
 
 
-def _unpiped(torch, model, steps: int, save_first) -> dict:
+def _leaf_file(d: str, path: str) -> str:
+    return os.path.join(d, path.replace("/", "~") + ".pt")
+
+
+def _save_leaves(torch, d: str, leaves) -> None:
+    """Each ``(path, tensor)`` or ``(path, tensor, max |x|)`` of
+    ``leaves`` to a file of its own in ``d`` (a rank maps only the rows it
+    needs), with every leaf's max |x| (the tensor's where none is given)
+    added to ``d/tops.json``."""
+    os.makedirs(d, exist_ok=True)
+    name = os.path.join(d, "tops.json")
+    tops = {}
+    if os.path.exists(name):
+        with open(name) as f:
+            tops = json.load(f)
+    for path, g, *top in leaves:
+        torch.save(g.detach().cpu(), _leaf_file(d, path))
+        tops[path] = (top[0] if top else float(
+            torch.linalg.vector_norm(g.detach(), float("inf"))))
+    with open(name, "w") as f:
+        json.dump(tops, f)
+
+
+def _leaf_gaps(torch, grads: dict, d: str, cut=None,
+               chunk: int = 1 << 26) -> dict:
+    """Per leaf of this rank's gradient ``grads`` ({path: tensor} on the
+    card): [max |diff| against the reference's leaf in ``d``, cut on the
+    host to this rank's block by ``cut(path, leaf)`` (whole without),
+    max |x| of the whole reference leaf], a leaf at a time and ``chunk``
+    elements at a time on the card (ranks that share it beside their
+    weights and gradients leave no room for a whole expert leaf); a NaN
+    is an infinite gap."""
+    with open(os.path.join(d, "tops.json")) as f:
+        tops = json.load(f)
+    out = {}
+    for path, g in grads.items():
+        w = torch.load(_leaf_file(d, path), mmap=True)
+        if cut is not None:
+            w = cut(path, w)
+        w, gf = w.reshape(-1), g.detach().reshape(-1)
+        if w.numel() != gf.numel():
+            raise AssertionError(f"{path}: {w.numel()} reference elements "
+                                 f"for a block of {gf.numel()}")
+        worst = torch.zeros((), device=g.device)
+        for i in range(0, gf.numel(), chunk):
+            part = w[i:i + chunk].to(g.device).float()
+            part.sub_(gf[i:i + chunk].float())
+            worst = torch.maximum(worst, torch.linalg.vector_norm(
+                part, float("inf")).nan_to_num(nan=math.inf))
+            del part
+        out[path] = [float(worst), tops[path]]
+    return out
+
+
+def _record_opt(torch, apply):
+    """An optimizer with no state that calls ``apply(grads)`` and leaves
+    the parameters as they are: a step's gradient, read and let go."""
+    from repro_torch.optim.optimizer import Optimizer
+
+    def step(grads, state, params, i, **kw):
+        apply(grads)
+        return params, state
+
+    return Optimizer(init=lambda params: {}, apply=step, name="record")
+
+
+def _unpiped(torch, model, steps: int, d: str) -> dict:
     """The unpipelined, unsharded step of ``model`` from seed 0: ``steps``
     AdamW steps (at PP_LR) of ``train_step_fn(micro_batches=PP_MICRO)``
     on launch.train's stream of TRAIN_BATCH x TRAIN_SEQ; losses,
     ``moe_lb``, ``moe_z``, step seconds and the peak; the step-0 gradient
-    handed to ``save_first`` (phases 32 and 35)."""
+    to ``d``, a file a leaf (:func:`_save_leaves`)."""
     import dataclasses
 
     import numpy as np
@@ -6516,6 +6587,7 @@ def _unpiped(torch, model, steps: int, save_first) -> dict:
     from repro_torch.core.planner import compile_plan
     from repro_torch.data.pipeline import DataCfg, TokenPipeline
     from repro_torch.optim.optimizer import adamw
+    from repro_torch.tree import flatten
 
     params = model.init(0)
     opt = adamw(lr=PP_LR)
@@ -6525,7 +6597,7 @@ def _unpiped(torch, model, steps: int, save_first) -> dict:
 
     def apply(grads, *args, **kw):
         if not saved:
-            save_first(grads)
+            _save_leaves(torch, d, zip(*flatten(grads)))
             saved.append(True)
         return real_apply(grads, *args, **kw)
 
@@ -6551,94 +6623,85 @@ def _unpiped(torch, model, steps: int, save_first) -> dict:
     return rec
 
 
-def _moe_unpiped(torch, dtype: str, path: str) -> dict:
-    """The unpipelined, unsharded step of phase 32 (a, b)
-    (:func:`_unpiped`, MOE_PP_STEPS steps); its step-0 gradient saved to
-    ``path`` on the host."""
-    from repro_torch.models.lm import Model
-    from repro_torch.tree import flatten
-
-    return _unpiped(
-        torch, Model(_moe_cfg(n_layers=MOE_PP_LAYERS, dtype=dtype)),
-        MOE_PP_STEPS, lambda g: torch.save(
-            {k: v.cpu() for k, v in zip(*flatten(g))}, path))
-
-
-def _block_gaps(grads: dict, ref: dict, specs: dict | None = None,
-                rules=None, stage: int | None = None, sl=None) -> dict:
-    """Per leaf of this rank's gradient ``grads`` ({path: tensor} on the
-    card): [max |diff| against its block of the whole-model gradient
-    ``ref`` (host), max |ref| over the whole leaf], a leaf at a time on
-    the card."""
-    from repro_torch.core import sharding
-    from repro_torch.core.pipeline import _rows as stage_rows
-
-    out = {}
-    for path, g in grads.items():
-        w = ref[path].to(g.device)
-        top = float(w.abs().max())
-        if stage is not None and path.startswith("blocks/"):
-            w = stage_rows(w, stage, sl)
-        if specs is not None:
-            w = sharding.shard_leaf(w, specs[path], rules)
-        out[path] = [max_err(g, w), top]
-        del w
-    return out
+def _pp_references(torch, model_of, runs: dict, d: str,
+                   steps: int | None = None) -> dict:
+    """The unpipelined, unsharded steps of a pipelined part (phase 32 (a,
+    b), phase 35 (a)): for each of ``runs`` (name -> (activation dtype,
+    steps)) :func:`_unpiped` of ``model_of(dtype)`` (``steps`` steps
+    each, or the run's own), its step-0 gradient to ``d/<name>``; and
+    bf16's own error, the gap between the bf16 and f32 runs: the largest
+    over the steps of the loss's and the aux's (``own_loss``), and each
+    step-0 gradient leaf's max |diff| relative to the f32 leaf's max
+    (``own``)."""
+    refs = {"pp": {n: _unpiped(torch, model_of(dt), steps or k,
+                               os.path.join(d, n))
+                   for n, (dt, k) in runs.items()}}
+    torch.cuda.empty_cache()
+    with open(os.path.join(d, "f32", "tops.json")) as f:
+        tops = json.load(f)
+    refs["own"] = {p: max_err(*(
+        torch.load(_leaf_file(os.path.join(d, n), p), mmap=True).cuda()
+        for n in ("bf16", "f32"))) / max(top, 1e-30)
+        for p, top in tops.items()}
+    refs["own_loss"] = {k: max(abs(a - b) for a, b in zip(
+        refs["pp"]["bf16"][k], refs["pp"]["f32"][k]))
+        for k in ("losses", "moe_lb", "moe_z")}
+    torch.cuda.empty_cache()
+    return refs
 
 
-def _moe_pp_part(torch, world: int, ref_dir: str, kernels, stats: dict,
-                 whole: dict | None = None) -> dict:
-    """Phase 32 (a) (``world`` 2: pipeline×2) or (b) (4: pipeline×2 over
-    model 2, 32 experts a rank) in a rank: this stage's rows of the whole
-    model (``whole``, or a draw of it here), cut as
-    ``init_pipeline_params`` cuts them, then for each of MOE_PP_RUNS from
-    it its steps of 1f1b through ``pipeline_train_step_fn``; losses,
-    ``moe_lb``, ``moe_z``, step and gloo seconds, peaks beside the state
-    held, launches, and the step-0 gradient blocks against the
-    unpipelined one in ``ref_dir/<run>.pt``."""
+def _pp_part(torch, model_of, strat, runs: dict, ref_dir: str, kernels,
+             stats: dict, whole: dict | None = None) -> dict:
+    """A rank of a pipelined part (phase 32 (a, b), phase 35 (a)): this
+    stage's rows of the whole model (``whole``, or a draw of it here), cut
+    within the stage as ``init_pipeline_params`` cuts them, then for each
+    of ``runs`` (name -> (activation dtype, steps)) ``model_of(dtype)``'s
+    steps under ``strat`` (1f1b) through ``pipeline_train_step_fn``,
+    AdamW at PP_LR on launch.train's stream of TRAIN_BATCH x TRAIN_SEQ:
+    losses, ``moe_lb``, ``moe_z``, step and gloo seconds, peaks beside the
+    state held, launches, and the step-0 gradient blocks against the
+    unpipelined ones in ``ref_dir/<name>`` (:func:`_pp_references`)."""
     import dataclasses
 
     import numpy as np
 
     from repro_torch.core import sharding
-    from repro_torch.core.cost_model import StrategySpec
-    from repro_torch.core.pipeline import stage_state
+    from repro_torch.core.pipeline import _rows, stage_state
     from repro_torch.core.planner import compile_plan, mesh_for_strategy
     from repro_torch.data.pipeline import DataCfg, TokenPipeline
-    from repro_torch.models.lm import Model
     from repro_torch.optim.optimizer import adamw
     from repro_torch.tree import flatten, tree_map
 
-    mp = MOE_PP_MODEL[world]
-    strat = StrategySpec(pp=2, tp=mp, ep=mp, micro_batches=PP_MICRO,
-                         schedule="1f1b")
     mesh = mesh_for_strategy(strat)
     stage = mesh.get_local_rank("stage")
     out = {"stage": stage, "model": mesh.get_local_rank("model")}
     init = None
-    for name, (dtype, steps) in MOE_PP_RUNS.items():
-        plan = compile_plan(Model(_moe_cfg(n_layers=MOE_PP_LAYERS,
-                                           dtype=dtype)), mesh, strat)
+    for name, (dtype, steps) in runs.items():
+        plan = compile_plan(model_of(dtype), mesh, strat)
         sl = plan.stage_layers()
-        if init is None:            # f32 masters: one draw serves both runs
+        specs = sharding.within_stage(plan.param_specs)
+        if init is None:            # f32 masters: one draw serves every run
             init = plan.shard(stage_state(
-                whole if whole is not None else _moe_draw(plan.model),
-                stage, sl), sharding.within_stage(plan.param_specs))
+                whole if whole is not None else plan.model.init(0), stage,
+                sl), specs)
         params = tree_map(torch.clone, init)
         opt = adamw(lr=PP_LR)
         state = opt.init(params)
         held = 4 * (2 * sum(p.numel() for p in flatten(params)[1])
                     + sum(p.numel() for p in flatten(state)[1]))
-        ref = torch.load(os.path.join(ref_dir, f"{name}.pt"), mmap=True)
-        specs = dict(zip(*flatten(sharding.within_stage(plan.param_specs))))
+        flat = dict(zip(*flatten(specs)))
         gaps = {}
-        real_apply = opt.apply
 
-        def apply(grads, *args, real_apply=real_apply, gaps=gaps, ref=ref,
-                  specs=specs, plan=plan, sl=sl, **kw):
+        def cut(path, w, sl=sl, flat=flat, rules=plan.rules):
+            if path.startswith("blocks/"):
+                w = _rows(w, stage, sl)
+            return sharding.shard_leaf(w, flat[path], rules)
+
+        def apply(grads, *args, real_apply=opt.apply, gaps=gaps, cut=cut,
+                  ref=os.path.join(ref_dir, name), **kw):
             if not gaps:
-                gaps.update(_block_gaps(dict(zip(*flatten(grads))), ref,
-                                        specs, plan.rules, stage, sl))
+                gaps.update(_leaf_gaps(torch, dict(zip(*flatten(grads))),
+                                       ref, cut))
             return real_apply(grads, *args, **kw)
 
         step_fn = plan.pipeline_train_step_fn(
@@ -6663,16 +6726,104 @@ def _moe_pp_part(torch, world: int, ref_dir: str, kernels, stats: dict,
             rec["peaks"].append(torch.cuda.max_memory_allocated())
             for k in ("loss", "moe_lb", "moe_z"):
                 rec["losses" if k == "loss" else k].append(float(m[k]))
+        moe = [b["moe"] for b in params["blocks"].values() if "moe" in b]
         rec.update(counts=read_counts(kernels), held=held, grads=gaps,
-                   experts=int(params["blocks"]["p0"]["moe"]["w_in"]
-                               .shape[1]), stage_layers=list(sl),
-                   vp=int(params["head"]["w"].shape[1]))
+                   stage_layers=list(sl),
+                   experts=int(moe[0]["w_in"].shape[1]) if moe else 0,
+                   vp=int(params["head"]["w"].shape[1] if "head" in params
+                          else params["embed"]["table"].shape[0]))
         out[name] = rec
-        del ref, params, state, step_fn, plan
+        del params, state, step_fn, plan
         torch.cuda.empty_cache()
     del init
     torch.cuda.empty_cache()
     return out
+
+
+def _pp_report(torch, prefix: str, what: str, outs: list, refs: dict,
+               runs: dict, attn: int, fails: list) -> dict:
+    """Print a pipelined part's ranks (``outs``, :func:`_pp_part`'s
+    records) beside the unpipelined steps (``refs``,
+    :func:`_pp_references`) and hold them: bf16's losses, ``moe_lb`` and
+    ``moe_z`` (every step) and each step-0 gradient leaf within TF_PAIR
+    times bf16's own error; f32 within 1e-4 + 1e-4|x| (values) and 2e-4
+    of each leaf's max (gradients); the ranks' losses equal; each rank's
+    launches those of its stage (``attn`` attention layers a stage, the
+    loss head on the last).  Returns the bf16 run's launches summed over
+    the ranks."""
+    own, own_loss = refs["own"], refs["own_loss"]
+    for name, (_, steps) in runs.items():
+        want = refs["pp"][name]
+        for o in outs:
+            r = o[name]
+            print(f"{prefix} {what} {name}, stage {o['stage']} model "
+                  f"{o['model']} (layers {r['stage_layers']}, "
+                  f"{r['experts']} experts a layer, {r['vp']} vocab "
+                  f"columns): {_moe_steps_log(r)}; step seconds "
+                  f"{[round(x, 3) for x in r['seconds']]}, gloo "
+                  f"{[round(x, 3) for x in r['gloo_s']]} (ranks time-slice "
+                  f"one card); peak {max(r['peaks']) / 2**30:.2f} GiB "
+                  f"beside {r['held'] / 2**30:.2f} GiB of parameters, "
+                  f"gradients and moments held; launches {r['counts']}",
+                  flush=True)
+            if r["losses"] != outs[0][name]["losses"]:
+                fails.append(f"{what} {name}: the ranks report different "
+                             f"losses")
+            exp = pipeline_expected(attn, steps, r["vp"],
+                                    head=o["stage"] == 1)
+            if r["counts"] != exp:
+                fails.append(f"{what} {name} stage {o['stage']}: launches "
+                             f"{r['counts']}, want {exp}")
+        got = outs[0][name]
+        diffs = {k: [abs(a - b) for a, b in zip(got[k], want[k])]
+                 for k in ("losses", "moe_lb", "moe_z")}
+        print(f"{prefix} {what} {name} against the unpipelined step: "
+              f"|diff| losses {diffs['losses']}, moe_lb {diffs['moe_lb']}, "
+              f"moe_z {diffs['moe_z']}", flush=True)
+        rs = [o[name] for o in outs]
+        if name == "bf16":
+            for k, ds in diffs.items():
+                gate = TF_PAIR * own_loss[k]
+                fails += [f"{what} bf16 step-{i} {k} |diff| {d:.3e} beyond "
+                          f"{gate:.3e}" for i, d in enumerate(ds)
+                          if d > gate]
+            fails += _moe_grad_lines(f"{what} bf16", rs,
+                                     lambda p: TF_PAIR * own[p], prefix)
+        else:
+            for k, ds in diffs.items():
+                fails += [f"{what} f32 step-{i} {k} |diff| {d:.3e}"
+                          for i, (d, x) in enumerate(zip(ds, want[k]))
+                          if d > TP_F32_LIMIT + TP_F32_LIMIT * abs(x)]
+            fails += _moe_grad_lines(f"{what} f32", rs,
+                                     lambda p: GRAD_TOL[str(torch.float32)],
+                                     prefix)
+    return {k: sum(o["bf16"]["counts"][k] for o in outs)
+            for k in outs[0]["bf16"]["counts"]}
+
+
+def _pp_refs_lines(prefix: str, layers: int, refs: dict) -> None:
+    """Print the unpipelined steps of :func:`_pp_references` at ``layers``
+    layers and bf16's own error."""
+    for n, r in refs["pp"].items():
+        print(f"{prefix} unpipelined {n}, {layers} layers, {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ} in {PP_MICRO} micro-batches: "
+              f"{_moe_steps_log(r)}; step seconds "
+              f"{[round(x, 3) for x in r['seconds']]}; peak "
+              f"{r['peak'] / 2**30:.2f} GiB", flush=True)
+    own, own_loss = refs["own"], refs["own_loss"]
+    ow = max(own, key=own.get)
+    print(f"{prefix} bf16's own error (unpipelined bf16 against f32, same "
+          f"weights and batches): loss {own_loss['losses']:.3e}, moe_lb "
+          f"{own_loss['moe_lb']:.3e}, moe_z {own_loss['moe_z']:.3e} "
+          f"(largest over the steps); step-0 gradients relative to the "
+          f"leaf's max: median {statistics.median(own.values()):.3e}, "
+          f"largest {own[ow]:.3e} ({ow})", flush=True)
+
+
+def _moe_pp_model(dtype: str):
+    """Phase 32 (a, b)'s model: deepseek at MOE_PP_LAYERS layers."""
+    from repro_torch.models.lm import Model
+    return Model(_moe_cfg(n_layers=MOE_PP_LAYERS, dtype=dtype))
 
 
 def _moe_draw(model) -> dict:
@@ -6704,20 +6855,14 @@ def _moe_dp_part(torch, ref_dir: str, kernels, stats: dict, plan,
     balance over the global batch and then with the old per-replica
     balance planted (no mean over data); each step's loss, ``moe_lb``,
     ``moe_z``, launches, seconds, and its gradient against one process's
-    on both rows in ``ref_dir/dp.pt``."""
+    on both rows in ``ref_dir/dp``."""
     from repro_torch.core import sharding
-    from repro_torch.optim.optimizer import Optimizer
     from repro_torch.tree import flatten
 
-    ref_loss, ref = torch.load(os.path.join(ref_dir, "dp.pt"), mmap=True)
     seen = {}
-
-    def record(grads, state, p, step, **kw):
-        seen.update(_block_gaps(dict(zip(*flatten(grads))), ref))
-        return p, state
-
-    step_fn = plan.train_step_fn(Optimizer(init=lambda p: {}, apply=record,
-                                           name="record"))
+    step_fn = plan.train_step_fn(_record_opt(torch, lambda g: seen.update(
+        _leaf_gaps(torch, dict(zip(*flatten(g))),
+                   os.path.join(ref_dir, "dp")))))
     batch = plan.batch_slice(_first_batch(torch, plan.model.cfg.vocab,
                                           MOE_DP_BATCH))
     out = {}
@@ -6735,12 +6880,11 @@ def _moe_dp_part(torch, ref_dir: str, kernels, stats: dict, plan,
         finally:
             sharding.batch_splits = real
         out[tag] = {"loss": float(m["loss"]), "moe_lb": float(m["moe_lb"]),
-                    "moe_z": float(m["moe_z"]), "want_loss": ref_loss,
+                    "moe_z": float(m["moe_z"]),
                     "seconds": time.perf_counter() - t0,
                     "gloo_s": stats["s"] - s0,
                     "counts": read_counts(kernels), "grads": dict(seen)}
         seen.clear()
-    del ref
     torch.cuda.empty_cache()
     return out
 
@@ -6834,6 +6978,8 @@ def _moe_engine_rank(rank: int, store: str, out_dir: str, ref_dir: str,
     import torch
     import torch.distributed as dist
 
+    from repro_torch.core.cost_model import StrategySpec
+
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
@@ -6851,8 +6997,12 @@ def _moe_engine_rank(rank: int, store: str, out_dir: str, ref_dir: str,
             dp = _moe_dp_plan(torch)
             whole = _moe_draw(dp.model)
         out["seconds"]["draw"] = time.perf_counter() - t0
-        parts = [("pp", lambda: _moe_pp_part(torch, world, ref_dir,
-                                             kernels, stats, whole))]
+        mp = MOE_PP_MODEL[world]
+        parts = [("pp", lambda: _pp_part(
+            torch, _moe_pp_model, StrategySpec(
+                pp=2, tp=mp, ep=mp, micro_batches=PP_MICRO,
+                schedule="1f1b"), MOE_PP_RUNS, os.path.join(ref_dir, "pp"),
+            kernels, stats, whole))]
         if world == 2:
             parts.append(("dp", lambda: _moe_dp_part(torch, ref_dir,
                                                      kernels, stats, dp,
@@ -6865,6 +7015,9 @@ def _moe_engine_rank(rank: int, store: str, out_dir: str, ref_dir: str,
             if name == "dp":
                 dp = whole = None
             torch.cuda.empty_cache()
+            # the ranks share the card: none starts a part while another
+            # still holds the last one's memory
+            dist.barrier()
             out["seconds"][name] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
@@ -6897,11 +7050,10 @@ def _moe_grad_lines(tag: str, outs: list, gate_of,
 
 def _moe_references(torch, ref_dir: str) -> dict:
     """Phase 32's unsharded references, here before the ranks: (a, b) the
-    unpipelined steps in bf16 and f32 (:func:`_moe_unpiped`) and bf16's
-    own error (the gap between them: the largest over the steps of the
-    loss's and the aux's, each step-0 gradient leaf's max |diff| relative
-    to its max); (c) one process's step on both rows of the global batch
-    (f32, its loss and gradient saved); (d) the teacher-forced logits of
+    unpipelined steps in bf16 and f32 and bf16's own error
+    (:func:`_pp_references`); (c) one process's step on both rows of the
+    global batch (f32, its loss and aux, its gradient to ``ref_dir/dp``);
+    (d) the teacher-forced logits of
     MOE_TF, bf16's own error at MOE_TP_LAYERS, and ``serve.main``'s tokens of
     the ranks' f32 workload."""
     from repro_torch.core.planner import loss_and_grads
@@ -6909,25 +7061,14 @@ def _moe_references(torch, ref_dir: str) -> dict:
     from repro_torch.models.lm import Model
     from repro_torch.tree import flatten
 
-    refs = {"pp": {n: _moe_unpiped(torch, d, os.path.join(ref_dir,
-                                                          f"{n}.pt"))
-                   for n, (d, _) in MOE_PP_RUNS.items()}}
-    torch.cuda.empty_cache()
-    g16, g32 = (torch.load(os.path.join(ref_dir, f"{n}.pt"), mmap=True)
-                for n in ("bf16", "f32"))
-    refs["own"] = {p: d / max(top, 1e-30) for p, (d, top) in _block_gaps(
-        {p: v.cuda() for p, v in g16.items()}, g32).items()}
-    del g16, g32
-    refs["own_loss"] = {k: max(abs(a - b) for a, b in zip(
-        refs["pp"]["bf16"][k], refs["pp"]["f32"][k]))
-        for k in ("losses", "moe_lb", "moe_z")}
-    torch.cuda.empty_cache()
-    model = Model(_moe_cfg(n_layers=MOE_PP_LAYERS, dtype="float32"))
+    refs = _pp_references(torch, _moe_pp_model, MOE_PP_RUNS,
+                          os.path.join(ref_dir, "pp"), MOE_PP_STEPS)
+    model = _moe_pp_model("float32")
     loss, m, g = loss_and_grads(model, model.init(0), _first_batch(
         torch, model.cfg.vocab, MOE_DP_BATCH))
-    refs["dp"] = {k: float(m[k]) for k in ("moe_lb", "moe_z")}
-    torch.save((float(loss), {k: v.cpu() for k, v in zip(*flatten(g))}),
-               os.path.join(ref_dir, "dp.pt"))
+    refs["dp"] = {"loss": float(loss), "moe_lb": float(m["moe_lb"]),
+                  "moe_z": float(m["moe_z"])}
+    _save_leaves(torch, os.path.join(ref_dir, "dp"), zip(*flatten(g)))
     del g, model
     torch.cuda.empty_cache()
     for layers in (MOE_TP_LAYERS, MOE_DPTP_LAYERS):
@@ -6947,77 +7088,14 @@ def _moe_references(torch, ref_dir: str) -> dict:
 
 def _moe_report_pp(torch, ranks: dict, refs: dict, fails: list) -> dict:
     """Phase 32 (a, b): print each rank's runs beside the unpipelined
-    step's and hold them (:func:`moe_engine`); the bf16 runs' launches
+    step's and hold them (:func:`_pp_report`); the bf16 runs' launches
     summed over the ranks, by path."""
-    own, own_loss = refs["own"], refs["own_loss"]
-    for n, r in refs["pp"].items():
-        print(f"[moe-engine] unpipelined {n}, {MOE_PP_LAYERS} layers, "
-              f"{TRAIN_BATCH} x {TRAIN_SEQ} in {PP_MICRO} micro-batches: "
-              f"{_moe_steps_log(r)}; step seconds "
-              f"{[round(x, 3) for x in r['seconds']]}; peak "
-              f"{r['peak'] / 2**30:.2f} GiB", flush=True)
-    ow = max(own, key=own.get)
-    print(f"[moe-engine] bf16's own error (unpipelined bf16 against f32, same "
-          f"weights and batches): loss {own_loss['losses']:.3e}, moe_lb "
-          f"{own_loss['moe_lb']:.3e}, moe_z {own_loss['moe_z']:.3e} "
-          f"(largest over the steps); step-0 gradients relative to the "
-          f"leaf's max: median {statistics.median(own.values()):.3e}, "
-          f"largest {own[ow]:.3e} ({ow})", flush=True)
-    counts = {}
-    for world, rs in ranks.items():
-        what = ("(a) pipeline×2" if world == 2
-                else "(b) pipeline×2 over model 2")
-        outs = [o["pp"] for o in rs]
-        for name in MOE_PP_RUNS:
-            want = refs["pp"][name]
-            for o in outs:
-                r = o[name]
-                print(f"[moe-engine] {what} {name}, stage {o['stage']} model "
-                      f"{o['model']} ({r['experts']} experts a layer, "
-                      f"{r['vp']} vocab columns): {_moe_steps_log(r)}; step "
-                      f"seconds {[round(x, 3) for x in r['seconds']]}, gloo "
-                      f"{[round(x, 3) for x in r['gloo_s']]} (ranks "
-                      f"time-slice one card); peak "
-                      f"{max(r['peaks']) / 2**30:.2f} GiB beside "
-                      f"{r['held'] / 2**30:.2f} GiB of parameters, gradients "
-                      f"and moments held; launches {r['counts']}",
-                      flush=True)
-                if r["losses"] != outs[0][name]["losses"]:
-                    fails.append(f"{what} {name}: the ranks report "
-                                 f"different losses")
-                exp = pipeline_expected(1, MOE_PP_RUNS[name][1], r["vp"],
-                                        head=o["stage"] == 1)
-                if r["counts"] != exp:
-                    fails.append(f"{what} {name} stage {o['stage']}: "
-                                 f"launches {r['counts']}, want {exp}")
-            got = outs[0][name]
-            diffs = {k: [abs(a - b) for a, b in zip(got[k], want[k])]
-                     for k in ("losses", "moe_lb", "moe_z")}
-            print(f"[moe-engine] {what} {name} against the unpipelined step: "
-                  f"|diff| losses {diffs['losses']}, moe_lb "
-                  f"{diffs['moe_lb']}, moe_z {diffs['moe_z']}", flush=True)
-            runs = [o[name] for o in outs]
-            if name == "bf16":
-                for k, ds in diffs.items():
-                    gate = TF_PAIR * own_loss[k]
-                    fails += [f"{what} bf16 step-{i} {k} |diff| {d:.3e} "
-                              f"beyond {gate:.3e}" for i, d in enumerate(ds)
-                              if d > gate]
-                fails += _moe_grad_lines(f"{what} bf16", runs,
-                                         lambda p: TF_PAIR * own[p])
-            else:
-                for k, ds in diffs.items():
-                    fails += [f"{what} f32 step-{i} {k} |diff| {d:.3e}"
-                              for i, (d, x) in enumerate(zip(ds, want[k]))
-                              if d > TP_F32_LIMIT + TP_F32_LIMIT * abs(x)]
-                fails += _moe_grad_lines(
-                    f"{what} f32", runs,
-                    lambda p: GRAD_TOL[str(torch.float32)])
-        path = "train_moe_pipeline" if world == 2 \
-            else "train_moe_pipeline_tp"
-        counts[path] = {k: sum(o["bf16"]["counts"][k] for o in outs)
-                        for k in outs[0]["bf16"]["counts"]}
-    return counts
+    _pp_refs_lines("[moe-engine]", MOE_PP_LAYERS, refs)
+    return {"train_moe_pipeline" if world == 2 else "train_moe_pipeline_tp":
+            _pp_report(torch, "[moe-engine]", "(a) pipeline×2" if world == 2
+                       else "(b) pipeline×2 over model 2",
+                       [o["pp"] for o in rs], refs, MOE_PP_RUNS, 1, fails)
+            for world, rs in ranks.items()}
 
 
 def _moe_report_dp(torch, ranks: list, refs: dict, fails: list) -> dict:
@@ -7033,13 +7111,13 @@ def _moe_report_dp(torch, ranks: list, refs: dict, fails: list) -> dict:
             s = o[tag]
             print(f"[moe-engine] (c) data 2, {tag} balance, rank {r}: loss "
                   f"{s['loss']:.7f} vs one process on both rows "
-                  f"{s['want_loss']:.7f} (|diff| "
-                  f"{abs(s['loss'] - s['want_loss']):.3e}); moe_lb "
+                  f"{want['loss']:.7f} (|diff| "
+                  f"{abs(s['loss'] - want['loss']):.3e}); moe_lb "
                   f"{s['moe_lb']:.7f} vs {want['moe_lb']:.7f}, moe_z "
                   f"{s['moe_z']:.7f} vs {want['moe_z']:.7f}; step "
                   f"{s['seconds']:.3f} s, gloo {s['gloo_s']:.3f}; launches "
                   f"{s['counts']}", flush=True)
-            for k, x, w in (("loss", s["loss"], s["want_loss"]),
+            for k, x, w in (("loss", s["loss"], want["loss"]),
                             ("moe_lb", s["moe_lb"], want["moe_lb"]),
                             ("moe_z", s["moe_z"], want["moe_z"])):
                 if abs(x - w) > TP_F32_LIMIT + TP_F32_LIMIT * abs(w):
@@ -7674,31 +7752,20 @@ def jamba_train(torch, kernels) -> dict:
     return counts
 
 
-def jamba_agreement(torch) -> None:
-    """Phase 34 (c): the kernels against their plain versions on the card
-    (:func:`plain_on_card`: flash, xent and the SSD scan).  Teacher-forced
-    logits (phase 26's: 2 prompts of 500, 16 forced steps, dense) at one
-    period in bf16: the plain run within TF_PAIR times the larger of the
-    two runs' own error (each against the same weights in f32 through the
-    f32 kernels); at the 2-layer pattern in f32 within 1e-4 + 1e-4|x|.
-    Step 0's loss and every gradient leaf at the 2-layer pattern in f32
-    (JB_GRAD_ROWS x 2048) within 2e-4 + 2e-4|x|.  Each pair's routing
-    choices that flip are counted and printed."""
+def _jamba_bf16_pair(torch, cfg, routed) -> dict:
+    """Teacher-forced logits (phase 26's: 2 prompts of 500, 16 forced
+    steps, dense) of ``cfg`` in bf16 from one bf16 draw, through the
+    kernels and through the plain versions (:func:`plain_on_card`), and
+    bf16's own error: each run against the same weights in f32 through
+    the f32 kernels (shares of 0.02 + 0.02|x|).  Returns the two runs'
+    gap, their own errors, the median |logit|, what twice the larger own
+    error would allow at it, and the routing choices that flip between
+    the runs."""
     import dataclasses
 
-    from repro_torch.core.planner import compile_plan, loss_and_grads
-    from repro_torch.models import moe
+    from repro_torch.core.planner import compile_plan
     from repro_torch.models.lm import Model
-    from repro_torch.tree import flatten
 
-    def routed(fn, record):
-        real = _route_by_micro(torch, record, {"mb": 0})
-        try:
-            return fn()
-        finally:
-            moe._route = real
-
-    cfg = _jamba_cfg(n_layers=JB_SERVE_LAYERS, param_dtype="bfloat16")
     model = Model(cfg)
     plan = compile_plan(model, None)
     params = model.serving_params(plan.init_params(0))
@@ -7720,24 +7787,60 @@ def jamba_agreement(torch) -> None:
     del params
     torch.cuda.empty_cache()
     tol = TF_TOL["bfloat16"]
-    own = {k: tf_gap(tf[k], tf["f32"], tol) for k in ("kernels", "plain")}
-    gate = TF_PAIR * max(own["kernels"]["worst"], own["plain"]["worst"])
-    g = tf_gap(tf["plain"], tf["kernels"], tol)
-    print(f"[jamba] teacher-forced bf16, {JB_SERVE_LAYERS} layers: bf16's "
-          f"own error (against the same weights in f32) worst share of "
-          f"0.02 + 0.02|x| {own['kernels']['worst']:.3f} through the "
-          f"kernels, {own['plain']['worst']:.3f} through the plain "
-          f"versions; kernels against plain max |diff| {g['max_abs']:.3e}, "
-          f"worst share {g['worst']:.3f} against the gate {gate:.3f}; "
-          f"routing: {flips[0]} of {flips[1]} tokens' expert sets differ "
-          f"({flips[0] / flips[1]:.4f})", flush=True)
+    own = {k: tf_gap(tf[k], tf["f32"], tol)["worst"]
+           for k in ("kernels", "plain")}
+    out = {"gap": tf_gap(tf["plain"], tf["kernels"], tol), "own": own,
+           "flips": flips, "median": float(tf["f32"].float().abs().median()),
+           "finite": all(bool(torch.isfinite(t).all()) for t in tf.values())}
+    out["allows"] = TF_PAIR * max(own.values()) * (tol + tol * out["median"])
+    return out
+
+
+def jamba_agreement(torch) -> None:
+    """Phase 34 (c): the kernels against their plain versions on the card
+    (:func:`plain_on_card`: flash, xent and the SSD scan).  Teacher-forced
+    logits in bf16 (:func:`_jamba_bf16_pair`) at one period and at the
+    2-layer pattern are printed, not held: at random weights bf16's own
+    error there lets twice it (phases 26 and 33's gate) allow more than
+    a typical logit, so such a gate would hold nothing; phase 3 holds the
+    bf16 builds at jamba's shapes.  At the 2-layer pattern in f32,
+    teacher-forced logits within 1e-4 + 1e-4|x|, and step 0's loss and
+    every gradient leaf (JB_GRAD_ROWS x 2048) within 2e-4 + 2e-4|x|.
+    Each pair's routing choices that flip are counted and printed."""
+    from repro_torch.core.planner import compile_plan, loss_and_grads
+    from repro_torch.models import moe
+    from repro_torch.models.lm import Model
+    from repro_torch.tree import flatten
+
+    def routed(fn, record):
+        real = _route_by_micro(torch, record, {"mb": 0})
+        try:
+            return fn()
+        finally:
+            moe._route = real
+
     fails = []
-    if not g["worst"] <= gate:
-        fails.append(f"teacher-forced bf16: {g['worst']:.3f} beyond "
-                     f"{gate:.3f}")
-    if not all(torch.isfinite(t).all() for t in tf.values()):
-        fails.append("non-finite teacher-forced logits")
-    del tf
+    for layers, cfg in (
+            (JB_SERVE_LAYERS, _jamba_cfg(n_layers=JB_SERVE_LAYERS,
+                                         param_dtype="bfloat16")),
+            (2, _jamba_pattern(2, param_dtype="bfloat16"))):
+        r = _jamba_bf16_pair(torch, cfg, routed)
+        g, flips = r["gap"], r["flips"]
+        print(f"[jamba] teacher-forced bf16, {layers} layers"
+              f"{'' if layers == JB_SERVE_LAYERS else f' ({JB_PATTERN})'}: "
+              f"bf16's own error (against the same weights in f32) worst "
+              f"share of 0.02 + 0.02|x| {r['own']['kernels']:.3f} through "
+              f"the kernels, {r['own']['plain']:.3f} through the plain "
+              f"versions; kernels against plain max |diff| "
+              f"{g['max_abs']:.3e}, worst share {g['worst']:.3f}; twice "
+              f"the own error would allow {r['allows']:.3e} at the median "
+              f"|logit| {r['median']:.3e} (printed, not held); routing: "
+              f"{flips[0]} of "
+              f"{flips[1]} tokens' expert sets differ "
+              f"({flips[0] / flips[1]:.4f})", flush=True)
+        if not r["finite"]:
+            fails.append(f"non-finite teacher-forced logits at {layers} "
+                         f"layers")
     small = _jamba_pattern(2, dtype="float32")
     m2 = Model(small)
     plan2 = compile_plan(m2, None)
@@ -7812,77 +7915,36 @@ def jamba(torch, kernels) -> dict:
 M2_PP_LAYERS = 4
 M2_PP_RUNS = {"bf16": ("bfloat16", 3), "f32": ("float32", 1)}
 #: (b) jamba at 4 layers of JB_PATTERN (one period a stage), f32, step 0
-#: in 2 micro-batches of one row of TRAIN_SEQ
-JB_PP_LAYERS, JB_PP_MICRO = 4, 2
+#: in 2 micro-batches of one row of JB_PP_SEQ: each of the two ranks on
+#: one card holds 25.4 GiB of weights and gradients beside its
+#: activations (the SSD mixer's chunked form at 128 heads grows with the
+#: row)
+JB_PP_LAYERS, JB_PP_MICRO, JB_PP_SEQ = 4, 2, 1024
 #: (c) jamba split x2 (tp 2 = ep 2) at 2 layers of JB_PATTERN, f32, step
 #: 0 on JB_TP_ROWS x JB_TP_SEQ
 JB_TP_ROWS, JB_TP_SEQ = 2, 1024
-#: (b, c): the experts whose gradients are held element by element (one
-#: on each rank at ep 2); the other 14 of each expert leaf are not handed
-#: to the ranks (77% of the f32 gradient, through files: 12 GB instead
-#: of 42), and their routing, loss and aux are held all the same
-JB_HELD_EXPERTS = (0, 15)
+#: (b, c): every expert of an expert leaf is held element by element on
+#: the first 1/JB_EXPERT_ROWS of its rows (the whole f32 leaves through
+#: files, ~40 GB, cost a minute); the max |x| is the whole leaf's
+JB_EXPERT_ROWS = 8
 
 
-def _leaf_file(d: str, path: str) -> str:
-    return os.path.join(d, path.replace("/", "~") + ".pt")
-
-
-def _save_leaves(torch, d: str, leaves) -> None:
-    """Each ``(path, tensor)`` or ``(path, tensor, max |x|)`` of
-    ``leaves`` to a file of its own in ``d`` (a rank maps only the rows it
-    needs), with every leaf's max |x| (the tensor's where none is given)
-    added to ``d/tops.json``."""
-    os.makedirs(d, exist_ok=True)
-    name = os.path.join(d, "tops.json")
-    tops = {}
-    if os.path.exists(name):
-        with open(name) as f:
-            tops = json.load(f)
-    for path, g, *top in leaves:
-        torch.save(g.detach().cpu(), _leaf_file(d, path))
-        tops[path] = (top[0] if top else float(
-            torch.linalg.vector_norm(g.detach(), float("inf"))))
-    with open(name, "w") as f:
-        json.dump(tops, f)
-
-
-def _leaf_gaps(torch, grads: dict, d: str, cut, pick=None,
-               chunk: int = 1 << 26) -> dict:
-    """Per leaf of this rank's gradient ``grads`` ({path: tensor} on the
-    card), or of what ``pick(path, leaf)`` takes of it: [max |diff|
-    against the reference's leaf in ``d``, cut on the host to this rank's
-    block by ``cut(path, leaf)``, max |x| of the whole reference leaf], a
-    leaf at a time and ``chunk`` elements at a time on the card (two ranks
-    beside their weights and gradients leave no room for a whole expert
-    leaf); a NaN is an infinite gap."""
-    with open(os.path.join(d, "tops.json")) as f:
-        tops = json.load(f)
-    out = {}
-    for path, g in grads.items():
-        if pick is not None:
-            g = pick(path, g)
-        w = cut(path, torch.load(_leaf_file(d, path), mmap=True))
-        w, gf = w.reshape(-1), g.detach().reshape(-1)
-        if w.numel() != gf.numel():
-            raise AssertionError(f"{path}: {w.numel()} reference elements "
-                                 f"for a block of {gf.numel()}")
-        worst = torch.zeros((), device=g.device)
-        for i in range(0, gf.numel(), chunk):
-            part = w[i:i + chunk].to(g.device).float()
-            part.sub_(gf[i:i + chunk].float())
-            worst = torch.maximum(worst, torch.linalg.vector_norm(
-                part, float("inf")).nan_to_num(nan=math.inf))
-            del part
-        out[path] = [float(worst), tops[path]]
-    return out
+def _expert_rows(path: str, g):
+    """The rows of ``g`` held in phase 35 (b, c): an expert leaf's first
+    1/JB_EXPERT_ROWS of each expert's rows, every other leaf whole."""
+    if not path.endswith(ROUTED):
+        return g
+    return g[..., :g.shape[-2] // JB_EXPERT_ROWS, :]
 
 
 def _route_by_micro(torch, record: dict, cur: dict):
     """Wrap ``moe._route`` so each call files its expert ids (sorted, on
-    the host) under (the layer's router fingerprint, ``cur["mb"]``, the
+    the host) under (the layer's router fingerprint, its micro-batch, the
     call's count for that pair): a forward and its checkpointed recompute
-    file two entries, whatever order a schedule runs them in."""
+    file two entries, whatever order a schedule runs them in.  The
+    micro-batch is ``cur["mb"]``, or where ``cur`` has an ``order`` (a
+    stage's slots that route, in its schedule's order) the one of the
+    layer's call by its count."""
     from repro_torch.models import moe
 
     real = moe._route
@@ -7890,8 +7952,10 @@ def _route_by_micro(torch, record: dict, cur: dict):
     def route(params, x, cfg, split=None):
         out = real(params, x, cfg, split)
         layer = tuple(params["router"]["w"].reshape(-1)[:4].tolist())
-        n = sum(1 for k in record if k[:2] == (layer, cur["mb"]))
-        record[(layer, cur["mb"], n)] = out[2].detach().sort(-1).values.cpu()
+        mb = (cur["order"][sum(1 for k in record if k[0] == layer)]
+              if "order" in cur else cur["mb"])
+        n = sum(1 for k in record if k[:2] == (layer, mb))
+        record[(layer, mb, n)] = out[2].detach().sort(-1).values.cpu()
         return out
 
     moe._route = route
@@ -7910,24 +7974,14 @@ def _keyed_flips(got: dict, want: dict) -> list:
             sum(v.numel() // v.shape[-1] for v in got.values())]
 
 
-def _record_opt(torch, apply):
-    """An optimizer with no state that calls ``apply(grads)`` and leaves
-    the parameters as they are: a step's gradient, read and let go."""
-    from repro_torch.optim.optimizer import Optimizer
-
-    def step(grads, state, params, i, **kw):
-        apply(grads)
-        return params, state
-
-    return Optimizer(init=lambda params: {}, apply=step, name="record")
-
-
-def _m2_pp_cfg(dtype: str):
+def _m2_pp_model(dtype: str):
+    """Phase 35 (a)'s model: mamba2 at M2_PP_LAYERS layers."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(MAMBA), n_layers=M2_PP_LAYERS,
-                               dtype=dtype)
+    from repro_torch.models.lm import Model
+    return Model(dataclasses.replace(get_config(MAMBA),
+                                     n_layers=M2_PP_LAYERS, dtype=dtype))
 
 
 def _jb_pp_reference(torch, d: str) -> dict:
@@ -7935,14 +7989,14 @@ def _jb_pp_reference(torch, d: str) -> dict:
     of JB_PATTERN in f32 on the first JB_PP_MICRO rows, a row a
     micro-batch, each micro-batch's loss over JB_PP_MICRO backed into the
     leaves' ``.grad`` in place.  Each repeat's slice of a stacked leaf is
-    a leaf of its own here (the stack's ``_unstack`` hands them out), so
-    no backward stacks a copy of a whole leaf's gradient: 54.5 GB of
-    weights and gradients, and no third tree.  Returns the loss,
+    a leaf of its own here (``loss_fn`` takes the blocks as a list of
+    repeats, as a pipeline stage gives them), so no backward stacks a
+    copy of a whole leaf's gradient: 54.5 GB of weights and gradients,
+    and no third tree.  Returns the loss,
     ``moe_lb`` and ``moe_z`` (means over the micro-batches), the seconds
     and the peak; the gradient (stacked on the host) and the routing by
     micro-batch to ``d``."""
     from repro_torch.models import moe
-    from repro_torch.models import transformer as tfm
     from repro_torch.models.lm import Model
     from repro_torch.tree import flatten, tree_map
 
@@ -7953,11 +8007,8 @@ def _jb_pp_reference(torch, d: str) -> dict:
                      params["blocks"]) for r in range(n)]
     top = {k: tree_map(lambda p: p.requires_grad_(True), v)
            for k, v in params.items() if k != "blocks"}
-    blocks = params["blocks"]
-    real_unstack = tfm._unstack
-    tfm._unstack = lambda tree, k: (reps if tree is blocks
-                                    else real_unstack(tree, k))
-    toks = _first_batch(torch, model.cfg.vocab, JB_PP_MICRO)["tokens"]
+    toks = _first_batch(torch, model.cfg.vocab, JB_PP_MICRO,
+                        JB_PP_SEQ)["tokens"]
     routes, cur = {}, {"mb": 0}
     real = _route_by_micro(torch, routes, cur)
     rec = {"loss": 0.0, "moe_lb": 0.0, "moe_z": 0.0}
@@ -7967,7 +8018,7 @@ def _jb_pp_reference(torch, d: str) -> dict:
     try:
         for i in range(JB_PP_MICRO):
             cur["mb"] = i
-            loss, m = model.loss_fn(dict(top, blocks=blocks),
+            loss, m = model.loss_fn(dict(top, blocks=reps),
                                     {"tokens": toks[i:i + 1]})
             (loss / JB_PP_MICRO).backward()
             for k, v in (("loss", loss), ("moe_lb", m["moe_lb"]),
@@ -7976,23 +8027,19 @@ def _jb_pp_reference(torch, d: str) -> dict:
         torch.cuda.synchronize()
     finally:
         moe._route = real
-        tfm._unstack = real_unstack
     rec["seconds"] = time.perf_counter() - t0
     rec["peak"] = torch.cuda.max_memory_allocated()
-    del params, blocks
+    del params
     paths, rep_leaves = flatten(reps[0])[0], [flatten(r)[1] for r in reps]
 
     def stacked():               # a leaf's rows stacked on the host, then
         for i, path in enumerate(paths):            # let go on the card
-            full = [ls[i].grad for ls in rep_leaves]
-            top = max(float(torch.linalg.vector_norm(g, float("inf")))
-                      for g in full)
-            held = f"/{path}".endswith(ROUTED)
-            rows = [(g[list(JB_HELD_EXPERTS)] if held else g).cpu()
-                    for g in full]
+            top = max(float(torch.linalg.vector_norm(ls[i].grad,
+                                                     float("inf")))
+                      for ls in rep_leaves)
+            rows = [_expert_rows(path, ls[i].grad).cpu() for ls in rep_leaves]
             for ls in rep_leaves:
                 ls[i].grad = None
-            del full
             yield f"blocks/{path}", torch.stack(rows), top
 
     _save_leaves(torch, d, [(q, x.grad) for q, x in zip(*flatten(top))])
@@ -8028,9 +8075,9 @@ def _jb_tp_reference(torch, d: str) -> dict:
            "moe_z": float(m["moe_z"]), "seconds": time.perf_counter() - t0,
            "peak": torch.cuda.max_memory_allocated()}
     del params
-    _save_leaves(torch, d, ((p, x[:, list(JB_HELD_EXPERTS)], float(
-        torch.linalg.vector_norm(x, float("inf")))) if p.endswith(ROUTED)
-        else (p, x) for p, x in zip(*flatten(g))))
+    _save_leaves(torch, d, ((p, _expert_rows(p, x), float(
+        torch.linalg.vector_norm(x, float("inf"))))
+        for p, x in zip(*flatten(g))))
     torch.save(routes, os.path.join(d, "routes.pt"))
     return rec
 
@@ -8048,83 +8095,6 @@ def _draw_in_turn(torch, dist, model, keep):
     return out
 
 
-def _m2_pp_part(torch, dist, d: str, kernels, stats: dict) -> dict:
-    """(a) in a rank: mamba2 pipeline×2 from the whole model's draw (this
-    stage's rows; the tied table on both stages), for each of M2_PP_RUNS
-    its steps of 1f1b through ``pipeline_train_step_fn``: losses, step and
-    gloo seconds, peaks beside the state held, launches, and the step-0
-    gradient against the unpipelined one in ``d/m2_<run>``."""
-    import dataclasses
-
-    import numpy as np
-
-    from repro_torch.core.cost_model import StrategySpec
-    from repro_torch.core.pipeline import _rows, stage_state
-    from repro_torch.core.planner import compile_plan, mesh_for_strategy
-    from repro_torch.data.pipeline import DataCfg, TokenPipeline
-    from repro_torch.models.lm import Model
-    from repro_torch.optim.optimizer import adamw
-    from repro_torch.tree import flatten, tree_map
-
-    strat = StrategySpec(pp=2, micro_batches=PP_MICRO, schedule="1f1b")
-    mesh = mesh_for_strategy(strat)
-    stage = mesh.get_local_rank("stage")
-    out = {"stage": stage}
-    init = None
-    for name, (dtype, steps) in M2_PP_RUNS.items():
-        plan = compile_plan(Model(_m2_pp_cfg(dtype)), mesh, strat)
-        sl = plan.stage_layers()
-        if init is None:            # f32 masters: one draw serves both runs
-            init = stage_state(plan.model.init(0), stage, sl)
-        params = tree_map(torch.clone, init)
-        opt = adamw(lr=PP_LR)
-        state = opt.init(params)
-        held = 4 * (2 * sum(p.numel() for p in flatten(params)[1])
-                    + sum(p.numel() for p in flatten(state)[1]))
-        gaps = {}
-        real_apply = opt.apply
-
-        def cut(path, w, sl=sl):
-            return _rows(w, stage, sl) if path.startswith("blocks/") else w
-
-        def apply(grads, *args, real_apply=real_apply, gaps=gaps,
-                  ref=os.path.join(d, f"m2_{name}"), cut=cut, **kw):
-            if not gaps:
-                gaps.update(_leaf_gaps(torch, dict(zip(*flatten(grads))),
-                                       ref, cut))
-            return real_apply(grads, *args, **kw)
-
-        step_fn = plan.pipeline_train_step_fn(
-            dataclasses.replace(opt, apply=apply))
-        data = TokenPipeline(DataCfg(
-            global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
-            vocab=plan.model.cfg.vocab, seed=0), host_id=0, n_hosts=1)
-        torch.cuda.synchronize()
-        reset_counts(kernels)
-        rec = {"losses": [], "seconds": [], "gloo_s": [], "peaks": []}
-        for i in range(steps):
-            toks = torch.as_tensor(np.asarray(
-                data.next_batch()["tokens"])).cuda()
-            torch.cuda.reset_peak_memory_stats()
-            s0 = stats["s"]
-            t0 = time.perf_counter()
-            params, state, m = step_fn(params, state, toks, i)
-            torch.cuda.synchronize()
-            rec["seconds"].append(time.perf_counter() - t0)
-            rec["gloo_s"].append(stats["s"] - s0)
-            rec["peaks"].append(torch.cuda.max_memory_allocated())
-            rec["losses"].append(float(m["loss"]))
-        rec.update(counts=read_counts(kernels), held=held, grads=gaps,
-                   stage_layers=list(sl),
-                   vp=int(params["embed"]["table"].shape[0]))
-        out[name] = rec
-        del params, state, step_fn, plan
-        torch.cuda.empty_cache()
-    del init
-    torch.cuda.empty_cache()
-    return out
-
-
 def _jb_pp_part(torch, dist, d: str, kernels, stats: dict) -> dict:
     """(b) in a rank: jamba pipeline×2 in f32, this stage's period drawn in
     turn (:func:`_draw_in_turn`), step 0 through ``pipeline_train_step_fn``
@@ -8132,15 +8102,13 @@ def _jb_pp_part(torch, dist, d: str, kernels, stats: dict) -> dict:
     gloo seconds, peak beside the weights and gradients held, launches,
     routing flips against the unpipelined step's by micro-batch, and
     the gradient against ``d/jb_pp``."""
-    import importlib
-
     from repro_torch.core.cost_model import StrategySpec
     from repro_torch.core.pipeline import _rows, stage_state
     from repro_torch.core.planner import compile_plan, mesh_for_strategy
+    from repro_torch.core.schedule import FWD, make_schedule
     from repro_torch.models import moe
-    from repro_torch.models import transformer as tfm
     from repro_torch.models.lm import Model
-    from repro_torch.tree import flatten, tree_map
+    from repro_torch.tree import flatten
 
     strat = StrategySpec(pp=2, micro_batches=JB_PP_MICRO, schedule="1f1b")
     mesh = mesh_for_strategy(strat)
@@ -8151,7 +8119,6 @@ def _jb_pp_part(torch, dist, d: str, kernels, stats: dict) -> dict:
     params = _draw_in_turn(torch, dist, plan.model,
                            lambda whole: stage_state(whole, stage, sl))
     drawn = torch.cuda.memory_allocated()
-    pipe_mod = importlib.import_module("repro_torch.core.pipeline")
     n = sum(p.numel() for p in flatten(params)[1])
     ref = os.path.join(d, "jb_pp")
     gaps = {}
@@ -8159,38 +8126,20 @@ def _jb_pp_part(torch, dist, d: str, kernels, stats: dict) -> dict:
     def cut(path, w):
         return _rows(w, stage, sl) if path.startswith("blocks/") else w
 
-    def pick(path, g):
-        return g[:, list(JB_HELD_EXPERTS)] if path.endswith(ROUTED) else g
-
     step_fn = plan.pipeline_train_step_fn(_record_opt(
         torch, lambda g: gaps.update(_leaf_gaps(
-            torch, dict(zip(*flatten(g))), ref, cut, pick))))
-    toks = _first_batch(torch, plan.model.cfg.vocab, JB_PP_MICRO)["tokens"]
-    routes, cur = {}, {"mb": 0}
-    real_route = _route_by_micro(torch, routes, cur)
-    real_f, real_b = pipe_mod._Stage.forward, pipe_mod._Stage.backward
-
-    def fwd(self, mb, *a):
-        cur["mb"] = mb
-        return real_f(self, mb, *a)
-
-    def bwd(self, mb, *a):
-        cur["mb"] = mb
-        out = real_b(self, mb, *a)
-        # the two ranks share the card: a backward's freed activations go
-        # back to it, not to this rank's cache
-        torch.cuda.empty_cache()
-        return out
-
-    pipe_mod._Stage.forward, pipe_mod._Stage.backward = fwd, bwd
-    # a stage's one repeat as a squeeze: its backward hands the gradient
-    # back as a view, where unbind's stacks a copy of each leaf's (3.5 GiB
-    # for an expert leaf), for which two such stages on one card have no
-    # room
-    real_unstack = tfm._unstack
-    tfm._unstack = lambda tree, k: (
-        [tree_map(lambda v: v.squeeze(0), tree)] if k == 1
-        else real_unstack(tree, k))
+            torch, {p: _expert_rows(p, x) for p, x in zip(*flatten(g))},
+            ref, cut))))
+    toks = _first_batch(torch, plan.model.cfg.vocab, JB_PP_MICRO,
+                        JB_PP_SEQ)["tokens"]
+    # this stage's slots in the schedule's order: each forward routes, and
+    # each backward's checkpointed recompute routes again
+    recompute = plan.model.stack.remat != "none"
+    order = [row[stage][0] for row in make_schedule(
+        "1f1b", 2, JB_PP_MICRO).ticks
+        if row[stage] is not None and (row[stage][1] == FWD or recompute)]
+    routes = {}
+    real_route = _route_by_micro(torch, routes, {"order": order})
     reset_counts(kernels)
     torch.cuda.reset_peak_memory_stats()
     s0 = stats["s"]
@@ -8200,14 +8149,12 @@ def _jb_pp_part(torch, dist, d: str, kernels, stats: dict) -> dict:
         torch.cuda.synchronize()
     finally:
         moe._route = real_route
-        pipe_mod._Stage.forward, pipe_mod._Stage.backward = real_f, real_b
-        tfm._unstack = real_unstack
     rec = {k: float(m[k]) for k in ("loss", "moe_lb", "moe_z")}
     rec.update(seconds=time.perf_counter() - t0, gloo_s=stats["s"] - s0,
-               peak=torch.cuda.max_memory_allocated(), held=8 * n,
+               peak=torch.cuda.max_memory_allocated(),
+               reserved=torch.cuda.max_memory_reserved(), held=8 * n,
                drawn=drawn, counts=read_counts(kernels), grads=gaps,
-               stage=stage,
-               stage_layers=list(sl),
+               stage=stage, stage_layers=list(sl),
                flips=_keyed_flips(routes, torch.load(
                    os.path.join(ref, "routes.pt"))))
     del params, step_fn
@@ -8239,20 +8186,10 @@ def _jb_tp_part(torch, dist, d: str, kernels, stats: dict) -> dict:
     specs = dict(zip(*flatten(plan.param_specs)))
     ref = os.path.join(d, "jb_tp")
     gaps = {}
-    r = plan.rules.index("model")
-
-    def pick(path, g):          # the held experts among this rank's
-        if not path.endswith(ROUTED):
-            return g
-        n = g.shape[1]
-        return g[:, [e - r * n for e in JB_HELD_EXPERTS
-                     if 0 <= e - r * n < n]]
-
     step_fn = plan.train_step_fn(_record_opt(
         torch, lambda g: gaps.update(_leaf_gaps(
-            torch, dict(zip(*flatten(g))), ref,
-            lambda p, w: sharding.shard_leaf(w, specs[p], plan.rules),
-            pick))))
+            torch, {p: _expert_rows(p, x) for p, x in zip(*flatten(g))},
+            ref, lambda p, w: sharding.shard_leaf(w, specs[p], plan.rules)))))
     batch = plan.batch_slice(_first_batch(torch, plan.model.cfg.vocab,
                                           JB_TP_ROWS, JB_TP_SEQ))
     routes = {}
@@ -8290,6 +8227,8 @@ def _hybrid_engine_rank(rank: int, store: str, out_dir: str,
     import torch
     import torch.distributed as dist
 
+    from repro_torch.core.cost_model import StrategySpec
+
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group("gloo", store=dist.FileStore(store, 2),
@@ -8299,11 +8238,19 @@ def _hybrid_engine_rank(rank: int, store: str, out_dir: str,
     out = {"seconds": {}}
     try:
         time_collectives(torch, dist, stats)
-        for name, fn in (("m2_pp", _m2_pp_part), ("jb_pp", _jb_pp_part),
-                         ("jb_tp", _jb_tp_part)):
+        parts = (("m2_pp", lambda: _pp_part(
+            torch, _m2_pp_model, StrategySpec(
+                pp=2, micro_batches=PP_MICRO, schedule="1f1b"), M2_PP_RUNS,
+            os.path.join(ref_dir, "m2"), kernels, stats)),
+            ("jb_pp", lambda: _jb_pp_part(torch, dist, ref_dir, kernels,
+                                          stats)),
+            ("jb_tp", lambda: _jb_tp_part(torch, dist, ref_dir, kernels,
+                                          stats)))
+        for name, fn in parts:
             t0 = time.perf_counter()
-            out[name] = fn(torch, dist, ref_dir, kernels, stats)
+            out[name] = fn()
             torch.cuda.empty_cache()
+            dist.barrier()              # as in :func:`_moe_engine_rank`
             out["seconds"][name] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
@@ -8313,29 +8260,11 @@ def _hybrid_engine_rank(rank: int, store: str, out_dir: str,
 
 def _hybrid_references(torch, d: str) -> dict:
     """Phase 35's unsharded references, here before the ranks: (a) the
-    unpipelined mamba2 steps in bf16 and f32 and bf16's own error (the
-    gap between them: the losses', and each step-0 gradient leaf's max
-    |diff| relative to its max); (b) and (c) jamba's single-process
-    steps (:func:`_jb_pp_reference`, :func:`_jb_tp_reference`)."""
-    from repro_torch.models.lm import Model
-    from repro_torch.tree import flatten
-
-    refs = {"m2": {n: _unpiped(
-        torch, Model(_m2_pp_cfg(dt)), steps,
-        lambda g, n=n: _save_leaves(torch, os.path.join(d, f"m2_{n}"),
-                                    zip(*flatten(g))))
-        for n, (dt, steps) in M2_PP_RUNS.items()}}
-    torch.cuda.empty_cache()
-    with open(os.path.join(d, "m2_f32", "tops.json")) as f:
-        tops = json.load(f)
-    own = {}
-    for path, top in tops.items():
-        a, b = (torch.load(_leaf_file(os.path.join(d, f"m2_{n}"), path))
-                for n in ("bf16", "f32"))
-        own[path] = max_err(a, b) / max(top, 1e-30)
-    refs["own"] = own
-    refs["own_loss"] = max(abs(a - b) for a, b in zip(
-        refs["m2"]["bf16"]["losses"], refs["m2"]["f32"]["losses"]))
+    unpipelined mamba2 steps in bf16 and f32 and bf16's own error
+    (:func:`_pp_references`); (b) and (c) jamba's single-process steps
+    (:func:`_jb_pp_reference`, :func:`_jb_tp_reference`)."""
+    refs = {"m2": _pp_references(torch, _m2_pp_model, M2_PP_RUNS,
+                                 os.path.join(d, "m2"))}
     refs["jb_pp"] = _jb_pp_reference(torch, os.path.join(d, "jb_pp"))
     torch.cuda.empty_cache()
     refs["jb_tp"] = _jb_tp_reference(torch, os.path.join(d, "jb_tp"))
@@ -8353,63 +8282,17 @@ def _hybrid_report(torch, ranks: list, refs: dict) -> tuple:
     def close(x, want):
         return abs(x - want) <= TP_F32_LIMIT + TP_F32_LIMIT * abs(want)
 
-    own, own_loss = refs["own"], refs["own_loss"]
-    for n, r in refs["m2"].items():
-        print(f"[hybrid-engine] (a) mamba2 unpipelined {n}, {M2_PP_LAYERS} "
-              f"layers, {TRAIN_BATCH} x {TRAIN_SEQ} in {PP_MICRO} "
-              f"micro-batches: losses {r['losses']}; step seconds "
-              f"{[round(x, 3) for x in r['seconds']]}; peak "
-              f"{r['peak'] / 2**30:.2f} GiB", flush=True)
-    ow = max(own, key=own.get)
-    print(f"[hybrid-engine] (a) bf16's own error (unpipelined bf16 against "
-          f"f32): loss {own_loss:.3e} (largest over the steps); step-0 "
-          f"gradients relative to the leaf's max: median "
-          f"{statistics.median(own.values()):.3e}, largest {own[ow]:.3e} "
-          f"({ow})", flush=True)
-    outs = [o["m2_pp"] for o in ranks]
-    for name, (_, steps) in M2_PP_RUNS.items():
-        want = refs["m2"][name]["losses"]
-        for o in outs:
-            r = o[name]
-            print(f"[hybrid-engine] (a) mamba2 pipeline×2 {name}, stage "
-                  f"{o['stage']} (layers {r['stage_layers']}): losses "
-                  f"{r['losses']}; step seconds "
-                  f"{[round(x, 3) for x in r['seconds']]}, gloo "
-                  f"{[round(x, 3) for x in r['gloo_s']]}; peak "
-                  f"{max(r['peaks']) / 2**30:.2f} GiB beside "
-                  f"{r['held'] / 2**30:.2f} GiB of parameters, gradients "
-                  f"and moments held; launches {r['counts']}", flush=True)
-            if r["losses"] != outs[0][name]["losses"]:
-                fails.append(f"(a) {name}: the ranks report different "
-                             f"losses")
-            exp = pipeline_expected(0, steps, r["vp"], head=o["stage"] == 1)
-            if r["counts"] != exp:
-                fails.append(f"(a) {name} stage {o['stage']}: launches "
-                             f"{r['counts']}, want {exp}")
-        diffs = [abs(a - b) for a, b in zip(outs[0][name]["losses"], want)]
-        print(f"[hybrid-engine] (a) {name} against the unpipelined step: "
-              f"|diff| losses {diffs}", flush=True)
-        runs = [o[name] for o in outs]
-        if name == "bf16":
-            fails += [f"(a) bf16 step-{i} loss |diff| {x:.3e} beyond "
-                      f"{TF_PAIR * own_loss:.3e}" for i, x in enumerate(diffs)
-                      if x > TF_PAIR * own_loss]
-            fails += _moe_grad_lines("(a) mamba2 pipeline×2 bf16", runs,
-                                     lambda p: TF_PAIR * own[p],
-                                     "[hybrid-engine]")
-        else:
-            fails += [f"(a) f32 step-{i} loss |diff| {x:.3e}"
-                      for i, (x, w) in enumerate(zip(diffs, want))
-                      if x > TP_F32_LIMIT + TP_F32_LIMIT * abs(w)]
-            fails += _moe_grad_lines("(a) mamba2 pipeline×2 f32", runs,
-                                     lambda p: f32_lim, "[hybrid-engine]")
-    counts = {"train_mamba2_pipeline": {
-        k: sum(o["bf16"]["counts"][k] for o in outs)
-        for k in outs[0]["bf16"]["counts"]}}
+    _pp_refs_lines("[hybrid-engine] (a) mamba2", M2_PP_LAYERS, refs["m2"])
+    counts = {"train_mamba2_pipeline": _pp_report(
+        torch, "[hybrid-engine]", "(a) mamba2 pipeline×2",
+        [o["m2_pp"] for o in ranks], refs["m2"], M2_PP_RUNS, 0, fails)}
     for part, what in (("jb_pp", "(b) jamba pipeline×2"),
                        ("jb_tp", "(c) jamba split×2")):
         want = refs[part]
-        print(f"[hybrid-engine] {what}: one process's step: loss "
+        rows, seq = ((JB_PP_MICRO, JB_PP_SEQ) if part == "jb_pp"
+                     else (JB_TP_ROWS, JB_TP_SEQ))
+        print(f"[hybrid-engine] {what}: one process's step on {rows} x "
+              f"{seq}: loss "
               f"{want['loss']:.6f}, moe_lb {want['moe_lb']:.6f}, moe_z "
               f"{want['moe_z']:.6f} in {want['seconds']:.3f} s, peak "
               f"{want['peak'] / 2**30:.2f} GiB", flush=True)
@@ -8419,6 +8302,9 @@ def _hybrid_report(torch, ranks: list, refs: dict) -> tuple:
                      if part == "jb_pp" else
                      f"{r['experts']} experts, {r['ssd_heads']} SSD heads, "
                      f"{r['vp']} vocab columns; {r['line']}")
+            if "reserved" in r:
+                extra += (f", {r['reserved'] / 2**30:.2f} GiB reserved at "
+                          f"most")
             print(f"[hybrid-engine] {what} rank {rank}, {extra}: loss "
                   f"{r['loss']:.6f}, moe_lb {r['moe_lb']:.6f}, moe_z "
                   f"{r['moe_z']:.6f}; step {r['seconds']:.3f} s, gloo "
@@ -8434,7 +8320,7 @@ def _hybrid_report(torch, ranks: list, refs: dict) -> tuple:
                                  f"against {want[k]!r}")
             if part == "jb_pp":
                 exp = pipeline_expected(1, 1, 65536, head=r["stage"] == 1,
-                                        micro=JB_PP_MICRO)
+                                        micro=JB_PP_MICRO, seq=JB_PP_SEQ)
             else:
                 exp = train_expected(1, 1, r["vp"], rows=JB_TP_ROWS,
                                      seq=JB_TP_SEQ)

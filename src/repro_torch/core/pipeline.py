@@ -232,6 +232,26 @@ def _grads(tree: dict) -> dict:
     return tree_map(_grad, tree)
 
 
+def _rep_leaves(blocks: dict, n: int) -> tuple:
+    """(each of ``n`` repeats' autograd leaves over its row of a stage's
+    stacked ``blocks``, views with no copy; the stage's gradient, zeros
+    shaped as ``blocks``).  Each leaf's ``.grad`` is its row of the
+    gradient, so a backward adds a leaf's gradient into the stacked
+    gradient in place as soon as it computes it.  Through one stacked
+    leaf each repeat's view would come from an ``unbind`` made before the
+    stage's forward, whose backward runs last: every gradient of a slot
+    would be held to the slot's end (twice the stage's gradients at once
+    from the second micro-batch on), then stacked into a copy."""
+    grads = tree_map(torch.zeros_like, blocks)
+    reps = []
+    for r in range(n):
+        leaves = _leaves(tree_map(lambda p, r=r: p[r], blocks))
+        for leaf, g in zip(flatten(leaves)[1], flatten(grads)[1]):
+            leaf.grad = g[r]
+        reps.append(leaves)
+    return reps, grads
+
+
 def _shared_keys(model) -> list:
     return ["embed", "final_norm"] + ([] if model.cfg.tie_embeddings
                                       else ["head"])
@@ -252,12 +272,16 @@ class _Stage:
     Under ``rules`` that split the model axis each slot runs split: stage
     0's embedding vocab-parallel, the stack head-parallel (``choose_layout``)
     with column-parallel MLPs, the last stage's loss head vocab-parallel,
-    and ``blocks``/``shared`` are this rank's blocks of its rows."""
+    and ``blocks``/``shared`` are this rank's blocks of its rows.
+    ``blocks`` are the stage's stacked rows: each repeat's slots run on
+    leaves of its own over them, their gradients added into ``grads``
+    (:func:`_rep_leaves`)."""
 
     def __init__(self, model, s: int, S: int, blocks: dict, shared: dict,
                  n_layers: int, M: int, mb_size: int, T: int, rules=None):
         self.model, self.s, self.last, self.M = model, s, s == S - 1, M
-        self.blocks, self.shared, self.rules = blocks, shared, rules
+        self.reps, self.grads = _rep_leaves(blocks, n_layers)
+        self.shared, self.rules = shared, rules
         self.stack = dataclasses.replace(model.stack, n_rep=n_layers)
         dev = model.device
         self.positions = torch.arange(T, device=dev)[None].expand(mb_size, T)
@@ -280,7 +304,7 @@ class _Stage:
                                  cfg.padded_vocab).to(cfg.adtype)
             else:
                 x = x_in = x.detach().requires_grad_(True)
-            y, aux = tfm.apply_stack(self.blocks, x, self.positions,
+            y, aux = tfm.apply_stack(self.reps, x, self.positions,
                                      self.stack)
             contrib = (aux["lb_loss"] + aux["z_loss"]) / self.M
             self.aux += torch.stack([aux["lb_loss"],
@@ -313,6 +337,10 @@ class _Stage:
             cots.append(dy)
         torch.autograd.backward(outs, cots)
         return None if x_in is None else x_in.grad
+
+    def block_grads(self) -> dict:
+        """The stage's block gradients in f32, in its stacked layout."""
+        return tree_map(lambda g: g.float(), self.grads)
 
 
 def _schedule_for(schedule, n_stages: int, M: int) -> Schedule:
@@ -378,8 +406,8 @@ def schedule_grads(model, params: dict, tokens, *, micro_batches: int,
     toks_mb = tokens.reshape(M, mb_size, T)
     shared = _leaves({k: params[k] for k in _shared_keys(model)})
     stages = [_Stage(model, s, S,
-                     _leaves(tree_map(lambda p, s=s: _rows(p, s, stage_layers),
-                                      params["blocks"])),
+                     tree_map(lambda p, s=s: _rows(p, s, stage_layers),
+                              params["blocks"]),
                      shared, stage_layers[s], M, mb_size, T)
               for s in range(S)]
 
@@ -403,13 +431,18 @@ def schedule_grads(model, params: dict, tokens, *, micro_batches: int,
     _audit(peaks, sc)
 
     grads = _grads(shared)
-    paths = flatten(stages[0].blocks)[0]
-    per_stage = [flatten(st.blocks)[1] for st in stages]
+    per_stage = []
+    for st in stages:                   # the lists hold the only references
+        paths, gs = flatten(st.grads)
+        per_stage.append(gs)
+        for leaf in (x for r in st.reps for x in flatten(r)[1]):
+            leaf.grad = None
+        st.grads = None
     blocks = []
     for i in range(len(paths)):         # a leaf at a time: the stages'
-        blocks.append(torch.cat([_grad(ls[i]) for ls in per_stage]))
+        blocks.append(torch.cat([ls[i].float() for ls in per_stage]))
         for ls in per_stage:            # gradients go as the whole comes
-            ls[i].grad = None
+            ls[i] = None
     grads["blocks"] = unflatten(paths, blocks)
     stats = {"n_ticks": sc.n_ticks,
              "bubble_fraction": sc.bubble_fraction(),
@@ -538,7 +571,7 @@ def make_pipeline_train_step(model, rules, optimizer, *,
         mb_size = check_micro_divides(B, M)
         toks_mb = tokens.reshape(M, mb_size, T)
         shared = _leaves({k: params[k] for k in keys})
-        stage = _Stage(model, s, S, _leaves(params["blocks"]), shared,
+        stage = _Stage(model, s, S, params["blocks"], shared,
                        stage_layers[s], M, mb_size, T, rules)
         shape = (mb_size, T, cfg.d_model)
         loss = torch.zeros((), dtype=torch.float32, device=model.device)
@@ -573,7 +606,7 @@ def make_pipeline_train_step(model, rules, optimizer, *,
         g_shared = _grads(shared)
         for g in flatten(g_shared)[1]:
             dist.all_reduce(g, op=dist.ReduceOp.SUM, group=stage_group)
-        grads = dict(g_shared, blocks=_grads(stage.blocks))
+        grads = dict(g_shared, blocks=stage.block_grads())
         # the loss and the aux in one vector, summed over the stages
         vec = torch.cat([loss[None], stage.aux / M])
         dist.all_reduce(vec, op=dist.ReduceOp.SUM, group=stage_group)

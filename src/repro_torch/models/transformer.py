@@ -220,8 +220,11 @@ def apply_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
                 stack: StackCfg, specs: dict | None = None):
     """x: (B, S, E) → (x', summed aux), the training forward (an SSD
     mixer scans through :func:`~repro_torch.models.mamba2.ssd_scan`).
-    One checkpoint per pattern repeat under ``stack.remat``.  ``specs`` (ZeRO-3: the stacked leaves'
-    specs) gathers each repeat's slices inside its checkpoint."""
+    One checkpoint per pattern repeat under ``stack.remat``.  ``params``
+    is the stacked tree, or a list of each repeat's tree (a pipeline
+    stage's leaves of its own, whose gradients reach them as each is
+    computed).  ``specs`` (ZeRO-3: the stacked leaves' specs) gathers
+    each repeat's slices inside its checkpoint."""
     rules = sharding.current_rules()
 
     def rep_body(x, rep_params):
@@ -242,7 +245,9 @@ def apply_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
 
     body = _remat_wrap(rep_body, stack.remat)
     aux = _zero_aux(x.device)
-    for rep_params in _unstack(params, stack.n_rep):
+    reps = params if isinstance(params, list) else _unstack(params,
+                                                            stack.n_rep)
+    for rep_params in reps:
         x, a = body(x, rep_params)
         aux = {k: aux[k] + a[k] for k in aux}
     return x, aux

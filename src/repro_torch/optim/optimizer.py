@@ -65,11 +65,12 @@ def _sched(lr) -> Callable:
     return lambda step: float(np.float32(lr))
 
 
-def _sum_sq(g: torch.Tensor, chunk: int = 1 << 26) -> torch.Tensor:
+def _sum_sq(g: torch.Tensor, chunk: int = 1 << 22) -> torch.Tensor:
     """Σ g² of one leaf, the squares in f32 summed in f64, ``chunk``
     elements at a time: the f64 sum takes an f64 copy of what it sums,
-    twice the f32 leaf (7 GiB for one of jamba's expert leaves) were it
-    taken whole."""
+    beside the f32 squares, so a chunk costs 12 bytes an element (10.5 GiB
+    for one of jamba's expert leaves taken whole; 48 MiB a chunk, below
+    a pipeline stage's activations)."""
     return sum((torch.sum(c.float().square(), dtype=torch.float64)
                 for c in g.reshape(-1).split(chunk)),
                torch.zeros((), dtype=torch.float64, device=g.device))

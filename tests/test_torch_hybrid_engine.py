@@ -10,12 +10,12 @@ weights drawn by the reference and carried across by
 its ``SMOKE`` (one period of 4) and at 4 layers of ``attn_period=2`` (two
 periods, an SSD + dense block and an attention + experts block, one
 period a stage); the batch is 4 × 64 seeded numpy tokens, two chunks of
-32 a row.  Deeper random stacks are not held here: the SSD scan's decays
-are exponentials of cumulative-sum differences in both packages, and
-torch's and XLA's cumulative sums round apart, so the two drift apart
-with depth (ROADMAP.md §C).  Tolerances f32 (tests/torch_harness.py): values 2e-5, gradients
-2e-4; serving logits 1e-4 and SSD states against token-by-token decode
-2e-3, as the ssm family's tests.
+32 a row.  Deeper random stacks are held in f64
+(tests/test_torch_hybrid_depth.py): in f32 both packages' rounding grows
+with depth past the gradient tolerance (ROADMAP.md §C).  Tolerances f32
+(tests/torch_harness.py): values 2e-5, gradients 2e-4; serving logits
+1e-4 and SSD states against token-by-token decode 2e-3, as the ssm
+family's tests.
 
 - The schedule interpreter ``schedule_grads`` at pp 2 against the
   reference's, gpipe and 1f1b: the loss, every gradient leaf (mamba2's

@@ -209,6 +209,36 @@ def test_interpreter_matches_reference_interpreter_and_plain_grads(
                for p in flatten(params)[1])
 
 
+def test_stage_adds_each_gradient_as_the_backward_computes_it():
+    """A stage of 4 repeats: when the backward reaches a leaf of the last
+    repeat, its gradient is already in the stage's stacked gradient while
+    the first repeat's row is still zero; the first repeat's follows.  No
+    leaf waits for the slot's end, where every raw gradient of the slot
+    would be held at once."""
+    _, cfg = _cfgs(False)
+    model = Model(cfg, "cpu")
+    params = model.init(0)
+    n = model.stack.n_rep
+    shared = pipe._leaves({k: params[k]
+                           for k in pipe._shared_keys(model)})
+    stage = pipe._Stage(model, 0, 1, params["blocks"], shared, n, 1, 2, T)
+    path = "p0/attn/wq"
+    rows = dict(zip(*flatten(stage.grads)))[path]
+    seen = []
+    dict(zip(*flatten(stage.reps[-1])))[path] \
+        .register_post_accumulate_grad_hook(
+            lambda leaf: seen.append((bool(rows[-1].abs().sum() > 0),
+                                      bool((rows[0] == 0).all()))))
+    toks = torch.randint(0, cfg.vocab, (2, T),
+                         generator=torch.Generator().manual_seed(0))
+    stage.forward(0, None, toks)
+    stage.backward(0, None)
+    assert n == 4 and seen == [(True, True)]
+    assert bool(rows[0].abs().sum() > 0)
+    assert stage.block_grads()["p0"]["attn"]["wq"].data_ptr() \
+        == rows.data_ptr()
+
+
 def test_interpreter_audit_and_guards(ref):
     _, cfg = _cfgs(False)
     model = Model(cfg, "cpu")
