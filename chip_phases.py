@@ -26,10 +26,11 @@ import sys
 
 #: the phases it runs: 24 (``train_hybrid_zero``), 26 (``serve_tp``), 29
 #: (``compressed_blocks``), 30 (``mamba2_train``), 31 (``mamba2_split``),
-#: 32 (``moe_engine``), 33 (``dense_rest``), 34 (``jamba``) and 35
-#: (``hybrid_engine``), the same functions in every checkout since they
-#: were added (a checkout without one reports that phase failed)
-PHASES = ("24", "26", "29", "30", "31", "32", "33", "34", "35")
+#: 32 (``moe_engine``), 33 (``dense_rest``), 34 (``jamba``), 35
+#: (``hybrid_engine``) and 36 (``grok``; its part (d) runs in 24), the
+#: same functions in every checkout since they were added (a checkout
+#: without one reports that phase failed)
+PHASES = ("24", "26", "29", "30", "31", "32", "33", "34", "35", "36")
 
 CHILD = r"""
 import json, sys, time, traceback
@@ -65,6 +66,8 @@ for ph in sys.argv[1:]:
             cs.jamba(torch, kernels)
         elif ph == "35":
             cs.hybrid_engine(torch, kernels)
+        elif ph == "36":
+            cs.grok(torch, kernels)
     except Exception:
         traceback.print_exc()
         ok = False

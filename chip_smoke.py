@@ -27,15 +27,20 @@ and the script exits non-zero without printing a result:
    256000, stablelm's 50304 padded to 50432 at hidden width 2560;
    jamba-v0.1-52b, phases 34–35: flash forward, dq and dk/dv at 32 q over
    8 kv heads of 128, xent at its untied head, E = 4096, V = 65536, and on
-   its 32768-column shard at tp 2, the SSD scan at 128 heads of 64), and
-   at ragged ones
+   its 32768-column shard at tp 2, the SSD scan at 128 heads of 64;
+   grok-1-314b, phase 36: flash forward (prefill in bf16 and f32), dq and
+   dk/dv at 48 q over 8 kv heads of 128, a group of 6, paged decode at
+   group 6 (48/8 and a tp-2 rank's 24/4, bf16 and f32), xent at its
+   untied head, E = 6144, V = 131072), and at ragged ones
    (tolerance: values f32 2e-5, bf16 2e-2; gradients f32 2e-4, bf16 5e-2;
    the SSD scan 5e-4, as the reference holds its kernel; the int8
    quantize and dequantize bit for bit, a NaN included; the xent
    kernels also on tinyllama's vocab shard at tp 2, labels on both sides
    of it and the backward's ``col0`` past the shard's offset), and time the
    kernel, the plain version and one PyTorch library call computing the
-   same function (a yardstick the port never calls); the flash forward,
+   same function (a yardstick the port never calls; the plain versions
+   and library calls of the flash, paged-decode and xent rows on
+   PLAIN_REPS and LIBRARY_REPS calls since PR 31); the flash forward,
    the flash backward's two kernels, the xent forward, paged decode and
    the SSD scan also against a second launch bit for bit, with their
    shares of the bound, ratio to the library call (the flash forward at
@@ -85,7 +90,8 @@ and the script exits non-zero without printing a result:
     launch count read around it (each of the three fused encode kernels
     once per gradient leaf and step, quantize and dequantize never); then
     the same 8 steps with ``--mesh 1x1x1``
-    alone, for the cost of the compression (at 4 steps the driver's
+    alone (its final checkpoint gathered, not written: phase 11 times
+    that write), for the cost of the compression (at 4 steps the driver's
     schedule, warm-up 1 and cosine over 4, lifts step 3's loss above step
     0's with or without compression);
 16. where the compression's time goes: ``compressed_psum_tree`` over
@@ -98,7 +104,8 @@ and the script exits non-zero without printing a result:
     the same checkpoint, the losses within a tolerance derived from the
     int8 values that flip between the two sides' own gradients;
 18. the planned training path: the driver with ``--auto --hw h100
-    --profile`` at phase 11's configuration for 8 steps, with every
+    --profile`` at phase 11's configuration for 8 steps (the final
+    checkpoint gathered, not written), with every
     kernel's launch count read around it: the strategy the cost model
     chose (it must equal ``auto_parallel`` called on the same graph), the
     predicted step (compute, comm, bubble) against the measured median of
@@ -189,7 +196,12 @@ and the script exits non-zero without printing a result:
     and launches; then phase 27's Case 2 on the same ranks: the hybrid
     recorded as annotations (``replica{split}``, on the meta device),
     ``compile_nested_plan`` deriving ``StrategySpec(dp=2, tp=2)``, its 2
-    steps equal to zero=0's bit for bit;
+    steps equal to zero=0's bit for bit; then phase 36 (d): Adafactor in
+    f32 at ZeRO 0, 1 and 3, 2 steps each, ZeRO-1's and ZeRO-3's losses
+    within 2e-5 + 2e-5|x| of ZeRO-0's and their gathered state
+    (parameters, factored moments) within 2e-4 of each leaf's max, ZeRO-0's
+    checkpoint restored into both levels' blocks and gathered back bit for
+    bit;
 25. Whale's nested hybrid, the plan ``--auto --hw v100`` picks for
     tinyllama at 4 x 2048 on four devices (``auto_parallel`` on the
     paper's V100 table must pick it; its price there and on the H100
@@ -255,9 +267,10 @@ and the script exits non-zero without printing a result:
     forward 28 an admission, paged decode 28 a step), the peak beside
     the weights and KV and the decode step's median against its floor
     (31.0 GB of expert weights at 3.35 TB/s); teacher-forced logits
-    (phase 26's) paged through the kernels, dense, and paged through the
-    plain versions on the card, each within TF_PAIR times bf16's own
-    error at 28 layers (the same weights in f32 through the f32 kernels);
+    (phase 26's) at 14 layers (28 before PR 31) paged through the
+    kernels, dense, and paged through the plain versions on the card,
+    each within TF_PAIR times bf16's own error (the same weights in f32
+    through the f32 kernels);
     (b) the training driver at full width and 2 layers, batch 4 x 2048,
     AdamW, 3 steps: finite losses, ``moe_lb`` and ``moe_z``, launches,
     the peak beside AdamW's state (the final checkpoint gathered, its file
@@ -293,8 +306,8 @@ and the script exits non-zero without printing a result:
     it one layer's ``ssd_scan`` (two forwards and a backward) takes times
     48; step 0's loss and every gradient leaf through the kernels against
     the plain versions on the card (f32 at 2 layers within 1e-4 +
-    1e-4|x|; bf16 at 48 layers within TF_PAIR times bf16's own error,
-    leaf by leaf);
+    1e-4|x|; bf16 at the first 16 of the 48 layers, 48 before PR 31,
+    within TF_PAIR times bf16's own error, leaf by leaf);
 31. mamba2 over ``model`` (the SSD mixer's heads split; ``B``/``C``
     whole; the gated norm's sum of squares all-reduced), two ranks on
     ``cuda:0`` over gloo: split×2 training at 2 layers in f32, the loss
@@ -308,14 +321,16 @@ and the script exits non-zero without printing a result:
     its all-reduce) outside that gate;
 32. the MoE family across the engine, deepseek-moe-16b at full width,
     ranks on ``cuda:0`` over gloo: (a) pipeline×2 on two ranks at 2
-    layers, one a stage, batch 4 x 2048 in 4 micro-batches, 1f1b, 3
-    AdamW steps, in bf16 and f32, against the unpipelined, unsharded
+    layers, one a stage, batch 4 x 2048 in 4 micro-batches, 1f1b, 2
+    AdamW steps in bf16 (3 before PR 31) and one in f32, against the
+    unpipelined, unsharded
     step of one process (bf16 within TF_PAIR times bf16's own error, the
     gap between that step in bf16 and in f32; f32 losses within 1e-4 +
     1e-4|x| and gradients within 2e-4 of each leaf's max), ``moe_lb`` and
     ``moe_z`` beside the unpipelined step's, each rank's peak, step and
     gloo seconds; (b) the same over model 2 on four ranks
-    (``pipeline{split[experts]}``: 32 experts a rank); (c) data 2 in f32
+    (``pipeline{split[experts]}``: 32 experts a rank), in f32 alone since
+    PR 31; (c) data 2 in f32
     at 2 layers, a row a rank, the experts balanced over the global batch,
     against one process on both rows (1e-4 + 1e-4|x|, gradients 2e-4),
     and the old per-replica balance planted, which must miss that gate;
@@ -338,8 +353,8 @@ and the script exits non-zero without printing a result:
     losses, launches, tokens/s, forward, backward and AdamW on the host
     clock, the peak beside the parameters, gradients and moments (the
     final checkpoint neither copied to the host nor written), then the
-    same steps through the plain versions, each loss within 5% of
-    theirs; (c)
+    first 2 steps through the plain versions (3 before PR 31), each loss
+    within 5% of theirs; (c)
     through the kernels against the plain versions on the card:
     teacher-forced logits at full depth in bf16 within TF_PAIR times
     bf16's own error and at 2 layers in f32 within 1e-4 + 1e-4|x|, and
@@ -370,7 +385,8 @@ and the script exits non-zero without printing a result:
 35. the ssm and hybrid families across the engine, two ranks on
     ``cuda:0`` over gloo on a pool of exactly them: (a) mamba2-1.3b
     pipeline×2 at full width and 4 layers, 4 x 2048 in 4 micro-batches,
-    1f1b, 3 AdamW steps in bf16 and one in f32, against the unpipelined
+    1f1b, 2 AdamW steps in bf16 (3 before PR 31) and one in f32, against
+    the unpipelined
     step of one process (phase 32 (a)'s gates; the tied table's gradient
     summed over both stages); (b) jamba pipeline×2 at 4 layers of the
     2-layer pattern (a period a stage), f32, step 0 in 2 micro-batches of
@@ -380,14 +396,40 @@ and the script exits non-zero without printing a result:
     ``moe_lb`` and ``moe_z`` within 1e-4 + 1e-4|x|, each gradient leaf
     within 2e-4 of its max (every expert of an expert leaf on the first
     1/JB_EXPERT_ROWS of its rows), routing flips counted; each rank's
-    peak, step and gloo seconds.
+    peak, step and gloo seconds;
+36. grok-1-314b (8 experts of 32768 columns, top-2, no shared; 48 q over
+    8 kv heads of 128, a group of 6; GeGLU; untied vocab 131072): (a) the
+    serving driver at full width and 4 layers in bf16 (21.29e9
+    parameters, 39.66 GiB; all 64 layers take 628 GB), paged (the kernel
+    at group 6) and dense, 8 requests of 256 + 32 through 8 slots: TTFT,
+    TPOT against the decode step's floor (every weight but the table read
+    once at 3.35 TB/s), the peak beside the weights and KV, the
+    launches; teacher-forced logits at 1 layer in f32 through the kernels
+    against the plain versions within 1e-4 + 1e-4|x|, routing flips
+    counted; (b) the training driver at full width and 1 layer, batch 4
+    x 2048, remat full, Adafactor (the reference's recipe), 3 steps:
+    tokens/s, forward, backward and Adafactor on the host clock, the peak
+    beside the f32 parameters and gradients (48.66 GiB) and Adafactor's
+    state, the final checkpoint neither copied to the host nor written;
+    step 0 at 1 x 2048 in f32 through the kernels against the plain
+    versions (loss, ``moe_lb``, ``moe_z`` within 2e-4 + 2e-4|x|, every
+    gradient leaf there on the first 1/GK_HELD of the embed dim of a leaf
+    of 2^26 elements or more), routing flips counted; (c) the experts'
+    d_ff split (grok's expert tensor parallelism) on two ranks over gloo,
+    a pool of exactly them: ``StrategySpec(tp=2)`` with 3 experts (a
+    2-way axis divides 8; the rules prune ``experts`` and split every
+    expert's 32768 columns), 1 layer, f32, 2 x 1024, 2 Adafactor steps,
+    against one process: losses within 1e-4 + 1e-4|x|, the step-0
+    gradient and the parameters after the last step within 1e-4 + 1e-4
+    x each leaf's max (held parts through files a leaf), 0 routing flips;
+    (d) Adafactor under ZeRO runs in phase 24's ranks.
 
 The meshed phases 20–31 run their ranks in one pool of four processes on
 ``cuda:0`` (:class:`RankPool`), started at phase 20 and stopped before
 phase 32: each phase hands its rank function to the first two or four.
 Phase 32's ranks need nearly the whole card, so each of its two calls
 runs on a pool of exactly its ranks, started for it and closed after it;
-so does phase 35's.
+so do phase 35's and phase 36's.
 
 then the kernel table as one JSON line, the card line again, and the last
 line ``{"ok": true, "device": {...}}``.  Needs no network; needs ``nvcc``
@@ -482,12 +524,12 @@ class Timer:
         self.reps = reps
         self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
 
-    def __call__(self, fn) -> float:
+    def __call__(self, fn, reps: int | None = None) -> float:
         torch = self.torch
         fn()
         torch.cuda.synchronize()
         times = []
-        for _ in range(self.reps):
+        for _ in range(reps or self.reps):
             self.flush.zero_()
             torch.cuda._sleep(self.SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
@@ -498,6 +540,13 @@ class Timer:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return statistics.median(times)
+
+
+#: phase 3's readings of a plain version and of its library yardstick: the
+#: median of fewer calls than a kernel's (the plain attention and loss
+#: heads materialise their scores and logits: the slowest calls of the
+#: phase)
+PLAIN_REPS = LIBRARY_REPS = 5
 
 
 def timed(timer, fn) -> tuple:
@@ -560,7 +609,7 @@ def check_close(name: str, got, want, dtype, tol=None) -> float:
 #: path's (tinyllama's 32/4 of 64), as the kernels line nests them
 HEAD_ROWS = {(16, 16, 128): "deepseek", (16, 8, 128): "qwen3",
              (8, 1, 256): "gemma", (32, 32, 80): "stablelm",
-             (32, 8, 128): "jamba"}
+             (32, 8, 128): "jamba", (48, 8, 128): "grok"}
 
 
 def check_flash(torch, timer) -> dict:
@@ -572,10 +621,13 @@ def check_flash(torch, timer) -> dict:
     its prefill at B=1, S=512 and its training step at B=4, S=2048; a
     rank's 8/8 heads of its prefill at split×2, phase 32), and the dense
     family's rest (phase 33): qwen3-1.7b's 16/8 heads of 128, gemma-2b's
-    8/1 of 256 and stablelm-3b's 32/32 of 80, and jamba-v0.1-52b's 32/8
-    of 128 (phase 34), each at its serving prefill (B=1, S=256; f32 too
-    at the new dims) and its training step (B=4, S=2048), each timed
-    beside SDPA in this call.  Prints the bf16
+    8/1 of 256 and stablelm-3b's 32/32 of 80, jamba-v0.1-52b's 32/8 of
+    128 (phase 34) and grok-1-314b's 48/8 of 128 (phase 36: a group of 6,
+    so a 64-row tile splits one query's heads), each at its serving
+    prefill (B=1, S=256; f32 too at the new dims and at grok's) and its
+    training step (B=4, S=2048), each timed beside SDPA in this call (a
+    plain version's and the library's medians of PLAIN_REPS and
+    LIBRARY_REPS calls).  Prints the bf16
     (tensor-core) builds' ptxas registers and spills and fails on a
     spill.  Returns the row of the training shape, with the other models'
     training shapes' under their names (:data:`HEAD_ROWS`)."""
@@ -595,9 +647,10 @@ def check_flash(torch, timer) -> dict:
              (1, 512, 512, True, (bf16,), 16, 16, 128),
              (1, 512, 512, True, (bf16, f32), 8, 8, 128),
              (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, True, (bf16,), 16, 16, 128)]
-    for H, K, D in ((16, 8, 128), (8, 1, 256), (32, 32, 80), (32, 8, 128)):
-        cases += [(1, 256, 256, True, (bf16,) if D == 128 else (bf16, f32),
-                   H, K, D),
+    for H, K, D in ((16, 8, 128), (8, 1, 256), (32, 32, 80), (32, 8, 128),
+                    (48, 8, 128)):
+        cases += [(1, 256, 256, True, (bf16,) if (H, D) in (
+                       (16, 128), (32, 128)) else (bf16, f32), H, K, D),
                   (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, True, (bf16,), H, K, D)]
     row = None
     for B, Sq, Sk, causal, dtypes, H, K, D in cases:
@@ -620,10 +673,11 @@ def check_flash(torch, timer) -> dict:
             del o_ref, lse_ref, again
             ms = timer(lambda: flash.flash_attention(q, k, v, causal))
             plain_ms = timer(lambda: flash.flash_attention_plain(q, k, v,
-                                                                 causal))
+                                                                 causal),
+                             PLAIN_REPS)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True))
+                qt, kt, vt, is_causal=causal, enable_gqa=True), LIBRARY_REPS)
             flops = 4 * B * causal_pairs(Sq, Sk, causal) * H * D
             nbytes = (2 * q.numel() + k.numel() + v.numel()) \
                 * q.element_size() + lse.numel() * 4
@@ -658,7 +712,9 @@ def check_paged(torch, timer) -> dict:
     heads, D=128), a rank's 8/8 heads of it at split×2 and of 4 slots at
     data 2 x model 2 (phase 32), and 8 slots of the dense family's rest
     (phase 33): qwen3's 16/8 heads of 128, gemma's 8/1 of 256, stablelm's
-    32/32 of 80.  Prints the bf16 (tensor-core) builds' ptxas registers
+    32/32 of 80; and grok-1-314b's group of 6 (phase 36): 8 slots of its
+    48/8 heads of 128 and of a tp-2 rank's 24/4.  Prints the bf16
+    (tensor-core) builds' ptxas registers
     and spills and fails on a spill.  Returns the row of the serving shape
     in bf16, with the other models' 8 slots under their names
     (:data:`HEAD_ROWS`)."""
@@ -678,7 +734,8 @@ def check_paged(torch, timer) -> dict:
                          (pos8[:4], 16, 2, 64), (np.array([999]), 32, 4, 64),
                          (pos8, 16, 16, 128), (pos8, 8, 8, 128),
                          (pos8[:4], 8, 8, 128), (pos8, 16, 8, 128),
-                         (pos8, 8, 1, 256), (pos8, 32, 32, 80)):
+                         (pos8, 8, 1, 256), (pos8, 32, 32, 80),
+                         (pos8, 48, 8, 128), (pos8, 24, 4, 128)):
         B = len(pos)
         P = 1 + B * mp
         table = np.zeros((B, mp), np.int32)
@@ -712,7 +769,8 @@ def check_paged(torch, timer) -> dict:
             ms, other_ms = timed(timer, call)
             other = against_line(call, (ref,), tag, dtype, other_ms)
             plain_ms = timer(lambda: paged.paged_decode_plain(q, kp, vp, bt,
-                                                              pos_t))
+                                                              pos_t),
+                             PLAIN_REPS)
             # yardstick: SDPA over the same KV gathered dense beforehand
             kd = kp[bt.long()].reshape(B, mp * ps, K, D).transpose(
                 1, 2).contiguous()
@@ -722,7 +780,7 @@ def check_paged(torch, timer) -> dict:
                     <= pos_t[:, None].long())[:, None, None, :]
             qd = q[:, :, None, :]
             lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                qd, kd, vd, attn_mask=mask, enable_gqa=True))
+                qd, kd, vd, attn_mask=mask, enable_gqa=True), LIBRARY_REPS)
             live = int((pos + 1).sum())
             nbytes = (2 * q.numel() + 2 * live * K * D) * q.element_size() \
                 + bt.numel() * 4 + B * 4
@@ -811,7 +869,8 @@ def check_flash_bwd(torch, timer) -> tuple:
     under their names (:data:`HEAD_ROWS`: deepseek-moe-16b's 16/16 heads
     of 128, and the dense family's rest: qwen3's 16/8 of 128, gemma's 8/1
     of 256, stablelm's 32/32 of 80; f32 at the new dims at B=2,
-    S=1000; jamba-v0.1-52b's 32/8 of 128)."""
+    S=1000; jamba-v0.1-52b's 32/8 of 128; grok-1-314b's 48/8 of 128, a
+    group of 6)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash
@@ -829,7 +888,8 @@ def check_flash_bwd(torch, timer) -> tuple:
              (2, 1000, 1000, True, torch.float32, 8, 1, 256),
              (4, 2048, 2048, True, torch.bfloat16, 32, 32, 80),
              (2, 1000, 1000, True, torch.float32, 32, 32, 80),
-             (4, 2048, 2048, True, torch.bfloat16, 32, 8, 128)]
+             (4, 2048, 2048, True, torch.bfloat16, 32, 8, 128),
+             (4, 2048, 2048, True, torch.bfloat16, 48, 8, 128)]
     rows = None
     for B, Sq, Sk, causal, dtype, H, K, D in cases:
         rnd = lambda S, n: torch.randn((B, S, n, D), generator=gen,
@@ -852,14 +912,15 @@ def check_flash_bwd(torch, timer) -> tuple:
         del again
         ms_dq = timer(lambda: flash.flash_bwd_dq(*args))
         ms_dkv = timer(lambda: flash.flash_bwd_dkv(*args))
-        plain_ms = timer(lambda: flash.flash_attention_bwd_plain(*args))
+        plain_ms = timer(lambda: flash.flash_attention_bwd_plain(*args),
+                         PLAIN_REPS)
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                       for t in (q, k, v))
         out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                              enable_gqa=True)
         dot = do.transpose(1, 2).contiguous()
         lib_ms = timer(lambda: torch.autograd.grad(
-            out, (qt, kt, vt), dot, retain_graph=True))
+            out, (qt, kt, vt), dot, retain_graph=True), LIBRARY_REPS)
         del out
         pairs = B * causal_pairs(Sq, Sk, causal)
         es = q.element_size()
@@ -914,7 +975,8 @@ XENT_ROWS = (("deepseek", 2048, DEEPSEEK_VOCAB, DEEPSEEK_VOCAB),
              ("qwen3", 2048, 151936, 152064),
              ("gemma", 2048, 256000, 256000),
              ("stablelm", 2560, 50304, 50432),
-             ("jamba", 4096, 65536, 65536))
+             ("jamba", 4096, 65536, 65536),
+             ("grok", 6144, 131072, 131072))
 
 
 def check_xent(torch, timer) -> tuple:
@@ -924,7 +986,7 @@ def check_xent(torch, timer) -> tuple:
     :data:`XENT_ROWS`' heads in bf16 (deepseek-moe-16b's, mamba2-1.3b's
     tied head, and the dense family's rest: qwen3-1.7b's and gemma-2b's
     tied heads, stablelm-3b's at E = 2560, jamba-v0.1-52b's untied head
-    at E = 4096), timed beside
+    at E = 4096, grok-1-314b's at E = 6144, V = 131072), timed beside
     ``F.cross_entropy(h @ W)`` in this call (with the bf16 build's ptxas
     registers and spills); then the backward's elementwise pass on one
     f32 chunk of each vocab (the main path's first and a padded last
@@ -963,9 +1025,10 @@ def check_xent(torch, timer) -> tuple:
         assert_same_bits(tag, (nll, lse), again)
         del want, again
         ms = timer(lambda: xent.xent_fwd(h, w, labels, vocab))
-        plain_ms = timer(lambda: xent.xent_fwd_plain(h, w, labels, vocab))
+        plain_ms = timer(lambda: xent.xent_fwd_plain(h, w, labels, vocab),
+                         PLAIN_REPS)
         lab64 = labels.long()
-        lib_ms = timer(lambda: F.cross_entropy(h @ w, lab64))
+        lib_ms = timer(lambda: F.cross_entropy(h @ w, lab64), LIBRARY_REPS)
         es = h.element_size()
         b_ms, b_by = bound((h.numel() + w.numel()) * es + 3 * T_ * 4,
                            2 * T_ * E * V, dtype)
@@ -1011,7 +1074,8 @@ def check_xent(torch, timer) -> tuple:
         assert_same_bits(tag, (got,), (again,))
         buf = logits.clone()
         ms = timer(lambda: xent.xent_bwd(buf, *args))
-        plain_ms = timer(lambda: xent.xent_bwd_plain(buf, *args))
+        plain_ms = timer(lambda: xent.xent_bwd_plain(buf, *args),
+                         PLAIN_REPS)
         b_ms, b_by = bound(2 * logits.numel() * 4 + 4 * T * 4, 0,
                            torch.float32)
         print(f"[kernel] {tag}: max_abs_err {err:.3e} (tol 2e-05); a second "
@@ -1894,7 +1958,7 @@ def train_compressed(torch, kernels) -> tuple:
     runs = {}
     for name, extra in (("compressed", ["--compress-pod"]),
                         ("uncompressed", [])):
-        need = (4 if extra else 3) * 4 * 1.2e9   # params, mu, nu (+ err)
+        need = 4 * 4 * 1.2e9 if extra else 0   # params, mu, nu, err
         tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
         try:
             free = shutil.disk_usage(tmp).free
@@ -1916,14 +1980,19 @@ def train_compressed(torch, kernels) -> tuple:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             reset_counts(kernels)
+            # the uncompressed run's checkpoint is phase 11's with the
+            # mesh's: its final one is not written (PR 31)
+            written = []
             try:
-                out = train.main(COMP_ARGS + extra + ["--ckpt-dir", tmp])
+                with (no_checkpoint_write(written) if not extra
+                      else contextlib.nullcontext()):
+                    out = train.main(COMP_ARGS + extra + ["--ckpt-dir", tmp])
             finally:
                 CheckpointManager.save = save
             counts = read_counts(kernels)
             peak = torch.cuda.max_memory_allocated()
             ckpt_bytes = sum(f.stat().st_size for f in os.scandir(
-                os.path.join(tmp, f"step_{COMP_STEPS:08d}")))
+                os.path.join(tmp, f"step_{COMP_STEPS:08d}"))) if extra else 0
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         losses, secs = out["losses"], out["step_seconds"]
@@ -1934,8 +2003,10 @@ def train_compressed(torch, kernels) -> tuple:
               f"{sum(secs[1:]) / (len(secs) - 1):.4f} s/step = "
               f"{tok_s:.1f} tokens/s; peak device memory "
               f"{peak / 2**30:.2f} GiB; final checkpoint "
-              f"{ckpt_bytes / 1e9:.2f} GB in {saves[-1]:.2f} s; launches "
-              f"{counts}", flush=True)
+              + (f"{ckpt_bytes / 1e9:.2f} GB in {saves[-1]:.2f} s" if extra
+                 else f"at step {written} gathered (host copy and write "
+                 f"skipped)")
+              + f"; launches {counts}", flush=True)
         if out["mesh"] != {"pod": 1, "data": 1, "model": 1}:
             raise AssertionError(f"{name}: mesh {out['mesh']}")
         if out["final_step"] != COMP_STEPS or len(losses) != COMP_STEPS:
@@ -2158,6 +2229,23 @@ def compressed_agreement(torch) -> None:
 PLANNED_ARGS = TRAIN_ARGS + ["--auto", "--hw", "h100", "--profile"]
 
 
+@contextlib.contextmanager
+def no_checkpoint_write(written: list):
+    """The checkpoint manager's host copy and file write skipped: each
+    save appends its step to ``written`` (the gather, a collective, still
+    runs)."""
+    from repro_torch.ckpt import checkpoint
+
+    saved = (checkpoint.CheckpointManager._write, checkpoint._to_host)
+    checkpoint.CheckpointManager._write = \
+        lambda self, step, *a: written.append(step)
+    checkpoint._to_host = lambda tree: ([], [])
+    try:
+        yield
+    finally:
+        checkpoint.CheckpointManager._write, checkpoint._to_host = saved
+
+
 def train_planned(torch, kernels, losses11: list, serving: dict) -> dict:
     """The driver with ``--auto --hw h100 --profile`` at phase 11's
     configuration, with the launch counts read around it; its choice,
@@ -2174,9 +2262,13 @@ def train_planned(torch, kernels, losses11: list, serving: dict) -> dict:
 
     cfg = get_config(ARCH)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_planned_")
+    written = []
     try:
         reset_counts(kernels)
-        out = train.main(PLANNED_ARGS + ["--ckpt-dir", tmp])
+        # phase 11 writes and times this configuration's checkpoint; here
+        # the final one is neither copied to the host nor written (PR 31)
+        with no_checkpoint_write(written):
+            out = train.main(PLANNED_ARGS + ["--ckpt-dir", tmp])
         counts = read_counts(kernels)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2623,6 +2715,8 @@ def _rank_records(out_dir: str, nprocs: int) -> list:
 #: the pool of rank processes the meshed phases share (main process only)
 POOL_RANKS = 4
 _POOL = None
+#: the pool of exactly the ranks of the last :func:`own_ranks` call
+_OWN = None
 
 
 def _patch_points() -> list:
@@ -2766,18 +2860,33 @@ def close_pool() -> None:
         pool.close()
 
 
+def close_own() -> None:
+    """Stop the pool :func:`own_ranks` left open."""
+    global _OWN
+    if _OWN is not None:
+        pool, _OWN = _OWN, None
+        pool.close()
+
+
 def own_ranks(fn, *args, timeout: float = 600, nprocs: int = 2) -> list:
     """Run ``fn(rank, store, out_dir, *args)`` on a pool of exactly
-    ``nprocs`` ranks (:class:`RankPool`) started for this call, after the
-    shared pool is stopped, and closed after it: no idle rank holds the
-    card beside them.  Returns their ``rank<r>.json`` records; a rank that
-    fails or outlives ``timeout`` seconds fails the phase."""
+    ``nprocs`` ranks (:class:`RankPool`), after the shared pool is
+    stopped: no idle rank holds the card beside them.  The pool stays open
+    for the next call of as many ranks (phases 35 and 36 share one, a
+    spawn of two saved) and is stopped by a call of another count, by
+    :func:`close_own` or at exit.  Returns their ``rank<r>.json`` records;
+    a rank that fails or outlives ``timeout`` seconds fails the phase."""
+    global _OWN
     close_pool()
-    pool = RankPool(nprocs)
-    try:
-        return pool.run(fn, args, nprocs, timeout)
-    finally:
-        pool.close()
+    if _OWN is not None and (len(_OWN.procs) != nprocs or not all(
+            p.is_alive() for p in _OWN.procs)):
+        close_own()
+    if _OWN is None:
+        import atexit
+
+        _OWN = RankPool(nprocs)
+        atexit.register(close_own)
+    return _OWN.run(fn, args, nprocs, timeout)
 
 
 def spawn_ranks(fn, *args, timeout: float = 600, nprocs: int = 2) -> list:
@@ -2792,6 +2901,7 @@ def spawn_ranks(fn, *args, timeout: float = 600, nprocs: int = 2) -> list:
     if _POOL is None:
         import atexit
 
+        close_own()
         _POOL = RankPool()
         atexit.register(close_pool)
     return _POOL.run(fn, args, nprocs, timeout)
@@ -3570,7 +3680,8 @@ def _zero_rank(rank: int, store: str, out_dir: str, ckpt_root: str) -> None:
     blocks — each bit for bit.  Then phase 27's Case 2:
     ``replica×2{split×2}`` recorded as annotations on the meta device,
     ``compile_nested_plan`` of them, and its ZERO_STEPS steps the same
-    way."""
+    way.  Then phase 36 (d), Adafactor over the split and under ZeRO
+    (:func:`_zero_adafactor`)."""
     import dataclasses
 
     import numpy as np
@@ -3689,10 +3800,63 @@ def _zero_rank(rank: int, store: str, out_dir: str, ckpt_root: str) -> None:
                                     cl.taskgraph.nodes}),
                    total_s=time.perf_counter() - t0)
         out["wh"] = rec
+        out["adafactor"] = _zero_adafactor(
+            torch, dist, dataclasses.replace(cfg, dtype="float32"), run,
+            same, ckpt_root)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
+
+
+def _zero_adafactor(torch, dist, cfg, run, same, ckpt_root: str) -> dict:
+    """Phase 36 (d) in a rank of phase 24: Adafactor (the reference's
+    recipe for its archs of 50B and more) at data 2 x model 2 in f32 with
+    ZeRO 0, 1 and 3, ZERO_STEPS steps each (``run``): ZeRO-1's and
+    ZeRO-3's state, gathered into the checkpoint's layout, against
+    ZeRO-0's (its factored means summed over the blocks, so within f32's
+    rounding), and ZeRO-0's checkpoint restored into ZeRO-1's and
+    ZeRO-3's blocks and gathered back equal to it bit for bit (the
+    factored moments' layout under each level).  Returns per level its
+    run's record, the gaps and ``restored``."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.core.cost_model import StrategySpec
+    from repro_torch.core.planner import compile_plan, mesh_for_strategy
+    from repro_torch.models.lm import Model
+    from repro_torch.optim.optimizer import adafactor
+    from repro_torch.tree import flatten, tree_map
+
+    out, whole0, ckpt0 = {}, None, None
+    for z in ZERO_STAGES:
+        strat = StrategySpec(dp=2, tp=2, zero=z)
+        plan = compile_plan(Model(cfg), mesh_for_strategy(strat), strat)
+        opt = adafactor(lr=PP_LR)
+        st, rec = run(plan, opt)
+        full = plan.gather_state(st, opt)
+        if full is not None:
+            full = tree_map(torch.Tensor.cpu, full)
+        if z == 0:
+            whole0 = full
+            ckpt0 = CheckpointManager(
+                os.path.join(ckpt_root, "adafactor"), keep=1,
+                rank=dist.get_rank(), barrier=dist.barrier,
+                gather=lambda tree, plan=plan, opt=opt: plan.gather_state(
+                    tree, opt))
+            ckpt0.save(ZERO_STEPS, st)
+        else:
+            if full is not None:
+                rec["gaps"] = {
+                    p: [max_err(a, b), float(b.abs().max())]
+                    for p, a, b in zip(flatten(full)[0], flatten(full)[1],
+                                       flatten(whole0)[1])}
+            _, back, _ = plan.restore_state(ckpt0, opt)
+            again = plan.gather_state(back, opt)
+            rec["restored"] = again is None or same(again, whole0)
+            del back, again
+        out[str(z)] = rec
+        del st, plan, full
+        torch.cuda.empty_cache()
+    return out
 
 
 def train_hybrid_zero(torch) -> dict:
@@ -3797,6 +3961,7 @@ def train_hybrid_zero(torch) -> dict:
               flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    af_counts = _zero_adafactor_report(torch, ranks, cfg)
     want = dataclasses.asdict(StrategySpec(dp=2, tp=2))
     for r, out in enumerate(ranks):
         o = out["wh"]
@@ -3815,7 +3980,60 @@ def train_hybrid_zero(torch) -> dict:
                                  f"{o['counts']})")
     return {k: sum(r[z]["counts"][k] for r in ranks
                    for z in map(str, ZERO_STAGES)) for k in exp}, {
-        k: sum(r["wh"]["counts"][k] for r in ranks) for k in exp}
+        k: sum(r["wh"]["counts"][k] for r in ranks) for k in exp}, af_counts
+
+
+def _zero_adafactor_report(torch, ranks: list, cfg) -> dict:
+    """Print and hold phase 36 (d) (:func:`_zero_adafactor`): every
+    level's losses within 2e-5 + 2e-5|x| of ZeRO-0's and equal on every
+    rank, ZeRO-1's and ZeRO-3's gathered state (parameters and factored
+    moments) within 2e-4 + 2e-4 x each leaf's max of ZeRO-0's, ZeRO-0's
+    checkpoint restored into each level bit for bit, the launches those
+    of phase 24's model.  Returns the launches summed over ranks and
+    levels."""
+    exp = train_expected(ZERO_LAYERS, ZERO_STEPS, cfg.padded_vocab // 2,
+                         rows=ZERO_BATCH // 2, seq=ZERO_SEQ)
+    fails = []
+    lim, glim = TOL[str(torch.float32)], GRAD_TOL[str(torch.float32)]
+    for r, out in enumerate(ranks):
+        af = out["adafactor"]
+        l0 = af["0"]["losses"]
+        for z in map(str, ZERO_STAGES):
+            o = af[z]
+            worst = ""
+            if "gaps" in o:
+                share = {p: d / (glim + glim * top)
+                         for p, (d, top) in o["gaps"].items()}
+                w = max(share, key=share.get)
+                worst = (f"; its gathered state against zero=0's: worst "
+                         f"share of 2e-4 + 2e-4 x the leaf's max "
+                         f"{share[w]:.3f} ({w})")
+                fails += [f"rank {r} zero={z} {p}: share {v:.3f}"
+                          for p, v in share.items() if not v <= 1]
+            restored = "" if z == "0" else (
+                "; zero=0's checkpoint restored into its blocks and "
+                "gathered back " + ("bit for bit" if o["restored"]
+                                    else "DIFFERENT"))
+            print(f"[zero] Adafactor rank {r} zero={z} (f32): losses "
+                  f"{o['losses']}, step seconds "
+                  f"{[round(x, 3) for x in o['seconds']]}, peak "
+                  f"{o['peak'] / 2**30:.3f} GiB beside "
+                  f"{o['state_bytes'] / 2**30:.3f} GiB of state{worst}"
+                  f"{restored}; launches {o['counts']}", flush=True)
+            if o["counts"] != exp:
+                fails.append(f"rank {r} zero={z}: launches {o['counts']}")
+            if z != "0" and not o["restored"]:
+                fails.append(f"rank {r} zero={z}: zero=0's checkpoint "
+                             f"restored other blocks")
+            if o["losses"] != ranks[0]["adafactor"][z]["losses"] or not all(
+                    abs(a - b) <= lim + lim * abs(b)
+                    for a, b in zip(o["losses"], l0)):
+                fails.append(f"rank {r} zero={z}: losses {o['losses']} "
+                             f"against zero=0's {l0}")
+    if fails:
+        raise AssertionError("Adafactor under ZeRO: " + "; ".join(fails))
+    return {k: sum(out["adafactor"][z]["counts"][k] for out in ranks
+                   for z in map(str, ZERO_STAGES)) for k in exp}
 
 
 # ---------------------------------------------------------------------------
@@ -5007,6 +5225,9 @@ MOE_TRAIN_ARGS = ["--arch", MOE, "--overrides",
 MOE_SPLIT_RUNS = {"f32": (1, "float32")}
 MOE_SPLIT_BATCH, MOE_SPLIT_STEPS = 2, 2
 MOE_EP_ROWS = 2                 # moe_block_ep: one row of 2048 a rank
+#: the depth of the teacher-forced runs of (a) (28 before PR 31, cut to
+#: hold the script's time; the driver serves all 28)
+MOE_TF_LAYERS = 14
 #: decode's floor: every expert weight read once a step (31.0 GB at
 #: 3.35 TB/s; the port runs every expert on its capacity buffer)
 MOE_EXPERT_BYTES = 28 * 64 * 3 * 2048 * 1408 * 2
@@ -5045,7 +5266,8 @@ def moe_serve(torch, kernels) -> tuple:
     tokens through 8 slots: launches (flash forward 28 an admission,
     paged decode 28 a step), the peak beside the weights and KV, the
     decode step's median against its floor.  Then teacher-forced logits
-    (phase 26's: 2 prompts of 500, 16 forced steps) of one draw in bf16:
+    (phase 26's: 2 prompts of 500, 16 forced steps) of one draw in bf16
+    at MOE_TF_LAYERS layers:
     paged through the kernels, dense, and paged through the plain
     versions on the card; dense and plain each held within TF_PAIR times
     the larger of its and the paged run's own error (each against the
@@ -5109,15 +5331,15 @@ def moe_serve(torch, kernels) -> tuple:
           f"near-tie may flip an argmax; the teacher-forced logits below "
           f"are what is held)", flush=True)
 
-    model = Model(_moe_cfg(param_dtype="bfloat16"))
+    model = Model(_moe_cfg(param_dtype="bfloat16", n_layers=MOE_TF_LAYERS))
     plan = compile_plan(model, None)
     params = model.serving_params(plan.init_params(0))
     tf = {"paged": teacher_forced(torch, model, plan, params, "paged"),
           "dense": teacher_forced(torch, model, plan, params, "dense")}
     with plain_on_card():
         tf["plain"] = teacher_forced(torch, model, plan, params, "paged")
-    # the same weights in f32 (62.9 GB), largest leaf first, each bf16
-    # leaf freed as it goes: the peak is ~70 GB
+    # the same weights in f32 (31.5 GB at 14 layers), largest leaf first,
+    # each bf16 leaf freed as it goes
     leaves = sorted(((node, k) for node in _dicts(params) for k, v in
                      node.items() if isinstance(v, torch.Tensor)),
                     key=lambda nk: -nk[0][nk[1]].numel())
@@ -5126,7 +5348,8 @@ def moe_serve(torch, kernels) -> tuple:
     del leaves
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    m32 = Model(_moe_cfg(param_dtype="float32", dtype="float32"))
+    m32 = Model(_moe_cfg(param_dtype="float32", dtype="float32",
+                         n_layers=MOE_TF_LAYERS))
     tf["f32"] = teacher_forced(torch, m32, compile_plan(m32, None), params,
                                "paged")
     print(f"[moe] the f32 yardstick's run: peak device memory "
@@ -5140,7 +5363,8 @@ def moe_serve(torch, kernels) -> tuple:
     for n, g in own.items():
         print(f"[moe] yardstick {n}: bf16's own error, its teacher-forced "
               f"logits against the same weights in f32 (paged, the f32 "
-              f"kernels) at 28 layers: max |diff| {g['max_abs']:.3e}, "
+              f"kernels) at {MOE_TF_LAYERS} layers: max |diff| "
+              f"{g['max_abs']:.3e}, "
               f"worst share of 0.02 + 0.02|x| {g['worst']:.3f}", flush=True)
     fails = []
     for name in ("dense", "plain"):
@@ -5941,6 +6165,9 @@ def compressed_blocks(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 M2_TRAIN_STEPS = 3
+#: the depth of step 0's bf16 agreement through the kernels against the
+#: plain versions (48 before PR 31; f32 holds it at 2 layers)
+M2_AGREE_LAYERS = 16
 M2_TRAIN_ARGS = ["--arch", MAMBA, "--batch", str(TRAIN_BATCH), "--seq",
                  str(TRAIN_SEQ), "--steps", str(M2_TRAIN_STEPS),
                  "--optimizer", "adamw", "--log-every", "1"]
@@ -5974,7 +6201,7 @@ def mamba2_train(torch, kernels) -> dict:
     from repro_torch.models import mamba2
     from repro_torch.models.lm import Model, param_count
     from repro_torch.optim.optimizer import adamw
-    from repro_torch.tree import flatten, unflatten
+    from repro_torch.tree import flatten, tree_map, unflatten
 
     cfg = get_config(MAMBA)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mamba2_train_")
@@ -6114,6 +6341,12 @@ def mamba2_train(torch, kernels) -> dict:
     del m32, p32, g_k, g_p
     torch.cuda.empty_cache()
 
+    # bf16 at M2_AGREE_LAYERS of the 48 layers (cut in PR 31 to hold the
+    # script's time): the first rows of every stacked leaf
+    deep = dataclasses.replace(cfg, n_layers=M2_AGREE_LAYERS)
+    model = Model(deep)
+    params = dict(params, blocks=tree_map(lambda p: p[:M2_AGREE_LAYERS],
+                                          params["blocks"]))
     loss_k, _, g_k = loss_and_grads(model, params, data_batch)
     g_k = dict(zip(*flatten(g_k)))
     with plain_on_card():
@@ -6122,7 +6355,7 @@ def mamba2_train(torch, kernels) -> dict:
     rel = grad_gaps(g_k, g_p)
     del g_k
     torch.cuda.empty_cache()
-    f32 = Model(dataclasses.replace(cfg, dtype="float32"))
+    f32 = Model(dataclasses.replace(deep, dtype="float32"))
     loss_f, _, g_f = loss_and_grads(f32, params, data_batch)
     yard = grad_gaps(g_p, dict(zip(*flatten(g_f))))
     del g_f, g_p, params
@@ -6131,7 +6364,9 @@ def mamba2_train(torch, kernels) -> dict:
     worst = max(rel, key=lambda k: rel[k] / max(gate[k], 1e-30))
     loss_gap, loss_yard = abs(float(loss_k - loss_p)), abs(float(loss_p
                                                                 - loss_f))
-    print(f"[mamba2-train] step 0, 48 layers bf16, through the kernels "
+    print(f"[mamba2-train] step 0, {M2_AGREE_LAYERS} layers bf16, through "
+          f"the "
+          f"kernels "
           f"against the plain versions on the card: loss "
           f"{float(loss_k):.6f} vs {float(loss_p):.6f} (f32 "
           f"{float(loss_f):.6f}; |diff| {loss_gap:.3e} against bf16's own "
@@ -6469,11 +6704,13 @@ def mamba2_split(torch) -> dict:
 #: (a, b): deepseek at full width and 2 layers, one a stage (AdamW's state
 #: at 28 layers, ~270 GB, fits no card), on launch.train's stream of
 #: TRAIN_BATCH x TRAIN_SEQ batches in PP_MICRO micro-batches of a row,
-#: 1f1b, AdamW at a constant PP_LR
-MOE_PP_LAYERS, MOE_PP_STEPS = 2, 3
-#: the runs of (a) and (b): name -> (activation dtype, steps); bf16 is the
-#: path, f32 holds its step 0 to f32's limits
+#: 1f1b, AdamW at a constant PP_LR (bf16 at 2 steps, 3 before PR 31)
+MOE_PP_LAYERS, MOE_PP_STEPS = 2, 2
+#: the runs of (a): name -> (activation dtype, steps); bf16 is the path,
+#: f32 holds its step 0 to f32's limits; (b) runs f32 alone since PR 31
+#: (its bf16 path is (a)'s code over a model split that f32 holds)
 MOE_PP_RUNS = {"bf16": ("bfloat16", MOE_PP_STEPS), "f32": ("float32", 1)}
+MOE_PP_TP_RUNS = {"f32": MOE_PP_RUNS["f32"]}
 #: (a) and (b): world -> the model axis beside pipeline×2 (data 1)
 MOE_PP_MODEL = {2: 1, 4: 2}
 #: (c): data 2 in f32 at 2 layers, a row of TRAIN_SEQ a replica
@@ -6749,8 +6986,8 @@ def _pp_report(torch, prefix: str, what: str, outs: list, refs: dict,
     times bf16's own error; f32 within 1e-4 + 1e-4|x| (values) and 2e-4
     of each leaf's max (gradients); the ranks' losses equal; each rank's
     launches those of its stage (``attn`` attention layers a stage, the
-    loss head on the last).  Returns the bf16 run's launches summed over
-    the ranks."""
+    loss head on the last).  Returns the bf16 run's launches (the f32
+    one's where ``runs`` has no bf16) summed over the ranks."""
     own, own_loss = refs["own"], refs["own_loss"]
     for name, (_, steps) in runs.items():
         want = refs["pp"][name]
@@ -6797,8 +7034,9 @@ def _pp_report(torch, prefix: str, what: str, outs: list, refs: dict,
             fails += _moe_grad_lines(f"{what} f32", rs,
                                      lambda p: GRAD_TOL[str(torch.float32)],
                                      prefix)
-    return {k: sum(o["bf16"]["counts"][k] for o in outs)
-            for k in outs[0]["bf16"]["counts"]}
+    path = "bf16" if "bf16" in runs else "f32"
+    return {k: sum(o[path]["counts"][k] for o in outs)
+            for k in outs[0][path]["counts"]}
 
 
 def _pp_refs_lines(prefix: str, layers: int, refs: dict) -> None:
@@ -7001,8 +7239,9 @@ def _moe_engine_rank(rank: int, store: str, out_dir: str, ref_dir: str,
         parts = [("pp", lambda: _pp_part(
             torch, _moe_pp_model, StrategySpec(
                 pp=2, tp=mp, ep=mp, micro_batches=PP_MICRO,
-                schedule="1f1b"), MOE_PP_RUNS, os.path.join(ref_dir, "pp"),
-            kernels, stats, whole))]
+                schedule="1f1b"),
+            MOE_PP_RUNS if world == 2 else MOE_PP_TP_RUNS,
+            os.path.join(ref_dir, "pp"), kernels, stats, whole))]
         if world == 2:
             parts.append(("dp", lambda: _moe_dp_part(torch, ref_dir,
                                                      kernels, stats, dp,
@@ -7094,7 +7333,9 @@ def _moe_report_pp(torch, ranks: dict, refs: dict, fails: list) -> dict:
     return {"train_moe_pipeline" if world == 2 else "train_moe_pipeline_tp":
             _pp_report(torch, "[moe-engine]", "(a) pipeline×2" if world == 2
                        else "(b) pipeline×2 over model 2",
-                       [o["pp"] for o in rs], refs, MOE_PP_RUNS, 1, fails)
+                       [o["pp"] for o in rs], refs,
+                       MOE_PP_RUNS if world == 2 else MOE_PP_TP_RUNS, 1,
+                       fails)
             for world, rs in ranks.items()}
 
 
@@ -7341,8 +7582,11 @@ def dense_rest_serve(torch, kernels, arch: str) -> dict:
 
 
 #: the plain run's witness of the driver's bf16 losses: each step's loss
-#: through the kernels within this share of the plain versions'
+#: through the kernels within this share of the plain versions', over
+#: the first DR_WITNESS_STEPS steps (2 since PR 31: the plain versions'
+#: steps are the slowest of the phase)
 DR_WITNESS_REL = 0.05
+DR_WITNESS_STEPS = 2
 
 
 def dense_rest_train(torch, kernels, arch: str) -> dict:
@@ -7358,7 +7602,6 @@ def dense_rest_train(torch, kernels, arch: str) -> dict:
     copied to the host nor written (phase 11 does both)."""
     import dataclasses
 
-    from repro_torch.ckpt import checkpoint
     from repro_torch.configs import get_config
     from repro_torch.launch import train
     from repro_torch.models.lm import Model, param_count
@@ -7379,34 +7622,30 @@ def dense_rest_train(torch, kernels, arch: str) -> dict:
             return r
         return dataclasses.replace(o, apply=apply)
 
-    def drive():
+    def drive(steps=DR_TRAIN_STEPS):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         return train.main(["--arch", arch, "--batch", str(TRAIN_BATCH),
-                           "--seq", str(TRAIN_SEQ), "--steps",
-                           str(DR_TRAIN_STEPS), "--optimizer", "adamw",
-                           "--log-every", "1", "--ckpt-dir", tmp])
+                           "--seq", str(TRAIN_SEQ), "--steps", str(steps),
+                           "--optimizer", "adamw", "--log-every", "1",
+                           "--ckpt-dir", tmp])
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dense_rest_")
-    saved = (checkpoint.CheckpointManager._write, checkpoint._to_host)
-    checkpoint.CheckpointManager._write = \
-        lambda self, step, *a: written.append(step)
-    checkpoint._to_host = lambda tree: ([], [])
     train.adamw = timed_adamw
     try:
-        reset_counts(kernels)
-        with host_timed(torch, Model, "loss_fn", fwd):
-            res = drive()
-        counts = read_counts(kernels)
-        peak = torch.cuda.max_memory_allocated()
-        train.adamw = real_adamw
-        with plain_on_card():
-            t0 = time.perf_counter()
-            plain = drive()["losses"]
-            plain_s = time.perf_counter() - t0
-        plain_peak = torch.cuda.max_memory_allocated()
+        with no_checkpoint_write(written):
+            reset_counts(kernels)
+            with host_timed(torch, Model, "loss_fn", fwd):
+                res = drive()
+            counts = read_counts(kernels)
+            peak = torch.cuda.max_memory_allocated()
+            train.adamw = real_adamw
+            with plain_on_card():
+                t0 = time.perf_counter()
+                plain = drive(DR_WITNESS_STEPS)["losses"]
+                plain_s = time.perf_counter() - t0
+            plain_peak = torch.cuda.max_memory_allocated()
     finally:
-        checkpoint.CheckpointManager._write, checkpoint._to_host = saved
         train.adamw = real_adamw
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -7432,14 +7671,14 @@ def dense_rest_train(torch, kernels, arch: str) -> dict:
           f"launches {counts}", flush=True)
     rel = [abs(a - b) / abs(b) for a, b in zip(res["losses"], plain)]
     print(f"[dense-rest] {arch} train through the plain versions (the "
-          f"same {DR_TRAIN_STEPS} driver steps, bf16): losses {plain} in "
+          f"first {DR_WITNESS_STEPS} driver steps, bf16): losses {plain} in "
           f"{plain_s:.1f} s, peak {plain_peak / 2**30:.2f} GiB; kernels "
           f"against plain |diff| / |plain| {[f'{x:.2e}' for x in rel]} "
           f"(gate {DR_WITNESS_REL})", flush=True)
     if not all(math.isfinite(x) for x in res["losses"] + plain):
         raise AssertionError(f"{arch} train: losses {res['losses']}, "
                              f"plain {plain}")
-    if len(plain) != DR_TRAIN_STEPS or not max(rel) <= DR_WITNESS_REL:
+    if len(plain) != DR_WITNESS_STEPS or not max(rel) <= DR_WITNESS_REL:
         raise AssertionError(f"{arch} train: losses {res['losses']} through "
                              f"the kernels, {plain} through the plain "
                              f"versions")
@@ -7659,7 +7898,6 @@ def jamba_train(torch, kernels) -> dict:
     card and its step-0 loss, equal to the run's without it."""
     import dataclasses
 
-    from repro_torch.ckpt import checkpoint
     from repro_torch.launch import train
     from repro_torch.models.lm import Model, param_count
     from repro_torch.tree import flatten
@@ -7688,27 +7926,24 @@ def jamba_train(torch, kernels) -> dict:
         return dataclasses.replace(o, init=init, apply=apply)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_jamba_")
-    saved = (checkpoint.CheckpointManager._write, checkpoint._to_host)
-    checkpoint.CheckpointManager._write = \
-        lambda self, step, *a: written.append(step)
-    checkpoint._to_host = lambda tree: ([], [])
     train.adafactor = timed_adafactor
     try:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts(kernels)
-        with host_timed(torch, Model, "loss_fn", fwd):
-            res = train.main(JB_TRAIN_ARGS + ["--ckpt-dir", tmp])
-        counts = read_counts(kernels)
-        peak = torch.cuda.max_memory_allocated()
-        train.adafactor = real_adafactor
-        shutil.rmtree(tmp, ignore_errors=True)
-        torch.cuda.empty_cache()
-        # the planner's pick on one card: the same plan, the same step 0
-        auto = train.main(JB_TRAIN_ARGS + ["--steps", "1", "--auto",
-                                           "--ckpt-dir", tmp])
+        with no_checkpoint_write(written):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(kernels)
+            with host_timed(torch, Model, "loss_fn", fwd):
+                res = train.main(JB_TRAIN_ARGS + ["--ckpt-dir", tmp])
+            counts = read_counts(kernels)
+            peak = torch.cuda.max_memory_allocated()
+            train.adafactor = real_adafactor
+            shutil.rmtree(tmp, ignore_errors=True)
+            torch.cuda.empty_cache()
+            # the planner's pick on one card: the same plan, the same
+            # step 0
+            auto = train.main(JB_TRAIN_ARGS + ["--steps", "1", "--auto",
+                                               "--ckpt-dir", tmp])
     finally:
-        checkpoint.CheckpointManager._write, checkpoint._to_host = saved
         train.adafactor = real_adafactor
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -7913,7 +8148,7 @@ def jamba(torch, kernels) -> dict:
 #: AdamW at PP_LR: name -> (activation dtype, steps); bf16 is the path,
 #: f32 holds its step 0 to f32's limits (phase 32's runs)
 M2_PP_LAYERS = 4
-M2_PP_RUNS = {"bf16": ("bfloat16", 3), "f32": ("float32", 1)}
+M2_PP_RUNS = {"bf16": ("bfloat16", 2), "f32": ("float32", 1)}
 #: (b) jamba at 4 layers of JB_PATTERN (one period a stage), f32, step 0
 #: in 2 micro-batches of one row of JB_PP_SEQ: each of the two ranks on
 #: one card holds 25.4 GiB of weights and gradients beside its
@@ -8386,6 +8621,587 @@ def hybrid_engine(torch, kernels) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 36: grok-1-314b
+# ---------------------------------------------------------------------------
+
+GROK = "grok-1-314b"
+#: (a) the depth served in bf16 (39.7 GiB of weights; all 64 take 586 GiB)
+GK_SERVE_LAYERS = 4
+GK_SERVE = ["--arch", GROK, "--overrides",
+            f"n_layers={GK_SERVE_LAYERS},param_dtype=bfloat16"] + DR_SERVE
+#: (b) the driver at full width and 1 layer (6.531e9 parameters: f32
+#: parameters and gradients take 48.7 GiB), Adafactor, the reference's
+#: recipe for grok
+GK_TRAIN_STEPS = 3
+GK_TRAIN_ARGS = ["--arch", GROK, "--overrides", "n_layers=1", "--batch",
+                 str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--steps",
+                 str(GK_TRAIN_STEPS), "--optimizer", "adafactor",
+                 "--log-every", "1"]
+#: (b) step 0 through the kernels against the plain versions in f32 on
+#: GK_GRAD_ROWS x TRAIN_SEQ (two gradient trees of 26.1 GB do not fit
+#: beside each other: the first one's held rows wait on the host)
+GK_GRAD_ROWS = 1
+#: (c) the expert-TP split on 2 ranks: a 2-way axis divides grok's 8
+#: experts, so 3 (the reference reaches the fallback only on its 16-way
+#: axis), at 1 layer, f32, GK_TP_ROWS x GK_TP_SEQ, GK_TP_STEPS Adafactor
+#: steps at PP_LR
+GK_TP_EXPERTS, GK_TP_ROWS, GK_TP_SEQ, GK_TP_STEPS = 3, 2, 1024, 2
+#: (b, c): a leaf of at least 2^26 elements is held element by element on
+#: the first 1/GK_HELD of its ``embed`` dim (never split over model, so a
+#: rank's block cuts the same way); the max |x| is the whole leaf's
+GK_HELD = 8
+
+
+def _grok_cfg(**kw):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(GROK), **kw)
+
+
+def _gk_cuts(model) -> dict:
+    """{path: the ``embed`` dim} of the leaves of ``model`` of 2^26
+    elements or more (the whole leaf's count, whatever a rank holds)."""
+    from repro_torch.tree import flatten
+
+    axes = dict(zip(*flatten(model.axes())))
+    return {p: axes[p].index("embed")
+            for p, m in zip(*flatten(model.param_shapes()))
+            if m.numel() >= 1 << 26 and "embed" in axes[p]}
+
+
+def _gk_held(cuts: dict, path: str, x):
+    """The part of leaf ``path`` (or a rank's block of it) held element by
+    element: the first 1/GK_HELD of its ``embed`` dim where ``cuts`` (of
+    :func:`_gk_cuts`) names the leaf, else the whole."""
+    if path not in cuts:
+        return x
+    i = cuts[path]
+    return x.narrow(i, 0, x.shape[i] // GK_HELD)
+
+
+def _gk_floor_bytes(model) -> int:
+    """A decode step's least read: every weight once (bf16, the router in
+    f32) but the embedding table, of which it reads one row a slot."""
+    from repro_torch.tree import flatten
+
+    return sum(m.numel() * (4 if "/router/" in p else 2)
+               for p, m in zip(*flatten(model.param_shapes()))
+               if p != "embed/table")
+
+
+def grok_serve(torch, kernels) -> dict:
+    """Phase 36 (a): ``serve.run`` on grok at full width and
+    GK_SERVE_LAYERS layers in bf16, paged (64-row pages; the kernel's
+    group of 6) and dense, 8 requests of 256 + 32 tokens through 8 slots:
+    TTFT, TPOT, tokens/s, the peak beside the weights and KV, the decode
+    step against its floor (every weight but the table read once), the
+    launches (flash forward one per layer and admission, paged decode one
+    per layer and step, nothing else).  Then teacher-forced logits
+    (phase 26's, paged) at 1 layer in f32 through the kernels against the
+    plain versions on the card within 1e-4 + 1e-4|x|, and the routing
+    choices that flip between them."""
+    from repro_torch.core.planner import compile_plan
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    from repro_torch.models.lm import Model, param_count
+    from repro_torch.serving import server as srv
+    from repro_torch.tree import flatten
+
+    out = {}
+    for cache in ("paged", "dense"):
+        argv = (GK_SERVE + ["--cache", cache]
+                + (["--page-size", "64"] if cache == "paged" else []))
+        admits, steps = [], []
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        with host_timed(torch, srv.Server, "admit", admits), \
+                host_timed(torch, srv.Server, "step", steps, live_slots):
+            summary, server = serve.run(serve.parse_args(argv))
+        counts = read_counts(kernels)
+        peak = torch.cuda.max_memory_allocated()
+        kv = server.pools if cache == "paged" else server.state["cache"]
+        kv_bytes = sum(t.numel() * t.element_size() for t in flatten(kv)[1])
+        layers = server.model.cfg.n_layers
+        n = param_count(server.model.param_shapes())
+        floor = _gk_floor_bytes(server.model) / PEAK_BYTES_PER_S
+        full = [t for t, k in steps if k == 8]
+        ttft = statistics.median(t for t, _ in admits)
+        tpot = statistics.median(full or [t for t, _ in steps])
+        print(f"[grok] serve {cache}, {layers} layers, bf16: "
+              f"{summary['completed']} requests, {summary['tokens']} tokens, "
+              f"{summary['steps']} decode steps in {summary['seconds']:.3f} s "
+              f"({summary['tokens'] / summary['seconds']:.1f} tok/s); TTFT "
+              f"{ttft * 1e3:.2f} ms (median admission: a 256-token prefill "
+              f"and its first token), TPOT {tpot * 1e3:.2f} ms (median "
+              f"decode step, {len(full)} with 8 live slots), host clock, "
+              f"synced, against the floor {floor * 1e3:.2f} ms (every weight "
+              f"but the table read once at 3.35 TB/s), {tpot / floor:.2f}x; "
+              f"{n:,} parameters ({n * 2 / 2**30:.2f} GiB in bf16), KV "
+              f"{kv_bytes / 2**30:.3f} GiB, peak device memory "
+              f"{peak / 2**30:.2f} GiB; launches {counts}", flush=True)
+        if summary["completed"] != 8:
+            raise AssertionError(f"grok serve {cache}: "
+                                 f"{summary['completed']} requests")
+        want_pd = layers * summary["steps"] if cache == "paged" else 0
+        if counts["flash_fwd"] != layers * len(admits) \
+                or counts["paged_decode"] != want_pd \
+                or sum(counts.values()) != counts["flash_fwd"] + want_pd:
+            raise AssertionError(f"grok serve {cache}: launches {counts}")
+        out[cache] = counts
+        del server
+        torch.cuda.empty_cache()
+
+    def routed(fn, record):
+        real = _route_by_micro(torch, record, {"mb": 0})
+        try:
+            return fn()
+        finally:
+            moe._route = real
+
+    model = Model(_grok_cfg(n_layers=1, dtype="float32"))
+    plan = compile_plan(model, None)
+    params = model.serving_params(plan.init_params(0))
+    rk, rp = {}, {}
+    got = routed(lambda: teacher_forced(torch, model, plan, params, "paged"),
+                 rk)
+    with plain_on_card():
+        want = routed(lambda: teacher_forced(torch, model, plan, params,
+                                             "paged"), rp)
+    del params
+    torch.cuda.empty_cache()
+    g = tf_gap(got, want, TF_TOL["float32"])
+    flips = _keyed_flips(rk, rp)
+    print(f"[grok] teacher-forced f32 at 1 layer, paged through the kernels "
+          f"against the plain versions: max |diff| {g['max_abs']:.3e}, "
+          f"worst share of 1e-4 + 1e-4|x| {g['worst']:.3f}; routing flips "
+          f"{flips[0]} of {flips[1]} tokens", flush=True)
+    if not g["worst"] <= 1:
+        raise AssertionError("grok: f32 teacher-forced logits outside "
+                             "1e-4 + 1e-4|x|")
+    return out
+
+
+def grok_train(torch, kernels) -> dict:
+    """Phase 36 (b): ``train.main`` on grok at full width and 1 layer,
+    batch 4 x 2048, remat full, Adafactor (the reference's recipe),
+    GK_TRAIN_STEPS steps: finite losses, ``moe_lb`` and ``moe_z``, the
+    launches, tokens/s after step 0 and, in those steps, the forward,
+    backward and Adafactor on the host clock; the peak beside the
+    parameters and gradients (48.7 GiB reckoned) and Adafactor's state.
+    The final checkpoint is neither copied to the host nor written.  Then
+    step 0's loss, ``moe_lb``, ``moe_z`` and every gradient leaf (its
+    held part, :func:`_gk_held`) through the kernels against the plain
+    versions on the card, f32, GK_GRAD_ROWS x 2048, within 2e-4 +
+    2e-4|x|, and the routing choices that flip."""
+    import dataclasses
+
+    from repro_torch.core.planner import loss_and_grads
+    from repro_torch.launch import train
+    from repro_torch.models import moe
+    from repro_torch.models.lm import Model, param_count
+    from repro_torch.tree import flatten
+
+    cfg = _grok_cfg(n_layers=1)
+    fwd, upd, written, held = [], [], [], []
+    real_adafactor = train.adafactor
+
+    def timed_adafactor(*a, **kw):
+        o = real_adafactor(*a, **kw)
+
+        def init(params):
+            st = o.init(params)
+            held.append(sum(t.numel() * t.element_size()
+                            for t in flatten(st)[1]))
+            return st
+
+        def apply(*aa, **kk):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = o.apply(*aa, **kk)
+            torch.cuda.synchronize()
+            upd.append(time.perf_counter() - t0)
+            return r
+        return dataclasses.replace(o, init=init, apply=apply)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_grok_")
+    train.adafactor = timed_adafactor
+    try:
+        with no_checkpoint_write(written):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(kernels)
+            with host_timed(torch, Model, "loss_fn", fwd):
+                res = train.main(GK_TRAIN_ARGS + ["--ckpt-dir", tmp])
+            counts = read_counts(kernels)
+            peak = torch.cuda.max_memory_allocated()
+    finally:
+        train.adafactor = real_adafactor
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    n = param_count(Model(cfg, "meta").param_shapes())
+    secs = res["step_seconds"]
+    if not len(secs) == len(fwd) == len(upd) == GK_TRAIN_STEPS:
+        raise AssertionError(f"grok train: {len(secs)} steps, {len(fwd)} "
+                             f"forwards, {len(upd)} updates")
+    f_ms = statistics.median(t for t, _ in fwd[1:]) * 1e3
+    o_ms = statistics.median(upd[1:]) * 1e3
+    b_ms = statistics.median(s - f - o for s, (f, _), o in
+                             zip(secs[1:], fwd[1:], upd[1:])) * 1e3
+    tok = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[grok] train, 1 layer, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"Adafactor: {n:,} parameters; losses {res['losses']}, moe_lb "
+          f"{res['moe_lb']}, moe_z {res['moe_z']}; step seconds "
+          f"{[round(x, 3) for x in secs]} "
+          f"({tok / statistics.median(secs[1:]):.1f} tok/s after step 0); "
+          f"after step 0, medians: forward {f_ms:.1f} ms, backward (the "
+          f"recompute included) {b_ms:.1f} ms, Adafactor {o_ms:.1f} ms; "
+          f"peak device memory {peak / 2**30:.2f} GiB beside parameters "
+          f"and gradients {8 * n / 2**30:.2f} GiB (f32) and Adafactor's "
+          f"state {held[0] / 2**30:.4f} GiB; final checkpoint at step "
+          f"{written} (host copy and write skipped); launches {counts}",
+          flush=True)
+    vals = res["losses"] + res["moe_lb"] + res["moe_z"]
+    if not all(math.isfinite(x) for x in vals) or min(res["moe_lb"]) <= 0:
+        raise AssertionError(f"grok train: losses {res['losses']}, moe_lb "
+                             f"{res['moe_lb']}, moe_z {res['moe_z']}")
+    exp = train_expected(1, GK_TRAIN_STEPS, cfg.padded_vocab)
+    if counts != exp:
+        raise AssertionError(f"grok train: launches {counts}, want {exp}")
+
+    # step 0 through the kernels, its held parts on the host, then the
+    # plain versions
+    model = Model(dataclasses.replace(cfg, dtype="float32"))
+    cuts = _gk_cuts(model)
+    params = model.init(0)
+    batch = _first_batch(torch, cfg.vocab, GK_GRAD_ROWS)
+
+    def step0(record):
+        real = _route_by_micro(torch, record, {"mb": 0})
+        try:
+            loss, m, g = loss_and_grads(model, params, batch)
+        finally:
+            moe._route = real
+        return loss, m, g
+
+    rk, rp = {}, {}
+    loss_k, m_k, g = step0(rk)
+    want = {p: (_gk_held(cuts, p, x).cpu(), float(
+        torch.linalg.vector_norm(x, float("inf"))))
+        for p, x in zip(*flatten(g))}
+    del g
+    torch.cuda.empty_cache()
+    with plain_on_card():
+        loss_p, m_p, g = step0(rp)
+    lim = GRAD_TOL[str(torch.float32)]
+    worst = max(check_close(f"grok f32 gradient {p}",
+                            _gk_held(cuts, p, x), want[p][0].cuda(),
+                            torch.float32, lim)
+                for p, x in zip(*flatten(g)))
+    for k, a, b in (("loss", loss_k, loss_p),
+                    ("moe_lb", m_k["moe_lb"], m_p["moe_lb"]),
+                    ("moe_z", m_k["moe_z"], m_p["moe_z"])):
+        check_close(f"grok f32 {k}", a, b, torch.float32, lim)
+    flips = _keyed_flips(rk, rp)
+    print(f"[grok] f32, 1 layer, step 0 at {GK_GRAD_ROWS} x {TRAIN_SEQ} "
+          f"through the kernels against the plain versions: loss "
+          f"{float(loss_k):.6f} vs {float(loss_p):.6f}, moe_lb "
+          f"{float(m_k['moe_lb']):.6f} vs {float(m_p['moe_lb']):.6f}, moe_z "
+          f"{float(m_k['moe_z']):.6f} vs {float(m_p['moe_z']):.6f}, every "
+          f"gradient leaf (1/{GK_HELD} of the embed dim of the large ones) "
+          f"within 2e-4 + 2e-4|x| (max |diff| {worst:.3e}); routing flips "
+          f"{flips[0]} of {flips[1]}", flush=True)
+    del params, g, want
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _gk_routes(torch, record: list):
+    """Wrap ``moe._route`` so each call appends its expert ids (sorted, on
+    the host) to ``record``, in call order: (c)'s steps update the router,
+    so a call is known by its place, not by its weights."""
+    from repro_torch.models import moe
+
+    real = moe._route
+
+    def route(params, x, cfg, split=None):
+        out = real(params, x, cfg, split)
+        record.append(out[2].detach().sort(-1).values.cpu())
+        return out
+
+    moe._route = route
+    return real
+
+
+def _gk_flips(got: list, want: list) -> list:
+    """[tokens whose expert set differs, tokens] over two runs' routing
+    calls in order (:func:`_gk_routes`)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} routing calls against "
+                             f"{len(want)}")
+    return [sum(int((a != b).any(-1).sum()) for a, b in zip(got, want)),
+            sum(a.numel() // a.shape[-1] for a in got)]
+
+
+def _gk_tp_model(torch):
+    from repro_torch.models.lm import Model
+    return Model(_grok_cfg(n_layers=1, n_experts=GK_TP_EXPERTS,
+                           dtype="float32"))
+
+
+def _gk_saving(torch, o, d: str, cuts: dict):
+    """``o`` whose step-0 ``apply`` first saves each gradient leaf's held
+    part (:func:`_gk_held`) to ``d``."""
+    import dataclasses
+
+    from repro_torch.tree import flatten
+
+    def apply(grads, state, params, step, **kw):
+        if step == 0:
+            _save_leaves(torch, d, ((p, _gk_held(cuts, p, x), float(
+                torch.linalg.vector_norm(x, float("inf"))))
+                for p, x in zip(*flatten(grads))))
+        return o.apply(grads, state, params, step, **kw)
+
+    return dataclasses.replace(o, apply=apply)
+
+
+def _gk_tp_reference(torch, d: str) -> dict:
+    """(c)'s unsharded run of one process: grok at 1 layer with
+    GK_TP_EXPERTS experts in f32, GK_TP_STEPS Adafactor steps on
+    GK_TP_ROWS x GK_TP_SEQ; its losses, routing, seconds and peak; the
+    step-0 gradient to ``d/grads`` and the parameters after the last step
+    to ``d/params`` (the held parts)."""
+    from repro_torch.core.planner import compile_plan
+    from repro_torch.models import moe
+    from repro_torch.optim.optimizer import adafactor
+    from repro_torch.tree import flatten
+
+    model = _gk_tp_model(torch)
+    cuts = _gk_cuts(model)
+    plan = compile_plan(model, None)
+    params = plan.init_params(0)
+    o = _gk_saving(torch, adafactor(lr=PP_LR), os.path.join(d, "grads"),
+                   cuts)
+    state = plan.init_opt(o, params)
+    step_fn = plan.train_step_fn(o)
+    batch = _first_batch(torch, model.cfg.vocab, GK_TP_ROWS, GK_TP_SEQ)
+    routes = []
+    real = _gk_routes(torch, routes)
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for i in range(GK_TP_STEPS):
+            params, state, m = step_fn(params, state, batch, i)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+    finally:
+        moe._route = real
+    rec = {"losses": losses, "seconds": time.perf_counter() - t0,
+           "peak": torch.cuda.max_memory_allocated()}
+    _save_leaves(torch, os.path.join(d, "params"), (
+        (p, _gk_held(cuts, p, x), float(torch.linalg.vector_norm(
+            x, float("inf")))) for p, x in zip(*flatten(params))))
+    torch.save(routes, os.path.join(d, "routes.pt"))
+    del params, state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _gk_tp_part(torch, dist, d: str, kernels, stats: dict) -> dict:
+    """(c) in a rank: grok split×2 over model with GK_TP_EXPERTS experts
+    (the rules prune ``experts`` and split every expert's d_ff: 16384 of
+    32768 columns a rank; 24 q over 4 kv heads; 65536 vocab columns), its
+    block of the draw made in turn, GK_TP_STEPS Adafactor steps through
+    ``train_step_fn``: losses, seconds, peak, launches, routing flips,
+    the step-0 gradient and the parameters after the last step against
+    ``d``'s."""
+    import dataclasses
+
+    from repro_torch.core import sharding
+    from repro_torch.core.cost_model import StrategySpec
+    from repro_torch.core.planner import compile_plan, mesh_for_strategy
+    from repro_torch.models import moe
+    from repro_torch.optim.optimizer import adafactor
+    from repro_torch.tree import flatten
+
+    strat = StrategySpec(tp=2)
+    plan = compile_plan(_gk_tp_model(torch), mesh_for_strategy(strat), strat)
+    cuts = _gk_cuts(plan.model)
+    params = _draw_in_turn(torch, dist, plan.model,
+                           lambda whole: plan.shard(whole, plan.param_specs))
+    drawn = torch.cuda.memory_allocated()
+    n = sum(p.numel() for p in flatten(params)[1])
+    specs = dict(zip(*flatten(plan.param_specs)))
+
+    def cut(path, w):
+        return sharding.shard_leaf(w, specs[path], plan.rules)
+
+    gaps = {}
+    real_af = adafactor(lr=PP_LR)
+
+    def apply(grads, state, p, step, **kw):
+        if step == 0:
+            gaps.update(_leaf_gaps(torch, {
+                q: _gk_held(cuts, q, x) for q, x in zip(*flatten(grads))},
+                os.path.join(d, "grads"), cut))
+        return real_af.apply(grads, state, p, step, **kw)
+
+    o = dataclasses.replace(real_af, apply=apply)
+    state = plan.init_opt(o, params)
+    step_fn = plan.train_step_fn(o)
+    batch = plan.batch_slice(_first_batch(torch, plan.model.cfg.vocab,
+                                          GK_TP_ROWS, GK_TP_SEQ))
+    routes = []
+    real_route = _gk_routes(torch, routes)
+    reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    s0 = stats["s"]
+    t0 = time.perf_counter()
+    losses = []
+    try:
+        for i in range(GK_TP_STEPS):
+            params, state, m = step_fn(params, state, batch, i)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+    finally:
+        moe._route = real_route
+    moe_p = params["blocks"]["p0"]["moe"]
+    rec = {"losses": losses, "seconds": time.perf_counter() - t0,
+           "gloo_s": stats["s"] - s0,
+           "peak": torch.cuda.max_memory_allocated(), "held": 8 * n,
+           "drawn": drawn, "counts": read_counts(kernels), "grads": gaps,
+           "params": _leaf_gaps(torch, {
+               q: _gk_held(cuts, q, x) for q, x in zip(*flatten(params))},
+               os.path.join(d, "params"), cut),
+           "w_in": list(moe_p["w_in"].shape),
+           "w_out": list(moe_p["w_out"].shape),
+           "vp": int(params["head"]["w"].shape[1]), "line": plan.split_line(),
+           "flips": _gk_flips(routes, torch.load(
+               os.path.join(d, "routes.pt")))}
+    del params, state, step_fn
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _grok_rank(rank: int, store: str, out_dir: str, ref_dir: str) -> None:
+    """One rank of phase 36 (c) on ``cuda:0`` over gloo (a world of two)."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    kernels = kernel_wrappers()
+    stats = {"s": 0.0, "n": 0}
+    try:
+        time_collectives(torch, dist, stats)
+        t0 = time.perf_counter()
+        out = _gk_tp_part(torch, dist, ref_dir, kernels, stats)
+        dist.barrier()
+        out["part_s"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def grok_split(torch) -> dict:
+    """Phase 36 (c): the experts' d_ff split over model (grok's expert
+    tensor parallelism) on two ranks on ``cuda:0`` over gloo, a pool of
+    exactly them (:func:`own_ranks`), against one process's run here
+    first (:func:`_gk_tp_reference`): the losses, each step-0 gradient
+    leaf and each parameter after the last step within 1e-4 + 1e-4 x the
+    leaf's max |x| (their held parts, :func:`_gk_held`), 0 routing flips,
+    the launches of the rank's layer and head.  Returns the launches
+    summed over the ranks."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_grok_tp_")
+    t00 = time.perf_counter()
+    try:
+        want = _gk_tp_reference(torch, tmp)
+        t0 = time.perf_counter()
+        conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            ranks = own_ranks(_grok_rank, tmp, timeout=600)
+        finally:
+            if conf is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+        t1 = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[grok] (c) expert-TP split×2, {GK_TP_EXPERTS} experts (cut from "
+          f"8: a 2-way axis divides 8), 1 layer, f32, {GK_TP_ROWS} x "
+          f"{GK_TP_SEQ}, Adafactor: one process's losses {want['losses']} in "
+          f"{want['seconds']:.3f} s, peak {want['peak'] / 2**30:.2f} GiB; "
+          f"seconds: the reference {t0 - t00:.1f}, two ranks {t1 - t0:.1f}",
+          flush=True)
+    fails = []
+    lim = TP_F32_LIMIT
+    for rank, r in enumerate(ranks):
+        print(f"[grok] (c) rank {rank}, w_in {r['w_in']}, w_out "
+              f"{r['w_out']}, {r['vp']} vocab columns; {r['line']}: losses "
+              f"{r['losses']}; {GK_TP_STEPS} steps {r['seconds']:.3f} s, gloo "
+              f"{r['gloo_s']:.3f} s (ranks time-slice one card); "
+              f"{r['drawn'] / 2**30:.2f} GiB after the draw, peak "
+              f"{r['peak'] / 2**30:.2f} GiB beside {r['held'] / 2**30:.2f} "
+              f"GiB of weights and gradients; routing flips "
+              f"{r['flips'][0]} of {r['flips'][1]} tokens; launches "
+              f"{r['counts']}", flush=True)
+        for a, b in zip(r["losses"], want["losses"]):
+            if not abs(a - b) <= lim + lim * abs(b):
+                fails.append(f"rank {rank} losses {r['losses']} against "
+                             f"{want['losses']}")
+        if r["flips"][0]:
+            fails.append(f"rank {rank}: {r['flips'][0]} routing flips")
+        if r["w_in"][-1] * 2 != 32768 or r["w_in"][1] != GK_TP_EXPERTS:
+            fails.append(f"rank {rank}: w_in {r['w_in']}, not the experts' "
+                         f"d_ff split")
+        exp = train_expected(1, GK_TP_STEPS, r["vp"], rows=GK_TP_ROWS,
+                             seq=GK_TP_SEQ)
+        if r["counts"] != exp:
+            fails.append(f"rank {rank}: launches {r['counts']}, want {exp}")
+    for what in ("grads", "params"):
+        worst, leaves = 0.0, {}
+        for r in ranks:
+            for p, (diff, top) in r[what].items():
+                leaves[p] = max(leaves.get(p, 0.0), diff / (lim + lim * top))
+        worst_p = max(leaves, key=leaves.get)
+        print(f"[grok] (c) {what}: worst share of 1e-4 + 1e-4 x the leaf's "
+              f"max {leaves[worst_p]:.3f} ({worst_p}) over {len(leaves)} "
+              f"leaves", flush=True)
+        fails += [f"{what} {p}: share {v:.3f}" for p, v in leaves.items()
+                  if not v <= 1]
+    if fails:
+        raise AssertionError("grok split: " + "; ".join(fails))
+    return {k: sum(r["counts"][k] for r in ranks) for k in ranks[0]["counts"]}
+
+
+def grok(torch, kernels) -> dict:
+    """Phase 36: grok-1-314b on one card: (a) served at GK_SERVE_LAYERS
+    layers (:func:`grok_serve`), (b) trained at 1 layer with Adafactor
+    (:func:`grok_train`), (c) the experts' d_ff split on two ranks
+    (:func:`grok_split`); (d), Adafactor under ZeRO, runs in phase 24's
+    ranks.  Returns each path's launches."""
+    t0 = time.perf_counter()
+    counts = {f"serve_grok_{k}": v for k, v in
+              grok_serve(torch, kernels).items()}
+    t1 = time.perf_counter()
+    counts["train_grok"] = grok_train(torch, kernels)
+    t2 = time.perf_counter()
+    counts["train_grok_tp"] = grok_split(torch)
+    print(f"[grok] seconds: serve {t1 - t0:.1f}, train {t2 - t1:.1f}, "
+          f"split {time.perf_counter() - t2:.1f}", flush=True)
+    return counts
+
+
 @contextlib.contextmanager
 def phase(name: str):
     t0 = time.perf_counter()
@@ -8519,7 +9335,7 @@ def main() -> None:
         tp_counts = train_tp(torch)
     torch.cuda.empty_cache()
     with phase("replica×2{split×2} with ZeRO 0/1/3 (4 ranks)"):
-        zero_counts, wh_case2 = train_hybrid_zero(torch)
+        zero_counts, wh_case2, zero_af_counts = train_hybrid_zero(torch)
     torch.cuda.empty_cache()
     with phase("Whale's nested hybrid (split×2 pipeline×2, 4 ranks)"):
         nested_counts, wh_case4 = train_nested(torch)
@@ -8552,6 +9368,7 @@ def main() -> None:
                "split×2 and data 2 x model 2; 2 and 4 ranks)"):
         moe_engine_counts = moe_engine(torch, kernels)
     close_pool()
+    close_own()
     torch.cuda.empty_cache()
     with phase("the dense family's rest (qwen3-1.7b, gemma-2b, stablelm-3b: "
                "served paged and dense, trained, held against the plain "
@@ -8566,6 +9383,10 @@ def main() -> None:
     with phase("the ssm and hybrid families across the engine (mamba2 and "
                "jamba pipeline×2, jamba split×2; 2 ranks)"):
         hybrid_counts = hybrid_engine(torch, kernels)
+    torch.cuda.empty_cache()
+    with phase("grok-1-314b (served at 4 layers, trained at 1 with "
+               "Adafactor, the experts' d_ff split on 2 ranks)"):
+        grok_counts = grok(torch, kernels)
 
     meta = {
         "flash_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
@@ -8607,6 +9428,7 @@ def main() -> None:
                    "train_uneven_dp": uneven_counts[name],
                    "train_tp": tp_counts[name],
                    "train_hybrid_zero": zero_counts[name],
+                   "train_zero_adafactor": zero_af_counts[name],
                    "train_pipeline_tp": nested_counts[name],
                    **{path: c[name] for path, c in serve_tp_counts.items()},
                    "train_annotated": wh_case1[name],
@@ -8621,7 +9443,8 @@ def main() -> None:
                       moe_engine_counts.items()},
                    **{path: c[name] for path, c in dense_counts.items()},
                    **{path: c[name] for path, c in jamba_counts.items()},
-                   **{path: c[name] for path, c in hybrid_counts.items()}}
+                   **{path: c[name] for path, c in hybrid_counts.items()},
+                   **{path: c[name] for path, c in grok_counts.items()}}
         table.append(dict(name=name, route="cuda", source=meta[name][0],
                           replaces=meta[name][1],
                           launches=sum(by_path.values()),

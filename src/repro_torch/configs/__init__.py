@@ -1,7 +1,7 @@
 """Registry of the ported architectures: the dense family (tinyllama-1.1b,
-qwen3-1.7b, gemma-2b, stablelm-3b), mamba2-1.3b, deepseek-moe-16b and the
-hybrid jamba-v0.1-52b; the other configs of ``repro.configs`` come with
-their model families."""
+qwen3-1.7b, gemma-2b, stablelm-3b), mamba2-1.3b, the moe family
+(deepseek-moe-16b, grok-1-314b) and the hybrid jamba-v0.1-52b; the other
+configs of ``repro.configs`` come with their model families."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,6 +16,7 @@ _ARCH_MODULES = {
     "stablelm-3b": "stablelm_3b",
     "mamba2-1.3b": "mamba2_1_3b",
     "deepseek-moe-16b": "deepseek_moe_16b",
+    "grok-1-314b": "grok_1_314b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
 

@@ -183,12 +183,18 @@ def check_micro_divides(batch: int, micro_batches: int) -> int:
     return batch // micro_batches
 
 
-def _map_blocks(fn, tree: dict) -> dict:
+def _map_blocks(fn, tree: dict, specs: dict | None = None) -> dict:
     """``fn`` over every leaf under a ``blocks`` key (parameters and the
-    optimizer state's moments alike); the other leaves as they are."""
+    optimizer state's moments alike), or with ``specs`` (staged specs of
+    ``tree``) over every leaf whose first dim is the stacked ``layers``
+    one, over ``stage`` (an Adafactor ``vc`` of a stacked 2-D leaf, its
+    mean over the layers, has none); the other leaves as they are."""
     paths, leaves = flatten(tree)
-    return unflatten(paths, [fn(x) if "blocks" in p.split("/") else x
-                             for p, x in zip(paths, leaves)])
+    staged = (["blocks" in p.split("/") for p in paths]
+              if specs is None else
+              [bool(sp) and sp[0] == "stage" for sp in flatten(specs)[1]])
+    return unflatten(paths, [fn(x) if st else x
+                             for st, x in zip(staged, leaves)])
 
 
 def _rows(p: torch.Tensor, stage: int, stage_layers: tuple):
@@ -197,11 +203,13 @@ def _rows(p: torch.Tensor, stage: int, stage_layers: tuple):
     return p[off:off + stage_layers[stage]]
 
 
-def stage_state(tree: dict, stage: int, stage_layers) -> dict:
-    """Stage ``stage``'s rows of every ``blocks`` leaf of a standard-layout
+def stage_state(tree: dict, stage: int, stage_layers,
+                specs: dict | None = None) -> dict:
+    """Stage ``stage``'s rows of every ``blocks`` leaf (or with ``specs``,
+    of every leaf they stage: :func:`_map_blocks`) of a standard-layout
     tree (copies, so the rest can be freed); the other leaves shared."""
     sl = tuple(stage_layers)
-    return _map_blocks(lambda p: _rows(p, stage, sl).clone(), tree)
+    return _map_blocks(lambda p: _rows(p, stage, sl).clone(), tree, specs)
 
 
 # ---------------------------------------------------------------------------
@@ -538,7 +546,10 @@ def make_pipeline_train_step(model, rules, optimizer, *,
     ``pod`` (the reference's mean over ``("pod", "data")``).  The optimizer
     updates this rank's tree in place, clipped by the whole model's global
     norm (:func:`~repro_torch.optim.optimizer.sharded_global_norm` over the
-    staged specs: each element once, its squares summed in f64).
+    staged specs: each element once, its squares summed in f64); an
+    optimizer of ``whole_leaf_means`` (Adafactor) is handed the staged
+    specs, over which it sums its means (a stacked leaf's rows over the
+    stages, its blocks over ``model``).
     ``metrics``: ``loss``, and ``moe_lb`` and ``moe_z`` (the experts' aux
     losses, zero without experts), each summed over the stage group and
     averaged over the data axes, so every rank holds the same, the aux
@@ -612,9 +623,11 @@ def make_pipeline_train_step(model, rules, optimizer, *,
         dist.all_reduce(vec, op=dist.ReduceOp.SUM, group=stage_group)
         for group in data_groups:
             mean_over(flatten(grads)[1] + [vec], group)
+        kw = ({"specs": specs, "rules": rules}
+              if optimizer.whole_leaf_means else {})
         params, opt_state = optimizer.apply(
             grads, opt_state, params, step,
-            grad_norm=sharded_global_norm(grads, specs, rules))
+            grad_norm=sharded_global_norm(grads, specs, rules), **kw)
         return params, opt_state, {"loss": vec[0], "moe_lb": vec[1],
                                    "moe_z": vec[2],
                                    "peak_in_flight": stage.peak}
@@ -631,9 +644,9 @@ def gather_stages(tree: dict, specs: dict, rules, stage_layers):
     padded ``(S·Lmax, …)`` layout (pad rows zero), the reference's
     pipelined checkpoint: each leaf first over ``model`` where ``specs``
     (staged specs of ``tree``) split it (:func:`~repro_torch.core.sharding.
-    gather_leaf`), then each ``blocks`` leaf over the stage group, a leaf
-    at a time.  Collective over the mesh of ``rules``; global rank 0 gets
-    the tree, the others ``None``."""
+    gather_leaf`), then each leaf its spec stages (its rows) over the
+    stage group, a leaf at a time.  Collective over the mesh of
+    ``rules``; global rank 0 gets the tree, the others ``None``."""
     group = rules.group("stage")
     sl = tuple(stage_layers)
     s = dist.get_rank(group)
@@ -643,7 +656,7 @@ def gather_stages(tree: dict, specs: dict, rules, stage_layers):
 
     def one(path, p, spec):
         p = sharding.gather_leaf(p, sharding.within_stage(spec), rules)
-        if "blocks" not in path.split("/"):
+        if not (spec and spec[0] == "stage"):    # on every stage alike
             return p if home else None
         at = (torch.device("cpu") if wire_on_host(group, p.device)
               else p.device)
@@ -676,8 +689,8 @@ def restore_stage_state(ckpt, model, optimizer, specs: dict, rules,
     step, tree, extra = out
     sl = tuple(stage_layers)
     stage = rules.mesh.get_local_rank("stage")
-    tree = stage_state(_map_blocks(lambda p: _unpad_rows(p, sl), tree),
-                       stage, sl)
+    tree = stage_state(_map_blocks(lambda p: _unpad_rows(p, sl), tree,
+                                   specs), stage, sl, specs)
     tree = tree_map(lambda p, spec: sharding.shard_leaf(
         p, spec, rules).to(model.device), tree, sharding.within_stage(specs))
     return step, tree, extra

@@ -63,17 +63,24 @@ model and keeps it), and the model runs under the rules: head-parallel
 attention, column/row-parallel MLP, whole experts split over ``model``
 (the expert split, ``ep > 1``, which shares the axis with ``tp`` as the
 reference's ``StrategySpec.model_parallel`` says; the experts' gradients
-are summed over the data axes only, as every split leaf's), a
+are summed over the data axes only, as every split leaf's), or where the
+axis does not divide the experts (grok-1's 8 on the reference's 16-way
+axis) every expert's d_ff columns over it (expert tensor parallelism,
+``ep = 1``), a
 vocab-parallel embedding and loss head, each collective an explicit
 ``torch.distributed`` call on the mesh's groups where GSPMD would place
 it.  The data-parallel reduction works per local leaf, as before; under
 ZeRO-3 a leaf sharded over the data axes is gathered at its use and its
 gradient comes back summed by the backward's reduce-scatter, so the step
-only divides it.  ZeRO-1/2 keep AdamW's moments as this rank's slices
-and all-gather the updated parameter slice (zero 2 runs as zero 1, as in
-the reference); the clip norm sums each leaf's squares over the axes it
-is split over. Still refused, each naming its ROADMAP item: ZeRO with
-uneven batch shares, and adafactor over a split model.
+only divides it.  ZeRO-1/2 keep the optimizer state of this rank's
+slices and all-gather the updated parameter slice (zero 2 runs as zero
+1, as in the reference); the clip norm sums each leaf's squares over the
+axes it is split over, and Adafactor's factored means are the whole
+leaf's, summed over the same axes (the optimizer is handed each leaf's
+spec); its state is laid out as the blocks it updates
+(:meth:`ExecutionPlan.state_layout`), which the checkpoint gathers and
+restores.  Still refused, naming its ROADMAP item: ZeRO with uneven
+batch shares.
 
 Serving (the reference's ``jit_prefill``, ``jit_serve_step``,
 ``jit_serve_step_paged``): :meth:`ExecutionPlan.prefill_fn`,
@@ -127,9 +134,6 @@ PIPELINE_SERVE_SLICE = ("serving inside a pipeline (pp > 1) comes with a later "
 ZERO3_SERVE_SLICE = ("serving parameters sharded over data (zero=3) comes "
                      "with a later slice of the port (ROADMAP.md queue A "
                      "item 4)")
-ADAFACTOR_SPLIT_SLICE = ("adafactor over a split model (its factored moments' "
-                         "means across shards) comes with a later slice of "
-                         "the port (ROADMAP.md queue A item 4)")
 #: the keys of ``Model.loss_fn``'s metrics, with the step's ``loss``: a
 #: rank with no rows of the batch reports zeros under them
 METRIC_KEYS = ("loss", "moe_lb", "moe_z", "nll", "tokens")
@@ -190,7 +194,9 @@ def accumulate(model, params: dict, batch: dict, micro_batches: int = 1,
                scale=None):
     """Loss and grads summed sequentially over ``micro_batches`` equal
     slices of the batch and averaged (``train_step_fn``'s ``accumulate``;
-    a batch they do not divide raises)."""
+    a batch they do not divide raises).  The sums and the division run in
+    place in f32 (the same bits as adding into new tensors), so one
+    gradient tree is held beside the micro-batch's."""
     M = micro_batches
     if M <= 1:
         return loss_and_grads(model, params, batch, scale)
@@ -201,12 +207,16 @@ def accumulate(model, params: dict, batch: dict, micro_batches: int = 1,
         micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
         loss, metrics, g = loss_and_grads(model, params, micro, scale)
         g = flatten(g)[1]
-        acc = ([x.float() for x in g] if acc is None
-               else [a + x for a, x in zip(acc, g)])
+        if acc is None:
+            acc = [x.float() for x in g]
+        else:
+            for a, x in zip(acc, g):
+                a.add_(x)
+        del g
         loss_sum = loss_sum + loss
         mets.append(metrics)
     paths = flatten(params)[0]
-    grads = unflatten(paths, [a / M for a in acc])
+    grads = unflatten(paths, [a.div_(M) for a in acc])
     metrics = {k: torch.stack([m[k] for m in mets]).mean(0)
                for k in mets[0]}
     return loss_sum / M, metrics, grads
@@ -307,17 +317,40 @@ class ExecutionPlan:
         axes = optimizer.state_axes(self.model.axes())
         return self._specs(axes, shapes, fsdp=self.strategy.zero >= 1)
 
-    def _slices(self, optimizer):
+    def _slices(self):
         """ZeRO-1/2: each leaf's :class:`~repro_torch.core.sharding.Slice`
-        of AdamW's moments beyond the parameter's own block (none inside a
-        pipeline, whose moments take the parameters' layout)."""
+        beyond the parameter's own block, the dim the ZeRO extension gives
+        a leaf of the parameter's shape (AdamW's moments are that leaf's
+        spec; Adafactor updates that slice); none inside a pipeline, whose
+        state takes the parameters' layout."""
         if not self.sharded or self.pipelined \
-                or self.strategy.zero not in (1, 2) \
-                or "mu" not in self.opt_specs(optimizer):
+                or self.strategy.zero not in (1, 2):
             return None
-        return sharding.zero_slices(self.param_specs,
-                                    self.opt_specs(optimizer)["mu"],
-                                    self.rules)
+        return sharding.zero_slices(
+            self.param_specs,
+            self._specs(self.model.axes(), self.model.param_shapes(),
+                        fsdp=True),
+            self.rules)
+
+    def state_layout(self, optimizer) -> dict:
+        """The specs of the optimizer state as the ranks hold it: the
+        state's axes map applied to each parameter's block (its spec,
+        with a ZeRO-1/2 slice's axes on the slice's dim).  AdamW's is
+        :meth:`opt_specs`; Adafactor's factored moments are the block's
+        spec less the dim each averages (their means are all-reduced over
+        it), which the checkpoint's gather and restore cut by."""
+        slices = self._slices()
+
+        def cut(spec, sl):
+            if sl is None:
+                return spec
+            entry = sl.axes[0] if len(sl.axes) == 1 else sl.axes
+            return tuple(entry if d == sl.dim else e
+                         for d, e in enumerate(spec))
+
+        return optimizer.state_axes(
+            self.param_specs if slices is None
+            else tree_map(cut, self.param_specs, slices))
 
     def shard(self, tree: dict, specs: dict) -> dict:
         """This rank's block of every leaf of a full ``tree``."""
@@ -361,8 +394,8 @@ class ExecutionPlan:
 
     def init_opt(self, optimizer, params: dict) -> dict:
         """``optimizer``'s state for this rank's ``params``: under ZeRO-1/2
-        AdamW's moments are this rank's slices."""
-        slices = self._slices(optimizer)
+        the state of this rank's slices."""
+        slices = self._slices()
         if slices is None:
             return optimizer.init(params)
         return optimizer.init(tree_map(
@@ -374,7 +407,7 @@ class ExecutionPlan:
         ``err`` lies as the block it compresses, the parameter's (under
         ZeRO-1 the whole leaf, under ZeRO-3 the data shard)."""
         specs = {"params": self.param_specs,
-                 "opt": self.opt_specs(optimizer)}
+                 "opt": self.state_layout(optimizer)}
         if "err" in state:
             specs["err"] = self.param_specs
         return specs
@@ -423,7 +456,7 @@ class ExecutionPlan:
     def _pipeline_state_specs(self, optimizer) -> dict:
         """The staged specs of a pipelined run's ``{"params", "opt"}``."""
         return {"params": self.param_specs,
-                "opt": self.opt_specs(optimizer)}
+                "opt": self.state_layout(optimizer)}
 
     def gather_pipeline_state(self, state: dict, optimizer, stage_layers):
         """A pipelined run's whole state in the reference's padded layout
@@ -568,8 +601,6 @@ class ExecutionPlan:
                 "zero=3 with compress_pod: compile the plan with "
                 "compress_pod=True, so that the parameters are sharded over "
                 "data inside each pod and the pods stay replicas")
-        if self.sharded and optimizer.name == "adafactor":
-            raise NotImplementedError(ADAFACTOR_SPLIT_SLICE)
         experts = model.cfg.has_experts
         if experts and uneven:
             raise ValueError(
@@ -590,7 +621,7 @@ class ExecutionPlan:
         with sharding.use_rules(rules):
             balanced = experts and bool(sharding.batch_splits())
         specs = self.param_specs
-        slices = self._slices(optimizer)
+        slices = self._slices()
         weight_axes = [a for a in (("data",) if compress
                                    else ("data", "pod"))
                        if self._group(a) is not None]
@@ -684,6 +715,8 @@ class ExecutionPlan:
             if not self.sharded:
                 return optimizer.apply(g, opt_state, params, step)
             kw = {} if slices is None else {"slices": slices}
+            if optimizer.whole_leaf_means:
+                kw.update(specs=specs, rules=self.rules)
             return optimizer.apply(
                 g, opt_state, params, step,
                 grad_norm=sharded_global_norm(g, specs, self.rules), **kw)
@@ -740,16 +773,15 @@ class ExecutionPlan:
         ``opt_state`` are this rank's stage (:meth:`init_pipeline_params`);
         ``tokens`` its data replica's rows (:meth:`batch_slice`).
         Micro-batches and schedule default to the strategy's, stage layers
-        to :meth:`stage_layers`.  Adafactor over a split model raises, as
-        in :meth:`train_step_fn`."""
+        to :meth:`stage_layers`.  Adafactor takes its means over the whole
+        leaf across the stages and the model blocks
+        (:mod:`repro_torch.optim.optimizer`)."""
         axes = tuple(self.mesh.mesh_dim_names) if self.mesh is not None \
             else ()
         if self.strategy.pp <= 1 or "stage" not in axes:
             raise ValueError(
                 f"pipeline step needs pp > 1 and a 'stage' mesh axis; "
                 f"strategy is {self.strategy.describe()}, mesh axes {axes}")
-        if self.strategy.model_parallel > 1 and optimizer.name == "adafactor":
-            raise NotImplementedError(ADAFACTOR_SPLIT_SLICE)
         return pipe.make_pipeline_train_step(
             self.model, self.rules, optimizer,
             micro_batches=micro_batches or self.strategy.micro_batches or 1,
@@ -766,9 +798,13 @@ class ExecutionPlan:
         if st.model_parallel > 1:
             family = self.model.cfg.family if self.model is not None \
                 else "dense"
+            experts = "whole experts"
+            if family in ("moe", "hybrid") and self.rules.spec_for(
+                    ("experts",), (self.model.cfg.n_experts,)) == (None,):
+                experts = "experts' d_ff columns"
             what = {"ssm": "SSD heads",
-                    "moe": "heads, whole experts, MLP columns",
-                    "hybrid": "heads, SSD heads, whole experts, MLP columns"
+                    "moe": f"heads, {experts}, MLP columns",
+                    "hybrid": f"heads, SSD heads, {experts}, MLP columns"
                     }.get(family, "heads, MLP columns")
             parts.append(f"split×{st.model_parallel} over model ({what}"
                          f"{', vocab' if st.vocab_split else ''})")

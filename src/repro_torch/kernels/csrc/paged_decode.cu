@@ -376,7 +376,8 @@ __host__ __device__ constexpr int mma_smem_bytes() {   // 2 x (K, V), MK rows
 }
 
 // Warp w scores keys 16w..16w+15 of each tile.  Lane l holds the head
-// (row) l/4 -- rows G..15 are zero pad -- and, in each n8 tile, keys (or
+// (row) l/4 -- rows G..15 are zero pad (grok's group of 6 leaves rows 6
+// and 7 of the live half as pad too) -- and, in each n8 tile, keys (or
 // dims) 2(l%4) and 2(l%4) + 1.
 template <int D, int G>
 __global__ void __cluster_dims__(SPLIT, 1, 1) __launch_bounds__(NT)
@@ -579,6 +580,8 @@ cudaError_t by_group(int G, const void* q, const void* k_pool,
     case 2: return launch<D, 2>(q, k_pool, v_pool, bt, pos, out, B, H, K, P,
                                 ps, max_pages, bf16_in, s);
     case 4: return launch<D, 4>(q, k_pool, v_pool, bt, pos, out, B, H, K, P,
+                                ps, max_pages, bf16_in, s);
+    case 6: return launch<D, 6>(q, k_pool, v_pool, bt, pos, out, B, H, K, P,
                                 ps, max_pages, bf16_in, s);
     case 8: return launch<D, 8>(q, k_pool, v_pool, bt, pos, out, B, H, K, P,
                                 ps, max_pages, bf16_in, s);

@@ -11,7 +11,8 @@ states are merged in rank order through distributed shared memory, in the
 one launch.  bf16 scores tiles of 64 keys on the tensor cores (16 keys a
 warp, p rounded to bf16 before P·V, one state a warp); f32 scores tiles
 of about 8 KB of K on the FMA pipes (one state a lane group of 16 or 32
-lanes, a few keys a tile each).  Head dims 64, 80, 128 and 256.
+lanes, a few keys a tile each).  Head dims 64, 80, 128 and 256; groups
+of 1, 2, 4, 6 (grok-1's 48 q over 8 kv heads) and 8 query heads a kv head.
 
 Page 0 is the all-zero trash page: unallocated block-table entries and
 inactive slots (table row all 0, ``pos`` 0) point at it, so they read
@@ -27,7 +28,7 @@ from repro_torch.kernels import build, plain
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 80, 128, 256)
-GROUPS = (1, 2, 4, 8)               # query heads per kv head the kernel takes
+GROUPS = (1, 2, 4, 6, 8)            # query heads per kv head the kernel takes
 DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -49,7 +49,11 @@ whose odd blocks carry them) prints each step's ``moe_lb`` and ``moe_z``
 (its load-balance and router z-losses, summed over the layers) beside
 the loss.  jamba's SSD mixers train through the same scan as mamba2's;
 its recipe is the reference's for the ≥ 50B archs, ``--optimizer
-adafactor``.
+adafactor``, as grok-1-314b's is (``--arch grok-1-314b``: 8 experts of
+32768 columns, top-2; over a model axis that does not divide its experts
+each expert's d_ff splits instead, expert tensor parallelism).  Adafactor
+runs beside ``--mesh``, ``--zero`` and ``--pp``, its factored means the
+whole leaf's across the blocks a rank holds.
 
 ``--pp`` lays the ranks out as ``stage × data``, as the reference's
 ``--pp`` does; beside ``--mesh D`` or ``DxM`` it lays them out as ``stage
@@ -360,7 +364,10 @@ def _train(args, device: torch.device) -> dict:
                                  f"ranks; have {n_dev}")
         mp = dims.get("model", 1)
         strat = StrategySpec(dp=dims["data"], tp=mp, pp=args.pp,
-                             ep=mp if cfg.has_experts else 1,
+                             # whole experts a rank where mp divides
+                             # them, else their d_ff (grok's expert TP)
+                             ep=(mp if cfg.has_experts
+                                 and cfg.n_experts % mp == 0 else 1),
                              micro_batches=args.micro_batches or 1,
                              schedule=args.schedule or "gpipe",
                              zero=args.zero)

@@ -4,10 +4,11 @@
 The reference checkpoint stores one array per leaf under its path
 (``embed/table``, ``blocks/p0/attn/wq`` …; ``repro/ckpt/checkpoint.py``).
 The port keeps the same paths, shapes and layouts (the experts' ``router/w``
-in f32 whatever the parameter dtype, ``w_in``, ``w_gate``, ``w_out`` and
-``shared/*`` as the reference's), so the bridge only nests the flat
-mapping and moves it onto a device — and refuses a tree that does not
-match the config leaf for leaf.
+in f32 whatever the parameter dtype, ``w_in``, ``w_gate``, ``w_out``
+stacked on their ``experts`` dim and ``shared/*`` as the reference's;
+grok-1's untied ``head/w`` beside ``embed/table``), so the bridge only
+nests the flat mapping and moves it onto a device — and refuses a tree
+that does not match the config leaf for leaf.
 """
 from __future__ import annotations
 

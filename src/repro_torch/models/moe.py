@@ -13,11 +13,18 @@ computes them with einsums outside any kernel.
 Where the active rules split the ``experts`` dim over the model axis
 (:mod:`repro_torch.core.sharding`), each rank holds E/n whole experts and
 runs them on the model-replicated tokens, so dispatch needs no
-communication.  Routing is computed on every rank alike; the combine
-weights' gradient, a partial on each rank (a rank sees only its experts'
-weights), is summed over the axis at the router logits, while the aux
-losses' gradient, whole on every rank, is not.  The combine's partial sums
-(f32) and the shared expert's row-parallel partial are summed in one
+communication.  Where the axis does not divide the experts (grok-1's 8 on
+the reference's 16-way axis), the rules prune ``experts`` and split each
+expert's d_ff (``expert_mlp``) instead, the reference's expert tensor
+parallelism: a rank keeps every expert's capacity slots and runs its
+d_ff/n columns of ``w_in`` and ``w_gate`` and its rows of ``w_out``, so
+its combine is a row-parallel partial.  Either way routing is computed on
+every rank alike and the tokens enter the experts through ``copy_to``;
+the combine weights' gradient, a partial on each rank (a rank sees only
+its experts' weights, or its columns' share of every expert's output), is
+summed over the axis at the router logits, while the aux losses'
+gradient, whole on every rank, is not.  The combine's partial sums (f32)
+and the shared expert's row-parallel partial are summed in one
 all-reduce, as the dense MLP's.
 
 Where a loss is taken under rules that deal the batch over data axes
@@ -44,11 +51,6 @@ import torch.nn.functional as F
 
 from repro_torch.core import sharding
 from repro_torch.models import layers
-
-EXPERT_MLP_SLICE = ("an expert split over the experts' d_ff (n_experts not "
-                    "divided by the model axis: grok-1's expert tensor "
-                    "parallelism) comes with a later slice of the port "
-                    "(ROADMAP.md queue A item 7)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,9 +133,10 @@ def _dispatch_indices(expert_idx: torch.Tensor, weights: torch.Tensor,
 def _route(params: dict, x: torch.Tensor, cfg: MoECfg, split=None):
     """Per-token routing (f32): (logits, normalized top-k weights, expert
     ids, per-batch mean prob ``me``, per-batch assignment fraction ``ce``).
-    With ``split`` (the experts over the model axis) the top-k weights'
-    gradient is summed over the split's group at the logits, and ``me``'s
-    (the load-balance loss's, whole on every rank) is not."""
+    With ``split`` (the experts, or their d_ff, over the model axis) the
+    top-k weights' gradient is summed over the split's group at the
+    logits, and ``me``'s (the load-balance loss's, whole on every rank) is
+    not."""
     logits = x.float() @ params["router"]["w"].float()
     probs = torch.softmax(logits, dim=-1)
     me = probs.mean(dim=(0, 1))                                    # (E,)
@@ -192,18 +195,23 @@ def _combine(tok: torch.Tensor, out: torch.Tensor,
     return y.reshape(B, seq_len + 1, D)[:, :seq_len]
 
 
-def _expert_split(cfg: MoECfg):
-    """How the active rules split the experts (``None``: whole)."""
-    split = sharding.split_of("experts", cfg.n_experts)
-    if split is None and sharding.split_of("expert_mlp",
-                                           cfg.d_ff_expert) is not None:
-        raise NotImplementedError(EXPERT_MLP_SLICE)
+def _expert_split(cfg: MoECfg) -> tuple:
+    """How the active rules split the experts: ``(split, dim)``, ``dim``
+    ``"experts"`` (whole experts a rank) or ``"expert_mlp"`` (every
+    expert's d_ff, where the axis does not divide the experts), or
+    ``(None, None)``: whole.  The reference's first-come-wins rule: the
+    ``experts`` dim comes first in the weights' axes."""
+    dim = "experts"
+    split = sharding.split_of(dim, cfg.n_experts)
+    if split is None:
+        dim = "expert_mlp"
+        split = sharding.split_of(dim, cfg.d_ff_expert)
     if cfg.n_shared and (split is None) != (sharding.split_of(
             "mlp", cfg.d_ff_expert * cfg.n_shared) is None):
         raise NotImplementedError(
             "the routed experts and the shared experts' columns must both "
             "split over the model axis or both stay whole")
-    return split
+    return split, (dim if split is not None else None)
 
 
 def moe_block(params: dict, x: torch.Tensor, cfg: MoECfg):
@@ -213,7 +221,7 @@ def moe_block(params: dict, x: torch.Tensor, cfg: MoECfg):
     B, S, D = x.shape
     E = cfg.n_experts
     C = cfg.capacity(S)
-    split = _expert_split(cfg)
+    split, dim = _expert_split(cfg)
 
     # --- routing (f32; replicated over the model axis) ---
     logits, w_topk, e_idx, me, ce = _route(params, x, cfg, split)
@@ -227,11 +235,13 @@ def moe_block(params: dict, x: torch.Tensor, cfg: MoECfg):
     lb_loss, z_loss = _aux_losses(cfg, me, ce, msl)
 
     tok, w = _dispatch_indices(e_idx, w_topk, E, C, S)             # (B, E, C)
-    if split is not None:                  # this rank's experts' slots
+    if dim == "experts":                   # this rank's experts' slots
         El = E // split.n
         tok = tok[:, split.index * El:(split.index + 1) * El]
         w = w[:, split.index * El:(split.index + 1) * El]
-        x = sharding.copy_to(x, split)
+    # whole experts or their d_ff columns: each rank's input gradient is
+    # a partial
+    x = sharding.copy_to(x, split)
 
     out = _expert_ffn(params, _gather_tokens(x, tok), x.dtype, cfg.act)
     out = out * w[..., None].to(out.dtype)

@@ -11,14 +11,32 @@ Where ``grads`` is one part of the model's gradient (a pipeline stage's
 leaves, a rank's shards of a split model), ``grad_norm`` is the whole
 gradient's global norm, so every part is clipped by the same factor; by
 default it is the norm of ``grads`` (:func:`sharded_global_norm` sums a
-split model's squares over its shards).
+split model's squares over its shards).  The clip's factor is folded into
+each leaf's update as it reads the leaf (the reference's clipped leaf,
+rounded to the gradient's dtype), so no clipped copy of the gradient is
+made.
 
-ZeRO-1/2 (AdamW): ``init`` takes the parameters as this rank's slices
-(``Slice.narrow`` of each leaf the plan's optimizer specs shard further),
-so ``mu``/``nu`` are slices; ``apply(..., slices=)`` updates each such
-leaf elementwise on its slice and all-gathers the updated slice into the
-whole parameter over the data axes, so the parameters equal an unsliced
-run's bit for bit.
+ZeRO-1/2: ``init`` takes the parameters as this rank's slices
+(``Slice.narrow`` of each leaf the plan's ZeRO specs shard further), so
+the state is the slices'; ``apply(..., slices=)`` updates each such leaf
+on its slice and all-gathers the updated slice into the whole parameter
+over the data axes.  AdamW is elementwise, so its parameters equal an
+unsliced run's bit for bit.
+
+Adafactor's means (``g²`` over the last and the next-to-last dim, ``vr``
+over its last, the update clip's ``mean(u²)`` over the leaf) are the
+reference's over the whole leaf, which GSPMD computes whatever the
+sharding.  Where a rank holds a block of the leaf (``specs``, ``rules``:
+its spec over the model axis, ZeRO-3's data shards, a pipeline stage's
+rows; ``slices``: a ZeRO-1/2 slice), each mean is a sum over the block,
+all-reduced over every axis that cuts the dims it averages, over the
+whole leaf's count (a sum of shards is not bit-equal to one whole mean:
+within f32's rounding).  The update runs in chunks of at most
+:data:`ADAFACTOR_CHUNK` elements over the leading (layer, expert) dims,
+and over rows within one matrix above that: ``vr``, ``vc`` and ``vr``'s
+mean are exact per chunk, and the clip's ``Σ u²`` is summed over the
+chunks before any chunk is written, each chunk's ``u`` recomputed then,
+so no temporary is the leaf's size.
 The numbers are the reference's: bias corrections with ``t = step + 1``
 and ``lr = sched(step)`` in f32, every update computed in f32 and written
 back in the leaf's dtype, clipping by the global norm first.
@@ -35,6 +53,10 @@ import torch
 from repro_torch.tree import flatten, tree_map
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: the most elements of a leaf Adafactor updates at once (256 MiB of f32:
+#: one of grok-1's expert leaves is 1.61e9 elements, and each of the
+#: update's eager f32 temporaries would be the leaf's size)
+ADAFACTOR_CHUNK = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,24 +130,96 @@ def sharded_global_norm(grads, specs, rules) -> torch.Tensor:
     return torch.sqrt(total).float()
 
 
-def clip_by_global_norm(grads, max_norm: float, norm=None):
-    """(grads scaled by min(1, max_norm / norm), norm); ``norm`` defaults
-    to :func:`global_norm` of ``grads``."""
+def clip_scale(grads, max_norm: float, norm=None) -> tuple:
+    """(min(1, max_norm / norm), norm), each a 0-d f32 tensor; ``norm``
+    defaults to :func:`global_norm` of ``grads``."""
     if norm is None:
         norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
+
+
+def clip_by_global_norm(grads, max_norm: float, norm=None):
+    """(grads scaled by min(1, max_norm / norm), norm); ``norm`` defaults
+    to :func:`global_norm` of ``grads``.  The optimizers fold the same
+    factor into each leaf instead (:func:`_clipped`)."""
+    scale, norm = clip_scale(grads, max_norm, norm)
+    return tree_map(lambda g: _clipped(g, scale).to(g.dtype), grads), norm
+
+
+def _clipped(g: torch.Tensor, scale) -> torch.Tensor:
+    """``g`` (or a chunk of it) clipped, in f32: the reference's clipped
+    leaf ``(g·scale)`` rounded to ``g``'s dtype, as its update reads it."""
+    if scale is None:
+        return g.float()
+    return (g.float() * scale).to(g.dtype).float()
+
+
+@dataclasses.dataclass(frozen=True)
+class _Cut:
+    """How the block a rank updates is cut from the whole leaf: per dim,
+    the process groups that split it; the whole leaf's shape."""
+    groups: tuple
+    whole: tuple
+
+    def sum_over(self, t: torch.Tensor, dims) -> torch.Tensor:
+        """``t`` (a partial sum over this block's ``dims``) summed in
+        place over every group that cuts one of them."""
+        from repro_torch.core import sharding
+
+        for d in dims:
+            for grp in self.groups[d]:
+                sharding.all_reduce_(t, grp)
+        return t
+
+    def count(self, dims) -> int:
+        return math.prod(self.whole[d] for d in dims)
+
+
+def _cuts(leaves: list, specs, rules, slices) -> list:
+    """Each leaf's :class:`_Cut` from its spec (``specs``, a tree like the
+    leaves', under ``rules``) and its ZeRO-1/2 slice; a whole leaf where
+    there are none.  A dim cut over ``stage`` (a pipeline stage's rows,
+    which may be uneven) is counted by an all-reduce over the stage."""
+    from repro_torch.core import sharding
+
+    n = len(leaves)
+    spec_l = flatten(specs)[1] if specs is not None else [None] * n
+    slice_l = flatten(slices)[1] if slices is not None else [None] * n
+    out = []
+    for p, spec, cut in zip(leaves, spec_l, slice_l):
+        groups = [[] for _ in range(p.dim())]
+        whole = list(p.shape)
+        for d, entry in enumerate(spec or ()):
+            for a in sharding._axes(entry):
+                if rules.shape.get(a, 1) == 1:
+                    continue
+                groups[d].append(rules.group(a))
+                if a == "stage":
+                    rows = torch.tensor([float(whole[d])], device=p.device)
+                    whole[d] = int(sharding.all_reduce_(
+                        rows, rules.group(a)).item())
+                else:
+                    whole[d] *= rules.shape[a]
+        if cut is not None:
+            groups[cut.dim] += [cut.rules.group(a) for a in cut.axes
+                                if cut.rules.shape.get(a, 1) > 1]
+        out.append(_Cut(tuple(map(tuple, groups)), tuple(whole)))
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable
     # (grads, state, params, step, *, grad_norm=None, slices=None)
-    #   -> (params, state)
+    #   -> (params, state); with ``whole_leaf_means`` also ``specs=`` and
+    #   ``rules=``, the layout of the blocks a rank holds
     apply: Callable
     name: str = "opt"
     # param axes -> the state's axes tree, for the planner's ZeRO specs
     state_axes: Callable | None = None
+    # its update takes means over whole leaves (Adafactor): the callers
+    # hand it each leaf's spec, so a rank holding blocks sums over them
+    whole_leaf_means: bool = False
 
 
 def _pairs(*trees) -> list:
@@ -146,8 +240,8 @@ def adamw(lr: Schedule | float = 3e-4, b1: float = 0.9, b2: float = 0.95,
 
     @torch.no_grad()
     def apply(grads, state, params, step, *, grad_norm=None, slices=None):
-        if max_grad_norm:
-            grads, _ = clip_by_global_norm(grads, max_grad_norm, grad_norm)
+        scale = (clip_scale(grads, max_grad_norm, grad_norm)[0]
+                 if max_grad_norm else None)
         t = np.float32(step) + np.float32(1)
         lr_t = sched(step)
         c1 = float(np.float32(1) - np.float32(b1) ** t)
@@ -157,7 +251,7 @@ def adamw(lr: Schedule | float = 3e-4, b1: float = 0.9, b2: float = 0.95,
         for (g, mu, nu, p), cut in zip(
                 _pairs(grads, state["mu"], state["nu"], params), sl):
             mine = p if cut is None else cut.narrow(p)
-            g = (g if cut is None else cut.narrow(g)).float()
+            g = _clipped(g if cut is None else cut.narrow(g), scale)
             mu_n = b1 * mu.float() + (1 - b1) * g
             nu_n = b2 * nu.float() + (1 - b2) * g * g
             u = (mu_n / c1) / (torch.sqrt(nu_n / c2) + eps)
@@ -180,7 +274,10 @@ def adafactor(lr: Schedule | float = 3e-4, decay: float = 0.8,
               eps: float = 1e-30, clip_threshold: float = 1.0,
               max_grad_norm: float = 1.0) -> Optimizer:
     """Factored second-moment optimizer (Shazeer & Stern): O(N/d) state,
-    factored over the last two dims of every leaf with two or more."""
+    factored over the last two dims of every leaf with two or more.  Its
+    means are the whole leaf's wherever a rank holds a block of it, and
+    its temporaries are at most :data:`ADAFACTOR_CHUNK` elements (module
+    docstring)."""
     sched = _sched(lr)
 
     def init(params):
@@ -193,36 +290,89 @@ def adafactor(lr: Schedule | float = 3e-4, decay: float = 0.8,
             return {"v": z(p.shape)}
         return {"v": tree_map(one, params)}
 
+    def factored(g, v, p, cut, scale, beta2, lr_t):
+        R, C = g.shape[-2:]
+        N = g.numel() // max(R * C, 1)
+        gv = g.reshape(N, R, C)
+        pv = p if p.is_contiguous() else p.contiguous()
+        pw = pv.view(N, R, C)
+        vr, vc = v["vr"].view(N, R), v["vc"].view(N, C)
+        pieces = _pieces(N, R, C, ADAFACTOR_CHUNK)
+        nd = g.dim()
+        # pass 1: Σ g² over each row and column, summed over the blocks
+        rows = torch.empty((N, R), dtype=torch.float32, device=g.device)
+        cols = torch.zeros((N, C), dtype=torch.float32, device=g.device)
+        for ls, rs in pieces:
+            gp = _clipped(gv[ls, rs], scale)        # may be the gradient
+            g2 = (gp * gp).add_(eps)
+            rows[ls, rs] = g2.sum(-1)
+            cols[ls] += g2.sum(-2)
+            del gp, g2
+        cut.sum_over(rows, (nd - 1,))
+        cut.sum_over(cols, (nd - 2,))
+        vr.copy_(beta2 * vr + (1 - beta2) * (rows / cut.count((nd - 1,))))
+        vc.copy_(beta2 * vc + (1 - beta2) * (cols / cut.count((nd - 2,))))
+        del rows, cols
+        mean_r = cut.sum_over(vr.sum(-1), (nd - 2,)) / cut.count((nd - 2,))
+        den = torch.clamp(mean_r, min=eps)
+
+        def u_of(ls, rs):
+            rms = vr[ls, rs, None] * vc[ls, None, :] / den[ls, None, None]
+            return _clipped(gv[ls, rs], scale) * torch.rsqrt(rms + eps)
+
+        # pass 2: the clip's Σ u² over the whole leaf; pass 3: the update
+        # (one chunk keeps its u between them)
+        keep = len(pieces) == 1
+        us = [u_of(*pieces[0])] if keep else None
+        div = None
+        if clip_threshold:
+            usq = torch.zeros((), dtype=torch.float64, device=g.device)
+            for ls, rs in pieces:
+                u = us[0] if keep else u_of(ls, rs)
+                usq += torch.sum(u * u).double()
+                del u
+            div = _clip_div(cut, usq, clip_threshold)
+        for ls, rs in pieces:
+            u = us[0] if keep else u_of(ls, rs)
+            if div is not None:
+                u = u / div
+            blk = pw[ls, rs]
+            blk.copy_(blk.float() - lr_t * u)
+            del u
+        if pv is not p:
+            p.copy_(pv)
+
+    def unfactored(g, v, p, cut, scale, beta2, lr_t):
+        g = _clipped(g, scale)
+        vv = beta2 * v["v"] + (1 - beta2) * (g * g + eps)
+        u = g * torch.rsqrt(vv + eps)
+        v["v"].copy_(vv)
+        if clip_threshold:
+            u = u / _clip_div(cut, torch.sum(u * u).double(),
+                              clip_threshold)
+        p.copy_(p.float() - lr_t * u)
+
     @torch.no_grad()
-    def apply(grads, state, params, step, *, grad_norm=None, slices=None):
-        if slices is not None:
-            raise NotImplementedError("ZeRO slices of adafactor's factored "
-                                      "moments are not ported")
-        if max_grad_norm:
-            grads, _ = clip_by_global_norm(grads, max_grad_norm, grad_norm)
+    def apply(grads, state, params, step, *, grad_norm=None, slices=None,
+              specs=None, rules=None):
+        scale = (clip_scale(grads, max_grad_norm, grad_norm)[0]
+                 if max_grad_norm else None)
         t = np.float32(step) + np.float32(1)
         beta2 = float(np.float32(1) - t ** np.float32(-decay))
         lr_t = sched(step)
         gl, pl = flatten(grads)[1], flatten(params)[1]
-        for g, v, p in zip(gl, _v_leaves(state["v"]), pl):
-            g = g.float()
-            g2 = g * g + eps
-            if "vr" in v:
-                vr = beta2 * v["vr"] + (1 - beta2) * g2.mean(-1)
-                vc = beta2 * v["vc"] + (1 - beta2) * g2.mean(-2)
-                rms = (vr[..., None] * vc[..., None, :]
-                       / torch.clamp(vr.mean(-1)[..., None, None], min=eps))
-                u = g * torch.rsqrt(rms + eps)
-                v["vr"].copy_(vr)
-                v["vc"].copy_(vc)
-            else:
-                vv = beta2 * v["v"] + (1 - beta2) * g2
-                u = g * torch.rsqrt(vv + eps)
-                v["v"].copy_(vv)
-            if clip_threshold:
-                un = torch.sqrt(torch.mean(u * u))
-                u = u / torch.clamp(un / clip_threshold, min=1.0)
-            p.copy_(p.float() - lr_t * u)
+        sl = (flatten(slices)[1] if slices is not None
+              else [None] * len(pl))
+        cuts = _cuts(pl, specs, rules, slices)
+        for g, v, p, cut, piece in zip(gl, _v_leaves(state["v"]), pl, cuts,
+                                       sl):
+            mine = p if piece is None else piece.narrow(p)
+            if piece is not None:
+                g = piece.narrow(g)
+            upd = factored if "vr" in v else unfactored
+            upd(g, v, mine, cut, scale, beta2, lr_t)
+            if piece is not None:
+                p.copy_(piece.gather(mine))
         return params, state
 
     def state_axes(param_axes):
@@ -233,7 +383,30 @@ def adafactor(lr: Schedule | float = 3e-4, decay: float = 0.8,
         return {"v": tree_map(one, param_axes)}
 
     return Optimizer(init=init, apply=apply, name="adafactor",
-                     state_axes=state_axes)
+                     state_axes=state_axes, whole_leaf_means=True)
+
+
+def _pieces(N: int, R: int, C: int, chunk: int) -> list:
+    """The chunks of a stack of ``N`` (R, C) matrices that Adafactor
+    updates one at a time, as (matrix slice, row slice) pairs of at most
+    ``chunk`` elements where a row fits: whole matrices while they fit,
+    else blocks of rows of one matrix."""
+    per = max(R * C, 1)
+    if per <= chunk:
+        k = max(1, chunk // per)
+        return [(slice(i, min(i + k, N)), slice(0, R))
+                for i in range(0, N, k)]
+    rb = max(1, chunk // max(C, 1))
+    return [(slice(i, i + 1), slice(r, min(r + rb, R)))
+            for i in range(N) for r in range(0, R, rb)]
+
+
+def _clip_div(cut: _Cut, usq: torch.Tensor, threshold: float):
+    """max(1, rms(u) / threshold): ``usq`` (this block's Σ u², f64) summed
+    over every group that cuts the leaf, over the whole leaf's count."""
+    cut.sum_over(usq, range(len(cut.whole)))
+    un = torch.sqrt(usq / cut.count(range(len(cut.whole)))).float()
+    return torch.clamp(un / threshold, min=1.0)
 
 
 def _v_leaves(tree) -> list:

@@ -335,26 +335,58 @@ def test_serve_step_paged_matches_reference(smoke):
         _close(tstate["pools"]["p0"][key], jstate["pools"]["p0"][key])
 
 
-def test_moe_refusals_name_their_item():
-    """The experts' d_ff split (grok-1's fallback) still raises, naming
-    its item."""
-    rules = sharding.ShardingRules(shape={"model": 2}, rules={
-        "experts": "model", "expert_mlp": "model", "mlp": "model"},
-        mesh=_OneAxis())
-    with sharding.use_rules(rules):
-        _, mcfg = _mcfg(0, 1.25)
-        with pytest.raises(NotImplementedError, match="queue A item 7"):
-            moe._expert_split(dataclasses.replace(mcfg, n_experts=3))
+def test_moe_refusals_name_their_item(monkeypatch):
+    """The experts' d_ff split (grok-1's expert tensor parallelism, once
+    refused): where the 2-way axis does not divide 3 experts the block
+    splits ``expert_mlp``, and the two ranks' row-parallel partials (the
+    collectives taken out: the combine's all-reduce is their sum) add up
+    to the reference's ``moe_block`` on the whole experts; the aux losses
+    are whole on each rank."""
+    inp = _block_inputs(0)
+    p = inp["params"]
+    p = {"router": {"w": np.ascontiguousarray(p["router"]["w"][:, :3])},
+         **{k: np.ascontiguousarray(p[k][:3])
+            for k in ("w_in", "w_gate", "w_out")}}
+    jcfg, mcfg = (dataclasses.replace(c, n_experts=3) for c in _mcfg(0, 1.25))
+    want = _ref_block(dict(inp, params=p), jcfg)
+    monkeypatch.setattr(sharding, "copy_to", lambda x, split: x)
+    monkeypatch.setattr(sharding, "reduce_from", lambda x, split: x)
+    ys = []
+    for r in range(2):
+        mesh = _OneAxis(r)
+        rules = sharding.ShardingRules(shape={"model": 2}, rules={
+            "experts": "model", "expert_mlp": "model", "mlp": "model"},
+            mesh=mesh)
+        with sharding.use_rules(rules):
+            split, dim = moe._expert_split(mcfg)
+            assert (dim, split.n, split.index) == ("expert_mlp", 2, r)
+            half = {"router": {"w": torch.tensor(p["router"]["w"])},
+                    "w_in": torch.tensor(p["w_in"][..., r * 8:(r + 1) * 8]),
+                    "w_gate": torch.tensor(
+                        p["w_gate"][..., r * 8:(r + 1) * 8]),
+                    "w_out": torch.tensor(p["w_out"][:, r * 8:(r + 1) * 8])}
+            y, aux = moe.moe_block(half, torch.tensor(inp["x"]), mcfg)
+        ys.append(y)
+        np.testing.assert_allclose(float(aux["lb_loss"]), want["lb"],
+                                   atol=TOL.fwd, rtol=TOL.fwd)
+        np.testing.assert_allclose(float(aux["z_loss"]), want["z"],
+                                   atol=TOL.fwd, rtol=TOL.fwd)
+    np.testing.assert_allclose((ys[0] + ys[1]).numpy(), want["y"],
+                               atol=TOL.fwd, rtol=TOL.fwd)
 
 
 class _OneAxis:
-    """What ``split_of`` reads of a 2-way mesh without a process group."""
+    """What ``split_of`` reads of a 2-way mesh without a process group:
+    this rank's place ``rank`` on it."""
+
+    def __init__(self, rank: int = 0):
+        self.rank = rank
 
     def get_group(self, axis):
         return None
 
     def get_local_rank(self, axis):
-        return 0
+        return self.rank
 
 
 # ---------------------------------------------------------------------------

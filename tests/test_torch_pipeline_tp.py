@@ -101,6 +101,9 @@ CASES = {4: {"gpipe_mb2": ("A", (1, 2, 1, 2), "gpipe", 2, (1, 1), 0),
 #: the cases whose checkpoints are written after their last step: the
 #: uneven one (the padded layout) and an even one (resumed unpipelined)
 CKPT = ("uneven", "1f1b_mb4")
+#: adafactor through the pipeline over model 2 (``pipeline{split}``):
+#: the model, its uneven stage layers and the steps
+AF_MODEL, AF_STAGES, AF_STEPS = "D", (2, 1), 2
 #: the reference's interpreter runs these: (model, schedule, µb, layers)
 INTERP = {"1f1b_mb4": ("A", "1f1b", 4, (1, 1)),
           "uneven": ("D", "1f1b", 4, (2, 1))}
@@ -141,6 +144,15 @@ def ref():
             p, st = opt.apply(g, st, p, step)
             losses.append(float(loss))
         out[key, "losses"] = losses
+        if key == AF_MODEL:
+            # the reference's adafactor on the unsharded leaves
+            opt = jax_opt.adafactor(lr=LR)
+            p, st, losses = params, opt.init(params), []
+            for step in range(AF_STEPS):
+                (loss, _), g = grad_fn(p, batch)
+                p, st = opt.apply(g, st, p, step)
+                losses.append(float(loss))
+            out["adafactor"] = (losses, _np(p))
         for name, (k, sched, mbs, sl) in INTERP.items():
             if k == key:
                 loss, grads, _ = ref_pipe.schedule_grads(
@@ -259,20 +271,35 @@ def _resume_unpipelined(model, ckpt, tokens) -> float:
     return float(m["loss"])
 
 
-def _checks(full: dict, meta: dict) -> None:
-    """The pipelined start and the refusals, on the 4 ranks."""
-    model = Model(_cfg(get_config, "D"), "cpu")
-    plan = _plan(model, (1, 2, 1, 2), "gpipe", 2, 0)
-    got = plan.init_pipeline_params(0, stage_layers=(2, 1))
+def _checks(full: dict, tokens, meta: dict, res: dict) -> None:
+    """The pipelined start, and adafactor through ``pipeline{split}``
+    (once refused) at uneven stages, on the 4 ranks."""
+    model = Model(_cfg(get_config, AF_MODEL), "cpu")
+    plan = _plan(model, (1, 2, 1, 2), "1f1b", 4, 0)
+    got = plan.init_pipeline_params(0, stage_layers=AF_STAGES)
     whole = pipe.stage_state(Model(model.cfg, "cpu").init(0),
-                             plan.mesh.get_local_rank("stage"), (2, 1))
+                             plan.mesh.get_local_rank("stage"), AF_STAGES)
     want = plan.shard(whole, sharding.within_stage(plan.param_specs))
     meta["init_equal"] = all(torch.equal(a, b) for a, b in
                              zip(flatten(got)[1], flatten(want)[1]))
-    try:
-        plan.pipeline_train_step_fn(adafactor())
-    except NotImplementedError as e:
-        meta["adafactor"] = str(e)
+    stage = plan.mesh.get_local_rank("stage")
+    params = plan.shard(pipe.stage_state(
+        tree_map(torch.clone, full[AF_MODEL]), stage, AF_STAGES),
+        sharding.within_stage(plan.param_specs))
+    opt = adafactor(lr=LR)
+    state = opt.init(params)
+    step = plan.pipeline_train_step_fn(opt, stage_layers=AF_STAGES)
+    losses = []
+    for i in range(AF_STEPS):
+        params, state, m = step(params, state, tokens, i)
+        losses.append(float(m["loss"]))
+    meta["adafactor"] = losses
+    whole = pipe.gather_stages(params, plan.param_specs, plan.rules,
+                               AF_STAGES)
+    if dist.get_rank() == 0:
+        _dump(res, "adafactor/params", dict(
+            whole, blocks=pipe.unpad_stage_stack(whole["blocks"],
+                                                 AF_STAGES)))
 
 
 def _rank_main(rank: int, world: int, store: str, inputs: str,
@@ -290,7 +317,7 @@ def _rank_main(rank: int, world: int, store: str, inputs: str,
     for name, case in CASES[world].items():
         _case(name, case, full, tokens, out_dir, res, meta)
     if world == 4:
-        _checks(full, meta)
+        _checks(full, tokens, meta, res)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(meta, f)
@@ -411,13 +438,20 @@ def test_each_rank_holds_its_rows_and_blocks(ranks4, ranks8):
                                           err_msg=f"{z} {path}")
 
 
-def test_pipelined_start_and_refusals(ranks4):
+def test_pipelined_start_and_refusals(ranks4, ref):
     """``init_pipeline_params`` keeps this rank's rows and block of the
-    whole model drawn once; adafactor over a split model still raises,
-    naming its ROADMAP item."""
+    whole model drawn once; adafactor over a split model (once refused)
+    through ``pipeline{split}`` at uneven stages (2, 1): its losses and
+    the gathered parameters after AF_STEPS steps against the reference's
+    adafactor on the unsharded leaves (its means the whole leaf's across
+    the stages and the model blocks)."""
+    want_losses, want_p = ref["adafactor"]
     for _, m in ranks4[0]:
         assert m["init_equal"]
-        assert "queue A item 4" in m["adafactor"]
+        np.testing.assert_allclose(m["adafactor"], want_losses,
+                                   atol=TOL.fwd, rtol=TOL.fwd)
+    _close(_tree(ranks4[0][0][0], "adafactor/params/"), want_p, TOL.grad,
+           "adafactor through pipeline{split}")
 
 
 def _assemble(ranks: list, name: str, sl: tuple) -> dict:
