@@ -40,7 +40,7 @@ and the script exits non-zero without printing a result:
    kernel, the plain version and one PyTorch library call computing the
    same function (a yardstick the port never calls; the plain versions
    and library calls of the flash, paged-decode and xent rows on
-   PLAIN_REPS and LIBRARY_REPS calls since PR 31); the flash forward,
+   PLAIN_REPS and LIBRARY_REPS calls); the flash forward,
    the flash backward's two kernels, the xent forward, paged decode and
    the SSD scan also against a second launch bit for bit, with their
    shares of the bound, ratio to the library call (the flash forward at
@@ -237,7 +237,7 @@ and the script exits non-zero without printing a result:
     apart than bf16's own error, the unsharded bf16 logits against the
     same weights' in f32, and a planted fault outside that gate; f32 at 2
     layers within 1e-4 + 1e-4|x|); data 2 x model 2 on four
-    ranks at 4 layers with a pool that preempts, and its paged
+    ranks at 2 layers with a pool that preempts, and its paged
     teacher-forced bf16 logits against the same gate (run 4);
     f32 at 2 layers, both caches, its tokens equal to the unsharded
     server's (run 5); ``serve --mesh 1x1`` through ``main`` at full width
@@ -267,7 +267,7 @@ and the script exits non-zero without printing a result:
     forward 28 an admission, paged decode 28 a step), the peak beside
     the weights and KV and the decode step's median against its floor
     (31.0 GB of expert weights at 3.35 TB/s); teacher-forced logits
-    (phase 26's) at 14 layers (28 before PR 31) paged through the
+    (phase 26's) at 7 of the 28 layers paged through the
     kernels, dense, and paged through the plain versions on the card,
     each within TF_PAIR times bf16's own error (the same weights in f32
     through the f32 kernels);
@@ -306,8 +306,8 @@ and the script exits non-zero without printing a result:
     it one layer's ``ssd_scan`` (two forwards and a backward) takes times
     48; step 0's loss and every gradient leaf through the kernels against
     the plain versions on the card (f32 at 2 layers within 1e-4 +
-    1e-4|x|; bf16 at the first 16 of the 48 layers, 48 before PR 31,
-    within TF_PAIR times bf16's own error, leaf by leaf);
+    1e-4|x|; bf16 at the first 16 of the 48 layers, within TF_PAIR
+    times bf16's own error, leaf by leaf);
 31. mamba2 over ``model`` (the SSD mixer's heads split; ``B``/``C``
     whole; the gated norm's sum of squares all-reduced), two ranks on
     ``cuda:0`` over gloo: split×2 training at 2 layers in f32, the loss
@@ -322,20 +322,20 @@ and the script exits non-zero without printing a result:
 32. the MoE family across the engine, deepseek-moe-16b at full width,
     ranks on ``cuda:0`` over gloo: (a) pipeline×2 on two ranks at 2
     layers, one a stage, batch 4 x 2048 in 4 micro-batches, 1f1b, 2
-    AdamW steps in bf16 (3 before PR 31) and one in f32, against the
-    unpipelined, unsharded
+    AdamW steps in bf16 and one in f32, against the unpipelined,
+    unsharded
     step of one process (bf16 within TF_PAIR times bf16's own error, the
     gap between that step in bf16 and in f32; f32 losses within 1e-4 +
     1e-4|x| and gradients within 2e-4 of each leaf's max), ``moe_lb`` and
     ``moe_z`` beside the unpipelined step's, each rank's peak, step and
     gloo seconds; (b) the same over model 2 on four ranks
-    (``pipeline{split[experts]}``: 32 experts a rank), in f32 alone since
-    PR 31; (c) data 2 in f32
+    (``pipeline{split[experts]}``: 32 experts a rank), one step in bf16
+    and one in f32; (c) data 2 in f32
     at 2 layers, a row a rank, the experts balanced over the global batch,
     against one process on both rows (1e-4 + 1e-4|x|, gradients 2e-4),
     and the old per-replica balance planted, which must miss that gate;
     (d) ``serve --mesh 1x2`` (32 experts, 8 q over 8 kv heads and 51200
-    vocab columns a rank) at 4 layers in bf16, 8 slots, paged, and in f32
+    vocab columns a rank) at 2 layers in bf16, 8 slots, paged, and in f32
     at 2 layers (tokens equal to one unsharded process's), and ``--mesh
     2x2`` at 2 layers in bf16; teacher-forced logits against one unsharded
     process (bf16 within TF_PAIR times bf16's own error, f32 within 1e-4
@@ -353,7 +353,7 @@ and the script exits non-zero without printing a result:
     losses, launches, tokens/s, forward, backward and AdamW on the host
     clock, the peak beside the parameters, gradients and moments (the
     final checkpoint neither copied to the host nor written), then the
-    first 2 steps through the plain versions (3 before PR 31), each loss
+    first 2 steps through the plain versions, each loss
     within 5% of theirs; (c)
     through the kernels against the plain versions on the card:
     teacher-forced logits at full depth in bf16 within TF_PAIR times
@@ -385,7 +385,7 @@ and the script exits non-zero without printing a result:
 35. the ssm and hybrid families across the engine, two ranks on
     ``cuda:0`` over gloo on a pool of exactly them: (a) mamba2-1.3b
     pipeline×2 at full width and 4 layers, 4 x 2048 in 4 micro-batches,
-    1f1b, 2 AdamW steps in bf16 (3 before PR 31) and one in f32, against
+    1f1b, 2 AdamW steps in bf16 and one in f32, against
     the unpipelined
     step of one process (phase 32 (a)'s gates; the tied table's gradient
     summed over both stages); (b) jamba pipeline×2 at 4 layers of the
@@ -1981,7 +1981,7 @@ def train_compressed(torch, kernels) -> tuple:
             torch.cuda.reset_peak_memory_stats()
             reset_counts(kernels)
             # the uncompressed run's checkpoint is phase 11's with the
-            # mesh's: its final one is not written (PR 31)
+            # mesh's: its final one is not written
             written = []
             try:
                 with (no_checkpoint_write(written) if not extra
@@ -2266,7 +2266,7 @@ def train_planned(torch, kernels, losses11: list, serving: dict) -> dict:
     try:
         reset_counts(kernels)
         # phase 11 writes and times this configuration's checkpoint; here
-        # the final one is neither copied to the host nor written (PR 31)
+        # the final one is neither copied to the host nor written
         with no_checkpoint_write(written):
             out = train.main(PLANNED_ARGS + ["--ckpt-dir", tmp])
         counts = read_counts(kernels)
@@ -4487,9 +4487,12 @@ TP_PAGED_ARGS = PAGED_ARGS + TP_DEPTH
 TP_DENSE_ARGS = ["--arch", ARCH, "--cache", "dense", "--requests", "8",
                  "--batch-slots", "8", "--prompt-len", "500", "--gen", "16",
                  "--max-len", "1024"] + TP_DEPTH
-#: run 4: data 2 x model 2 at 4 layers, a pool of 66 usable pages: 8
-#: admissions take 64, the growth past row 512 preempts
-DP_TP_ARGS = PAGED_ARGS + ["--overrides", "n_layers=4", "--pages", "67"]
+#: run 4: data 2 x model 2 at DP_TP_LAYERS layers (cut from 4 to hold the
+#: script's time), a pool of 66 usable pages: 8 admissions take 64, the
+#: growth past row 512 preempts
+DP_TP_LAYERS = 2
+DP_TP_ARGS = PAGED_ARGS + ["--overrides", f"n_layers={DP_TP_LAYERS}",
+                           "--pages", "67"]
 #: run 5: f32 at 2 layers
 F32_SERVE = ["--requests", "4", "--batch-slots", "4", "--prompt-len", "500",
              "--gen", "16", "--max-len", "1024", "--overrides",
@@ -4735,8 +4738,8 @@ def _serve_tp_rank(rank: int, store: str, out_dir: str, ref_dir: str) -> None:
 def _serve_dp_tp_rank(rank: int, store: str, out_dir: str,
                       ref_dir: str) -> None:
     """One rank of phase 26 run 4 on ``cuda:0``: a gloo world of four,
-    ``--mesh 2x2`` at 4 layers with a pool that preempts, then the
-    teacher-forced paged run at 4 layers."""
+    ``--mesh 2x2`` at DP_TP_LAYERS layers with a pool that preempts, then
+    the teacher-forced paged run at TP_SERVE_LAYERS layers."""
     import torch
     import torch.distributed as dist
 
@@ -4847,7 +4850,7 @@ def serve_tp(torch, kernels, paged4: dict) -> dict:
     layers; run 2: dense, the sequence-split cache; run 5: f32 at 2
     layers, both caches) and hold the teacher-forced logits (run 3, both
     caches at TP_SERVE_LAYERS layers; run 5's in f32); four ranks serve
-    data 2 x model 2 at 4 layers with a pool
+    data 2 x model 2 at DP_TP_LAYERS layers with a pool
     that preempts (run 4).  Then the driver's ``--mesh 1x1`` at full width
     in this process (run 6).  Printed before anything is held: each rank's
     launches, TTFT and TPOT with their gloo seconds, peaks beside the
@@ -4887,15 +4890,16 @@ def serve_tp(torch, kernels, paged4: dict) -> dict:
                 "paged", TP_SERVE_LAYERS, fails)
     _report_run(f"run 2 split×2 dense, {TP_SERVE_LAYERS} layers", ranks,
                 "dense", TP_SERVE_LAYERS, fails)
-    _report_run("run 4 data 2 x model 2 paged, 4 layers", ranks4, "paged", 4,
-                fails)
+    _report_run(f"run 4 data 2 x model 2 paged, {DP_TP_LAYERS} layers",
+                ranks4, "paged", DP_TP_LAYERS, fails)
     for cache in ("paged", "dense"):
         _report_run(f"run 5 split×2 {cache} f32, 2 layers", ranks,
                     f"f32/{cache}", 2, fails)
     for tag, got, ref in (
             ("run 1 against one unsharded process at "
              f"{TP_SERVE_LAYERS} layers", ranks[0]["paged"], want["paged"]),
-            ("run 4 against one unsharded process at 4 layers",
+            ("run 4 against one unsharded process at "
+             f"{DP_TP_LAYERS} layers",
              ranks4[0]["paged"], want["dp_tp"]),
             ("run 5 paged f32 against the unsharded server",
              ranks[0]["f32/paged"], want["f32/paged"]),
@@ -5225,9 +5229,9 @@ MOE_TRAIN_ARGS = ["--arch", MOE, "--overrides",
 MOE_SPLIT_RUNS = {"f32": (1, "float32")}
 MOE_SPLIT_BATCH, MOE_SPLIT_STEPS = 2, 2
 MOE_EP_ROWS = 2                 # moe_block_ep: one row of 2048 a rank
-#: the depth of the teacher-forced runs of (a) (28 before PR 31, cut to
-#: hold the script's time; the driver serves all 28)
-MOE_TF_LAYERS = 14
+#: the depth of the teacher-forced runs of (a) (of 28, cut to hold the
+#: script's time; the driver serves all 28)
+MOE_TF_LAYERS = 7
 #: decode's floor: every expert weight read once a step (31.0 GB at
 #: 3.35 TB/s; the port runs every expert on its capacity buffer)
 MOE_EXPERT_BYTES = 28 * 64 * 3 * 2048 * 1408 * 2
@@ -5338,7 +5342,7 @@ def moe_serve(torch, kernels) -> tuple:
           "dense": teacher_forced(torch, model, plan, params, "dense")}
     with plain_on_card():
         tf["plain"] = teacher_forced(torch, model, plan, params, "paged")
-    # the same weights in f32 (31.5 GB at 14 layers), largest leaf first,
+    # the same weights in f32 (15.7 GB at 7 layers), largest leaf first,
     # each bf16 leaf freed as it goes
     leaves = sorted(((node, k) for node in _dicts(params) for k, v in
                      node.items() if isinstance(v, torch.Tensor)),
@@ -6166,7 +6170,8 @@ def compressed_blocks(torch) -> dict:
 
 M2_TRAIN_STEPS = 3
 #: the depth of step 0's bf16 agreement through the kernels against the
-#: plain versions (48 before PR 31; f32 holds it at 2 layers)
+#: plain versions (of 48, cut to hold the script's time; f32 holds it at
+#: 2 layers)
 M2_AGREE_LAYERS = 16
 M2_TRAIN_ARGS = ["--arch", MAMBA, "--batch", str(TRAIN_BATCH), "--seq",
                  str(TRAIN_SEQ), "--steps", str(M2_TRAIN_STEPS),
@@ -6341,8 +6346,8 @@ def mamba2_train(torch, kernels) -> dict:
     del m32, p32, g_k, g_p
     torch.cuda.empty_cache()
 
-    # bf16 at M2_AGREE_LAYERS of the 48 layers (cut in PR 31 to hold the
-    # script's time): the first rows of every stacked leaf
+    # bf16 at M2_AGREE_LAYERS of the 48 layers (cut to hold the script's
+    # time): the first rows of every stacked leaf
     deep = dataclasses.replace(cfg, n_layers=M2_AGREE_LAYERS)
     model = Model(deep)
     params = dict(params, blocks=tree_map(lambda p: p[:M2_AGREE_LAYERS],
@@ -6704,13 +6709,12 @@ def mamba2_split(torch) -> dict:
 #: (a, b): deepseek at full width and 2 layers, one a stage (AdamW's state
 #: at 28 layers, ~270 GB, fits no card), on launch.train's stream of
 #: TRAIN_BATCH x TRAIN_SEQ batches in PP_MICRO micro-batches of a row,
-#: 1f1b, AdamW at a constant PP_LR (bf16 at 2 steps, 3 before PR 31)
+#: 1f1b, AdamW at a constant PP_LR (bf16 at 2 steps in (a), 1 in (b))
 MOE_PP_LAYERS, MOE_PP_STEPS = 2, 2
-#: the runs of (a): name -> (activation dtype, steps); bf16 is the path,
-#: f32 holds its step 0 to f32's limits; (b) runs f32 alone since PR 31
-#: (its bf16 path is (a)'s code over a model split that f32 holds)
+#: the runs of (a) and (b): name -> (activation dtype, steps); bf16 is the
+#: path, f32 holds its step 0 to f32's limits
 MOE_PP_RUNS = {"bf16": ("bfloat16", MOE_PP_STEPS), "f32": ("float32", 1)}
-MOE_PP_TP_RUNS = {"f32": MOE_PP_RUNS["f32"]}
+MOE_PP_TP_RUNS = dict(MOE_PP_RUNS, bf16=("bfloat16", 1))
 #: (a) and (b): world -> the model axis beside pipeline×2 (data 1)
 MOE_PP_MODEL = {2: 1, 4: 2}
 #: (c): data 2 in f32 at 2 layers, a row of TRAIN_SEQ a replica
@@ -6719,8 +6723,9 @@ MOE_DP_BATCH = 2
 #: a meshed plan draws the whole model and rank 0's draw is broadcast
 #: through host memory over gloo (31.4 GB at 28 layers in bf16, twice
 #: over, and an f32 yardstick of 62.9 GB beside it), so the meshed runs
-#: serve 4 and 2 layers; phase 28 serves all 28 on one card
-MOE_TP_LAYERS, MOE_DPTP_LAYERS = 4, 2
+#: serve 2 layers (split×2 cut from 4 to hold the script's time); phase
+#: 28 serves all 28 on one card
+MOE_TP_LAYERS, MOE_DPTP_LAYERS = 2, 2
 MOE_TP_SERVE = ["--arch", MOE, "--cache", "paged", "--page-size", "64",
                 "--requests", "8", "--batch-slots", "8", "--prompt-len",
                 "256", "--gen", "32", "--max-len", "512"]
@@ -6986,8 +6991,8 @@ def _pp_report(torch, prefix: str, what: str, outs: list, refs: dict,
     times bf16's own error; f32 within 1e-4 + 1e-4|x| (values) and 2e-4
     of each leaf's max (gradients); the ranks' losses equal; each rank's
     launches those of its stage (``attn`` attention layers a stage, the
-    loss head on the last).  Returns the bf16 run's launches (the f32
-    one's where ``runs`` has no bf16) summed over the ranks."""
+    loss head on the last).  Returns the bf16 run's launches summed over
+    the ranks."""
     own, own_loss = refs["own"], refs["own_loss"]
     for name, (_, steps) in runs.items():
         want = refs["pp"][name]
@@ -7034,9 +7039,8 @@ def _pp_report(torch, prefix: str, what: str, outs: list, refs: dict,
             fails += _moe_grad_lines(f"{what} f32", rs,
                                      lambda p: GRAD_TOL[str(torch.float32)],
                                      prefix)
-    path = "bf16" if "bf16" in runs else "f32"
-    return {k: sum(o[path]["counts"][k] for o in outs)
-            for k in outs[0][path]["counts"]}
+    return {k: sum(o["bf16"]["counts"][k] for o in outs)
+            for k in outs[0]["bf16"]["counts"]}
 
 
 def _pp_refs_lines(prefix: str, layers: int, refs: dict) -> None:
@@ -7188,7 +7192,7 @@ def _moe_serve_part(torch, world: int, ref_dir: str, kernels,
         out["paged_f32"] = _serve_run(torch, kernels, MOE_F32_ARGS + mesh,
                                       rec)
         torch.cuda.empty_cache()
-    depths = (MOE_TP_LAYERS, MOE_DPTP_LAYERS) if world == 2 \
+    depths = sorted({MOE_TP_LAYERS, MOE_DPTP_LAYERS}) if world == 2 \
         else (MOE_DPTP_LAYERS,)
     for layers in depths:
         masters = _moe_tf_masters(torch, layers, parse_mesh(spec))
@@ -7310,7 +7314,7 @@ def _moe_references(torch, ref_dir: str) -> dict:
     _save_leaves(torch, os.path.join(ref_dir, "dp"), zip(*flatten(g)))
     del g, model
     torch.cuda.empty_cache()
-    for layers in (MOE_TP_LAYERS, MOE_DPTP_LAYERS):
+    for layers in sorted({MOE_TP_LAYERS, MOE_DPTP_LAYERS}):
         masters = _moe_tf_masters(torch, layers, None)
         for name in (n for n, (ly, _) in MOE_TF.items() if ly == layers):
             torch.save(_moe_tf(torch, name, None, masters),
@@ -7583,8 +7587,8 @@ def dense_rest_serve(torch, kernels, arch: str) -> dict:
 
 #: the plain run's witness of the driver's bf16 losses: each step's loss
 #: through the kernels within this share of the plain versions', over
-#: the first DR_WITNESS_STEPS steps (2 since PR 31: the plain versions'
-#: steps are the slowest of the phase)
+#: the first DR_WITNESS_STEPS steps (2 of 3: the plain versions' steps
+#: are the slowest of the phase)
 DR_WITNESS_REL = 0.05
 DR_WITNESS_STEPS = 2
 

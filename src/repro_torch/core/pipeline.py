@@ -546,10 +546,10 @@ def make_pipeline_train_step(model, rules, optimizer, *,
     ``pod`` (the reference's mean over ``("pod", "data")``).  The optimizer
     updates this rank's tree in place, clipped by the whole model's global
     norm (:func:`~repro_torch.optim.optimizer.sharded_global_norm` over the
-    staged specs: each element once, its squares summed in f64); an
-    optimizer of ``whole_leaf_means`` (Adafactor) is handed the staged
-    specs, over which it sums its means (a stacked leaf's rows over the
-    stages, its blocks over ``model``).
+    staged specs: each element once, its squares summed in f64) and handed
+    the staged specs and the whole leaves' shapes, over which Adafactor
+    sums its means (a stacked leaf's rows over the stages, its blocks over
+    ``model``).
     ``metrics``: ``loss``, and ``moe_lb`` and ``moe_z`` (the experts' aux
     losses, zero without experts), each summed over the stage group and
     averaged over the data axes, so every rank holds the same, the aux
@@ -623,11 +623,10 @@ def make_pipeline_train_step(model, rules, optimizer, *,
         dist.all_reduce(vec, op=dist.ReduceOp.SUM, group=stage_group)
         for group in data_groups:
             mean_over(flatten(grads)[1] + [vec], group)
-        kw = ({"specs": specs, "rules": rules}
-              if optimizer.whole_leaf_means else {})
         params, opt_state = optimizer.apply(
             grads, opt_state, params, step,
-            grad_norm=sharded_global_norm(grads, specs, rules), **kw)
+            grad_norm=sharded_global_norm(grads, specs, rules),
+            specs=specs, rules=rules, shapes=model.param_shapes())
         return params, opt_state, {"loss": vec[0], "moe_lb": vec[1],
                                    "moe_z": vec[2],
                                    "peak_in_flight": stage.peak}

@@ -57,17 +57,17 @@ Tensor parallelism and ZeRO (the paper's ``split``, and the optimizer
 state and parameters sharded over ``data``): the plan's
 :class:`~repro_torch.core.sharding.ShardingRules` are the reference's
 (:func:`~repro_torch.core.sharding.rules_for_strategy`), and so are its
-``param_specs`` and :meth:`ExecutionPlan.opt_specs`.  Each rank holds its
-block of every leaf (:meth:`ExecutionPlan.init_params` draws the whole
-model and keeps it), and the model runs under the rules: head-parallel
-attention, column/row-parallel MLP, whole experts split over ``model``
-(the expert split, ``ep > 1``, which shares the axis with ``tp`` as the
-reference's ``StrategySpec.model_parallel`` says; the experts' gradients
-are summed over the data axes only, as every split leaf's), or where the
-axis does not divide the experts (grok-1's 8 on the reference's 16-way
-axis) every expert's d_ff columns over it (expert tensor parallelism,
-``ep = 1``), a
-vocab-parallel embedding and loss head, each collective an explicit
+``param_specs`` and AdamW's :meth:`ExecutionPlan.state_layout`.  Each
+rank holds its block of every leaf (:meth:`ExecutionPlan.init_params`
+draws the whole model and keeps it), and the model runs under the
+rules: head-parallel attention, column/row-parallel MLP, whole experts
+split over ``model`` (the expert split, ``ep > 1``, which shares the
+axis with ``tp`` as the reference's ``StrategySpec.model_parallel`` says;
+the experts' gradients are summed over the data axes only, as every
+split leaf's), or where the axis does not divide the experts (grok-1's 8
+on the reference's 16-way axis) every expert's d_ff columns over it
+(expert tensor parallelism, ``ep = 1``), a vocab-parallel embedding and
+loss head, each collective an explicit
 ``torch.distributed`` call on the mesh's groups where GSPMD would place
 it.  The data-parallel reduction works per local leaf, as before; under
 ZeRO-3 a leaf sharded over the data axes is gathered at its use and its
@@ -309,48 +309,36 @@ class ExecutionPlan:
         return self.param_specs is not None and (
             self.strategy.model_parallel > 1 or self.strategy.zero >= 1)
 
-    def opt_specs(self, optimizer) -> dict:
-        """The optimizer state's specs, the reference's: the parameters'
-        rules, with the data axes (FSDP) under any ZeRO stage, or under a
-        pipeline its ``staged_specs`` (the parameters' layout)."""
-        shapes = optimizer.init(self.model.param_shapes())
-        axes = optimizer.state_axes(self.model.axes())
-        return self._specs(axes, shapes, fsdp=self.strategy.zero >= 1)
-
-    def _slices(self):
-        """ZeRO-1/2: each leaf's :class:`~repro_torch.core.sharding.Slice`
-        beyond the parameter's own block, the dim the ZeRO extension gives
-        a leaf of the parameter's shape (AdamW's moments are that leaf's
-        spec; Adafactor updates that slice); none inside a pipeline, whose
-        state takes the parameters' layout."""
+    def _zero_blocks(self):
+        """ZeRO-1/2 outside a pipeline: the specs of the blocks the
+        optimizer updates, the parameters' rules with the ZeRO extension
+        over the data axes (each parameter's spec with its slice's axes on
+        one dim); else ``None``, the parameters' own blocks."""
         if not self.sharded or self.pipelined \
                 or self.strategy.zero not in (1, 2):
             return None
-        return sharding.zero_slices(
-            self.param_specs,
-            self._specs(self.model.axes(), self.model.param_shapes(),
-                        fsdp=True),
-            self.rules)
+        return self._specs(self.model.axes(), self.model.param_shapes(),
+                           fsdp=True)
+
+    def _slices(self):
+        """ZeRO-1/2: each leaf's :class:`~repro_torch.core.sharding.Slice`
+        beyond the parameter's own block (:meth:`_zero_blocks`); none
+        inside a pipeline, whose state takes the parameters' layout."""
+        blocks = self._zero_blocks()
+        return None if blocks is None else sharding.zero_slices(
+            self.param_specs, blocks, self.rules)
 
     def state_layout(self, optimizer) -> dict:
-        """The specs of the optimizer state as the ranks hold it: the
-        state's axes map applied to each parameter's block (its spec,
-        with a ZeRO-1/2 slice's axes on the slice's dim).  AdamW's is
-        :meth:`opt_specs`; Adafactor's factored moments are the block's
-        spec less the dim each averages (their means are all-reduced over
-        it), which the checkpoint's gather and restore cut by."""
-        slices = self._slices()
-
-        def cut(spec, sl):
-            if sl is None:
-                return spec
-            entry = sl.axes[0] if len(sl.axes) == 1 else sl.axes
-            return tuple(entry if d == sl.dim else e
-                         for d, e in enumerate(spec))
-
+        """The optimizer state's specs, as the ranks hold it: the state's
+        axes map applied to the specs of the blocks it updates (the
+        parameters', under ZeRO-1/2 their slices', under a pipeline the
+        staged specs).  AdamW's are the reference's ``opt_specs``;
+        Adafactor's factored moments are the block's spec less the dim
+        each averages (their means are all-reduced over it), which the
+        checkpoint's gather and restore cut by."""
+        blocks = self._zero_blocks()
         return optimizer.state_axes(
-            self.param_specs if slices is None
-            else tree_map(cut, self.param_specs, slices))
+            self.param_specs if blocks is None else blocks)
 
     def shard(self, tree: dict, specs: dict) -> dict:
         """This rank's block of every leaf of a full ``tree``."""
@@ -714,12 +702,11 @@ class ExecutionPlan:
         def update(g, opt_state, params, step):
             if not self.sharded:
                 return optimizer.apply(g, opt_state, params, step)
-            kw = {} if slices is None else {"slices": slices}
-            if optimizer.whole_leaf_means:
-                kw.update(specs=specs, rules=self.rules)
             return optimizer.apply(
                 g, opt_state, params, step,
-                grad_norm=sharded_global_norm(g, specs, self.rules), **kw)
+                grad_norm=sharded_global_norm(g, specs, self.rules),
+                slices=slices, specs=specs, rules=self.rules,
+                shapes=self.model.param_shapes())
 
         if compress:
             from repro_torch.optim import grad_compress

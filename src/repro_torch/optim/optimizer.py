@@ -30,16 +30,22 @@ sharding.  Where a rank holds a block of the leaf (``specs``, ``rules``:
 its spec over the model axis, ZeRO-3's data shards, a pipeline stage's
 rows; ``slices``: a ZeRO-1/2 slice), each mean is a sum over the block,
 all-reduced over every axis that cuts the dims it averages, over the
-whole leaf's count (a sum of shards is not bit-equal to one whole mean:
-within f32's rounding).  The update runs in chunks of at most
-:data:`ADAFACTOR_CHUNK` elements over the leading (layer, expert) dims,
-and over rows within one matrix above that: ``vr``, ``vc`` and ``vr``'s
-mean are exact per chunk, and the clip's ``Σ u²`` is summed over the
-chunks before any chunk is written, each chunk's ``u`` recomputed then,
-so no temporary is the leaf's size.
+whole leaf's count (``shapes``, the model's; a sum of shards is not
+bit-equal to one whole mean: within f32's rounding).  Every optimizer
+takes these keywords; AdamW and SGD, elementwise, ignore them.  The
+update takes a leaf whole where its f32 temporaries fit in the card's
+free memory, else in chunks of at most :data:`ADAFACTOR_CHUNK` elements
+over the leading (layer, expert) dims, and over rows within one matrix
+above that: ``vr``, ``vc`` and ``vr``'s mean are exact per chunk, and the
+clip's ``Σ u²`` is summed over the chunks before any chunk is written,
+each chunk's ``u`` recomputed then, so no temporary outgrows a chunk.
+Taken whole, the leaf's clipped gradient serves both ``g²`` and ``u``,
+and the update is one ``addcdiv_`` into the parameter.
 The numbers are the reference's: bias corrections with ``t = step + 1``
 and ``lr = sched(step)`` in f32, every update computed in f32 and written
-back in the leaf's dtype, clipping by the global norm first.
+back in the leaf's dtype, clipping by the global norm first (Adafactor's
+fused ``addcmul`` and ``addcdiv_`` may round an ulp from its separate
+ops).
 """
 from __future__ import annotations
 
@@ -53,10 +59,15 @@ import torch
 from repro_torch.tree import flatten, tree_map
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-#: the most elements of a leaf Adafactor updates at once (256 MiB of f32:
-#: one of grok-1's expert leaves is 1.61e9 elements, and each of the
-#: update's eager f32 temporaries would be the leaf's size)
+#: the most elements of a leaf Adafactor updates at once where the leaf's
+#: temporaries do not fit (256 MiB of f32: one of grok-1's expert leaves
+#: is 1.61e9 elements, and each of the update's eager f32 temporaries
+#: would be the leaf's size)
 ADAFACTOR_CHUNK = 1 << 26
+#: the leaf-sized f32 temporaries a whole-leaf update needs room for (it
+#: holds at most three at once: the clipped gradient, g² or u, and the
+#: allocator's rounding; the rest is margin for ranks sharing a card)
+_WHOLE_LEAF_TEMPS = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,51 +186,42 @@ class _Cut:
         return math.prod(self.whole[d] for d in dims)
 
 
-def _cuts(leaves: list, specs, rules, slices) -> list:
-    """Each leaf's :class:`_Cut` from its spec (``specs``, a tree like the
-    leaves', under ``rules``) and its ZeRO-1/2 slice; a whole leaf where
-    there are none.  A dim cut over ``stage`` (a pipeline stage's rows,
-    which may be uneven) is counted by an all-reduce over the stage."""
+def _cuts(leaves: list, specs, rules, slices, shapes) -> list:
+    """Each leaf's :class:`_Cut`: the groups of the axes its spec
+    (``specs``, a tree like the leaves', under ``rules``) and its ZeRO-1/2
+    slice cut each dim over, and the whole leaf's shape (``shapes``, the
+    model's; the leaf's own where there are none)."""
     from repro_torch.core import sharding
 
+    if specs is not None and shapes is None:
+        raise ValueError("a block's means need shapes=, the whole leaves'")
     n = len(leaves)
-    spec_l = flatten(specs)[1] if specs is not None else [None] * n
+    spec_l = flatten(specs)[1] if specs is not None else [()] * n
     slice_l = flatten(slices)[1] if slices is not None else [None] * n
+    whole_l = flatten(shapes)[1] if shapes is not None else leaves
     out = []
-    for p, spec, cut in zip(leaves, spec_l, slice_l):
+    for p, spec, cut, whole in zip(leaves, spec_l, slice_l, whole_l):
         groups = [[] for _ in range(p.dim())]
-        whole = list(p.shape)
-        for d, entry in enumerate(spec or ()):
-            for a in sharding._axes(entry):
-                if rules.shape.get(a, 1) == 1:
-                    continue
-                groups[d].append(rules.group(a))
-                if a == "stage":
-                    rows = torch.tensor([float(whole[d])], device=p.device)
-                    whole[d] = int(sharding.all_reduce_(
-                        rows, rules.group(a)).item())
-                else:
-                    whole[d] *= rules.shape[a]
+        for d, entry in enumerate(spec):
+            groups[d] += [rules.group(a) for a in sharding._axes(entry)
+                          if rules.shape.get(a, 1) > 1]
         if cut is not None:
             groups[cut.dim] += [cut.rules.group(a) for a in cut.axes
                                 if cut.rules.shape.get(a, 1) > 1]
-        out.append(_Cut(tuple(map(tuple, groups)), tuple(whole)))
+        out.append(_Cut(tuple(map(tuple, groups)), tuple(whole.shape)))
     return out
 
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable
-    # (grads, state, params, step, *, grad_norm=None, slices=None)
-    #   -> (params, state); with ``whole_leaf_means`` also ``specs=`` and
-    #   ``rules=``, the layout of the blocks a rank holds
+    # (grads, state, params, step, *, grad_norm=None, slices=None,
+    #  specs=None, rules=None, shapes=None) -> (params, state); the last
+    #  three lay out the blocks a rank holds (module docstring)
     apply: Callable
     name: str = "opt"
     # param axes -> the state's axes tree, for the planner's ZeRO specs
     state_axes: Callable | None = None
-    # its update takes means over whole leaves (Adafactor): the callers
-    # hand it each leaf's spec, so a rank holding blocks sums over them
-    whole_leaf_means: bool = False
 
 
 def _pairs(*trees) -> list:
@@ -239,7 +241,8 @@ def adamw(lr: Schedule | float = 3e-4, b1: float = 0.9, b2: float = 0.95,
         return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
 
     @torch.no_grad()
-    def apply(grads, state, params, step, *, grad_norm=None, slices=None):
+    def apply(grads, state, params, step, *, grad_norm=None, slices=None,
+              specs=None, rules=None, shapes=None):
         scale = (clip_scale(grads, max_grad_norm, grad_norm)[0]
                  if max_grad_norm else None)
         t = np.float32(step) + np.float32(1)
@@ -290,24 +293,30 @@ def adafactor(lr: Schedule | float = 3e-4, decay: float = 0.8,
             return {"v": z(p.shape)}
         return {"v": tree_map(one, params)}
 
-    def factored(g, v, p, cut, scale, beta2, lr_t):
+    def factored(g, v, p, cut, scale, beta2, lr_t, free):
         R, C = g.shape[-2:]
         N = g.numel() // max(R * C, 1)
         gv = g.reshape(N, R, C)
         pv = p if p.is_contiguous() else p.contiguous()
         pw = pv.view(N, R, C)
         vr, vc = v["vr"].view(N, R), v["vc"].view(N, C)
-        pieces = _pieces(N, R, C, ADAFACTOR_CHUNK)
+        pieces = _pieces(N, R, C, _chunk_for(g.numel(), free))
         nd = g.dim()
-        # pass 1: Σ g² over each row and column, summed over the blocks
+        # pass 1: Σ g² over each row and column, summed over the blocks;
+        # one chunk keeps its clipped gradient for u
+        keep = len(pieces) == 1
         rows = torch.empty((N, R), dtype=torch.float32, device=g.device)
         cols = torch.zeros((N, C), dtype=torch.float32, device=g.device)
+        eps_t = torch.full((), eps, dtype=torch.float32, device=g.device)
+        gp = None
         for ls, rs in pieces:
             gp = _clipped(gv[ls, rs], scale)        # may be the gradient
-            g2 = (gp * gp).add_(eps)
+            g2 = torch.addcmul(eps_t, gp, gp)
             rows[ls, rs] = g2.sum(-1)
             cols[ls] += g2.sum(-2)
-            del gp, g2
+            del g2
+        if not keep:
+            gp = None
         cut.sum_over(rows, (nd - 1,))
         cut.sum_over(cols, (nd - 2,))
         vr.copy_(beta2 * vr + (1 - beta2) * (rows / cut.count((nd - 1,))))
@@ -316,33 +325,38 @@ def adafactor(lr: Schedule | float = 3e-4, decay: float = 0.8,
         mean_r = cut.sum_over(vr.sum(-1), (nd - 2,)) / cut.count((nd - 2,))
         den = torch.clamp(mean_r, min=eps)
 
-        def u_of(ls, rs):
-            rms = vr[ls, rs, None] * vc[ls, None, :] / den[ls, None, None]
-            return _clipped(gv[ls, rs], scale) * torch.rsqrt(rms + eps)
+        def u_of(ls, rs, gp=None):
+            u = vr[ls, rs, None] * vc[ls, None, :]
+            u.div_(den[ls, None, None]).add_(eps).rsqrt_()
+            return u.mul_(_clipped(gv[ls, rs], scale) if gp is None else gp)
 
         # pass 2: the clip's Σ u² over the whole leaf; pass 3: the update
         # (one chunk keeps its u between them)
-        keep = len(pieces) == 1
-        us = [u_of(*pieces[0])] if keep else None
+        us = [u_of(*pieces[0], gp)] if keep else None
+        gp = None
         div = None
         if clip_threshold:
             usq = torch.zeros((), dtype=torch.float64, device=g.device)
             for ls, rs in pieces:
                 u = us[0] if keep else u_of(ls, rs)
-                usq += torch.sum(u * u).double()
+                usq += torch.linalg.vector_norm(u).double().square()
                 del u
             div = _clip_div(cut, usq, clip_threshold)
         for ls, rs in pieces:
             u = us[0] if keep else u_of(ls, rs)
-            if div is not None:
-                u = u / div
             blk = pw[ls, rs]
-            blk.copy_(blk.float() - lr_t * u)
-            del u
+            new = blk if blk.dtype == torch.float32 else blk.float()
+            if div is None:
+                new.add_(u, alpha=-lr_t)
+            else:
+                new.addcdiv_(u, div, value=-lr_t)
+            if new is not blk:
+                blk.copy_(new)
+            del u, new
         if pv is not p:
             p.copy_(pv)
 
-    def unfactored(g, v, p, cut, scale, beta2, lr_t):
+    def unfactored(g, v, p, cut, scale, beta2, lr_t, free):
         g = _clipped(g, scale)
         vv = beta2 * v["v"] + (1 - beta2) * (g * g + eps)
         u = g * torch.rsqrt(vv + eps)
@@ -354,7 +368,7 @@ def adafactor(lr: Schedule | float = 3e-4, decay: float = 0.8,
 
     @torch.no_grad()
     def apply(grads, state, params, step, *, grad_norm=None, slices=None,
-              specs=None, rules=None):
+              specs=None, rules=None, shapes=None):
         scale = (clip_scale(grads, max_grad_norm, grad_norm)[0]
                  if max_grad_norm else None)
         t = np.float32(step) + np.float32(1)
@@ -363,14 +377,15 @@ def adafactor(lr: Schedule | float = 3e-4, decay: float = 0.8,
         gl, pl = flatten(grads)[1], flatten(params)[1]
         sl = (flatten(slices)[1] if slices is not None
               else [None] * len(pl))
-        cuts = _cuts(pl, specs, rules, slices)
+        cuts = _cuts(pl, specs, rules, slices, shapes)
+        free = _free_bytes(pl[0].device) if pl else None
         for g, v, p, cut, piece in zip(gl, _v_leaves(state["v"]), pl, cuts,
                                        sl):
             mine = p if piece is None else piece.narrow(p)
             if piece is not None:
                 g = piece.narrow(g)
             upd = factored if "vr" in v else unfactored
-            upd(g, v, mine, cut, scale, beta2, lr_t)
+            upd(g, v, mine, cut, scale, beta2, lr_t, free)
             if piece is not None:
                 p.copy_(piece.gather(mine))
         return params, state
@@ -383,7 +398,28 @@ def adafactor(lr: Schedule | float = 3e-4, decay: float = 0.8,
         return {"v": tree_map(one, param_axes)}
 
     return Optimizer(init=init, apply=apply, name="adafactor",
-                     state_axes=state_axes, whole_leaf_means=True)
+                     state_axes=state_axes)
+
+
+def _free_bytes(device) -> int | None:
+    """The card's free memory, CUDA's and the allocator's cache (read
+    once a step: a leaf's temporaries are freed before the next); ``None``
+    on the CPU."""
+    if device.type != "cuda":
+        return None
+    return (torch.cuda.mem_get_info(device)[0]
+            + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+
+
+def _chunk_for(numel: int, free: int | None) -> int:
+    """The most elements of a leaf of ``numel`` Adafactor updates at once:
+    the whole leaf where :data:`_WHOLE_LEAF_TEMPS` f32 copies of it fit in
+    ``free`` bytes (:func:`_free_bytes`), so its u is computed once; else
+    :data:`ADAFACTOR_CHUNK` (always on the CPU)."""
+    if free is not None and 4 * _WHOLE_LEAF_TEMPS * numel <= free:
+        return max(numel, 1)
+    return ADAFACTOR_CHUNK
 
 
 def _pieces(N: int, R: int, C: int, chunk: int) -> list:
@@ -423,7 +459,8 @@ def sgd(lr: float = 1e-2) -> Optimizer:
         return {}
 
     @torch.no_grad()
-    def apply(grads, state, params, step, *, grad_norm=None, slices=None):
+    def apply(grads, state, params, step, *, grad_norm=None, slices=None,
+              specs=None, rules=None, shapes=None):
         for g, p in _pairs(grads, params):
             p.copy_(p.float() - lr * g.float())
         return params, state

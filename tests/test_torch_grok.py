@@ -322,6 +322,47 @@ def test_clip_is_folded_without_copying_the_gradient():
             assert torch.equal(x, y), make.__name__
 
 
+def test_every_optimizer_takes_the_block_layout():
+    """Every ``apply`` takes ``specs=``, ``rules=`` and ``shapes=``: a
+    world of one's layout (no axis cuts a leaf) changes nothing, bit for
+    bit; Adafactor handed specs without the whole leaves' shapes refuses
+    rather than average over the block's count."""
+    specs = tree_map(lambda x: (None,) * x.ndim, _af_tree(0))
+    for make in (opt.adamw, opt.adafactor, opt.sgd):
+        a = tree_map(torch.tensor, _af_tree(0))
+        b = tree_map(torch.tensor, _af_tree(0))
+        o = make(lr=1e-2)
+        sa, sb = o.init(a), o.init(b)
+        for step in range(2):
+            g = tree_map(torch.tensor, _af_tree(step + 1))
+            o.apply(g, sa, a, step)
+            o.apply(g, sb, b, step, specs=specs, rules=None,
+                    shapes=tree_map(torch.clone, b))
+        for x, y in zip(flatten({"p": a, "s": sa})[1],
+                        flatten({"p": b, "s": sb})[1]):
+            assert torch.equal(x, y), make.__name__
+    o = opt.adafactor(lr=1e-2)
+    with pytest.raises(ValueError, match="shapes="):
+        o.apply(g, o.init(a), a, 0, specs=specs, rules=None)
+
+
+def test_adafactor_takes_a_leaf_whole_where_it_fits(monkeypatch):
+    """On the card a leaf is updated whole where eight f32 copies of it
+    fit in the free memory (CUDA's and the allocator's cache), so each u
+    is computed once; else in chunks of ``ADAFACTOR_CHUNK``; on the CPU
+    always in those chunks."""
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda d: 5 << 30)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda d: 4 << 30)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda d: (31 << 30, 80 << 30))
+    free = opt._free_bytes(torch.device("cuda", 0))
+    assert free == 32 << 30
+    assert opt._chunk_for(1 << 30, free) == 1 << 30
+    assert opt._chunk_for(1 << 30, free - 1) == opt.ADAFACTOR_CHUNK
+    assert opt._free_bytes(torch.device("cpu")) is None
+    assert opt._chunk_for(1 << 10, None) == opt.ADAFACTOR_CHUNK
+
+
 def _old_accumulate(model, params, batch, M):
     """``planner.accumulate`` as it summed before: into new tensors."""
     mb = batch["tokens"].shape[0] // M

@@ -322,7 +322,7 @@ def test_staged_specs_of_the_mixed_period_equal_reference(model_axis):
         strategy=strat,
         rules=sharding.rules_for_strategy(dict(zip(axes, sizes)), strat))
     assert _specs(plan.param_specs) == _specs(want)
-    assert _specs(plan.opt_specs(adamw())) == _specs(want_opt)
+    assert _specs(plan.state_layout(adamw())) == _specs(want_opt)
     blocks = plan.param_specs["blocks"]
     if model_axis > 1:
         assert blocks["p4"]["attn"]["wq"][0] == "stage"

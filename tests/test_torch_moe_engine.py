@@ -276,7 +276,7 @@ def test_staged_specs_of_the_experts_equal_reference(model_axis):
         model=Model(get_config(ARCH), "meta"), mesh=None, strategy=strat,
         rules=sharding.rules_for_strategy(dict(zip(axes, sizes)), strat))
     assert _specs(plan.param_specs) == _specs(want)
-    assert _specs(plan.opt_specs(adamw())) == _specs(want_opt)
+    assert _specs(plan.state_layout(adamw())) == _specs(want_opt)
     moe = plan.param_specs["blocks"]["p0"]["moe"]
     assert moe["router"]["w"] == ("stage", None, None)
     assert moe["w_in"] == ("stage", "model", None, None)

@@ -321,10 +321,11 @@ def _engine_main(rank: int, world: int, store: str, inputs: str,
         real_apply = opt.apply
 
         def apply(grads, state, p, step, *, grad_norm=None,
-                  real_apply=real_apply):
+                  real_apply=real_apply, **kw):
             seen["grads"] = {k: v.clone() for k, v in zip(*flatten(grads))}
             seen["norm"] = float(grad_norm)
-            return real_apply(grads, state, p, step, grad_norm=grad_norm)
+            return real_apply(grads, state, p, step, grad_norm=grad_norm,
+                              **kw)
 
         opt = dataclasses.replace(opt, apply=apply)
         step = plan.pipeline_train_step_fn(opt, stage_layers=sl)

@@ -565,9 +565,9 @@ def test_staged_specs_equal_reference(mesh, zero):
         model=Model(get_config(ARCH), "meta"), mesh=None, strategy=strat,
         rules=sharding.rules_for_strategy(shape, strat))
     assert _specs(plan.param_specs) == _specs(want)
-    assert _specs(plan.opt_specs(adamw())) == _specs(want_opt)
+    assert _specs(plan.state_layout(adamw())) == _specs(want_opt)
     assert not any(a in ("data", "pod") for spec in flatten(
-        plan.opt_specs(adamw()))[1] for e in spec
+        plan.state_layout(adamw()))[1] for e in spec
         for a in sharding._axes(e))
 
 

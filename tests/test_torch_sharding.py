@@ -15,6 +15,7 @@ over two axes.
 import dataclasses
 import itertools
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -81,13 +82,26 @@ def _plans(models, name, zero, vs):
 @pytest.mark.parametrize("name,zero,vocab_split", CASES)
 def test_param_and_opt_specs_match_reference(models, name, zero,
                                              vocab_split):
+    """AdamW's state as the ranks hold it is the reference's
+    ``opt_specs``; so is Adafactor's without ZeRO.  Under ZeRO each rank
+    holds the factored moments of the block it updates (the reference's
+    parameter specs with the ZeRO extension), their means all-reduced
+    over the dim each averages."""
     ref, ours = _plans(models, name, zero, vocab_split)
     assert ours.rules.rules == ref.rules.rules
     assert _specs(ours.param_specs) == _specs(ref.param_specs)
-    for ref_make, make in ((ref_opt.adamw, optimizer.adamw),
-                           (ref_opt.adafactor, optimizer.adafactor)):
-        assert _specs(ours.opt_specs(make())) == \
-            _specs(ref.opt_specs(ref_make()))
+    assert _specs(ours.state_layout(optimizer.adamw())) == \
+        _specs(ref.opt_specs(ref_opt.adamw()))
+    if zero == 0:
+        want = ref.opt_specs(ref_opt.adafactor())
+    else:
+        blocks = ref.rules.param_specs_tree(ref.param_axes,
+                                            ref.param_shapes, fsdp=True)
+        want = {"v": jax.tree.map(
+            lambda s: ({"vr": s[:-1], "vc": s[:-2] + s[-1:]}
+                       if len(s) >= 2 else {"v": s}), _specs(blocks),
+            is_leaf=lambda x: isinstance(x, tuple))}
+    assert _specs(ours.state_layout(optimizer.adafactor())) == _specs(want)
 
 
 @pytest.mark.parametrize("name", list(MESHES))

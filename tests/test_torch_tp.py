@@ -376,7 +376,7 @@ def test_remaining_refusals_name_their_item(ranks):
         model=Model(_cfg(get_config, KV["A"]), "meta"), mesh=None,
         strategy=strat, rules=sharding.rules_for_strategy(
             {"stage": 2, "data": 2, "model": 2}, strat))
-    assert plan.opt_specs(adamw())["mu"] == plan.param_specs
+    assert plan.state_layout(adamw())["mu"] == plan.param_specs
     assert not any(a == "data" for spec in flatten(plan.param_specs)[1]
                    for e in spec for a in sharding._axes(e))
     from repro_torch.core import cost_model as cm
