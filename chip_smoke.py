@@ -230,7 +230,8 @@ and the script exits non-zero without printing a result:
     driver's meshed branch (``serve.run`` with ``--mesh``) at split×2 on
     two ranks, full width and 4 layers (TP_SERVE_LAYERS: the depth cut
     from 22 to hold the script's time),
-    paged with phase 4's workload (run 1) and dense with 8 requests of 500
+    paged with phase 4's requests, 32 tokens generated of their 64 (run
+    1), and dense with 8 requests of 500
     + 16 tokens (run 2, the KV cache's sequence split over the two ranks);
     teacher-forced logits of 2 prefills and 16 decode steps, both caches,
     against one unsharded process (run 3: bf16 at 4 layers, no further
@@ -306,14 +307,14 @@ and the script exits non-zero without printing a result:
     it one layer's ``ssd_scan`` (two forwards and a backward) takes times
     48; step 0's loss and every gradient leaf through the kernels against
     the plain versions on the card (f32 at 2 layers within 1e-4 +
-    1e-4|x|; bf16 at the first 16 of the 48 layers, within TF_PAIR
+    1e-4|x|; bf16 at the first 8 of the 48 layers, within TF_PAIR
     times bf16's own error, leaf by leaf);
 31. mamba2 over ``model`` (the SSD mixer's heads split; ``B``/``C``
     whole; the gated norm's sum of squares all-reduced), two ranks on
     ``cuda:0`` over gloo: split×2 training at 2 layers in f32, the loss
     and every step-0 gradient leaf against the unsharded step within
-    1e-4 + 1e-4|x|; ``serve --mesh 1x2`` at full width and depth in bf16
-    and f32 (4 requests of 500 + 16; the SSD scan once per layer,
+    1e-4 + 1e-4|x|; ``serve --mesh 1x2`` at full width, 8 layers in bf16
+    and 2 in f32 (4 requests of 500 + 16; the SSD scan once per layer,
     prefill and rank; f32 tokens equal to the unsharded driver's); the
     teacher-forced logits and prefill states at full depth against one
     unsharded process, f32 within 1e-4 + 1e-4|x|, bf16 within TF_PAIR
@@ -383,7 +384,7 @@ and the script exits non-zero without printing a result:
     leaf there in f32 within 2e-4 + 2e-4|x|, and the routing choices that
     flip;
 35. the ssm and hybrid families across the engine, two ranks on
-    ``cuda:0`` over gloo on a pool of exactly them: (a) mamba2-1.3b
+    ``cuda:0`` over gloo: (a) mamba2-1.3b
     pipeline×2 at full width and 4 layers, 4 x 2048 in 4 micro-batches,
     1f1b, 2 AdamW steps in bf16 and one in f32, against
     the unpipelined
@@ -415,8 +416,8 @@ and the script exits non-zero without printing a result:
     versions (loss, ``moe_lb``, ``moe_z`` within 2e-4 + 2e-4|x|, every
     gradient leaf there on the first 1/GK_HELD of the embed dim of a leaf
     of 2^26 elements or more), routing flips counted; (c) the experts'
-    d_ff split (grok's expert tensor parallelism) on two ranks over gloo,
-    a pool of exactly them: ``StrategySpec(tp=2)`` with 3 experts (a
+    d_ff split (grok's expert tensor parallelism) on two ranks over gloo:
+    ``StrategySpec(tp=2)`` with 3 experts (a
     2-way axis divides 8; the rules prune ``experts`` and split every
     expert's 32768 columns), 1 layer, f32, 2 x 1024, 2 Adafactor steps,
     against one process: losses within 1e-4 + 1e-4|x|, the step-0
@@ -424,12 +425,11 @@ and the script exits non-zero without printing a result:
     x each leaf's max (held parts through files a leaf), 0 routing flips;
     (d) Adafactor under ZeRO runs in phase 24's ranks.
 
-The meshed phases 20–31 run their ranks in one pool of four processes on
-``cuda:0`` (:class:`RankPool`), started at phase 20 and stopped before
-phase 32: each phase hands its rank function to the first two or four.
-Phase 32's ranks need nearly the whole card, so each of its two calls
-runs on a pool of exactly its ranks, started for it and closed after it;
-so do phase 35's and phase 36's.
+The meshed phases 20–36 run their ranks in one pool of four processes on
+``cuda:0`` (:class:`RankPool`), started before the kernels build (its
+ranks reach the card and import what their tasks need while nvcc runs)
+and stopped after phase 36: each phase hands its rank function to the
+first two or four.
 
 then the kernel table as one JSON line, the card line again, and the last
 line ``{"ok": true, "device": {...}}``.  Needs no network; needs ``nvcc``
@@ -1523,11 +1523,23 @@ def small_model_agreement(torch) -> None:
           f"max |logit err| {worst:.3e} (limit 1e-4)", flush=True)
 
 
-def serve_mamba2(torch, kernels) -> tuple:
+def mamba2_paged_refusal():
+    """``serve --arch mamba2 --cache paged`` started in a process of its
+    own (:func:`serve_mamba2` reads its end)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", MAMBA,
+         "--cache", "paged"], stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+
+
+def serve_mamba2(torch, kernels, refusal) -> tuple:
     """The mamba2-1.3b serving driver at full width (dense cache): the
     main run, then one 2000-token prompt; the SSD scan must launch once
     per layer and prefill, and nothing else.  Then ``--cache paged`` with
-    this arch must exit non-zero.  Returns the two runs' counts."""
+    this arch must exit non-zero (``refusal``, the process
+    :func:`mamba2_paged_refusal` started).  Returns the two runs'
+    counts."""
     from repro_torch.launch import serve
 
     runs = []
@@ -1555,13 +1567,11 @@ def serve_mamba2(torch, kernels) -> tuple:
         runs.append(counts)
         del server
         torch.cuda.empty_cache()
-    p = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", MAMBA,
-         "--cache", "paged"], capture_output=True, text=True, timeout=300,
-        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
-    last = (p.stderr.strip().splitlines() or [""])[-1]
-    print(f"[mamba2] --cache paged: exit {p.returncode}: {last}", flush=True)
-    if p.returncode == 0 or "does not support the paged" not in p.stderr:
+    _, err = refusal.communicate(timeout=300)
+    last = (err.strip().splitlines() or [""])[-1]
+    print(f"[mamba2] --cache paged: exit {refusal.returncode}: {last}",
+          flush=True)
+    if refusal.returncode == 0 or "does not support the paged" not in err:
         raise AssertionError("--cache paged with mamba2 did not refuse")
     return tuple(runs)
 
@@ -1696,9 +1706,9 @@ def where_the_time_goes(torch, arch: str = ARCH, cache: str = "paged") -> dict:
     gen_budget = 0 if cache == "paged" else 1024 - 512
     # few calls under the profiler: its cost grows with the events (~70
     # eager ops a layer a step), the per-call averages do not
-    runs = (("prefill", 2, lambda: model.prefill(
+    runs = (("prefill", 1, lambda: model.prefill(
                 params, {"tokens": tokens}, gen_budget, last)),
-            ("decode step", 4, lambda: server.step(params)))
+            ("decode step", 2, lambda: server.step(params)))
     for what, reps, fn in runs:
         host_ms, busy_ms, prof = profiled(torch, fn, reps)
         found[f"{what.replace(' ', '_')}_busy_ms"] = busy_ms
@@ -2715,8 +2725,6 @@ def _rank_records(out_dir: str, nprocs: int) -> list:
 #: the pool of rank processes the meshed phases share (main process only)
 POOL_RANKS = 4
 _POOL = None
-#: the pool of exactly the ranks of the last :func:`own_ranks` call
-_OWN = None
 
 
 def _patch_points() -> list:
@@ -2753,6 +2761,10 @@ def _pool_worker(tasks, results) -> None:
     torch.cuda.init()
     points = _patch_points()
     kernels = kernel_wrappers()
+    try:
+        warm_process(torch)
+    except Exception:   # noqa: BLE001 -- a cost, not a check: tasks run
+        traceback.print_exc()
     while True:
         task = tasks.get()
         if task is None:
@@ -2775,15 +2787,45 @@ def _pool_worker(tasks, results) -> None:
                      torch.cuda.memory_reserved() / 2**30))
 
 
+def warm_process(torch) -> None:
+    """Pay here what a fresh process pays in its first step: the modules
+    a first checkpointed backward imports (``torch.utils.checkpoint``'s
+    policies bring in ``torch._dynamo``, sympy and
+    ``torch.distributed.fsdp``, seconds on a machine that compiles their
+    bytecode as it imports them), through one step of a model of a few
+    thousand parameters on the host; then cuBLAS and the generator on the
+    card in both dtypes.  It launches none of the port's kernels: their
+    library may still be building."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.planner import loss_and_grads
+    from repro_torch.models.lm import Model
+
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=1, d_model=64,
+                              n_heads=4, n_kv_heads=2, head_dim=16,
+                              d_ff=128, vocab=256)
+    model = Model(cfg, "cpu")
+    loss_and_grads(model, model.init(0),
+                   {"tokens": torch.zeros((1, 16), dtype=torch.long)})
+    for dtype in (torch.float32, torch.bfloat16):
+        a = torch.randn(256, 256, device="cuda", dtype=dtype)
+        (a @ a).sum().item()
+
+
 class RankPool:
     """``n`` processes spawned once, each opening ``cuda:0``, that run
     rank functions one task after another: a task of k ranks goes to the
     first k.  Spawning two ranks anew took 10.7–13.8 s on an NVIDIA H100
     80GB HBM3 (700 W), most of it each process reaching the card; the
-    shared pool (:func:`spawn_ranks`, POOL_RANKS) pays that once for the
-    meshed phases.  An idle rank still holds its CUDA context, so a phase
-    whose ranks need nearly the whole card starts a pool of exactly its
-    ranks and closes it after them (:func:`own_ranks`)."""
+    one pool (:func:`start_pool`, :func:`spawn_ranks`) is started before
+    the kernels build, so that its ranks reach the card and import what
+    their tasks need (:func:`warm_process`) while nvcc runs, and it serves
+    every meshed phase.  Its ranks map device memory in
+    growable segments (``expandable_segments``): what one rank frees is
+    not stranded in a block the rank beside it cannot use, and the
+    largest parts (deepseek's and jamba's pipeline stages, 32 GiB a rank)
+    fit beside the idle ranks' contexts."""
 
     def __init__(self, n: int = POOL_RANKS):
         import torch.multiprocessing as mp
@@ -2794,8 +2836,16 @@ class RankPool:
         self.procs = [ctx.Process(target=_pool_worker,
                                   args=(self.tasks[r], self.results),
                                   daemon=True) for r in range(n)]
-        for p in self.procs:
-            p.start()
+        conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            for p in self.procs:
+                p.start()
+        finally:
+            if conf is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
 
     def run(self, fn, args: tuple, nprocs: int, timeout: float) -> list:
         import queue
@@ -2860,50 +2910,25 @@ def close_pool() -> None:
         pool.close()
 
 
-def close_own() -> None:
-    """Stop the pool :func:`own_ranks` left open."""
-    global _OWN
-    if _OWN is not None:
-        pool, _OWN = _OWN, None
-        pool.close()
-
-
-def own_ranks(fn, *args, timeout: float = 600, nprocs: int = 2) -> list:
-    """Run ``fn(rank, store, out_dir, *args)`` on a pool of exactly
-    ``nprocs`` ranks (:class:`RankPool`), after the shared pool is
-    stopped: no idle rank holds the card beside them.  The pool stays open
-    for the next call of as many ranks (phases 35 and 36 share one, a
-    spawn of two saved) and is stopped by a call of another count, by
-    :func:`close_own` or at exit.  Returns their ``rank<r>.json`` records;
-    a rank that fails or outlives ``timeout`` seconds fails the phase."""
-    global _OWN
-    close_pool()
-    if _OWN is not None and (len(_OWN.procs) != nprocs or not all(
-            p.is_alive() for p in _OWN.procs)):
-        close_own()
-    if _OWN is None:
-        import atexit
-
-        _OWN = RankPool(nprocs)
-        atexit.register(close_own)
-    return _OWN.run(fn, args, nprocs, timeout)
-
-
-def spawn_ranks(fn, *args, timeout: float = 600, nprocs: int = 2) -> list:
-    """Run ``fn(rank, store, out_dir, *args)`` on ``nprocs`` ranks of the
-    pool (:class:`RankPool`, started at the first call; each rank on
-    ``cuda:0``), and return their ``rank<r>.json`` records; a rank that
-    fails or outlives ``timeout`` seconds fails the phase (the pool is
-    stopped where a rank hangs)."""
+def start_pool() -> None:
+    """Start the pool (:class:`RankPool`) unless it runs: its ranks reach
+    the card while this process goes on."""
     global _POOL
     if _POOL is not None and not all(p.is_alive() for p in _POOL.procs):
         close_pool()                     # stopped by a rank that hung
     if _POOL is None:
         import atexit
 
-        close_own()
         _POOL = RankPool()
         atexit.register(close_pool)
+
+
+def spawn_ranks(fn, *args, timeout: float = 600, nprocs: int = 2) -> list:
+    """Run ``fn(rank, store, out_dir, *args)`` on ``nprocs`` ranks of the
+    pool (:func:`start_pool`; each rank on ``cuda:0``), and return their
+    ``rank<r>.json`` records; a rank that fails or outlives ``timeout``
+    seconds fails the phase (the pool is stopped where a rank hangs)."""
+    start_pool()
     return _POOL.run(fn, args, nprocs, timeout)
 
 
@@ -4480,8 +4505,11 @@ def train_nested(torch) -> dict:
 #: every depth)
 TP_SERVE_LAYERS = 4
 TP_DEPTH = ["--overrides", f"n_layers={TP_SERVE_LAYERS}"]
-#: run 1: phase 4's paged workload at TP_SERVE_LAYERS layers
-TP_PAGED_ARGS = PAGED_ARGS + TP_DEPTH
+#: run 1: phase 4's paged workload (16 requests of 500 through 8 slots)
+#: at TP_SERVE_LAYERS layers, 32 tokens generated of its 64 (cut to hold
+#: the script's time: two waves of 31 steps)
+TP_PAGED_ARGS = [a if PAGED_ARGS[i - 1] != "--gen" else "32"
+                 for i, a in enumerate(PAGED_ARGS)] + TP_DEPTH
 #: run 2: the dense, sequence-split cache; each rank holds 512 of the
 #: 1024 rows, and the 15 decode steps write rows 500-514
 TP_DENSE_ARGS = ["--arch", ARCH, "--cache", "dense", "--requests", "8",
@@ -4846,9 +4874,9 @@ def serve_tp(torch, kernels, paged4: dict) -> dict:
     teacher-forced logits of TF_RUNS and the tokens of runs 1, 4 and 5's
     workloads.  Then two ranks on ``cuda:0`` over gloo (NCCL refuses two
     ranks on one card) serve through the driver's meshed branch at split×2
-    (run 1: phase 4's workload, paged, full width and TP_SERVE_LAYERS
-    layers; run 2: dense, the sequence-split cache; run 5: f32 at 2
-    layers, both caches) and hold the teacher-forced logits (run 3, both
+    (run 1: phase 4's requests, paged, full width and TP_SERVE_LAYERS
+    layers, 32 tokens generated of their 64; run 2: dense, the
+    sequence-split cache; run 5: f32 at 2 layers, both caches) and hold the teacher-forced logits (run 3, both
     caches at TP_SERVE_LAYERS layers; run 5's in f32); four ranks serve
     data 2 x model 2 at DP_TP_LAYERS layers with a pool
     that preempts (run 4).  Then the driver's ``--mesh 1x1`` at full width
@@ -5431,30 +5459,28 @@ def moe_train(torch, kernels) -> dict:
     """Phase 28 (b): the training driver on deepseek-moe-16b at full width
     and MOE_TRAIN_LAYERS layers, batch 4 x 2048, AdamW, MOE_TRAIN_STEPS
     steps: finite losses, ``moe_lb`` and ``moe_z``, the launches, the peak
-    beside AdamW's state (the final checkpoint is gathered to the host,
-    its file write skipped: phase 11 writes one); then step 0's loss and
+    beside AdamW's state (the final checkpoint is gathered, neither copied
+    to the host nor written: phase 11 writes one); then step 0's loss and
     every gradient leaf through the kernels against the plain versions on
     the card (bf16: 2e-2 + 2e-2|x|, each leaf within 5e-2 of its max, the
     routed experts' within TF_PAIR times the larger of that and the same
     step a row at a time: :func:`hold_grads`)."""
-    from repro_torch.ckpt.checkpoint import CheckpointManager
     from repro_torch.core.planner import accumulate, loss_and_grads
     from repro_torch.launch import train
     from repro_torch.models.lm import Model, param_count
     from repro_torch.tree import flatten
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_")
-    real_write, written = CheckpointManager._write, []
-    CheckpointManager._write = lambda self, step, *a: written.append(step)
+    written = []
     try:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_counts(kernels)
-        res = train.main(MOE_TRAIN_ARGS + ["--ckpt-dir", tmp])
+        with no_checkpoint_write(written):
+            res = train.main(MOE_TRAIN_ARGS + ["--ckpt-dir", tmp])
         counts = read_counts(kernels)
         peak = torch.cuda.max_memory_allocated()
     finally:
-        CheckpointManager._write = real_write
         shutil.rmtree(tmp, ignore_errors=True)
     cfg = _moe_cfg(n_layers=MOE_TRAIN_LAYERS)
     n = param_count(Model(cfg, "meta").param_shapes())
@@ -5467,8 +5493,8 @@ def moe_train(torch, kernels) -> dict:
           f"({tok / statistics.median(secs[1:]):.0f} tok/s after step 0); "
           f"peak device memory {peak / 2**30:.2f} GiB beside parameters, "
           f"gradients and AdamW moments {16 * n / 1e9:.2f} GB; final "
-          f"checkpoint gathered at step {written} (file write skipped); "
-          f"launches {counts}", flush=True)
+          f"checkpoint gathered at step {written} (host copy and write "
+          f"skipped); launches {counts}", flush=True)
     if not all(math.isfinite(x) for x in res["losses"] + res["moe_lb"]
                + res["moe_z"]) or min(res["moe_lb"]) <= 0:
         raise AssertionError(f"moe train: losses {res['losses']}, moe_lb "
@@ -6172,7 +6198,7 @@ M2_TRAIN_STEPS = 3
 #: the depth of step 0's bf16 agreement through the kernels against the
 #: plain versions (of 48, cut to hold the script's time; f32 holds it at
 #: 2 layers)
-M2_AGREE_LAYERS = 16
+M2_AGREE_LAYERS = 8
 M2_TRAIN_ARGS = ["--arch", MAMBA, "--batch", str(TRAIN_BATCH), "--seq",
                  str(TRAIN_SEQ), "--steps", str(M2_TRAIN_STEPS),
                  "--optimizer", "adamw", "--log-every", "1"]
@@ -6184,7 +6210,7 @@ def mamba2_train(torch, kernels) -> dict:
     through the differentiable chunked scan, the tied head through the
     xent kernels), M2_TRAIN_STEPS steps: finite losses, launches (the xent
     kernels only), tokens/s after step 0, the peak beside the state (the
-    final checkpoint gathered to the host, its file write skipped).  Then
+    final checkpoint gathered, neither copied to the host nor written).  Then
     one step split on the host clock (forward, backward, AdamW), one step
     under torch.profiler (device busy, top kernels), and one layer's
     ``ssd_scan`` (two forwards, as remat full runs it, and a backward)
@@ -6198,7 +6224,6 @@ def mamba2_train(torch, kernels) -> dict:
 
     import numpy as np
 
-    from repro_torch.ckpt.checkpoint import CheckpointManager
     from repro_torch.configs import get_config
     from repro_torch.core.planner import loss_and_grads
     from repro_torch.kernels.xent import xent
@@ -6210,17 +6235,16 @@ def mamba2_train(torch, kernels) -> dict:
 
     cfg = get_config(MAMBA)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mamba2_train_")
-    real_write, written = CheckpointManager._write, []
-    CheckpointManager._write = lambda self, step, *a: written.append(step)
+    written = []
     try:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_counts(kernels)
-        res = train.main(M2_TRAIN_ARGS + ["--ckpt-dir", tmp])
+        with no_checkpoint_write(written):
+            res = train.main(M2_TRAIN_ARGS + ["--ckpt-dir", tmp])
         counts = read_counts(kernels)
         peak = torch.cuda.max_memory_allocated()
     finally:
-        CheckpointManager._write = real_write
         shutil.rmtree(tmp, ignore_errors=True)
     n = param_count(Model(cfg, "meta").param_shapes())
     T = TRAIN_BATCH * (TRAIN_SEQ - 1)
@@ -6237,8 +6261,8 @@ def mamba2_train(torch, kernels) -> dict:
           f"({tok / statistics.median(secs[1:]):.1f} tok/s after step 0); "
           f"peak device memory {peak / 2**30:.2f} GiB beside parameters, "
           f"gradients and AdamW moments {16 * n / 1e9:.2f} GB; final "
-          f"checkpoint gathered at step {written} (file write skipped); "
-          f"launches {counts}", flush=True)
+          f"checkpoint gathered at step {written} (host copy and write "
+          f"skipped); launches {counts}", flush=True)
     if not all(math.isfinite(x) for x in res["losses"]):
         raise AssertionError(f"mamba2 train: losses {res['losses']}")
     if counts != want:
@@ -6398,6 +6422,12 @@ M2_SPLIT_LAYERS = 2             # training split x2, f32
 M2_SERVE_ARGS = ["--arch", MAMBA, "--cache", "dense", "--requests", "4",
                  "--batch-slots", "4", "--prompt-len", "500", "--gen", "16",
                  "--max-len", "1024"]
+#: the depth served split in bf16 (cut from 48 to hold the script's time:
+#: each layer's gated norm and ``wo`` cross host memory at every step;
+#: the teacher-forced runs below hold all 48)
+M2_SERVE_LAYERS = 8
+M2_SERVE_BF16 = M2_SERVE_ARGS + ["--overrides",
+                                 f"n_layers={M2_SERVE_LAYERS}"]
 #: f32 at 2 layers: the split's tokens equal the unsharded run's
 M2_SERVE_F32 = M2_SERVE_ARGS + ["--overrides", "dtype=float32,n_layers=2"]
 #: teacher-forced runs of mamba2: name -> (layers, activation dtype);
@@ -6493,8 +6523,8 @@ def _m2_split_rank(rank: int, store: str, out_dir: str, ref_dir: str) -> None:
     TP_BATCH x TRAIN_SEQ, one step: the loss and the gathered step-0
     gradient against the unsharded process's (``ref_dir``), each leaf
     within 1e-4 + 1e-4|x|; (b) the serving driver's meshed branch
-    (``--mesh 1x2``) at full depth in bf16 and in f32; (c) the
-    teacher-forced runs (:func:`_m2_tf_all`)."""
+    (``--mesh 1x2``) at M2_SERVE_LAYERS layers in bf16 and 2 in f32; (c)
+    the teacher-forced runs (:func:`_m2_tf_all`)."""
     import dataclasses
 
     import torch
@@ -6555,7 +6585,7 @@ def _m2_split_rank(rank: int, store: str, out_dir: str, ref_dir: str) -> None:
         del params, seen, want, plan
         torch.cuda.empty_cache()
 
-        for tag, argv in (("bf16", M2_SERVE_ARGS), ("f32", M2_SERVE_F32)):
+        for tag, argv in (("bf16", M2_SERVE_BF16), ("f32", M2_SERVE_F32)):
             reset_counts(kernels)
             s0 = stats["s"]
             summary, server = serve.run(serve.parse_args(
@@ -6646,7 +6676,7 @@ def mamba2_split(torch) -> dict:
               f"within 1e-4 + 1e-4|x| (max |diff| {t['worst_grad']:.3e}); "
               f"step {t['seconds']:.3f} s, gloo {t['gloo_s']:.3f}; launches "
               f"{t['counts']}", flush=True)
-        for tag, layers in (("bf16", 48), ("f32", 2)):
+        for tag, layers in (("bf16", M2_SERVE_LAYERS), ("f32", 2)):
             s = o[f"serve/{tag}"]
             print(f"[mamba2-split] rank {r} serve --mesh 1x2 {tag}, "
                   f"{layers} layers: {s['completed']} requests, "
@@ -6751,26 +6781,67 @@ def _moe_steps_log(rec: dict) -> str:
 
 
 def _leaf_file(d: str, path: str) -> str:
-    return os.path.join(d, path.replace("/", "~") + ".pt")
+    return os.path.join(d, path.replace("/", "~") + ".bin")
+
+
+#: bytes of a leaf that cross to its file at a time, through one pinned
+#: host buffer (:func:`_write_leaf`)
+STAGE_BYTES = 1 << 28
+_STAGE = []
+
+
+def _write_leaf(torch, name: str, x) -> None:
+    """``x``'s elements to the file ``name``, raw, in C order; a tensor on
+    the card crosses through one pinned host buffer, STAGE_BYTES at a
+    time (a pageable copy of a whole leaf faults in fresh host pages as
+    it goes, gigabytes of them for an expert leaf)."""
+    flat = x.detach().contiguous().reshape(-1).view(torch.uint8)
+    with open(name, "wb") as f:
+        if flat.device.type != "cuda":
+            f.write(flat.numpy().data)
+            return
+        if not _STAGE:
+            _STAGE.append(torch.empty(STAGE_BYTES, dtype=torch.uint8,
+                                      pin_memory=True))
+        buf = _STAGE[0]
+        for i in range(0, flat.numel(), STAGE_BYTES):
+            part = flat[i:i + STAGE_BYTES]
+            buf[:part.numel()].copy_(part)
+            f.write(buf[:part.numel()].numpy().data)
+
+
+def _read_leaf(torch, d: str, path: str):
+    """The leaf :func:`_save_leaves` wrote for ``path`` in ``d``, mapped
+    from its file (its pages read as they are touched)."""
+    with open(os.path.join(d, "meta.json")) as f:
+        dtype, shape = json.load(f)[path]
+    return torch.from_file(_leaf_file(d, path), size=math.prod(shape),
+                           dtype=getattr(torch, dtype)).view(shape)
 
 
 def _save_leaves(torch, d: str, leaves) -> None:
     """Each ``(path, tensor)`` or ``(path, tensor, max |x|)`` of
-    ``leaves`` to a file of its own in ``d`` (a rank maps only the rows it
-    needs), with every leaf's max |x| (the tensor's where none is given)
-    added to ``d/tops.json``."""
+    ``leaves`` to a file of its own in ``d`` (:func:`_write_leaf`; a rank
+    maps only the rows it needs, :func:`_read_leaf`), its dtype and shape
+    added to ``d/meta.json`` and its max |x| (the tensor's where none is
+    given) to ``d/tops.json``."""
     os.makedirs(d, exist_ok=True)
-    name = os.path.join(d, "tops.json")
-    tops = {}
-    if os.path.exists(name):
-        with open(name) as f:
-            tops = json.load(f)
+    records = {}
+    for what in ("tops", "meta"):
+        name = os.path.join(d, f"{what}.json")
+        records[what] = {}
+        if os.path.exists(name):
+            with open(name) as f:
+                records[what] = json.load(f)
     for path, g, *top in leaves:
-        torch.save(g.detach().cpu(), _leaf_file(d, path))
-        tops[path] = (top[0] if top else float(
+        _write_leaf(torch, _leaf_file(d, path), g)
+        records["meta"][path] = [str(g.dtype).removeprefix("torch."),
+                                 list(g.shape)]
+        records["tops"][path] = (top[0] if top else float(
             torch.linalg.vector_norm(g.detach(), float("inf"))))
-    with open(name, "w") as f:
-        json.dump(tops, f)
+    for what, rec in records.items():
+        with open(os.path.join(d, f"{what}.json"), "w") as f:
+            json.dump(rec, f)
 
 
 def _leaf_gaps(torch, grads: dict, d: str, cut=None,
@@ -6786,7 +6857,7 @@ def _leaf_gaps(torch, grads: dict, d: str, cut=None,
         tops = json.load(f)
     out = {}
     for path, g in grads.items():
-        w = torch.load(_leaf_file(d, path), mmap=True)
+        w = _read_leaf(torch, d, path)
         if cut is not None:
             w = cut(path, w)
         w, gf = w.reshape(-1), g.detach().reshape(-1)
@@ -6882,7 +6953,7 @@ def _pp_references(torch, model_of, runs: dict, d: str,
     with open(os.path.join(d, "f32", "tops.json")) as f:
         tops = json.load(f)
     refs["own"] = {p: max_err(*(
-        torch.load(_leaf_file(os.path.join(d, n), p), mmap=True).cuda()
+        _read_leaf(torch, os.path.join(d, n), p).cuda()
         for n in ("bf16", "f32"))) / max(top, 1e-30)
         for p, top in tops.items()}
     refs["own_loss"] = {k: max(abs(a - b) for a, b in zip(
@@ -7466,12 +7537,10 @@ def moe_engine(torch, kernels) -> dict:
     try:
         refs = _moe_references(torch, tmp)
         t0 = time.perf_counter()
-        # deepseek's ranks take nearly the whole card: a pool of exactly
-        # the phase's ranks, none idle beside them
-        ranks = {2: own_ranks(_moe_engine_rank, tmp, 2, timeout=600)}
+        ranks = {2: spawn_ranks(_moe_engine_rank, tmp, 2, timeout=600)}
         t1 = time.perf_counter()
-        ranks[4] = own_ranks(_moe_engine_rank, tmp, 4, nprocs=4,
-                             timeout=600)
+        ranks[4] = spawn_ranks(_moe_engine_rank, tmp, 4, nprocs=4,
+                               timeout=600)
         t2 = time.perf_counter()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -8578,9 +8647,9 @@ def _hybrid_report(torch, ranks: list, refs: dict) -> tuple:
 def hybrid_engine(torch, kernels) -> dict:
     """Phase 35: the ssm and hybrid families across the engine.  Here
     first, unsharded, the references (:func:`_hybrid_references`); then two
-    ranks on ``cuda:0`` over gloo, on a pool of exactly them
-    (:func:`own_ranks`), run (a) mamba2 pipeline×2, (b) jamba pipeline×2
-    and (c) jamba split×2 (:func:`_hybrid_engine_rank`).  Everything is
+    ranks on ``cuda:0`` over gloo run (a) mamba2 pipeline×2, (b) jamba
+    pipeline×2 and (c) jamba split×2 (:func:`_hybrid_engine_rank`).
+    Everything is
     printed before it is held:
 
     - (a): bf16 losses (every step) and each step-0 gradient leaf within
@@ -8599,18 +8668,7 @@ def hybrid_engine(torch, kernels) -> dict:
     try:
         refs = _hybrid_references(torch, tmp)
         t0 = time.perf_counter()
-        # jamba's ranks hold 27 GiB of weights and gradients each: their
-        # allocators map memory in growable segments, so that what one
-        # frees is not stranded in a block the other cannot use
-        conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-        try:
-            ranks = own_ranks(_hybrid_engine_rank, tmp, timeout=600)
-        finally:
-            if conf is None:
-                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
-            else:
-                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+        ranks = spawn_ranks(_hybrid_engine_rank, tmp, timeout=600)
         t1 = time.perf_counter()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -9117,8 +9175,8 @@ def _grok_rank(rank: int, store: str, out_dir: str, ref_dir: str) -> None:
 
 def grok_split(torch) -> dict:
     """Phase 36 (c): the experts' d_ff split over model (grok's expert
-    tensor parallelism) on two ranks on ``cuda:0`` over gloo, a pool of
-    exactly them (:func:`own_ranks`), against one process's run here
+    tensor parallelism) on two ranks on ``cuda:0`` over gloo, against one
+    process's run here
     first (:func:`_gk_tp_reference`): the losses, each step-0 gradient
     leaf and each parameter after the last step within 1e-4 + 1e-4 x the
     leaf's max |x| (their held parts, :func:`_gk_held`), 0 routing flips,
@@ -9129,15 +9187,7 @@ def grok_split(torch) -> dict:
     try:
         want = _gk_tp_reference(torch, tmp)
         t0 = time.perf_counter()
-        conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-        try:
-            ranks = own_ranks(_grok_rank, tmp, timeout=600)
-        finally:
-            if conf is None:
-                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
-            else:
-                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+        ranks = spawn_ranks(_grok_rank, tmp, timeout=600)
         t1 = time.perf_counter()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -9237,6 +9287,13 @@ def main() -> None:
     from repro_torch.kernels import build
 
     card = card_line()
+    refusal = None
+    if not args.against:
+        # the pool's ranks and phase 8's refusal reach the card and import
+        # what they need while the kernels build, not while phase 3 times
+        # them (a plain version's time there is bound by its host)
+        start_pool()
+        refusal = mamba2_paged_refusal()
     print("[card] nvidia-smi name, power.limit:", flush=True)
     print(card, flush=True)
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda}",
@@ -9295,7 +9352,8 @@ def main() -> None:
         serve_times = where_the_time_goes(torch)
     torch.cuda.empty_cache()
     with phase("serve mamba2 (dense, main path of the ssm family)"):
-        mamba_counts, mamba_long_counts = serve_mamba2(torch, kernels)
+        mamba_counts, mamba_long_counts = serve_mamba2(torch, kernels,
+                                                       refusal)
     with phase("mamba2 agreement"):
         mamba2_agreement(torch)
     with phase("mamba2 time breakdown"):
@@ -9371,8 +9429,6 @@ def main() -> None:
                "pipeline×2 and over model 2, the balance at data 2, served "
                "split×2 and data 2 x model 2; 2 and 4 ranks)"):
         moe_engine_counts = moe_engine(torch, kernels)
-    close_pool()
-    close_own()
     torch.cuda.empty_cache()
     with phase("the dense family's rest (qwen3-1.7b, gemma-2b, stablelm-3b: "
                "served paged and dense, trained, held against the plain "
@@ -9391,6 +9447,7 @@ def main() -> None:
     with phase("grok-1-314b (served at 4 layers, trained at 1 with "
                "Adafactor, the experts' d_ff split on 2 ranks)"):
         grok_counts = grok(torch, kernels)
+    close_pool()
 
     meta = {
         "flash_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu",

@@ -322,7 +322,17 @@ def gather_cat(t: torch.Tensor, group, dim: int) -> torch.Tensor:
         src = src.cpu()
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
-    return torch.cat(parts, dim).to(t.device)
+    if src.device == t.device:
+        return torch.cat(parts, dim)
+    # parts that crossed through host memory are laid into the result on
+    # the device: no host copy of the whole
+    size = src.shape[dim]
+    shape = list(src.shape)
+    shape[dim] = n * size
+    out = torch.empty(shape, dtype=src.dtype, device=t.device)
+    for i, part in enumerate(parts):
+        out.narrow(dim, i * size, size).copy_(part)
+    return out
 
 
 def _scatter_sum(t: torch.Tensor, group, dim: int) -> torch.Tensor:
