@@ -24,13 +24,17 @@ import os
 import subprocess
 import sys
 
-#: the phases it runs: 24 (``train_hybrid_zero``), 26 (``serve_tp``), 29
+#: the phases it runs: 3 (the kernel rows of the attention and the loss
+#: head: ``check_flash``, ``check_paged``, ``check_flash_bwd``,
+#: ``check_xent``), 19 (``pipeline_interpreter``), 24
+#: (``train_hybrid_zero``), 26 (``serve_tp``), 29
 #: (``compressed_blocks``), 30 (``mamba2_train``), 31 (``mamba2_split``),
 #: 32 (``moe_engine``), 33 (``dense_rest``), 34 (``jamba``), 35
-#: (``hybrid_engine``) and 36 (``grok``; its part (d) runs in 24), the
-#: same functions in every checkout since they were added (a checkout
-#: without one reports that phase failed)
-PHASES = ("24", "26", "29", "30", "31", "32", "33", "34", "35", "36")
+#: (``hybrid_engine``), 36 (``grok``; its part (d) runs in 24) and 37
+#: (``multimodal``), the same functions in every checkout since they were
+#: added (a checkout without one reports that phase failed)
+PHASES = ("3", "19", "24", "26", "29", "30", "31", "32", "33", "34", "35",
+          "36", "37")
 
 CHILD = r"""
 import json, sys, time, traceback
@@ -45,7 +49,16 @@ paged4 = None
 for ph in sys.argv[1:]:
     t0, ok = time.perf_counter(), True
     try:
-        if ph == "24":
+        if ph == "3":
+            timer = cs.Timer(torch)
+            cs.check_flash(torch, timer)
+            cs.check_paged(torch, timer)
+            cs.check_flash_bwd(torch, timer)
+            cs.check_xent(torch, timer)
+            del timer
+        elif ph == "19":
+            cs.pipeline_interpreter(torch, kernels)
+        elif ph == "24":
             cs.train_hybrid_zero(torch)
         elif ph == "26":
             if paged4 is None:
@@ -68,6 +81,8 @@ for ph in sys.argv[1:]:
             cs.hybrid_engine(torch, kernels)
         elif ph == "36":
             cs.grok(torch, kernels)
+        elif ph == "37":
+            cs.multimodal(torch, kernels)
     except Exception:
         traceback.print_exc()
         ok = False

@@ -31,7 +31,14 @@ and the script exits non-zero without printing a result:
    grok-1-314b, phase 36: flash forward (prefill in bf16 and f32), dq and
    dk/dv at 48 q over 8 kv heads of 128, a group of 6, paged decode at
    group 6 (48/8 and a tp-2 rank's 24/4, bf16 and f32), xent at its
-   untied head, E = 6144, V = 131072), and at ragged ones
+   untied head, E = 6144, V = 131072; the multimodal families, phase 37:
+   qwen2-vl-2b's 12 q over 2 kv heads of 128 (flash forward at prefill
+   and training, dq, dk/dv, paged decode at 8 slots) and its tied head,
+   E = 1536, V = 152064; seamless-m4t-medium's 16 heads of 64 at its
+   training step, the encoder (4 x 1024, non-causal), the
+   cross-attention (Sq 2047 against Sk 1024) and the decoder (2047,
+   causal), forward and backward, and its untied head, E = 1024,
+   V = 256256), and at ragged ones
    (tolerance: values f32 2e-5, bf16 2e-2; gradients f32 2e-4, bf16 5e-2;
    the SSD scan 5e-4, as the reference holds its kernel; the int8
    quantize and dequantize bit for bit, a NaN included; the xent
@@ -123,7 +130,8 @@ and the script exits non-zero without printing a result:
     against ``planner.accumulate`` over the same micro-batches within bf16's
     limits, the buffer audit ([4, 4] and [2, 1]), the launch counts of
     every kernel around each call, the peak device memory of each, one
-    step's median time beside ``accumulate``'s, and the cost model's price
+    step's time (PP_TIMED calls, after the checked ones) beside
+    ``accumulate``'s, and the cost model's price
     of ``pipeline×2(µb=4)`` on the H100 table as a prediction;
 20. the multi-rank engine through the plan (``compile_plan`` with
     ``StrategySpec(pp=2, micro_batches=4)``, ``pipeline_train_step_fn``):
@@ -299,7 +307,7 @@ and the script exits non-zero without printing a result:
     of a leaf), and the same step with each block quantized against its
     own scale (the old per-shard scale, planted) outside that gate;
 30. mamba2-1.3b training at full width and depth (48 layers, batch 4 x
-    2048, remat full, AdamW, 3 steps; the SSD mixer through the
+    2048, remat full, AdamW, 2 steps; the SSD mixer through the
     differentiable chunked scan, as the reference trains it, the tied
     head through the xent kernels): losses, launches, tokens/s after step
     0, the peak beside the state; one step split into forward, backward
@@ -347,14 +355,14 @@ and the script exits non-zero without printing a result:
 33. the dense family's rest, each at full width and depth: qwen3-1.7b
     (per-head qk-norm, tied head), gemma-2b (GeGLU, MQA, head dim 256,
     tied 256k head) and stablelm-3b (LayerNorm, head dim 80): (a) the
-    serving driver in bf16, paged and dense, 8 requests of 256 + 32
+    serving driver in bf16, paged and dense, 8 requests of 256 + 16
     tokens through 8 slots: TTFT, TPOT, tokens/s, the peak beside the
     weights and KV, the flash and paged-decode launches; (b) the
-    training driver, batch 4 x 2048, remat full, AdamW, 3 steps: finite
+    training driver, batch 4 x 2048, remat full, AdamW, 2 steps: finite
     losses, launches, tokens/s, forward, backward and AdamW on the host
     clock, the peak beside the parameters, gradients and moments (the
     final checkpoint neither copied to the host nor written), then the
-    first 2 steps through the plain versions, each loss
+    first step through the plain versions, its loss
     within 5% of theirs; (c)
     through the kernels against the plain versions on the card:
     teacher-forced logits at full depth in bf16 within TF_PAIR times
@@ -366,7 +374,7 @@ and the script exits non-zero without printing a result:
     experts of 14336 columns, top-2, on the odd blocks; a dense SwiGLU
     MLP on the even; vocab 65536): (a) the serving driver in bf16 at one
     period (8 layers: 1 attention, 7 SSD; all 32 take 103 GB), dense, 8
-    requests of 256 + 32 tokens through 8 slots: TTFT, TPOT, tokens/s,
+    requests of 256 + 16 tokens through 8 slots: TTFT, TPOT, tokens/s,
     the peak beside the weights, KV and SSD states, the flash and SSD
     scan launches (paged decode 0); (b) the training driver at the 2-layer
     pattern (``attn_period=2``: an SSD + dense block, then an attention +
@@ -402,13 +410,13 @@ and the script exits non-zero without printing a result:
     8 kv heads of 128, a group of 6; GeGLU; untied vocab 131072): (a) the
     serving driver at full width and 4 layers in bf16 (21.29e9
     parameters, 39.66 GiB; all 64 layers take 628 GB), paged (the kernel
-    at group 6) and dense, 8 requests of 256 + 32 through 8 slots: TTFT,
+    at group 6) and dense, 8 requests of 256 + 16 through 8 slots: TTFT,
     TPOT against the decode step's floor (every weight but the table read
     once at 3.35 TB/s), the peak beside the weights and KV, the
     launches; teacher-forced logits at 1 layer in f32 through the kernels
     against the plain versions within 1e-4 + 1e-4|x|, routing flips
     counted; (b) the training driver at full width and 1 layer, batch 4
-    x 2048, remat full, Adafactor (the reference's recipe), 3 steps:
+    x 2048, remat full, Adafactor (the reference's recipe), 2 steps:
     tokens/s, forward, backward and Adafactor on the host clock, the peak
     beside the f32 parameters and gradients (48.66 GiB) and Adafactor's
     state, the final checkpoint neither copied to the host nor written;
@@ -423,12 +431,35 @@ and the script exits non-zero without printing a result:
     against one process: losses within 1e-4 + 1e-4|x|, the step-0
     gradient and the parameters after the last step within 1e-4 + 1e-4
     x each leaf's max (held parts through files a leaf), 0 routing flips;
-    (d) Adafactor under ZeRO runs in phase 24's ranks.
+    (d) Adafactor under ZeRO runs in phase 24's ranks;
+37. the multimodal families at full width: (a) qwen2-vl-2b (28 layers,
+    12 q over 2 kv heads of 128, M-RoPE, a tied 151936 vocab) served by
+    the serving driver in bf16, paged and dense, 8 requests of 256 + 32
+    (TTFT, TPOT, the peak beside weights and KV; flash forward 28 an
+    admission, paged decode 28 a step); (b) trained by the training
+    driver at full depth, 4 x 2048 with 64 patch embeddings a row, remat
+    full, AdamW, 3 steps (tokens/s, forward, backward, AdamW, the peak
+    beside the state; flash forward, dq, dk/dv and the xent kernels);
+    (c) seamless-m4t-medium (12 + 12 layers, 16 heads of 64, LayerNorm,
+    relu, an untied 256206 vocab) served through ``Model.prefill`` from
+    8 rows of 1024 frames, then 31 greedy ``serve_step``s in bf16 (TTFT,
+    TPOT; flash forward once per encoder layer and prefill), and trained
+    at 4 x 2048 targets over 1024 frames (the cross-attention at Sq 2047,
+    Sk 1024), AdamW, 3 steps (36 attentions a pass); (d) both at 2
+    layers (seamless 2 + 2) in f32 through the kernels against the plain
+    versions: teacher-forced logits, step 0's loss and every gradient
+    leaf at 4 x 2048 within 1e-4 + 1e-4|x|, and the bf16 teacher-forced
+    pair printed beside bf16's own error; (e) seamless's two-tower
+    pipeline×2 on two ranks over gloo (the encoder on stage 0, the
+    decoder and the loss on stage 1), 2 + 2 layers, f32, 2 x 1024 targets
+    over 512 frames in 2 micro-batches: step 0's loss and every gradient
+    leaf against one process, each rank's launches, peak, step and gloo
+    seconds.
 
-The meshed phases 20–36 run their ranks in one pool of four processes on
+The meshed phases 20–37 run their ranks in one pool of four processes on
 ``cuda:0`` (:class:`RankPool`), started before the kernels build (its
 ranks reach the card and import what their tasks need while nvcc runs)
-and stopped after phase 36: each phase hands its rank function to the
+and stopped after phase 37: each phase hands its rank function to the
 first two or four.
 
 then the kernel table as one JSON line, the card line again, and the last
@@ -546,7 +577,7 @@ class Timer:
 #: median of fewer calls than a kernel's (the plain attention and loss
 #: heads materialise their scores and logits: the slowest calls of the
 #: phase)
-PLAIN_REPS = LIBRARY_REPS = 5
+PLAIN_REPS = LIBRARY_REPS = 3
 
 
 def timed(timer, fn) -> tuple:
@@ -609,7 +640,14 @@ def check_close(name: str, got, want, dtype, tol=None) -> float:
 #: path's (tinyllama's 32/4 of 64), as the kernels line nests them
 HEAD_ROWS = {(16, 16, 128): "deepseek", (16, 8, 128): "qwen3",
              (8, 1, 256): "gemma", (32, 32, 80): "stablelm",
-             (32, 8, 128): "jamba", (48, 8, 128): "grok"}
+             (32, 8, 128): "jamba", (48, 8, 128): "grok",
+             (12, 2, 128): "qwen2vl"}
+#: seamless-m4t-medium's attention shapes (phase 37: 16/16 heads of 64 at
+#: its training step, 4 x 2048 target tokens over 1024 source frames), as
+#: the kernels line nests them: (B, Sq, Sk, causal) → name
+ENCDEC_ROWS = {(4, 1024, 1024, False): "seamless_encoder",
+               (4, 2047, 1024, False): "seamless_cross",
+               (4, 2047, 2047, True): "seamless_decoder"}
 
 
 def check_flash(torch, timer) -> dict:
@@ -625,12 +663,15 @@ def check_flash(torch, timer) -> dict:
     128 (phase 34) and grok-1-314b's 48/8 of 128 (phase 36: a group of 6,
     so a 64-row tile splits one query's heads), each at its serving
     prefill (B=1, S=256; f32 too at the new dims and at grok's) and its
-    training step (B=4, S=2048), each timed beside SDPA in this call (a
+    training step (B=4, S=2048), qwen2-vl-2b's 12/2 of 128 the same
+    (phase 37) and seamless-m4t-medium's 16/16 of 64 at its training
+    step (:data:`ENCDEC_ROWS`), each timed beside SDPA in this call (a
     plain version's and the library's medians of PLAIN_REPS and
     LIBRARY_REPS calls).  Prints the bf16
     (tensor-core) builds' ptxas registers and spills and fails on a
     spill.  Returns the row of the training shape, with the other models'
-    training shapes' under their names (:data:`HEAD_ROWS`)."""
+    training shapes' under their names (:data:`HEAD_ROWS`,
+    :data:`ENCDEC_ROWS`)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash
@@ -648,10 +689,12 @@ def check_flash(torch, timer) -> dict:
              (1, 512, 512, True, (bf16, f32), 8, 8, 128),
              (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, True, (bf16,), 16, 16, 128)]
     for H, K, D in ((16, 8, 128), (8, 1, 256), (32, 32, 80), (32, 8, 128),
-                    (48, 8, 128)):
+                    (48, 8, 128), (12, 2, 128)):
         cases += [(1, 256, 256, True, (bf16,) if (H, D) in (
                        (16, 128), (32, 128)) else (bf16, f32), H, K, D),
                   (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, True, (bf16,), H, K, D)]
+    cases += [(B, Sq, Sk, causal, (bf16,), 16, 16, 64)
+              for B, Sq, Sk, causal in ENCDEC_ROWS]
     row = None
     for B, Sq, Sk, causal, dtypes, H, K, D in cases:
         for dtype in dtypes:
@@ -689,10 +732,12 @@ def check_flash(torch, timer) -> dict:
                   f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms (kernel / sdpa "
                   f"{ms / lib_ms:.2f})  bound {b_ms:.4f} ms ({b_by})",
                   flush=True)
-            if (B, Sq, causal, dtype) == (TRAIN_BATCH, TRAIN_SEQ, True,
-                                          bf16):
-                r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            if (B, Sq, Sk, causal) in ENCDEC_ROWS and H == 16:
+                row[ENCDEC_ROWS[B, Sq, Sk, causal]] = r
+            elif (B, Sq, causal, dtype) == (TRAIN_BATCH, TRAIN_SEQ, True,
+                                            bf16):
                 if D == 64:
                     row = r
                 else:
@@ -713,7 +758,8 @@ def check_paged(torch, timer) -> dict:
     data 2 x model 2 (phase 32), and 8 slots of the dense family's rest
     (phase 33): qwen3's 16/8 heads of 128, gemma's 8/1 of 256, stablelm's
     32/32 of 80; and grok-1-314b's group of 6 (phase 36): 8 slots of its
-    48/8 heads of 128 and of a tp-2 rank's 24/4.  Prints the bf16
+    48/8 heads of 128 and of a tp-2 rank's 24/4; and qwen2-vl-2b's 12/2
+    of 128, a group of 6 (phase 37).  Prints the bf16
     (tensor-core) builds' ptxas registers
     and spills and fails on a spill.  Returns the row of the serving shape
     in bf16, with the other models' 8 slots under their names
@@ -735,7 +781,8 @@ def check_paged(torch, timer) -> dict:
                          (pos8, 16, 16, 128), (pos8, 8, 8, 128),
                          (pos8[:4], 8, 8, 128), (pos8, 16, 8, 128),
                          (pos8, 8, 1, 256), (pos8, 32, 32, 80),
-                         (pos8, 48, 8, 128), (pos8, 24, 4, 128)):
+                         (pos8, 48, 8, 128), (pos8, 24, 4, 128),
+                         (pos8, 12, 2, 128)):
         B = len(pos)
         P = 1 + B * mp
         table = np.zeros((B, mp), np.int32)
@@ -870,7 +917,8 @@ def check_flash_bwd(torch, timer) -> tuple:
     of 128, and the dense family's rest: qwen3's 16/8 of 128, gemma's 8/1
     of 256, stablelm's 32/32 of 80; f32 at the new dims at B=2,
     S=1000; jamba-v0.1-52b's 32/8 of 128; grok-1-314b's 48/8 of 128, a
-    group of 6)."""
+    group of 6; qwen2-vl-2b's 12/2 of 128), and seamless-m4t-medium's
+    16/16 of 64 under :data:`ENCDEC_ROWS`' names."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash
@@ -889,7 +937,10 @@ def check_flash_bwd(torch, timer) -> tuple:
              (4, 2048, 2048, True, torch.bfloat16, 32, 32, 80),
              (2, 1000, 1000, True, torch.float32, 32, 32, 80),
              (4, 2048, 2048, True, torch.bfloat16, 32, 8, 128),
-             (4, 2048, 2048, True, torch.bfloat16, 48, 8, 128)]
+             (4, 2048, 2048, True, torch.bfloat16, 48, 8, 128),
+             (4, 2048, 2048, True, torch.bfloat16, 12, 2, 128)]
+    cases += [(B, Sq, Sk, causal, torch.bfloat16, 16, 16, 64)
+              for B, Sq, Sk, causal in ENCDEC_ROWS]
     rows = None
     for B, Sq, Sk, causal, dtype, H, K, D in cases:
         rnd = lambda S, n: torch.randn((B, S, n, D), generator=gen,
@@ -961,7 +1012,8 @@ def check_flash_bwd(torch, timer) -> tuple:
         if rows is None:
             rows = pair
         elif (B, dtype) == (4, torch.bfloat16):
-            name = HEAD_ROWS[H, K, D]
+            name = (ENCDEC_ROWS[B, Sq, Sk, causal] if (H, D) == (16, 64)
+                    else HEAD_ROWS[H, K, D])
             rows[0][name], rows[1][name] = pair
         del q, k, v, do, o, lse, delta, dq, dk, dv, want, qt, kt, vt, dot
         torch.cuda.empty_cache()
@@ -976,7 +1028,9 @@ XENT_ROWS = (("deepseek", 2048, DEEPSEEK_VOCAB, DEEPSEEK_VOCAB),
              ("gemma", 2048, 256000, 256000),
              ("stablelm", 2560, 50304, 50432),
              ("jamba", 4096, 65536, 65536),
-             ("grok", 6144, 131072, 131072))
+             ("grok", 6144, 131072, 131072),
+             ("qwen2vl", 1536, 151936, 152064),
+             ("seamless", 1024, 256206, 256256))
 
 
 def check_xent(torch, timer) -> tuple:
@@ -986,7 +1040,9 @@ def check_xent(torch, timer) -> tuple:
     :data:`XENT_ROWS`' heads in bf16 (deepseek-moe-16b's, mamba2-1.3b's
     tied head, and the dense family's rest: qwen3-1.7b's and gemma-2b's
     tied heads, stablelm-3b's at E = 2560, jamba-v0.1-52b's untied head
-    at E = 4096, grok-1-314b's at E = 6144, V = 131072), timed beside
+    at E = 4096, grok-1-314b's at E = 6144, V = 131072, qwen2-vl-2b's
+    tied head at E = 1536, seamless-m4t-medium's untied 256k head at
+    E = 1024), timed beside
     ``F.cross_entropy(h @ W)`` in this call (with the bf16 build's ptxas
     registers and spills); then the backward's elementwise pass on one
     f32 chunk of each vocab (the main path's first and a padded last
@@ -2352,6 +2408,8 @@ PP_IN_FLIGHT = {"gpipe": [4, 4], "1f1b": [2, 1]}
 #: the multi-rank engine's AdamW steps (phases 20-22; step 1 is the first
 #: that reads the optimizer's update)
 PP_STEPS = 2
+#: phase 19's timed calls of each step (after its checked, warm ones)
+PP_TIMED = 1
 PP_LR = 3e-4                    # constant: every step moves the weights
 
 
@@ -2460,8 +2518,9 @@ def pipeline_interpreter(torch, kernels) -> dict:
                                  f"{expected}")
     del want
     torch.cuda.empty_cache()
-    t_plain = host_median_s(torch, plain)
-    t_pipe = {sched: host_median_s(torch, lambda s=sched: piped(s, (11, 11)))
+    t_plain = host_median_s(torch, plain, PP_TIMED)
+    t_pipe = {sched: host_median_s(torch, lambda s=sched: piped(s, (11, 11)),
+                                   PP_TIMED)
               for sched in ("gpipe", "1f1b")}
     prof_ms, busy_ms, _ = profiled(torch, lambda: piped("1f1b", (11, 11)),
                                    1)
@@ -2471,8 +2530,9 @@ def pipeline_interpreter(torch, kernels) -> dict:
           f" device busy {busy}", flush=True)
     tokens_n = TRAIN_BATCH * TRAIN_SEQ
     print(f"[pipe] one step's forward and backward, batch {TRAIN_BATCH} x "
-          f"{TRAIN_SEQ} in {PP_MICRO} micro-batches, median of 3 on the host "
-          f"clock: accumulate {t_plain * 1e3:.1f} ms "
+          f"{TRAIN_SEQ} in {PP_MICRO} micro-batches, median of {PP_TIMED} "
+          f"on the host clock (each after the checked runs above): "
+          f"accumulate {t_plain * 1e3:.1f} ms "
           f"({tokens_n / t_plain:.1f} tokens/s), schedule_grads gpipe "
           f"{t_pipe['gpipe'] * 1e3:.1f} ms, 1f1b {t_pipe['1f1b'] * 1e3:.1f} "
           f"ms (ratio to accumulate {t_pipe['gpipe'] / t_plain:.3f}, "
@@ -6194,7 +6254,7 @@ def compressed_blocks(torch) -> dict:
 # phase 30: mamba2-1.3b training at full width and depth
 # ---------------------------------------------------------------------------
 
-M2_TRAIN_STEPS = 3
+M2_TRAIN_STEPS = 2
 #: the depth of step 0's bf16 agreement through the kernels against the
 #: plain versions (of 48, cut to hold the script's time; f32 holds it at
 #: 2 layers)
@@ -7567,8 +7627,8 @@ DENSE_REST = {"qwen3-1.7b": "qk-norm, tied head, 16/8 heads of 128",
               "gemma-2b": "GeGLU, MQA 8/1 heads of 256, tied 256k head",
               "stablelm-3b": "LayerNorm, MHA 32/32 heads of 80"}
 DR_SERVE = ["--requests", "8", "--batch-slots", "8", "--prompt-len", "256",
-            "--gen", "32", "--max-len", "512"]
-DR_TRAIN_STEPS = 3
+            "--gen", "16", "--max-len", "512"]
+DR_TRAIN_STEPS = 2
 
 
 def live_slots(server) -> int:
@@ -7598,10 +7658,12 @@ def host_timed(torch, obj, name: str, out: list, tag=None):
         setattr(obj, name, real)
 
 
-def dense_rest_serve(torch, kernels, arch: str) -> dict:
+def dense_rest_serve(torch, kernels, arch: str, tag: str = "dense-rest",
+                     serve_args: tuple = tuple(DR_SERVE)) -> dict:
     """Phase 33 (a): ``serve.run`` on ``arch`` at full width and depth in
-    bf16, paged (64-row pages) and dense, 8 requests of 256 + 32 tokens
-    through 8 slots: TTFT (one admission, its prefill and first token),
+    bf16, paged (64-row pages) and dense, 8 requests of 256 + 16 tokens
+    (``serve_args``; phase 37 gives 256 + 32) through 8 slots: TTFT (one
+    admission, its prefill and first token),
     TPOT (a decode step at 8 live slots), tokens/s, the peak beside the
     weights and KV, and the launches (flash forward one per layer and
     admission, paged decode one per layer and step, nothing else)."""
@@ -7612,7 +7674,7 @@ def dense_rest_serve(torch, kernels, arch: str) -> dict:
 
     out = {}
     for cache in ("paged", "dense"):
-        argv = (["--arch", arch, "--cache", cache] + DR_SERVE
+        argv = (["--arch", arch, "--cache", cache] + list(serve_args)
                 + (["--page-size", "64"] if cache == "paged" else []))
         admits, steps = [], []
         torch.cuda.empty_cache()
@@ -7630,7 +7692,7 @@ def dense_rest_serve(torch, kernels, arch: str) -> dict:
         full = [t for t, k in steps if k == 8]
         ttft = statistics.median(t for t, _ in admits)
         tpot = statistics.median(full or [t for t, _ in steps])
-        print(f"[dense-rest] {arch} serve {cache}: {summary['completed']} "
+        print(f"[{tag}] {arch} serve {cache}: {summary['completed']} "
               f"requests, {summary['tokens']} tokens, {summary['steps']} "
               f"decode steps in {summary['seconds']:.3f} s "
               f"({summary['tokens'] / summary['seconds']:.1f} tok/s); TTFT "
@@ -7656,30 +7718,26 @@ def dense_rest_serve(torch, kernels, arch: str) -> dict:
 
 #: the plain run's witness of the driver's bf16 losses: each step's loss
 #: through the kernels within this share of the plain versions', over
-#: the first DR_WITNESS_STEPS steps (2 of 3: the plain versions' steps
+#: the first DR_WITNESS_STEPS steps (1 of 3: the plain versions' steps
 #: are the slowest of the phase)
 DR_WITNESS_REL = 0.05
-DR_WITNESS_STEPS = 2
+DR_WITNESS_STEPS = 1
 
 
-def dense_rest_train(torch, kernels, arch: str) -> dict:
-    """Phase 33 (b): ``train.main`` on ``arch`` at full width and depth,
-    batch 4 x 2048, remat full, AdamW, DR_TRAIN_STEPS steps: finite
-    losses, the launches, tokens/s after step 0 and, in those steps, the
-    forward (``loss_fn``), AdamW (``apply``) and the backward (the rest of
-    the step) on the host clock; the peak beside the parameters,
-    gradients and moments.  Then the same steps through the plain
-    versions on the card (:func:`plain_on_card`), the witness of the
-    losses' course: each step's loss through the kernels within
-    DR_WITNESS_REL of the plain run's.  The final checkpoint is neither
-    copied to the host nor written (phase 11 does both)."""
+def timed_train(torch, kernels, argv: list, steps: int,
+                witness: int = 0) -> dict:
+    """``train.main(argv)`` for ``steps`` steps with a fresh checkpoint
+    directory, remat full, AdamW: the result, the launches, the peak and,
+    on the host clock, each step's forward (``Model.loss_fn``) and AdamW
+    (``apply``); the backward is the rest of the step.  With ``witness``
+    the same first ``witness`` steps again through the plain versions on
+    the card (:func:`plain_on_card`): their losses, seconds and peak.
+    The final checkpoint is neither copied to the host nor written."""
     import dataclasses
 
-    from repro_torch.configs import get_config
     from repro_torch.launch import train
-    from repro_torch.models.lm import Model, param_count
+    from repro_torch.models.lm import Model
 
-    cfg = get_config(arch)
     fwd, upd, written = [], [], []
     real_adamw = train.adamw
 
@@ -7695,59 +7753,84 @@ def dense_rest_train(torch, kernels, arch: str) -> dict:
             return r
         return dataclasses.replace(o, apply=apply)
 
-    def drive(steps=DR_TRAIN_STEPS):
+    def drive(n):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        return train.main(["--arch", arch, "--batch", str(TRAIN_BATCH),
-                           "--seq", str(TRAIN_SEQ), "--steps", str(steps),
-                           "--optimizer", "adamw", "--log-every", "1",
-                           "--ckpt-dir", tmp])
+        return train.main(argv + ["--steps", str(n), "--optimizer", "adamw",
+                                  "--log-every", "1", "--ckpt-dir", tmp])
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_dense_rest_")
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     train.adamw = timed_adamw
     try:
         with no_checkpoint_write(written):
             reset_counts(kernels)
             with host_timed(torch, Model, "loss_fn", fwd):
-                res = drive()
-            counts = read_counts(kernels)
-            peak = torch.cuda.max_memory_allocated()
+                out["res"] = drive(steps)
+            out["counts"] = read_counts(kernels)
+            out["peak"] = torch.cuda.max_memory_allocated()
             train.adamw = real_adamw
-            with plain_on_card():
-                t0 = time.perf_counter()
-                plain = drive(DR_WITNESS_STEPS)["losses"]
-                plain_s = time.perf_counter() - t0
-            plain_peak = torch.cuda.max_memory_allocated()
+            if witness:
+                with plain_on_card():
+                    t0 = time.perf_counter()
+                    out["plain"] = drive(witness)["losses"]
+                    out["plain_s"] = time.perf_counter() - t0
+                out["plain_peak"] = torch.cuda.max_memory_allocated()
     finally:
         train.adamw = real_adamw
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
+    secs = out["res"]["step_seconds"]
+    if not len(secs) == len(fwd) == len(upd) == steps:
+        raise AssertionError(f"{argv}: {len(secs)} steps, {len(fwd)} "
+                             f"forwards, {len(upd)} updates")
+    out["fwd_ms"] = statistics.median(t for t, _ in fwd[1:]) * 1e3
+    out["opt_ms"] = statistics.median(upd[1:]) * 1e3
+    out["bwd_ms"] = statistics.median(s - f - o for s, (f, _), o in
+                                      zip(secs[1:], fwd[1:], upd[1:])) * 1e3
+    out["written"] = written
+    return out
+
+
+def dense_rest_train(torch, kernels, arch: str) -> dict:
+    """Phase 33 (b): ``train.main`` on ``arch`` at full width and depth,
+    batch 4 x 2048, remat full, AdamW, DR_TRAIN_STEPS steps
+    (:func:`timed_train`): finite losses, the launches, tokens/s after
+    step 0 and, in those steps, the forward, AdamW and the backward on
+    the host clock; the peak beside the parameters, gradients and
+    moments.  Then the first DR_WITNESS_STEPS steps through the plain
+    versions on the card, the witness of the losses' course: each step's
+    loss through the kernels within DR_WITNESS_REL of the plain run's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import Model, param_count
+
+    cfg = get_config(arch)
+    run = timed_train(torch, kernels, ["--arch", arch, "--batch",
+                                       str(TRAIN_BATCH), "--seq",
+                                       str(TRAIN_SEQ)],
+                      DR_TRAIN_STEPS, DR_WITNESS_STEPS)
+    res, counts, peak, plain = (run["res"], run["counts"], run["peak"],
+                                run["plain"])
     n = param_count(Model(cfg, "meta").param_shapes())
     secs = res["step_seconds"]
-    if not len(secs) == len(fwd) == len(upd) == DR_TRAIN_STEPS:
-        raise AssertionError(f"{arch} train: {len(secs)} steps, {len(fwd)} "
-                             f"forwards, {len(upd)} updates")
-    f_ms = statistics.median(t for t, _ in fwd[1:]) * 1e3
-    o_ms = statistics.median(upd[1:]) * 1e3
-    b_ms = statistics.median(s - f - o for s, (f, _), o in
-                             zip(secs[1:], fwd[1:], upd[1:])) * 1e3
     tok = TRAIN_BATCH * TRAIN_SEQ
     print(f"[dense-rest] {arch} train, {cfg.n_layers} layers, batch "
           f"{TRAIN_BATCH} x {TRAIN_SEQ}: {n:,} parameters; losses "
           f"{res['losses']}; step seconds {[round(x, 3) for x in secs]} "
           f"({tok / statistics.median(secs[1:]):.1f} tok/s after step 0); "
-          f"after step 0, medians: forward {f_ms:.1f} ms, backward (the "
-          f"recompute included) {b_ms:.1f} ms, AdamW {o_ms:.1f} ms; peak "
+          f"after step 0, medians: forward {run['fwd_ms']:.1f} ms, backward "
+          f"(the recompute included) {run['bwd_ms']:.1f} ms, AdamW "
+          f"{run['opt_ms']:.1f} ms; peak "
           f"device memory {peak / 2**30:.2f} GiB beside parameters, "
           f"gradients and AdamW moments {16 * n / 1e9:.2f} GB; final "
-          f"checkpoint at step {written} (host copy and write skipped); "
-          f"launches {counts}", flush=True)
+          f"checkpoint at step {run['written']} (host copy and write "
+          f"skipped); launches {counts}", flush=True)
     rel = [abs(a - b) / abs(b) for a, b in zip(res["losses"], plain)]
     print(f"[dense-rest] {arch} train through the plain versions (the "
           f"first {DR_WITNESS_STEPS} driver steps, bf16): losses {plain} in "
-          f"{plain_s:.1f} s, peak {plain_peak / 2**30:.2f} GiB; kernels "
-          f"against plain |diff| / |plain| {[f'{x:.2e}' for x in rel]} "
-          f"(gate {DR_WITNESS_REL})", flush=True)
+          f"{run['plain_s']:.1f} s, peak {run['plain_peak'] / 2**30:.2f} "
+          f"GiB; kernels against plain |diff| / |plain| "
+          f"{[f'{x:.2e}' for x in rel]} (gate {DR_WITNESS_REL})", flush=True)
     if not all(math.isfinite(x) for x in res["losses"] + plain):
         raise AssertionError(f"{arch} train: losses {res['losses']}, "
                              f"plain {plain}")
@@ -7904,7 +7987,7 @@ def _jamba_pattern(layers: int, **kw):
 
 def jamba_serve(torch, kernels) -> dict:
     """Phase 34 (a): ``serve.run`` on jamba at full width, one period in
-    bf16, dense (the hybrid has no paged cache), 8 requests of 256 + 32
+    bf16, dense (the hybrid has no paged cache), 8 requests of 256 + 16
     tokens through 8 slots: TTFT (an admission: a 256-token prefill and
     its first token), TPOT (a decode step at 8 live slots), tokens/s, the
     peak beside the weights, KV and SSD states, and the launches: flash
@@ -8695,7 +8778,7 @@ GK_SERVE = ["--arch", GROK, "--overrides",
 #: (b) the driver at full width and 1 layer (6.531e9 parameters: f32
 #: parameters and gradients take 48.7 GiB), Adafactor, the reference's
 #: recipe for grok
-GK_TRAIN_STEPS = 3
+GK_TRAIN_STEPS = 2
 GK_TRAIN_ARGS = ["--arch", GROK, "--overrides", "n_layers=1", "--batch",
                  str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--steps",
                  str(GK_TRAIN_STEPS), "--optimizer", "adafactor",
@@ -8756,7 +8839,7 @@ def _gk_floor_bytes(model) -> int:
 def grok_serve(torch, kernels) -> dict:
     """Phase 36 (a): ``serve.run`` on grok at full width and
     GK_SERVE_LAYERS layers in bf16, paged (64-row pages; the kernel's
-    group of 6) and dense, 8 requests of 256 + 32 tokens through 8 slots:
+    group of 6) and dense, 8 requests of 256 + 16 tokens through 8 slots:
     TTFT, TPOT, tokens/s, the peak beside the weights and KV, the decode
     step against its floor (every weight but the table read once), the
     launches (flash forward one per layer and admission, paged decode one
@@ -9256,6 +9339,451 @@ def grok(torch, kernels) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 37: the multimodal families, qwen2-vl-2b and seamless-m4t-medium
+# ---------------------------------------------------------------------------
+
+VLM_ARCH, ENCDEC_ARCH = "qwen2-vl-2b", "seamless-m4t-medium"
+MM_TRAIN_STEPS = 3
+#: (a) 8 requests of 256 + 32 tokens through 8 slots
+MM_SERVE = ("--requests", "8", "--batch-slots", "8", "--prompt-len", "256",
+            "--gen", "32", "--max-len", "512")
+#: seamless's source frames a row, in training (its cross-attention at
+#: Sq = 2047 against Sk = 1024) and in serving
+MM_SRC = 1024
+MM_SERVE_ROWS = 8
+MM_PREFILLS = 3                 # (c) prefills timed: TTFT is their median
+MM_GEN = 31                     # (c) greedy steps after BOS
+#: (e) the two-tower pipeline: rows x target tokens over source frames a
+#: row, in micro-batches, at 2 + 2 layers in f32
+MM_PP_ROWS, MM_PP_SEQ, MM_PP_SRC, MM_PP_MICRO = 2, 1024, 512, 2
+
+
+def _mm_cfg(arch: str, **kw):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), **kw)
+
+
+def _mm_small(arch: str, dtype: str = "float32"):
+    """``arch`` at 2 layers (seamless 2 + 2), full width."""
+    from repro_torch.models.lm import Model
+
+    kw = (dict(n_layers=4, n_enc_layers=2, n_dec_layers=2)
+          if arch == ENCDEC_ARCH else dict(n_layers=2))
+    return Model(_mm_cfg(arch, dtype=dtype, **kw))
+
+
+def _mm_batch(torch, cfg, rows: int, seq: int, src: int = MM_SRC) -> dict:
+    """The training driver's first batch for ``cfg`` (its
+    ``MultimodalPipeline``): the tokens and the patch embeddings, or
+    ``src`` frames a row, on the card."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import DataCfg, MultimodalPipeline
+    data = MultimodalPipeline(
+        DataCfg(global_batch=rows, seq_len=seq, vocab=cfg.vocab, seed=0),
+        modality=cfg.family, d_model=cfg.d_model,
+        frontend_len=cfg.frontend_len if cfg.family == "vlm" else 0,
+        src_len=src if cfg.family == "encdec" else 0, host_id=0, n_hosts=1)
+    return {k: torch.as_tensor(np.asarray(v)).cuda()
+            for k, v in data.next_batch().items()}
+
+
+def _attn_layers(cfg) -> int:
+    """The attention layers one pass runs: seamless's encoder's, and its
+    decoder's twice (self and cross)."""
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_dec_layers
+    return cfg.n_layers
+
+
+def mm_train(torch, kernels, arch: str, extra: list) -> dict:
+    """Phase 37 (b), (c): ``train.main`` on ``arch`` at full width and
+    depth, batch 4 x 2048 (seamless's targets over MM_SRC frames a row),
+    remat full, AdamW, MM_TRAIN_STEPS steps (:func:`timed_train`): finite
+    losses, tokens/s after step 0, the forward, backward and AdamW, the
+    peak beside the parameters, gradients and moments, and the launches:
+    the flash forward twice per attention (the recompute), dq and dk/dv
+    once, the loss head once a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import Model, param_count
+
+    cfg = get_config(arch)
+    run = timed_train(torch, kernels, ["--arch", arch, "--batch",
+                                       str(TRAIN_BATCH), "--seq",
+                                       str(TRAIN_SEQ)] + extra,
+                      MM_TRAIN_STEPS)
+    res, counts = run["res"], run["counts"]
+    n = param_count(Model(cfg, "meta").param_shapes())
+    secs = res["step_seconds"]
+    tok = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[multimodal] {arch} train, {_attn_layers(cfg)} attention "
+          f"layers, batch {TRAIN_BATCH} x {TRAIN_SEQ} {' '.join(extra)}: "
+          f"{n:,} parameters; losses {res['losses']}; step seconds "
+          f"{[round(x, 3) for x in secs]} "
+          f"({tok / statistics.median(secs[1:]):.1f} target tok/s after "
+          f"step 0); after step 0, medians: forward "
+          f"{run['fwd_ms']:.1f} ms, backward (the recompute included) "
+          f"{run['bwd_ms']:.1f} ms, AdamW {run['opt_ms']:.1f} ms; peak "
+          f"device memory {run['peak'] / 2**30:.2f} GiB beside parameters, "
+          f"gradients and AdamW moments {16 * n / 2**30:.2f} GiB; launches "
+          f"{counts}", flush=True)
+    if not all(math.isfinite(x) for x in res["losses"]):
+        raise AssertionError(f"{arch} train: losses {res['losses']}")
+    exp = train_expected(_attn_layers(cfg), MM_TRAIN_STEPS, cfg.padded_vocab)
+    if counts != exp:
+        raise AssertionError(f"{arch} train: launches {counts}, want {exp}")
+    return counts
+
+
+def mm_serve_encdec(torch, kernels) -> dict:
+    """Phase 37 (c): seamless-m4t-medium at full width and depth in bf16,
+    served through ``Model.prefill({"frames"})`` and ``serve_step`` (the
+    reference's way: its Server does not serve an encoder–decoder):
+    MM_SERVE_ROWS rows of MM_SRC frames prefilled MM_PREFILLS times, then
+    MM_GEN greedy steps from the last.  TTFT (the median prefill: the
+    encoder, the decode state and the BOS step), TPOT (the median step),
+    the peak beside the weights and the decode state, on the host clock,
+    synced; the launches: the flash forward once per encoder layer and
+    prefill, and nothing in the decode steps (the decoder's self and
+    cross-attention decode in plain PyTorch, as the reference's)."""
+    from repro_torch.models.lm import Model, param_count
+    from repro_torch.tree import flatten
+
+    model = Model(_mm_cfg(ENCDEC_ARCH))
+    cfg = model.cfg
+    params = model.serving_params(model.init(0))
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    frames = torch.randn((MM_SERVE_ROWS, MM_SRC, cfg.d_model), generator=gen,
+                         device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    steps, toks, ttfts = [], [], []
+    with torch.no_grad():
+        for _ in range(MM_PREFILLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, st = model.prefill(params, {"frames": frames},
+                                       gen_budget=MM_GEN + 1)
+            tok = logits[:, :cfg.vocab].argmax(-1)
+            torch.cuda.synchronize()
+            ttfts.append(time.perf_counter() - t0)
+        at_prefill = read_counts(kernels)
+        toks.append(tok)
+        for _ in range(MM_GEN):
+            t0 = time.perf_counter()
+            logits, st = model.serve_step(params, tok, st)
+            tok = logits[:, :cfg.vocab].argmax(-1)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+            toks.append(tok)
+    counts = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    state = sum(t.numel() * t.element_size() for t in flatten(st)[1])
+    n = param_count(model.param_shapes())
+    out = torch.stack(toks, 1)
+    finite = bool(torch.isfinite(logits).all())
+    print(f"[multimodal] {ENCDEC_ARCH} serve (prefill from frames, then "
+          f"serve_step): {MM_SERVE_ROWS} rows of {MM_SRC} frames, "
+          f"{MM_GEN} greedy steps after BOS; TTFT "
+          f"{statistics.median(ttfts) * 1e3:.2f} ms (median of "
+          f"{MM_PREFILLS} prefills, the first {ttfts[0] * 1e3:.2f}: the "
+          f"encoder, the decode state's cross K/V and the BOS step), TPOT "
+          f"{statistics.median(steps) * 1e3:.2f} ms (median step at "
+          f"{MM_SERVE_ROWS} rows), host clock, synced; {n:,} parameters "
+          f"({n * 2 / 2**30:.2f} GiB in bf16), decode state "
+          f"{state / 2**30:.3f} GiB, peak device memory "
+          f"{peak / 2**30:.2f} GiB; first row's tokens "
+          f"{out[0, :8].tolist()}…; launches {counts}", flush=True)
+    fails = []
+    if not finite or not bool(((out >= 0) & (out < cfg.vocab)).all()):
+        fails.append("non-finite logits or tokens outside the vocab")
+    want = cfg.n_enc_layers * MM_PREFILLS
+    if counts["flash_fwd"] != want or counts != at_prefill \
+            or sum(counts.values()) != want:
+        fails.append(f"launches {counts}, want {want} flash forwards at "
+                     f"the prefills and none after")
+    del params, st, frames
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"{ENCDEC_ARCH} serve: " + "; ".join(fails))
+    return counts
+
+
+def _encdec_forced(torch, model, params) -> "torch.Tensor":
+    """seamless's teacher-forced logits: 2 rows of MM_SRC frames
+    prefilled (BOS), then TF_STEPS fixed tokens, each step's logits, as
+    one (2 + 2·TF_STEPS, Vp) f32 host tensor."""
+    import numpy as np
+
+    rng = np.random.default_rng(37)
+    frames = torch.as_tensor(rng.standard_normal(
+        (2, MM_SRC, model.cfg.d_model)).astype(np.float32)).cuda()
+    forced = torch.as_tensor(rng.integers(0, model.cfg.vocab,
+                                          (TF_STEPS, 2))).cuda()
+    rows = []
+    with torch.no_grad():
+        logits, st = model.prefill(params, {"frames": frames},
+                                   gen_budget=TF_STEPS + 1)
+        rows.append(logits.float().cpu())
+        for t in forced:
+            logits, st = model.serve_step(params, t, st)
+            rows.append(logits.float().cpu())
+    return torch.cat(rows)
+
+
+def _forced(torch, model, params):
+    if model.cfg.family == "encdec":
+        return _encdec_forced(torch, model, params)
+    from repro_torch.core.planner import compile_plan
+    return teacher_forced(torch, model, compile_plan(model, None), params,
+                          "paged")
+
+
+def mm_agreement(torch, arch: str) -> None:
+    """Phase 37 (d): the kernels against their plain versions on the card
+    (:func:`plain_on_card`), ``arch`` at 2 layers (seamless 2 + 2), full
+    width, f32: teacher-forced logits (qwen2-vl: phase 26's two prompts
+    of 500 and TF_STEPS forced steps through the paged Server; seamless:
+    :func:`_encdec_forced`) and step 0's loss and every gradient leaf at
+    4 x 2048 (qwen2-vl with its patch embeddings, seamless over MM_SRC
+    frames), each within 1e-4 + 1e-4|x|.  The teacher-forced logits in
+    bf16, kernels against plain, are printed beside bf16's own error (the
+    same weights in f32), not held."""
+    from repro_torch.core.planner import loss_and_grads
+    from repro_torch.tree import flatten
+
+    lim = TP_F32_LIMIT
+    m32 = _mm_small(arch)
+    p32 = m32.init(0)
+    tf = {"f32": _forced(torch, m32, p32)}
+    with plain_on_card():
+        tf["f32_plain"] = _forced(torch, m32, p32)
+    m16 = _mm_small(arch, "bfloat16")
+    p16 = m16.serving_params(p32)
+    tf["bf16"] = _forced(torch, m16, p16)
+    with plain_on_card():
+        tf["bf16_plain"] = _forced(torch, m16, p16)
+    del p16
+    g32 = tf_gap(tf["f32"], tf["f32_plain"], lim)
+    own = tf_gap(tf["bf16"], tf["f32"], TF_TOL["bfloat16"])
+    pair = tf_gap(tf["bf16"], tf["bf16_plain"], TF_TOL["bfloat16"])
+    batch = _mm_batch(torch, m32.cfg, TRAIN_BATCH, TRAIN_SEQ)
+    loss_k, _, g_k = loss_and_grads(m32, p32, batch)
+    with plain_on_card():
+        loss_p, _, g_p = loss_and_grads(m32, p32, batch)
+    fails = []
+    worst = 0.0
+    for (k, a), b in zip(zip(*flatten(g_k)), flatten(g_p)[1]):
+        try:
+            worst = max(worst, check_close(f"{arch} gradient {k}", a, b,
+                                           torch.float32, lim))
+        except AssertionError as e:
+            fails.append(str(e))
+    try:
+        check_close(f"{arch} loss", loss_k, loss_p, torch.float32, lim)
+    except AssertionError as e:
+        fails.append(str(e))
+    print(f"[multimodal] {arch} at 2 layers, f32, through the kernels "
+          f"against the plain versions: teacher-forced max |diff| "
+          f"{g32['max_abs']:.3e}, worst share of 1e-4 + 1e-4|x| "
+          f"{g32['worst']:.3f}; step 0 at {TRAIN_BATCH} x {TRAIN_SEQ}: loss "
+          f"{float(loss_k):.6f} vs {float(loss_p):.6f}, every gradient leaf "
+          f"within 1e-4 + 1e-4|x| (max |diff| {worst:.3e}); bf16 (printed, "
+          f"not held): kernels against plain max |diff| "
+          f"{pair['max_abs']:.3e}, worst share of 0.02 + 0.02|x| "
+          f"{pair['worst']:.3f}, beside bf16's own error (the kernels' bf16 "
+          f"against f32) {own['max_abs']:.3e}, worst share "
+          f"{own['worst']:.3f}", flush=True)
+    if not g32["worst"] <= 1:
+        fails.append(f"f32 teacher-forced logits: worst share "
+                     f"{g32['worst']:.3f}")
+    if not all(torch.isfinite(t).all() for t in tf.values()):
+        fails.append("non-finite teacher-forced logits")
+    del p32, g_k, g_p, tf
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"{arch} agreement: " + "; ".join(fails))
+
+
+def _mm_pp_part(torch, dist, d: str, kernels, stats: dict) -> dict:
+    """(e) in a rank: seamless at 2 + 2 layers, f32, through the two-tower
+    engine (``make_encdec_pipeline_loss``) at pipeline×2 over
+    MM_PP_MICRO micro-batches, the whole tree drawn in turn on each rank
+    (stage-replicated): the loss, seconds, gloo seconds, peak, launches
+    and every gradient leaf against ``d``'s."""
+    import importlib
+
+    from repro_torch.core.cost_model import StrategySpec
+    from repro_torch.core.planner import compile_plan, mesh_for_strategy
+    from repro_torch.tree import flatten
+
+    pipe = importlib.import_module("repro_torch.core.pipeline")
+    model = _mm_small(ENCDEC_ARCH)
+    strat = StrategySpec(pp=2, micro_batches=MM_PP_MICRO)
+    plan = compile_plan(model, mesh_for_strategy(strat), strat)
+    params = _draw_in_turn(torch, dist, model, lambda whole: whole)
+    n = sum(p.numel() for p in flatten(params)[1])
+    batch = _mm_batch(torch, model.cfg, MM_PP_ROWS, MM_PP_SEQ, MM_PP_SRC)
+    fn = pipe.make_encdec_pipeline_loss(model, plan.rules,
+                                        micro_batches=MM_PP_MICRO)
+    reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    s0 = stats["s"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = fn(params, batch["frames"], batch["tokens"])
+    torch.cuda.synchronize()
+    rec = {"loss": float(loss), "seconds": time.perf_counter() - t0,
+           "gloo_s": stats["s"] - s0,
+           "peak": torch.cuda.max_memory_allocated(), "held": 8 * n,
+           "counts": read_counts(kernels),
+           "stage": plan.mesh.get_local_rank("stage"),
+           "line": plan.split_line(),
+           "grads": _leaf_gaps(torch, dict(zip(*flatten(grads))), d)}
+    del params, grads
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _mm_pp_rank(rank: int, store: str, out_dir: str, ref_dir: str) -> None:
+    """One rank of phase 37 (e) on ``cuda:0`` over gloo (a world of
+    two)."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    kernels = kernel_wrappers()
+    stats = {"s": 0.0, "n": 0}
+    try:
+        time_collectives(torch, dist, stats)
+        out = _mm_pp_part(torch, dist, ref_dir, kernels, stats)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def mm_pipeline(torch) -> dict:
+    """Phase 37 (e): seamless's two-tower pipeline×2 on two ranks on
+    ``cuda:0`` over gloo (the encoder on stage 0, the decoder and the loss
+    on stage 1), against one process's ``loss_and_grads`` here first on
+    the whole batch: the loss within 1e-4 + 1e-4|x| and every step-0
+    gradient leaf within 1e-4 + 1e-4 x the leaf's max on both ranks (the
+    gradients are summed over the stages), each rank's launches (its
+    tower's attention, the loss head on stage 1).  Returns the launches
+    summed over the ranks."""
+    from repro_torch.core.planner import loss_and_grads
+    from repro_torch.kernels.xent import xent
+    from repro_torch.tree import flatten
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_encdec_pp_")
+    t00 = time.perf_counter()
+    try:
+        model = _mm_small(ENCDEC_ARCH)
+        params = model.init(0)
+        batch = _mm_batch(torch, model.cfg, MM_PP_ROWS, MM_PP_SEQ, MM_PP_SRC)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, grads = loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
+        one = {"loss": float(loss), "seconds": time.perf_counter() - t0,
+               "peak": torch.cuda.max_memory_allocated()}
+        _save_leaves(torch, tmp, zip(*flatten(grads)))
+        del params, grads, batch
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ranks = spawn_ranks(_mm_pp_rank, tmp, timeout=600)
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cfg = model.cfg
+    print(f"[multimodal] (e) {ENCDEC_ARCH} two-tower pipeline×2, 2 + 2 "
+          f"layers, f32, {MM_PP_ROWS} x {MM_PP_SEQ} target tokens over "
+          f"{MM_PP_SRC} frames a row, {MM_PP_MICRO} micro-batches: one "
+          f"process's step-0 loss {one['loss']:.6f} in "
+          f"{one['seconds']:.3f} s, peak {one['peak'] / 2**30:.2f} GiB; "
+          f"seconds: the reference {t1 - t00:.1f}, two ranks {t2 - t1:.1f}",
+          flush=True)
+    lim = TP_F32_LIMIT
+    M, mb = MM_PP_MICRO, MM_PP_ROWS // MM_PP_MICRO
+    T = mb * (MM_PP_SEQ - 1)
+    chunks = -(-cfg.padded_vocab // xent.bwd_chunk(T, cfg.padded_vocab))
+    fails = []
+    for r in ranks:
+        s = r["stage"]
+        attn = cfg.n_enc_layers if s == 0 else 2 * cfg.n_dec_layers
+        exp = {k: 0 for k in r["counts"]}
+        exp.update(flash_fwd=2 * attn * M, flash_bwd_dq=attn * M,
+                   flash_bwd_dkv=attn * M,
+                   xent_fwd=M if s == 1 else 0,
+                   xent_bwd=M * chunks if s == 1 else 0)
+        shares = {p: diff / (lim + lim * top)
+                  for p, (diff, top) in r["grads"].items()}
+        worst = max(shares, key=shares.get)
+        print(f"[multimodal] (e) stage {s}: {r['line']}; loss "
+              f"{r['loss']:.6f}; step {r['seconds']:.3f} s, gloo "
+              f"{r['gloo_s']:.3f} s (the gradients summed over the stages; "
+              f"ranks time-slice one card); peak {r['peak'] / 2**30:.2f} GiB "
+              f"beside {r['held'] / 2**30:.2f} GiB of weights and "
+              f"gradients; step-0 gradients: worst share of 1e-4 + 1e-4 x "
+              f"the leaf's max {shares[worst]:.3f} ({worst}) over "
+              f"{len(shares)} leaves; launches {r['counts']}", flush=True)
+        if not abs(r["loss"] - one["loss"]) <= lim + lim * abs(one["loss"]):
+            fails.append(f"stage {s} loss {r['loss']} against "
+                         f"{one['loss']}")
+        fails += [f"stage {s} {p}: share {v:.3f}" for p, v in shares.items()
+                  if not v <= 1]
+        if r["counts"] != exp:
+            fails.append(f"stage {s}: launches {r['counts']}, want {exp}")
+    if sorted(r["stage"] for r in ranks) != [0, 1]:
+        fails.append(f"stages {[r['stage'] for r in ranks]}")
+    if fails:
+        raise AssertionError("encdec pipeline: " + "; ".join(fails))
+    return {k: sum(r["counts"][k] for r in ranks) for k in ranks[0]["counts"]}
+
+
+def multimodal(torch, kernels) -> dict:
+    """Phase 37: the multimodal families at full width on one card:
+    (a) qwen2-vl-2b served at full depth, paged and dense
+    (:func:`dense_rest_serve`); (b) trained at full depth
+    (:func:`mm_train`); (c) seamless-m4t-medium served from frames and
+    trained at full depth (:func:`mm_serve_encdec`, :func:`mm_train`);
+    (d) both held against the plain versions at 2 layers
+    (:func:`mm_agreement`); (e) seamless's two-tower pipeline on two
+    ranks (:func:`mm_pipeline`).  Returns each path's launches."""
+    t = [time.perf_counter()]
+    served = dense_rest_serve(torch, kernels, VLM_ARCH, tag="multimodal",
+                              serve_args=MM_SERVE)
+    counts = {"serve_qwen2vl": served["paged"],
+              "serve_qwen2vl_dense": served["dense"]}
+    t.append(time.perf_counter())
+    counts["train_qwen2vl"] = mm_train(torch, kernels, VLM_ARCH, [])
+    t.append(time.perf_counter())
+    counts["serve_seamless"] = mm_serve_encdec(torch, kernels)
+    counts["train_seamless"] = mm_train(torch, kernels, ENCDEC_ARCH,
+                                        ["--src-seq", str(MM_SRC)])
+    t.append(time.perf_counter())
+    for arch in (VLM_ARCH, ENCDEC_ARCH):
+        mm_agreement(torch, arch)
+    t.append(time.perf_counter())
+    counts["train_seamless_pp"] = mm_pipeline(torch)
+    t.append(time.perf_counter())
+    parts = ("qwen2-vl serve", "qwen2-vl train", "seamless serve and train",
+             "agreement", "pipeline")
+    print("[multimodal] seconds: " + ", ".join(
+        f"{n} {b - a:.1f}" for n, a, b in zip(parts, t, t[1:])), flush=True)
+    return counts
+
+
 @contextlib.contextmanager
 def phase(name: str):
     t0 = time.perf_counter()
@@ -9447,6 +9975,12 @@ def main() -> None:
     with phase("grok-1-314b (served at 4 layers, trained at 1 with "
                "Adafactor, the experts' d_ff split on 2 ranks)"):
         grok_counts = grok(torch, kernels)
+    torch.cuda.empty_cache()
+    with phase("the multimodal families (qwen2-vl-2b and "
+               "seamless-m4t-medium: served and trained at full width, "
+               "held against the plain versions, the two-tower pipeline "
+               "on 2 ranks)"):
+        mm_counts = multimodal(torch, kernels)
     close_pool()
 
     meta = {
@@ -9505,7 +10039,8 @@ def main() -> None:
                    **{path: c[name] for path, c in dense_counts.items()},
                    **{path: c[name] for path, c in jamba_counts.items()},
                    **{path: c[name] for path, c in hybrid_counts.items()},
-                   **{path: c[name] for path, c in grok_counts.items()}}
+                   **{path: c[name] for path, c in grok_counts.items()},
+                   **{path: c[name] for path, c in mm_counts.items()}}
         table.append(dict(name=name, route="cuda", source=meta[name][0],
                           replaces=meta[name][1],
                           launches=sum(by_path.values()),

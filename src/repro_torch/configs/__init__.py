@@ -1,7 +1,8 @@
-"""Registry of the ported architectures: the dense family (tinyllama-1.1b,
-qwen3-1.7b, gemma-2b, stablelm-3b), mamba2-1.3b, the moe family
-(deepseek-moe-16b, grok-1-314b) and the hybrid jamba-v0.1-52b; the other
-configs of ``repro.configs`` come with their model families."""
+"""Registry of the ported architectures, the reference's ten: the dense
+family (tinyllama-1.1b, qwen3-1.7b, gemma-2b, stablelm-3b), mamba2-1.3b,
+the moe family (deepseek-moe-16b, grok-1-314b), the hybrid
+jamba-v0.1-52b, the vlm qwen2-vl-2b and the encoder–decoder
+seamless-m4t-medium."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,6 +19,8 @@ _ARCH_MODULES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
     "grok-1-314b": "grok_1_314b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "qwen2-vl-2b": "qwen2_vl_2b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
 }
 
 ARCH_NAMES = tuple(_ARCH_MODULES)

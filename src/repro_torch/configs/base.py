@@ -17,7 +17,8 @@ def shrink(cfg: LMCfg, **overrides) -> LMCfg:
     an attention-free config stays so (mamba2: 8 SSD heads of 32, state
     16, chunk 32); an MoE keeps its period of layers, at most 8 experts of
     64 columns, top-2 and one shared expert; a hybrid one period of
-    ``attn_period`` layers (the reference's ``shrink``)."""
+    ``attn_period`` layers; an encoder–decoder 2 + 2 layers, a vlm 16
+    patch positions (the reference's ``shrink``)."""
     heads = min(cfg.n_heads, 4)
     kv = max(1, heads * cfg.n_kv_heads // cfg.n_heads) if heads else 0
     if cfg.family == "hybrid":
@@ -36,6 +37,9 @@ def shrink(cfg: LMCfg, **overrides) -> LMCfg:
         top_k=min(cfg.top_k, 2),
         n_shared=min(cfg.n_shared, 1),
         d_ff_expert=64 if cfg.d_ff_expert else 0,
+        n_enc_layers=2 if cfg.n_enc_layers else 0,
+        n_dec_layers=2 if cfg.n_dec_layers else 0,
+        frontend_len=16 if cfg.frontend_len else 0,
         ssd_headdim=32,
         ssd_state=16,
         ssd_chunk=32,

@@ -54,9 +54,17 @@ family, the hybrid's odd blocks) carries their leaves in its rows of
 ``blocks`` like any other (whole over ``model`` inside a stage, the
 nesting ``pipeline{split[experts]}``) and adds their aux losses, ``aux /
 M``, to the loss, reported as ``moe_lb`` and ``moe_z``.  A stage's rows
-are whole pattern repeats (jamba's period of 8 blocks).  Not ported: the
-encoder–decoder two-tower engine (``make_encdec_pipeline_*``) comes with
-``models/encdec.py`` (ROADMAP.md queue A item 7).
+are whole pattern repeats (jamba's period of 8 blocks).
+
+3. **The encoder–decoder two-tower engine**
+   (:func:`make_encdec_pipeline_loss`,
+   :func:`make_encdec_pipeline_train_step`): an encoder–decoder has no interchangeable layer stack; its cut is the
+   edge between the towers (the M6 shape: a frontend stitched to a
+   decoder).  Stage 0 runs the adapter and the encoder on each
+   micro-batch's frames and sends the memory down; stage 1 embeds the
+   targets, runs the decoder and the loss, and sends the memory's
+   cotangent up.  M micro-batches drain in M + 1 ticks.  The parameters
+   are replicated over the stages, and their gradients summed over them.
 """
 from __future__ import annotations
 
@@ -72,8 +80,6 @@ from repro_torch.models import transformer as tfm
 from repro_torch.optim.optimizer import sharded_global_norm
 from repro_torch.tree import flatten, tree_map, unflatten
 
-ENCDEC_SLICE = ("the encoder–decoder two-tower pipeline comes with "
-                "models/encdec.py (ROADMAP.md queue A item 7)")
 
 
 # ---------------------------------------------------------------------------
@@ -216,10 +222,14 @@ def stage_state(tree: dict, stage: int, stage_layers,
 # one stage's work
 # ---------------------------------------------------------------------------
 
-def _check_family(model) -> None:
-    if model.cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"pipelining the {model.cfg.family!r} family: {ENCDEC_SLICE}")
+def _check_family(model, what: str) -> None:
+    """A layer-stack engine refuses an encoder–decoder, as the
+    reference's."""
+    if model.stack is None:
+        raise ValueError(
+            f"{what} pipelines decoder-LM stacks; encoder–decoder models "
+            f"pipeline over the two-tower cut instead — use "
+            f"make_encdec_pipeline_loss / make_encdec_pipeline_train_step")
 
 
 def _leaves(tree: dict) -> dict:
@@ -397,7 +407,7 @@ def schedule_grads(model, params: dict, tokens, *, micro_batches: int,
     micro-batches (the part of ``loss`` the reference's fused engine adds
     at ``psum(aux, "stage") / M``).
     """
-    _check_family(model)
+    _check_family(model, "schedule_grads")
     M = micro_batches
     if n_stages is None:
         n_stages = len(stage_layers) if stage_layers is not None else 1
@@ -559,7 +569,7 @@ def make_pipeline_train_step(model, rules, optimizer, *,
     (the rules deal the batch over the data axes).  The schedule is the
     one given: 1F1B holds min(M, S) micro-batches in flight (see the
     module docstring)."""
-    _check_family(model)
+    _check_family(model, "make_pipeline_train_step")
     stage_group = rules.group("stage")
     S = dist.get_world_size(stage_group)
     s = dist.get_rank(stage_group)
@@ -630,6 +640,137 @@ def make_pipeline_train_step(model, rules, optimizer, *,
         return params, opt_state, {"loss": vec[0], "moe_lb": vec[1],
                                    "moe_z": vec[2],
                                    "peak_in_flight": stage.peak}
+
+    return step_fn
+
+
+# ---------------------------------------------------------------------------
+# the encoder–decoder two-tower engine
+# ---------------------------------------------------------------------------
+
+def _two_stages(model, rules) -> tuple:
+    """(stage group, this rank's stage) of the two-tower engine, after its
+    refusals: another family, and a stage axis other than 2."""
+    if model.cfg.family != "encdec" or model.stack is not None:
+        raise ValueError(
+            f"make_encdec_pipeline_loss is the encoder–decoder engine; "
+            f"family={model.cfg.family!r} pipelines via "
+            f"make_pipeline_train_step")
+    group = rules.group("stage")
+    S = dist.get_world_size(group)
+    if S != 2:
+        raise ValueError(
+            f"the encdec pipeline is a strict 2-stage engine (encoder tower "
+            f"| decoder tower), got a stage axis of size {S}")
+    return group, dist.get_rank(group)
+
+
+def make_encdec_pipeline_loss(model, rules, *, micro_batches: int):
+    """→ ``(params, frames, tokens) → (loss, grads)`` for this rank's
+    stage of the two-tower pipeline (the reference's
+    ``make_encdec_pipeline_loss`` with its gradient), on the mesh of
+    ``rules`` (a ``stage`` axis of 2, and ``data``/``pod`` replicas).
+
+    ``params`` is the whole tree, replicated over the stages (the
+    reference's stage-replicated layout); ``frames`` (B, S_src, E) and
+    ``tokens`` (B, T) this data replica's rows, the same on both stages.
+    At tick t of M + 1 stage 0 runs the adapter and the encoder on
+    micro-batch t's frames and sends the (mb, S_src, E) memory down;
+    stage 1 embeds micro-batch t − 1's ``tokens[:, :-1]``, runs the
+    decoder against the memory it received, takes ``(nll + z_loss) /
+    n_total`` through the model's loss head (by device, as
+    ``Model.loss_fn`` takes it; the reference's stage 1 takes its chunked
+    head whatever ``xent_impl`` says) and runs its backward at once, then
+    sends the memory's cotangent up; stage 0 runs the encoder's backward
+    from it as it arrives.  Both directions of a tick are posted as one
+    batch, so stage 0 holds at most two micro-batches' graphs.  The loss
+    is Σ(nll + z_loss) / Σ n over the micro-batches (all-ones masks: n is
+    known), and ``grads`` (f32, shaped as ``params``) are summed over the
+    stages, each tower's leaves from its own stage, so every rank of the
+    stage group returns the same ``loss`` and ``grads``."""
+    group, s = _two_stages(model, rules)
+    M = micro_batches
+    cfg = model.cfg
+    wire = _Wire(group, model.device)
+    dist.barrier(group=group)
+
+    def loss_and_grads(params, frames, tokens):
+        frames = torch.as_tensor(frames, device=model.device)
+        tokens = torch.as_tensor(tokens, device=model.device).long()
+        B, S_src = frames.shape[:2]
+        T = tokens.shape[1]
+        mb = check_micro_divides(B, M)
+        leaves = _leaves(params)
+        n_total = float(M * mb * (T - 1))
+        mask = torch.ones((mb, T - 1), dtype=torch.float32,
+                          device=model.device)
+        shape = (mb, S_src, cfg.d_model)
+        loss = torch.zeros((), dtype=torch.float32, device=model.device)
+        graphs = {}                  # stage 0: mb -> its memory
+        inbox = None                 # stage 1: the memory received
+        with sharding.use_rules(rules):
+            for t in range(M + 1):
+                sends, recvs = [], []
+                if s == 0:
+                    if t < M:
+                        mem = model.encode(leaves,
+                                           frames[t * mb:(t + 1) * mb])
+                        graphs[t] = mem
+                        sends.append((mem.detach(), 1))
+                    if t >= 1:
+                        recvs.append(1)
+                    got = wire.exchange(sends, recvs, shape, cfg.adtype)
+                    if got:
+                        torch.autograd.backward(graphs.pop(t - 1), got[0])
+                else:
+                    if t >= 1:
+                        mem = inbox.detach().requires_grad_(True)
+                        tok = tokens[(t - 1) * mb:t * mb]
+                        x = model.decode_train(leaves, tok, mem)
+                        nll, zl, _ = model.xent_sums(
+                            leaves, model.final_norm(leaves, x), tok[:, 1:],
+                            mask)
+                        contrib = (nll + zl) / n_total
+                        contrib.backward()
+                        loss = loss + contrib.detach()
+                        sends.append((mem.grad, 0))
+                    if t < M:
+                        recvs.append(0)
+                    got = wire.exchange(sends, recvs, shape, cfg.adtype)
+                    inbox = got[0] if got else None
+        assert not graphs, "the two-tower engine left a dangling graph"
+        grads = _grads(leaves)
+        for g in flatten(grads)[1]:
+            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+        dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=group)
+        return loss, grads
+
+    return loss_and_grads
+
+
+def make_encdec_pipeline_train_step(model, rules, optimizer, *,
+                                    micro_batches: int):
+    """→ ``(params, opt_state, frames, tokens, step) → (params, opt_state,
+    metrics)`` through the two-tower pipeline
+    (:func:`make_encdec_pipeline_loss`): the gradients summed over the
+    stages, then averaged over ``data`` and ``pod`` (as the loss), and
+    the optimizer applied to the replicated tree in place.  ``metrics``:
+    ``loss``, and ``moe_lb``/``moe_z`` zero (the family has no
+    experts)."""
+    loss_and_grads = make_encdec_pipeline_loss(model, rules,
+                                               micro_batches=micro_batches)
+    data_groups = [rules.group(a) for a in ("data", "pod")
+                   if rules.shape.get(a, 1) > 1]
+
+    def step_fn(params, opt_state, frames, tokens, step):
+        loss, grads = loss_and_grads(params, frames, tokens)
+        loss = loss.reshape(1)
+        for group in data_groups:
+            mean_over(flatten(grads)[1] + [loss], group)
+        params, opt_state = optimizer.apply(grads, opt_state, params, step)
+        zero = torch.zeros((), dtype=torch.float32, device=model.device)
+        return params, opt_state, {"loss": loss[0], "moe_lb": zero,
+                                   "moe_z": zero}
 
     return step_fn
 

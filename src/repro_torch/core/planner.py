@@ -80,7 +80,15 @@ leaf's, summed over the same axes (the optimizer is handed each leaf's
 spec); its state is laid out as the blocks it updates
 (:meth:`ExecutionPlan.state_layout`), which the checkpoint gathers and
 restores.  Still refused, naming its ROADMAP item: ZeRO with uneven
-batch shares.
+batch shares, and the multimodal families (vlm, encdec) split over
+``model`` or under ZeRO.
+
+The encoder–decoder family pipelines over the two-tower cut, as the
+reference routes it: at ``pp = 2`` :meth:`ExecutionPlan.stage_layers`
+is ``(n_enc, n_dec)``, :meth:`~ExecutionPlan.pipeline_train_step_fn`
+runs :func:`~repro_torch.core.pipeline.make_encdec_pipeline_train_step`
+and :meth:`~ExecutionPlan.init_pipeline_params` draws the standard,
+stage-replicated tree.
 
 Serving (the reference's ``jit_prefill``, ``jit_serve_step``,
 ``jit_serve_step_paged``): :meth:`ExecutionPlan.prefill_fn`,
@@ -134,6 +142,9 @@ PIPELINE_SERVE_SLICE = ("serving inside a pipeline (pp > 1) comes with a later "
 ZERO3_SERVE_SLICE = ("serving parameters sharded over data (zero=3) comes "
                      "with a later slice of the port (ROADMAP.md queue A "
                      "item 4)")
+MULTIMODAL_SPLIT_SLICE = ("the {family} family split over model or under "
+                          "ZeRO comes with a later slice of the port "
+                          "(ROADMAP.md queue A item 7)")
 #: the keys of ``Model.loss_fn``'s metrics, with the step's ``loss``: a
 #: rank with no rows of the batch reports zeros under them
 METRIC_KEYS = ("loss", "moe_lb", "moe_z", "nll", "tokens")
@@ -285,6 +296,12 @@ class ExecutionPlan:
         return self.strategy.pp > 1
 
     @property
+    def two_towers(self) -> bool:
+        """Whether the model is an encoder–decoder, which pipelines over
+        the two-tower engine."""
+        return self.model is not None and self.model.stack is None
+
+    @property
     def fsdp_axes(self) -> tuple:
         """The data axes ZeRO shards over: ``pod`` and ``data``, or
         ``data`` alone where the pods are replicas joined by the
@@ -295,8 +312,11 @@ class ExecutionPlan:
 
     def _specs(self, axes, shapes, *, fsdp: bool) -> dict:
         """The specs of a tree: the reference's ``staged_specs`` under a
-        pipeline (its layers over ``stage``, nothing over the data axes),
-        else ``param_specs_tree`` with the ZeRO extension where ``fsdp``."""
+        pipeline (its layers over ``stage``, nothing over the data axes;
+        an encoder–decoder's tree replicated over the stages), else
+        ``param_specs_tree`` with the ZeRO extension where ``fsdp``."""
+        if self.pipelined and self.two_towers:
+            return self.rules.param_specs_tree(axes, shapes, fsdp=False)
         if self.pipelined:
             return sharding.staged_specs(self.rules, axes, shapes)
         return self.rules.param_specs_tree(axes, shapes, fsdp=fsdp,
@@ -435,7 +455,10 @@ class ExecutionPlan:
         the whole model (:meth:`_draw`), then keeps its rows of ``blocks``
         and, under the staged specs, its block of each leaf over
         ``model`` (never a draw per stage or block, so the pipelined start
-        equals a slice of the unpipelined, unsharded one bit for bit)."""
+        equals a slice of the unpipelined, unsharded one bit for bit).
+        An encoder–decoder keeps the whole tree (stage-replicated)."""
+        if self.two_towers:
+            return self._draw(seed)
         sl = stage_layers or self.stage_layers()
         rows = pipe.stage_state(self._draw(seed),
                                 self.mesh.get_local_rank("stage"), sl)
@@ -740,7 +763,11 @@ class ExecutionPlan:
     def stage_layers(self) -> tuple:
         """Per-stage layer-repeat counts: the placement's latency-equalizing
         ``layer_alloc`` when it holds one count per stage, else the even
-        split (the reference's ``ExecutionPlan.stage_layers``)."""
+        split (the reference's ``ExecutionPlan.stage_layers``).  An
+        encoder–decoder's are its towers' layer counts, the fixed cut."""
+        if self.two_towers:
+            ecfg = self.model.ecfg
+            return (ecfg.n_enc_layers, ecfg.n_dec_layers)
         pl = self.placement
         if pl is not None and len(pl.layer_alloc) == self.strategy.pp:
             return pipe.stage_layers_from_alloc(self.model.stack,
@@ -769,6 +796,13 @@ class ExecutionPlan:
             raise ValueError(
                 f"pipeline step needs pp > 1 and a 'stage' mesh axis; "
                 f"strategy is {self.strategy.describe()}, mesh axes {axes}")
+        if self.two_towers:
+            # the two-tower engine: ``(params, opt_state, frames, tokens,
+            # step)``; stage layers and the schedule do not apply
+            return pipe.make_encdec_pipeline_train_step(
+                self.model, self.rules, optimizer,
+                micro_batches=micro_batches or self.strategy.micro_batches
+                or 1)
         return pipe.make_pipeline_train_step(
             self.model, self.rules, optimizer,
             micro_batches=micro_batches or self.strategy.micro_batches or 1,
@@ -899,7 +933,8 @@ class ExecutionPlan:
         and a layout decode has no split for (``decode_split``)."""
         self._serving_rules()
         self.slot_block(batch)
-        if any(b.mixer == "attn" for b in self.model.stack.pattern):
+        if self.two_towers or any(b.mixer == "attn"
+                                  for b in self.model.stack.pattern):
             with sharding.use_rules(self.rules):
                 decode_split(self.model.cfg.attn_cfg())
 
@@ -1013,6 +1048,11 @@ def compile_plan(model, mesh, strategy: StrategySpec | None = None, *,
             and not cluster_spec.is_homogeneous and workload_meta is not None):
         placement = plan_placement(workload_meta, strategy, cluster_spec,
                                    overlap=overlap)
+    family = model.cfg.family if model is not None else None
+    if family in ("vlm", "encdec") and (strategy.model_parallel > 1
+                                         or strategy.zero):
+        raise NotImplementedError(
+            MULTIMODAL_SPLIT_SLICE.format(family=family))
     plan = ExecutionPlan(model=model, mesh=mesh, strategy=strategy,
                          placement=placement, compress_pod=compress_pod)
     rows = plan.replica_rows()

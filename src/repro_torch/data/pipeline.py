@@ -3,8 +3,8 @@
 A copy of ``repro/data/pipeline.py`` (pure numpy, so the batches are
 byte-identical to the reference's) without JAX: a host's rank and the host
 count default to the ``torch.distributed`` process group's, or 0 and 1
-when there is none.  ``MultimodalPipeline`` comes with the multimodal
-family.
+when there is none.  ``MultimodalPipeline`` adds the multimodal families'
+modality stream (patch embeddings or source frames).
 
 - **Per-host sharding**: each host reads only its slice of the global batch
   (``host_id / n_hosts``); the arrays produced are the *local* shard.
@@ -140,6 +140,64 @@ class TokenPipeline:
 
     def load_state_dict(self, d: dict) -> None:
         self.state = PipelineState.from_dict(d)
+
+
+class MultimodalPipeline(TokenPipeline):
+    """TokenPipeline plus a synthetic modality stream (M6 workloads).
+
+    The vision/audio frontends are STUBS (see
+    :mod:`repro_torch.models.frontends`): real towers would emit
+    precomputed embeddings, so the pipeline synthesises them — unit-normal
+    ``patch_embeds`` (B, frontend_len, d_model) for ``vlm`` or ``frames``
+    (B, src_len, d_model) for ``encdec`` — with the same per-global-row
+    seeding discipline as the token draw, so the stream stays
+    deterministic, resumable, and host-count invariant under
+    :meth:`reshard`.
+    """
+
+    def __init__(self, cfg: DataCfg, *, modality: str, d_model: int,
+                 frontend_len: int = 0, src_len: int = 0,
+                 host_id: int | None = None, n_hosts: int | None = None,
+                 state: PipelineState | None = None):
+        if modality not in ("vlm", "encdec"):
+            raise ValueError(f"modality must be 'vlm' or 'encdec', "
+                             f"got {modality!r}")
+        if modality == "vlm" and frontend_len <= 0:
+            raise ValueError("vlm needs frontend_len > 0 patch positions")
+        if modality == "encdec" and src_len <= 0:
+            raise ValueError("encdec needs src_len > 0 source frames")
+        super().__init__(cfg, host_id=host_id, n_hosts=n_hosts, state=state)
+        self.modality = modality
+        self.d_model = d_model
+        self.frontend_len = frontend_len
+        self.src_len = src_len
+
+    def _embeds(self, epoch: int, step: int, length: int) -> np.ndarray:
+        # 7919 (the 1000th prime) offsets the stream id so modality rows
+        # never collide with the token rows' (seed, epoch, step, row) keys
+        B = self.local_batch
+        lo = self.host_id * B
+        return np.stack([
+            np.random.default_rng((self.state.seed, epoch, step, 7919, row))
+            .standard_normal((length, self.d_model))
+            for row in range(lo, lo + B)]).astype(np.float32)
+
+    def next_batch(self) -> dict:
+        epoch, step = self.state.epoch, self.state.step
+        batch = super().next_batch()          # advances the state
+        if self.modality == "vlm":
+            batch["patch_embeds"] = self._embeds(epoch, step,
+                                                 self.frontend_len)
+        else:
+            batch["frames"] = self._embeds(epoch, step, self.src_len)
+        return batch
+
+    def reshard(self, *, host_id: int, n_hosts: int) -> "MultimodalPipeline":
+        return MultimodalPipeline(
+            self.cfg, modality=self.modality, d_model=self.d_model,
+            frontend_len=self.frontend_len, src_len=self.src_len,
+            host_id=host_id, n_hosts=n_hosts,
+            state=PipelineState(**self.state.to_dict()))
 
 
 def write_token_file(path: str, tokens: np.ndarray) -> None:

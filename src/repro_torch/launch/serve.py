@@ -38,6 +38,10 @@ Usage::
 
     python -m repro_torch.launch.serve --arch mamba2-1.3b --cache dense
 
+    python -m repro_torch.launch.serve --arch qwen2-vl-2b --cache paged \
+        --requests 8 --batch-slots 8 --prompt-len 256 --gen 32 \
+        --max-len 512
+
     python -m repro_torch.launch.serve --arch jamba-v0.1-52b --cache dense \
         --overrides n_layers=8,param_dtype=bfloat16 --requests 8
 
@@ -47,6 +51,14 @@ Usage::
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \
         --smoke --device cpu --mesh 2x2 --cache paged --requests 8 \
         --batch-slots 4 --gen 8 --max-len 64 --overrides n_kv_heads=2
+
+qwen2-vl-2b serves through the Server, paged or dense: text prompts at
+M-RoPE positions (the Server passes no patch embeddings, as the
+reference's does not; a prompt bucket shorter than the 64-position patch
+prefix raises).  seamless-m4t-medium is refused before any weight is
+drawn: the reference's Server prefills ``{"tokens"}`` with ``last_idx``,
+which its encoder–decoder prefill refuses; an encoder–decoder serves
+through ``Model.prefill({"frames": …})`` and ``Model.serve_step``.
 
 ``--cache paged`` needs an all-attention arch; with mamba2 or jamba (an
 SSD mixer in every period) it raises.  jamba-v0.1-52b's 51.5e9 weights
@@ -212,9 +224,19 @@ def run(args: argparse.Namespace):
             end_world(store)
 
 
+ENCDEC_SERVE = ("the {name} encoder–decoder is not served through the "
+                "Server: its prefill takes source frames, not the prompt "
+                "tokens and last_idx the Server prefills (the reference's "
+                "encoder–decoder prefill refuses last_idx); serve it "
+                "through Model.prefill({{'frames': ...}}) and "
+                "Model.serve_step")
+
+
 def _serve(args: argparse.Namespace, device: torch.device):
     cfg = apply_overrides(get_config(args.arch, smoke=args.smoke),
                            args.overrides)
+    if cfg.family == "encdec":
+        raise SystemExit(ENCDEC_SERVE.format(name=cfg.name))
     model = Model(cfg, device=device)
     mesh = None
     if args.mesh:

@@ -55,6 +55,17 @@ each expert's d_ff splits instead, expert tensor parallelism).  Adafactor
 runs beside ``--mesh``, ``--zero`` and ``--pp``, its factored means the
 whole leaf's across the blocks a rank holds.
 
+The multimodal families, as the reference's driver trains them: a vlm
+(``--arch qwen2-vl-2b``) or encdec arch (``--arch seamless-m4t-medium``)
+draws a :class:`~repro_torch.data.pipeline.MultimodalPipeline`, its patch
+embeddings or ``--src-seq`` source frames (default ``--seq``) beside the
+tokens.  A vlm is never pipelined (``--pp`` exits with the reference's
+words; ``--auto`` searches at ``max_pp=1``); an encdec arch at ``--pp 2``
+trains through the two-tower engine (the encoder on stage 0, the decoder
+and the loss on stage 1; ``--stage-layers`` exits), its state replicated
+over the stages.  Neither family splits over ``model`` or takes ZeRO yet
+(ROADMAP.md queue A item 7).
+
 ``--pp`` lays the ranks out as ``stage × data``, as the reference's
 ``--pp`` does; beside ``--mesh D`` or ``DxM`` it lays them out as ``stage
 × data × model`` (Whale's nested hybrid, which the reference reaches
@@ -129,6 +140,17 @@ Usage::
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
         --smoke --device cpu --auto --hw v100 --batch 4 --seq 32 \
         --steps 3 --ckpt-dir "$TMPDIR/nested"
+
+    python -m repro_torch.launch.train --arch qwen2-vl-2b --batch 4 \
+        --seq 2048 --steps 3 --ckpt-dir /path/to/ckpt
+
+    python -m repro_torch.launch.train --arch seamless-m4t-medium \
+        --batch 4 --seq 2048 --src-seq 1024 --steps 3 --ckpt-dir /path
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch seamless-m4t-medium --smoke --device cpu --pp 2 \
+        --micro-batches 2 --batch 4 --seq 32 --src-seq 24 --steps 3 \
+        --ckpt-dir "$TMPDIR/encdec"
 """
 from __future__ import annotations
 
@@ -150,7 +172,8 @@ from repro_torch.core.cost_model import (H100_SXM, P100_16G, T4_16G,
                                          step_cost, step_cost_features)
 from repro_torch.core.planner import compile_plan, mesh_for_strategy
 from repro_torch.core.schedule import SCHEDULE_NAMES
-from repro_torch.data.pipeline import DataCfg, TokenPipeline
+from repro_torch.data.pipeline import (DataCfg, MultimodalPipeline,
+                                       TokenPipeline)
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import (end_world, make_mesh, mesh_axes,
                                      mesh_shape, parse_mesh, start_world,
@@ -186,6 +209,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--src-seq", type=int, default=None,
+                    help="encoder-side source length for encdec archs "
+                         "(frames per sample); default: --seq")
     ap.add_argument("--micro-batches", type=int, default=None,
                     help="gradient accumulation over M slices, or the "
                          "pipeline's micro-batches; default: the plan's "
@@ -286,12 +312,13 @@ def _start_world(args, device: torch.device):
     return start_world(device, args.ckpt_dir)
 
 
-def auto_strategy(graph, world: int, hw):
+def auto_strategy(graph, world: int, hw, max_pp: int | None = None):
     """``--auto``: the cost model's best strategy for ``graph`` over
-    ``world`` devices of ``hw``, as the reference's driver picks it; no
-    feasible strategy exits."""
+    ``world`` devices of ``hw`` (at most ``max_pp`` stages), as the
+    reference's driver picks it; no feasible strategy exits."""
+    kw = {} if max_pp is None else {"max_pp": max_pp}
     try:
-        return auto_parallel(graph, world, hw)
+        return auto_parallel(graph, world, hw, **kw)
     except RuntimeError as e:              # nothing fits the table's HBM
         raise SystemExit(f"--auto: {e}") from None
 
@@ -342,14 +369,23 @@ def _train(args, device: torch.device) -> dict:
         (lambda *a: None)
     n_dev = dist.get_world_size() if world else 1
     hw = HW_TABLES[args.hw]
-    graph = model.graph(args.batch, args.seq)
+    src_seq = args.src_seq or args.seq
+    graph = model.graph(args.batch, args.seq, src_seq=src_seq)
     strat = None
     if args.auto:
-        strat = auto_strategy(graph, n_dev, hw)
+        # the executable stack engine has no slot for the vision frontend
+        # or the M-RoPE positions: a vlm is never pipelined
+        strat = auto_strategy(graph, n_dev, hw,
+                              max_pp=1 if cfg.family == "vlm" else None)
         log(f"[auto] chose: {strat.describe()}")
         mesh = (mesh_for_strategy(strat, device_type=device.type)
                 if world else None)
     elif args.pp > 1:
+        if cfg.family == "vlm":
+            raise SystemExit(
+                "--pp does not apply to vlm archs yet: the executable "
+                "pipeline engine cannot stage the vision frontend "
+                "(train non-pipelined, e.g. --dp, instead)")
         if n_dev < args.pp or n_dev % args.pp:
             raise SystemExit(
                 f"--pp {args.pp} needs a device count divisible by the "
@@ -397,6 +433,10 @@ def _train(args, device: torch.device) -> dict:
     if pipelined and args.compress_pod:
         raise SystemExit(COMPRESS_PIPE)
     sl = None
+    if pipelined and args.stage_layers and model.stack is None:
+        raise SystemExit("--stage-layers does not apply to encdec archs: "
+                         "the pipeline cut is the fixed encoder|decoder "
+                         "tower edge")
     if pipelined:
         sl = (pipe.check_stage_layers(args.stage_layers.split(","),
                                       model.stack.n_rep, plan.strategy.pp)
@@ -421,11 +461,22 @@ def _train(args, device: torch.device) -> dict:
            else adafactor(lr=sched))
     # every rank draws the same global batch (one stream, as the
     # reference's) and trains on its rows of it
-    data = TokenPipeline(DataCfg(global_batch=args.batch, seq_len=args.seq,
-                                 vocab=cfg.vocab, seed=args.seed),
-                         host_id=0, n_hosts=1)
+    dcfg = DataCfg(global_batch=args.batch, seq_len=args.seq,
+                   vocab=cfg.vocab, seed=args.seed)
+    if cfg.family in ("vlm", "encdec"):
+        # the modality stream beside the tokens: patch embeddings for a
+        # vlm, source frames for an encoder–decoder
+        data = MultimodalPipeline(
+            dcfg, modality=cfg.family, d_model=cfg.d_model,
+            frontend_len=cfg.frontend_len if cfg.family == "vlm" else 0,
+            src_len=src_seq if cfg.family == "encdec" else 0,
+            host_id=0, n_hosts=1)
+    else:
+        data = TokenPipeline(dcfg, host_id=0, n_hosts=1)
+    # a two-tower pipeline's state is replicated: rank 0's is the whole
+    two_towers = pipelined and plan.two_towers
     gather = None
-    if pipelined:
+    if pipelined and not two_towers:
         gather = lambda tree: plan.gather_pipeline_state(  # noqa: E731
             tree, opt, sl)
     elif plan.sharded:
@@ -444,7 +495,7 @@ def _train(args, device: torch.device) -> dict:
     start_step = 0
     # the error carry is restored with the rest (the reference restores
     # only params and opt, so it cannot resume its own compressed run)
-    if pipelined:
+    if pipelined and not two_towers:
         resume = plan.restore_pipeline_state(ckpt, opt, sl)
     elif plan.sharded:
         resume = plan.restore_state(ckpt, opt, with_err=compress)
@@ -506,6 +557,13 @@ def _train(args, device: torch.device) -> dict:
             p, o, m, e = step_fn(st["params"], st["opt"], batch_for(i), i,
                                  st["err"])
             new = {"params": p, "opt": o, "err": e}
+        elif two_towers:
+            # the encoder's memory ships over the stage wire: the step
+            # takes the frames and the tokens
+            b = batch_for(i)
+            p, o, m = step_fn(st["params"], st["opt"], b["frames"],
+                              b["tokens"], i)
+            new = {"params": p, "opt": o}
         elif pipelined:
             p, o, m = step_fn(st["params"], st["opt"],
                               batch_for(i)["tokens"], i)

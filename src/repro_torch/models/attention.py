@@ -1,5 +1,7 @@
-"""Attention for the dense LM: prefill and training (the differentiable
-flash op), dense-cache decode and paged-cache decode (paged kernel).
+"""Attention for the LM: prefill and training (the differentiable flash
+op), the encoder–decoder's cross-attention (the same op, non-causal over
+the encoder's memory), dense-cache decode and paged-cache decode (paged
+kernel).  RoPE, or qwen2-vl's M-RoPE over (B, 3, S) positions.
 
 Grouped-query attention in the grouped layout: q heads ``h = k·G + g``
 over K kv heads, so KV is never repeated per query head.
@@ -45,6 +47,7 @@ class AttnCfg:
     rope_theta: float = 10000.0
     causal: bool = True
     qk_norm: bool = False               # per-head RMSNorm of q and k (qwen3)
+    mrope_sections: tuple | None = None   # M-RoPE bands (qwen2-vl)
 
     @property
     def group(self) -> int:
@@ -149,12 +152,36 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
         norms = {n: {"scale": sharding.copy_to(params[n]["scale"], split)}
                  for n in ("q_norm", "k_norm")}
     q, k = _qk_norm(norms, q, k, cfg)
-    q = layers.apply_rope(q, positions, cfg.rope_theta)
-    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    q = layers.apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+    k = layers.apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     out = flash(q.contiguous(), k.contiguous(), v.contiguous(), cfg.causal,
                 bwd_remat)
     y = out_proj("bshd,hde->bse", out, params["wo"], split, x.dtype)
     return (y, (k, v)) if return_kv else y
+
+
+CROSS_SPLIT_SLICE = ("cross-attention split over a model axis (the "
+                     "encoder–decoder family under split or ZeRO) comes "
+                     "with a later slice of the port (ROADMAP.md queue A "
+                     "item 7)")
+
+
+def cross_attention(params: dict, x: torch.Tensor, memory: torch.Tensor,
+                    cfg: AttnCfg, *, bwd_remat: bool = False) -> torch.Tensor:
+    """x: (B, Sq, E) queries against the encoder's ``memory`` (B, Sk, E) →
+    (B, Sq, E): the keys and values are ``memory``'s projections, nothing
+    is roped and no position is masked (``Sq ≠ Sk`` welcome).  The
+    reference's blocked core is :func:`ops.flash` with ``causal=False``,
+    the flash kernels forward and backward on the card.  A model axis
+    that splits the heads raises (the family is not split yet)."""
+    if sharding.split_of("q_heads", cfg.n_heads) is not None:
+        raise NotImplementedError(CROSS_SPLIT_SLICE)
+    q = torch.einsum("bse,ehd->bshd", x, params["wq"].to(x.dtype))
+    k = torch.einsum("bse,ekd->bskd", memory, params["wk"].to(x.dtype))
+    v = torch.einsum("bse,ekd->bskd", memory, params["wv"].to(x.dtype))
+    out = flash(q.contiguous(), k.contiguous(), v.contiguous(), False,
+                bwd_remat)
+    return out_proj("bshd,hde->bse", out, params["wo"], None, x.dtype)
 
 
 def out_proj(eq: str, out: torch.Tensor, wo: torch.Tensor, split,
@@ -180,9 +207,13 @@ def _decode_qkv(params: dict, x: torch.Tensor, pos: torch.Tensor,
     k = torch.einsum("be,ekd->bkd", x, params["wk"].to(x.dtype))
     v = torch.einsum("be,ekd->bkd", x, params["wv"].to(x.dtype))
     q, k = _qk_norm(params, q, k, cfg)
-    posb = pos[:, None]
-    q = layers.apply_rope(q[:, None], posb, cfg.rope_theta)[:, 0]
-    k = layers.apply_rope(k[:, None], posb, cfg.rope_theta)[:, 0]
+    # M-RoPE ropes every section at ``pos`` (the reference's decode)
+    posb = (pos[:, None] if cfg.mrope_sections is None
+            else pos[:, None, None].expand(pos.shape[0], 3, 1))
+    q = layers.apply_rope(q[:, None], posb, cfg.rope_theta,
+                          cfg.mrope_sections)[:, 0]
+    k = layers.apply_rope(k[:, None], posb, cfg.rope_theta,
+                          cfg.mrope_sections)[:, 0]
     return q, k, v
 
 

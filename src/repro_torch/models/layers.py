@@ -132,12 +132,28 @@ def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 10000.0) -> torch.Tensor:
-    """Rotate ``x`` (B, S, H, D) by ``positions`` (B, S): split-halves
-    rotation computed in f32."""
+               theta: float = 10000.0,
+               mrope_sections: tuple | None = None) -> torch.Tensor:
+    """Rotate ``x`` (B, S, H, D) by ``positions``: split-halves rotation
+    computed in f32.  ``positions`` is (B, S), or (B, 3, S) for M-RoPE
+    (qwen2-vl's temporal, height and width components), where the
+    frequency bands are partitioned into ``mrope_sections`` (summing to
+    D/2) and each band rotates by its own component."""
     d = x.shape[-1]
     inv = rope_freqs(d, theta, x.device)
-    ang = positions[..., None].float() * inv                   # (B, S, d/2)
+    if mrope_sections is None:
+        ang = positions[..., None].float() * inv               # (B, S, d/2)
+    else:
+        if positions.dim() != 3:
+            raise ValueError(f"M-RoPE wants (B, 3, S) positions, got "
+                             f"{tuple(positions.shape)}")
+        bounds = [0]
+        for sec in mrope_sections:
+            bounds.append(bounds[-1] + sec)
+        ang = torch.cat([positions[:, i, :, None].float() * inv[lo:hi]
+                         for i, (lo, hi) in enumerate(zip(bounds,
+                                                          bounds[1:]))],
+                        dim=-1)                                # (B, S, d/2)
     cos = torch.cos(ang)[..., None, :]                         # (B, S, 1, d/2)
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

@@ -1,9 +1,12 @@
-"""The LM: one config dataclass → {init, loss_fn, prefill, serve_step,
-serve_step_paged} for the dense and moe decoder families, and {init,
-loss_fn, prefill, serve_step} for the ssm family (mamba2, its embedding
-tied to its head) and the hybrid family (jamba: a period of SSD blocks
-with one attention block, experts on every other block); and the cost
-model's view of a config (:func:`model_graph`, pure arithmetic).
+"""The LM: one config dataclass → {init, loss_fn, prefill, serve_step}
+for every family of the reference: the decoder families over the layer
+stack (dense; moe; ssm, mamba2 with its embedding tied to its head;
+hybrid, jamba's period of SSD blocks with one attention block and experts
+on every other block; vlm, qwen2-vl's dense stack behind a stub vision
+prefix and M-RoPE), each with ``serve_step_paged`` where every mixer is
+attention, and encdec (seamless-m4t's two towers,
+:mod:`repro_torch.models.encdec`); and the cost model's view of a config
+(:func:`model_graph`, pure arithmetic).
 
 The port's counterpart of ``repro.models.lm`` for training and serving.
 The loss head is chosen by device, as the reference's ``xent_impl``
@@ -15,7 +18,8 @@ both heads are vocab-parallel: the chunked one by the reference's explicit
 max / sum-of-exponentials / target logit all-reduces, the fused one
 through :func:`repro_torch.kernels.xent.ops.xent_vocab_shard`.
 Parameters are nested dicts of tensors with the reference's leaf paths and
-shapes (``embed/table``, ``blocks/p0/attn/wq`` …), so
+shapes (``embed/table``, ``blocks/p0/attn/wq``, ``encdec/decoder/
+cross_attn/wq``, ``adapter/w`` …), so
 :func:`repro_torch.models.convert.params_from_numpy` moves a reference
 parameter tree across unchanged.  State constructors allocate on the
 model's device.
@@ -30,9 +34,11 @@ from repro_torch.core import sharding
 from repro_torch.core.cost_model import ModelGraph, SegmentMeta
 from repro_torch.device import resolve_device
 from repro_torch.kernels.xent.ops import xent_vocab_shard, xent_with_lse
-from repro_torch.models import layers
+from repro_torch.models import encdec as encdec_mod
+from repro_torch.models import frontends, layers
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import AttnCfg
+from repro_torch.models.encdec import EncDecCfg
 from repro_torch.models.mamba2 import SSDCfg
 from repro_torch.models.moe import MoECfg
 from repro_torch.tree import tree_map
@@ -43,7 +49,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 @dataclasses.dataclass(frozen=True)
 class LMCfg:
     name: str
-    family: str                        # dense | moe | ssm | hybrid (ported)
+    family: str              # dense | moe | ssm | hybrid | vlm | encdec
     n_layers: int
     d_model: int
     vocab: int
@@ -56,6 +62,7 @@ class LMCfg:
     gated_mlp: bool = True
     qk_norm: bool = False
     rope_theta: float = 10000.0
+    mrope_sections: tuple | None = None   # vlm: M-RoPE's (t, h, w) bands
     tie_embeddings: bool = False       # head = embed/tableᵀ, no head leaf
     # moe
     n_experts: int = 0
@@ -72,6 +79,12 @@ class LMCfg:
     ssd_chunk: int = 256
     attn_period: int = 0               # hybrid: one attn layer per period
     attn_offset: int = 0
+    # encdec
+    n_enc_layers: int = 0
+    n_dec_layers: int = 0
+    # the frontend stub: a linear adapter over precomputed embeddings
+    frontend: str | None = None        # "vision" | "audio"
+    frontend_len: int = 0              # vlm: patch positions at the head
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
     remat: str = "full"                # "full" | "dots" | "none"
@@ -102,10 +115,11 @@ class LMCfg:
     def pdtype(self) -> torch.dtype:
         return _DTYPES[self.param_dtype]
 
-    def attn_cfg(self) -> AttnCfg:
+    def attn_cfg(self, causal: bool = True) -> AttnCfg:
         return AttnCfg(d_model=self.d_model, n_heads=self.n_heads,
                        n_kv_heads=self.n_kv_heads, head_dim=self.head_dim,
-                       rope_theta=self.rope_theta, qk_norm=self.qk_norm)
+                       rope_theta=self.rope_theta, qk_norm=self.qk_norm,
+                       mrope_sections=self.mrope_sections, causal=causal)
 
     def ssd_cfg(self) -> SSDCfg:
         n_heads = (2 * self.d_model) // self.ssd_headdim   # expand = 2
@@ -118,6 +132,16 @@ class LMCfg:
                       top_k=self.top_k, d_ff_expert=self.d_ff_expert,
                       n_shared=self.n_shared,
                       capacity_factor=self.capacity_factor, act=self.act)
+
+    def encdec_cfg(self) -> EncDecCfg:
+        """The two towers' config, the reference's: ``rope_theta`` stays at
+        its default there."""
+        return EncDecCfg(d_model=self.d_model, n_enc_layers=self.n_enc_layers,
+                         n_dec_layers=self.n_dec_layers, n_heads=self.n_heads,
+                         n_kv_heads=self.n_kv_heads, head_dim=self.hd,
+                         d_ff=self.d_ff, norm=self.norm, act=self.act,
+                         gated_mlp=self.gated_mlp, remat=self.remat,
+                         attn_bwd_remat=self.attn_bwd_remat)
 
 
 def build_stack_cfg(cfg: LMCfg) -> tfm.StackCfg:
@@ -138,7 +162,7 @@ def build_stack_cfg(cfg: LMCfg) -> tfm.StackCfg:
                             d_ff=cfg.d_ff, norm=cfg.norm, act=cfg.act,
                             gated_mlp=cfg.gated_mlp)
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         pattern, n_rep = (block("attn", "dense"),), cfg.n_layers
     elif cfg.family == "moe" and cfg.moe_every == 1:
         pattern, n_rep = (block("attn", "moe"),), cfg.n_layers
@@ -156,9 +180,8 @@ def build_stack_cfg(cfg: LMCfg) -> tfm.StackCfg:
                         for i in range(p))
         n_rep = cfg.n_layers // p
     else:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, moe, ssm, "
-            f"hybrid)")
+        raise ValueError(f"family {cfg.family!r} has no layer stack (dense, "
+                         f"vlm, moe, ssm, hybrid; encdec has two towers)")
     return tfm.StackCfg(pattern=pattern, n_rep=n_rep, remat=cfg.remat,
                         attn_bwd_remat=cfg.attn_bwd_remat)
 
@@ -259,7 +282,14 @@ class Model:
         self.cfg = cfg
         self.xent_impl = xent_impl
         self.device = resolve_device(device)
-        self.stack = build_stack_cfg(cfg)
+        if cfg.family == "encdec":
+            # an unknown norm or activation raises here, as in
+            # build_stack_cfg, before a leaf is drawn
+            layers.make_norm(cfg.norm)
+            layers.check_act(cfg.act)
+            self.ecfg, self.stack = cfg.encdec_cfg(), None
+        else:
+            self.ecfg, self.stack = None, build_stack_cfg(cfg)
         self._shapes = None
 
     # ---- params ----
@@ -277,7 +307,12 @@ class Model:
         if not cfg.tie_embeddings:
             p["head"] = layers.init_lm_head(gen, cfg.d_model,
                                             cfg.padded_vocab, dt, dev)
-        p["blocks"] = tfm.init_stack(gen, self.stack, dt, dev)
+        if self.stack is None:
+            p["encdec"] = encdec_mod.init_encdec(gen, self.ecfg, dt, dev)
+        else:
+            p["blocks"] = tfm.init_stack(gen, self.stack, dt, dev)
+        if cfg.frontend is not None:
+            p["adapter"] = frontends.init_adapter(gen, cfg.d_model, dt, dev)
         return p
 
     def param_shapes(self) -> dict:
@@ -292,24 +327,32 @@ class Model:
         """Each parameter leaf's logical dims (the reference's
         ``Model.axes``), the tree the sharding rules map to specs."""
         a = {"embed": layers.axes_embedding(),
-             "final_norm": layers.make_norm(self.cfg.norm)[1](),
-             "blocks": tfm.axes_stack(self.stack)}
+             "final_norm": layers.make_norm(self.cfg.norm)[1]()}
+        if self.stack is None:
+            a["encdec"] = encdec_mod.axes_encdec(self.ecfg)
+        else:
+            a["blocks"] = tfm.axes_stack(self.stack)
         if not self.cfg.tie_embeddings:
             a["head"] = layers.axes_lm_head()
+        if self.cfg.frontend is not None:
+            a["adapter"] = frontends.axes_adapter()
         return a
 
     def graph(self, batch: int, seq: int, *, act_dtype_bytes: int = 2,
-              param_dtype_bytes: int = 4) -> ModelGraph:
+              param_dtype_bytes: int = 4,
+              src_seq: int | None = None) -> ModelGraph:
         """Segment-aware cost-model view of this model (see
         :func:`model_graph`), flattenable to a WorkloadMeta via
-        ``.workload_meta()``."""
+        ``.workload_meta()``; ``src_seq`` is an encoder–decoder's source
+        length (default ``seq``)."""
         return model_graph(self.cfg, batch, seq,
                            act_dtype_bytes=act_dtype_bytes,
-                           param_dtype_bytes=param_dtype_bytes)
+                           param_dtype_bytes=param_dtype_bytes,
+                           src_seq=src_seq)
 
     # leaves (and subtrees: the experts' router) the reference reads in
     # f32 whatever the activation dtype
-    F32_LEAVES = frozenset({"scale", "wdt", "dt_bias", "A_log",
+    F32_LEAVES = frozenset({"scale", "bias", "wdt", "dt_bias", "A_log",
                             "norm_scale", "router"})
 
     def serving_params(self, params: dict) -> dict:
@@ -317,9 +360,9 @@ class Model:
         except :attr:`F32_LEAVES`.  Each product casts its weight to that
         dtype anyway, so the results are the same; serving then stops
         re-reading (and re-casting) f32 masters every step.  The norm
-        scales, dt's projection and bias, ``A_log`` and the experts'
-        router stay as they are: the reference reads them in f32, and
-        casting them changes the result."""
+        scales and LayerNorm biases, dt's projection and bias, ``A_log``
+        and the experts' router stay as they are: the reference reads
+        them in f32, and casting them changes the result."""
         def cast(tree):
             return {k: v if k in self.F32_LEAVES
                     else cast(v) if isinstance(v, dict)
@@ -337,28 +380,67 @@ class Model:
             return params["embed"]["table"].T
         return params["head"]["w"]
 
+    def positions(self, B: int, S: int, device=None) -> torch.Tensor:
+        """The stack's positions: (B, 3, S) M-RoPE positions over the
+        ``frontend_len`` patch prefix where the config has M-RoPE
+        (:func:`~repro_torch.models.frontends.mrope_positions`; a shorter
+        sequence raises), else (B, S)."""
+        device = self.device if device is None else device
+        if self.cfg.mrope_sections is not None:
+            return frontends.mrope_positions(B, S, self.cfg.frontend_len,
+                                             device=device)
+        return torch.arange(S, device=device)[None].expand(B, S)
+
+    def embed_tokens(self, params: dict, tokens: torch.Tensor,
+                     batch: dict) -> torch.Tensor:
+        """The tokens' embeddings in the activation dtype; for the vlm
+        family with ``batch["patch_embeds"]`` (B, P, E), their adapted
+        embeddings over the first ``frontend_len`` positions."""
+        cfg = self.cfg
+        x = layers.embed(params["embed"], tokens,
+                         cfg.padded_vocab).to(cfg.adtype)
+        if cfg.family == "vlm" and "patch_embeds" in batch:
+            pe = torch.as_tensor(batch["patch_embeds"], device=x.device)
+            pe = frontends.adapt(params["adapter"], pe.to(cfg.adtype))
+            x = torch.cat([pe, x[:, cfg.frontend_len:]], dim=1)
+        return x
+
+    def encode(self, params: dict, frames) -> torch.Tensor:
+        """An encoder–decoder's memory of ``frames`` (B, S_src, E): the
+        frames in the activation dtype, through the adapter where the
+        config has a frontend, then the encoder."""
+        cfg = self.cfg
+        x = torch.as_tensor(frames, device=self.device).to(cfg.adtype)
+        if cfg.frontend is not None:
+            x = frontends.adapt(params["adapter"], x)
+        return encdec_mod.encode(params["encdec"], x, self.ecfg)
+
     # ---- training ----
     def loss_fn(self, params: dict, batch: dict):
         """batch {"tokens": (B, S) int, optional "loss_mask": (B, S)} →
-        (loss, metrics), as the reference's ``Model.loss_fn`` for the
-        dense, moe, ssm and hybrid families: next-token nll plus the z-loss, both
-        over the masked token count, plus the experts' load-balance and
-        router z-losses summed over the layers (``moe_lb``, ``moe_z``;
-        zero without experts); the head cast to the activation dtype.  The
-        loss head is :func:`fused_xent` on the card and
-        :func:`chunked_xent` on the CPU.  An SSD mixer (mamba2's, jamba's)
-        trains through the differentiable chunked scan (the reference's
-        default ``ssd_impl``; the SSD kernel is forward only), and a tied
-        head's gradient adds to the embedding table's.
+        (loss, metrics), as the reference's ``Model.loss_fn``: next-token
+        nll plus the z-loss, both over the masked token count, plus the
+        experts' load-balance and router z-losses summed over the layers
+        (``moe_lb``, ``moe_z``; zero without experts); the head cast to
+        the activation dtype.  The loss head is :func:`fused_xent` on the
+        card and :func:`chunked_xent` on the CPU.  An SSD mixer (mamba2's,
+        jamba's) trains through the differentiable chunked scan (the
+        reference's default ``ssd_impl``; the SSD kernel is forward only),
+        and a tied head's gradient adds to the embedding table's.
+
+        The vlm family takes optional ``"patch_embeds"`` (B, P, E),
+        adapted and spliced over the first ``frontend_len`` positions,
+        ropes by M-RoPE positions and masks every target inside the patch
+        prefix.  The encdec family takes ``"frames"`` (B, S_src, E):
+        :meth:`loss_encdec`.
 
         Under sharding rules ``params`` are this rank's blocks; under
         ZeRO-3 the leaves outside the stack are gathered over the data
         axes here, the stack's repeat by repeat in
         :func:`~repro_torch.models.transformer.apply_stack`."""
         cfg = self.cfg
-        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-            raise NotImplementedError(
-                f"training the {cfg.family!r} family is not ported yet")
+        if cfg.family == "encdec":
+            return self.loss_encdec(params, batch)
         specs = sharding.fsdp_specs(self)
         if specs is not None:
             top = [k for k in params if k != "blocks"]
@@ -367,14 +449,16 @@ class Model:
                 sharding.current_rules()))
         tokens = batch["tokens"].long()
         B, S = tokens.shape
-        x = layers.embed(params["embed"], tokens,
-                         cfg.padded_vocab).to(cfg.adtype)
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        x, aux = tfm.apply_stack(params["blocks"], x, positions, self.stack,
+        x = self.embed_tokens(params, tokens, batch)
+        x, aux = tfm.apply_stack(params["blocks"], x,
+                                 self.positions(B, S, x.device), self.stack,
                                  None if specs is None else specs["blocks"])
         mask = torch.ones((B, S - 1), dtype=torch.float32, device=x.device)
         if "loss_mask" in batch:
             mask = mask * batch["loss_mask"][:, 1:]
+        if cfg.family == "vlm":
+            tgt = torch.arange(1, S, device=x.device)[None]
+            mask = mask * (tgt >= cfg.frontend_len)
         nll, zl, n = self.head_loss(params, x, tokens, mask)
         n1 = n.clamp_min(1.0)
         loss = nll / n1 + zl / n1 + aux["lb_loss"] + aux["z_loss"]
@@ -382,32 +466,65 @@ class Model:
                    "moe_z": aux["z_loss"]}
         return loss, metrics
 
+    def loss_encdec(self, params: dict, batch: dict):
+        """The encoder–decoder's (loss, metrics), the reference's
+        ``_loss_encdec``: ``frames`` through the adapter and the encoder,
+        ``tokens[:, :-1]`` through the decoder against the memory, the
+        next-token nll and z-loss over the target count; ``moe_lb`` and
+        ``moe_z`` zero.  A ``loss_mask`` is not read, as in the
+        reference."""
+        tokens = batch["tokens"].long()
+        memory = self.encode(params, batch["frames"])
+        x = self.decode_train(params, tokens, memory)
+        mask = torch.ones(tokens[:, 1:].shape, dtype=torch.float32,
+                          device=x.device)
+        nll, zl, n = self.xent_sums(params, self.final_norm(params, x),
+                                    tokens[:, 1:], mask)
+        n1 = n.clamp_min(1.0)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        return (nll + zl) / n1, {"nll": nll / n1, "tokens": n,
+                                 "moe_lb": zero, "moe_z": zero}
+
+    def decode_train(self, params: dict, tokens: torch.Tensor,
+                     memory: torch.Tensor) -> torch.Tensor:
+        """The decoder's output (B, S − 1, E) for ``tokens[:, :-1]``
+        against ``memory``."""
+        x = layers.embed(params["embed"], tokens[:, :-1],
+                         self.cfg.padded_vocab).to(self.cfg.adtype)
+        return encdec_mod.decode_train(params["encdec"], x, memory,
+                                       self.ecfg)
+
     def head_loss(self, params: dict, x: torch.Tensor, tokens: torch.Tensor,
                   mask: torch.Tensor):
         """(Σ nll, z_loss_coef·Σ lse², Σ mask) of next-token prediction
-        from the stack's output ``x`` (B, S, E): the final norm, the head
-        cast to the activation dtype, and the loss head chosen by device
+        from the stack's output ``x`` (B, S, E): :meth:`xent_sums` of the
+        final-normed ``x[:, :-1]`` against ``tokens[:, 1:]``.  ``mask``
+        (B, S − 1) weights the labels.  Reads only ``final_norm`` and the
+        head (``embed`` when tied) of ``params``, so a pipeline's last
+        stage calls it too."""
+        return self.xent_sums(params, self.final_norm(params, x)[:, :-1],
+                              tokens[:, 1:], mask)
+
+    def xent_sums(self, params: dict, h: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor):
+        """(Σ nll, z_loss_coef·Σ lse², Σ mask) of the final-normed hidden
+        ``h`` (B, T, E) against ``labels`` (B, T): the head cast to the
+        activation dtype, and the loss head chosen by device
         (:func:`fused_xent` on the card, :func:`chunked_xent` on the CPU)
-        unless ``xent_impl`` picks one.  ``mask`` (B, S − 1) weights the
-        labels ``tokens[:, 1:]``; the head is vocab-parallel where the
-        rules split the vocab.  Reads
-        only ``final_norm`` and the head (``embed`` when tied) of
-        ``params``, so a pipeline's last stage calls it too.  A tied
-        head, ``embed/table``ᵀ, is made contiguous in the same pass that
-        casts it (the fused kernel reads (E, Vp) rows)."""
+        unless ``xent_impl`` picks one; vocab-parallel where the rules
+        split the vocab.  A tied head, ``embed/table``ᵀ, is made
+        contiguous in the same pass that casts it (the fused kernel reads
+        (E, Vp) rows)."""
         cfg = self.cfg
-        x = self.final_norm(params, x)
         head_w = self._head_w(params).to(
             cfg.adtype, memory_format=torch.contiguous_format).contiguous()
-        labels = tokens[:, 1:]
         split = sharding.split_of("vocab", cfg.padded_vocab)
-        impl = self.xent_impl or ("fused" if x.device.type == "cuda"
+        impl = self.xent_impl or ("fused" if h.device.type == "cuda"
                                   else "chunked")
         if impl == "fused":
-            return fused_xent(x[:, :-1], head_w, labels, mask,
-                              vocab=cfg.vocab, z_loss_coef=cfg.z_loss_coef,
-                              split=split)
-        return chunked_xent(x[:, :-1], head_w, labels, mask, vocab=cfg.vocab,
+            return fused_xent(h, head_w, labels, mask, vocab=cfg.vocab,
+                              z_loss_coef=cfg.z_loss_coef, split=split)
+        return chunked_xent(h, head_w, labels, mask, vocab=cfg.vocab,
                             chunk=cfg.loss_chunk, z_loss_coef=cfg.z_loss_coef,
                             split=split)
 
@@ -427,13 +544,24 @@ class Model:
         attended (decode's ADD write at ``pos`` lands on a zero cell).
         SSD blocks return their exact state after ``last_idx``; those
         leaves are not KV and are not padded to ``S + gen_budget``.
+
+        The vlm family ropes the prompt by M-RoPE positions (a prompt
+        shorter than ``frontend_len`` raises) and splices
+        ``batch["patch_embeds"]`` where given; its first generated token
+        then ropes at ``pos`` in every section, as the reference's does.
+        The encdec family takes ``{"frames"}`` and no ``last_idx``
+        (:meth:`prefill_encdec`).
         """
         cfg = self.cfg
+        if cfg.family == "encdec":
+            if last_idx is not None:
+                raise ValueError("last_idx is not supported for encdec "
+                                 "prefill (frame inputs are not padded)")
+            return self.prefill_encdec(params, batch, gen_budget)
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = layers.embed(params["embed"], tokens,
-                         cfg.padded_vocab).to(cfg.adtype)
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        x = self.embed_tokens(params, tokens, batch)
+        positions = self.positions(B, S, x.device)
         if last_idx is not None:
             last_idx = last_idx.to(device=x.device, dtype=torch.long)
         x, caches = tfm.prefill_stack(params["blocks"], x, positions,
@@ -466,6 +594,28 @@ class Model:
                               if bcfg.mixer == "attn" else st)
         return logits, {"cache": cache, "pos": pos}
 
+    def prefill_encdec(self, params: dict, batch: dict, gen_budget: int):
+        """The reference's ``_prefill_encdec``: ``frames`` encoded, the
+        decode state made from the memory (a self cache of
+        ``max(gen_budget, 1)`` rows), and BOS (token 0) decoded at
+        position 0 → (its logits (B, Vp), state with ``pos`` 1)."""
+        memory = self.encode(params, batch["frames"])
+        B = memory.shape[0]
+        state = encdec_mod.init_dec_state(params["encdec"], memory,
+                                          self.ecfg, B, max(gen_budget, 1),
+                                          self.cfg.adtype)
+        zeros = torch.zeros((B,), dtype=torch.int32, device=memory.device)
+        logits, state = self._serve_encdec(params, zeros.long(), state, zeros)
+        return logits, {"cache": state, "pos": zeros + 1}
+
+    def _serve_encdec(self, params, tokens, cache, pos):
+        x = layers.embed(params["embed"], tokens,
+                         self.cfg.padded_vocab).to(self.cfg.adtype)
+        x, cache = encdec_mod.decode_step(params["encdec"], x, cache, pos,
+                                          self.ecfg)
+        x = self.final_norm(params, x)
+        return x @ self._head_w(params).to(self.cfg.adtype), cache
+
     def serve_step(self, params: dict, tokens: torch.Tensor, state: dict,
                    seq_split: bool = False):
         """tokens: (B,) → (logits (B, Vp), state').  The cache in ``state``
@@ -476,6 +626,10 @@ class Model:
         it off the spec)."""
         cfg = self.cfg
         pos = state["pos"]
+        if cfg.family == "encdec":
+            logits, cache = self._serve_encdec(params, tokens,
+                                               state["cache"], pos)
+            return logits, {"cache": cache, "pos": pos + 1}
         x = layers.embed(params["embed"], tokens,
                          cfg.padded_vocab).to(cfg.adtype)
         x, cache = tfm.decode_stack(params["blocks"], x, state["cache"], pos,
@@ -489,21 +643,36 @@ class Model:
         """The dense decode state's leaves (the cache, ``pos``) as
         ``(torch.Size, dtype)`` pairs; nothing is allocated (the
         reference's ``jax.eval_shape``).  ``ExecutionPlan.local_zeros``
-        makes a rank's block of it."""
-        return _pairs({"cache": tfm.init_stack_state(
-            self.stack, batch, cache_len, self.cfg.adtype, "meta"),
-            "pos": torch.empty((batch,), dtype=torch.int32, device="meta")})
+        makes a rank's block of it.  An encoder–decoder's cache holds the
+        self KV and the cross K/V of a ``cache_len``-row memory, as the
+        reference's template."""
+        if self.stack is None:
+            meta = Model(self.cfg, "meta")
+            mem = torch.empty((batch, cache_len, self.cfg.d_model),
+                              dtype=self.cfg.adtype, device="meta")
+            cache = encdec_mod.init_dec_state(meta.param_shapes()["encdec"],
+                                              mem, self.ecfg, batch,
+                                              cache_len, self.cfg.adtype)
+        else:
+            cache = tfm.init_stack_state(self.stack, batch, cache_len,
+                                         self.cfg.adtype, "meta")
+        return _pairs({"cache": cache, "pos": torch.empty(
+            (batch,), dtype=torch.int32, device="meta")})
 
     def state_axes(self) -> dict:
         """The dense decode state's logical dims (the reference's)."""
-        return {"cache": tfm.axes_stack_state(self.stack), "pos": ("batch",)}
+        cache = (encdec_mod.axes_dec_state() if self.stack is None
+                 else tfm.axes_stack_state(self.stack))
+        return {"cache": cache, "pos": ("batch",)}
 
     # ---- paged serving (block-table KV cache) ----
     @property
     def supports_paged(self) -> bool:
         """Paged KV needs every mixer to be attention (SSD state is O(1)
-        per slot and gains nothing from pages)."""
-        return all(b.mixer == "attn" for b in self.stack.pattern)
+        per slot and gains nothing from pages); an encoder–decoder is
+        never paged, as in the reference."""
+        return self.stack is not None and all(
+            b.mixer == "attn" for b in self.stack.pattern)
 
     def serve_step_paged(self, params: dict, tokens: torch.Tensor,
                          state: dict):
@@ -559,29 +728,24 @@ def build(cfg: LMCfg, device=None) -> Model:
 # the cost model's view: ModelGraph builders (pure arithmetic on the config)
 # ---------------------------------------------------------------------------
 #
-# The port of ``repro/models/lm.py::model_graph`` for the families the port
-# has.  Matmul-dominant terms only, in the reference's expressions and
-# order, so a graph here equals the reference's bit for bit
-# (tests/test_torch_planning.py).  One "stack" segment: every layer of a
-# dense, moe, ssm or hybrid config is interchangeable.
-
-FAMILY_SLICE = ("the {family} family's cost-model graph comes with the "
-                "family itself, a later slice of the port")
+# The port of ``repro/models/lm.py::model_graph``.  Matmul-dominant terms
+# only, in the reference's expressions and order, so a graph here equals
+# the reference's bit for bit (tests/test_torch_planning.py).  One "stack"
+# segment where every layer is interchangeable (dense, moe, ssm, hybrid);
+# the vlm family adds an atomic vision-frontend segment before its
+# decoder, and the encdec family is an encoder and a decoder segment
+# (behind the audio frontend's), the decoder's cross-attention priced
+# over the source tokens.
 
 
 def model_graph(cfg: LMCfg, batch: int, seq: int,
-                act_dtype_bytes: int = 2,
-                param_dtype_bytes: int = 4) -> ModelGraph:
-    """Segment-aware workload description for one LMCfg (dense, moe, ssm
-    or hybrid).
+                act_dtype_bytes: int = 2, param_dtype_bytes: int = 4,
+                src_seq: int | None = None) -> ModelGraph:
+    """Segment-aware workload description for one LMCfg.
 
-    The other families of the reference (vlm, encdec) raise
-    ``NotImplementedError``: their graphs come with their models.
+    ``src_seq`` (encdec only): the source length fed to the encoder;
+    defaults to ``seq`` (the target length).
     """
-    if cfg.family in ("vlm", "encdec"):
-        raise NotImplementedError(FAMILY_SLICE.format(family=cfg.family))
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise ValueError(f"unknown model family {cfg.family!r}")
     E, V, L = cfg.d_model, cfg.padded_vocab, cfg.n_layers
     T = batch * seq
     hd = cfg.hd
@@ -592,6 +756,15 @@ def model_graph(cfg: LMCfg, batch: int, seq: int,
         proj = 2 * t * E * (H * hd) + 2 * 2 * t * E * (K * hd) \
             + 2 * t * (H * hd) * E
         scores = 2 * t * kv * H * hd * 2 * (0.5 if causal else 1.0)
+        return proj + scores
+
+    def cross_attn_flops(t_q, t_kv, kv_len) -> float:
+        # q/o projections ride the query tokens, k/v the source tokens;
+        # the scores are full rank against the encoded source
+        H, K = cfg.n_heads, cfg.n_kv_heads
+        proj = 2 * t_q * E * (H * hd) + 2 * 2 * t_kv * E * (K * hd) \
+            + 2 * t_q * (H * hd) * E
+        scores = 2 * t_q * kv_len * H * hd * 2
         return proj + scores
 
     def dense_mlp_flops(t=T) -> float:
@@ -627,6 +800,15 @@ def model_graph(cfg: LMCfg, batch: int, seq: int,
         scfg = cfg.ssd_cfg()
         return E * scfg.d_inner * 3 + 2 * E * scfg.d_state + E * scfg.n_heads
 
+    def adapter_segment(name: str, prefix_tokens: int) -> SegmentMeta:
+        # frontends.init_adapter: one d_model×d_model projection + bias
+        return SegmentMeta(
+            name=name, n_layers=1, atomic=True,
+            fwd_flops=float(2 * prefix_tokens * E * E),
+            param_bytes=float((E * E + E) * pdb),
+            act_bytes_per_layer=float(prefix_tokens * E
+                                      * act_dtype_bytes * 4))
+
     act_per_layer = T * E * act_dtype_bytes * 4   # x + 3 intermediates
 
     def stack_segment(name: str, n_attn: int, n_ssd: int, n_moe: int,
@@ -659,11 +841,41 @@ def model_graph(cfg: LMCfg, batch: int, seq: int,
                                   max(L, 1)),)
     elif cfg.family == "ssm":
         segments = (stack_segment("stack", 0, L, 0, 0, max(L, 1)),)
-    else:                                            # hybrid
+    elif cfg.family == "hybrid":
         n_attn = L // cfg.attn_period
         n_moe = L // 2
         segments = (stack_segment("stack", n_attn, L - n_attn, n_moe,
                                   L - n_moe, max(L, 1)),)
+    elif cfg.family == "vlm":
+        segments = (adapter_segment("vision-frontend",
+                                    batch * cfg.frontend_len),
+                    stack_segment("decoder", L, 0, 0, L, max(L, 1)))
+    elif cfg.family == "encdec":
+        s_src = seq if src_seq is None else src_seq
+        t_src = batch * s_src
+        n_enc, n_dec = cfg.n_enc_layers, cfg.n_dec_layers
+        enc_flops = n_enc * (attn_flops(t_src, s_src, causal=False)
+                             + dense_mlp_flops(t_src))
+        dec_flops = n_dec * (attn_flops(T, seq, causal=True)
+                             + cross_attn_flops(T, t_src, s_src)
+                             + dense_mlp_flops(T))
+        enc_params = n_enc * (attn_params() + mlp_params())
+        dec_params = n_dec * (2 * attn_params() + mlp_params())
+        enc_act = t_src * E * act_dtype_bytes * 4
+        enc = SegmentMeta(name="encoder", n_layers=max(n_enc, 1),
+                          fwd_flops=float(enc_flops),
+                          param_bytes=float(enc_params * pdb),
+                          act_bytes_per_layer=float(enc_act))
+        dec = SegmentMeta(name="decoder", n_layers=max(n_dec, 1),
+                          fwd_flops=float(dec_flops),
+                          param_bytes=float(dec_params * pdb),
+                          act_bytes_per_layer=float(act_per_layer))
+        segments = (enc, dec)
+        if cfg.frontend:
+            segments = (adapter_segment(f"{cfg.frontend}-frontend", t_src),
+                        ) + segments
+    else:
+        raise ValueError(f"unknown model family {cfg.family!r}")
 
     head = 2 * T * E * V
     embed = V * E * (1 if cfg.tie_embeddings else 2)

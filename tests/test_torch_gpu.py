@@ -32,7 +32,11 @@ card against the CPU; for the compressor's fused error-feedback encode
 plain versions: f32 and bf16, with and without a carried error, a NaN, an
 all-zero leaf, one CTA (2048 elements) and many, unaligned views, a
 second launch, and ``compressed_psum_tree`` against
-``compressed_psum_plain`` leaf by leaf over NCCL in a world of one.
+``compressed_psum_plain`` leaf by leaf over NCCL in a world of one; and
+the multimodal families' shapes: the flash forward and backward at
+seamless's 16/16 heads of 64 (the encoder non-causal, the cross-attention
+at Sq ≠ Sk, the decoder at a ragged length) and qwen2-vl's 12/2 of 128,
+the loss head at E = 1536 (V = 152064) and E = 1024 (V = 256256).
 """
 import numpy as np
 import pytest
@@ -393,6 +397,65 @@ def test_xent_bwd_kernel_matches_plain_on_card(cuda, C, col0, vocab):
     torch.cuda.synchronize()
     assert got is logits and xent.xent_bwd.launches == n0 + 1
     close(got.cpu(), want.cpu(), TOL["float32"])
+
+
+#: the multimodal families' attention shapes: seamless's 16/16 heads of
+#: 64, its encoder non-causal and its cross-attention at Sq ≠ Sk (the
+#: decoder's ragged S − 1 against the source), qwen2-vl's 12/2 of 128
+MULTIMODAL_FLASH = [
+    (2, 1024, 1024, 16, 16, 64, False),   # seamless's encoder
+    (2, 1023, 512, 16, 16, 64, False),    # seamless's cross-attention
+    (2, 1023, 1023, 16, 16, 64, True),    # seamless's decoder, ragged
+    (1, 1024, 1024, 12, 2, 128, True),    # qwen2-vl, group 6
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Sk,H,K,D,causal", MULTIMODAL_FLASH)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_at_the_multimodal_shapes_on_card(cuda, B, Sq, Sk, H, K, D,
+                                                causal, dtype):
+    """The forward (o and lse) and both backward kernels at the multimodal
+    families' shapes against the plain versions."""
+    q, k, v = _flash_inputs(cuda, B, Sq, Sk, H, K, D, dtype)
+    o, lse = flash.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash.flash_attention_plain(q, k, v, causal)
+    close(o.float().cpu(), o_ref.float().cpu(), TOL[dtype])
+    close(lse.cpu(), lse_ref.cpu(), TOL[dtype])
+    _check_flash_bwd(cuda, B, Sq, Sk, H, K, D, causal, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,V,vocab", [
+    (1536, 152064, 151936),      # qwen2-vl's tied head
+    (1024, 256256, 256206),      # seamless's untied 256k head
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_xent_at_the_multimodal_heads_on_card(cuda, E, V, vocab, dtype):
+    """The fused loss head at the multimodal families' E and V: the
+    forward kernel against its plain version, and the differentiable
+    head's gradients on the card against the same inputs on the CPU."""
+    T = 300
+    h, w, labels = _xent_inputs(T, E, V, vocab, dtype, cuda, seed=E)
+    nll, lse = xent.xent_fwd(h, w, labels, vocab)
+    torch.cuda.synchronize()
+    want_nll, want_lse = xent.xent_fwd_plain(h, w, labels, vocab)
+    close(nll.cpu(), want_nll.cpu(), TOL["float32"])
+    close(lse.cpu(), want_lse.cpu(), TOL["float32"])
+    rng = np.random.default_rng(E)
+    g = [torch.tensor(rng.standard_normal(T), dtype=torch.float32)
+         for _ in range(2)]
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        hh = h.to(dev).requires_grad_(True)
+        ww = w.to(dev).requires_grad_(True)
+        nll, lse = xent_ops.xent_with_lse(hh, ww, labels.to(dev), vocab)
+        grads[dev] = torch.autograd.grad(
+            (nll * g[0].to(dev)).sum() + (lse * g[1].to(dev)).sum(),
+            (hh, ww))
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        close(a.float().cpu(), b.float(), TOLS[dtype].grad)
 
 
 @pytest.mark.gpu

@@ -261,11 +261,13 @@ def test_interpreter_audit_and_guards(ref):
         pipe.schedule_grads(model, params, toks, micro_batches=M,
                             stage_layers=(3, 3))
     # the decoder families pipeline (the ssm and hybrid ones:
-    # tests/test_torch_hybrid_engine.py); encoder-decoder waits for its
-    # module
+    # tests/test_torch_hybrid_engine.py); an encoder-decoder has no layer
+    # stack and pipelines over the two-tower engine
+    # (tests/test_torch_multimodal.py), so the interpreter refuses it as
+    # the reference's does
     encdec = types.SimpleNamespace(
-        cfg=dataclasses.replace(cfg, family="encdec"))
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+        cfg=dataclasses.replace(cfg, family="encdec"), stack=None)
+    with pytest.raises(ValueError, match="two-tower"):
         pipe.schedule_grads(encdec, {}, toks, micro_batches=M, n_stages=2)
     # the audit: a stage that keeps one graph too many is caught
     real = pipe._Stage.backward

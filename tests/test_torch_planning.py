@@ -7,8 +7,9 @@ These modules are pure Python and numpy in both packages, so every result
 is held equal with ``==``, not within a tolerance.  The reference's
 dataclasses (hardware tables, graphs, strategies, cluster specs) are
 carried across as data (``torch_harness.to_port``), so both sides price
-the same inputs, including graphs of the families the port does not have
-yet (multimodal, encoder-decoder).
+the same inputs; the port's own graphs of every config, the multimodal
+and encoder-decoder families' included, are held against the
+reference's.
 """
 import dataclasses
 import inspect
@@ -254,18 +255,28 @@ def test_model_graph_of_the_port_configs_equals_reference(arch, smoke):
                 for lo, hi in ((0, L), (0, max(1, L // pp)), (L - 1, L)):
                     assert data(g.stage_meta(lo, hi, pp)) == \
                         data(rg.stage_meta(lo, hi, pp))
+    if cfg.family == "encdec":
+        # the source length apart from the target's
+        for batch, seq, src in ((4, 2048, 1024), (2, 77, 512), (1, 8, 1)):
+            rg = ref_lm.model_graph(rcfg, batch, seq, src_seq=src)
+            assert data(lm.model_graph(cfg, batch, seq, src_seq=src)) == \
+                data(rg)
+            assert data(model.graph(batch, seq, src_seq=src)) == data(rg)
+            assert data(rg) != data(ref_lm.model_graph(rcfg, batch, seq))
 
 
 def test_model_graph_raises_for_families_the_port_lacks():
     base = get_config("tinyllama-1.1b", smoke=True)
-    # moe and hybrid left this list with their families (the graphs of
-    # deepseek-moe-16b and jamba-v0.1-52b are in ARCH_NAMES'
-    # parametrisations above)
-    for family in ("vlm", "encdec"):
-        with pytest.raises(NotImplementedError, match=f"the {family} "):
+    # every family of the reference has its graph now (vlm and encdec
+    # left this test with their models; their graphs are in ARCH_NAMES'
+    # parametrisations above): an unknown one raises as the reference's
+    for family in ("rnn", "encoder"):
+        with pytest.raises(ValueError, match="unknown model family") as want:
+            ref_lm.model_graph(dataclasses.replace(
+                jax_get_config("tinyllama-1.1b", smoke=True),
+                family=family), 2, 8)
+        with pytest.raises(ValueError, match=str(want.value)):
             lm.model_graph(dataclasses.replace(base, family=family), 2, 8)
-    with pytest.raises(ValueError, match="unknown model family"):
-        lm.model_graph(dataclasses.replace(base, family="rnn"), 2, 8)
 
 
 @pytest.mark.parametrize("smoke", (False, True), ids=("full", "smoke"))
@@ -509,6 +520,26 @@ def test_auto_parallel_agrees(arch, table):
     if len(rg.segments) == 1:
         assert data(auto.search(g, 8, hw)) == \
             data(ref_auto.search(rg, 8, ref_hw))
+
+
+@pytest.mark.parametrize("arch", ("qwen2-vl-2b", "seamless-m4t-medium"))
+def test_search_over_the_multimodal_graphs_agrees(arch):
+    """``auto.search`` over the port's own graph of each multimodal config
+    (encdec at a source length apart from the target's) at 4 devices of
+    the H100 table: the top-5 frontier with ``==``, and for the vlm the
+    driver's search at ``max_pp=1``."""
+    ref_hw, hw = _tables("H100_SXM")
+    src = 256 if arch == "seamless-m4t-medium" else None
+    g = lm.model_graph(get_config(arch), 8, 512, src_seq=src)
+    rg = ref_lm.model_graph(jax_get_config(arch), 8, 512, src_seq=src)
+    assert data(g) == data(rg)
+    got, want = auto.search(g, 4, hw), ref_auto.search(rg, 4, ref_hw)
+    assert len(got) == len(want) > 0
+    assert data(got) == data(want)
+    if arch == "qwen2-vl-2b":
+        one = auto.search(g, 4, hw, max_pp=1)
+        assert data(one) == data(ref_auto.search(rg, 4, ref_hw, max_pp=1))
+        assert all(c.strategy.pp == 1 for c in one)
 
 
 def test_auto_defaults_to_the_h100_table():

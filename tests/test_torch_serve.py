@@ -249,13 +249,16 @@ def test_serve_driver_completes_every_request(extra):
     assert s["tokens"] >= 6 and s["steps"] > 0
 
 
-@pytest.mark.parametrize("arch", [ARCH, "mamba2-1.3b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", [ARCH, "mamba2-1.3b", "deepseek-moe-16b",
+                                  "qwen2-vl-2b", "seamless-m4t-medium"])
 def test_bridge_maps_every_leaf_of_the_full_config(arch):
     """``params_from_numpy`` on the full config's shapes (tinyllama-1.1b;
     mamba2-1.3b, tied, so no ``head`` leaf; deepseek-moe-16b, its router
-    in f32), from ``jax.eval_shape`` and zero-stride arrays onto the meta
-    device, so nothing of the 1.1B, 1.3B or 16.9B parameters is
-    allocated."""
+    in f32; qwen2-vl-2b, tied, with ``adapter/{w,b}``; seamless-m4t-medium,
+    ``encdec/encoder/…``, ``encdec/decoder/…/cross_attn/…``, the adapter
+    and its untied ``head``), from ``jax.eval_shape`` and zero-stride
+    arrays onto the meta device, so nothing of the 1.1B–16.9B parameters
+    is allocated."""
     shapes = jax.eval_shape(
         lambda: JaxModel(jax_get_config(arch)).init(jax.random.key(0)))
     tree = {p: np.broadcast_to(np.zeros((), s.dtype), s.shape)
@@ -263,7 +266,11 @@ def test_bridge_maps_every_leaf_of_the_full_config(arch):
     params = params_from_numpy(get_config(arch), tree, "meta")
     got = leaf_paths(params)
     assert set(got) == set(tree)
-    assert ("head/w" in got) == (arch != "mamba2-1.3b")
+    assert ("head/w" in got) == (not get_config(arch).tie_embeddings)
+    assert ("adapter/w" in got) == (get_config(arch).frontend is not None)
+    if arch == "seamless-m4t-medium":
+        assert "encdec/decoder/cross_attn/wq" in got
+        assert not any(p.startswith("blocks/") for p in got)
     for path, t in got.items():
         assert tuple(t.shape) == tree[path].shape and t.is_meta, path
         assert str(t.dtype).removeprefix("torch.") == str(tree[path].dtype)
