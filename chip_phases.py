@@ -30,11 +30,12 @@ import sys
 #: (``train_hybrid_zero``), 26 (``serve_tp``), 29
 #: (``compressed_blocks``), 30 (``mamba2_train``), 31 (``mamba2_split``),
 #: 32 (``moe_engine``), 33 (``dense_rest``), 34 (``jamba``), 35
-#: (``hybrid_engine``), 36 (``grok``; its part (d) runs in 24) and 37
-#: (``multimodal``), the same functions in every checkout since they were
-#: added (a checkout without one reports that phase failed)
+#: (``hybrid_engine``), 36 (``grok``; its part (d) runs in 24), 37
+#: (``multimodal``) and 38 (``elastic``), the same functions in every
+#: checkout since they were added (a checkout without one reports that
+#: phase failed)
 PHASES = ("3", "19", "24", "26", "29", "30", "31", "32", "33", "34", "35",
-          "36", "37")
+          "36", "37", "38")
 
 CHILD = r"""
 import json, sys, time, traceback
@@ -83,6 +84,8 @@ for ph in sys.argv[1:]:
             cs.grok(torch, kernels)
         elif ph == "37":
             cs.multimodal(torch, kernels)
+        elif ph == "38":
+            cs.elastic(torch, kernels)
     except Exception:
         traceback.print_exc()
         ok = False

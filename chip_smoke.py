@@ -83,7 +83,8 @@ and the script exits non-zero without printing a result:
 11. the training path: ``repro_torch.launch.train`` training tinyllama-1.1b
     at full width (batch 4 x 2048, AdamW, remat full) for 8 steps, with
     every kernel's launch count read around it: finite, falling loss,
-    tokens/s, peak device memory, the final checkpoint's write time;
+    tokens/s, peak device memory (its final checkpoint not written: phase
+    38 times checkpoint writes);
 12. training on the card against the CPU: a 2-layer f32 model's loss, every
     gradient leaf and the parameters after one AdamW step, within 1e-4;
 13. resume on the card: 4 steps straight against 2 steps, then a relaunch
@@ -97,8 +98,8 @@ and the script exits non-zero without printing a result:
     launch count read around it (each of the three fused encode kernels
     once per gradient leaf and step, quantize and dequantize never); then
     the same 8 steps with ``--mesh 1x1x1``
-    alone (its final checkpoint gathered, not written: phase 11 times
-    that write), for the cost of the compression (at 4 steps the driver's
+    alone (both final checkpoints gathered, not written: phase 38 times
+    checkpoint writes), for the cost of the compression (at 4 steps the driver's
     schedule, warm-up 1 and cosine over 4, lifts step 3's loss above step
     0's with or without compression);
 16. where the compression's time goes: ``compressed_psum_tree`` over
@@ -179,7 +180,7 @@ and the script exits non-zero without printing a result:
 23. tensor parallelism: ``compile_plan(StrategySpec(tp=2))`` on a data 1
     x model 2 mesh, two ranks on ``cuda:0`` over gloo (the row-parallel
     sums of activations cross through host memory), tinyllama at full
-    width and 8 layers, batch 2 x 2048, remat full, 2 AdamW steps at a
+    width and 4 layers, batch 2 x 2048, remat full, 2 AdamW steps at a
     constant 3e-4, against one process running the unsharded step on the
     same batches from the same seed (run first and freed): the step-0
     loss within bf16's 2e-2 + 2e-2|x|, each step-0 gradient leaf within
@@ -194,7 +195,7 @@ and the script exits non-zero without printing a result:
 24. Whale's Case-2 hybrid ``replica×2{split×2}`` with ZeRO 0, 1 and 3 on
     four ranks on ``cuda:0`` over gloo, tinyllama at full width and 1
     layer (ZeRO-3's per-repeat gathers cross host memory), batch 2 x
-    1024 (one row a replica), 2 steps each: zero=1 equal to zero=0 bit
+    512 (one row a replica), 2 steps each: zero=1 equal to zero=0 bit
     for bit (losses, and its state gathered into the checkpoint's layout
     in memory against zero=0's gathered checkpoint tree: only zero=0's
     and zero=3's are written), zero=3 within 1e-4 + 1e-4|x| in losses
@@ -296,7 +297,8 @@ and the script exits non-zero without printing a result:
     two ranks at deepseek's block shape in f32 against ``moe_block``;
 29. the compressed cross-pod reduction on blocks of leaves, four ranks on
     ``cuda:0`` over gloo, tinyllama at full width and 1 layer: at pod 2
-    x data 2 (batch 4 x 1024, a row a rank) compressed ZeRO 0, 1 and 3
+    x data 2 (batch 4 x 512, a row a rank)
+    compressed ZeRO 0, 1 and 3
     for 2 steps each, ZeRO-1 and ZeRO-3 equal to ZeRO-0 bit for bit
     (losses, the handed step-0 gradients, the gathered parameters,
     moments and error carry), the three encode kernels once per leaf and
@@ -454,13 +456,28 @@ and the script exits non-zero without printing a result:
     decoder and the loss on stage 1), 2 + 2 layers, f32, 2 x 1024 targets
     over 512 frames in 2 micro-batches: step 0's loss and every gradient
     leaf against one process, each rank's launches, peak, step and gloo
-    seconds.
+    seconds;
+38. Whale's elastic runtime: ``repro_torch.launch.train --hosts`` at
+    tinyllama's full width on pooled ranks over gloo, 2 x 512 a step,
+    each plan on a generation of the process group of its own: (a) a
+    straggler evicted with a crash retry (2 layers f32, 2 hosts of 1
+    rank, 12 steps); (b) a spot reclaim drained and the capacity regrown
+    (1 layer bf16, 2 hosts and a spare rank: 2 → 1 → 2 ranks); (c) a
+    missed deadline, the lost steps replayed from the last committed
+    checkpoint; (d) a drift-triggered recalibration.  Each against the
+    reference's events replayed over the injector's clock, every
+    restore bit for bit, the stream byte for byte against a fresh
+    ``TokenPipeline``, (a)'s final loss within 1e-4 + 1e-4|x| and (b)'s
+    losses within twice bf16's own error of one process's; printed: each
+    change's downtime (the group re-formed; the search, compile and
+    restore) and the drain before it, checkpoint bytes and write
+    seconds, tokens/s of each plan, peaks a rank, launches on each path.
 
-The meshed phases 20–37 run their ranks in one pool of four processes on
+The meshed phases 20–38 run their ranks in one pool of four processes on
 ``cuda:0`` (:class:`RankPool`), started before the kernels build (its
 ranks reach the card and import what their tasks need while nvcc runs)
-and stopped after phase 37: each phase hands its rank function to the
-first two or four.
+and stopped after phase 38: each phase hands its rank function to the
+first two, three or four.
 
 then the kernel table as one JSON line, the card line again, and the last
 line ``{"ok": true, "device": {...}}``.  Needs no network; needs ``nvcc``
@@ -1805,41 +1822,21 @@ def train_expected(layers: int, steps: int, vp: int,
 
 def train_full(torch, kernels) -> dict:
     """The training path: the driver at full width, with the launch counts
-    read around it and the final checkpoint's write timed."""
-    from repro_torch.ckpt.checkpoint import CheckpointManager
+    read around it; its final checkpoint is neither copied to the host
+    nor written (phase 38 times checkpoint writes)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train
 
     cfg = get_config(ARCH)
-    need = 3 * 4 * 1.2e9                    # params + mu + nu in f32
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    written = []
     try:
-        free = shutil.disk_usage(tmp).free
-        if free < 1.2 * need:
-            raise RuntimeError(
-                f"{tmp} has {free / 1e9:.1f} GB free; the full-width "
-                f"checkpoint (params, mu, nu in f32) needs about "
-                f"{need / 1e9:.1f} GB: set TMPDIR to a larger disk")
-        saves = []
-        save = CheckpointManager.save
-
-        def timed_save(self, *a, **kw):
-            t0 = time.perf_counter()
-            out = save(self, *a, **kw)
-            saves.append(time.perf_counter() - t0)
-            return out
-
-        CheckpointManager.save = timed_save
         torch.cuda.reset_peak_memory_stats()
         reset_counts(kernels)
-        try:
+        with no_checkpoint_write(written):
             out = train.main(TRAIN_ARGS + ["--ckpt-dir", tmp])
-        finally:
-            CheckpointManager.save = save
         counts = read_counts(kernels)
         peak = torch.cuda.max_memory_allocated()
-        ckpt_bytes = sum(f.stat().st_size for f in os.scandir(
-            os.path.join(tmp, f"step_{TRAIN_STEPS:08d}")))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     losses, secs = out["losses"], out["step_seconds"]
@@ -1851,8 +1848,8 @@ def train_full(torch, kernels) -> dict:
     print(f"[train] step seconds {[round(x, 3) for x in secs]}; steps 1-"
           f"{len(secs) - 1}: {sum(secs[1:]) / (len(secs) - 1):.3f} s/step = "
           f"{tok_s:.1f} tokens/s; peak device memory "
-          f"{peak / 2**30:.2f} GiB; final checkpoint {ckpt_bytes / 1e9:.2f} "
-          f"GB written in {saves[-1]:.2f} s; launches {counts}", flush=True)
+          f"{peak / 2**30:.2f} GiB; saves at steps {written}, not "
+          f"written; launches {counts}", flush=True)
     if out["final_step"] != TRAIN_STEPS or len(losses) != TRAIN_STEPS:
         raise AssertionError(f"training stopped at {out['final_step']}")
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
@@ -2009,10 +2006,10 @@ def train_time(torch) -> None:
 
 def train_compressed(torch, kernels) -> tuple:
     """The driver with ``--mesh 1x1x1 --compress-pod`` at full width, then
-    with ``--mesh 1x1x1`` alone, each with the launch counts, peak device
-    memory and the final checkpoint's write time read around it.  Returns
-    the compressed run's counts and the uncompressed run's."""
-    from repro_torch.ckpt.checkpoint import CheckpointManager
+    with ``--mesh 1x1x1`` alone, each with the launch counts and peak
+    device memory read around it; neither final checkpoint is copied to
+    the host or written (phase 38 times checkpoint writes).  Returns the
+    compressed run's counts and the uncompressed run's."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train
 
@@ -2024,41 +2021,16 @@ def train_compressed(torch, kernels) -> tuple:
     runs = {}
     for name, extra in (("compressed", ["--compress-pod"]),
                         ("uncompressed", [])):
-        need = 4 * 4 * 1.2e9 if extra else 0   # params, mu, nu, err
         tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        written = []
         try:
-            free = shutil.disk_usage(tmp).free
-            if free < 1.2 * need:
-                raise RuntimeError(
-                    f"{tmp} has {free / 1e9:.1f} GB free; the checkpoint "
-                    f"needs about {need / 1e9:.1f} GB: set TMPDIR to a "
-                    f"larger disk")
-            saves = []
-            save = CheckpointManager.save
-
-            def timed_save(self, *a, **kw):
-                t0 = time.perf_counter()
-                out = save(self, *a, **kw)
-                saves.append(time.perf_counter() - t0)
-                return out
-
-            CheckpointManager.save = timed_save
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             reset_counts(kernels)
-            # the uncompressed run's checkpoint is phase 11's with the
-            # mesh's: its final one is not written
-            written = []
-            try:
-                with (no_checkpoint_write(written) if not extra
-                      else contextlib.nullcontext()):
-                    out = train.main(COMP_ARGS + extra + ["--ckpt-dir", tmp])
-            finally:
-                CheckpointManager.save = save
+            with no_checkpoint_write(written):
+                out = train.main(COMP_ARGS + extra + ["--ckpt-dir", tmp])
             counts = read_counts(kernels)
             peak = torch.cuda.max_memory_allocated()
-            ckpt_bytes = sum(f.stat().st_size for f in os.scandir(
-                os.path.join(tmp, f"step_{COMP_STEPS:08d}"))) if extra else 0
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         losses, secs = out["losses"], out["step_seconds"]
@@ -2068,11 +2040,9 @@ def train_compressed(torch, kernels) -> tuple:
               f"{[round(x, 4) for x in secs]}; steps 1-{len(secs) - 1}: "
               f"{sum(secs[1:]) / (len(secs) - 1):.4f} s/step = "
               f"{tok_s:.1f} tokens/s; peak device memory "
-              f"{peak / 2**30:.2f} GiB; final checkpoint "
-              + (f"{ckpt_bytes / 1e9:.2f} GB in {saves[-1]:.2f} s" if extra
-                 else f"at step {written} gathered (host copy and write "
-                 f"skipped)")
-              + f"; launches {counts}", flush=True)
+              f"{peak / 2**30:.2f} GiB; final checkpoint at step {written} "
+              f"gathered (host copy and write skipped); launches {counts}",
+              flush=True)
         if out["mesh"] != {"pod": 1, "data": 1, "model": 1}:
             raise AssertionError(f"{name}: mesh {out['mesh']}")
         if out["final_step"] != COMP_STEPS or len(losses) != COMP_STEPS:
@@ -3442,15 +3412,15 @@ def uneven_dp(torch) -> dict:
 
 TP_BATCH = 2                    # phase 23: batch 2 x TRAIN_SEQ, 2 steps
 TP_STEPS = 2
-#: phase 23's runs: name -> (layers, activation dtype); bf16 at 8 layers
+#: phase 23's runs: name -> (layers, activation dtype); bf16 at 4 layers
 #: is the path (cut from 22 to hold the script's time: the split step is
 #: the same at every depth), f32 at 2 layers holds it to f32's limits
-TP_RUNS = {"bf16": (8, "bfloat16"), "f32": (2, "float32")}
+TP_RUNS = {"bf16": (4, "bfloat16"), "f32": (2, "float32")}
 TP_LATER_LIMIT = 2e-2           # |loss diff| at steps 1-2 (PERF.md, PR 22)
 TP_F32_LIMIT = 1e-4
 ZERO_LAYERS = 1                 # phase 24: depth cut (gloo through host)
 ZERO_BATCH = 2                  # one row a data replica
-ZERO_SEQ = 1024                 # phase 24's sequence (cut to save time)
+ZERO_SEQ = 512                  # phase 24's sequence (cut to save time)
 ZERO_STEPS = 2
 ZERO_STAGES = (0, 1, 3)
 
@@ -5952,7 +5922,7 @@ def moe_split(torch) -> dict:
 # phase 29: the compressed cross-pod reduction over model shards and ZeRO
 # ---------------------------------------------------------------------------
 
-CB_SEQ = 1024                   # phase 29: tinyllama's width, one layer
+CB_SEQ = 512                    # phase 29: tinyllama's width, one layer
 CB_STEPS = 2                    # step 1 carries step 0's error
 CB_ZEROS = (0, 1, 3)
 CB_MAX_FLIPS = 0.01             # int8 flips allowed against the yardstick
@@ -9784,6 +9754,375 @@ def multimodal(torch, kernels) -> dict:
     return counts
 
 
+#: phase 38: Whale's elastic runtime at tinyllama's full width through
+#: ``train --hosts`` on pooled ranks over gloo (the depth and steps cut)
+EL_BATCH, EL_SEQ = 2, 512
+EL_BASE = ["--arch", ARCH, "--batch", str(EL_BATCH), "--seq", str(EL_SEQ),
+           "--log-every", "1", "--seed", "0"]
+#: scenario: (ranks, steps, depth and dtype, the elastic flags)
+EL_RUNS = {
+    "evict": (2, 12, "n_layers=2,dtype=float32",
+              ["--hosts", "2", "--inject-slow", "1:4:5", "--inject-crash",
+               "9", "--straggler-warmup", "2", "--patience", "2",
+               "--save-every", "4"]),
+    "spot": (3, 12, "n_layers=1",
+             ["--hosts", "2", "--devices-per-host", "1", "--inject-preempt",
+              "1:4:2", "--inject-join", "2:8:1", "--max-rebalances", "4",
+              "--save-every", "4"]),
+    "lost": (2, 8, "n_layers=1",
+             ["--hosts", "2", "--inject-preempt", "1:6:0", "--save-every",
+              "4"]),
+    "drift": (2, 12, "n_layers=1",
+              ["--hosts", "2", "--calibrate", "--inject-drift", "1:1:101:3",
+               "--drift-skew", "0.08", "--drift-patience", "2",
+               "--straggler-warmup", "5", "--save-every", "100"]),
+}
+#: each scenario's events (kind, step, host or hosts): the reference's
+#: sources, state machine and policy replayed over the injector's clock
+#: for the same scenario (tests/test_torch_elastic.py, CASES "evict",
+#: "spot", "lost", "drift")
+EL_EVENTS = {
+    "evict": [["flag", 5, 1], ["evict", 6, [1]], ["rebalance", 6, None]],
+    "spot": [["preempt_warn", 4, 1], ["evict", 5, [1]],
+             ["rebalance", 5, None], ["join", 9, [2]],
+             ["rebalance", 9, None]],
+    "lost": [["preempt_warn", 6, 1], ["host_lost", 6, 1], ["evict", 7, [1]],
+             ["rebalance", 4, None]],
+    "drift": [["drift", 11, None], ["recalibrate", 11, None]],
+}
+#: (b)'s bf16 losses against an uninterrupted run: within this many times
+#: bf16's own error (the uninterrupted bf16 run against f32), as phase 26
+#: holds bf16
+EL_BF16_PAIR = 2.0
+
+
+def _el_argv(name: str, ckpt: str) -> list:
+    _, steps, depth, flags = EL_RUNS[name]
+    return EL_BASE + ["--steps", str(steps), "--overrides", depth,
+                      "--ckpt-dir", ckpt] + flags
+
+
+def _elastic_rank(rank: int, store: str, out_dir: str, name: str,
+                  nprocs: int, ckpt: str) -> None:
+    """One launch rank of phase 38 on ``cuda:0`` over gloo: ``train.main``
+    with ``--hosts`` as under torchrun, recording each executed step (its
+    loss and synced seconds), the consumed stream, the steps saved, each
+    write's bytes and seconds (the final save's write skipped), and after
+    every change the restored state on the new rank 0 against the
+    checkpoint it read, bit for bit; the launches and the peak."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import leave_group
+    from repro_torch.runtime import controller
+    from repro_torch.tree import flatten
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, nprocs),
+                            rank=rank, world_size=nprocs)
+    n_steps = EL_RUNS[name][1]
+    kernels = kernel_wrappers()
+    rec = {"rank": rank, "steps": [], "seen": [], "saves": [], "writes": [],
+           "restored": [], "gloo_s": 0.0}
+    stats = {"s": 0.0, "n": 0}
+    Ctl, Ckpt = controller.ClusterController, checkpoint.CheckpointManager
+    saved = [(pipeline.TokenPipeline, "next_batch"),
+             (Ctl, "_build_step_fn"), (Ctl, "_replan"), (Ckpt, "save"),
+             (Ckpt, "save_async"), (Ckpt, "_write")]
+    real = {n: getattr(o, n) for o, n in saved}
+
+    def next_batch(self):
+        b = real["next_batch"](self)
+        rec["seen"].append(b["tokens"].tobytes().hex())
+        return b
+
+    def build(self, plan):
+        fn = real["_build_step_fn"](self, plan)
+
+        def one(i, st):
+            s0 = stats["s"]
+            t0 = time.perf_counter()
+            out = fn(i, st)
+            rec["steps"].append([i, self.losses[-1],
+                                 time.perf_counter() - t0, stats["s"] - s0])
+            return out
+        return one
+
+    def replan(self, kind, hardware):
+        out = real["_replan"](self, kind, hardware)
+        if out is not None:
+            step, plan, state = out
+            whole = (plan.gather_state(state, self.optimizer)
+                     if plan.sharded else state)
+            if dist.get_rank() == 0:
+                t0 = time.perf_counter()
+                files, _ = self.ckpt.restore(step, whole)
+                same = all(torch.equal(a, b) for a, b in
+                           zip(flatten(whole)[1], flatten(files)[1]))
+                rec["restored"].append([step, len(flatten(whole)[1]), same,
+                                        time.perf_counter() - t0])
+        return out
+
+    def save(self, step, tree, *, extra=None):
+        rec["saves"].append(step)
+        if step < n_steps:
+            return real["save"](self, step, tree, extra=extra)
+        self.wait()                     # the final save: collective, unwritten
+        self._gathered(tree)
+        self._sync()
+        return None
+
+    def save_async(self, step, tree, *, extra=None):
+        rec["saves"].append(step)
+        if step < n_steps:
+            return real["save_async"](self, step, tree, extra=extra)
+        self.wait()                     # at the last step: unwritten
+        self._gathered(tree)
+        return None
+
+    def write(self, step, paths, leaves, extra):
+        t0 = time.perf_counter()
+        out = real["_write"](self, step, paths, leaves, extra)
+        rec["writes"].append([step, sum(a.nbytes for a in leaves),
+                              time.perf_counter() - t0])
+        return out
+
+    for (o, n), fn in zip(saved, (next_batch, build, replan, save,
+                                  save_async, write)):
+        setattr(o, n, fn)
+    time_collectives(torch, dist, stats)
+    try:
+        reset_counts(kernels)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = train.main(_el_argv(name, ckpt))
+        rec["seconds"] = time.perf_counter() - t0
+        rec["counts"] = read_counts(kernels)
+        rec["peak"] = torch.cuda.max_memory_allocated()
+        rec["gloo_s"] = stats["s"]
+        rec.update(final_step=out["final_step"], phase=out["phase"],
+                   events=out["events"], losses=out["losses"],
+                   profile={g: {k: p[k] for k in ("observations", "rates",
+                                                  "prior_rates",
+                                                  "error_before",
+                                                  "error_after")}
+                            for g, p in out.get("profile", {}).items()})
+    finally:
+        for (o, n) in saved:
+            setattr(o, n, real[n])
+        leave_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _el_uninterrupted(torch, name: str, depth: str) -> list:
+    """The losses of one process over ``name``'s steps at ``depth`` (no
+    ``--hosts``: the plain driver, the same weights and stream), its final
+    checkpoint unwritten."""
+    from repro_torch.launch import train
+
+    steps = EL_RUNS[name][1]
+    d = tempfile.mkdtemp(prefix="chip_smoke_el_ref_")
+    try:
+        with no_checkpoint_write([]):
+            out = train.main(EL_BASE + ["--steps", str(steps), "--overrides",
+                                        depth, "--save-every", "1000",
+                                        "--ckpt-dir", d])
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out["losses"]
+
+
+def _el_stream(n: int) -> list:
+    """A fresh ``TokenPipeline``'s first ``n`` batches as hex."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataCfg, TokenPipeline
+
+    p = TokenPipeline(DataCfg(global_batch=EL_BATCH, seq_len=EL_SEQ,
+                              vocab=get_config(ARCH).vocab, seed=0),
+                      host_id=0, n_hosts=1)
+    return [p.next_batch()["tokens"].tobytes().hex() for _ in range(n)]
+
+
+def _el_run(torch, name: str) -> list:
+    nprocs = EL_RUNS[name][0]
+    ckpt = tempfile.mkdtemp(prefix=f"chip_smoke_el_{name}_")
+    try:
+        return spawn_ranks(_elastic_rank, name, nprocs, ckpt, timeout=600,
+                           nprocs=nprocs)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def _el_report(name: str, ranks: list, fails: list) -> dict:
+    """Print a scenario's readings and hold its common gates: the events
+    (kinds, steps, hosts) against the reference's replay, DONE at the
+    last step on every rank, every restore bit for bit, the same loss
+    history on every rank, and launches of the training kernels.  Returns
+    the launches summed over the ranks."""
+    r0 = ranks[0]
+    got = [[e["kind"], e.get("step"), e.get("host", e.get("hosts"))]
+           for e in r0["events"]]
+    steps = EL_RUNS[name][1]
+    print(f"[elastic] ({name}) events {got}; phase {r0['phase']} at step "
+          f"{r0['final_step']}", flush=True)
+    if got != EL_EVENTS[name]:
+        fails.append(f"{name}: events {got}, want {EL_EVENTS[name]}")
+    for r in ranks:
+        if (r["phase"], r["final_step"]) != ("DONE", steps):
+            fails.append(f"{name} rank {r['rank']}: {r['phase']} at "
+                         f"{r['final_step']}")
+        if r["losses"] != r0["losses"]:
+            fails.append(f"{name} rank {r['rank']}: another loss history")
+    restores = [x for r in ranks for x in r["restored"]]
+    changes = [e for e in r0["events"]
+               if e["kind"] in ("rebalance", "recalibrate")]
+    if sorted(x[0] for x in restores) != sorted(e["step"] for e in changes) \
+            or not all(x[2] for x in restores):
+        fails.append(f"{name}: restores {restores} for changes at "
+                     f"{[e['step'] for e in changes]}")
+    for e in changes:
+        print(f"[elastic] ({name}) {e['kind']} at step {e['step']} onto "
+              f"{e['strategy']}: downtime {e['downtime_s']:.3f} s = group "
+              f"re-formed {e['regroup_s']:.3f} + search, compile and "
+              f"restore {e['restore_s']:.3f}; before it the drain "
+              f"{e['drain_s']:.3f} s (the accepted event to the segment's "
+              f"end, its final save included where it saved)", flush=True)
+    for x in restores:
+        print(f"[elastic] ({name}) restored step {x[0]}: {x[1]} leaves "
+              f"equal to the checkpoint bit for bit: {x[2]} (read back in "
+              f"{x[3]:.2f} s)", flush=True)
+    writes = [w for r in ranks for w in r["writes"]]
+    for w in writes:
+        print(f"[elastic] ({name}) checkpoint step {w[0]}: "
+              f"{w[1] / 1e9:.3f} GB written in {w[2]:.2f} s "
+              f"({w[1] / 1e9 / max(w[2], 1e-9):.2f} GB/s)", flush=True)
+    # tokens/s of each plan: the steps between changes, each segment's
+    # first step left out
+    bounds = [e["step"] for e in changes]
+    segs, cur, last = [], [], None
+    for i, loss, dt, gloo in r0["steps"]:
+        if last is not None and (i != last + 1 or i in bounds):
+            segs.append(cur)
+            cur = []
+        cur.append((dt, gloo))
+        last = i
+    segs.append(cur)
+    tok = EL_BATCH * EL_SEQ
+    print(f"[elastic] ({name}) launch rank 0, each plan's steps after its "
+          f"first: " + "; ".join(
+              f"median {statistics.median(d for d, _ in s[1:]):.3f} s "
+              f"({tok / statistics.median(d for d, _ in s[1:]):,.1f} "
+              f"tokens/s, gloo {statistics.median(g for _, g in s[1:]):.3f}"
+              f" s)" for s in segs if len(s) > 1), flush=True)
+    print(f"[elastic] ({name}) peaks a rank (GiB) "
+          f"{[round(r['peak'] / 2**30, 2) for r in ranks]}; seconds in "
+          f"main {[round(r['seconds'], 1) for r in ranks]}", flush=True)
+    counts = {k: sum(r["counts"][k] for r in ranks) for k in r0["counts"]}
+    print(f"[elastic] ({name}) launches over the ranks {counts}",
+          flush=True)
+    trained = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "xent_fwd",
+               "xent_bwd")
+    if not all(counts[k] > 0 for k in trained) or any(
+            counts[k] for k in counts if k not in trained):
+        fails.append(f"{name}: launches {counts}")
+    return counts
+
+
+def elastic(torch, kernels) -> dict:
+    """Phase 38: Whale's elastic runtime at tinyllama's full width (2048
+    wide, 32 q over 4 kv heads of 64, d_ff 5632, vocab 32000; random
+    weights from seed 0, AdamW) through ``train --hosts`` on pooled ranks
+    over gloo, 2 x 512 a step, each plan on a generation of the process
+    group of its own: (a) a straggler evicted with a crash retry, 2
+    layers f32, 2 hosts of 1 rank; (b) a spot reclaim drained and the
+    capacity regrown, 1 layer bf16, 2 hosts and a spare rank (2 → 1 → 2
+    ranks over three generations); (c) a missed deadline, the lost steps
+    replayed from the last committed checkpoint; (d) a drift-triggered
+    recalibration.  Gates: each scenario's events against the
+    reference's replay, every restore bit for bit, the stream byte for
+    byte against a fresh ``TokenPipeline`` (replays where they belong),
+    (a)'s final loss within 1e-4 + 1e-4|x| of one process's 12 steps,
+    (b)'s losses within twice bf16's own error of one process's, (c) no
+    save at the abort, (d) a recalibration and no eviction.  Returns the
+    launches of each path summed over its ranks."""
+    t = [time.perf_counter()]
+    fails, counts = [], {}
+    want = _el_stream(max(r[1] for r in EL_RUNS.values()))
+    ref_a = _el_uninterrupted(torch, "evict", EL_RUNS["evict"][2])
+    ref_b = _el_uninterrupted(torch, "spot", EL_RUNS["spot"][2])
+    ref_b32 = _el_uninterrupted(torch, "spot", "n_layers=1,dtype=float32")
+    t.append(time.perf_counter())
+    for name in EL_RUNS:
+        ranks = _el_run(torch, name)
+        counts[f"train_elastic_{name}"] = _el_report(name, ranks, fails)
+        r0 = ranks[0]
+        done = [s for s, *_ in r0["steps"]]
+        if name == "evict":
+            x, y = r0["losses"][-1], ref_a[-1]
+            print(f"[elastic] (evict) final loss {x:.6f} against one "
+                  f"process's 12 steps {y:.6f} (gap {abs(x - y):.3g}, "
+                  f"limit {TP_F32_LIMIT * (1 + abs(y)):.3g}); the crash at "
+                  f"step 9 retried: steps run {done}", flush=True)
+            if not abs(x - y) <= TP_F32_LIMIT * (1 + abs(y)):
+                fails.append(f"evict: final loss {x} against {y}")
+            if r0["seen"] != want[:12]:
+                fails.append("evict: the stream is not a fresh pipeline's")
+        elif name == "spot":
+            own = max(abs(a - b) for a, b in zip(ref_b, ref_b32))
+            gap = max(abs(a - ref_b[s]) for s, a, *_ in r0["steps"])
+            print(f"[elastic] (spot) bf16 losses {[round(v, 5) for v in r0['losses']]} "
+                  f"beside one process's {[round(v, 5) for v in ref_b]}: "
+                  f"worst gap {gap:.4g} against bf16's own error "
+                  f"{own:.4g} (one process's bf16 against its f32; limit "
+                  f"{EL_BF16_PAIR} x)", flush=True)
+            if not gap <= EL_BF16_PAIR * own:
+                fails.append(f"spot: bf16 gap {gap} against {own}")
+            if r0["seen"] != want[:12] or done != list(range(12)):
+                fails.append(f"spot: stream or steps {done}")
+            spare = next(r for r in ranks if r["rank"] == 2)
+            print(f"[elastic] (spot) launch rank 2 (the spare) ran "
+                  f"{len(spare['steps'])} steps: first-fit gave the joining "
+                  f"host the evicted host's rank 1", flush=True)
+        elif name == "lost":
+            lost = EL_EVENTS["lost"][1][1]
+            back = EL_EVENTS["lost"][3][1]
+            n = EL_RUNS["lost"][1]
+            saved = sorted({s for r in ranks for s in r["saves"]})
+            print(f"[elastic] (lost) steps run {done}; saves {saved}",
+                  flush=True)
+            if done != list(range(lost + 1)) + list(range(back, n)):
+                fails.append(f"lost: steps run {done}")
+            if lost + 1 in saved:
+                fails.append(f"lost: a save at the abort ({saved})")
+            if r0["seen"] != want[:lost + 1] + want[back:n]:
+                fails.append("lost: the stream is not exactly once")
+        else:
+            kinds = [e["kind"] for e in r0["events"]]
+            for g, p in r0["profile"].items():
+                print(f"[elastic] (drift) {g}: {p['observations']} "
+                      f"observations; fitted rates {p['rates']} against the "
+                      f"table's {p['prior_rates']}; prediction error "
+                      f"{p['error_before']:.4f} on the table, "
+                      f"{p['error_after']:.4f} after the fit", flush=True)
+            if "recalibrate" not in kinds or "evict" in kinds:
+                fails.append(f"drift: events {kinds}")
+            if r0["seen"] != want[:EL_RUNS["drift"][1]]:
+                fails.append("drift: the stream")
+        t.append(time.perf_counter())
+    parts = ("references", *EL_RUNS)
+    print("[elastic] seconds: " + ", ".join(
+        f"{n} {b - a:.1f}" for n, a, b in zip(parts, t, t[1:])), flush=True)
+    if fails:
+        raise AssertionError("elastic: " + "; ".join(fails))
+    return counts
+
+
 @contextlib.contextmanager
 def phase(name: str):
     t0 = time.perf_counter()
@@ -9921,7 +10260,7 @@ def main() -> None:
     with phase("uneven data parallelism (planned batch shares, 2 ranks)"):
         uneven_counts = uneven_dp(torch)
     torch.cuda.empty_cache()
-    with phase("tensor parallelism (split×2, 8 layers, 2 ranks)"):
+    with phase("tensor parallelism (split×2, 4 layers, 2 ranks)"):
         tp_counts = train_tp(torch)
     torch.cuda.empty_cache()
     with phase("replica×2{split×2} with ZeRO 0/1/3 (4 ranks)"):
@@ -9981,6 +10320,11 @@ def main() -> None:
                "held against the plain versions, the two-tower pipeline "
                "on 2 ranks)"):
         mm_counts = multimodal(torch, kernels)
+    torch.cuda.empty_cache()
+    with phase("Whale's elastic runtime (train --hosts at tinyllama's width: "
+               "a straggler evicted, a spot reclaim drained and regrown, a "
+               "missed deadline, a drift recalibrated; 2 and 3 ranks)"):
+        el_counts = elastic(torch, kernels)
     close_pool()
 
     meta = {
@@ -10040,7 +10384,8 @@ def main() -> None:
                    **{path: c[name] for path, c in jamba_counts.items()},
                    **{path: c[name] for path, c in hybrid_counts.items()},
                    **{path: c[name] for path, c in grok_counts.items()},
-                   **{path: c[name] for path, c in mm_counts.items()}}
+                   **{path: c[name] for path, c in mm_counts.items()},
+                   **{path: c[name] for path, c in el_counts.items()}}
         table.append(dict(name=name, route="cuda", source=meta[name][0],
                           replaces=meta[name][1],
                           launches=sum(by_path.values()),

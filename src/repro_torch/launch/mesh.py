@@ -6,9 +6,20 @@ A mesh is a :class:`torch.distributed.device_mesh.DeviceMesh` whose
 device: ``torchrun`` (or :func:`torch.distributed.init_process_group`) sets
 it up; the drivers make a world of one where neither did
 (:func:`start_world`).
+
+The elastic runtime gives each plan a process group of its own: the
+ranks a run was launched with (:class:`LaunchWorld`, taken over from the
+default group that ``torchrun`` or the caller made) keep the launch
+store, and each membership change forms the next *generation* of the
+default group over a prefix of it (:func:`form_generation`), of exactly
+the ranks of the new plan, numbered in the topology's host order; the
+others wait outside every group (:func:`leave_group`), as
+``torchrun``'s elastic agent re-forms a job's world.  Within a
+generation the world is the mesh, as everywhere else in the port.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 import time
@@ -92,9 +103,75 @@ def end_world(store: str | None) -> None:
     """Undo :func:`start_world` (``None``: it made no group)."""
     if store is None:
         return
-    dist.destroy_process_group()
+    leave_group()
     if store:
         try:
             os.remove(store)
         except FileNotFoundError:
             pass
+
+
+def leave_group() -> None:
+    """Destroy the default process group (if any) once every rank of it
+    has come here: each marks its arrival in the group's store and waits
+    for the others', so that none closes its connections while another
+    still completes a collective or the group's forming over them (gloo
+    fails the peer of a rank that left early)."""
+    if not dist.is_initialized():
+        return
+    from torch.distributed.distributed_c10d import _get_default_store
+    store = _get_default_store()
+    store.set(f"leaving/{dist.get_rank()}", "1")
+    store.wait([f"leaving/{r}" for r in range(dist.get_world_size())])
+    dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# generations of the process group (the elastic runtime)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class LaunchWorld:
+    """The ranks a run was launched with: the store every generation of
+    the process group forms over, this process's launch rank, their
+    count, and the collectives' backend."""
+    store: object
+    rank: int
+    size: int
+    backend: str
+
+
+def launch_world() -> LaunchWorld:
+    """Take over the default process group as the launch world: keep its
+    store, rank, size and backend, and leave the group, so that each plan
+    forms a generation of its own (:func:`form_generation`).  The store
+    must outlive every rank that may leave: ``torchrun``'s agent store, a
+    ``FileStore``, or a ``TCPStore`` that a process outside the job
+    hosts."""
+    if not dist.is_initialized():
+        raise RuntimeError("the elastic runtime needs the default process "
+                           "group (torchrun, or torch.distributed."
+                           "init_process_group) over the launch ranks")
+    from torch.distributed.distributed_c10d import _get_default_store
+    world = LaunchWorld(store=_get_default_store(), rank=dist.get_rank(),
+                        size=dist.get_world_size(),
+                        backend=str(dist.get_backend()))
+    leave_group()
+    return world
+
+
+def form_generation(world: LaunchWorld, k: int, ranks) -> bool:
+    """Leave the current group, then form generation ``k`` of the default
+    group over ``world.store``'s prefix ``gen{k}``: of the launch ranks
+    ``ranks``, in order (``ranks[0]`` becomes rank 0).  Every rank of
+    ``ranks`` must call it with the same ``k``; a rank not in ``ranks``
+    only leaves and returns False.  A rank whose group fails to form
+    raises (the store's timeout), it never goes on alone."""
+    ranks = [int(r) for r in ranks]
+    leave_group()
+    if world.rank not in ranks:
+        return False
+    dist.init_process_group(
+        world.backend, store=dist.PrefixStore(f"gen{k}", world.store),
+        rank=ranks.index(world.rank), world_size=len(ranks))
+    return True

@@ -77,9 +77,25 @@ mamba2 and jamba pipeline too: a stage holds whole pattern repeats
 (jamba's period of 8 blocks), and mamba2's tied table is summed over the
 first and the last stage.  A pod axis beside ``--pp`` and
 ``--compress-pod`` beside a pipeline are refused (the reference's
-pipelined step has no compressed reduction).  The flags of later slices
-(``--hosts``, ``--calibrate`` and the fault injections of the elastic
-runtime) are refused with a message naming the slice.
+pipelined step has no compressed reduction).
+
+Whale's elastic runtime, as the reference's driver runs it: ``--hosts N``
+deals the launch ranks to N simulated hosts of ``--devices-per-host``
+ranks each (default world / N; fewer leave spare ranks for
+``--inject-join``) on the ``--hw`` table and trains through the
+cluster-membership controller (:mod:`repro_torch.runtime.controller`):
+a sustained straggler is flagged and evicted (``--patience``,
+``--straggler-warmup``), a spot-reclaimed host is drained before its
+deadline, a joining host is admitted, and with ``--calibrate`` a
+sustained predicted-vs-measured drift re-fits the cost model's tables
+(``--drift-skew``, ``--drift-patience``); after each (at most
+``--max-rebalances``) the job re-plans on a new generation of the
+process group, restores the committed checkpoint and resumes with
+exactly-once data.  ``--inject-slow``, ``--inject-crash``,
+``--inject-preempt``, ``--inject-join`` and ``--inject-drift`` play the
+reference's fault scenarios on a nominal clock, so every rank takes the
+same decision at the same step; ``--profile`` beside ``--hosts`` records
+and never rebalances.
 
 Processes: under ``torchrun`` each rank reads its rank and the world from
 the environment and uses ``cuda:LOCAL_RANK``; without it, ``--mesh`` of
@@ -147,6 +163,16 @@ Usage::
     python -m repro_torch.launch.train --arch seamless-m4t-medium \
         --batch 4 --seq 2048 --src-seq 1024 --steps 3 --ckpt-dir /path
 
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --smoke --device cpu --steps 12 --batch 8 --seq 64 --hosts 2 \
+        --inject-slow 1:4:5 --straggler-warmup 2 --patience 2 \
+        --save-every 4 --ckpt-dir "$TMPDIR/heal"
+
+    torchrun --standalone --nproc-per-node 3 -m repro_torch.launch.train \
+        --smoke --device cpu --steps 16 --batch 8 --seq 64 --hosts 2 \
+        --devices-per-host 1 --inject-preempt 1:4:2 --inject-join 2:10:1 \
+        --save-every 4 --ckpt-dir "$TMPDIR/spot"
+
     torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
         --arch seamless-m4t-medium --smoke --device cpu --pp 2 \
         --micro-batches 2 --batch 4 --seq 32 --src-seq 24 --steps 3 \
@@ -181,7 +207,12 @@ from repro_torch.launch.mesh import (end_world, make_mesh, mesh_axes,
 from repro_torch.models.lm import Model, param_count
 from repro_torch.optim import grad_compress
 from repro_torch.optim.optimizer import Schedule, adafactor, adamw
+from repro_torch.runtime.controller import (CalibrationConfig,
+                                            ClusterController, ElasticConfig)
+from repro_torch.runtime.elastic import HostTopology
 from repro_torch.runtime.fault_tolerance import FaultTolerantLoop
+from repro_torch.runtime.faults import (CrashStep, DriftHost, FaultInjector,
+                                        JoinHost, SlowHost, SpotPreemption)
 from repro_torch.runtime.profiler import Profiler
 from repro_torch.runtime.straggler import StragglerMonitor
 
@@ -194,9 +225,36 @@ HW_TABLES = {"tpu_v5e": TPU_V5E, "v100": V100_PAPER, "p100": P100_16G,
              "t4": T4_16G, "h100": H100_SXM}
 COMPRESS_PIPE = ("--compress-pod beside a pipeline: the reference's "
                  "pipelined step has no compressed cross-pod reduction")
-ELASTIC_SLICE = ("the elastic runtime (simulated hosts, fault injection, "
-                 "drift-triggered recalibration; ROADMAP.md queue A item 8) "
-                 "comes with a later slice of the port")
+
+
+def _parse_injections(slow: list, crash: list, drift: list = (),
+                      preempt: list = (), join: list = ()) -> tuple:
+    """The ``--inject-*`` flags → fault scenarios, as the reference reads
+    them."""
+    scenarios = []
+    for s in slow or []:
+        host, start, factor = s.split(":")
+        scenarios.append(SlowHost(host=int(host), start_step=int(start),
+                                  factor=float(factor)))
+    for c in crash or []:
+        bits = c.split(":")
+        scenarios.append(CrashStep(step=int(bits[0]),
+                                   times=int(bits[1]) if len(bits) > 1
+                                   else 1))
+    for d in drift or []:
+        host, start, end, factor = d.split(":")
+        scenarios.append(DriftHost(host=int(host), start_step=int(start),
+                                   end_step=int(end), factor=float(factor)))
+    for p in preempt or []:
+        bits = p.split(":")
+        scenarios.append(SpotPreemption(
+            host=int(bits[0]), warn_step=int(bits[1]),
+            deadline_steps=int(bits[2]) if len(bits) > 2 else 2))
+    for j in join or []:
+        host, step, n_dev = j.split(":")
+        scenarios.append(JoinHost(host=int(host), step=int(step),
+                                  n_devices=int(n_dev)))
+    return tuple(scenarios)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -257,24 +315,57 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="record per-step observations against the cost "
                          "model's features and print the fitted "
                          "calibration report at exit")
-    # the elastic runtime's flags, refused until it is ported
-    ap.add_argument("--hosts", type=int, default=0, help=ELASTIC_SLICE)
-    ap.add_argument("--calibrate", action="store_true", help=ELASTIC_SLICE)
-    for flag in ("--inject-slow", "--inject-crash", "--inject-preempt",
-                 "--inject-join"):
-        ap.add_argument(flag, action="append", default=[],
-                        help=ELASTIC_SLICE)
+    # ---- the elastic runtime (the reference's flags) ----
+    ap.add_argument("--hosts", type=int, default=0,
+                    help="simulate N hosts over the launch ranks and run "
+                         "the cluster-membership controller (straggler "
+                         "eviction + rebalance + resume)")
+    ap.add_argument("--inject-slow", action="append", default=[],
+                    metavar="HOST:STEP:FACTOR",
+                    help="fault injection: HOST runs FACTOR× slower from "
+                         "STEP (repeatable)")
+    ap.add_argument("--inject-crash", action="append", default=[],
+                    metavar="STEP[:TIMES]",
+                    help="fault injection: transient step failure at STEP")
+    ap.add_argument("--inject-preempt", action="append", default=[],
+                    metavar="HOST:WARN[:DEADLINE]",
+                    help="spot reclaim: HOST is warned at step WARN and "
+                         "vanishes DEADLINE steps later (default 2; 0 = "
+                         "missed notice, falls back to the last committed "
+                         "checkpoint) (repeatable)")
+    ap.add_argument("--inject-join", action="append", default=[],
+                    metavar="HOST:STEP:NDEV",
+                    help="scale-up / spot re-admission: HOST offers NDEV "
+                         "ranks from STEP on (repeatable; needs spare "
+                         "launch ranks — see --devices-per-host)")
+    ap.add_argument("--devices-per-host", type=int, default=0,
+                    help="ranks each simulated host owns (default: world "
+                         "size / --hosts); set it below that to leave "
+                         "spare ranks for --inject-join")
+    ap.add_argument("--patience", type=int, default=3)
+    ap.add_argument("--straggler-warmup", type=int, default=3)
+    ap.add_argument("--max-rebalances", type=int, default=2)
+    ap.add_argument("--calibrate", action="store_true",
+                    help="drift-triggered continuous rebalancing: compare "
+                         "predicted vs measured step cost and rebalance "
+                         "with the re-fitted ClusterSpec when skew exceeds "
+                         "--drift-skew (needs --hosts)")
+    ap.add_argument("--drift-skew", type=float, default=0.25,
+                    help="relative skew that triggers recalibration")
+    ap.add_argument("--drift-patience", type=int, default=5,
+                    help="sustained skewed steps before recalibrating")
+    ap.add_argument("--inject-drift", action="append", default=[],
+                    metavar="HOST:START:END:FACTOR",
+                    help="fault injection: HOST ramps linearly to FACTOR× "
+                         "slower between START and END (repeatable)")
     return ap.parse_args(argv)
 
 
-def _refuse_later_slices(args) -> None:
-    """Flags of slices not ported yet exit with a message naming them;
-    ``--auto`` with a hand-made layout is refused (the reference ignores
-    the layout under ``--auto``)."""
-    if args.hosts or args.calibrate or args.inject_slow \
-            or args.inject_crash or args.inject_preempt or args.inject_join:
-        raise SystemExit(f"--hosts, --calibrate and --inject-*: "
-                         f"{ELASTIC_SLICE}")
+def _refuse_flags(args) -> None:
+    """Flags that cannot go together exit: ``--auto`` with a hand-made
+    layout (the reference ignores the layout under ``--auto``), a pod
+    axis or ``--compress-pod`` beside a pipeline, and a layout of more
+    ranks than a world outside ``torchrun`` holds."""
     if args.auto and (args.mesh or args.pp > 1):
         raise SystemExit("--auto picks the layout itself: drop --mesh and "
                          "--pp")
@@ -323,12 +414,16 @@ def auto_strategy(graph, world: int, hw, max_pp: int | None = None):
         raise SystemExit(f"--auto: {e}") from None
 
 
-def profile_summary(profiler: Profiler, hw, world: int) -> dict:
-    """The calibration report of ``--profile`` and its numbers: the fitted
-    rates beside the table's, their confidences, and the mean relative
-    prediction error over the observations before and after the fit."""
-    window = profiler.window(hw.name)
-    fitted = profiler.fit_group(hw.name, hw)
+def profile_summary(profiler: Profiler, hw, world: int,
+                    group: str | None = None) -> dict:
+    """The calibration report of ``--profile`` and its numbers for the
+    device group ``group`` (default ``hw.name``, the group of a run without
+    ``--hosts``): the fitted rates beside the table's, their confidences,
+    and the mean relative prediction error over the observations before
+    and after the fit."""
+    group = group or hw.name
+    window = profiler.window(group)
+    fitted = profiler.fit_group(group, hw)
     return {
         "hw": hw.name, "observations": len(window),
         "rates": {p: 1.0 / x for p, x in
@@ -338,7 +433,8 @@ def profile_summary(profiler: Profiler, hw, world: int) -> dict:
         "confidence": dict(fitted.confidence),
         "error_before": prediction_error(window, hw),
         "error_after": prediction_error(window, fitted),
-        "report": profiler.report(ClusterSpec.homogeneous(hw, world)),
+        "report": profiler.report(ClusterSpec.homogeneous(hw, world,
+                                                          name=group)),
     }
 
 
@@ -351,12 +447,112 @@ def main(argv=None) -> dict:
     group; the executed strategy's ``describe()``; its step time on the
     ``--hw`` table; :func:`profile_summary`)."""
     args = parse_args(argv)
-    _refuse_later_slices(args)
+    _refuse_flags(args)
     device, store = _start_world(args, resolve_device(args.device))
     try:
+        if args.hosts > 1:
+            return _train_elastic(args, device)
         return _train(args, device)
     finally:
         end_world(store)
+
+
+def _optimizer(args):
+    sched = Schedule(base_lr=args.lr, warmup=min(100, args.steps // 10 + 1),
+                     decay_steps=args.steps)
+    return (adamw(lr=sched) if args.optimizer == "adamw"
+            else adafactor(lr=sched))
+
+
+def _data_pipeline(args, cfg) -> TokenPipeline:
+    """The global stream: every rank draws the same global batch (one
+    stream, as the reference's) and trains on its rows of it."""
+    dcfg = DataCfg(global_batch=args.batch, seq_len=args.seq,
+                   vocab=cfg.vocab, seed=args.seed)
+    if cfg.family in ("vlm", "encdec"):
+        # the modality stream beside the tokens: patch embeddings for a
+        # vlm, source frames for an encoder–decoder
+        return MultimodalPipeline(
+            dcfg, modality=cfg.family, d_model=cfg.d_model,
+            frontend_len=cfg.frontend_len if cfg.family == "vlm" else 0,
+            src_len=(args.src_seq or args.seq) if cfg.family == "encdec"
+            else 0, host_id=0, n_hosts=1)
+    return TokenPipeline(dcfg, host_id=0, n_hosts=1)
+
+
+def _train_elastic(args, device: torch.device) -> dict:
+    """``--hosts``: the launch ranks dealt to simulated hosts, trained
+    through the :class:`~repro_torch.runtime.controller.ClusterController`
+    as the reference's driver trains them (its checks, words and lines;
+    the hosts' hardware is the ``--hw`` table).  Returns
+    {"final_step", "losses", "events", "phase"}, and where the controller
+    watched its cost model (``--calibrate``, ``--profile``) "profile":
+    each device group's :func:`profile_summary`."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if args.devices_per_host:
+        if args.hosts * args.devices_per_host > n:
+            raise SystemExit(
+                f"--hosts {args.hosts} × --devices-per-host "
+                f"{args.devices_per_host} exceeds the device count ({n})")
+        dph = args.devices_per_host
+    else:
+        if n % args.hosts:
+            raise SystemExit(f"--hosts {args.hosts} must divide the "
+                             f"device count ({n})")
+        dph = n // args.hosts
+    hw = HW_TABLES[args.hw]
+    topology = HostTopology.uniform(args.hosts, dph, hw)
+    scenarios = _parse_injections(args.inject_slow, args.inject_crash,
+                                  args.inject_drift, args.inject_preempt,
+                                  args.inject_join)
+    # nominal clock: injected scenarios play on a fully simulated
+    # timeline, so detection is deterministic regardless of machine load
+    # and the same on every rank (without one the ranks' measured times
+    # are all-gathered each step)
+    injector = (FaultInjector(scenarios=scenarios, n_hosts=args.hosts,
+                              seed=args.seed, nominal=0.05)
+                if scenarios else None)
+    calibration = None
+    if args.calibrate:
+        calibration = CalibrationConfig(
+            skew=args.drift_skew, patience=args.drift_patience,
+            max_rebalances=args.max_rebalances)
+    elif args.profile:
+        # record + report only: never trigger a rebalance
+        calibration = CalibrationConfig(max_rebalances=0)
+    cfg = apply_overrides(get_config(args.arch, smoke=args.smoke),
+                          args.overrides)
+    ctl = ClusterController(
+        Model(cfg, device), cfg, _optimizer(args),
+        _data_pipeline(args, cfg), CheckpointManager(args.ckpt_dir, keep=2),
+        elastic=ElasticConfig(topology=topology, patience=args.patience,
+                              warmup=args.straggler_warmup,
+                              max_rebalances=args.max_rebalances,
+                              calibration=calibration),
+        batch=args.batch, seq=args.seq, save_every=args.save_every,
+        injector=injector, log_every=args.log_every)
+    out = ctl.run(args.steps, seed=args.seed)
+    # the run ends on a group over the launch world: its rank 0 prints
+    log = print if dist.get_rank() == 0 else (lambda *a, **k: None)
+    spec = ctl.topology.cluster_spec()
+    result = {"final_step": out["final_step"], "losses": out["losses"],
+              "events": out["events"], "phase": out["phase"]}
+    if calibration is not None:
+        if args.profile:
+            log(ctl.profiler.report(spec), flush=True)
+        result["profile"] = {
+            g.name: profile_summary(ctl.profiler, g.hw, g.n_devices,
+                                    group=g.name)
+            for g in spec.groups if ctl.profiler.n_obs(g.name)}
+    evictions = [e for e in out["events"] if e["kind"] == "evict"]
+    recals = [e for e in out["events"] if e["kind"] == "recalibrate"]
+    joins = [e for e in out["events"] if e["kind"] == "join"]
+    loss_str = (f", loss {out['losses'][0]:.4f} → {out['losses'][-1]:.4f}"
+                if out["losses"] else " (resumed already complete)")
+    log(f"[done] step {out['final_step']} phase {out['phase']}, "
+        f"{len(evictions)} eviction(s), {len(recals)} recalibration(s), "
+        f"{len(joins)} join(s){loss_str}", flush=True)
+    return result
 
 
 def _train(args, device: torch.device) -> dict:
@@ -455,24 +651,8 @@ def _train(args, device: torch.device) -> dict:
             f"{args.micro_batches or plan.strategy.micro_batches}, "
             f"stage_layers {sl}")
 
-    sched = Schedule(base_lr=args.lr, warmup=min(100, args.steps // 10 + 1),
-                     decay_steps=args.steps)
-    opt = (adamw(lr=sched) if args.optimizer == "adamw"
-           else adafactor(lr=sched))
-    # every rank draws the same global batch (one stream, as the
-    # reference's) and trains on its rows of it
-    dcfg = DataCfg(global_batch=args.batch, seq_len=args.seq,
-                   vocab=cfg.vocab, seed=args.seed)
-    if cfg.family in ("vlm", "encdec"):
-        # the modality stream beside the tokens: patch embeddings for a
-        # vlm, source frames for an encoder–decoder
-        data = MultimodalPipeline(
-            dcfg, modality=cfg.family, d_model=cfg.d_model,
-            frontend_len=cfg.frontend_len if cfg.family == "vlm" else 0,
-            src_len=src_seq if cfg.family == "encdec" else 0,
-            host_id=0, n_hosts=1)
-    else:
-        data = TokenPipeline(dcfg, host_id=0, n_hosts=1)
+    opt = _optimizer(args)
+    data = _data_pipeline(args, cfg)
     # a two-tower pipeline's state is replicated: rank 0's is the whole
     two_towers = pipelined and plan.two_towers
     gather = None

@@ -772,3 +772,59 @@ def test_ef_wrappers_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ef_decode(q2, s, torch.empty_like(x).t())
     assert _ef_counts() == (n0[0], n0[1] + 1, n0[2])
+
+
+def _elastic_rank(rank: int, store: str, ckpt: str, out: str) -> None:
+    """One of two ranks on the card over gloo (NCCL refuses two ranks on
+    one device) running ``train --hosts 2`` with host 1 slowed."""
+    import json
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import leave_group
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    flash.flash_attention.launches = xent.xent_fwd.launches = 0
+    # the kernels take head dims 64, 80, 128 and 256: the smoke's 32 is
+    # raised to 64
+    res = train.main(["--smoke", "--overrides", "head_dim=64", "--steps",
+                      "12", "--batch", "8", "--seq", "64", "--hosts", "2",
+                      "--inject-slow", "1:4:5",
+                      "--straggler-warmup", "2", "--patience", "2",
+                      "--save-every", "4", "--log-every", "4",
+                      "--ckpt-dir", ckpt])
+    res["launches"] = [flash.flash_attention.launches,
+                       xent.xent_fwd.launches]
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump({k: res[k] for k in ("final_step", "phase", "events",
+                                       "losses", "launches")}, f)
+    leave_group()
+
+
+@pytest.mark.gpu
+def test_elastic_eviction_on_the_card(cuda, tmp_path):
+    """The elastic runtime on the card: two ranks on ``cuda:0``, host 1
+    evicted at the reference CLI test's step, the job resumed on host 0
+    through the flash and xent kernels to DONE."""
+    import json
+
+    import torch.multiprocessing as mp
+
+    mp.start_processes(_elastic_rank, args=(
+        str(tmp_path / "store"), str(tmp_path / "ck"), str(tmp_path)),
+        nprocs=2, start_method="spawn")
+    ranks = [json.load(open(tmp_path / f"rank{r}.json")) for r in range(2)]
+    for r in ranks:
+        assert (r["final_step"], r["phase"]) == (12, "DONE")
+        kinds = [(e["kind"], e.get("hosts")) for e in r["events"]]
+        assert ("evict", [1]) in kinds and ("rebalance", None) in kinds
+        assert np.isfinite(r["losses"]).all()
+    assert ranks[0]["losses"] == ranks[1]["losses"]
+    # host 0 trained all 12 steps through the kernels; host 1 until evicted
+    assert ranks[0]["launches"][0] > ranks[1]["launches"][0] > 0
+    assert ranks[0]["launches"][1] > 0

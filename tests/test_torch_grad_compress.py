@@ -756,9 +756,11 @@ def test_train_driver_refuses_later_slices(tmp_path):
     with pytest.raises(SystemExit, match="torchrun"):
         train.main(base + ["--distributed"])
     # --auto is ported, but not beside a hand-made layout; the elastic
-    # runtime's --hosts is refused
-    for extra in (["--auto", "--pp", "2"], ["--hosts", "2"]):
-        with pytest.raises(SystemExit):
+    # runtime's --hosts 2 needs a world of two hosts (the reference's words)
+    for extra, words in ((["--auto", "--pp", "2"], "drop --mesh and --pp"),
+                         (["--hosts", "2"], r"--hosts 2 must divide the "
+                                            r"device count \(1\)")):
+        with pytest.raises(SystemExit, match=words):
             train.main(base + extra)
 
 

@@ -687,10 +687,16 @@ def test_train_driver_refuses_auto_with_a_layout_and_elastic_flags(
     base = SMOKE + ["--steps", "1", "--ckpt-dir", str(tmp_path)]
     for extra, words in ((["--auto", "--pp", "2"], "drop --mesh and --pp"),
                          (["--auto", "--mesh", "1"], "drop --mesh and --pp"),
-                         (["--calibrate"], "elastic runtime"),
-                         (["--hosts", "2"], "elastic runtime"),
-                         (["--inject-slow", "0:1:2.0"], "elastic runtime"),
-                         (["--inject-crash", "1"], "elastic runtime")):
+                         # the reference's words: a world of one holds no
+                         # two hosts
+                         (["--hosts", "2"], r"--hosts 2 must divide the "
+                                            r"device count \(1\)")):
         with pytest.raises(SystemExit, match=words):
             train.main(base + extra)
     assert not any(tmp_path.iterdir())
+    # without --hosts the reference trains and ignores the elastic flags
+    for i, extra in enumerate((["--calibrate"], ["--inject-slow", "0:1:2.0"],
+                               ["--inject-crash", "1"])):
+        out = train.main(SMOKE + ["--steps", "1", "--ckpt-dir",
+                                  str(tmp_path / str(i))] + extra)
+        assert out["final_step"] == 1 and np.isfinite(out["losses"][0])
