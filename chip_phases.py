@@ -26,16 +26,16 @@ import sys
 
 #: the phases it runs: 3 (the kernel rows of the attention and the loss
 #: head: ``check_flash``, ``check_paged``, ``check_flash_bwd``,
-#: ``check_xent``), 19 (``pipeline_interpreter``), 24
-#: (``train_hybrid_zero``), 26 (``serve_tp``), 29
+#: ``check_xent``), 11 (``train_full``), 19 (``pipeline_interpreter``),
+#: 24 (``train_hybrid_zero``), 26 (``serve_tp``), 29
 #: (``compressed_blocks``), 30 (``mamba2_train``), 31 (``mamba2_split``),
 #: 32 (``moe_engine``), 33 (``dense_rest``), 34 (``jamba``), 35
 #: (``hybrid_engine``), 36 (``grok``; its part (d) runs in 24), 37
 #: (``multimodal``) and 38 (``elastic``), the same functions in every
 #: checkout since they were added (a checkout without one reports that
 #: phase failed)
-PHASES = ("3", "19", "24", "26", "29", "30", "31", "32", "33", "34", "35",
-          "36", "37", "38")
+PHASES = ("3", "11", "19", "24", "26", "29", "30", "31", "32", "33", "34",
+          "35", "36", "37", "38")
 
 CHILD = r"""
 import json, sys, time, traceback
@@ -57,6 +57,8 @@ for ph in sys.argv[1:]:
             cs.check_flash_bwd(torch, timer)
             cs.check_xent(torch, timer)
             del timer
+        elif ph == "11":
+            cs.train_full(torch, kernels)
         elif ph == "19":
             cs.pipeline_interpreter(torch, kernels)
         elif ph == "24":

@@ -83,8 +83,7 @@ and the script exits non-zero without printing a result:
 11. the training path: ``repro_torch.launch.train`` training tinyllama-1.1b
     at full width (batch 4 x 2048, AdamW, remat full) for 8 steps, with
     every kernel's launch count read around it: finite, falling loss,
-    tokens/s, peak device memory (its final checkpoint not written: phase
-    38 times checkpoint writes);
+    tokens/s, peak device memory, the final checkpoint's write time;
 12. training on the card against the CPU: a 2-layer f32 model's loss, every
     gradient leaf and the parameters after one AdamW step, within 1e-4;
 13. resume on the card: 4 steps straight against 2 steps, then a relaunch
@@ -98,8 +97,8 @@ and the script exits non-zero without printing a result:
     launch count read around it (each of the three fused encode kernels
     once per gradient leaf and step, quantize and dequantize never); then
     the same 8 steps with ``--mesh 1x1x1``
-    alone (both final checkpoints gathered, not written: phase 38 times
-    checkpoint writes), for the cost of the compression (at 4 steps the driver's
+    alone (both final checkpoints gathered, not written: phase 11 times
+    the full-width write), for the cost of the compression (at 4 steps the driver's
     schedule, warm-up 1 and cosine over 4, lifts step 3's loss above step
     0's with or without compression);
 16. where the compression's time goes: ``compressed_psum_tree`` over
@@ -195,7 +194,7 @@ and the script exits non-zero without printing a result:
 24. Whale's Case-2 hybrid ``replica×2{split×2}`` with ZeRO 0, 1 and 3 on
     four ranks on ``cuda:0`` over gloo, tinyllama at full width and 1
     layer (ZeRO-3's per-repeat gathers cross host memory), batch 2 x
-    512 (one row a replica), 2 steps each: zero=1 equal to zero=0 bit
+    1024 (one row a replica), 2 steps each: zero=1 equal to zero=0 bit
     for bit (losses, and its state gathered into the checkpoint's layout
     in memory against zero=0's gathered checkpoint tree: only zero=0's
     and zero=3's are written), zero=3 within 1e-4 + 1e-4|x| in losses
@@ -297,8 +296,7 @@ and the script exits non-zero without printing a result:
     two ranks at deepseek's block shape in f32 against ``moe_block``;
 29. the compressed cross-pod reduction on blocks of leaves, four ranks on
     ``cuda:0`` over gloo, tinyllama at full width and 1 layer: at pod 2
-    x data 2 (batch 4 x 512, a row a rank)
-    compressed ZeRO 0, 1 and 3
+    x data 2 (batch 4 x 1024, a row a rank) compressed ZeRO 0, 1 and 3
     for 2 steps each, ZeRO-1 and ZeRO-3 equal to ZeRO-0 bit for bit
     (losses, the handed step-0 gradients, the gathered parameters,
     moments and error carry), the three encode kernels once per leaf and
@@ -458,7 +456,7 @@ and the script exits non-zero without printing a result:
     leaf against one process, each rank's launches, peak, step and gloo
     seconds;
 38. Whale's elastic runtime: ``repro_torch.launch.train --hosts`` at
-    tinyllama's full width on pooled ranks over gloo, 2 x 512 a step,
+    tinyllama's full width on pooled ranks over gloo, 2 x 1024 a step,
     each plan on a generation of the process group of its own: (a) a
     straggler evicted with a crash retry (2 layers f32, 2 hosts of 1
     rank, 12 steps); (b) a spot reclaim drained and the capacity regrown
@@ -1822,21 +1820,41 @@ def train_expected(layers: int, steps: int, vp: int,
 
 def train_full(torch, kernels) -> dict:
     """The training path: the driver at full width, with the launch counts
-    read around it; its final checkpoint is neither copied to the host
-    nor written (phase 38 times checkpoint writes)."""
+    read around it and the final checkpoint's write timed."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
     from repro_torch.configs import get_config
     from repro_torch.launch import train
 
     cfg = get_config(ARCH)
+    need = 3 * 4 * 1.2e9                    # params + mu + nu in f32
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    written = []
     try:
+        free = shutil.disk_usage(tmp).free
+        if free < 1.2 * need:
+            raise RuntimeError(
+                f"{tmp} has {free / 1e9:.1f} GB free; the full-width "
+                f"checkpoint (params, mu, nu in f32) needs about "
+                f"{need / 1e9:.1f} GB: set TMPDIR to a larger disk")
+        saves = []
+        save = CheckpointManager.save
+
+        def timed_save(self, *a, **kw):
+            t0 = time.perf_counter()
+            out = save(self, *a, **kw)
+            saves.append(time.perf_counter() - t0)
+            return out
+
+        CheckpointManager.save = timed_save
         torch.cuda.reset_peak_memory_stats()
         reset_counts(kernels)
-        with no_checkpoint_write(written):
+        try:
             out = train.main(TRAIN_ARGS + ["--ckpt-dir", tmp])
+        finally:
+            CheckpointManager.save = save
         counts = read_counts(kernels)
         peak = torch.cuda.max_memory_allocated()
+        ckpt_bytes = sum(f.stat().st_size for f in os.scandir(
+            os.path.join(tmp, f"step_{TRAIN_STEPS:08d}")))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     losses, secs = out["losses"], out["step_seconds"]
@@ -1848,8 +1866,8 @@ def train_full(torch, kernels) -> dict:
     print(f"[train] step seconds {[round(x, 3) for x in secs]}; steps 1-"
           f"{len(secs) - 1}: {sum(secs[1:]) / (len(secs) - 1):.3f} s/step = "
           f"{tok_s:.1f} tokens/s; peak device memory "
-          f"{peak / 2**30:.2f} GiB; saves at steps {written}, not "
-          f"written; launches {counts}", flush=True)
+          f"{peak / 2**30:.2f} GiB; final checkpoint {ckpt_bytes / 1e9:.2f} "
+          f"GB written in {saves[-1]:.2f} s; launches {counts}", flush=True)
     if out["final_step"] != TRAIN_STEPS or len(losses) != TRAIN_STEPS:
         raise AssertionError(f"training stopped at {out['final_step']}")
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
@@ -2008,7 +2026,7 @@ def train_compressed(torch, kernels) -> tuple:
     """The driver with ``--mesh 1x1x1 --compress-pod`` at full width, then
     with ``--mesh 1x1x1`` alone, each with the launch counts and peak
     device memory read around it; neither final checkpoint is copied to
-    the host or written (phase 38 times checkpoint writes).  Returns the
+    the host or written (phase 11 times the full-width write).  Returns the
     compressed run's counts and the uncompressed run's."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train
@@ -3420,7 +3438,7 @@ TP_LATER_LIMIT = 2e-2           # |loss diff| at steps 1-2 (PERF.md, PR 22)
 TP_F32_LIMIT = 1e-4
 ZERO_LAYERS = 1                 # phase 24: depth cut (gloo through host)
 ZERO_BATCH = 2                  # one row a data replica
-ZERO_SEQ = 512                  # phase 24's sequence (cut to save time)
+ZERO_SEQ = 1024                 # phase 24's sequence (cut to save time)
 ZERO_STEPS = 2
 ZERO_STAGES = (0, 1, 3)
 
@@ -5922,7 +5940,7 @@ def moe_split(torch) -> dict:
 # phase 29: the compressed cross-pod reduction over model shards and ZeRO
 # ---------------------------------------------------------------------------
 
-CB_SEQ = 512                    # phase 29: tinyllama's width, one layer
+CB_SEQ = 1024                   # phase 29: tinyllama's width, one layer
 CB_STEPS = 2                    # step 1 carries step 0's error
 CB_ZEROS = (0, 1, 3)
 CB_MAX_FLIPS = 0.01             # int8 flips allowed against the yardstick
@@ -9756,7 +9774,7 @@ def multimodal(torch, kernels) -> dict:
 
 #: phase 38: Whale's elastic runtime at tinyllama's full width through
 #: ``train --hosts`` on pooled ranks over gloo (the depth and steps cut)
-EL_BATCH, EL_SEQ = 2, 512
+EL_BATCH, EL_SEQ = 2, 1024
 EL_BASE = ["--arch", ARCH, "--batch", str(EL_BATCH), "--seq", str(EL_SEQ),
            "--log-every", "1", "--seed", "0"]
 #: scenario: (ranks, steps, depth and dtype, the elastic flags)

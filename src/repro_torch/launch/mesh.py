@@ -103,7 +103,11 @@ def end_world(store: str | None) -> None:
     """Undo :func:`start_world` (``None``: it made no group)."""
     if store is None:
         return
-    leave_group()
+    # at once, also when an error propagates: a rank that raised must not
+    # wait for peers blocked in a collective with it (the elastic driver
+    # leaves its last group with :func:`leave_group` on a normal exit)
+    if dist.is_initialized():
+        dist.destroy_process_group()
     if store:
         try:
             os.remove(store)

@@ -201,9 +201,9 @@ from repro_torch.core.schedule import SCHEDULE_NAMES
 from repro_torch.data.pipeline import (DataCfg, MultimodalPipeline,
                                        TokenPipeline)
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import (end_world, make_mesh, mesh_axes,
-                                     mesh_shape, parse_mesh, start_world,
-                                     under_torchrun)
+from repro_torch.launch.mesh import (end_world, leave_group, make_mesh,
+                                     mesh_axes, mesh_shape, parse_mesh,
+                                     start_world, under_torchrun)
 from repro_torch.models.lm import Model, param_count
 from repro_torch.optim import grad_compress
 from repro_torch.optim.optimizer import Schedule, adafactor, adamw
@@ -552,6 +552,9 @@ def _train_elastic(args, device: torch.device) -> dict:
     log(f"[done] step {out['final_step']} phase {out['phase']}, "
         f"{len(evictions)} eviction(s), {len(recals)} recalibration(s), "
         f"{len(joins)} join(s){loss_str}", flush=True)
+    # the last generation may still be forming on a peer: leave it only
+    # when every rank has come here (gloo fails the peer of an early leaver)
+    leave_group()
     return result
 
 

@@ -402,9 +402,25 @@ class ElasticConfig:
 
 #: the ticket kinds a rank outside the plan may be handed
 ADMIT, FINISHED, ABANDONED = "admit", "finished", "abandoned"
-#: how long a rank waits outside the plan for its ticket (the process
-#: group's default timeout)
-WAIT_OUTSIDE = timedelta(minutes=30)
+#: a rank outside the plan waits for its ticket in slices of this long,
+#: with no deadline: a spare may wait for the whole run.  A run that fails
+#: on its members hands it ABANDONED; a member that dies outright takes
+#: the job down (``torchrun``'s agent stops every worker).
+WAIT_SLICE = timedelta(seconds=30)
+
+
+def wait_for_key(store, key: str) -> None:
+    """Block until ``key`` is set in ``store``, however long that takes:
+    wait in slices of :data:`WAIT_SLICE`, and after a slice that ran out
+    (``DistStoreError``, or a ``RuntimeError`` from a ``FileStore``) ask
+    the store again; a store that can no longer answer raises."""
+    while True:
+        try:
+            store.wait([key], WAIT_SLICE)
+            return
+        except RuntimeError:
+            if store.check([key]):
+                return
 
 
 class ClusterController:
@@ -764,27 +780,6 @@ class ClusterController:
         return step, plan, state
 
     # ------------------------------------- ranks outside the plan (tickets)
-    def _injector_state(self):
-        """The injector's one-shot bookkeeping by scenario index (its own
-        keys are object ids, which differ between processes)."""
-        inj = self.injector
-        if inj is None:
-            return None
-        idx = {id(s): n for n, s in enumerate(inj.scenarios)}
-        return {"crash": {idx[k]: v for k, v in inj._crash_budget.items()},
-                "preempted": sorted(idx[k] for k in inj._preempted),
-                "fired": sorted((kind, idx[k])
-                                for kind, k in inj._membership_fired)}
-
-    def _load_injector(self, st) -> None:
-        inj = self.injector
-        if inj is None or st is None:
-            return
-        ids = [id(s) for s in inj.scenarios]
-        inj._crash_budget = {ids[n]: v for n, v in st["crash"].items()}
-        inj._preempted = {ids[n] for n in st["preempted"]}
-        inj._membership_fired = {(kind, ids[n]) for kind, n in st["fired"]}
-
     def _send(self, ranks: list, what: str, **kw) -> None:
         """Hand each launch rank of ``ranks`` (waiting outside the plan) a
         ticket: ``what`` and the controller's state, the one every member
@@ -804,7 +799,8 @@ class ClusterController:
             "recalibrations": self._recalibrations,
             "evicted": set(self.aggregator.evicted),
             "tickets": dict(self._tickets),
-            "injector": self._injector_state(), **kw})
+            "injector": (self.injector.state_dict()
+                         if self.injector is not None else None), **kw})
         if dist.get_rank() == 0:
             for key in keys:
                 self.world.store.set(key, snap)
@@ -813,7 +809,7 @@ class ClusterController:
         """Block, outside every group, until this rank is handed a ticket
         (:meth:`_send`); take the controller's state from it."""
         key = f"ticket/{self.world.rank}/{self._tickets.get(self.world.rank, 0)}"
-        self.world.store.wait([key], WAIT_OUTSIDE)
+        wait_for_key(self.world.store, key)
         t = pickle.loads(self.world.store.get(key))
         self._generation = t["generation"]
         self.topology = t["topology"]
@@ -823,7 +819,8 @@ class ClusterController:
         self._recalibrations = t["recalibrations"]
         self.aggregator.evicted = set(t["evicted"])
         self._tickets = t["tickets"]
-        self._load_injector(t["injector"])
+        if self.injector is not None:
+            self.injector.load_state_dict(t["injector"])
         self._final_step = t.get("final_step")
         return t
 

@@ -224,6 +224,25 @@ class FaultInjector:
                 self._preempted.add(id(s))
                 os.kill(os.getpid(), signal.SIGTERM)
 
+    # --- the one-shot marks, across processes ---
+    def state_dict(self) -> dict:
+        """The crash budgets and one-shot marks by scenario index (the
+        marks' own keys are object ids, which differ between processes):
+        what another process's injector over the same scenarios needs to
+        play on from here (:meth:`load_state_dict`)."""
+        idx = {id(s): n for n, s in enumerate(self.scenarios)}
+        return {"crash": {idx[k]: v for k, v in self._crash_budget.items()},
+                "preempted": sorted(idx[k] for k in self._preempted),
+                "fired": sorted((kind, idx[k])
+                                for kind, k in self._membership_fired)}
+
+    def load_state_dict(self, state: dict) -> None:
+        ids = [id(s) for s in self.scenarios]
+        self._crash_budget = {ids[n]: v for n, v in state["crash"].items()}
+        self._preempted = {ids[n] for n in state["preempted"]}
+        self._membership_fired = {(kind, ids[n])
+                                  for kind, n in state["fired"]}
+
 
 @dataclasses.dataclass
 class SimClock:

@@ -32,6 +32,7 @@ import os
 import subprocess
 import sys
 import time
+from datetime import timedelta
 from types import SimpleNamespace
 from unittest import mock
 
@@ -404,13 +405,15 @@ def _controller(name: str, out_dir: str, injector=True):
             **ekw),
         batch=B, seq=T, save_every=save, injector=inj, log_every=100,
         verbose=False)
-    rec = {"steps": [], "restored": []}
+    rec = {"steps": [], "restored": [], "waits": []}
     real_build, real_replan = c._build_step_fn, c._replan
 
     def build(plan):
         fn = real_build(plan)
 
         def one(i, st):
+            if name == "scale_up" and i < SPARE_HELD_STEPS:
+                time.sleep(SPARE_HELD_S)    # the spares wait for seconds
             out = fn(i, st)
             rec["steps"].append([i, c.losses[-1]])
             return out
@@ -433,7 +436,17 @@ def _controller(name: str, out_dir: str, injector=True):
                          zip(flatten(whole)[1], flatten(files)[1]))])
         return out
 
+    real_wait = c._wait_outside
+
+    def wait_outside():
+        """A wait outside the plan, timed."""
+        t0 = time.monotonic()
+        out = real_wait()
+        rec["waits"].append(time.monotonic() - t0)
+        return out
+
     c._build_step_fn, c._replan = build, replan
+    c._wait_outside = wait_outside
     return c, rec
 
 
@@ -455,8 +468,17 @@ def _run_case(name: str, out_dir: str) -> dict:
     return res
 
 
+#: the slice a rank outside the plan waits in, cut so that the waits in
+#: the spawn run through several (a ``FileStore`` times out on whole
+#: seconds); the scale-up's members take at least SPARE_HELD_S a step
+#: before the join, so its spares wait for seconds
+WAIT_SLICE = timedelta(milliseconds=50)
+SPARE_HELD_STEPS, SPARE_HELD_S = 5, 0.5
+
+
 def _rank_main(rank: int, store: str, out_dir: str) -> None:
     torch.set_num_threads(1)
+    ctl.WAIT_SLICE = WAIT_SLICE
     dist.init_process_group("gloo", store=dist.FileStore(store, WORLD),
                             rank=rank, world_size=WORLD)
     res = {name: _run_case(name, out_dir) for name in CASES}
@@ -755,6 +777,47 @@ def test_restores_equal_their_checkpoint(name, ranks, ref_runs):
     assert all(ok and n > 0 for _, n, ok in restores), restores
     if name == "evict_host0":
         assert ranks[2][name]["writer"] == 0 and ranks[2][name]["restored"]
+
+
+def test_spares_wait_past_their_slice_and_are_admitted(ranks):
+    """A rank outside the plan waits with no deadline: the scale-up's
+    spares (launch ranks 2 and 3) wait through slices of
+    :data:`WAIT_SLICE` that run out (two at least: the ``FileStore``
+    rounds a slice up to a second) and are still admitted, and train to
+    the end."""
+    n = CASES["scale_up"][2]
+    for r in (2, 3):
+        got = ranks[r]["scale_up"]
+        assert got["waits"] and got["waits"][0] > 2.0, (r, got["waits"])
+        assert got["steps"] and got["steps"][-1][0] == n - 1, r
+        assert got["final_step"] == n
+
+
+@pytest.mark.parametrize("kind", ["hash", "file", "tcp"])
+def test_wait_for_key_has_no_deadline(kind, tmp_path, monkeypatch):
+    """``wait_for_key`` outlasts any number of slices that run out, on
+    each kind of store a launch world has (a ``FileStore`` times out with
+    a plain ``RuntimeError``, the others with ``DistStoreError``), and
+    returns once the key is set."""
+    import threading
+    monkeypatch.setattr(ctl, "WAIT_SLICE", timedelta(milliseconds=100))
+    if kind == "hash":
+        store = dist.HashStore()
+    elif kind == "file":
+        store = dist.FileStore(str(tmp_path / "store"), 1)
+    else:
+        store = dist.PrefixStore("gen0", dist.TCPStore(
+            "127.0.0.1", 0, 1, is_master=True, wait_for_workers=False))
+    delay = 2.5 if kind == "file" else 1.0
+    timer = threading.Timer(delay, lambda: store.set("ticket/2/0", "x"))
+    timer.start()
+    t0 = time.monotonic()
+    try:
+        ctl.wait_for_key(store, "ticket/2/0")
+    finally:
+        timer.cancel()
+    assert time.monotonic() - t0 >= delay - 0.05
+    assert store.get("ticket/2/0") == b"x"
 
 
 # ---------------------------------------------------------------------------
