@@ -10056,7 +10056,7 @@ def elastic(torch, kernels) -> dict:
     """Phase 38: Whale's elastic runtime at tinyllama's full width (2048
     wide, 32 q over 4 kv heads of 64, d_ff 5632, vocab 32000; random
     weights from seed 0, AdamW) through ``train --hosts`` on pooled ranks
-    over gloo, 2 x 512 a step, each plan on a generation of the process
+    over gloo, 2 x 1024 a step, each plan on a generation of the process
     group of its own: (a) a straggler evicted with a crash retry, 2
     layers f32, 2 hosts of 1 rank; (b) a spot reclaim drained and the
     capacity regrown, 1 layer bf16, 2 hosts and a spare rank (2 → 1 → 2
